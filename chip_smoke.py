@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of speaker_recognition_tpu_torch: builds the CUDA kernels,
-holds each against its plain torch version, drives batched predict through
-the CLI on the committed fixture session, and times the kernels.
+holds each against its plain torch version, drives batched predict, then
+enrollment and open-set serial scoring through the entry points, and times
+the kernels and the paths.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,10 +13,19 @@ raises and the exit code is non-zero):
      short one; 16 kHz and 22.05 kHz batches; 64 mel filters
   3. bank-scoring kernel vs plain: the 4 x 32 bench bank over 512
      utterances; an 80 x 256 bank over 8
-  4. the slice: `cli -t predict` on the fixture wavs, scores_batch against
+  4. slice 1: `cli -t predict` on the fixture wavs, scores_batch against
      the JAX package's scores, both kernels' launch counts
   5. timing (CUDA events, median of 7 trials): end-to-end predict_scores at
      the bench geometry, each kernel and its plain version
+  6. serial kernel vs plain: the bench bank + UBM on one 5 s utterance, an
+     80 x 256 bank + UBM on 3 s, a 150 s clip, the underflow floor, no
+     valid frame, one speaker
+  7. slice 2: `cli -t enroll` then `cli -t predict` on CUDA at the default
+     config; the same EM from one init on CUDA f32 against CPU f64
+  8. the open set: train_ubm, adapt_speakers, calibrate_rejection and
+     predict_one_with_rejection on CUDA; launch counts of phases 7-8
+  9. timing: the serial kernel and its plain version, predict_with_rejection
+     of one 5 s utterance, ModelInterface.train of three speakers
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -32,6 +42,7 @@ import sys
 import tempfile
 
 import numpy as np
+import scipy.io.wavfile as wavfile
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
@@ -43,13 +54,18 @@ from speaker_recognition_tpu_torch.api import fastpath  # noqa: E402
 from speaker_recognition_tpu_torch.api.interface import (  # noqa: E402
     ModelInterface)
 from speaker_recognition_tpu_torch.config import (  # noqa: E402
-    FeatureConfig, MfccConfig, n_frames)
+    FeatureConfig, GmmConfig, MfccConfig, n_frames)
+from speaker_recognition_tpu_torch.features import extract  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     PackedFrontend)
+from speaker_recognition_tpu_torch.models import gmm  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
+from speaker_recognition_tpu_torch.models.gmmset import (  # noqa: E402
+    GMMSet, _pad_frames_bucket, _pad_stack)
 from speaker_recognition_tpu_torch.ops import (  # noqa: E402
     gpu_frontend, gpu_gmm)
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
+from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
 
 BENCH_B, BENCH_FS, BENCH_SEC = 512, 8000, 5.0
 LENGTH_BUCKET = 4096
@@ -68,6 +84,14 @@ SCORE_RTOL = 1e-4
 # Against the JAX package's CPU scores (different frontend arithmetic on
 # another device): the fixture's agreement on the CPU is ~3e-5.
 SLICE_RTOL = 1e-3
+# Serial kernel vs plain: per-frame sums of the same products in another
+# order, then a sum over frames in chunks; ~4e-7 relative measured.
+SERIAL_RTOL = 1e-4
+# 20 EM iterations of GMM-32 in f32 on the card against f64 on the CPU
+# from one init: f32 vs f64 on the CPU drifts by up to 8e-5 absolute on
+# means and sigmas (O(1)) and 1.2e-6 on weights; 1e-3 leaves 12x margin.
+EM_ATOL = 1e-3
+UBM_ITERATIONS = 100
 
 
 def smi() -> str:
@@ -170,6 +194,48 @@ def time_ms(fn, trials=7, reps=3) -> float:
     return float(np.median(times))
 
 
+def check_serial(name, bank, x, mask, floor=False):
+    """Serial kernel vs plain on one utterance, averages and sums, with a
+    bit-equal rerun; returns the max abs error of the averages."""
+    before = gpu_gmm.SERIAL_LAUNCHES
+    got = gpu_gmm.bank_avg_loglik(bank, x, mask)
+    want = gpu_gmm.bank_avg_loglik_reference(bank, x, mask)
+    sums = gpu_gmm.bank_sum_loglik(bank, x, mask)
+    want_sums = gpu_gmm.bank_sum_loglik_reference(bank, x, mask)
+    again = gpu_gmm.bank_avg_loglik(bank, x, mask)
+    torch.cuda.synchronize()
+    launched = gpu_gmm.SERIAL_LAUNCHES - before
+    d = (got - want).abs()
+    rel = (d / want.abs().clamp_min(1e-30)).max().item()
+    rel_sum = ((sums - want_sums).abs()
+               / want_sums.abs().clamp_min(1e-30)).max().item()
+    # the floor makes every speaker tie; elsewhere the winner must agree
+    ties = want.unique().numel() < want.numel()
+    same = ties or int(got.argmax()) == int(want.argmax())
+    print(f"phase 6 {name}: S {bank.n_speakers} K {bank.n_mixtures} frames "
+          f"{int(mask.sum())}/{mask.numel()} max|d| {d.max().item():.3e} "
+          f"max rel {rel:.3e} (sums {rel_sum:.3e}; tol {SERIAL_RTOL}) "
+          f"argmax identical {same} rerun bit-equal "
+          f"{torch.equal(got, again)} launches {launched}", flush=True)
+    if (not torch.isfinite(got).all() or rel > SERIAL_RTOL
+            or rel_sum > SERIAL_RTOL or not same or launched != 3
+            or not torch.equal(got, again)):
+        raise AssertionError(f"{name}: serial kernel disagrees with plain")
+    if floor and not torch.allclose(
+            want, torch.full_like(want, np.log(1e-15)), rtol=1e-5):
+        raise AssertionError(f"{name}: the underflow floor was not hit")
+    if not int(mask.sum()) and (got != 0).any():
+        raise AssertionError(f"{name}: no valid frame must score 0")
+    return d.max().item()
+
+
+def utterance(feats, n_valid, dev):
+    """The first n_valid frames of [T, d] features, bucketed as
+    GMMSet._scores pads them: ([Tp, d], [Tp] mask) on dev."""
+    x, m = _pad_frames_bucket(feats[:n_valid].cpu().numpy())
+    return torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -237,7 +303,6 @@ def main(argv=None):
     # 4. the slice through the entry points, on the fixture session
     exp = synth.expected()
     utts = synth.fixture_utterances(exp)
-    import scipy.io.wavfile as wavfile
     with tempfile.TemporaryDirectory() as tmp:
         for i, (u, sig) in enumerate(zip(exp["utterances"], utts)):
             wavfile.write(os.path.join(tmp, f"{i:02d}_{u['label']}.wav"),
@@ -295,6 +360,146 @@ def main(argv=None):
     print(f"phase 5 [{card}] gmm kernel 80 x 256 bank, B=8: "
           f"{t['gmm_ubm']:.3f} ms, plain {t['gmm_ubm_plain']:.3f} ms")
 
+    # 6. serial kernel vs plain, at the serial path's shapes
+    err_serial = 0.0
+    serial_banks = {"bench": random_bank(rng, 5, 32, d, dev,
+                                         uniform_weights=True),
+                    "ubm": random_bank(rng, 81, 256, d, dev)}
+    x5, m5 = utterance(feats[0], int(mask[0].sum()), dev)  # 311 of 512
+    s3, l3 = signals_batch(rng, [3 * BENCH_FS], padded(3 * BENCH_FS), dev)
+    f3, k3 = fe8(s3, l3)
+    x3, m3 = utterance(f3[0], int(k3[0].sum()), dev)
+    lf, lm = fe8(long_sig, long_len)
+    x150, m150 = utterance(lf[0], int(lm[0].sum()), dev)
+    for name, bank, x, m, fl in (
+            ("bench bank 4 x 32 + UBM, 5 s", serial_banks["bench"], x5, m5,
+             False),
+            ("80 x 256 bank + UBM, 3 s", serial_banks["ubm"], x3, m3, False),
+            ("bench bank + UBM, 150 s clip", serial_banks["bench"], x150,
+             m150, False),
+            ("underflow floor (features x 300)", serial_banks["bench"],
+             x5 * 300.0, m5, True),
+            ("no valid frame", serial_banks["bench"], x5,
+             torch.zeros_like(m5), False),
+            ("one speaker", random_bank(rng, 1, 32, d, dev), x5, m5, False)):
+        err_serial = max(err_serial, check_serial(name, bank, x, m, fl))
+
+    # 7. slice 2: enroll then predict through the CLI on the card
+    train_sigs = {label: [synth.synth_utterance(label, sec, base + i)
+                          for sec, base in synth.TRAIN]
+                  for i, label in enumerate(synth.SPEAKER_FREQS)}
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = synth.write_training_wavs(tmp)
+        test_dir = os.path.join(tmp, "test")
+        os.makedirs(test_dir)
+        for i, (u, sig) in enumerate(zip(exp["utterances"], utts)):
+            wavfile.write(os.path.join(test_dir, f"{i:02d}_{u['label']}.wav"),
+                          exp["fs"], sig)
+        model = os.path.join(tmp, "enrolled.out")
+        gpu_frontend.LAUNCHES = 0
+        gpu_gmm.LAUNCHES = 0
+        gpu_gmm.SERIAL_LAUNCHES = 0
+        enroll_out, predict_out = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(enroll_out):
+            cli.main(["-t", "enroll", "-i", " ".join(dirs), "-m", model,
+                      "--device", "cuda"])
+        with contextlib.redirect_stdout(predict_out):
+            cli.main(["-t", "predict", "-i", os.path.join(test_dir, "*.wav"),
+                      "-m", model, "--device", "cuda"])
+        enrolled = ModelInterface.load(model, device=dev)
+    labels2 = [ln.rpartition(" -> ")[2]
+               for ln in predict_out.getvalue().strip().splitlines()]
+    print(f"phase 7 enroll: {enroll_out.getvalue().count('File ')} wavs, "
+          f"speakers {enrolled.gmmset.y}, bank "
+          f"{tuple(enrolled.gmmset.params.means.shape)}", flush=True)
+    print(f"phase 7 cli predicted {labels2}", flush=True)
+    if labels2 != truth or enrolled.gmmset.y != list(synth.SPEAKER_FREQS):
+        raise AssertionError(f"enrolled cli labels {labels2} != {truth}")
+    # the same EM from one init: CUDA float32 against CPU float64
+    train_feats = {label: [extract.mix_feature(synth.FS, sig, device=dev)
+                           for sig in sigs]
+                   for label, sigs in train_sigs.items()}
+    Xs, ms = _pad_stack([np.concatenate(f) for f in train_feats.values()])
+    X64, mk = torch.from_numpy(Xs), torch.from_numpy(ms)
+    em_cfg = GmmConfig(n_iterations=20, threshold=0.0)
+    p0 = gmm.init_params(X64, mk, em_cfg.n_mixtures, seed=0)
+    want_p, want_ll = gmm.fit_from_params(X64, mk, p0, em_cfg)
+    got_p, got_ll = gmm.fit_from_params(
+        X64.to(dev, torch.float32), mk.to(dev),
+        gmm.params_to(p0, torch.float32, dev), em_cfg)
+    em_err = {f: float((g.double().cpu() - w).abs().max())
+              for f, g, w in zip(gmm.GmmParams._fields, got_p, want_p)}
+    ll_rel = float(((got_ll.double().cpu() - want_ll) / want_ll).abs().max())
+    print(f"phase 7 EM 20 iterations, GMM-32 x 3 speakers, CUDA f32 vs CPU "
+          f"f64: max|d| {em_err} (tol {EM_ATOL}); log-likelihood max rel "
+          f"{ll_rel:.3e}", flush=True)
+    if max(em_err.values()) > EM_ATOL or ll_rel > 1e-4:
+        raise AssertionError("CUDA EM disagrees with the CPU float64 EM")
+
+    # 8. the open set on the card
+    ubm = ubm_tools.train_ubm(
+        [f for fl in train_feats.values() for f in fl], n_mixtures=32,
+        n_iterations=UBM_ITERATIONS, device=dev)
+    enrolled_labels, adapted = ubm_tools.adapt_speakers(
+        ubm, {label: np.concatenate(train_feats[label])
+              for label in ("alice", "bob")}, device=dev)
+    gs = GMMSet.from_state(
+        {"labels": enrolled_labels, "weights": adapted.weights,
+         "means": adapted.means, "sigmas": adapted.sigmas,
+         "reject_threshold": 10.0, "ubm_weights": ubm.weights,
+         "ubm_means": ubm.means, "ubm_sigmas": ubm.sigmas}, device=dev)
+    feature = lambda label, sec, seed: extract.mix_feature(  # noqa: E731
+        synth.FS, synth.synth_utterance(label, sec, seed), device=dev)
+    dev_genuine = [feature(label, 2.0, 950 + j) for j, label in
+                   enumerate(["alice", "bob", "alice", "bob"])]
+    dev_imposter = [feature("carol", 2.0, 960 + j) for j in range(4)]
+    op = gs.calibrate_rejection(dev_genuine, dev_imposter)
+    decisions = [gs.predict_one_with_rejection(feature(label, 3.0, seed))
+                 for label, seed in (("alice", 970), ("carol", 971))]
+    n_serial = len(dev_genuine) + len(dev_imposter) + len(decisions)
+    launches2 = {"frontend": gpu_frontend.LAUNCHES, "gmm": gpu_gmm.LAUNCHES,
+                 "serial": gpu_gmm.SERIAL_LAUNCHES}
+    print(f"phase 8 UBM GMM-32 ({UBM_ITERATIONS} iterations) + MAP "
+          f"{enrolled_labels}: threshold {op['threshold']:.4f} EER "
+          f"{op['eer']:.3f}; held-out alice -> {decisions[0]}, carol -> "
+          f"{decisions[1]}", flush=True)
+    print(f"phase 8 launches over phases 7-8: {launches2} ({n_serial} "
+          f"serial decisions)", flush=True)
+    if decisions != ["alice", None]:
+        raise AssertionError(f"open-set decisions {decisions}")
+    if launches2["serial"] < n_serial or launches2["frontend"] < 1:
+        raise AssertionError(f"slice 2 missed a kernel: {launches2}")
+
+    # 9. timing of the serial kernel and of the slice's paths
+    sb, ub = serial_banks["bench"], serial_banks["ubm"]
+    t["serial"] = time_ms(lambda: gpu_gmm.bank_avg_loglik(sb, x5, m5))
+    t["serial_plain"] = time_ms(
+        lambda: gpu_gmm.bank_avg_loglik_reference(sb, x5, m5))
+    t["serial_ubm"] = time_ms(lambda: gpu_gmm.bank_avg_loglik(ub, x3, m3))
+    t["serial_ubm_plain"] = time_ms(
+        lambda: gpu_gmm.bank_avg_loglik_reference(ub, x3, m3))
+    server = ModelInterface(device=dev)
+    server.gmmset = gs
+    sig5 = synth.synth_utterance("alice", 5.0, 980)
+    t["reject"] = time_ms(lambda: server.predict_with_rejection(synth.FS,
+                                                                sig5),
+                          reps=1)
+    trainer = ModelInterface(device=dev)
+    for label, sigs in train_sigs.items():
+        for sig in sigs:
+            trainer.enroll(label, synth.FS, sig)
+    t["train"] = time_ms(trainer.train, reps=1)
+    tl = trainer.gmmset.train_log
+    print(f"phase 9 [{card}] serial kernel, bench bank + UBM, 5 s: "
+          f"{t['serial']:.4f} ms, plain {t['serial_plain']:.4f} ms")
+    print(f"phase 9 [{card}] serial kernel, 80 x 256 + UBM, 3 s: "
+          f"{t['serial_ubm']:.4f} ms, plain {t['serial_ubm_plain']:.4f} ms")
+    print(f"phase 9 [{card}] predict_with_rejection, one 5 s utterance: "
+          f"{t['reject']:.3f} ms")
+    print(f"phase 9 [{card}] ModelInterface.train, 3 speakers x 12 s, "
+          f"GMM-32: {t['train']:.3f} ms, {tl['iterations']} iterations, "
+          f"{tl['host_syncs']} host syncs", flush=True)
+
     print(card)
     print(json.dumps({"kernels": [
         {"name": "packed_frontend", "route": "cuda",
@@ -307,6 +512,11 @@ def main(argv=None):
          "replaces": "speaker_recognition_tpu/ops/pallas_gmm.py:154",
          "launches": launches["gmm"], "max_abs_err": err_gmm,
          "ms": t["gmm"], "plain_ms": t["gmm_plain"]},
+        {"name": "bank_sum_loglik", "route": "cuda",
+         "source": "speaker_recognition_tpu_torch/csrc/gmm_serial.cu",
+         "replaces": "speaker_recognition_tpu/ops/pallas_gmm.py:47",
+         "launches": launches2["serial"], "max_abs_err": err_serial,
+         "ms": t["serial"], "plain_ms": t["serial_plain"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of speaker_recognition_tpu's batched predict path.
+"""PyTorch + CUDA port of speaker_recognition_tpu: batched predict,
+enrollment (EM, UBM, MAP) and open-set serial scoring.
 
 The JAX package beside this one is the reference: same configs, same
 session artifact, same scores. On CUDA tensors the frontend and the bank

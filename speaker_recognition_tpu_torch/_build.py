@@ -1,10 +1,11 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) at first use.
 
-All sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes. The library lands in `_build/` beside this
-file, named by a hash of the sources and flags, so an unchanged checkout
-builds once and a changed source rebuilds. A missing nvcc or a failed
-build raises: there is no other path to the kernels.
+Each source compiles with its own nvcc process, all started together, and
+the objects link into one shared library with a plain C interface, loaded
+with ctypes. The library lands in `_build/` beside this file, named by a
+hash of the sources and flags, so an unchanged checkout builds once and a
+changed source rebuilds. A missing nvcc or a failed build raises: there is
+no other path to the kernels.
 """
 
 from __future__ import annotations
@@ -24,8 +25,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # No --use_fast_math: it may fold isfinite() away and swaps logf for
 # __logf; the frontend relies on both (see csrc/frontend.cu).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -64,6 +66,14 @@ def _bind(lib):
     lib.srt_bank_avg_loglik.restype = i
     lib.srt_gmm_smem_bytes.argtypes = [i, i]
     lib.srt_gmm_smem_bytes.restype = i
+    lib.srt_bank_sum_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.srt_bank_sum_loglik.restype = i
+    lib.srt_serial_row.argtypes = [i]
+    lib.srt_serial_row.restype = i
+    lib.srt_serial_smem_bytes.argtypes = [i, i]
+    lib.srt_serial_smem_bytes.restype = i
+    lib.srt_serial_chunks.argtypes = [i]
+    lib.srt_serial_chunks.restype = i
     lib.srt_error_string.argtypes = [i]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib
@@ -86,21 +96,41 @@ def load():
         build_seconds = 0.0
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
             t0 = time.perf_counter()
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                                  capture_output=True, text=True)
-            build_seconds = time.perf_counter() - t0
-            with open(build_log, "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr[-4000:]}")
-            os.replace(tmp, path)  # atomic: concurrent builds agree
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                log = _compile_and_link(srcs, tmp, os.path.join(tmp, name))
+                build_seconds = time.perf_counter() - t0
+                with open(build_log, "w") as f:
+                    f.write(log)
+                # atomic: concurrent builds agree
+                os.replace(os.path.join(tmp, name), path)
         _lib = _bind(ctypes.CDLL(path))
         return _lib
+
+
+def _compile_and_link(srcs: list[str], tmp: str, out: str) -> str:
+    """nvcc -c for every source at once, then one link into `out`; returns
+    nvcc's combined output (ptxas -v lines included) or raises."""
+    nvcc = _nvcc()
+    objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(srcs, objs)]
+    outs = [p.communicate()[0] for p in procs]  # waits for every process
+    log = "".join(f"== {s}\n{o}" for s, o in zip(srcs, outs))
+    failed = [(s, p.returncode, o) for s, p, o in zip(srcs, procs, outs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{s} ({rc}):\n{o[-4000:]}" for s, rc, o in failed))
+    link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", out, *objs],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                           f"{link.stderr[-4000:]}")
+    return log
 
 
 def check_tensor(t, name: str, dtype, ndim: int, device):

@@ -1,14 +1,18 @@
-"""Session API for serving (src/gui/interface.py:28-109).
+"""Session API (src/gui/interface.py:28-109), as in
+speaker_recognition_tpu/api/interface.py.
 
-ModelInterface loads a session artifact (written by either package) and
-predicts batches of utterances through api/fastpath on one device. The
-batch is padded to a power-of-two bucket of at least 8 utterances and the
-samples to a multiple of features/extract.LENGTH_BUCKET, as in
-speaker_recognition_tpu/api/interface.py; padding rows score as invalid
-and are dropped. Enrollment, training and VAD are not ported yet.
+ModelInterface accumulates per-speaker features (enroll), trains a GMMSet
+bank in one batched EM (train), predicts batches of utterances through
+api/fastpath, decides single utterances against the UBM
+(predict_with_rejection) and reads and writes the session artifact, all on
+one device. A batch is padded to a power-of-two bucket of at least 8
+utterances and the samples to a multiple of features/extract.LENGTH_BUCKET;
+padding rows score as invalid and are dropped. VAD is not ported yet.
 """
 
 from __future__ import annotations
+
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -23,14 +27,49 @@ __all__ = ["ModelInterface"]
 
 
 class ModelInterface:
+    UBM_MODEL_FILE: str | None = None  # interface.py:30 semantics
+
     def __init__(self, config: PipelineConfig | None = None,
                  device: torch.device | str = "cuda"):
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
-        self.gmmset = GMMSet(reject_threshold=self.config.reject_threshold,
-                             device=self.device)
+        self.features: dict[str, list] = defaultdict(list)
+        self.gmmset = self._new_gmmset()
         # VAD calibration of a loaded session, written back by dump()
         self.vad_state: dict | None = None
+
+    def _new_gmmset(self) -> GMMSet:
+        ubm = None
+        if self.UBM_MODEL_FILE:
+            with open(self.UBM_MODEL_FILE) as f:
+                ubm = serialization.load_reference_gmm(f)
+        return GMMSet(gmm_order=self.config.gmm.n_mixtures, ubm=ubm,
+                      reject_threshold=self.config.reject_threshold,
+                      config=self.config.gmm, dtype=self.config.dtype,
+                      device=self.device)
+
+    def _feature(self, fs: int, signal) -> np.ndarray:
+        return extract.mix_feature(fs, np.asarray(signal),
+                                   self.config.features,
+                                   dtype=self.config.dtype,
+                                   device=self.device)
+
+    # -- enroll / train ----------------------------------------------------
+
+    def enroll(self, name: str, fs: int, signal):
+        """Extract features and append them to the speaker's pool
+        (interface.py:55-61)."""
+        self.features[name].append(self._feature(fs, signal))
+
+    def train(self, seed: int = 0):
+        """Fit every enrolled speaker in one batched EM (interface.py:77-83
+        fits them one by one)."""
+        self.gmmset = self._new_gmmset()
+        for name, feats in self.features.items():
+            self.gmmset.fit_new(np.concatenate(feats, axis=0), name)
+        self.gmmset.train(seed=seed)
+
+    # -- predict -----------------------------------------------------------
 
     def _require_trained(self, what: str):
         if self.gmmset.bank is None:
@@ -44,6 +83,23 @@ class ModelInterface:
         if extract.signal_too_short(fs, self.config.features, len(signal)):
             return None
         return self.predict_batch(fs, [signal])[0]
+
+    def predict_with_rejection(self, fs: int, signal):
+        """Open-set label of one utterance, or None when the UBM explains
+        it within reject_threshold (GMMSet.predict_one_with_rejection)."""
+        self._require_trained("predict_with_rejection")
+        return self.gmmset.predict_one_with_rejection(
+            self._feature(fs, signal))
+
+    def calibrate_rejection(self, fs: int, genuine_signals, imposter_signals,
+                            target: str = "eer", max_far: float = 0.05):
+        """Set the open-set threshold from development audio
+        (GMMSet.calibrate_rejection); it persists with the session."""
+        self._require_trained("calibrate_rejection")
+        return self.gmmset.calibrate_rejection(
+            [self._feature(fs, s) for s in genuine_signals],
+            [self._feature(fs, s) for s in imposter_signals],
+            target=target, max_far=max_far)
 
     def predict_batch(self, fs: int, signals) -> list:
         """Labels of many utterances in input order; None for an utterance
@@ -84,6 +140,20 @@ class ModelInterface:
         valid = lengths >= flen + self.config.features.n_deltas * fshift
         return scores.cpu().numpy()[:n_real], valid[:n_real]
 
+    def warmup(self, fs: int, durations=(1.5, 3.0, 5.0), batch_sizes=(1,)):
+        """Build the kernels and the frontend operators of `fs` before the
+        first request, by predicting silent-but-for-a-click signals of the
+        given durations and batch sizes. Requires a trained bank."""
+        self._require_trained("warmup")
+        for b in batch_sizes:
+            for dur in durations:
+                n = int(fs * dur)
+                sig = np.zeros(n, np.float32)
+                sig[: min(n, 2048)] = 1.0  # non-silent, deterministic
+                self.predict_batch(fs, [sig] * max(int(b), 1))
+
+    # -- persistence -------------------------------------------------------
+
     def dump(self, fname: str):
         """Write the session artifact (the npz of save_session)."""
         serialization.save_session(fname, gmmset_state=self.gmmset.state(),
@@ -95,6 +165,7 @@ class ModelInterface:
              device: torch.device | str = "cuda") -> "ModelInterface":
         st, config, vad_state = serialization.load_session(fname)
         m = ModelInterface(config, device)
-        m.gmmset = GMMSet.from_state(st, device=m.device)
+        m.gmmset = GMMSet.from_state(st, config=config.gmm,
+                                     dtype=config.dtype, device=m.device)
         m.vad_state = vad_state
         return m

@@ -1,18 +1,22 @@
 """Command-line tool with the flags of src/speaker-recognition.py.
 
+    python -m speaker_recognition_tpu_torch.cli -t enroll \\
+        -i "./bob/ ./mary/" -m model.out [--device cuda]
     python -m speaker_recognition_tpu_torch.cli -t predict -i "./*.wav" \\
         -m model.out [--device cuda]
 
-prints "<file> -> <label>" per input (speaker-recognition.py:85-90),
-scoring all files in one batched program. Enrollment is not ported yet:
-enroll with speaker_recognition_tpu, whose session artifact this tool
-reads.
+enroll labels the wavs of each input directory with the directory's
+basename, trains the bank and writes the session artifact
+(speaker-recognition.py:52-83); predict prints "<file> -> <label>" per
+input (speaker-recognition.py:85-90), scoring all files in one batched
+program. The artifact is the one speaker_recognition_tpu reads and writes.
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import itertools
 import os
 import sys
 
@@ -31,8 +35,48 @@ def get_args(argv=None):
     parser.add_argument('-m', '--model', required=True,
                         help='Model file to save(in enroll) or use(in predict)')
     parser.add_argument('--device', default='cuda',
-                        help='torch device to predict on (default: cuda)')
+                        help='torch device to run on (default: cuda)')
     return parser.parse_args(argv)
+
+
+def task_enroll(input_dirs: str, output_model: str, device: str = "cuda"):
+    """Mirrors speaker-recognition.py:52-83: glob dirs, label = dir
+    basename, enroll every contained wav, train, dump."""
+    from .api.interface import ModelInterface
+
+    m = ModelInterface(device=device)
+    patterns = [os.path.expanduser(k) for k in input_dirs.strip().split()]
+    dirs = itertools.chain(*(glob.glob(d) for d in patterns))
+    dirs = [d for d in dirs if os.path.isdir(d)]
+    if len(dirs) == 0:
+        print("No valid directory found!")
+        sys.exit(1)
+    training_stats = []
+    for d in dirs:
+        label = os.path.basename(d.rstrip('/'))
+        wavs = glob.glob(d + '/*.wav')
+        if len(wavs) == 0:
+            print(f"No wav file found in {d}")
+            continue
+        print(f"Label '{label}' has files: {', '.join(wavs)}")
+        total_len = 0
+        for wav in wavs:
+            fs, signal = read_wav(wav)
+            print(f"   File '{wav}' has frequency={fs} and "
+                  f"length={len(signal)}")
+            total_len += len(signal)
+            m.enroll(label, fs, signal)
+        training_stats.append((label, total_len))
+    print("--------------------------------------------")
+    if not training_stats:
+        print("No wav files found in any input directory!")
+        sys.exit(1)
+    for label, total_len in training_stats:
+        print(f"Total length of training data for '{label}' is {total_len}")
+    print("For best accuracy, please make sure all labels have similar "
+          "amount of training data!")
+    m.train()
+    m.dump(output_model)
 
 
 def task_predict(input_files: str, input_model: str, device: str = "cuda"):
@@ -59,8 +103,7 @@ def task_predict(input_files: str, input_model: str, device: str = "cuda"):
 def main(argv=None):
     args = get_args(argv)
     if args.task == 'enroll':
-        print("enroll is not ported yet; enroll with speaker_recognition_tpu")
-        sys.exit(1)
+        task_enroll(args.input, args.model, args.device)
     elif args.task == 'predict':
         task_predict(args.input, args.model, args.device)
     else:

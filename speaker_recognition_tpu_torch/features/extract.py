@@ -22,12 +22,14 @@ from torch import nn
 
 from speaker_recognition_tpu.ops import frontend as operators
 
-from ..config import FeatureConfig, frame_geometry, n_frames
+from ..config import (FeatureConfig, LpcConfig, MfccConfig, frame_geometry,
+                      n_frames)
 from ..ops import framing, gpu_frontend
 from ..ops.gpu_frontend import masked_cmvn
 
 __all__ = ["LENGTH_BUCKET", "PackedFrontend", "apply_deltas", "extract_batch",
-           "masked_cmvn", "packed_frontend", "signal_too_short"]
+           "lpc_extract", "masked_cmvn", "mfcc_extract", "mix_feature",
+           "packed_frontend", "signal_too_short"]
 
 # Signals are zero-padded to a multiple of this many samples.
 LENGTH_BUCKET = 4096
@@ -147,3 +149,50 @@ def extract_batch(signals: torch.Tensor, lengths: torch.Tensor, fs: int,
                   cfg: FeatureConfig = FeatureConfig()):
     """Features for a zero-padded batch: [B, L] -> ([B, T, d], [B, T] mask)."""
     return packed_frontend(int(fs), cfg, signals.device)(signals, lengths)
+
+
+def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),
+                dtype: str = "float32",
+                device: torch.device | str = "cpu") -> np.ndarray:
+    """One utterance's concat(MFCC, LPC) per frame, [T - n_deltas, d] numpy
+    (src/feature/__init__.py:25-30). Int or float PCM; multi-channel input
+    is averaged (MFCC.py:52-54). The signal is padded to LENGTH_BUCKET in
+    float32 and runs through the packed frontend on `device`."""
+    if dtype != "float32":
+        raise NotImplementedError(
+            f"dtype {dtype!r}: the port extracts features in float32 only")
+    signal = np.asarray(signal, dtype=np.float64)
+    if signal.ndim > 1:
+        signal = signal.mean(axis=1)
+    if signal_too_short(fs, cfg, len(signal)):
+        raise ValueError("Signal too short!")  # MFCC.py:56
+    mf = cfg.mfcc
+    T = n_frames(len(signal), *frame_geometry(fs, mf.win_length_ms,
+                                              mf.win_shift_ms))
+    padded = np.zeros((1, -(-len(signal) // LENGTH_BUCKET) * LENGTH_BUCKET),
+                      np.float32)
+    padded[0, :len(signal)] = signal
+    device = torch.device(device)
+    feat, _ = extract_batch(torch.from_numpy(padded).to(device),
+                            torch.tensor([len(signal)], device=device), fs,
+                            cfg)
+    return feat[0, :T - cfg.n_deltas].cpu().numpy()
+
+
+def mfcc_extract(fs: int, signal, cfg: MfccConfig = MfccConfig(),
+                 dtype: str = "float32",
+                 device: torch.device | str = "cpu") -> np.ndarray:
+    """MFCC only (src/feature/MFCC.py:extract)."""
+    return mix_feature(fs, signal, FeatureConfig(mfcc=cfg, use_lpc=False),
+                       dtype, device)
+
+
+def lpc_extract(fs: int, signal, cfg: LpcConfig = LpcConfig(),
+                dtype: str = "float32",
+                device: torch.device | str = "cpu") -> np.ndarray:
+    """LPC only (src/feature/LPC.py:extract)."""
+    fcfg = FeatureConfig(
+        mfcc=MfccConfig(win_length_ms=cfg.win_length_ms,
+                        win_shift_ms=cfg.win_shift_ms, pre_emph=cfg.pre_emph),
+        lpc=cfg, use_lpc=True)
+    return mix_feature(fs, signal, fcfg, dtype, device)[:, fcfg.mfcc.n_ceps:]

@@ -1,26 +1,39 @@
-"""Diagonal-covariance GMM speaker bank: parameters and batched scoring.
+"""Diagonal-covariance GMM: EM training, MAP adaptation and bank scoring.
 
-Mirrors the serving half of speaker_recognition_tpu/models/gmm.py. The
-per-frame, per-component joint log-density of a bank is one product
+Mirrors speaker_recognition_tpu/models/gmm.py. Training functions take a
+leading speaker axis written out where the JAX package vmaps: frames
+X [S, T, d], mask [S, T], parameters weights [S, K], means/sigmas
+[S, K, d]; they run in the dtype of X (float64 on the CPU for the oracle,
+float32 on the card). The density is two matmuls over all frames,
+
+    logp[t, k] = x_t^2 @ A[:, k] + x_t @ B[:, k] + c[k] + log w_k,
+
+and the E-step statistics three more; the M-step carries the reference's
+floors (N_k = 0 -> 1e-6, sigma >= sqrt(min_covar)) and the convergence
+check runs on the summed log-likelihood on odd iterations (gmm.cc:614-652).
+
+For scoring, a bank folds into one operator
 
     logp[t, (s,k)] = [x_t^2 | x_t] @ op + cw,
     op = [-1/(2 sigma^2) | mu/sigma^2]^T,
     cw = -1/2 sum_d mu^2/sigma^2 - sum_d log(sqrt(2 pi) sigma) + log w,
 
 followed by a per-speaker logsumexp over the K components, the reference's
-underflow floor (gmm.cc:482-492) and a masked per-utterance mean.
-`GmmBank` holds (op, cw) on a device; `batch_bank_avg_loglik` here is the
-plain torch version that ops/gpu_gmm's kernel is held to.
+underflow floor (gmm.cc:482-492) and a masked sum or mean. `GmmBank` holds
+(op, cw) on a device; `batch_bank_avg_loglik` and `bank_sum_loglik` here
+are the plain torch versions that ops/gpu_gmm's kernels are held to.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..config import GmmConfig
 
 LOG_SQRT_2_PI = 0.5 * math.log(2.0 * math.pi)
 # log-space equivalent of the reference's linear-space 1e-15 floor, which
@@ -29,8 +42,8 @@ _UNDERFLOW_LOG = -745.0
 
 
 class GmmParams(NamedTuple):
-    """weights [..., K], means [..., K, d], sigmas [..., K, d] (numpy);
-    leading axes, if any, are a speaker bank."""
+    """weights [..., K], means [..., K, d], sigmas [..., K, d], as numpy
+    arrays or torch tensors; leading axes, if any, are a speaker bank."""
 
     weights: np.ndarray
     means: np.ndarray
@@ -79,22 +92,45 @@ class GmmBank(nn.Module):
         self.register_buffer("cw", cw.contiguous())
         self.n_speakers = n_speakers
         self.n_mixtures = n_mixtures
+        self._serial: torch.Tensor | None = None
 
     @property
     def dim(self) -> int:
         return self.op.shape[0] // 2
 
+    def serial_operator(self, row: int) -> torch.Tensor:
+        """(op, cw) component by component, [S, K, row]: the d quadratic
+        terms zero-padded to dp = (row - 4)/2, the d linear terms likewise,
+        then cw and zeros. The serial kernel's layout (csrc/gmm_serial.cu),
+        built once per bank."""
+        if self._serial is None or self._serial.shape[-1] != row:
+            d, dp = self.dim, (row - 4) // 2
+            comp = self.op.new_zeros((self.n_speakers * self.n_mixtures, row))
+            comp[:, :d] = self.op[:d].T
+            comp[:, dp:dp + d] = self.op[d:].T
+            comp[:, 2 * dp] = self.cw
+            self._serial = comp.reshape(self.n_speakers, self.n_mixtures, row)
+        return self._serial
+
     @classmethod
-    def from_numpy(cls, weights, means, sigmas,
-                   device: torch.device | str) -> "GmmBank":
+    def from_numpy(cls, weights, means, sigmas, device: torch.device | str,
+                   dtype: torch.dtype = torch.float32) -> "GmmBank":
         """From a bank's arrays (weights [S, K], means/sigmas [S, K, d]),
-        e.g. the GmmParams of either package's session."""
+        e.g. the GmmParams of either package's session. The kernels take
+        float32 only; float64 serves the CPU's plain versions."""
         params = GmmParams(np.asarray(weights), np.asarray(means),
                            np.asarray(sigmas))
         S, K = params.weights.shape
         op, cw = bank_operators(params)
-        to = dict(dtype=torch.float32, device=device)
+        to = dict(dtype=dtype, device=device)
         return cls(torch.as_tensor(op, **to), torch.as_tensor(cw, **to), S, K)
+
+
+def _floored_lse(logp: torch.Tensor, min_prob_sum: float) -> torch.Tensor:
+    """logsumexp over the last axis with the reference's underflow floor."""
+    lse = torch.logsumexp(logp, dim=-1)
+    return torch.where(lse > _UNDERFLOW_LOG, lse,
+                       torch.full_like(lse, math.log(min_prob_sum)))
 
 
 def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
@@ -106,9 +142,249 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
     S, K = bank.n_speakers, bank.n_mixtures
     Z = torch.cat([feats * feats, feats], dim=-1).reshape(B * T, 2 * d)
     logp = Z @ bank.op + bank.cw
-    lse = torch.logsumexp(logp.reshape(B, T, S, K), dim=-1)
-    lse = torch.where(lse > _UNDERFLOW_LOG, lse,
-                      torch.full_like(lse, math.log(min_prob_sum)))
+    lse = _floored_lse(logp.reshape(B, T, S, K), min_prob_sum)
     m = mask.to(feats.dtype)
     n = torch.clamp_min(m.sum(dim=-1), 1.0)
     return torch.einsum("bts,bt->bs", lse, m) / n[:, None]
+
+
+def bank_sum_loglik(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
+                    min_prob_sum: float = 1e-15) -> torch.Tensor:
+    """One utterance X [n, d] with mask [n] against the bank -> [S] sums of
+    floored per-frame log-likelihoods over the valid frames, plain torch."""
+    n, d = X.shape
+    Z = torch.cat([X * X, X], dim=-1)
+    logp = Z @ bank.op + bank.cw
+    lse = _floored_lse(logp.reshape(n, bank.n_speakers, bank.n_mixtures),
+                       min_prob_sum)
+    return mask.to(X.dtype) @ lse
+
+
+def bank_avg_loglik(bank: GmmBank, X: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """[S] per-frame average log-likelihoods of one utterance: the quantity
+    GMMSet ranks speakers by (src/gui/skgmm.py:33-39: sum/len)."""
+    n = torch.clamp_min(mask.to(X.dtype).sum(), 1.0)
+    return bank_sum_loglik(bank, X, mask) / n
+
+
+# --- EM training ------------------------------------------------------------
+
+def log_gaussians(X: torch.Tensor, means: torch.Tensor,
+                  sigmas: torch.Tensor) -> torch.Tensor:
+    """Per-frame per-component Gaussian log-density as two matmuls:
+    X [..., n, d], means/sigmas [..., K, d] -> [..., n, K]
+    (Gaussian::log_probability_of, gmm.cc:78-99)."""
+    inv_var = 1.0 / (sigmas * sigmas)
+    A = (-0.5 * inv_var).transpose(-1, -2)
+    B = (means * inv_var).transpose(-1, -2)
+    c = (-0.5 * torch.sum(means * means * inv_var, dim=-1)
+         - torch.sum(LOG_SQRT_2_PI + torch.log(sigmas), dim=-1))
+    return (X * X) @ A + X @ B + c.unsqueeze(-2)
+
+
+def log_joint(params: GmmParams, X: torch.Tensor) -> torch.Tensor:
+    """log(w_k N(x_t; mu_k, sigma_k)): [..., n, K]."""
+    return (log_gaussians(X, params.means, params.sigmas)
+            + torch.log(params.weights).unsqueeze(-2))
+
+
+def per_frame_loglik(params: GmmParams, X: torch.Tensor,
+                     min_prob_sum: float = 1e-15) -> torch.Tensor:
+    """log p(x_t) per frame, [..., n], with the reference's 1e-15 floor
+    where the linear-space sum underflows (gmm.cc:229-244, 482-492)."""
+    return _floored_lse(log_joint(params, X), min_prob_sum)
+
+
+def responsibilities(params: GmmParams, X: torch.Tensor) -> torch.Tensor:
+    """Posterior gamma[..., t, k] = p(k | x_t), the E-step of
+    gmm.cc:439-495, as a stable softmax over the joint log-density."""
+    return torch.softmax(log_joint(params, X), dim=-1)
+
+
+class EmStats(NamedTuple):
+    """Masked sufficient statistics per speaker."""
+
+    n: torch.Tensor      # [...]        valid frames
+    N_k: torch.Tensor    # [..., K]
+    F_k: torch.Tensor    # [..., K, d]  gamma^T x
+    S_k: torch.Tensor    # [..., K, d]  gamma^T x^2
+
+
+def sufficient_stats(params: GmmParams, X: torch.Tensor,
+                     mask: torch.Tensor) -> EmStats:
+    """E-step statistics over the valid frames of a padded batch."""
+    gamma = responsibilities(params, X) * mask.unsqueeze(-1).to(X.dtype)
+    gT = gamma.transpose(-1, -2)
+    return EmStats(n=mask.to(X.dtype).sum(dim=-1), N_k=gamma.sum(dim=-2),
+                   F_k=gT @ X, S_k=gT @ (X * X))
+
+
+def m_step(stats: EmStats, cfg: GmmConfig) -> GmmParams:
+    """Closed-form M-step with the reference's floors (gmm.cc:396-437,
+    502-513)."""
+    N_k = torch.where(stats.N_k == 0, torch.full_like(stats.N_k, cfg.min_nk),
+                      stats.N_k)
+    w = N_k / stats.n.unsqueeze(-1)
+    w = w / w.sum(dim=-1, keepdim=True)
+    means = stats.F_k / N_k.unsqueeze(-1)
+    var = stats.S_k / N_k.unsqueeze(-1) - means * means
+    sigmas = torch.clamp_min(torch.sqrt(torch.clamp_min(var, 0.0)),
+                             cfg.min_sigma)
+    return GmmParams(w, means, sigmas)
+
+
+def map_m_step(stats: EmStats, ubm: GmmParams, cfg: GmmConfig) -> GmmParams:
+    """MAP mean re-estimation, weights and sigmas pinned to the UBM:
+    alpha_k = N_k/(N_k + r), mean_k = alpha_k E_k[x] + (1-alpha_k) ubm_k
+    (gmmubm.cc:53-81). `ubm` is one GMM shared by every speaker."""
+    N_k = torch.where(stats.N_k == 0, torch.full_like(stats.N_k, cfg.min_nk),
+                      stats.N_k)
+    alpha = (N_k / (N_k + cfg.relevance_factor)).unsqueeze(-1)
+    means = (alpha * (stats.F_k / N_k.unsqueeze(-1))
+             + (1.0 - alpha) * ubm.means)
+    return GmmParams(torch.broadcast_to(ubm.weights, N_k.shape), means,
+                     torch.broadcast_to(ubm.sigmas, means.shape))
+
+
+def speaker_generator(seed: int, speaker: int) -> torch.Generator:
+    """The CPU generator that draws speaker `speaker`'s init under `seed`,
+    so the init is the same whichever device trains."""
+    state = np.random.SeedSequence([seed, speaker]).generate_state(1)
+    return torch.Generator().manual_seed(int(state[0]))
+
+
+def init_params(X: torch.Tensor, mask: torch.Tensor, K: int,
+                seed: int) -> GmmParams:
+    """Reference init (k-means off) per speaker: K uniformly drawn valid
+    frames as means, the global data std (ddof=1) as every sigma, uniform
+    weights (gmm.cc:306-361). X [S, T, d]; each speaker's valid frames must
+    be a contiguous prefix, so an index < n is a valid frame."""
+    S, T, d = X.shape
+    m = mask.to(X.dtype).unsqueeze(-1)
+    n = m.sum(dim=-2)                                      # [S, 1]
+    data_mean = (X * m).sum(dim=-2) / n
+    ss = ((X - data_mean.unsqueeze(-2)) ** 2 * m).sum(dim=-2) / (n - 1.0)
+    sigma0 = torch.sqrt(ss)                                # [S, d]
+    n_valid = mask.sum(dim=-1).cpu()
+    idx = torch.stack([
+        torch.randint(0, max(int(n_valid[s]), 1), (K,),
+                      generator=speaker_generator(seed, s))
+        for s in range(S)]).to(X.device)
+    means = torch.gather(X, 1, idx.unsqueeze(-1).expand(S, K, d))
+    return GmmParams(
+        weights=torch.full((S, K), 1.0 / K, dtype=X.dtype, device=X.device),
+        means=means,
+        sigmas=sigma0.unsqueeze(-2).expand(S, K, d).contiguous())
+
+
+def total_loglik(params: GmmParams, X: torch.Tensor, mask: torch.Tensor,
+                 min_prob_sum: float = 1e-15) -> torch.Tensor:
+    """Summed log-likelihood over the valid frames (GMM::
+    log_probability_of): [...]."""
+    return (per_frame_loglik(params, X, min_prob_sum)
+            * mask.to(X.dtype)).sum(dim=-1)
+
+
+def avg_loglik(params: GmmParams, X: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Per-frame average score (src/gui/skgmm.py:33-39: sum/len)."""
+    n = torch.clamp_min(mask.to(X.dtype).sum(dim=-1), 1.0)
+    return total_loglik(params, X, mask) / n
+
+
+def _select(active: torch.Tensor, new: GmmParams,
+            old: GmmParams) -> GmmParams:
+    """Per speaker: `new` where active, else `old`."""
+    return GmmParams(*(torch.where(active.reshape(-1, *[1] * (a.dim() - 1)),
+                                   a, b) for a, b in zip(new, old)))
+
+
+def _em_loop(X, mask, params0: GmmParams, cfg: GmmConfig,
+             step_fn: Callable[[GmmParams], GmmParams],
+             log: dict | None = None):
+    """Iterate `step_fn` over a bank, checking convergence per speaker on
+    odd iterations against the summed log-likelihood (gmm.cc:614-652).
+
+    The JAX package vmaps a while_loop: it steps until every speaker is
+    done, and a speaker whose own predicate is false keeps its carry. Here
+    each speaker carries last_ll and done; a done speaker's parameters are
+    frozen. Every speaker still stepping has run exactly `it` iterations,
+    so one host counter stands for the vmapped loop's per-speaker i. The
+    all-done test reads one flag to the host per check iteration; `log`,
+    if given, receives the iteration and host-sync counts.
+    Returns (params, [S] log-likelihood of the last check)."""
+    if cfg.threshold <= 0:
+        # early stopping off: a fixed count, no monitoring pass
+        params = params0
+        for _ in range(cfg.n_iterations):
+            params = step_fn(params)
+        if log is not None:
+            log.update(iterations=cfg.n_iterations, host_syncs=0)
+        return params, total_loglik(params, X, mask, cfg.min_prob_sum)
+
+    S = X.shape[0]
+    last_ll = torch.full((S,), -torch.finfo(X.dtype).max, dtype=X.dtype,
+                         device=X.device)
+    done = torch.zeros(S, dtype=torch.bool, device=X.device)
+    params = params0
+    it = syncs = 0
+    while it < cfg.n_iterations:
+        new = step_fn(params)
+        active = ~done
+        params = _select(active, new, params)
+        it += 1
+        if it % cfg.check_every == 0:  # the odd iterations, counting from 0
+            ll = total_loglik(new, X, mask, cfg.min_prob_sum)
+            diff = ll - last_ll
+            converged = ((diff.abs() / ll.abs() < cfg.threshold)
+                         & (diff < cfg.threshold))
+            last_ll = torch.where(active, ll, last_ll)
+            done = done | (active & converged)
+            syncs += 1
+            if bool(done.all()):
+                break
+    if log is not None:
+        log.update(iterations=it, host_syncs=syncs)
+    return params, last_ll
+
+
+def fit(X: torch.Tensor, mask: torch.Tensor, cfg: GmmConfig, seed: int = 0,
+        log: dict | None = None):
+    """Full EM fit of a bank, one GMM per speaker (GMMTrainerBaseline::
+    train, gmm.cc:581-653): X [S, T, d] -> (params, [S] log-likelihood).
+    Speaker s draws its init from speaker_generator(seed, s)."""
+    params0 = init_params(X, mask, cfg.n_mixtures, seed)
+    return fit_from_params(X, mask, params0, cfg, log)
+
+
+def fit_from_params(X: torch.Tensor, mask: torch.Tensor, params0: GmmParams,
+                    cfg: GmmConfig, log: dict | None = None):
+    """EM from explicit initial parameters [S, ...]."""
+    step = lambda p: m_step(sufficient_stats(p, X, mask), cfg)  # noqa: E731
+    return _em_loop(X, mask, params0, cfg, step, log)
+
+
+def fit_from_ubm(X: torch.Tensor, mask: torch.Tensor, ubm: GmmParams,
+                 cfg: GmmConfig, log: dict | None = None):
+    """MAP adaptation of every speaker from one UBM (weights [K], means and
+    sigmas [K, d]; GMMUBMTrainerBaseline, gmmubm.cc:25-81). Each speaker
+    starts from a copy of the UBM; every iteration re-blends the means."""
+    S = X.shape[0]
+    params0 = GmmParams(*(a.expand(S, *a.shape) for a in ubm))
+    step = lambda p: map_m_step(  # noqa: E731
+        sufficient_stats(p, X, mask), ubm, cfg)
+    return _em_loop(X, mask, params0, cfg, step, log)
+
+
+def params_to(params: GmmParams, dtype: torch.dtype,
+              device: torch.device | str) -> GmmParams:
+    """numpy or torch parameters -> torch tensors of `dtype` on `device`."""
+    return GmmParams(*(torch.as_tensor(a, dtype=dtype, device=device)
+                       for a in params))
+
+
+def params_numpy(params: GmmParams) -> GmmParams:
+    """torch parameters -> contiguous numpy arrays on the host."""
+    return GmmParams(*(a.detach().cpu().contiguous().numpy()
+                       for a in params))

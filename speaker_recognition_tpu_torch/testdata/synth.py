@@ -19,6 +19,10 @@ SPEAKER_FREQS = {
     "bob": [110, 700, 2100],
     "carol": [220, 900, 3000],
 }
+# (seconds, seed base) of each speaker's training and test utterances;
+# speaker i's utterance uses seed base + i
+TRAIN = [(6.0, 100), (6.0, 110)]
+TEST = [(3.0, 200), (2.0, 210), (4.5, 220)]
 HERE = os.path.dirname(os.path.abspath(__file__))
 SESSION = os.path.join(HERE, "synth3_session.npz")
 EXPECTED = os.path.join(HERE, "synth3_expected.json")
@@ -47,3 +51,19 @@ def fixture_utterances(exp: dict | None = None) -> list[np.ndarray]:
     exp = exp or expected()
     return [synth_utterance(u["label"], u["seconds"], u["seed"])
             for u in exp["utterances"]]
+
+
+def write_training_wavs(root: str) -> list[str]:
+    """Write each speaker's TRAIN utterances as <root>/<label>/train<j>.wav;
+    returns the speaker directories in SPEAKER_FREQS order."""
+    import scipy.io.wavfile as wavfile
+
+    dirs = []
+    for i, label in enumerate(SPEAKER_FREQS):
+        d = os.path.join(root, label)
+        os.makedirs(d, exist_ok=True)
+        for j, (sec, base) in enumerate(TRAIN):
+            wavfile.write(os.path.join(d, f"train{j}.wav"), FS,
+                          synth_utterance(label, sec, base + i))
+        dirs.append(d)
+    return dirs

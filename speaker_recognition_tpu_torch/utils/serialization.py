@@ -1,20 +1,72 @@
-"""The session artifact: one .npz holding the speaker bank, labels, optional
-UBM, VAD calibration and the pipeline config.
+"""Model persistence, in the formats of speaker_recognition_tpu/utils/
+serialization.py (numpy only here):
 
-Byte for byte the format of speaker_recognition_tpu/utils/serialization.py
-(save_session / load_session), so a session written by either package
-serves in the other.
+  * the session artifact: one .npz holding the speaker bank, labels,
+    optional UBM, VAD calibration and the pipeline config (save_session /
+    load_session), byte for byte, so a session written by either package
+    serves in the other;
+  * the reference's plain-text GMM format (GMM::dump / GMM::load,
+    src/gmm/src/gmm.cc:655-682; Gaussian::dump, gmm.cc:101-128):
+        nr_mixtures
+        w_0 ... w_{K-1}
+        then per gaussian: dim covariance_type / means / sigmas.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import os
 
 import numpy as np
 
 from ..config import PipelineConfig
+from ..models.gmm import GmmParams
+
+COVTYPE_DIAGONAL = 1  # src/gmm/src/type.hh (spherical=0, diagonal=1)
+
+
+def dump_reference_gmm(params: GmmParams, fobj) -> None:
+    """Write one GMM (weights [K], means/sigmas [K, d]) in the reference's
+    text format."""
+    w = np.asarray(params.weights, np.float64)
+    means = np.asarray(params.means, np.float64)
+    sigmas = np.asarray(params.sigmas, np.float64)
+    K, d = means.shape
+    fobj.write(f"{K}\n")
+    fobj.write(" ".join(repr(float(v)) for v in w) + " \n")
+    for k in range(K):
+        fobj.write(f"{d} {COVTYPE_DIAGONAL}\n")
+        fobj.write(" ".join(repr(float(v)) for v in means[k]) + " \n")
+        fobj.write(" ".join(repr(float(v)) for v in sigmas[k]) + " \n")
+
+
+def load_reference_gmm(fobj) -> GmmParams:
+    """Parse the reference's text GMM format as a whitespace-token stream,
+    like GMM::load's istream reader (gmm.cc:666-682)."""
+    it = iter(fobj.read().split())
+    K = int(next(it))
+    w = np.array([float(next(it)) for _ in range(K)])
+    means, sigmas = [], []
+    for _ in range(K):
+        d = int(next(it))
+        cov = int(next(it))
+        if cov != COVTYPE_DIAGONAL:
+            raise ValueError(f"unsupported covariance type {cov}")
+        means.append([float(next(it)) for _ in range(d)])
+        sigmas.append([float(next(it)) for _ in range(d)])
+    return GmmParams(w, np.array(means), np.array(sigmas))
+
+
+def dumps_reference_gmm(params: GmmParams) -> str:
+    buf = io.StringIO()
+    dump_reference_gmm(params, buf)
+    return buf.getvalue()
+
+
+def loads_reference_gmm(text: str) -> GmmParams:
+    return load_reference_gmm(io.StringIO(text))
 
 
 def _config_to_json(cfg) -> str:

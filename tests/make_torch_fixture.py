@@ -15,14 +15,10 @@ import sys
 import tempfile
 
 import numpy as np
-import scipy.io.wavfile as wavfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
-
-TRAIN = [(6.0, 100), (6.0, 110)]           # (seconds, seed base) per speaker
-TEST = [(3.0, 200), (2.0, 210), (4.5, 220)]
 
 
 def main():
@@ -31,21 +27,14 @@ def main():
 
     labels = list(synth.SPEAKER_FREQS)
     with tempfile.TemporaryDirectory() as tmp:
-        for i, label in enumerate(labels):
-            d = os.path.join(tmp, label)
-            os.makedirs(d)
-            for j, (sec, base) in enumerate(TRAIN):
-                wavfile.write(os.path.join(d, f"train{j}.wav"), synth.FS,
-                              synth.synth_utterance(label, sec, base + i))
+        dirs = synth.write_training_wavs(tmp)
         model = os.path.join(tmp, "model.out")
-        cli.main(["-t", "enroll", "-i",
-                  " ".join(os.path.join(tmp, lb) for lb in labels),
-                  "-m", model])
+        cli.main(["-t", "enroll", "-i", " ".join(dirs), "-m", model])
         os.replace(model, synth.SESSION)
 
     m = ModelInterface.load(synth.SESSION)
     utts = [{"label": label, "seconds": sec, "seed": base + i}
-            for sec, base in TEST for i, label in enumerate(labels)]
+            for sec, base in synth.TEST for i, label in enumerate(labels)]
     sigs = [synth.synth_utterance(u["label"], u["seconds"], u["seed"])
             for u in utts]
     scores, valid = m.scores_batch(synth.FS, sigs)

@@ -113,11 +113,14 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def test_cli_enroll_is_refused(capsys):
+def test_cli_enroll_is_refused(capsys, tmp_path):
+    """Without an input directory enroll exits 1, as the JAX CLI does
+    (speaker_recognition_tpu/cli.py:58-60)."""
     from speaker_recognition_tpu_torch import cli
     with pytest.raises(SystemExit) as e:
-        cli.main(["-t", "enroll", "-i", "x", "-m", "y"])
+        cli.main(["-t", "enroll", "-i", str(tmp_path / "x"), "-m",
+                  str(tmp_path / "y"), "--device", "cpu"])
     assert e.value.code == 1
-    assert "enroll is not ported yet" in capsys.readouterr().out
+    assert "No valid directory found!" in capsys.readouterr().out
     args = cli.get_args(["-t", "predict", "-i", "a", "-m", "b"])
     assert args.device == "cuda"
