@@ -26,6 +26,16 @@ raises and the exit code is non-zero):
      predict_one_with_rejection on CUDA; launch counts of phases 7-8
   9. timing: the serial kernel and its plain version, predict_with_rejection
      of one 5 s utterance, ModelInterface.train of three speakers
+ 10. full-spectrum kernel vs plain: 64 x 5 s at 48 kHz, 44.1 kHz,
+     fft_size 256 at 8 kHz, SRTPU_FRONTEND=full at 8 kHz, bob's config at
+     48 kHz, MFCC only, an utterance with no valid frame
+ 11. frame-level packed kernel vs plain: 512 x 5 s at 8 kHz and a 16 kHz
+     batch with LPC cepstra; the bench batch's LPCC through extract_batch
+ 12. slice 3 on the card: `cli -t enroll` then `cli -t predict` at 48 kHz,
+     the JAX-enrolled 48 kHz session against the JAX package's scores, UBM
+     + MAP + open-set decisions at 48 kHz, a ModelInterface with LPC
+     cepstra at 8 kHz; launch counts of the phase; timing of both kernels
+     and their plain versions and of predict_scores at 48 kHz
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -54,16 +64,17 @@ from speaker_recognition_tpu_torch.api import fastpath  # noqa: E402
 from speaker_recognition_tpu_torch.api.interface import (  # noqa: E402
     ModelInterface)
 from speaker_recognition_tpu_torch.config import (  # noqa: E402
-    FeatureConfig, GmmConfig, MfccConfig, n_frames)
+    FeatureConfig, GmmConfig, LpcConfig, MfccConfig, PipelineConfig,
+    bob_mfcc_config, n_frames)
 from speaker_recognition_tpu_torch.features import extract  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
-    PackedFrontend)
+    FullFrontend, PackedFrontend)
 from speaker_recognition_tpu_torch.models import gmm  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmmset import (  # noqa: E402
     GMMSet, _pad_frames_bucket, _pad_stack)
 from speaker_recognition_tpu_torch.ops import (  # noqa: E402
-    gpu_frontend, gpu_gmm)
+    framing, gpu_frontend, gpu_gmm)
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
 
@@ -92,6 +103,8 @@ SERIAL_RTOL = 1e-4
 # means and sigmas (O(1)) and 1.2e-6 on weights; 1e-3 leaves 12x margin.
 EM_ATOL = 1e-3
 UBM_ITERATIONS = 100
+FS48 = 48000
+LPCC = LpcConfig(n_lpcc=16)
 
 
 def smi() -> str:
@@ -234,6 +247,65 @@ def utterance(feats, n_valid, dev):
     GMMSet._scores pads them: ([Tp, d], [Tp] mask) on dev."""
     x, m = _pad_frames_bucket(feats[:n_valid].cpu().numpy())
     return torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
+
+
+def frames_args(fe, sig):
+    """The frame-level kernel's arguments for a batch, as fe.forward builds
+    them: (args, B, T)."""
+    fr = framing.frame_signal(sig, fe.frame_len, fe.frame_shift)
+    B, T = fr.shape[:2]
+    if isinstance(fe, FullFrontend):
+        wp = framing.window_preemph(fr, fe.frame_len, fe.pre_emph,
+                                    fe.preemph_first)
+        return ((wp.reshape(B * T, fe.frame_len), fe.C, fe.S, fe.mel,
+                 fe.dct, fe.floor, fe.acorr), B, T)
+    return ((fr.reshape(B * T, fe.frame_len).contiguous(), fe.D, fe.W,
+             fe.dct, fe.floor, fe.A), B, T)
+
+
+def frames_kernel(fe):
+    """(kernel wrapper, plain version, launch counter name) of fe."""
+    if isinstance(fe, FullFrontend):
+        return (gpu_frontend.mfcc_from_frames,
+                gpu_frontend.mfcc_from_frames_reference, "FULL_LAUNCHES")
+    return (gpu_frontend.packed_from_frames,
+            gpu_frontend.packed_from_frames_reference, "FRAMES_LAUNCHES")
+
+
+def check_frames(phase, name, fe, sig, lengths) -> float:
+    """A frame-level kernel vs its plain version on one batch, both carried
+    through the frontend's CMVN, LPC or LPC cepstra and masking; returns
+    the max abs error of the features."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the plain versions must run full f32 matmuls")
+    kernel, plain, counter = frames_kernel(fe)
+    args, B, T = frames_args(fe, sig)
+    mask = framing.frame_validity_mask(lengths, T, fe.frame_len,
+                                       fe.frame_shift)
+    before = getattr(gpu_frontend, counter)
+    got_c, got_r = kernel(*args)
+    launched = getattr(gpu_frontend, counter) - before
+    want_c, want_r = plain(*args)
+    torch.cuda.synchronize()
+    got, m = fe.finish(got_c.view(B, T, -1), got_r.view(B, T, -1), mask)
+    want, _ = fe.finish(want_c.view(B, T, -1), want_r.view(B, T, -1), mask)
+    nc = fe.dct.shape[1]
+    m3 = m[..., None]
+    d_mfcc = ((got[..., :nc] - want[..., :nc]).abs() * m3).max().item()
+    d_lpc = (got[..., nc:] - want[..., nc:]).abs()
+    lpc_bad = ((d_lpc > LPC_ATOL) & (d_lpc > LPC_RTOL * want[..., nc:].abs())
+               & m3).sum().item()
+    d_lpc = (d_lpc * m3).max().item() if d_lpc.numel() else 0.0
+    print(f"phase {phase} {name}: {type(fe).__name__} frames "
+          f"{tuple(args[0].shape)} valid {int(m.sum())} mfcc max|d| "
+          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over "
+          f"tol: {lpc_bad}) launches {launched}", flush=True)
+    if not torch.isfinite(got).all() or (got[~m] != 0).any():
+        raise AssertionError(f"{name}: non-finite or unmasked features")
+    if d_mfcc > MFCC_ATOL or lpc_bad or launched != 1:
+        raise AssertionError(f"{name}: frame-level kernel disagrees with "
+                             "plain")
+    return max(d_mfcc, d_lpc)
 
 
 def main(argv=None):
@@ -500,6 +572,175 @@ def main(argv=None):
           f"GMM-32: {t['train']:.3f} ms, {tl['iterations']} iterations, "
           f"{tl['host_syncs']} host syncs", flush=True)
 
+    # 10. full-spectrum kernel vs plain
+    err_full = 0.0
+    L48 = int(FS48 * BENCH_SEC)
+    lens48 = [L48 - int(rng.randint(0, 3 * FS48)) for _ in range(63)] + [L48]
+    fe48 = FullFrontend(FS48, fcfg, dev)
+    s48, l48 = signals_batch(rng, lens48, padded(L48), dev)
+    err_full = check_frames(10, "64 x 5 s @ 48 kHz, ragged", fe48, s48, l48)
+    del s48, l48
+    fe44 = FullFrontend(44100, fcfg, dev)
+    s44, l44 = signals_batch(rng, [44100, 30000, 5000], padded(44100), dev)
+    err_full = max(err_full, check_frames(
+        10, f"44.1 kHz (flen {fe44.frame_len}, fshift {fe44.frame_shift})",
+        fe44, s44, l44))
+    fe256 = FullFrontend(BENCH_FS, FeatureConfig(
+        mfcc=MfccConfig(fft_size=256)), dev)
+    err_full = max(err_full, check_frames(
+        10, "8 kHz, fft_size 256", fe256, bench_sig[:8], bench_len[:8]))
+    os.environ["SRTPU_FRONTEND"] = "full"
+    fe_env = extract.frontend(BENCH_FS, fcfg, dev)
+    del os.environ["SRTPU_FRONTEND"]
+    if not isinstance(fe_env, FullFrontend):
+        raise AssertionError("SRTPU_FRONTEND=full did not take the full route")
+    err_full = max(err_full, check_frames(
+        10, "8 kHz, SRTPU_FRONTEND=full", fe_env, bench_sig[:8],
+        bench_len[:8]))
+    s48b, l48b = signals_batch(rng, [FS48, 40000], padded(FS48), dev)
+    for name, cfg in (("bob's config @ 48 kHz",
+                       FeatureConfig(mfcc=bob_mfcc_config())),
+                      ("MFCC only @ 48 kHz", FeatureConfig(use_lpc=False))):
+        err_full = max(err_full, check_frames(
+            10, name, FullFrontend(FS48, cfg, dev), s48b, l48b))
+    s0, l0 = signals_batch(rng, [FS48, 1000], padded(FS48), dev)
+    err_full = max(err_full, check_frames(
+        10, "an utterance with no valid frame @ 48 kHz", fe48, s0, l0))
+
+    # 11. frame-level packed kernel vs plain, LPC cepstra
+    lpcc_cfg = FeatureConfig(lpc=LPCC)
+    fe8c = PackedFrontend(BENCH_FS, lpcc_cfg, dev)
+    err_frames = check_frames(11, "bench 512 x 5 s @ 8 kHz, n_lpcc 16", fe8c,
+                              bench_sig, bench_len)
+    err_frames = max(err_frames, check_frames(
+        11, "16 kHz, n_lpcc 16", PackedFrontend(16000, lpcc_cfg, dev), s16,
+        l16))
+    before = gpu_frontend.FRAMES_LAUNCHES
+    feats_c, mask_c = extract.extract_batch(bench_sig, bench_len, BENCH_FS,
+                                            lpcc_cfg)
+    lpcc_cols = feats_c[..., fcfg.mfcc.n_ceps:][mask_c]
+    print(f"phase 11 extract_batch, n_lpcc 16: features "
+          f"{tuple(feats_c.shape)}, LPCC columns {lpcc_cols.shape[-1]} "
+          f"finite {bool(torch.isfinite(lpcc_cols).all())}, launches "
+          f"{gpu_frontend.FRAMES_LAUNCHES - before}", flush=True)
+    if (feats_c.shape[-1] != lpcc_cfg.dim
+            or not torch.isfinite(lpcc_cols).all()
+            or gpu_frontend.FRAMES_LAUNCHES - before != 1):
+        raise AssertionError("extract_batch with LPC cepstra")
+    del feats_c, mask_c, lpcc_cols
+
+    # 12. slice 3 through the entry points on the card
+    exp48 = synth.expected(synth.EXPECTED48)
+    utts48 = synth.fixture_utterances(exp48)
+    truth48 = [u["label"] for u in exp48["utterances"]]
+    gpu_frontend.LAUNCHES = gpu_frontend.FRAMES_LAUNCHES = 0
+    gpu_frontend.FULL_LAUNCHES = 0
+    gpu_gmm.LAUNCHES = gpu_gmm.SERIAL_LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = synth.write_training_wavs(tmp, FS48)
+        test_dir = os.path.join(tmp, "test")
+        os.makedirs(test_dir)
+        for i, (label, sig) in enumerate(zip(truth48, utts48)):
+            wavfile.write(os.path.join(test_dir, f"{i:02d}_{label}.wav"),
+                          FS48, sig)
+        model = os.path.join(tmp, "enrolled48.out")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["-t", "enroll", "-i", " ".join(dirs), "-m", model,
+                      "--device", "cuda"])
+        predict_out = io.StringIO()
+        with contextlib.redirect_stdout(predict_out):
+            cli.main(["-t", "predict", "-i", os.path.join(test_dir, "*.wav"),
+                      "-m", model, "--device", "cuda"])
+    labels48 = [ln.rpartition(" -> ")[2]
+                for ln in predict_out.getvalue().strip().splitlines()]
+    print(f"phase 12 cli enroll + predict @ 48 kHz: {labels48}", flush=True)
+    if labels48 != truth48:
+        raise AssertionError(f"48 kHz cli labels {labels48} != {truth48}")
+    m48 = ModelInterface.load(synth.SESSION48, device=dev)
+    scores48, valid48 = m48.scores_batch(FS48, utts48)
+    want48 = np.asarray(exp48["scores"])
+    rel48 = float(np.max(np.abs(scores48 - want48) / np.abs(want48)))
+    same48 = m48.predict_batch(FS48, utts48) == truth48 and \
+        bool((scores48.argmax(-1) == want48.argmax(-1)).all())
+    print(f"phase 12 JAX-enrolled 48 kHz session: scores {scores48.shape} "
+          f"vs JAX max rel {rel48:.3e} (tol {SLICE_RTOL}), labels identical "
+          f"{same48}", flush=True)
+    if not valid48.all() or rel48 > SLICE_RTOL or not same48:
+        raise AssertionError("48 kHz session disagrees with the JAX package")
+    train48 = {label: [extract.mix_feature(
+        FS48, synth.synth_utterance(label, sec, base + i, FS48), device=dev)
+        for sec, base in synth.TRAIN]
+        for i, label in enumerate(synth.SPEAKER_FREQS)}
+    ubm48 = ubm_tools.train_ubm([f for fl in train48.values() for f in fl],
+                                n_mixtures=32, n_iterations=UBM_ITERATIONS,
+                                device=dev)
+    labels_map, adapted48 = ubm_tools.adapt_speakers(
+        ubm48, {label: np.concatenate(train48[label])
+                for label in ("alice", "bob")}, device=dev)
+    server48 = ModelInterface(device=dev)
+    server48.gmmset = GMMSet.from_state(
+        {"labels": labels_map, "weights": adapted48.weights,
+         "means": adapted48.means, "sigmas": adapted48.sigmas,
+         "reject_threshold": 10.0, "ubm_weights": ubm48.weights,
+         "ubm_means": ubm48.means, "ubm_sigmas": ubm48.sigmas}, device=dev)
+    utt48 = lambda label, sec, seed: synth.synth_utterance(  # noqa: E731
+        label, sec, seed, FS48)
+    op48 = server48.calibrate_rejection(
+        FS48, [utt48(label, 2.0, 950 + j) for j, label in
+               enumerate(["alice", "bob", "alice", "bob"])],
+        [utt48("carol", 2.0, 960 + j) for j in range(4)])
+    decisions48 = [server48.predict_with_rejection(FS48, utt48(label, 3.0,
+                                                               seed))
+                   for label, seed in (("alice", 970), ("carol", 971))]
+    print(f"phase 12 UBM + MAP @ 48 kHz: threshold {op48['threshold']:.4f} "
+          f"EER {op48['eer']:.3f}; held-out alice -> {decisions48[0]}, carol "
+          f"-> {decisions48[1]}", flush=True)
+    if decisions48 != ["alice", None]:
+        raise AssertionError(f"48 kHz open-set decisions {decisions48}")
+    lpcc_model = ModelInterface(PipelineConfig(features=lpcc_cfg), device=dev)
+    for label, sigs in train_sigs.items():
+        for sig in sigs:
+            lpcc_model.enroll(label, synth.FS, sig)
+    lpcc_model.train()
+    labels_lpcc = lpcc_model.predict_batch(synth.FS, utts)
+    print(f"phase 12 ModelInterface with LPC cepstra @ 8 kHz: {labels_lpcc}",
+          flush=True)
+    if labels_lpcc != truth:
+        raise AssertionError(f"LPCC labels {labels_lpcc} != {truth}")
+    launches3 = {"frontend": gpu_frontend.LAUNCHES,
+                 "frames": gpu_frontend.FRAMES_LAUNCHES,
+                 "full": gpu_frontend.FULL_LAUNCHES, "gmm": gpu_gmm.LAUNCHES,
+                 "serial": gpu_gmm.SERIAL_LAUNCHES}
+    print(f"phase 12 launches: {launches3}", flush=True)
+    if (launches3["frontend"] != 0 or min(launches3["frames"],
+                                          launches3["full"], launches3["gmm"],
+                                          launches3["serial"]) < 1):
+        raise AssertionError(f"slice 3 launches {launches3}")
+
+    # timing of slice 3's kernels and of predict at 48 kHz
+    fe_args = frames_args(fe8c, bench_sig)[0]
+    t["frames"] = time_ms(lambda: gpu_frontend.packed_from_frames(*fe_args))
+    t["frames_plain"] = time_ms(
+        lambda: gpu_frontend.packed_from_frames_reference(*fe_args))
+    del fe_args
+    sig48, len48 = signals_batch(rng, [L48] * BENCH_B, padded(L48), dev)
+    fe_args = frames_args(fe48, sig48)[0]
+    t["full"] = time_ms(lambda: gpu_frontend.mfcc_from_frames(*fe_args))
+    t["full_plain"] = time_ms(
+        lambda: gpu_frontend.mfcc_from_frames_reference(*fe_args))
+    del fe_args
+    torch.cuda.empty_cache()
+    t["predict48"] = time_ms(lambda: fastpath.predict_scores(
+        sig48, len48, bench_bank, FS48, fcfg))
+    rate48 = BENCH_B * BENCH_SEC / (t["predict48"] / 1e3)
+    print(f"phase 12 [{card}] frame-level packed kernel, 512 x 5 s @ 8 kHz, "
+          f"n_lpcc 16: {t['frames']:.3f} ms, plain {t['frames_plain']:.3f} ms")
+    print(f"phase 12 [{card}] full-spectrum kernel, 512 x 5 s @ 48 kHz: "
+          f"{t['full']:.3f} ms, plain {t['full_plain']:.3f} ms")
+    print(f"phase 12 [{card}] predict_scores 512 x 5 s @ 48 kHz, 4 x 32 "
+          f"bank: {t['predict48']:.3f} ms = {rate48:.0f} audio-s/s",
+          flush=True)
+
     print(card)
     print(json.dumps({"kernels": [
         {"name": "packed_frontend", "route": "cuda",
@@ -517,6 +758,16 @@ def main(argv=None):
          "replaces": "speaker_recognition_tpu/ops/pallas_gmm.py:47",
          "launches": launches2["serial"], "max_abs_err": err_serial,
          "ms": t["serial"], "plain_ms": t["serial_plain"]},
+        {"name": "packed_from_frames", "route": "cuda",
+         "source": "speaker_recognition_tpu_torch/csrc/frontend_frames.cu",
+         "replaces": "speaker_recognition_tpu/ops/pallas_frontend.py:111",
+         "launches": launches3["frames"], "max_abs_err": err_frames,
+         "ms": t["frames"], "plain_ms": t["frames_plain"]},
+        {"name": "mfcc_from_frames", "route": "cuda",
+         "source": "speaker_recognition_tpu_torch/csrc/frontend_frames.cu",
+         "replaces": "speaker_recognition_tpu/ops/pallas_frontend.py:50",
+         "launches": launches3["full"], "max_abs_err": err_full,
+         "ms": t["full"], "plain_ms": t["full_plain"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

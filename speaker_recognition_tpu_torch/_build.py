@@ -24,7 +24,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 # No --use_fast_math: it may fold isfinite() away and swaps logf for
-# __logf; the frontend relies on both (see csrc/frontend.cu).
+# __logf; the frontends rely on both (see csrc/frontend*.cu).
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
@@ -62,6 +62,11 @@ def _bind(lib):
     lib.srt_packed_frontend.restype = i
     lib.srt_frontend_smem_bytes.argtypes = [i, i, i, i]
     lib.srt_frontend_smem_bytes.restype = i
+    lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, ctypes.c_float, i, p]
+    lib.srt_frames_frontend.restype = i
+    lib.srt_frames_smem_bytes.argtypes = [i, i]
+    lib.srt_frames_smem_bytes.restype = i
     lib.srt_bank_avg_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.srt_bank_avg_loglik.restype = i
     lib.srt_gmm_smem_bytes.argtypes = [i, i]

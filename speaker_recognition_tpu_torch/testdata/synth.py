@@ -1,9 +1,12 @@
-"""The synthetic 3-speaker corpus behind synth3_session.npz (numpy only).
+"""The synthetic 3-speaker corpus behind the fixture sessions (numpy only).
 
 Same recipe as tests/test_endtoend.py: each speaker is a stack of three
-harmonics with a slow vibrato, amplitude modulation and white noise.
-`synth3_expected.json` names the seeds, durations and true labels of the
-test utterances and the scores the JAX package gave them on the CPU.
+harmonics with a slow vibrato, amplitude modulation and white noise, at
+any sample rate (8 kHz by default). `synth3_session.npz` was enrolled by
+the JAX package at 8 kHz, `synth48_session.npz` at 48 kHz (its
+full-spectrum frontend); each `*_expected.json` names the sample rate and
+the seeds, durations and true labels of the test utterances, and the
+scores the JAX package gave them on the CPU.
 """
 
 from __future__ import annotations
@@ -26,13 +29,18 @@ TEST = [(3.0, 200), (2.0, 210), (4.5, 220)]
 HERE = os.path.dirname(os.path.abspath(__file__))
 SESSION = os.path.join(HERE, "synth3_session.npz")
 EXPECTED = os.path.join(HERE, "synth3_expected.json")
+FS48 = 48000
+TEST48 = [(1.0, 200), (1.0, 210), (1.0, 220)]
+SESSION48 = os.path.join(HERE, "synth48_session.npz")
+EXPECTED48 = os.path.join(HERE, "synth48_expected.json")
 
 
-def synth_utterance(label: str, seconds: float, seed: int) -> np.ndarray:
-    """Speaker-distinctive int16 signal: harmonics + AM + noise."""
+def synth_utterance(label: str, seconds: float, seed: int,
+                    fs: int = FS) -> np.ndarray:
+    """Speaker-distinctive int16 signal at `fs`: harmonics + AM + noise."""
     rng = np.random.RandomState(seed)
-    n = int(FS * seconds)
-    t = np.arange(n) / FS
+    n = int(fs * seconds)
+    t = np.arange(n) / fs
     sig = sum(np.sin(2 * np.pi * f * (1 + 0.01 * np.sin(2 * np.pi * 1.7 * t))
                      * t + rng.rand() * 6.28) / (i + 1)
               for i, f in enumerate(SPEAKER_FREQS[label]))
@@ -41,21 +49,22 @@ def synth_utterance(label: str, seconds: float, seed: int) -> np.ndarray:
     return (sig * 6000).astype(np.int16)
 
 
-def expected() -> dict:
-    with open(EXPECTED) as f:
+def expected(path: str = EXPECTED) -> dict:
+    with open(path) as f:
         return json.load(f)
 
 
 def fixture_utterances(exp: dict | None = None) -> list[np.ndarray]:
-    """The fixture's test utterances, in the order of expected()."""
+    """A fixture's test utterances, in the order of its expected()."""
     exp = exp or expected()
-    return [synth_utterance(u["label"], u["seconds"], u["seed"])
+    return [synth_utterance(u["label"], u["seconds"], u["seed"], exp["fs"])
             for u in exp["utterances"]]
 
 
-def write_training_wavs(root: str) -> list[str]:
-    """Write each speaker's TRAIN utterances as <root>/<label>/train<j>.wav;
-    returns the speaker directories in SPEAKER_FREQS order."""
+def write_training_wavs(root: str, fs: int = FS) -> list[str]:
+    """Write each speaker's TRAIN utterances at `fs` as
+    <root>/<label>/train<j>.wav; returns the speaker directories in
+    SPEAKER_FREQS order."""
     import scipy.io.wavfile as wavfile
 
     dirs = []
@@ -63,7 +72,7 @@ def write_training_wavs(root: str) -> list[str]:
         d = os.path.join(root, label)
         os.makedirs(d, exist_ok=True)
         for j, (sec, base) in enumerate(TRAIN):
-            wavfile.write(os.path.join(d, f"train{j}.wav"), FS,
-                          synth_utterance(label, sec, base + i))
+            wavfile.write(os.path.join(d, f"train{j}.wav"), fs,
+                          synth_utterance(label, sec, base + i, fs))
         dirs.append(d)
     return dirs

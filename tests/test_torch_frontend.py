@@ -135,20 +135,48 @@ def test_extract_batch_matches_jax(kw, fs):
                                rtol=2e-3, atol=2e-2)
 
 
-@pytest.mark.parametrize("cfg,what", [
-    (lambda: tcfg.FeatureConfig(lpc=tcfg.LpcConfig(n_lpcc=12)), "n_lpcc"),
-    (lambda: tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=256)),
-     "fft_size"),
+def _matches_jax_extractor(fs, cfg_of, mode="packed"):
+    """extract_batch vs the JAX XLA extractor under frontend `mode`, with
+    the tolerance of test_extract_batch_matches_jax."""
+    L = 8192
+    sig, lens = _signals([L, 5000, 900], L, seed=7, scale=3000.0)
+    want, wmask = jext._feature_fn(fs, cfg_of(jcfg), L, "float32", "off",
+                                   "f32", mode, "default")(
+        jnp.asarray(sig), jnp.asarray(lens))
+    got, mask = text.extract_batch(torch.from_numpy(sig),
+                                   torch.from_numpy(lens), fs, cfg_of(tcfg))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("cfg,route", [
+    (lambda c: c.FeatureConfig(lpc=c.LpcConfig(n_lpcc=12)), "PackedFrontend"),
+    (lambda c: c.FeatureConfig(mfcc=c.MfccConfig(fft_size=256)),
+     "FullFrontend"),
 ], ids=["lpcc", "small_fft"])
-def test_unported_configs_raise(cfg, what):
-    with pytest.raises(NotImplementedError, match=what):
-        text.PackedFrontend(FS, cfg(), "cpu")
+def test_unported_configs_raise(cfg, route):
+    """The two configs slice 1 refused are served now: LPC cepstra on the
+    packed route (frame-level kernel + Levinson + LPCC), fft_size <
+    2*frame_len on the full-spectrum route; both held to the JAX
+    extractor."""
+    assert type(text.frontend(FS, cfg(tcfg), "cpu")).__name__ == route
+    _matches_jax_extractor(FS, cfg)
 
 
 def test_full_frontend_env_raises(monkeypatch):
+    """SRTPU_FRONTEND=full, which slice 1 refused, takes the full-spectrum
+    route, as in the JAX package, and matches its full extractor."""
     monkeypatch.setenv("SRTPU_FRONTEND", "full")
-    with pytest.raises(NotImplementedError, match="full"):
-        text.PackedFrontend(FS, tcfg.FeatureConfig(), "cpu")
+    assert isinstance(text.frontend(FS, tcfg.FeatureConfig(), "cpu"),
+                      text.FullFrontend)
+    _matches_jax_extractor(FS, lambda c: c.FeatureConfig(), "full")
+
+
+def test_float64_features_raise():
+    """The float64 parity pipeline has no kernel and is not ported."""
+    with pytest.raises(NotImplementedError, match="float32"):
+        text.mix_feature(FS, np.ones(4000), dtype="float64")
 
 
 class _CudaTyped(torch.Tensor):
