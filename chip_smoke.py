@@ -36,8 +36,18 @@ raises and the exit code is non-zero):
      + MAP + open-set decisions at 48 kHz, a ModelInterface with LPC
      cepstra at 8 kHz; launch counts of the phase; timing of both kernels
      and their plain versions and of predict_scores at 48 kHz
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+ 13. the fused predict monolith (K6 and K7, one kernel) vs plain: the
+     bench batch in f32 and with bf16 DFT operands, against predict_scores
+     (the frontend and bank-scoring kernels), the 80 x 256 bank over 8
+     utterances, a 150 s clip beside a 1 s one, MFCC only, 16 kHz, an
+     utterance with no valid frame, two calls bitwise; launch counts;
+     timing of the monolith, its plain version and predict_scores,
+     interleaved, with the FP32 roofline share
+The line before the last is {"kernels": [...]}, each kernel with its
+launches on the main path, its error against its plain version, its time,
+its plain version's time and its bound (the larger of its FLOPs over the
+FP32 peak and its bytes over the memory rate, from this run's shapes); the
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -74,7 +84,7 @@ from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmmset import (  # noqa: E402
     GMMSet, _pad_frames_bucket, _pad_stack)
 from speaker_recognition_tpu_torch.ops import (  # noqa: E402
-    framing, gpu_frontend, gpu_gmm)
+    framing, gpu_frontend, gpu_gmm, gpu_predict)
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
 
@@ -105,6 +115,13 @@ EM_ATOL = 1e-3
 UBM_ITERATIONS = 100
 FS48 = 48000
 LPCC = LpcConfig(n_lpcc=16)
+# Fused predict vs its plain version, both f32 on the card: the frontend
+# differs as in phase 2 (~1e-5 on cepstra), the scores are means of
+# hundreds of frames' log-likelihoods; 1e-3 relative with identical argmax.
+FUSED_RTOL = 1e-3
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 
 def smi() -> str:
@@ -306,6 +323,84 @@ def check_frames(phase, name, fe, sig, lengths) -> float:
         raise AssertionError(f"{name}: frame-level kernel disagrees with "
                              "plain")
     return max(d_mfcc, d_lpc)
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the FLOPs over the
+    FP32 peak and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    if ops_ms >= bytes_ms:
+        return {"bound_ms": ops_ms, "bound_by": "operations"}
+    return {"bound_ms": bytes_ms, "bound_by": "bytes"}
+
+
+def frontend_flops(frames: int, flen: int, ncols: int, nmel: int, nac: int,
+                   nceps: int, order: int = 0, dft_products: int = 1) -> float:
+    """FLOPs of the frontends for `frames` frames: the DFT product(s), the
+    squares, the mel and autocorrelation products, the log, the DCT and
+    an order-p Levinson recursion."""
+    return frames * (dft_products * (2 * flen * ncols + ncols)
+                     + 2 * ncols * (nmel + nac) + nmel + 2 * nmel * nceps
+                     + 2 * order * order)
+
+
+def score_flops(frames: int, d: int, n_components: int) -> float:
+    """FLOPs of [x^2 | x] . op for `frames` frames against the components."""
+    return frames * 4 * d * n_components
+
+
+def fused_args(fe: PackedFrontend, sig, lengths, bank, n_valid=None):
+    """The arguments of gpu_predict.fused_bank_predict for one batch."""
+    if n_valid is None:
+        T = n_frames(sig.shape[1], fe.frame_len, fe.frame_shift)
+        n_valid = fe.valid_frames(lengths, T)
+    return (sig, n_valid, bank, fe.frame_shift, fe.D, fe.W, fe.dct, fe.floor,
+            fe.A, fe.cmvn)
+
+
+def check_fused(name, got, want) -> float:
+    """Monolith scores vs plain ones: within FUSED_RTOL, identical argmax;
+    returns the max abs error."""
+    torch.cuda.synchronize()
+    d = (got - want).abs()
+    rel = (d / want.abs().clamp_min(1e-30)).max().item()
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    print(f"phase 13 {name}: [B, S] {tuple(got.shape)} max|d| "
+          f"{d.max().item():.3e} max rel {rel:.3e} (tol {FUSED_RTOL}) argmax "
+          f"identical {same}", flush=True)
+    if (got.shape != want.shape or not torch.isfinite(got).all()
+            or rel > FUSED_RTOL or not same):
+        raise AssertionError(f"{name}: fused predict disagrees with plain")
+    return d.max().item()
+
+
+def check_fused_case(name, args) -> tuple[float, float]:
+    """Both wrappers (one kernel) vs the plain monolith on one batch; their
+    max abs errors."""
+    want = gpu_predict.fused_bank_predict_reference(*args)
+    return (check_fused(name, gpu_predict.fused_bank_predict(*args), want),
+            check_fused(name + " (wide)",
+                        gpu_predict.fused_bank_predict_wide(*args), want))
+
+
+def time_interleaved(fns: dict, trials=7, reps=3) -> dict:
+    """Median per-call device time of each fn, the fns taking turns in
+    every trial."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in fns}
+    for _ in range(trials):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / reps)
+    return {k: float(np.median(v)) for k, v in times.items()}
 
 
 def main(argv=None):
@@ -741,33 +836,168 @@ def main(argv=None):
           f"bank: {t['predict48']:.3f} ms = {rate48:.0f} audio-s/s",
           flush=True)
 
+    del sig48, len48
+    torch.cuda.empty_cache()
+
+    # 13. the fused predict monolith (K6 and K7) on the card
+    args13 = fused_args(fe8, bench_sig, bench_len, bench_bank)
+    gpu_predict.LAUNCHES = gpu_predict.WIDE_LAUNCHES = 0
+    k6 = gpu_predict.fused_bank_predict(*args13)
+    k6_bf16 = gpu_predict.fused_bank_predict(*args13, mm_bf16=True)
+    k7 = gpu_predict.fused_bank_predict_wide(*args13)
+    torch.cuda.synchronize()
+    launches4 = {"fused": gpu_predict.LAUNCHES,
+                 "wide": gpu_predict.WIDE_LAUNCHES}
+    print(f"phase 13 launches: {launches4}", flush=True)
+    if launches4["fused"] < 1 or launches4["wide"] < 1:
+        raise AssertionError(f"the monolith was not launched: {launches4}")
+    plain13 = gpu_predict.fused_bank_predict_reference(*args13)
+    err_k6 = check_fused("K6 bench 512 x 5 s @ 8 kHz", k6, plain13)
+    err_k6 = max(err_k6, check_fused(
+        "K6 bf16 DFT operands", k6_bf16,
+        gpu_predict.fused_bank_predict_reference(*args13, mm_bf16=True)))
+    err_k7 = check_fused("K7 bench 512 x 5 s @ 8 kHz", k7, plain13)
+    two = fastpath.predict_scores(bench_sig, bench_len, bench_bank, BENCH_FS,
+                                  fcfg)
+    err_k6 = max(err_k6, check_fused("K6 vs predict_scores (K1 + K2)", k6,
+                                     two))
+    again = gpu_predict.fused_bank_predict(*args13)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(k6, again) and torch.equal(
+        k7, gpu_predict.fused_bank_predict_wide(*args13))
+    print(f"phase 13 two calls bitwise equal: {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError("the monolith is not deterministic")
+    del plain13, two, again
+    clip_sig, clip_len = signals_batch(rng, [150 * BENCH_FS, BENCH_FS],
+                                       padded(150 * BENCH_FS), dev)
+    fe8m = PackedFrontend(BENCH_FS, FeatureConfig(use_lpc=False), dev)
+    args0 = fused_args(fe8, bench_sig[:4], bench_len[:4], bench_bank)
+    args0 = (args0[0], args0[1] * torch.tensor([0, 1, 1, 1], device=dev,
+                                               dtype=torch.int32)) + args0[2:]
+    for name, args in (
+            ("80 x 256 bank, 8 utterances",
+             fused_args(fe8, bench_sig[:8], bench_len[:8], ubm_bank)),
+            ("150 s clip + 1 s clip",
+             fused_args(fe8, clip_sig, clip_len, bench_bank)),
+            ("MFCC only",
+             fused_args(fe8m, bench_sig[:64], bench_len[:64],
+                        random_bank(rng, 4, 32, fe8m.dct.shape[1], dev))),
+            (f"16 kHz (flen {fe16.frame_len}; a 0.01 s utterance)",
+             fused_args(fe16, s16, l16, bench_bank)),
+            ("n_valid = 0", args0)):
+        e6, e7 = check_fused_case(name, args)
+        err_k6, err_k7 = max(err_k6, e6), max(err_k7, e7)
+    del clip_sig, clip_len
+    if (gpu_predict.fused_bank_predict(*args0)[0] != 0).any():
+        raise AssertionError("an utterance with no valid frame must score 0")
+
+    t13 = time_interleaved({
+        "fused": lambda: gpu_predict.fused_bank_predict(*args13),
+        "fused_bf16": lambda: gpu_predict.fused_bank_predict(*args13,
+                                                             mm_bf16=True),
+        "wide": lambda: gpu_predict.fused_bank_predict_wide(*args13),
+        "fused_plain": lambda: gpu_predict.fused_bank_predict_reference(
+            *args13),
+        "predict": lambda: fastpath.predict_scores(
+            bench_sig, bench_len, bench_bank, BENCH_FS, fcfg)})
+    t.update(t13)
+    # where the monolith's time goes, from what the API can switch off:
+    # without CMVN (phase 2), then also with a one-component bank (phase
+    # 3's work ~0), beside the frontend kernel alone (phase 1's code)
+    no_cmvn = args13[:9] + (False,)
+    tiny = random_bank(rng, 1, 1, d, dev)
+    fe_args8 = frontend_args(fe8, bench_sig, bench_len)
+    fe_nocmvn = fe_args8[:-1] + (False,)
+    t_parts = time_interleaved({
+        "fused": lambda: gpu_predict.fused_bank_predict(*args13),
+        "fused, no CMVN": lambda: gpu_predict.fused_bank_predict(*no_cmvn),
+        "fused, no CMVN, 1 x 1 bank": lambda: gpu_predict.fused_bank_predict(
+            *no_cmvn[:2], tiny, *no_cmvn[3:]),
+        "frontend kernel, no CMVN": lambda: gpu_frontend.packed_from_signals(
+            *fe_nocmvn),
+        "frontend kernel + CMVN kernel": lambda:
+            gpu_frontend.packed_from_signals(*fe_args8)})
+    print(f"phase 13 [{card}] breakdown, 512 x 5 s @ 8 kHz: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in t_parts.items()), flush=True)
+
+    # the kernels' bounds, from this run's shapes
+    B8, Lp8 = bench_sig.shape
+    T8 = n_frames(Lp8, fe8.frame_len, fe8.frame_shift)
+    valid8 = int(args13[1].sum())
+    nmel, nceps = fe8.dct.shape
+    ncols, nac = fe8.A.shape
+    SK = bench_bank.n_speakers * bench_bank.n_mixtures
+    fe_work = frontend_flops(valid8, fe8.frame_len, ncols, nmel, nac, nceps,
+                             order=nac - 1)
+    op_bytes = 4 * sum(x.numel() for x in (fe8.D, fe8.W, fe8.dct, fe8.A))
+    T48 = n_frames(padded(L48), fe48.frame_len, fe48.frame_shift)
+    bank_bytes = 4 * (bench_bank.op.numel() + bench_bank.cw.numel())
+    bounds = {
+        "packed_frontend": bound(fe_work, 4 * B8 * Lp8 + op_bytes
+                                 + 4 * B8 * T8 * d),
+        "bank_avg_loglik": bound(score_flops(valid8, d, SK),
+                                 4 * B8 * T8 * d + B8 * T8 + bank_bytes
+                                 + 4 * B8 * bench_bank.n_speakers),
+        "bank_sum_loglik": bound(
+            score_flops(int(m5.sum()), d, sb.n_speakers * sb.n_mixtures),
+            4 * x5.numel() + m5.numel() + 4 * (sb.op.numel() + sb.cw.numel())
+            + 4 * sb.n_speakers),
+        "packed_from_frames": bound(
+            frontend_flops(B8 * T8, fe8c.frame_len, fe8c.D.shape[1],
+                           fe8c.W.shape[1], fe8c.A.shape[1], nceps),
+            4 * B8 * T8 * (fe8c.frame_len + nceps + fe8c.A.shape[1])
+            + 4 * sum(x.numel() for x in (fe8c.D, fe8c.W, fe8c.dct,
+                                          fe8c.A))),
+        "mfcc_from_frames": bound(
+            frontend_flops(BENCH_B * T48, fe48.frame_len, fe48.C.shape[1],
+                           fe48.mel.shape[1], fe48.acorr.shape[1], nceps,
+                           dft_products=2),
+            4 * BENCH_B * T48 * (fe48.frame_len + nceps
+                                 + fe48.acorr.shape[1])
+            + 4 * sum(x.numel() for x in (fe48.C, fe48.S, fe48.mel,
+                                          fe48.dct, fe48.acorr))),
+        "fused": bound(fe_work + score_flops(valid8, d, SK),
+                       4 * B8 * Lp8 + 4 * B8 + op_bytes + bank_bytes
+                       + 4 * B8 * bench_bank.n_speakers),
+    }
+    for k in ("fused", "fused_bf16", "wide", "fused_plain", "predict"):
+        share = bounds["fused"]["bound_ms"] / t[k]
+        print(f"phase 13 [{card}] {k}: {t[k]:.3f} ms, FP32 roofline share "
+              f"{share:.1%} (bound {bounds['fused']['bound_ms']:.3f} ms, "
+              f"{bounds['fused']['bound_by']}), 512 x 5 s @ 8 kHz, 4 x 32 "
+              "bank", flush=True)
+
+    def entry(name, source, replaces, launched, err, ms, plain_ms, key):
+        return {"name": name, "route": "cuda",
+                "source": f"speaker_recognition_tpu_torch/csrc/{source}",
+                "replaces": f"speaker_recognition_tpu/ops/{replaces}",
+                "launches": launched, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, **bounds[key], "library_ms": None}
+
     print(card)
     print(json.dumps({"kernels": [
-        {"name": "packed_frontend", "route": "cuda",
-         "source": "speaker_recognition_tpu_torch/csrc/frontend.cu",
-         "replaces": "speaker_recognition_tpu/ops/pallas_frontend.py:231",
-         "launches": launches["frontend"], "max_abs_err": err_fe,
-         "ms": t["frontend"], "plain_ms": t["frontend_plain"]},
-        {"name": "bank_avg_loglik", "route": "cuda",
-         "source": "speaker_recognition_tpu_torch/csrc/gmm_score.cu",
-         "replaces": "speaker_recognition_tpu/ops/pallas_gmm.py:154",
-         "launches": launches["gmm"], "max_abs_err": err_gmm,
-         "ms": t["gmm"], "plain_ms": t["gmm_plain"]},
-        {"name": "bank_sum_loglik", "route": "cuda",
-         "source": "speaker_recognition_tpu_torch/csrc/gmm_serial.cu",
-         "replaces": "speaker_recognition_tpu/ops/pallas_gmm.py:47",
-         "launches": launches2["serial"], "max_abs_err": err_serial,
-         "ms": t["serial"], "plain_ms": t["serial_plain"]},
-        {"name": "packed_from_frames", "route": "cuda",
-         "source": "speaker_recognition_tpu_torch/csrc/frontend_frames.cu",
-         "replaces": "speaker_recognition_tpu/ops/pallas_frontend.py:111",
-         "launches": launches3["frames"], "max_abs_err": err_frames,
-         "ms": t["frames"], "plain_ms": t["frames_plain"]},
-        {"name": "mfcc_from_frames", "route": "cuda",
-         "source": "speaker_recognition_tpu_torch/csrc/frontend_frames.cu",
-         "replaces": "speaker_recognition_tpu/ops/pallas_frontend.py:50",
-         "launches": launches3["full"], "max_abs_err": err_full,
-         "ms": t["full"], "plain_ms": t["full_plain"]},
+        entry("packed_frontend", "frontend.cu", "pallas_frontend.py:231",
+              launches["frontend"], err_fe, t["frontend"],
+              t["frontend_plain"], "packed_frontend"),
+        entry("bank_avg_loglik", "gmm_score.cu", "pallas_gmm.py:154",
+              launches["gmm"], err_gmm, t["gmm"], t["gmm_plain"],
+              "bank_avg_loglik"),
+        entry("bank_sum_loglik", "gmm_serial.cu", "pallas_gmm.py:47",
+              launches2["serial"], err_serial, t["serial"],
+              t["serial_plain"], "bank_sum_loglik"),
+        entry("packed_from_frames", "frontend_frames.cu",
+              "pallas_frontend.py:111", launches3["frames"], err_frames,
+              t["frames"], t["frames_plain"], "packed_from_frames"),
+        entry("mfcc_from_frames", "frontend_frames.cu",
+              "pallas_frontend.py:50", launches3["full"], err_full,
+              t["full"], t["full_plain"], "mfcc_from_frames"),
+        entry("fused_bank_predict", "predict_fused.cu",
+              "pallas_predict.py:91", launches4["fused"], err_k6,
+              t["fused"], t["fused_plain"], "fused"),
+        entry("fused_bank_predict_wide", "predict_fused.cu",
+              "pallas_predict.py:215", launches4["wide"], err_k7, t["wide"],
+              t["fused_plain"], "fused"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@
 Each source compiles with its own nvcc process, all started together, and
 the objects link into one shared library with a plain C interface, loaded
 with ctypes. The library lands in `_build/` beside this file, named by a
-hash of the sources and flags, so an unchanged checkout builds once and a
-changed source rebuilds. A missing nvcc or a failed build raises: there is
+hash of the sources, the headers they share (csrc/*.cuh) and the flags, so
+an unchanged checkout builds once and a changed source or header
+rebuilds. A missing nvcc or a failed build raises: there is
 no other path to the kernels.
 """
 
@@ -79,6 +80,14 @@ def _bind(lib):
     lib.srt_serial_smem_bytes.restype = i
     lib.srt_serial_chunks.argtypes = [i]
     lib.srt_serial_chunks.restype = i
+    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                      i, i, i, i, i, i, i, i, ctypes.c_float,
+                                      i, i, p]
+    lib.srt_fused_predict.restype = i
+    lib.srt_fused_smem_bytes.argtypes = [i, i, i, i, i, i, i]
+    lib.srt_fused_smem_bytes.restype = i
+    lib.srt_fused_scratch_floats.argtypes = [i, i, i, i]
+    lib.srt_fused_scratch_floats.restype = ctypes.c_longlong
     lib.srt_error_string.argtypes = [i]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib
@@ -92,7 +101,7 @@ def load():
             return _lib
         srcs = _sources()
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
             with open(s, "rb") as f:
                 h.update(os.path.basename(s).encode() + b"\0" + f.read())
         name = f"libsrt_kernels_{h.hexdigest()[:16]}.so"

@@ -20,7 +20,7 @@ import itertools
 import os
 import sys
 
-from speaker_recognition_tpu.utils.native_io import read_wav
+from .utils.native_io import read_wav
 
 
 def get_args(argv=None):

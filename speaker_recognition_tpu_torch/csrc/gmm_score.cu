@@ -21,17 +21,17 @@
 // thread one frame whose logsumexp over K runs online (one exponential per
 // component), so no [n, S*K] tensor exists. The floor, the mask and the
 // per-utterance mean are fused; the block sums its frames in a fixed tree
-// order, so the result is deterministic and needs no atomics.
+// order, so the result is deterministic and needs no atomics. The per-frame
+// logsumexp (floored_lse) lives in csrc/gmm_lse.cuh, shared with the fused
+// predict monolith (csrc/predict_fused.cu).
 
 #include <cuda_runtime.h>
-#include <math.h>
+
+#include "gmm_lse.cuh"
 
 namespace {
 
 constexpr int GT = 128;  // threads per block = frames per staged tile
-// log(1e-15), the reference's probability floor (src/gmm/src/gmm.cc:482-492)
-constexpr float LOG_MIN_PROB = -34.538776394910684f;
-constexpr float UNDERFLOW_LOG = -745.f;
 
 __global__ void __launch_bounds__(GT) bank_score_kernel(
     const float* __restrict__ feats, const unsigned char* __restrict__ mask,
@@ -62,26 +62,7 @@ __global__ void __launch_bounds__(GT) bank_score_kernel(
       xt[(i / d) * XS + i % d] = xb[(size_t)t0 * d + i];
     __syncthreads();
     if (tid < nt && mb[t0 + tid]) {
-      const float* x = xt + tid * XS;
-      float m = -INFINITY, sum = 0.f;
-      for (int k = 0; k < K; ++k) {
-        const float* p = prm + k * P;
-        float l = 0.f;
-        for (int j = 0; j < d; ++j) {
-          const float v = x[j];
-          l = fmaf(p[j], v * v, l);
-          l = fmaf(p[d + j], v, l);
-        }
-        l += p[2 * d];
-        if (l > m) {
-          sum = sum * expf(m - l) + 1.f;
-          m = l;
-        } else {
-          sum += expf(l - m);
-        }
-      }
-      const float lse = m + logf(sum);
-      acc += lse > UNDERFLOW_LOG ? lse : LOG_MIN_PROB;
+      acc += floored_lse(xt + tid * XS, prm, d, K);
       cnt += 1.f;
     }
   }

@@ -8,12 +8,11 @@ frontend.
 
 - `PackedFrontend`: the window, pre-emphasis and a 2*frame_len-point DFT
   fold into one operator D, and everything after the squaring is linear in
-  the power spectrum (speaker_recognition_tpu.ops.frontend.
-  packed_frontend_operators). Without LPC cepstra the signal-level kernel
-  (ops/gpu_frontend.packed_from_signals) does framing, CMVN and Levinson
-  too; with them (n_lpcc > 0) the frame-level kernel
-  (packed_from_frames) gives the raw autocorrelation that the LPCC
-  recursion takes.
+  the power spectrum (ops/frontend.packed_frontend_operators). Without
+  LPC cepstra the signal-level kernel (ops/gpu_frontend.
+  packed_from_signals) does framing, CMVN and Levinson too; with them
+  (n_lpcc > 0) the frame-level kernel (packed_from_frames) gives the raw
+  autocorrelation that the LPCC recursion takes.
 - `FullFrontend`: the reference's own fft_size-point power spectrum of
   windowed, pre-emphasized frames (mfcc_from_frames). It serves
   SRTPU_FRONTEND=full and every fft_size < 2*frame_len, i.e. every sample
@@ -29,11 +28,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from speaker_recognition_tpu.ops import frontend as operators
-
 from ..config import (FeatureConfig, LpcConfig, MfccConfig, frame_geometry,
                       n_frames)
 from ..ops import framing, gpu_frontend, levinson
+from ..ops import frontend as operators
 from ..ops.gpu_frontend import masked_cmvn
 
 __all__ = ["LENGTH_BUCKET", "FullFrontend", "PackedFrontend", "apply_deltas",
@@ -159,7 +157,7 @@ class PackedFrontend(_Frontend):
     fft_size >= 2*frame_len."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__(fs, cfg)
         mf = cfg.mfcc
         if mf.fft_size < 2 * self.frame_len:
@@ -207,7 +205,7 @@ class FullFrontend(_Frontend):
     features/extract.py:306-350."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__(fs, cfg)
         mf = cfg.mfcc
         C, S = operators.dft_power_projection(self.frame_len, mf.fft_size)
@@ -276,7 +274,7 @@ def extract_batch(signals: torch.Tensor, lengths: torch.Tensor, fs: int,
 
 def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),
                 dtype: str = "float32",
-                device: torch.device | str = "cpu") -> np.ndarray:
+                device: torch.device | str = "cuda") -> np.ndarray:
     """One utterance's concat(MFCC, LPC) per frame, [T - n_deltas, d] numpy
     (src/feature/__init__.py:25-30). Int or float PCM; multi-channel input
     is averaged (MFCC.py:52-54). The signal is padded to LENGTH_BUCKET in
@@ -304,7 +302,7 @@ def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),
 
 def mfcc_extract(fs: int, signal, cfg: MfccConfig = MfccConfig(),
                  dtype: str = "float32",
-                 device: torch.device | str = "cpu") -> np.ndarray:
+                 device: torch.device | str = "cuda") -> np.ndarray:
     """MFCC only (src/feature/MFCC.py:extract)."""
     return mix_feature(fs, signal, FeatureConfig(mfcc=cfg, use_lpc=False),
                        dtype, device)
@@ -312,7 +310,7 @@ def mfcc_extract(fs: int, signal, cfg: MfccConfig = MfccConfig(),
 
 def lpc_extract(fs: int, signal, cfg: LpcConfig = LpcConfig(),
                 dtype: str = "float32",
-                device: torch.device | str = "cpu") -> np.ndarray:
+                device: torch.device | str = "cuda") -> np.ndarray:
     """LPC only (src/feature/LPC.py:extract)."""
     fcfg = FeatureConfig(
         mfcc=MfccConfig(win_length_ms=cfg.win_length_ms,

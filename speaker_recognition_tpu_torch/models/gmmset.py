@@ -60,7 +60,7 @@ class GMMSet:
     def __init__(self, gmm_order: int = 32, ubm: GmmParams | None = None,
                  reject_threshold: float = 10.0,
                  config: GmmConfig | None = None, dtype: str = "float32",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.ubm = ubm
         self.reject_threshold = reject_threshold  # gmmset.py:18
         # gmmset.py:24-27: a UBM fixes the order
@@ -284,7 +284,7 @@ class GMMSet:
     @classmethod
     def from_state(cls, st: dict, config: GmmConfig | None = None,
                    dtype: str = "float32",
-                   device: torch.device | str = "cpu") -> "GMMSet":
+                   device: torch.device | str = "cuda") -> "GMMSet":
         ubm = None
         if "ubm_weights" in st:
             ubm = GmmParams(st["ubm_weights"], st["ubm_means"],

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from speaker_recognition_tpu.ops import frontend as operators
+from . import frontend as operators
 
 
 def frame_signal(signal: torch.Tensor, frame_len: int,

@@ -8,7 +8,7 @@ signals and [B] valid frame counts,
 the [B, T, n_ceps + order] feature concat(MFCC, LPC) with
 T = (Lp - frame_len)//fshift + 1, masked CMVN over the valid frames when
 `cmvn` is set, and zeros at every frame at or past n_valid. The operators
-come from speaker_recognition_tpu.ops.frontend.packed_frontend_operators:
+come from ops/frontend.packed_frontend_operators:
 D [frame_len, ncols] (window, pre-emphasis, half-spectrum DFT), W
 [ncols, n_mel], dct [n_mel, n_ceps] and A [ncols, order+1] (Wiener-Khinchin
 autocorrelation; zero columns for an MFCC-only config).

@@ -26,7 +26,7 @@ def train_ubm(feature_arrays, n_mixtures: int = 32, n_iterations: int = 500,
               threshold: float = 1e-15, seed: int = 0, mesh=None,
               dtype="float32", checkpoint_path: str | None = None,
               checkpoint_every: int = 50,
-              device: torch.device | str = "cpu") -> gmm.GmmParams:
+              device: torch.device | str = "cuda") -> gmm.GmmParams:
     """Fit a UBM (numpy GmmParams, weights [K]) on pooled background
     features, an iterable of [T_i, d] arrays. Defaults mirror
     train-ubm.py:47 (GMM(32, nr_iteration=500, threshold=1e-15)).
@@ -86,7 +86,7 @@ def _single(params: gmm.GmmParams) -> gmm.GmmParams:
 
 def adapt_speakers(ubm: gmm.GmmParams, speaker_features: dict,
                    cfg: GmmConfig | None = None, dtype="float32",
-                   device: torch.device | str = "cpu"):
+                   device: torch.device | str = "cuda"):
     """MAP-adapt every speaker ({label: [T_i, d] array}) from the UBM in one
     batched EM. Returns (labels, numpy bank). Mirrors adapt-ubm.py:25-36."""
     cfg = cfg or GmmConfig(n_mixtures=int(np.asarray(ubm.weights).shape[-1]))

@@ -1,0 +1,136 @@
+"""chip_smoke.py rehearsed on the CPU, at 16 utterances where it takes 512.
+
+    python tests/test_torch_chip_smoke.py    # ~30 s, prints chip_smoke's lines
+
+Every kernel wrapper is replaced by its plain torch version, which counts
+its calls in the wrapper's launch counter and asserts that every tensor
+argument is contiguous (a kernel reads raw pointers; the plain versions
+accept views); CUDA events time on the host clock, and the CLI runs with
+`--device cpu`. This finds wrong paths, shapes, arguments and control flow
+in the on-card check without a card; the numbers it prints are CPU
+numbers, none of them a device metric. The test runs it in a subprocess
+(it patches torch.cuda) and reads its last two lines.
+"""
+
+import functools
+import json
+import os
+import subprocess
+import sys
+import time
+import types
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+from speaker_recognition_tpu_torch import _build  # noqa: E402
+from speaker_recognition_tpu_torch.ops import (  # noqa: E402
+    gpu_frontend, gpu_gmm, gpu_predict)
+
+# chip_smoke.py's text -> the rehearsal's
+EDITS = [
+    ("BENCH_B, BENCH_FS, BENCH_SEC = 512, 8000, 5.0",
+     "BENCH_B, BENCH_FS, BENCH_SEC = 16, 8000, 5.0"),
+    ('dev = torch.device("cuda", 0)', 'dev = torch.device("cpu")'),
+    ("if not torch.cuda.is_available():", "if False:"),
+    ('"--device", "cuda"', '"--device", "cpu"'),
+]
+
+
+class _HostEvent:
+    """torch.cuda.Event on the host clock."""
+
+    def __init__(self, **kw):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def _counting(mod, name: str, plain, counter: str):
+    """Replace mod.name by `plain`, counted in mod.counter."""
+    @functools.wraps(plain)
+    def wrapper(*args, **kw):
+        for i, a in enumerate([*args, *kw.values()]):
+            tensors = [a] if isinstance(a, torch.Tensor) else [
+                getattr(a, f) for f in ("op", "cw") if hasattr(a, f)]
+            for t in tensors:
+                assert t.is_contiguous(), (name, i, tuple(t.shape))
+        setattr(mod, counter, getattr(mod, counter) + 1)
+        return plain(*args, **kw)
+    setattr(mod, name, wrapper)
+
+
+def main():
+    torch.set_num_threads(2)
+    _build.load = lambda: None
+    _build.build_log = os.devnull
+    torch.cuda.Event = _HostEvent
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
+    torch.cuda.device_count = lambda: 0
+    torch.cuda.empty_cache = lambda: None
+    for mod, name, counter in (
+            (gpu_frontend, "packed_from_signals", "LAUNCHES"),
+            (gpu_frontend, "packed_from_frames", "FRAMES_LAUNCHES"),
+            (gpu_frontend, "mfcc_from_frames", "FULL_LAUNCHES"),
+            (gpu_gmm, "batch_bank_avg_loglik", "LAUNCHES"),
+            (gpu_gmm, "bank_sum_loglik", "SERIAL_LAUNCHES"),
+            (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES"),
+            (gpu_predict, "fused_bank_predict", "LAUNCHES")):
+        _counting(mod, name, getattr(mod, name + "_reference"), counter)
+    _counting(gpu_predict, "fused_bank_predict_wide",
+              gpu_predict.fused_bank_predict_reference, "WIDE_LAUNCHES")
+
+    path = os.path.join(REPO, "chip_smoke.py")
+    with open(path) as f:
+        src = f.read()
+    for old, new in EDITS:
+        if old not in src:
+            raise SystemExit(f"chip_smoke.py no longer has {old!r}")
+        src = src.replace(old, new)
+    smoke = types.ModuleType("chip_smoke")
+    smoke.__file__ = path
+    exec(compile(src, path, "exec"), smoke.__dict__)
+    smoke.smi = lambda: "CPU rehearsal, no power limit"
+    smoke.main([])
+
+
+KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms"}
+
+
+def test_chip_smoke_rehearses_on_the_cpu():
+    """All thirteen phases pass on the CPU; the kernels record lists the
+    seven TPU kernels with every key, each launched on its path."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
+                          capture_output=True, text=True, timeout=900,
+                          cwd=REPO)
+    assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-3000:])
+    lines = proc.stdout.strip().splitlines()
+    assert json.loads(lines[-1])["ok"] is True
+    kernels = json.loads(lines[-2])["kernels"]
+    assert [k["replaces"].rsplit("/", 1)[1] for k in kernels] == [
+        "pallas_frontend.py:231", "pallas_gmm.py:154", "pallas_gmm.py:47",
+        "pallas_frontend.py:111", "pallas_frontend.py:50",
+        "pallas_predict.py:91", "pallas_predict.py:215"]
+    for k in kernels:
+        assert set(k) == KERNEL_KEYS, k
+        assert k["launches"] >= 1 and k["bound_by"] == "operations", k
+        assert k["library_ms"] is None and k["route"] == "cuda", k
+        assert os.path.exists(os.path.join(REPO, k["source"])), k
+    assert any(ln.startswith("phase 13 two calls bitwise equal: True")
+               for ln in lines)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,9 @@
 shared session artifact, and the port's import and CLI surface."""
 
 import dataclasses
+import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -101,16 +103,72 @@ def test_session_cross_load(tmp_path, writer, reader, extras):
         assert vad2 is None
 
 
+def _port_files():
+    pkg = os.path.join(REPO, "speaker_recognition_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(pkg):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
 def test_port_imports_no_jax():
-    code = ("import sys; import speaker_recognition_tpu_torch.cli, "
-            "speaker_recognition_tpu_torch.api.interface; "
-            "from speaker_recognition_tpu_torch.ops import gpu_frontend, "
-            "gpu_gmm; assert 'jax' not in sys.modules, "
-            "sorted(m for m in sys.modules if m.startswith('jax'))")
+    """Every module of the port, and chip_smoke.py with all it imports,
+    load without jax and without any module of the JAX package."""
+    code = """
+import importlib, importlib.util, pkgutil, sys
+import speaker_recognition_tpu_torch as pkg
+for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(info.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "speaker_recognition_tpu"))
+assert not bad, bad
+assert "speaker_recognition_tpu_torch.ops.gpu_predict" in sys.modules
+"""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+_JAX_IMPORT = re.compile(
+    r"^\s*(import (jax|speaker_recognition_tpu)\b"
+    r"|from (jax|speaker_recognition_tpu)[. ])", re.M)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_names_no_jax_import(path):
+    """No file of the port nor chip_smoke.py imports jax or the JAX
+    package (the word boundary keeps speaker_recognition_tpu_torch out)."""
+    with open(path) as f:
+        hits = [m.group(0).strip() for m in _JAX_IMPORT.finditer(f.read())]
+    assert not hits, hits
+
+
+def _entry_points():
+    from speaker_recognition_tpu_torch.features import extract
+    from speaker_recognition_tpu_torch.models.gmmset import GMMSet
+    from speaker_recognition_tpu_torch.tools import ubm
+    return {"GMMSet": GMMSet, "GMMSet.from_state": GMMSet.from_state,
+            "mix_feature": extract.mix_feature,
+            "mfcc_extract": extract.mfcc_extract,
+            "lpc_extract": extract.lpc_extract,
+            "PackedFrontend": extract.PackedFrontend,
+            "FullFrontend": extract.FullFrontend,
+            "train_ubm": ubm.train_ubm, "adapt_speakers": ubm.adapt_speakers}
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_the_card(name):
+    """Public entry points run on the card unless the caller asks for the
+    CPU, as ModelInterface and the CLI do."""
+    from speaker_recognition_tpu_torch.api.interface import ModelInterface
+    sig = inspect.signature(_entry_points()[name])
+    assert sig.parameters["device"].default == "cuda"
+    assert inspect.signature(ModelInterface).parameters[
+        "device"].default == "cuda"
 
 
 def test_cli_enroll_is_refused(capsys, tmp_path):

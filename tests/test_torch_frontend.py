@@ -176,7 +176,7 @@ def test_full_frontend_env_raises(monkeypatch):
 def test_float64_features_raise():
     """The float64 parity pipeline has no kernel and is not ported."""
     with pytest.raises(NotImplementedError, match="float32"):
-        text.mix_feature(FS, np.ones(4000), dtype="float64")
+        text.mix_feature(FS, np.ones(4000), dtype="float64", device="cpu")
 
 
 class _CudaTyped(torch.Tensor):

@@ -107,7 +107,7 @@ def test_routes_follow_the_jax_rule(monkeypatch):
     assert (text.frontend(44100, cfg, "cpu").frame_len,
             text.frontend(44100, cfg, "cpu").frame_shift) == (1411, 705)
     with pytest.raises(ValueError, match="fft_size"):
-        text.PackedFrontend(48000, cfg)
+        text.PackedFrontend(48000, cfg, "cpu")
     monkeypatch.setenv("SRTPU_FRONTEND", "spectral")
     with pytest.raises(ValueError, match="SRTPU_FRONTEND"):
         text.frontend(8000, cfg, "cpu")
@@ -158,7 +158,8 @@ def test_frame_kernels_get_contiguous_frames(fs, cfg, monkeypatch):
                         spy(gpu_frontend.packed_from_frames_reference))
     monkeypatch.setattr(gpu_frontend, "mfcc_from_frames",
                         spy(gpu_frontend.mfcc_from_frames_reference))
-    text.mix_feature(fs, synth.synth_utterance("bob", 0.5, 1, fs), cfg)
+    text.mix_feature(fs, synth.synth_utterance("bob", 0.5, 1, fs), cfg,
+                     device="cpu")
     assert seen == [True]
 
 
@@ -167,7 +168,7 @@ def test_48k_mfcc_matches_float64_oracle():
     frame-loop float64 oracle of MFCC.py; f32 features of O(1), the bound
     of tests/test_features.py's f32 check."""
     sig = synth.synth_utterance("alice", 0.9, seed=3, fs=48000)
-    got = text.mfcc_extract(48000, sig)
+    got = text.mfcc_extract(48000, sig, device="cpu")
     want = oracles.oracle_mfcc(48000, sig)
     assert got.shape == want.shape == ((len(sig) - 1536) // 768 + 1, 13)
     np.testing.assert_allclose(got, want, atol=5e-3)
@@ -226,9 +227,9 @@ def test_open_set_at_48k(tmp_path, monkeypatch):
     margin sits within 1e-6 of the calibrated threshold."""
     fs = 48000
     pool = [text.mix_feature(fs, synth.synth_utterance(label, 2.0, 500 + i,
-                                                       fs))
+                                                       fs), device="cpu")
             for i, label in enumerate(synth.SPEAKER_FREQS)]
-    ubm = tubm.train_ubm(pool, n_mixtures=4, n_iterations=50)
+    ubm = tubm.train_ubm(pool, n_mixtures=4, n_iterations=50, device="cpu")
     ubm_file = str(tmp_path / "ubm.gmm")
     with open(ubm_file, "w") as f:
         serialization.dump_reference_gmm(ubm, f)
@@ -288,7 +289,9 @@ buf = io.StringIO()
 with redirect_stdout(buf):
     cli.main(["-t", "predict", "-i", os.path.join(root, "test", "*.wav"),
               "-m", model, "--device", "cpu"])
-assert "jax" not in sys.modules, sorted(k for k in sys.modules if "jax" in k)
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "speaker_recognition_tpu"))
+assert not bad, bad
 print(buf.getvalue().strip())
 """
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

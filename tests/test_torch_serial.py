@@ -163,7 +163,7 @@ def _speaker_utts(st, seeds, n=150):
 
 def test_gmmset_serial_and_rejection_match_jax():
     st = _state(10)
-    port = GMMSet.from_state(st)
+    port = GMMSet.from_state(st, device="cpu")
     jax_gs = JGMMSet.from_state(st)
     assert port.gmm_order == jax_gs.gmm_order == 4
     genuine = _speaker_utts(st, [0, 1, 2, 3, 4])
@@ -197,7 +197,7 @@ def test_gmmset_serial_and_rejection_match_jax():
 
 def test_gmmset_pads_to_the_frame_bucket():
     st = _state(20)
-    port = GMMSet.from_state(st)
+    port = GMMSet.from_state(st, device="cpu")
     x = _speaker_utts(st, [1], n=SCORE_FRAME_BUCKET + 7)[0]
     Xp, mask = port._utterance(x)
     assert Xp.shape == (2 * SCORE_FRAME_BUCKET, 6) and int(mask.sum()) == 263
@@ -211,29 +211,31 @@ def test_gmmset_pads_to_the_frame_bucket():
 def test_gmmset_preconditions():
     st = _state(30)
     no_ubm = {k: v for k, v in st.items() if not k.startswith("ubm")}
-    gs = GMMSet.from_state(no_ubm)
+    gs = GMMSet.from_state(no_ubm, device="cpu")
     x = _speaker_utts(st, [0])[0]
     with pytest.raises(RuntimeError, match="UBM must be given"):
         gs.predict_one_with_rejection(x)
     with pytest.raises(RuntimeError, match="requires a UBM"):
         gs.calibrate_rejection([x], [x])
     with pytest.raises(RuntimeError, match="train"):
-        GMMSet().predict_one(x)
+        GMMSet(device="cpu").predict_one(x)
     with pytest.raises(NotImplementedError, match="kmeans"):
-        g = GMMSet(config=GmmConfig(n_mixtures=2, init_with_kmeans=True))
+        g = GMMSet(config=GmmConfig(n_mixtures=2, init_with_kmeans=True),
+                   device="cpu")
         g.fit_new(x, "a")
         g.train()
     # a UBM fixes the order (gmmset.py:24-27)
     ubm = tgmm.GmmParams(st["ubm_weights"], st["ubm_means"],
                          st["ubm_sigmas"])
-    assert GMMSet(gmm_order=32, ubm=ubm).gmm_order == 4
+    assert GMMSet(gmm_order=32, ubm=ubm, device="cpu").gmm_order == 4
 
 
 def test_gmmset_fit_and_load_gmm(tmp_path):
     st = _state(40, S=2, K=2)
     utts = _speaker_utts(st, [0, 1, 2, 3], n=200)
     gs = GMMSet(gmm_order=2, dtype="float64",
-                config=GmmConfig(n_mixtures=2, n_iterations=30))
+                config=GmmConfig(n_mixtures=2, n_iterations=30),
+                device="cpu")
     gs.fit(utts, ["a", "b", "a", "b"])
     assert gs.y == ["a", "b"] and gs.params.means.shape == (2, 2, 6)
     assert gs.bank.op.dtype == torch.float64
@@ -298,17 +300,18 @@ def test_serial_cuda_request_raises_without_cuda():
 def test_mix_feature_matches_jax(which):
     sig = synth.synth_utterance("bob", 1.3, seed=3)
     if which == "mix":
-        got = extract.mix_feature(synth.FS, sig)
+        got = extract.mix_feature(synth.FS, sig, device="cpu")
         want = jextract.mix_feature(synth.FS, sig)
     elif which == "mix_deltas":
-        got = extract.mix_feature(synth.FS, sig, FeatureConfig(n_deltas=2))
+        got = extract.mix_feature(synth.FS, sig, FeatureConfig(n_deltas=2),
+                                  device="cpu")
         from speaker_recognition_tpu.config import FeatureConfig as JF
         want = jextract.mix_feature(synth.FS, sig, JF(n_deltas=2))
     elif which == "mfcc":
-        got = extract.mfcc_extract(synth.FS, sig, MfccConfig())
+        got = extract.mfcc_extract(synth.FS, sig, MfccConfig(), device="cpu")
         want = jextract.mfcc_extract(synth.FS, sig)
     else:
-        got = extract.lpc_extract(synth.FS, sig, LpcConfig())
+        got = extract.lpc_extract(synth.FS, sig, LpcConfig(), device="cpu")
         want = jextract.lpc_extract(synth.FS, sig)
     assert got.shape == want.shape and got.dtype == np.float32
     # tests/test_torch_frontend.py's bound for the f32 frontends
@@ -318,10 +321,12 @@ def test_mix_feature_matches_jax(which):
 def test_mix_feature_channels_and_short_signals():
     sig = synth.synth_utterance("alice", 0.8, seed=4).astype(np.float64)
     stereo = np.stack([sig, 0.5 * sig], axis=1)
-    np.testing.assert_allclose(extract.mix_feature(synth.FS, stereo),
-                               extract.mix_feature(synth.FS, 0.75 * sig),
+    np.testing.assert_allclose(extract.mix_feature(synth.FS, stereo,
+                                                   device="cpu"),
+                               extract.mix_feature(synth.FS, 0.75 * sig,
+                                                   device="cpu"),
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="Signal too short!"):
-        extract.mix_feature(synth.FS, np.zeros(5 * 256))
+        extract.mix_feature(synth.FS, np.zeros(5 * 256), device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):
-        extract.mix_feature(synth.FS, sig, dtype="float64")
+        extract.mix_feature(synth.FS, sig, dtype="float64", device="cpu")

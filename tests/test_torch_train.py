@@ -258,7 +258,7 @@ def test_adapt_speakers_matches_jax():
              + rng.randn(4)}
     cfg = dict(n_mixtures=3, n_iterations=25)
     labels, got = tubm.adapt_speakers(ubm, feats, GmmConfig(**cfg),
-                                      dtype="float64")
+                                      dtype="float64", device="cpu")
     jlabels, want = jubm.adapt_speakers(jgmm.GmmParams(*ubm), feats,
                                         JGmmConfig(**cfg), dtype="float64")
     assert labels == jlabels == ["a", "b"]
@@ -279,7 +279,8 @@ def test_train_ubm_checkpoint_resumes_like_jax(tmp_path):
             f.write(text)
     kw = dict(n_mixtures=3, n_iterations=30, threshold=1e-10,
               dtype="float64", checkpoint_every=10)
-    got = tubm.train_ubm([X[:200], X[200:]], checkpoint_path=paths[0], **kw)
+    got = tubm.train_ubm([X[:200], X[200:]], checkpoint_path=paths[0],
+                         device="cpu", **kw)
     want = jubm.train_ubm([X[:200], X[200:]], checkpoint_path=paths[1], **kw)
     # the checkpoint's 17 significant digits round-trip float64 exactly
     assert_params_close(got, want)
@@ -287,13 +288,13 @@ def test_train_ubm_checkpoint_resumes_like_jax(tmp_path):
         assert_params_close(serialization.load_reference_gmm(f), got,
                             rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="multi-device"):
-        tubm.train_ubm([X], mesh=object())
+        tubm.train_ubm([X], mesh=object(), device="cpu")
 
 
 def test_train_ubm_runs_the_port_init():
     X = make_data(400, 3, 2, seed=90)
     kw = dict(n_mixtures=2, n_iterations=50, threshold=1e-8,
-              dtype="float64")
+              dtype="float64", device="cpu")
     u1 = tubm.train_ubm([X], seed=4, **kw)
     u2 = tubm.train_ubm([X[:150], X[150:]], seed=4, **kw)
     assert_params_close(u1, u2, rtol=0, atol=0)
