@@ -9,8 +9,10 @@ the kernels and the paths.
 Needs one CUDA card and nvcc. Phases (each prints its numbers; any failure
 raises and the exit code is non-zero):
   1. device: card name, nvidia-smi name and power limit, kernel build time
-  2. frontend kernel vs plain: 512 x 5 s at 8 kHz; a 150 s clip beside a
-     short one; 16 kHz and 22.05 kHz batches; 64 mel filters
+  2. signal frontend kernel (K1, on an FFT) vs both plain versions, the
+     dense packed DFT and the FFT route: 512 x 5 s at 8 kHz; a 150 s clip
+     beside a short one; 11.025, 16 and 22.05 kHz batches; 64 mel filters;
+     one utterance; two calls bitwise
   3. bank-scoring kernel vs plain: the 4 x 32 bench bank over 512
      utterances; an 80 x 256 bank over 8
   4. slice 1: `cli -t predict` on the fixture wavs, scores_batch against
@@ -26,16 +28,20 @@ raises and the exit code is non-zero):
      predict_one_with_rejection on CUDA; launch counts of phases 7-8
   9. timing: the serial kernel and its plain version, predict_with_rejection
      of one 5 s utterance, ModelInterface.train of three speakers
- 10. full-spectrum kernel vs plain: 64 x 5 s at 48 kHz, 44.1 kHz,
-     fft_size 256 at 8 kHz, SRTPU_FRONTEND=full at 8 kHz, bob's config at
-     48 kHz, MFCC only, an utterance with no valid frame
+ 10. full-spectrum kernel (K5, on an FFT) vs both plain versions, the
+     dense DFT and the FFT route: 64 x 5 s at 48 kHz, 44.1 kHz, fft_size
+     256 at 8 kHz, a frame longer than the FFT (16 kHz, fft_size 256),
+     SRTPU_FRONTEND=full at 8 kHz, bob's config at 48 kHz, MFCC only, an
+     utterance with no valid frame, two calls bitwise; fft_size 1500 at
+     8 kHz, which takes the dense kernel
  11. frame-level packed kernel vs plain: 512 x 5 s at 8 kHz and a 16 kHz
      batch with LPC cepstra; the bench batch's LPCC through extract_batch
  12. slice 3 on the card: `cli -t enroll` then `cli -t predict` at 48 kHz,
      the JAX-enrolled 48 kHz session against the JAX package's scores, UBM
      + MAP + open-set decisions at 48 kHz, a ModelInterface with LPC
      cepstra at 8 kHz; launch counts of the phase; timing of both kernels
-     and their plain versions and of predict_scores at 48 kHz
+     and their plain versions, of K5 beside the dense kernel and
+     torch.fft.rfft in one interleaved set, and of predict_scores at 48 kHz
  13. the fused predict monolith (K6 and K7, one kernel) vs plain: the
      bench batch in f32 and with bf16 DFT operands, against predict_scores
      (the frontend and bank-scoring kernels), the 80 x 256 bank over 8
@@ -45,9 +51,9 @@ raises and the exit code is non-zero):
      interleaved, with the FP32 roofline share
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path, its error against its plain version, its time,
-its plain version's time and its bound (the larger of its FLOPs over the
-FP32 peak and its bytes over the memory rate, from this run's shapes); the
-last line is {"ok": true, "device": {...}}.
+its plain version's time and its bound (the larger of the least FLOPs of
+its function over the FP32 peak and its bytes over the memory rate, from
+this run's shapes); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ import argparse
 import contextlib
 import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -85,16 +92,17 @@ from speaker_recognition_tpu_torch.models.gmmset import (  # noqa: E402
     GMMSet, _pad_frames_bucket, _pad_stack)
 from speaker_recognition_tpu_torch.ops import (  # noqa: E402
     framing, gpu_frontend, gpu_gmm, gpu_predict)
+from speaker_recognition_tpu_torch.ops import frontend as operators  # noqa: E402
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
 
 BENCH_B, BENCH_FS, BENCH_SEC = 512, 8000, 5.0
 LENGTH_BUCKET = 4096
 # Frontend tolerances, kernel vs plain on the same card. Both are f32, but
-# the kernel sums the DFT in 32-row tiles and the mel/autocorrelation in
-# 64-column chunks where cuBLAS picks its own split: about 1e-6 relative on
-# the power spectrum, so 1e-3 absolute on CMVN'd O(1) cepstra leaves a wide
-# margin. LPC comes out of a Levinson recursion that amplifies those
+# the kernels run an FFT (K1, K5) or sum the DFT in 32-row tiles (K4), and
+# the mel/autocorrelation in chunks, where the plain versions take cuFFT's
+# or cuBLAS's own order: about 1e-6 relative on the power spectrum, so
+# 1e-3 absolute on CMVN'd O(1) cepstra leaves a wide margin. LPC comes out of a Levinson recursion that amplifies those
 # rounding differences by the conditioning of the autocorrelation, hence
 # 1e-2 absolute or 1e-3 relative, whichever is looser.
 MFCC_ATOL = 1e-3
@@ -151,34 +159,56 @@ def frontend_args(fe: PackedFrontend, sig, lengths):
             fe.floor, fe.frame_shift, fe.cmvn)
 
 
-def check_frontend(name, fe: PackedFrontend, sig, lengths) -> float:
-    """Kernel vs plain on one batch; returns the max abs error."""
-    args = frontend_args(fe, sig, lengths)
-    n_valid = args[1]
-    mask = torch.arange(n_frames(sig.shape[1], fe.frame_len, fe.frame_shift),
-                        device=sig.device) < n_valid[:, None]
-    got = gpu_frontend.packed_from_signals(*args)
-    want = gpu_frontend.packed_from_signals_reference(*args)
-    torch.cuda.synchronize()
-    if got.shape != want.shape:
-        raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
-    if not torch.isfinite(got).all():
-        raise AssertionError(f"{name}: non-finite features")
-    if (got[~mask] != 0).any():
-        raise AssertionError(f"{name}: frames past n_valid are not zero")
-    nc = fe.dct.shape[1]
+def feature_errors(got, want, mask, nc):
+    """(max |d| of the MFCC columns, of the LPC columns, count of LPC
+    entries over both LPC bounds) on the valid frames of [B, T, d]."""
     m = mask[..., None]
     d_mfcc = ((got[..., :nc] - want[..., :nc]).abs() * m).max().item()
     d_lpc = (got[..., nc:] - want[..., nc:]).abs()
     lpc_bad = ((d_lpc > LPC_ATOL) & (d_lpc > LPC_RTOL * want[..., nc:].abs())
                & m).sum().item()
-    d_lpc = (d_lpc * m).max().item()
-    print(f"phase 2 {name}: shape {tuple(got.shape)} valid frames "
-          f"{int(n_valid.sum())} mfcc max|d| {d_mfcc:.3e} (tol {MFCC_ATOL}) "
-          f"lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad})", flush=True)
-    if d_mfcc > MFCC_ATOL or lpc_bad:
-        raise AssertionError(f"{name}: frontend kernel disagrees with plain")
-    return max(d_mfcc, d_lpc)
+    d_lpc = (d_lpc * m).max().item() if d_lpc.numel() else 0.0
+    return d_mfcc, d_lpc, lpc_bad
+
+
+def check_frontend(name, fe: PackedFrontend, sig, lengths) -> float:
+    """The signal frontend kernel vs both plain versions on one batch, and
+    two calls bitwise; returns the max abs error."""
+    args = frontend_args(fe, sig, lengths)
+    n_valid = args[1]
+    mask = torch.arange(n_frames(sig.shape[1], fe.frame_len, fe.frame_shift),
+                        device=sig.device) < n_valid[:, None]
+    got = gpu_frontend.packed_from_signals(*args, fft=fe.fft)
+    again = gpu_frontend.packed_from_signals(*args, fft=fe.fft)
+    plains = {"dense": gpu_frontend.packed_from_signals_reference(*args),
+              "fft": gpu_frontend.packed_from_signals_fft_reference(
+                  sig, n_valid, fe.fft, fe.dct, fe.floor, fe.frame_shift,
+                  fe.cmvn)}
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite features")
+    if (got[~mask] != 0).any():
+        raise AssertionError(f"{name}: frames past n_valid are not zero")
+    err = 0.0
+    for plain, want in plains.items():
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
+        d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, mask,
+                                                fe.dct.shape[1])
+        print(f"phase 2 {name} vs {plain} plain: shape {tuple(got.shape)} "
+              f"valid frames {int(n_valid.sum())} mfcc max|d| {d_mfcc:.3e} "
+              f"(tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
+              f"{lpc_bad})", flush=True)
+        if d_mfcc > MFCC_ATOL or lpc_bad:
+            raise AssertionError(f"{name}: frontend kernel disagrees with "
+                                 f"the {plain} plain version")
+        err = max(err, d_mfcc, d_lpc)
+    bitwise = torch.equal(got, again)
+    print(f"phase 2 {name}: two calls bitwise equal: {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError(f"{name}: the frontend kernel is not "
+                             "deterministic")
+    return err
 
 
 def random_bank(rng, S, K, d, dev, uniform_weights=False):
@@ -266,63 +296,94 @@ def utterance(feats, n_valid, dev):
     return torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
 
 
+_DENSE_CS = {}
+
+
+def dense_cs(fe: FullFrontend):
+    """C and S of a full-spectrum frontend on its device, padded as its mel
+    rows: the operators of the dense plain version and the dense kernel,
+    which the FFT route does not keep. They depend on the frame length and
+    the FFT size only."""
+    if fe.C is not None:
+        return fe.C, fe.S
+    key = (fe.frame_len, fe.n_fft, fe.mel.shape[0], fe.mel.device)
+    if key not in _DENSE_CS:
+        pad = fe.mel.shape[0] - (fe.n_fft // 2 + 1)
+        _DENSE_CS[key] = tuple(
+            torch.as_tensor(np.pad(x, ((0, 0), (0, pad))),
+                            dtype=torch.float32, device=fe.mel.device)
+            for x in operators.dft_power_projection(fe.frame_len, fe.n_fft))
+    return _DENSE_CS[key]
+
+
 def frames_args(fe, sig):
     """The frame-level kernel's arguments for a batch, as fe.forward builds
-    them: (args, B, T)."""
+    them (C and S for the full spectrum even where the FFT route does not
+    read them): (args, B, T)."""
     fr = framing.frame_signal(sig, fe.frame_len, fe.frame_shift)
     B, T = fr.shape[:2]
     if isinstance(fe, FullFrontend):
         wp = framing.window_preemph(fr, fe.frame_len, fe.pre_emph,
                                     fe.preemph_first)
-        return ((wp.reshape(B * T, fe.frame_len), fe.C, fe.S, fe.mel,
+        return ((wp.reshape(B * T, fe.frame_len), *dense_cs(fe), fe.mel,
                  fe.dct, fe.floor, fe.acorr), B, T)
     return ((fr.reshape(B * T, fe.frame_len).contiguous(), fe.D, fe.W,
              fe.dct, fe.floor, fe.A), B, T)
 
 
 def frames_kernel(fe):
-    """(kernel wrapper, plain version, launch counter name) of fe."""
+    """(kernel wrapper, {name: plain version}, launch counter name) of fe;
+    all take frames_args' arguments."""
     if isinstance(fe, FullFrontend):
-        return (gpu_frontend.mfcc_from_frames,
-                gpu_frontend.mfcc_from_frames_reference, "FULL_LAUNCHES")
+        n = fe.n_fft
+        return (lambda *a: gpu_frontend.mfcc_from_frames(*a, n),
+                {"dense": gpu_frontend.mfcc_from_frames_reference,
+                 "fft": lambda wp, C, S, mel, dct, floor, ac:
+                     gpu_frontend.mfcc_from_frames_fft_reference(
+                         wp, mel, dct, floor, ac, n)},
+                "FULL_LAUNCHES" if n & (n - 1) == 0
+                else "FULL_DENSE_LAUNCHES")
     return (gpu_frontend.packed_from_frames,
-            gpu_frontend.packed_from_frames_reference, "FRAMES_LAUNCHES")
+            {"dense": gpu_frontend.packed_from_frames_reference},
+            "FRAMES_LAUNCHES")
 
 
 def check_frames(phase, name, fe, sig, lengths) -> float:
-    """A frame-level kernel vs its plain version on one batch, both carried
-    through the frontend's CMVN, LPC or LPC cepstra and masking; returns
-    the max abs error of the features."""
+    """A frame-level kernel vs its plain versions on one batch, all carried
+    through the frontend's CMVN, LPC or LPC cepstra and masking, and two
+    calls bitwise; returns the max abs error of the features."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the plain versions must run full f32 matmuls")
-    kernel, plain, counter = frames_kernel(fe)
+    kernel, plains, counter = frames_kernel(fe)
     args, B, T = frames_args(fe, sig)
     mask = framing.frame_validity_mask(lengths, T, fe.frame_len,
                                        fe.frame_shift)
     before = getattr(gpu_frontend, counter)
     got_c, got_r = kernel(*args)
+    again_c, again_r = kernel(*args)
     launched = getattr(gpu_frontend, counter) - before
-    want_c, want_r = plain(*args)
     torch.cuda.synchronize()
     got, m = fe.finish(got_c.view(B, T, -1), got_r.view(B, T, -1), mask)
-    want, _ = fe.finish(want_c.view(B, T, -1), want_r.view(B, T, -1), mask)
-    nc = fe.dct.shape[1]
-    m3 = m[..., None]
-    d_mfcc = ((got[..., :nc] - want[..., :nc]).abs() * m3).max().item()
-    d_lpc = (got[..., nc:] - want[..., nc:]).abs()
-    lpc_bad = ((d_lpc > LPC_ATOL) & (d_lpc > LPC_RTOL * want[..., nc:].abs())
-               & m3).sum().item()
-    d_lpc = (d_lpc * m3).max().item() if d_lpc.numel() else 0.0
-    print(f"phase {phase} {name}: {type(fe).__name__} frames "
-          f"{tuple(args[0].shape)} valid {int(m.sum())} mfcc max|d| "
-          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over "
-          f"tol: {lpc_bad}) launches {launched}", flush=True)
+    bitwise = torch.equal(got_c, again_c) and torch.equal(got_r, again_r)
     if not torch.isfinite(got).all() or (got[~m] != 0).any():
         raise AssertionError(f"{name}: non-finite or unmasked features")
-    if d_mfcc > MFCC_ATOL or lpc_bad or launched != 1:
-        raise AssertionError(f"{name}: frame-level kernel disagrees with "
-                             "plain")
-    return max(d_mfcc, d_lpc)
+    err = 0.0
+    for plain, fn in plains.items():
+        want_c, want_r = fn(*args)
+        want, _ = fe.finish(want_c.view(B, T, -1), want_r.view(B, T, -1),
+                            mask)
+        d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, m,
+                                                fe.dct.shape[1])
+        print(f"phase {phase} {name} vs {plain} plain: {type(fe).__name__} "
+              f"frames {tuple(args[0].shape)} valid {int(m.sum())} mfcc "
+              f"max|d| {d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| "
+              f"{d_lpc:.3e} (over tol: {lpc_bad}) launches {launched} "
+              f"({counter}) bitwise {bitwise}", flush=True)
+        if d_mfcc > MFCC_ATOL or lpc_bad or launched != 2 or not bitwise:
+            raise AssertionError(f"{name}: frame-level kernel disagrees "
+                                 f"with the {plain} plain version")
+        err = max(err, d_mfcc, d_lpc)
+    return err
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -334,14 +395,19 @@ def bound(flops: float, nbytes: float) -> dict:
     return {"bound_ms": bytes_ms, "bound_by": "bytes"}
 
 
-def frontend_flops(frames: int, flen: int, ncols: int, nmel: int, nac: int,
-                   nceps: int, order: int = 0, dft_products: int = 1) -> float:
-    """FLOPs of the frontends for `frames` frames: the DFT product(s), the
-    squares, the mel and autocorrelation products, the log, the DCT and
-    an order-p Levinson recursion."""
-    return frames * (dft_products * (2 * flen * ncols + ncols)
-                     + 2 * ncols * (nmel + nac) + nmel + 2 * nmel * nceps
-                     + 2 * order * order)
+def frontend_flops(frames: int, n_fft: int, ops, nceps: int,
+                   order: int = 0, window: int = 0) -> float:
+    """The least FLOPs of a frontend function for `frames` frames, whatever
+    implements it: `window` per frame for window and pre-emphasis, a real
+    FFT of n_fft points (2.5 N log2 N), the power of its N/2 + 1 bins, two
+    per nonzero of the bin-domain operators `ops` ([mel, autocorrelation],
+    rows 0..N/2), the log of each mel energy, the DCT and an order-p
+    Levinson recursion."""
+    nb = n_fft // 2 + 1
+    nnz = sum(int((op[:nb] != 0).sum()) for op in ops)
+    nmel = ops[0].shape[1]
+    return frames * (window + 2.5 * n_fft * math.log2(n_fft) + 3 * nb
+                     + 2 * nnz + nmel + 2 * nmel * nceps + 2 * order * order)
 
 
 def score_flops(frames: int, d: int, n_components: int) -> float:
@@ -445,7 +511,13 @@ def main(argv=None):
     err_fe = max(err_fe, check_frontend(
         f"16 kHz (flen {fe16.frame_len}, fshift {fe16.frame_shift})", fe16,
         s16, l16))
-    # frame_len 705, shift 352: no 16-byte frame loads, 64-frame tiles
+    # n_fft 1024 > 2 * frame_len 704
+    fe11 = PackedFrontend(11025, fcfg, dev)
+    s11, l11 = signals_batch(rng, [11025, 7000, 300], padded(11025), dev)
+    err_fe = max(err_fe, check_frontend(
+        f"11.025 kHz (flen {fe11.frame_len}, n_fft {fe11.n_fft})", fe11, s11,
+        l11))
+    # frame_len 705 (odd), shift 352: n_fft 2048
     fe22 = PackedFrontend(22050, fcfg, dev)
     s22, l22 = signals_batch(rng, [22050, 15000], padded(22050), dev)
     err_fe = max(err_fe, check_frontend(
@@ -456,6 +528,9 @@ def main(argv=None):
         n_filters=64)), dev)
     err_fe = max(err_fe, check_frontend(
         "8 kHz, 64 mel filters", fe64, bench_sig[:4], bench_len[:4]))
+    # one utterance: GMMSet's serial decisions
+    err_fe = max(err_fe, check_frontend(
+        "one 5 s utterance", fe8, bench_sig[:1].contiguous(), bench_len[:1]))
 
     # 3. bank-scoring kernel vs plain, on real features
     feats, mask = fe8(bench_sig, bench_len)
@@ -505,9 +580,14 @@ def main(argv=None):
     t = {
         "predict": time_ms(lambda: fastpath.predict_scores(
             bench_sig, bench_len, bench_bank, BENCH_FS, fcfg)),
-        "frontend": time_ms(lambda: gpu_frontend.packed_from_signals(*fe_args)),
+        "frontend": time_ms(lambda: gpu_frontend.packed_from_signals(
+            *fe_args, fft=fe8.fft)),
         "frontend_plain": time_ms(
             lambda: gpu_frontend.packed_from_signals_reference(*fe_args)),
+        "frontend_plain_fft": time_ms(
+            lambda: gpu_frontend.packed_from_signals_fft_reference(
+                fe_args[0], fe_args[1], fe8.fft, fe8.dct, fe8.floor,
+                fe8.frame_shift, fe8.cmvn)),
         "gmm": time_ms(lambda: gpu_gmm.batch_bank_avg_loglik(
             bench_bank, feats, mask)),
         "gmm_plain": time_ms(lambda: gpu_gmm.batch_bank_avg_loglik_reference(
@@ -524,6 +604,8 @@ def main(argv=None):
     for k in ("frontend", "gmm"):
         print(f"phase 5 [{card}] {k} kernel {t[k]:.3f} ms, plain "
               f"{t[k + '_plain']:.3f} ms (bench geometry)")
+    print(f"phase 5 [{card}] frontend FFT route plain "
+          f"{t['frontend_plain_fft']:.3f} ms (bench geometry)")
     print(f"phase 5 [{card}] gmm kernel 80 x 256 bank, B=8: "
           f"{t['gmm_ubm']:.3f} ms, plain {t['gmm_ubm_plain']:.3f} ms")
 
@@ -684,6 +766,16 @@ def main(argv=None):
         mfcc=MfccConfig(fft_size=256)), dev)
     err_full = max(err_full, check_frames(
         10, "8 kHz, fft_size 256", fe256, bench_sig[:8], bench_len[:8]))
+    # a frame of 512 samples folds onto the 256-point FFT
+    err_full = max(err_full, check_frames(
+        10, "16 kHz, fft_size 256 (frame 512 > fft)", FullFrontend(
+            16000, FeatureConfig(mfcc=MfccConfig(fft_size=256)), dev), s16,
+        l16))
+    # not a power of two: the dense kernel, on its own counter
+    err_full = max(err_full, check_frames(
+        10, "8 kHz, fft_size 1500 (dense kernel)", FullFrontend(
+            BENCH_FS, FeatureConfig(mfcc=MfccConfig(fft_size=1500)), dev),
+        bench_sig[:8], bench_len[:8]))
     os.environ["SRTPU_FRONTEND"] = "full"
     fe_env = extract.frontend(BENCH_FS, fcfg, dev)
     del os.environ["SRTPU_FRONTEND"]
@@ -729,7 +821,7 @@ def main(argv=None):
     utts48 = synth.fixture_utterances(exp48)
     truth48 = [u["label"] for u in exp48["utterances"]]
     gpu_frontend.LAUNCHES = gpu_frontend.FRAMES_LAUNCHES = 0
-    gpu_frontend.FULL_LAUNCHES = 0
+    gpu_frontend.FULL_LAUNCHES = gpu_frontend.FULL_DENSE_LAUNCHES = 0
     gpu_gmm.LAUNCHES = gpu_gmm.SERIAL_LAUNCHES = 0
     with tempfile.TemporaryDirectory() as tmp:
         dirs = synth.write_training_wavs(tmp, FS48)
@@ -804,12 +896,13 @@ def main(argv=None):
         raise AssertionError(f"LPCC labels {labels_lpcc} != {truth}")
     launches3 = {"frontend": gpu_frontend.LAUNCHES,
                  "frames": gpu_frontend.FRAMES_LAUNCHES,
-                 "full": gpu_frontend.FULL_LAUNCHES, "gmm": gpu_gmm.LAUNCHES,
-                 "serial": gpu_gmm.SERIAL_LAUNCHES}
+                 "full": gpu_frontend.FULL_LAUNCHES,
+                 "full_dense": gpu_frontend.FULL_DENSE_LAUNCHES,
+                 "gmm": gpu_gmm.LAUNCHES, "serial": gpu_gmm.SERIAL_LAUNCHES}
     print(f"phase 12 launches: {launches3}", flush=True)
-    if (launches3["frontend"] != 0 or min(launches3["frames"],
-                                          launches3["full"], launches3["gmm"],
-                                          launches3["serial"]) < 1):
+    if (launches3["frontend"] != 0 or launches3["full_dense"] != 0
+            or min(launches3["frames"], launches3["full"], launches3["gmm"],
+                   launches3["serial"]) < 1):
         raise AssertionError(f"slice 3 launches {launches3}")
 
     # timing of slice 3's kernels and of predict at 48 kHz
@@ -820,9 +913,18 @@ def main(argv=None):
     del fe_args
     sig48, len48 = signals_batch(rng, [L48] * BENCH_B, padded(L48), dev)
     fe_args = frames_args(fe48, sig48)[0]
-    t["full"] = time_ms(lambda: gpu_frontend.mfcc_from_frames(*fe_args))
+    # K5 beside the dense kernel on the same frames, and cuFFT's spectrum
+    # alone as a yardstick for the FFT stage (not the whole function)
+    t.update(time_interleaved({
+        "full": lambda: gpu_frontend.mfcc_from_frames(*fe_args, fe48.n_fft),
+        "full_dense": lambda: gpu_frontend.mfcc_from_frames_dense(*fe_args),
+        "rfft": lambda: torch.fft.rfft(fe_args[0], n=fe48.n_fft)}))
     t["full_plain"] = time_ms(
         lambda: gpu_frontend.mfcc_from_frames_reference(*fe_args))
+    t["full_plain_fft"] = time_ms(
+        lambda: gpu_frontend.mfcc_from_frames_fft_reference(
+            fe_args[0], fe48.mel, fe48.dct, fe48.floor, fe48.acorr,
+            fe48.n_fft))
     del fe_args
     torch.cuda.empty_cache()
     t["predict48"] = time_ms(lambda: fastpath.predict_scores(
@@ -830,8 +932,11 @@ def main(argv=None):
     rate48 = BENCH_B * BENCH_SEC / (t["predict48"] / 1e3)
     print(f"phase 12 [{card}] frame-level packed kernel, 512 x 5 s @ 8 kHz, "
           f"n_lpcc 16: {t['frames']:.3f} ms, plain {t['frames_plain']:.3f} ms")
-    print(f"phase 12 [{card}] full-spectrum kernel, 512 x 5 s @ 48 kHz: "
-          f"{t['full']:.3f} ms, plain {t['full_plain']:.3f} ms")
+    print(f"phase 12 [{card}] full-spectrum kernel (FFT), 512 x 5 s @ "
+          f"48 kHz: {t['full']:.3f} ms; in the same interleaved trials the "
+          f"dense kernel {t['full_dense']:.3f} ms and torch.fft.rfft alone "
+          f"{t['rfft']:.3f} ms; plain dense {t['full_plain']:.3f} ms, plain "
+          f"FFT {t['full_plain_fft']:.3f} ms")
     print(f"phase 12 [{card}] predict_scores 512 x 5 s @ 48 kHz, 4 x 32 "
           f"bank: {t['predict48']:.3f} ms = {rate48:.0f} audio-s/s",
           flush=True)
@@ -915,9 +1020,9 @@ def main(argv=None):
         "fused, no CMVN, 1 x 1 bank": lambda: gpu_predict.fused_bank_predict(
             *no_cmvn[:2], tiny, *no_cmvn[3:]),
         "frontend kernel, no CMVN": lambda: gpu_frontend.packed_from_signals(
-            *fe_nocmvn),
+            *fe_nocmvn, fft=fe8.fft),
         "frontend kernel + CMVN kernel": lambda:
-            gpu_frontend.packed_from_signals(*fe_args8)})
+            gpu_frontend.packed_from_signals(*fe_args8, fft=fe8.fft)})
     print(f"phase 13 [{card}] breakdown, 512 x 5 s @ 8 kHz: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in t_parts.items()), flush=True)
 
@@ -926,10 +1031,11 @@ def main(argv=None):
     T8 = n_frames(Lp8, fe8.frame_len, fe8.frame_shift)
     valid8 = int(args13[1].sum())
     nmel, nceps = fe8.dct.shape
-    ncols, nac = fe8.A.shape
+    nac = fe8.A.shape[1]
     SK = bench_bank.n_speakers * bench_bank.n_mixtures
-    fe_work = frontend_flops(valid8, fe8.frame_len, ncols, nmel, nac, nceps,
-                             order=nac - 1)
+    # window and pre-emphasis: 3 FLOPs a sample
+    fe_work = frontend_flops(valid8, fe8.n_fft, (fe8.fft_mel, fe8.fft_acorr),
+                             nceps, order=nac - 1, window=3 * fe8.frame_len)
     op_bytes = 4 * sum(x.numel() for x in (fe8.D, fe8.W, fe8.dct, fe8.A))
     T48 = n_frames(padded(L48), fe48.frame_len, fe48.frame_shift)
     bank_bytes = 4 * (bench_bank.op.numel() + bench_bank.cw.numel())
@@ -944,19 +1050,18 @@ def main(argv=None):
             4 * x5.numel() + m5.numel() + 4 * (sb.op.numel() + sb.cw.numel())
             + 4 * sb.n_speakers),
         "packed_from_frames": bound(
-            frontend_flops(B8 * T8, fe8c.frame_len, fe8c.D.shape[1],
-                           fe8c.W.shape[1], fe8c.A.shape[1], nceps),
+            frontend_flops(B8 * T8, fe8c.n_fft,
+                           (fe8c.fft_mel, fe8c.fft_acorr), nceps,
+                           window=3 * fe8c.frame_len),
             4 * B8 * T8 * (fe8c.frame_len + nceps + fe8c.A.shape[1])
             + 4 * sum(x.numel() for x in (fe8c.D, fe8c.W, fe8c.dct,
                                           fe8c.A))),
         "mfcc_from_frames": bound(
-            frontend_flops(BENCH_B * T48, fe48.frame_len, fe48.C.shape[1],
-                           fe48.mel.shape[1], fe48.acorr.shape[1], nceps,
-                           dft_products=2),
+            frontend_flops(BENCH_B * T48, fe48.n_fft, (fe48.mel, fe48.acorr),
+                           nceps),
             4 * BENCH_B * T48 * (fe48.frame_len + nceps
                                  + fe48.acorr.shape[1])
-            + 4 * sum(x.numel() for x in (fe48.C, fe48.S, fe48.mel,
-                                          fe48.dct, fe48.acorr))),
+            + 4 * sum(x.numel() for x in (fe48.mel, fe48.dct, fe48.acorr))),
         "fused": bound(fe_work + score_flops(valid8, d, SK),
                        4 * B8 * Lp8 + 4 * B8 + op_bytes + bank_bytes
                        + 4 * B8 * bench_bank.n_speakers),
@@ -989,7 +1094,7 @@ def main(argv=None):
         entry("packed_from_frames", "frontend_frames.cu",
               "pallas_frontend.py:111", launches3["frames"], err_frames,
               t["frames"], t["frames_plain"], "packed_from_frames"),
-        entry("mfcc_from_frames", "frontend_frames.cu",
+        entry("mfcc_from_frames", "frontend_fft.cu",
               "pallas_frontend.py:50", launches3["full"], err_full,
               t["full"], t["full_plain"], "mfcc_from_frames"),
         entry("fused_bank_predict", "predict_fused.cu",

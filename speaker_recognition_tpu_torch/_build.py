@@ -58,11 +58,16 @@ def _sources() -> list[str]:
 
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, i, i, i, ctypes.c_float, i, p]
+    f = ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                        i, i, i, f, i, f, i, p]
     lib.srt_packed_frontend.restype = i
-    lib.srt_frontend_smem_bytes.argtypes = [i, i, i, i]
-    lib.srt_frontend_smem_bytes.restype = i
+    lib.srt_fft_operator_shape.argtypes = [i, i, ip, ip]
+    lib.srt_fft_operator_shape.restype = i
+    lib.srt_fft_frames_frontend.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            f, p]
+    lib.srt_fft_frames_frontend.restype = i
     lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                         i, i, ctypes.c_float, i, p]
     lib.srt_frames_frontend.restype = i

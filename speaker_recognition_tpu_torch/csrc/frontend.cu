@@ -3,72 +3,96 @@
 // Replaces speaker_recognition_tpu/ops/pallas_frontend.py:_run_packed_signals
 // (the signal-level fused frontend): for frame f of utterance b,
 //     x  = signals[b, f*fshift : f*fshift + flen]
-//     X  = x . D                    (window, pre-emphasis and half-spectrum
-//                                    DFT folded into D [flen, ncols])
-//     Y  = X^2
-//     ceps = log(max(Y . W, floor)) . dct        -> feat[b, f, :nceps]
-//     r  = Y . A,  lpc = Levinson(r), non-finite -> 0
+//     y  = window and pre-emphasis of x
+//     Y  = |FFT_N(y)|^2             (bins 0..N/2)
+//     ceps = log(max(Y . M, floor)) . dct        -> feat[b, f, :nceps]
+//     r  = Y . R,  lpc = Levinson(r), non-finite -> 0
 //                                                -> feat[b, f, nceps:]
 // then masked per-utterance CMVN over the first n_valid[b] frames (second
 // kernel), and every frame at or past n_valid[b] is zero.
 //
-// What bounds it on this card: the DFT product is ~2*flen*ncols FLOPs per
-// frame (262k at 8 kHz) against 4*fshift bytes of new signal per frame, so
-// it is compute-bound on FP32 CUDA cores (no TF32: the features feed a
-// log and a Levinson recursion that amplify rounding), and within the SM
-// the limit is shared-memory bandwidth as much as FMA issue. D is
-// [256, 512] f32 = 512 KB at 8 kHz, more than a block's shared memory.
-//
-// What the design does about it:
-//   * a block owns FT consecutive frames of one utterance and stages their
-//     overlapping samples once in shared memory (frame f is a strided
-//     window: no frame matrix in device memory, no roll);
-//   * the packed columns are walked in chunks of CC = 128. Per chunk each
-//     warp computes X for its FT/8 frames x 128 columns, a lane holding
-//     FT/8 frames x 4 columns in registers: per 4 k one 16-byte broadcast
-//     load per frame (4 samples) and four 16-byte loads of D, so loads
-//     issue back to back ahead of 64 FMAs per frame;
-//   * Y = X^2 goes to shared memory only to be folded into the mel and
-//     autocorrelation sums (both linear in Y), whose [FT, 8*OPL] tile stays
-//     in registers across all chunks (a lane: FT/32 frames x OPL outputs),
-//     so X, Y and the partial sums never reach device memory;
+// What bounds it on this card, and what the design does about it: see
+// csrc/rfft_tile.cuh. The TPU kernel ran the window, the pre-emphasis and
+// a 2*flen-point DFT as one dense product frames . D (262 kFLOP a frame at
+// 8 kHz, D 512 KB); here an N-point real FFT (N the least power of two
+// >= 2*flen: 512 at 8 kHz, 2048 at 22.05 kHz) of the windowed,
+// pre-emphasized frame gives the power of bins 0..N/2, and the bin-domain
+// operators M = H . mel (H: the exact map from the N-point to the
+// fft_size-point power spectrum, ops/frontend.halfspec_to_fullspec) and
+// the biased autocorrelation R fold it into the sums. Per tile of 32
+// frames of one utterance:
+//   * sample p of frame f is the strided window signal[f*fshift + p] (no
+//     frame matrix, no roll), windowed and pre-emphasized in f32 as it is
+//     gathered, in either order of ops/frontend.windowed_preemph_operator:
+//       default:        y[p] = w[p] x[p] - a (w[p-1] x[p-1]),  y[0] = w[0] x[0]
+//       preemph_first:  y[p] = w[p] (x[p] - a x[p-1]),  y[0] = w[0] (1-a) x[0]
+//   * tiles that lie wholly past n_valid only write zeros;
 //   * log/DCT and the order-p Levinson run per frame at the end of the
-//     block, one thread per frame with the recursion in local memory;
-//   * tiles that lie wholly past n_valid only write zeros.
-// The tile stages and the CMVN live in csrc/packed_tile.cuh, shared with
-// the fused predict monolith (csrc/predict_fused.cu).
+//     block, one thread per frame with the recursion in local memory
+//     (tile_features of csrc/packed_tile.cuh, which the fused predict
+//     monolith keeps with its dense tile).
 // Built without --use_fast_math: isfinite() must survive and logf must be
 // the accurate one (an all-zero frame gives r = 0 -> 0/0 -> LPC 0).
 
 #include <cuda_runtime.h>
 
 #include "packed_tile.cuh"
+#include "rfft_tile.cuh"
 
 namespace {
 
-template <int FT, int OPL>
-__global__ void __launch_bounds__(NT, 1) packed_frontend_kernel(
+// Sample p < N of the tile's frame f: the windowed, pre-emphasized frame,
+// zero past flen and past the padded signal. Straight-line code: selects,
+// no branches, so a lane's loads for a whole frame fly together.
+struct SignalFrames {
+  const float* sig;   // the tile's first sample
+  const float* win;   // [flen]
+  int avail;          // samples from sig to the end of the padded signal
+  int fshift, flen;
+  float a;
+  bool preemph_first;
+  __device__ __forceinline__ float operator()(int f, int p) const {
+    const int i = f * fshift + p;
+    const bool in = p < flen, prev = in && p > 0;
+    const float x = in && i < avail ? sig[i] : 0.f;
+    const float xm = prev && i - 1 < avail ? sig[i - 1] : 0.f;
+    const float w = in ? win[p] : 0.f;
+    const float wm = prev ? win[p - 1] : 0.f;
+    const float first = w * (p > 0 ? x - a * xm : (1.f - a) * x);
+    const float later = w * x - a * (wm * xm);
+    return preemph_first ? first : later;
+  }
+  template <int PL>
+  __device__ __forceinline__ void fold(int, int, float2 (&)[PL]) const {}
+};
+
+template <int N, int OPL>
+__global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
     const float* __restrict__ signals, const int* __restrict__ n_valid,
-    const float* __restrict__ D, const float* __restrict__ W,
-    const float* __restrict__ A, const float* __restrict__ dct,
-    float* __restrict__ feat, int Lp, int T, int flen, int fshift, int ncols,
-    int nmel, int nac, int nceps, float power_floor) {
-  extern __shared__ float smem[];
+    const float* __restrict__ win, const float4* __restrict__ op,
+    const float* __restrict__ dct,
+    float* __restrict__ feat, int Lp, int T, int flen, int fshift, int nmel,
+    int nac, int nceps, float pre_emph, int preemph_first,
+    float power_floor) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * FT;
-  const int nf = min(FT, T - f0);
+  const int f0 = blockIdx.x * rfft::FT;
+  const int nf = min(rfft::FT, T - f0);
   const int order = nac > 0 ? nac - 1 : 0;
   const int nfeat = nceps + order;
   const int nvalid = n_valid[b];
   float* out = feat + ((size_t)b * T + f0) * nfeat;
 
   if (f0 >= nvalid) {  // block-uniform: the whole tile is padding
-    for (int i = threadIdx.x; i < nf * nfeat; i += NT) out[i] = 0.f;
+    for (int i = threadIdx.x; i < nf * nfeat; i += rfft::NTH) out[i] = 0.f;
     return;
   }
-  const float* sums = tile_sums<FT, OPL, false>(
-      signals + (size_t)b * Lp + (size_t)f0 * fshift, Lp - f0 * fshift, D, W,
-      A, smem, flen, fshift, ncols, nmel, nac, power_floor);
+  const SignalFrames load{signals + (size_t)b * Lp + (size_t)f0 * fshift,
+                          win, Lp - f0 * fshift, fshift, flen, pre_emph,
+                          preemph_first != 0};
+  const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, op,
+                                                     nmel, power_floor);
   tile_features<OPL>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps);
 }
 
@@ -86,62 +110,56 @@ __global__ void __launch_bounds__(32 * CG) cmvn_kernel(
                      threadIdx.x, threadIdx.y, red, stat);
 }
 
-template <int FT, int OPL>
-cudaError_t launch(dim3 grid, int smem, cudaStream_t st, const float* sig,
-                   const int* nv, const float* D, const float* W,
-                   const float* A, const float* dct, float* feat, int Lp,
-                   int T, int flen, int fshift, int ncols, int nmel, int nac,
-                   int nceps, float power_floor) {
+template <int N, int OPL>
+cudaError_t launch(dim3 grid, cudaStream_t st, const float* sig,
+                   const int* nv, const float* win, const float4* op,
+                   const float* dct, float* feat, int Lp,
+                   int T, int flen, int fshift, int nmel, int nac, int nceps,
+                   float pre_emph, int preemph_first, float power_floor) {
+  const int smem = 4 * rfft::smem_floats(N, OPL);
   cudaError_t err = cudaFuncSetAttribute(
-      packed_frontend_kernel<FT, OPL>,
+      packed_frontend_kernel<N, OPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  packed_frontend_kernel<FT, OPL><<<grid, NT, smem, st>>>(
-      sig, nv, D, W, A, dct, feat, Lp, T, flen, fshift, ncols, nmel, nac,
-      nceps, power_floor);
+  packed_frontend_kernel<N, OPL><<<grid, rfft::NTH, smem, st>>>(
+      sig, nv, win, op, dct, feat, Lp, T, flen, fshift, nmel, nac, nceps,
+      pre_emph, preemph_first, power_floor);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of shared memory the frontend block takes at this geometry, or -1
-// when no tiling fits (nmel + nac > 128, or frames too long).
-extern "C" int srt_frontend_smem_bytes(int flen, int fshift, int nmel,
-                                       int nac) {
-  int ft, opl;
-  if (!pick(flen, fshift, nmel + nac, &ft, &opl)) return -1;
-  return 4 * smem_floats(ft, opl, flen, fshift);
-}
-
+// signals [B, Lp], n_valid [B], win [flen] (the window), op the packed
+// [M | R] operator of srt_fft_operator_shape (csrc/frontend_fft.cu: the
+// bin-domain mel and autocorrelation operators), dct [nmel, nceps]; writes
+// feat [B, T, nceps + nac - 1] (nceps without LPC), then CMVN when cmvn.
 extern "C" int srt_packed_frontend(
-    const void* signals, const void* n_valid, const void* D, const void* W,
-    const void* A, const void* dct, void* feat, int B, int Lp, int T,
-    int flen, int fshift, int ncols, int nmel, int nac, int nceps,
-    float power_floor, int cmvn, void* stream) {
+    const void* signals, const void* n_valid, const void* win,
+    const void* op, const void* dct, void* feat, int B, int Lp, int T,
+    int flen, int fshift, int nfft, int nmel, int nac, int nceps,
+    float pre_emph, int preemph_first, float power_floor, int cmvn,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  int ft, opl;
-  if (!pick(flen, fshift, nmel + nac, &ft, &opl))
+  const int opl = rfft::pick_opl(nfft, nmel + nac);
+  if (opl == 0 || 2 * flen > nfft || nac > MAX_ORDER + 1)
     return (int)cudaErrorInvalidValue;
-  const int smem = 4 * smem_floats(ft, opl, flen, fshift);
-  const dim3 grid((T + ft - 1) / ft, B);
+  const dim3 grid((T + rfft::FT - 1) / rfft::FT, B);
   const auto* sig = (const float*)signals;
   const auto* nv = (const int*)n_valid;
-  cudaError_t err;
-  if (ft == 128)
-    err = launch<128, 9>(grid, smem, st, sig, nv, (const float*)D,
-                         (const float*)W, (const float*)A, (const float*)dct,
-                         (float*)feat, Lp, T, flen, fshift, ncols, nmel, nac,
-                         nceps, power_floor);
-  else if (opl == 9)
-    err = launch<64, 9>(grid, smem, st, sig, nv, (const float*)D,
-                        (const float*)W, (const float*)A, (const float*)dct,
-                        (float*)feat, Lp, T, flen, fshift, ncols, nmel, nac,
-                        nceps, power_floor);
-  else
-    err = launch<64, 16>(grid, smem, st, sig, nv, (const float*)D,
-                         (const float*)W, (const float*)A, (const float*)dct,
-                         (float*)feat, Lp, T, flen, fshift, ncols, nmel, nac,
-                         nceps, power_floor);
+  const auto* w = (const float*)win;
+  const auto* o = (const float4*)op;
+  const auto* d = (const float*)dct;
+  auto* out = (float*)feat;
+  const cudaError_t err = rfft::with_n(nfft, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    return opl == 9
+        ? launch<N, 9>(grid, st, sig, nv, w, o, d, out, Lp, T, flen,
+                       fshift, nmel, nac, nceps, pre_emph, preemph_first,
+                       power_floor)
+        : launch<N, 16>(grid, st, sig, nv, w, o, d, out, Lp, T, flen,
+                        fshift, nmel, nac, nceps, pre_emph, preemph_first,
+                        power_floor);
+  });
   if (err != cudaSuccess || !cmvn) return (int)err;
   const int order = nac > 0 ? nac - 1 : 0;
   cmvn_kernel<<<B, dim3(32, CG), 0, st>>>((float*)feat, nv, T, nceps + order,

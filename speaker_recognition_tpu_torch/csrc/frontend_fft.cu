@@ -1,0 +1,129 @@
+// Full-spectrum MFCC frontend on an FFT, for Hopper (sm_90a), plain C
+// interface.
+//
+// Replaces speaker_recognition_tpu/ops/pallas_frontend.py:_run
+// (mfcc_from_frames) wherever fft_size is a power of two:
+//     power = max(|FFT_N(wp)|^2, floor)     (bins 0..N/2, per bin)
+//     ceps  = log(max(power . mel, floor)) . dct,   r = power . acorr
+// for windowed, pre-emphasized frames wp [n, flen] zero-padded to N;
+// frames longer than N fold sample t onto t mod N, which is what the TPU
+// kernel's C and S compute there (their columns alias). Writes pre-CMVN
+// cepstra [n, nceps] and the RAW autocorrelation [n, nac] (nac = 0 for an
+// MFCC-only config), as csrc/frontend_frames.cu's dense template does; that
+// template keeps every fft_size that is not a power of two.
+//
+// What bounds it on this card, and what the design does about it: see
+// csrc/rfft_tile.cuh. The TPU kernel's dense product moved 12.6 MB of C
+// and S through every block (34.6 GB a batch at 48 kHz); here each block
+// reads its 32 frames once (6 KB each at 48 kHz) and the mel and
+// autocorrelation rows once, and computes its twiddles.
+// Built without --use_fast_math, for the accurate logf.
+
+#include <cuda_runtime.h>
+
+#include "rfft_tile.cuh"
+
+namespace {
+
+// Sample p < N of the tile's frame f: sample p of the frame, 0 past it;
+// fold adds the samples t = p + N, p + 2N, ... of a frame longer than N,
+// in that order (a block-uniform branch after all the first loads).
+struct FrameRows {
+  const float* fr;
+  int flen, n;
+  __device__ __forceinline__ float operator()(int f, int p) const {
+    return p < flen ? fr[(size_t)f * flen + p] : 0.f;
+  }
+  template <int PL>
+  __device__ __forceinline__ void fold(int f, int lane,
+                                       float2 (&v)[PL]) const {
+    if (flen <= n) return;
+    const float* x = fr + (size_t)f * flen;
+    for (int q = 0; q < PL; ++q) {
+      const int p = 2 * (lane + 32 * q);
+      for (int t = p + n; t < flen; t += n) v[q].x += x[t];
+      for (int t = p + 1 + n; t < flen; t += n) v[q].y += x[t];
+    }
+  }
+};
+
+template <int N, int OPL>
+__global__ void __launch_bounds__(rfft::NTH) fft_frames_kernel(
+    const float* __restrict__ frames, const float4* __restrict__ op,
+    const float* __restrict__ dct, float* __restrict__ ceps,
+    float* __restrict__ r, int n, int flen, int nmel, int nac, int nceps,
+    float power_floor) {
+  constexpr int NOP = rfft::nop(OPL);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int f0 = blockIdx.x * rfft::FT;
+  const int nf = min(rfft::FT, n - f0);
+  const FrameRows load{frames + (size_t)f0 * flen, flen, N};
+  const float* sums = rfft::tile_sums<N, OPL, true>(load, nf, smem, op, nmel,
+                                                    power_floor);
+  for (int i = threadIdx.x; i < nf * nceps; i += rfft::NTH) {
+    const int f = i / nceps, c = i % nceps;
+    const float* lm = sums + f * NOP;
+    float s = 0.f;
+    for (int m = 0; m < nmel; ++m) s = fmaf(lm[m], dct[m * nceps + c], s);
+    ceps[(size_t)(f0 + f) * nceps + c] = s;
+  }
+  for (int i = threadIdx.x; i < nf * nac; i += rfft::NTH) {
+    const int f = i / nac, j = i % nac;
+    r[(size_t)(f0 + f) * nac + j] = sums[f * NOP + nmel + j];
+  }
+}
+
+template <int N, int OPL>
+cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
+                   const float* dct, float* ceps, float* r, int n, int flen,
+                   int nmel, int nac, int nceps, float power_floor) {
+  const int smem = 4 * rfft::smem_floats(N, OPL);
+  cudaError_t err = cudaFuncSetAttribute(
+      fft_frames_kernel<N, OPL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fft_frames_kernel<N, OPL>
+      <<<(n + rfft::FT - 1) / rfft::FT, rfft::NTH, smem, st>>>(
+          frames, op, dct, ceps, r, n, flen, nmel, nac, nceps, power_floor);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The packed operator an FFT tile takes at an nfft-point FFT with nout =
+// nmel + nac outputs: rows x cols floats, row k = [mel row k | acorr row k
+// | 0] for k <= nfft/2, zero rows after. Returns -1 when no tile serves
+// them (nfft not a power of two in [64, 2048], or nout > 128).
+extern "C" int srt_fft_operator_shape(int nfft, int nout, int* rows,
+                                      int* cols) {
+  const int opl = rfft::pick_opl(nfft, nout);
+  if (opl == 0) return -1;
+  *rows = rfft::op_rows(nfft);
+  *cols = rfft::nop(opl);
+  return 0;
+}
+
+// frames [n, flen] windowed and pre-emphasized; op the packed [mel |
+// acorr] operator of srt_fft_operator_shape; dct [nmel, nceps]; writes
+// ceps [n, nceps] and r [n, nac].
+extern "C" int srt_fft_frames_frontend(
+    const void* frames, const void* op, const void* dct, void* ceps, void* r,
+    int n, int flen, int nfft, int nmel, int nac, int nceps,
+    float power_floor, void* stream) {
+  const int opl = rfft::pick_opl(nfft, nmel + nac);
+  if (n < 1 || opl == 0) return (int)cudaErrorInvalidValue;
+  const auto st = (cudaStream_t)stream;
+  const auto* f = (const float*)frames;
+  const auto* o = (const float4*)op;
+  const auto* d = (const float*)dct;
+  auto* c = (float*)ceps;
+  auto* rr = (float*)r;
+  return (int)rfft::with_n(nfft, [&](auto nc) {
+    constexpr int N = decltype(nc)::value;
+    return opl == 9 ? launch<N, 9>(st, f, o, d, c, rr, n, flen, nmel, nac,
+                                   nceps, power_floor)
+                    : launch<N, 16>(st, f, o, d, c, rr, n, flen, nmel, nac,
+                                    nceps, power_floor);
+  });
+}

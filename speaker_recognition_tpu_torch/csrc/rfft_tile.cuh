@@ -1,0 +1,406 @@
+// A shared-memory real FFT over a tile of frames, folded into mel and
+// autocorrelation sums: the spectral stage of the signal frontend
+// (csrc/frontend.cu, K1) and of the full-spectrum frontend
+// (csrc/frontend_fft.cu, K5).
+//
+// It replaces the dense DFT products of two TPU kernels of
+// speaker_recognition_tpu/ops/pallas_frontend.py: `_run` (wp . C, wp . S)
+// and `_run_packed_signals` (frames . D). Both were shaped by the TPU's
+// matrix unit; a real FFT of N points costs about 2.5 N log2 N flops
+// (56 kFLOP a frame at N = 2048, against 6.3 MFLOP for the dense product
+// of K5) and needs no operator larger than its twiddles, so neither C, S
+// nor D streams through the blocks any more.
+//
+// For a tile of FT = 32 frames, with H = N/2 and P = H + 1 bins:
+//   1. each warp takes frames w, w + 8, ...: its lanes gather sample pairs
+//      z[n] = x[2n] + i x[2n+1] (x from the caller's loader: window,
+//      pre-emphasis and the fold of samples n >= N onto n mod N happen
+//      there; the next frame's loads fly during this frame's FFT), run an
+//      H-point radix-2 complex FFT (tile_sums says how its stages split
+//      between registers and the warp's shared buffer), and the real-input
+//      post-step gives the power |X[k]|^2 of bins 0..H, floored per bin
+//      when PER_BIN_FLOOR, into row f of ys [FT][P] (P odd: a column read
+//      by 32 lanes hits 32 banks);
+//   2. the block walks the bins in chunks of CK = 16 (32 at N = 2048),
+//      staging the chunk's rows of [mel | acorr | 0] ([CK][NOP], NOP = 8 *
+//      OPL, from a packed copy the wrapper makes once) in shared memory;
+//      warp w owns the 4-column groups g = w, w + 8, ... and lane f the
+//      tile's frame f, so each y is loaded once per bin and each 16-byte
+//      operator load is a broadcast; a group whose staged block is all
+//      zero (a mel filter far from the chunk) is skipped, so the
+//      triangular filters cost about their nonzeros;
+//   3. the sums leave as log(max(mel, floor)) and the raw autocorrelation
+//      in sums [FT][NOP], the layout of tile_features (packed_tile.cuh).
+// No spectrum reaches device memory. Every sum runs in a fixed order and
+// there are no atomics, so two calls give the same bits.
+//
+// What bounds it: the least work is bytes at 48 kHz (the frames, 6 KB
+// each, read once) and FLOPs at 8 kHz (the dense bin-domain mel operator);
+// both kernels stay well above that, bound by instruction issue and
+// shared-memory latency at few warps per SM (one 256-thread block per SM
+// at N = 2048, where the tile takes ~222 KB). What the design does about
+// it: every load of a frame is straight-line code, so a lane's loads all
+// fly at once; the FFT keeps 32 values a lane in registers and touches
+// shared memory only to move data between lanes (one transpose at
+// N = 2048, two-stage passes below); the projection reads a pre-packed
+// operator with 16-byte copies and skips zero blocks.
+// speaker_recognition_tpu_torch/tools/fft_ablation.py times each stage.
+//
+// Twiddles come from sincospif (the angle 2k/N is exact in f32), no fast
+// intrinsics: the build has no --use_fast_math, and the cepstra feed a log
+// and a Levinson recursion.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include <type_traits>
+
+namespace {
+namespace rfft {
+
+constexpr int FT = 32;       // frames per tile: one per lane in stage 2
+constexpr int WARPS = 8;
+constexpr int NTH = 32 * WARPS;
+constexpr int MIN_N = 64;    // every lane holds at least one sample pair
+constexpr int MAX_N = 2048;
+constexpr int MAX_SMEM = 232448;
+
+__host__ __device__ constexpr int nop(int opl) { return 8 * opl; }
+
+// bins per staged operator chunk: 16, which lets four blocks share an SM
+// at N = 512, or 32 at N = 2048, where one block fills it anyway
+__host__ __device__ constexpr int ck(int n) { return n >= 2048 ? 32 : 16; }
+
+__host__ __device__ constexpr int log2i(int x) {
+  return x <= 1 ? 0 : 1 + log2i(x / 2);
+}
+
+// float2 slots of a warp's FFT buffer: H, plus one pad slot every 32 so
+// that the 32 lanes' contiguous blocks start in different banks
+__host__ __device__ constexpr int buf_slots(int n) {
+  return n / 2 + n / 64;
+}
+
+// float2 twiddles of the column stages (32 pairs per lane, N = 2048):
+// W_{2m}^j, j < m, for m = 32, 64, ..., H/4
+__host__ __device__ constexpr int col_twiddles(int n) {
+  return n / 64 == 32 ? n / 4 - 32 : 0;
+}
+
+// floats of shared memory: twiddles [H] (float2), per-warp buffers
+// [WARPS][buf_slots] (float2), ys [FT][H + 1] (then the sums [FT][NOP]),
+// operator chunk [ck][NOP], column-stage twiddles (float2)
+__host__ __device__ constexpr int smem_floats(int n, int opl) {
+  return n + 2 * WARPS * buf_slots(n) +
+         FT * (n / 2 + 1 > nop(opl) ? n / 2 + 1 : nop(opl)) +
+         ck(n) * nop(opl) + 2 * col_twiddles(n);
+}
+
+// the padded buffer slot of FFT element i
+__device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
+
+// OPL for nout = nmel + nac outputs at an N-point FFT, or 0 when N is not a
+// power of two in [MIN_N, MAX_N] or nout > 128.
+inline int pick_opl(int n, int nout) {
+  if (n < MIN_N || n > MAX_N || (n & (n - 1)) != 0) return 0;
+  const int o = nout <= 72 ? 9 : nout <= 128 ? 16 : 0;
+  if (o == 0 || 4 * smem_floats(n, o) > MAX_SMEM) return 0;
+  return o;
+}
+
+// rows of the packed operator at an N-point FFT: bins 0..N/2, zero rows to
+// a multiple of ck(n)
+__host__ __device__ constexpr int op_rows(int n) {
+  return (n / 2 + 1 + ck(n) - 1) / ck(n) * ck(n);
+}
+
+// f(std::integral_constant<int, N>{}) for the FFT sizes the tile takes
+template <class F>
+cudaError_t with_n(int n, F&& f) {
+  switch (n) {
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    case 1024: return f(std::integral_constant<int, 1024>{});
+    case 2048: return f(std::integral_constant<int, 2048>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__host__ __device__ constexpr int brev_bits(int x, int bits) {
+  return bits == 0 ? 0 : ((x & 1) << (bits - 1)) | brev_bits(x >> 1, bits - 1);
+}
+
+// Lane `lane`'s sample pairs of frame f: pair j = lane + 32 q is
+// (x[2j], x[2j+1]); zeros for a frame past the tile's nf. The loads are
+// straight-line code, so all of them are in flight at once; load.fold
+// then adds what a frame longer than N folds onto them.
+template <int N, class Load>
+__device__ __forceinline__ void gather(const Load& load, int f, int nf,
+                                       int lane, float2 (&v)[N / 64]) {
+  if (f < nf) {  // warp-uniform
+#pragma unroll
+    for (int q = 0; q < N / 64; ++q) {
+      const int j = lane + 32 * q;
+      v[q] = make_float2(load(f, 2 * j), load(f, 2 * j + 1));
+    }
+    load.fold(f, lane, v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < N / 64; ++q) v[q] = make_float2(0.f, 0.f);
+  }
+}
+
+// Rows [k0, k0 + CK) of the packed operator op [rows][NOP] ([mel | acorr
+// | 0], rows a multiple of CK) as this thread stages them: float4 i =
+// tid + NTH q of the chunk, where it exists.
+template <int CK, int OPL>
+__device__ __forceinline__ void fetch_chunk(
+    float4 (&v)[(CK * nop(OPL) / 4 + NTH - 1) / NTH], int k0, int tid,
+    const float4* __restrict__ op) {
+  constexpr int N4 = CK * nop(OPL) / 4;
+  const float4* src = op + (size_t)k0 * (nop(OPL) / 4);
+#pragma unroll
+  for (int q = 0; q < (N4 + NTH - 1) / NTH; ++q) {
+    const int i = tid + NTH * q;
+    if (i < N4) v[q] = src[i];
+  }
+}
+
+// One radix-2 butterfly of stage s (span m = 2^s) on slots a, b:
+// (u, v) -> (u + w v, u - w v) with w = W_{2m}^j, j the inner index of a.
+__device__ __forceinline__ void butterfly(float2* buf, int a, int b,
+                                          float2 w) {
+  const float2 t = cmul(w, buf[slot(b)]);
+  const float2 u = buf[slot(a)];
+  buf[slot(a)] = make_float2(u.x + t.x, u.y + t.y);
+  buf[slot(b)] = make_float2(u.x - t.x, u.y - t.y);
+}
+
+// Load(f, p) gives sample p in [0, N) of the tile's frame f < nf, in
+// straight-line code (no loop, no branch); load.fold(f, lane, v) adds the
+// samples p + N, p + 2N, ... of a longer frame to gather's pairs. op is
+// the packed operator [rows][NOP]: row k holds bin k's mel weights, then
+// its autocorrelation weights, then zeros; rows past N/2 are zero and
+// there are a multiple of ck(N) of them. Returns sums [FT][NOP]; ends on a
+// barrier.
+//
+// The FFT: pair j = lane + 32 q of a frame goes to slot brev(j) of the
+// warp's buffer, which is (brev5(lane) << p) | brev_p(q) with 2^p = H/32
+// pairs per lane: each lane's pairs fill a contiguous block of 2^p slots,
+// so the first p radix-2 stages run in registers. The other five pair
+// blocks of different lanes at the same offset: at 32 pairs per lane
+// (N = 2048) a transpose through the buffer gives lane t every block's
+// slot t and they run in registers too; below that they run in shared
+// memory two at a time (each lane loads 4 slots, runs both stages,
+// stores them), one __syncwarp apart.
+template <int N, int OPL, bool PER_BIN_FLOOR, class Load>
+__device__ __forceinline__ float* tile_sums(
+    const Load& load, int nf, float* smem, const float4* __restrict__ op,
+    int nmel, float power_floor) {
+  constexpr int NOP = nop(OPL);
+  constexpr int NG = NOP / 4;                  // 4-column groups
+  constexpr int GPW = (NG + WARPS - 1) / WARPS;
+  constexpr int H = N / 2, NB = H + 1, LG = log2i(H);
+  constexpr int PL = H / 32, P = log2i(PL);     // pairs per lane
+  constexpr int G4 = H >= 128 ? H / 128 : 1;    // 4-slot groups per lane
+  constexpr int CK = ck(N);
+  constexpr int N4 = CK * NOP / 4;              // float4 of a chunk
+  constexpr int PER = (N4 + NTH - 1) / NTH;     // ... staged per thread
+  static_assert(N >= MIN_N && N <= MAX_N && (N & (N - 1)) == 0, "N");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  float2* tw = reinterpret_cast<float2*>(smem);           // [H]
+  float2* buf = tw + H + warp * buf_slots(N);   // this warp's, padded
+  float* ys = smem + N + 2 * WARPS * buf_slots(N);         // [FT][NB]
+  float* opc = ys + FT * (NB > NOP ? NB : NOP);            // [CK][NOP]
+  float2* ctw = reinterpret_cast<float2*>(opc + CK * NOP);  // col_twiddles
+
+  for (int k = tid; k < H; k += NTH) {  // W_N^k = exp(-2 pi i k / N)
+    float s, c;
+    sincospif(2.f * (float)k / (float)N, &s, &c);
+    tw[k] = make_float2(c, -s);
+  }
+  for (int i = tid; i < col_twiddles(N); i += NTH) {
+    const int m = 1 << (31 - __clz(i + 32));  // the table of span m
+    float s, c;
+    sincospif((float)(i + 32 - m) / (float)m, &s, &c);  // W_{2m}^j
+    ctw[i] = make_float2(c, -s);
+  }
+  float2 nxt[PL];
+  gather<N>(load, warp, nf, lane, nxt);
+  __syncthreads();
+
+  // 1. one frame per warp at a time; the next frame's loads fly during
+  // this one's FFT
+  const int base = brev_bits(lane, 5) << P;
+  for (int f = warp; f < FT; f += WARPS) {
+    float2 r[PL];
+#pragma unroll
+    for (int q = 0; q < PL; ++q) r[brev_bits(q, P)] = nxt[q];
+    if (f + WARPS < FT) gather<N>(load, f + WARPS, nf, lane, nxt);
+#pragma unroll
+    for (int s = 0; s < P; ++s) {  // stages within the lane's block
+      const int m = 1 << s;
+#pragma unroll
+      for (int t = 0; t < PL; ++t) {
+        if (t & m) continue;
+        const float2 w = tw[(t & (m - 1)) << (LG - s)];
+        const float2 u = r[t], v = cmul(w, r[t + m]);
+        r[t] = make_float2(u.x + v.x, u.y + v.y);
+        r[t + m] = make_float2(u.x - v.x, u.y - v.y);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < PL; ++t) buf[slot(base + t)] = r[t];
+    __syncwarp();
+    if constexpr (PL == 32) {
+#pragma unroll
+      for (int b = 0; b < 32; ++b) r[b] = buf[slot(32 * b + lane)];
+#pragma unroll
+      for (int s2 = 0; s2 < 5; ++s2) {  // stage P + s2 over blocks b
+        const int mb = 1 << s2, m = 32 << s2;
+#pragma unroll
+        for (int b = 0; b < 32; ++b) {
+          if (b & mb) continue;
+          const int j = 32 * (b & (mb - 1)) + lane;  // W_{2m}^j
+          const float2 w = s2 < 4 ? ctw[m - 32 + j] : tw[j << 1];
+          const float2 u = r[b], v = cmul(w, r[b + mb]);
+          r[b] = make_float2(u.x + v.x, u.y + v.y);
+          r[b + mb] = make_float2(u.x - v.x, u.y - v.y);
+        }
+      }
+      __syncwarp();  // every lane has read its column before any is written
+#pragma unroll
+      for (int b = 0; b < 32; ++b) buf[slot(32 * b + lane)] = r[b];
+      __syncwarp();
+    } else {
+#pragma unroll
+      for (int s = P; s + 1 < LG; s += 2) {  // stages s and s + 1
+        const int m = 1 << s;
+#pragma unroll
+        for (int q = 0; q < G4; ++q) {
+          const int g = lane + 32 * q;
+          if (g >= H / 4) break;  // N = 64: a quarter of the lanes
+          const int j = g & (m - 1);
+          const int a0 = ((g >> s) << (s + 2)) + j;
+          const float2 w1 = tw[j << (LG - s)];           // W_{2m}^j
+          butterfly(buf, a0, a0 + m, w1);
+          butterfly(buf, a0 + 2 * m, a0 + 3 * m, w1);
+          butterfly(buf, a0, a0 + 2 * m, tw[j << (LG - s - 1)]);  // W_{4m}^j
+          butterfly(buf, a0 + m, a0 + 3 * m,
+                    tw[(j + m) << (LG - s - 1)]);        // W_{4m}^{j+m}
+        }
+        __syncwarp();
+      }
+      if ((LG - P) % 2) {  // the last stage alone
+        constexpr int s = LG - 1, m = 1 << (LG - 1);
+#pragma unroll
+        for (int q = 0; q < 2 * G4; ++q) {
+          const int b = lane + 32 * q;
+          if (b >= H / 2) break;
+          butterfly(buf, b, b + m, tw[b << (LG - s)]);
+        }
+        __syncwarp();
+      }
+    }
+    // real-input post-step: X[k] = E[k] + W_N^k O[k] with
+    // E = (Z[k] + conj Z[H-k]) / 2, O = (Z[k] - conj Z[H-k]) / 2i
+#pragma unroll
+    for (int q = 0; q <= PL; ++q) {
+      const int k = lane + 32 * q;
+      if (k > H) break;
+      float p;
+      if (k == 0 || k == H) {
+        const float2 z = buf[0];
+        const float x = k == 0 ? z.x + z.y : z.x - z.y;
+        p = x * x;
+      } else {
+        const float2 a = buf[slot(k)], b = buf[slot(H - k)];
+        const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
+        const float2 o = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
+        const float2 wo = cmul(tw[k], o);
+        const float xr = e.x + wo.x, xi = e.y + wo.y;
+        p = xr * xr + xi * xi;
+      }
+      if (PER_BIN_FLOOR) p = fmaxf(p, power_floor);
+      ys[f * NB + k] = p;
+    }
+    __syncwarp();  // every lane has read buf before the next frame fills it
+  }
+
+  // 2. [mel | acorr] by chunks of bins; the next chunk's operator rows are
+  // fetched into registers while this one is summed
+  float acc[GPW][4];
+#pragma unroll
+  for (int i = 0; i < GPW; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  const float* yrow = ys + lane * NB;
+  float4* opc4 = reinterpret_cast<float4*>(opc);
+  float4 pre[PER];
+  fetch_chunk<CK, OPL>(pre, 0, tid, op);
+  for (int k0 = 0; k0 < NB; k0 += CK) {
+    const int kw = min(CK, NB - k0);
+    __syncthreads();  // the FFTs, or the previous chunk's readers, are done
+#pragma unroll
+    for (int q = 0; q < PER; ++q)
+      if (tid + NTH * q < N4) opc4[tid + NTH * q] = pre[q];
+    __syncthreads();
+    if (k0 + CK < NB) fetch_chunk<CK, OPL>(pre, k0 + CK, tid, op);
+    // warp-uniform: skip a group that is zero over the whole chunk
+    bool act[GPW];
+#pragma unroll
+    for (int i = 0; i < GPW; ++i) {
+      const int g = warp + WARPS * i;
+      act[i] = false;
+      if (g < NG) {
+        const float4 w4 =
+            *reinterpret_cast<const float4*>(opc + lane % CK * NOP + 4 * g);
+        act[i] = __any_sync(0xffffffffu, w4.x != 0.f || w4.y != 0.f ||
+                                             w4.z != 0.f || w4.w != 0.f);
+      }
+    }
+    // each y is loaded once for the warp's active groups
+#pragma unroll 4
+    for (int kk = 0; kk < kw; ++kk) {
+      const float y = yrow[k0 + kk];
+#pragma unroll
+      for (int i = 0; i < GPW; ++i) {
+        if (!act[i]) continue;
+        const float4 w = *reinterpret_cast<const float4*>(
+            opc + kk * NOP + 4 * (warp + WARPS * i));
+        acc[i][0] = fmaf(y, w.x, acc[i][0]);
+        acc[i][1] = fmaf(y, w.y, acc[i][1]);
+        acc[i][2] = fmaf(y, w.z, acc[i][2]);
+        acc[i][3] = fmaf(y, w.w, acc[i][3]);
+      }
+    }
+  }
+  __syncthreads();  // every lane is done with ys: it takes the sums
+
+  float* sums = ys;  // [FT][NOP]: log-mel | autocorrelation
+#pragma unroll
+  for (int i = 0; i < GPW; ++i) {
+    const int g = warp + WARPS * i;
+    if (g >= NG) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int o = 4 * g + q;
+      sums[lane * NOP + o] =
+          o < nmel ? logf(fmaxf(acc[i][q], power_floor)) : acc[i][q];
+    }
+  }
+  __syncthreads();
+  return sums;
+}
+
+}  // namespace rfft
+}  // namespace

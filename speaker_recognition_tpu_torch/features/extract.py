@@ -6,13 +6,17 @@ package does (extract.py:211): the packed frontend when SRTPU_FRONTEND is
 "packed" (the default) and fft_size >= 2*frame_len, else the full-spectrum
 frontend.
 
-- `PackedFrontend`: the window, pre-emphasis and a 2*frame_len-point DFT
-  fold into one operator D, and everything after the squaring is linear in
-  the power spectrum (ops/frontend.packed_frontend_operators). Without
-  LPC cepstra the signal-level kernel (ops/gpu_frontend.
-  packed_from_signals) does framing, CMVN and Levinson too; with them
-  (n_lpcc > 0) the frame-level kernel (packed_from_frames) gives the raw
-  autocorrelation that the LPCC recursion takes.
+- `PackedFrontend`: everything after the squaring is linear in the power
+  spectrum of a short transform. Without LPC cepstra the signal-level
+  kernel (ops/gpu_frontend.packed_from_signals) does framing, CMVN and
+  Levinson too; on the card it runs an FFT of rfft_size(frame_len) points
+  with the bin-domain operators of ops/frontend.fft_packed_operators (the
+  `fft` route), on the CPU its plain version with the dense packed
+  operators D, W, A (ops/frontend.packed_frontend_operators: window,
+  pre-emphasis and a 2*frame_len-point DFT folded into D). With LPC
+  cepstra (n_lpcc > 0) the frame-level kernel (packed_from_frames, D)
+  gives the raw autocorrelation that the LPCC recursion takes; the fused
+  predict monolith (ops/gpu_predict) reads D, W, A too.
 - `FullFrontend`: the reference's own fft_size-point power spectrum of
   windowed, pre-emphasized frames (mfcc_from_frames). It serves
   SRTPU_FRONTEND=full and every fft_size < 2*frame_len, i.e. every sample
@@ -153,8 +157,9 @@ class _Frontend(nn.Module):
 class PackedFrontend(_Frontend):
     """The packed frontend of one (fs, FeatureConfig) on one device: buffers
     D [flen, 2*flen], W [2*flen, n_mel], dct [n_mel, n_ceps] and
-    A [2*flen, order+1] (zero columns without LPC). Needs
-    fft_size >= 2*frame_len."""
+    A [2*flen, order+1] (zero columns without LPC), and the FFT route's
+    window [flen], fft_mel [N/2+1, n_mel] and fft_acorr [N/2+1, order+1],
+    N = ops/frontend.rfft_size(flen). Needs fft_size >= 2*frame_len."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
                  device: torch.device | str = "cuda"):
@@ -172,7 +177,25 @@ class PackedFrontend(_Frontend):
             preemph_first=mf.preemph_first)
         if A is None:
             A = np.zeros((D.shape[1], 0))
-        self._register(device, D=D, W=W, dct=dct, A=A)
+        self.n_fft = operators.rfft_size(self.frame_len)
+        M, R = operators.fft_packed_operators(
+            self.frame_len, mf.fft_size, mel,
+            lpc_order=self.lpc_order if cfg.use_lpc else None,
+            n_fft=self.n_fft)
+        if R is None:
+            R = np.zeros((M.shape[0], 0))
+        self._register(device, D=D, W=W, dct=dct, A=A,
+                       window=operators.hamming(self.frame_len), fft_mel=M,
+                       fft_acorr=R)
+        self.pre_emph = mf.pre_emph
+        self.preemph_first = mf.preemph_first
+
+    @property
+    def fft(self) -> gpu_frontend.FftRoute:
+        """The operators of the signal-level kernel's FFT route."""
+        return gpu_frontend.FftRoute(self.n_fft, self.window, self.pre_emph,
+                                     self.preemph_first, self.fft_mel,
+                                     self.fft_acorr)
 
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
         """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
@@ -190,7 +213,7 @@ class PackedFrontend(_Frontend):
         n_valid = self.valid_frames(lengths.to(signals.device), T)
         feat = gpu_frontend.packed_from_signals(
             signals, n_valid, self.D, self.W, self.dct, self.A, self.floor,
-            self.frame_shift, self.cmvn)
+            self.frame_shift, self.cmvn, fft=self.fft)
         if self.n_deltas:
             feat, mask = apply_deltas(feat, mask, self.n_deltas)
             feat = torch.where(mask[..., None], feat, torch.zeros_like(feat))
@@ -199,30 +222,40 @@ class PackedFrontend(_Frontend):
 
 class FullFrontend(_Frontend):
     """The full-spectrum frontend of one (fs, FeatureConfig) on one device:
-    buffers C, S [flen, nb] (the cos/sin DFT projections), mel [nb, n_mel],
-    dct [n_mel, n_ceps] and acorr [nb, order+1] (zero columns without LPC),
-    nb = fft/2+1 rounded up to a multiple of 4, as speaker_recognition_tpu/
-    features/extract.py:306-350."""
+    buffers mel [nb, n_mel], dct [n_mel, n_ceps] and acorr [nb, order+1]
+    (zero columns without LPC), nb = fft/2+1 rounded up to a multiple of 4,
+    as speaker_recognition_tpu/features/extract.py:306-350, and C, S
+    [flen, nb] (the cos/sin DFT projections) where a route reads them: the
+    plain version on the CPU, the dense kernel at an fft_size that is not a
+    power of two. The FFT kernel takes the first fft/2+1 rows of mel and
+    acorr."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
                  device: torch.device | str = "cuda"):
         super().__init__(fs, cfg)
         mf = cfg.mfcc
-        C, S = operators.dft_power_projection(self.frame_len, mf.fft_size)
+        nb = mf.fft_size // 2 + 1
         # the autocorrelation is power @ acorr even when fft_size <
         # 2*frame_len, as in the JAX package: circular aliasing starts at lag
         # fft_size - frame_len + 1 (513 at 48 kHz), far past the LPC order
         acorr = (levinson.autocorr_operator(self.frame_len, mf.fft_size,
                                             self.lpc_order)
-                 if cfg.use_lpc else np.zeros((C.shape[1], 0)))
+                 if cfg.use_lpc else np.zeros((nb, 0)))
         mel, dct = _mel_dct(fs, mf)
-        # bins padded to a multiple of 4 (16-byte rows for the kernel's
-        # copies): zero DFT columns whose mel and autocorrelation rows are
-        # zero, so they add nothing to either
-        pad = -C.shape[1] % 4
-        C, S = (np.pad(x, ((0, 0), (0, pad))) for x in (C, S))
+        # bins padded to a multiple of 4 (16-byte rows for the dense
+        # kernel's copies): zero DFT columns whose mel and autocorrelation
+        # rows are zero, so they add nothing to either
+        pad = -nb % 4
         mel, acorr = (np.pad(x, ((0, pad), (0, 0))) for x in (mel, acorr))
-        self._register(device, C=C, S=S, mel=mel, dct=dct, acorr=acorr)
+        self._register(device, mel=mel, dct=dct, acorr=acorr)
+        self.n_fft = mf.fft_size
+        self.register_buffer("C", None)
+        self.register_buffer("S", None)
+        if (torch.device(device).type == "cpu"
+                or self.n_fft & (self.n_fft - 1)):
+            C, S = operators.dft_power_projection(self.frame_len, self.n_fft)
+            self._register(device, **{k: np.pad(x, ((0, 0), (0, pad)))
+                                      for k, x in (("C", C), ("S", S))})
         self.pre_emph = mf.pre_emph
         self.preemph_first = mf.preemph_first
 
@@ -236,7 +269,7 @@ class FullFrontend(_Frontend):
             self.frame_len, self.pre_emph, self.preemph_first)
         ceps, r = gpu_frontend.mfcc_from_frames(
             wp.reshape(B * T, self.frame_len), self.C, self.S, self.mel,
-            self.dct, self.floor, self.acorr)
+            self.dct, self.floor, self.acorr, self.n_fft)
         return self.finish(ceps.view(B, T, -1), r.view(B, T, -1), mask)
 
 

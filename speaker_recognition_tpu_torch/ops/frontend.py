@@ -8,6 +8,10 @@ mel, log, DCT. Here every step up to the log is a matrix product over a
 batch of frames, with the operators built once per (fs, config) in float64
 numpy and cast to float32 on the device by the frontends
 (features/extract.py).
+
+`rfft_size` and `fft_packed_operators`, at the end, are the port's own:
+the bin-domain operators of the signal frontend's FFT route (kernel K1,
+csrc/frontend.cu), which the JAX package does not have.
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ __all__ = [
     "windowed_preemph_operator",
     "halfspec_to_fullspec",
     "packed_frontend_operators",
+    "rfft_size",
+    "fft_packed_operators",
 ]
 
 
@@ -231,3 +237,44 @@ def windowed_preemph_operator(frame_len: int, pre_emph: float,
         A[0, 0] = 1.0 - pre_emph
         return w[:, None] * A
     return A * w[None, :]
+
+
+# ---------------------------------------------------------------------------
+# The port's own builders (no counterpart in the JAX package).
+
+
+def rfft_size(frame_len: int) -> int:
+    """The FFT size of the packed frontend's FFT route: the least power of
+    two >= 2*frame_len, so that the power spectrum determines the frame's
+    autocorrelation without circular aliasing (halfspec_to_fullspec)."""
+    return 1 << max(2 * frame_len - 1, 1).bit_length()
+
+
+def fft_packed_operators(frame_len: int, fft_size: int, mel_t: np.ndarray,
+                         lpc_order: int | None = None,
+                         n_fft: int | None = None):
+    """Bin-domain operators of the packed frontend's FFT route.
+
+    The route takes the n_fft-point power spectrum p (bins 0..n_fft/2) of
+    the windowed, pre-emphasized frame, n_fft = rfft_size(frame_len) by
+    default. Everything after it is linear in p:
+        mel   = p @ M,  M = halfspec_to_fullspec(F, n_fft, fft_size) @ mel_t
+        r / F = p @ R,  R = P2R / F, the biased autocorrelation of
+                packed_frontend_operators with 2F replaced by n_fft.
+    At n_fft = 2F these are the rows of packed_frontend_operators' W and A
+    with the column expansion E undone.
+
+    Returns (M [n_fft/2+1, n_mel], R [n_fft/2+1, order+1] or None), float64.
+    """
+    F = frame_len
+    N = rfft_size(F) if n_fft is None else n_fft
+    M = halfspec_to_fullspec(F, N, fft_size) @ mel_t
+    R = None
+    if lpc_order is not None:
+        k = np.arange(N // 2 + 1, dtype=np.float64)[:, None]
+        j = np.arange(lpc_order + 1, dtype=np.float64)[None, :]
+        P2R = 2.0 * np.cos(2.0 * np.pi * k * j / N) / N
+        P2R[0] /= 2.0
+        P2R[-1] /= 2.0
+        R = P2R / F
+    return M, R

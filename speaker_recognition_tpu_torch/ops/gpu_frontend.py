@@ -3,29 +3,40 @@
 Each wrapper launches its CUDA kernel on a CUDA tensor and runs its
 `*_reference` on a CPU tensor; any other device raises.
 
-`packed_from_signals` (csrc/frontend.cu) computes, for [B, Lp] zero-padded
-signals and [B] valid frame counts,
-the [B, T, n_ceps + order] feature concat(MFCC, LPC) with
-T = (Lp - frame_len)//fshift + 1, masked CMVN over the valid frames when
-`cmvn` is set, and zeros at every frame at or past n_valid. The operators
-come from ops/frontend.packed_frontend_operators:
-D [frame_len, ncols] (window, pre-emphasis, half-spectrum DFT), W
-[ncols, n_mel], dct [n_mel, n_ceps] and A [ncols, order+1] (Wiener-Khinchin
-autocorrelation; zero columns for an MFCC-only config).
+`packed_from_signals` (K1, csrc/frontend.cu) computes, for [B, Lp]
+zero-padded signals and [B] valid frame counts, the [B, T, n_ceps + order]
+feature concat(MFCC, LPC) with T = (Lp - frame_len)//fshift + 1, masked
+CMVN over the valid frames when `cmvn` is set, and zeros at every frame at
+or past n_valid. Its plain version, the CPU path, runs the dense packed
+operators of ops/frontend.packed_frontend_operators: D [frame_len, ncols]
+(window, pre-emphasis, half-spectrum DFT), W [ncols, n_mel], dct
+[n_mel, n_ceps] and A [ncols, order+1] (Wiener-Khinchin autocorrelation;
+zero columns for an MFCC-only config). The kernel computes the same
+function on an FFT: it takes an `FftRoute` (the window, the pre-emphasis
+and the bin-domain operators of ops/frontend.fft_packed_operators);
+`packed_from_signals_fft_reference` is that route in plain torch.
 
-The frame-level kernels of csrc/frontend_frames.cu take [n, frame_len]
-frames and return pre-CMVN cepstra [n, n_ceps] and the RAW
-autocorrelation [n, order+1] (zero-width without LPC), which the LPC
-cepstra need:
-  `packed_from_frames`  raw frames, the packed operators D, W, A;
-                        the floor applies to mel only;
-  `mfcc_from_frames`    windowed, pre-emphasized frames, the cos/sin
+The frame-level kernels take [n, frame_len] frames and return pre-CMVN
+cepstra [n, n_ceps] and the RAW autocorrelation [n, order+1] (zero-width
+without LPC), which the LPC cepstra need:
+  `packed_from_frames`  (K4, csrc/frontend_frames.cu) raw frames, the
+                        packed operators D, W, A; the floor applies to mel
+                        only;
+  `mfcc_from_frames`    (K5) windowed, pre-emphasized frames, the cos/sin
                         operators C, S [frame_len, nb] (nb >= fft/2+1
-                        bins), mel, acorr; the floor applies to each
-                        power bin, then to mel.
+                        bins; the CPU path), mel, acorr; the floor applies
+                        to each power bin, then to mel. On the card an
+                        n_fft that is a power of two takes the FFT kernel
+                        (csrc/frontend_fft.cu; plain torch:
+                        `mfcc_from_frames_fft_reference`), any other the
+                        dense template of csrc/frontend_frames.cu
+                        (`mfcc_from_frames_dense`).
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,9 +45,10 @@ from . import framing, levinson
 
 # kernel launches since the last reset, one count per kernel; the CPU path
 # does not count
-LAUNCHES = 0          # csrc/frontend.cu, packed_from_signals
-FRAMES_LAUNCHES = 0   # csrc/frontend_frames.cu, packed_from_frames
-FULL_LAUNCHES = 0     # csrc/frontend_frames.cu, mfcc_from_frames
+LAUNCHES = 0             # csrc/frontend.cu, packed_from_signals
+FRAMES_LAUNCHES = 0      # csrc/frontend_frames.cu, packed_from_frames
+FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
+FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
 
 _MAX_ORDER = 32      # csrc/frontend.cu MAX_ORDER
 _MAX_CEPS = 32       # one warp of columns in the CMVN kernel
@@ -54,6 +66,63 @@ def masked_cmvn(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     var = ((feat - mu) ** 2 * m).sum(dim=-2, keepdim=True) / safe
     normed = (feat - mu) / torch.sqrt(var)
     return torch.where(count > 1, normed, feat)
+
+
+class FftRoute(NamedTuple):
+    """What the signal frontend's FFT route takes besides the signals:
+    frames of len(window) samples, windowed and pre-emphasized in the order
+    of ops/frontend.windowed_preemph_operator, their n_fft-point power
+    spectrum (bins 0..n_fft/2), then mel = power @ mel and the raw
+    autocorrelation power @ acorr (ops/frontend.fft_packed_operators)."""
+
+    n_fft: int
+    window: torch.Tensor  # [frame_len]
+    pre_emph: float
+    preemph_first: bool
+    mel: torch.Tensor     # [n_fft/2 + 1, n_mel]
+    acorr: torch.Tensor   # [n_fft/2 + 1, order + 1], zero-width without LPC
+
+
+def _power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """|rfft(x, n_fft)|^2 of [..., flen] frames; samples t >= n_fft fold
+    onto t mod n_fft (what C and S of a DFT shorter than the frame do)."""
+    flen = x.shape[-1]
+    if flen > n_fft:
+        pad = -flen % n_fft
+        x = torch.nn.functional.pad(x, (0, pad)).unflatten(
+            -1, (-1, n_fft)).sum(dim=-2)
+    X = torch.fft.rfft(x, n=n_fft)
+    return X.real * X.real + X.imag * X.imag
+
+
+def packed_from_signals_fft_reference(signals, n_valid, fft: FftRoute, dct,
+                                      floor: float, fshift: int,
+                                      cmvn: bool) -> torch.Tensor:
+    """The signal frontend's FFT route in plain torch: what K1 computes."""
+    flen = fft.window.shape[0]
+    frames = framing.frame_signal(signals, flen, fshift)
+    T = frames.shape[-2]
+    mask = torch.arange(T, device=signals.device) < n_valid[:, None]
+    Y = _power(framing.window_preemph(frames, flen, fft.pre_emph,
+                                      fft.preemph_first), fft.n_fft)
+    ceps = torch.log(torch.clamp_min(Y @ fft.mel, floor)) @ dct
+    if cmvn:
+        ceps = masked_cmvn(ceps, mask)
+    parts = [ceps]
+    if fft.acorr.shape[1]:
+        parts.append(levinson.lpc_from_autocorr(Y @ fft.acorr))
+    feat = torch.cat(parts, dim=-1)
+    return torch.where(mask[..., None], feat, torch.zeros_like(feat))
+
+
+def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
+                                   n_fft: int):
+    """The full-spectrum frontend on an FFT in plain torch: what K5's FFT
+    kernel computes (mel and acorr rows past n_fft/2 are not read)."""
+    nb = n_fft // 2 + 1
+    power = torch.clamp_min(_power(wp, n_fft), floor)
+    return (torch.log(torch.clamp_min(power @ mel[:nb], floor)) @ dct,
+            power @ acorr[:nb])
 
 
 def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
@@ -76,53 +145,91 @@ def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
 
 
 def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
-                        fshift: int, cmvn: bool) -> torch.Tensor:
-    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order]."""
+                        fshift: int, cmvn: bool,
+                        fft: FftRoute | None = None) -> torch.Tensor:
+    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order]. On the
+    CPU the plain version with D, W, A; on the card the FFT kernel, which
+    takes `fft` instead."""
     if signals.device.type == "cpu":
         return packed_from_signals_reference(signals, n_valid, D, W, dct, A,
                                              floor, fshift, cmvn)
     if signals.device.type != "cuda":
         raise ValueError(f"no frontend for device {signals.device}")
+    if fft is None:
+        raise ValueError("the signal frontend kernel runs the FFT route: "
+                         "pass fft= (features.extract.PackedFrontend.fft)")
     dev = signals.device
     _build.check_tensor(signals, "signals", torch.float32, 2, dev)
     _build.check_tensor(n_valid, "n_valid", torch.int32, 1, dev)
-    for t, name in ((D, "D"), (W, "W"), (dct, "dct"), (A, "A")):
-        _build.check_tensor(t, name, torch.float32, 2, dev)
+    for t, name in ((fft.window, "window"), (fft.mel, "mel"),
+                    (fft.acorr, "acorr"), (dct, "dct")):
+        _build.check_tensor(t, name, torch.float32, 1 if t is fft.window
+                            else 2, dev)
     B, Lp = signals.shape
-    flen, ncols = D.shape
+    flen, N = fft.window.shape[0], fft.n_fft
     nmel, nceps = dct.shape
-    nac = A.shape[1]
+    nac = fft.acorr.shape[1]
     order = max(nac - 1, 0)
-    if (n_valid.shape[0] != B or W.shape != (ncols, nmel)
-            or A.shape[0] != ncols or fshift < 1 or Lp < flen):
+    if (n_valid.shape[0] != B or fft.mel.shape[1] != nmel
+            or min(fft.mel.shape[0], fft.acorr.shape[0]) < N // 2 + 1
+            or fshift < 1 or Lp < flen or 2 * flen > N):
         raise ValueError(
             f"inconsistent frontend shapes: signals {tuple(signals.shape)}, "
-            f"n_valid {tuple(n_valid.shape)}, D {tuple(D.shape)}, W "
-            f"{tuple(W.shape)}, dct {tuple(dct.shape)}, A {tuple(A.shape)}, "
-            f"fshift {fshift}")
+            f"n_valid {tuple(n_valid.shape)}, window {flen}, n_fft {N}, mel "
+            f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
+            f"{tuple(dct.shape)}, fshift {fshift}")
     if order > _MAX_ORDER or nceps > _MAX_CEPS or B > _MAX_GRID_Y:
         raise ValueError(f"frontend kernel limits: order {order} <= "
                          f"{_MAX_ORDER}, n_ceps {nceps} <= {_MAX_CEPS}, "
                          f"batch {B} <= {_MAX_GRID_Y}")
     lib = _build.load()
-    if lib.srt_frontend_smem_bytes(flen, fshift, nmel, nac) < 0:
-        raise ValueError(
-            f"no frontend tiling fits a block's shared memory at frame_len "
-            f"{flen}, frame_shift {fshift}, {nmel} mel + {nac} "
-            f"autocorrelation outputs (at most 128)")
+    op = _packed_operator(lib, fft.mel, fft.acorr, N)
     T = (Lp - flen) // fshift + 1
     feat = torch.empty((B, T, nceps + order), dtype=torch.float32, device=dev)
     global LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.srt_packed_frontend(
-            signals.data_ptr(), n_valid.data_ptr(), D.data_ptr(),
-            W.data_ptr(), A.data_ptr(), dct.data_ptr(), feat.data_ptr(),
-            B, Lp, T, flen, fshift, ncols, nmel, nac, nceps, float(floor),
+            signals.data_ptr(), n_valid.data_ptr(), fft.window.data_ptr(),
+            op.data_ptr(), dct.data_ptr(), feat.data_ptr(), B, Lp, T, flen,
+            fshift, N, nmel, nac, nceps,
+            float(fft.pre_emph), int(bool(fft.preemph_first)), float(floor),
             int(bool(cmvn)), stream)
     _build.check(err, "packed frontend kernel")
     LAUNCHES += 1
     return feat
+
+
+# the packed operators built for the FFT kernels: (id(mel), id(acorr),
+# n_fft) -> (mel, acorr, their versions, op); an entry holds its inputs,
+# so their ids and storage stay theirs while it lives
+_PACKED: dict = {}
+
+
+def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
+    """[mel | acorr | 0] rows 0..n_fft/2 in the FFT tile's layout (csrc/
+    frontend_fft.cu srt_fft_operator_shape), built once per (mel, acorr,
+    n_fft) and rebuilt after either is written to."""
+    key = (id(mel), id(acorr), n_fft)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[2] == (mel._version, acorr._version):
+        return hit[3]
+    nmel, nac = mel.shape[1], acorr.shape[1]
+    rows, cols = ctypes.c_int(), ctypes.c_int()
+    if lib.srt_fft_operator_shape(n_fft, nmel + nac, ctypes.byref(rows),
+                                  ctypes.byref(cols)) < 0:
+        raise ValueError(
+            f"no FFT tile at n_fft {n_fft} with {nmel + nac} mel + "
+            "autocorrelation outputs: it takes a power of two in "
+            "[64, 2048] and at most 128 outputs")
+    nb = n_fft // 2 + 1
+    op = mel.new_zeros((rows.value, cols.value))
+    op[:nb, :nmel] = mel[:nb]
+    op[:nb, nmel:nmel + nac] = acorr[:nb]
+    if len(_PACKED) >= 16:
+        _PACKED.clear()
+    _PACKED[key] = (mel, acorr, (mel._version, acorr._version), op)
+    return op
 
 
 def packed_from_frames_reference(frames, D, W, dct, floor: float, A):
@@ -145,12 +252,63 @@ def packed_from_frames(frames, D, W, dct, floor: float, A):
     return _frames_kernel(False, frames, (D,), W, dct, floor, A)
 
 
-def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr):
+def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr,
+                     n_fft: int | None = None):
     """[n, flen] windowed, pre-emphasized frames -> ([n, n_ceps] pre-CMVN
-    cepstra, [n, nac] raw autocorrelation)."""
+    cepstra, [n, nac] raw autocorrelation). On the card `n_fft` picks the
+    kernel: the FFT kernel for a power of two (C and S unused), the dense
+    template (`mfcc_from_frames_dense`) otherwise."""
+    if wp.device.type == "cpu":
+        return mfcc_from_frames_reference(wp, C, S, mel, dct, floor, acorr)
+    if wp.device.type != "cuda":
+        raise ValueError(f"no frontend for device {wp.device}")
+    if n_fft is None:
+        raise ValueError("the full-spectrum kernels need n_fft")
+    if n_fft & (n_fft - 1) == 0:
+        return _fft_frames_kernel(wp, mel, dct, floor, acorr, n_fft)
+    return mfcc_from_frames_dense(wp, C, S, mel, dct, floor, acorr)
+
+
+def mfcc_from_frames_dense(wp, C, S, mel, dct, floor: float, acorr):
+    """The full-spectrum frontend as dense DFT products (csrc/
+    frontend_frames.cu): what mfcc_from_frames takes at an n_fft that is
+    not a power of two."""
     if wp.device.type == "cpu":
         return mfcc_from_frames_reference(wp, C, S, mel, dct, floor, acorr)
     return _frames_kernel(True, wp, (C, S), mel, dct, floor, acorr)
+
+
+def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
+    """Check and launch csrc/frontend_fft.cu's kernel."""
+    dev = wp.device
+    _build.check_tensor(wp, "frames", torch.float32, 2, dev)
+    for t, name in ((mel, "mel"), (dct, "dct"), (ac, "acorr")):
+        _build.check_tensor(t, name, torch.float32, 2, dev)
+    n, flen = wp.shape
+    nmel, nceps = dct.shape
+    nac = ac.shape[1]
+    if (mel.shape[1] != nmel
+            or min(mel.shape[0], ac.shape[0]) < n_fft // 2 + 1):
+        raise ValueError(
+            f"inconsistent frontend shapes: frames {tuple(wp.shape)}, n_fft "
+            f"{n_fft}, mel {tuple(mel.shape)}, dct {tuple(dct.shape)}, "
+            f"acorr {tuple(ac.shape)}")
+    lib = _build.load()
+    op = _packed_operator(lib, mel, ac, n_fft)
+    ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
+    r = torch.empty((n, nac), dtype=torch.float32, device=dev)
+    if n == 0:
+        return ceps, r
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.srt_fft_frames_frontend(
+            wp.data_ptr(), op.data_ptr(), dct.data_ptr(), ceps.data_ptr(),
+            r.data_ptr(), n, flen, n_fft, nmel, nac, nceps, float(floor),
+            stream)
+    _build.check(err, "full-spectrum FFT frontend kernel")
+    global FULL_LAUNCHES
+    FULL_LAUNCHES += 1
+    return ceps, r
 
 
 def _frames_kernel(full: bool, frames, dft, mel, dct, floor, ac):
@@ -191,9 +349,9 @@ def _frames_kernel(full: bool, frames, dft, mel, dct, floor, ac):
             flen, ncols, nmel, nac, nceps, float(floor), int(full), stream)
     _build.check(err, ("full-spectrum" if full else "frame-level packed")
                  + " frontend kernel")
-    global FRAMES_LAUNCHES, FULL_LAUNCHES
+    global FRAMES_LAUNCHES, FULL_DENSE_LAUNCHES
     if full:
-        FULL_LAUNCHES += 1
+        FULL_DENSE_LAUNCHES += 1
     else:
         FRAMES_LAUNCHES += 1
     return ceps, r

@@ -2,10 +2,11 @@
 
     python tests/test_torch_chip_smoke.py    # ~30 s, prints chip_smoke's lines
 
-Every kernel wrapper is replaced by its plain torch version, which counts
-its calls in the wrapper's launch counter and asserts that every tensor
-argument is contiguous (a kernel reads raw pointers; the plain versions
-accept views); CUDA events time on the host clock, and the CLI runs with
+Every kernel wrapper is replaced by its plain torch version (for the
+frontends, by the wrapper itself, which on CPU tensors runs its plain
+version), which counts its calls in the wrapper's launch counter and
+asserts that every tensor argument is contiguous (a kernel reads raw
+pointers; the plain versions accept views); CUDA events time on the host clock, and the CLI runs with
 `--device cpu`. This finds wrong paths, shapes, arguments and control flow
 in the on-card check without a card; the numbers it prints are CPU
 numbers, none of them a device metric. The test runs it in a subprocess
@@ -55,18 +56,27 @@ class _HostEvent:
         return (other.t - self.t) * 1e3
 
 
-def _counting(mod, name: str, plain, counter: str):
-    """Replace mod.name by `plain`, counted in mod.counter."""
+def _counting(mod, name: str, plain, counter):
+    """Replace mod.name by `plain`, counted in mod.counter (or in the
+    counter that counter(*args) names)."""
     @functools.wraps(plain)
     def wrapper(*args, **kw):
         for i, a in enumerate([*args, *kw.values()]):
             tensors = [a] if isinstance(a, torch.Tensor) else [
-                getattr(a, f) for f in ("op", "cw") if hasattr(a, f)]
+                getattr(a, f) for f in ("op", "cw", "window", "mel", "acorr")
+                if isinstance(getattr(a, f, None), torch.Tensor)]
             for t in tensors:
                 assert t.is_contiguous(), (name, i, tuple(t.shape))
-        setattr(mod, counter, getattr(mod, counter) + 1)
+        c = counter(*args) if callable(counter) else counter
+        setattr(mod, c, getattr(mod, c) + 1)
         return plain(*args, **kw)
     setattr(mod, name, wrapper)
+
+
+def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
+    """The counter of the kernel mfcc_from_frames takes on the card."""
+    return "FULL_LAUNCHES" if n_fft & (n_fft - 1) == 0 else \
+        "FULL_DENSE_LAUNCHES"
 
 
 def main():
@@ -78,10 +88,15 @@ def main():
     torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
     torch.cuda.device_count = lambda: 0
     torch.cuda.empty_cache = lambda: None
+    # the frontend wrappers take their kernels' operators beside the plain
+    # versions' (the FFT route's, n_fft): on CPU tensors they run the plain
+    # versions themselves
+    for name, counter in (("packed_from_signals", "LAUNCHES"),
+                          ("mfcc_from_frames", _full_counter),
+                          ("mfcc_from_frames_dense", "FULL_DENSE_LAUNCHES")):
+        _counting(gpu_frontend, name, getattr(gpu_frontend, name), counter)
     for mod, name, counter in (
-            (gpu_frontend, "packed_from_signals", "LAUNCHES"),
             (gpu_frontend, "packed_from_frames", "FRAMES_LAUNCHES"),
-            (gpu_frontend, "mfcc_from_frames", "FULL_LAUNCHES"),
             (gpu_gmm, "batch_bank_avg_loglik", "LAUNCHES"),
             (gpu_gmm, "bank_sum_loglik", "SERIAL_LAUNCHES"),
             (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES"),
@@ -111,7 +126,8 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 def test_chip_smoke_rehearses_on_the_cpu():
     """All thirteen phases pass on the CPU; the kernels record lists the
-    seven TPU kernels with every key, each launched on its path."""
+    seven TPU kernels with every key, each launched on its path, K1 and K5
+    with their FFT kernels' sources."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
                           capture_output=True, text=True, timeout=900,
                           cwd=REPO)
@@ -125,11 +141,16 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_predict.py:91", "pallas_predict.py:215"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
-        assert k["launches"] >= 1 and k["bound_by"] == "operations", k
+        assert k["launches"] >= 1, k
+        assert k["bound_by"] in ("operations", "bytes"), k
         assert k["library_ms"] is None and k["route"] == "cuda", k
         assert os.path.exists(os.path.join(REPO, k["source"])), k
+    assert kernels[0]["source"].endswith("csrc/frontend.cu")
+    assert kernels[4]["source"].endswith("csrc/frontend_fft.cu")
     assert any(ln.startswith("phase 13 two calls bitwise equal: True")
                for ln in lines)
+    assert sum("two calls bitwise equal: True" in ln and ln.startswith(
+        "phase 2 ") for ln in lines) >= 7
 
 
 if __name__ == "__main__":

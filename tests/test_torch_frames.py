@@ -189,25 +189,32 @@ def _wrapper_args(full):
     return (frames, _t(D), _t(W), _t(dct), FLOOR, _t(A))
 
 
-@pytest.mark.parametrize("full", [False, True], ids=["packed", "full"])
-def test_cuda_request_raises_without_cuda(full):
+@pytest.mark.parametrize("full,n_fft", [(False, None), (True, 2048),
+                                         (True, 1500)],
+                         ids=["packed", "full", "full_dense"])
+def test_cuda_request_raises_without_cuda(full, n_fft):
     """On a CUDA tensor each frame-level wrapper builds and launches its
-    kernel or raises; it never runs the plain version and counts nothing."""
+    kernel or raises; it never runs the plain version and counts nothing.
+    The full-spectrum wrapper takes its FFT kernel at a power-of-two n_fft
+    and the dense one otherwise; both need n_fft on the card."""
     fn = gpu_frontend.mfcc_from_frames if full else \
         gpu_frontend.packed_from_frames
     args = _wrapper_args(full)
+    extra = (n_fft,) if full else ()
     cuda = [a.as_subclass(_CudaTyped) if isinstance(a, torch.Tensor) else a
             for a in args]
-    before = (gpu_frontend.FRAMES_LAUNCHES, gpu_frontend.FULL_LAUNCHES,
-              gpu_frontend.LAUNCHES)
+    counters = ("FRAMES_LAUNCHES", "FULL_LAUNCHES", "FULL_DENSE_LAUNCHES",
+                "LAUNCHES")
+    before = [getattr(gpu_frontend, c) for c in counters]
     with pytest.raises(RuntimeError):
-        fn(*cuda)
-    assert (gpu_frontend.FRAMES_LAUNCHES, gpu_frontend.FULL_LAUNCHES,
-            gpu_frontend.LAUNCHES) == before
+        fn(*cuda, *extra)
+    if full:
+        with pytest.raises(ValueError, match="n_fft"):
+            fn(*cuda)
+    assert [getattr(gpu_frontend, c) for c in counters] == before
     with pytest.raises(ValueError, match="device"):
-        fn(args[0].to("meta"), *args[1:])
+        fn(args[0].to("meta"), *args[1:], *extra)
     # on the CPU the plain version runs and is not counted
-    ceps, r = fn(*args)
+    ceps, r = fn(*args, *extra)
     assert ceps.shape == (8, 13) and r.shape == (8, 16)
-    assert (gpu_frontend.FRAMES_LAUNCHES, gpu_frontend.FULL_LAUNCHES) == \
-        before[:2]
+    assert [getattr(gpu_frontend, c) for c in counters] == before

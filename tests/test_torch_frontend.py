@@ -195,11 +195,16 @@ def test_cuda_request_raises_without_cuda():
     sig, lens = _signals([8192], 8192, seed=1)
     nv = _n_valid(fe, lens, 8192)
     cuda = lambda t: t.as_subclass(_CudaTyped)  # noqa: E731
+    fft = fe.fft._replace(window=cuda(fe.window), mel=cuda(fe.fft_mel),
+                          acorr=cuda(fe.fft_acorr))
+    args = (cuda(torch.from_numpy(sig)), cuda(nv), cuda(fe.D), cuda(fe.W),
+            cuda(fe.dct), cuda(fe.A), fe.floor, fe.frame_shift, True)
     before = gpu_frontend.LAUNCHES
     with pytest.raises(RuntimeError):
-        gpu_frontend.packed_from_signals(
-            cuda(torch.from_numpy(sig)), cuda(nv), cuda(fe.D), cuda(fe.W),
-            cuda(fe.dct), cuda(fe.A), fe.floor, fe.frame_shift, True)
+        gpu_frontend.packed_from_signals(*args, fft=fft)
+    # the kernel runs the FFT route: without its operators it refuses
+    with pytest.raises(ValueError, match="fft="):
+        gpu_frontend.packed_from_signals(*args)
     assert gpu_frontend.LAUNCHES == before
     with pytest.raises(ValueError, match="device"):
         gpu_frontend.packed_from_signals(

@@ -154,10 +154,11 @@ def test_frame_kernels_get_contiguous_frames(fs, cfg, monkeypatch):
         return call
 
     from speaker_recognition_tpu_torch.ops import gpu_frontend
+    # the wrappers themselves: on CPU tensors they run the plain versions
     monkeypatch.setattr(gpu_frontend, "packed_from_frames",
-                        spy(gpu_frontend.packed_from_frames_reference))
+                        spy(gpu_frontend.packed_from_frames))
     monkeypatch.setattr(gpu_frontend, "mfcc_from_frames",
-                        spy(gpu_frontend.mfcc_from_frames_reference))
+                        spy(gpu_frontend.mfcc_from_frames))
     text.mix_feature(fs, synth.synth_utterance("bob", 0.5, 1, fs), cfg,
                      device="cpu")
     assert seen == [True]
