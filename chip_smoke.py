@@ -12,20 +12,27 @@ raises and the exit code is non-zero):
   2. signal frontend kernel (K1, on an FFT) vs both plain versions, the
      dense packed DFT and the FFT route: 512 x 5 s at 8 kHz; a 150 s clip
      beside a short one; 11.025, 16 and 22.05 kHz batches; 64 mel filters;
-     one utterance; two calls bitwise
-  3. bank-scoring kernel vs plain: the 4 x 32 bench bank over 512
-     utterances; an 80 x 256 bank over 8
+     one utterance; two calls bitwise; its raw-autocorrelation mode (the
+     LPC cepstra's) at the bench batch and at 16 and 22.05 kHz
+  3. bank-scoring kernel vs plain, two calls bitwise: the 4 x 32 bench
+     bank over 512 utterances; an 80 x 256 bank over 8; a 4 x 1024 bank;
+     d = 102 (bob's MFCC + LPC + two deltas at 16 kHz); features that
+     start off a 16-byte boundary
   4. slice 1: `cli -t predict` on the fixture wavs, scores_batch against
      the JAX package's scores, both kernels' launch counts
   5. timing (CUDA events, median of 7 trials): end-to-end predict_scores at
      the bench geometry, each kernel and its plain version
   6. serial kernel vs plain: the bench bank + UBM on one 5 s utterance, an
      80 x 256 bank + UBM on 3 s, a 150 s clip, the underflow floor, no
-     valid frame, one speaker
+     valid frame, one speaker, features off a 16-byte boundary, 1024
+     components, d = 102 and d = 200 (past the widest dimension a lane
+     keeps in registers)
   7. slice 2: `cli -t enroll` then `cli -t predict` on CUDA at the default
      config; the same EM from one init on CUDA f32 against CPU f64
   8. the open set: train_ubm, adapt_speakers, calibrate_rejection and
-     predict_one_with_rejection on CUDA; launch counts of phases 7-8
+     predict_one_with_rejection on CUDA; launch counts of phases 7-8; the
+     same through ModelInterface at d = 102 (16 kHz), llr_scores against
+     the CPU's plain version
   9. timing: the serial kernel and its plain version, predict_with_rejection
      of one 5 s utterance, ModelInterface.train of three speakers
  10. full-spectrum kernel (K5, on an FFT) vs both plain versions, the
@@ -34,14 +41,19 @@ raises and the exit code is non-zero):
      SRTPU_FRONTEND=full at 8 kHz, bob's config at 48 kHz, MFCC only, an
      utterance with no valid frame, two calls bitwise; fft_size 1500 at
      8 kHz, which takes the dense kernel
- 11. frame-level packed kernel vs plain: 512 x 5 s at 8 kHz and a 16 kHz
-     batch with LPC cepstra; the bench batch's LPCC through extract_batch
+ 11. frame-level packed kernel (K4, no serving caller) vs plain: 512 x 5 s
+     at 8 kHz and a 16 kHz batch with LPC cepstra; the bench batch's LPCC
+     through extract_batch launches K1 once and K4 never, its features
+     against the plain route
  12. slice 3 on the card: `cli -t enroll` then `cli -t predict` at 48 kHz,
      the JAX-enrolled 48 kHz session against the JAX package's scores, UBM
-     + MAP + open-set decisions at 48 kHz, a ModelInterface with LPC
-     cepstra at 8 kHz; launch counts of the phase; timing of both kernels
-     and their plain versions, of K5 beside the dense kernel and
-     torch.fft.rfft in one interleaved set, and of predict_scores at 48 kHz
+     + MAP + open-set decisions at 48 kHz; then the LPC-cepstra slice at
+     8 kHz: ModelInterface enroll, train, predict_batch, dump, `cli -t
+     predict`, the open set; launch counts of both; timing of the
+     frontend kernels and their plain versions, of K5 beside the dense
+     kernel and torch.fft.rfft in one interleaved set, of predict_scores
+     at 48 kHz, and of LPCC predict on K1's raw-autocorrelation mode
+     beside the earlier route through K4
  13. the fused predict monolith (K6 and K7, one kernel) vs plain: the
      bench batch in f32 and with bf16 DFT operands, against predict_scores
      (the frontend and bank-scoring kernels), the 80 x 256 bank over 8
@@ -50,8 +62,9 @@ raises and the exit code is non-zero):
      timing of the monolith, its plain version and predict_scores,
      interleaved, with the FP32 roofline share
 The line before the last is {"kernels": [...]}, each kernel with its
-launches on the main path, its error against its plain version, its time,
-its plain version's time and its bound (the larger of the least FLOPs of
+launches on the main path (0 for K4, which no serving path takes), its
+error against its plain version, its time, its plain version's time and
+its bound (the larger of the least FLOPs of
 its function over the FP32 peak and its bytes over the memory rate, from
 this run's shapes); the last line is {"ok": true, "device": {...}}.
 """
@@ -64,9 +77,11 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import scipy.io.wavfile as wavfile
@@ -107,6 +122,10 @@ LENGTH_BUCKET = 4096
 # 1e-2 absolute or 1e-3 relative, whichever is looser.
 MFCC_ATOL = 1e-3
 LPC_ATOL, LPC_RTOL = 1e-2, 1e-3
+# The raw autocorrelation is a sum of f32 power bins taken in another
+# order: ~1e-6 of the frame's lag-0 value (its largest) measured, 1e-4
+# bounds it.
+ACORR_RTOL = 1e-4
 # Scoring: both sum 2d products per component in f32 in different orders;
 # the [B, S] averages agree to ~1e-6 relative, 1e-4 bounds them.
 SCORE_RTOL = 1e-4
@@ -211,6 +230,51 @@ def check_frontend(name, fe: PackedFrontend, sig, lengths) -> float:
     return err
 
 
+def check_frontend_raw(name, fe: PackedFrontend, sig, lengths) -> float:
+    """The signal frontend kernel's raw-autocorrelation mode vs both plain
+    versions on one batch, and two calls bitwise; returns the max abs error
+    of the cepstra."""
+    args = frontend_args(fe, sig, lengths)
+    n_valid = args[1]
+    mask = torch.arange(n_frames(sig.shape[1], fe.frame_len, fe.frame_shift),
+                        device=sig.device) < n_valid[:, None]
+    ceps, r = gpu_frontend.packed_from_signals(*args, fft=fe.fft,
+                                               fuse_lpc=False)
+    again = gpu_frontend.packed_from_signals(*args, fft=fe.fft,
+                                             fuse_lpc=False)
+    plains = {"dense": gpu_frontend.packed_from_signals_reference(
+                  *args, fuse_lpc=False),
+              "fft": gpu_frontend.packed_from_signals_fft_reference(
+                  sig, n_valid, fe.fft, fe.dct, fe.floor, fe.frame_shift,
+                  fe.cmvn, fuse_lpc=False)}
+    torch.cuda.synchronize()
+    if not (torch.isfinite(ceps).all() and torch.isfinite(r).all()):
+        raise AssertionError(f"{name}: non-finite cepstra or autocorrelation")
+    if (ceps[~mask] != 0).any() or (r[~mask] != 0).any():
+        raise AssertionError(f"{name}: frames past n_valid are not zero")
+    err = 0.0
+    for plain, (want_c, want_r) in plains.items():
+        if ceps.shape != want_c.shape or r.shape != want_r.shape:
+            raise AssertionError(f"{name}: shapes {ceps.shape}, {r.shape}")
+        d_ceps = (ceps - want_c).abs().max().item()
+        lag0 = want_r[..., :1].abs().clamp_min(1e-30)
+        d_r = ((r - want_r).abs() / lag0)[mask].max().item()
+        print(f"phase 2 {name} vs {plain} plain: cepstra "
+              f"{tuple(ceps.shape)} max|d| {d_ceps:.3e} (tol {MFCC_ATOL}), "
+              f"autocorrelation {tuple(r.shape)} max|d|/lag0 {d_r:.3e} (tol "
+              f"{ACORR_RTOL})", flush=True)
+        if d_ceps > MFCC_ATOL or d_r > ACORR_RTOL:
+            raise AssertionError(f"{name}: raw-autocorrelation mode "
+                                 f"disagrees with the {plain} plain version")
+        err = max(err, d_ceps)
+    bitwise = all(torch.equal(a, b) for a, b in zip((ceps, r), again))
+    print(f"phase 2 {name}: two calls bitwise equal: {bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError(f"{name}: the frontend kernel is not "
+                             "deterministic")
+    return err
+
+
 def random_bank(rng, S, K, d, dev, uniform_weights=False):
     w = (np.full((S, K), 1.0 / K) if uniform_weights
          else rng.dirichlet(np.ones(K), size=S))
@@ -222,6 +286,7 @@ def random_bank(rng, S, K, d, dev, uniform_weights=False):
 
 def check_scoring(name, bank, feats, mask) -> float:
     got = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
+    again = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
     want = gpu_gmm.batch_bank_avg_loglik_reference(bank, feats, mask)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
@@ -229,12 +294,21 @@ def check_scoring(name, bank, feats, mask) -> float:
     d = (got - want).abs()
     rel = (d / want.abs().clamp_min(1e-30)).max().item()
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
-    print(f"phase 3 {name}: [B, S] {tuple(got.shape)} max|d| "
-          f"{d.max().item():.3e} max rel {rel:.3e} (tol {SCORE_RTOL}) "
-          f"argmax identical {same}", flush=True)
-    if rel > SCORE_RTOL or not same:
+    bitwise = torch.equal(got, again)
+    print(f"phase 3 {name}: [B, S] {tuple(got.shape)} d {feats.shape[-1]} K "
+          f"{bank.n_mixtures} max|d| {d.max().item():.3e} max rel {rel:.3e} "
+          f"(tol {SCORE_RTOL}) argmax identical {same} two calls bitwise "
+          f"equal {bitwise}", flush=True)
+    if rel > SCORE_RTOL or not same or not bitwise:
         raise AssertionError(f"{name}: scoring kernel disagrees with plain")
     return d.max().item()
+
+
+def off_alignment(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x that starts one element into its storage."""
+    flat = x.new_empty(x.numel() + 1)
+    flat[1:] = x.reshape(-1)
+    return flat[1:].view(x.shape)
 
 
 def time_ms(fn, trials=7, reps=3) -> float:
@@ -252,6 +326,40 @@ def time_ms(fn, trials=7, reps=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def device_times(fn, calls=20) -> str:
+    """Where a call's time goes: the device microseconds per launch of
+    each kernel fn() launches (their count and sum where there are many),
+    by torch.profiler, and the host's microseconds per call to enqueue
+    them (timed without the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and ev.device_time_total]
+    name = lambda key: key.replace(  # noqa: E731
+        "(anonymous namespace)::", "").split("<")[0].split("(")[0].split()[-1]
+    if len(evs) > 4:
+        device = (f"{sum(ev.count for ev in evs) / calls:.0f} launches a "
+                  f"call, {sum(ev.device_time_total for ev in evs) / calls:.1f}"
+                  " us in all")
+    else:
+        device = ", ".join(f"{name(ev.key)} "
+                           f"{ev.device_time_total / ev.count:.1f} us"
+                           for ev in evs) or "not measured"
+    return f"device {device}; host enqueue {host:.1f} us a call"
 
 
 def check_serial(name, bank, x, mask, floor=False):
@@ -294,6 +402,56 @@ def utterance(feats, n_valid, dev):
     GMMSet._scores pads them: ([Tp, d], [Tp] mask) on dev."""
     x, m = _pad_frames_bucket(feats[:n_valid].cpu().numpy())
     return torch.from_numpy(x).to(dev), torch.from_numpy(m).to(dev)
+
+
+def open_set(name, fs, pcfg: PipelineConfig, dev, n_mixtures=32):
+    """The open set through the entry points at (fs, config) on the card:
+    a UBM on the three synthetic speakers, alice and bob MAP-adapted from
+    it, the threshold calibrated on held-out audio, then
+    predict_with_rejection on a genuine and an impostor utterance, and
+    llr_scores against the same bank's on the CPU (the plain version).
+    Returns the server."""
+    fcfg = pcfg.features
+    utt = lambda label, sec, seed: synth.synth_utterance(  # noqa: E731
+        label, sec, seed, fs)
+    train = {label: [extract.mix_feature(fs, utt(label, sec, base + i), fcfg,
+                                         device=dev)
+                     for sec, base in synth.TRAIN]
+             for i, label in enumerate(synth.SPEAKER_FREQS)}
+    ubm = ubm_tools.train_ubm([f for fl in train.values() for f in fl],
+                              n_mixtures=n_mixtures,
+                              n_iterations=UBM_ITERATIONS, device=dev)
+    labels, adapted = ubm_tools.adapt_speakers(
+        ubm, {label: np.concatenate(train[label])
+              for label in ("alice", "bob")}, device=dev)
+    state = {"labels": labels, "weights": adapted.weights,
+             "means": adapted.means, "sigmas": adapted.sigmas,
+             "reject_threshold": 10.0, "ubm_weights": ubm.weights,
+             "ubm_means": ubm.means, "ubm_sigmas": ubm.sigmas}
+    server = ModelInterface(pcfg, device=dev)
+    server.gmmset = GMMSet.from_state(state, device=dev)
+    op = server.calibrate_rejection(
+        fs, [utt(label, 2.0, 950 + j) for j, label in
+             enumerate(["alice", "bob", "alice", "bob"])],
+        [utt("carol", 2.0, 960 + j) for j in range(4)])
+    decisions = [server.predict_with_rejection(fs, utt(label, 3.0, seed))
+                 for label, seed in (("alice", 970), ("carol", 971))]
+    x = extract.mix_feature(fs, utt("bob", 3.0, 972), fcfg, device=dev)
+    got, got_ubm = server.gmmset.llr_scores(x)
+    want, want_ubm = GMMSet.from_state(state, device="cpu").llr_scores(x)
+    rel = float(np.max(np.abs(np.append(got, got_ubm)
+                              - np.append(want, want_ubm))
+                       / np.abs(np.append(want, want_ubm))))
+    print(f"{name}: d {x.shape[1]}, UBM GMM-{n_mixtures} + MAP {labels}: "
+          f"threshold {op['threshold']:.4f} EER {op['eer']:.3f}; held-out "
+          f"alice -> {decisions[0]}, carol -> {decisions[1]}; llr_scores vs "
+          f"the CPU's plain version max rel {rel:.3e} (tol {SERIAL_RTOL})",
+          flush=True)
+    if decisions != ["alice", None]:
+        raise AssertionError(f"{name}: open-set decisions {decisions}")
+    if x.shape[1] != fcfg.dim or rel > SERIAL_RTOL:
+        raise AssertionError(f"{name}: llr_scores disagree with the CPU")
+    return server
 
 
 _DENSE_CS = {}
@@ -486,13 +644,20 @@ def main(argv=None):
     card = smi()
     print(f"phase 1 device: {kind}; nvidia-smi: {card}", flush=True)
     _build.load()
-    ptxas = []
+    # ptxas -v, in short: the kernels' register range and every kernel
+    # that spills (the whole log lies beside the library)
     with open(_build.build_log) as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln or "Compiling" in ln]
+        log = f.read()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = re.findall(r"Compiling entry function '(\w+)'[^\n]*\n[^\n]*\n"
+                        r"\s*(\d+ bytes stack frame, [1-9]\d* bytes spill "
+                        r"stores, \d+ bytes spill loads)", log)
     print(f"phase 1 build: {_build.build_seconds:.1f} s "
-          f"({os.path.basename(_build.build_log)[:-4]}.so)", flush=True)
-    for ln in ptxas:
-        print(f"  ptxas: {ln}")
+          f"({os.path.basename(_build.build_log)[:-4]}.so), {len(regs)} "
+          f"kernels, {min(regs, default=0)}-{max(regs, default=0)} "
+          f"registers, {len(spills)} with spills", flush=True)
+    for name, spill in spills:
+        print(f"  ptxas: {name[:120]}: {spill}")
 
     # 2. frontend kernel vs plain
     fcfg = FeatureConfig()
@@ -531,6 +696,15 @@ def main(argv=None):
     # one utterance: GMMSet's serial decisions
     err_fe = max(err_fe, check_frontend(
         "one 5 s utterance", fe8, bench_sig[:1].contiguous(), bench_len[:1]))
+    # the raw-autocorrelation mode, which serves the LPC cepstra
+    lpcc_cfg = FeatureConfig(lpc=LPCC)
+    fe8c = PackedFrontend(BENCH_FS, lpcc_cfg, dev)
+    err_raw = check_frontend_raw("raw autocorrelation, bench 512 x 5 s @ "
+                                 "8 kHz", fe8c, bench_sig, bench_len)
+    for fs_c, sig_c, len_c in ((16000, s16, l16), (22050, s22, l22)):
+        err_raw = max(err_raw, check_frontend_raw(
+            f"raw autocorrelation, {fs_c / 1e3:g} kHz",
+            PackedFrontend(fs_c, lpcc_cfg, dev), sig_c, len_c))
 
     # 3. bank-scoring kernel vs plain, on real features
     feats, mask = fe8(bench_sig, bench_len)
@@ -541,6 +715,22 @@ def main(argv=None):
     err_gmm = max(err_gmm, check_scoring(
         "UBM-scale bank 80 x 256, B=8", ubm_bank, feats[:8].contiguous(),
         mask[:8].contiguous()))
+    # more components than one block's shared memory holds at once
+    k1024_bank = random_bank(rng, 4, 1024, d, dev)
+    f64, m64 = feats[:64].contiguous(), mask[:64].contiguous()
+    err_gmm = max(err_gmm, check_scoring("bank 4 x 1024, B=64", k1024_bank,
+                                         f64, m64))
+    # d = 102: bob's 19 cepstra + LPC-15 with two deltas, one frame a lane
+    cfg102 = FeatureConfig(mfcc=bob_mfcc_config(), n_deltas=2)
+    f102, m102 = extract.extract_batch(s16, l16, 16000, cfg102)
+    bank102 = random_bank(rng, 4, 32, cfg102.dim, dev)
+    err_gmm = max(err_gmm, check_scoring(
+        f"bank 4 x 32 at d = {cfg102.dim} (16 kHz)", bank102, f102, m102))
+    # a contiguous view one float into its storage: rows off the 16-byte
+    # boundary the vector loads need
+    err_gmm = max(err_gmm, check_scoring(
+        "bench bank 4 x 32, B=64, features 4 bytes off alignment",
+        bench_bank, off_alignment(f64), m64))
 
     # 4. the slice through the entry points, on the fixture session
     exp = synth.expected()
@@ -598,6 +788,10 @@ def main(argv=None):
         ubm_bank, f8, m8))
     t["gmm_ubm_plain"] = time_ms(
         lambda: gpu_gmm.batch_bank_avg_loglik_reference(ubm_bank, f8, m8))
+    t["gmm_k1024"] = time_ms(lambda: gpu_gmm.batch_bank_avg_loglik(
+        k1024_bank, f64, m64))
+    t["gmm_k1024_plain"] = time_ms(
+        lambda: gpu_gmm.batch_bank_avg_loglik_reference(k1024_bank, f64, m64))
     rate = BENCH_B * BENCH_SEC / (t["predict"] / 1e3)
     print(f"phase 5 [{card}] predict_scores 512 x 5 s, 4 x 32 bank: "
           f"{t['predict']:.3f} ms = {rate:.0f} audio-s/s", flush=True)
@@ -606,8 +800,12 @@ def main(argv=None):
               f"{t[k + '_plain']:.3f} ms (bench geometry)")
     print(f"phase 5 [{card}] frontend FFT route plain "
           f"{t['frontend_plain_fft']:.3f} ms (bench geometry)")
+    print(f"phase 5 [{card}] gmm kernel, bench geometry: " + device_times(
+        lambda: gpu_gmm.batch_bank_avg_loglik(bench_bank, feats, mask)))
     print(f"phase 5 [{card}] gmm kernel 80 x 256 bank, B=8: "
-          f"{t['gmm_ubm']:.3f} ms, plain {t['gmm_ubm_plain']:.3f} ms")
+          f"{t['gmm_ubm']:.3f} ms, plain {t['gmm_ubm_plain']:.3f} ms; "
+          f"4 x 1024 bank, B=64: {t['gmm_k1024']:.3f} ms, plain "
+          f"{t['gmm_k1024_plain']:.3f} ms")
 
     # 6. serial kernel vs plain, at the serial path's shapes
     err_serial = 0.0
@@ -630,7 +828,18 @@ def main(argv=None):
              x5 * 300.0, m5, True),
             ("no valid frame", serial_banks["bench"], x5,
              torch.zeros_like(m5), False),
-            ("one speaker", random_bank(rng, 1, 32, d, dev), x5, m5, False)):
+            ("one speaker", random_bank(rng, 1, 32, d, dev), x5, m5, False),
+            ("features 4 bytes off alignment", serial_banks["bench"],
+             off_alignment(x5), m5, False),
+            ("1024 components + UBM", random_bank(rng, 5, 1024, d, dev), x5,
+             m5, False),
+            (f"d = {cfg102.dim}, 3 s @ 16 kHz",
+             random_bank(rng, 5, 32, cfg102.dim, dev),
+             *utterance(f102[0], int(m102[0].sum()), dev), False),
+            ("d = 200 (frame left in device memory)",
+             random_bank(rng, 5, 32, 200, dev),
+             *utterance(torch.from_numpy(rng.randn(311, 200).astype(
+                 np.float32)), 311, dev), False)):
         err_serial = max(err_serial, check_serial(name, bank, x, m, fl))
 
     # 7. slice 2: enroll then predict through the CLI on the card
@@ -718,6 +927,9 @@ def main(argv=None):
         raise AssertionError(f"open-set decisions {decisions}")
     if launches2["serial"] < n_serial or launches2["frontend"] < 1:
         raise AssertionError(f"slice 2 missed a kernel: {launches2}")
+    # a feature dimension past 96, which the serial kernel used to refuse
+    open_set("phase 8 open set @ 16 kHz, bob's MFCC + LPC + two deltas",
+             16000, PipelineConfig(features=cfg102), dev, n_mixtures=8)
 
     # 9. timing of the serial kernel and of the slice's paths
     sb, ub = serial_banks["bench"], serial_banks["ubm"]
@@ -741,6 +953,8 @@ def main(argv=None):
     tl = trainer.gmmset.train_log
     print(f"phase 9 [{card}] serial kernel, bench bank + UBM, 5 s: "
           f"{t['serial']:.4f} ms, plain {t['serial_plain']:.4f} ms")
+    print(f"phase 9 [{card}] serial kernel, bench bank + UBM, 5 s: "
+          + device_times(lambda: gpu_gmm.bank_avg_loglik(sb, x5, m5)))
     print(f"phase 9 [{card}] serial kernel, 80 x 256 + UBM, 3 s: "
           f"{t['serial_ubm']:.4f} ms, plain {t['serial_ubm_plain']:.4f} ms")
     print(f"phase 9 [{card}] predict_with_rejection, one 5 s utterance: "
@@ -794,27 +1008,38 @@ def main(argv=None):
     err_full = max(err_full, check_frames(
         10, "an utterance with no valid frame @ 48 kHz", fe48, s0, l0))
 
-    # 11. frame-level packed kernel vs plain, LPC cepstra
-    lpcc_cfg = FeatureConfig(lpc=LPCC)
-    fe8c = PackedFrontend(BENCH_FS, lpcc_cfg, dev)
+    # 11. frame-level packed kernel vs plain, LPC cepstra: its own path,
+    # which no serving route takes any more (check_frames demands both of
+    # its launches; the kernels record reads the serving count, 0)
     err_frames = check_frames(11, "bench 512 x 5 s @ 8 kHz, n_lpcc 16", fe8c,
                               bench_sig, bench_len)
     err_frames = max(err_frames, check_frames(
         11, "16 kHz, n_lpcc 16", PackedFrontend(16000, lpcc_cfg, dev), s16,
         l16))
-    before = gpu_frontend.FRAMES_LAUNCHES
+    # serving sends LPC cepstra through K1's raw-autocorrelation mode
+    before = (gpu_frontend.LAUNCHES, gpu_frontend.FRAMES_LAUNCHES)
     feats_c, mask_c = extract.extract_batch(bench_sig, bench_len, BENCH_FS,
                                             lpcc_cfg)
-    lpcc_cols = feats_c[..., fcfg.mfcc.n_ceps:][mask_c]
+    routed = (gpu_frontend.LAUNCHES - before[0],
+              gpu_frontend.FRAMES_LAUNCHES - before[1])
+    plain_c, plain_m = fe8c.finish(
+        *gpu_frontend.packed_from_signals_reference(
+            *frontend_args(fe8c, bench_sig, bench_len), fuse_lpc=False),
+        framing.frame_validity_mask(bench_len, feats_c.shape[1],
+                                    fe8c.frame_len, fe8c.frame_shift),
+        cmvn_done=True)
+    d_mfcc, d_lpcc, lpcc_bad = feature_errors(feats_c, plain_c, mask_c,
+                                              fcfg.mfcc.n_ceps)
     print(f"phase 11 extract_batch, n_lpcc 16: features "
-          f"{tuple(feats_c.shape)}, LPCC columns {lpcc_cols.shape[-1]} "
-          f"finite {bool(torch.isfinite(lpcc_cols).all())}, launches "
-          f"{gpu_frontend.FRAMES_LAUNCHES - before}", flush=True)
-    if (feats_c.shape[-1] != lpcc_cfg.dim
-            or not torch.isfinite(lpcc_cols).all()
-            or gpu_frontend.FRAMES_LAUNCHES - before != 1):
+          f"{tuple(feats_c.shape)} vs the plain route: mfcc max|d| "
+          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpcc max|d| {d_lpcc:.3e} (over "
+          f"tol: {lpcc_bad}); launches K1 {routed[0]}, K4 {routed[1]}",
+          flush=True)
+    if (feats_c.shape[-1] != lpcc_cfg.dim or not torch.equal(mask_c, plain_m)
+            or not torch.isfinite(feats_c).all() or d_mfcc > MFCC_ATOL
+            or lpcc_bad or routed != (1, 0)):
         raise AssertionError("extract_batch with LPC cepstra")
-    del feats_c, mask_c, lpcc_cols
+    del feats_c, mask_c, plain_c, plain_m
 
     # 12. slice 3 through the entry points on the card
     exp48 = synth.expected(synth.EXPECTED48)
@@ -854,56 +1079,67 @@ def main(argv=None):
           f"{same48}", flush=True)
     if not valid48.all() or rel48 > SLICE_RTOL or not same48:
         raise AssertionError("48 kHz session disagrees with the JAX package")
-    train48 = {label: [extract.mix_feature(
-        FS48, synth.synth_utterance(label, sec, base + i, FS48), device=dev)
-        for sec, base in synth.TRAIN]
-        for i, label in enumerate(synth.SPEAKER_FREQS)}
-    ubm48 = ubm_tools.train_ubm([f for fl in train48.values() for f in fl],
-                                n_mixtures=32, n_iterations=UBM_ITERATIONS,
-                                device=dev)
-    labels_map, adapted48 = ubm_tools.adapt_speakers(
-        ubm48, {label: np.concatenate(train48[label])
-                for label in ("alice", "bob")}, device=dev)
-    server48 = ModelInterface(device=dev)
-    server48.gmmset = GMMSet.from_state(
-        {"labels": labels_map, "weights": adapted48.weights,
-         "means": adapted48.means, "sigmas": adapted48.sigmas,
-         "reject_threshold": 10.0, "ubm_weights": ubm48.weights,
-         "ubm_means": ubm48.means, "ubm_sigmas": ubm48.sigmas}, device=dev)
-    utt48 = lambda label, sec, seed: synth.synth_utterance(  # noqa: E731
-        label, sec, seed, FS48)
-    op48 = server48.calibrate_rejection(
-        FS48, [utt48(label, 2.0, 950 + j) for j, label in
-               enumerate(["alice", "bob", "alice", "bob"])],
-        [utt48("carol", 2.0, 960 + j) for j in range(4)])
-    decisions48 = [server48.predict_with_rejection(FS48, utt48(label, 3.0,
-                                                               seed))
-                   for label, seed in (("alice", 970), ("carol", 971))]
-    print(f"phase 12 UBM + MAP @ 48 kHz: threshold {op48['threshold']:.4f} "
-          f"EER {op48['eer']:.3f}; held-out alice -> {decisions48[0]}, carol "
-          f"-> {decisions48[1]}", flush=True)
-    if decisions48 != ["alice", None]:
-        raise AssertionError(f"48 kHz open-set decisions {decisions48}")
-    lpcc_model = ModelInterface(PipelineConfig(features=lpcc_cfg), device=dev)
-    for label, sigs in train_sigs.items():
-        for sig in sigs:
-            lpcc_model.enroll(label, synth.FS, sig)
-    lpcc_model.train()
-    labels_lpcc = lpcc_model.predict_batch(synth.FS, utts)
-    print(f"phase 12 ModelInterface with LPC cepstra @ 8 kHz: {labels_lpcc}",
-          flush=True)
-    if labels_lpcc != truth:
-        raise AssertionError(f"LPCC labels {labels_lpcc} != {truth}")
+    open_set("phase 12 open set @ 48 kHz", FS48, PipelineConfig(), dev)
     launches3 = {"frontend": gpu_frontend.LAUNCHES,
                  "frames": gpu_frontend.FRAMES_LAUNCHES,
                  "full": gpu_frontend.FULL_LAUNCHES,
                  "full_dense": gpu_frontend.FULL_DENSE_LAUNCHES,
                  "gmm": gpu_gmm.LAUNCHES, "serial": gpu_gmm.SERIAL_LAUNCHES}
-    print(f"phase 12 launches: {launches3}", flush=True)
+    print(f"phase 12 launches @ 48 kHz: {launches3}", flush=True)
     if (launches3["frontend"] != 0 or launches3["full_dense"] != 0
-            or min(launches3["frames"], launches3["full"], launches3["gmm"],
+            or launches3["frames"] != 0
+            or min(launches3["full"], launches3["gmm"],
                    launches3["serial"]) < 1):
         raise AssertionError(f"slice 3 launches {launches3}")
+
+    # the LPC-cepstra slice at 8 kHz: enroll, train, predict, dump, the CLI
+    # on the dumped session, and the open set, all on K1's
+    # raw-autocorrelation mode
+    gpu_frontend.LAUNCHES = gpu_frontend.FRAMES_LAUNCHES = 0
+    gpu_gmm.LAUNCHES = gpu_gmm.SERIAL_LAUNCHES = 0
+    lpcc_pcfg = PipelineConfig(features=lpcc_cfg)
+    lpcc_model = ModelInterface(lpcc_pcfg, device=dev)
+    for label, sigs in train_sigs.items():
+        for sig in sigs:
+            lpcc_model.enroll(label, synth.FS, sig)
+    lpcc_model.train()
+    labels_lpcc = lpcc_model.predict_batch(synth.FS, utts)
+    scores_lpcc, _ = lpcc_model.scores_batch(synth.FS, utts)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (label, sig) in enumerate(zip(truth, utts)):
+            wavfile.write(os.path.join(tmp, f"{i:02d}_{label}.wav"),
+                          synth.FS, sig)
+        model = os.path.join(tmp, "lpcc.out")
+        lpcc_model.dump(model)
+        predict_out = io.StringIO()
+        with contextlib.redirect_stdout(predict_out):
+            cli.main(["-t", "predict", "-i", os.path.join(tmp, "*.wav"),
+                      "-m", model, "--device", "cuda"])
+        # the same session through the plain route, on the CPU
+        plain_scores, _ = ModelInterface.load(
+            model, device="cpu").scores_batch(synth.FS, utts)
+    cli_lpcc = [ln.rpartition(" -> ")[2]
+                for ln in predict_out.getvalue().strip().splitlines()]
+    rel_lpcc = float(np.max(np.abs(scores_lpcc - plain_scores)
+                            / np.abs(plain_scores)))
+    print(f"phase 12 ModelInterface with LPC cepstra @ 8 kHz: {labels_lpcc}; "
+          f"cli on the dumped session: {cli_lpcc}; scores vs the plain route "
+          f"on the CPU max rel {rel_lpcc:.3e} (tol {SLICE_RTOL})", flush=True)
+    if labels_lpcc != truth or cli_lpcc != truth or rel_lpcc > SLICE_RTOL:
+        raise AssertionError(f"LPCC labels {labels_lpcc}, cli {cli_lpcc}")
+    # 8 components: at 32 the 36 s of synthetic audio leave the UBM of
+    # these features no margin between the genuine and the impostor
+    open_set("phase 12 open set @ 8 kHz with LPC cepstra", synth.FS,
+             lpcc_pcfg, dev, n_mixtures=8)
+    launches5 = {"frontend": gpu_frontend.LAUNCHES,
+                 "frames": gpu_frontend.FRAMES_LAUNCHES,
+                 "gmm": gpu_gmm.LAUNCHES, "serial": gpu_gmm.SERIAL_LAUNCHES}
+    print(f"phase 12 launches of the LPC-cepstra slice: {launches5}",
+          flush=True)
+    if launches5["frames"] != 0 or min(launches5["frontend"],
+                                       launches5["gmm"],
+                                       launches5["serial"]) < 1:
+        raise AssertionError(f"LPC-cepstra slice launches {launches5}")
 
     # timing of slice 3's kernels and of predict at 48 kHz
     fe_args = frames_args(fe8c, bench_sig)[0]
@@ -911,6 +1147,42 @@ def main(argv=None):
     t["frames_plain"] = time_ms(
         lambda: gpu_frontend.packed_from_frames_reference(*fe_args))
     del fe_args
+    # K1's raw-autocorrelation mode beside its plain version, and LPCC
+    # predict on it beside the earlier route (a copied frame matrix, K4,
+    # CMVN in torch; the same Levinson, LPCC recursion and scoring kernel
+    # after it), taking turns
+    raw_args = frontend_args(fe8c, bench_sig, bench_len)
+    lpcc_bank = random_bank(rng, 4, 32, lpcc_cfg.dim, dev,
+                            uniform_weights=True)
+
+    def lpcc_predict_k4():
+        fa, B, T = frames_args(fe8c, bench_sig)
+        ceps, r = gpu_frontend.packed_from_frames(*fa)
+        f, m = fe8c.finish(ceps.view(B, T, -1), r.view(B, T, -1),
+                           framing.frame_validity_mask(
+                               bench_len, T, fe8c.frame_len,
+                               fe8c.frame_shift))
+        return gpu_gmm.batch_bank_avg_loglik(lpcc_bank, f, m)
+
+    t.update(time_interleaved({
+        "frontend_raw": lambda: gpu_frontend.packed_from_signals(
+            *raw_args, fft=fe8c.fft, fuse_lpc=False),
+        "frontend_raw_plain": lambda:
+            gpu_frontend.packed_from_signals_reference(*raw_args,
+                                                       fuse_lpc=False),
+        "lpcc_predict": lambda: fastpath.predict_scores(
+            bench_sig, bench_len, lpcc_bank, BENCH_FS, lpcc_cfg),
+        "lpcc_predict_k4": lpcc_predict_k4}))
+    # the torch steps after the kernel: Levinson, the LPCC recursion, mask
+    raw_c, raw_r = gpu_frontend.packed_from_signals(*raw_args, fft=fe8c.fft,
+                                                    fuse_lpc=False)
+    raw_mask = framing.frame_validity_mask(bench_len, raw_c.shape[1],
+                                           fe8c.frame_len, fe8c.frame_shift)
+    print(f"phase 12 [{card}] Levinson + LPCC recursion in torch after the "
+          "kernel, 512 x 5 s @ 8 kHz: " + device_times(
+              lambda: fe8c.finish(raw_c, raw_r, raw_mask, cmvn_done=True)),
+          flush=True)
+    del raw_c, raw_r, raw_mask
     sig48, len48 = signals_batch(rng, [L48] * BENCH_B, padded(L48), dev)
     fe_args = frames_args(fe48, sig48)[0]
     # K5 beside the dense kernel on the same frames, and cuFFT's spectrum
@@ -932,6 +1204,11 @@ def main(argv=None):
     rate48 = BENCH_B * BENCH_SEC / (t["predict48"] / 1e3)
     print(f"phase 12 [{card}] frame-level packed kernel, 512 x 5 s @ 8 kHz, "
           f"n_lpcc 16: {t['frames']:.3f} ms, plain {t['frames_plain']:.3f} ms")
+    print(f"phase 12 [{card}] signal frontend kernel, raw-autocorrelation "
+          f"mode, 512 x 5 s @ 8 kHz: {t['frontend_raw']:.3f} ms, plain "
+          f"{t['frontend_raw_plain']:.3f} ms; predict_scores with n_lpcc 16 "
+          f"on it {t['lpcc_predict']:.3f} ms, through the frame-level kernel "
+          f"in the same trials {t['lpcc_predict_k4']:.3f} ms")
     print(f"phase 12 [{card}] full-spectrum kernel (FFT), 512 x 5 s @ "
           f"48 kHz: {t['full']:.3f} ms; in the same interleaved trials the "
           f"dense kernel {t['full_dense']:.3f} ms and torch.fft.rfft alone "
@@ -1042,6 +1319,10 @@ def main(argv=None):
     bounds = {
         "packed_frontend": bound(fe_work, 4 * B8 * Lp8 + op_bytes
                                  + 4 * B8 * T8 * d),
+        "packed_frontend_raw": bound(
+            frontend_flops(valid8, fe8c.n_fft, (fe8c.fft_mel, fe8c.fft_acorr),
+                           nceps, window=3 * fe8c.frame_len),
+            4 * B8 * Lp8 + op_bytes + 4 * B8 * T8 * (nceps + nac)),
         "bank_avg_loglik": bound(score_flops(valid8, d, SK),
                                  4 * B8 * T8 * d + B8 * T8 + bank_bytes
                                  + 4 * B8 * bench_bank.n_speakers),
@@ -1085,6 +1366,10 @@ def main(argv=None):
         entry("packed_frontend", "frontend.cu", "pallas_frontend.py:231",
               launches["frontend"], err_fe, t["frontend"],
               t["frontend_plain"], "packed_frontend"),
+        entry("packed_frontend_raw_autocorr", "frontend.cu",
+              "pallas_frontend.py:231", launches5["frontend"], err_raw,
+              t["frontend_raw"], t["frontend_raw_plain"],
+              "packed_frontend_raw"),
         entry("bank_avg_loglik", "gmm_score.cu", "pallas_gmm.py:154",
               launches["gmm"], err_gmm, t["gmm"], t["gmm_plain"],
               "bank_avg_loglik"),
@@ -1092,7 +1377,7 @@ def main(argv=None):
               launches2["serial"], err_serial, t["serial"],
               t["serial_plain"], "bank_sum_loglik"),
         entry("packed_from_frames", "frontend_frames.cu",
-              "pallas_frontend.py:111", launches3["frames"], err_frames,
+              "pallas_frontend.py:111", launches5["frames"], err_frames,
               t["frames"], t["frames_plain"], "packed_from_frames"),
         entry("mfcc_from_frames", "frontend_fft.cu",
               "pallas_frontend.py:50", launches3["full"], err_full,

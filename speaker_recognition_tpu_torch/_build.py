@@ -61,7 +61,7 @@ def _bind(lib):
     f = ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                        i, i, i, f, i, f, i, p]
+                                        i, i, i, f, i, f, i, i, p]
     lib.srt_packed_frontend.restype = i
     lib.srt_fft_operator_shape.argtypes = [i, i, ip, ip]
     lib.srt_fft_operator_shape.restype = i
@@ -75,14 +75,12 @@ def _bind(lib):
     lib.srt_frames_smem_bytes.restype = i
     lib.srt_bank_avg_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.srt_bank_avg_loglik.restype = i
-    lib.srt_gmm_smem_bytes.argtypes = [i, i]
-    lib.srt_gmm_smem_bytes.restype = i
+    lib.srt_bank_scratch_floats.argtypes = [i, i, i, i]
+    lib.srt_bank_scratch_floats.restype = ctypes.c_longlong
     lib.srt_bank_sum_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
     lib.srt_bank_sum_loglik.restype = i
-    lib.srt_serial_row.argtypes = [i]
-    lib.srt_serial_row.restype = i
-    lib.srt_serial_smem_bytes.argtypes = [i, i]
-    lib.srt_serial_smem_bytes.restype = i
+    lib.srt_component_row.argtypes = [i]
+    lib.srt_component_row.restype = i
     lib.srt_serial_chunks.argtypes = [i]
     lib.srt_serial_chunks.restype = i
     lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,

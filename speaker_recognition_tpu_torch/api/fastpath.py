@@ -6,8 +6,9 @@ mean). The frontend takes one of three routes, each through its kernel in
 ops/gpu_frontend:
   * packed, the default when fft_size >= 2*frame_len: the signal-level
     kernel (framing, packed DFT, mel, log, DCT, CMVN, Levinson);
-  * packed with LPC cepstra (n_lpcc > 0): the frame-level packed kernel,
-    then CMVN, Levinson and the LPCC recursion in torch;
+  * packed with LPC cepstra (n_lpcc > 0): the same kernel without its
+    Levinson (the raw autocorrelation comes out), then Levinson and the
+    LPCC recursion in torch;
   * full spectrum, for fft_size < 2*frame_len (every rate above 32 kHz at
     the default config) and SRTPU_FRONTEND=full: window and pre-emphasis
     in torch, the full-spectrum kernel, then CMVN and LPC (or LPCC).

@@ -8,8 +8,10 @@
 //     ceps = log(max(Y . M, floor)) . dct        -> feat[b, f, :nceps]
 //     r  = Y . R,  lpc = Levinson(r), non-finite -> 0
 //                                                -> feat[b, f, nceps:]
-// then masked per-utterance CMVN over the first n_valid[b] frames (second
-// kernel), and every frame at or past n_valid[b] is zero.
+// (or, without fuse_lpc, the raw autocorrelation r itself there: the mode
+// that serves LPC cepstra, whose recursion follows in torch), then masked
+// per-utterance CMVN of the cepstra over the first n_valid[b] frames
+// (second kernel), and every frame at or past n_valid[b] is zero.
 //
 // What bounds it on this card, and what the design does about it: see
 // csrc/rfft_tile.cuh. The TPU kernel ran the window, the pre-emphasis and
@@ -66,6 +68,13 @@ struct SignalFrames {
   __device__ __forceinline__ void fold(int, int, float2 (&)[PL]) const {}
 };
 
+// columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
+// without fuse_lpc, the nac raw autocorrelation lags
+__host__ __device__ constexpr int feature_width(int nceps, int nac,
+                                                int fuse_lpc) {
+  return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
+}
+
 template <int N, int OPL>
 __global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
     const float* __restrict__ signals, const int* __restrict__ n_valid,
@@ -73,14 +82,13 @@ __global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
     const float* __restrict__ dct,
     float* __restrict__ feat, int Lp, int T, int flen, int fshift, int nmel,
     int nac, int nceps, float pre_emph, int preemph_first,
-    float power_floor) {
+    float power_floor, int fuse_lpc) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
   const int f0 = blockIdx.x * rfft::FT;
   const int nf = min(rfft::FT, T - f0);
-  const int order = nac > 0 ? nac - 1 : 0;
-  const int nfeat = nceps + order;
+  const int nfeat = feature_width(nceps, nac, fuse_lpc);
   const int nvalid = n_valid[b];
   float* out = feat + ((size_t)b * T + f0) * nfeat;
 
@@ -93,7 +101,8 @@ __global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
                           preemph_first != 0};
   const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, op,
                                                      nmel, power_floor);
-  tile_features<OPL>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps);
+  tile_features<OPL>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps,
+                     fuse_lpc != 0);
 }
 
 // Masked per-utterance CMVN of feat[b, :n_valid[b], :nceps], in place
@@ -115,7 +124,8 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const float* sig,
                    const int* nv, const float* win, const float4* op,
                    const float* dct, float* feat, int Lp,
                    int T, int flen, int fshift, int nmel, int nac, int nceps,
-                   float pre_emph, int preemph_first, float power_floor) {
+                   float pre_emph, int preemph_first, float power_floor,
+                   int fuse_lpc) {
   const int smem = 4 * rfft::smem_floats(N, OPL);
   cudaError_t err = cudaFuncSetAttribute(
       packed_frontend_kernel<N, OPL>,
@@ -123,7 +133,7 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const float* sig,
   if (err != cudaSuccess) return err;
   packed_frontend_kernel<N, OPL><<<grid, rfft::NTH, smem, st>>>(
       sig, nv, win, op, dct, feat, Lp, T, flen, fshift, nmel, nac, nceps,
-      pre_emph, preemph_first, power_floor);
+      pre_emph, preemph_first, power_floor, fuse_lpc);
   return cudaGetLastError();
 }
 
@@ -132,13 +142,15 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const float* sig,
 // signals [B, Lp], n_valid [B], win [flen] (the window), op the packed
 // [M | R] operator of srt_fft_operator_shape (csrc/frontend_fft.cu: the
 // bin-domain mel and autocorrelation operators), dct [nmel, nceps]; writes
-// feat [B, T, nceps + nac - 1] (nceps without LPC), then CMVN when cmvn.
+// feat [B, T, nceps + nac - 1] (nceps without LPC), or with fuse_lpc 0
+// feat [B, T, nceps + nac] (cepstra | raw autocorrelation), then CMVN of
+// the cepstra when cmvn.
 extern "C" int srt_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
     const void* op, const void* dct, void* feat, int B, int Lp, int T,
     int flen, int fshift, int nfft, int nmel, int nac, int nceps,
     float pre_emph, int preemph_first, float power_floor, int cmvn,
-    void* stream) {
+    int fuse_lpc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int opl = rfft::pick_opl(nfft, nmel + nac);
   if (opl == 0 || 2 * flen > nfft || nac > MAX_ORDER + 1)
@@ -155,15 +167,14 @@ extern "C" int srt_packed_frontend(
     return opl == 9
         ? launch<N, 9>(grid, st, sig, nv, w, o, d, out, Lp, T, flen,
                        fshift, nmel, nac, nceps, pre_emph, preemph_first,
-                       power_floor)
+                       power_floor, fuse_lpc)
         : launch<N, 16>(grid, st, sig, nv, w, o, d, out, Lp, T, flen,
                         fshift, nmel, nac, nceps, pre_emph, preemph_first,
-                        power_floor);
+                        power_floor, fuse_lpc);
   });
   if (err != cudaSuccess || !cmvn) return (int)err;
-  const int order = nac > 0 ? nac - 1 : 0;
-  cmvn_kernel<<<B, dim3(32, CG), 0, st>>>((float*)feat, nv, T, nceps + order,
-                                          nceps);
+  cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
+      (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);
   return (int)cudaGetLastError();
 }
 

@@ -7,94 +7,250 @@
 //     lse[t]     = logsumexp_k logp[t, k], floored: lse > -745 ? lse
 //                                                         : log(1e-15)
 //     out[b, s]  = sum_t mask[b,t] * lse[t] / max(sum_t mask[b,t], 1)
-// with op [2d, S*K] and cw [S*K] the frame-major joint-density operator of
-// models/gmm.bank_operators.
+// with op [2d, S*K] and cw [S*K] the joint-density operator of
+// models/gmm.bank_operators, read here component by component from
+// GmmBank.component_operator (the row layout of csrc/gmm_lse.cuh).
 //
-// What bounds it on this card: per frame and speaker it reads d floats of
-// features and does 2*d*K FMAs and K exponentials, so it is compute- and
-// shared-memory-bound; the unfused form writes a [B*T, S*K] log-density
-// tensor to device memory and reads it back (84 MB at the bench batch).
+// What bounds it on this card: operations. Per valid frame it does 2*d*S*K
+// FMAs and S*K exponentials on d floats of features (2.28 GFLOP on 18 MB at
+// the bench batch), all on FP32 CUDA cores: a*x^2 + b*x + c cancels terms of
+// O(100-1000) to a log-density of O(10), which TF32 operands would not
+// carry. Every other instruction takes an FMA's slot in the scheduler, so
+// the inner loop must hold little else. The first version (one block per
+// (speaker, utterance), the frame and scalar parameters both read from
+// shared memory: three 4-byte loads per two FMAs on one dependent chain)
+// ran at ~8 TFLOP/s and staged every utterance S times.
 //
-// What the design does about it: one block per (speaker, utterance) keeps
-// that speaker's K components (K*(2d+1) floats: 7 KB at K=32, d=28; 58 KB
-// at K=256) in shared memory, stages FT frames at a time, and gives each
-// thread one frame whose logsumexp over K runs online (one exponential per
-// component), so no [n, S*K] tensor exists. The floor, the mask and the
-// per-utterance mean are fused; the block sums its frames in a fixed tree
-// order, so the result is deterministic and needs no atomics. The per-frame
-// logsumexp (floored_lse) lives in csrc/gmm_lse.cuh, shared with the fused
-// predict monolith (csrc/predict_fused.cu).
+// What the design does about it: a lane keeps two frames in registers (one
+// past a padded d of 64) and every lane walks the same component row, so a
+// 16-byte broadcast load of parameters feeds eight FMAs in eight
+// independent chains (RegFrames of csrc/gmm_lse.cuh, shared with the serial
+// kernel), and the online logsumexp costs one special-function exponential
+// and no branch a component. One frame a lane, and a register cap that
+// fits a fourth block on an SM, both measured slower on an H100. A warp
+// takes 64
+// (or 32) consecutive frames of one utterance and a block the warps of a
+// tile, sized by the launch so that an utterance's frames split evenly
+// over its blocks (311 frames: one block of five warps). The block walks
+// all the speakers of its group over those frames, so features are read
+// from device memory once; the group is the whole bank unless the batch is
+// too small to fill the card, and then the speakers split over grid.z. The
+// rows stream through shared memory by asynchronous 16-byte copies, all in
+// one buffer up to 48 KB and in 32 KB chunks in two buffers beyond, with
+// the online logsumexp carried across chunks: no cap on K. A warp whose
+// frames are all masked skips the arithmetic. Past a padded d of 128
+// WideFrames takes over (frame and rows left in device memory): any d. At
+// each speaker's last row the warp adds its frames' floored logsumexps in a
+// fixed shuffle tree into partial [B][warp tile][S]; a second kernel adds
+// the tiles in order and divides by the valid-frame count. No atomics: two
+// calls give the same bits.
 
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "gmm_lse.cuh"
 
 namespace {
 
-constexpr int GT = 128;  // threads per block = frames per staged tile
+constexpr int MAX_WARPS = 8;          // warps per block, at most
+constexpr int ONE_BUFFER = 49152;     // rows staged whole up to this size
+constexpr int BLOCKS_PER_SM = 4;      // blocks the launch aims to have
+constexpr int RT = 128;               // threads of the reduction block
 
-__global__ void __launch_bounds__(GT) bank_score_kernel(
+// frames a lane holds at padded feature dimension dp
+inline int frames_per_lane(int dp) { return dp <= 64 ? 2 : 1; }
+
+// Frames: RegFrames<DP, FPL> or WideFrames. Grid (tile, utterance, speaker
+// group of sg speakers); NW warp tiles an utterance; ch rows per chunk.
+template <class Frames>
+__global__ void __launch_bounds__(32 * MAX_WARPS) bank_score_kernel(
     const float* __restrict__ feats, const unsigned char* __restrict__ mask,
-    const float* __restrict__ op, const float* __restrict__ cw,
-    float* __restrict__ out, int T, int d, int S, int K) {
-  extern __shared__ float sm[];
-  __shared__ float red_s[GT], red_c[GT];
-  const int s = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int SK = S * K;
-  const int P = 2 * d + 1;   // per component: quadratic d, linear d, cw
-  const int XS = d + 1;      // odd row stride: conflict-free frame reads
-  float* prm = sm;           // [K][P]
-  float* xt = prm + K * P;   // [GT][XS]
+    const float* __restrict__ comp, float* __restrict__ partial,
+    float* __restrict__ count, int T, int d, int S, int K, int sg, int ch,
+    int NW) {
+  constexpr int FPL = Frames::FPL;
+  extern __shared__ __align__(16) float sm[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wt = blockIdx.x * (blockDim.x / 32) + warp;  // the warp's tile
+  const int b = blockIdx.y;
+  const int s0 = blockIdx.z * sg, ns = min(sg, S - s0);
+  const int P = row_floats(d);
 
-  for (int i = tid; i < 2 * d * K; i += GT) {
-    const int j = i / K, k = i % K;
-    prm[k * P + j] = op[(size_t)j * SK + s * K + k];
-  }
-  for (int k = tid; k < K; k += GT) prm[k * P + 2 * d] = cw[s * K + k];
+  const RowStream st{comp + (size_t)s0 * K * P, sm, ns * K, P, ch};
+  if (Frames::STAGED) st.fetch(0);
 
-  const float* xb = feats + (size_t)b * T * d;
-  const unsigned char* mb = mask + (size_t)b * T;
-  float acc = 0.f, cnt = 0.f;
-  for (int t0 = 0; t0 < T; t0 += GT) {
-    const int nt = min(GT, T - t0);
-    __syncthreads();  // parameters staged / previous tile consumed
-    for (int i = tid; i < nt * d; i += GT)
-      xt[(i / d) * XS + i % d] = xb[(size_t)t0 * d + i];
-    __syncthreads();
-    if (tid < nt && mb[t0 + tid]) {
-      acc += floored_lse(xt + tid * XS, prm, d, K);
-      cnt += 1.f;
-    }
+  Frames fr;
+  bool ok[FPL];
+  bool any = false;
+#pragma unroll
+  for (int i = 0; i < FPL; ++i) {
+    const int t = (wt * FPL + i) * 32 + lane;
+    ok[i] = wt < NW && t < T && mask[(size_t)b * T + t];
+    fr.load(i, ok[i] ? feats + ((size_t)b * T + t) * d : nullptr, d);
+    any = any || ok[i];
   }
-  red_s[tid] = acc;
-  red_c[tid] = cnt;
-  __syncthreads();
-  for (int w = GT / 2; w > 0; w >>= 1) {
-    if (tid < w) {
-      red_s[tid] += red_s[tid + w];
-      red_c[tid] += red_c[tid + w];
-    }
-    __syncthreads();
+  const bool active = __any_sync(0xffffffffu, any);
+  float* mine = partial + ((size_t)b * NW + wt) * S + s0;
+
+  walk_components(st, K, active, fr, [&](int s, OnlineLse (&lse)[FPL]) {
+    float v = 0.f;
+#pragma unroll
+    for (int i = 0; i < FPL; ++i)
+      if (ok[i]) v += lse[i].floored();
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) mine[s] = v;
+  });
+
+  if (wt >= NW) return;
+  if (!active)
+    for (int s = lane; s < ns; s += 32) mine[s] = 0.f;
+  if (blockIdx.z == 0) {
+    int n = 0;
+#pragma unroll
+    for (int i = 0; i < FPL; ++i)
+      n += __popc(__ballot_sync(0xffffffffu, ok[i]));
+    if (lane == 0) count[(size_t)b * NW + wt] = (float)n;
   }
-  if (tid == 0) out[(size_t)b * S + s] = red_s[0] / fmaxf(red_c[0], 1.f);
+}
+
+// out[b, s] = the warp tiles' partial sums, added in tile order, over
+// max(valid frames, 1); one thread per (b, s).
+__global__ void __launch_bounds__(RT) bank_mean_kernel(
+    const float* __restrict__ partial, const float* __restrict__ count,
+    float* __restrict__ out, long long BS, int S, int NW) {
+  const long long i = (long long)blockIdx.x * RT + threadIdx.x;
+  if (i >= BS) return;
+  const long long b = i / S;
+  const int s = (int)(i % S);
+  float acc = 0.f, n = 0.f;
+  for (int w = 0; w < NW; ++w) {
+    acc += partial[((size_t)b * NW + w) * S + s];
+    n += count[(size_t)b * NW + w];
+  }
+  out[i] = acc / fmaxf(n, 1.f);
+}
+
+struct Plan {
+  int NW, warps, tiles, sg, groups;
+};
+
+// Warp tiles of an utterance of T frames at feature dimension d.
+inline int warp_tiles(int T, int d) {
+  const int per_warp = 32 * frames_per_lane(padded_dim(d));
+  return std::max(1, (T + per_warp - 1) / per_warp);
+}
+
+// The current device's SM count, asked of the runtime once per device.
+cudaError_t sm_count(int* nsm) {
+  constexpr int MAX_DEVICES = 64;
+  static int cached[MAX_DEVICES];  // 0: not asked yet; every writer agrees
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cached[dev] > 0) {
+    *nsm = cached[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < MAX_DEVICES) cached[dev] = *nsm;
+  return err;
+}
+
+// How a [B, T] batch against S speakers is cut: warp tiles an utterance,
+// warps a block (an utterance's tiles split evenly over its blocks), and
+// speakers a group (the whole bank once the grid fills the card).
+cudaError_t make_plan(int B, int T, int d, int S, Plan* p) {
+  int nsm = 0;
+  const cudaError_t err = sm_count(&nsm);
+  if (err != cudaSuccess) return err;
+  p->NW = warp_tiles(T, d);
+  p->tiles = (p->NW + MAX_WARPS - 1) / MAX_WARPS;
+  p->warps = (p->NW + p->tiles - 1) / p->tiles;
+  const long long blocks = (long long)p->tiles * B;
+  const long long want = (long long)BLOCKS_PER_SM * nsm;
+  const int groups = (int)std::min<long long>(
+      S, std::max<long long>(1, (want + blocks - 1) / blocks));
+  p->sg = std::max((S + groups - 1) / groups, (S + 65534) / 65535);
+  p->groups = (S + p->sg - 1) / p->sg;
+  return cudaSuccess;
+}
+
+template <class Frames>
+cudaError_t launch(const Plan& p, dim3 grid, int smem, cudaStream_t st,
+                   const float* feats, const unsigned char* mask,
+                   const float* comp, float* partial, float* count, int T,
+                   int d, int S, int K, int ch) {
+  cudaError_t err = cudaFuncSetAttribute(
+      bank_score_kernel<Frames>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  bank_score_kernel<Frames><<<grid, 32 * p.warps, smem, st>>>(
+      feats, mask, comp, partial, count, T, d, S, K, p.sg, ch, p.NW);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int srt_gmm_smem_bytes(int d, int K) {
-  return (int)(sizeof(float) * ((size_t)K * (2 * d + 1) + GT * (d + 1)));
+// Floats of device scratch a call takes: the warp tiles' partial sums
+// [B][NW][S] and valid-frame counts [B][NW]. From the shapes alone: the
+// launch is planned once, in srt_bank_avg_loglik.
+extern "C" long long srt_bank_scratch_floats(int B, int T, int d, int S) {
+  return (long long)B * warp_tiles(T, d) * (S + 1);
 }
 
+// feats [B, T, d], mask [B, T] (bytes), comp the component rows
+// [S, K, srt_component_row(d)], scratch srt_bank_scratch_floats floats;
+// writes out [B, S]. B <= 65535 (grid.y).
 extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
-                                   const void* op, const void* cw, void* out,
+                                   const void* comp, void* scratch, void* out,
                                    int B, int T, int d, int S, int K,
                                    void* stream) {
-  const int smem = srt_gmm_smem_bytes(d, K);
-  cudaError_t err = cudaFuncSetAttribute(
-      bank_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (B < 1 || d < 1 || S < 1 || K < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  cudaError_t err = make_plan(B, T, d, S, &p);
   if (err != cudaSuccess) return (int)err;
-  bank_score_kernel<<<dim3(S, B), GT, smem, (cudaStream_t)stream>>>(
-      (const float*)feats, (const unsigned char*)mask, (const float*)op,
-      (const float*)cw, (float*)out, T, d, S, K);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* xf = (const float*)feats;
+  const unsigned char* mk = (const unsigned char*)mask;
+  const float* cp = (const float*)comp;
+  float* partial = (float*)scratch;
+  float* count = partial + (size_t)B * p.NW * S;
+  const dim3 grid(p.tiles, B, p.groups);
+  const int dp = padded_dim(d);
+  if (dp > MAX_REG_DP) {
+    err = launch<WideFrames>(p, grid, 0, st, xf, mk, cp, partial, count, T, d,
+                             S, K, p.sg * K);
+  } else {
+    int smem;
+    const int ch = plan_chunks(p.sg * K, row_floats(d), ONE_BUFFER, &smem);
+    switch (dp) {
+#define SRT_SCORE_CASE(DP, FPL)                                            \
+  case DP:                                                                 \
+    err = launch<RegFrames<DP, FPL>>(p, grid, smem, st, xf, mk, cp, partial, \
+                                     count, T, d, S, K, ch);               \
+    break;
+      SRT_SCORE_CASE(4, 2) SRT_SCORE_CASE(8, 2) SRT_SCORE_CASE(12, 2)
+      SRT_SCORE_CASE(16, 2) SRT_SCORE_CASE(20, 2) SRT_SCORE_CASE(24, 2)
+      SRT_SCORE_CASE(28, 2) SRT_SCORE_CASE(32, 2) SRT_SCORE_CASE(36, 2)
+      SRT_SCORE_CASE(40, 2) SRT_SCORE_CASE(44, 2) SRT_SCORE_CASE(48, 2)
+      SRT_SCORE_CASE(52, 2) SRT_SCORE_CASE(56, 2) SRT_SCORE_CASE(60, 2)
+      SRT_SCORE_CASE(64, 2) SRT_SCORE_CASE(68, 1) SRT_SCORE_CASE(72, 1)
+      SRT_SCORE_CASE(76, 1) SRT_SCORE_CASE(80, 1) SRT_SCORE_CASE(84, 1)
+      SRT_SCORE_CASE(88, 1) SRT_SCORE_CASE(92, 1) SRT_SCORE_CASE(96, 1)
+      SRT_SCORE_CASE(100, 1) SRT_SCORE_CASE(104, 1) SRT_SCORE_CASE(108, 1)
+      SRT_SCORE_CASE(112, 1) SRT_SCORE_CASE(116, 1) SRT_SCORE_CASE(120, 1)
+      SRT_SCORE_CASE(124, 1) SRT_SCORE_CASE(128, 1)
+#undef SRT_SCORE_CASE
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long BS = (long long)B * S;
+  bank_mean_kernel<<<(unsigned)((BS + RT - 1) / RT), RT, 0, st>>>(
+      partial, count, (float*)out, BS, S, p.NW);
   return (int)cudaGetLastError();
 }

@@ -9,97 +9,68 @@
 //                                                         : log(1e-15)
 //     out[s]     = sum_t mask[t] * lse[t]      (or / max(sum_t mask[t], 1))
 // with op [2d, S*K] and cw [S*K] from models/gmm.bank_operators, read here
-// component by component from GmmBank.serial_operator: comp [S, K, P],
-// per component the quadratic terms a (zero-padded to DP), the linear terms
-// b (likewise), cw and zeros (P = 2*DP + 4, DP = d rounded up to 8). Unlike
-// the TPU kernel it applies the floor, as models/gmm.per_frame_loglik does.
+// component by component from GmmBank.component_operator (the row layout
+// of csrc/gmm_lse.cuh). Unlike the TPU kernel it applies the floor, as
+// models/gmm.per_frame_loglik does.
 //
 // What bounds it on this card: per frame and speaker it does 2*d*K FMAs
 // and K exponentials against d floats of features; a speaker's parameters
-// (K*P floats, 70 KB at K=256, d=28) are reused by every frame. A loop
+// (K*P floats, 62 KB at K=256, d=28) are reused by every frame. A loop
 // that reads a frame value and two parameters from shared memory per two
 // FMAs is capped by shared-memory bandwidth at ~21 FMA/clk/SM (a first
 // version of that shape ran at 7 TFLOP/s); and the serial path's few
 // hundred frames leave few warps.
 //
 // What the design does about it: the grid is (chunk of NT frames,
-// speaker). A block copies its speaker's component-major parameters into
-// shared memory with 16-byte asynchronous copies, and each lane keeps its
-// frame's features in registers. Every lane walks the same component at
-// the same time, so a parameter load is one broadcast wavefront for the
-// warp's 32 frames, and a_j x^2 + b_j x is x (a_j x + b_j): two FMAs,
-// in four independent chains. The logsumexp over components runs online
-// (one exponential per component). Each block writes its partial sum and
-// valid-frame count to a scratch buffer; a second kernel, one block per
-// speaker, adds the chunks in a fixed order. No reduction uses atomics,
-// so scores are the same bit for bit from run to run (calibrate_rejection
-// thresholds on them).
+// speaker). A block streams its speaker's component rows through shared
+// memory with 16-byte asynchronous copies (all K rows in one buffer while
+// they fit a block's shared memory, else chunks in two buffers, so K has
+// no cap) and each lane keeps its frame's features in registers
+// (RegFrames of csrc/gmm_lse.cuh, the inner loop the batched kernel
+// shares): a parameter load is one broadcast for the warp's 32 frames and
+// a_j x^2 + b_j x is x (a_j x + b_j), two FMAs in four independent chains.
+// The route follows the feature dimension: registers up to a padded d of
+// 128, and past that WideFrames, which leaves the frame and the rows in
+// device memory and so takes any d. The logsumexp over components runs
+// online. Each block writes its partial sum and valid-frame count to a
+// scratch buffer; a second kernel, one block per speaker, adds the chunks
+// in a fixed order. No reduction uses atomics, so scores are the same bit
+// for bit from run to run (calibrate_rejection thresholds on them).
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "gmm_lse.cuh"
 
 namespace {
 
 constexpr int NT = 128;      // threads per chunk block = frames per chunk
 constexpr int RT = 128;      // threads of the chunk-reduction block
-constexpr int DSTEP = 8;     // feature dims are padded to a multiple of this
-constexpr int MAX_DP = 96;   // widest padded feature dimension compiled
-// log(1e-15), the reference's probability floor (src/gmm/src/gmm.cc:482-492)
-constexpr float LOG_MIN_PROB = -34.538776394910684f;
-constexpr float UNDERFLOW_LOG = -745.f;
+// a block's dynamic shared memory beside the static reduction arrays
+constexpr int ONE_BUFFER = BLOCK_SMEM - 2 * NT * (int)sizeof(float);
 
-int padded_dim(int d) { return (d + DSTEP - 1) / DSTEP * DSTEP; }
-
-template <int DP>
+// Frames: RegFrames<DP, 1> or WideFrames; ch: rows per staged chunk.
+template <class Frames>
 __global__ void __launch_bounds__(NT) serial_chunk_kernel(
     const float* __restrict__ x, const unsigned char* __restrict__ mask,
     const float* __restrict__ comp, float2* __restrict__ partial, int n,
-    int d, int K) {
-  constexpr int P = 2 * DP + 4;
+    int d, int K, int ch) {
   extern __shared__ __align__(16) float sm[];
-  float* red_s = sm + K * P;
-  float* red_c = red_s + NT;
+  __shared__ float red_s[NT], red_c[NT];
   const int c = blockIdx.x, s = blockIdx.y, tid = threadIdx.x;
+  const int P = row_floats(d);
 
-  const float* src = comp + (size_t)s * K * P;
-  for (int i = tid * 4; i < K * P; i += NT * 4)
-    __pipeline_memcpy_async(sm + i, src + i, 16);
-  __pipeline_commit();
-
-  // this lane's frame in registers, zeros past d (their a and b are 0)
+  const RowStream st{comp + (size_t)s * K * P, sm, K, P, ch};
+  if (Frames::STAGED) st.fetch(0);
   const int t = c * NT + tid;
-  float xv[DP];
-#pragma unroll
-  for (int j = 0; j < DP; ++j)
-    xv[j] = (t < n && j < d) ? x[(size_t)t * d + j] : 0.f;
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  float m = -INFINITY, sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float4* p = reinterpret_cast<const float4*>(sm + k * P);
-    float l0 = 0.f, l1 = 0.f, l2 = 0.f, l3 = 0.f;
-#pragma unroll
-    for (int q = 0; q < DP / 4; ++q) {
-      const float4 a = p[q], b = p[DP / 4 + q];
-      l0 = fmaf(fmaf(a.x, xv[4 * q], b.x), xv[4 * q], l0);
-      l1 = fmaf(fmaf(a.y, xv[4 * q + 1], b.y), xv[4 * q + 1], l1);
-      l2 = fmaf(fmaf(a.z, xv[4 * q + 2], b.z), xv[4 * q + 2], l2);
-      l3 = fmaf(fmaf(a.w, xv[4 * q + 3], b.w), xv[4 * q + 3], l3);
-    }
-    const float l = ((l0 + l1) + (l2 + l3)) + sm[k * P + 2 * DP];
-    if (l > m) {
-      sum = sum * expf(m - l) + 1.f;
-      m = l;
-    } else {
-      sum += expf(l - m);
-    }
-  }
+  Frames fr;
+  fr.load(0, t < n ? x + (size_t)t * d : nullptr, d);
+  float lse = 0.f;
+  walk_components(st, K, true, fr,
+                  [&](int, OnlineLse (&v)[1]) { lse = v[0].floored(); });
   float acc = 0.f, cnt = 0.f;
   if (t < n && mask[t]) {
-    const float lse = m + logf(sum);
-    acc = lse > UNDERFLOW_LOG ? lse : LOG_MIN_PROB;
+    acc = lse;
     cnt = 1.f;
   }
   red_s[tid] = acc;
@@ -143,28 +114,25 @@ __global__ void __launch_bounds__(RT) serial_reduce_kernel(
   if (tid == 0) out[s] = avg ? red_s[0] / fmaxf(red_c[0], 1.f) : red_s[0];
 }
 
-template <int DP>
+template <class Frames>
 cudaError_t launch_chunks(dim3 grid, int smem, cudaStream_t st,
                           const float* x, const unsigned char* mask,
                           const float* comp, float2* partial, int n, int d,
-                          int K) {
+                          int K, int ch) {
   cudaError_t err = cudaFuncSetAttribute(
-      serial_chunk_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      serial_chunk_kernel<Frames>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  serial_chunk_kernel<DP><<<grid, NT, smem, st>>>(x, mask, comp, partial, n,
-                                                  d, K);
+  serial_chunk_kernel<Frames><<<grid, NT, smem, st>>>(x, mask, comp, partial,
+                                                      n, d, K, ch);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats per component in GmmBank.serial_operator at feature dimension d,
-// or -1 past the widest compiled dimension.
-extern "C" int srt_serial_row(int d) {
-  const int dp = padded_dim(d);
-  return d < 1 || dp > MAX_DP ? -1 : 2 * dp + 4;
-}
+// Floats per component in GmmBank.component_operator at feature dimension
+// d: the row both scoring kernels read.
+extern "C" int srt_component_row(int d) { return d < 1 ? -1 : row_floats(d); }
 
 // Chunk blocks per speaker for an n-frame utterance: the partial buffer
 // holds S x this many (sum, count) pairs.
@@ -172,35 +140,45 @@ extern "C" int srt_serial_chunks(int n) {
   return n > 0 ? (n + NT - 1) / NT : 1;
 }
 
-// A chunk block's shared memory (parameters, reduction), all of it dynamic.
-extern "C" int srt_serial_smem_bytes(int d, int K) {
-  return (int)(sizeof(float) * ((size_t)K * srt_serial_row(d) + 2 * NT));
-}
-
 extern "C" int srt_bank_sum_loglik(const void* x, const void* mask,
                                    const void* comp, void* partial, void* out,
                                    int n, int d, int S, int K, int avg,
                                    void* stream) {
+  if (d < 1 || K < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid(srt_serial_chunks(n), S);
-  const int smem = srt_serial_smem_bytes(d, K);
   cudaStream_t st = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   const unsigned char* mk = (const unsigned char*)mask;
   const float* cp = (const float*)comp;
   float2* pt = (float2*)partial;
+  const int dp = padded_dim(d);
   cudaError_t err;
-  switch (padded_dim(d)) {
-#define SRT_SERIAL_CASE(DP)                                          \
-  case DP:                                                           \
-    err = launch_chunks<DP>(grid, smem, st, xf, mk, cp, pt, n, d, K); \
+  if (dp > MAX_REG_DP) {
+    err = launch_chunks<WideFrames>(grid, 0, st, xf, mk, cp, pt, n, d, K, K);
+  } else {
+    int smem;
+    const int ch = plan_chunks(K, row_floats(d), ONE_BUFFER, &smem);
+    switch (dp) {
+#define SRT_SERIAL_CASE(DP)                                              \
+  case DP:                                                               \
+    err = launch_chunks<RegFrames<DP, 1>>(grid, smem, st, xf, mk, cp, pt, n, \
+                                          d, K, ch);                     \
     break;
-    SRT_SERIAL_CASE(8) SRT_SERIAL_CASE(16) SRT_SERIAL_CASE(24)
-    SRT_SERIAL_CASE(32) SRT_SERIAL_CASE(40) SRT_SERIAL_CASE(48)
-    SRT_SERIAL_CASE(56) SRT_SERIAL_CASE(64) SRT_SERIAL_CASE(72)
-    SRT_SERIAL_CASE(80) SRT_SERIAL_CASE(88) SRT_SERIAL_CASE(96)
+      SRT_SERIAL_CASE(4) SRT_SERIAL_CASE(8) SRT_SERIAL_CASE(12)
+      SRT_SERIAL_CASE(16) SRT_SERIAL_CASE(20) SRT_SERIAL_CASE(24)
+      SRT_SERIAL_CASE(28) SRT_SERIAL_CASE(32) SRT_SERIAL_CASE(36)
+      SRT_SERIAL_CASE(40) SRT_SERIAL_CASE(44) SRT_SERIAL_CASE(48)
+      SRT_SERIAL_CASE(52) SRT_SERIAL_CASE(56) SRT_SERIAL_CASE(60)
+      SRT_SERIAL_CASE(64) SRT_SERIAL_CASE(68) SRT_SERIAL_CASE(72)
+      SRT_SERIAL_CASE(76) SRT_SERIAL_CASE(80) SRT_SERIAL_CASE(84)
+      SRT_SERIAL_CASE(88) SRT_SERIAL_CASE(92) SRT_SERIAL_CASE(96)
+      SRT_SERIAL_CASE(100) SRT_SERIAL_CASE(104) SRT_SERIAL_CASE(108)
+      SRT_SERIAL_CASE(112) SRT_SERIAL_CASE(116) SRT_SERIAL_CASE(120)
+      SRT_SERIAL_CASE(124) SRT_SERIAL_CASE(128)
 #undef SRT_SERIAL_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
   }
   if (err != cudaSuccess) return (int)err;
   serial_reduce_kernel<<<S, RT, 0, st>>>(pt, (float*)out, grid.x, avg);

@@ -7,7 +7,8 @@
 //                  autocorrelation products; leaves log(max(mel, floor))
 //                  and the raw autocorrelation per frame in shared memory;
 //   tile_features  cepstra (log-mel . dct) and LPC (Levinson, non-finite
-//                  -> 0) per frame, zeros at frames past n_valid;
+//                  -> 0) or the raw autocorrelation per frame, zeros at
+//                  frames past n_valid;
 // and, per utterance, cmvn_utterance: masked two-pass mean and population
 // deviation of the cepstra, in place.
 //
@@ -195,17 +196,20 @@ __device__ __forceinline__ float* tile_sums(
 }
 
 // The features of the tile's nf frames from tile_sums' sums, into out
-// [nf][nceps + order] (order = nac - 1, or 0 without LPC): cepstra, then
-// LPC by Levinson-Durbin in the order of ops/levinson.levinson_unrolled
-// with non-finite coefficients zeroed. Frames at or past nvalid (counted
-// from the tile's first frame) get zeros.
+// [nf][nfeat]: cepstra, then with fuse_lpc the LPC (nfeat = nceps + order,
+// order = nac - 1, or 0 without LPC) by Levinson-Durbin in the order of
+// ops/levinson.levinson_unrolled with non-finite coefficients zeroed, and
+// without it the raw autocorrelation as it stands in sums (nfeat = nceps +
+// nac), which the LPC cepstra take. Frames at or past nvalid (counted from
+// the tile's first frame) get zeros.
 template <int OPL>
 __device__ __forceinline__ void tile_features(
     const float* sums, float* __restrict__ out, int nf, int nvalid,
-    const float* __restrict__ dct, int nmel, int nac, int nceps) {
+    const float* __restrict__ dct, int nmel, int nac, int nceps,
+    bool fuse_lpc) {
   constexpr int NOP = 8 * OPL;
   const int order = nac > 0 ? nac - 1 : 0;
-  const int nfeat = nceps + order;
+  const int nfeat = nceps + (fuse_lpc ? order : nac);
   const int tid = threadIdx.x;
 
   for (int i = tid; i < nf * nceps; i += NT) {
@@ -216,6 +220,13 @@ __device__ __forceinline__ void tile_features(
     out[f * nfeat + c] = f < nvalid ? s : 0.f;
   }
 
+  if (!fuse_lpc) {
+    for (int i = tid; i < nf * nac; i += NT) {
+      const int f = i / nac, j = i % nac;
+      out[f * nfeat + nceps + j] = f < nvalid ? sums[f * NOP + nmel + j] : 0.f;
+    }
+    return;
+  }
   if (order == 0) return;
   for (int f = tid; f < nf; f += NT) {
     float* o = out + f * nfeat + nceps;

@@ -103,7 +103,7 @@ __global__ void __launch_bounds__(NT, 1) fused_predict_kernel(const Args a) {
         a.ncols, a.nmel, a.nac, a.power_floor);
     tile_features<OPL>(sums, a.feat + ((size_t)b * a.T + f0) * d,
                        min(FT, a.T - f0), nv - f0, a.dct, a.nmel, a.nac,
-                       a.nceps);
+                       a.nceps, true);
   }
   grid.sync();
 

@@ -7,15 +7,16 @@ package does (extract.py:211): the packed frontend when SRTPU_FRONTEND is
 frontend.
 
 - `PackedFrontend`: everything after the squaring is linear in the power
-  spectrum of a short transform. Without LPC cepstra the signal-level
-  kernel (ops/gpu_frontend.packed_from_signals) does framing, CMVN and
-  Levinson too; on the card it runs an FFT of rfft_size(frame_len) points
-  with the bin-domain operators of ops/frontend.fft_packed_operators (the
-  `fft` route), on the CPU its plain version with the dense packed
-  operators D, W, A (ops/frontend.packed_frontend_operators: window,
-  pre-emphasis and a 2*frame_len-point DFT folded into D). With LPC
-  cepstra (n_lpcc > 0) the frame-level kernel (packed_from_frames, D)
-  gives the raw autocorrelation that the LPCC recursion takes; the fused
+  spectrum of a short transform. The signal-level kernel
+  (ops/gpu_frontend.packed_from_signals) does framing, CMVN and Levinson
+  too; on the card it runs an FFT of rfft_size(frame_len) points with the
+  bin-domain operators of ops/frontend.fft_packed_operators (the `fft`
+  route), on the CPU its plain version with the dense packed operators D,
+  W, A (ops/frontend.packed_frontend_operators: window, pre-emphasis and
+  a 2*frame_len-point DFT folded into D). With LPC cepstra (n_lpcc > 0)
+  the same kernel skips the Levinson (`fuse_lpc=False`) and returns the
+  raw autocorrelation, and Levinson and the LPCC recursion follow in
+  torch, as in the JAX package (features/extract.py:255-297); the fused
   predict monolith (ops/gpu_predict) reads D, W, A too.
 - `FullFrontend`: the reference's own fft_size-point power spectrum of
   windowed, pre-emphasized frames (mfcc_from_frames). It serves
@@ -49,16 +50,18 @@ LENGTH_BUCKET = 4096
 def apply_deltas(feat: torch.Tensor, mask: torch.Tensor, nd: int):
     """The reference's diff_feature row semantics on a masked padded batch
     (src/feature/utils.py:24-31): nd frames are consumed from the front.
-    Columns come out as [mfcc, lpc, d_mfcc, d_lpc], as in the JAX package."""
+    Columns come out as [mfcc, lpc, d_mfcc, d_lpc], as in the JAX package.
+    Both results are contiguous: the scoring kernels read raw pointers."""
     if nd == 0:
         return feat, mask
     d1 = feat[..., 1:, :] - feat[..., :-1, :]
     if nd == 1:
-        return torch.cat([feat[..., 1:, :], d1], dim=-1), mask[..., 1:]
+        return (torch.cat([feat[..., 1:, :], d1], dim=-1),
+                mask[..., 1:].contiguous())
     if nd == 2:
         d2 = d1[..., 1:, :] - d1[..., :-1, :]
         return (torch.cat([feat[..., 2:, :], d1[..., 1:, :], d2], dim=-1),
-                mask[..., 2:])
+                mask[..., 2:].contiguous())
     raise ValueError(f"n_deltas must be 0, 1 or 2, got {nd}")
 
 
@@ -131,14 +134,15 @@ class _Frontend(nn.Module):
         return signals, T, mask
 
     def finish(self, ceps: torch.Tensor, r: torch.Tensor,
-               mask: torch.Tensor):
-        """[B, T, n_ceps] pre-CMVN cepstra and [B, T, order+1] raw
+               mask: torch.Tensor, cmvn_done: bool = False):
+        """[B, T, n_ceps] cepstra (pre-CMVN unless cmvn_done: the signal
+        kernel normalizes them itself) and [B, T, order+1] raw
         autocorrelation (zero-width without LPC) -> ([B, T', d] features,
         [B, T'] mask), as speaker_recognition_tpu/features/extract.py:335-350:
         masked CMVN; LPC, or Levinson -> LPC cepstra -> non-finite to 0
         (no lpc_from_autocorr first: an all-zero frame gives 0 cepstra);
         deltas; zeros past each utterance's valid frames."""
-        if self.cmvn:
+        if self.cmvn and not cmvn_done:
             ceps = masked_cmvn(ceps, mask)
         parts = [ceps]
         if self.use_lpc:
@@ -201,19 +205,13 @@ class PackedFrontend(_Frontend):
         """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
         [B, T'] mask); zeros past each utterance's valid frames."""
         signals, T, mask = self._frames(signals, lengths)
-        if self.n_lpcc > 0:
-            B = signals.shape[0]
-            frames = framing.frame_signal(signals, self.frame_len,
-                                          self.frame_shift)
-            # a copy: for B = 1 the reshape is a strided view of the signal
-            ceps, r = gpu_frontend.packed_from_frames(
-                frames.reshape(B * T, self.frame_len).contiguous(), self.D,
-                self.W, self.dct, self.floor, self.A)
-            return self.finish(ceps.view(B, T, -1), r.view(B, T, -1), mask)
         n_valid = self.valid_frames(lengths.to(signals.device), T)
         feat = gpu_frontend.packed_from_signals(
             signals, n_valid, self.D, self.W, self.dct, self.A, self.floor,
-            self.frame_shift, self.cmvn, fft=self.fft)
+            self.frame_shift, self.cmvn, fft=self.fft,
+            fuse_lpc=self.n_lpcc == 0)
+        if self.n_lpcc > 0:
+            return self.finish(*feat, mask, cmvn_done=True)
         if self.n_deltas:
             feat, mask = apply_deltas(feat, mask, self.n_deltas)
             feat = torch.where(mask[..., None], feat, torch.zeros_like(feat))

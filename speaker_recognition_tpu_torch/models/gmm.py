@@ -98,10 +98,10 @@ class GmmBank(nn.Module):
     def dim(self) -> int:
         return self.op.shape[0] // 2
 
-    def serial_operator(self, row: int) -> torch.Tensor:
+    def component_operator(self, row: int) -> torch.Tensor:
         """(op, cw) component by component, [S, K, row]: the d quadratic
         terms zero-padded to dp = (row - 4)/2, the d linear terms likewise,
-        then cw and zeros. The serial kernel's layout (csrc/gmm_serial.cu),
+        then cw and zeros. The scoring kernels' layout (csrc/gmm_lse.cuh),
         built once per bank."""
         if self._serial is None or self._serial.shape[-1] != row:
             d, dp = self.dim, (row - 4) // 2

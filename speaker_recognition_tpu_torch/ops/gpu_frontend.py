@@ -7,9 +7,12 @@ Each wrapper launches its CUDA kernel on a CUDA tensor and runs its
 zero-padded signals and [B] valid frame counts, the [B, T, n_ceps + order]
 feature concat(MFCC, LPC) with T = (Lp - frame_len)//fshift + 1, masked
 CMVN over the valid frames when `cmvn` is set, and zeros at every frame at
-or past n_valid. Its plain version, the CPU path, runs the dense packed
-operators of ops/frontend.packed_frontend_operators: D [frame_len, ncols]
-(window, pre-emphasis, half-spectrum DFT), W [ncols, n_mel], dct
+or past n_valid. With `fuse_lpc=False` it skips the Levinson and returns
+the MFCC [B, T, n_ceps] and the raw autocorrelation [B, T, order+1], which
+the LPC cepstra take (features/extract.PackedFrontend). Its plain version,
+the CPU path, runs the dense packed operators of
+ops/frontend.packed_frontend_operators: D [frame_len, ncols] (window,
+pre-emphasis, half-spectrum DFT), W [ncols, n_mel], dct
 [n_mel, n_ceps] and A [ncols, order+1] (Wiener-Khinchin autocorrelation;
 zero columns for an MFCC-only config). The kernel computes the same
 function on an FFT: it takes an `FftRoute` (the window, the pre-emphasis
@@ -95,9 +98,26 @@ def _power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
     return X.real * X.real + X.imag * X.imag
 
 
+def _signal_features(ceps, r, mask, cmvn: bool, fuse_lpc: bool):
+    """The tail both plain signal frontends share: masked CMVN of the
+    cepstra, then concat(MFCC, LPC), or (MFCC, raw autocorrelation)
+    without fuse_lpc; zeros past the valid frames."""
+    if cmvn:
+        ceps = masked_cmvn(ceps, mask)
+    m = mask[..., None]
+    if not fuse_lpc:
+        return (torch.where(m, ceps, torch.zeros_like(ceps)),
+                torch.where(m, r, torch.zeros_like(r)))
+    parts = [ceps]
+    if r.shape[-1]:
+        parts.append(levinson.lpc_from_autocorr(r))
+    feat = torch.cat(parts, dim=-1)
+    return torch.where(m, feat, torch.zeros_like(feat))
+
+
 def packed_from_signals_fft_reference(signals, n_valid, fft: FftRoute, dct,
-                                      floor: float, fshift: int,
-                                      cmvn: bool) -> torch.Tensor:
+                                      floor: float, fshift: int, cmvn: bool,
+                                      fuse_lpc: bool = True):
     """The signal frontend's FFT route in plain torch: what K1 computes."""
     flen = fft.window.shape[0]
     frames = framing.frame_signal(signals, flen, fshift)
@@ -106,13 +126,7 @@ def packed_from_signals_fft_reference(signals, n_valid, fft: FftRoute, dct,
     Y = _power(framing.window_preemph(frames, flen, fft.pre_emph,
                                       fft.preemph_first), fft.n_fft)
     ceps = torch.log(torch.clamp_min(Y @ fft.mel, floor)) @ dct
-    if cmvn:
-        ceps = masked_cmvn(ceps, mask)
-    parts = [ceps]
-    if fft.acorr.shape[1]:
-        parts.append(levinson.lpc_from_autocorr(Y @ fft.acorr))
-    feat = torch.cat(parts, dim=-1)
-    return torch.where(mask[..., None], feat, torch.zeros_like(feat))
+    return _signal_features(ceps, Y @ fft.acorr, mask, cmvn, fuse_lpc)
 
 
 def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
@@ -126,8 +140,8 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
 
 
 def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
-                                  floor: float, fshift: int,
-                                  cmvn: bool) -> torch.Tensor:
+                                  floor: float, fshift: int, cmvn: bool,
+                                  fuse_lpc: bool = True):
     """The plain torch frontend: explicit frames and matmuls."""
     frames = framing.frame_signal(signals, D.shape[0], fshift)
     T = frames.shape[-2]
@@ -135,24 +149,19 @@ def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
     X = frames @ D
     Y = X * X
     ceps = torch.log(torch.clamp_min(Y @ W, floor)) @ dct
-    if cmvn:
-        ceps = masked_cmvn(ceps, mask)
-    parts = [ceps]
-    if A.shape[1]:
-        parts.append(levinson.lpc_from_autocorr(Y @ A))
-    feat = torch.cat(parts, dim=-1)
-    return torch.where(mask[..., None], feat, torch.zeros_like(feat))
+    return _signal_features(ceps, Y @ A, mask, cmvn, fuse_lpc)
 
 
 def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
                         fshift: int, cmvn: bool,
-                        fft: FftRoute | None = None) -> torch.Tensor:
-    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order]. On the
-    CPU the plain version with D, W, A; on the card the FFT kernel, which
-    takes `fft` instead."""
+                        fft: FftRoute | None = None, fuse_lpc: bool = True):
+    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order], or
+    without fuse_lpc ([B, T, n_ceps], [B, T, order+1] raw autocorrelation;
+    on the card two views of one buffer). On the CPU the plain version with
+    D, W, A; on the card the FFT kernel, which takes `fft` instead."""
     if signals.device.type == "cpu":
         return packed_from_signals_reference(signals, n_valid, D, W, dct, A,
-                                             floor, fshift, cmvn)
+                                             floor, fshift, cmvn, fuse_lpc)
     if signals.device.type != "cuda":
         raise ValueError(f"no frontend for device {signals.device}")
     if fft is None:
@@ -185,7 +194,8 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
     lib = _build.load()
     op = _packed_operator(lib, fft.mel, fft.acorr, N)
     T = (Lp - flen) // fshift + 1
-    feat = torch.empty((B, T, nceps + order), dtype=torch.float32, device=dev)
+    feat = torch.empty((B, T, nceps + (order if fuse_lpc else nac)),
+                       dtype=torch.float32, device=dev)
     global LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -194,10 +204,12 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
             op.data_ptr(), dct.data_ptr(), feat.data_ptr(), B, Lp, T, flen,
             fshift, N, nmel, nac, nceps,
             float(fft.pre_emph), int(bool(fft.preemph_first)), float(floor),
-            int(bool(cmvn)), stream)
+            int(bool(cmvn)), int(bool(fuse_lpc)), stream)
     _build.check(err, "packed frontend kernel")
     LAUNCHES += 1
-    return feat
+    if fuse_lpc:
+        return feat
+    return feat[..., :nceps], feat[..., nceps:]
 
 
 # the packed operators built for the FFT kernels: (id(mel), id(acorr),

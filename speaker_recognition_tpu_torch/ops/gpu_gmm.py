@@ -7,6 +7,17 @@ csrc/gmm_serial.cu and map one utterance [n, d] with mask [n] to [S] sums
 or averages. All apply the reference's -745 -> log(1e-15) underflow floor.
 Each runs its kernel on a CUDA tensor and its plain version (`*_reference`,
 from models/gmm) on a CPU tensor; any other device raises.
+
+Both kernels are bound by FP32 operations (2*d FMAs per frame and
+component) and share one inner loop (csrc/gmm_lse.cuh): a lane keeps its
+frames in registers, the bank's components arrive as 16-byte rows
+(`GmmBank.component_operator`, packed once per bank) that stream through
+shared memory in chunks, and the logsumexp runs online across chunks. So
+neither the feature dimension nor the number of components has a cap:
+past a padded d of 128 the frame stays in device memory (a route chosen
+on the shape, no fallback). The only limits are the grid's: at most 65535
+utterances a batched call and 65535 speakers a serial call. Every sum
+runs in a fixed order with no atomics: two calls give the same bits.
 """
 
 from __future__ import annotations
@@ -25,7 +36,6 @@ from ..models.gmm import (
 LAUNCHES = 0
 SERIAL_LAUNCHES = 0
 
-_MAX_SMEM = 232448   # bytes of shared memory a block may use on sm_90
 _MAX_GRID_Y = 65535
 
 __all__ = ["LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
@@ -53,17 +63,18 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
                          f"bank dim {bank.dim} must be {d}, batch "
                          f"{B} <= {_MAX_GRID_Y}")
     lib = _build.load()
-    smem = lib.srt_gmm_smem_bytes(d, K)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"bank block needs {smem} bytes of shared memory "
-                         f"(> {_MAX_SMEM}) at K={K}, d={d}")
+    comp = bank.component_operator(lib.srt_component_row(d))
     out = torch.empty((B, S), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
     global LAUNCHES
     with torch.cuda.device(dev):
+        scratch = torch.empty(lib.srt_bank_scratch_floats(B, T, d, S),
+                              dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.srt_bank_avg_loglik(
-            feats.data_ptr(), mask.data_ptr(), bank.op.data_ptr(),
-            bank.cw.data_ptr(), out.data_ptr(), B, T, d, S, K, stream)
+            feats.data_ptr(), mask.data_ptr(), comp.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), B, T, d, S, K, stream)
     _build.check(err, "bank scoring kernel")
     LAUNCHES += 1
     return out
@@ -84,14 +95,7 @@ def _serial(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
                          f"{bank.dim} must be {d}, speakers {S} <= "
                          f"{_MAX_GRID_Y}")
     lib = _build.load()
-    row = lib.srt_serial_row(d)
-    if row < 0:
-        raise ValueError(f"serial kernel takes feature dims 1..96, got {d}")
-    smem = lib.srt_serial_smem_bytes(d, K)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"serial block needs {smem} bytes of shared memory "
-                         f"(> {_MAX_SMEM}) at K={K}, d={d}")
-    comp = bank.serial_operator(row)
+    comp = bank.component_operator(lib.srt_component_row(d))
     partial = torch.empty((S, lib.srt_serial_chunks(n), 2),
                           dtype=torch.float32, device=dev)
     out = torch.empty(S, dtype=torch.float32, device=dev)

@@ -1,7 +1,8 @@
 """Levinson-Durbin recursion for LPC (src/feature/LPC.py:40-57) and the LPC
 cepstra (LPC.py:27-38), batched over frames in plain torch: the reference
 for the recursion fused into the frontend kernel (csrc/frontend.cu), and
-the LPCC route behind the frame-level kernels (csrc/frontend_frames.cu).
+the LPCC route behind that kernel's raw-autocorrelation mode and the
+frame-level kernels (csrc/frontend_fft.cu, csrc/frontend_frames.cu).
 The recursions are sequential in the order and vectorized over frames."""
 
 from __future__ import annotations

@@ -196,9 +196,9 @@ def _fft_route(monkeypatch):
     """Serve the frontends through the FFT route's plain versions, as the
     kernels do on the card."""
     def packed(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-               fft=None):
+               fft=None, fuse_lpc=True):
         return gpu_frontend.packed_from_signals_fft_reference(
-            signals, n_valid, fft, dct, floor, fshift, cmvn)
+            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
 
     def full(wp, C, S, mel, dct, floor, acorr, n_fft=None):
         assert n_fft & (n_fft - 1) == 0

@@ -142,19 +142,23 @@ def test_frontend_cache_follows_the_mode(monkeypatch):
     (48000, tcfg.FeatureConfig()),
 ], ids=["frames_8k_lpcc", "full_48k"])
 def test_frame_kernels_get_contiguous_frames(fs, cfg, monkeypatch):
-    """A kernel reads frames through a raw pointer: both routes hand it a
-    contiguous [n, flen] tensor, also for one utterance, where reshaping
-    the framed signal is a strided view (mix_feature's case)."""
+    """A kernel reads frames through a raw pointer: the full-spectrum route
+    hands it a contiguous [n, flen] tensor, also for one utterance, where
+    reshaping the framed signal is a strided view (mix_feature's case);
+    LPC cepstra on the packed route take the signal kernel, which gets the
+    contiguous signal and no frame matrix."""
     seen = []
 
     def spy(ref):
-        def call(frames, *args):
+        def call(frames, *args, **kw):
             seen.append(frames.is_contiguous())
-            return ref(frames, *args)
+            return ref(frames, *args, **kw)
         return call
 
     from speaker_recognition_tpu_torch.ops import gpu_frontend
     # the wrappers themselves: on CPU tensors they run the plain versions
+    monkeypatch.setattr(gpu_frontend, "packed_from_signals",
+                        spy(gpu_frontend.packed_from_signals))
     monkeypatch.setattr(gpu_frontend, "packed_from_frames",
                         spy(gpu_frontend.packed_from_frames))
     monkeypatch.setattr(gpu_frontend, "mfcc_from_frames",

@@ -113,15 +113,15 @@ def test_avg_matches_xla_bank_program():
 
 @pytest.mark.parametrize("d,dp", [(28, 32), (13, 16), (56, 56)])
 def test_serial_operator_layout(d, dp):
-    """The serial kernel's component-major layout, read the way the kernel
+    """The scoring kernels' component-major layout, read the way the kernel
     reads it (x (a x + b) summed over padded dims, plus cw), gives the
     plain version's joint log-density."""
     S, K = 3, 4
     bank = tgmm.GmmBank.from_numpy(*_bank_np(S, K, d, seed=d),
                                    device="cpu")
-    comp = bank.serial_operator(2 * dp + 4).numpy()
+    comp = bank.component_operator(2 * dp + 4).numpy()
     assert comp.shape == (S, K, 2 * dp + 4)
-    assert bank.serial_operator(2 * dp + 4) is bank.serial_operator(
+    assert bank.component_operator(2 * dp + 4) is bank.component_operator(
         2 * dp + 4)  # built once
     x, _ = _utt(7, d, 7, seed=1)
     xp = np.zeros((7, dp), np.float64)
