@@ -11,9 +11,12 @@ raises and the exit code is non-zero):
   1. device: card name, nvidia-smi name and power limit, kernel build time
   2. signal frontend kernel (K1, on an FFT) vs both plain versions, the
      dense packed DFT and the FFT route: 512 x 5 s at 8 kHz; a 150 s clip
-     beside a short one; 11.025, 16 and 22.05 kHz batches; 64 mel filters;
-     one utterance; two calls bitwise; its raw-autocorrelation mode (the
-     LPC cepstra's) at the bench batch and at 16 and 22.05 kHz
+     beside a short one; 11.025, 16 and 22.05 kHz batches; 44.1 and 48 kHz
+     with fft_size 4096 (a 4096-point FFT); 64 mel filters; 128 mel filters
+     with LPC (144 outputs); LPC order 40 with 40 cepstra; one utterance;
+     two calls bitwise; its raw-autocorrelation mode (the LPC cepstra's) at
+     the bench batch, at 16 and 22.05 kHz and at 48 kHz with fft_size
+     4096
   3. bank-scoring kernel vs plain, two calls bitwise: the 4 x 32 bench
      bank over 512 utterances; an 80 x 256 bank over 8; a 4 x 1024 bank;
      d = 102 (bob's MFCC + LPC + two deltas at 16 kHz); features that
@@ -22,32 +25,40 @@ raises and the exit code is non-zero):
      the JAX package's scores, both kernels' launch counts
   5. timing (CUDA events, median of 7 trials): end-to-end predict_scores at
      the bench geometry, each kernel and its plain version
-  6. serial kernel vs plain: the bench bank + UBM on one 5 s utterance, an
-     80 x 256 bank + UBM on 3 s, a 150 s clip, the underflow floor, no
-     valid frame, one speaker, features off a 16-byte boundary, 1024
-     components, d = 102 and d = 200 (past the widest dimension a lane
-     keeps in registers)
+  6. serial kernel (one clustered launch) vs plain: the bench bank + UBM
+     on one 5 s utterance, an 80 x 256 bank + UBM on 3 s, a 150 s clip,
+     the underflow floor, no valid frame, one speaker, features off a
+     16-byte boundary, 1024 components on 5 s and on the 150 s clip (a
+     block walks several chunks of frames, each against the streamed
+     rows), d = 102 and d = 200 (past the
+     widest dimension a lane keeps in registers); at each, two calls
+     bitwise and torch.profiler's count of kernels a call (one)
   7. slice 2: `cli -t enroll` then `cli -t predict` on CUDA at the default
      config; the same EM from one init on CUDA f32 against CPU f64
   8. the open set: train_ubm, adapt_speakers, calibrate_rejection and
      predict_one_with_rejection on CUDA; launch counts of phases 7-8; the
      same through ModelInterface at d = 102 (16 kHz), llr_scores against
      the CPU's plain version
-  9. timing: the serial kernel and its plain version, predict_with_rejection
-     of one 5 s utterance, ModelInterface.train of three speakers
+  9. timing: the serial kernel and its plain version (the wrapper's host
+     time and the device time), predict_with_rejection of one 5 s
+     utterance, ModelInterface.train of three speakers
  10. full-spectrum kernel (K5, on an FFT) vs both plain versions, the
      dense DFT and the FFT route: 64 x 5 s at 48 kHz, 44.1 kHz, fft_size
      256 at 8 kHz, a frame longer than the FFT (16 kHz, fft_size 256),
      SRTPU_FRONTEND=full at 8 kHz, bob's config at 48 kHz, MFCC only, an
-     utterance with no valid frame, two calls bitwise; fft_size 1500 at
-     8 kHz, which takes the dense kernel
- 11. frame-level packed kernel (K4, no serving caller) vs plain: 512 x 5 s
-     at 8 kHz and a 16 kHz batch with LPC cepstra; the bench batch's LPCC
+     utterance with no valid frame, 44.1 and 48 kHz with fft_size 4096, 128
+     mel filters with LPC at 48 kHz, two calls bitwise; fft_size 1500 at
+     8 kHz, which takes the dense kernel, also with 144 outputs
+ 11. frame-level packed kernel (K4 on an FFT, no serving caller) vs both
+     plain versions, the dense packed DFT and the FFT route: 512 x 5 s at
+     8 kHz and a 16 kHz batch with LPC cepstra; the bench batch's LPCC
      through extract_batch launches K1 once and K4 never, its features
      against the plain route
  12. slice 3 on the card: `cli -t enroll` then `cli -t predict` at 48 kHz,
-     the JAX-enrolled 48 kHz session against the JAX package's scores, UBM
-     + MAP + open-set decisions at 48 kHz; then the LPC-cepstra slice at
+     at the default config and with fft_size 4096 (K1 on a 4096-point
+     FFT), the JAX-enrolled 48 kHz session against the JAX package's
+     scores, UBM + MAP + open-set decisions at 48 kHz; then the LPC-cepstra
+     slice at
      8 kHz: ModelInterface enroll, train, predict_batch, dump, `cli -t
      predict`, the open set; launch counts of both; timing of the
      frontend kernels and their plain versions, of K5 beside the dense
@@ -57,10 +68,10 @@ raises and the exit code is non-zero):
  13. the fused predict monolith (K6 and K7, one kernel) vs plain: the
      bench batch in f32 and with bf16 DFT operands, against predict_scores
      (the frontend and bank-scoring kernels), the 80 x 256 bank over 8
-     utterances, a 150 s clip beside a 1 s one, MFCC only, 16 kHz, an
-     utterance with no valid frame, two calls bitwise; launch counts;
-     timing of the monolith, its plain version and predict_scores,
-     interleaved, with the FP32 roofline share
+     utterances, a 150 s clip beside a 1 s one, MFCC only, 16 kHz, LPC
+     order 40, an utterance with no valid frame, two calls bitwise; launch
+     counts; timing of the monolith, its plain version and
+     predict_scores, interleaved, with the FP32 roofline share
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes), its
 error against its plain version, its time, its plain version's time and
@@ -142,6 +153,10 @@ EM_ATOL = 1e-3
 UBM_ITERATIONS = 100
 FS48 = 48000
 LPCC = LpcConfig(n_lpcc=16)
+# shapes the tile widened to: a 4096-point FFT (44.1/48 kHz frames with
+# fft_size 4096), LPC order 40 and 40 cepstra
+FFT4096 = FeatureConfig(mfcc=MfccConfig(fft_size=4096))
+ORDER40 = FeatureConfig(mfcc=MfccConfig(n_ceps=40), lpc=LpcConfig(n_lpc=40))
 # Fused predict vs its plain version, both f32 on the card: the frontend
 # differs as in phase 2 (~1e-5 on cepstra), the scores are means of
 # hundreds of frames' log-likelihoods; 1e-3 relative with identical argmax.
@@ -349,22 +364,74 @@ def device_times(fn, calls=20) -> str:
         torch.cuda.synchronize()
     evs = [ev for ev in prof.key_averages()
            if ev.device_type == DeviceType.CUDA and ev.device_time_total]
-    name = lambda key: key.replace(  # noqa: E731
-        "(anonymous namespace)::", "").split("<")[0].split("(")[0].split()[-1]
     if len(evs) > 4:
         device = (f"{sum(ev.count for ev in evs) / calls:.0f} launches a "
                   f"call, {sum(ev.device_time_total for ev in evs) / calls:.1f}"
                   " us in all")
     else:
-        device = ", ".join(f"{name(ev.key)} "
+        device = ", ".join(f"{kernel_name(ev.key)} "
                            f"{ev.device_time_total / ev.count:.1f} us"
                            for ev in evs) or "not measured"
     return f"device {device}; host enqueue {host:.1f} us a call"
 
 
+def kernels_per_call(fn, calls=20, windows=8) -> dict:
+    """{kernel name: launches a call} of the device kernels fn() runs, by
+    torch.profiler (copies and memsets not counted): in up to `windows`
+    windows, `calls` calls in an active profiling step after a warm-up
+    step, read when that step's trace is ready (the step's own annotation
+    is not a kernel). The profiler drops events now and then and never
+    adds one, so each kernel's count is its most in any window; the
+    windows stop at the first one in which every kernel shows a whole
+    number of launches a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    counts = {}
+    whole = []
+
+    def ready(prof):
+        seen = {}
+        for ev in prof.key_averages():
+            if (ev.device_type == DeviceType.CUDA and "emcpy" not in ev.key
+                    and "emset" not in ev.key
+                    and not ev.key.startswith("ProfilerStep")):
+                key = kernel_name(ev.key)
+                seen[key] = seen.get(key, 0) + ev.count / calls
+        for key, per in seen.items():
+            counts[key] = max(counts.get(key, 0), per)
+        whole.append(bool(seen) and all(per == round(per) >= 1
+                                        for per in seen.values()))
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        if any(whole):
+            break
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                     on_trace_ready=ready) as prof:
+            for _ in range(2):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+    return counts
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name without namespace, template or
+    arguments."""
+    return key.replace("(anonymous namespace)::", "").split("<")[0].split(
+        "(")[0].split()[-1]
+
+
 def check_serial(name, bank, x, mask, floor=False):
     """Serial kernel vs plain on one utterance, averages and sums, with a
-    bit-equal rerun; returns the max abs error of the averages."""
+    bit-equal rerun and one kernel a call (by torch.profiler: no other
+    kernel, and at most one launch a call, since the profiler may drop an
+    event but never adds one); returns the max abs error of the
+    averages."""
     before = gpu_gmm.SERIAL_LAUNCHES
     got = gpu_gmm.bank_avg_loglik(bank, x, mask)
     want = gpu_gmm.bank_avg_loglik_reference(bank, x, mask)
@@ -373,6 +440,8 @@ def check_serial(name, bank, x, mask, floor=False):
     again = gpu_gmm.bank_avg_loglik(bank, x, mask)
     torch.cuda.synchronize()
     launched = gpu_gmm.SERIAL_LAUNCHES - before
+    kernels = kernels_per_call(lambda: gpu_gmm.bank_avg_loglik(bank, x,
+                                                               mask))
     d = (got - want).abs()
     rel = (d / want.abs().clamp_min(1e-30)).max().item()
     rel_sum = ((sums - want_sums).abs()
@@ -384,10 +453,14 @@ def check_serial(name, bank, x, mask, floor=False):
           f"{int(mask.sum())}/{mask.numel()} max|d| {d.max().item():.3e} "
           f"max rel {rel:.3e} (sums {rel_sum:.3e}; tol {SERIAL_RTOL}) "
           f"argmax identical {same} rerun bit-equal "
-          f"{torch.equal(got, again)} launches {launched}", flush=True)
+          f"{torch.equal(got, again)} launches {launched}, by torch.profiler "
+          f"{kernels}: device kernels a call {sum(kernels.values()):g}",
+          flush=True)
     if (not torch.isfinite(got).all() or rel > SERIAL_RTOL
             or rel_sum > SERIAL_RTOL or not same or launched != 3
-            or not torch.equal(got, again)):
+            or not torch.equal(got, again)
+            or set(kernels) != {"serial_kernel"}
+            or not 0 < kernels["serial_kernel"] <= 1):
         raise AssertionError(f"{name}: serial kernel disagrees with plain")
     if floor and not torch.allclose(
             want, torch.full_like(want, np.log(1e-15)), rtol=1e-5):
@@ -501,8 +574,11 @@ def frames_kernel(fe):
                          wp, mel, dct, floor, ac, n)},
                 "FULL_LAUNCHES" if n & (n - 1) == 0
                 else "FULL_DENSE_LAUNCHES")
-    return (gpu_frontend.packed_from_frames,
-            {"dense": gpu_frontend.packed_from_frames_reference},
+    return (lambda *a: gpu_frontend.packed_from_frames(*a, fft=fe.fft),
+            {"dense": gpu_frontend.packed_from_frames_reference,
+             "fft": lambda frames, D, W, dct, floor, A:
+                 gpu_frontend.packed_from_frames_fft_reference(
+                     frames, fe.fft, dct, floor)},
             "FRAMES_LAUNCHES")
 
 
@@ -688,11 +764,28 @@ def main(argv=None):
     err_fe = max(err_fe, check_frontend(
         f"22.05 kHz (flen {fe22.frame_len}, fshift {fe22.frame_shift})", fe22,
         s22, l22))
-    # 64 mel + 16 autocorrelation outputs take the kernel's other tiling
-    fe64 = PackedFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
-        n_filters=64)), dev)
+    # a 4096-point FFT: 44.1 and 48 kHz frames with fft_size 4096 take the
+    # packed route (16-frame tiles)
+    s48p, l48p = signals_batch(rng, [FS48, 30000, 2000], padded(FS48), dev)
+    s44p, l44p = signals_batch(rng, [44100, 20000], padded(44100), dev)
+    for fs_p, sig_p, len_p in ((FS48, s48p, l48p), (44100, s44p, l44p)):
+        fe_p = PackedFrontend(fs_p, FFT4096, dev)
+        err_fe = max(err_fe, check_frontend(
+            f"{fs_p / 1e3:g} kHz, fft_size 4096 (flen {fe_p.frame_len}, "
+            f"n_fft {fe_p.n_fft})", fe_p, sig_p, len_p))
+    # 64 mel + 16 autocorrelation outputs take the kernel's other tiling;
+    # 128 + 16 its widest (256 columns)
+    for n_filters in (64, 128):
+        fe_w = PackedFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
+            n_filters=n_filters)), dev)
+        err_fe = max(err_fe, check_frontend(
+            f"8 kHz, {n_filters} mel filters + LPC", fe_w, bench_sig[:4],
+            bench_len[:4]))
+    # LPC order 40 and 40 cepstra: the Levinson and CMVN past 32
+    fe40 = PackedFrontend(BENCH_FS, ORDER40, dev)
     err_fe = max(err_fe, check_frontend(
-        "8 kHz, 64 mel filters", fe64, bench_sig[:4], bench_len[:4]))
+        "8 kHz, LPC order 40, 40 cepstra", fe40, bench_sig[:16],
+        bench_len[:16]))
     # one utterance: GMMSet's serial decisions
     err_fe = max(err_fe, check_frontend(
         "one 5 s utterance", fe8, bench_sig[:1].contiguous(), bench_len[:1]))
@@ -705,6 +798,10 @@ def main(argv=None):
         err_raw = max(err_raw, check_frontend_raw(
             f"raw autocorrelation, {fs_c / 1e3:g} kHz",
             PackedFrontend(fs_c, lpcc_cfg, dev), sig_c, len_c))
+    err_raw = max(err_raw, check_frontend_raw(
+        "raw autocorrelation, 48 kHz, fft_size 4096",
+        PackedFrontend(FS48, FeatureConfig(mfcc=FFT4096.mfcc, lpc=LPCC),
+                       dev), s48p, l48p))
 
     # 3. bank-scoring kernel vs plain, on real features
     feats, mask = fe8(bench_sig, bench_len)
@@ -833,6 +930,9 @@ def main(argv=None):
              off_alignment(x5), m5, False),
             ("1024 components + UBM", random_bank(rng, 5, 1024, d, dev), x5,
              m5, False),
+            ("1024 components + UBM, 150 s clip (rows restaged for each "
+             "chunk of frames)", random_bank(rng, 5, 1024, d, dev), x150,
+             m150, False),
             (f"d = {cfg102.dim}, 3 s @ 16 kHz",
              random_bank(rng, 5, 32, cfg102.dim, dev),
              *utterance(f102[0], int(m102[0].sum()), dev), False),
@@ -985,11 +1085,23 @@ def main(argv=None):
         10, "16 kHz, fft_size 256 (frame 512 > fft)", FullFrontend(
             16000, FeatureConfig(mfcc=MfccConfig(fft_size=256)), dev), s16,
         l16))
-    # not a power of two: the dense kernel, on its own counter
+    # not a power of two: the dense kernel, on its own counter, also with
+    # 128 mel filters + LPC (144 outputs)
+    for n_filters in (50, 128):
+        err_full = max(err_full, check_frames(
+            10, f"8 kHz, fft_size 1500, {n_filters} mel filters (dense "
+            "kernel)", FullFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
+                fft_size=1500, n_filters=n_filters)), dev),
+            bench_sig[:8], bench_len[:8]))
+    # a 4096-point FFT (16-frame tiles), and 144 outputs (256 columns)
+    for fs_p, sig_p, len_p in ((FS48, s48p, l48p), (44100, s44p, l44p)):
+        err_full = max(err_full, check_frames(
+            10, f"{fs_p / 1e3:g} kHz, fft_size 4096",
+            FullFrontend(fs_p, FFT4096, dev), sig_p, len_p))
     err_full = max(err_full, check_frames(
-        10, "8 kHz, fft_size 1500 (dense kernel)", FullFrontend(
-            BENCH_FS, FeatureConfig(mfcc=MfccConfig(fft_size=1500)), dev),
-        bench_sig[:8], bench_len[:8]))
+        10, "48 kHz, 128 mel filters + LPC", FullFrontend(
+            FS48, FeatureConfig(mfcc=MfccConfig(n_filters=128)), dev), s48p,
+        l48p))
     os.environ["SRTPU_FRONTEND"] = "full"
     fe_env = extract.frontend(BENCH_FS, fcfg, dev)
     del os.environ["SRTPU_FRONTEND"]
@@ -1011,11 +1123,15 @@ def main(argv=None):
     # 11. frame-level packed kernel vs plain, LPC cepstra: its own path,
     # which no serving route takes any more (check_frames demands both of
     # its launches; the kernels record reads the serving count, 0)
+    dense_before = gpu_frontend.FULL_DENSE_LAUNCHES
     err_frames = check_frames(11, "bench 512 x 5 s @ 8 kHz, n_lpcc 16", fe8c,
                               bench_sig, bench_len)
     err_frames = max(err_frames, check_frames(
         11, "16 kHz, n_lpcc 16", PackedFrontend(16000, lpcc_cfg, dev), s16,
         l16))
+    if gpu_frontend.FULL_DENSE_LAUNCHES != dense_before:
+        raise AssertionError("the frame-level packed frontend ran a dense "
+                             "product")
     # serving sends LPC cepstra through K1's raw-autocorrelation mode
     before = (gpu_frontend.LAUNCHES, gpu_frontend.FRAMES_LAUNCHES)
     feats_c, mask_c = extract.extract_batch(bench_sig, bench_len, BENCH_FS,
@@ -1092,6 +1208,40 @@ def main(argv=None):
                    launches3["serial"]) < 1):
         raise AssertionError(f"slice 3 launches {launches3}")
 
+    # fft_size 4096 at 48 kHz: the packed route, K1 on a 4096-point FFT;
+    # the CLI's enroll task with that config, then `cli -t predict` on the
+    # session it dumps
+    gpu_frontend.LAUNCHES = gpu_frontend.FULL_LAUNCHES = 0
+    gpu_gmm.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = synth.write_training_wavs(tmp, FS48)
+        test_dir = os.path.join(tmp, "test")
+        os.makedirs(test_dir)
+        for i, (label, sig) in enumerate(zip(truth48, utts48)):
+            wavfile.write(os.path.join(test_dir, f"{i:02d}_{label}.wav"),
+                          FS48, sig)
+        model = os.path.join(tmp, "enrolled48_fft4096.out")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.task_enroll(" ".join(dirs), model, dev.type,
+                            PipelineConfig(features=FFT4096))
+        predict_out = io.StringIO()
+        with contextlib.redirect_stdout(predict_out):
+            cli.main(["-t", "predict", "-i", os.path.join(test_dir, "*.wav"),
+                      "-m", model, "--device", "cuda"])
+        served = ModelInterface.load(model, device=dev).config.features
+    labels4096 = [ln.rpartition(" -> ")[2]
+                  for ln in predict_out.getvalue().strip().splitlines()]
+    launches4096 = {"frontend": gpu_frontend.LAUNCHES,
+                    "full": gpu_frontend.FULL_LAUNCHES,
+                    "gmm": gpu_gmm.LAUNCHES}
+    print(f"phase 12 cli enroll + predict @ 48 kHz, fft_size 4096: "
+          f"{labels4096}; launches {launches4096}", flush=True)
+    if (labels4096 != truth48 or served != FFT4096
+            or launches4096["full"] != 0
+            or min(launches4096["frontend"], launches4096["gmm"]) < 1):
+        raise AssertionError(f"48 kHz fft_size 4096 cli labels {labels4096}, "
+                             f"launches {launches4096}")
+
     # the LPC-cepstra slice at 8 kHz: enroll, train, predict, dump, the CLI
     # on the dumped session, and the open set, all on K1's
     # raw-autocorrelation mode
@@ -1143,9 +1293,13 @@ def main(argv=None):
 
     # timing of slice 3's kernels and of predict at 48 kHz
     fe_args = frames_args(fe8c, bench_sig)[0]
-    t["frames"] = time_ms(lambda: gpu_frontend.packed_from_frames(*fe_args))
+    t["frames"] = time_ms(lambda: gpu_frontend.packed_from_frames(
+        *fe_args, fft=fe8c.fft))
     t["frames_plain"] = time_ms(
         lambda: gpu_frontend.packed_from_frames_reference(*fe_args))
+    t["frames_plain_fft"] = time_ms(
+        lambda: gpu_frontend.packed_from_frames_fft_reference(
+            fe_args[0], fe8c.fft, fe8c.dct, fe8c.floor))
     del fe_args
     # K1's raw-autocorrelation mode beside its plain version, and LPCC
     # predict on it beside the earlier route (a copied frame matrix, K4,
@@ -1157,7 +1311,7 @@ def main(argv=None):
 
     def lpcc_predict_k4():
         fa, B, T = frames_args(fe8c, bench_sig)
-        ceps, r = gpu_frontend.packed_from_frames(*fa)
+        ceps, r = gpu_frontend.packed_from_frames(*fa, fft=fe8c.fft)
         f, m = fe8c.finish(ceps.view(B, T, -1), r.view(B, T, -1),
                            framing.frame_validity_mask(
                                bench_len, T, fe8c.frame_len,
@@ -1203,7 +1357,8 @@ def main(argv=None):
         sig48, len48, bench_bank, FS48, fcfg))
     rate48 = BENCH_B * BENCH_SEC / (t["predict48"] / 1e3)
     print(f"phase 12 [{card}] frame-level packed kernel, 512 x 5 s @ 8 kHz, "
-          f"n_lpcc 16: {t['frames']:.3f} ms, plain {t['frames_plain']:.3f} ms")
+          f"n_lpcc 16: {t['frames']:.3f} ms, plain {t['frames_plain']:.3f} ms, "
+          f"plain FFT {t['frames_plain_fft']:.3f} ms")
     print(f"phase 12 [{card}] signal frontend kernel, raw-autocorrelation "
           f"mode, 512 x 5 s @ 8 kHz: {t['frontend_raw']:.3f} ms, plain "
           f"{t['frontend_raw_plain']:.3f} ms; predict_scores with n_lpcc 16 "
@@ -1267,6 +1422,9 @@ def main(argv=None):
                         random_bank(rng, 4, 32, fe8m.dct.shape[1], dev))),
             (f"16 kHz (flen {fe16.frame_len}; a 0.01 s utterance)",
              fused_args(fe16, s16, l16, bench_bank)),
+            ("LPC order 40, 40 cepstra",
+             fused_args(fe40, bench_sig[:16], bench_len[:16],
+                        random_bank(rng, 4, 32, ORDER40.dim, dev))),
             ("n_valid = 0", args0)):
         e6, e7 = check_fused_case(name, args)
         err_k6, err_k7 = max(err_k6, e6), max(err_k7, e7)
@@ -1376,7 +1534,7 @@ def main(argv=None):
         entry("bank_sum_loglik", "gmm_serial.cu", "pallas_gmm.py:47",
               launches2["serial"], err_serial, t["serial"],
               t["serial_plain"], "bank_sum_loglik"),
-        entry("packed_from_frames", "frontend_frames.cu",
+        entry("packed_from_frames", "frontend_frames_fft.cu",
               "pallas_frontend.py:111", launches5["frames"], err_frames,
               t["frames"], t["frames_plain"], "packed_from_frames"),
         entry("mfcc_from_frames", "frontend_fft.cu",

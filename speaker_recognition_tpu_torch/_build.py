@@ -68,21 +68,22 @@ def _bind(lib):
     lib.srt_fft_frames_frontend.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                             f, p]
     lib.srt_fft_frames_frontend.restype = i
+    lib.srt_fft_packed_frames.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                          f, i, f, p]
+    lib.srt_fft_packed_frames.restype = i
     lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                        i, i, ctypes.c_float, i, p]
+                                        i, i, f, p]
     lib.srt_frames_frontend.restype = i
-    lib.srt_frames_smem_bytes.argtypes = [i, i]
+    lib.srt_frames_smem_bytes.argtypes = [i]
     lib.srt_frames_smem_bytes.restype = i
-    lib.srt_bank_avg_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.srt_bank_avg_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.srt_bank_avg_loglik.restype = i
-    lib.srt_bank_scratch_floats.argtypes = [i, i, i, i]
-    lib.srt_bank_scratch_floats.restype = ctypes.c_longlong
-    lib.srt_bank_sum_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+    lib.srt_bank_warp_frames.argtypes = [i]
+    lib.srt_bank_warp_frames.restype = i
+    lib.srt_bank_sum_loglik.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.srt_bank_sum_loglik.restype = i
     lib.srt_component_row.argtypes = [i]
     lib.srt_component_row.restype = i
-    lib.srt_serial_chunks.argtypes = [i]
-    lib.srt_serial_chunks.restype = i
     lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
                                       i, i, i, i, i, i, i, i, ctypes.c_float,
                                       i, i, p]

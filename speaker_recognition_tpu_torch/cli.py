@@ -39,12 +39,15 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
-def task_enroll(input_dirs: str, output_model: str, device: str = "cuda"):
+def task_enroll(input_dirs: str, output_model: str, device: str = "cuda",
+                config=None):
     """Mirrors speaker-recognition.py:52-83: glob dirs, label = dir
-    basename, enroll every contained wav, train, dump."""
+    basename, enroll every contained wav, train, dump. `config` (a
+    PipelineConfig; the default one when None) is dumped with the session,
+    so predict serves the same features."""
     from .api.interface import ModelInterface
 
-    m = ModelInterface(device=device)
+    m = ModelInterface(config, device=device)
     patterns = [os.path.expanduser(k) for k in input_dirs.strip().split()]
     dirs = itertools.chain(*(glob.glob(d) for d in patterns))
     dirs = [d for d in dirs if os.path.isdir(d)]

@@ -17,12 +17,13 @@
 // csrc/rfft_tile.cuh. The TPU kernel ran the window, the pre-emphasis and
 // a 2*flen-point DFT as one dense product frames . D (262 kFLOP a frame at
 // 8 kHz, D 512 KB); here an N-point real FFT (N the least power of two
-// >= 2*flen: 512 at 8 kHz, 2048 at 22.05 kHz) of the windowed,
+// >= 2*flen: 512 at 8 kHz, 2048 at 22.05 kHz, 4096 at 44.1 and 48 kHz
+// with fft_size 4096) of the windowed,
 // pre-emphasized frame gives the power of bins 0..N/2, and the bin-domain
 // operators M = H . mel (H: the exact map from the N-point to the
 // fft_size-point power spectrum, ops/frontend.halfspec_to_fullspec) and
-// the biased autocorrelation R fold it into the sums. Per tile of 32
-// frames of one utterance:
+// the biased autocorrelation R fold it into the sums. Per tile of 32 (16
+// at N = 4096) frames of one utterance:
 //   * sample p of frame f is the strided window signal[f*fshift + p] (no
 //     frame matrix, no roll), windowed and pre-emphasized in f32 as it is
 //     gathered, in either order of ops/frontend.windowed_preemph_operator:
@@ -30,9 +31,10 @@
 //       preemph_first:  y[p] = w[p] (x[p] - a x[p-1]),  y[0] = w[0] (1-a) x[0]
 //   * tiles that lie wholly past n_valid only write zeros;
 //   * log/DCT and the order-p Levinson run per frame at the end of the
-//     block, one thread per frame with the recursion in local memory
-//     (tile_features of csrc/packed_tile.cuh, which the fused predict
-//     monolith keeps with its dense tile).
+//     block, one thread per frame with the recursion in local memory, of
+//     any order the tile's outputs admit (tile_features of
+//     csrc/packed_tile.cuh, which the fused predict monolith keeps with its
+//     dense tile); CMVN takes any number of cepstra, 32 at a time.
 // Built without --use_fast_math: isfinite() must survive and logf must be
 // the accurate one (an all-zero frame gives r = 0 -> 0/0 -> LPC 0).
 
@@ -64,8 +66,8 @@ struct SignalFrames {
     const float later = w * x - a * (wm * xm);
     return preemph_first ? first : later;
   }
-  template <int PL>
-  __device__ __forceinline__ void fold(int, int, float2 (&)[PL]) const {}
+  template <int RP, class First>
+  __device__ __forceinline__ void fold(int, float2 (&)[RP], First) const {}
 };
 
 // columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
@@ -76,7 +78,7 @@ __host__ __device__ constexpr int feature_width(int nceps, int nac,
 }
 
 template <int N, int OPL>
-__global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
+__global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
     const float* __restrict__ signals, const int* __restrict__ n_valid,
     const float* __restrict__ win, const float4* __restrict__ op,
     const float* __restrict__ dct,
@@ -86,14 +88,15 @@ __global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
-  const int f0 = blockIdx.x * rfft::FT;
-  const int nf = min(rfft::FT, T - f0);
+  constexpr int FT = rfft::ft(N), NTH = rfft::nth(N);
+  const int f0 = blockIdx.x * FT;
+  const int nf = min(FT, T - f0);
   const int nfeat = feature_width(nceps, nac, fuse_lpc);
   const int nvalid = n_valid[b];
   float* out = feat + ((size_t)b * T + f0) * nfeat;
 
   if (f0 >= nvalid) {  // block-uniform: the whole tile is padding
-    for (int i = threadIdx.x; i < nf * nfeat; i += rfft::NTH) out[i] = 0.f;
+    for (int i = threadIdx.x; i < nf * nfeat; i += NTH) out[i] = 0.f;
     return;
   }
   const SignalFrames load{signals + (size_t)b * Lp + (size_t)f0 * fshift,
@@ -101,12 +104,12 @@ __global__ void __launch_bounds__(rfft::NTH) packed_frontend_kernel(
                           preemph_first != 0};
   const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, op,
                                                      nmel, power_floor);
-  tile_features<OPL>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps,
-                     fuse_lpc != 0);
+  tile_features<OPL, NTH>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps,
+                          fuse_lpc != 0);
 }
 
 // Masked per-utterance CMVN of feat[b, :n_valid[b], :nceps], in place
-// (cmvn_utterance): 32 columns x 16 frame groups per block.
+// (cmvn_utterance): 32 columns at a time x 16 frame groups per block.
 constexpr int CG = 16;
 
 __global__ void __launch_bounds__(32 * CG) cmvn_kernel(
@@ -120,7 +123,7 @@ __global__ void __launch_bounds__(32 * CG) cmvn_kernel(
 }
 
 template <int N, int OPL>
-cudaError_t launch(dim3 grid, cudaStream_t st, const float* sig,
+cudaError_t launch(int B, cudaStream_t st, const float* sig,
                    const int* nv, const float* win, const float4* op,
                    const float* dct, float* feat, int Lp,
                    int T, int flen, int fshift, int nmel, int nac, int nceps,
@@ -131,7 +134,8 @@ cudaError_t launch(dim3 grid, cudaStream_t st, const float* sig,
       packed_frontend_kernel<N, OPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  packed_frontend_kernel<N, OPL><<<grid, rfft::NTH, smem, st>>>(
+  const dim3 grid((T + rfft::ft(N) - 1) / rfft::ft(N), B);
+  packed_frontend_kernel<N, OPL><<<grid, rfft::nth(N), smem, st>>>(
       sig, nv, win, op, dct, feat, Lp, T, flen, fshift, nmel, nac, nceps,
       pre_emph, preemph_first, power_floor, fuse_lpc);
   return cudaGetLastError();
@@ -153,9 +157,7 @@ extern "C" int srt_packed_frontend(
     int fuse_lpc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int opl = rfft::pick_opl(nfft, nmel + nac);
-  if (opl == 0 || 2 * flen > nfft || nac > MAX_ORDER + 1)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + rfft::FT - 1) / rfft::FT, B);
+  if (opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
   const auto* sig = (const float*)signals;
   const auto* nv = (const int*)n_valid;
   const auto* w = (const float*)win;
@@ -163,14 +165,11 @@ extern "C" int srt_packed_frontend(
   const auto* d = (const float*)dct;
   auto* out = (float*)feat;
   const cudaError_t err = rfft::with_n(nfft, [&](auto nc) {
-    constexpr int N = decltype(nc)::value;
-    return opl == 9
-        ? launch<N, 9>(grid, st, sig, nv, w, o, d, out, Lp, T, flen,
-                       fshift, nmel, nac, nceps, pre_emph, preemph_first,
-                       power_floor, fuse_lpc)
-        : launch<N, 16>(grid, st, sig, nv, w, o, d, out, Lp, T, flen,
-                        fshift, nmel, nac, nceps, pre_emph, preemph_first,
-                        power_floor, fuse_lpc);
+    return rfft::with_opl(opl, [&](auto oc) {
+      return launch<decltype(nc)::value, decltype(oc)::value>(
+          B, st, sig, nv, w, o, d, out, Lp, T, flen, fshift, nmel, nac,
+          nceps, pre_emph, preemph_first, power_floor, fuse_lpc);
+    });
   });
   if (err != cudaSuccess || !cmvn) return (int)err;
   cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(

@@ -7,16 +7,18 @@
 //     ceps  = log(max(power . mel, floor)) . dct,   r = power . acorr
 // for windowed, pre-emphasized frames wp [n, flen] zero-padded to N;
 // frames longer than N fold sample t onto t mod N, which is what the TPU
-// kernel's C and S compute there (their columns alias). Writes pre-CMVN
-// cepstra [n, nceps] and the RAW autocorrelation [n, nac] (nac = 0 for an
-// MFCC-only config), as csrc/frontend_frames.cu's dense template does; that
-// template keeps every fft_size that is not a power of two.
+// kernel's C and S compute there (their columns alias). N = 64 .. 4096
+// (fft_size 4096 at 44.1/48 kHz), up to 256 mel + autocorrelation
+// outputs. Writes pre-CMVN cepstra [n, nceps] and the RAW autocorrelation
+// [n, nac] (nac = 0 for an MFCC-only config), as csrc/frontend_frames.cu's
+// dense template does; that template keeps every fft_size that is not a
+// power of two.
 //
 // What bounds it on this card, and what the design does about it: see
 // csrc/rfft_tile.cuh. The TPU kernel's dense product moved 12.6 MB of C
 // and S through every block (34.6 GB a batch at 48 kHz); here each block
-// reads its 32 frames once (6 KB each at 48 kHz) and the mel and
-// autocorrelation rows once, and computes its twiddles.
+// reads its 32 (16 at N = 4096) frames once (6 KB each at 48 kHz) and the
+// mel and autocorrelation rows once, and computes its twiddles.
 // Built without --use_fast_math, for the accurate logf.
 
 #include <cuda_runtime.h>
@@ -34,13 +36,14 @@ struct FrameRows {
   __device__ __forceinline__ float operator()(int f, int p) const {
     return p < flen ? fr[(size_t)f * flen + p] : 0.f;
   }
-  template <int PL>
-  __device__ __forceinline__ void fold(int f, int lane,
-                                       float2 (&v)[PL]) const {
+  template <int RP, class First>
+  __device__ __forceinline__ void fold(int f, float2 (&v)[RP],
+                                       First first) const {
     if (flen <= n) return;
     const float* x = fr + (size_t)f * flen;
-    for (int q = 0; q < PL; ++q) {
-      const int p = 2 * (lane + 32 * q);
+#pragma unroll
+    for (int q = 0; q < RP; ++q) {
+      const int p = first(q);
       for (int t = p + n; t < flen; t += n) v[q].x += x[t];
       for (int t = p + 1 + n; t < flen; t += n) v[q].y += x[t];
     }
@@ -48,30 +51,20 @@ struct FrameRows {
 };
 
 template <int N, int OPL>
-__global__ void __launch_bounds__(rfft::NTH) fft_frames_kernel(
+__global__ void __launch_bounds__(rfft::nth(N)) fft_frames_kernel(
     const float* __restrict__ frames, const float4* __restrict__ op,
     const float* __restrict__ dct, float* __restrict__ ceps,
     float* __restrict__ r, int n, int flen, int nmel, int nac, int nceps,
     float power_floor) {
-  constexpr int NOP = rfft::nop(OPL);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int f0 = blockIdx.x * rfft::FT;
-  const int nf = min(rfft::FT, n - f0);
+  const int f0 = blockIdx.x * rfft::ft(N);
+  const int nf = min(rfft::ft(N), n - f0);
   const FrameRows load{frames + (size_t)f0 * flen, flen, N};
   const float* sums = rfft::tile_sums<N, OPL, true>(load, nf, smem, op, nmel,
                                                     power_floor);
-  for (int i = threadIdx.x; i < nf * nceps; i += rfft::NTH) {
-    const int f = i / nceps, c = i % nceps;
-    const float* lm = sums + f * NOP;
-    float s = 0.f;
-    for (int m = 0; m < nmel; ++m) s = fmaf(lm[m], dct[m * nceps + c], s);
-    ceps[(size_t)(f0 + f) * nceps + c] = s;
-  }
-  for (int i = threadIdx.x; i < nf * nac; i += rfft::NTH) {
-    const int f = i / nac, j = i % nac;
-    r[(size_t)(f0 + f) * nac + j] = sums[f * NOP + nmel + j];
-  }
+  rfft::frame_outputs<rfft::nop(OPL), rfft::nth(N)>(sums, dct, ceps, r, f0,
+                                                    nf, nmel, nac, nceps);
 }
 
 template <int N, int OPL>
@@ -84,7 +77,7 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   fft_frames_kernel<N, OPL>
-      <<<(n + rfft::FT - 1) / rfft::FT, rfft::NTH, smem, st>>>(
+      <<<(n + rfft::ft(N) - 1) / rfft::ft(N), rfft::nth(N), smem, st>>>(
           frames, op, dct, ceps, r, n, flen, nmel, nac, nceps, power_floor);
   return cudaGetLastError();
 }
@@ -94,12 +87,12 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
 // The packed operator an FFT tile takes at an nfft-point FFT with nout =
 // nmel + nac outputs: rows x cols floats, row k = [mel row k | acorr row k
 // | 0] for k <= nfft/2, zero rows after. Returns -1 when no tile serves
-// them (nfft not a power of two in [64, 2048], or nout > 128).
+// them (nfft not a power of two in [64, 4096], or nout > 256).
 extern "C" int srt_fft_operator_shape(int nfft, int nout, int* rows,
                                       int* cols) {
   const int opl = rfft::pick_opl(nfft, nout);
   if (opl == 0) return -1;
-  *rows = rfft::op_rows(nfft);
+  *rows = rfft::op_rows(nfft, opl);
   *cols = rfft::nop(opl);
   return 0;
 }
@@ -113,17 +106,12 @@ extern "C" int srt_fft_frames_frontend(
     float power_floor, void* stream) {
   const int opl = rfft::pick_opl(nfft, nmel + nac);
   if (n < 1 || opl == 0) return (int)cudaErrorInvalidValue;
-  const auto st = (cudaStream_t)stream;
-  const auto* f = (const float*)frames;
-  const auto* o = (const float4*)op;
-  const auto* d = (const float*)dct;
-  auto* c = (float*)ceps;
-  auto* rr = (float*)r;
   return (int)rfft::with_n(nfft, [&](auto nc) {
-    constexpr int N = decltype(nc)::value;
-    return opl == 9 ? launch<N, 9>(st, f, o, d, c, rr, n, flen, nmel, nac,
-                                   nceps, power_floor)
-                    : launch<N, 16>(st, f, o, d, c, rr, n, flen, nmel, nac,
-                                    nceps, power_floor);
+    return rfft::with_opl(opl, [&](auto oc) {
+      return launch<decltype(nc)::value, decltype(oc)::value>(
+          (cudaStream_t)stream, (const float*)frames, (const float4*)op,
+          (const float*)dct, (float*)ceps, (float*)r, n, flen, nmel, nac,
+          nceps, power_floor);
+    });
   });
 }

@@ -39,14 +39,9 @@ namespace {
 constexpr float LOG_MIN_PROB = -34.538776394910684f;
 constexpr float UNDERFLOW_LOG = -745.f;
 
-// Feature dims are padded to a multiple of DSTEP. 4 is what a 16-byte load
-// needs; tools/score_ablation.py builds with -DSRT_DSTEP=8 to time the
-// coarser padding (half the RegFrames instantiations) beside it.
-#ifndef SRT_DSTEP
-#define SRT_DSTEP 4
-#endif
-constexpr int DSTEP = SRT_DSTEP;
-static_assert(DSTEP % 4 == 0, "component rows are read as float4");
+// Feature dims are padded to a multiple of DSTEP: what a 16-byte load
+// needs (padding to 8 measured slower, PERF.md).
+constexpr int DSTEP = 4;
 constexpr int MAX_REG_DP = 128;   // widest padded d a lane keeps in registers
 constexpr int CHUNK_BYTES = 32768;  // a staged chunk of rows, when streaming
 constexpr int BLOCK_SMEM = 232448;  // shared memory a block may use on sm_90

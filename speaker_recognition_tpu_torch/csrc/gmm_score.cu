@@ -48,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <mutex>
 
 #include "gmm_lse.cuh"
 
@@ -177,42 +178,43 @@ cudaError_t make_plan(int B, int T, int d, int S, Plan* p) {
   return cudaSuccess;
 }
 
+// Once per device and instantiation: the most dynamic shared memory a
+// launch of it may ask for (two chunk buffers, or one buffer of rows).
+template <class Frames>
+cudaError_t prepare(int dev) {
+  constexpr int MAX_DEVICES = 64;
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t err[MAX_DEVICES];
+  if (!Frames::STAGED) return cudaSuccess;  // no dynamic shared memory
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    err[dev] = cudaFuncSetAttribute(
+        bank_score_kernel<Frames>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        std::max(ONE_BUFFER, 2 * CHUNK_BYTES));
+  });
+  return err[dev];
+}
+
 template <class Frames>
 cudaError_t launch(const Plan& p, dim3 grid, int smem, cudaStream_t st,
                    const float* feats, const unsigned char* mask,
                    const float* comp, float* partial, float* count, int T,
-                   int d, int S, int K, int ch) {
-  cudaError_t err = cudaFuncSetAttribute(
-      bank_score_kernel<Frames>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+                   int d, int S, int K, int ch, int dev) {
+  cudaError_t err = prepare<Frames>(dev);
   if (err != cudaSuccess) return err;
   bank_score_kernel<Frames><<<grid, 32 * p.warps, smem, st>>>(
       feats, mask, comp, partial, count, T, d, S, K, p.sg, ch, p.NW);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Floats of device scratch a call takes: the warp tiles' partial sums
-// [B][NW][S] and valid-frame counts [B][NW]. From the shapes alone: the
-// launch is planned once, in srt_bank_avg_loglik.
-extern "C" long long srt_bank_scratch_floats(int B, int T, int d, int S) {
-  return (long long)B * warp_tiles(T, d) * (S + 1);
-}
-
-// feats [B, T, d], mask [B, T] (bytes), comp the component rows
-// [S, K, srt_component_row(d)], scratch srt_bank_scratch_floats floats;
-// writes out [B, S]. B <= 65535 (grid.y).
-extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
-                                   const void* comp, void* scratch, void* out,
-                                   int B, int T, int d, int S, int K,
-                                   void* stream) {
-  if (B < 1 || d < 1 || S < 1 || K < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+// The launches of one call on the current device: the scoring kernel on
+// the route of d, then the means.
+cudaError_t launch_all(const void* feats, const void* mask, const void* comp,
+                       void* scratch, void* out, int B, int T, int d, int S,
+                       int K, int dev, cudaStream_t st) {
   Plan p;
   cudaError_t err = make_plan(B, T, d, S, &p);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
+  if (err != cudaSuccess) return err;
   const float* xf = (const float*)feats;
   const unsigned char* mk = (const unsigned char*)mask;
   const float* cp = (const float*)comp;
@@ -222,7 +224,7 @@ extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
   const int dp = padded_dim(d);
   if (dp > MAX_REG_DP) {
     err = launch<WideFrames>(p, grid, 0, st, xf, mk, cp, partial, count, T, d,
-                             S, K, p.sg * K);
+                             S, K, p.sg * K, dev);
   } else {
     int smem;
     const int ch = plan_chunks(p.sg * K, row_floats(d), ONE_BUFFER, &smem);
@@ -230,7 +232,7 @@ extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
 #define SRT_SCORE_CASE(DP, FPL)                                            \
   case DP:                                                                 \
     err = launch<RegFrames<DP, FPL>>(p, grid, smem, st, xf, mk, cp, partial, \
-                                     count, T, d, S, K, ch);               \
+                                     count, T, d, S, K, ch, dev);          \
     break;
       SRT_SCORE_CASE(4, 2) SRT_SCORE_CASE(8, 2) SRT_SCORE_CASE(12, 2)
       SRT_SCORE_CASE(16, 2) SRT_SCORE_CASE(20, 2) SRT_SCORE_CASE(24, 2)
@@ -245,12 +247,46 @@ extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
       SRT_SCORE_CASE(124, 1) SRT_SCORE_CASE(128, 1)
 #undef SRT_SCORE_CASE
       default:
-        return (int)cudaErrorInvalidValue;
+        return cudaErrorInvalidValue;
     }
   }
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const long long BS = (long long)B * S;
   bank_mean_kernel<<<(unsigned)((BS + RT - 1) / RT), RT, 0, st>>>(
       partial, count, (float*)out, BS, S, p.NW);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Frames a warp tile takes at feature dimension d. The device scratch a
+// call takes is the warp tiles' partial sums [B][NW][S] and valid-frame
+// counts [B][NW], NW = max(1, ceil(T / this)): B * NW * (S + 1) floats,
+// which the caller computes from this once per bank.
+extern "C" int srt_bank_warp_frames(int d) {
+  return 32 * frames_per_lane(padded_dim(d));
+}
+
+// feats [B, T, d], mask [B, T] (bytes), comp the component rows
+// [S, K, srt_component_row(d)], scratch B * NW * (S + 1) floats
+// (srt_bank_warp_frames); writes out [B, S] on device `device` (made current
+// for the launch), stream `stream`. B <= 65535 (grid.y).
+extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
+                                   const void* comp, void* scratch, void* out,
+                                   int B, int T, int d, int S, int K,
+                                   int device, void* stream) {
+  if (B < 1 || d < 1 || S < 1 || K < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  int cur = 0;
+  cudaError_t err = cudaGetDevice(&cur);
+  if (err != cudaSuccess) return (int)err;
+  if (cur != device && (err = cudaSetDevice(device)) != cudaSuccess)
+    return (int)err;
+  err = launch_all(feats, mask, comp, scratch, out, B, T, d, S, K, device,
+                   (cudaStream_t)stream);
+  if (cur != device) {
+    const cudaError_t back = cudaSetDevice(cur);
+    if (err == cudaSuccess) err = back;
+  }
+  return (int)err;
 }

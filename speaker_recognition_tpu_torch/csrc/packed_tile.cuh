@@ -29,7 +29,6 @@ constexpr int CC = 128;       // packed DFT columns per chunk
 constexpr int YS = CC + 1;    // padded row stride of the squared tile
 constexpr int KT = 32;        // D rows per staged tile
 constexpr int NT = 256;       // threads per block: 8 warps
-constexpr int MAX_ORDER = 32;
 constexpr int MAX_SMEM = 232448;
 
 // samples a tile of ft frames spans, rounded up to keep dtile 16-byte aligned
@@ -201,8 +200,11 @@ __device__ __forceinline__ float* tile_sums(
 // ops/levinson.levinson_unrolled with non-finite coefficients zeroed, and
 // without it the raw autocorrelation as it stands in sums (nfeat = nceps +
 // nac), which the LPC cepstra take. Frames at or past nvalid (counted from
-// the tile's first frame) get zeros.
-template <int OPL>
+// the tile's first frame) get zeros. NTH threads run it; the recursion
+// takes any order the tile's 8 * OPL outputs admit, one thread a frame,
+// its coefficients in one local array updated in place a symmetric pair at
+// a time (each new value is the one the two-array form computes).
+template <int OPL, int NTH = NT>
 __device__ __forceinline__ void tile_features(
     const float* sums, float* __restrict__ out, int nf, int nvalid,
     const float* __restrict__ dct, int nmel, int nac, int nceps,
@@ -212,7 +214,7 @@ __device__ __forceinline__ void tile_features(
   const int nfeat = nceps + (fuse_lpc ? order : nac);
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < nf * nceps; i += NT) {
+  for (int i = tid; i < nf * nceps; i += NTH) {
     const int f = i / nceps, c = i % nceps;
     const float* lm = sums + f * NOP;
     float s = 0.f;
@@ -221,28 +223,32 @@ __device__ __forceinline__ void tile_features(
   }
 
   if (!fuse_lpc) {
-    for (int i = tid; i < nf * nac; i += NT) {
+    for (int i = tid; i < nf * nac; i += NTH) {
       const int f = i / nac, j = i % nac;
       out[f * nfeat + nceps + j] = f < nvalid ? sums[f * NOP + nmel + j] : 0.f;
     }
     return;
   }
   if (order == 0) return;
-  for (int f = tid; f < nf; f += NT) {
+  for (int f = tid; f < nf; f += NTH) {
     float* o = out + f * nfeat + nceps;
     if (f >= nvalid) {
       for (int j = 0; j < order; ++j) o[j] = 0.f;
       continue;
     }
     const float* r = sums + f * NOP + nmel;
-    float a[MAX_ORDER], prev[MAX_ORDER];
+    float a[NOP];  // order < NOP - nmel
     float e = r[0];
     for (int i = 1; i <= order; ++i) {
       float s = r[i];
       for (int j = 1; j < i; ++j) s += a[j - 1] * r[i - j];
       const float k = -s / e;
-      for (int j = 0; j < i - 1; ++j) prev[j] = a[j];
-      for (int j = 1; j < i; ++j) a[j - 1] = prev[j - 1] + k * prev[i - j - 1];
+      // a[j-1] += k a[i-j-1] for j = 1 .. i-1, from the old values
+      for (int j = 1, l = i - 1; j <= l; ++j, --l) {
+        const float lo = a[j - 1], hi = a[l - 1];
+        a[j - 1] = lo + k * hi;
+        if (j < l) a[l - 1] = hi + k * lo;
+      }
       a[i - 1] = k;
       e = e * (1.f - k * k);
     }
@@ -253,47 +259,51 @@ __device__ __forceinline__ void tile_features(
 // Masked per-utterance CMVN of x[:nv, :nceps] (row stride nfeat), in
 // place: two-pass mean and population variance, the identity at <= 1
 // valid frame (src/feature/MFCC.py:74-77). Threads are 32 columns (c) x CG
-// frame groups (g); red [CG][32] and stat [2][32] are shared scratch. The
-// partial sums combine in a fixed order, so the result is deterministic.
+// frame groups (g), walking the columns 32 at a time; red [CG][32] and
+// stat [2][32] are shared scratch. The partial sums combine in a fixed
+// order, so the result is deterministic.
 template <int CG>
 __device__ __forceinline__ void cmvn_utterance(
     float* __restrict__ x, int nv, int nfeat, int nceps, int c, int g,
     float (*red)[32], float (*stat)[32]) {
   if (nv <= 1) return;  // block-uniform
-  const bool col = c < nceps;
-
-  float s = 0.f;
-  if (col)
-    for (int t = g; t < nv; t += CG) s += x[(size_t)t * nfeat + c];
-  red[g][c] = s;
-  __syncthreads();
-  if (g == 0) {
-    float tot = 0.f;
-    for (int k = 0; k < CG; ++k) tot += red[k][c];
-    stat[0][c] = tot / (float)nv;
-  }
-  __syncthreads();
-  const float mu = stat[0][c];
-  s = 0.f;
-  if (col)
-    for (int t = g; t < nv; t += CG) {
-      const float d = x[(size_t)t * nfeat + c] - mu;
-      s += d * d;
+  for (int c0 = 0; c0 < nceps; c0 += 32) {
+    const int cc = c0 + c;
+    const bool col = cc < nceps;
+    float s = 0.f;
+    if (col)
+      for (int t = g; t < nv; t += CG) s += x[(size_t)t * nfeat + cc];
+    red[g][c] = s;
+    __syncthreads();
+    if (g == 0) {
+      float tot = 0.f;
+      for (int k = 0; k < CG; ++k) tot += red[k][c];
+      stat[0][c] = tot / (float)nv;
     }
-  red[g][c] = s;
-  __syncthreads();
-  if (g == 0) {
-    float tot = 0.f;
-    for (int k = 0; k < CG; ++k) tot += red[k][c];
-    stat[1][c] = sqrtf(tot / (float)nv);
-  }
-  __syncthreads();
-  const float sd = stat[1][c];
-  if (col)
-    for (int t = g; t < nv; t += CG) {
-      float* v = x + (size_t)t * nfeat + c;
-      *v = (*v - mu) / sd;
+    __syncthreads();
+    const float mu = stat[0][c];
+    s = 0.f;
+    if (col)
+      for (int t = g; t < nv; t += CG) {
+        const float d = x[(size_t)t * nfeat + cc] - mu;
+        s += d * d;
+      }
+    red[g][c] = s;
+    __syncthreads();
+    if (g == 0) {
+      float tot = 0.f;
+      for (int k = 0; k < CG; ++k) tot += red[k][c];
+      stat[1][c] = sqrtf(tot / (float)nv);
     }
+    __syncthreads();
+    const float sd = stat[1][c];
+    if (col)
+      for (int t = g; t < nv; t += CG) {
+        float* v = x + (size_t)t * nfeat + cc;
+        *v = (*v - mu) / sd;
+      }
+    __syncthreads();  // red and stat are free for the next columns
+  }
 }
 
 }  // namespace

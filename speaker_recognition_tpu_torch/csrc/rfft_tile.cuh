@@ -11,26 +11,32 @@
 // of K5) and needs no operator larger than its twiddles, so neither C, S
 // nor D streams through the blocks any more.
 //
-// For a tile of FT = 32 frames, with H = N/2 and P = H + 1 bins:
-//   1. each warp takes frames w, w + 8, ...: its lanes gather sample pairs
-//      z[n] = x[2n] + i x[2n+1] (x from the caller's loader: window,
+// For a tile of FT frames (32, or 16 at N = 4096), with H = N/2 and P = H + 1
+// bins:
+//   1. each warp takes frames w, w + WARPS, ...: its lanes gather sample
+//      pairs z[n] = x[2n] + i x[2n+1] (x from the caller's loader: window,
 //      pre-emphasis and the fold of samples n >= N onto n mod N happen
-//      there; the next frame's loads fly during this frame's FFT), run an
-//      H-point radix-2 complex FFT (tile_sums says how its stages split
-//      between registers and the warp's shared buffer), and the real-input
+//      there; the next loads fly during this frame's FFT), run an H-point
+//      radix-2 complex FFT (tile_sums says how its stages split between
+//      registers and the warp's shared buffer), and the real-input
 //      post-step gives the power |X[k]|^2 of bins 0..H, floored per bin
 //      when PER_BIN_FLOOR, into row f of ys [FT][P] (P odd: a column read
 //      by 32 lanes hits 32 banks);
-//   2. the block walks the bins in chunks of CK = 16 (32 at N = 2048),
-//      staging the chunk's rows of [mel | acorr | 0] ([CK][NOP], NOP = 8 *
-//      OPL, from a packed copy the wrapper makes once) in shared memory;
-//      warp w owns the 4-column groups g = w, w + 8, ... and lane f the
-//      tile's frame f, so each y is loaded once per bin and each 16-byte
-//      operator load is a broadcast; a group whose staged block is all
-//      zero (a mel filter far from the chunk) is skipped, so the
-//      triangular filters cost about their nonzeros;
+//   2. the block walks the bins in chunks of CK (8 to 32 rows, as shared
+//      memory allows), staging the chunk's rows of [mel | acorr | 0]
+//      ([CK][NOP], NOP = 8 * OPL, from a packed copy the wrapper makes
+//      once) in shared memory; lane l of a warp takes frame l % FT (two
+//      lanes a frame at FT = 16), and the warps (and half-warps) split the
+//      4-column groups, so each y is loaded once per bin and group slot and
+//      each 16-byte operator load is a broadcast; a group whose staged
+//      block is all zero (a mel filter far from the chunk) is skipped, so
+//      the triangular filters cost about their nonzeros;
 //   3. the sums leave as log(max(mel, floor)) and the raw autocorrelation
 //      in sums [FT][NOP], the layout of tile_features (packed_tile.cuh).
+// The geometry follows N: 8 warps and 32-frame tiles up to N = 2048; at
+// N = 4096 four warps and 16-frame tiles, since a tile's power rows alone
+// (16 x 2049 floats) and four FFT buffers take ~200 KB of the 227 KB a
+// block may use. OPL is 9, 16 or 32 (72, 128 or 256 outputs).
 // No spectrum reaches device memory. Every sum runs in a fixed order and
 // there are no atomics, so two calls give the same bits.
 //
@@ -38,12 +44,13 @@
 // each, read once) and FLOPs at 8 kHz (the dense bin-domain mel operator);
 // both kernels stay well above that, bound by instruction issue and
 // shared-memory latency at few warps per SM (one 256-thread block per SM
-// at N = 2048, where the tile takes ~222 KB). What the design does about
-// it: every load of a frame is straight-line code, so a lane's loads all
-// fly at once; the FFT keeps 32 values a lane in registers and touches
-// shared memory only to move data between lanes (one transpose at
-// N = 2048, two-stage passes below); the projection reads a pre-packed
-// operator with 16-byte copies and skips zero blocks.
+// at N >= 2048, where the tile takes ~222-231 KB). What the design does
+// about it: every load of a frame is straight-line code, so a lane's loads
+// all fly at once; the FFT keeps at most 32 values a lane in registers and
+// touches shared memory only to move data between lanes (one transpose at
+// N = 2048, two passes of 32 pairs a lane and one stage in shared memory
+// at N = 4096, two-stage passes below 2048); the projection reads a
+// pre-packed operator with 16-byte copies and skips zero blocks.
 // speaker_recognition_tpu_torch/tools/fft_ablation.py times each stage.
 //
 // Twiddles come from sincospif (the angle 2k/N is exact in f32), no fast
@@ -60,18 +67,24 @@
 namespace {
 namespace rfft {
 
-constexpr int FT = 32;       // frames per tile: one per lane in stage 2
-constexpr int WARPS = 8;
-constexpr int NTH = 32 * WARPS;
 constexpr int MIN_N = 64;    // every lane holds at least one sample pair
-constexpr int MAX_N = 2048;
+constexpr int MAX_N = 4096;
 constexpr int MAX_SMEM = 232448;
+
+// frames a tile, warps a block and threads a block at an N-point FFT
+__host__ __device__ constexpr int ft(int n) { return n >= 4096 ? 16 : 32; }
+__host__ __device__ constexpr int warps(int n) { return n >= 4096 ? 4 : 8; }
+__host__ __device__ constexpr int nth(int n) { return 32 * warps(n); }
 
 __host__ __device__ constexpr int nop(int opl) { return 8 * opl; }
 
 // bins per staged operator chunk: 16, which lets four blocks share an SM
-// at N = 512, or 32 at N = 2048, where one block fills it anyway
-__host__ __device__ constexpr int ck(int n) { return n >= 2048 ? 32 : 16; }
+// at N = 512; 32 at N = 2048 (16 for 256 outputs), where one block fills
+// it anyway; 16 at N = 4096 (8 for 256 outputs), which is what is left
+__host__ __device__ constexpr int ck(int n, int opl) {
+  return n >= 4096 ? (opl > 16 ? 8 : 16)
+                   : n >= 2048 ? (opl > 16 ? 16 : 32) : 16;
+}
 
 __host__ __device__ constexpr int log2i(int x) {
   return x <= 1 ? 0 : 1 + log2i(x / 2);
@@ -83,37 +96,38 @@ __host__ __device__ constexpr int buf_slots(int n) {
   return n / 2 + n / 64;
 }
 
-// float2 twiddles of the column stages (32 pairs per lane, N = 2048):
-// W_{2m}^j, j < m, for m = 32, 64, ..., H/4
+// float2 twiddles of the stages that pair slots of different lanes'
+// blocks (32 pairs per lane and more, N >= 2048): W_{2m}^j, j < m, for
+// m = 32, 64, ..., H/4
 __host__ __device__ constexpr int col_twiddles(int n) {
-  return n / 64 == 32 ? n / 4 - 32 : 0;
+  return n >= 2048 ? n / 4 - 32 : 0;
 }
 
 // floats of shared memory: twiddles [H] (float2), per-warp buffers
 // [WARPS][buf_slots] (float2), ys [FT][H + 1] (then the sums [FT][NOP]),
 // operator chunk [ck][NOP], column-stage twiddles (float2)
 __host__ __device__ constexpr int smem_floats(int n, int opl) {
-  return n + 2 * WARPS * buf_slots(n) +
-         FT * (n / 2 + 1 > nop(opl) ? n / 2 + 1 : nop(opl)) +
-         ck(n) * nop(opl) + 2 * col_twiddles(n);
+  return n + 2 * warps(n) * buf_slots(n) +
+         ft(n) * (n / 2 + 1 > nop(opl) ? n / 2 + 1 : nop(opl)) +
+         ck(n, opl) * nop(opl) + 2 * col_twiddles(n);
 }
 
 // the padded buffer slot of FFT element i
 __device__ __forceinline__ int slot(int i) { return i + (i >> 5); }
 
 // OPL for nout = nmel + nac outputs at an N-point FFT, or 0 when N is not a
-// power of two in [MIN_N, MAX_N] or nout > 128.
+// power of two in [MIN_N, MAX_N] or nout > 256.
 inline int pick_opl(int n, int nout) {
   if (n < MIN_N || n > MAX_N || (n & (n - 1)) != 0) return 0;
-  const int o = nout <= 72 ? 9 : nout <= 128 ? 16 : 0;
+  const int o = nout <= 72 ? 9 : nout <= 128 ? 16 : nout <= 256 ? 32 : 0;
   if (o == 0 || 4 * smem_floats(n, o) > MAX_SMEM) return 0;
   return o;
 }
 
 // rows of the packed operator at an N-point FFT: bins 0..N/2, zero rows to
-// a multiple of ck(n)
-__host__ __device__ constexpr int op_rows(int n) {
-  return (n / 2 + 1 + ck(n) - 1) / ck(n) * ck(n);
+// a multiple of ck(n, opl)
+__host__ __device__ constexpr int op_rows(int n, int opl) {
+  return (n / 2 + 1 + ck(n, opl) - 1) / ck(n, opl) * ck(n, opl);
 }
 
 // f(std::integral_constant<int, N>{}) for the FFT sizes the tile takes
@@ -126,6 +140,18 @@ cudaError_t with_n(int n, F&& f) {
     case 512: return f(std::integral_constant<int, 512>{});
     case 1024: return f(std::integral_constant<int, 1024>{});
     case 2048: return f(std::integral_constant<int, 2048>{});
+    case 4096: return f(std::integral_constant<int, 4096>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// f(std::integral_constant<int, OPL>{}) for the operator widths
+template <class F>
+cudaError_t with_opl(int opl, F&& f) {
+  switch (opl) {
+    case 9: return f(std::integral_constant<int, 9>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
   }
   return cudaErrorInvalidValue;
 }
@@ -138,30 +164,43 @@ __host__ __device__ constexpr int brev_bits(int x, int bits) {
   return bits == 0 ? 0 : ((x & 1) << (bits - 1)) | brev_bits(x >> 1, bits - 1);
 }
 
-// Lane `lane`'s sample pairs of frame f: pair j = lane + 32 q is
-// (x[2j], x[2j+1]); zeros for a frame past the tile's nf. The loads are
-// straight-line code, so all of them are in flight at once; load.fold
-// then adds what a frame longer than N folds onto them.
+// Sample pairs a lane holds at once at an N-point FFT, and the rounds of
+// them a frame takes: H/32 pairs a lane, in rounds of at most 32.
+__host__ __device__ constexpr int rounds(int n) {
+  return n / 64 > 32 ? n / 64 / 32 : 1;
+}
+__host__ __device__ constexpr int round_pairs(int n) {
+  return n / 64 / rounds(n);
+}
+
+// Lane `lane`'s sample pairs of frame f in round rd: pair j = lane +
+// 32 (R q + rd) is (x[2j], x[2j+1]), R = rounds(N); zeros for a frame past
+// the tile's nf. The loads are straight-line code, so all of them are in
+// flight at once; load.fold then adds what a frame longer than N folds
+// onto them.
 template <int N, class Load>
-__device__ __forceinline__ void gather(const Load& load, int f, int nf,
-                                       int lane, float2 (&v)[N / 64]) {
+__device__ __forceinline__ void gather(const Load& load, int f, int rd,
+                                       int nf, int lane,
+                                       float2 (&v)[round_pairs(N)]) {
+  constexpr int R = rounds(N), RP = round_pairs(N);
+  const auto first = [&](int q) { return 2 * (lane + 32 * (R * q + rd)); };
   if (f < nf) {  // warp-uniform
 #pragma unroll
-    for (int q = 0; q < N / 64; ++q) {
-      const int j = lane + 32 * q;
-      v[q] = make_float2(load(f, 2 * j), load(f, 2 * j + 1));
+    for (int q = 0; q < RP; ++q) {
+      const int p = first(q);
+      v[q] = make_float2(load(f, p), load(f, p + 1));
     }
-    load.fold(f, lane, v);
+    load.fold(f, v, first);
   } else {
 #pragma unroll
-    for (int q = 0; q < N / 64; ++q) v[q] = make_float2(0.f, 0.f);
+    for (int q = 0; q < RP; ++q) v[q] = make_float2(0.f, 0.f);
   }
 }
 
 // Rows [k0, k0 + CK) of the packed operator op [rows][NOP] ([mel | acorr
 // | 0], rows a multiple of CK) as this thread stages them: float4 i =
 // tid + NTH q of the chunk, where it exists.
-template <int CK, int OPL>
+template <int CK, int OPL, int NTH>
 __device__ __forceinline__ void fetch_chunk(
     float4 (&v)[(CK * nop(OPL) / 4 + NTH - 1) / NTH], int k0, int tid,
     const float4* __restrict__ op) {
@@ -184,13 +223,56 @@ __device__ __forceinline__ void butterfly(float2* buf, int a, int b,
   buf[slot(b)] = make_float2(u.x - t.x, u.y - t.y);
 }
 
+// The radix-2 stages 0..NS-1 on n values in registers, r[t] holding slot
+// base + t of a contiguous block (base a multiple of n); tw [H] holds
+// W_N^k, LG = log2(H).
+template <int NS, int LG, int RN>
+__device__ __forceinline__ void register_stages(float2 (&r)[RN],
+                                                const float2* tw) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int m = 1 << s;
+#pragma unroll
+    for (int t = 0; t < RN; ++t) {
+      if (t & m) continue;
+      const float2 w = tw[(t & (m - 1)) << (LG - s)];
+      const float2 u = r[t], v = cmul(w, r[t + m]);
+      r[t] = make_float2(u.x + v.x, u.y + v.y);
+      r[t + m] = make_float2(u.x - v.x, u.y - v.y);
+    }
+  }
+}
+
+// Five stages s0 .. s0 + 4 over the values r[b] of slots CB * b + c (b <
+// 32, c the lane's column; CB a power of two, 2^s0 = CB): stage s0 + s2
+// pairs b with b + 2^s2, and its twiddle W_{2m}^j, m = CB 2^s2, j = CB
+// (b mod 2^s2) + c, comes from ctw (the tables of m <= H/4) or tw (m = H/2).
+template <int CB, int H>
+__device__ __forceinline__ void column_stages(float2 (&r)[32], int c,
+                                              const float2* tw,
+                                              const float2* ctw) {
+#pragma unroll
+  for (int s2 = 0; s2 < 5; ++s2) {
+    const int mb = 1 << s2, m = CB << s2;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      if (b & mb) continue;
+      const int j = CB * (b & (mb - 1)) + c;
+      const float2 w = m < H / 2 ? ctw[m - 32 + j] : tw[j << 1];
+      const float2 u = r[b], v = cmul(w, r[b + mb]);
+      r[b] = make_float2(u.x + v.x, u.y + v.y);
+      r[b + mb] = make_float2(u.x - v.x, u.y - v.y);
+    }
+  }
+}
+
 // Load(f, p) gives sample p in [0, N) of the tile's frame f < nf, in
-// straight-line code (no loop, no branch); load.fold(f, lane, v) adds the
-// samples p + N, p + 2N, ... of a longer frame to gather's pairs. op is
-// the packed operator [rows][NOP]: row k holds bin k's mel weights, then
-// its autocorrelation weights, then zeros; rows past N/2 are zero and
-// there are a multiple of ck(N) of them. Returns sums [FT][NOP]; ends on a
-// barrier.
+// straight-line code (no loop, no branch); load.fold(f, v, first) adds the
+// samples p + N, p + 2N, ... of a longer frame to gather's pairs (first(q)
+// is pair q's first sample). op is the packed operator [rows][NOP]: row k
+// holds bin k's mel weights, then its autocorrelation weights, then zeros;
+// rows past N/2 are zero and there are a multiple of ck(N, OPL) of them.
+// Returns sums [FT][NOP]; ends on a barrier. The block is nth(N) threads.
 //
 // The FFT: pair j = lane + 32 q of a frame goes to slot brev(j) of the
 // warp's buffer, which is (brev5(lane) << p) | brev_p(q) with 2^p = H/32
@@ -200,21 +282,31 @@ __device__ __forceinline__ void butterfly(float2* buf, int a, int b,
 // (N = 2048) a transpose through the buffer gives lane t every block's
 // slot t and they run in registers too; below that they run in shared
 // memory two at a time (each lane loads 4 slots, runs both stages,
-// stores them), one __syncwarp apart.
+// stores them), one __syncwarp apart. At 64 pairs per lane (N = 4096) a
+// lane takes its pairs in two rounds of 32 (q even, then odd: the two
+// halves of its block), runs five stages on each in registers, the sixth
+// (across the halves) in shared memory, and the last five as at N = 2048
+// in two column passes of 32 slots (column t, then t + 32).
 template <int N, int OPL, bool PER_BIN_FLOOR, class Load>
 __device__ __forceinline__ float* tile_sums(
     const Load& load, int nf, float* smem, const float4* __restrict__ op,
     int nmel, float power_floor) {
+  constexpr int FT = ft(N), WARPS = warps(N), NTH = nth(N);
   constexpr int NOP = nop(OPL);
   constexpr int NG = NOP / 4;                  // 4-column groups
-  constexpr int GPW = (NG + WARPS - 1) / WARPS;
+  constexpr int LPF = 32 / FT;                 // stage-2 lanes a frame
+  constexpr int SLOTS = WARPS * LPF;           // stage-2 group slots
+  constexpr int GPW = (NG + SLOTS - 1) / SLOTS;
   constexpr int H = N / 2, NB = H + 1, LG = log2i(H);
   constexpr int PL = H / 32, P = log2i(PL);     // pairs per lane
+  constexpr int R = rounds(N), RP = round_pairs(N), PR = log2i(RP);
   constexpr int G4 = H >= 128 ? H / 128 : 1;    // 4-slot groups per lane
-  constexpr int CK = ck(N);
+  constexpr int CK = ck(N, OPL);
   constexpr int N4 = CK * NOP / 4;              // float4 of a chunk
   constexpr int PER = (N4 + NTH - 1) / NTH;     // ... staged per thread
   static_assert(N >= MIN_N && N <= MAX_N && (N & (N - 1)) == 0, "N");
+  static_assert(R * RP == PL && (R == 1 || RP == 32), "rounds");
+  static_assert(CK <= FT && 4 * smem_floats(N, OPL) <= MAX_SMEM, "tile");
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   float2* tw = reinterpret_cast<float2*>(smem);           // [H]
@@ -234,49 +326,48 @@ __device__ __forceinline__ float* tile_sums(
     sincospif((float)(i + 32 - m) / (float)m, &s, &c);  // W_{2m}^j
     ctw[i] = make_float2(c, -s);
   }
-  float2 nxt[PL];
-  gather<N>(load, warp, nf, lane, nxt);
+  float2 nxt[RP];
+  gather<N>(load, warp, 0, nf, lane, nxt);
   __syncthreads();
 
-  // 1. one frame per warp at a time; the next frame's loads fly during
-  // this one's FFT
+  // 1. one frame per warp at a time; the next round's loads fly during
+  // this one's stages
   const int base = brev_bits(lane, 5) << P;
   for (int f = warp; f < FT; f += WARPS) {
-    float2 r[PL];
+    float2 r[RP];
 #pragma unroll
-    for (int q = 0; q < PL; ++q) r[brev_bits(q, P)] = nxt[q];
-    if (f + WARPS < FT) gather<N>(load, f + WARPS, nf, lane, nxt);
+    for (int rd = 0; rd < R; ++rd) {
 #pragma unroll
-    for (int s = 0; s < P; ++s) {  // stages within the lane's block
-      const int m = 1 << s;
+      for (int q = 0; q < RP; ++q) r[brev_bits(q, PR)] = nxt[q];
+      if (rd + 1 < R)
+        gather<N>(load, f, rd + 1, nf, lane, nxt);
+      else if (f + WARPS < FT)
+        gather<N>(load, f + WARPS, 0, nf, lane, nxt);
+      register_stages<PR, LG>(r, tw);  // stages within the round's block
 #pragma unroll
-      for (int t = 0; t < PL; ++t) {
-        if (t & m) continue;
-        const float2 w = tw[(t & (m - 1)) << (LG - s)];
-        const float2 u = r[t], v = cmul(w, r[t + m]);
-        r[t] = make_float2(u.x + v.x, u.y + v.y);
-        r[t + m] = make_float2(u.x - v.x, u.y - v.y);
-      }
+      for (int t = 0; t < RP; ++t) buf[slot(base + RP * rd + t)] = r[t];
     }
-#pragma unroll
-    for (int t = 0; t < PL; ++t) buf[slot(base + t)] = r[t];
     __syncwarp();
-    if constexpr (PL == 32) {
+    if constexpr (R == 2) {
+      // stage 5 (span 32) pairs the two rounds' halves of the lane's block
+#pragma unroll 8
+      for (int t = 0; t < 32; ++t) butterfly(buf, base + t, base + t + 32,
+                                             ctw[t]);
+      __syncwarp();
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {  // columns lane and lane + 32
+        const int c = 32 * u + lane;
+#pragma unroll
+        for (int b = 0; b < 32; ++b) r[b] = buf[slot(64 * b + c)];
+        column_stages<64, H>(r, c, tw, ctw);  // stages 6 .. 10
+#pragma unroll
+        for (int b = 0; b < 32; ++b) buf[slot(64 * b + c)] = r[b];
+      }
+      __syncwarp();
+    } else if constexpr (PL == 32) {
 #pragma unroll
       for (int b = 0; b < 32; ++b) r[b] = buf[slot(32 * b + lane)];
-#pragma unroll
-      for (int s2 = 0; s2 < 5; ++s2) {  // stage P + s2 over blocks b
-        const int mb = 1 << s2, m = 32 << s2;
-#pragma unroll
-        for (int b = 0; b < 32; ++b) {
-          if (b & mb) continue;
-          const int j = 32 * (b & (mb - 1)) + lane;  // W_{2m}^j
-          const float2 w = s2 < 4 ? ctw[m - 32 + j] : tw[j << 1];
-          const float2 u = r[b], v = cmul(w, r[b + mb]);
-          r[b] = make_float2(u.x + v.x, u.y + v.y);
-          r[b + mb] = make_float2(u.x - v.x, u.y - v.y);
-        }
-      }
+      column_stages<32, H>(r, lane, tw, ctw);  // stages 5 .. 9
       __syncwarp();  // every lane has read its column before any is written
 #pragma unroll
       for (int b = 0; b < 32; ++b) buf[slot(32 * b + lane)] = r[b];
@@ -337,16 +428,20 @@ __device__ __forceinline__ float* tile_sums(
   }
 
   // 2. [mel | acorr] by chunks of bins; the next chunk's operator rows are
-  // fetched into registers while this one is summed
+  // fetched into registers while this one is summed. Lane l takes frame
+  // fl = l % FT; group slot (warp, gh = l / FT) takes the groups g = warp +
+  // WARPS (gh + LPF i).
+  const int fl = lane % FT, gh = lane / FT;
+  const unsigned peers = FT == 32 ? 0xffffffffu : 0xffffu << (16 * gh);
   float acc[GPW][4];
 #pragma unroll
   for (int i = 0; i < GPW; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-  const float* yrow = ys + lane * NB;
+  const float* yrow = ys + fl * NB;
   float4* opc4 = reinterpret_cast<float4*>(opc);
   float4 pre[PER];
-  fetch_chunk<CK, OPL>(pre, 0, tid, op);
+  fetch_chunk<CK, OPL, NTH>(pre, 0, tid, op);
   for (int k0 = 0; k0 < NB; k0 += CK) {
     const int kw = min(CK, NB - k0);
     __syncthreads();  // the FFTs, or the previous chunk's readers, are done
@@ -354,21 +449,22 @@ __device__ __forceinline__ float* tile_sums(
     for (int q = 0; q < PER; ++q)
       if (tid + NTH * q < N4) opc4[tid + NTH * q] = pre[q];
     __syncthreads();
-    if (k0 + CK < NB) fetch_chunk<CK, OPL>(pre, k0 + CK, tid, op);
-    // warp-uniform: skip a group that is zero over the whole chunk
+    if (k0 + CK < NB) fetch_chunk<CK, OPL, NTH>(pre, k0 + CK, tid, op);
+    // uniform over a group slot's lanes: skip a group that is zero over
+    // the whole chunk (each lane tests row fl % CK)
     bool act[GPW];
 #pragma unroll
     for (int i = 0; i < GPW; ++i) {
-      const int g = warp + WARPS * i;
-      act[i] = false;
+      const int g = warp + WARPS * (gh + LPF * i);
+      bool nz = false;
       if (g < NG) {
         const float4 w4 =
-            *reinterpret_cast<const float4*>(opc + lane % CK * NOP + 4 * g);
-        act[i] = __any_sync(0xffffffffu, w4.x != 0.f || w4.y != 0.f ||
-                                             w4.z != 0.f || w4.w != 0.f);
+            *reinterpret_cast<const float4*>(opc + fl % CK * NOP + 4 * g);
+        nz = w4.x != 0.f || w4.y != 0.f || w4.z != 0.f || w4.w != 0.f;
       }
+      act[i] = (__ballot_sync(0xffffffffu, nz) & peers) != 0u;
     }
-    // each y is loaded once for the warp's active groups
+    // each y is loaded once for the slot's active groups
 #pragma unroll 4
     for (int kk = 0; kk < kw; ++kk) {
       const float y = yrow[k0 + kk];
@@ -376,7 +472,7 @@ __device__ __forceinline__ float* tile_sums(
       for (int i = 0; i < GPW; ++i) {
         if (!act[i]) continue;
         const float4 w = *reinterpret_cast<const float4*>(
-            opc + kk * NOP + 4 * (warp + WARPS * i));
+            opc + kk * NOP + 4 * (warp + WARPS * (gh + LPF * i)));
         acc[i][0] = fmaf(y, w.x, acc[i][0]);
         acc[i][1] = fmaf(y, w.y, acc[i][1]);
         acc[i][2] = fmaf(y, w.z, acc[i][2]);
@@ -389,17 +485,38 @@ __device__ __forceinline__ float* tile_sums(
   float* sums = ys;  // [FT][NOP]: log-mel | autocorrelation
 #pragma unroll
   for (int i = 0; i < GPW; ++i) {
-    const int g = warp + WARPS * i;
+    const int g = warp + WARPS * (gh + LPF * i);
     if (g >= NG) continue;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int o = 4 * g + q;
-      sums[lane * NOP + o] =
+      sums[fl * NOP + o] =
           o < nmel ? logf(fmaxf(acc[i][q], power_floor)) : acc[i][q];
     }
   }
   __syncthreads();
   return sums;
+}
+
+// The frame-level kernels' epilogue (K5, K4): tile_sums' sums of frames
+// f0 .. f0 + nf - 1 -> pre-CMVN cepstra ceps [n, nceps] (log-mel . dct)
+// and the raw autocorrelation r [n, nac], by the block's NTH threads.
+template <int NOP, int NTH>
+__device__ __forceinline__ void frame_outputs(
+    const float* sums, const float* __restrict__ dct,
+    float* __restrict__ ceps, float* __restrict__ r, int f0, int nf,
+    int nmel, int nac, int nceps) {
+  for (int i = threadIdx.x; i < nf * nceps; i += NTH) {
+    const int f = i / nceps, c = i % nceps;
+    const float* lm = sums + f * NOP;
+    float s = 0.f;
+    for (int m = 0; m < nmel; ++m) s = fmaf(lm[m], dct[m * nceps + c], s);
+    ceps[(size_t)(f0 + f) * nceps + c] = s;
+  }
+  for (int i = threadIdx.x; i < nf * nac; i += NTH) {
+    const int f = i / nac, j = i % nac;
+    r[(size_t)(f0 + f) * nac + j] = sums[f * NOP + nmel + j];
+  }
 }
 
 }  // namespace rfft

@@ -92,25 +92,52 @@ class GmmBank(nn.Module):
         self.register_buffer("cw", cw.contiguous())
         self.n_speakers = n_speakers
         self.n_mixtures = n_mixtures
-        self._serial: torch.Tensor | None = None
+        # (the (op, cw) state it was built from, the value) of the caches
+        # below: rebuilt after op or cw is replaced or written to
+        self._comp: tuple | None = None
+        self._plan: tuple | None = None
 
     @property
     def dim(self) -> int:
         return self.op.shape[0] // 2
 
+    def _state(self) -> tuple:
+        op, cw = self._buffers["op"], self._buffers["cw"]
+        return (op, op._version, cw, cw._version)
+
+    def _fresh(self, cached: tuple | None) -> bool:
+        """Whether a cache entry was built from the current op and cw (a
+        serial decision asks on every call: the buffers are read once)."""
+        if cached is None:
+            return False
+        op, cw = self._buffers["op"], self._buffers["cw"]
+        c_op, c_op_v, c_cw, c_cw_v = cached[0]
+        return (c_op is op and c_op_v == op._version
+                and c_cw is cw and c_cw_v == cw._version)
+
     def component_operator(self, row: int) -> torch.Tensor:
         """(op, cw) component by component, [S, K, row]: the d quadratic
         terms zero-padded to dp = (row - 4)/2, the d linear terms likewise,
         then cw and zeros. The scoring kernels' layout (csrc/gmm_lse.cuh),
-        built once per bank."""
-        if self._serial is None or self._serial.shape[-1] != row:
+        built once per bank and row, and again after op or cw changes."""
+        if not self._fresh(self._comp) or self._comp[1].shape[-1] != row:
             d, dp = self.dim, (row - 4) // 2
             comp = self.op.new_zeros((self.n_speakers * self.n_mixtures, row))
             comp[:, :d] = self.op[:d].T
             comp[:, dp:dp + d] = self.op[d:].T
             comp[:, 2 * dp] = self.cw
-            self._serial = comp.reshape(self.n_speakers, self.n_mixtures, row)
-        return self._serial
+            self._comp = (self._state(), comp.reshape(
+                self.n_speakers, self.n_mixtures, row))
+        return self._comp[1]
+
+    def scoring_plan(self, make: Callable[["GmmBank"], object]):
+        """What the scoring kernels' wrappers keep of this bank between
+        calls (ops/gpu_gmm: the component rows, their pointer, the device,
+        the launch shape for d): make(self), cached like
+        component_operator and rebuilt when op or cw changes."""
+        if not self._fresh(self._plan):
+            self._plan = (self._state(), make(self))
+        return self._plan[1]
 
     @classmethod
     def from_numpy(cls, weights, means, sigmas, device: torch.device | str,

@@ -22,9 +22,13 @@ and the bin-domain operators of ops/frontend.fft_packed_operators);
 The frame-level kernels take [n, frame_len] frames and return pre-CMVN
 cepstra [n, n_ceps] and the RAW autocorrelation [n, order+1] (zero-width
 without LPC), which the LPC cepstra need:
-  `packed_from_frames`  (K4, csrc/frontend_frames.cu) raw frames, the
-                        packed operators D, W, A; the floor applies to mel
-                        only;
+  `packed_from_frames`  (K4) raw frames; the floor applies to mel only. The
+                        CPU path multiplies by the packed operators D, W, A
+                        (`packed_from_frames_reference`); on the card the
+                        FFT kernel of csrc/frontend_frames_fft.cu computes
+                        the same function from an `FftRoute`, as the signal
+                        frontend does (plain torch:
+                        `packed_from_frames_fft_reference`);
   `mfcc_from_frames`    (K5) windowed, pre-emphasized frames, the cos/sin
                         operators C, S [frame_len, nb] (nb >= fft/2+1
                         bins; the CPU path), mel, acorr; the floor applies
@@ -49,12 +53,10 @@ from . import framing, levinson
 # kernel launches since the last reset, one count per kernel; the CPU path
 # does not count
 LAUNCHES = 0             # csrc/frontend.cu, packed_from_signals
-FRAMES_LAUNCHES = 0      # csrc/frontend_frames.cu, packed_from_frames
+FRAMES_LAUNCHES = 0      # csrc/frontend_frames_fft.cu, packed_from_frames
 FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
 FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
 
-_MAX_ORDER = 32      # csrc/frontend.cu MAX_ORDER
-_MAX_CEPS = 32       # one warp of columns in the CMVN kernel
 _MAX_GRID_Y = 65535
 
 
@@ -187,10 +189,9 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
             f"n_valid {tuple(n_valid.shape)}, window {flen}, n_fft {N}, mel "
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
             f"{tuple(dct.shape)}, fshift {fshift}")
-    if order > _MAX_ORDER or nceps > _MAX_CEPS or B > _MAX_GRID_Y:
-        raise ValueError(f"frontend kernel limits: order {order} <= "
-                         f"{_MAX_ORDER}, n_ceps {nceps} <= {_MAX_CEPS}, "
-                         f"batch {B} <= {_MAX_GRID_Y}")
+    if B > _MAX_GRID_Y:
+        raise ValueError(f"frontend kernel limit: batch {B} <= "
+                         f"{_MAX_GRID_Y}")
     lib = _build.load()
     op = _packed_operator(lib, fft.mel, fft.acorr, N)
     T = (Lp - flen) // fshift + 1
@@ -233,7 +234,9 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
         raise ValueError(
             f"no FFT tile at n_fft {n_fft} with {nmel + nac} mel + "
             "autocorrelation outputs: it takes a power of two in "
-            "[64, 2048] and at most 128 outputs")
+            "[64, 4096] (not 8192: fft_size 8192 on the full route, or the "
+            "packed route of frames longer than 2048 samples, as at 96 kHz) "
+            "and at most 256 outputs")
     nb = n_fft // 2 + 1
     op = mel.new_zeros((rows.value, cols.value))
     op[:nb, :nmel] = mel[:nb]
@@ -250,18 +253,70 @@ def packed_from_frames_reference(frames, D, W, dct, floor: float, A):
     return torch.log(torch.clamp_min(Y @ W, floor)) @ dct, Y @ A
 
 
+def packed_from_frames_fft_reference(frames, fft: FftRoute, dct,
+                                     floor: float):
+    """The frame-level packed frontend on an FFT in plain torch: what K4's
+    kernel computes (window and pre-emphasis per sample, the n_fft-point
+    power, the bin-domain operators)."""
+    flen = frames.shape[-1]
+    Y = _power(framing.window_preemph(frames, flen, fft.pre_emph,
+                                      fft.preemph_first), fft.n_fft)
+    return (torch.log(torch.clamp_min(Y @ fft.mel, floor)) @ dct,
+            Y @ fft.acorr)
+
+
 def mfcc_from_frames_reference(wp, C, S, mel, dct, floor: float, acorr):
     """The plain torch full-spectrum frontend."""
     power = torch.clamp_min((wp @ C) ** 2 + (wp @ S) ** 2, floor)
     return torch.log(torch.clamp_min(power @ mel, floor)) @ dct, power @ acorr
 
 
-def packed_from_frames(frames, D, W, dct, floor: float, A):
+def packed_from_frames(frames, D, W, dct, floor: float, A,
+                       fft: FftRoute | None = None):
     """[n, flen] raw frames -> ([n, n_ceps] pre-CMVN cepstra, [n, nac] raw
-    autocorrelation)."""
+    autocorrelation). On the CPU the plain version with D, W, A; on the card
+    the FFT kernel, which takes `fft` instead (PackedFrontend.fft)."""
     if frames.device.type == "cpu":
         return packed_from_frames_reference(frames, D, W, dct, floor, A)
-    return _frames_kernel(False, frames, (D,), W, dct, floor, A)
+    if frames.device.type != "cuda":
+        raise ValueError(f"no frontend for device {frames.device}")
+    if fft is None:
+        raise ValueError("the frame-level packed kernel runs the FFT route: "
+                         "pass fft= (features.extract.PackedFrontend.fft)")
+    dev = frames.device
+    _build.check_tensor(frames, "frames", torch.float32, 2, dev)
+    _build.check_tensor(fft.window, "window", torch.float32, 1, dev)
+    for t, name in ((fft.mel, "mel"), (fft.acorr, "acorr"), (dct, "dct")):
+        _build.check_tensor(t, name, torch.float32, 2, dev)
+    n, flen = frames.shape
+    N = fft.n_fft
+    nmel, nceps = dct.shape
+    nac = fft.acorr.shape[1]
+    if (fft.window.shape[0] != flen or fft.mel.shape[1] != nmel
+            or min(fft.mel.shape[0], fft.acorr.shape[0]) < N // 2 + 1
+            or 2 * flen > N):
+        raise ValueError(
+            f"inconsistent frontend shapes: frames {tuple(frames.shape)}, "
+            f"window {fft.window.shape[0]}, n_fft {N}, mel "
+            f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
+            f"{tuple(dct.shape)}")
+    lib = _build.load()
+    op = _packed_operator(lib, fft.mel, fft.acorr, N)
+    ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
+    r = torch.empty((n, nac), dtype=torch.float32, device=dev)
+    if n == 0:
+        return ceps, r
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.srt_fft_packed_frames(
+            frames.data_ptr(), fft.window.data_ptr(), op.data_ptr(),
+            dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), n, flen, N, nmel,
+            nac, nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
+            float(floor), stream)
+    _build.check(err, "frame-level packed FFT frontend kernel")
+    global FRAMES_LAUNCHES
+    FRAMES_LAUNCHES += 1
+    return ceps, r
 
 
 def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr,
@@ -287,7 +342,41 @@ def mfcc_from_frames_dense(wp, C, S, mel, dct, floor: float, acorr):
     not a power of two."""
     if wp.device.type == "cpu":
         return mfcc_from_frames_reference(wp, C, S, mel, dct, floor, acorr)
-    return _frames_kernel(True, wp, (C, S), mel, dct, floor, acorr)
+    if wp.device.type != "cuda":
+        raise ValueError(f"no frontend for device {wp.device}")
+    dev = wp.device
+    _build.check_tensor(wp, "frames", torch.float32, 2, dev)
+    for t, name in ((C, "C"), (S, "S"), (mel, "mel"), (dct, "dct"),
+                    (acorr, "acorr")):
+        _build.check_tensor(t, name, torch.float32, 2, dev)
+    n, flen = wp.shape
+    ncols = C.shape[1]
+    nmel, nceps = dct.shape
+    nac = acorr.shape[1]
+    if (C.shape != (flen, ncols) or S.shape != (flen, ncols)
+            or mel.shape != (ncols, nmel) or acorr.shape[0] != ncols):
+        raise ValueError(
+            f"inconsistent frontend shapes: frames {tuple(wp.shape)}, C/S "
+            f"{tuple(C.shape)}, mel {tuple(mel.shape)}, dct "
+            f"{tuple(dct.shape)}, acorr {tuple(acorr.shape)}")
+    lib = _build.load()
+    if lib.srt_frames_smem_bytes(nmel + nac) < 0:
+        raise ValueError(f"{nmel} mel + {nac} autocorrelation outputs: the "
+                         "dense full-spectrum kernel takes at most 192")
+    ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
+    r = torch.empty((n, nac), dtype=torch.float32, device=dev)
+    if n == 0:
+        return ceps, r
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.srt_frames_frontend(
+            wp.data_ptr(), C.data_ptr(), S.data_ptr(), mel.data_ptr(),
+            acorr.data_ptr(), dct.data_ptr(), ceps.data_ptr(), r.data_ptr(),
+            n, flen, ncols, nmel, nac, nceps, float(floor), stream)
+    _build.check(err, "dense full-spectrum frontend kernel")
+    global FULL_DENSE_LAUNCHES
+    FULL_DENSE_LAUNCHES += 1
+    return ceps, r
 
 
 def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
@@ -320,50 +409,4 @@ def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
     _build.check(err, "full-spectrum FFT frontend kernel")
     global FULL_LAUNCHES
     FULL_LAUNCHES += 1
-    return ceps, r
-
-
-def _frames_kernel(full: bool, frames, dft, mel, dct, floor, ac):
-    """Check and launch one of the csrc/frontend_frames.cu kernels: `dft` is
-    (D,) for the packed kernel, (C, S) for the full-spectrum one."""
-    if frames.device.type != "cuda":
-        raise ValueError(f"no frontend for device {frames.device}")
-    dev = frames.device
-    _build.check_tensor(frames, "frames", torch.float32, 2, dev)
-    names = ("C", "S") if full else ("D",)
-    for t, name in zip((*dft, mel, dct, ac), (*names, "mel", "dct", "acorr")):
-        _build.check_tensor(t, name, torch.float32, 2, dev)
-    n, flen = frames.shape
-    ncols = dft[0].shape[1]
-    nmel, nceps = dct.shape
-    nac = ac.shape[1]
-    if (any(t.shape != (flen, ncols) for t in dft)
-            or mel.shape != (ncols, nmel) or ac.shape[0] != ncols):
-        raise ValueError(
-            f"inconsistent frontend shapes: frames {tuple(frames.shape)}, "
-            f"{'/'.join(names)} {tuple(dft[0].shape)}, mel "
-            f"{tuple(mel.shape)}, dct {tuple(dct.shape)}, acorr "
-            f"{tuple(ac.shape)}")
-    lib = _build.load()
-    if lib.srt_frames_smem_bytes(nmel + nac, int(full)) < 0:
-        raise ValueError(f"{nmel} mel + {nac} autocorrelation outputs: the "
-                         "frame-level kernels take at most 128")
-    ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
-    r = torch.empty((n, nac), dtype=torch.float32, device=dev)
-    if n == 0:
-        return ceps, r
-    C, S = dft if full else (dft[0], dft[0])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_frames_frontend(
-            frames.data_ptr(), C.data_ptr(), S.data_ptr(), mel.data_ptr(),
-            ac.data_ptr(), dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), n,
-            flen, ncols, nmel, nac, nceps, float(floor), int(full), stream)
-    _build.check(err, ("full-spectrum" if full else "frame-level packed")
-                 + " frontend kernel")
-    global FRAMES_LAUNCHES, FULL_DENSE_LAUNCHES
-    if full:
-        FULL_DENSE_LAUNCHES += 1
-    else:
-        FRAMES_LAUNCHES += 1
     return ceps, r

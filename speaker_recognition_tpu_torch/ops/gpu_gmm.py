@@ -3,10 +3,11 @@
 Batched: `batch_bank_avg_loglik` launches csrc/gmm_score.cu and maps
 [B, T, d] features and a [B, T] mask to [B, S] masked per-frame average
 log-likelihoods. Serial: `bank_sum_loglik` / `bank_avg_loglik` launch
-csrc/gmm_serial.cu and map one utterance [n, d] with mask [n] to [S] sums
-or averages. All apply the reference's -745 -> log(1e-15) underflow floor.
-Each runs its kernel on a CUDA tensor and its plain version (`*_reference`,
-from models/gmm) on a CPU tensor; any other device raises.
+csrc/gmm_serial.cu (one clustered launch) and map one utterance [n, d]
+with mask [n] to [S] sums or averages. All apply the reference's -745 ->
+log(1e-15) underflow floor. Each runs its kernel on a CUDA tensor and its
+plain version (`*_reference`, from models/gmm) on a CPU tensor; any other
+device raises.
 
 Both kernels are bound by FP32 operations (2*d FMAs per frame and
 component) and share one inner loop (csrc/gmm_lse.cuh): a lane keeps its
@@ -18,9 +19,19 @@ past a padded d of 128 the frame stays in device memory (a route chosen
 on the shape, no fallback). The only limits are the grid's: at most 65535
 utterances a batched call and 65535 speakers a serial call. Every sum
 runs in a fixed order with no atomics: two calls give the same bits.
+
+A serial decision is microseconds of device work, so the wrappers keep
+their host path short: what a call needs of the bank (the rows, their
+pointer, the device, the launch shape for d, the library) is a `_Plan`
+made once per bank (`GmmBank.scoring_plan`, rebuilt when the bank's
+parameters change); a call checks the inputs that guard the raw pointers,
+allocates its output (and the batched kernel's scratch) in one tensor and
+makes one ctypes call, which selects the device itself.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -44,6 +55,57 @@ __all__ = ["LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
            "batch_bank_avg_loglik_reference"]
 
 
+class _Plan(NamedTuple):
+    """What both scoring wrappers keep of a bank on the card."""
+
+    lib: object             # the kernels' ctypes library
+    comp: torch.Tensor      # [S, K, row] component rows (keeps comp_ptr valid)
+    comp_ptr: int
+    device: torch.device
+    index: int              # the device's ordinal
+    S: int
+    K: int
+    d: int
+    warp_frames: int        # frames a batched warp tile takes at this d
+
+
+def _make_plan(bank: GmmBank) -> _Plan:
+    dev = bank.op.device
+    if dev.type != "cuda":
+        raise ValueError(f"the bank is on {dev}, the features on the card")
+    _build.check_tensor(bank.op, "bank.op", torch.float32, 2, dev)
+    _build.check_tensor(bank.cw, "bank.cw", torch.float32, 1, dev)
+    lib = _build.load()
+    d = bank.dim
+    comp = bank.component_operator(lib.srt_component_row(d))
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    return _Plan(lib, comp, comp.data_ptr(), torch.device("cuda", index),
+                 index, bank.n_speakers, bank.n_mixtures, d,
+                 lib.srt_bank_warp_frames(d))
+
+
+def _on_plan_device(t: torch.Tensor, name: str, plan: _Plan):
+    """Raise unless t is contiguous on the plan's device (its dtype and
+    shape are checked before the plan is made)."""
+    if not t.is_contiguous() or t.get_device() != plan.index:
+        _build.check_tensor(t, name, t.dtype, t.dim(), plan.device)
+
+
+def _check_dtype(t: torch.Tensor, name: str, dtype, ndim: int):
+    if t.dtype is not dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+
+
+def _stream(plan: _Plan) -> int:
+    """The device's current stream as the kernels take it: the raw
+    cudaStream_t, which the code torch.compile generates reads the same
+    way (a torch.cuda.Stream object costs ~4 us of host a call,
+    tools/score_ablation.py)."""
+    return torch._C._cuda_getCurrentRawStream(plan.index)
+
+
 def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
                           mask: torch.Tensor) -> torch.Tensor:
     """[B, T, d] f32 features, [B, T] bool mask -> [B, S] f32."""
@@ -51,31 +113,32 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
         return batch_bank_avg_loglik_reference(bank, feats, mask)
     if feats.device.type != "cuda":
         raise ValueError(f"no bank scoring for device {feats.device}")
-    dev = feats.device
-    _build.check_tensor(feats, "feats", torch.float32, 3, dev)
-    _build.check_tensor(mask, "mask", torch.bool, 2, dev)
-    _build.check_tensor(bank.op, "bank.op", torch.float32, 2, dev)
-    _build.check_tensor(bank.cw, "bank.cw", torch.float32, 1, dev)
+    _check_dtype(feats, "feats", torch.float32, 3)
+    _check_dtype(mask, "mask", torch.bool, 2)
     B, T, d = feats.shape
-    S, K = bank.n_speakers, bank.n_mixtures
-    if tuple(mask.shape) != (B, T) or bank.dim != d or B > _MAX_GRID_Y:
+    if tuple(mask.shape) != (B, T) or B > _MAX_GRID_Y:
         raise ValueError(f"mask {tuple(mask.shape)} must be [{B}, {T}], "
-                         f"bank dim {bank.dim} must be {d}, batch "
-                         f"{B} <= {_MAX_GRID_Y}")
-    lib = _build.load()
-    comp = bank.component_operator(lib.srt_component_row(d))
-    out = torch.empty((B, S), dtype=torch.float32, device=dev)
+                         f"batch {B} <= {_MAX_GRID_Y}")
+    plan = bank.scoring_plan(_make_plan)
+    if plan.d != d:
+        raise ValueError(f"bank dim {plan.d} must be {d}")
+    _on_plan_device(feats, "feats", plan)
+    _on_plan_device(mask, "mask", plan)
+    S = plan.S
+    # out [B, S], then the kernel's scratch: partial sums [B][NW][S] and
+    # valid-frame counts [B][NW]
+    nw = max(1, -(-T // plan.warp_frames))
+    buf = torch.empty(B * S + B * nw * (S + 1), dtype=torch.float32,
+                      device=plan.device)
+    out = buf[:B * S].view(B, S)
     if B == 0:
         return out
-    global LAUNCHES
-    with torch.cuda.device(dev):
-        scratch = torch.empty(lib.srt_bank_scratch_floats(B, T, d, S),
-                              dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_bank_avg_loglik(
-            feats.data_ptr(), mask.data_ptr(), comp.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, T, d, S, K, stream)
+    ptr = buf.data_ptr()
+    err = plan.lib.srt_bank_avg_loglik(
+        feats.data_ptr(), mask.data_ptr(), plan.comp_ptr, ptr + 4 * B * S,
+        ptr, B, T, d, S, plan.K, plan.index, _stream(plan))
     _build.check(err, "bank scoring kernel")
+    global LAUNCHES
     LAUNCHES += 1
     return out
 
@@ -83,29 +146,23 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
 def _serial(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
             avg: bool) -> torch.Tensor:
     """Launch csrc/gmm_serial.cu on one utterance: [S] sums or averages."""
-    dev = X.device
-    _build.check_tensor(X, "X", torch.float32, 2, dev)
-    _build.check_tensor(mask, "mask", torch.bool, 1, dev)
-    _build.check_tensor(bank.op, "bank.op", torch.float32, 2, dev)
-    _build.check_tensor(bank.cw, "bank.cw", torch.float32, 1, dev)
+    _check_dtype(X, "X", torch.float32, 2)
+    _check_dtype(mask, "mask", torch.bool, 1)
     n, d = X.shape
-    S, K = bank.n_speakers, bank.n_mixtures
-    if mask.shape[0] != n or bank.dim != d or S > _MAX_GRID_Y:
-        raise ValueError(f"mask {tuple(mask.shape)} must be [{n}], bank dim "
-                         f"{bank.dim} must be {d}, speakers {S} <= "
-                         f"{_MAX_GRID_Y}")
-    lib = _build.load()
-    comp = bank.component_operator(lib.srt_component_row(d))
-    partial = torch.empty((S, lib.srt_serial_chunks(n), 2),
-                          dtype=torch.float32, device=dev)
-    out = torch.empty(S, dtype=torch.float32, device=dev)
-    global SERIAL_LAUNCHES
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_bank_sum_loglik(
-            X.data_ptr(), mask.data_ptr(), comp.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), n, d, S, K, int(avg), stream)
+    if mask.shape[0] != n:
+        raise ValueError(f"mask {tuple(mask.shape)} must be [{n}]")
+    plan = bank.scoring_plan(_make_plan)
+    if plan.d != d or plan.S > _MAX_GRID_Y:
+        raise ValueError(f"bank dim {plan.d} must be {d}, speakers "
+                         f"{plan.S} <= {_MAX_GRID_Y}")
+    _on_plan_device(X, "X", plan)
+    _on_plan_device(mask, "mask", plan)
+    out = torch.empty(plan.S, dtype=torch.float32, device=plan.device)
+    err = plan.lib.srt_bank_sum_loglik(
+        X.data_ptr(), mask.data_ptr(), plan.comp_ptr, out.data_ptr(), n, d,
+        plan.S, plan.K, int(avg), plan.index, _stream(plan))
     _build.check(err, "serial bank scoring kernel")
+    global SERIAL_LAUNCHES
     SERIAL_LAUNCHES += 1
     return out
 

@@ -42,9 +42,6 @@ __all__ = ["LAUNCHES", "WIDE_LAUNCHES", "fused_bank_predict",
 LAUNCHES = 0        # fused_bank_predict
 WIDE_LAUNCHES = 0   # fused_bank_predict_wide
 
-_MAX_ORDER = 32      # csrc/packed_tile.cuh MAX_ORDER
-_MAX_CEPS = 32       # one warp of columns in the CMVN phase
-
 
 def _lpc_operator(A, D: torch.Tensor) -> torch.Tensor:
     """A, or a zero-width operator for MFCC only."""
@@ -146,15 +143,13 @@ def _launch(signals, n_valid, bank: GmmBank, fshift: int, D, W, dct_t,
             f"{tuple(D.shape)}, W {tuple(W.shape)}, dct_t "
             f"{tuple(dct_t.shape)}, A {tuple(A.shape)}, bank dim {bank.dim}")
     lib = _build.load()
-    if (order > _MAX_ORDER or nceps > _MAX_CEPS
-            or lib.srt_fused_smem_bytes(flen, fshift, nmel, nac, d, S, K) < 0):
+    if lib.srt_fused_smem_bytes(flen, fshift, nmel, nac, d, S, K) < 0:
         raise ValueError(
-            f"fused predict kernel limits: LPC order {order} <= {_MAX_ORDER}, "
-            f"n_ceps {nceps} <= {_MAX_CEPS} (d {d} <= "
-            f"{_MAX_ORDER + _MAX_CEPS}), {nmel} mel + {nac} autocorrelation "
-            f"outputs <= 128, and one speaker's {K} components of dim {d} "
-            "with a 128-frame tile within a block's shared memory; the batch "
-            "has no limit")
+            f"fused predict kernel limits: {nmel} mel + {nac} "
+            "autocorrelation outputs <= 128, and one speaker's "
+            f"{K} components of dim {d} with a 128-frame tile within a "
+            "block's shared memory; the LPC order, n_ceps and the batch have "
+            "no limit")
     T = (Lp - flen) // fshift + 1
     scratch = torch.empty(lib.srt_fused_scratch_floats(B, T, d, S),
                           dtype=torch.float32, device=dev)

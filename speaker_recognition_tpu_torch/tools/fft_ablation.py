@@ -32,13 +32,14 @@ from ..ops import framing, gpu_frontend
 VARIANTS = {
     "full": [],
     "no_gather": [
-        ("      v[q] = make_float2(load(f, 2 * j), load(f, 2 * j + 1));",
-         "      v[q] = make_float2((float)j, 1.f);")],
+        ("      v[q] = make_float2(load(f, p), load(f, p + 1));",
+         "      v[q] = make_float2((float)p, 1.f);")],
     "no_butterflies": [
-        ("    for (int s = 0; s < P; ++s) {  // stages within the lane's block",
-         "    for (int s = 0; s < 0; ++s) {"),
-        ("      for (int s2 = 0; s2 < 5; ++s2) {  // stage P + s2 over blocks b",
-         "      for (int s2 = 0; s2 < 0; ++s2) {"),
+        ("  for (int s = 0; s < NS; ++s) {", "  for (int s = 0; s < 0; ++s) {"),
+        ("  for (int s2 = 0; s2 < 5; ++s2) {",
+         "  for (int s2 = 0; s2 < 0; ++s2) {"),
+        ("      for (int t = 0; t < 32; ++t) butterfly(",
+         "      for (int t = 0; t < 0; ++t) butterfly("),
         ("      for (int s = P; s + 1 < LG; s += 2) {  // stages s and s + 1",
          "      for (int s = LG; s + 1 < LG; s += 2) {"),
         ("      if ((LG - P) % 2) {  // the last stage alone",
@@ -58,8 +59,8 @@ VARIANTS = {
                      "  return;")],
     "no_levinson_dct": [
         ("packed_tile.cuh", "  if (order == 0) return;", "  return;"),
-        ("packed_tile.cuh", "  for (int i = tid; i < nf * nceps; i += NT) {",
-         "  for (int i = tid; i < 0; i += NT) {")],
+        ("packed_tile.cuh", "  for (int i = tid; i < nf * nceps; i += NTH) {",
+         "  for (int i = tid; i < 0; i += NTH) {")],
 }
 SOURCES = ("rfft_tile.cuh", "packed_tile.cuh", "frontend_fft.cu", "frontend.cu")
 
@@ -98,7 +99,7 @@ def build(tmp: str) -> dict:
         lib = ctypes.CDLL(os.path.join(tmp, name, "lib.so"))
         lib.srt_fft_frames_frontend.argtypes = [p_] * 5 + [i_] * 6 + [f_, p_]
         lib.srt_packed_frontend.argtypes = ([p_] * 6 + [i_] * 9
-                                            + [f_, i_, f_, i_, p_])
+                                            + [f_, i_, f_, i_, i_, p_])
         libs[name] = lib
     return libs
 
@@ -170,7 +171,7 @@ def main():
             s8.data_ptr(), nv.data_ptr(), fft.window.data_ptr(),
             op8.data_ptr(), fe8.dct.data_ptr(), feat.data_ptr(), 512, 40960,
             T8, fe8.frame_len, fe8.frame_shift, fft.n_fft, nmel, nac8, nceps,
-            fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, stream)
+            fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, 1, stream)
         assert err == 0, err
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:

@@ -92,11 +92,11 @@ def main():
     # versions' (the FFT route's, n_fft): on CPU tensors they run the plain
     # versions themselves
     for name, counter in (("packed_from_signals", "LAUNCHES"),
+                          ("packed_from_frames", "FRAMES_LAUNCHES"),
                           ("mfcc_from_frames", _full_counter),
                           ("mfcc_from_frames_dense", "FULL_DENSE_LAUNCHES")):
         _counting(gpu_frontend, name, getattr(gpu_frontend, name), counter)
     for mod, name, counter in (
-            (gpu_frontend, "packed_from_frames", "FRAMES_LAUNCHES"),
             (gpu_gmm, "batch_bank_avg_loglik", "LAUNCHES"),
             (gpu_gmm, "bank_sum_loglik", "SERIAL_LAUNCHES"),
             (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES"),
@@ -117,6 +117,7 @@ def main():
     exec(compile(src, path, "exec"), smoke.__dict__)
     smoke.smi = lambda: "CPU rehearsal, no power limit"
     smoke.device_times = lambda fn, calls=20: "device not measured (CPU)"
+    smoke.kernels_per_call = lambda fn, **kw: {"serial_kernel": 1.0}
     smoke.main([])
 
 
@@ -154,13 +155,23 @@ def test_chip_smoke_rehearses_on_the_cpu():
         assert os.path.exists(os.path.join(REPO, k["source"])), k
     assert kernels[0]["source"].endswith("csrc/frontend.cu")
     assert kernels[1]["source"].endswith("csrc/frontend.cu")
+    assert kernels[4]["source"].endswith("csrc/frontend_frames_fft.cu")
     assert kernels[5]["source"].endswith("csrc/frontend_fft.cu")
     assert any(ln.startswith("phase 11 extract_batch, n_lpcc 16") and
                ln.endswith("launches K1 1, K4 0") for ln in lines)
     assert any(ln.startswith("phase 13 two calls bitwise equal: True")
                for ln in lines)
     assert sum("two calls bitwise equal: True" in ln and ln.startswith(
-        "phase 2 ") for ln in lines) >= 10
+        "phase 2 ") for ln in lines) >= 15
+    for shape in ("48 kHz, fft_size 4096", "44.1 kHz, fft_size 4096",
+                  "128 mel filters + LPC", "LPC order 40"):
+        assert any(ln.startswith("phase 2 ") and shape in ln
+                   and "two calls bitwise equal: True" in ln
+                   for ln in lines), shape
+    assert sum(ln.startswith("phase 6 ") and ln.endswith(
+        "device kernels a call 1") for ln in lines) == 11
+    assert any(ln.startswith("phase 12 cli enroll + predict @ 48 kHz, "
+                             "fft_size 4096") for ln in lines)
 
 
 if __name__ == "__main__":

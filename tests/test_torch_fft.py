@@ -297,3 +297,39 @@ def test_packed_operator_layout_and_cache():
     assert small.shape == (144, 72) and (small[129:] == 0).all()
     with pytest.raises(ValueError, match="power of two"):
         gpu_frontend._packed_operator(lib, mel, acorr, 1500)
+
+
+K4_CASES = {  # id: (fs, FeatureConfig kwargs of a config module)
+    "8k": (8000, lambda c: {}),
+    "16k": (16000, lambda c: {}),
+    "8k_preemph_first": (8000, lambda c: {
+        "mfcc": c.MfccConfig(preemph_first=True)}),
+    "16k_bob": (16000, lambda c: {"mfcc": c.bob_mfcc_config()}),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_frames_fft_reference_matches_pallas(case):
+    """K4's FFT route in plain torch (float32: window and pre-emphasis per
+    sample, the rfft_size(frame_len)-point power, the bin-domain operators)
+    vs pallas_frontend.packed_from_frames (interpret; the dense packed
+    operators D, W, A) on raw frames with LPC; a silent frame puts every
+    mel energy on the floor. The bounds of tests/test_torch_frames.py:
+    ~1e-6 relative on the power, carried to ~1e-5 on pre-CMVN cepstra of
+    O(10-100); the raw autocorrelation to 1e-4 of its largest value."""
+    fs, kw_of = K4_CASES[case]
+    fe = text.PackedFrontend(fs, tcfg.FeatureConfig(**kw_of(tcfg)), "cpu")
+    frames = (np.random.RandomState(fs).randn(45, fe.frame_len) * 1000
+              ).astype(np.float32)
+    frames[4] = 0.0
+    wc, wr = pallas_frontend.packed_from_frames(
+        jnp.asarray(frames), fe.D.numpy(), fe.W.numpy(), fe.dct.numpy(),
+        fe.floor, A=fe.A.numpy(), interpret=True)
+    ceps, r = gpu_frontend.packed_from_frames_fft_reference(
+        torch.from_numpy(frames), fe.fft, fe.dct, fe.floor)
+    assert ceps.dtype == torch.float32 and r.shape == (45, 16)
+    np.testing.assert_allclose(ceps.numpy(), np.asarray(wc), rtol=1e-4,
+                               atol=1e-3)
+    wr = np.asarray(wr)
+    np.testing.assert_allclose(r.numpy(), wr, rtol=1e-4,
+                               atol=1e-4 * np.abs(wr).max())

@@ -17,6 +17,8 @@ from speaker_recognition_tpu.ops import levinson as jlevinson  # noqa: E402
 from speaker_recognition_tpu.ops import pallas_frontend  # noqa: E402
 from speaker_recognition_tpu_torch.ops import (  # noqa: E402
     framing, gpu_frontend, levinson)
+from speaker_recognition_tpu_torch.ops import (  # noqa: E402
+    frontend as ops_frontend)
 
 FLOOR = 1e-35
 
@@ -189,6 +191,16 @@ def _wrapper_args(full):
     return (frames, _t(D), _t(W), _t(dct), FLOOR, _t(A))
 
 
+def _fft_route(device_type):
+    """The FFT route of the packed frontend at 8 kHz (flen 256, n_fft 512),
+    its tensors as `device_type` makes them."""
+    mel, _ = _mel_dct(8000, 2048)
+    M, R = ops_frontend.fft_packed_operators(256, 2048, mel, lpc_order=15)
+    return gpu_frontend.FftRoute(512, device_type(_t(np.hamming(256))), 0.95,
+                                 False, device_type(_t(M)),
+                                 device_type(_t(R)))
+
+
 @pytest.mark.parametrize("full,n_fft", [(False, None), (True, 2048),
                                          (True, 1500)],
                          ids=["packed", "full", "full_dense"])
@@ -196,21 +208,21 @@ def test_cuda_request_raises_without_cuda(full, n_fft):
     """On a CUDA tensor each frame-level wrapper builds and launches its
     kernel or raises; it never runs the plain version and counts nothing.
     The full-spectrum wrapper takes its FFT kernel at a power-of-two n_fft
-    and the dense one otherwise; both need n_fft on the card."""
+    and the dense one otherwise; both need n_fft on the card. The packed
+    one runs the FFT route on the card and needs it (fft=)."""
     fn = gpu_frontend.mfcc_from_frames if full else \
         gpu_frontend.packed_from_frames
     args = _wrapper_args(full)
-    extra = (n_fft,) if full else ()
-    cuda = [a.as_subclass(_CudaTyped) if isinstance(a, torch.Tensor) else a
-            for a in args]
+    as_cuda = lambda a: a.as_subclass(_CudaTyped)  # noqa: E731
+    extra = (n_fft,) if full else (_fft_route(as_cuda),)
+    cuda = [as_cuda(a) if isinstance(a, torch.Tensor) else a for a in args]
     counters = ("FRAMES_LAUNCHES", "FULL_LAUNCHES", "FULL_DENSE_LAUNCHES",
                 "LAUNCHES")
     before = [getattr(gpu_frontend, c) for c in counters]
     with pytest.raises(RuntimeError):
         fn(*cuda, *extra)
-    if full:
-        with pytest.raises(ValueError, match="n_fft"):
-            fn(*cuda)
+    with pytest.raises(ValueError, match="n_fft" if full else "fft="):
+        fn(*cuda)
     assert [getattr(gpu_frontend, c) for c in counters] == before
     with pytest.raises(ValueError, match="device"):
         fn(args[0].to("meta"), *args[1:], *extra)

@@ -138,6 +138,72 @@ def test_serial_operator_layout(d, dp):
     assert (comp[..., 2 * dp + 1:] == 0).all()
 
 
+def _counting_plan():
+    """A plan maker that records the banks it was asked for: what
+    ops/gpu_gmm's wrappers keep of a bank between calls (the component
+    rows, their pointer) stands in for a plan made by the card's
+    library."""
+    made = []
+
+    def make(bank):
+        comp = bank.component_operator(2 * (-(-bank.dim // 4) * 4) + 4)
+        made.append(comp)
+        return (comp, comp.data_ptr())
+    return make, made
+
+
+@pytest.mark.parametrize("change", ["op_in_place", "cw_in_place",
+                                    "op_replaced", "moved"])
+def test_serial_plan_follows_the_bank_parameters(change):
+    """GmmBank.scoring_plan is made once per bank and made again, with
+    component rows built from the new parameters, after op or cw is written
+    to in place, replaced, or moved (Module.to makes new buffers); so is
+    component_operator."""
+    bank = tgmm.GmmBank.from_numpy(*_bank_np(3, 4, 6, seed=8), device="cpu")
+    make, made = _counting_plan()
+    first = bank.scoring_plan(make)
+    assert bank.scoring_plan(make) is first and len(made) == 1
+    row = first[0].shape[-1]
+    assert bank.component_operator(row) is first[0]
+    if change == "op_in_place":
+        bank.op.mul_(2.0)
+    elif change == "cw_in_place":
+        bank.cw.add_(1.0)
+    elif change == "op_replaced":
+        bank.op = bank.op * 0.5
+    else:
+        bank.to(torch.float64)
+    again = bank.scoring_plan(make)
+    assert again is not first and len(made) == 2
+    assert bank.scoring_plan(make) is again and len(made) == 2
+    comp = again[0].reshape(-1, row)
+    d, dp = bank.dim, (row - 4) // 2
+    assert comp.dtype == bank.op.dtype
+    assert torch.equal(comp[:, :d], bank.op[:d].T)
+    assert torch.equal(comp[:, dp:dp + d], bank.op[d:].T)
+    assert torch.equal(comp[:, 2 * dp], bank.cw)
+
+
+def test_serial_plan_scores_the_changed_bank():
+    """After a bank is written to in place, the plain serial score is the
+    new bank's (the cached rows are not): a rerun against a fresh bank with
+    the same parameters agrees exactly."""
+    w, mu, sg = _bank_np(3, 4, 6, seed=9)
+    x, mask = _utt(50, 6, 40, seed=10)
+    bank = tgmm.GmmBank.from_numpy(w, mu, sg, device="cpu")
+    make, _ = _counting_plan()
+    bank.scoring_plan(make)
+    bank.op.mul_(0.5)
+    comp = bank.scoring_plan(make)[0]
+    fresh = tgmm.GmmBank(bank.op.clone(), bank.cw.clone(), 3, 4)
+    assert torch.equal(comp, fresh.component_operator(comp.shape[-1]))
+    got = gpu_gmm.bank_sum_loglik(bank, torch.from_numpy(x),
+                                  torch.from_numpy(mask))
+    want = gpu_gmm.bank_sum_loglik(fresh, torch.from_numpy(x),
+                                   torch.from_numpy(mask))
+    assert torch.equal(got, want)
+
+
 # -- GMMSet: serial scoring and the open set ---------------------------------
 
 def _state(seed, S=3, K=4, d=6):
