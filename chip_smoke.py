@@ -12,11 +12,13 @@ raises and the exit code is non-zero):
   2. signal frontend kernel (K1, on an FFT) vs both plain versions, the
      dense packed DFT and the FFT route: 512 x 5 s at 8 kHz; a 150 s clip
      beside a short one; 11.025, 16 and 22.05 kHz batches; 44.1 and 48 kHz
-     with fft_size 4096 (a 4096-point FFT); 64 mel filters; 128 mel filters
-     with LPC (144 outputs); LPC order 40 with 40 cepstra; one utterance;
-     two calls bitwise; its raw-autocorrelation mode (the LPC cepstra's) at
-     the bench batch, at 16 and 22.05 kHz and at 48 kHz with fft_size
-     4096
+     with fft_size 4096 (a 4096-point FFT); 96 kHz with fft_size 8192 and
+     192 kHz with fft_size 16384 (8192- and 16384-point FFTs); 64 mel
+     filters; 128 mel filters with LPC (144 outputs); 250 with LPC (266
+     outputs, the fourth operator width); LPC order 40 with 40 cepstra; one
+     utterance; two calls bitwise; its raw-autocorrelation mode (the LPC
+     cepstra's) at the bench batch, at 16 and 22.05 kHz, at 48 kHz with
+     fft_size 4096 and at 96 kHz with fft_size 8192
   3. bank-scoring kernel vs plain, two calls bitwise: the 4 x 32 bench
      bank over 512 utterances; an 80 x 256 bank over 8; a 4 x 1024 bank;
      d = 102 (bob's MFCC + LPC + two deltas at 16 kHz); features that
@@ -47,31 +49,41 @@ raises and the exit code is non-zero):
      256 at 8 kHz, a frame longer than the FFT (16 kHz, fft_size 256),
      SRTPU_FRONTEND=full at 8 kHz, bob's config at 48 kHz, MFCC only, an
      utterance with no valid frame, 44.1 and 48 kHz with fft_size 4096, 128
-     mel filters with LPC at 48 kHz, two calls bitwise; fft_size 1500 at
-     8 kHz, which takes the dense kernel, also with 144 outputs
+     and 250 mel filters with LPC at 48 kHz, 96 kHz with fft_size 8192, 192
+     kHz with fft_size 16384 and with 8192 (the default route there), two
+     calls bitwise; fft_size 1500 at 8 kHz, which takes the dense kernel,
+     also with 144 outputs
  11. frame-level packed kernel (K4 on an FFT, no serving caller) vs both
      plain versions, the dense packed DFT and the FFT route: 512 x 5 s at
-     8 kHz and a 16 kHz batch with LPC cepstra; the bench batch's LPCC
-     through extract_batch launches K1 once and K4 never, its features
+     8 kHz and a 16 kHz batch with LPC cepstra, 96 and 192 kHz with
+     fft_size 8192 and 16384, 250 mel filters at 48 kHz; the bench batch's
+     LPCC through extract_batch launches K1 once and K4 never, its features
      against the plain route
  12. slice 3 on the card: `cli -t enroll` then `cli -t predict` at 48 kHz,
      at the default config and with fft_size 4096 (K1 on a 4096-point
-     FFT), the JAX-enrolled 48 kHz session against the JAX package's
-     scores, UBM + MAP + open-set decisions at 48 kHz; then the LPC-cepstra
-     slice at
+     FFT), and at 96 kHz with fft_size 8192 (K1 on an 8192-point FFT), the
+     JAX-enrolled 48 kHz session against the JAX package's scores, UBM +
+     MAP + open-set decisions at 48 kHz; then the LPC-cepstra slice at
      8 kHz: ModelInterface enroll, train, predict_batch, dump, `cli -t
      predict`, the open set; launch counts of both; timing of the
      frontend kernels and their plain versions, of K5 beside the dense
-     kernel and torch.fft.rfft in one interleaved set, of predict_scores
-     at 48 kHz, and of LPCC predict on K1's raw-autocorrelation mode
-     beside the earlier route through K4
- 13. the fused predict monolith (K6 and K7, one kernel) vs plain: the
-     bench batch in f32 and with bf16 DFT operands, against predict_scores
-     (the frontend and bank-scoring kernels), the 80 x 256 bank over 8
-     utterances, a 150 s clip beside a 1 s one, MFCC only, 16 kHz, LPC
-     order 40, an utterance with no valid frame, two calls bitwise; launch
-     counts; timing of the monolith, its plain version and
-     predict_scores, interleaved, with the FP32 roofline share
+     kernel and torch.fft.rfft in one interleaved set, of K1, K4 and K5 at
+     96 kHz (8192-point FFTs), of predict_scores at 48 kHz, and of LPCC
+     predict on K1's raw-autocorrelation mode beside the earlier route
+     through K4
+ 13. the fused predict monolith (K6 and K7, one kernel; f32 on the FFT
+     tile, bf16 on the dense tile) vs its plain versions (the FFT route's
+     and the dense one): the bench batch in f32 and with bf16 DFT operands,
+     against predict_scores (the frontend and bank-scoring kernels), 48 kHz
+     with fft_size 4096, 96 kHz with fft_size 8192, a 4 x 1024 bank, d =
+     102, the 80 x 256 bank over 8 utterances, a 150 s clip beside a 1 s
+     one, MFCC only, 16 kHz, LPC order 40, an utterance with no valid
+     frame; at each two calls bitwise and the launch counters; timing of
+     the monolith, its plain versions and predict_scores, interleaved,
+     with the FP32 roofline share
+ 14. the grid: K1 and K2 on 70,000 utterances of 0.1 s at 8 kHz and K3 on
+     a bank of 70,000 speakers (launches of at most 65535 in one call), vs
+     their plain versions
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes), its
 error against its plain version, its time, its plain version's time and
@@ -157,6 +169,27 @@ LPCC = LpcConfig(n_lpcc=16)
 # fft_size 4096), LPC order 40 and 40 cepstra
 FFT4096 = FeatureConfig(mfcc=MfccConfig(fft_size=4096))
 ORDER40 = FeatureConfig(mfcc=MfccConfig(n_ceps=40), lpc=LpcConfig(n_lpc=40))
+# 8192- and 16384-point FFTs: 96 kHz frames (3072 samples) with fft_size
+# 8192 and 192 kHz frames (6144) with fft_size 16384 on the packed route
+FS96, FS192 = 96000, 192000
+FFT8192 = FeatureConfig(mfcc=MfccConfig(fft_size=8192))
+FFT16384 = FeatureConfig(mfcc=MfccConfig(fft_size=16384))
+# the 96 kHz CLI slice: 26 mel filters over 0-48 kHz leave the synthetic
+# speakers' harmonic stacks too few filters (the JAX package and the CPU's
+# plain route take carol for bob as well); 40 separate them
+CLI96 = FeatureConfig(mfcc=MfccConfig(fft_size=8192, n_filters=40))
+# 250 mel filters + LPC-15 (266 outputs) at 48 kHz, fft_size 4096: the
+# fourth operator width (up to 512 outputs)
+WIDE266 = FeatureConfig(mfcc=MfccConfig(fft_size=4096, n_filters=250))
+# d = 102 in the monolith (87 cepstra of 128 filters + LPC-15): its
+# register route past a padded d of 32
+D102 = FeatureConfig(mfcc=MfccConfig(n_filters=128, n_ceps=87))
+# the high-rate batches: 64 x 5 s at 96 kHz and 16 x 5 s at 192 kHz on the
+# card (the same share of the bench batch where it is cut)
+BIG_B, HUGE_B = max(2, BENCH_B // 8), max(2, BENCH_B // 32)
+HIGH_SEC = BENCH_SEC  # their longest utterance
+# the grid phase: more utterances (and speakers) than a launch's 65535
+GRID_B = 70000
 # Fused predict vs its plain version, both f32 on the card: the frontend
 # differs as in phase 2 (~1e-5 on cepstra), the scores are means of
 # hundreds of frames' log-likelihoods; 1e-3 relative with identical argmax.
@@ -205,7 +238,8 @@ def feature_errors(got, want, mask, nc):
     return d_mfcc, d_lpc, lpc_bad
 
 
-def check_frontend(name, fe: PackedFrontend, sig, lengths) -> float:
+def check_frontend(name, fe: PackedFrontend, sig, lengths,
+                   phase=2) -> float:
     """The signal frontend kernel vs both plain versions on one batch, and
     two calls bitwise; returns the max abs error."""
     args = frontend_args(fe, sig, lengths)
@@ -229,7 +263,8 @@ def check_frontend(name, fe: PackedFrontend, sig, lengths) -> float:
             raise AssertionError(f"{name}: shape {got.shape} != {want.shape}")
         d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, mask,
                                                 fe.dct.shape[1])
-        print(f"phase 2 {name} vs {plain} plain: shape {tuple(got.shape)} "
+        print(f"phase {phase} {name} vs {plain} plain: shape "
+              f"{tuple(got.shape)} "
               f"valid frames {int(n_valid.sum())} mfcc max|d| {d_mfcc:.3e} "
               f"(tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
               f"{lpc_bad})", flush=True)
@@ -238,7 +273,8 @@ def check_frontend(name, fe: PackedFrontend, sig, lengths) -> float:
                                  f"the {plain} plain version")
         err = max(err, d_mfcc, d_lpc)
     bitwise = torch.equal(got, again)
-    print(f"phase 2 {name}: two calls bitwise equal: {bitwise}", flush=True)
+    print(f"phase {phase} {name}: two calls bitwise equal: {bitwise}",
+          flush=True)
     if not bitwise:
         raise AssertionError(f"{name}: the frontend kernel is not "
                              "deterministic")
@@ -299,7 +335,7 @@ def random_bank(rng, S, K, d, dev, uniform_weights=False):
                               dev)
 
 
-def check_scoring(name, bank, feats, mask) -> float:
+def check_scoring(name, bank, feats, mask, phase=3) -> float:
     got = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
     again = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
     want = gpu_gmm.batch_bank_avg_loglik_reference(bank, feats, mask)
@@ -310,7 +346,8 @@ def check_scoring(name, bank, feats, mask) -> float:
     rel = (d / want.abs().clamp_min(1e-30)).max().item()
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
     bitwise = torch.equal(got, again)
-    print(f"phase 3 {name}: [B, S] {tuple(got.shape)} d {feats.shape[-1]} K "
+    print(f"phase {phase} {name}: [B, S] {tuple(got.shape)} d "
+          f"{feats.shape[-1]} K "
           f"{bank.n_mixtures} max|d| {d.max().item():.3e} max rel {rel:.3e} "
           f"(tol {SCORE_RTOL}) argmax identical {same} two calls bitwise "
           f"equal {bitwise}", flush=True)
@@ -426,12 +463,12 @@ def kernel_name(key: str) -> str:
         "(")[0].split()[-1]
 
 
-def check_serial(name, bank, x, mask, floor=False):
+def check_serial(name, bank, x, mask, floor=False, phase=6, per_call=1):
     """Serial kernel vs plain on one utterance, averages and sums, with a
     bit-equal rerun and one kernel a call (by torch.profiler: no other
-    kernel, and at most one launch a call, since the profiler may drop an
-    event but never adds one); returns the max abs error of the
-    averages."""
+    kernel, and at most `per_call` launches a call, one per 65535 speakers,
+    since the profiler may drop an event but never adds one); returns the
+    max abs error of the averages."""
     before = gpu_gmm.SERIAL_LAUNCHES
     got = gpu_gmm.bank_avg_loglik(bank, x, mask)
     want = gpu_gmm.bank_avg_loglik_reference(bank, x, mask)
@@ -449,7 +486,8 @@ def check_serial(name, bank, x, mask, floor=False):
     # the floor makes every speaker tie; elsewhere the winner must agree
     ties = want.unique().numel() < want.numel()
     same = ties or int(got.argmax()) == int(want.argmax())
-    print(f"phase 6 {name}: S {bank.n_speakers} K {bank.n_mixtures} frames "
+    print(f"phase {phase} {name}: S {bank.n_speakers} K {bank.n_mixtures} "
+          f"frames "
           f"{int(mask.sum())}/{mask.numel()} max|d| {d.max().item():.3e} "
           f"max rel {rel:.3e} (sums {rel_sum:.3e}; tol {SERIAL_RTOL}) "
           f"argmax identical {same} rerun bit-equal "
@@ -460,7 +498,7 @@ def check_serial(name, bank, x, mask, floor=False):
             or rel_sum > SERIAL_RTOL or not same or launched != 3
             or not torch.equal(got, again)
             or set(kernels) != {"serial_kernel"}
-            or not 0 < kernels["serial_kernel"] <= 1):
+            or not 0 < kernels["serial_kernel"] <= per_call):
         raise AssertionError(f"{name}: serial kernel disagrees with plain")
     if floor and not torch.allclose(
             want, torch.full_like(want, np.log(1e-15)), rtol=1e-5):
@@ -674,13 +712,35 @@ def check_fused(name, got, want) -> float:
     return d.max().item()
 
 
-def check_fused_case(name, args) -> tuple[float, float]:
-    """Both wrappers (one kernel) vs the plain monolith on one batch; their
-    max abs errors."""
-    want = gpu_predict.fused_bank_predict_reference(*args)
-    return (check_fused(name, gpu_predict.fused_bank_predict(*args), want),
-            check_fused(name + " (wide)",
-                        gpu_predict.fused_bank_predict_wide(*args), want))
+def fused_plain(fe: PackedFrontend, args) -> torch.Tensor:
+    """The FFT route's plain monolith on fused_args' arguments: what the f32
+    kernel computes."""
+    sig, n_valid, bank, fshift, _, _, dct, floor, _, cmvn = args
+    return gpu_predict.fused_bank_predict_fft_reference(
+        sig, n_valid, bank, fshift, dct, floor, fe.fft, cmvn)
+
+
+def check_fused_case(name, fe: PackedFrontend, args) -> tuple[float, float]:
+    """Both f32 wrappers (one kernel, on the FFT tile) vs the FFT route's
+    plain monolith on one batch, each twice (bitwise equal) and counted;
+    their max abs errors."""
+    want = fused_plain(fe, args)
+    before = (gpu_predict.LAUNCHES, gpu_predict.WIDE_LAUNCHES)
+    k6, k6b, k7, k7b = (fn(*args, fft=fe.fft) for fn in (
+        gpu_predict.fused_bank_predict, gpu_predict.fused_bank_predict,
+        gpu_predict.fused_bank_predict_wide,
+        gpu_predict.fused_bank_predict_wide))
+    torch.cuda.synchronize()
+    launched = (gpu_predict.LAUNCHES - before[0],
+                gpu_predict.WIDE_LAUNCHES - before[1])
+    bitwise = torch.equal(k6, k6b) and torch.equal(k7, k7b)
+    print(f"phase 13 {name}: launches (K6, K7) {launched}, two calls bitwise "
+          f"equal: {bitwise}", flush=True)
+    if launched != (2, 2) or not bitwise:
+        raise AssertionError(f"{name}: fused predict launches {launched}, "
+                             f"bitwise {bitwise}")
+    return (check_fused(name, k6, want),
+            check_fused(name + " (wide)", k7, want))
 
 
 def time_interleaved(fns: dict, trials=7, reps=3) -> dict:
@@ -728,8 +788,13 @@ def main(argv=None):
     spills = re.findall(r"Compiling entry function '(\w+)'[^\n]*\n[^\n]*\n"
                         r"\s*(\d+ bytes stack frame, [1-9]\d* bytes spill "
                         r"stores, \d+ bytes spill loads)", log)
+    # each source's nvcc, all started together: the slowest sets the build
+    secs = [(os.path.basename(src), float(sec)) for src, sec in re.findall(
+        r"^== (\S+) \(([\d.]+) s\)$", log, re.M)]
+    slowest = max(secs, key=lambda x: x[1], default=("-", 0.0))
     print(f"phase 1 build: {_build.build_seconds:.1f} s "
-          f"({os.path.basename(_build.build_log)[:-4]}.so), {len(regs)} "
+          f"({os.path.basename(_build.build_log)[:-4]}.so), {len(secs)} "
+          f"sources (slowest {slowest[0]} {slowest[1]:.1f} s), {len(regs)} "
           f"kernels, {min(regs, default=0)}-{max(regs, default=0)} "
           f"registers, {len(spills)} with spills", flush=True)
     for name, spill in spills:
@@ -773,6 +838,27 @@ def main(argv=None):
         err_fe = max(err_fe, check_frontend(
             f"{fs_p / 1e3:g} kHz, fft_size 4096 (flen {fe_p.frame_len}, "
             f"n_fft {fe_p.n_fft})", fe_p, sig_p, len_p))
+    # 8192- and 16384-point FFTs (4- and 2-frame tiles): 96 kHz with
+    # fft_size 8192 and 192 kHz with fft_size 16384, ragged batches
+    L96, L192 = int(FS96 * HIGH_SEC), int(FS192 * HIGH_SEC)
+    s96, l96 = signals_batch(
+        rng, [L96 - int(rng.randint(0, L96 * 3 // 5))
+              for _ in range(BIG_B - 1)] + [L96], padded(L96), dev)
+    s192, l192 = signals_batch(
+        rng, [L192 - int(rng.randint(0, L192 * 3 // 5))
+              for _ in range(HUGE_B - 1)] + [L192], padded(L192), dev)
+    fe96 = PackedFrontend(FS96, FFT8192, dev)
+    fe192 = PackedFrontend(FS192, FFT16384, dev)
+    for fs_p, fe_p, sig_p, len_p in ((FS96, fe96, s96, l96),
+                                     (FS192, fe192, s192, l192)):
+        err_fe = max(err_fe, check_frontend(
+            f"{fs_p / 1e3:g} kHz, fft_size {fe_p.n_fft}, {sig_p.shape[0]} x "
+            f"{HIGH_SEC:g} s (flen {fe_p.frame_len}, n_fft {fe_p.n_fft})",
+            fe_p, sig_p, len_p))
+    # 250 mel filters + LPC-15: 266 outputs, the fourth operator width
+    err_fe = max(err_fe, check_frontend(
+        "48 kHz, fft_size 4096, 250 mel filters + LPC (266 outputs)",
+        PackedFrontend(FS48, WIDE266, dev), s48p, l48p))
     # 64 mel + 16 autocorrelation outputs take the kernel's other tiling;
     # 128 + 16 its widest (256 columns)
     for n_filters in (64, 128):
@@ -802,6 +888,10 @@ def main(argv=None):
         "raw autocorrelation, 48 kHz, fft_size 4096",
         PackedFrontend(FS48, FeatureConfig(mfcc=FFT4096.mfcc, lpc=LPCC),
                        dev), s48p, l48p))
+    fe96c = PackedFrontend(FS96, FeatureConfig(mfcc=FFT8192.mfcc, lpc=LPCC),
+                           dev)
+    err_raw = max(err_raw, check_frontend_raw(
+        "raw autocorrelation, 96 kHz, fft_size 8192", fe96c, s96, l96))
 
     # 3. bank-scoring kernel vs plain, on real features
     feats, mask = fe8(bench_sig, bench_len)
@@ -1102,6 +1192,19 @@ def main(argv=None):
         10, "48 kHz, 128 mel filters + LPC", FullFrontend(
             FS48, FeatureConfig(mfcc=MfccConfig(n_filters=128)), dev), s48p,
         l48p))
+    err_full = max(err_full, check_frames(
+        10, "48 kHz, fft_size 4096, 250 mel filters + LPC (266 outputs)",
+        FullFrontend(FS48, WIDE266, dev), s48p, l48p))
+    # 8192- and 16384-point FFTs; at 192 kHz fft_size 8192 is the default
+    # route (8192 < 2 * frame_len), a frame of 6144 samples
+    sfull, lfull = s96[:4].contiguous(), l96[:4]
+    s192f, l192f = s192[:2].contiguous(), l192[:2]
+    for fs_p, cfg_p, sig_p, len_p in ((FS96, FFT8192, sfull, lfull),
+                                      (FS192, FFT16384, s192f, l192f),
+                                      (FS192, FFT8192, s192f, l192f)):
+        err_full = max(err_full, check_frames(
+            10, f"{fs_p / 1e3:g} kHz, fft_size {cfg_p.mfcc.fft_size}",
+            FullFrontend(fs_p, cfg_p, dev), sig_p, len_p))
     os.environ["SRTPU_FRONTEND"] = "full"
     fe_env = extract.frontend(BENCH_FS, fcfg, dev)
     del os.environ["SRTPU_FRONTEND"]
@@ -1129,6 +1232,16 @@ def main(argv=None):
     err_frames = max(err_frames, check_frames(
         11, "16 kHz, n_lpcc 16", PackedFrontend(16000, lpcc_cfg, dev), s16,
         l16))
+    err_frames = max(err_frames, check_frames(
+        11, "96 kHz, fft_size 8192, n_lpcc 16", fe96c, sfull, lfull))
+    err_frames = max(err_frames, check_frames(
+        11, "192 kHz, fft_size 16384, n_lpcc 16", PackedFrontend(
+            FS192, FeatureConfig(mfcc=FFT16384.mfcc, lpc=LPCC), dev), s192f,
+        l192f))
+    err_frames = max(err_frames, check_frames(
+        11, "48 kHz, fft_size 4096, 250 mel filters, n_lpcc 16",
+        PackedFrontend(FS48, FeatureConfig(mfcc=WIDE266.mfcc, lpc=LPCC), dev),
+        s48p, l48p))
     if gpu_frontend.FULL_DENSE_LAUNCHES != dense_before:
         raise AssertionError("the frame-level packed frontend ran a dense "
                              "product")
@@ -1241,6 +1354,42 @@ def main(argv=None):
             or min(launches4096["frontend"], launches4096["gmm"]) < 1):
         raise AssertionError(f"48 kHz fft_size 4096 cli labels {labels4096}, "
                              f"launches {launches4096}")
+
+    # 96 kHz with fft_size 8192 (40 mel filters): K1 on an 8192-point FFT,
+    # enroll then predict through the CLI, on the fixture's utterances at
+    # 96 kHz
+    utts96 = [synth.synth_utterance(u["label"], u["seconds"], u["seed"], FS96)
+              for u in exp48["utterances"]]
+    gpu_frontend.LAUNCHES = gpu_frontend.FULL_LAUNCHES = 0
+    gpu_gmm.LAUNCHES = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = synth.write_training_wavs(tmp, FS96)
+        test_dir = os.path.join(tmp, "test")
+        os.makedirs(test_dir)
+        for i, (label, sig) in enumerate(zip(truth48, utts96)):
+            wavfile.write(os.path.join(test_dir, f"{i:02d}_{label}.wav"),
+                          FS96, sig)
+        model = os.path.join(tmp, "enrolled96_fft8192.out")
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.task_enroll(" ".join(dirs), model, dev.type,
+                            PipelineConfig(features=CLI96))
+        predict_out = io.StringIO()
+        with contextlib.redirect_stdout(predict_out):
+            cli.main(["-t", "predict", "-i", os.path.join(test_dir, "*.wav"),
+                      "-m", model, "--device", "cuda"])
+        served96 = ModelInterface.load(model, device=dev).config.features
+    labels96 = [ln.rpartition(" -> ")[2]
+                for ln in predict_out.getvalue().strip().splitlines()]
+    launches96 = {"frontend": gpu_frontend.LAUNCHES,
+                  "full": gpu_frontend.FULL_LAUNCHES, "gmm": gpu_gmm.LAUNCHES}
+    print(f"phase 12 cli enroll + predict @ 96 kHz, fft_size 8192, 40 mel "
+          f"filters: "
+          f"{labels96}; launches {launches96}", flush=True)
+    if (labels96 != truth48 or served96 != CLI96
+            or launches96["full"] != 0
+            or min(launches96["frontend"], launches96["gmm"]) < 1):
+        raise AssertionError(f"96 kHz fft_size 8192 cli labels {labels96}, "
+                             f"launches {launches96}")
 
     # the LPC-cepstra slice at 8 kHz: enroll, train, predict, dump, the CLI
     # on the dumped session, and the open set, all on K1's
@@ -1375,33 +1524,92 @@ def main(argv=None):
 
     del sig48, len48
     torch.cuda.empty_cache()
+    # K1, K4 and K5 at 96 kHz on 8192-point FFTs, beside their plain
+    # versions: the packed route of fft_size 8192 (K1; K4 on its frames
+    # with LPC cepstra) and the full route at fft_size 8192
+    a96 = frontend_args(fe96, s96, l96)
+    fa96 = frames_args(fe96c, s96)[0]
+    fe96f = FullFrontend(FS96, FFT8192, dev)
+    ff96 = frames_args(fe96f, s96)[0]
+    t.update({f"{k}96": v for k, v in time_interleaved({
+        "frontend": lambda: gpu_frontend.packed_from_signals(*a96,
+                                                             fft=fe96.fft),
+        "frontend_plain": lambda: gpu_frontend.packed_from_signals_reference(
+            *a96),
+        "frames": lambda: gpu_frontend.packed_from_frames(*fa96,
+                                                          fft=fe96c.fft),
+        "frames_plain": lambda: gpu_frontend.packed_from_frames_reference(
+            *fa96),
+        "full": lambda: gpu_frontend.mfcc_from_frames(*ff96, fe96f.n_fft),
+        "full_plain": lambda: gpu_frontend.mfcc_from_frames_reference(*ff96),
+    }).items()})
+    B96, Lp96 = s96.shape
+    T96 = n_frames(Lp96, fe96.frame_len, fe96.frame_shift)
+    v96 = int(a96[1].sum())
+    bounds96 = {
+        "frontend": bound(
+            frontend_flops(v96, fe96.n_fft, (fe96.fft_mel, fe96.fft_acorr),
+                           fe96.dct.shape[1], order=fe96.A.shape[1] - 1,
+                           window=3 * fe96.frame_len),
+            4 * B96 * Lp96 + 4 * B96 * T96 * fcfg.dim),
+        "frames": bound(
+            frontend_flops(B96 * T96, fe96c.n_fft,
+                           (fe96c.fft_mel, fe96c.fft_acorr),
+                           fe96c.dct.shape[1], window=3 * fe96c.frame_len),
+            4 * B96 * T96 * (fe96c.frame_len + fe96c.dct.shape[1]
+                             + fe96c.A.shape[1])),
+        "full": bound(
+            frontend_flops(B96 * T96, fe96f.n_fft, (fe96f.mel, fe96f.acorr),
+                           fe96f.dct.shape[1]),
+            4 * B96 * T96 * (fe96f.frame_len + fe96f.dct.shape[1]
+                             + fe96f.acorr.shape[1])),
+    }
+    for k, name in (("frontend", "signal frontend kernel (K1)"),
+                    ("frames", "frame-level packed kernel (K4), n_lpcc 16"),
+                    ("full", "full-spectrum kernel (K5)")):
+        print(f"phase 12 [{card}] {name} @ 96 kHz, fft_size 8192, {B96} x "
+              f"{HIGH_SEC:g} s: {t[k + '96']:.3f} ms, plain "
+              f"{t[k + '_plain96']:.3f} ms, bound "
+              f"{bounds96[k]['bound_ms']:.4f} ms ({bounds96[k]['bound_by']})",
+              flush=True)
+    del a96, fa96, ff96
+    torch.cuda.empty_cache()
 
-    # 13. the fused predict monolith (K6 and K7) on the card
+    # 13. the fused predict monolith (K6 and K7) on the card: f32 on the
+    # FFT tile (fft=), bf16 on the dense tile
     args13 = fused_args(fe8, bench_sig, bench_len, bench_bank)
     gpu_predict.LAUNCHES = gpu_predict.WIDE_LAUNCHES = 0
-    k6 = gpu_predict.fused_bank_predict(*args13)
+    gpu_predict.BF16_LAUNCHES = 0
+    k6 = gpu_predict.fused_bank_predict(*args13, fft=fe8.fft)
     k6_bf16 = gpu_predict.fused_bank_predict(*args13, mm_bf16=True)
-    k7 = gpu_predict.fused_bank_predict_wide(*args13)
+    k7 = gpu_predict.fused_bank_predict_wide(*args13, fft=fe8.fft)
     torch.cuda.synchronize()
     launches4 = {"fused": gpu_predict.LAUNCHES,
-                 "wide": gpu_predict.WIDE_LAUNCHES}
+                 "wide": gpu_predict.WIDE_LAUNCHES,
+                 "bf16": gpu_predict.BF16_LAUNCHES}
     print(f"phase 13 launches: {launches4}", flush=True)
-    if launches4["fused"] < 1 or launches4["wide"] < 1:
+    if min(launches4.values()) < 1:
         raise AssertionError(f"the monolith was not launched: {launches4}")
-    plain13 = gpu_predict.fused_bank_predict_reference(*args13)
-    err_k6 = check_fused("K6 bench 512 x 5 s @ 8 kHz", k6, plain13)
+    plain13 = fused_plain(fe8, args13)
+    err_k6 = check_fused("K6 bench 512 x 5 s @ 8 kHz (FFT tile)", k6, plain13)
     err_k6 = max(err_k6, check_fused(
-        "K6 bf16 DFT operands", k6_bf16,
-        gpu_predict.fused_bank_predict_reference(*args13, mm_bf16=True)))
-    err_k7 = check_fused("K7 bench 512 x 5 s @ 8 kHz", k7, plain13)
+        "K6 bench vs the dense plain version", k6,
+        gpu_predict.fused_bank_predict_reference(*args13)))
+    err_bf16 = check_fused(
+        "K6 bf16 DFT operands (dense tile)", k6_bf16,
+        gpu_predict.fused_bank_predict_reference(*args13, mm_bf16=True))
+    err_k7 = check_fused("K7 bench 512 x 5 s @ 8 kHz (FFT tile)", k7, plain13)
     two = fastpath.predict_scores(bench_sig, bench_len, bench_bank, BENCH_FS,
                                   fcfg)
     err_k6 = max(err_k6, check_fused("K6 vs predict_scores (K1 + K2)", k6,
                                      two))
-    again = gpu_predict.fused_bank_predict(*args13)
+    again = gpu_predict.fused_bank_predict(*args13, fft=fe8.fft)
     torch.cuda.synchronize()
-    bitwise = torch.equal(k6, again) and torch.equal(
-        k7, gpu_predict.fused_bank_predict_wide(*args13))
+    bitwise = (torch.equal(k6, again)
+               and torch.equal(k7, gpu_predict.fused_bank_predict_wide(
+                   *args13, fft=fe8.fft))
+               and torch.equal(k6_bf16, gpu_predict.fused_bank_predict(
+                   *args13, mm_bf16=True)))
     print(f"phase 13 two calls bitwise equal: {bitwise}", flush=True)
     if not bitwise:
         raise AssertionError("the monolith is not deterministic")
@@ -1409,57 +1617,104 @@ def main(argv=None):
     clip_sig, clip_len = signals_batch(rng, [150 * BENCH_FS, BENCH_FS],
                                        padded(150 * BENCH_FS), dev)
     fe8m = PackedFrontend(BENCH_FS, FeatureConfig(use_lpc=False), dev)
+    fe48p = PackedFrontend(FS48, FFT4096, dev)
+    fe102 = PackedFrontend(BENCH_FS, D102, dev)
+    f64_sig = bench_sig[:64].contiguous()
     args0 = fused_args(fe8, bench_sig[:4], bench_len[:4], bench_bank)
     args0 = (args0[0], args0[1] * torch.tensor([0, 1, 1, 1], device=dev,
                                                dtype=torch.int32)) + args0[2:]
-    for name, args in (
-            ("80 x 256 bank, 8 utterances",
-             fused_args(fe8, bench_sig[:8], bench_len[:8], ubm_bank)),
-            ("150 s clip + 1 s clip",
+    for name, fe, args in (
+            (f"48 kHz, fft_size 4096 (flen {fe48p.frame_len})", fe48p,
+             fused_args(fe48p, s48p, l48p, bench_bank)),
+            (f"96 kHz, fft_size 8192 (flen {fe96.frame_len})", fe96,
+             fused_args(fe96, s96[:8].contiguous(), l96[:8], bench_bank)),
+            ("bank 4 x 1024, 64 utterances", fe8,
+             fused_args(fe8, f64_sig, bench_len[:64], k1024_bank)),
+            (f"d = {D102.dim}", fe102,
+             fused_args(fe102, bench_sig[:32].contiguous(), bench_len[:32],
+                        random_bank(rng, 4, 32, D102.dim, dev))),
+            ("80 x 256 bank, 8 utterances", fe8,
+             fused_args(fe8, bench_sig[:8].contiguous(), bench_len[:8],
+                        ubm_bank)),
+            ("150 s clip + 1 s clip", fe8,
              fused_args(fe8, clip_sig, clip_len, bench_bank)),
-            ("MFCC only",
-             fused_args(fe8m, bench_sig[:64], bench_len[:64],
+            ("MFCC only", fe8m,
+             fused_args(fe8m, f64_sig, bench_len[:64],
                         random_bank(rng, 4, 32, fe8m.dct.shape[1], dev))),
-            (f"16 kHz (flen {fe16.frame_len}; a 0.01 s utterance)",
+            (f"16 kHz (flen {fe16.frame_len}; a 0.01 s utterance)", fe16,
              fused_args(fe16, s16, l16, bench_bank)),
-            ("LPC order 40, 40 cepstra",
-             fused_args(fe40, bench_sig[:16], bench_len[:16],
+            ("LPC order 40, 40 cepstra", fe40,
+             fused_args(fe40, bench_sig[:16].contiguous(), bench_len[:16],
                         random_bank(rng, 4, 32, ORDER40.dim, dev))),
-            ("n_valid = 0", args0)):
-        e6, e7 = check_fused_case(name, args)
+            ("n_valid = 0", fe8, args0)):
+        e6, e7 = check_fused_case(name, fe, args)
         err_k6, err_k7 = max(err_k6, e6), max(err_k7, e7)
-    del clip_sig, clip_len
-    if (gpu_predict.fused_bank_predict(*args0)[0] != 0).any():
+    del clip_sig, clip_len, f64_sig
+    if (gpu_predict.fused_bank_predict(*args0, fft=fe8.fft)[0] != 0).any():
         raise AssertionError("an utterance with no valid frame must score 0")
 
     t13 = time_interleaved({
-        "fused": lambda: gpu_predict.fused_bank_predict(*args13),
+        "fused": lambda: gpu_predict.fused_bank_predict(*args13, fft=fe8.fft),
         "fused_bf16": lambda: gpu_predict.fused_bank_predict(*args13,
                                                              mm_bf16=True),
-        "wide": lambda: gpu_predict.fused_bank_predict_wide(*args13),
-        "fused_plain": lambda: gpu_predict.fused_bank_predict_reference(
+        "wide": lambda: gpu_predict.fused_bank_predict_wide(*args13,
+                                                            fft=fe8.fft),
+        "fused_plain": lambda: fused_plain(fe8, args13),
+        "fused_plain_dense": lambda: gpu_predict.fused_bank_predict_reference(
             *args13),
+        "fused_plain_bf16": lambda: gpu_predict.fused_bank_predict_reference(
+            *args13, mm_bf16=True),
         "predict": lambda: fastpath.predict_scores(
             bench_sig, bench_len, bench_bank, BENCH_FS, fcfg)})
     t.update(t13)
     # where the monolith's time goes, from what the API can switch off:
     # without CMVN (phase 2), then also with a one-component bank (phase
-    # 3's work ~0), beside the frontend kernel alone (phase 1's code)
+    # 3's work ~0), beside the frontend kernel alone (phase 1's code) and
+    # the bank-scoring kernel on the same features
     no_cmvn = args13[:9] + (False,)
     tiny = random_bank(rng, 1, 1, d, dev)
     fe_args8 = frontend_args(fe8, bench_sig, bench_len)
     fe_nocmvn = fe_args8[:-1] + (False,)
     t_parts = time_interleaved({
-        "fused": lambda: gpu_predict.fused_bank_predict(*args13),
-        "fused, no CMVN": lambda: gpu_predict.fused_bank_predict(*no_cmvn),
+        "fused": lambda: gpu_predict.fused_bank_predict(*args13, fft=fe8.fft),
+        "fused, no CMVN": lambda: gpu_predict.fused_bank_predict(
+            *no_cmvn, fft=fe8.fft),
         "fused, no CMVN, 1 x 1 bank": lambda: gpu_predict.fused_bank_predict(
-            *no_cmvn[:2], tiny, *no_cmvn[3:]),
+            *no_cmvn[:2], tiny, *no_cmvn[3:], fft=fe8.fft),
         "frontend kernel, no CMVN": lambda: gpu_frontend.packed_from_signals(
             *fe_nocmvn, fft=fe8.fft),
         "frontend kernel + CMVN kernel": lambda:
-            gpu_frontend.packed_from_signals(*fe_args8, fft=fe8.fft)})
+            gpu_frontend.packed_from_signals(*fe_args8, fft=fe8.fft),
+        "bank-scoring kernel": lambda: gpu_gmm.batch_bank_avg_loglik(
+            bench_bank, feats, mask)})
     print(f"phase 13 [{card}] breakdown, 512 x 5 s @ 8 kHz: " + ", ".join(
         f"{k} {v:.3f} ms" for k, v in t_parts.items()), flush=True)
+    print(f"phase 13 [{card}] K6 on the FFT tile " + device_times(
+        lambda: gpu_predict.fused_bank_predict(*args13, fft=fe8.fft)),
+        flush=True)
+
+    # 14. the grid: more utterances, and speakers, than a launch takes
+    gsig, glen = signals_batch(rng, [int(0.1 * BENCH_FS)] * GRID_B,
+                               LENGTH_BUCKET, dev)
+    gpu_frontend.LAUNCHES = gpu_gmm.LAUNCHES = gpu_gmm.SERIAL_LAUNCHES = 0
+    err_fe = max(err_fe, check_frontend(
+        f"{GRID_B} utterances x 0.1 s @ 8 kHz", fe8, gsig, glen, phase=14))
+    gfeats, gmask = fe8(gsig, glen)
+    del gsig, glen
+    err_gmm = max(err_gmm, check_scoring(
+        f"bench bank 4 x 32, B={GRID_B}", bench_bank, gfeats, gmask,
+        phase=14))
+    del gfeats, gmask
+    torch.cuda.empty_cache()
+    err_serial = max(err_serial, check_serial(
+        f"{GRID_B} speakers x 4 components, 5 s",
+        random_bank(rng, GRID_B, 4, d, dev), x5, m5, phase=14,
+        per_call=-(-GRID_B // 65535)))
+    launches14 = {"frontend": gpu_frontend.LAUNCHES, "gmm": gpu_gmm.LAUNCHES,
+                  "serial": gpu_gmm.SERIAL_LAUNCHES}
+    print(f"phase 14 launches: {launches14}", flush=True)
+    if min(launches14.values()) < 1:
+        raise AssertionError(f"the grid phase missed a kernel: {launches14}")
 
     # the kernels' bounds, from this run's shapes
     B8, Lp8 = bench_sig.shape
@@ -1505,7 +1760,8 @@ def main(argv=None):
                        4 * B8 * Lp8 + 4 * B8 + op_bytes + bank_bytes
                        + 4 * B8 * bench_bank.n_speakers),
     }
-    for k in ("fused", "fused_bf16", "wide", "fused_plain", "predict"):
+    for k in ("fused", "fused_bf16", "wide", "fused_plain",
+              "fused_plain_dense", "fused_plain_bf16", "predict"):
         share = bounds["fused"]["bound_ms"] / t[k]
         print(f"phase 13 [{card}] {k}: {t[k]:.3f} ms, FP32 roofline share "
               f"{share:.1%} (bound {bounds['fused']['bound_ms']:.3f} ms, "
@@ -1540,12 +1796,15 @@ def main(argv=None):
         entry("mfcc_from_frames", "frontend_fft.cu",
               "pallas_frontend.py:50", launches3["full"], err_full,
               t["full"], t["full_plain"], "mfcc_from_frames"),
-        entry("fused_bank_predict", "predict_fused.cu",
+        entry("fused_bank_predict", "predict_fused.cuh",
               "pallas_predict.py:91", launches4["fused"], err_k6,
               t["fused"], t["fused_plain"], "fused"),
-        entry("fused_bank_predict_wide", "predict_fused.cu",
+        entry("fused_bank_predict_wide", "predict_fused.cuh",
               "pallas_predict.py:215", launches4["wide"], err_k7, t["wide"],
               t["fused_plain"], "fused"),
+        entry("fused_bank_predict_bf16", "predict_fused.cuh",
+              "pallas_predict.py:91", launches4["bf16"], err_bf16,
+              t["fused_bf16"], t["fused_plain_bf16"], "fused"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

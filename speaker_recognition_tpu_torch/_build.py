@@ -84,12 +84,14 @@ def _bind(lib):
     lib.srt_bank_sum_loglik.restype = i
     lib.srt_component_row.argtypes = [i]
     lib.srt_component_row.restype = i
-    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                      i, i, i, i, i, i, i, i, ctypes.c_float,
+    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
+                                      i, i, i, i, i, i, i, i, i, i, f, i, f,
                                       i, i, p]
     lib.srt_fused_predict.restype = i
-    lib.srt_fused_smem_bytes.argtypes = [i, i, i, i, i, i, i]
-    lib.srt_fused_smem_bytes.restype = i
+    lib.srt_fused_component_row.argtypes = [i]
+    lib.srt_fused_component_row.restype = i
+    lib.srt_fused_bf16_fits.argtypes = [i, i, i, i]
+    lib.srt_fused_bf16_fits.restype = i
     lib.srt_fused_scratch_floats.argtypes = [i, i, i, i]
     lib.srt_fused_scratch_floats.restype = ctypes.c_longlong
     lib.srt_error_string.argtypes = [i]
@@ -131,12 +133,25 @@ def _compile_and_link(srcs: list[str], tmp: str, out: str) -> str:
     nvcc's combined output (ptxas -v lines included) or raises."""
     nvcc = _nvcc()
     objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for s, o in zip(srcs, objs)]
-    outs = [p.communicate()[0] for p in procs]  # waits for every process
-    log = "".join(f"== {s}\n{o}" for s, o in zip(srcs, outs))
+    outs, secs = [""] * len(procs), [0.0] * len(procs)
+
+    def drain(i):  # each pipe read as it fills, each source timed alone
+        outs[i] = procs[i].communicate()[0]
+        secs[i] = time.perf_counter() - t0
+
+    readers = [threading.Thread(target=drain, args=(i,))
+               for i in range(len(procs))]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    log = "".join(f"== {s} ({t:.1f} s)\n{o}"
+                  for s, o, t in zip(srcs, outs, secs))
     failed = [(s, p.returncode, o) for s, p, o in zip(srcs, procs, outs)
               if p.returncode != 0]
     if failed:

@@ -18,12 +18,14 @@
 // a 2*flen-point DFT as one dense product frames . D (262 kFLOP a frame at
 // 8 kHz, D 512 KB); here an N-point real FFT (N the least power of two
 // >= 2*flen: 512 at 8 kHz, 2048 at 22.05 kHz, 4096 at 44.1 and 48 kHz
-// with fft_size 4096) of the windowed,
+// with fft_size 4096, 8192 at 96 kHz and 16384 at 192 kHz with fft_size
+// >= 2*flen) of the windowed,
 // pre-emphasized frame gives the power of bins 0..N/2, and the bin-domain
 // operators M = H . mel (H: the exact map from the N-point to the
 // fft_size-point power spectrum, ops/frontend.halfspec_to_fullspec) and
-// the biased autocorrelation R fold it into the sums. Per tile of 32 (16
-// at N = 4096) frames of one utterance:
+// the biased autocorrelation R fold it into the sums. Per tile of
+// rfft::ft(N) frames (32, or 16, 4, 2 at N = 4096, 8192, 16384) of one
+// utterance:
 //   * sample p of frame f is the strided window signal[f*fshift + p] (no
 //     frame matrix, no roll), windowed and pre-emphasized in f32 as it is
 //     gathered, in either order of ops/frontend.windowed_preemph_operator:
@@ -33,8 +35,10 @@
 //   * log/DCT and the order-p Levinson run per frame at the end of the
 //     block, one thread per frame with the recursion in local memory, of
 //     any order the tile's outputs admit (tile_features of
-//     csrc/packed_tile.cuh, which the fused predict monolith keeps with its
-//     dense tile); CMVN takes any number of cepstra, 32 at a time.
+//     csrc/packed_tile.cuh, which the fused predict monolith shares); CMVN
+//     takes any number of cepstra, 32 at a time.
+// The batch has no limit: the wrapper's launch walks it in runs of 65535
+// utterances (the grid's y dimension).
 // Built without --use_fast_math: isfinite() must survive and logf must be
 // the accurate one (an all-zero frame gives r = 0 -> 0/0 -> LPC 0).
 
@@ -44,31 +48,6 @@
 #include "rfft_tile.cuh"
 
 namespace {
-
-// Sample p < N of the tile's frame f: the windowed, pre-emphasized frame,
-// zero past flen and past the padded signal. Straight-line code: selects,
-// no branches, so a lane's loads for a whole frame fly together.
-struct SignalFrames {
-  const float* sig;   // the tile's first sample
-  const float* win;   // [flen]
-  int avail;          // samples from sig to the end of the padded signal
-  int fshift, flen;
-  float a;
-  bool preemph_first;
-  __device__ __forceinline__ float operator()(int f, int p) const {
-    const int i = f * fshift + p;
-    const bool in = p < flen, prev = in && p > 0;
-    const float x = in && i < avail ? sig[i] : 0.f;
-    const float xm = prev && i - 1 < avail ? sig[i - 1] : 0.f;
-    const float w = in ? win[p] : 0.f;
-    const float wm = prev ? win[p - 1] : 0.f;
-    const float first = w * (p > 0 ? x - a * xm : (1.f - a) * x);
-    const float later = w * x - a * (wm * xm);
-    return preemph_first ? first : later;
-  }
-  template <int RP, class First>
-  __device__ __forceinline__ void fold(int, float2 (&)[RP], First) const {}
-};
 
 // columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
 // without fuse_lpc, the nac raw autocorrelation lags
@@ -99,9 +78,9 @@ __global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
     for (int i = threadIdx.x; i < nf * nfeat; i += NTH) out[i] = 0.f;
     return;
   }
-  const SignalFrames load{signals + (size_t)b * Lp + (size_t)f0 * fshift,
-                          win, Lp - f0 * fshift, fshift, flen, pre_emph,
-                          preemph_first != 0};
+  const rfft::SignalFrames load{
+      signals + (size_t)b * Lp + (size_t)f0 * fshift, win, Lp - f0 * fshift,
+      fshift, flen, pre_emph, preemph_first != 0};
   const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, op,
                                                      nmel, power_floor);
   tile_features<OPL, NTH>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps,
@@ -122,6 +101,11 @@ __global__ void __launch_bounds__(32 * CG) cmvn_kernel(
                      threadIdx.x, threadIdx.y, red, stat);
 }
 
+// utterances a launch takes: the grid's y dimension
+constexpr int MAX_GRID_Y = 65535;
+
+// One launch per MAX_GRID_Y utterances (each utterance's tiles are the same
+// blocks in any of them, so the bits do not depend on the split).
 template <int N, int OPL>
 cudaError_t launch(int B, cudaStream_t st, const float* sig,
                    const int* nv, const float* win, const float4* op,
@@ -134,11 +118,17 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig,
       packed_frontend_kernel<N, OPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + rfft::ft(N) - 1) / rfft::ft(N), B);
-  packed_frontend_kernel<N, OPL><<<grid, rfft::nth(N), smem, st>>>(
-      sig, nv, win, op, dct, feat, Lp, T, flen, fshift, nmel, nac, nceps,
-      pre_emph, preemph_first, power_floor, fuse_lpc);
-  return cudaGetLastError();
+  const size_t nfeat = feature_width(nceps, nac, fuse_lpc);
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    const dim3 grid((T + rfft::ft(N) - 1) / rfft::ft(N),
+                    min(MAX_GRID_Y, B - b0));
+    packed_frontend_kernel<N, OPL><<<grid, rfft::nth(N), smem, st>>>(
+        sig + (size_t)b0 * Lp, nv + b0, win, op, dct,
+        feat + (size_t)b0 * T * nfeat, Lp, T, flen, fshift, nmel, nac, nceps,
+        pre_emph, preemph_first, power_floor, fuse_lpc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -148,7 +138,7 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig,
 // bin-domain mel and autocorrelation operators), dct [nmel, nceps]; writes
 // feat [B, T, nceps + nac - 1] (nceps without LPC), or with fuse_lpc 0
 // feat [B, T, nceps + nac] (cepstra | raw autocorrelation), then CMVN of
-// the cepstra when cmvn.
+// the cepstra when cmvn. Any B.
 extern "C" int srt_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
     const void* op, const void* dct, void* feat, int B, int Lp, int T,

@@ -7,9 +7,10 @@
 //     ceps  = log(max(power . mel, floor)) . dct,   r = power . acorr
 // for windowed, pre-emphasized frames wp [n, flen] zero-padded to N;
 // frames longer than N fold sample t onto t mod N, which is what the TPU
-// kernel's C and S compute there (their columns alias). N = 64 .. 4096
-// (fft_size 4096 at 44.1/48 kHz), up to 256 mel + autocorrelation
-// outputs. Writes pre-CMVN cepstra [n, nceps] and the RAW autocorrelation
+// kernel's C and S compute there (their columns alias). N = 64 .. 16384
+// (fft_size 4096 at 44.1/48 kHz, 8192 and 16384 as at 96 and 192 kHz), up
+// to 512 mel + autocorrelation outputs where a block's shared memory holds
+// the tile (rfft::pick_opl). Writes pre-CMVN cepstra [n, nceps] and the RAW autocorrelation
 // [n, nac] (nac = 0 for an MFCC-only config), as csrc/frontend_frames.cu's
 // dense template does; that template keeps every fft_size that is not a
 // power of two.
@@ -17,7 +18,7 @@
 // What bounds it on this card, and what the design does about it: see
 // csrc/rfft_tile.cuh. The TPU kernel's dense product moved 12.6 MB of C
 // and S through every block (34.6 GB a batch at 48 kHz); here each block
-// reads its 32 (16 at N = 4096) frames once (6 KB each at 48 kHz) and the
+// reads its rfft::ft(N) frames once (6 KB each at 48 kHz) and the
 // mel and autocorrelation rows once, and computes its twiddles.
 // Built without --use_fast_math, for the accurate logf.
 
@@ -87,7 +88,7 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
 // The packed operator an FFT tile takes at an nfft-point FFT with nout =
 // nmel + nac outputs: rows x cols floats, row k = [mel row k | acorr row k
 // | 0] for k <= nfft/2, zero rows after. Returns -1 when no tile serves
-// them (nfft not a power of two in [64, 4096], or nout > 256).
+// them (nfft not a power of two in [64, 16384], or nout > 512).
 extern "C" int srt_fft_operator_shape(int nfft, int nout, int* rows,
                                       int* cols) {
   const int opl = rfft::pick_opl(nfft, nout);

@@ -1,11 +1,13 @@
 // Per-frame floored log-likelihoods under a speaker bank's GMMs, shared by
 // csrc/gmm_score.cu (batched bank scoring), csrc/gmm_serial.cu (one
-// utterance) and csrc/predict_fused.cu (the fused predict monolith).
+// utterance) and csrc/predict_fused.cuh (the fused predict monolith's
+// scoring phase).
 //
-// The two scoring kernels read the bank component by component from
+// The scoring kernels read the bank component by component from
 // GmmBank.component_operator: rows [S*K][P], P = 2*DP + 4 floats with DP the
-// feature dimension d rounded up to 4: the quadratic terms a (zero-padded
-// to DP), the linear terms b (likewise), cw and three zeros, so that
+// feature dimension d rounded up to 4 (in the monolith up to 32 or 128,
+// csrc/predict_fused.cuh): the quadratic terms a (zero-padded to DP), the
+// linear terms b (likewise), cw and three zeros, so that
 //     logp[k] = sum_j x_j (a_kj x_j + b_kj) + cw_k
 // is two FMAs a term and every row starts on a 16-byte boundary. A lane
 // owns FPL frames and every lane of a block walks the same row at the same
@@ -24,8 +26,6 @@
 //                       exponential per component, no branch) and is
 //                       carried across chunks, so shared memory does not
 //                       grow with K.
-// The monolith keeps floored_lse, its frame and frame-major parameters in
-// shared memory.
 
 #pragma once
 
@@ -67,35 +67,6 @@ inline int plan_chunks(int rows, int P, int one_buffer, int* smem) {
   const int ch = CHUNK_BYTES / (P * (int)sizeof(float));  // P <= 260: >= 31
   *smem = 2 * ch * P * (int)sizeof(float);
   return ch;
-}
-
-// x [d] against the components prm [K][2d+1] (d quadratic terms, d linear
-// terms, then cw, as models/gmm.bank_operators folds them):
-//     logp[k] = sum_j prm[k][j] x_j^2 + prm[k][d+j] x_j + prm[k][2d]
-// returns logsumexp_k logp[k], computed online (one exponential per
-// component), floored: > -745 ? lse : log(1e-15).
-__device__ __forceinline__ float floored_lse(const float* x, const float* prm,
-                                             int d, int K) {
-  const int P = 2 * d + 1;
-  float m = -INFINITY, sum = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const float* p = prm + k * P;
-    float l = 0.f;
-    for (int j = 0; j < d; ++j) {
-      const float v = x[j];
-      l = fmaf(p[j], v * v, l);
-      l = fmaf(p[d + j], v, l);
-    }
-    l += p[2 * d];
-    if (l > m) {
-      sum = sum * expf(m - l) + 1.f;
-      m = l;
-    } else {
-      sum += expf(l - m);
-    }
-  }
-  const float lse = m + logf(sum);
-  return lse > UNDERFLOW_LOG ? lse : LOG_MIN_PROB;
 }
 
 // 2^x for x <= 0 by the special-function unit alone (ex2.approx: relative

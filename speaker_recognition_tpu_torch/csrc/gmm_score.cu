@@ -43,7 +43,8 @@
 // each speaker's last row the warp adds its frames' floored logsumexps in a
 // fixed shuffle tree into partial [B][warp tile][S]; a second kernel adds
 // the tiles in order and divides by the valid-frame count. No atomics: two
-// calls give the same bits.
+// calls give the same bits. A batch past the grid's 65535 utterances goes
+// in several launches of the scoring kernel, one mean kernel after them.
 
 #include <cuda_runtime.h>
 
@@ -195,16 +196,28 @@ cudaError_t prepare(int dev) {
   return err[dev];
 }
 
+// utterances a launch takes: the grid's y dimension
+constexpr int MAX_GRID_Y = 65535;
+
+// One launch per MAX_GRID_Y utterances of the B in the call; the plan is
+// the whole call's, and a block's work depends on its utterance, tile and
+// speaker group alone, so the bits do not depend on the split.
 template <class Frames>
-cudaError_t launch(const Plan& p, dim3 grid, int smem, cudaStream_t st,
+cudaError_t launch(const Plan& p, int B, int smem, cudaStream_t st,
                    const float* feats, const unsigned char* mask,
                    const float* comp, float* partial, float* count, int T,
                    int d, int S, int K, int ch, int dev) {
   cudaError_t err = prepare<Frames>(dev);
   if (err != cudaSuccess) return err;
-  bank_score_kernel<Frames><<<grid, 32 * p.warps, smem, st>>>(
-      feats, mask, comp, partial, count, T, d, S, K, p.sg, ch, p.NW);
-  return cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
+    const dim3 grid(p.tiles, std::min(MAX_GRID_Y, B - b0), p.groups);
+    bank_score_kernel<Frames><<<grid, 32 * p.warps, smem, st>>>(
+        feats + (size_t)b0 * T * d, mask + (size_t)b0 * T, comp,
+        partial + (size_t)b0 * p.NW * S, count + (size_t)b0 * p.NW, T, d, S,
+        K, p.sg, ch, p.NW);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The launches of one call on the current device: the scoring kernel on
@@ -220,10 +233,9 @@ cudaError_t launch_all(const void* feats, const void* mask, const void* comp,
   const float* cp = (const float*)comp;
   float* partial = (float*)scratch;
   float* count = partial + (size_t)B * p.NW * S;
-  const dim3 grid(p.tiles, B, p.groups);
   const int dp = padded_dim(d);
   if (dp > MAX_REG_DP) {
-    err = launch<WideFrames>(p, grid, 0, st, xf, mk, cp, partial, count, T, d,
+    err = launch<WideFrames>(p, B, 0, st, xf, mk, cp, partial, count, T, d,
                              S, K, p.sg * K, dev);
   } else {
     int smem;
@@ -231,7 +243,7 @@ cudaError_t launch_all(const void* feats, const void* mask, const void* comp,
     switch (dp) {
 #define SRT_SCORE_CASE(DP, FPL)                                            \
   case DP:                                                                 \
-    err = launch<RegFrames<DP, FPL>>(p, grid, smem, st, xf, mk, cp, partial, \
+    err = launch<RegFrames<DP, FPL>>(p, B, smem, st, xf, mk, cp, partial,    \
                                      count, T, d, S, K, ch, dev);          \
     break;
       SRT_SCORE_CASE(4, 2) SRT_SCORE_CASE(8, 2) SRT_SCORE_CASE(12, 2)
@@ -270,13 +282,12 @@ extern "C" int srt_bank_warp_frames(int d) {
 // feats [B, T, d], mask [B, T] (bytes), comp the component rows
 // [S, K, srt_component_row(d)], scratch B * NW * (S + 1) floats
 // (srt_bank_warp_frames); writes out [B, S] on device `device` (made current
-// for the launch), stream `stream`. B <= 65535 (grid.y).
+// for the launch), stream `stream`. Any B: one launch per 65535 utterances.
 extern "C" int srt_bank_avg_loglik(const void* feats, const void* mask,
                                    const void* comp, void* scratch, void* out,
                                    int B, int T, int d, int S, int K,
                                    int device, void* stream) {
-  if (B < 1 || d < 1 || S < 1 || K < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (B < 1 || d < 1 || S < 1 || K < 1) return (int)cudaErrorInvalidValue;
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);
   if (err != cudaSuccess) return (int)err;

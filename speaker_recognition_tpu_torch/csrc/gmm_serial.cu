@@ -22,26 +22,26 @@
 // a second kernel (and a scratch buffer) to add the chunks' partial sums
 // in a fixed order.
 //
-// What the design does about it: one launch. The grid is (CL, S), and the
-// CL <= 16 blocks of one speaker form a thread-block cluster. Block r of a
-// cluster takes the frame chunks r, r + CL, ... (NT frames each) in order
-// and keeps its sum and valid-frame count in registers, so a long clip
-// needs no more blocks. It streams the speaker's component rows through
-// shared memory with 16-byte asynchronous copies (all K rows in one buffer
-// while they fit a block's shared memory, staged once for all its chunks;
-// else chunks in two buffers, so K has no cap) and each lane keeps its
-// frame's features in registers (RegFrames of csrc/gmm_lse.cuh, the inner
-// loop the batched kernel shares): a parameter load is one broadcast for
-// the warp's 32 frames and a_j x^2 + b_j x is x (a_j x + b_j), two FMAs in
-// four independent chains. The route follows the feature dimension:
-// registers up to a padded d of 128, and past that WideFrames, which
-// leaves the frame and the rows in device memory and so takes any d. The
-// logsumexp over components runs online. Each block sums its threads in a
-// fixed order (warp butterflies, then the warps); after a cluster barrier
-// rank 0 reads the other ranks' sums and valid-frame counts through
-// distributed shared memory, adds them in rank order and writes out[s]. No
-// partials buffer, no second kernel, no atomics: scores are the same bit
-// for bit from run to run (calibrate_rejection thresholds on them).
+// What the design does about it: one launch (one per 65535 speakers). The
+// grid is (CL, S), and the CL <= 16 blocks of one speaker form a
+// thread-block cluster. Block r of a cluster takes the frame chunks r, r +
+// CL, ... (NT frames each) in order and keeps its sum and valid-frame count
+// in registers, so a long clip needs no more blocks. It streams the
+// speaker's component rows through shared memory with 16-byte asynchronous
+// copies (all K rows in one buffer while they fit a block's shared memory,
+// staged once for all its chunks; else chunks in two buffers, so K has no
+// cap) and each lane keeps its frame's features in registers (RegFrames of
+// csrc/gmm_lse.cuh, the inner loop the batched kernel shares): a parameter
+// load is one broadcast for the warp's 32 frames and a_j x^2 + b_j x is x
+// (a_j x + b_j), two FMAs in four independent chains. The route follows the
+// feature dimension: registers up to a padded d of 128, and past that
+// WideFrames, which leaves the frame and the rows in device memory and so
+// takes any d. The logsumexp over components runs online. Each block sums
+// its threads in a fixed order (warp butterflies, then the warps); after a
+// cluster barrier rank 0 reads the other ranks' sums and valid-frame counts
+// through distributed shared memory, adds them in rank order and writes
+// out[s]. No partials buffer, no second kernel, no atomics: scores are the
+// same bit for bit from run to run (calibrate_rejection thresholds on them).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -159,6 +159,11 @@ cudaError_t prepare(int dev) {
   return err[dev];
 }
 
+// speakers a launch takes: the grid's y dimension
+constexpr int MAX_GRID_Y = 65535;
+
+// One launch per MAX_GRID_Y speakers (a speaker's cluster does the same work
+// in any of them).
 template <class Frames>
 cudaError_t launch(int dev, int S, int smem, cudaStream_t st, const float* x,
                    const unsigned char* mask, const float* comp, float* out,
@@ -169,22 +174,27 @@ cudaError_t launch(int dev, int S, int smem, cudaStream_t st, const float* x,
   const int most =
       2 * (smem + STATIC_SMEM) <= BLOCK_SMEM ? MAX_CLUSTER : PORTABLE_CLUSTER;
   const int CL = nchunks < most ? nchunks : most;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(CL, S);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, serial_kernel<Frames>, x, mask, comp, out, n,
-                           d, K, ch, avg);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const size_t P = row_floats(d);
+  for (int s0 = 0; s0 < S; s0 += MAX_GRID_Y) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL, S - s0 < MAX_GRID_Y ? S - s0 : MAX_GRID_Y);
+    cfg.blockDim = dim3(NT);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, serial_kernel<Frames>, x, mask,
+                             comp + (size_t)s0 * K * P, out + s0, n, d, K, ch,
+                             avg);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -196,12 +206,12 @@ extern "C" int srt_component_row(int d) { return d < 1 ? -1 : row_floats(d); }
 // x [n, d], mask [n] (bytes), comp the component rows [S, K,
 // srt_component_row(d)]; writes out [S]: sums, or averages over the valid
 // frames when avg. One clustered launch on device `device` (made current
-// for the launch), stream `stream`. S <= 65535 (grid.y).
+// for the launch), stream `stream`; one per 65535 speakers past that.
 extern "C" int srt_bank_sum_loglik(const void* x, const void* mask,
                                    const void* comp, void* out, int n, int d,
                                    int S, int K, int avg, int device,
                                    void* stream) {
-  if (d < 1 || K < 1 || S < 1 || S > 65535 || n < 0)
+  if (d < 1 || K < 1 || S < 1 || n < 0)
     return (int)cudaErrorInvalidValue;
   int cur = 0;
   cudaError_t err = cudaGetDevice(&cur);

@@ -1,6 +1,8 @@
-// The packed frontend's per-tile stages, shared by csrc/frontend.cu (the
-// signal-level frontend) and csrc/predict_fused.cu (the fused predict
-// monolith). For a tile of FT consecutive frames of one utterance:
+// The packed frontend's per-tile stages: tile_features and cmvn_utterance,
+// shared by csrc/frontend.cu (the signal-level frontend, on the FFT tile)
+// and csrc/predict_fused.cuh (the fused predict monolith); the dense
+// tile_sums serves only the monolith's bf16 route, which rounds the DFT
+// operand D. For a tile of FT consecutive frames of one utterance:
 //   tile_sums      stage the tile's overlapping samples, walk the packed
 //                  DFT columns in chunks of CC, fold each chunk's Y = X^2
 //                  into register accumulators of the mel and

@@ -1,0 +1,14 @@
+// The fused predict monolith's f32 route (the FFT tile) at FFT sizes
+// 1024, 2048: one of the instantiation units csrc/predict_fused.cu
+// dispatches to, each its own nvcc process.
+
+#include "predict_fused.cuh"
+
+namespace srt_fused {
+
+cudaError_t launch_fft_1024_2048(const Args& a, int nfft, int opl,
+                                 cudaStream_t st) {
+  return launch_fft_sizes<1024, 2048>(a, nfft, opl, st);
+}
+
+}  // namespace srt_fused

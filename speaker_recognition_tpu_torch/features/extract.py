@@ -16,8 +16,9 @@ frontend.
   a 2*frame_len-point DFT folded into D). With LPC cepstra (n_lpcc > 0)
   the same kernel skips the Levinson (`fuse_lpc=False`) and returns the
   raw autocorrelation, and Levinson and the LPCC recursion follow in
-  torch, as in the JAX package (features/extract.py:255-297); the fused
-  predict monolith (ops/gpu_predict) reads D, W, A too.
+  torch, as in the JAX package (features/extract.py:255-297). The fused
+  predict monolith (ops/gpu_predict) takes the `fft` route on the card
+  and reads D, W, A for its CPU plain version and its bf16 route.
 - `FullFrontend`: the reference's own fft_size-point power spectrum of
   windowed, pre-emphasized frames (mfcc_from_frames). It serves
   SRTPU_FRONTEND=full and every fft_size < 2*frame_len, i.e. every sample

@@ -57,8 +57,6 @@ FRAMES_LAUNCHES = 0      # csrc/frontend_frames_fft.cu, packed_from_frames
 FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
 FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
 
-_MAX_GRID_Y = 65535
-
 
 def masked_cmvn(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-utterance mean/variance normalization over the valid frames
@@ -189,9 +187,6 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
             f"n_valid {tuple(n_valid.shape)}, window {flen}, n_fft {N}, mel "
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
             f"{tuple(dct.shape)}, fshift {fshift}")
-    if B > _MAX_GRID_Y:
-        raise ValueError(f"frontend kernel limit: batch {B} <= "
-                         f"{_MAX_GRID_Y}")
     lib = _build.load()
     op = _packed_operator(lib, fft.mel, fft.acorr, N)
     T = (Lp - flen) // fshift + 1
@@ -234,9 +229,9 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
         raise ValueError(
             f"no FFT tile at n_fft {n_fft} with {nmel + nac} mel + "
             "autocorrelation outputs: it takes a power of two in "
-            "[64, 4096] (not 8192: fft_size 8192 on the full route, or the "
-            "packed route of frames longer than 2048 samples, as at 96 kHz) "
-            "and at most 256 outputs")
+            "[64, 16384] (not 32768 or more: fft_size >= 32768 on the full "
+            "route, or the packed route of frames longer than 8192 samples) "
+            "and at most 512 outputs")
     nb = n_fft // 2 + 1
     op = mel.new_zeros((rows.value, cols.value))
     op[:nb, :nmel] = mel[:nb]

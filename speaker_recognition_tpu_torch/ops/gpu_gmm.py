@@ -16,9 +16,10 @@ frames in registers, the bank's components arrive as 16-byte rows
 shared memory in chunks, and the logsumexp runs online across chunks. So
 neither the feature dimension nor the number of components has a cap:
 past a padded d of 128 the frame stays in device memory (a route chosen
-on the shape, no fallback). The only limits are the grid's: at most 65535
-utterances a batched call and 65535 speakers a serial call. Every sum
-runs in a fixed order with no atomics: two calls give the same bits.
+on the shape, no fallback). Neither the batch nor the bank has a cap
+either: past the grid's 65535 utterances (batched) or speakers (serial) a
+call launches once per 65535. Every sum runs in a fixed order with no
+atomics: two calls give the same bits.
 
 A serial decision is microseconds of device work, so the wrappers keep
 their host path short: what a call needs of the bank (the rows, their
@@ -46,8 +47,6 @@ from ..models.gmm import (
 # (gmm_serial.cu); the CPU path does not count
 LAUNCHES = 0
 SERIAL_LAUNCHES = 0
-
-_MAX_GRID_Y = 65535
 
 __all__ = ["LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
            "bank_avg_loglik_reference", "bank_sum_loglik",
@@ -116,9 +115,8 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
     _check_dtype(feats, "feats", torch.float32, 3)
     _check_dtype(mask, "mask", torch.bool, 2)
     B, T, d = feats.shape
-    if tuple(mask.shape) != (B, T) or B > _MAX_GRID_Y:
-        raise ValueError(f"mask {tuple(mask.shape)} must be [{B}, {T}], "
-                         f"batch {B} <= {_MAX_GRID_Y}")
+    if tuple(mask.shape) != (B, T):
+        raise ValueError(f"mask {tuple(mask.shape)} must be [{B}, {T}]")
     plan = bank.scoring_plan(_make_plan)
     if plan.d != d:
         raise ValueError(f"bank dim {plan.d} must be {d}")
@@ -152,9 +150,8 @@ def _serial(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
     if mask.shape[0] != n:
         raise ValueError(f"mask {tuple(mask.shape)} must be [{n}]")
     plan = bank.scoring_plan(_make_plan)
-    if plan.d != d or plan.S > _MAX_GRID_Y:
-        raise ValueError(f"bank dim {plan.d} must be {d}, speakers "
-                         f"{plan.S} <= {_MAX_GRID_Y}")
+    if plan.d != d:
+        raise ValueError(f"bank dim {plan.d} must be {d}")
     _on_plan_device(X, "X", plan)
     _on_plan_device(mask, "mask", plan)
     out = torch.empty(plan.S, dtype=torch.float32, device=plan.device)

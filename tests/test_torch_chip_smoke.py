@@ -1,6 +1,8 @@
-"""chip_smoke.py rehearsed on the CPU, at 16 utterances where it takes 512.
+"""chip_smoke.py rehearsed on the CPU, at 16 utterances where it takes 512
+(and 0.5 s where the 96 and 192 kHz batches take 5 s, 70 utterances and
+speakers where the grid phase takes 70,000).
 
-    python tests/test_torch_chip_smoke.py    # ~30 s, prints chip_smoke's lines
+    python tests/test_torch_chip_smoke.py    # ~2.5 min
 
 Every kernel wrapper is replaced by its plain torch version (for the
 frontends, by the wrapper itself, which on CPU tensors runs its plain
@@ -37,6 +39,8 @@ EDITS = [
     ('dev = torch.device("cuda", 0)', 'dev = torch.device("cpu")'),
     ("if not torch.cuda.is_available():", "if False:"),
     ('"--device", "cuda"', '"--device", "cpu"'),
+    ("GRID_B = 70000", "GRID_B = 70"),
+    ("HIGH_SEC = BENCH_SEC", "HIGH_SEC = 0.5"),
 ]
 
 
@@ -79,6 +83,33 @@ def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
         "FULL_DENSE_LAUNCHES"
 
 
+def _fused(fn_name, counter):
+    """The monolith's wrapper as the card runs it: f32 on the FFT route
+    (fft=), its plain version counted in `counter`; bf16 on the dense
+    route, counted in BF16_LAUNCHES."""
+    def plain(signals, n_valid, bank, fshift, D, W, dct_t, floor, A,
+              cmvn=True, mm_bf16=False, fft=None):
+        if mm_bf16:
+            gpu_predict.BF16_LAUNCHES += 1
+            return gpu_predict.fused_bank_predict_reference(
+                signals, n_valid, bank, fshift, D, W, dct_t, floor, A, cmvn,
+                mm_bf16=True)
+        assert fft is not None, "the f32 kernel runs the FFT route"
+        setattr(gpu_predict, counter, getattr(gpu_predict, counter) + 1)
+        return gpu_predict.fused_bank_predict_fft_reference(
+            signals, n_valid, bank, fshift, dct_t, floor, fft, cmvn)
+
+    def wrapper(*args, **kw):
+        for i, a in enumerate([*args, *kw.values()]):
+            tensors = [a] if isinstance(a, torch.Tensor) else [
+                getattr(a, f) for f in ("op", "cw", "window", "mel", "acorr")
+                if isinstance(getattr(a, f, None), torch.Tensor)]
+            for t in tensors:
+                assert t.is_contiguous(), (fn_name, i, tuple(t.shape))
+        return plain(*args, **kw)
+    setattr(gpu_predict, fn_name, wrapper)
+
+
 def main():
     torch.set_num_threads(2)
     _build.load = lambda: None
@@ -99,11 +130,10 @@ def main():
     for mod, name, counter in (
             (gpu_gmm, "batch_bank_avg_loglik", "LAUNCHES"),
             (gpu_gmm, "bank_sum_loglik", "SERIAL_LAUNCHES"),
-            (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES"),
-            (gpu_predict, "fused_bank_predict", "LAUNCHES")):
+            (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES")):
         _counting(mod, name, getattr(mod, name + "_reference"), counter)
-    _counting(gpu_predict, "fused_bank_predict_wide",
-              gpu_predict.fused_bank_predict_reference, "WIDE_LAUNCHES")
+    _fused("fused_bank_predict", "LAUNCHES")
+    _fused("fused_bank_predict_wide", "WIDE_LAUNCHES")
 
     path = os.path.join(REPO, "chip_smoke.py")
     with open(path) as f:
@@ -127,11 +157,13 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def test_chip_smoke_rehearses_on_the_cpu():
-    """All thirteen phases pass on the CPU; the kernels record lists the
-    seven TPU kernels (K1 in both its modes) with every key, each launched
-    on its path but K4, which no serving path takes (its launches against
-    its plain version are demanded by phase 11 itself), K1 and K5 with
-    their FFT kernels' sources."""
+    """All fourteen phases pass on the CPU; the kernels record lists the
+    seven TPU kernels (K1 in both its modes, K6 in both its routes) with
+    every key, each launched on its path but K4, which no serving path
+    takes (its launches against its plain version are demanded by phase 11
+    itself), K1 and K5 with their FFT kernels' sources; the 8192- and
+    16384-point FFTs, 266 outputs, the 96 kHz CLI slice, the monolith's
+    cases and the grid phase all run."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
                           capture_output=True, text=True, timeout=900,
                           cwd=REPO)
@@ -143,7 +175,8 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_frontend.py:231", "pallas_frontend.py:231",
         "pallas_gmm.py:154", "pallas_gmm.py:47",
         "pallas_frontend.py:111", "pallas_frontend.py:50",
-        "pallas_predict.py:91", "pallas_predict.py:215"]
+        "pallas_predict.py:91", "pallas_predict.py:215",
+        "pallas_predict.py:91"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
         if k["name"] == "packed_from_frames":
@@ -172,6 +205,34 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "device kernels a call 1") for ln in lines) == 11
     assert any(ln.startswith("phase 12 cli enroll + predict @ 48 kHz, "
                              "fft_size 4096") for ln in lines)
+    assert kernels[6]["source"].endswith("csrc/predict_fused.cuh")
+    assert [k["name"] for k in kernels[6:]] == [
+        "fused_bank_predict", "fused_bank_predict_wide",
+        "fused_bank_predict_bf16"]
+    for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
+                  "266 outputs"):
+        assert any(ln.startswith("phase 2 ") and shape in ln
+                   and "two calls bitwise equal: True" in ln
+                   for ln in lines), shape
+    for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
+                  "192 kHz, fft_size 8192", "266 outputs"):
+        assert any(ln.startswith("phase 10 ") and shape in ln
+                   for ln in lines), shape
+    for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
+                  "250 mel filters"):
+        assert any(ln.startswith("phase 11 ") and shape in ln
+                   for ln in lines), shape
+    assert any(ln.startswith("phase 12 cli enroll + predict @ 96 kHz, "
+                             "fft_size 8192") for ln in lines)
+    for case in ("48 kHz, fft_size 4096", "96 kHz, fft_size 8192",
+                 "bank 4 x 1024", "d = 102", "80 x 256 bank",
+                 "150 s clip", "n_valid = 0"):
+        assert any(ln.startswith(f"phase 13 {case}") and
+                   "launches (K6, K7) (2, 2), two calls bitwise equal: True"
+                   in ln for ln in lines), case
+    assert any(ln.startswith("phase 13 K6 bf16 DFT operands (dense tile)")
+               for ln in lines)
+    assert any(ln.startswith("phase 14 launches:") for ln in lines)
 
 
 if __name__ == "__main__":

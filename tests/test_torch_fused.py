@@ -202,7 +202,8 @@ class _CudaTyped(torch.Tensor):
 
 def test_fused_rejects_geometry_and_device():
     """Only the packed geometry; a CUDA tensor builds and launches the
-    kernel or raises (no fallback); any other device raises."""
+    kernel (on the FFT route, given fft=) or raises (no fallback); any
+    other device raises."""
     fcfg = FeatureConfig()
     flen, fshift, D, W, dct_np, A, floor = _operators(fcfg)
     signals, _, n_valid = _batch(fcfg, B=2)
@@ -228,10 +229,17 @@ def test_fused_rejects_geometry_and_device():
         cbank = types.SimpleNamespace(
             op=cuda(bank.op), cw=cuda(bank.cw), n_speakers=2, n_mixtures=4,
             dim=bank.dim)
+        fe = PackedFrontend(FS, fcfg, "cpu")
+        fft = fe.fft._replace(window=cuda(fe.window), mel=cuda(fe.fft_mel),
+                              acorr=cuda(fe.fft_acorr))
         before = (gpu_predict.LAUNCHES, gpu_predict.WIDE_LAUNCHES)
+        cargs = (cuda(sig), cuda(nv), cbank, fshift, cuda(_t(D)),
+                 cuda(_t(W)), cuda(_t(dct_np)), floor, cuda(_t(A)))
+        # the f32 kernel runs the FFT route: without it, a refusal
+        with pytest.raises(ValueError, match="fft="):
+            fn(*cargs)
         with pytest.raises(RuntimeError):
-            fn(cuda(sig), cuda(nv), cbank, fshift, cuda(_t(D)), cuda(_t(W)),
-               cuda(_t(dct_np)), floor, cuda(_t(A)))
+            fn(*cargs, fft=fft)
         assert (gpu_predict.LAUNCHES, gpu_predict.WIDE_LAUNCHES) == before
 
 

@@ -1,12 +1,15 @@
 """The shapes the frontend kernels' tile was widened to, against the JAX
 package on the same numpy inputs: a 4096-point FFT (44.1 and 48 kHz with
 fft_size 4096, on the packed route, which takes K1, and on the full route,
-which takes K5), 128 mel filters with LPC (144 mel + autocorrelation
-outputs), and LPC order 40 with 40 cepstra (the Levinson and the CMVN past
-32 columns). Each runs through the CPU's plain versions (the dense
-operators) and through the FFT route's plain versions, which compute what
-the kernels compute on the card; the FFT tile's operator layout at the new
-shapes is checked against a model of csrc/rfft_tile.cuh."""
+which takes K5), 8192- and 16384-point FFTs (96 kHz with fft_size 8192 and
+192 kHz with fft_size 16384 on the packed route, fft_size 8192 on the full
+route), 128 mel filters with LPC (144 mel + autocorrelation outputs), more
+than 256 outputs, and LPC order 40 with 40 cepstra (the Levinson and the
+CMVN past 32 columns). Each runs through the CPU's plain versions (the
+dense operators) and through the FFT route's plain versions, which compute
+what the kernels compute on the card; the FFT tile's operator layout at
+the new shapes is checked against a model of csrc/rfft_tile.cuh, and the
+wrappers no longer refuse a batch or a bank past the grid's 65535."""
 
 import numpy as np
 import pytest
@@ -155,31 +158,42 @@ def test_order_40_fused_lpc_matches_the_unfused_route():
 
 class _TileShapes:
     """srt_fft_operator_shape in Python (csrc/rfft_tile.cuh): a power of two
-    in [64, 4096]; 72, 128 or 256 columns; rows of bins 0..N/2 padded to the
-    operator chunk (16; 32 at N = 2048 below 256 columns; 8 at N = 4096 for
-    256 columns), while the block's shared memory holds the tile."""
+    in [64, 16384]; 72, 128, 256 or 512 columns; rows of bins 0..N/2 padded
+    to the operator chunk (rfft::ck), while the block's shared memory holds
+    the tile. From N = 8192 on the tile stages no whole twiddle table and
+    takes 4 (N = 8192) or 2 (N = 16384) frames."""
+
+    MAX_SMEM = 232448
 
     @staticmethod
     def chunk(n, opl):
+        if n >= 8192:
+            return 8 if opl > 32 else 16
         if n >= 4096:
-            return 8 if opl > 16 else 16
-        return (16 if opl > 16 else 32) if n >= 2048 else 16
+            return 4 if opl > 32 else 8 if opl > 16 else 16
+        if n >= 2048:
+            return 8 if opl > 32 else 16 if opl > 16 else 32
+        return 16
 
     @classmethod
     def smem_bytes(cls, n, opl):
-        ft, warps = (16, 4) if n >= 4096 else (32, 8)
+        ft = 2 if n >= 16384 else 4 if n >= 8192 else 16 if n >= 4096 else 32
+        warps = 2 if n >= 16384 else 4 if n >= 4096 else 8
         nop = 8 * opl
-        col = n // 4 - 32 if n >= 2048 else 0
-        return 4 * (n + 2 * warps * (n // 2 + n // 64)
-                    + ft * max(n // 2 + 1, nop) + cls.chunk(n, opl) * nop
-                    + 2 * col)
+        big = n >= 8192
+        slots = n // 2 + (32 if big else n // 64)
+        col = (16 + n // 64 - 32 if big else n // 4 - 32 if n >= 2048
+               else 0)
+        ys = -(-ft * max(n // 2 + 1, nop) // 4) * 4
+        return 4 * ((0 if big else n) + 2 * warps * slots + ys
+                    + cls.chunk(n, opl) * nop + 2 * col)
 
     def srt_fft_operator_shape(self, n_fft, nout, rows, cols):
-        if n_fft < 64 or n_fft > 4096 or n_fft & (n_fft - 1):
+        if n_fft < 64 or n_fft > 16384 or n_fft & (n_fft - 1):
             return -1
-        opl = 9 if nout <= 72 else 16 if nout <= 128 else 32 if nout <= 256 \
-            else 0
-        if opl == 0 or self.smem_bytes(n_fft, opl) > 232448:
+        opl = (9 if nout <= 72 else 16 if nout <= 128 else 32 if nout <= 256
+               else 64 if nout <= 512 else 0)
+        if opl == 0 or self.smem_bytes(n_fft, opl) > self.MAX_SMEM:
             return -1
         ck = self.chunk(n_fft, opl)
         rows._obj.value = -(-(n_fft // 2 + 1) // ck) * ck
@@ -193,12 +207,24 @@ class _TileShapes:
     (2048, 128, 16, (1040, 256)),
     (512, 128, 16, (272, 256)),
     (512, 50, 41, (272, 128)),
+    (8192, 26, 16, (4112, 72)),
+    (8192, 128, 16, (4112, 256)),
+    (16384, 26, 16, (8208, 72)),
+    (16384, 100, 16, (8208, 128)),
+    (512, 250, 16, (272, 512)),
+    (2048, 250, 16, (1032, 512)),
+    (4096, 250, 16, (2052, 512)),
+    (8192, 400, 16, (4104, 512)),
+    (16384, 496, 16, (8200, 512)),
 ], ids=["4096", "4096_144_outputs", "2048_144_outputs", "512_144_outputs",
-        "512_order40"])
+        "512_order40", "8192", "8192_144_outputs", "16384",
+        "16384_116_outputs", "512_266_outputs", "2048_266_outputs",
+        "4096_266_outputs", "8192_416_outputs", "16384_512_outputs"])
 def test_packed_operator_at_the_widened_shapes(n_fft, nmel, nac, shape):
     """The FFT kernels' packed operator at the shapes the tile took on:
     [mel | acorr | 0] on rows 0..n_fft/2, zero rows and columns after; every
-    geometry fits a block's 227 KB (the largest, N = 4096, 231,232 bytes)."""
+    geometry fits a block's 227 KB (the largest, N = 4096, 231,232 bytes;
+    from N = 8192 on at most 215,440)."""
     lib = _TileShapes()
     nb = n_fft // 2 + 1
     mel = torch.rand(nb + 3, nmel, dtype=torch.float32)
@@ -208,18 +234,183 @@ def test_packed_operator_at_the_widened_shapes(n_fft, nmel, nac, shape):
     assert torch.equal(op[:nb, :nmel], mel[:nb])
     assert torch.equal(op[:nb, nmel:nmel + nac], acorr[:nb])
     assert (op[nb:] == 0).all() and (op[:, nmel + nac:] == 0).all()
-    assert max(lib.smem_bytes(4096, o) for o in (9, 16, 32)) == 231232
+    assert max(lib.smem_bytes(4096, o) for o in (9, 16, 32, 64)) == 231232
+    assert max(lib.smem_bytes(n, o) for n in (8192, 16384)
+               for o in (9, 16, 32, 64)) == 215440
 
 
-def test_the_tile_refuses_only_8192_and_more_than_256_outputs():
-    """What the FFT tile still refuses, with the wrapper's message: 8192
-    points (fft_size 8192 on the full route, or frames longer than 2048
-    samples on the packed route, as at 96 kHz) and more than 256 mel +
-    autocorrelation outputs."""
+def test_the_tile_refuses_only_32768_and_more_than_512_outputs():
+    """What the FFT tile still refuses, with the wrapper's message: 32768
+    points and more (fft_size >= 32768 on the full route, or frames longer
+    than 8192 samples on the packed route) and more than 512 mel +
+    autocorrelation outputs; every power of two from 64 to 16384 takes
+    every width up to 512 outputs."""
     lib = _TileShapes()
-    mel, acorr = torch.rand(4097, 50), torch.rand(4097, 16)
-    with pytest.raises(ValueError, match="8192"):
-        gpu_frontend._packed_operator(lib, mel, acorr, 8192)
-    with pytest.raises(ValueError, match="at most 256 outputs"):
-        gpu_frontend._packed_operator(lib, torch.rand(2049, 250), acorr,
+    mel, acorr = torch.rand(16385, 50), torch.rand(16385, 16)
+    with pytest.raises(ValueError, match="32768 or more"):
+        gpu_frontend._packed_operator(lib, mel, acorr, 32768)
+    with pytest.raises(ValueError, match="at most 512 outputs"):
+        gpu_frontend._packed_operator(lib, torch.rand(2049, 500), acorr,
                                       4096)
+    for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
+        for nmel in (50, 100, 200, 496):
+            op = gpu_frontend._packed_operator(lib, mel[:, :nmel], acorr, n)
+            assert op.shape[0] >= n // 2 + 1, (n, nmel)
+
+
+# -- 8192- and 16384-point FFTs through the extractor -------------------------
+
+def _fft(n):
+    return lambda c: c.FeatureConfig(mfcc=c.MfccConfig(fft_size=n))
+
+
+@pytest.mark.parametrize("impl", ["dense", "fft"])
+@pytest.mark.parametrize("mode", ["packed", "full"])
+def test_96k_fft_size_8192_matches_jax(mode, impl, monkeypatch):
+    """96 kHz with fft_size 8192: the packed route (frames of 3072 samples,
+    an 8192-point FFT in K1) and the full route (K5 at 8192 points) against
+    the JAX extractor on the same route, through extract_batch, a ragged
+    batch of four short utterances (the bound of the 4096-point test)."""
+    monkeypatch.setenv("SRTPU_FRONTEND", mode)
+    fe = text.frontend(96000, _fft(8192)(tcfg), "cpu")
+    assert fe.n_fft == 8192 and fe.frame_len == 3072
+    got, want, mask, wmask = _extract_both(96000, _fft(8192), mode, impl,
+                                           monkeypatch, L=20480)
+    np.testing.assert_array_equal(mask, wmask)
+    assert np.isfinite(got).all() and got.shape == want.shape
+    assert mask.sum() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)
+
+
+def test_192k_fft_size_16384_through_mix_feature_matches_jax(monkeypatch):
+    """192 kHz with fft_size 16384 on the packed route (frames of 6144
+    samples, a 16384-point FFT in K1), the FFT route's plain version
+    against the JAX extractor through mix_feature, one short utterance (the
+    JAX package's dense operator alone is 6144 x 12288 here)."""
+    _fft_route(monkeypatch)
+    fe = text.frontend(192000, _fft(16384)(tcfg), "cpu")
+    assert isinstance(fe, text.PackedFrontend) and fe.n_fft == 16384
+    sig = synth.synth_utterance("bob", 0.2, seed=5, fs=192000)
+    got = text.mix_feature(192000, sig, _fft(16384)(tcfg), device="cpu")
+    want = np.asarray(jext.mix_feature(192000, sig, _fft(16384)(jcfg)))
+    assert got.shape == want.shape and got.shape[0] > 5
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)
+
+
+def test_192k_fft_size_8192_takes_the_full_route_and_matches_jax(
+        monkeypatch):
+    """192 kHz at fft_size 8192 < 2 * frame_len: the default route is the
+    full spectrum at 8192 points (K5), the FFT route's plain version against
+    the JAX extractor through mix_feature."""
+    _fft_route(monkeypatch)
+    fe = text.frontend(192000, _fft(8192)(tcfg), "cpu")
+    assert isinstance(fe, text.FullFrontend) and fe.n_fft == 8192
+    sig = synth.synth_utterance("alice", 0.2, seed=6, fs=192000)
+    got = text.mix_feature(192000, sig, _fft(8192)(tcfg), device="cpu")
+    want = np.asarray(jext.mix_feature(192000, sig, _fft(8192)(jcfg)))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)
+
+
+def _wide(c):
+    return c.FeatureConfig(mfcc=c.MfccConfig(fft_size=4096, n_filters=250))
+
+
+@pytest.mark.parametrize("impl", ["dense", "fft"])
+@pytest.mark.parametrize("mode", ["packed", "full"])
+def test_266_outputs_match_jax(mode, impl, monkeypatch):
+    """250 mel filters with LPC order 15 at 48 kHz, fft_size 4096: 266 mel +
+    autocorrelation outputs, past the 256 the tile took before (the fourth
+    operator width takes 512)."""
+    got, want, mask, wmask = _extract_both(48000, _wide, mode, impl,
+                                           monkeypatch, L=16384)
+    np.testing.assert_array_equal(mask, wmask)
+    assert got.shape[-1] == 28
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)
+
+
+# -- no grid limit in the wrappers ------------------------------------------
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the kernel branch
+    of a wrapper on a machine without CUDA."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda(t):
+    return t.as_subclass(_CudaTyped)
+
+
+class _FakeLib(_TileShapes):
+    """The kernels' library as the wrappers call it, recording each launch's
+    arguments instead of launching."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def _record(self, name):
+        def launch(*args):
+            self.calls[name] = args
+            return 0
+        return launch
+
+    def __getattr__(self, name):
+        if name.startswith("srt_") and name.endswith(("_frontend",
+                                                      "_loglik")):
+            return self._record(name)
+        raise AttributeError(name)
+
+    @staticmethod
+    def srt_component_row(d):
+        return 2 * (-(-d // 4) * 4) + 4
+
+    @staticmethod
+    def srt_bank_warp_frames(d):
+        return 64
+
+
+def test_the_wrappers_take_a_batch_and_a_bank_past_65535(monkeypatch):
+    """K1 and K2 with 70,000 utterances and K3 with 70,000 speakers go to
+    their C entry points whole (each launches once per 65535 inside it),
+    where a ValueError refused them before; the library is a stand-in that
+    records the calls, the tensors CPU tensors that report the card."""
+    import contextlib
+    import types
+    from speaker_recognition_tpu_torch import _build
+    from speaker_recognition_tpu_torch.models.gmm import GmmBank
+    from speaker_recognition_tpu_torch.ops import gpu_gmm
+
+    lib = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    monkeypatch.setattr(gpu_gmm, "_stream", lambda plan: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: empty(*a, **k))
+    B = 70000
+    fft = gpu_frontend.FftRoute(64, _cuda(torch.rand(32)), 0.97, False,
+                                _cuda(torch.rand(33, 4)),
+                                _cuda(torch.rand(33, 3)))
+    feat = gpu_frontend.packed_from_signals(
+        _cuda(torch.zeros(B, 32)), _cuda(torch.ones(B, dtype=torch.int32)),
+        None, None, _cuda(torch.rand(4, 2)), None, 1e-35, 16, True, fft=fft)
+    assert feat.shape == (B, 1, 4)
+    assert lib.calls["srt_packed_frontend"][6] == B
+    bank = GmmBank(_cuda(torch.rand(4, 3 * 2)), _cuda(torch.rand(3 * 2)), 3,
+                   2)
+    out = gpu_gmm.batch_bank_avg_loglik(
+        bank, _cuda(torch.zeros(B, 1, 2)),
+        _cuda(torch.ones(B, 1, dtype=torch.bool)))
+    assert out.shape == (B, 3)
+    assert lib.calls["srt_bank_avg_loglik"][5] == B
+    big = GmmBank(_cuda(torch.rand(4, B)), _cuda(torch.rand(B)), B, 1)
+    out = gpu_gmm.bank_avg_loglik(big, _cuda(torch.zeros(3, 2)),
+                                  _cuda(torch.ones(3, dtype=torch.bool)))
+    assert out.shape == (B,)
+    assert lib.calls["srt_bank_sum_loglik"][6] == B
