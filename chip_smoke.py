@@ -84,8 +84,29 @@ raises and the exit code is non-zero):
  14. the grid: K1 and K2 on 70,000 utterances of 0.1 s at 8 kHz and K3 on
      a bank of 70,000 speakers (launches of at most 65535 in one call), vs
      their plain versions
+ 15. the live path at the bench configuration (8 kHz, MFCC13 + LPC15,
+     GMM-32 with k-means|| seeding): the dense K5 template at 216 outputs
+     (fft_size 1500, 200 mel filters + LPC) on the bench batch vs both
+     plain versions, two calls bitwise, 144 outputs bitwise inside 216,
+     and through extract_batch (SRTPU_FRONTEND=full) on the bench batch vs
+     the dense plain version; the LTSD VAD and the spectral
+     gate on the card vs the CPU at float64 (identical intervals, two
+     calls bitwise); Lloyd's on the card vs the CPU at float64 from one
+     init, k-means|| over 8 seeds against the CPU's median inertia, and
+     seeding + EM of 80 speakers x 30 s at GMM-256 (warm, median of 7, the
+     seeding by stage); then the port's web GUI
+     on an ephemeral port: noise, noisy enrollments filtered, k-means-
+     seeded training, filtered predictions of held-out clips, and a
+     conversation on the JAX-calibrated session whose timeline must equal
+     the JAX package's (testdata/synth3_conv_expected.json), K1 and K2
+     launched once a predicting tick and never on a tick the VAD empties,
+     no plain version run; K1 and K2 on a tick's padded batch vs their
+     plain versions, and its predict_scores vs the plain versions
+     composed; timing of a tick, init_noise, and k-means-seeded training
+     beside plain-init training
 The line before the last is {"kernels": [...]}, each kernel with its
-launches on the main path (0 for K4, which no serving path takes), its
+launches on the main path (0 for K4, which no serving path takes; the
+dense K5 template's on extract_batch at 216 outputs), its
 error against its plain version, its time, its plain version's time and
 its bound (the larger of the least FLOPs of
 its function over the FP32 peak and its bytes over the memory rate, from
@@ -104,7 +125,10 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import scipy.io.wavfile as wavfile
@@ -116,6 +140,8 @@ import torch  # noqa: E402
 
 from speaker_recognition_tpu_torch import _build, cli  # noqa: E402
 from speaker_recognition_tpu_torch.api import fastpath  # noqa: E402
+from speaker_recognition_tpu_torch.api.conversation import (  # noqa: E402
+    ConversationSession)
 from speaker_recognition_tpu_torch.api.interface import (  # noqa: E402
     ModelInterface)
 from speaker_recognition_tpu_torch.config import (  # noqa: E402
@@ -124,7 +150,8 @@ from speaker_recognition_tpu_torch.config import (  # noqa: E402
 from speaker_recognition_tpu_torch.features import extract  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     FullFrontend, PackedFrontend)
-from speaker_recognition_tpu_torch.models import gmm  # noqa: E402
+from speaker_recognition_tpu_torch.gui import server as gui  # noqa: E402
+from speaker_recognition_tpu_torch.models import gmm, kmeans  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmmset import (  # noqa: E402
     GMMSet, _pad_frames_bucket, _pad_stack)
@@ -133,6 +160,7 @@ from speaker_recognition_tpu_torch.ops import (  # noqa: E402
 from speaker_recognition_tpu_torch.ops import frontend as operators  # noqa: E402
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
+from speaker_recognition_tpu_torch.vad import ltsd, noisered  # noqa: E402
 
 BENCH_B, BENCH_FS, BENCH_SEC = 512, 8000, 5.0
 LENGTH_BUCKET = 4096
@@ -194,6 +222,26 @@ GRID_B = 70000
 # differs as in phase 2 (~1e-5 on cepstra), the scores are means of
 # hundreds of frames' log-likelihoods; 1e-3 relative with identical argmax.
 FUSED_RTOL = 1e-3
+# the dense K5 template past 192 outputs: 200 mel filters + LPC-15 at a
+# fft_size that is not a power of two
+DENSE216 = FeatureConfig(mfcc=MfccConfig(fft_size=1500, n_filters=200))
+# LTSD scores (dB) on the card at f32 against the CPU at f64: the spectra
+# differ by ~1e-6 relative, a score by ~1e-5 dB; the live path's scores
+# clear both thresholds by >= 0.39 dB (synth3_conv_expected.json)
+LTSD_ATOL = 1e-3
+# the spectral gate, f32 on the card against f64 on the CPU, relative to
+# the signal's peak: two rffts and an irfft in f32, ~1e-7 of the peak
+GATE_RTOL = 1e-5
+# Lloyd's from one init on well-separated blobs (centroids O(10)), f32 on
+# the card against f64 on the CPU: the same assignments, so the centroids
+# differ by the f32 rounding of sums over ~1000 points (~1e-5)
+LLOYD_ATOL = 1e-3
+# k-means|| over 8 seeds on a speaker's features: every seed's inertia
+# within this factor of the CPU's median (seeds spread by ~2% on the CPU at
+# f32 and f64); PARITY.md N3's single-pass collapse was 38x
+KMEANS_FACTOR = 1.1
+# the UBM-scale seeding + EM: speakers x seconds at 8 kHz, GMM-256
+KM_SPEAKERS, KM_SECONDS, KM_K = 80, 30.0, 256
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
@@ -696,14 +744,14 @@ def fused_args(fe: PackedFrontend, sig, lengths, bank, n_valid=None):
             fe.A, fe.cmvn)
 
 
-def check_fused(name, got, want) -> float:
-    """Monolith scores vs plain ones: within FUSED_RTOL, identical argmax;
-    returns the max abs error."""
+def check_fused(name, got, want, phase=13) -> float:
+    """Monolith (or predict_scores) scores vs plain ones: within
+    FUSED_RTOL, identical argmax; returns the max abs error."""
     torch.cuda.synchronize()
     d = (got - want).abs()
     rel = (d / want.abs().clamp_min(1e-30)).max().item()
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
-    print(f"phase 13 {name}: [B, S] {tuple(got.shape)} max|d| "
+    print(f"phase {phase} {name}: [B, S] {tuple(got.shape)} max|d| "
           f"{d.max().item():.3e} max rel {rel:.3e} (tol {FUSED_RTOL}) argmax "
           f"identical {same}", flush=True)
     if (got.shape != want.shape or not torch.isfinite(got).all()
@@ -760,6 +808,106 @@ def time_interleaved(fns: dict, trials=7, reps=3) -> dict:
             end.record()
             end.synchronize()
             times[k].append(start.elapsed_time(end) / reps)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def wav_bytes(sig: np.ndarray, fs: int) -> bytes:
+    """int16 mono wav bytes, as a browser posts them to the GUI."""
+    buf = io.BytesIO()
+    wavfile.write(buf, fs, np.asarray(sig, np.int16))
+    return buf.getvalue()
+
+
+def http(base: str, path: str, body: bytes | None = None) -> dict:
+    """GET (no body) or POST `path` on the GUI server; its JSON, or raise
+    on an error status."""
+    req = urllib.request.Request(base + path, data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{path}: {e.code} {e.read()[:500]!r}") from e
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """{name: calls} of every kernel's plain version (the `*_reference`
+    functions the wrappers run on CPU tensors) while the block runs."""
+    calls = {}
+    saved = []
+    for mod in (gpu_frontend, gpu_gmm, gpu_predict):
+        for name in dir(mod):
+            fn = getattr(mod, name)
+            if not (name.endswith("_reference") and callable(fn)):
+                continue
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def blobs(rng, n_clusters: int, per: int, d: int, spread=0.3, scale=5.0):
+    """Well-separated Gaussian blobs [n_clusters * per, d] (float64)."""
+    mu = rng.randn(n_clusters, d) * scale
+    return np.concatenate([m + spread * rng.randn(per, d) for m in mu])
+
+
+SEEDING_STAGES = ("rounds + seed buffer + claim weights",
+                  "weighted k-means++ recluster", "Lloyd's on the seeds",
+                  "Lloyd's on the data")
+
+
+def seeding_stages(fn, trials=7) -> dict:
+    """{stage: median device ms} of one kmeans.kmeansii_device call fn(),
+    warm, from CUDA events recorded around fn() and at the entry and exit
+    of kmeans._pp_seed and of both kmeans.lloyd calls (SEEDING_STAGES in
+    order; the host syncs inside a stage count in its time)."""
+    saved = {name: getattr(kmeans, name) for name in ("_pp_seed", "lloyd")}
+    marks = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    def marked(f):
+        def call(*a, **kw):
+            mark()
+            out = f(*a, **kw)
+            mark()
+            return out
+        return call
+
+    fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in SEEDING_STAGES}
+    for name, f in saved.items():
+        setattr(kmeans, name, marked(f))
+    try:
+        for _ in range(trials):
+            marks.clear()
+            mark()
+            fn()
+            mark()
+            marks[-1].synchronize()
+            # start, _pp_seed in/out, lloyd in/out (seeds), in/out (data), end
+            if len(marks) != 8:
+                raise AssertionError(f"kmeansii_device made {len(marks)} "
+                                     "marks, not 8")
+            for k, (i, j) in zip(SEEDING_STAGES,
+                                 ((0, 1), (1, 2), (3, 4), (5, 6))):
+                times[k].append(marks[i].elapsed_time(marks[j]))
+    finally:
+        for name, f in saved.items():
+            setattr(kmeans, name, f)
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
@@ -1716,6 +1864,309 @@ def main(argv=None):
     if min(launches14.values()) < 1:
         raise AssertionError(f"the grid phase missed a kernel: {launches14}")
 
+    # 15. the live path: the dense K5 template past 192 outputs, the VAD
+    # and k-means on the card, then noise -> filtered enrollment ->
+    # k-means-seeded training -> streaming decisions through the GUI
+    fe216 = FullFrontend(BENCH_FS, DENSE216, dev)
+    err_dense = check_frames(
+        15, "8 kHz, fft_size 1500, 200 mel filters + LPC (216 outputs, "
+        f"dense kernel), {BENCH_B} x {BENCH_SEC:g} s", fe216, bench_sig,
+        bench_len)
+    # an output's arithmetic does not depend on how many there are: 144
+    # outputs (one register chunk) equal their copies among 216 bitwise
+    fe144 = FullFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
+        fft_size=1500, n_filters=128)), dev)
+    args144, _, _ = frames_args(fe144, bench_sig[:8])
+    c144, r144 = gpu_frontend.mfcc_from_frames_dense(*args144)
+    ac = args144[-1]
+    wide = torch.cat([ac, torch.from_numpy(rng.rand(ac.shape[0], 72).astype(
+        np.float32)).to(dev)], dim=1).contiguous()
+    c216, r216 = gpu_frontend.mfcc_from_frames_dense(*args144[:-1], wide)
+    torch.cuda.synchronize()
+    inside = (torch.equal(c144, c216)
+              and torch.equal(r144, r216[:, :ac.shape[1]]))
+    print(f"phase 15 dense kernel: 144 outputs bitwise equal inside 216: "
+          f"{inside}", flush=True)
+    if not inside:
+        raise AssertionError("the dense kernel's outputs depend on the "
+                             "output count")
+    # the dense plain version's features of the bench batch, which
+    # extract_batch's must match
+    args216, B216, T216 = frames_args(fe216, bench_sig)
+    want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args216)
+    want216, wmask216 = fe216.finish(
+        want_c.view(B216, T216, -1), want_r.view(B216, T216, -1),
+        framing.frame_validity_mask(bench_len, T216, fe216.frame_len,
+                                    fe216.frame_shift))
+    del want_c, want_r
+    gpu_frontend.FULL_DENSE_LAUNCHES = 0
+    os.environ["SRTPU_FRONTEND"] = "full"
+    feats216, mask216 = extract.extract_batch(bench_sig, bench_len, BENCH_FS,
+                                              DENSE216)
+    del os.environ["SRTPU_FRONTEND"]
+    launches_dense = gpu_frontend.FULL_DENSE_LAUNCHES
+    d_mfcc, d_lpc, lpc_bad = feature_errors(feats216, want216, wmask216,
+                                            fe216.dct.shape[1])
+    print(f"phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs "
+          f"(SRTPU_FRONTEND=full), {BENCH_B} x {BENCH_SEC:g} s: features "
+          f"{tuple(feats216.shape)} vs the dense plain version: mfcc max|d| "
+          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
+          f"{lpc_bad}), dense kernel launches {launches_dense}", flush=True)
+    if (launches_dense != 1 or feats216.shape != want216.shape
+            or not torch.equal(mask216, wmask216)
+            or not torch.isfinite(feats216).all()
+            or d_mfcc > MFCC_ATOL or lpc_bad):
+        raise AssertionError("extract_batch at 216 outputs did not run the "
+                             "dense kernel once, or disagrees with its plain "
+                             "version")
+    err_dense = max(err_dense, d_mfcc, d_lpc)
+    del feats216, mask216, want216, wmask216
+    t.update(time_interleaved({
+        "dense216": lambda: gpu_frontend.mfcc_from_frames_dense(*args216),
+        "dense216_plain": lambda: gpu_frontend.mfcc_from_frames_reference(
+            *args216)}))
+    print(f"phase 15 [{card}] dense kernel, {BENCH_B} x {BENCH_SEC:g} s @ "
+          f"8 kHz, fft_size 1500, 216 outputs: {t['dense216']:.3f} ms, "
+          f"plain {t['dense216_plain']:.3f} ms", flush=True)
+    del args216
+
+    # the VAD on the card at f32 against the CPU's plain torch at f64
+    fs = synth.FS
+    noise = synth.noise_clip()
+    sig5 = synth.conversation_stream()[:5 * fs]
+    vads = {}
+    for where, d_, dt_ in (("card", dev, torch.float32),
+                           ("cpu", "cpu", torch.float64)):
+        v = ltsd.LtsdVad(device=d_, dtype=dt_)
+        v.init_params_by_noise(fs, noise)
+        vads[where] = (v, v.scores(sig5), v.filter(sig5)[1])
+    (vg, sg, ig), (vc, sc, ic) = vads["card"], vads["cpu"]
+    d_ltsd = float(np.abs(sg - sc).max())
+    margin = float(min(np.abs(sc - vc.lambda0).min(),
+                       np.abs(sc - vc.lambda1).min()))
+    print(f"phase 15 LTSD, 5 s @ 8 kHz: scores {sg.shape} max|d| "
+          f"{d_ltsd:.3e} dB (tol {LTSD_ATOL}), lambda0 {vg.lambda0:.6f} / "
+          f"{vc.lambda0:.6f}, least margin to a threshold {margin:.3f} dB, "
+          f"intervals {ig} identical {ig == ic}", flush=True)
+    if d_ltsd > LTSD_ATOL or ig != ic or not ig or margin <= LTSD_ATOL:
+        raise AssertionError("the LTSD VAD on the card disagrees with the "
+                             "CPU's")
+    nr = noisered.NoiseReduction(device=dev)
+    nr.init_noise(fs, noise)
+    ws = nr.window_size
+    gates = [noisered.spectral_gate(sig5, nr.profile, ws, nr.amount, dev)
+             for _ in range(2)]
+    want = noisered.spectral_gate(sig5, nr.profile, ws, nr.amount, "cpu",
+                                  torch.float64)
+    d_gate = float(np.abs(gates[0] - want).max() / np.abs(want).max())
+    gate_bits = np.array_equal(gates[0], gates[1])
+    print(f"phase 15 spectral gate, 5 s @ 8 kHz: max|d| / peak "
+          f"{d_gate:.3e} (tol {GATE_RTOL}), two calls bitwise equal "
+          f"{gate_bits}", flush=True)
+    if d_gate > GATE_RTOL or not gate_bits:
+        raise AssertionError("the spectral gate on the card disagrees")
+
+    # k-means on the card: Lloyd's from one init against the CPU at f64
+    Xb = blobs(rng, 16, 100, 28)
+    C0 = Xb[np.arange(16) * 100 + rng.randint(100, size=16)]  # one a blob
+    mb = np.ones(len(Xb), bool)
+    got, _ = kmeans.lloyd(torch.tensor(Xb, dtype=torch.float32, device=dev),
+                          torch.from_numpy(mb).to(dev), C0)
+    want, _ = kmeans.lloyd(torch.from_numpy(Xb), torch.from_numpy(mb), C0)
+    d_lloyd = float((got.double().cpu() - want).abs().max())
+    print(f"phase 15 lloyd, 1600 x 28, K 16, f32 card vs f64 CPU: "
+          f"centroids max|d| {d_lloyd:.3e} (tol {LLOYD_ATOL})", flush=True)
+    if d_lloyd > LLOYD_ATOL:
+        raise AssertionError("lloyd on the card disagrees with the CPU")
+    # k-means|| over 8 seeds: one call, 8 speakers of the same features
+    # (24 s of a noisy speaker)
+    feats = np.concatenate([extract.mix_feature(
+        fs, synth.noisy_utterance("alice", 8.0, 70 + j), device=dev)
+        for j in range(3)])
+    Xs = np.repeat(feats[None], 8, axis=0)
+    ms = np.ones(Xs.shape[:2], bool)
+    _, in_card = kmeans.kmeansii_device(
+        torch.tensor(Xs, dtype=torch.float32, device=dev),
+        torch.from_numpy(ms).to(dev), 32)
+    _, in_cpu = kmeans.kmeansii_device(torch.tensor(Xs), torch.from_numpy(ms),
+                                       32)
+    ratio = in_card.double().cpu() / in_cpu.median()
+    print(f"phase 15 kmeansii_device, 8 seeds, {Xs.shape[1]} x {d} "
+          f"features, K 32: inertia / "
+          f"CPU median {[round(float(x), 4) for x in ratio]} (tol "
+          f"{KMEANS_FACTOR})", flush=True)
+    if not bool((ratio <= KMEANS_FACTOR).all()):
+        raise AssertionError("k-means|| seeding collapsed on the card")
+    # seeding + EM at the UBM-scale bank: KM_SPEAKERS x KM_SECONDS, GMM-256
+    n_km = n_frames(int(KM_SECONDS * fs), fe8.frame_len, fe8.frame_shift)
+    Xu = torch.tensor(np.stack([blobs(rng, 64, -(-n_km // 64), d, 1.0, 2.0)
+                                [:n_km] for _ in range(KM_SPEAKERS)]),
+                      dtype=torch.float32, device=dev)
+    mu_ = torch.ones(Xu.shape[:2], dtype=torch.bool, device=dev)
+    ubm_set = GMMSet(gmm_order=KM_K, config=GmmConfig(
+        n_mixtures=KM_K, init_with_kmeans=True), device=dev)
+    for s_ in range(KM_SPEAKERS):
+        ubm_set.fit_new(Xu[s_].cpu().numpy(), f"s{s_}")
+    ubm_set.train()  # through the entry point, once
+    tl = ubm_set.train_log
+    if not np.isfinite(ubm_set.params.means).all():
+        raise AssertionError("the UBM-scale k-means-seeded bank is not "
+                             "finite")
+    klog = {}
+    kmeans.kmeansii_device(Xu, mu_, KM_K, log=klog)
+    # warm, median of 7: the seeding alone, by stage, and with EM as
+    # GMMSet.train runs it on the uploaded bank
+    t["seed_ubm"] = time_ms(lambda: kmeans.kmeansii_device(Xu, mu_, KM_K),
+                            reps=1)
+    stages = seeding_stages(lambda: kmeans.kmeansii_device(Xu, mu_, KM_K))
+    t["train_ubm"] = time_ms(lambda: gmm.fit_with_init(
+        Xu, mu_, ubm_set.config), reps=1)
+    print(f"phase 15 [{card}] k-means|| seeding, {KM_SPEAKERS} speakers x "
+          f"{KM_SECONDS:g} s ({n_km} frames, d {d}), K {KM_K}: "
+          f"{t['seed_ubm']:.1f} ms ({klog['rounds']} rounds, "
+          f"{klog['iterations']} Lloyd iterations, {klog['host_syncs']} "
+          "host syncs; by stage " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in stages.items())
+          + f"); with EM (fit_with_init, as GMMSet.train): "
+          f"{t['train_ubm']:.1f} ms, k-means {tl['kmeans_rounds']} rounds / "
+          f"{tl['kmeans_iterations']} iterations / "
+          f"{tl['kmeans_host_syncs']} syncs, EM {tl['iterations']} "
+          f"iterations / {tl['host_syncs']} syncs", flush=True)
+    del Xu, mu_, ubm_set
+
+    # the live path through the port's GUI server
+    exp_conv = synth.expected(synth.CONV_EXPECTED)
+    app = gui.GuiApp(model=ModelInterface(PipelineConfig(gmm=GmmConfig(
+        init_with_kmeans=True)), device=dev), device=dev)
+    srv, _ = gui.make_server(port=0, app=app)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with plain_calls() as plain15:
+            http(base, "/api/noise", wav_bytes(noise, fs))
+            kept = [http(base, f"/api/enroll?name={label}",
+                         wav_bytes(clip, fs))["kept"]
+                    for label, clip in synth.enrollment_clips()]
+            http(base, "/api/train", b"")
+            train_log = dict(app.model.gmmset.train_log)
+            sec, seed0 = synth.HELDOUT_CONV
+            heldout = [http(base, "/api/predict?filter=1", wav_bytes(
+                synth.noisy_utterance(label, sec, seed0 + i), fs))["label"]
+                for i, label in enumerate(synth.SPEAKER_FREQS)]
+            print(f"phase 15 GUI: noise, {len(kept)} filtered enrollments "
+                  f"(kept {min(kept)}-{max(kept)} samples), k-means-seeded "
+                  f"train {train_log}, held-out labels {heldout}",
+                  flush=True)
+            if heldout != list(synth.SPEAKER_FREQS):
+                raise AssertionError("the k-means-seeded bank mislabels "
+                                     "held-out clips")
+            http(base, "/api/load", json.dumps(
+                {"path": synth.CONV_SESSION}).encode())
+            http(base, "/api/conv/start?fs=8000", b"")
+            gpu_frontend.LAUNCHES = gpu_gmm.LAUNCHES = 0
+            stream = synth.conversation_stream()
+            step = int(ConversationSession.CONV_INTERVAL * fs)
+            bad_ticks = []
+            ticks = 0
+            for i in range(0, len(stream), step):
+                before = (gpu_frontend.LAUNCHES, gpu_gmm.LAUNCHES)
+                r = http(base, "/api/conv/feed",
+                         stream[i:i + step].astype("<i2").tobytes())
+                grew = (gpu_frontend.LAUNCHES - before[0],
+                        gpu_gmm.LAUNCHES - before[1])
+                # one launch of each a tick that predicted, none else
+                new = app.conv.result_list[ticks:r["ticks"]]
+                ticks = r["ticks"]
+                n_new = sum(lab is not None for lab in new)
+                if grew != (n_new, n_new):
+                    bad_ticks.append((ticks, grew))
+            timeline = http(base, "/api/conv/timeline")["timeline"]
+            labels = list(app.conv.result_list)
+            launches15 = {"frontend": gpu_frontend.LAUNCHES,
+                          "gmm": gpu_gmm.LAUNCHES}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join()
+    want_tl = [{"time": tt, "label": lab} for tt, lab in exp_conv["timeline"]]
+    n_pred = sum(lab is not None for lab in labels)
+    print(f"phase 15 conversation, {len(stream) / fs:g} s in "
+          f"{len(labels)} ticks ({n_pred} predicting): timeline "
+          f"{[(e['time'], e['label']) for e in timeline]} equals the JAX "
+          f"package's {timeline == want_tl}; per-tick labels equal "
+          f"{labels == [k['label'] for k in exp_conv['ticks']]}; launches "
+          f"{launches15}, ticks off one launch a predicting tick "
+          f"{bad_ticks}; plain versions run {plain15}", flush=True)
+    if (timeline != want_tl or bad_ticks
+            or labels != [k["label"] for k in exp_conv["ticks"]]
+            or launches15 != {"frontend": n_pred, "gmm": n_pred}
+            or (dev.type == "cuda" and plain15)):
+        raise AssertionError("the live path disagrees with the JAX "
+                             "package's timeline or its launches")
+
+    # timing of the live path on the JAX-calibrated session
+    live = ModelInterface.load(synth.CONV_SESSION, device=dev)
+    window = stream[int(2.0 * fs):int(3.5 * fs)].astype(np.float64)
+    tick = lambda: live.predict(fs, live.filter(fs, window))  # noqa: E731
+    # K1 and K2 at the shapes a tick gives them, against their plain
+    # versions on the padded batch the tick built
+    batches = []
+    predict_scores = fastpath.predict_scores
+    fastpath.predict_scores = lambda *a: batches.append(a) or \
+        predict_scores(*a)
+    try:
+        tick()
+    finally:
+        fastpath.predict_scores = predict_scores
+    sig_t, len_t, bank_t, fs_t, cfg_t = batches[0]
+    fe_t = extract.frontend(fs_t, cfg_t, dev)
+    if not isinstance(fe_t, PackedFrontend) or len(batches) != 1:
+        raise AssertionError("a tick did not take the packed route once")
+    err_fe = max(err_fe, check_frontend(
+        f"a tick's batch {tuple(sig_t.shape)}", fe_t, sig_t, len_t,
+        phase=15))
+    feats_t, mask_t = fe_t(sig_t, len_t)
+    err_gmm = max(err_gmm, check_scoring(
+        f"the session's bank {bank_t.n_speakers} x {bank_t.n_mixtures}, a "
+        f"tick's batch", bank_t, feats_t, mask_t, phase=15))
+    want_t = gpu_gmm.batch_bank_avg_loglik_reference(
+        bank_t, gpu_frontend.packed_from_signals_reference(
+            *frontend_args(fe_t, sig_t, len_t)), mask_t)
+    check_fused("a tick's predict_scores vs the plain versions",
+                predict_scores(*batches[0]), want_t, phase=15)
+    del batches, feats_t, mask_t, want_t
+    t["tick"] = time_ms(tick, reps=1)
+    t["init_noise"] = time_ms(lambda: live.init_noise(fs, noise), reps=1)
+    print(f"phase 15 [{card}] conversation tick (filter + predict of a "
+          f"1.5 s window): {t['tick']:.3f} ms; " + device_times(tick),
+          flush=True)
+    print(f"phase 15 [{card}] init_noise ({synth.NOISE_SECONDS:g} s): "
+          f"{t['init_noise']:.3f} ms", flush=True)
+    trainers = {}
+    for name, km in (("train_kmeans", True), ("train_plain", False)):
+        trainers[name] = ModelInterface(PipelineConfig(gmm=GmmConfig(
+            init_with_kmeans=km)), device=dev)
+        trainers[name].init_noise(fs, noise)
+        for label, clip in synth.enrollment_clips():
+            trainers[name].enroll(label, fs,
+                                  trainers[name].filter(fs, clip))
+    t.update(time_interleaved({k: m.train for k, m in trainers.items()},
+                              reps=1))
+    Xe, me = _pad_stack([np.concatenate(f) for f in
+                         trainers["train_kmeans"].features.values()])
+    Xe = torch.tensor(Xe, dtype=torch.float32, device=dev)
+    me = torch.from_numpy(me).to(dev)
+    t["seed_conv"] = time_ms(lambda: kmeans.kmeansii_device(Xe, me, 32),
+                             reps=1)
+    tk_, tp_ = (trainers[k].gmmset.train_log for k in trainers)
+    print(f"phase 15 [{card}] ModelInterface.train, 3 speakers x 12 s "
+          f"filtered, GMM-32: k-means-seeded {t['train_kmeans']:.3f} ms "
+          f"({tk_}), plain init {t['train_plain']:.3f} ms ({tp_}), in the "
+          f"same trials; the seeding alone {t['seed_conv']:.3f} ms "
+          f"({t['seed_conv'] / t['train_kmeans']:.1%} of k-means-seeded "
+          "training)", flush=True)
+
     # the kernels' bounds, from this run's shapes
     B8, Lp8 = bench_sig.shape
     T8 = n_frames(Lp8, fe8.frame_len, fe8.frame_shift)
@@ -1756,6 +2207,13 @@ def main(argv=None):
             4 * BENCH_B * T48 * (fe48.frame_len + nceps
                                  + fe48.acorr.shape[1])
             + 4 * sum(x.numel() for x in (fe48.mel, fe48.dct, fe48.acorr))),
+        "mfcc_from_frames_dense": bound(
+            frontend_flops(B216 * T216, fe216.n_fft,
+                           (fe216.mel, fe216.acorr), fe216.dct.shape[1]),
+            4 * B216 * T216 * (fe216.frame_len + fe216.dct.shape[1]
+                               + fe216.acorr.shape[1])
+            + 4 * sum(x.numel() for x in (fe216.mel, fe216.dct,
+                                          fe216.acorr))),
         "fused": bound(fe_work + score_flops(valid8, d, SK),
                        4 * B8 * Lp8 + 4 * B8 + op_bytes + bank_bytes
                        + 4 * B8 * bench_bank.n_speakers),
@@ -1805,6 +2263,9 @@ def main(argv=None):
         entry("fused_bank_predict_bf16", "predict_fused.cuh",
               "pallas_predict.py:91", launches4["bf16"], err_bf16,
               t["fused_bf16"], t["fused_plain_bf16"], "fused"),
+        entry("mfcc_from_frames_dense", "frontend_frames.cu",
+              "pallas_frontend.py:50", launches_dense, err_dense,
+              t["dense216"], t["dense216_plain"], "mfcc_from_frames_dense"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -71,11 +71,11 @@ def _bind(lib):
     lib.srt_fft_packed_frames.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                           f, i, f, p]
     lib.srt_fft_packed_frames.restype = i
-    lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                        i, i, f, p]
+    lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
+                                        i, i, i, f, p]
     lib.srt_frames_frontend.restype = i
-    lib.srt_frames_smem_bytes.argtypes = [i]
-    lib.srt_frames_smem_bytes.restype = i
+    lib.srt_frames_scratch_floats.argtypes = [i, i]
+    lib.srt_frames_scratch_floats.restype = ctypes.c_longlong
     lib.srt_bank_avg_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.srt_bank_avg_loglik.restype = i
     lib.srt_bank_warp_frames.argtypes = [i]

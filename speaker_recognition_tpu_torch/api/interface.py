@@ -1,13 +1,15 @@
 """Session API (src/gui/interface.py:28-109), as in
 speaker_recognition_tpu/api/interface.py.
 
-ModelInterface accumulates per-speaker features (enroll), trains a GMMSet
-bank in one batched EM (train), predicts batches of utterances through
-api/fastpath, decides single utterances against the UBM
-(predict_with_rejection) and reads and writes the session artifact, all on
-one device. A batch is padded to a power-of-two bucket of at least 8
-utterances and the samples to a multiple of features/extract.LENGTH_BUCKET;
-padding rows score as invalid and are dropped. VAD is not ported yet.
+ModelInterface calibrates an LTSD VAD on room noise and filters signals
+with it (init_noise, filter), accumulates per-speaker features (enroll),
+trains a GMMSet bank in one batched EM (train), predicts batches of
+utterances through api/fastpath, decides single utterances against the UBM
+(predict_with_rejection) and reads and writes the session artifact, with
+the VAD's calibration, all on one device. A batch is padded to a
+power-of-two bucket of at least 8 utterances and the samples to a multiple
+of features/extract.LENGTH_BUCKET; padding rows score as invalid and are
+dropped.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..config import PipelineConfig, frame_geometry
 from ..features import extract
 from ..models.gmmset import GMMSet
 from ..utils import serialization
+from ..vad.ltsd import LtsdVad
 from . import fastpath
 
 __all__ = ["ModelInterface"]
@@ -34,9 +37,12 @@ class ModelInterface:
         self.config = config or PipelineConfig()
         self.device = torch.device(device)
         self.features: dict[str, list] = defaultdict(list)
+        vc = self.config.vad
+        self.vad = LtsdVad(order=vc.order, window_factor=vc.window_factor,
+                           lambda0_scale=vc.lambda0_scale,
+                           lambda1_scale=vc.lambda1_scale,
+                           device=self.device)
         self.gmmset = self._new_gmmset()
-        # VAD calibration of a loaded session, written back by dump()
-        self.vad_state: dict | None = None
 
     def _new_gmmset(self) -> GMMSet:
         ubm = None
@@ -53,6 +59,22 @@ class ModelInterface:
                                    self.config.features,
                                    dtype=self.config.dtype,
                                    device=self.device)
+
+    # -- VAD ---------------------------------------------------------------
+
+    def init_noise(self, fs: int, signal):
+        """Calibrate the LTSD VAD from an environment-noise clip
+        (interface.py:36-41)."""
+        self.vad.init_params_by_noise(fs, np.asarray(signal))
+
+    def filter(self, fs: int, signal):
+        """The voiced samples of a signal, or an empty array when the VAD
+        keeps no more than config.vad.keep_fraction of it (the length-1/3
+        rule of interface.py:43-53)."""
+        ret, _ = self.vad.filter(np.asarray(signal))
+        if len(ret) > len(signal) * self.config.vad.keep_fraction:
+            return ret
+        return np.array([])
 
     # -- enroll / train ----------------------------------------------------
 
@@ -155,10 +177,18 @@ class ModelInterface:
     # -- persistence -------------------------------------------------------
 
     def dump(self, fname: str):
-        """Write the session artifact (the npz of save_session)."""
+        """Write the session artifact (the npz of save_session), with the
+        VAD's calibration once init_noise has run."""
+        vad_state = None
+        if self.vad.noise_amp is not None:
+            vad_state = {"noise_amp": self.vad.noise_amp,
+                         "lambda0": self.vad.lambda0,
+                         "lambda1": self.vad.lambda1,
+                         "window_size": self.vad.window_size,
+                         "order": self.vad.order,
+                         "fs": self.vad.fs}
         serialization.save_session(fname, gmmset_state=self.gmmset.state(),
-                                   config=self.config,
-                                   vad_state=self.vad_state)
+                                   config=self.config, vad_state=vad_state)
 
     @staticmethod
     def load(fname: str,
@@ -167,5 +197,11 @@ class ModelInterface:
         m = ModelInterface(config, device)
         m.gmmset = GMMSet.from_state(st, config=config.gmm,
                                      dtype=config.dtype, device=m.device)
-        m.vad_state = vad_state
+        if vad_state is not None:  # the calibration init_noise made
+            m.vad.order = int(vad_state["order"])
+            m.vad.noise_amp = np.asarray(vad_state["noise_amp"])
+            m.vad.lambda0 = float(vad_state["lambda0"])
+            m.vad.lambda1 = float(vad_state["lambda1"])
+            m.vad.window_size = int(vad_state["window_size"])
+            m.vad.fs = int(vad_state["fs"])
         return m

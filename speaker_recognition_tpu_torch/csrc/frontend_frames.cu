@@ -43,7 +43,16 @@
 //   * log and DCT run per frame at the end of the block.
 // Any frame length is taken (K-slices are zero-padded: 1411 samples at
 // 44.1 kHz), any column count (FullFrontend pads its bins to a multiple of
-// 4 for the 16-byte copies), and up to 192 mel + autocorrelation outputs.
+// 4 for the 16-byte copies), and any number of mel + autocorrelation
+// outputs. Up to 192 (OPL 9, 16 or 24 a lane) the sums stay in registers
+// from the first column chunk to the last. Past 192 the projection loops
+// over output chunks of 192 inside each column chunk, and each chunk's
+// sums live between column chunks in the block's rows of a global
+// scratch [blocks * FT, chunks * 192] (L2-resident: a lane reloads and
+// stores its own entries, the same FMA sequence as in registers); the last
+// column chunk writes the log-mel rows there and the DCT reads them. The
+// DFT runs once whatever the count; at most 192 outputs take no scratch
+// and their arithmetic is unchanged.
 // Built without --use_fast_math, for the accurate logf.
 
 #include <cuda_runtime.h>
@@ -152,9 +161,9 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
     const float* __restrict__ frames, const float* __restrict__ C,
     const float* __restrict__ S, const float* __restrict__ W,
     const float* __restrict__ A, const float* __restrict__ dct,
-    float* __restrict__ ceps, float* __restrict__ r, int n, int flen,
-    int ncols, int nmel, int nac, int nceps, float power_floor, bool vf,
-    bool vo) {
+    float* __restrict__ ceps, float* __restrict__ r, float* scratch, int n,
+    int flen, int ncols, int nmel, int nac, int nceps, float power_floor,
+    bool vf, bool vo) {
   constexpr int FPW = FT / 8;   // frames per warp (and per lane, stage 1)
   constexpr int FPL = FT / 32;  // frames per lane, stage 2
   constexpr int NOP = 8 * OPL;  // padded mel | autocorrelation outputs
@@ -166,6 +175,10 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
   const int f0 = blockIdx.x * FT;
   const int nf = min(FT, n - f0);
   const int nout = nmel + nac;
+  // output chunks of NOP; past the first, the sums live in `scratch`
+  const int noc = (nout + NOP - 1) / NOP;
+  const int nopt = noc * NOP;  // scratch row stride
+  float* rows = scratch + (size_t)f0 * nopt;  // the block's rows, noc > 1
   const int nk = (flen + KT - 1) / KT;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -273,29 +286,69 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
               fmaxf(xr[i][q] * xr[i][q] + xi[i][q] * xi[i][q], power_floor);
         }
     }
-    // stage 2 reads the cw columns of ys; wa's rows past cw are zero
-    for (int i = tid; i < CC * NOP; i += NT) {
-      const int cc = i / NOP, j = i % NOP;
-      float v = 0.f;
-      if (cc < cw && j < nout)
-        v = j < nmel ? W[(size_t)(c0 + cc) * nmel + j]
-                     : A[(size_t)(c0 + cc) * nac + (j - nmel)];
-      wa[i] = v;
-    }
-    __syncthreads();
-    for (int cc = 0; cc < cw; ++cc) {
-      float y[FPL], w[OPL];
+    const bool last = c0 + CC >= ncols;
+    for (int oc = 0; oc < noc; ++oc) {
+      const int o0 = oc * NOP;
+      if (oc > 0) __syncthreads();  // every lane is done with wa
+      // stage 2 reads the cw columns of ys; wa's rows past cw are zero
+      for (int i = tid; i < CC * NOP; i += NT) {
+        const int cc = i / NOP, j = o0 + i % NOP;
+        float v = 0.f;
+        if (cc < cw && j < nout)
+          v = j < nmel ? W[(size_t)(c0 + cc) * nmel + j]
+                       : A[(size_t)(c0 + cc) * nac + (j - nmel)];
+        wa[i] = v;
+      }
+      __syncthreads();
+      if (noc > 1) {  // this chunk's sums so far (a lane's own entries)
 #pragma unroll
-      for (int i = 0; i < FPL; ++i) y[i] = ys[(f2 + i) * YS + cc];
+        for (int i = 0; i < FPL; ++i)
 #pragma unroll
-      for (int j = 0; j < OPL; ++j) w[j] = wa[cc * NOP + og + 8 * j];
+          for (int j = 0; j < OPL; ++j)
+            acc[i][j] =
+                c0 == 0 ? 0.f : rows[(f2 + i) * nopt + o0 + og + 8 * j];
+      }
+      for (int cc = 0; cc < cw; ++cc) {
+        float y[FPL], w[OPL];
 #pragma unroll
-      for (int i = 0; i < FPL; ++i)
+        for (int i = 0; i < FPL; ++i) y[i] = ys[(f2 + i) * YS + cc];
 #pragma unroll
-        for (int j = 0; j < OPL; ++j) acc[i][j] = fmaf(y[i], w[j], acc[i][j]);
+        for (int j = 0; j < OPL; ++j) w[j] = wa[cc * NOP + og + 8 * j];
+#pragma unroll
+        for (int i = 0; i < FPL; ++i)
+#pragma unroll
+          for (int j = 0; j < OPL; ++j)
+            acc[i][j] = fmaf(y[i], w[j], acc[i][j]);
+      }
+      if (noc > 1) {  // the last column chunk leaves the log-mel rows
+#pragma unroll
+        for (int i = 0; i < FPL; ++i)
+#pragma unroll
+          for (int j = 0; j < OPL; ++j) {
+            const int o = o0 + og + 8 * j;
+            rows[(f2 + i) * nopt + o] =
+                last && o < nmel ? logf(fmaxf(acc[i][j], power_floor))
+                                 : acc[i][j];
+          }
+      }
     }
   }
   __syncthreads();  // every lane is done with ys: reuse it for the sums
+
+  if (noc > 1) {  // the scratch rows hold log-mel | autocorrelation
+    for (int i = tid; i < nf * nceps; i += NT) {
+      const int f = i / nceps, c = i % nceps;
+      const float* lm = rows + (size_t)f * nopt;
+      float s = 0.f;
+      for (int m = 0; m < nmel; ++m) s = fmaf(lm[m], dct[m * nceps + c], s);
+      ceps[(size_t)(f0 + f) * nceps + c] = s;
+    }
+    for (int i = tid; i < nf * nac; i += NT) {
+      const int f = i / nac, j = i % nac;
+      r[(size_t)(f0 + f) * nac + j] = rows[(size_t)f * nopt + nmel + j];
+    }
+    return;
+  }
 
   float* sums = ys;  // [FT][NOP]: log-mel | autocorrelation
 #pragma unroll
@@ -321,18 +374,17 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
   }
 }
 
-// OPL for nout outputs: 9 (<= 72), 16 (<= 128) or 24 (<= 192); 0 when
-// nout > 192.
-int pick_opl(int nout) {
-  const int o = nout <= 72 ? 9 : nout <= 128 ? 16 : nout <= 192 ? 24 : 0;
-  return o != 0 && 4 * smem_floats(o) <= MAX_SMEM ? o : 0;
-}
+// OPL for nout outputs: 9 (<= 72), 16 (<= 128) or 24 (more: output
+// chunks of 192).
+int pick_opl(int nout) { return nout <= 72 ? 9 : nout <= 128 ? 16 : 24; }
+
+static_assert(4 * smem_floats(24) <= MAX_SMEM, "the widest block fits");
 
 template <int OPL>
 cudaError_t launch(cudaStream_t st, const float* frames, const float* C,
                    const float* S, const float* W, const float* A,
-                   const float* dct, float* ceps, float* r, int n, int flen,
-                   int ncols, int nmel, int nac, int nceps,
+                   const float* dct, float* ceps, float* r, float* scratch,
+                   int n, int flen, int ncols, int nmel, int nac, int nceps,
                    float power_floor) {
   const auto aligned = [](const float* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -345,35 +397,39 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float* C,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   frames_frontend_kernel<OPL><<<(n + FT - 1) / FT, NT, smem, st>>>(
-      frames, C, S, W, A, dct, ceps, r, n, flen, ncols, nmel, nac, nceps,
-      power_floor, vf, vo);
+      frames, C, S, W, A, dct, ceps, r, scratch, n, flen, ncols, nmel, nac,
+      nceps, power_floor, vf, vo);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Bytes of shared memory a block takes for nout = nmel + nac outputs, or
-// -1 when no instantiation serves them.
-extern "C" int srt_frames_smem_bytes(int nout) {
-  const int opl = pick_opl(nout);
-  return opl ? 4 * smem_floats(opl) : -1;
+// Floats of the global scratch a call of n frames with nout = nmel + nac
+// outputs needs: 0 up to 192 outputs, else a row of every output chunk for
+// each frame of every block.
+extern "C" long long srt_frames_scratch_floats(int n, int nout) {
+  if (nout <= 8 * 24) return 0;
+  const long long chunks = (nout + 8 * 24 - 1) / (8 * 24);
+  return (long long)((n + FT - 1) / FT) * FT * chunks * (8 * 24);
 }
 
 // C and S [flen, ncols], W [ncols, nmel], A [ncols, nac], dct [nmel,
-// nceps]; writes ceps [n, nceps] and r [n, nac].
+// nceps]; writes ceps [n, nceps] and r [n, nac], using scratch
+// [srt_frames_scratch_floats(n, nmel + nac)] (unread when that is 0).
 extern "C" int srt_frames_frontend(
     const void* frames, const void* C, const void* S, const void* W,
-    const void* A, const void* dct, void* ceps, void* r, int n, int flen,
-    int ncols, int nmel, int nac, int nceps, float power_floor,
-    void* stream) {
+    const void* A, const void* dct, void* ceps, void* r, void* scratch,
+    int n, int flen, int ncols, int nmel, int nac, int nceps,
+    float power_floor, void* stream) {
+  if (n < 1 || (srt_frames_scratch_floats(n, nmel + nac) && !scratch))
+    return (int)cudaErrorInvalidValue;
   const int opl = pick_opl(nmel + nac);
-  if (n < 1 || opl == 0) return (int)cudaErrorInvalidValue;
   const auto go = [&](auto oc) {
     return (int)launch<decltype(oc)::value>(
         (cudaStream_t)stream, (const float*)frames, (const float*)C,
         (const float*)S, (const float*)W, (const float*)A, (const float*)dct,
-        (float*)ceps, (float*)r, n, flen, ncols, nmel, nac, nceps,
-        power_floor);
+        (float*)ceps, (float*)r, (float*)scratch, n, flen, ncols, nmel, nac,
+        nceps, power_floor);
   };
   return opl == 9    ? go(std::integral_constant<int, 9>{})
          : opl == 16 ? go(std::integral_constant<int, 16>{})

@@ -282,23 +282,25 @@ def speaker_generator(seed: int, speaker: int) -> torch.Generator:
 
 
 def init_params(X: torch.Tensor, mask: torch.Tensor, K: int,
-                seed: int) -> GmmParams:
-    """Reference init (k-means off) per speaker: K uniformly drawn valid
-    frames as means, the global data std (ddof=1) as every sigma, uniform
-    weights (gmm.cc:306-361). X [S, T, d]; each speaker's valid frames must
-    be a contiguous prefix, so an index < n is a valid frame."""
+                seed: int, means: torch.Tensor | None = None) -> GmmParams:
+    """Reference init per speaker: K uniformly drawn valid frames as means
+    (k-means off) or the given `means` [S, K, d] (k-means' centroids), the
+    global data std (ddof=1) as every sigma, uniform weights
+    (gmm.cc:306-361). X [S, T, d]; each speaker's valid frames must be a
+    contiguous prefix, so an index < n is a valid frame."""
     S, T, d = X.shape
     m = mask.to(X.dtype).unsqueeze(-1)
     n = m.sum(dim=-2)                                      # [S, 1]
     data_mean = (X * m).sum(dim=-2) / n
     ss = ((X - data_mean.unsqueeze(-2)) ** 2 * m).sum(dim=-2) / (n - 1.0)
     sigma0 = torch.sqrt(ss)                                # [S, d]
-    n_valid = mask.sum(dim=-1).cpu()
-    idx = torch.stack([
-        torch.randint(0, max(int(n_valid[s]), 1), (K,),
-                      generator=speaker_generator(seed, s))
-        for s in range(S)]).to(X.device)
-    means = torch.gather(X, 1, idx.unsqueeze(-1).expand(S, K, d))
+    if means is None:
+        n_valid = mask.sum(dim=-1).cpu()
+        idx = torch.stack([
+            torch.randint(0, max(int(n_valid[s]), 1), (K,),
+                          generator=speaker_generator(seed, s))
+            for s in range(S)]).to(X.device)
+        means = torch.gather(X, 1, idx.unsqueeze(-1).expand(S, K, d))
     return GmmParams(
         weights=torch.full((S, K), 1.0 / K, dtype=X.dtype, device=X.device),
         means=means,
@@ -390,6 +392,28 @@ def fit_from_params(X: torch.Tensor, mask: torch.Tensor, params0: GmmParams,
     """EM from explicit initial parameters [S, ...]."""
     step = lambda p: m_step(sufficient_stats(p, X, mask), cfg)  # noqa: E731
     return _em_loop(X, mask, params0, cfg, step, log)
+
+
+def fit_with_init(X: torch.Tensor, mask: torch.Tensor, cfg: GmmConfig,
+                  seed: int = 0, log: dict | None = None):
+    """Full fit of a bank honoring cfg.init_with_kmeans: k-means|| means
+    (models/kmeans.kmeansii_device, every speaker at once on the device;
+    gmm.cc:330-346), the reference init's weights and sigmas, then EM.
+    `log` receives EM's iterations and host syncs, and k-means' as
+    kmeans_rounds, kmeans_iterations and kmeans_host_syncs."""
+    if not cfg.init_with_kmeans:
+        return fit(X, mask, cfg, seed, log)
+    from . import kmeans
+
+    klog: dict = {}
+    C, _ = kmeans.kmeansii_device(X, mask, cfg.n_mixtures, seed, log=klog)
+    params0 = init_params(X, mask, cfg.n_mixtures, seed, C.to(X.dtype))
+    params, ll = fit_from_params(X, mask, params0, cfg, log)
+    if log is not None:
+        log.update(kmeans_rounds=klog["rounds"],
+                   kmeans_iterations=klog["iterations"],
+                   kmeans_host_syncs=klog["host_syncs"])
+    return params, ll
 
 
 def fit_from_ubm(X: torch.Tensor, mask: torch.Tensor, ubm: GmmParams,

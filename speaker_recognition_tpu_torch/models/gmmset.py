@@ -72,7 +72,9 @@ class GMMSet:
         self._pending: list[np.ndarray] = []
         self.params: GmmParams | None = None
         self.bank: GmmBank | None = None
-        # iterations and host syncs of the last train()
+        # iterations and host syncs of the last train() (EM's, and
+        # k-means' as kmeans_rounds, kmeans_iterations and
+        # kmeans_host_syncs)
         self.train_log: dict = {}
         self._with_ubm = None  # (params, ubm, GmmBank of bank + UBM)
 
@@ -112,15 +114,12 @@ class GMMSet:
 
     def train(self, seed: int = 0):
         """Fit every pending speaker in one batched EM: MAP from the UBM
-        when there is one, else EM from the reference init, speaker s drawn
+        when there is one, else EM from the reference init, its means
+        seeded by k-means|| when config.init_with_kmeans; speaker s draws
         from models/gmm.speaker_generator(seed, s)."""
         if not self._pending:
             return
         cfg = self.config
-        if self.ubm is None and cfg.init_with_kmeans:
-            raise NotImplementedError(
-                "init_with_kmeans: k-means|| seeding (models/kmeans.py) is "
-                "not ported yet")
         dt = self._torch_dtype
         Xs, masks = _pad_stack(self._pending)
         X = torch.as_tensor(Xs, dtype=dt, device=self.device)
@@ -130,7 +129,7 @@ class GMMSet:
             ubm = gmm.params_to(self.ubm, dt, self.device)
             new, _ = gmm.fit_from_ubm(X, mask, ubm, cfg, self.train_log)
         else:
-            new, _ = gmm.fit(X, mask, cfg, seed, self.train_log)
+            new, _ = gmm.fit_with_init(X, mask, cfg, seed, self.train_log)
         self._append(gmm.params_numpy(new))
         self._pending = []
 

@@ -334,7 +334,7 @@ def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr,
 def mfcc_from_frames_dense(wp, C, S, mel, dct, floor: float, acorr):
     """The full-spectrum frontend as dense DFT products (csrc/
     frontend_frames.cu): what mfcc_from_frames takes at an n_fft that is
-    not a power of two."""
+    not a power of two. Any number of mel + autocorrelation outputs."""
     if wp.device.type == "cpu":
         return mfcc_from_frames_reference(wp, C, S, mel, dct, floor, acorr)
     if wp.device.type != "cuda":
@@ -355,19 +355,20 @@ def mfcc_from_frames_dense(wp, C, S, mel, dct, floor: float, acorr):
             f"{tuple(C.shape)}, mel {tuple(mel.shape)}, dct "
             f"{tuple(dct.shape)}, acorr {tuple(acorr.shape)}")
     lib = _build.load()
-    if lib.srt_frames_smem_bytes(nmel + nac) < 0:
-        raise ValueError(f"{nmel} mel + {nac} autocorrelation outputs: the "
-                         "dense full-spectrum kernel takes at most 192")
     ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
     r = torch.empty((n, nac), dtype=torch.float32, device=dev)
     if n == 0:
         return ceps, r
+    # past 192 outputs the kernel keeps its sums in global rows
+    scratch = torch.empty(lib.srt_frames_scratch_floats(n, nmel + nac),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.srt_frames_frontend(
             wp.data_ptr(), C.data_ptr(), S.data_ptr(), mel.data_ptr(),
             acorr.data_ptr(), dct.data_ptr(), ceps.data_ptr(), r.data_ptr(),
-            n, flen, ncols, nmel, nac, nceps, float(floor), stream)
+            scratch.data_ptr(), n, flen, ncols, nmel, nac, nceps,
+            float(floor), stream)
     _build.check(err, "dense full-spectrum frontend kernel")
     global FULL_DENSE_LAUNCHES
     FULL_DENSE_LAUNCHES += 1

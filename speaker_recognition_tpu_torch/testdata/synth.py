@@ -7,6 +7,16 @@ the JAX package at 8 kHz, `synth48_session.npz` at 48 kHz (its
 full-spectrum frontend); each `*_expected.json` names the sample rate and
 the seeds, durations and true labels of the test utterances, and the
 scores the JAX package gave them on the CPU.
+
+The live path (noise -> filter -> k-means-seeded enrollment -> streaming
+decisions) has its own fixture: room noise (white, NOISE_SIGMA), noisy
+enrollment clips, and a conversation stream of speaker turns between
+stretches of noise. `synth3_conv_session.npz` is the JAX package's session
+calibrated on noise_clip() and enrolled from the VAD-filtered noisy clips
+with k-means|| seeding; `synth3_conv_expected.json` holds the timeline its
+ConversationSession gave for conversation_stream(), its labels of the
+held-out clips and the margins by which every tick's LTSD scores cleared
+both thresholds and its winning score cleared the second.
 """
 
 from __future__ import annotations
@@ -33,6 +43,24 @@ FS48 = 48000
 TEST48 = [(1.0, 200), (1.0, 210), (1.0, 220)]
 SESSION48 = os.path.join(HERE, "synth48_session.npz")
 EXPECTED48 = os.path.join(HERE, "synth48_expected.json")
+# the live-path fixture
+NOISE_SIGMA = 100.0
+NOISE_SECONDS, NOISE_SEED = 2.0, 500
+# 12 s of enrollment a speaker, as CONV_CLIPS clips of ENROLL_CONV[0] s:
+# clip j of speaker i has seed ENROLL_CONV[1] + 10 j + i (features are
+# normalized per clip, and 3 s clips match the 1.5 s windows better than
+# one 12 s clip)
+CONV_CLIPS = 4
+ENROLL_CONV = (3.0, 300)    # (seconds, seed base) of each enrollment clip
+HELDOUT_CONV = (3.0, 400)   # ... of each held-out clip
+# turns of CONV_TURN s after CONV_LEAD s of noise, then CONV_TAIL s of
+# noise: turn boundaries 0.25 s past a multiple of the 0.4 s tick, so no
+# 1.5 s window holds two speakers near half and half
+CONV_LEAD, CONV_TURN, CONV_TAIL = 1.05, 2.0, 1.2
+CONV_TURNS = ("alice", "bob", "carol", "alice")
+CONV_SEED = 600
+CONV_SESSION = os.path.join(HERE, "synth3_conv_session.npz")
+CONV_EXPECTED = os.path.join(HERE, "synth3_conv_expected.json")
 
 
 def synth_utterance(label: str, seconds: float, seed: int,
@@ -76,3 +104,43 @@ def write_training_wavs(root: str, fs: int = FS) -> list[str]:
                           synth_utterance(label, sec, base + i, fs))
         dirs.append(d)
     return dirs
+
+
+def _noise(n: int, seed: int) -> np.ndarray:
+    """n samples of white room noise, float64 at int16 scale."""
+    return np.random.RandomState(seed).randn(n) * NOISE_SIGMA
+
+
+def _int16(x: np.ndarray) -> np.ndarray:
+    return np.clip(np.round(x), -32768, 32767).astype(np.int16)
+
+
+def noise_clip(fs: int = FS) -> np.ndarray:
+    """The operator's recording of the room: int16."""
+    return _int16(_noise(int(fs * NOISE_SECONDS), NOISE_SEED))
+
+
+def noisy_utterance(label: str, seconds: float, seed: int,
+                    fs: int = FS) -> np.ndarray:
+    """synth_utterance in room noise: int16."""
+    sig = synth_utterance(label, seconds, seed, fs).astype(np.float64)
+    return _int16(sig + _noise(len(sig), seed + 7919))
+
+
+def conversation_stream(fs: int = FS) -> np.ndarray:
+    """CONV_TURNS of CONV_TURN s each between CONV_LEAD and CONV_TAIL s of
+    silence, all in room noise: int16."""
+    parts = [np.zeros(int(fs * CONV_LEAD))]
+    parts += [synth_utterance(label, CONV_TURN, CONV_SEED + i, fs)
+              for i, label in enumerate(CONV_TURNS)]
+    parts.append(np.zeros(int(fs * CONV_TAIL)))
+    x = np.concatenate(parts).astype(np.float64)
+    return _int16(x + _noise(len(x), CONV_SEED + 99))
+
+
+def enrollment_clips(fs: int = FS) -> list[tuple[str, np.ndarray]]:
+    """(label, noisy clip) of every enrollment clip of the live path."""
+    sec, base = ENROLL_CONV
+    return [(label, noisy_utterance(label, sec, base + 10 * j + i, fs))
+            for j in range(CONV_CLIPS)
+            for i, label in enumerate(SPEAKER_FREQS)]

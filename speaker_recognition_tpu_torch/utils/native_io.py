@@ -1,8 +1,10 @@
 """Reading wav files: a ctypes binding to the repo's native decoder
 (native/wavio.cc, `make -C native` builds native/libwavio.so), with scipy
-where the library cannot be built. The port's own copy of the read path of
-speaker_recognition_tpu/utils/native_io.py; tests/test_torch_operators.py
-holds the two to the same (fs, samples).
+where the library cannot be built. The port's own copy of
+speaker_recognition_tpu/utils/native_io.py: `read_wav` (held to the JAX
+package's by tests/test_torch_operators.py) and `load_batch`, the threaded
+decode + silence removal + padded-batch assembly (host only; held to the
+JAX package's on both paths by tests/test_torch_conversation.py).
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import subprocess
 
 import numpy as np
 
-__all__ = ["read_wav"]
+__all__ = ["read_wav", "load_batch"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -41,6 +43,11 @@ def _load_library():
     lib.wavio_read.restype = ctypes.c_long
     lib.wavio_read.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
                                ctypes.c_long, ctypes.POINTER(ctypes.c_int32)]
+    lib.wavio_load_batch.restype = ctypes.c_long
+    lib.wavio_load_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_double, ctypes.c_int]
     _lib = lib
     return _lib
 
@@ -64,3 +71,55 @@ def read_wav(path: str):
     if signal.ndim > 1:
         signal = signal[:, 0]
     return int(fs), signal.astype(np.float32)
+
+
+def load_batch(paths, max_len: int | None = None, remove_silence: bool = False,
+               silence_perc: float = 0.15, n_threads: int = 0,
+               pad_multiple: int = 4096):
+    """Decode many wavs into a zero-padded float32 [B, L] batch: (batch,
+    lengths [B] int32, sample rates [B] int32), L the longest (after
+    silence removal, when asked) rounded up to pad_multiple. A file that
+    cannot be decoded gets length 0. The library does it in threads; where
+    it cannot be loaded, scipy and vad/energy.remove_silence do."""
+    paths = list(paths)
+    B = len(paths)
+    lib = _load_library()
+    if max_len is None:
+        max_len = 0
+        if lib is not None:
+            fs = ctypes.c_int32(0)
+            for p in paths:
+                n = lib.wavio_read(p.encode(), None, 0, ctypes.byref(fs))
+                max_len = max(max_len, max(int(n), 0))
+        else:
+            for p in paths:
+                _, s = read_wav(p)
+                max_len = max(max_len, len(s))
+    max_len = max(-(-max_len // pad_multiple) * pad_multiple, pad_multiple)
+
+    batch = np.zeros((B, max_len), np.float32)
+    lengths = np.zeros(B, np.int32)
+    fss = np.zeros(B, np.int32)
+    if lib is not None:
+        arr = (ctypes.c_char_p * B)(*[p.encode() for p in paths])
+        lib.wavio_load_batch(
+            arr, B, batch.ctypes.data_as(ctypes.c_void_p), max_len,
+            lengths.ctypes.data_as(ctypes.c_void_p),
+            fss.ctypes.data_as(ctypes.c_void_p),
+            1 if remove_silence else 0, silence_perc, n_threads)
+        return batch, lengths, fss
+
+    from ..vad.energy import remove_silence as rs
+    for i, p in enumerate(paths):
+        try:
+            fs, s = read_wav(p)
+        except ValueError:
+            continue
+        if remove_silence:
+            s = rs(fs, s.astype(np.int64), perc=silence_perc).astype(
+                np.float32)
+        n = min(len(s), max_len)
+        batch[i, :n] = s[:n]
+        lengths[i] = n
+        fss[i] = fs
+    return batch, lengths, fss

@@ -1,8 +1,9 @@
 """chip_smoke.py rehearsed on the CPU, at 16 utterances where it takes 512
 (and 0.5 s where the 96 and 192 kHz batches take 5 s, 70 utterances and
-speakers where the grid phase takes 70,000).
+speakers where the grid phase takes 70,000, 4 speakers x 3 s where the
+UBM-scale k-means seeding of phase 15 takes 80 x 30 s).
 
-    python tests/test_torch_chip_smoke.py    # ~2.5 min
+    python tests/test_torch_chip_smoke.py    # ~3 min
 
 Every kernel wrapper is replaced by its plain torch version (for the
 frontends, by the wrapper itself, which on CPU tensors runs its plain
@@ -41,6 +42,8 @@ EDITS = [
     ('"--device", "cuda"', '"--device", "cpu"'),
     ("GRID_B = 70000", "GRID_B = 70"),
     ("HIGH_SEC = BENCH_SEC", "HIGH_SEC = 0.5"),
+    ("KM_SPEAKERS, KM_SECONDS, KM_K = 80, 30.0, 256",
+     "KM_SPEAKERS, KM_SECONDS, KM_K = 4, 3.0, 256"),
 ]
 
 
@@ -157,13 +160,15 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def test_chip_smoke_rehearses_on_the_cpu():
-    """All fourteen phases pass on the CPU; the kernels record lists the
-    seven TPU kernels (K1 in both its modes, K6 in both its routes) with
-    every key, each launched on its path but K4, which no serving path
-    takes (its launches against its plain version are demanded by phase 11
-    itself), K1 and K5 with their FFT kernels' sources; the 8192- and
-    16384-point FFTs, 266 outputs, the 96 kHz CLI slice, the monolith's
-    cases and the grid phase all run."""
+    """All fifteen phases pass on the CPU; the kernels record lists the
+    seven TPU kernels (K1 in both its modes, K6 in both its routes, K5's
+    dense template last) with every key, each launched on its path but K4,
+    which no serving path takes (its launches against its plain version
+    are demanded by phase 11 itself), K1 and K5 with their FFT kernels'
+    sources; the 8192- and 16384-point FFTs, 266 outputs, the 96 kHz CLI
+    slice, the monolith's cases, the grid phase and the live path (216
+    outputs on the dense template, the VAD, k-means, the GUI's
+    conversation with the JAX package's timeline) all run."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
                           capture_output=True, text=True, timeout=900,
                           cwd=REPO)
@@ -176,7 +181,7 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_gmm.py:154", "pallas_gmm.py:47",
         "pallas_frontend.py:111", "pallas_frontend.py:50",
         "pallas_predict.py:91", "pallas_predict.py:215",
-        "pallas_predict.py:91"]
+        "pallas_predict.py:91", "pallas_frontend.py:50"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
         if k["name"] == "packed_from_frames":
@@ -208,7 +213,8 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert kernels[6]["source"].endswith("csrc/predict_fused.cuh")
     assert [k["name"] for k in kernels[6:]] == [
         "fused_bank_predict", "fused_bank_predict_wide",
-        "fused_bank_predict_bf16"]
+        "fused_bank_predict_bf16", "mfcc_from_frames_dense"]
+    assert kernels[9]["source"].endswith("csrc/frontend_frames.cu")
     for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
                   "266 outputs"):
         assert any(ln.startswith("phase 2 ") and shape in ln
@@ -233,6 +239,31 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert any(ln.startswith("phase 13 K6 bf16 DFT operands (dense tile)")
                for ln in lines)
     assert any(ln.startswith("phase 14 launches:") for ln in lines)
+    for start, end in (
+            ("phase 15 8 kHz, fft_size 1500, 200 mel filters + LPC (216 "
+             "outputs", "bitwise True"),
+            ("phase 15 dense kernel: 144 outputs bitwise equal inside 216",
+             "True"),
+            ("phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs",
+             "dense kernel launches 1"),
+            ("phase 15 spectral gate", "two calls bitwise equal True"),
+            ("phase 15 a tick's batch (8, 12288): two calls bitwise equal",
+             "True")):
+        assert any(ln.startswith(start) and ln.endswith(end)
+                   for ln in lines), start
+    assert any(ln.startswith("phase 15 LTSD") and "identical True" in ln
+               for ln in lines)
+    assert any(ln.startswith("phase 15 GUI:") and "held-out labels "
+               "['alice', 'bob', 'carol']" in ln for ln in lines)
+    assert any(ln.startswith("phase 15 conversation") and "equals the JAX "
+               "package's True; per-tick labels equal True" in ln
+               for ln in lines)
+    assert any(ln.startswith("phase 15 [") and "k-means|| seeding" in ln
+               and "host syncs" in ln and "rounds" in ln
+               and "Lloyd's on the data" in ln for ln in lines)
+    assert any(ln.startswith("phase 15 a tick's predict_scores vs the plain "
+                             "versions") and "argmax identical True" in ln
+               for ln in lines)
 
 
 if __name__ == "__main__":

@@ -148,16 +148,25 @@ def test_port_source_names_no_jax_import(path):
 
 
 def _entry_points():
+    from speaker_recognition_tpu_torch import vad
     from speaker_recognition_tpu_torch.features import extract
+    from speaker_recognition_tpu_torch.gui import server
     from speaker_recognition_tpu_torch.models.gmmset import GMMSet
     from speaker_recognition_tpu_torch.tools import ubm
+    from speaker_recognition_tpu_torch.vad import ltsd, noisered
     return {"GMMSet": GMMSet, "GMMSet.from_state": GMMSet.from_state,
             "mix_feature": extract.mix_feature,
             "mfcc_extract": extract.mfcc_extract,
             "lpc_extract": extract.lpc_extract,
             "PackedFrontend": extract.PackedFrontend,
             "FullFrontend": extract.FullFrontend,
-            "train_ubm": ubm.train_ubm, "adapt_speakers": ubm.adapt_speakers}
+            "train_ubm": ubm.train_ubm, "adapt_speakers": ubm.adapt_speakers,
+            "VAD": vad.VAD, "LtsdVad": ltsd.LtsdVad,
+            "noise_profile": ltsd.noise_profile,
+            "ltsd_scores": ltsd.ltsd_scores,
+            "NoiseReduction": noisered.NoiseReduction,
+            "spectral_gate": noisered.spectral_gate,
+            "GuiApp": server.GuiApp}
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))

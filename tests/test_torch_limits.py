@@ -4,7 +4,8 @@ fft_size 4096, on the packed route, which takes K1, and on the full route,
 which takes K5), 8192- and 16384-point FFTs (96 kHz with fft_size 8192 and
 192 kHz with fft_size 16384 on the packed route, fft_size 8192 on the full
 route), 128 mel filters with LPC (144 mel + autocorrelation outputs), more
-than 256 outputs, and LPC order 40 with 40 cepstra (the Levinson and the
+than 256 outputs, 216 outputs at fft_size 1500 (the dense K5 template's
+shape past its former 192), and LPC order 40 with 40 cepstra (the Levinson and the
 CMVN past 32 columns). Each runs through the CPU's plain versions (the
 dense operators) and through the FFT route's plain versions, which compute
 what the kernels compute on the card; the FFT tile's operator layout at
@@ -106,6 +107,27 @@ def test_128_filters_with_lpc_match_jax(fs, mode, impl, monkeypatch):
     got, want, mask, wmask = _extract_both(fs, _filters128, mode, impl,
                                            monkeypatch,
                                            L=8192 if fs == 8000 else None)
+    np.testing.assert_array_equal(mask, wmask)
+    assert got.shape[-1] == 13 + 15
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)
+
+
+def _dense216(c):
+    return c.FeatureConfig(mfcc=c.MfccConfig(fft_size=1500, n_filters=200))
+
+
+@pytest.mark.parametrize("impl", ["dense", "fft"])
+def test_dense_template_216_outputs_matches_jax(impl, monkeypatch):
+    """fft_size 1500 (not a power of two: the dense K5 template on the
+    card) with 200 mel filters and LPC order 15, 216 mel + autocorrelation
+    outputs, past the 192 the template took before, on the full route at
+    8 kHz against the JAX extractor on the same route."""
+    monkeypatch.setenv("SRTPU_FRONTEND", "full")
+    fe = text.frontend(8000, _dense216(tcfg), "cpu")
+    assert isinstance(fe, text.FullFrontend) and fe.n_fft == 1500
+    assert fe.mel.shape[1] + fe.acorr.shape[1] == 216
+    got, want, mask, wmask = _extract_both(8000, _dense216, "full", impl,
+                                           monkeypatch, L=8192)
     np.testing.assert_array_equal(mask, wmask)
     assert got.shape[-1] == 13 + 15
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)

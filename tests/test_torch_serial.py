@@ -285,11 +285,13 @@ def test_gmmset_preconditions():
         gs.calibrate_rejection([x], [x])
     with pytest.raises(RuntimeError, match="train"):
         GMMSet(device="cpu").predict_one(x)
-    with pytest.raises(NotImplementedError, match="kmeans"):
-        g = GMMSet(config=GmmConfig(n_mixtures=2, init_with_kmeans=True),
-                   device="cpu")
-        g.fit_new(x, "a")
-        g.train()
+    # k-means|| seeding trains since it was ported (no longer refused)
+    g = GMMSet(config=GmmConfig(n_mixtures=2, init_with_kmeans=True),
+               device="cpu")
+    g.fit_new(x, "a")
+    g.train()
+    assert g.params.means.shape == (1, 2, x.shape[1])
+    assert g.train_log["kmeans_iterations"] >= 1
     # a UBM fixes the order (gmmset.py:24-27)
     ubm = tgmm.GmmParams(st["ubm_weights"], st["ubm_means"],
                          st["ubm_sigmas"])
