@@ -104,9 +104,34 @@ raises and the exit code is non-zero):
      plain versions, and its predict_scores vs the plain versions
      composed; timing of a tick, init_noise, and k-means-seeded training
      beside plain-init training
+ 16. the lifted limits: K1, K4 and K5 on the four-step FFT of N >= 32768
+     (384 kHz frames of 12,288 samples with fft_size 32768 on the packed
+     route, fft_size 32768 and 65536 at 48 kHz on the full route) and past
+     512 outputs on the FFT tile (600 mel filters + LPC at 8 kHz, 200 ms
+     frames, fft_size 4096), each against the FFT route's plain version
+     (and K5 against the dense one, K1 at 616 outputs against the float64
+     route), two calls bitwise, through extract_batch with its route's
+     counter, 512 outputs bitwise inside 616, and timed with the four-step
+     route's device time by kernel; K6's bf16 route at 144 outputs on the
+     bench batch (timed), 48 kHz frames with fft_size 4096 (a 32-frame
+     tile) and 96 kHz with fft_size 8192 (the samples from device memory),
+     each on the tile it claims, against its plain version
+ 17. float64 on the card: enroll, MAP from a float64 UBM, predict,
+     predict_with_rejection and calibrate_rejection at dtype="float64"
+     against the same on the CPU (within F64_RTOL, the same labels), the
+     float64 counters moving and K1, K2, K3 not; an f32 call after it
+     launching K1 and K2; f64 predict_scores at the bench batch beside f32
+ 18. JFA at the r5 cell's model shape (UBM K = 32, nv = 32, nu = 16,
+     train_d) on 200 background speakers x 3 sessions of the port's
+     identity-structured voices through per-session channels, at 0 and
+     6 dB: the card's scores against the CPU's from the same stats (the
+     gate), JFA's and MAP's accuracy and EER and the times (a report);
+     then the jfa_pipeline CLI on the card, K1 once a gen-features
+     utterance
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes; the
-dense K5 template's on extract_batch at 216 outputs), its
+dense K5 template's on extract_batch at 216 outputs; phase 16's routes
+on their extract_batch drives), its
 error against its plain version, its time, its plain version's time and
 its bound (the larger of the least FLOPs of
 its function over the FP32 peak and its bytes over the memory rate, from
@@ -159,7 +184,10 @@ from speaker_recognition_tpu_torch.ops import (  # noqa: E402
     framing, gpu_frontend, gpu_gmm, gpu_predict)
 from speaker_recognition_tpu_torch.ops import frontend as operators  # noqa: E402
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
+from speaker_recognition_tpu_torch.tools import jfa_pipeline  # noqa: E402
 from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
+from speaker_recognition_tpu_torch.utils import metrics  # noqa: E402
+from speaker_recognition_tpu_torch.utils import serialization  # noqa: E402
 from speaker_recognition_tpu_torch.vad import ltsd, noisered  # noqa: E402
 
 BENCH_B, BENCH_FS, BENCH_SEC = 512, 8000, 5.0
@@ -242,6 +270,38 @@ LLOYD_ATOL = 1e-3
 KMEANS_FACTOR = 1.1
 # the UBM-scale seeding + EM: speakers x seconds at 8 kHz, GMM-256
 KM_SPEAKERS, KM_SECONDS, KM_K = 80, 30.0, 256
+# phase 16: the four-step route of N >= 32768 (384 kHz frames of 12,288
+# samples on the packed route, BIG384_B utterances; fft_size 32768 and
+# 65536 at 48 kHz on the full route) and 616 outputs on the FFT tile
+FS384, BIG384_B = 384000, 4
+BIG384 = FeatureConfig(mfcc=MfccConfig(fft_size=32768))
+FULL_BIG_FFTS = (32768, 65536)
+# (8 kHz with 200 ms frames of 1600 samples and fft_size 4096: a
+# 4096-point FFT, the FFT route's operator mel itself, and no empty filter
+# among the 600; at 48 kHz with fft_size 4096 nine are empty, where the
+# JAX extractor's full route takes log(0))
+WIDE616 = FeatureConfig(
+    mfcc=MfccConfig(win_length_ms=200.0, win_shift_ms=100.0, fft_size=4096,
+                    n_filters=600),
+    lpc=LpcConfig(win_length_ms=200.0, win_shift_ms=100.0))
+# phase 17: float64 on the card against the CPU's float64 run, normwise
+# (max |d| / max |x|): the same plain torch arithmetic in another order,
+# ~1e-15 a step, so 1e-9 leaves room for the EM's iterations
+F64_RTOL = 1e-9
+# phase 18: JFA at the model shape of experiments/results/
+# r5_identity_structure.jsonl (UBM K = 32 on MFCC13 + LPC15, nv = 32,
+# nu = 16, train_d, 20 iterations) on the port's identity-structured
+# voices: JFA_BG background speakers x JFA_BG_SESSIONS sessions of JFA_SEC
+# s, JFA_EVAL enrolled speakers x JFA_ENROLL sessions, JFA_TESTS tests of
+# JFA_TEST_SEC s each, every session through its own channel
+JFA_BG, JFA_BG_SESSIONS, JFA_SEC = 200, 3, 10.0
+JFA_EVAL, JFA_ENROLL, JFA_TESTS, JFA_TEST_SEC = 20, 2, 10, 3.0
+JFA_K, JFA_NV, JFA_NU, JFA_ITERS, JFA_UBM_ITERS = 32, 32, 16, 20, 100
+JFA_CHANNELS_DB = (0.0, 6.0)
+# the card's JFA scores against the CPU's from the same stats and inits,
+# both f32: ~60 EM iterations of batched solves in other summation orders;
+# relative to the largest |score|
+JFA_RTOL = 1e-3
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
@@ -287,19 +347,20 @@ def feature_errors(got, want, mask, nc):
 
 
 def check_frontend(name, fe: PackedFrontend, sig, lengths,
-                   phase=2) -> float:
-    """The signal frontend kernel vs both plain versions on one batch, and
-    two calls bitwise; returns the max abs error."""
+                   phase=2, dense=True) -> float:
+    """The signal frontend kernel vs both plain versions on one batch (the
+    FFT route's alone without `dense`), and two calls bitwise; returns the
+    max abs error."""
     args = frontend_args(fe, sig, lengths)
     n_valid = args[1]
     mask = torch.arange(n_frames(sig.shape[1], fe.frame_len, fe.frame_shift),
                         device=sig.device) < n_valid[:, None]
     got = gpu_frontend.packed_from_signals(*args, fft=fe.fft)
     again = gpu_frontend.packed_from_signals(*args, fft=fe.fft)
-    plains = {"dense": gpu_frontend.packed_from_signals_reference(*args),
-              "fft": gpu_frontend.packed_from_signals_fft_reference(
-                  sig, n_valid, fe.fft, fe.dct, fe.floor, fe.frame_shift,
-                  fe.cmvn)}
+    plains = {"fft": gpu_frontend.packed_from_signals_fft_reference(
+        sig, n_valid, fe.fft, fe.dct, fe.floor, fe.frame_shift, fe.cmvn)}
+    if dense and fe.D is not None:  # no dense operators from N = 32768 on
+        plains["dense"] = gpu_frontend.packed_from_signals_reference(*args)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite features")
@@ -458,6 +519,25 @@ def device_times(fn, calls=20) -> str:
                            f"{ev.device_time_total / ev.count:.1f} us"
                            for ev in evs) or "not measured"
     return f"device {device}; host enqueue {host:.1f} us a call"
+
+
+def kernel_times(fn, calls=5) -> dict:
+    """{kernel name: device ms a call} of the kernels fn() launches, by
+    torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.device_time_total:
+            key = kernel_name(ev.key)
+            out[key] = out.get(key, 0.0) + ev.device_time_total / calls / 1e3
+    return {k: round(v, 4) for k, v in out.items()}
 
 
 def kernels_per_call(fn, calls=20, windows=8) -> dict:
@@ -648,9 +728,11 @@ def frames_args(fe, sig):
              fe.dct, fe.floor, fe.A), B, T)
 
 
-def frames_kernel(fe):
+def frames_kernel(fe, dense=True):
     """(kernel wrapper, {name: plain version}, launch counter name) of fe;
-    all take frames_args' arguments."""
+    all take frames_args' arguments (the packed frontend's dense plain
+    version only with `dense`, and none from N = 32768 on)."""
+    big = fe.n_fft >= gpu_frontend.BIG_N
     if isinstance(fe, FullFrontend):
         n = fe.n_fft
         return (lambda *a: gpu_frontend.mfcc_from_frames(*a, n),
@@ -658,23 +740,24 @@ def frames_kernel(fe):
                  "fft": lambda wp, C, S, mel, dct, floor, ac:
                      gpu_frontend.mfcc_from_frames_fft_reference(
                          wp, mel, dct, floor, ac, n)},
-                "FULL_LAUNCHES" if n & (n - 1) == 0
-                else "FULL_DENSE_LAUNCHES")
+                "FULL_BIG_LAUNCHES" if big else "FULL_LAUNCHES"
+                if n & (n - 1) == 0 else "FULL_DENSE_LAUNCHES")
+    plains = {"fft": lambda frames, D, W, dct, floor, A:
+              gpu_frontend.packed_from_frames_fft_reference(
+                  frames, fe.fft, dct, floor)}
+    if dense and fe.D is not None:
+        plains["dense"] = gpu_frontend.packed_from_frames_reference
     return (lambda *a: gpu_frontend.packed_from_frames(*a, fft=fe.fft),
-            {"dense": gpu_frontend.packed_from_frames_reference,
-             "fft": lambda frames, D, W, dct, floor, A:
-                 gpu_frontend.packed_from_frames_fft_reference(
-                     frames, fe.fft, dct, floor)},
-            "FRAMES_LAUNCHES")
+            plains, "FRAMES_BIG_LAUNCHES" if big else "FRAMES_LAUNCHES")
 
 
-def check_frames(phase, name, fe, sig, lengths) -> float:
+def check_frames(phase, name, fe, sig, lengths, dense=True) -> float:
     """A frame-level kernel vs its plain versions on one batch, all carried
     through the frontend's CMVN, LPC or LPC cepstra and masking, and two
     calls bitwise; returns the max abs error of the features."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the plain versions must run full f32 matmuls")
-    kernel, plains, counter = frames_kernel(fe)
+    kernel, plains, counter = frames_kernel(fe, dense)
     args, B, T = frames_args(fe, sig)
     mask = framing.frame_validity_mask(lengths, T, fe.frame_len,
                                        fe.frame_shift)
@@ -911,10 +994,625 @@ def seeding_stages(fn, trials=7) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+def reset_frontend_counts():
+    for name in ("LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES",
+                 "FULL_DENSE_LAUNCHES", "BIG_LAUNCHES", "FRAMES_BIG_LAUNCHES",
+                 "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES"):
+        setattr(gpu_frontend, name, 0)
+
+
+def frontend_counts() -> dict:
+    return {k: getattr(gpu_frontend, k) for k in (
+        "LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES", "BIG_LAUNCHES",
+        "FRAMES_BIG_LAUNCHES", "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES")}
+
+
+def drive_extract(name, fs, cfg, sig, lengths, want: dict,
+                  full: bool = False) -> dict:
+    """One extract_batch call on the card (SRTPU_FRONTEND=full when
+    `full`), the frontend counters set to 0 just before and read just
+    after; raises unless they are `want` (the others 0)."""
+    if full:
+        os.environ["SRTPU_FRONTEND"] = "full"
+    try:
+        fe = extract.frontend(fs, cfg, sig.device)
+        reset_frontend_counts()
+        feat, mask = extract.extract_batch(sig, lengths, fs, cfg)
+        torch.cuda.synchronize()
+        got = frontend_counts()
+    finally:
+        os.environ.pop("SRTPU_FRONTEND", None)
+    expect = {k: want.get(k, 0) for k in got}
+    ok = (got == expect and torch.isfinite(feat).all()
+          and bool((feat[~mask] == 0).all()))
+    print(f"phase 16 {name} through extract_batch ({type(fe).__name__}, "
+          f"n_fft {fe.n_fft}): features {tuple(feat.shape)}, launches "
+          f"{ {k: v for k, v in got.items() if v} }", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: extract_batch launched {got}, "
+                             f"expected {expect}, or bad features")
+    return got
+
+
+def frames_work(fe, n_frames_: int, nbytes_in: int) -> dict:
+    """The bound of a frame-level frontend function over n frames."""
+    nmel, nceps = fe.dct.shape
+    mel, ac = ((fe.mel, fe.acorr) if isinstance(fe, FullFrontend)
+               else (fe.fft_mel, fe.fft_acorr))
+    flops = frontend_flops(n_frames_, fe.n_fft, (mel, ac), nceps)
+    return bound(flops, nbytes_in + 4 * n_frames_ * (nceps + ac.shape[1])
+                 + 4 * sum(x.numel() for x in (mel, ac, fe.dct)))
+
+
+def phase16(rng, dev, card, bench_sig, bench_len) -> list:
+    """16. The FFT tile's lifted limits and the bf16 route's: K1, K4, K5 on
+    the four-step route of N >= 32768, past 512 outputs on the tile, and
+    K6's bf16 route past 128 outputs and for long frames; each against its
+    plain version, two calls bitwise, counted and timed. Returns the
+    kernels' entries."""
+    entries = []
+    L384 = int(FS384 * HIGH_SEC)
+    s384, l384 = signals_batch(
+        rng, [L384 - int(rng.randint(0, L384 // 2))
+              for _ in range(BIG384_B - 1)] + [L384], padded(L384), dev)
+    fe384 = PackedFrontend(FS384, BIG384, dev)
+    if fe384.n_fft != 32768 or fe384.D is not None:
+        raise AssertionError("384 kHz frames did not take a 32768-point FFT")
+    name = (f"384 kHz, fft_size 32768, {BIG384_B} x {HIGH_SEC:g} s (flen "
+            f"{fe384.frame_len}, n_fft 32768, four-step route)")
+    args = frontend_args(fe384, s384, l384)
+    err = check_frontend(name, fe384, s384, l384, phase=16)
+    got384 = drive_extract("K1 384 kHz", FS384, BIG384, s384, l384,
+                           {"BIG_LAUNCHES": 1})
+    T384 = n_frames(s384.shape[1], fe384.frame_len, fe384.frame_shift)
+    valid = int(args[1].sum())
+    nmel, nceps = fe384.dct.shape
+    nac = fe384.fft_acorr.shape[1]
+    def k384():
+        return gpu_frontend.packed_from_signals(*args, fft=fe384.fft)
+    times = time_interleaved({
+        "kernel": k384,
+        "plain": lambda: gpu_frontend.packed_from_signals_fft_reference(
+            s384, args[1], fe384.fft, fe384.dct, fe384.floor,
+            fe384.frame_shift, fe384.cmvn)})
+    b = bound(frontend_flops(valid, 32768, (fe384.fft_mel, fe384.fft_acorr),
+                             nceps, order=nac - 1,
+                             window=3 * fe384.frame_len),
+              4 * s384.numel() + 4 * s384.shape[0] * T384 * (nceps + nac - 1)
+              + 4 * sum(x.numel() for x in (fe384.fft_mel, fe384.fft_acorr,
+                                            fe384.dct, fe384.window)))
+    print(f"phase 16 [{card}] K1 four-step route, {name}: {times['kernel']:.3f}"
+          f" ms, its plain version {times['plain']:.3f} ms, bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']}); device ms a call by "
+          f"kernel {kernel_times(k384)}", flush=True)
+    entries.append(("packed_frontend_n32768", "frontend.cu",
+                    "pallas_frontend.py:231", got384["BIG_LAUNCHES"], err,
+                    times["kernel"], times["plain"], b))
+
+    # K4 on the four-step route (off the main path: the drive above
+    # launched it got384["FRAMES_BIG_LAUNCHES"] = 0 times): the frames of the same batch
+    err = check_frames(16, "K4 " + name, fe384, s384, l384)
+    fargs, B_, T_ = frames_args(fe384, s384)
+    kern, plains, _ = frames_kernel(fe384)
+    times = time_interleaved({"kernel": lambda: kern(*fargs),
+                              "plain": lambda: plains["fft"](*fargs)})
+    b = frames_work(fe384, B_ * T_, 4 * fargs[0].numel())
+    print(f"phase 16 [{card}] K4 four-step route: {times['kernel']:.3f} ms, "
+          f"plain {times['plain']:.3f} ms, bound {b['bound_ms']:.4f} ms",
+          flush=True)
+    entries.append(("packed_from_frames_n32768", "frontend_frames_fft.cu",
+                    "pallas_frontend.py:111", got384["FRAMES_BIG_LAUNCHES"],
+                    err, times["kernel"], times["plain"], b))
+
+    # K5 on the four-step route: 48 kHz with fft_size 32768 and 65536
+    L48 = int(FS48 * HIGH_SEC)
+    s48, l48 = signals_batch(
+        rng, [L48 - int(rng.randint(0, L48 // 2))
+              for _ in range(BIG_B // 8 - 1)] + [L48], padded(L48), dev)
+    for n in FULL_BIG_FFTS:  # an entry each
+        cfg = FeatureConfig(mfcc=MfccConfig(fft_size=n))
+        fe = FullFrontend(FS48, cfg, dev)
+        nm = (f"K5 48 kHz, fft_size {n}, {s48.shape[0]} x {HIGH_SEC:g} s "
+              "(four-step route)")
+        err5 = check_frames(16, nm, fe, s48, l48)
+        launched5 = drive_extract(nm, FS48, cfg, s48, l48,
+                                  {"FULL_BIG_LAUNCHES": 1},
+                                  full=True)["FULL_BIG_LAUNCHES"]
+        fargs, B_, T_ = frames_args(fe, s48)
+        kern, plains, _ = frames_kernel(fe)
+        t5 = time_interleaved({"kernel": lambda: kern(*fargs),
+                               "plain": lambda: plains["fft"](*fargs)})
+        b5 = frames_work(fe, B_ * T_, 4 * fargs[0].numel())
+        print(f"phase 16 [{card}] {nm}: {t5['kernel']:.3f} ms, plain "
+              f"{t5['plain']:.3f} ms, bound {b5['bound_ms']:.4f} ms "
+              f"({b5['bound_by']}); device ms a call by kernel "
+              f"{kernel_times(lambda: kern(*fargs))}", flush=True)
+        entries.append((f"mfcc_from_frames_n{n}", "frontend_fft.cu",
+                        "pallas_frontend.py:50", launched5, err5,
+                        t5["kernel"], t5["plain"], b5))
+        del fargs, fe
+        torch.cuda.empty_cache()
+
+    # past 512 outputs on the tile: 600 mel filters + LPC-15 (WIDE616: 616
+    # outputs, two chunks of 512) on 64 bench utterances. K1 and K4 are
+    # held to the FFT route's plain version and K1 to the float64 route
+    # (the dense plain version at f64 on the card): the dense plain
+    # version at f32 read 1.033e-3 from K1 on cepstra here on the card,
+    # over MFCC_ATOL, and its distance to the float64 route is printed
+    # beside K1's. (At 48 kHz with fft_size 4096, nine of 600 filters are
+    # empty and others two bins wide, and the dense f32 route strays
+    # further; tests/test_torch_limits.py holds the FFT route to the
+    # float64 one there)
+    s8w, l8w = bench_sig[:64].contiguous(), bench_len[:64].contiguous()
+    fe616 = PackedFrontend(BENCH_FS, WIDE616, dev)
+    nm = (f"8 kHz, 200 ms frames, fft_size 4096, 600 mel filters + LPC "
+          f"(616 outputs), {s8w.shape[0]} x {BENCH_SEC:g} s")
+    reset_frontend_counts()
+    err1 = check_frontend("K1 " + nm, fe616, s8w, l8w, phase=16, dense=False)
+    if gpu_frontend.CHUNKED_LAUNCHES != 2 or gpu_frontend.LAUNCHES != 2:
+        raise AssertionError("616 outputs did not take the chunked tile")
+    args = frontend_args(fe616, s8w, l8w)
+    ref64, m64 = PackedFrontend(BENCH_FS, WIDE616, dev, torch.float64)(
+        s8w, l8w)
+    for which, feat in (
+            ("K1", gpu_frontend.packed_from_signals(*args, fft=fe616.fft)),
+            ("the dense plain version at f32",
+             gpu_frontend.packed_from_signals_reference(*args))):
+        d_mfcc, d_lpc, lpc_bad = feature_errors(feat.double(), ref64, m64,
+                                                13)
+        print(f"phase 16 {which} vs the float64 route, {nm}: mfcc max|d| "
+              f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over "
+              f"tol: {lpc_bad})", flush=True)
+        if which == "K1" and (d_mfcc > MFCC_ATOL or lpc_bad):
+            raise AssertionError(f"K1 {nm}: off the float64 route")
+    del ref64, m64
+    launched1 = drive_extract("K1 " + nm, BENCH_FS, WIDE616, s8w, l8w,
+                              {"LAUNCHES": 1, "CHUNKED_LAUNCHES": 1})
+    t1 = time_interleaved({
+        "kernel": lambda: gpu_frontend.packed_from_signals(*args,
+                                                           fft=fe616.fft),
+        "plain": lambda: gpu_frontend.packed_from_signals_fft_reference(
+            s8w, args[1], fe616.fft, fe616.dct, fe616.floor,
+            fe616.frame_shift, fe616.cmvn)})
+    T8w = n_frames(s8w.shape[1], fe616.frame_len, fe616.frame_shift)
+    b1 = bound(frontend_flops(int(args[1].sum()), fe616.n_fft,
+                              (fe616.fft_mel, fe616.fft_acorr), 13,
+                              order=15, window=3 * fe616.frame_len),
+               4 * s8w.numel() + 4 * s8w.shape[0] * T8w * 28
+               + 4 * sum(x.numel() for x in (fe616.fft_mel, fe616.fft_acorr,
+                                             fe616.dct)))
+    print(f"phase 16 [{card}] K1 {nm}: {t1['kernel']:.3f} ms, plain "
+          f"{t1['plain']:.3f} ms, bound {b1['bound_ms']:.4f} ms", flush=True)
+    entries.append(("packed_frontend_616_outputs", "frontend.cu",
+                    "pallas_frontend.py:231", launched1["LAUNCHES"], err1,
+                    t1["kernel"], t1["plain"], b1))
+    err4 = check_frames(16, "K4 " + nm, fe616, s8w, l8w, dense=False)
+    fargs, B_, T_ = frames_args(fe616, s8w)
+    kern, plains, _ = frames_kernel(fe616)
+    t4 = time_interleaved({"kernel": lambda: kern(*fargs),
+                           "plain": lambda: plains["fft"](*fargs)})
+    entries.append(("packed_from_frames_616_outputs", "frontend_frames_fft.cu",
+                    "pallas_frontend.py:111", launched1["FRAMES_LAUNCHES"],
+                    err4, t4["kernel"], t4["plain"],
+                    frames_work(fe616, B_ * T_, 4 * fargs[0].numel())))
+    os.environ["SRTPU_FRONTEND"] = "full"
+    try:
+        fe616f = FullFrontend(BENCH_FS, WIDE616, dev)
+    finally:
+        os.environ.pop("SRTPU_FRONTEND")
+    err5 = check_frames(16, "K5 " + nm, fe616f, s8w, l8w)
+    launched5 = drive_extract("K5 " + nm, BENCH_FS, WIDE616, s8w, l8w,
+                              {"FULL_LAUNCHES": 1, "CHUNKED_LAUNCHES": 1},
+                              full=True)
+    fargs, B_, T_ = frames_args(fe616f, s8w)
+    kern, plains, _ = frames_kernel(fe616f)
+    t5 = time_interleaved({"kernel": lambda: kern(*fargs),
+                           "plain": lambda: plains["fft"](*fargs)})
+    entries.append(("mfcc_from_frames_616_outputs", "frontend_fft.cu",
+                    "pallas_frontend.py:50", launched5["FULL_LAUNCHES"],
+                    err5, t5["kernel"], t5["plain"],
+                    frames_work(fe616f, B_ * T_, 4 * fargs[0].numel())))
+    # at most 512 outputs keep their bits inside a larger call: 496 mel +
+    # 16 lags, then the same with 104 more lags (one chunk more)
+    route = fe616.fft._replace(mel=fe616.fft_mel[:, :496].contiguous())
+    extra = torch.from_numpy(rng.rand(route.acorr.shape[0], 104).astype(
+        np.float32)).to(dev) * route.acorr[:, :1]
+    wide = route._replace(acorr=torch.cat([route.acorr, extra],
+                                          dim=1).contiguous())
+    dct496 = torch.from_numpy(operators.dct_matrix(496)[1:14].T.astype(
+        np.float32)).to(dev).contiguous()
+    a = (s8w, args[1], None, None, dct496, None, fe616.floor,
+         fe616.frame_shift, True)
+    c512, r512 = gpu_frontend.packed_from_signals(*a, fft=route,
+                                                  fuse_lpc=False)
+    c616, r616 = gpu_frontend.packed_from_signals(*a, fft=wide,
+                                                  fuse_lpc=False)
+    wp = framing.window_preemph(
+        framing.frame_signal(s8w, fe616f.frame_len, fe616f.frame_shift),
+        fe616f.frame_len, fe616f.pre_emph).reshape(-1, fe616f.frame_len)
+    fa = (wp.contiguous(), *dense_cs(fe616f),
+          fe616f.mel[:, :496].contiguous(), dct496, fe616.floor)
+    ac16 = fe616f.acorr
+    k512 = gpu_frontend.mfcc_from_frames(*fa, ac16, fe616f.n_fft)
+    k616 = gpu_frontend.mfcc_from_frames(*fa, torch.cat(
+        [ac16, extra[:ac16.shape[0]] if extra.shape[0] >= ac16.shape[0]
+         else torch.nn.functional.pad(extra, (0, 0, 0, ac16.shape[0]
+                                              - extra.shape[0]))],
+        dim=1).contiguous(), fe616f.n_fft)
+    torch.cuda.synchronize()
+    parts = {"K1 cepstra": torch.equal(c512, c616),
+             "K1 lags": torch.equal(r512, r616[..., :16]),
+             "K5 cepstra": torch.equal(k512[0], k616[0]),
+             "K5 lags": torch.equal(k512[1], k616[1][:, :16])}
+    inside = all(parts.values())
+    print(f"phase 16 K1 and K5: 512 outputs bitwise equal inside 616 "
+          f"{parts}: {inside}", flush=True)
+    # (a property of the kernels: the CPU's plain versions take the BLAS's
+    # order, which depends on the product's width)
+    if dev.type == "cuda" and not inside:
+        raise AssertionError("the FFT tile's outputs depend on the output "
+                             "count")
+    del wp, fa, k512, k616, c512, c616, r512, r616, fargs
+    torch.cuda.empty_cache()
+
+    # K6's bf16 route past its old limits: 144 outputs at 8 kHz (two output
+    # chunks; checked, counted and timed on the bench batch), 48 kHz frames
+    # with fft_size 4096 (a 32-frame tile) and 96 kHz frames with fft_size
+    # 8192 (the samples from device memory), each on the tile it claims
+    bank = random_bank(rng, 4, 32, FeatureConfig().dim, dev)
+    errb = 0.0
+    for fs_b, cfg_b, claim in (
+            (BENCH_FS, FeatureConfig(mfcc=MfccConfig(n_filters=128)),
+             {"chunks": 2}),
+            (FS48, FFT4096, {"ft": 32, "gseg": 0}),
+            (FS96, FFT8192, {"ft": 32, "gseg": 1})):
+        fe = PackedFrontend(fs_b, cfg_b, dev)
+        if fs_b == BENCH_FS:
+            sb, lb = bench_sig, bench_len
+        else:
+            Lb = int(fs_b * HIGH_SEC)
+            sb, lb = signals_batch(rng, [Lb, Lb * 2 // 3, Lb // 3],
+                                   padded(Lb), dev)
+        fargs = fused_args(fe, sb, lb, bank)
+        tile = gpu_predict.bf16_tile(fe.frame_len, fe.frame_shift,
+                                     fe.dct.shape[0] + fe.A.shape[1])
+        nm = (f"K6 bf16 {fs_b / 1e3:g} kHz, fft_size "
+              f"{cfg_b.mfcc.fft_size}, {fe.dct.shape[0]} mel + "
+              f"{fe.A.shape[1]} lags, flen {fe.frame_len}, {sb.shape[0]} x "
+              f"{sb.shape[1] / fs_b:g} s, tile {tile}")
+        # (the tile is csrc/packed_tile.cuh's pick, built on the card only)
+        if dev.type == "cuda" and any(tile[k] != v for k, v in claim.items()):
+            raise AssertionError(f"{nm}: not the tile {claim}")
+        gpu_predict.BF16_LAUNCHES = 0
+        got = gpu_predict.fused_bank_predict(*fargs, mm_bf16=True)
+        torch.cuda.synchronize()
+        launched = gpu_predict.BF16_LAUNCHES
+        again = gpu_predict.fused_bank_predict(*fargs, mm_bf16=True)
+        errb = max(errb, check_fused(nm, got, gpu_predict.
+                                     fused_bank_predict_reference(
+                                         *fargs, mm_bf16=True), phase=16))
+        bitwise = torch.equal(got, again)
+        print(f"phase 16 {nm}: launches {launched}, two calls bitwise "
+              f"{bitwise}", flush=True)
+        if launched != 1 or not bitwise:
+            raise AssertionError(f"{nm}: launches {launched}, bitwise "
+                                 f"{bitwise}")
+        if fs_b == BENCH_FS:  # 144 outputs on the bench batch: the entry
+            launched_b = launched
+            tb = time_interleaved({
+                "kernel": lambda: gpu_predict.fused_bank_predict(
+                    *fargs, mm_bf16=True),
+                "plain": lambda: gpu_predict.fused_bank_predict_reference(
+                    *fargs, mm_bf16=True)})
+            valid = int(fargs[1].sum())
+            bb = bound(frontend_flops(valid, fe.n_fft, (fe.fft_mel,
+                                                        fe.fft_acorr), 13,
+                                      order=15, window=3 * fe.frame_len)
+                       + score_flops(valid, FeatureConfig().dim, 4 * 32),
+                       4 * sb.numel() + 4 * (bank.op.numel()
+                                             + bank.cw.numel()))
+            print(f"phase 16 [{card}] {nm}: {tb['kernel']:.3f} ms, plain "
+                  f"{tb['plain']:.3f} ms, bound {bb['bound_ms']:.4f} ms "
+                  f"({bb['bound_by']})", flush=True)
+        del fargs, got, again
+        torch.cuda.empty_cache()
+    entries.append(("fused_bank_predict_bf16_lifted", "predict_fused.cuh",
+                    "pallas_predict.py:91", launched_b, errb, tb["kernel"],
+                    tb["plain"], bb))
+    return entries
+
+
+def phase17(rng, dev, card, bench_sig, bench_len) -> dict:
+    """17. float64 on the card: a session enrolled, MAP-adapted from a
+    float64 UBM, predicted, decided open-set and calibrated at
+    dtype="float64" on the card and on the CPU; their features, scores and
+    decisions agree within F64_RTOL (normwise) with the same labels; the
+    float64 counters move and K1, K2 and K3 do not; an f32 call in the
+    same process still launches K1 and K2; f64 predict_scores at the bench
+    batch beside f32."""
+    fs = synth.FS
+    exp = synth.expected()
+    utts = synth.fixture_utterances(exp)
+    impostors = [synth.voice_utterance(v, 3.0, 70 + i) for i, v in
+                 enumerate(synth.voices(3, seed=17))]
+    train = {label: [synth.synth_utterance(label, sec, base + i)
+                     for sec, base in synth.TRAIN]
+             for i, label in enumerate(synth.SPEAKER_FREQS)}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ubm = ubm_tools.train_ubm(
+            [extract.mix_feature(fs, x, dtype="float64", device=dev)
+             for xs in train.values() for x in xs], n_mixtures=16,
+            n_iterations=50, dtype="float64", device=dev)
+        ubm_path = os.path.join(tmp, "ubm.txt")
+        with open(ubm_path, "w") as f:
+            serialization.dump_reference_gmm(ubm, f)
+        for where in (dev, torch.device("cpu")):
+            for mod, names in ((gpu_frontend, ("LAUNCHES",)),
+                               (gpu_gmm, ("LAUNCHES", "SERIAL_LAUNCHES",
+                                          "F64_CALLS")),
+                               (extract, ("F64_CALLS",))):
+                for name in names:
+                    setattr(mod, name, 0)
+            m = ModelInterface(PipelineConfig(dtype="float64"), device=where)
+            m.UBM_MODEL_FILE = ubm_path
+            for label, xs in train.items():
+                for x in xs:
+                    m.enroll(label, fs, x)
+            m.train()
+            scores, valid = m.scores_batch(fs, utts)
+            run = {"feats": np.concatenate([np.concatenate(v) for v in
+                                            m.features.values()]),
+                   "scores": scores, "labels": m.predict_batch(fs, utts),
+                   "open": [m.predict_with_rejection(fs, u) for u in utts],
+                   "cal": m.calibrate_rejection(fs, utts, impostors),
+                   "counts": {"K1": gpu_frontend.LAUNCHES,
+                              "K2": gpu_gmm.LAUNCHES,
+                              "K3": gpu_gmm.SERIAL_LAUNCHES,
+                              "extract_f64": extract.F64_CALLS,
+                              "gmm_f64": gpu_gmm.F64_CALLS}}
+            runs[where.type] = run
+            print(f"phase 17 float64 on {where}: labels {run['labels']}, "
+                  f"open set {run['open']}, threshold "
+                  f"{run['cal']['threshold']:.6f}, counts {run['counts']}",
+                  flush=True)
+    card_run, cpu_run = runs[dev.type], runs["cpu"]
+    errs = {k: float(np.abs(card_run[k] - cpu_run[k]).max()
+                     / np.abs(cpu_run[k]).max()) for k in ("feats", "scores")}
+    d_thr = abs(card_run["cal"]["threshold"] - cpu_run["cal"]["threshold"])
+    errs["threshold"] = d_thr / abs(cpu_run["cal"]["threshold"])
+    c = card_run["counts"]
+    print(f"phase 17 float64 card vs CPU (normwise, tol {F64_RTOL}): "
+          f"{errs}; labels equal "
+          f"{card_run['labels'] == cpu_run['labels']}, open-set equal "
+          f"{card_run['open'] == cpu_run['open']}", flush=True)
+    if (max(errs.values()) > F64_RTOL
+            or card_run["labels"] != cpu_run["labels"]
+            or card_run["open"] != cpu_run["open"]
+            or card_run["labels"] != [u["label"] for u in exp["utterances"]]
+            or (dev.type == "cuda" and (c["K1"] or c["K2"] or c["K3"]))
+            or not (c["extract_f64"] and c["gmm_f64"])):
+        raise AssertionError("float64 on the card disagrees with the CPU, "
+                             "or took a kernel")
+    # an f32 call in the same process still takes the kernels
+    gpu_frontend.LAUNCHES = gpu_gmm.LAUNCHES = 0
+    m32 = ModelInterface.load(synth.SESSION, device=dev)
+    if m32.predict_batch(fs, utts) != card_run["labels"] or min(
+            gpu_frontend.LAUNCHES, gpu_gmm.LAUNCHES) < 1:
+        raise AssertionError("f32 after f64 did not launch K1 and K2")
+    print(f"phase 17 f32 after f64: launches K1 {gpu_frontend.LAUNCHES}, "
+          f"K2 {gpu_gmm.LAUNCHES}", flush=True)
+    # f64 predict_scores at the bench batch beside f32
+    cfg = FeatureConfig()
+    params = [a.astype(np.float32) for a in (
+        np.full((4, 32), 1 / 32), rng.randn(4, 32, cfg.dim),
+        0.5 + rng.rand(4, 32, cfg.dim))]
+    b32 = GmmBank.from_numpy(*params, device=dev)
+    b64 = GmmBank.from_numpy(*params, device=dev, dtype=torch.float64)
+    s64 = bench_sig.to(torch.float64)
+    t = time_interleaved({
+        "f32": lambda: fastpath.predict_scores(bench_sig, bench_len, b32, fs,
+                                               cfg),
+        "f64": lambda: fastpath.predict_scores(s64, bench_len, b64, fs,
+                                               cfg)}, trials=5, reps=1)
+    print(f"phase 17 [{card}] predict_scores {tuple(bench_sig.shape)} @ 8 kHz"
+          f": float64 {t['f64']:.3f} ms (plain versions), float32 "
+          f"{t['f32']:.3f} ms (K1 + K2), ratio {t['f64'] / t['f32']:.1f}",
+          flush=True)
+    return t
+
+
+def jfa_features(sigs, dev) -> list:
+    """The default config's features of equal-length int16 signals, one
+    extract_batch on `dev` (K1 on the card), trimmed to each one's valid
+    frames."""
+    x = np.stack(sigs).astype(np.float32)
+    L = -(-x.shape[1] // extract.LENGTH_BUCKET) * extract.LENGTH_BUCKET
+    batch = np.zeros((len(sigs), L), np.float32)
+    batch[:, :x.shape[1]] = x
+    feats, mask = extract.extract_batch(
+        torch.from_numpy(batch).to(dev),
+        torch.full((len(sigs),), x.shape[1], device=dev), synth.FS)
+    return [f[m].cpu().numpy() for f, m in zip(feats, mask)]
+
+
+def jfa_corpus(ch_db: float, seed: int, dev) -> dict:
+    """The r5 cell's corpus at one channel strength: background, enrollment
+    and test sessions of the port's identity-structured voices, each
+    session through its own channel (synth.apply_channel), as features."""
+    fs = synth.FS
+    nrng = np.random.RandomState(10_000 * seed + int(ch_db * 10))
+    bg = synth.voices(JFA_BG, seed=1000 + seed)
+    ev = synth.voices(JFA_EVAL, seed=2000 + seed)
+
+    def session(v, sec, key):
+        return synth.apply_channel(synth.voice_utterance(v, sec, key), fs,
+                                   nrng, ch_db)
+    bg_sig = [session(v, JFA_SEC, 100_000 + 10 * i + k)
+              for i, v in enumerate(bg) for k in range(JFA_BG_SESSIONS)]
+    en_sig = [session(v, JFA_SEC, 200_000 + 10 * i + k)
+              for i, v in enumerate(ev) for k in range(JFA_ENROLL)]
+    te_sig = [session(v, JFA_TEST_SEC, 300_000 + 100 * i + k)
+              for i, v in enumerate(ev) for k in range(JFA_TESTS)]
+    return {"bg": jfa_features(bg_sig, dev),
+            "bg_ids": np.repeat(np.arange(JFA_BG), JFA_BG_SESSIONS),
+            "en": jfa_features(en_sig, dev),
+            "en_ids": np.repeat(np.arange(JFA_EVAL), JFA_ENROLL),
+            "te": jfa_features(te_sig, dev),
+            "truth": np.repeat(np.arange(JFA_EVAL), JFA_TESTS)}
+
+
+def verification_eer(scores: np.ndarray, truth: np.ndarray) -> float:
+    """EER of [n_models, n_test] scores: the true model's as genuine, every
+    other as an impostor trial (experiments/jfa_channel.py)."""
+    cols = np.arange(len(truth))
+    impostor = np.ones_like(scores, bool)
+    impostor[truth, cols] = False
+    return metrics.eer(scores[truth, cols], scores[impostor])[0]
+
+
+def wall(fn):
+    """(fn()'s result, its host seconds, the card synchronized around)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase18(dev, card, seed: int = 0) -> dict:
+    """18. JFA at the r5 cell's model shape on the card, at 0 and 6 dB
+    channel strength: UBM, session stats, training (v, u, d), enrollment
+    and linear scoring, with MAP (the UBM-adapted bank) beside it. The one
+    gate: the card's JFA scores against the CPU's from the same stats and
+    inits, both f32, within JFA_RTOL of the largest |score| with the same
+    argmax. Accuracy, EER and the times are a report. Then the
+    jfa_pipeline CLI (gen-features -> stats -> train -> score) on a small
+    corpus, with K1's launches per gen-features utterance."""
+    out = {}
+    for ch_db in JFA_CHANNELS_DB:
+        c = jfa_corpus(ch_db, seed, dev)
+        ubm = ubm_tools.train_ubm(c["bg"], n_mixtures=JFA_K,
+                                  n_iterations=JFA_UBM_ITERS, seed=seed,
+                                  device=dev)
+        (stats, t_stats) = wall(lambda: [
+            jfa_pipeline.collect_session_stats(ubm, c[k], dev)
+            for k in ("bg", "en", "te")])
+        (N_bg, F_bg), (N_en, F_en), (N_te, F_te) = stats
+        logs = {}
+        model, t_train = wall(lambda: jfa_pipeline.train_jfa(
+            ubm, N_bg, F_bg, c["bg_ids"], nv=JFA_NV, nu=JFA_NU,
+            n_iter=JFA_ITERS, train_d=True, seed=seed, device=dev,
+            log=logs.setdefault("card", {})))
+
+        def enroll_score(mdl, where):
+            y, z = jfa_pipeline.enroll(mdl, N_en.to(where), F_en.to(where),
+                                       c["en_ids"], JFA_EVAL)
+            return jfa_pipeline.score(mdl, y, z, N_te.to(where),
+                                      F_te.to(where))
+        s_card, t_score = wall(lambda: enroll_score(model, dev))
+        cpu = torch.device("cpu")
+        model_cpu = jfa_pipeline.train_jfa(
+            ubm, N_bg.cpu(), F_bg.cpu(), c["bg_ids"], nv=JFA_NV, nu=JFA_NU,
+            n_iter=JFA_ITERS, train_d=True, seed=seed, device=cpu,
+            log=logs.setdefault("cpu", {}))
+        s_cpu = enroll_score(model_cpu, cpu).numpy()
+        s_card = s_card.cpu().numpy()
+        rel = float(np.abs(s_card - s_cpu).max() / np.abs(s_cpu).max())
+        same = bool((s_card.argmax(0) == s_cpu.argmax(0)).all())
+        print(f"phase 18 {ch_db:g} dB: JFA scores {s_card.shape} card vs "
+              f"CPU max|d|/max|s| {rel:.3e} (tol {JFA_RTOL}), argmax "
+              f"identical {same}; attempts {logs}", flush=True)
+        if not np.isfinite(s_card).all() or rel > JFA_RTOL or not same:
+            raise AssertionError(f"{ch_db} dB: the card's JFA disagrees with "
+                                 "the CPU's")
+        # MAP: the UBM-adapted bank minus the UBM, per test (K2 on the card)
+        per = {}
+        for f, i in zip(c["en"], c["en_ids"]):
+            per.setdefault(int(i), []).append(f)
+        _, bank = ubm_tools.adapt_speakers(
+            ubm, {i: np.concatenate(v) for i, v in per.items()}, device=dev)
+        Xs, masks = _pad_stack(c["te"])
+        X = torch.as_tensor(Xs, dtype=torch.float32, device=dev)
+        mask = torch.from_numpy(masks).to(dev)
+        bs = gpu_gmm.batch_bank_avg_loglik(
+            GmmBank.from_numpy(*bank, device=dev), X, mask)
+        us = gmm.avg_loglik(gmm.params_to(ubm, torch.float32, dev), X, mask)
+        s_map = (bs - us[:, None]).T.cpu().numpy()
+        truth = c["truth"]
+        row = {"acc_jfa": float((s_card.argmax(0) == truth).mean()),
+               "eer_jfa": verification_eer(s_card, truth),
+               "acc_map": float((s_map.argmax(0) == truth).mean()),
+               "eer_map": verification_eer(s_map, truth),
+               "stats_ms": 1e3 * t_stats, "train_ms": 1e3 * t_train,
+               "score_ms": 1e3 * t_score}
+        out[ch_db] = row
+        print(f"phase 18 [{card}] {ch_db:g} dB, {JFA_BG} x "
+              f"{JFA_BG_SESSIONS} x {JFA_SEC:g} s background, {JFA_EVAL} "
+              f"speakers, {len(truth)} tests: JFA acc {row['acc_jfa']:.4f} "
+              f"EER {row['eer_jfa']:.4f}, MAP acc {row['acc_map']:.4f} EER "
+              f"{row['eer_map']:.4f}; stats {row['stats_ms']:.1f} ms, "
+              f"training {row['train_ms']:.1f} ms, enroll + scoring "
+              f"{row['score_ms']:.1f} ms", flush=True)
+    # the CLI on a small corpus, with the 6 dB UBM
+    with tempfile.TemporaryDirectory() as tmp:
+        ubm_dir = os.path.join(tmp, "ubm")
+        serialization.dump_jfa_supervectors(ubm, ubm_dir)
+        tasks = {}
+        for task, (n, sec) in (("train", (2, 3.0)), ("test", (1, 2.0))):
+            dirs = []
+            for i, v in enumerate(synth.voices(4, seed=99)):
+                d = os.path.join(tmp, task, f"spk{i}")
+                os.makedirs(d)
+                for k in range(n):
+                    wavfile.write(os.path.join(d, f"s{k}.wav"), synth.FS,
+                                  synth.voice_utterance(
+                                      v, sec, 1000 * (task == "test")
+                                      + 10 * i + k))
+                dirs.append(d)
+            tasks[task] = (" ".join(dirs), 4 * n)
+
+        def cli_run(*argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                jfa_pipeline.main(list(argv))
+            return buf.getvalue().strip().splitlines()
+        per_utt = []
+        for task, (dirs, n) in tasks.items():
+            gpu_frontend.LAUNCHES = 0
+            cli_run("gen-features", "-i", dirs, "-o",
+                    os.path.join(tmp, "feat"), "--task", task,
+                    "--device", "cuda")
+            per_utt.append(gpu_frontend.LAUNCHES / n)
+            cli_run("stats", "--ubm-dir", ubm_dir, "--lst",
+                    os.path.join(tmp, "feat", task + ".lst"), "-o",
+                    os.path.join(tmp, task + "_stats.npz"),
+                    "--device", "cuda")
+        cli_run("train", "--ubm-dir", ubm_dir, "--stats",
+                os.path.join(tmp, "train_stats.npz"), "-o",
+                os.path.join(tmp, "model.npz"), "--nv", "2", "--nu", "1",
+                "--iters", "5", "--device", "cuda")
+        lines = cli_run("score", "--ubm-dir", ubm_dir, "--model",
+                        os.path.join(tmp, "model.npz"), "--enroll-stats",
+                        os.path.join(tmp, "train_stats.npz"),
+                        "--test-stats", os.path.join(tmp, "test_stats.npz"),
+                        "--device", "cuda")
+    right = sum(ln.split(" -> ")[0] == ln.split(" -> ")[1].split(" ")[0]
+                for ln in lines)
+    print(f"phase 18 jfa_pipeline CLI on the card: {len(lines)} test "
+          f"sessions scored, {right} to their own speaker; K1 launches per "
+          f"gen-features utterance {per_utt}", flush=True)
+    if len(lines) != tasks["test"][1] or per_utt != [1.0, 1.0]:
+        raise AssertionError("the jfa_pipeline CLI did not run through K1 "
+                             "once an utterance")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    seed = args.seed
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this check needs a CUDA card")
@@ -2119,7 +2817,7 @@ def main(argv=None):
         tick()
     finally:
         fastpath.predict_scores = predict_scores
-    sig_t, len_t, bank_t, fs_t, cfg_t = batches[0]
+    sig_t, len_t, bank_t, fs_t, cfg_t = batches[0][:5]
     fe_t = extract.frontend(fs_t, cfg_t, dev)
     if not isinstance(fe_t, PackedFrontend) or len(batches) != 1:
         raise AssertionError("a tick did not take the packed route once")
@@ -2166,6 +2864,10 @@ def main(argv=None):
           f"same trials; the seeding alone {t['seed_conv']:.3f} ms "
           f"({t['seed_conv'] / t['train_kmeans']:.1%} of k-means-seeded "
           "training)", flush=True)
+
+    entries16 = phase16(rng, dev, card, bench_sig, bench_len)
+    phase17(rng, dev, card, bench_sig, bench_len)
+    phase18(dev, card, seed)
 
     # the kernels' bounds, from this run's shapes
     B8, Lp8 = bench_sig.shape
@@ -2266,7 +2968,13 @@ def main(argv=None):
         entry("mfcc_from_frames_dense", "frontend_frames.cu",
               "pallas_frontend.py:50", launches_dense, err_dense,
               t["dense216"], t["dense216_plain"], "mfcc_from_frames_dense"),
-    ]}))
+    ] + [{"name": name, "route": "cuda",
+          "source": f"speaker_recognition_tpu_torch/csrc/{source}",
+          "replaces": f"speaker_recognition_tpu/ops/{replaces}",
+          "launches": launched, "max_abs_err": err, "ms": ms,
+          "plain_ms": plain_ms, **b, "library_ms": None}
+         for name, source, replaces, launched, err, ms, plain_ms, b
+         in entries16]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -59,23 +59,38 @@ def _sources() -> list[str]:
 def _bind(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     f = ctypes.c_float
+    ll = ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                        i, i, i, f, i, f, i, i, p]
+    lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, i, i, i, f, i, f, i, i, p]
     lib.srt_packed_frontend.restype = i
-    lib.srt_fft_operator_shape.argtypes = [i, i, ip, ip]
+    lib.srt_big_packed_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                            i, i, i, i, i, i, f, i, f, i, i,
+                                            i, p]
+    lib.srt_big_packed_frontend.restype = i
+    lib.srt_fft_operator_shape.argtypes = [i, i, ip, ip, ip]
     lib.srt_fft_operator_shape.restype = i
-    lib.srt_fft_frames_frontend.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            f, p]
+    lib.srt_fft_wide_floats.argtypes = [ll, i]
+    lib.srt_fft_wide_floats.restype = ll
+    lib.srt_big_scratch_floats.argtypes = [i, i, i]
+    lib.srt_big_scratch_floats.restype = ll
+    lib.srt_fft_frames_frontend.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            i, f, p]
     lib.srt_fft_frames_frontend.restype = i
-    lib.srt_fft_packed_frames.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                          f, i, f, p]
+    lib.srt_big_fft_frames.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                       f, i, p]
+    lib.srt_big_fft_frames.restype = i
+    lib.srt_fft_packed_frames.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                          i, f, i, f, p]
     lib.srt_fft_packed_frames.restype = i
+    lib.srt_big_packed_frames.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                          i, i, f, i, f, i, p]
+    lib.srt_big_packed_frames.restype = i
     lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
                                         i, i, i, f, p]
     lib.srt_frames_frontend.restype = i
     lib.srt_frames_scratch_floats.argtypes = [i, i]
-    lib.srt_frames_scratch_floats.restype = ctypes.c_longlong
+    lib.srt_frames_scratch_floats.restype = ll
     lib.srt_bank_avg_loglik.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.srt_bank_avg_loglik.restype = i
     lib.srt_bank_warp_frames.argtypes = [i]
@@ -84,16 +99,18 @@ def _bind(lib):
     lib.srt_bank_sum_loglik.restype = i
     lib.srt_component_row.argtypes = [i]
     lib.srt_component_row.restype = i
-    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i, i,
-                                      i, i, i, i, i, i, i, i, i, i, f, i, f,
-                                      i, i, p]
+    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i,
+                                      i, i, i, i, i, i, i, i, i, i, i, f, i,
+                                      f, i, i, p]
     lib.srt_fused_predict.restype = i
     lib.srt_fused_component_row.argtypes = [i]
     lib.srt_fused_component_row.restype = i
-    lib.srt_fused_bf16_fits.argtypes = [i, i, i, i]
-    lib.srt_fused_bf16_fits.restype = i
+    lib.srt_fused_bf16_wide_floats.argtypes = [i, i, i]
+    lib.srt_fused_bf16_wide_floats.restype = ll
+    lib.srt_fused_bf16_tile.argtypes = [i, i, i, ip]
+    lib.srt_fused_bf16_tile.restype = None
     lib.srt_fused_scratch_floats.argtypes = [i, i, i, i]
-    lib.srt_fused_scratch_floats.restype = ctypes.c_longlong
+    lib.srt_fused_scratch_floats.restype = ll
     lib.srt_error_string.argtypes = [i]
     lib.srt_error_string.restype = ctypes.c_char_p
     return lib

@@ -13,7 +13,9 @@ ops/gpu_frontend:
     the default config) and SRTPU_FRONTEND=full: window and pre-emphasis
     in torch, the full-spectrum kernel, then CMVN and LPC (or LPCC).
 On CUDA tensors every stage is a hand-written kernel, always; on CPU
-tensors each is its plain torch version.
+tensors each is its plain torch version. With a float64 bank (the parity
+path) every stage is its plain version on either device, as in the JAX
+package, counted in features/extract.F64_CALLS and ops/gpu_gmm.F64_CALLS.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ def predict_scores(signals: torch.Tensor, lengths: torch.Tensor,
                    bank: GmmBank, fs: int,
                    cfg: FeatureConfig = FeatureConfig()) -> torch.Tensor:
     """[B, Lp] zero-padded signals, [B] lengths -> [B, S] per-speaker
-    average log-likelihoods."""
-    feats, mask = extract.extract_batch(signals, lengths, fs, cfg)
-    return gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
+    average log-likelihoods, at the bank's dtype (float32 or float64)."""
+    dtype = str(bank.op.dtype).removeprefix("torch.")
+    feats, mask = extract.extract_batch(signals, lengths, fs, cfg, dtype)
+    return gpu_gmm.batch_scores(bank, feats, mask)

@@ -135,9 +135,6 @@ class ModelInterface:
         """([n, S] per-speaker average log-likelihoods in gmmset.y's order,
         [n] validity) through one padded predict program."""
         self._require_trained("scores_batch")
-        if self.config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype {self.config.dtype!r}: the port serves float32 only")
         sigs = [np.asarray(s, np.float64) for s in signals]
         sigs = [s.mean(axis=1) if s.ndim > 1 else s for s in sigs]
         n_real = len(sigs)
@@ -146,7 +143,10 @@ class ModelInterface:
             B *= 2
         L = max(len(s) for s in sigs)
         L = -(-L // extract.LENGTH_BUCKET) * extract.LENGTH_BUCKET
-        batch = np.zeros((B, L), np.float32)
+        # float64 keeps the signals full-width (the JAX package's parity
+        # path, api/interface.py:172-176)
+        batch = np.zeros((B, L), np.float64 if self.config.dtype == "float64"
+                         else np.float32)
         lengths = np.zeros(B, np.int32)
         for i, s in enumerate(sigs):
             batch[i, :len(s)] = s

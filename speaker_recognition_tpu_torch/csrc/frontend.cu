@@ -44,7 +44,10 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "packed_tile.cuh"
+#include "rfft_big.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
@@ -56,6 +59,8 @@ __host__ __device__ constexpr int feature_width(int nceps, int nac,
   return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
 }
 
+// Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go to rows of
+// wsums [B * T][wstride] and tile_features reads them there.
 template <int N, int OPL>
 __global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
     const float* __restrict__ signals, const int* __restrict__ n_valid,
@@ -63,7 +68,7 @@ __global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
     const float* __restrict__ dct,
     float* __restrict__ feat, int Lp, int T, int flen, int fshift, int nmel,
     int nac, int nceps, float pre_emph, int preemph_first,
-    float power_floor, int fuse_lpc) {
+    float power_floor, int fuse_lpc, int nchunk, float* __restrict__ wsums) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y;
@@ -81,10 +86,16 @@ __global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
   const rfft::SignalFrames load{
       signals + (size_t)b * Lp + (size_t)f0 * fshift, win, Lp - f0 * fshift,
       fshift, flen, pre_emph, preemph_first != 0};
-  const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, op,
-                                                     nmel, power_floor);
-  tile_features<OPL, NTH>(sums, out, nf, nvalid - f0, dct, nmel, nac, nceps,
-                          fuse_lpc != 0);
+  const int wstride = rfft::nop(OPL) * nchunk;
+  float* wrows = wsums + ((size_t)b * T + f0) * wstride;
+  const float* sums = rfft::tile_sums<N, OPL, false>(
+      load, nf, smem, op, nmel, power_floor, nchunk, wrows, wstride);
+  if (OPL == 64 && nchunk > 1)
+    tile_features<OPL, NTH>(wrows, out, nf, nvalid - f0, dct, nmel, nac,
+                            nceps, fuse_lpc != 0, wstride);
+  else
+    tile_features<OPL, NTH>(sums, out, nf, nvalid - f0, dct, nmel, nac,
+                            nceps, fuse_lpc != 0);
 }
 
 // Masked per-utterance CMVN of feat[b, :n_valid[b], :nceps], in place
@@ -112,41 +123,80 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig,
                    const float* dct, float* feat, int Lp,
                    int T, int flen, int fshift, int nmel, int nac, int nceps,
                    float pre_emph, int preemph_first, float power_floor,
-                   int fuse_lpc) {
+                   int fuse_lpc, float* wsums) {
   const int smem = 4 * rfft::smem_floats(N, OPL);
   cudaError_t err = cudaFuncSetAttribute(
       packed_frontend_kernel<N, OPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const size_t nfeat = feature_width(nceps, nac, fuse_lpc);
+  const int nchunk = rfft::out_chunks(nmel + nac);
+  const size_t wstride = (size_t)rfft::nop(OPL) * nchunk;
   for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
     const dim3 grid((T + rfft::ft(N) - 1) / rfft::ft(N),
                     min(MAX_GRID_Y, B - b0));
     packed_frontend_kernel<N, OPL><<<grid, rfft::nth(N), smem, st>>>(
         sig + (size_t)b0 * Lp, nv + b0, win, op, dct,
         feat + (size_t)b0 * T * nfeat, Lp, T, flen, fshift, nmel, nac, nceps,
-        pre_emph, preemph_first, power_floor, fuse_lpc);
+        pre_emph, preemph_first, power_floor, fuse_lpc, nchunk,
+        nchunk > 1 ? wsums + (size_t)b0 * T * wstride : wsums);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+// The frames of K1 on the route of N >= 32768: frame g = b T + t of the
+// batch, the strided window of the signal as on the tile; frames at or
+// past n_valid[b] are not computed.
+struct BigSignalFrames {
+  const float* sig;
+  const int* nv;
+  const float* win;
+  int Lp, T, fshift, flen;
+  float a;
+  bool preemph_first;
+  __device__ bool live(int g) const { return g % T < nv[g / T]; }
+  __device__ auto frame(int g) const {
+    const int b = g / T, t = g % T;
+    const rfft::SignalFrames s{sig + (size_t)b * Lp + (size_t)t * fshift,
+                               win, Lp - t * fshift, fshift, flen, a,
+                               preemph_first};
+    return [=](int p) { return s(0, p); };
+  }
+};
+
+// The signal frontend's features of frames g0 .. g0 + gridDim.x - 1 from
+// the route's sums rows [.][nout] (tile_features, one frame a block).
+__global__ void __launch_bounds__(128) big_features_kernel(
+    const float* __restrict__ sums, const int* __restrict__ n_valid,
+    const float* __restrict__ dct, float* __restrict__ feat, int T, int g0,
+    int nmel, int nac, int nceps, int fuse_lpc) {
+  const int g = g0 + blockIdx.x, b = g / T, t = g % T;
+  const int nout = nmel + nac;
+  tile_features<64, 128>(sums + (size_t)blockIdx.x * nout,
+                         feat + (size_t)g * feature_width(nceps, nac,
+                                                          fuse_lpc),
+                         1, n_valid[b] - t, dct, nmel, nac, nceps,
+                         fuse_lpc != 0, nout);
 }
 
 }  // namespace
 
 // signals [B, Lp], n_valid [B], win [flen] (the window), op the packed
 // [M | R] operator of srt_fft_operator_shape (csrc/frontend_fft.cu: the
-// bin-domain mel and autocorrelation operators), dct [nmel, nceps]; writes
-// feat [B, T, nceps + nac - 1] (nceps without LPC), or with fuse_lpc 0
-// feat [B, T, nceps + nac] (cepstra | raw autocorrelation), then CMVN of
-// the cepstra when cmvn. Any B.
+// bin-domain mel and autocorrelation operators), dct [nmel, nceps], wsums
+// the srt_fft_wide_floats(B * T, nmel + nac) floats past 512 outputs;
+// writes feat [B, T, nceps + nac - 1] (nceps without LPC), or with
+// fuse_lpc 0 feat [B, T, nceps + nac] (cepstra | raw autocorrelation),
+// then CMVN of the cepstra when cmvn. Any B.
 extern "C" int srt_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
-    const void* op, const void* dct, void* feat, int B, int Lp, int T,
-    int flen, int fshift, int nfft, int nmel, int nac, int nceps,
+    const void* op, const void* dct, void* feat, void* wsums, int B, int Lp,
+    int T, int flen, int fshift, int nfft, int nmel, int nac, int nceps,
     float pre_emph, int preemph_first, float power_floor, int cmvn,
     int fuse_lpc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int opl = rfft::pick_opl(nfft, nmel + nac);
+  const int opl = rfft::pick_opl(nfft, nmel + nac, true);
   if (opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
   const auto* sig = (const float*)signals;
   const auto* nv = (const int*)n_valid;
@@ -158,10 +208,48 @@ extern "C" int srt_packed_frontend(
     return rfft::with_opl(opl, [&](auto oc) {
       return launch<decltype(nc)::value, decltype(oc)::value>(
           B, st, sig, nv, w, o, d, out, Lp, T, flen, fshift, nmel, nac,
-          nceps, pre_emph, preemph_first, power_floor, fuse_lpc);
+          nceps, pre_emph, preemph_first, power_floor, fuse_lpc,
+          (float*)wsums);
     });
   });
   if (err != cudaSuccess || !cmvn) return (int)err;
+  cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
+      (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);
+  return (int)cudaGetLastError();
+}
+
+// K1 at an nfft-point FFT, nfft a power of two >= 32768 (csrc/rfft_big.cuh):
+// the arguments of srt_packed_frontend, with the bin-domain operators mel
+// [>= nfft/2 + 1, nmel] and acorr [>= nfft/2 + 1, nac] in place of the
+// packed one and scratch of srt_big_scratch_floats(nfft, nmel + nac,
+// chunk) (csrc/frontend_fft.cu) for chunks of `chunk` frames of the batch.
+extern "C" int srt_big_packed_frontend(
+    const void* signals, const void* n_valid, const void* win,
+    const void* mel, const void* acorr, const void* dct, void* feat,
+    void* scratch, int B, int Lp, int T, int flen, int fshift, int nfft,
+    int nmel, int nac, int nceps, float pre_emph, int preemph_first,
+    float power_floor, int cmvn, int fuse_lpc, int chunk, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * T;
+  if (!rfft_big::takes(nfft) || 2 * flen > nfft || chunk < 1 ||
+      chunk > 65535 || n < 1 || n > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const auto* nv = (const int*)n_valid;
+  const BigSignalFrames fr{(const float*)signals, nv, (const float*)win, Lp,
+                           T, fshift, flen, pre_emph, preemph_first != 0};
+  float* sc = (float*)scratch;
+  for (int g0 = 0; g0 < (int)n; g0 += chunk) {
+    const int nfc = (int)std::min<long long>(chunk, n - g0);
+    cudaError_t err = rfft_big::spectra(
+        fr, g0, nfc, nfft, sc, (const float*)mel, nmel, (const float*)acorr,
+        nac, power_floor, false, st);
+    if (err != cudaSuccess) return (int)err;
+    big_features_kernel<<<nfc, 128, 0, st>>>(
+        rfft_big::sums_rows(sc, nfft, nfc), nv, (const float*)dct,
+        (float*)feat, T, g0, nmel, nac, nceps, fuse_lpc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  if (!cmvn) return 0;
   cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
       (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);
   return (int)cudaGetLastError();

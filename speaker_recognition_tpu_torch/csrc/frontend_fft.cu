@@ -24,6 +24,7 @@
 
 #include <cuda_runtime.h>
 
+#include "rfft_big.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
@@ -51,27 +52,37 @@ struct FrameRows {
   }
 };
 
+// Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go to rows of
+// wsums [n][wstride] and the epilogue reads them there.
 template <int N, int OPL>
 __global__ void __launch_bounds__(rfft::nth(N)) fft_frames_kernel(
     const float* __restrict__ frames, const float4* __restrict__ op,
     const float* __restrict__ dct, float* __restrict__ ceps,
     float* __restrict__ r, int n, int flen, int nmel, int nac, int nceps,
-    float power_floor) {
+    float power_floor, int nchunk, float* __restrict__ wsums) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int f0 = blockIdx.x * rfft::ft(N);
   const int nf = min(rfft::ft(N), n - f0);
   const FrameRows load{frames + (size_t)f0 * flen, flen, N};
-  const float* sums = rfft::tile_sums<N, OPL, true>(load, nf, smem, op, nmel,
-                                                    power_floor);
-  rfft::frame_outputs<rfft::nop(OPL), rfft::nth(N)>(sums, dct, ceps, r, f0,
-                                                    nf, nmel, nac, nceps);
+  constexpr int NOP = rfft::nop(OPL);
+  const int wstride = NOP * nchunk;
+  float* wrows = wsums + (size_t)f0 * wstride;
+  const float* sums = rfft::tile_sums<N, OPL, true>(
+      load, nf, smem, op, nmel, power_floor, nchunk, wrows, wstride);
+  if (OPL == 64 && nchunk > 1)
+    rfft::frame_outputs<NOP, rfft::nth(N)>(wrows, dct, ceps, r, f0, nf, nmel,
+                                           nac, nceps, wstride);
+  else
+    rfft::frame_outputs<NOP, rfft::nth(N)>(sums, dct, ceps, r, f0, nf, nmel,
+                                           nac, nceps);
 }
 
 template <int N, int OPL>
 cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
                    const float* dct, float* ceps, float* r, int n, int flen,
-                   int nmel, int nac, int nceps, float power_floor) {
+                   int nmel, int nac, int nceps, float power_floor,
+                   float* wsums) {
   const int smem = 4 * rfft::smem_floats(N, OPL);
   cudaError_t err = cudaFuncSetAttribute(
       fft_frames_kernel<N, OPL>,
@@ -79,40 +90,95 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
   if (err != cudaSuccess) return err;
   fft_frames_kernel<N, OPL>
       <<<(n + rfft::ft(N) - 1) / rfft::ft(N), rfft::nth(N), smem, st>>>(
-          frames, op, dct, ceps, r, n, flen, nmel, nac, nceps, power_floor);
+          frames, op, dct, ceps, r, n, flen, nmel, nac, nceps, power_floor,
+          rfft::out_chunks(nmel + nac), wsums);
   return cudaGetLastError();
 }
+
+// The frames of K5 on the route of N >= 32768: row f, folded (sample p
+// plus p + N, p + 2N, ... of a frame longer than N, in that order).
+struct BigFrameRows {
+  const float* fr;
+  int flen, n;
+  __device__ bool live(int) const { return true; }
+  __device__ auto frame(int f) const {
+    const float* x = fr + (size_t)f * flen;
+    const int fl = flen, nn = n;
+    return [=](int p) {
+      float s = p < fl ? x[p] : 0.f;
+      for (int t = p + nn; t < fl; t += nn) s += x[t];
+      return s;
+    };
+  }
+};
 
 }  // namespace
 
 // The packed operator an FFT tile takes at an nfft-point FFT with nout =
 // nmel + nac outputs: rows x cols floats, row k = [mel row k | acorr row k
-// | 0] for k <= nfft/2, zero rows after. Returns -1 when no tile serves
-// them (nfft not a power of two in [64, 16384], or nout > 512).
+// | 0] for k <= nfft/2, zero rows after; past 512 outputs *chunks stacked
+// operators of 512 columns, chunk c holding outputs [512 c, 512 c + 512).
+// Returns -1 when no tile serves them (nfft not a power of two in [64,
+// 16384]). The fused predict monolith takes one chunk only.
 extern "C" int srt_fft_operator_shape(int nfft, int nout, int* rows,
-                                      int* cols) {
-  const int opl = rfft::pick_opl(nfft, nout);
+                                      int* cols, int* chunks) {
+  const int opl = rfft::pick_opl(nfft, nout, true);
   if (opl == 0) return -1;
-  *rows = rfft::op_rows(nfft, opl);
+  *chunks = rfft::out_chunks(nout);
+  *rows = rfft::op_rows(nfft, opl) * *chunks;
   *cols = rfft::nop(opl);
   return 0;
 }
 
+// Floats of the device rows a tile call keeps its sums in past 512
+// outputs: [nframes][512 * chunks]; 0 up to 512 outputs.
+extern "C" long long srt_fft_wide_floats(long long nframes, int nout) {
+  const int c = rfft::out_chunks(nout);
+  return c > 1 ? nframes * rfft::nop(64) * c : 0;
+}
+
 // frames [n, flen] windowed and pre-emphasized; op the packed [mel |
-// acorr] operator of srt_fft_operator_shape; dct [nmel, nceps]; writes
-// ceps [n, nceps] and r [n, nac].
+// acorr] operator of srt_fft_operator_shape; dct [nmel, nceps]; wsums the
+// srt_fft_wide_floats(n, nmel + nac) floats past 512 outputs; writes ceps
+// [n, nceps] and r [n, nac].
 extern "C" int srt_fft_frames_frontend(
     const void* frames, const void* op, const void* dct, void* ceps, void* r,
-    int n, int flen, int nfft, int nmel, int nac, int nceps,
+    void* wsums, int n, int flen, int nfft, int nmel, int nac, int nceps,
     float power_floor, void* stream) {
-  const int opl = rfft::pick_opl(nfft, nmel + nac);
+  const int opl = rfft::pick_opl(nfft, nmel + nac, true);
   if (n < 1 || opl == 0) return (int)cudaErrorInvalidValue;
   return (int)rfft::with_n(nfft, [&](auto nc) {
     return rfft::with_opl(opl, [&](auto oc) {
       return launch<decltype(nc)::value, decltype(oc)::value>(
           (cudaStream_t)stream, (const float*)frames, (const float4*)op,
           (const float*)dct, (float*)ceps, (float*)r, n, flen, nmel, nac,
-          nceps, power_floor);
+          nceps, power_floor, (float*)wsums);
     });
   });
+}
+
+// Floats of scratch the route of N >= 32768 takes for chunks of `chunk`
+// frames with nout outputs (csrc/rfft_big.cuh), or -1 when it does not
+// take nfft.
+extern "C" long long srt_big_scratch_floats(int nfft, int nout, int chunk) {
+  if (!rfft_big::takes(nfft) || chunk < 1) return -1;
+  return rfft_big::scratch_floats(nfft, nout, chunk);
+}
+
+// K5 at an nfft-point FFT, nfft a power of two >= 32768: frames [n, flen]
+// windowed and pre-emphasized, mel [>= nfft/2 + 1, nmel], acorr [>= nfft/2
+// + 1, nac], dct [nmel, nceps], scratch of srt_big_scratch_floats(nfft,
+// nmel + nac, chunk); writes ceps [n, nceps] and r [n, nac].
+extern "C" int srt_big_fft_frames(const void* frames, const void* mel,
+                                  const void* acorr, const void* dct,
+                                  void* ceps, void* r, void* scratch, int n,
+                                  int flen, int nfft, int nmel, int nac,
+                                  int nceps, float power_floor, int chunk,
+                                  void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const BigFrameRows fr{(const float*)frames, flen, nfft};
+  return (int)rfft_big::frame_level(
+      fr, n, chunk, nfft, (float*)scratch, (const float*)mel,
+      (const float*)acorr, (const float*)dct, (float*)ceps, (float*)r, nmel,
+      nac, nceps, power_floor, true, (cudaStream_t)stream);
 }

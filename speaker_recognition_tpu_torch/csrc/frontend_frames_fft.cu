@@ -26,6 +26,7 @@
 
 #include <cuda_runtime.h>
 
+#include "rfft_big.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
@@ -54,30 +55,40 @@ struct WindowedRows {
   __device__ __forceinline__ void fold(int, float2 (&)[RP], First) const {}
 };
 
+// Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go to rows of
+// wsums [n][wstride] and the epilogue reads them there.
 template <int N, int OPL>
 __global__ void __launch_bounds__(rfft::nth(N)) fft_packed_frames_kernel(
     const float* __restrict__ frames, const float* __restrict__ win,
     const float4* __restrict__ op, const float* __restrict__ dct,
     float* __restrict__ ceps, float* __restrict__ r, int n, int flen,
     int nmel, int nac, int nceps, float pre_emph, int preemph_first,
-    float power_floor) {
+    float power_floor, int nchunk, float* __restrict__ wsums) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int f0 = blockIdx.x * rfft::ft(N);
   const int nf = min(rfft::ft(N), n - f0);
   const WindowedRows load{frames + (size_t)f0 * flen, win, flen, pre_emph,
                           preemph_first != 0};
-  const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, op,
-                                                     nmel, power_floor);
-  rfft::frame_outputs<rfft::nop(OPL), rfft::nth(N)>(sums, dct, ceps, r, f0,
-                                                    nf, nmel, nac, nceps);
+  constexpr int NOP = rfft::nop(OPL);
+  const int wstride = NOP * nchunk;
+  float* wrows = wsums + (size_t)f0 * wstride;
+  const float* sums = rfft::tile_sums<N, OPL, false>(
+      load, nf, smem, op, nmel, power_floor, nchunk, wrows, wstride);
+  if (OPL == 64 && nchunk > 1)
+    rfft::frame_outputs<NOP, rfft::nth(N)>(wrows, dct, ceps, r, f0, nf, nmel,
+                                           nac, nceps, wstride);
+  else
+    rfft::frame_outputs<NOP, rfft::nth(N)>(sums, dct, ceps, r, f0, nf, nmel,
+                                           nac, nceps);
 }
 
 template <int N, int OPL>
 cudaError_t launch(cudaStream_t st, const float* frames, const float* win,
                    const float4* op, const float* dct, float* ceps, float* r,
                    int n, int flen, int nmel, int nac, int nceps,
-                   float pre_emph, int preemph_first, float power_floor) {
+                   float pre_emph, int preemph_first, float power_floor,
+                   float* wsums) {
   const int smem = 4 * rfft::smem_floats(N, OPL);
   cudaError_t err = cudaFuncSetAttribute(
       fft_packed_frames_kernel<N, OPL>,
@@ -86,28 +97,64 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float* win,
   fft_packed_frames_kernel<N, OPL>
       <<<(n + rfft::ft(N) - 1) / rfft::ft(N), rfft::nth(N), smem, st>>>(
           frames, win, op, dct, ceps, r, n, flen, nmel, nac, nceps, pre_emph,
-          preemph_first, power_floor);
+          preemph_first, power_floor, rfft::out_chunks(nmel + nac), wsums);
   return cudaGetLastError();
 }
+
+// The frames of K4 on the route of N >= 32768: raw row f, windowed and
+// pre-emphasized per sample as on the tile.
+struct BigWindowedRows {
+  const float* fr;
+  const float* win;
+  int flen;
+  float a;
+  bool preemph_first;
+  __device__ bool live(int) const { return true; }
+  __device__ auto frame(int f) const {
+    const WindowedRows w{fr + (size_t)f * flen, win, flen, a, preemph_first};
+    return [=](int p) { return w(0, p); };
+  }
+};
 
 }  // namespace
 
 // frames [n, flen] raw; win [flen] the window; op the packed [M | R]
 // operator of srt_fft_operator_shape (csrc/frontend_fft.cu) at nfft >=
-// 2*flen; dct [nmel, nceps]; writes ceps [n, nceps] and r [n, nac].
+// 2*flen; dct [nmel, nceps]; wsums the srt_fft_wide_floats(n, nmel + nac)
+// floats past 512 outputs; writes ceps [n, nceps] and r [n, nac].
 extern "C" int srt_fft_packed_frames(
     const void* frames, const void* win, const void* op, const void* dct,
-    void* ceps, void* r, int n, int flen, int nfft, int nmel, int nac,
-    int nceps, float pre_emph, int preemph_first, float power_floor,
+    void* ceps, void* r, void* wsums, int n, int flen, int nfft, int nmel,
+    int nac, int nceps, float pre_emph, int preemph_first, float power_floor,
     void* stream) {
-  const int opl = rfft::pick_opl(nfft, nmel + nac);
+  const int opl = rfft::pick_opl(nfft, nmel + nac, true);
   if (n < 1 || opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
   return (int)rfft::with_n(nfft, [&](auto nc) {
     return rfft::with_opl(opl, [&](auto oc) {
       return launch<decltype(nc)::value, decltype(oc)::value>(
           (cudaStream_t)stream, (const float*)frames, (const float*)win,
           (const float4*)op, (const float*)dct, (float*)ceps, (float*)r, n,
-          flen, nmel, nac, nceps, pre_emph, preemph_first, power_floor);
+          flen, nmel, nac, nceps, pre_emph, preemph_first, power_floor,
+          (float*)wsums);
     });
   });
+}
+
+// K4 at an nfft-point FFT, nfft a power of two >= 32768 (csrc/rfft_big.cuh):
+// frames [n, flen] raw, win [flen], mel [>= nfft/2 + 1, nmel] and acorr
+// [>= nfft/2 + 1, nac] (the bin-domain operators), dct [nmel, nceps],
+// scratch of srt_big_scratch_floats(nfft, nmel + nac, chunk); writes ceps
+// [n, nceps] and r [n, nac].
+extern "C" int srt_big_packed_frames(
+    const void* frames, const void* win, const void* mel, const void* acorr,
+    const void* dct, void* ceps, void* r, void* scratch, int n, int flen,
+    int nfft, int nmel, int nac, int nceps, float pre_emph,
+    int preemph_first, float power_floor, int chunk, void* stream) {
+  if (n < 1 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
+  const BigWindowedRows fr{(const float*)frames, (const float*)win, flen,
+                           pre_emph, preemph_first != 0};
+  return (int)rfft_big::frame_level(
+      fr, n, chunk, nfft, (float*)scratch, (const float*)mel,
+      (const float*)acorr, (const float*)dct, (float*)ceps, (float*)r, nmel,
+      nac, nceps, power_floor, false, (cudaStream_t)stream);
 }

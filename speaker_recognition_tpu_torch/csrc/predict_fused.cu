@@ -20,25 +20,36 @@ extern "C" long long srt_fused_scratch_floats(int B, int T, int d, int S) {
   return (long long)B * T * d + (long long)B * std::max(1, (T + 31) / 32) * S;
 }
 
-// Whether the bf16 route's dense tile takes this geometry: 0 if it does,
-// -1 if not (more than 128 mel + autocorrelation outputs, or frames too
-// long for a 64-frame tile).
-extern "C" int srt_fused_bf16_fits(int flen, int fshift, int nmel, int nac) {
-  int ft, opl;
-  return pick(flen, fshift, nmel + nac, &ft, &opl) ? 0 : -1;
+// Floats of device scratch the bf16 route takes past 128 mel +
+// autocorrelation outputs: rows [B * T][128 * chunks] of the sums; 0 up to
+// 128 outputs.
+extern "C" long long srt_fused_bf16_wide_floats(int B, int T, int nout) {
+  const int c = dense_chunks(nout);
+  return c > 1 ? (long long)B * T * 128 * c : 0;
+}
+
+// The bf16 route's tile at a geometry (csrc/packed_tile.cuh pick): its
+// frames a tile, 8 x its outputs a lane, whether it reads the samples from
+// device memory, and its output chunks, into out[4].
+extern "C" void srt_fused_bf16_tile(int flen, int fshift, int nout,
+                                    int* out) {
+  pick(flen, fshift, nout, &out[0], &out[1], &out[2]);
+  out[3] = dense_chunks(nout);
 }
 
 // signals [B, Lp], n_valid [B], comp the component rows [S, K,
 // srt_fused_component_row(d)], dct [nmel, nceps], scratch of
 // srt_fused_scratch_floats; writes out [B, S]. bf16 == 0: the FFT route,
 // win [flen] and op the packed operator of srt_fft_operator_shape at nfft
-// (csrc/frontend_fft.cu); D, W, A unread. bf16 != 0: the dense route with
-// D [flen, ncols], W [ncols, nmel], A [ncols, nac]; win, op and nfft
+// (csrc/frontend_fft.cu), at most 512 outputs; D, W, A and wsums unread.
+// bf16 != 0: the dense route with D [flen, ncols], W [ncols, nmel], A
+// [ncols, nac] and wsums of srt_fused_bf16_wide_floats; win, op and nfft
 // unread.
 extern "C" int srt_fused_predict(
     const void* signals, const void* n_valid, const void* win,
     const void* op, const void* D, const void* W, const void* A,
-    const void* dct, const void* comp, void* scratch, void* out, int B,
+    const void* dct, const void* comp, void* scratch, void* wsums, void* out,
+    int B,
     int Lp, int T, int flen, int fshift, int nfft, int ncols, int nmel,
     int nac, int nceps, int S, int K, float pre_emph, int preemph_first,
     float power_floor, int cmvn, int bf16, void* stream) {
@@ -55,6 +66,8 @@ extern "C" int srt_fused_predict(
   a.comp = (const float*)comp;
   a.feat = (float*)scratch;
   a.out = (float*)out;
+  a.wsums = (float*)wsums;
+  a.nchunk = 1;
   a.B = B;
   a.Lp = Lp;
   a.T = T;
@@ -75,12 +88,16 @@ extern "C" int srt_fused_predict(
   a.power_floor = power_floor;
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
-    int ft, opl;
-    if (!pick(flen, fshift, nmel + nac, &ft, &opl))
-      return (int)cudaErrorInvalidValue;
+    int ft, opl, gseg;
+    pick(flen, fshift, nmel + nac, &ft, &opl, &gseg);
+    a.nchunk = dense_chunks(nmel + nac);
+    if (a.nchunk > 1 && wsums == nullptr) return (int)cudaErrorInvalidValue;
     if (ft == 128) return (int)with_frames<DenseBf16Tile<128, 9>>(a, st);
-    if (opl == 9) return (int)with_frames<DenseBf16Tile<64, 9>>(a, st);
-    return (int)with_frames<DenseBf16Tile<64, 16>>(a, st);
+    if (ft == 64 && opl == 9)
+      return (int)with_frames<DenseBf16Tile<64, 9>>(a, st);
+    if (ft == 64) return (int)with_frames<DenseBf16Tile<64, 16>>(a, st);
+    if (!gseg) return (int)with_frames<DenseBf16Tile<32, 16>>(a, st);
+    return (int)with_frames<DenseBf16Tile<32, 16, true>>(a, st);
   }
   const int opl = rfft::pick_opl(nfft, nmel + nac);
   if (opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;

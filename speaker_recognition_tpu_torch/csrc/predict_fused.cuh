@@ -22,9 +22,10 @@
 //     frontend (csrc/frontend.cu, K1) computes it;
 //   * bf16: the TPU kernel's dense product X = frame . D, Y = X^2 on the
 //     dense tile of csrc/packed_tile.cuh, with the samples and D rounded to
-//     bf16 (nearest even) first; the products and every sum stay f32. It
-//     keeps that tile's limits (at most 128 mel + autocorrelation outputs,
-//     frames short enough for a 64-frame tile).
+//     bf16 (nearest even) first; the products and every sum stay f32. Any
+//     number of outputs (chunks of 128 past 128) and any frame length (a
+//     tile of 128, 64 or 32 frames, the samples in device memory past
+//     what a 32-frame tile's shared memory holds).
 //
 // What bounds it on this card: operations. The least work is a real FFT
 // of N points a frame (2.5 N log2 N), the bin-domain operators' nonzeros,
@@ -88,7 +89,9 @@ struct Args {
   float* feat;           // scratch [B, T, d]
   float* partial;        // scratch [B][NW][S]
   float* out;            // [B, S]
+  float* wsums;          // scratch [B * T][128 * nchunk] (bf16, > 128 outputs)
   int B, Lp, T, flen, fshift, ncols, nmel, nac, nceps, d, S, K, P;
+  int nchunk;  // output chunks of the bf16 route's tile
   int NW;   // warp tiles an utterance
   int sg;   // speakers a scoring item
   int ch;   // component rows a staged chunk
@@ -122,22 +125,31 @@ struct FftTile {
 };
 
 // The bf16 route's frontend tile: the dense product on bf16-rounded
-// operands (csrc/packed_tile.cuh).
-template <int FT_, int OPL>
+// operands (csrc/packed_tile.cuh); past 128 outputs the sums leave through
+// rows of a.wsums [B * T][128 * nchunk], and with GSEG the samples are read
+// from device memory (frames too long for a 32-frame tile's shared memory).
+template <int FT_, int OPL, bool GSEG = false>
 struct DenseBf16Tile {
   static constexpr int FT = FT_, NTH = NT;
   static constexpr int smem_bytes(int flen, int fshift) {
-    return 4 * smem_floats(FT, OPL, flen, fshift);
+    return 4 * smem_floats(FT, OPL, flen, fshift, GSEG);
   }
   __device__ static void features(const Args& a, float* smem, int b, int f0,
                                   int nv) {
-    const float* sums = tile_sums<FT, OPL, true>(
+    const int nf = min(FT, a.T - f0);
+    const int wstride = 8 * OPL * a.nchunk;
+    float* wrows = a.wsums + ((size_t)b * a.T + f0) * wstride;
+    const float* sums = tile_sums<FT, OPL, true, GSEG>(
         a.signals + (size_t)b * a.Lp + (size_t)f0 * a.fshift,
         a.Lp - f0 * a.fshift, a.D, a.W, a.A, smem, a.flen, a.fshift, a.ncols,
-        a.nmel, a.nac, a.power_floor);
-    tile_features<OPL>(sums, a.feat + ((size_t)b * a.T + f0) * a.d,
-                       min(FT, a.T - f0), nv - f0, a.dct, a.nmel, a.nac,
-                       a.nceps, true);
+        a.nmel, a.nac, a.power_floor, a.nchunk, wrows, wstride, nf);
+    float* out = a.feat + ((size_t)b * a.T + f0) * a.d;
+    if (OPL == 16 && a.nchunk > 1)
+      tile_features<OPL>(wrows, out, nf, nv - f0, a.dct, a.nmel, a.nac,
+                         a.nceps, true, wstride);
+    else
+      tile_features<OPL>(sums, out, nf, nv - f0, a.dct, a.nmel, a.nac,
+                         a.nceps, true);
   }
 };
 

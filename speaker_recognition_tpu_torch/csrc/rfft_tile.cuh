@@ -142,18 +142,25 @@ __host__ __device__ constexpr int smem_floats(int n, int opl) {
 template <int SH = 5>
 __device__ __forceinline__ int slot(int i) { return i + (i >> SH); }
 
+// Output chunks of 8 * 64 = 512 a tile projects onto one after the other
+// (tile_sums' `nchunk`): 1 up to 512 outputs.
+__host__ __device__ constexpr int out_chunks(int nout) {
+  return nout <= 512 ? 1 : (nout + 511) / 512;
+}
+
 // OPL for nout = nmel + nac outputs at an N-point FFT, or 0 when N is not a
-// power of two in [MIN_N, MAX_N] or nout > 512.
-inline int pick_opl(int n, int nout) {
+// power of two in [MIN_N, MAX_N] or, unless `chunked`, nout > 512; past 512
+// outputs a chunked caller takes OPL 64 and out_chunks(nout) chunks.
+inline int pick_opl(int n, int nout, bool chunked = false) {
   if (n < MIN_N || n > MAX_N || (n & (n - 1)) != 0) return 0;
   const int o = nout <= 72 ? 9 : nout <= 128 ? 16 : nout <= 256 ? 32
-              : nout <= 512 ? 64 : 0;
+              : nout <= 512 || chunked ? 64 : 0;
   if (o == 0 || 4 * smem_floats(n, o) > MAX_SMEM) return 0;
   return o;
 }
 
 // rows of the packed operator at an N-point FFT: bins 0..N/2, zero rows to
-// a multiple of ck(n, opl)
+// a multiple of ck(n, opl); a chunked operator stacks out_chunks of them
 __host__ __device__ constexpr int op_rows(int n, int opl) {
   return (n / 2 + 1 + ck(n, opl) - 1) / ck(n, opl) * ck(n, opl);
 }
@@ -424,6 +431,14 @@ __device__ __forceinline__ void big_fft_frames(const Load& load, int nf,
 // holds bin k's mel weights, then its autocorrelation weights, then zeros;
 // rows past N/2 are zero and there are a multiple of ck(N, OPL) of them.
 // Returns sums [FT][NOP]; ends on a barrier. The block is nth(N) threads.
+// Past 512 outputs (OPL 64, nchunk > 1) op stacks nchunk such operators,
+// chunk c holding outputs [512 c, 512 c + 512); the power rows stay in
+// shared memory while the block projects onto one chunk after the other,
+// and each chunk's sums go to the tile's rows of wsums [nf][wstride] in
+// device memory (the DCT needs every mel energy of a frame); then it
+// returns nullptr. Each output's FMAs run over the bins in the same order
+// whatever the count, so at most 512 outputs keep their bits inside a
+// larger call.
 //
 // The FFT: pair j = lane + 32 q of a frame goes to slot brev(j) of the
 // warp's buffer, which is (brev5(lane) << p) | brev_p(q) with 2^p = H/32
@@ -441,7 +456,8 @@ __device__ __forceinline__ void big_fft_frames(const Load& load, int nf,
 template <int N, int OPL, bool PER_BIN_FLOOR, class Load>
 __device__ __forceinline__ float* tile_sums(
     const Load& load, int nf, float* smem, const float4* __restrict__ op,
-    int nmel, float power_floor) {
+    int nmel, float power_floor, int nchunk = 1, float* wsums = nullptr,
+    int wstride = 0) {
   constexpr int FT = ft(N), WARPS = warps(N), NTH = nth(N);
   constexpr int NOP = nop(OPL);
   constexpr int NG = NOP / 4;                  // 4-column groups
@@ -597,59 +613,79 @@ __device__ __forceinline__ float* tile_sums(
   // 2. [mel | acorr] by chunks of bins; the next chunk's operator rows are
   // fetched into registers while this one is summed. Lane l takes frame
   // fl = l % FT; group slot (warp, gh = l / FT) takes the groups g = warp +
-  // WARPS (gh + LPF i).
+  // WARPS (gh + LPF i). Past 512 outputs the same walk runs once an output
+  // chunk.
   const int fl = lane % FT, gh = lane / FT;
   const unsigned peers =
       FT == 32 ? 0xffffffffu : ((1u << FT) - 1u) << (FT * gh);
+  const int nch = OPL == 64 ? nchunk : 1;
   float acc[GPW][4];
-#pragma unroll
-  for (int i = 0; i < GPW; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
   const float* yrow = ys + fl * NB;
   float4* opc4 = reinterpret_cast<float4*>(opc);
-  float4 pre[PER];
-  fetch_chunk<CK, OPL, NTH>(pre, 0, tid, op);
-  for (int k0 = 0; k0 < NB; k0 += CK) {
-    const int kw = min(CK, NB - k0);
-    __syncthreads();  // the FFTs, or the previous chunk's readers, are done
+  for (int c = 0; c < nch; ++c) {
+    const float4* opx = op + (size_t)c * op_rows(N, OPL) * (NOP / 4);
 #pragma unroll
-    for (int q = 0; q < PER; ++q)
-      if (tid + NTH * q < N4) opc4[tid + NTH * q] = pre[q];
-    __syncthreads();
-    if (k0 + CK < NB) fetch_chunk<CK, OPL, NTH>(pre, k0 + CK, tid, op);
-    // uniform over a group slot's lanes: skip a group that is zero over
-    // the whole chunk (each lane tests rows fl % CK, + FT, ... < CK)
-    bool act[GPW];
+    for (int i = 0; i < GPW; ++i)
 #pragma unroll
-    for (int i = 0; i < GPW; ++i) {
-      const int g = warp + WARPS * (gh + LPF * i);
-      bool nz = false;
-      if (g < NG)
-        for (int rr = fl % CK; rr < CK; rr += FT) {
-          const float4 w4 =
-              *reinterpret_cast<const float4*>(opc + rr * NOP + 4 * g);
-          nz = nz || w4.x != 0.f || w4.y != 0.f || w4.z != 0.f || w4.w != 0.f;
-        }
-      act[i] = (__ballot_sync(0xffffffffu, nz) & peers) != 0u;
-    }
-    // each y is loaded once for the slot's active groups
-#pragma unroll 4
-    for (int kk = 0; kk < kw; ++kk) {
-      const float y = yrow[k0 + kk];
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+    float4 pre[PER];
+    fetch_chunk<CK, OPL, NTH>(pre, 0, tid, opx);
+    for (int k0 = 0; k0 < NB; k0 += CK) {
+      const int kw = min(CK, NB - k0);
+      __syncthreads();  // the FFTs, or the previous chunk's readers, are done
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        if (tid + NTH * q < N4) opc4[tid + NTH * q] = pre[q];
+      __syncthreads();
+      if (k0 + CK < NB) fetch_chunk<CK, OPL, NTH>(pre, k0 + CK, tid, opx);
+      // uniform over a group slot's lanes: skip a group that is zero over
+      // the whole chunk (each lane tests rows fl % CK, + FT, ... < CK)
+      bool act[GPW];
 #pragma unroll
       for (int i = 0; i < GPW; ++i) {
-        if (!act[i]) continue;
-        const float4 w = *reinterpret_cast<const float4*>(
-            opc + kk * NOP + 4 * (warp + WARPS * (gh + LPF * i)));
-        acc[i][0] = fmaf(y, w.x, acc[i][0]);
-        acc[i][1] = fmaf(y, w.y, acc[i][1]);
-        acc[i][2] = fmaf(y, w.z, acc[i][2]);
-        acc[i][3] = fmaf(y, w.w, acc[i][3]);
+        const int g = warp + WARPS * (gh + LPF * i);
+        bool nz = false;
+        if (g < NG)
+          for (int rr = fl % CK; rr < CK; rr += FT) {
+            const float4 w4 =
+                *reinterpret_cast<const float4*>(opc + rr * NOP + 4 * g);
+            nz = nz || w4.x != 0.f || w4.y != 0.f || w4.z != 0.f ||
+                 w4.w != 0.f;
+          }
+        act[i] = (__ballot_sync(0xffffffffu, nz) & peers) != 0u;
+      }
+      // each y is loaded once for the slot's active groups
+#pragma unroll 4
+      for (int kk = 0; kk < kw; ++kk) {
+        const float y = yrow[k0 + kk];
+#pragma unroll
+        for (int i = 0; i < GPW; ++i) {
+          if (!act[i]) continue;
+          const float4 w = *reinterpret_cast<const float4*>(
+              opc + kk * NOP + 4 * (warp + WARPS * (gh + LPF * i)));
+          acc[i][0] = fmaf(y, w.x, acc[i][0]);
+          acc[i][1] = fmaf(y, w.y, acc[i][1]);
+          acc[i][2] = fmaf(y, w.z, acc[i][2]);
+          acc[i][3] = fmaf(y, w.w, acc[i][3]);
+        }
+      }
+    }
+    if (nch > 1 && fl < nf) {  // OPL 64 only: this chunk's sums leave
+#pragma unroll
+      for (int i = 0; i < GPW; ++i) {
+        const int g = warp + WARPS * (gh + LPF * i);
+        if (g >= NG) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int o = NOP * c + 4 * g + q;
+          wsums[(size_t)fl * wstride + o] =
+              o < nmel ? logf(fmaxf(acc[i][q], power_floor)) : acc[i][q];
+        }
       }
     }
   }
   __syncthreads();  // every lane is done with ys: it takes the sums
+  if (nch > 1) return nullptr;  // the sums are in wsums
 
   float* sums = ys;  // [FT][NOP]: log-mel | autocorrelation
 #pragma unroll
@@ -695,23 +731,25 @@ struct SignalFrames {
 };
 
 // The frame-level kernels' epilogue (K5, K4): tile_sums' sums of frames
-// f0 .. f0 + nf - 1 -> pre-CMVN cepstra ceps [n, nceps] (log-mel . dct)
-// and the raw autocorrelation r [n, nac], by the block's NTH threads.
+// f0 .. f0 + nf - 1 (rows of `stride` floats: NOP in shared memory, or
+// rows in device memory past 512 outputs and on the FFT of N >= 32768) ->
+// pre-CMVN cepstra ceps [n, nceps] (log-mel . dct) and the raw
+// autocorrelation r [n, nac], by the block's NTH threads.
 template <int NOP, int NTH>
 __device__ __forceinline__ void frame_outputs(
     const float* sums, const float* __restrict__ dct,
     float* __restrict__ ceps, float* __restrict__ r, int f0, int nf,
-    int nmel, int nac, int nceps) {
+    int nmel, int nac, int nceps, int stride = NOP) {
   for (int i = threadIdx.x; i < nf * nceps; i += NTH) {
     const int f = i / nceps, c = i % nceps;
-    const float* lm = sums + f * NOP;
+    const float* lm = sums + (size_t)f * stride;
     float s = 0.f;
     for (int m = 0; m < nmel; ++m) s = fmaf(lm[m], dct[m * nceps + c], s);
     ceps[(size_t)(f0 + f) * nceps + c] = s;
   }
   for (int i = threadIdx.x; i < nf * nac; i += NTH) {
     const int f = i / nac, j = i % nac;
-    r[(size_t)(f0 + f) * nac + j] = sums[f * NOP + nmel + j];
+    r[(size_t)(f0 + f) * nac + j] = sums[(size_t)f * stride + nmel + j];
   }
 }
 

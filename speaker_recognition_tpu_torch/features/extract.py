@@ -23,6 +23,13 @@ frontend.
   windowed, pre-emphasized frames (mfcc_from_frames). It serves
   SRTPU_FRONTEND=full and every fft_size < 2*frame_len, i.e. every sample
   rate above 32 kHz at the default 2048-point FFT and 32 ms frames.
+
+Both take a dtype. float32 is the kernels' (on the card) and their plain
+versions' (on the CPU). float64 is the parity path of the JAX package
+(features/extract.py:40-53: its Pallas kernels are f32-only): the
+operators are float64 buffers and each call runs the plain torch version
+on whatever device the frontend lives, counted in F64_CALLS, a dtype route
+chosen in the open. The kernel wrappers refuse a float64 CUDA tensor.
 """
 
 from __future__ import annotations
@@ -46,6 +53,10 @@ __all__ = ["LENGTH_BUCKET", "FullFrontend", "PackedFrontend", "apply_deltas",
 
 # Signals are zero-padded to a multiple of this many samples.
 LENGTH_BUCKET = 4096
+
+# frontend calls at float64 since the last reset: the plain versions, on
+# the CPU or the card
+F64_CALLS = 0
 
 
 def apply_deltas(feat: torch.Tensor, mask: torch.Tensor, nd: int):
@@ -90,8 +101,12 @@ class _Frontend(nn.Module):
     steps after a frame-level kernel (CMVN, LPC or LPC cepstra, deltas,
     masking)."""
 
-    def __init__(self, fs: int, cfg: FeatureConfig):
+    def __init__(self, fs: int, cfg: FeatureConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype {dtype}: float32 or float64")
+        self.dtype = dtype
         mf, lp = cfg.mfcc, cfg.lpc
         flen, fshift = frame_geometry(fs, mf.win_length_ms, mf.win_shift_ms)
         if cfg.use_lpc:
@@ -112,10 +127,19 @@ class _Frontend(nn.Module):
         self.lpc_order = lp.n_lpc
 
     def _register(self, device, **ops):
-        """The float64 numpy operators as float32 buffers on `device`."""
+        """The float64 numpy operators as buffers of the frontend's dtype on
+        `device`."""
         for name, op in ops.items():
             self.register_buffer(name, torch.as_tensor(
-                np.ascontiguousarray(op), dtype=torch.float32, device=device))
+                np.ascontiguousarray(op), dtype=self.dtype, device=device))
+
+    def _count_f64(self) -> bool:
+        """Whether this call takes the float64 route (and count it)."""
+        if self.dtype != torch.float64:
+            return False
+        global F64_CALLS
+        F64_CALLS += 1
+        return True
 
     def valid_frames(self, lengths: torch.Tensor, T: int) -> torch.Tensor:
         """[B] lengths -> [B] int32 count of frames wholly inside each
@@ -127,8 +151,9 @@ class _Frontend(nn.Module):
                            torch.zeros_like(n)).clamp(max=T).to(torch.int32)
 
     def _frames(self, signals: torch.Tensor, lengths: torch.Tensor):
-        """(contiguous f32 signals, T, [B, T] frame mask)."""
-        signals = signals.to(torch.float32).contiguous()
+        """(contiguous signals of the frontend's dtype, T, [B, T] frame
+        mask)."""
+        signals = signals.to(self.dtype).contiguous()
         T = n_frames(signals.shape[-1], self.frame_len, self.frame_shift)
         mask = framing.frame_validity_mask(lengths.to(signals.device), T,
                                            self.frame_len, self.frame_shift)
@@ -164,11 +189,15 @@ class PackedFrontend(_Frontend):
     D [flen, 2*flen], W [2*flen, n_mel], dct [n_mel, n_ceps] and
     A [2*flen, order+1] (zero columns without LPC), and the FFT route's
     window [flen], fft_mel [N/2+1, n_mel] and fft_acorr [N/2+1, order+1],
-    N = ops/frontend.rfft_size(flen). Needs fft_size >= 2*frame_len."""
+    N = ops/frontend.rfft_size(flen). Needs fft_size >= 2*frame_len. From
+    N = 32768 on (frames longer than 8192 samples) it builds no D, W, A
+    (D alone would be 1.2 GB at 384 kHz): every route, the CPU's and
+    float64's too, takes the FFT route's operators."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
-                 device: torch.device | str = "cuda"):
-        super().__init__(fs, cfg)
+                 device: torch.device | str = "cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(fs, cfg, dtype)
         mf = cfg.mfcc
         if mf.fft_size < 2 * self.frame_len:
             raise ValueError(
@@ -176,22 +205,26 @@ class PackedFrontend(_Frontend):
                 "the packed frontend cannot express it; frontend() serves "
                 "it with FullFrontend")
         mel, dct = _mel_dct(fs, mf)
-        D, W, A = operators.packed_frontend_operators(
-            self.frame_len, mf.fft_size, mf.pre_emph, mel,
-            lpc_order=self.lpc_order if cfg.use_lpc else None,
-            preemph_first=mf.preemph_first)
-        if A is None:
-            A = np.zeros((D.shape[1], 0))
+        lpc_order = self.lpc_order if cfg.use_lpc else None
         self.n_fft = operators.rfft_size(self.frame_len)
+        dense = {}
+        if self.n_fft < gpu_frontend.BIG_N:
+            D, W, A = operators.packed_frontend_operators(
+                self.frame_len, mf.fft_size, mf.pre_emph, mel,
+                lpc_order=lpc_order, preemph_first=mf.preemph_first)
+            dense = {"D": D, "W": W,
+                     "A": np.zeros((D.shape[1], 0)) if A is None else A}
+        else:
+            for name in ("D", "W", "A"):
+                self.register_buffer(name, None)
         M, R = operators.fft_packed_operators(
-            self.frame_len, mf.fft_size, mel,
-            lpc_order=self.lpc_order if cfg.use_lpc else None,
+            self.frame_len, mf.fft_size, mel, lpc_order=lpc_order,
             n_fft=self.n_fft)
         if R is None:
             R = np.zeros((M.shape[0], 0))
-        self._register(device, D=D, W=W, dct=dct, A=A,
+        self._register(device, dct=dct,
                        window=operators.hamming(self.frame_len), fft_mel=M,
-                       fft_acorr=R)
+                       fft_acorr=R, **dense)
         self.pre_emph = mf.pre_emph
         self.preemph_first = mf.preemph_first
 
@@ -207,10 +240,20 @@ class PackedFrontend(_Frontend):
         [B, T'] mask); zeros past each utterance's valid frames."""
         signals, T, mask = self._frames(signals, lengths)
         n_valid = self.valid_frames(lengths.to(signals.device), T)
-        feat = gpu_frontend.packed_from_signals(
-            signals, n_valid, self.D, self.W, self.dct, self.A, self.floor,
-            self.frame_shift, self.cmvn, fft=self.fft,
-            fuse_lpc=self.n_lpcc == 0)
+        fuse_lpc = self.n_lpcc == 0
+        if not self._count_f64():
+            feat = gpu_frontend.packed_from_signals(
+                signals, n_valid, self.D, self.W, self.dct, self.A,
+                self.floor, self.frame_shift, self.cmvn, fft=self.fft,
+                fuse_lpc=fuse_lpc)
+        elif self.D is None:
+            feat = gpu_frontend.packed_from_signals_fft_reference(
+                signals, n_valid, self.fft, self.dct, self.floor,
+                self.frame_shift, self.cmvn, fuse_lpc)
+        else:
+            feat = gpu_frontend.packed_from_signals_reference(
+                signals, n_valid, self.D, self.W, self.dct, self.A,
+                self.floor, self.frame_shift, self.cmvn, fuse_lpc)
         if self.n_lpcc > 0:
             return self.finish(*feat, mask, cmvn_done=True)
         if self.n_deltas:
@@ -230,8 +273,9 @@ class FullFrontend(_Frontend):
     acorr."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
-                 device: torch.device | str = "cuda"):
-        super().__init__(fs, cfg)
+                 device: torch.device | str = "cuda",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(fs, cfg, dtype)
         mf = cfg.mfcc
         nb = mf.fft_size // 2 + 1
         # the autocorrelation is power @ acorr even when fft_size <
@@ -250,7 +294,7 @@ class FullFrontend(_Frontend):
         self.n_fft = mf.fft_size
         self.register_buffer("C", None)
         self.register_buffer("S", None)
-        if (torch.device(device).type == "cpu"
+        if (torch.device(device).type == "cpu" or dtype == torch.float64
                 or self.n_fft & (self.n_fft - 1)):
             C, S = operators.dft_power_projection(self.frame_len, self.n_fft)
             self._register(device, **{k: np.pad(x, ((0, 0), (0, pad)))
@@ -266,9 +310,15 @@ class FullFrontend(_Frontend):
         wp = framing.window_preemph(
             framing.frame_signal(signals, self.frame_len, self.frame_shift),
             self.frame_len, self.pre_emph, self.preemph_first)
-        ceps, r = gpu_frontend.mfcc_from_frames(
-            wp.reshape(B * T, self.frame_len), self.C, self.S, self.mel,
-            self.dct, self.floor, self.acorr, self.n_fft)
+        wp = wp.reshape(B * T, self.frame_len)
+        if self._count_f64():
+            ceps, r = gpu_frontend.mfcc_from_frames_reference(
+                wp, self.C, self.S, self.mel, self.dct, self.floor,
+                self.acorr)
+        else:
+            ceps, r = gpu_frontend.mfcc_from_frames(
+                wp, self.C, self.S, self.mel, self.dct, self.floor,
+                self.acorr, self.n_fft)
         return self.finish(ceps.view(B, T, -1), r.view(B, T, -1), mask)
 
 
@@ -281,27 +331,36 @@ def frontend_mode() -> str:
     return mode
 
 
-def frontend(fs: int, cfg: FeatureConfig,
-             device: torch.device | str) -> _Frontend:
-    """The frontend of (fs, cfg) on `device` under the current
-    SRTPU_FRONTEND, built once per (fs, cfg, device, mode)."""
-    return _frontend(int(fs), cfg, torch.device(device), frontend_mode())
+def frontend(fs: int, cfg: FeatureConfig, device: torch.device | str,
+             dtype: str = "float32") -> _Frontend:
+    """The frontend of (fs, cfg) on `device` at `dtype` under the current
+    SRTPU_FRONTEND, built once per (fs, cfg, device, dtype, mode)."""
+    return _frontend(int(fs), cfg, torch.device(device), _torch_dtype(dtype),
+                     frontend_mode())
+
+
+def _torch_dtype(dtype: str) -> torch.dtype:
+    if dtype not in ("float32", "float64"):
+        raise ValueError(f"dtype {dtype!r}: float32 or float64")
+    return getattr(torch, dtype)
 
 
 @functools.lru_cache(maxsize=16)
 def _frontend(fs: int, cfg: FeatureConfig, device: torch.device,
-              mode: str) -> _Frontend:
+              dtype: torch.dtype, mode: str) -> _Frontend:
     flen, _ = frame_geometry(fs, cfg.mfcc.win_length_ms,
                              cfg.mfcc.win_shift_ms)
     if mode == "packed" and cfg.mfcc.fft_size >= 2 * flen:
-        return PackedFrontend(fs, cfg, device)
-    return FullFrontend(fs, cfg, device)
+        return PackedFrontend(fs, cfg, device, dtype)
+    return FullFrontend(fs, cfg, device, dtype)
 
 
 def extract_batch(signals: torch.Tensor, lengths: torch.Tensor, fs: int,
-                  cfg: FeatureConfig = FeatureConfig()):
-    """Features for a zero-padded batch: [B, L] -> ([B, T, d], [B, T] mask)."""
-    return frontend(fs, cfg, signals.device)(signals, lengths)
+                  cfg: FeatureConfig = FeatureConfig(),
+                  dtype: str = "float32"):
+    """Features for a zero-padded batch: [B, L] -> ([B, T, d], [B, T] mask),
+    at `dtype` (float64: the plain versions, features/extract.F64_CALLS)."""
+    return frontend(fs, cfg, signals.device, dtype)(signals, lengths)
 
 
 def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),
@@ -309,11 +368,11 @@ def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),
                 device: torch.device | str = "cuda") -> np.ndarray:
     """One utterance's concat(MFCC, LPC) per frame, [T - n_deltas, d] numpy
     (src/feature/__init__.py:25-30). Int or float PCM; multi-channel input
-    is averaged (MFCC.py:52-54). The signal is padded to LENGTH_BUCKET in
-    float32 and runs through the frontend of (fs, cfg) on `device`."""
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {dtype!r}: the port extracts features in float32 only")
+    is averaged (MFCC.py:52-54). The signal is padded to LENGTH_BUCKET, in
+    float32, or at float64 full-width as in the JAX package
+    (features/extract.py:403-405), and runs through the frontend of (fs,
+    cfg, dtype) on `device`."""
+    dt = _torch_dtype(dtype)
     signal = np.asarray(signal, dtype=np.float64)
     if signal.ndim > 1:
         signal = signal.mean(axis=1)
@@ -323,12 +382,12 @@ def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),
     T = n_frames(len(signal), *frame_geometry(fs, mf.win_length_ms,
                                               mf.win_shift_ms))
     padded = np.zeros((1, -(-len(signal) // LENGTH_BUCKET) * LENGTH_BUCKET),
-                      np.float32)
+                      np.float64 if dt == torch.float64 else np.float32)
     padded[0, :len(signal)] = signal
     device = torch.device(device)
     feat, _ = extract_batch(torch.from_numpy(padded).to(device),
                             torch.tensor([len(signal)], device=device), fs,
-                            cfg)
+                            cfg, dtype)
     return feat[0, :T - cfg.n_deltas].cpu().numpy()
 
 

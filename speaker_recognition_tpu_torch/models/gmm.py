@@ -144,7 +144,8 @@ class GmmBank(nn.Module):
                    dtype: torch.dtype = torch.float32) -> "GmmBank":
         """From a bank's arrays (weights [S, K], means/sigmas [S, K, d]),
         e.g. the GmmParams of either package's session. The kernels take
-        float32 only; float64 serves the CPU's plain versions."""
+        float32; a float64 bank serves the plain versions on the CPU or
+        the card (ops/gpu_gmm.batch_scores, serial_scores)."""
         params = GmmParams(np.asarray(weights), np.asarray(means),
                            np.asarray(sigmas))
         S, K = params.weights.shape

@@ -6,8 +6,9 @@ persist as numpy (`params`, weights [S, K], means/sigmas [S, K, d]) and
 serve from a device as a GmmBank (`bank`). Training pads every pending
 speaker to a common frame count and fits the whole bank in one batched EM
 (models/gmm.fit / fit_from_ubm). Serial scoring pads one utterance to a
-SCORE_FRAME_BUCKET multiple and runs ops/gpu_gmm.bank_avg_loglik, which on
-CUDA is the serial kernel (csrc/gmm_serial.cu); the open-set quantities
+SCORE_FRAME_BUCKET multiple and runs ops/gpu_gmm.serial_scores, which at
+float32 on CUDA is the serial kernel (csrc/gmm_serial.cu); the open-set
+quantities
 score the bank and the UBM, appended as one more speaker, in one launch.
 """
 
@@ -55,7 +56,8 @@ def _pad_stack(feature_list):
 class GMMSet:
     """Bank of per-speaker GMMs with an optional UBM for MAP adaptation and
     rejection. `dtype` is the training and scoring dtype: float32 serves
-    the kernels, float64 runs the plain versions on the CPU."""
+    the kernels, float64 runs the plain versions on the CPU or the card
+    (ops/gpu_gmm.serial_scores)."""
 
     def __init__(self, gmm_order: int = 32, ubm: GmmParams | None = None,
                  reject_threshold: float = 10.0,
@@ -164,7 +166,7 @@ class GMMSet:
         """Per-speaker average log-likelihood of one utterance: [S]."""
         self._require_bank()
         X, mask = self._utterance(x)
-        return gpu_gmm.bank_avg_loglik(self.bank, X, mask).cpu().numpy()
+        return gpu_gmm.serial_scores(self.bank, X, mask).cpu().numpy()
 
     def llr_scores(self, x: np.ndarray):
         """(per-speaker scores [S], UBM per-frame score) of one utterance,
@@ -174,8 +176,8 @@ class GMMSet:
         if self.ubm is None:
             raise RuntimeError("llr_scores requires a UBM")
         X, mask = self._utterance(x)
-        out = gpu_gmm.bank_avg_loglik(self._bank_with_ubm(), X,
-                                      mask).cpu().numpy()
+        out = gpu_gmm.serial_scores(self._bank_with_ubm(), X,
+                                    mask).cpu().numpy()
         return out[:-1], float(out[-1])
 
     def predict_one_scores(self, x):

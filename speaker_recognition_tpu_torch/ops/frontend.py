@@ -268,7 +268,10 @@ def fft_packed_operators(frame_len: int, fft_size: int, mel_t: np.ndarray,
     """
     F = frame_len
     N = rfft_size(F) if n_fft is None else n_fft
-    M = halfspec_to_fullspec(F, N, fft_size) @ mel_t
+    # at N = fft_size the map is the identity, exactly (and its dense
+    # product would be [N/2+1, F] x [F, N/2+1]: 3.3 TFLOP at N = 32768)
+    M = (np.asarray(mel_t, np.float64) if N == fft_size
+         else halfspec_to_fullspec(F, N, fft_size) @ mel_t)
     R = None
     if lpc_order is not None:
         k = np.arange(N // 2 + 1, dtype=np.float64)[:, None]

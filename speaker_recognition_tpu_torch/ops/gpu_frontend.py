@@ -38,6 +38,17 @@ without LPC), which the LPC cepstra need:
                         `mfcc_from_frames_fft_reference`), any other the
                         dense template of csrc/frontend_frames.cu
                         (`mfcc_from_frames_dense`).
+
+Two routes of the FFT kernels are chosen on the shape in the open, each
+with its own counter, and compute the same function:
+  * an FFT of 32768 points or more (fft_size >= 32768 on the full route,
+    frames longer than 8192 samples on the packed route) runs the
+    four-step FFT of csrc/rfft_big.cuh over a device scratch in chunks of
+    frames (BIG_LAUNCHES, FRAMES_BIG_LAUNCHES, FULL_BIG_LAUNCHES) in place
+    of the FFT tile;
+  * past 512 mel + autocorrelation outputs the FFT tile projects onto
+    chunks of 512 outputs in turn, the sums in device rows
+    (CHUNKED_LAUNCHES, counted beside the kernel's own counter).
 """
 
 from __future__ import annotations
@@ -56,6 +67,17 @@ LAUNCHES = 0             # csrc/frontend.cu, packed_from_signals
 FRAMES_LAUNCHES = 0      # csrc/frontend_frames_fft.cu, packed_from_frames
 FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
 FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
+# the route of N >= 32768 (csrc/rfft_big.cuh), one count per wrapper
+BIG_LAUNCHES = 0         # packed_from_signals
+FRAMES_BIG_LAUNCHES = 0  # packed_from_frames
+FULL_BIG_LAUNCHES = 0    # mfcc_from_frames
+# FFT-tile launches of any of the three with more than 512 outputs
+CHUNKED_LAUNCHES = 0
+
+# FFT sizes from here on take the four-step route of csrc/rfft_big.cuh
+BIG_N = 32768
+# device scratch the four-step route takes at most for a chunk of frames
+BIG_SCRATCH_BYTES = 1 << 28
 
 
 def masked_cmvn(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -158,8 +180,13 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
     """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order], or
     without fuse_lpc ([B, T, n_ceps], [B, T, order+1] raw autocorrelation;
     on the card two views of one buffer). On the CPU the plain version with
-    D, W, A; on the card the FFT kernel, which takes `fft` instead."""
+    D, W, A (the FFT route's where D is None: a frontend of N >= 32768
+    builds no dense operators); on the card the FFT kernel, which takes
+    `fft` instead."""
     if signals.device.type == "cpu":
+        if D is None:
+            return packed_from_signals_fft_reference(
+                signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
         return packed_from_signals_reference(signals, n_valid, D, W, dct, A,
                                              floor, fshift, cmvn, fuse_lpc)
     if signals.device.type != "cuda":
@@ -188,24 +215,65 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
             f"{tuple(dct.shape)}, fshift {fshift}")
     lib = _build.load()
-    op = _packed_operator(lib, fft.mel, fft.acorr, N)
     T = (Lp - flen) // fshift + 1
     feat = torch.empty((B, T, nceps + (order if fuse_lpc else nac)),
                        dtype=torch.float32, device=dev)
-    global LAUNCHES
+    global LAUNCHES, BIG_LAUNCHES, CHUNKED_LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_packed_frontend(
-            signals.data_ptr(), n_valid.data_ptr(), fft.window.data_ptr(),
-            op.data_ptr(), dct.data_ptr(), feat.data_ptr(), B, Lp, T, flen,
-            fshift, N, nmel, nac, nceps,
-            float(fft.pre_emph), int(bool(fft.preemph_first)), float(floor),
-            int(bool(cmvn)), int(bool(fuse_lpc)), stream)
+        if N >= BIG_N:
+            chunk, scratch = _big_scratch(lib, N, nmel + nac, B * T, dev)
+            err = lib.srt_big_packed_frontend(
+                signals.data_ptr(), n_valid.data_ptr(),
+                fft.window.data_ptr(), fft.mel.data_ptr(),
+                fft.acorr.data_ptr(), dct.data_ptr(), feat.data_ptr(),
+                scratch.data_ptr(), B, Lp, T, flen, fshift, N, nmel, nac,
+                nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
+                float(floor), int(bool(cmvn)), int(bool(fuse_lpc)), chunk,
+                stream)
+        else:
+            op = _packed_operator(lib, fft.mel, fft.acorr, N)
+            wsums = _wide_rows(lib, B * T, nmel + nac, dev)
+            err = lib.srt_packed_frontend(
+                signals.data_ptr(), n_valid.data_ptr(),
+                fft.window.data_ptr(), op.data_ptr(), dct.data_ptr(),
+                feat.data_ptr(), _ptr(wsums), B, Lp, T, flen, fshift, N,
+                nmel, nac, nceps, float(fft.pre_emph),
+                int(bool(fft.preemph_first)), float(floor), int(bool(cmvn)),
+                int(bool(fuse_lpc)), stream)
     _build.check(err, "packed frontend kernel")
-    LAUNCHES += 1
+    if N >= BIG_N:
+        BIG_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+        CHUNKED_LAUNCHES += nmel + nac > 512
     if fuse_lpc:
         return feat
     return feat[..., :nceps], feat[..., nceps:]
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _wide_rows(lib, nframes: int, nout: int, dev) -> torch.Tensor | None:
+    """The device rows the FFT tile keeps its sums in past 512 outputs, or
+    None up to 512."""
+    n = lib.srt_fft_wide_floats(nframes, nout)
+    return torch.empty(n, dtype=torch.float32, device=dev) if n else None
+
+
+def _big_scratch(lib, n_fft: int, nout: int, nframes: int, dev):
+    """(frames a chunk, the scratch) of the route of N >= 32768: as many
+    frames a chunk as BIG_SCRATCH_BYTES hold (at least one, at most the
+    grid's 65535)."""
+    per = lib.srt_big_scratch_floats(n_fft, nout, 1)
+    if per < 0:
+        raise ValueError(f"no four-step FFT at n_fft {n_fft}: it takes a "
+                         "power of two in [32768, 2^24]")
+    chunk = int(max(1, min(65535, nframes, BIG_SCRATCH_BYTES // (4 * per))))
+    return chunk, torch.empty(lib.srt_big_scratch_floats(n_fft, nout, chunk),
+                              dtype=torch.float32, device=dev)
 
 
 # the packed operators built for the FFT kernels: (id(mel), id(acorr),
@@ -216,26 +284,28 @@ _PACKED: dict = {}
 
 def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     """[mel | acorr | 0] rows 0..n_fft/2 in the FFT tile's layout (csrc/
-    frontend_fft.cu srt_fft_operator_shape), built once per (mel, acorr,
-    n_fft) and rebuilt after either is written to."""
+    frontend_fft.cu srt_fft_operator_shape; past 512 outputs one such
+    operator per chunk of 512 columns, stacked), built once per (mel,
+    acorr, n_fft) and rebuilt after either is written to."""
     key = (id(mel), id(acorr), n_fft)
     hit = _PACKED.get(key)
     if hit is not None and hit[2] == (mel._version, acorr._version):
         return hit[3]
     nmel, nac = mel.shape[1], acorr.shape[1]
-    rows, cols = ctypes.c_int(), ctypes.c_int()
+    rows, cols, chunks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if lib.srt_fft_operator_shape(n_fft, nmel + nac, ctypes.byref(rows),
-                                  ctypes.byref(cols)) < 0:
+                                  ctypes.byref(cols),
+                                  ctypes.byref(chunks)) < 0:
         raise ValueError(
-            f"no FFT tile at n_fft {n_fft} with {nmel + nac} mel + "
-            "autocorrelation outputs: it takes a power of two in "
-            "[64, 16384] (not 32768 or more: fft_size >= 32768 on the full "
-            "route, or the packed route of frames longer than 8192 samples) "
-            "and at most 512 outputs")
+            f"no FFT tile at n_fft {n_fft}: it takes a power of two in "
+            f"[64, {BIG_N // 2}]")
     nb = n_fft // 2 + 1
-    op = mel.new_zeros((rows.value, cols.value))
-    op[:nb, :nmel] = mel[:nb]
-    op[:nb, nmel:nmel + nac] = acorr[:nb]
+    full = torch.cat([mel[:nb], acorr[:nb]], dim=1)
+    c, R = cols.value, rows.value // chunks.value
+    op = mel.new_zeros((rows.value, c))
+    for k in range(chunks.value):
+        part = full[:, k * c:(k + 1) * c]
+        op[k * R:k * R + nb, :part.shape[1]] = part
     if len(_PACKED) >= 16:
         _PACKED.clear()
     _PACKED[key] = (mel, acorr, (mel._version, acorr._version), op)
@@ -269,9 +339,12 @@ def mfcc_from_frames_reference(wp, C, S, mel, dct, floor: float, acorr):
 def packed_from_frames(frames, D, W, dct, floor: float, A,
                        fft: FftRoute | None = None):
     """[n, flen] raw frames -> ([n, n_ceps] pre-CMVN cepstra, [n, nac] raw
-    autocorrelation). On the CPU the plain version with D, W, A; on the card
-    the FFT kernel, which takes `fft` instead (PackedFrontend.fft)."""
+    autocorrelation). On the CPU the plain version with D, W, A (the FFT
+    route's where D is None); on the card the FFT kernel, which takes `fft`
+    instead (PackedFrontend.fft)."""
     if frames.device.type == "cpu":
+        if D is None:
+            return packed_from_frames_fft_reference(frames, fft, dct, floor)
         return packed_from_frames_reference(frames, D, W, dct, floor, A)
     if frames.device.type != "cuda":
         raise ValueError(f"no frontend for device {frames.device}")
@@ -296,21 +369,35 @@ def packed_from_frames(frames, D, W, dct, floor: float, A,
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
             f"{tuple(dct.shape)}")
     lib = _build.load()
-    op = _packed_operator(lib, fft.mel, fft.acorr, N)
     ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
     r = torch.empty((n, nac), dtype=torch.float32, device=dev)
     if n == 0:
         return ceps, r
+    global FRAMES_LAUNCHES, FRAMES_BIG_LAUNCHES, CHUNKED_LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_fft_packed_frames(
-            frames.data_ptr(), fft.window.data_ptr(), op.data_ptr(),
-            dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), n, flen, N, nmel,
-            nac, nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
-            float(floor), stream)
+        if N >= BIG_N:
+            chunk, scratch = _big_scratch(lib, N, nmel + nac, n, dev)
+            err = lib.srt_big_packed_frames(
+                frames.data_ptr(), fft.window.data_ptr(), fft.mel.data_ptr(),
+                fft.acorr.data_ptr(), dct.data_ptr(), ceps.data_ptr(),
+                r.data_ptr(), scratch.data_ptr(), n, flen, N, nmel, nac,
+                nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
+                float(floor), chunk, stream)
+        else:
+            op = _packed_operator(lib, fft.mel, fft.acorr, N)
+            wsums = _wide_rows(lib, n, nmel + nac, dev)
+            err = lib.srt_fft_packed_frames(
+                frames.data_ptr(), fft.window.data_ptr(), op.data_ptr(),
+                dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), _ptr(wsums),
+                n, flen, N, nmel, nac, nceps, float(fft.pre_emph),
+                int(bool(fft.preemph_first)), float(floor), stream)
     _build.check(err, "frame-level packed FFT frontend kernel")
-    global FRAMES_LAUNCHES
-    FRAMES_LAUNCHES += 1
+    if N >= BIG_N:
+        FRAMES_BIG_LAUNCHES += 1
+    else:
+        FRAMES_LAUNCHES += 1
+        CHUNKED_LAUNCHES += nmel + nac > 512
     return ceps, r
 
 
@@ -391,18 +478,30 @@ def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
             f"{n_fft}, mel {tuple(mel.shape)}, dct {tuple(dct.shape)}, "
             f"acorr {tuple(ac.shape)}")
     lib = _build.load()
-    op = _packed_operator(lib, mel, ac, n_fft)
     ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
     r = torch.empty((n, nac), dtype=torch.float32, device=dev)
     if n == 0:
         return ceps, r
+    global FULL_LAUNCHES, FULL_BIG_LAUNCHES, CHUNKED_LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.srt_fft_frames_frontend(
-            wp.data_ptr(), op.data_ptr(), dct.data_ptr(), ceps.data_ptr(),
-            r.data_ptr(), n, flen, n_fft, nmel, nac, nceps, float(floor),
-            stream)
+        if n_fft >= BIG_N:
+            chunk, scratch = _big_scratch(lib, n_fft, nmel + nac, n, dev)
+            err = lib.srt_big_fft_frames(
+                wp.data_ptr(), mel.data_ptr(), ac.data_ptr(), dct.data_ptr(),
+                ceps.data_ptr(), r.data_ptr(), scratch.data_ptr(), n, flen,
+                n_fft, nmel, nac, nceps, float(floor), chunk, stream)
+        else:
+            op = _packed_operator(lib, mel, ac, n_fft)
+            wsums = _wide_rows(lib, n, nmel + nac, dev)
+            err = lib.srt_fft_frames_frontend(
+                wp.data_ptr(), op.data_ptr(), dct.data_ptr(), ceps.data_ptr(),
+                r.data_ptr(), _ptr(wsums), n, flen, n_fft, nmel, nac, nceps,
+                float(floor), stream)
     _build.check(err, "full-spectrum FFT frontend kernel")
-    global FULL_LAUNCHES
-    FULL_LAUNCHES += 1
+    if n_fft >= BIG_N:
+        FULL_BIG_LAUNCHES += 1
+    else:
+        FULL_LAUNCHES += 1
+        CHUNKED_LAUNCHES += nmel + nac > 512
     return ceps, r

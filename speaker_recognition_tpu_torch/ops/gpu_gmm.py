@@ -47,11 +47,15 @@ from ..models.gmm import (
 # (gmm_serial.cu); the CPU path does not count
 LAUNCHES = 0
 SERIAL_LAUNCHES = 0
+# calls of batch_scores / serial_scores at float64: the plain versions, on
+# the CPU or the card
+F64_CALLS = 0
 
-__all__ = ["LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
+__all__ = ["F64_CALLS", "LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
            "bank_avg_loglik_reference", "bank_sum_loglik",
            "bank_sum_loglik_reference", "batch_bank_avg_loglik",
-           "batch_bank_avg_loglik_reference"]
+           "batch_bank_avg_loglik_reference", "batch_scores",
+           "serial_scores"]
 
 
 class _Plan(NamedTuple):
@@ -184,3 +188,33 @@ def bank_avg_loglik(bank: GmmBank, X: torch.Tensor,
     if X.device.type != "cuda":
         raise ValueError(f"no bank scoring for device {X.device}")
     return _serial(bank, X, mask, avg=True)
+
+
+def _f64(x: torch.Tensor) -> bool:
+    """Whether a call takes the float64 route (and count it). The kernels
+    are float32 only, as the JAX package's (its _use_pallas is False for
+    f64): float64 runs the plain versions on whatever device the caller
+    names, a dtype route chosen in the open."""
+    if x.dtype != torch.float64:
+        return False
+    global F64_CALLS
+    F64_CALLS += 1
+    return True
+
+
+def batch_scores(bank: GmmBank, feats: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """[B, S] scores on the route of the features' dtype: the batched
+    kernel's wrapper at float32, the plain version at float64."""
+    if _f64(feats):
+        return batch_bank_avg_loglik_reference(bank, feats, mask)
+    return batch_bank_avg_loglik(bank, feats, mask)
+
+
+def serial_scores(bank: GmmBank, X: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """[S] per-frame averages of one utterance on the route of its dtype:
+    the serial kernel's wrapper at float32, the plain version at float64."""
+    if _f64(X):
+        return bank_avg_loglik_reference(bank, X, mask)
+    return bank_avg_loglik(bank, X, mask)

@@ -31,14 +31,21 @@ Routes, chosen in the open:
     FFT route, then the bank's plain scoring), for the tests and
     chip_smoke.py;
   * CUDA, `mm_bf16`: the kernel on the dense tile with the samples and D
-    rounded to bf16, counted in BF16_LAUNCHES; at most 128 mel +
-    autocorrelation outputs and frames short enough for a 64-frame tile.
+    rounded to bf16, counted in BF16_LAUNCHES; any number of mel +
+    autocorrelation outputs (chunks of 128 past 128, their sums in device
+    rows) and any frame length (a tile of 128, 64 or 32 frames, the
+    samples read from device memory past what a 32-frame tile holds).
+The f32 route takes the FFT tile's sizes (N up to 16384) and at most 512
+outputs; the frontend kernels' routes past those (ops/gpu_frontend) are
+not in the monolith.
 A CUDA tensor launches the kernel or raises; any other device raises.
 Serving does not dispatch the monolith: api/fastpath.predict_scores runs
 the frontend and the bank-scoring kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -69,6 +76,11 @@ def _check_geometry(D: torch.Tensor, fshift: int, fft: FftRoute | None):
     """The JAX package's rule: frame_len == 2*frame_shift and fft_size >=
     2*frame_len, for which the packed operator D [frame_len, 2*frame_len]
     stands; an FFT route, where given, of frames that long."""
+    if D is None:
+        raise ValueError(
+            "fused predict takes the packed operators D, W, A, which a "
+            "frontend of frames longer than 8192 samples (N >= 32768) does "
+            "not build; api.fastpath.predict_scores serves it")
     flen = D.shape[0]
     if flen != 2 * fshift or D.shape[1] != 2 * flen:
         raise ValueError(
@@ -186,7 +198,8 @@ def _check_common(signals, n_valid, bank: GmmBank, dct_t, d: int):
 def _run(lib, signals, n_valid, bank: GmmBank, flen: int, fshift: int,
          nfft: int, ncols: int, nmel: int, nac: int, dct_t, floor: float,
          cmvn: bool, bf16: bool, win=None, op=None, D=None, W=None, A=None,
-         pre_emph: float = 0.0, preemph_first: bool = False):
+         pre_emph: float = 0.0, preemph_first: bool = False,
+         wide_floats: int = 0):
     """Allocate the scratch and the output and launch the kernel once. The
     batch has no limit of its own: the grid is persistent."""
     B, Lp = signals.shape
@@ -201,13 +214,17 @@ def _run(lib, signals, n_valid, bank: GmmBank, flen: int, fshift: int,
     comp = bank.component_operator(lib.srt_fused_component_row(d))
     scratch = torch.empty(lib.srt_fused_scratch_floats(B, T, d, S),
                           dtype=torch.float32, device=dev)
+    # the bf16 route's sums rows past 128 outputs
+    wsums = (torch.empty(wide_floats, dtype=torch.float32, device=dev)
+             if wide_floats else None)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.srt_fused_predict(
             signals.data_ptr(), n_valid.data_ptr(), ptr(win), ptr(op),
             ptr(D), ptr(W), ptr(A), dct_t.data_ptr(), comp.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), B, Lp, T, flen, fshift, nfft,
+            scratch.data_ptr(), ptr(wsums), out.data_ptr(), B, Lp, T, flen,
+            fshift, nfft,
             ncols, nmel, nac, nceps, S, K, float(pre_emph),
             int(bool(preemph_first)), float(floor), int(bool(cmvn)),
             int(bool(bf16)), stream)
@@ -238,6 +255,11 @@ def _launch_fft(signals, n_valid, bank: GmmBank, fshift: int, D, dct_t,
             f"{tuple(signals.shape)}, window {flen}, n_fft {N}, mel "
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct_t "
             f"{tuple(dct_t.shape)}")
+    if N > 16384 or nmel + nac > 512:
+        raise ValueError(
+            f"fused predict f32 route (the FFT tile): n_fft {N} must be at "
+            f"most 16384 and {nmel} mel + {nac} autocorrelation outputs at "
+            "most 512; api.fastpath.predict_scores serves every shape")
     lib = _build.load()
     op = _packed_operator(lib, fft.mel, fft.acorr, N)
     return _run(lib, signals, n_valid, bank, flen, fshift, N, 0, nmel, nac,
@@ -265,11 +287,17 @@ def _launch_bf16(signals, n_valid, bank: GmmBank, fshift: int, D, W, dct_t,
             f"{tuple(W.shape)}, dct_t {tuple(dct_t.shape)}, A "
             f"{tuple(A.shape)}")
     lib = _build.load()
-    if lib.srt_fused_bf16_fits(flen, fshift, nmel, nac) < 0:
-        raise ValueError(
-            f"fused predict bf16 route (the dense tile) limits: {nmel} mel + "
-            f"{nac} autocorrelation outputs <= 128, and frames of {flen} "
-            "samples in a 64-frame tile within a block's shared memory; the "
-            "f32 route (the FFT tile) has neither")
+    T = (signals.shape[1] - flen) // fshift + 1
     return _run(lib, signals, n_valid, bank, flen, fshift, 0, ncols, nmel,
-                nac, dct_t, floor, cmvn, True, D=D, W=W, A=A)
+                nac, dct_t, floor, cmvn, True, D=D, W=W, A=A,
+                wide_floats=lib.srt_fused_bf16_wide_floats(
+                    signals.shape[0], T, nmel + nac))
+
+
+def bf16_tile(flen: int, fshift: int, nout: int) -> dict:
+    """The bf16 route's tile at a geometry (csrc/packed_tile.cuh pick):
+    frames a tile, outputs a lane / 8 (OPL), whether the samples are read
+    from device memory, output chunks of 8 * OPL."""
+    out = (ctypes.c_int * 4)()
+    _build.load().srt_fused_bf16_tile(flen, fshift, nout, out)
+    return dict(zip(("ft", "opl", "gseg", "chunks"), out))

@@ -144,3 +144,152 @@ def enrollment_clips(fs: int = FS) -> list[tuple[str, np.ndarray]]:
     return [(label, noisy_utterance(label, sec, base + 10 * j + i, fs))
             for j in range(CONV_CLIPS)
             for i, label in enumerate(SPEAKER_FREQS)]
+
+
+# -- a many-speaker corpus with low-rank identity structure -------------------
+#
+# After experiments/make_synth_corpus.py --identity-rank 8 --identity-rho
+# 0.75 (its UBM-phone voices), self-contained: the phone inventory is drawn
+# here (PHONES all-pole phones of four formants each) instead of being
+# selected from the reference's UBM file. A voice is a global vocal-tract
+# warp, an F0, breathiness and per-phone pole perturbations; a fraction
+# IDENTITY_RHO of each phone's perturbation variance comes from a rank
+# IDENTITY_RANK subspace shared by every voice of the family (unit-row
+# loadings, so the marginal variance is the i.i.d. draw's): the structure
+# JFA's eigenvoices model. Each session drifts the warp and the F0 a little,
+# and apply_channel puts it through its own linear channel (a copy of
+# experiments/jfa_channel.py:apply_channel).
+
+PHONES, PHONE_SEED = 24, 0
+IDENTITY_RANK, IDENTITY_RHO, IDENTITY_SEED = 8, 0.75, 777
+
+
+def phone_inventory(n: int = PHONES, seed: int = PHONE_SEED, fs: int = FS):
+    """(weights [n], pole angles [n, 4], pole radii [n, 4]): four formants
+    a phone, spread over 250 Hz .. 0.45 fs, bandwidths 60 .. 260 Hz."""
+    rng = np.random.RandomState(seed)
+    w = rng.dirichlet(np.ones(n) * 2.0)
+    f = np.sort(250 + rng.rand(n, 4) * (0.45 * fs - 250), axis=1)
+    bw = 60 + rng.rand(n, 4) * 200
+    return w, 2 * np.pi * f / fs, np.exp(-np.pi * bw / fs)
+
+
+def identity_loadings(n: int = PHONES, rank: int = IDENTITY_RANK,
+                      seed: int = IDENTITY_SEED):
+    """Cross-phone loadings (angle, radius) [n, rank] with unit rows
+    (make_synth_corpus.make_identity_loadings)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        L = rng.randn(n, rank)
+        out.append(L / np.linalg.norm(L, axis=1, keepdims=True))
+    return tuple(out)
+
+
+def make_voice(rng, phones, identity, speaker_spread: float = 0.03,
+               phone_jitter: float = 0.065) -> dict:
+    """A voice (make_synth_corpus.make_ubm_speaker): identity = (L_angle,
+    L_radius, rho) draws the per-phone perturbations low-rank-correlated."""
+    w = phones[0]
+    n = len(w)
+    f0 = 95 + rng.rand() * 130
+    angle_scale = 1.0 + speaker_spread * rng.randn()
+    L_a, L_r, rho = identity
+    r = L_a.shape[1]
+    pa = np.sqrt(rho) * (L_a @ rng.randn(r)) + np.sqrt(1 - rho) * rng.randn(n)
+    pr = np.sqrt(rho) * (L_r @ rng.randn(r)) + np.sqrt(1 - rho) * rng.randn(n)
+    return {"f0": f0, "angle_scale": angle_scale,
+            "phone_angle": 1.0 + phone_jitter * pa,
+            "phone_radius": 1.0 + 0.5 * phone_jitter * pr,
+            "breath": 0.08 + rng.rand() * 0.12,
+            "vibrato": 2 + rng.rand() * 4,
+            "phone_w": np.maximum(w * (1 + 0.3 * rng.randn(n)), 1e-4)}
+
+
+def voices(n: int, seed: int, fs: int = FS) -> list[dict]:
+    """n voices of the identity family (rank IDENTITY_RANK, rho
+    IDENTITY_RHO), cast from `seed`; every cast shares the phones and the
+    loadings, as background and target speakers share anatomy."""
+    phones = phone_inventory(fs=fs)
+    L_a, L_r = identity_loadings()
+    rng = np.random.RandomState(seed)
+    return [make_voice(rng, phones, (L_a, L_r, IDENTITY_RHO))
+            for _ in range(n)]
+
+
+def _phone_filter(angles, radii, angle_scale, radius_pow):
+    """The all-pole denominator of one warped phone (poles kept inside
+    0.97 and below Nyquist)."""
+    th = np.clip(angles * angle_scale, 0.02, np.pi - 0.02)
+    r = np.minimum(radii ** radius_pow, 0.97)
+    poles = np.concatenate([r * np.exp(1j * th), r * np.exp(-1j * th)])
+    return np.real(np.poly(poles))
+
+
+def voice_utterance(voice: dict, seconds: float, seed: int,
+                    fs: int = FS, session_spread: float = 0.015,
+                    unvoiced_frac: float = 0.25) -> np.ndarray:
+    """One session of a voice (make_synth_corpus.synth_ubm, simplified):
+    runs of phones, each a pulse train at the voice's F0 (with vibrato,
+    jitter, shimmer and breath) or noise through the phone's warped
+    all-pole filter, then de-emphasis; int16 at a 12000 peak."""
+    import scipy.signal as sig
+
+    w, ang, rad = phone_inventory(fs=fs)
+    rng = np.random.RandomState(seed)
+    n = int(fs * seconds)
+    out = np.zeros(n)
+    pw = voice["phone_w"] / voice["phone_w"].sum()
+    warp = voice["angle_scale"] * (1 + session_spread * rng.randn())
+    f0_base = voice["f0"] * (1 + session_spread * rng.randn())
+    filt = [_phone_filter(ang[k], rad[k], warp * voice["phone_angle"][k],
+                          voice["phone_radius"][k]) for k in range(len(w))]
+    pos = 0
+    while pos < n:
+        k = rng.choice(len(pw), p=pw)
+        dur = min(int(fs * (0.06 + 0.14 * rng.rand())), n - pos)
+        t = np.arange(dur) / fs
+        if rng.rand() > unvoiced_frac:
+            f0 = f0_base * (1 + 0.03 * np.sin(
+                2 * np.pi * voice["vibrato"] * (t + pos / fs))
+                + 0.15 * np.repeat(rng.randn(dur // 64 + 1), 64)[:dur])
+            phase = np.cumsum(np.maximum(f0, 40.0)) / fs + rng.rand()
+            pulses = (np.diff(np.floor(phase), prepend=np.floor(phase[0]))
+                      > 0).astype(np.float64)
+            npulse = int(pulses.sum())
+            pulses[pulses > 0] = np.abs(1.0 + 0.25 * rng.randn(npulse))
+            exc = pulses * np.sqrt(fs / f0_base) + voice["breath"] * \
+                rng.randn(dur)
+        else:
+            exc = rng.randn(dur)
+        env = np.minimum(1.0, np.minimum(np.arange(dur), dur - np.arange(dur))
+                         / (0.02 * fs))
+        exc = exc * (0.5 + 0.5 * rng.rand()) * np.clip(env, 0.05, 1.0)
+        out[pos:pos + dur] = sig.lfilter([1.0], filt[k], exc)
+        pos += dur
+    out = sig.lfilter([1.0], [1.0, -0.95], out)
+    return (out / (np.abs(out).max() + 1e-9) * 12000).astype(np.int16)
+
+
+def apply_channel(signal, fs: int, rng, strength_db: float) -> np.ndarray:
+    """One session's linear channel (experiments/jfa_channel.py:
+    apply_channel): a first-order spectral tilt and two RBJ peaking EQs
+    with gains in +-strength_db; strength 0 is the identity."""
+    import scipy.signal as sig
+
+    if strength_db <= 0:
+        return signal
+    out = np.asarray(signal, np.float64)
+    c = (rng.rand() * 2 - 1) * min(0.4 * strength_db / 6.0, 0.8)
+    out = sig.lfilter([1.0, -c], [1.0], out)
+    for _ in range(2):
+        f0 = 300.0 + rng.rand() * 3200.0
+        q = 1.0 + rng.rand() * 2.0
+        gain = (rng.rand() * 2 - 1) * strength_db
+        A = 10.0 ** (gain / 40.0)
+        w0 = 2 * np.pi * f0 / fs
+        alpha = np.sin(w0) / (2 * q)
+        b = [1 + alpha * A, -2 * np.cos(w0), 1 - alpha * A]
+        a = [1 + alpha / A, -2 * np.cos(w0), 1 - alpha / A]
+        out = sig.lfilter(b, a, out)
+    return out

@@ -62,7 +62,8 @@ VARIANTS = {
         ("packed_tile.cuh", "  for (int i = tid; i < nf * nceps; i += NTH) {",
          "  for (int i = tid; i < 0; i += NTH) {")],
 }
-SOURCES = ("rfft_tile.cuh", "packed_tile.cuh", "frontend_fft.cu", "frontend.cu")
+SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "packed_tile.cuh",
+           "frontend_fft.cu", "frontend.cu")
 
 
 def build(tmp: str) -> dict:
@@ -97,8 +98,8 @@ def build(tmp: str) -> dict:
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{out[-3000:]}")
         lib = ctypes.CDLL(os.path.join(tmp, name, "lib.so"))
-        lib.srt_fft_frames_frontend.argtypes = [p_] * 5 + [i_] * 6 + [f_, p_]
-        lib.srt_packed_frontend.argtypes = ([p_] * 6 + [i_] * 9
+        lib.srt_fft_frames_frontend.argtypes = [p_] * 6 + [i_] * 6 + [f_, p_]
+        lib.srt_packed_frontend.argtypes = ([p_] * 7 + [i_] * 9
                                             + [f_, i_, f_, i_, i_, p_])
         libs[name] = lib
     return libs
@@ -162,14 +163,14 @@ def main():
     def k5(lib):
         err = lib.srt_fft_frames_frontend(
             wp.data_ptr(), op48.data_ptr(), fe48.dct.data_ptr(),
-            ceps.data_ptr(), r.data_ptr(), n, fe48.frame_len, fe48.n_fft,
+            ceps.data_ptr(), r.data_ptr(), 0, n, fe48.frame_len, fe48.n_fft,
             nmel, nac, nceps, fe48.floor, stream)
         assert err == 0, err
 
     def k1(lib, cmvn=1):
         err = lib.srt_packed_frontend(
             s8.data_ptr(), nv.data_ptr(), fft.window.data_ptr(),
-            op8.data_ptr(), fe8.dct.data_ptr(), feat.data_ptr(), 512, 40960,
+            op8.data_ptr(), fe8.dct.data_ptr(), feat.data_ptr(), 0, 512, 40960,
             T8, fe8.frame_len, fe8.frame_shift, fft.n_fft, nmel, nac8, nceps,
             fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, 1, stream)
         assert err == 0, err

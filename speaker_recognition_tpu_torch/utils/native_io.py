@@ -113,7 +113,7 @@ def load_batch(paths, max_len: int | None = None, remove_silence: bool = False,
     for i, p in enumerate(paths):
         try:
             fs, s = read_wav(p)
-        except ValueError:
+        except (OSError, ValueError):  # missing or undecodable: length 0
             continue
         if remove_silence:
             s = rs(fs, s.astype(np.int64), perc=silence_perc).astype(

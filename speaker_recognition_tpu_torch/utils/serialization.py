@@ -9,7 +9,12 @@ serialization.py (numpy only here):
     src/gmm/src/gmm.cc:655-682; Gaussian::dump, gmm.cc:101-128):
         nr_mixtures
         w_0 ... w_{K-1}
-        then per gaussian: dim covariance_type / means / sigmas.
+        then per gaussian: dim covariance_type / means / sigmas;
+  * the JFA stack's text formats: the UBM supervector directory
+    (ubm_means / ubm_variances / ubm_weights), one feature file per
+    utterance and the `logical=physical` .lst manifests, so that data and
+    models move between the two packages and the reference's MATLAB JFA
+    scripts in every direction.
 """
 
 from __future__ import annotations
@@ -67,6 +72,75 @@ def dumps_reference_gmm(params: GmmParams) -> str:
 
 def loads_reference_gmm(text: str) -> GmmParams:
     return load_reference_gmm(io.StringIO(text))
+
+
+def dump_jfa_supervectors(params: GmmParams, directory: str) -> None:
+    """Write the UBM as the reference's JFA text supervectors
+    (ubm_means / ubm_variances / ubm_weights, the files src/test/UBM.py:33-47
+    produces and src/jfa/sc_*.m load): one whitespace row per mixture of the
+    mean / variance vectors, one weight per line."""
+    os.makedirs(directory, exist_ok=True)
+    means = np.asarray(params.means, np.float64)
+    variances = np.asarray(params.sigmas, np.float64) ** 2
+    weights = np.asarray(params.weights, np.float64)
+    np.savetxt(os.path.join(directory, "ubm_means"), means)
+    np.savetxt(os.path.join(directory, "ubm_variances"), variances)
+    np.savetxt(os.path.join(directory, "ubm_weights"), weights)
+
+
+def load_jfa_supervectors(directory: str) -> GmmParams:
+    """Read the JFA text supervector triple back into GmmParams."""
+    means = np.loadtxt(os.path.join(directory, "ubm_means"), ndmin=2)
+    variances = np.loadtxt(os.path.join(directory, "ubm_variances"), ndmin=2)
+    weights = np.loadtxt(os.path.join(directory, "ubm_weights"), ndmin=1)
+    return GmmParams(weights, means, np.sqrt(variances))
+
+
+# -- JFA text feature interchange -------------------------------------------
+#
+# The reference moves features between Python and its MATLAB JFA stack as
+# plain-text files plus ".lst" manifests (src/test/gen-features-file.py:95-116,
+# src/test/extract-mfcc-data.py): one feature file per utterance with one
+# space-separated frame per line, and manifests of "logical=physical" lines
+# (parsed by src/jfa/parse_list.m). Implementing the same format lets data
+# flow between the reference's JFA scripts and this pipeline in both
+# directions.
+
+def write_feature_text(path: str, feat) -> None:
+    """One utterance's [T, d] features, one frame per line (the
+    gen-features-file.py `_write` layout, trailing space included)."""
+    feat = np.asarray(feat, np.float64)
+    with open(path, "w") as f:
+        for row in feat:
+            f.write(" ".join(repr(float(v)) for v in row) + " \n")
+
+
+def read_feature_text(path: str) -> np.ndarray:
+    return np.loadtxt(path, ndmin=2)
+
+
+def write_lst(path: str, pairs) -> None:
+    """Manifest of (logical, physical) entries as `logical=physical` lines
+    (gen-features-file.py:114-116)."""
+    with open(path, "w") as f:
+        for logical, physical in pairs:
+            f.write(f"{logical}={physical}\n")
+
+
+def read_lst(path: str):
+    """Parse a manifest into [(logical, physical)], like parse_list.m: split
+    on the first '='."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            logical, _, physical = line.partition("=")
+            if not physical:
+                raise ValueError(f"malformed lst line (no '='): {line!r}")
+            out.append((logical, physical))
+    return out
 
 
 def _config_to_json(cfg) -> str:

@@ -1,12 +1,16 @@
 """chip_smoke.py rehearsed on the CPU, at 16 utterances where it takes 512
-(and 0.5 s where the 96 and 192 kHz batches take 5 s, 70 utterances and
-speakers where the grid phase takes 70,000, 4 speakers x 3 s where the
-UBM-scale k-means seeding of phase 15 takes 80 x 30 s).
+(and 0.5 s where the 96, 192 and 384 kHz batches take 5 s, 70 utterances
+and speakers where the grid phase takes 70,000, 4 speakers x 3 s where the
+UBM-scale k-means seeding of phase 15 takes 80 x 30 s, and phase 18's JFA
+corpus and model cut from 200 background speakers x 3 x 10 s, K = 32, nv =
+32, nu = 16 to 12 x 3 x 2 s, K = 8, nv = 4, nu = 2).
 
     python tests/test_torch_chip_smoke.py    # ~3 min
+    python tests/test_torch_chip_smoke.py phase16   # one phase function
 
 Every kernel wrapper is replaced by its plain torch version (for the
 frontends, by the wrapper itself, which on CPU tensors runs its plain
+version; past 512 outputs K1's and K4's by the FFT route's plain
 version), which counts its calls in the wrapper's launch counter and
 asserts that every tensor argument is contiguous (a kernel reads raw
 pointers; the plain versions accept views); CUDA events time on the host clock, and the CLI runs with
@@ -44,6 +48,12 @@ EDITS = [
     ("HIGH_SEC = BENCH_SEC", "HIGH_SEC = 0.5"),
     ("KM_SPEAKERS, KM_SECONDS, KM_K = 80, 30.0, 256",
      "KM_SPEAKERS, KM_SECONDS, KM_K = 4, 3.0, 256"),
+    ("JFA_BG, JFA_BG_SESSIONS, JFA_SEC = 200, 3, 10.0",
+     "JFA_BG, JFA_BG_SESSIONS, JFA_SEC = 12, 3, 2.0"),
+    ("JFA_EVAL, JFA_ENROLL, JFA_TESTS, JFA_TEST_SEC = 20, 2, 10, 3.0",
+     "JFA_EVAL, JFA_ENROLL, JFA_TESTS, JFA_TEST_SEC = 4, 2, 2, 1.5"),
+    ("JFA_K, JFA_NV, JFA_NU, JFA_ITERS, JFA_UBM_ITERS = 32, 32, 16, 20, 100",
+     "JFA_K, JFA_NV, JFA_NU, JFA_ITERS, JFA_UBM_ITERS = 8, 4, 2, 5, 10"),
 ]
 
 
@@ -65,7 +75,7 @@ class _HostEvent:
 
 def _counting(mod, name: str, plain, counter):
     """Replace mod.name by `plain`, counted in mod.counter (or in the
-    counter that counter(*args) names)."""
+    counters that counter(*args, **kw) names)."""
     @functools.wraps(plain)
     def wrapper(*args, **kw):
         for i, a in enumerate([*args, *kw.values()]):
@@ -74,16 +84,62 @@ def _counting(mod, name: str, plain, counter):
                 if isinstance(getattr(a, f, None), torch.Tensor)]
             for t in tensors:
                 assert t.is_contiguous(), (name, i, tuple(t.shape))
-        c = counter(*args) if callable(counter) else counter
-        setattr(mod, c, getattr(mod, c) + 1)
+        for c in (counter(*args, **kw) if callable(counter) else (counter,)):
+            setattr(mod, c, getattr(mod, c) + 1)
         return plain(*args, **kw)
     setattr(mod, name, wrapper)
 
 
+def _tile_counters(n_fft: int, nout: int, tile: str, big: str):
+    """The counters an FFT kernel's launch moves on the card: the four-step
+    route's from N = 32768 on, else the tile's (and CHUNKED_LAUNCHES past
+    512 outputs)."""
+    if n_fft >= gpu_frontend.BIG_N:
+        return (big,)
+    return (tile, "CHUNKED_LAUNCHES") if nout > 512 else (tile,)
+
+
+def _signals_counter(*args, fft=None, **kw):
+    return _tile_counters(fft.n_fft, fft.mel.shape[1] + fft.acorr.shape[1],
+                          "LAUNCHES", "BIG_LAUNCHES")
+
+
+def _frames_counter(*args, fft=None, **kw):
+    return _tile_counters(fft.n_fft, fft.mel.shape[1] + fft.acorr.shape[1],
+                          "FRAMES_LAUNCHES", "FRAMES_BIG_LAUNCHES")
+
+
+def _fft_past_512(name, fft_plain):
+    """gpu_frontend.name, but past 512 mel + autocorrelation outputs the FFT
+    route's plain version: what the card's chunked kernel computes, held
+    to both plain versions by chip_smoke.py phase 16."""
+    dense = getattr(gpu_frontend, name)
+
+    @functools.wraps(dense)
+    def run(*args, fft=None, **kw):
+        if fft is not None and fft.mel.shape[1] + fft.acorr.shape[1] > 512:
+            return fft_plain(*args, fft=fft, **kw)
+        return dense(*args, fft=fft, **kw)
+    return run
+
+
+def _signals_fft(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
+                 fft=None, fuse_lpc=True):
+    return gpu_frontend.packed_from_signals_fft_reference(
+        signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
+
+
+def _frames_fft(frames, D, W, dct, floor, A, fft=None):
+    return gpu_frontend.packed_from_frames_fft_reference(frames, fft, dct,
+                                                         floor)
+
+
 def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
-    """The counter of the kernel mfcc_from_frames takes on the card."""
-    return "FULL_LAUNCHES" if n_fft & (n_fft - 1) == 0 else \
-        "FULL_DENSE_LAUNCHES"
+    """The counters of the kernel mfcc_from_frames takes on the card."""
+    if n_fft & (n_fft - 1):
+        return ("FULL_DENSE_LAUNCHES",)
+    return _tile_counters(n_fft, mel.shape[1] + acorr.shape[1],
+                          "FULL_LAUNCHES", "FULL_BIG_LAUNCHES")
 
 
 def _fused(fn_name, counter):
@@ -125,11 +181,16 @@ def main():
     # the frontend wrappers take their kernels' operators beside the plain
     # versions' (the FFT route's, n_fft): on CPU tensors they run the plain
     # versions themselves
-    for name, counter in (("packed_from_signals", "LAUNCHES"),
-                          ("packed_from_frames", "FRAMES_LAUNCHES"),
+    stand_ins = {"packed_from_signals": _fft_past_512("packed_from_signals",
+                                                      _signals_fft),
+                 "packed_from_frames": _fft_past_512("packed_from_frames",
+                                                     _frames_fft)}
+    for name, counter in (("packed_from_signals", _signals_counter),
+                          ("packed_from_frames", _frames_counter),
                           ("mfcc_from_frames", _full_counter),
                           ("mfcc_from_frames_dense", "FULL_DENSE_LAUNCHES")):
-        _counting(gpu_frontend, name, getattr(gpu_frontend, name), counter)
+        _counting(gpu_frontend, name,
+                  stand_ins.get(name, getattr(gpu_frontend, name)), counter)
     for mod, name, counter in (
             (gpu_gmm, "batch_bank_avg_loglik", "LAUNCHES"),
             (gpu_gmm, "bank_sum_loglik", "SERIAL_LAUNCHES"),
@@ -137,6 +198,7 @@ def main():
         _counting(mod, name, getattr(mod, name + "_reference"), counter)
     _fused("fused_bank_predict", "LAUNCHES")
     _fused("fused_bank_predict_wide", "WIDE_LAUNCHES")
+    gpu_predict.bf16_tile = lambda flen, fshift, nout: "not built (CPU)"
 
     path = os.path.join(REPO, "chip_smoke.py")
     with open(path) as f:
@@ -151,6 +213,17 @@ def main():
     smoke.smi = lambda: "CPU rehearsal, no power limit"
     smoke.device_times = lambda fn, calls=20: "device not measured (CPU)"
     smoke.kernels_per_call = lambda fn, **kw: {"serial_kernel": 1.0}
+    smoke.kernel_times = lambda fn, **kw: "not measured (CPU)"
+    if len(sys.argv) > 1:  # one phase function: phase16, 17 or 18
+        import numpy as np
+        rng, dev, card = (np.random.RandomState(0), torch.device("cpu"),
+                          "CPU rehearsal")
+        bench = smoke.signals_batch(rng, [40000] * 16, 40960, dev)
+        args = {"phase16": (rng, dev, card, *bench),
+                "phase17": (rng, dev, card, *bench),
+                "phase18": (dev, card)}[sys.argv[1]]
+        getattr(smoke, sys.argv[1])(*args)
+        return
     smoke.main([])
 
 
@@ -160,15 +233,18 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def test_chip_smoke_rehearses_on_the_cpu():
-    """All fifteen phases pass on the CPU; the kernels record lists the
+    """All eighteen phases pass on the CPU; the kernels record lists the
     seven TPU kernels (K1 in both its modes, K6 in both its routes, K5's
-    dense template last) with every key, each launched on its path but K4,
-    which no serving path takes (its launches against its plain version
-    are demanded by phase 11 itself), K1 and K5 with their FFT kernels'
-    sources; the 8192- and 16384-point FFTs, 266 outputs, the 96 kHz CLI
-    slice, the monolith's cases, the grid phase and the live path (216
+    dense template), then the routes of phase 16 (K1, K4 and K5 on the
+    four-step FFT of N >= 32768 and past 512 outputs, K6's lifted bf16
+    route), with every key, each launched on its path but K4, which no
+    serving path takes (its launches against its plain version are
+    demanded by phases 11 and 16 themselves), K1 and K5 with their FFT
+    kernels' sources; the 8192- and 16384-point FFTs, 266 outputs, the 96
+    kHz CLI slice, the monolith's cases, the grid phase, the live path (216
     outputs on the dense template, the VAD, k-means, the GUI's
-    conversation with the JAX package's timeline) all run."""
+    conversation with the JAX package's timeline), the lifted limits,
+    float64 on the device and JFA with its CLI all run."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
                           capture_output=True, text=True, timeout=900,
                           cwd=REPO)
@@ -181,10 +257,20 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_gmm.py:154", "pallas_gmm.py:47",
         "pallas_frontend.py:111", "pallas_frontend.py:50",
         "pallas_predict.py:91", "pallas_predict.py:215",
-        "pallas_predict.py:91", "pallas_frontend.py:50"]
+        "pallas_predict.py:91", "pallas_frontend.py:50",
+        "pallas_frontend.py:231", "pallas_frontend.py:111",
+        "pallas_frontend.py:50", "pallas_frontend.py:50",
+        "pallas_frontend.py:231", "pallas_frontend.py:111",
+        "pallas_frontend.py:50", "pallas_predict.py:91"]
+    assert [k["name"] for k in kernels[10:]] == [
+        "packed_frontend_n32768", "packed_from_frames_n32768",
+        "mfcc_from_frames_n32768", "mfcc_from_frames_n65536",
+        "packed_frontend_616_outputs",
+        "packed_from_frames_616_outputs", "mfcc_from_frames_616_outputs",
+        "fused_bank_predict_bf16_lifted"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
-        if k["name"] == "packed_from_frames":
+        if k["name"].startswith("packed_from_frames"):
             assert k["launches"] == 0, k
         else:
             assert k["launches"] >= 1, k
@@ -211,7 +297,7 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert any(ln.startswith("phase 12 cli enroll + predict @ 48 kHz, "
                              "fft_size 4096") for ln in lines)
     assert kernels[6]["source"].endswith("csrc/predict_fused.cuh")
-    assert [k["name"] for k in kernels[6:]] == [
+    assert [k["name"] for k in kernels[6:10]] == [
         "fused_bank_predict", "fused_bank_predict_wide",
         "fused_bank_predict_bf16", "mfcc_from_frames_dense"]
     assert kernels[9]["source"].endswith("csrc/frontend_frames.cu")
@@ -264,6 +350,24 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert any(ln.startswith("phase 15 a tick's predict_scores vs the plain "
                              "versions") and "argmax identical True" in ln
                for ln in lines)
+    for start, end in (
+            ("phase 16 K1 384 kHz through extract_batch",
+             "{'BIG_LAUNCHES': 1}"),
+            ("phase 16 K5 48 kHz, fft_size 65536", "{'FULL_BIG_LAUNCHES': 1}"),
+            ("phase 16 K1 8 kHz, 200 ms frames, fft_size 4096, 600 mel",
+             "{'LAUNCHES': 1, 'CHUNKED_LAUNCHES': 1}"),
+            ("phase 16 K1 and K5: 512 outputs bitwise equal inside 616",
+             "'K5 cepstra': True, 'K5 lags': False}: False"),
+            ("phase 16 K6 bf16 8 kHz", "launches 1, two calls bitwise True"),
+            ("phase 16 K6 bf16 96 kHz", "launches 1, two calls bitwise True"),
+            ("phase 17 float64 on cpu", "'K1': 0, 'K2': 0, 'K3': 0, "
+             "'extract_f64': 29, 'gmm_f64': 23}"),
+            ("phase 17 f32 after f64", "K2 1"),
+            ("phase 18 jfa_pipeline CLI", "[1.0, 1.0]")):
+        assert any(ln.startswith(start) and ln.endswith(end)
+                   for ln in lines), start
+    assert sum(ln.startswith("phase 18 [") and "JFA acc" in ln
+               for ln in lines) == 2
 
 
 if __name__ == "__main__":

@@ -152,9 +152,19 @@ def _entry_points():
     from speaker_recognition_tpu_torch.features import extract
     from speaker_recognition_tpu_torch.gui import server
     from speaker_recognition_tpu_torch.models.gmmset import GMMSet
-    from speaker_recognition_tpu_torch.tools import ubm
+    from speaker_recognition_tpu_torch.models import jfa
+    from speaker_recognition_tpu_torch.tools import jfa_pipeline, plot_gmm, ubm
+    from speaker_recognition_tpu_torch.utils import profiling
     from speaker_recognition_tpu_torch.vad import ltsd, noisered
     return {"GMMSet": GMMSet, "GMMSet.from_state": GMMSet.from_state,
+            "jfa.hyper_from_numpy": jfa.hyper_from_numpy,
+            "jfa_pipeline.collect_session_stats":
+                jfa_pipeline.collect_session_stats,
+            "jfa_pipeline.train_jfa": jfa_pipeline.train_jfa,
+            "jfa_pipeline.load_model": jfa_pipeline.load_model,
+            "plot_gmm.plot_gmm_density": plot_gmm.plot_gmm_density,
+            "profiling.phase_timer": profiling.phase_timer,
+            "profiling.trace": profiling.trace,
             "mix_feature": extract.mix_feature,
             "mfcc_extract": extract.mfcc_extract,
             "lpc_extract": extract.lpc_extract,

@@ -174,9 +174,14 @@ def test_full_frontend_env_raises(monkeypatch):
 
 
 def test_float64_features_raise():
-    """The float64 parity pipeline has no kernel and is not ported."""
-    with pytest.raises(NotImplementedError, match="float32"):
-        text.mix_feature(FS, np.ones(4000), dtype="float64", device="cpu")
+    """The float64 parity pipeline has no kernel: it runs the plain
+    versions (tests/test_torch_f64.py holds it to the JAX package); a
+    dtype other than float32 and float64 raises, naming the two."""
+    sig = np.random.RandomState(0).randn(4000) * 1000
+    assert text.mix_feature(FS, sig, dtype="float64",
+                            device="cpu").dtype == np.float64
+    with pytest.raises(ValueError, match="float32 or float64"):
+        text.mix_feature(FS, sig, dtype="bfloat16", device="cpu")
 
 
 class _CudaTyped(torch.Tensor):

@@ -260,20 +260,54 @@ def test_f32_route_on_the_card_takes_the_fft_tile(monkeypatch):
 
 def test_bf16_route_keeps_the_dense_tile_limits(monkeypatch):
     """The bf16 route keeps the dense tile (it rounds the DFT operand D,
-    which the FFT route does not have): 48 kHz frames with fft_size 4096
-    are refused there with a message naming the limit, where the f32 route
-    takes them."""
+    which the FFT route does not have), whose limits are lifted: 48 kHz
+    frames with fft_size 4096 and 128 mel filters + LPC (144 outputs, past
+    the tile's 128) reach the kernel, with device rows for the sums of
+    its output chunks (the JAX monolith serves both in interpret mode).
+    The library is a stand-in that records the call."""
+    import contextlib
     from speaker_recognition_tpu_torch import _build
+
+    calls = {}
 
     class Lib:
         @staticmethod
-        def srt_fused_bf16_fits(flen, fshift, nmel, nac):
-            return -1 if flen > 1024 or nmel + nac > 128 else 0
+        def srt_fused_component_row(d):
+            return 2 * 128 + 4
+
+        @staticmethod
+        def srt_fused_scratch_floats(B, T, d, S):
+            return B * T * d + B * S
+
+        @staticmethod
+        def srt_fused_bf16_wide_floats(B, T, nout):
+            return B * T * 128 * -(-nout // 128) if nout > 128 else 0
+
+        @staticmethod
+        def srt_fused_predict(*args):
+            calls["predict"] = args
+            return 0
 
     monkeypatch.setattr(_build, "load", lambda: Lib())
-    fe = PackedFrontend(48000, _fft(4096)(tcfg), "cpu")
-    bank = tgmm.GmmBank.from_numpy(*_bank(2, 4, 28), device="cpu")
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: empty(*a, **k))
+    cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=4096,
+                                                  n_filters=128))
+    fe = PackedFrontend(48000, cfg, "cpu")
+    bank = tgmm.GmmBank.from_numpy(*_bank(2, 4, cfg.dim), device="cpu")
     args, _ = _cuda_args(fe, bank)
+    args[2].component_operator = lambda row: torch.zeros(2, 4, row)
     args = (_cuda(torch.zeros(2, 16384)),) + args[1:]
-    with pytest.raises(ValueError, match="bf16 route"):
-        gpu_predict.fused_bank_predict(*args, mm_bf16=True)
+    before = gpu_predict.BF16_LAUNCHES
+    out = gpu_predict.fused_bank_predict(*args, mm_bf16=True)
+    assert out.shape == (2, 2)
+    assert gpu_predict.BF16_LAUNCHES == before + 1
+    c = calls["predict"]
+    B, T = 2, (16384 - 1536) // 768 + 1
+    assert c[10] != 0  # the sums rows of two chunks of 128 outputs
+    assert c[12:16] == (B, 16384, T, 1536) and c[-2] == 1  # bf16

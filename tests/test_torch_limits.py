@@ -10,7 +10,10 @@ CMVN past 32 columns). Each runs through the CPU's plain versions (the
 dense operators) and through the FFT route's plain versions, which compute
 what the kernels compute on the card; the FFT tile's operator layout at
 the new shapes is checked against a model of csrc/rfft_tile.cuh, and the
-wrappers no longer refuse a batch or a bank past the grid's 65535."""
+wrappers no longer refuse a batch or a bank past the grid's 65535. The
+limits lifted last: FFTs of 32768 and 65536 points (csrc/rfft_big.cuh's
+route on the card), 616 outputs (chunks of 512 on the tile) and the bf16
+monolith past its old dense tile."""
 
 import numpy as np
 import pytest
@@ -210,15 +213,16 @@ class _TileShapes:
         return 4 * ((0 if big else n) + 2 * warps * slots + ys
                     + cls.chunk(n, opl) * nop + 2 * col)
 
-    def srt_fft_operator_shape(self, n_fft, nout, rows, cols):
+    def srt_fft_operator_shape(self, n_fft, nout, rows, cols, chunks):
         if n_fft < 64 or n_fft > 16384 or n_fft & (n_fft - 1):
             return -1
         opl = (9 if nout <= 72 else 16 if nout <= 128 else 32 if nout <= 256
-               else 64 if nout <= 512 else 0)
-        if opl == 0 or self.smem_bytes(n_fft, opl) > self.MAX_SMEM:
+               else 64)
+        if self.smem_bytes(n_fft, opl) > self.MAX_SMEM:
             return -1
         ck = self.chunk(n_fft, opl)
-        rows._obj.value = -(-(n_fft // 2 + 1) // ck) * ck
+        chunks._obj.value = max(1, -(-nout // 512))
+        rows._obj.value = -(-(n_fft // 2 + 1) // ck) * ck * chunks._obj.value
         cols._obj.value = 8 * opl
         return 0
 
@@ -262,20 +266,28 @@ def test_packed_operator_at_the_widened_shapes(n_fft, nmel, nac, shape):
 
 
 def test_the_tile_refuses_only_32768_and_more_than_512_outputs():
-    """What the FFT tile still refuses, with the wrapper's message: 32768
-    points and more (fft_size >= 32768 on the full route, or frames longer
-    than 8192 samples on the packed route) and more than 512 mel +
-    autocorrelation outputs; every power of two from 64 to 16384 takes
-    every width up to 512 outputs."""
+    """What the FFT tile's operator refuses: 32768 points and more, which
+    the wrappers send to the four-step route (csrc/rfft_big.cuh) instead.
+    More than 512 mel + autocorrelation outputs are no longer refused: the
+    operator stacks one 512-column operator per chunk of outputs, chunk c
+    holding outputs [512 c, 512 c + 512), each on the bin rows of an
+    operator of at most 512; every power of two from 64 to 16384 takes
+    every width."""
     lib = _TileShapes()
     mel, acorr = torch.rand(16385, 50), torch.rand(16385, 16)
-    with pytest.raises(ValueError, match="32768 or more"):
+    with pytest.raises(ValueError, match=r"power of two in \[64, 16384\]"):
         gpu_frontend._packed_operator(lib, mel, acorr, 32768)
-    with pytest.raises(ValueError, match="at most 512 outputs"):
-        gpu_frontend._packed_operator(lib, torch.rand(2049, 500), acorr,
-                                      4096)
+    wide = torch.rand(2049, 600)
+    op = gpu_frontend._packed_operator(lib, wide, acorr, 4096)
+    R = op.shape[0] // 2
+    assert op.shape == (2 * 2052, 512)
+    assert torch.equal(op[:2049], wide[:, :512])
+    assert torch.equal(op[R:R + 2049, :88], wide[:, 512:])
+    assert torch.equal(op[R:R + 2049, 88:104], acorr[:2049])
+    assert (op[2049:R] == 0).all() and (op[R + 2049:] == 0).all()
+    assert (op[R:, 104:] == 0).all()
     for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384):
-        for nmel in (50, 100, 200, 496):
+        for nmel in (50, 100, 200, 496, 600):
             op = gpu_frontend._packed_operator(lib, mel[:, :nmel], acorr, n)
             assert op.shape[0] >= n // 2 + 1, (n, nmel)
 
@@ -390,6 +402,10 @@ class _FakeLib(_TileShapes):
         return 2 * (-(-d // 4) * 4) + 4
 
     @staticmethod
+    def srt_fft_wide_floats(nframes, nout):
+        return 0
+
+    @staticmethod
     def srt_bank_warp_frames(d):
         return 64
 
@@ -423,7 +439,7 @@ def test_the_wrappers_take_a_batch_and_a_bank_past_65535(monkeypatch):
         _cuda(torch.zeros(B, 32)), _cuda(torch.ones(B, dtype=torch.int32)),
         None, None, _cuda(torch.rand(4, 2)), None, 1e-35, 16, True, fft=fft)
     assert feat.shape == (B, 1, 4)
-    assert lib.calls["srt_packed_frontend"][6] == B
+    assert lib.calls["srt_packed_frontend"][7] == B
     bank = GmmBank(_cuda(torch.rand(4, 3 * 2)), _cuda(torch.rand(3 * 2)), 3,
                    2)
     out = gpu_gmm.batch_bank_avg_loglik(
@@ -436,3 +452,180 @@ def test_the_wrappers_take_a_batch_and_a_bank_past_65535(monkeypatch):
                                   _cuda(torch.ones(3, dtype=torch.bool)))
     assert out.shape == (B,)
     assert lib.calls["srt_bank_sum_loglik"][6] == B
+
+
+# -- the limits lifted last: N >= 32768, more than 512 outputs, K6's bf16 ----
+
+def _fft_size(n, **mf):
+    return lambda c: c.FeatureConfig(mfcc=c.MfccConfig(fft_size=n, **mf))
+
+
+def _long_frames(c):
+    """1 s frames at 8.2 kHz (8200 samples: past 8192, a 32768-point FFT on
+    the packed route) with fft_size 32768, MFCC and LPC alike."""
+    return c.FeatureConfig(
+        mfcc=c.MfccConfig(win_length_ms=1000.0, win_shift_ms=500.0,
+                          fft_size=32768),
+        lpc=c.LpcConfig(win_length_ms=1000.0, win_shift_ms=500.0))
+
+
+def test_32768_point_fft_on_the_packed_route_matches_jax(monkeypatch):
+    """Frames longer than 8192 samples take a 32768-point FFT on the packed
+    route (K1's four-step route on the card). The port's frontend builds no
+    dense operators there, and its CPU route is the FFT route's plain
+    version; against the JAX extractor's full-spectrum route at the same
+    fft_size (the same function while fft_size >= 2 * frame_len; the JAX
+    packed route's dense operator alone would be 8200 x 16400)."""
+    fs, L = 8200, 8200 * 4
+    fe = text.frontend(fs, _long_frames(tcfg), "cpu")
+    assert isinstance(fe, text.PackedFrontend) and fe.n_fft == 32768
+    assert fe.D is None and fe.W is None and fe.A is None
+    sig, lens = _signals([L, int(0.7 * L), 9000], L, seed=11)
+    got, mask = text.extract_batch(torch.from_numpy(sig),
+                                   torch.from_numpy(lens), fs,
+                                   _long_frames(tcfg))
+    monkeypatch.setenv("SRTPU_FRONTEND", "full")
+    want, wmask = jext._feature_fn(fs, _long_frames(jcfg), L, "float32",
+                                   "off", "f32", "full", "default")(
+        jnp.asarray(sig), jnp.asarray(lens))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    assert mask.numpy().sum() >= 10
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("impl", ["dense", "fft"])
+@pytest.mark.parametrize("n_fft", [32768, 65536])
+def test_fft_size_32768_and_65536_on_the_full_route_match_jax(
+        n_fft, impl, monkeypatch):
+    """fft_size 32768 and 65536 on the full route (K5's four-step route on
+    the card), both plain versions against the JAX extractor, a ragged
+    batch at 16 kHz (the dense C and S are 512 x 32769 at 65536)."""
+    got, want, mask, wmask = _extract_both(16000, _fft_size(n_fft), "full",
+                                           impl, monkeypatch, L=12288)
+    np.testing.assert_array_equal(mask, wmask)
+    assert np.isfinite(got).all() and mask.sum() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-2)
+
+
+def _wide616(c):
+    """600 mel filters + LPC-15 (616 outputs) at 8 kHz with 200 ms frames
+    and fft_size 4096 (chip_smoke.py's WIDE616: none of the filters is
+    empty, and the FFT route's operator is mel itself)."""
+    return c.FeatureConfig(
+        mfcc=c.MfccConfig(win_length_ms=200.0, win_shift_ms=100.0,
+                          fft_size=4096, n_filters=600),
+        lpc=c.LpcConfig(win_length_ms=200.0, win_shift_ms=100.0))
+
+
+@pytest.mark.parametrize("mode", ["packed", "full"])
+def test_616_outputs_match_jax(mode, monkeypatch):
+    """616 outputs (past the tile's 512): the FFT route's plain versions
+    (what the chunked tile computes on the card) against the JAX
+    extractor's full route. The filters are two bins wide at low
+    frequencies, where a dense route's cancellation would decide the
+    comparison (chip_smoke.py phase 16), so the JAX side takes the full
+    spectrum's bins as they are."""
+    _fft_route(monkeypatch)
+    monkeypatch.setenv("SRTPU_FRONTEND", mode)
+    L = 16384
+    sig, lens = _signals([L, 9000, 4000], L, seed=5)
+    fe = text.frontend(8000, _wide616(tcfg), "cpu")
+    assert fe.n_fft == 4096 and fe.dct.shape[0] == 600
+    got, mask = text.extract_batch(torch.from_numpy(sig),
+                                   torch.from_numpy(lens), 8000,
+                                   _wide616(tcfg))
+    monkeypatch.setenv("SRTPU_FRONTEND", "full")
+    want, wmask = jext._feature_fn(8000, _wide616(jcfg), L, "float32", "off",
+                                   "f32", "full", "default")(
+        jnp.asarray(sig), jnp.asarray(lens))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    assert np.isfinite(np.asarray(want)).all() and mask.numpy().sum() > 10
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-2)
+
+
+def _empty_filters(c):
+    """600 mel filters at 48 kHz with fft_size 4096 and 32 ms frames: nine
+    filters hold no bin of the 4096-point spectrum, and the low ones are
+    two bins wide."""
+    return c.FeatureConfig(mfcc=c.MfccConfig(fft_size=4096, n_filters=600))
+
+
+def test_empty_filters_follow_the_float64_reference(monkeypatch):
+    """Where filters are empty or two bins wide, the f32 routes of the JAX
+    package part: its default packed route gets those filters' energy from
+    the dense W = H . mel by cancellation (3.2e-2 from its own float64
+    route on cepstra here), its XLA full route takes log(0) (non-finite
+    cepstra), and its Pallas full kernel (interpret mode) floors the mel
+    energy as the port does. The port's FFT route, what K1 and K5 compute
+    on the card, is held to the float64 reference and to that kernel at
+    the MFCC tolerance; the JAX default route is the farther of the two
+    from the float64 reference."""
+    fs, L = 48000, 16384
+    fe = text.frontend(fs, _empty_filters(tcfg), "cpu")
+    assert fe.n_fft == 4096 and int((fe.fft_mel.sum(0) == 0).sum()) == 9
+    sig, lens = _signals([L, 10000, 4000], L, seed=5)
+
+    def jax_route(mode, pallas, dtype="float32"):
+        monkeypatch.setenv("SRTPU_FRONTEND", mode)
+        out, m = jext._feature_fn(fs, _empty_filters(jcfg), L, dtype,
+                                  pallas, "f32", mode, "default")(
+            jnp.asarray(sig.astype(dtype)), jnp.asarray(lens))
+        return np.asarray(out), np.asarray(m)
+
+    ref, mask = jax_route("packed", "off", "float64")
+    default, _ = jax_route("packed", "off")
+    xla_full, _ = jax_route("full", "off")
+    k5, _ = jax_route("full", "interpret")
+    _fft_route(monkeypatch)
+    monkeypatch.setenv("SRTPU_FRONTEND", "packed")
+    got, gmask = text.extract_batch(torch.from_numpy(sig),
+                                    torch.from_numpy(lens), fs,
+                                    _empty_filters(tcfg))
+    got = got.numpy()
+    np.testing.assert_array_equal(gmask.numpy(), mask)
+    assert not np.isfinite(xla_full[mask]).all()
+    for want in (ref, k5):
+        np.testing.assert_allclose(got[mask], want[mask], rtol=0, atol=1e-3)
+    port_off = np.abs(got[mask] - ref[mask]).max()
+    assert np.abs(default[mask] - ref[mask]).max() > 10 * port_off
+
+
+@pytest.mark.parametrize("fs,mf", [(8000, dict(n_filters=128)),
+                                   (48000, dict(fft_size=4096))],
+                         ids=["144_outputs", "48k_fft4096"])
+def test_bf16_monolith_past_its_old_limits_matches_jax(fs, mf):
+    """K6's bf16 route at the shapes its dense tile refused before (more
+    than 128 outputs; 48 kHz frames with fft_size 4096): the port's plain
+    version against pallas_predict.fused_bank_predict(mm_bf16=True) in
+    interpret mode, which takes both (tests/test_torch_fused.py's
+    tolerance)."""
+    from speaker_recognition_tpu.models import gmm as jgmm
+    from speaker_recognition_tpu.ops import pallas_predict
+    from speaker_recognition_tpu_torch.models import gmm as tgmm
+    from speaker_recognition_tpu_torch.ops import gpu_predict
+
+    fe = text.PackedFrontend(fs, tcfg.FeatureConfig(
+        mfcc=tcfg.MfccConfig(**mf)), "cpu")
+    rows = 16
+    L = rows * fe.frame_shift
+    sig, _ = _signals([L, L], L, seed=2)
+    nv = np.array([rows - 1, rows // 2], np.int32)
+    rng = np.random.RandomState(1)
+    d = 28
+    bank = (rng.dirichlet(np.ones(4), size=2).astype(np.float32),
+            rng.randn(2, 4, d).astype(np.float32),
+            (0.5 + rng.rand(2, 4, d)).astype(np.float32))
+    want = pallas_predict.fused_bank_predict(
+        jnp.asarray(sig), jnp.asarray(nv),
+        jgmm.GmmParams(*(jnp.asarray(a) for a in bank)), fe.frame_shift,
+        fe.D.numpy(), fe.W.numpy(), fe.dct.numpy(), fe.floor, fe.A.numpy(),
+        interpret=True, mm_bf16=True)
+    got = gpu_predict.fused_bank_predict(
+        torch.from_numpy(sig), torch.from_numpy(nv),
+        tgmm.GmmBank.from_numpy(*bank, device="cpu"), fe.frame_shift, fe.D,
+        fe.W, fe.dct, fe.floor, fe.A, mm_bf16=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    assert (got.numpy().argmax(-1) == np.asarray(want).argmax(-1)).all()

@@ -396,5 +396,9 @@ def test_mix_feature_channels_and_short_signals():
                                rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="Signal too short!"):
         extract.mix_feature(synth.FS, np.zeros(5 * 256), device="cpu")
-    with pytest.raises(NotImplementedError, match="float32"):
-        extract.mix_feature(synth.FS, sig, dtype="float64", device="cpu")
+    # float64 is served (the plain versions, tests/test_torch_f64.py);
+    # another dtype is refused, naming the two
+    assert extract.mix_feature(synth.FS, sig, dtype="float64",
+                               device="cpu").dtype == np.float64
+    with pytest.raises(ValueError, match="float32 or float64"):
+        extract.mix_feature(synth.FS, sig, dtype="float16", device="cpu")

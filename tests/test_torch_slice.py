@@ -24,6 +24,7 @@ from speaker_recognition_tpu_torch import config as tcfg  # noqa: E402
 from speaker_recognition_tpu_torch.api import fastpath as tfast  # noqa: E402
 from speaker_recognition_tpu_torch.api.interface import ModelInterface  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
+from speaker_recognition_tpu_torch.models.gmmset import GMMSet  # noqa: E402
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 
 FS = 8000
@@ -126,10 +127,17 @@ def test_short_and_single_utterances(utterances):
 def test_interface_preconditions():
     with pytest.raises(RuntimeError, match="train"):
         ModelInterface(device="cpu").scores_batch(FS, [np.zeros(4000)])
+    # float64 is served: a float64 config over the session's bank at
+    # float64 scores as the float32 session does, to f32 rounding
+    f32 = ModelInterface.load(synth.SESSION, device="cpu")
     f64 = ModelInterface.load(synth.SESSION, device="cpu")
     f64.config = dataclasses.replace(f64.config, dtype="float64")
-    with pytest.raises(NotImplementedError, match="float32"):
-        f64.scores_batch(FS, [np.zeros(4000)])
+    f64.gmmset = GMMSet.from_state(f64.gmmset.state(), dtype="float64",
+                                   device="cpu")
+    sig = [synth.synth_utterance("bob", 1.0, seed=3)]
+    got, _ = f64.scores_batch(FS, sig)
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, f32.scores_batch(FS, sig)[0], rtol=1e-4)
 
 
 def test_cuda_device_without_cuda_raises():
