@@ -128,6 +128,19 @@ raises and the exit code is non-zero):
      gate), JFA's and MAP's accuracy and EER and the times (a report);
      then the jfa_pipeline CLI on the card, K1 once a gen-features
      utterance
+ 19. the RBM family: its deterministic surfaces and one CD step on the
+     card against the CPU; a CRBM bank at speaker_task_config (4 voices x
+     ~1000 frames of CMVN'd MFCC, timed); segments bitwise equal to one
+     run; predict_bank on held-out utterances, the same decisions with the
+     card's bank on the CPU; `python -m ...tools.crbm_cli` train -> test
+ 20. the multi-device programs at world size 1 (NCCL on a free port):
+     sharded_fit and train_ubm(mesh=...) bitwise equal to the unsharded
+     fits, sharded_bank_scores bitwise equal to the unsharded K3 call (K3
+     counted), the sequence-sharded features against mix_feature (K1
+     counted), K1 no farther from the float64 route on that voice than
+     VOICE_FACTOR x the f32 plain versions, scaling_report; phase 13 also
+     holds the monolith's f32
+     route at N = 32768 and 616 outputs (phase13_lifted)
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes; the
 dense K5 template's on extract_batch at 216 outputs; phase 16's routes
@@ -142,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -176,7 +190,8 @@ from speaker_recognition_tpu_torch.features import extract  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     FullFrontend, PackedFrontend)
 from speaker_recognition_tpu_torch.gui import server as gui  # noqa: E402
-from speaker_recognition_tpu_torch.models import gmm, kmeans  # noqa: E402
+from speaker_recognition_tpu_torch.models import (  # noqa: E402
+    crbm, gmm, kmeans, neural_net, rbm)
 from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
 from speaker_recognition_tpu_torch.models.gmmset import (  # noqa: E402
     GMMSet, _pad_frames_bucket, _pad_stack)
@@ -184,9 +199,11 @@ from speaker_recognition_tpu_torch.ops import (  # noqa: E402
     framing, gpu_frontend, gpu_gmm, gpu_predict)
 from speaker_recognition_tpu_torch.ops import frontend as operators  # noqa: E402
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
-from speaker_recognition_tpu_torch.tools import jfa_pipeline  # noqa: E402
+from speaker_recognition_tpu_torch.tools import (  # noqa: E402
+    crbm_cli, jfa_pipeline)
 from speaker_recognition_tpu_torch.tools import ubm as ubm_tools  # noqa: E402
-from speaker_recognition_tpu_torch.utils import metrics  # noqa: E402
+from speaker_recognition_tpu_torch.utils import (  # noqa: E402
+    datamanip, metrics)
 from speaker_recognition_tpu_torch.utils import serialization  # noqa: E402
 from speaker_recognition_tpu_torch.vad import ltsd, noisered  # noqa: E402
 
@@ -302,6 +319,40 @@ JFA_CHANNELS_DB = (0.0, 6.0)
 # both f32: ~60 EM iterations of batched solves in other summation orders;
 # relative to the largest |score|
 JFA_RTOL = 1e-3
+# phase 19: the RBM family. CRBM_SPEAKERS voices of the identity family,
+# CRBM_SEC s of training audio each at 8 kHz (~1000 frames, the
+# reference's nr_data_max) and CRBM_TESTS held-out utterances of
+# CRBM_TEST_SEC s each; a bank of CRBM_HIDDEN hidden units at
+# speaker_task_config (full batch, 2000 epochs)
+CRBM_SPEAKERS, CRBM_SEC, CRBM_TESTS, CRBM_TEST_SEC = 4, 16.0, 3, 3.0
+CRBM_HIDDEN = 32
+# on CMVN'd MFCC: with the LPC columns (unnormalized) the CRBM bank
+# predicts one speaker for every utterance of these voices in both
+# packages (experiments/results/r5_crbm_faithful.jsonl finds the same of
+# raw features); on MFCC alone it separates them
+CRBM_FEATURES = FeatureConfig(use_lpc=False)
+CRBM_CLI_EPOCHS = 100
+# the card against the CPU on the RBM family's deterministic surfaces and
+# one CD step given the same noise, both f32, normwise (max |d| / max |x|):
+# sigmoids and small matmuls in other orders, ~1e-7 measured on the CPU
+# between thread counts
+RBM_RTOL = 1e-5
+# phase 20: the multi-device programs at world size 1 over NCCL: sharded
+# EM on the pooled phase-19 features (GMM-32, MULTI_ITERS iterations),
+# bank-sharded scoring of a 5 s utterance against MULTI_S x 32, one
+# SEQ_SEC s utterance's features sharded over 'data'
+MULTI_ITERS, MULTI_S, SEQ_SEC = 50, 16, 60.0
+# that utterance's near-singular frames (formant poles at radius 0.97)
+# part every f32 route of the signal frontend from the float64 route, by a
+# share of frames that depends on the utterance: K1 (CMVN off) may part
+# from float64 by at most VOICE_FACTOR times the farther of the two f32
+# plain versions, in the cepstra's max |d| and in the frames whose LPC
+# parts past LPC_ATOL / LPC_RTOL. Measured on the H100 (3,749 frames):
+# cepstra K1 0.162, dense 0.912, FFT route 0.211; LPC frames K1 1,098,
+# dense 719, FFT route 619 (1.53x)
+VOICE_FACTOR = 2.0
+# scaling_report's EM frames a process (its default, the JAX package's)
+SCALING_FRAMES = 262_144
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
 FP32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
@@ -872,6 +923,132 @@ def check_fused_case(name, fe: PackedFrontend, args) -> tuple[float, float]:
                              f"bitwise {bitwise}")
     return (check_fused(name, k6, want),
             check_fused(name + " (wide)", k7, want))
+
+
+def phase13_lifted(rng, dev, card, bench_bank) -> list:
+    """13, the monolith's lifted f32 limits, at phase 16's shapes: N = 32768
+    (384 kHz, BIG384_B x 5 s; the four-step route, BIG_LAUNCHES) and 616
+    outputs (WIDE616, 64 x 5 s at 8 kHz; chunks of 512 on the tile,
+    CHUNKED_LAUNCHES). Each, through both wrappers, against its plain
+    version and predict_scores (K1's route there + K2) on the same argmax,
+    two calls bitwise, counted and timed beside K1 + K2; at 616 outputs the
+    first 512 keep their bits inside the larger call. Returns the entries
+    of the kernels' line."""
+    entries = []
+    L384, L8 = int(FS384 * HIGH_SEC), int(BENCH_FS * BENCH_SEC)
+    s384, l384 = signals_batch(
+        rng, [L384 - int(rng.randint(0, L384 // 2))
+              for _ in range(BIG384_B - 1)] + [L384], padded(L384), dev)
+    s616, l616 = signals_batch(
+        rng, [L8 - int(rng.randint(0, L8 // 2)) for _ in range(63)] + [L8],
+        padded(L8), dev)
+    SK = bench_bank.n_speakers * bench_bank.n_mixtures
+    for key, fs, cfg, sig, lens, route in (
+            ("n32768", FS384, BIG384, s384, l384, "BIG_LAUNCHES"),
+            ("616_outputs", BENCH_FS, WIDE616, s616, l616,
+             "CHUNKED_LAUNCHES")):
+        fe = PackedFrontend(fs, cfg, dev)
+        args = fused_args(fe, sig, lens, bench_bank)
+        nm = (f"K6/K7 {fs / 1000:g} kHz, n_fft {fe.n_fft}, "
+              f"{fe.fft_mel.shape[1]} mel + {fe.fft_acorr.shape[1]} lags, "
+              f"{sig.shape[0]} x {float(lens.max()) / fs:g} s")
+        counters = ("LAUNCHES", "WIDE_LAUNCHES", "BIG_LAUNCHES",
+                    "CHUNKED_LAUNCHES")
+        for c in counters:
+            setattr(gpu_predict, c, 0)
+        k6 = gpu_predict.fused_bank_predict(*args, fft=fe.fft)
+        torch.cuda.synchronize()
+        drive = {c: getattr(gpu_predict, c) for c in counters}
+        k6b, k7, k7b = (fn(*args, fft=fe.fft) for fn in (
+            gpu_predict.fused_bank_predict,
+            gpu_predict.fused_bank_predict_wide,
+            gpu_predict.fused_bank_predict_wide))
+        torch.cuda.synchronize()
+        launched = {c: getattr(gpu_predict, c) for c in counters}
+        want_counts = ({"LAUNCHES": 0, "WIDE_LAUNCHES": 0, "BIG_LAUNCHES": 4,
+                        "CHUNKED_LAUNCHES": 0} if route == "BIG_LAUNCHES"
+                       else {"LAUNCHES": 2, "WIDE_LAUNCHES": 2,
+                             "BIG_LAUNCHES": 0, "CHUNKED_LAUNCHES": 4})
+        bitwise = torch.equal(k6, k6b) and torch.equal(k7, k7b)
+        print(f"phase 13 {nm}: launches {launched}, two calls bitwise equal "
+              f"{bitwise}", flush=True)
+        # (the CPU's plain versions need not repeat their bits: a property
+        # of the kernels)
+        if launched != want_counts or (dev.type == "cuda" and not bitwise):
+            raise AssertionError(f"{nm}: launches {launched}, bitwise "
+                                 f"{bitwise}")
+        err = check_fused(nm + " vs its plain version", k6,
+                          fused_plain(fe, args))
+        err = max(err, check_fused(nm + " (wide) vs its plain version", k7,
+                                   fused_plain(fe, args)))
+        check_fused(nm + " vs predict_scores (K1 + K2)", k6,
+                    fastpath.predict_scores(sig, lens, bench_bank, fs, cfg))
+        tt_fns = {
+            "fused": lambda: gpu_predict.fused_bank_predict(*args,
+                                                            fft=fe.fft),
+            "plain": lambda: fused_plain(fe, args),
+            "predict": lambda: fastpath.predict_scores(sig, lens, bench_bank,
+                                                       fs, cfg)}
+        tt = time_interleaved(tt_fns)
+        T = n_frames(sig.shape[1], fe.frame_len, fe.frame_shift)
+        valid = int(args[1].sum())
+        nceps = fe.dct.shape[1]
+        nac = fe.fft_acorr.shape[1]
+        b = bound(frontend_flops(valid, fe.n_fft, (fe.fft_mel, fe.fft_acorr),
+                                 nceps, order=nac - 1,
+                                 window=3 * fe.frame_len)
+                  + score_flops(valid, bench_bank.dim, SK),
+                  4 * sig.numel() + 4 * sig.shape[0]
+                  + 4 * sum(x.numel() for x in (fe.fft_mel, fe.fft_acorr,
+                                                fe.dct, fe.window))
+                  + 4 * (bench_bank.op.numel() + bench_bank.cw.numel())
+                  + 4 * sig.shape[0] * bench_bank.n_speakers)
+        print(f"phase 13 [{card}] {nm} ({T} frames a row): monolith "
+              f"{tt['fused']:.3f} ms, predict_scores (K1 + K2) "
+              f"{tt['predict']:.3f} ms in the same trials, its plain version "
+              f"{tt['plain']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}); device ms a call by kernel "
+              f"{kernel_times(tt_fns['fused'])}", flush=True)
+        entries.append((f"fused_bank_predict_{key}",
+                        "predict_fused_big.cu" if route == "BIG_LAUNCHES"
+                        else "predict_fused.cuh", "pallas_predict.py:91",
+                        drive[route], err, tt["fused"], tt["plain"], b))
+        del args, k6, k6b, k7, k7b
+        torch.cuda.empty_cache()
+
+    # at most 512 outputs keep their bits inside a larger call: 512 mel
+    # filters, then the same with 104 more whose DCT rows are zero (an
+    # exact zero added to each cepstrum), MFCC only, so the scores agree
+    # bitwise when each output's FMA order does not depend on the count
+    fe = PackedFrontend(BENCH_FS, dataclasses.replace(WIDE616, use_lpc=False),
+                        dev)
+    mel = fe.fft_mel
+    r512 = fe.fft._replace(mel=mel[:, :512].contiguous())
+    r616 = fe.fft._replace(mel=torch.cat([mel[:, :512], mel[:, 496:]],
+                                         dim=1).contiguous())
+    dct512 = torch.from_numpy(operators.dct_matrix(512)[1:14].T.astype(
+        np.float32)).to(dev).contiguous()
+    dct616 = torch.cat([dct512, dct512.new_zeros(104, 13)]).contiguous()
+    bank13 = random_bank(rng, 4, 32, 13, dev)
+    T = n_frames(s616.shape[1], fe.frame_len, fe.frame_shift)
+    nv = fe.valid_frames(l616, T)
+    a = (s616, nv, bank13, fe.frame_shift, None, None)
+    gpu_predict.CHUNKED_LAUNCHES = 0
+    c512 = gpu_predict.fused_bank_predict(*a, dct512, fe.floor, None,
+                                          fft=r512)
+    c616 = gpu_predict.fused_bank_predict(*a, dct616, fe.floor, None,
+                                          fft=r616)
+    torch.cuda.synchronize()
+    inside = torch.equal(c512, c616) and gpu_predict.CHUNKED_LAUNCHES == 1
+    print(f"phase 13 K6, 8 kHz 200 ms frames: 512 outputs' scores bitwise "
+          f"equal inside 616 (104 more filters, zero DCT rows): {inside}",
+          flush=True)
+    if dev.type == "cuda" and not inside:
+        raise AssertionError("the monolith's outputs depend on the output "
+                             "count")
+    del s384, l384, s616, l616
+    torch.cuda.empty_cache()
+    return entries
 
 
 def time_interleaved(fns: dict, trials=7, reps=3) -> dict:
@@ -1608,11 +1785,360 @@ def phase18(dev, card, seed: int = 0) -> dict:
     return out
 
 
+def normwise(got, want) -> float:
+    """max |got - want| / max |want|, over tensors on any device."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def rbm_surfaces(where, rng_seed: int = 19) -> dict:
+    """The RBM family's deterministic outputs on one device, from inputs
+    and noise drawn on the host: the CRBM's noise-free up-down pass,
+    reconstruction errors of one model and a bank, one CRBM CD-1 step; the
+    RBM's probabilities and one CD-1 step; the MLP's forward pass and one
+    SGD step."""
+    rng = np.random.RandomState(rng_seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                  device=where)
+    nv, nh, S, B = 28, CRBM_HIDDEN, CRBM_SPEAKERS, 200
+    cp = crbm.CrbmParams(
+        t(0.3 * rng.randn(S, nv)), t(0.3 * rng.randn(S, nh)),
+        t(0.5 * rng.randn(S, nv, nh)), t(1.0 + 0.2 * rng.rand(S, nh)),
+        t(-1.0 - rng.rand(S, nv)), t(1.0 + rng.rand(S, nv)))
+    vel = crbm._Velocity(*(t(0.01 * rng.randn(*p.shape)) for p in cp[:4]))
+    X = t(rng.randn(B, nv))
+    batch = t(rng.randn(S, B, nv))
+    noise = [t(rng.randn(S, B, nh)), t(rng.randn(S, B, nv)),
+             t(rng.randn(S, B, nh))]
+    one = crbm.CrbmParams(*(p[0] for p in cp))
+    H = crbm.sample_hidden(one, X)
+    new, nvel = crbm.cd_batch(cp, vel, batch, noise, crbm.CrbmTrainConfig())
+    rp = rbm.RbmParams(t(0.3 * rng.randn(nv)), t(0.3 * rng.randn(nh)),
+                       t(0.5 * rng.randn(nv, nh)))
+    Xb = t(rng.rand(B, nv) > 0.5)
+    unif = [t(rng.rand(B, nh)), t(rng.rand(B, nv)), t(rng.rand(B, nh))]
+    rnew = rbm.cd_step(rp, Xb, unif, rbm.RbmTrainConfig())
+    mp = neural_net.MlpParams((t(0.5 * rng.randn(nv, 16)),
+                               t(0.5 * rng.randn(16, S))),
+                              (t(0.1 * rng.randn(16)), t(0.1 * rng.randn(S))))
+    Y = t(np.eye(S)[rng.randint(0, S, B)])
+    mnew = neural_net.sgd_step(mp, X, Y, 0.1)
+    return {"hidden": H, "visible": crbm.sample_visible(one, H),
+            "recon_error": crbm.reconstruction_error(
+                one, X, torch.ones(B, dtype=torch.bool, device=where)),
+            "bank_errors": crbm.bank_reconstruction_errors(
+                cp, X, torch.ones(B, dtype=torch.bool, device=where)),
+            "cd_w": new.w, "cd_a": new.a, "cd_dv": nvel.dv,
+            "rbm_transform": rbm.transform(rp, Xb), "rbm_cd_w": rnew.w,
+            "rbm_cd_hb": rnew.hb, "mlp_forward": neural_net.forward(mp, X),
+            "mlp_sgd_w0": mnew.weights[0], "mlp_sgd_b1": mnew.biases[1]}
+
+
+def phase19(dev, card) -> dict:
+    """19. The RBM family on the card: its deterministic surfaces and one
+    CD step against the CPU; a speaker bank trained at speaker_task_config
+    on the port's voices, timed; segments bitwise equal to one run;
+    predict_bank on held-out utterances, on the card and with the card's
+    bank on the CPU; the crbm_cli train -> test on the card. Returns the
+    training features, which phase 20 pools."""
+    card_s, cpu_s = rbm_surfaces(dev), rbm_surfaces("cpu")
+    errs = {k: normwise(card_s[k], cpu_s[k]) for k in cpu_s}
+    worst = max(errs.values())
+    print(f"phase 19 RBM family, card vs CPU, f32 (normwise, tol "
+          f"{RBM_RTOL}): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                       errs.items()), flush=True)
+    if worst > RBM_RTOL:
+        raise AssertionError("the RBM family on the card disagrees with the "
+                             "CPU")
+
+    vs = synth.voices(CRBM_SPEAKERS, seed=1900)
+    labels = list(range(1, CRBM_SPEAKERS + 1))
+    train = [extract.mix_feature(synth.FS, synth.voice_utterance(
+        v, CRBM_SEC, 1900 + 10 * i), CRBM_FEATURES, device=dev)
+        for i, v in enumerate(vs)]
+    tests = [(labels[i], extract.mix_feature(synth.FS, synth.voice_utterance(
+        v, CRBM_TEST_SEC, 1950 + 10 * i + j), CRBM_FEATURES, device=dev))
+        for i, v in enumerate(vs) for j in range(CRBM_TESTS)]
+    Xs, masks = _pad_stack(train)
+    Xs = torch.as_tensor(Xs, dtype=torch.float32, device=dev)
+    masks = torch.as_tensor(masks, device=dev)
+    cfg = crbm.speaker_task_config(Xs.shape[1])
+
+    def train_bank():
+        return crbm.fit_bank(Xs, masks, CRBM_HIDDEN, cfg, 0, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bank = train_bank()
+    torch.cuda.synchronize()
+    t_train = (time.perf_counter() - t0) * 1e3
+    print(f"phase 19 [{card}] CRBM bank at speaker_task_config, "
+          f"{CRBM_SPEAKERS} speakers x {Xs.shape[1]} frames (d {Xs.shape[2]},"
+          f" nh {CRBM_HIDDEN}, full batch, {cfg.n_epochs} steps): "
+          f"{t_train:.1f} ms; " + device_times(train_bank, calls=1),
+          flush=True)
+    seg_cfg = crbm.CrbmTrainConfig(n_epochs=60, batch_size=100)
+    mono = crbm.fit_bank(Xs, masks, CRBM_HIDDEN, seg_cfg, 3, dev)
+    state = None
+    for seg in (25, 20, 15):
+        state = crbm.fit_bank_segment(Xs, masks, CRBM_HIDDEN, seg_cfg, 3,
+                                      state, seg, 60, dev)
+    seg_equal = all(torch.equal(a, b) for a, b in zip(mono, state.params))
+    print(f"phase 19 CRBM segments (25 + 20 + 15 epochs) bitwise equal to "
+          f"one run of 60 on the card: {seg_equal}", flush=True)
+    bank_cpu = crbm.CrbmParams(*(p.cpu() for p in bank))
+    got, on_cpu = [], []
+    for _, f in tests:
+        x = torch.as_tensor(f, device=dev)
+        m = torch.ones(len(f), dtype=torch.bool, device=dev)
+        got.append(crbm.predict_bank(bank, labels, x, m))
+        on_cpu.append(crbm.predict_bank(bank_cpu, labels, x.cpu(), m.cpu()))
+    acc = float(np.mean([g == lab for g, (lab, _) in zip(got, tests)]))
+    print(f"phase 19 predict_bank on {len(tests)} held-out utterances of "
+          f"{CRBM_TEST_SEC:g} s: accuracy {acc:.4f} (chance "
+          f"{1 / CRBM_SPEAKERS:.2f}); the card's bank on the CPU gives the "
+          f"same decisions {got == on_cpu}", flush=True)
+    if not seg_equal or got != on_cpu or acc <= 1 / CRBM_SPEAKERS:
+        raise AssertionError("the CRBM bank's segments, decisions or "
+                             "accuracy are off")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for split, pairs in (("train", list(zip(labels, train))),
+                             ("test", tests)):
+            paths[split] = os.path.join(tmp, f"{split}.svm")
+            datamanip.write_svm_data(
+                paths[split], np.concatenate([f for _, f in pairs]),
+                np.concatenate([np.full(len(f), lab) for lab, f in pairs]))
+        model = os.path.join(tmp, "bank.npz")
+        outs = []
+        for task in ("train", "test"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "speaker_recognition_tpu_torch.tools.crbm_cli", task, "-i",
+                 paths[task], "-m", model, "--hidden", str(CRBM_HIDDEN),
+                 "--epochs", str(CRBM_CLI_EPOCHS), "--device", "cuda"],
+                cwd=REPO, capture_output=True, text=True, timeout=600)
+            outs.append((proc.returncode, proc.stdout.strip(),
+                         time.perf_counter() - t0))
+        ok = all(rc == 0 for rc, _, _ in outs)
+        # the CLI's per-frame accuracy, against the same bank's decisions
+        # made here on the card
+        mine = ""
+        if ok:
+            X_te, y_te = datamanip.read_svm_data(paths["test"])
+            cli_labels, cli_bank = crbm_cli._load_bank(model, dev)
+            errs = crbm_cli.instance_errors(cli_bank, torch.as_tensor(
+                X_te, dtype=torch.float32, device=dev))
+            pred = np.asarray(cli_labels)[errs.argmin(0).cpu().numpy()]
+            mine = f"{np.mean(pred == y_te):.4f}"
+        print(f"phase 19 python -m ...tools.crbm_cli train -> test on the "
+              f"card ({CRBM_CLI_EPOCHS} epochs, batch 100, per frame): "
+              f"{[o[1] for o in outs]}, {[round(o[2], 1) for o in outs]} s; "
+              f"the same bank's accuracy here {mine}", flush=True)
+        if not ok or not outs[1][1].endswith(mine):
+            raise AssertionError(f"crbm_cli failed: {outs}")
+    return {"train": train, "tests": tests}
+
+
+def phase20(dev, card, feats: dict) -> list:
+    """20. The multi-device programs at world size 1 (NCCL on the card, a
+    free localhost port; gloo on the CPU), destroyed afterwards:
+    sharded_fit bitwise equal to gmm.fit, sharded_bank_scores bitwise
+    equal to the unsharded K3 call (K3's counter moving),
+    sharded_mix_feature within the feature tolerance of mix_feature (K1's
+    counter moving), train_ubm(mesh=...) equal to train_ubm(), and
+    scaling_report. Returns the kernels' entries of this path."""
+    import torch.distributed as dist
+
+    from speaker_recognition_tpu_torch.parallel import (mesh as pmesh,
+                                                        multihost, seqshard)
+
+    multihost.initialize(None, 1, 0, device=dev)
+    entries = []
+    try:
+        mesh = pmesh.make_mesh(1, 1, device=dev)
+        print(f"phase 20 process group: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {tuple(mesh.mesh.shape)} "
+              f"{mesh.mesh_dim_names}", flush=True)
+        X = np.concatenate(feats["train"]).astype(np.float32)
+        mask = np.ones(len(X), bool)
+        cfg = GmmConfig(n_mixtures=32, n_iterations=MULTI_ITERS)
+        got, ll = pmesh.sharded_fit(mesh, cfg)(X, mask, 0)
+        want, wll = gmm.fit(torch.as_tensor(X[None], device=dev),
+                            torch.ones((1, len(X)), dtype=torch.bool,
+                                       device=dev), cfg, 0)
+        fit_bits = (all(torch.equal(a, b[0]) for a, b in zip(got, want))
+                    and torch.equal(ll, wll[0]))
+        print(f"phase 20 sharded_fit bitwise equal to gmm.fit ({len(X)} "
+              f"frames, GMM-32, {MULTI_ITERS} iterations): {fit_bits}",
+              flush=True)
+        rng = np.random.RandomState(20)
+        d = X.shape[1]
+        w = rng.dirichlet(np.ones(32), size=MULTI_S).astype(np.float32)
+        bank = (w, rng.randn(MULTI_S, 32, d).astype(np.float32),
+                (0.5 + rng.rand(MULTI_S, 32, d)).astype(np.float32))
+        x5 = torch.as_tensor(feats["tests"][0][1], device=dev).contiguous()
+        m5 = torch.ones(len(x5), dtype=torch.bool, device=dev)
+        score = pmesh.sharded_bank_scores(mesh)
+        gpu_gmm.SERIAL_LAUNCHES = 0
+        s = score(bank, x5, m5)
+        torch.cuda.synchronize()
+        k3 = gpu_gmm.SERIAL_LAUNCHES
+        gbank = GmmBank.from_numpy(*bank, dev)
+        unsharded = gpu_gmm.bank_avg_loglik(gbank, x5, m5)
+        score_bits = torch.equal(s, unsharded)
+        print(f"phase 20 sharded_bank_scores ({MULTI_S} x 32, {len(x5)} "
+              f"frames) bitwise equal to the unsharded K3 call: "
+              f"{score_bits}; K3 launches on the sharded path {k3}",
+              flush=True)
+        vs = synth.voices(1, seed=2000)
+        sig = synth.voice_utterance(vs[0], SEQ_SEC, 2001)
+        gpu_frontend.LAUNCHES = 0
+        seq = seqshard.sharded_mix_feature(mesh, synth.FS, sig)
+        torch.cuda.synchronize()
+        k1 = gpu_frontend.LAUNCHES
+        ref = extract.mix_feature(synth.FS, sig, device=dev)
+        ones = torch.ones((1, len(ref)), dtype=torch.bool)
+        d_mfcc, d_lpc, lpc_bad = feature_errors(
+            torch.from_numpy(seq)[None], torch.from_numpy(ref)[None], ones,
+            13)
+        print(f"phase 20 sharded_mix_feature, {SEQ_SEC:g} s @ 8 kHz "
+              f"{seq.shape} vs mix_feature {ref.shape}: mfcc max|d| "
+              f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over "
+              f"tol: {lpc_bad}); K1 launches on the sharded path {k1}",
+              flush=True)
+        parts = feats["train"]
+        a = ubm_tools.train_ubm(parts, n_mixtures=32, n_iterations=20,
+                                mesh=mesh, device=dev)
+        b = ubm_tools.train_ubm(parts, n_mixtures=32, n_iterations=20,
+                                device=dev)
+        ubm_bits = all(np.array_equal(x, y) for x, y in zip(a, b))
+        print(f"phase 20 train_ubm(mesh=...) bitwise equal to train_ubm(): "
+              f"{ubm_bits}", flush=True)
+        if (not (fit_bits and score_bits and ubm_bits)
+                or seq.shape != ref.shape or d_mfcc > MFCC_ATOL or lpc_bad
+                or (dev.type == "cuda" and (k3 < 1 or k1 < 1))):
+            raise AssertionError("the multi-device path disagrees with the "
+                                 "unsharded one, or missed its kernels")
+        report = multihost.scaling_report(SCALING_FRAMES, device=dev)
+        print(f"phase 20 [{card}] scaling_report: {json.dumps(report)}",
+              flush=True)
+
+        # the kernels at this path's shapes: K3 on the rank's share of the
+        # bank (all of it at world size 1), K1 (CMVN off) on its chunk
+        plain = gpu_gmm.bank_avg_loglik_reference(gbank, x5, m5)
+        tk3 = time_interleaved({
+            "kernel": lambda: gpu_gmm.bank_avg_loglik(gbank, x5, m5),
+            "plain": lambda: gpu_gmm.bank_avg_loglik_reference(gbank, x5,
+                                                               m5),
+            "sharded": lambda: score(bank, x5, m5)})
+        n5 = len(x5)
+        entries.append((
+            "bank_sum_loglik_sharded", "gmm_serial.cu", "pallas_gmm.py:47",
+            k3, float((unsharded - plain).abs().max()), tk3["kernel"],
+            tk3["plain"], bound(score_flops(n5, d, MULTI_S * 32),
+                                4 * x5.numel() + n5 + 4 * (
+                                    gbank.op.numel() + gbank.cw.numel())
+                                + 4 * MULTI_S)))
+        # K1 with CMVN off on the chunk a rank frames (the whole signal at
+        # world size 1). On the path's own voice, whose near-singular frames
+        # part every f32 route from float64, K1 may part from the float64
+        # route VOICE_FACTOR times as far as the f32 plain versions; the
+        # kernels line holds K1 to its plain version on int16-scale white
+        # noise of the same shape, as phase 2 holds K1
+        fe = extract.frontend(synth.FS, FeatureConfig(), dev)
+        fe64 = extract.frontend(synth.FS, FeatureConfig(), dev, "float64")
+        L = len(sig)
+        chunk = -(-L // fe.frame_shift) * fe.frame_shift
+        T = n_frames(chunk + fe.frame_len - fe.frame_shift, fe.frame_len,
+                     fe.frame_shift)
+        Tv = n_frames(L, fe.frame_len, fe.frame_shift)
+        nv = torch.tensor([Tv], dtype=torch.int32, device=dev)
+        m = (torch.arange(T, device=dev) < nv)[None]
+
+        def chunk_of(x):
+            ext = torch.zeros((1, chunk + fe.frame_len - fe.frame_shift),
+                              dtype=torch.float32, device=dev)
+            ext[0, :L] = torch.as_tensor(x.astype(np.float32), device=dev)
+            return ext
+
+        voice = chunk_of(sig)
+        vargs = (voice, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor,
+                 fe.frame_shift, False)
+        f64 = gpu_frontend.packed_from_signals_reference(
+            voice.double(), nv, fe64.D, fe64.W, fe64.dct, fe64.A, fe64.floor,
+            fe.frame_shift, False)[0, :Tv]
+        errs = {}
+        for name, got in (
+                ("K1", gpu_frontend.packed_from_signals(*vargs, fft=fe.fft)),
+                ("dense f32", gpu_frontend.packed_from_signals_reference(
+                    *vargs)),
+                ("fft f32", gpu_frontend.packed_from_signals_fft_reference(
+                    voice, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift,
+                    False))):
+            dv = (got[0, :Tv].double() - f64).abs()
+            lpc_bad = ((dv[:, 13:] > LPC_ATOL)
+                       & (dv[:, 13:] > LPC_RTOL * f64[:, 13:].abs())).any(1)
+            errs[name] = (float(dv[:, :13].max()), int(lpc_bad.sum()))
+            print(f"phase 20 {name} (CMVN off) vs the float64 route on the "
+                  f"seqshard voice ({Tv} frames): cepstra max|d| "
+                  f"{errs[name][0]:.3e}, LPC max|d| "
+                  f"{float(dv[:, 13:].max()):.3e}, frames past the LPC "
+                  f"tolerance {errs[name][1]}", flush=True)
+        worst = [max(errs["dense f32"][i], errs["fft f32"][i])
+                 for i in (0, 1)]
+        print(f"phase 20 K1 on the seqshard voice within {VOICE_FACTOR}x the "
+              f"f32 plain versions' distance from float64 (cepstra max|d|, "
+              f"LPC frames past tolerance): {errs['K1']} against "
+              f"{tuple(worst)}", flush=True)
+        if any(k > VOICE_FACTOR * w for k, w in zip(errs["K1"], worst)):
+            raise AssertionError("K1 parts from float64 on the seqshard "
+                                 "voice further than the f32 plain versions")
+        ext = chunk_of(rng.randn(L) * 3000)
+        args = (ext, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor, fe.frame_shift,
+                False)
+        d_mfcc, d_lpc, lpc_bad = feature_errors(
+            gpu_frontend.packed_from_signals(*args, fft=fe.fft),
+            gpu_frontend.packed_from_signals_reference(*args), m, 13)
+        print(f"phase 20 K1 (CMVN off) on the seqshard chunk vs its plain "
+              f"version on noise: mfcc max|d| {d_mfcc:.3e} (tol {MFCC_ATOL}) "
+              f"lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad})", flush=True)
+        if d_mfcc > MFCC_ATOL or lpc_bad:
+            raise AssertionError("K1 on the seqshard chunk disagrees with "
+                                 "its plain version")
+        tk1 = time_interleaved({
+            "kernel": lambda: gpu_frontend.packed_from_signals(*args,
+                                                               fft=fe.fft),
+            "plain": lambda: gpu_frontend.packed_from_signals_reference(
+                *args)})
+        nceps, nac = fe.dct.shape[1], fe.A.shape[1]
+        entries.append((
+            "packed_frontend_seqshard", "frontend.cu",
+            "pallas_frontend.py:231", k1, max(d_mfcc, d_lpc), tk1["kernel"],
+            tk1["plain"],
+            bound(frontend_flops(int(nv), fe.n_fft, (fe.fft_mel,
+                                                     fe.fft_acorr), nceps,
+                                 order=nac - 1, window=3 * fe.frame_len),
+                  4 * ext.numel() + 4 * T * (nceps + nac - 1))))
+        print(f"phase 20 [{card}] K3 on the sharded path's share: "
+              f"{tk3['kernel']:.4f} ms, plain {tk3['plain']:.4f} ms, the "
+              f"sharded call (bank upload + K3 + all_gather) "
+              f"{tk3['sharded']:.4f} ms; K1 on the seqshard chunk ({T} "
+              f"frames): {tk1['kernel']:.4f} ms, plain {tk1['plain']:.4f} ms",
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+    return entries
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     seed = args.seed
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this check needs a CUDA card")
@@ -2538,6 +3064,7 @@ def main(argv=None):
     print(f"phase 13 [{card}] K6 on the FFT tile " + device_times(
         lambda: gpu_predict.fused_bank_predict(*args13, fft=fe8.fft)),
         flush=True)
+    entries13 = phase13_lifted(rng, dev, card, bench_bank)
 
     # 14. the grid: more utterances, and speakers, than a launch takes
     gsig, glen = signals_batch(rng, [int(0.1 * BENCH_FS)] * GRID_B,
@@ -2868,6 +3395,8 @@ def main(argv=None):
     entries16 = phase16(rng, dev, card, bench_sig, bench_len)
     phase17(rng, dev, card, bench_sig, bench_len)
     phase18(dev, card, seed)
+    feats19 = phase19(dev, card)
+    entries20 = phase20(dev, card, feats19)
 
     # the kernels' bounds, from this run's shapes
     B8, Lp8 = bench_sig.shape
@@ -2935,6 +3464,8 @@ def main(argv=None):
                 "launches": launched, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, **bounds[key], "library_ms": None}
 
+    print(f"run: {time.perf_counter() - t_start:.1f} s in all, of it the "
+          f"build {_build.build_seconds:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         entry("packed_frontend", "frontend.cu", "pallas_frontend.py:231",
@@ -2974,7 +3505,7 @@ def main(argv=None):
           "launches": launched, "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, **b, "library_ms": None}
          for name, source, replaces, launched, err, ms, plain_ms, b
-         in entries16]}))
+         in entries16 + entries13 + entries20]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -103,6 +103,10 @@ def _bind(lib):
                                       i, i, i, i, i, i, i, i, i, i, i, f, i,
                                       f, i, i, p]
     lib.srt_fused_predict.restype = i
+    lib.srt_fused_predict_big.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
+                                          i, i, i, i, i, i, i, i, i, i, f, i,
+                                          f, i, i, p]
+    lib.srt_fused_predict_big.restype = i
     lib.srt_fused_component_row.argtypes = [i]
     lib.srt_fused_component_row.restype = i
     lib.srt_fused_bf16_wide_floats.argtypes = [i, i, i]

@@ -1,0 +1,59 @@
+// The signal frontend's pieces on the route of N >= 32768 (csrc/
+// rfft_big.cuh), shared by K1 (csrc/frontend.cu) and the fused predict
+// monolith's route there (csrc/predict_fused_big.cu): the frames of a
+// padded batch as the four-step FFT's loader takes them, and the features
+// of a chunk of frames from the route's sums rows.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "packed_tile.cuh"
+#include "rfft_tile.cuh"
+
+namespace {
+
+// columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
+// without fuse_lpc, the nac raw autocorrelation lags
+__host__ __device__ constexpr int feature_width(int nceps, int nac,
+                                                int fuse_lpc) {
+  return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
+}
+
+// The frames of the signal frontend on the route of N >= 32768: frame
+// g = b T + t of the batch, the strided window of the signal as on the
+// tile; frames at or past n_valid[b] are not computed.
+struct BigSignalFrames {
+  const float* sig;
+  const int* nv;
+  const float* win;
+  int Lp, T, fshift, flen;
+  float a;
+  bool preemph_first;
+  __device__ bool live(int g) const { return g % T < nv[g / T]; }
+  __device__ auto frame(int g) const {
+    const int b = g / T, t = g % T;
+    const rfft::SignalFrames s{sig + (size_t)b * Lp + (size_t)t * fshift,
+                               win, Lp - t * fshift, fshift, flen, a,
+                               preemph_first};
+    return [=](int p) { return s(0, p); };
+  }
+};
+
+// The signal frontend's features of frames g0 .. g0 + gridDim.x - 1 from
+// the route's sums rows [.][nout] (tile_features, one frame a block), into
+// feat [B * T][feature_width]; zeros at frames past n_valid.
+__global__ void __launch_bounds__(128) big_features_kernel(
+    const float* __restrict__ sums, const int* __restrict__ n_valid,
+    const float* __restrict__ dct, float* __restrict__ feat, int T, int g0,
+    int nmel, int nac, int nceps, int fuse_lpc) {
+  const int g = g0 + blockIdx.x, b = g / T, t = g % T;
+  const int nout = nmel + nac;
+  tile_features<64, 128>(sums + (size_t)blockIdx.x * nout,
+                         feat + (size_t)g * feature_width(nceps, nac,
+                                                          fuse_lpc),
+                         1, n_valid[b] - t, dct, nmel, nac, nceps,
+                         fuse_lpc != 0, nout);
+}
+
+}  // namespace

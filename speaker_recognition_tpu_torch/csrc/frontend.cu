@@ -46,18 +46,12 @@
 
 #include <algorithm>
 
+#include "big_signal.cuh"
 #include "packed_tile.cuh"
 #include "rfft_big.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
-
-// columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
-// without fuse_lpc, the nac raw autocorrelation lags
-__host__ __device__ constexpr int feature_width(int nceps, int nac,
-                                                int fuse_lpc) {
-  return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
-}
 
 // Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go to rows of
 // wsums [B * T][wstride] and tile_features reads them there.
@@ -143,41 +137,6 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig,
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   return cudaSuccess;
-}
-
-// The frames of K1 on the route of N >= 32768: frame g = b T + t of the
-// batch, the strided window of the signal as on the tile; frames at or
-// past n_valid[b] are not computed.
-struct BigSignalFrames {
-  const float* sig;
-  const int* nv;
-  const float* win;
-  int Lp, T, fshift, flen;
-  float a;
-  bool preemph_first;
-  __device__ bool live(int g) const { return g % T < nv[g / T]; }
-  __device__ auto frame(int g) const {
-    const int b = g / T, t = g % T;
-    const rfft::SignalFrames s{sig + (size_t)b * Lp + (size_t)t * fshift,
-                               win, Lp - t * fshift, fshift, flen, a,
-                               preemph_first};
-    return [=](int p) { return s(0, p); };
-  }
-};
-
-// The signal frontend's features of frames g0 .. g0 + gridDim.x - 1 from
-// the route's sums rows [.][nout] (tile_features, one frame a block).
-__global__ void __launch_bounds__(128) big_features_kernel(
-    const float* __restrict__ sums, const int* __restrict__ n_valid,
-    const float* __restrict__ dct, float* __restrict__ feat, int T, int g0,
-    int nmel, int nac, int nceps, int fuse_lpc) {
-  const int g = g0 + blockIdx.x, b = g / T, t = g % T;
-  const int nout = nmel + nac;
-  tile_features<64, 128>(sums + (size_t)blockIdx.x * nout,
-                         feat + (size_t)g * feature_width(nceps, nac,
-                                                          fuse_lpc),
-                         1, n_valid[b] - t, dct, nmel, nac, nceps,
-                         fuse_lpc != 0, nout);
 }
 
 }  // namespace

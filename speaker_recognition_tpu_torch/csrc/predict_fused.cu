@@ -41,7 +41,9 @@ extern "C" void srt_fused_bf16_tile(int flen, int fshift, int nout,
 // srt_fused_component_row(d)], dct [nmel, nceps], scratch of
 // srt_fused_scratch_floats; writes out [B, S]. bf16 == 0: the FFT route,
 // win [flen] and op the packed operator of srt_fft_operator_shape at nfft
-// (csrc/frontend_fft.cu), at most 512 outputs; D, W, A and wsums unread.
+// (csrc/frontend_fft.cu), nfft at most 16384, and past 512 outputs wsums
+// the srt_fft_wide_floats(B * T, nmel + nac) floats of the sums rows; D,
+// W and A unread.
 // bf16 != 0: the dense route with D [flen, ncols], W [ncols, nmel], A
 // [ncols, nac] and wsums of srt_fused_bf16_wide_floats; win, op and nfft
 // unread.
@@ -99,8 +101,10 @@ extern "C" int srt_fused_predict(
     if (!gseg) return (int)with_frames<DenseBf16Tile<32, 16>>(a, st);
     return (int)with_frames<DenseBf16Tile<32, 16, true>>(a, st);
   }
-  const int opl = rfft::pick_opl(nfft, nmel + nac);
+  const int opl = rfft::pick_opl(nfft, nmel + nac, true);
   if (opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
+  a.nchunk = rfft::out_chunks(nmel + nac);
+  if (a.nchunk > 1 && wsums == nullptr) return (int)cudaErrorInvalidValue;
   if (nfft <= 128) return (int)launch_fft_64_128(a, nfft, opl, st);
   if (nfft <= 512) return (int)launch_fft_256_512(a, nfft, opl, st);
   if (nfft <= 2048) return (int)launch_fft_1024_2048(a, nfft, opl, st);

@@ -19,7 +19,11 @@
 //   * f32: an N-point real FFT of the frame (N = ops/frontend.rfft_size(
 //     flen)) on the FFT tile of csrc/rfft_tile.cuh, with the bin-domain
 //     operators M and R of ops/frontend.fft_packed_operators, as the signal
-//     frontend (csrc/frontend.cu, K1) computes it;
+//     frontend (csrc/frontend.cu, K1) computes it, past 512 outputs in
+//     chunks of 512 whose sums live in device rows; from N = 32768 on, the
+//     four-step FFT of csrc/rfft_big.cuh in launches of its own
+//     (csrc/predict_fused_big.cu), after which this kernel runs phases 2-4
+//     only (ScoreTile);
 //   * bf16: the TPU kernel's dense product X = frame . D, Y = X^2 on the
 //     dense tile of csrc/packed_tile.cuh, with the samples and D rounded to
 //     bf16 (nearest even) first; the products and every sum stay f32. Any
@@ -103,9 +107,13 @@ __device__ __forceinline__ int valid_frames(const Args& a, int b) {
   return min(max(a.n_valid[b], 0), a.T);
 }
 
-// The f32 route's frontend tile: K1's loader on the FFT tile.
+// The f32 route's frontend tile: K1's loader on the FFT tile. Past 512
+// outputs (OPL 64, a.nchunk > 1) the tile projects onto chunks of 512
+// outputs in turn and keeps the sums in rows of a.wsums [B * T][512 *
+// nchunk], as K1 does; an output's FMA order does not depend on the count.
 template <int N, int OPL>
 struct FftTile {
+  static constexpr bool FRONTEND = true;
   static constexpr int FT = rfft::ft(N), NTH = rfft::nth(N);
   static constexpr int smem_bytes(int, int) {
     return 4 * rfft::smem_floats(N, OPL);
@@ -117,11 +125,31 @@ struct FftTile {
         a.Lp - f0 * a.fshift, a.fshift, a.flen, a.pre_emph,
         a.preemph_first != 0};
     const int nf = min(FT, a.T - f0);
-    const float* sums = rfft::tile_sums<N, OPL, false>(load, nf, smem, a.op,
-                                                       a.nmel, a.power_floor);
-    tile_features<OPL, NTH>(sums, a.feat + ((size_t)b * a.T + f0) * a.d, nf,
-                            nv - f0, a.dct, a.nmel, a.nac, a.nceps, true);
+    const bool rows = OPL == 64 && a.nchunk > 1;
+    const int wstride = rfft::nop(OPL) * a.nchunk;
+    float* wrows =
+        rows ? a.wsums + ((size_t)b * a.T + f0) * wstride : nullptr;
+    const float* sums = rfft::tile_sums<N, OPL, false>(
+        load, nf, smem, a.op, a.nmel, a.power_floor, a.nchunk, wrows,
+        wstride);
+    float* out = a.feat + ((size_t)b * a.T + f0) * a.d;
+    if (rows)
+      tile_features<OPL, NTH>(wrows, out, nf, nv - f0, a.dct, a.nmel, a.nac,
+                              a.nceps, true, wstride);
+    else
+      tile_features<OPL, NTH>(sums, out, nf, nv - f0, a.dct, a.nmel, a.nac,
+                              a.nceps, true);
   }
+};
+
+// The route of N >= 32768 (csrc/predict_fused_big.cu): the four-step FFT's
+// passes have left the pre-CMVN features in a.feat before the launch, so
+// the kernel runs phases 2-4 only, with shared memory for the rows.
+struct ScoreTile {
+  static constexpr bool FRONTEND = false;
+  static constexpr int FT = 1, NTH = 256;
+  static constexpr int smem_bytes(int, int) { return 2 * CHUNK_BYTES; }
+  __device__ static void features(const Args&, float*, int, int, int) {}
 };
 
 // The bf16 route's frontend tile: the dense product on bf16-rounded
@@ -130,6 +158,7 @@ struct FftTile {
 // from device memory (frames too long for a 32-frame tile's shared memory).
 template <int FT_, int OPL, bool GSEG = false>
 struct DenseBf16Tile {
+  static constexpr bool FRONTEND = true;
   static constexpr int FT = FT_, NTH = NT;
   static constexpr int smem_bytes(int flen, int fshift) {
     return 4 * smem_floats(FT, OPL, flen, fshift, GSEG);
@@ -164,16 +193,18 @@ __global__ void __launch_bounds__(Tile::NTH) fused_predict_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
   // 1. frontend tiles -> pre-CMVN features
-  const int nt1 = (a.T + FT - 1) / FT;
-  for (long long it = blockIdx.x; it < (long long)a.B * nt1;
-       it += gridDim.x) {
-    const int b = (int)(it / nt1), f0 = (int)(it % nt1) * FT;
-    const int nv = valid_frames(a, b);
-    if (f0 >= nv) continue;  // block-uniform: no frame of the tile is read
-    __syncthreads();  // the previous tile's readers of shared memory are done
-    Tile::features(a, smem, b, f0, nv);
+  if constexpr (Tile::FRONTEND) {
+    const int nt1 = (a.T + FT - 1) / FT;
+    for (long long it = blockIdx.x; it < (long long)a.B * nt1;
+         it += gridDim.x) {
+      const int b = (int)(it / nt1), f0 = (int)(it % nt1) * FT;
+      const int nv = valid_frames(a, b);
+      if (f0 >= nv) continue;  // block-uniform: no frame of the tile is read
+      __syncthreads();  // the previous tile's readers of smem are done
+      Tile::features(a, smem, b, f0, nv);
+    }
+    grid.sync();
   }
-  grid.sync();
 
   // 2. masked CMVN per utterance, in place
   if (a.cmvn) {
@@ -293,7 +324,7 @@ cudaError_t launch(Args a, cudaStream_t st) {
              &a.ch);
   // every block must be resident for the grid-wide barriers; more blocks
   // than the largest phase has items would only wait at them
-  const int nt1 = (a.T + Tile::FT - 1) / Tile::FT;
+  const int nt1 = Tile::FRONTEND ? (a.T + Tile::FT - 1) / Tile::FT : 0;
   const long long items = std::max(
       {(long long)a.B * nt1,
        (long long)((a.S + a.sg - 1) / a.sg) * a.B * ((a.NW + WARPS - 1) /

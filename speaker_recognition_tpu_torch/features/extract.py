@@ -48,8 +48,9 @@ from ..ops import frontend as operators
 from ..ops.gpu_frontend import masked_cmvn
 
 __all__ = ["LENGTH_BUCKET", "FullFrontend", "PackedFrontend", "apply_deltas",
-           "extract_batch", "frontend", "frontend_mode", "lpc_extract",
-           "masked_cmvn", "mfcc_extract", "mix_feature", "signal_too_short"]
+           "diff_feature", "extract_batch", "frontend", "frontend_mode",
+           "lpc_extract", "masked_cmvn", "mfcc_extract", "mix_feature",
+           "signal_too_short"]
 
 # Signals are zero-padded to a multiple of this many samples.
 LENGTH_BUCKET = 4096
@@ -170,18 +171,25 @@ class _Frontend(nn.Module):
         deltas; zeros past each utterance's valid frames."""
         if self.cmvn and not cmvn_done:
             ceps = masked_cmvn(ceps, mask)
-        parts = [ceps]
-        if self.use_lpc:
-            if self.n_lpcc > 0:
-                a, _ = levinson.levinson(r)
-                parts.append(torch.nan_to_num(
-                    levinson.lpcc_from_lpc(a, self.n_lpcc), nan=0.0,
-                    posinf=0.0, neginf=0.0))
-            else:
-                parts.append(levinson.lpc_from_autocorr(r))
-        feat, mask = apply_deltas(torch.cat(parts, dim=-1), mask,
-                                  self.n_deltas)
-        return torch.where(mask[..., None], feat, torch.zeros_like(feat)), mask
+        feat, mask = apply_deltas(torch.cat([ceps, self._lpc_part(r)], dim=-1),
+                                  mask, self.n_deltas)
+        return _zero_past(feat, mask), mask
+
+    def _lpc_part(self, r: torch.Tensor) -> torch.Tensor:
+        """[..., order+1] raw autocorrelation -> the LPC columns: LPC, or
+        Levinson -> LPC cepstra -> non-finite to 0, or none without LPC."""
+        if not self.use_lpc:
+            return r[..., :0]
+        if self.n_lpcc > 0:
+            a, _ = levinson.levinson(r)
+            return torch.nan_to_num(levinson.lpcc_from_lpc(a, self.n_lpcc),
+                                    nan=0.0, posinf=0.0, neginf=0.0)
+        return levinson.lpc_from_autocorr(r)
+
+
+def _zero_past(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """[B, T, n] with zeros where the [B, T] mask is false."""
+    return torch.where(mask[..., None], x, torch.zeros_like(x))
 
 
 class PackedFrontend(_Frontend):
@@ -235,31 +243,51 @@ class PackedFrontend(_Frontend):
                                      self.preemph_first, self.fft_mel,
                                      self.fft_acorr)
 
-    def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
-        """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
-        [B, T'] mask); zeros past each utterance's valid frames."""
+    def _signal_kernel(self, signals, lengths, cmvn: bool):
+        """(the signal kernel's output, T, [B, T] mask) for [B, Lp] signals:
+        K1 at float32, the FFT route's or the dense plain version at
+        float64. LPC comes from the kernel's Levinson ([B, T, n_ceps +
+        order]) unless the frontend takes LPC cepstra (then the cepstra and
+        the raw autocorrelation, [B, T, order+1])."""
         signals, T, mask = self._frames(signals, lengths)
         n_valid = self.valid_frames(lengths.to(signals.device), T)
         fuse_lpc = self.n_lpcc == 0
         if not self._count_f64():
-            feat = gpu_frontend.packed_from_signals(
+            out = gpu_frontend.packed_from_signals(
                 signals, n_valid, self.D, self.W, self.dct, self.A,
-                self.floor, self.frame_shift, self.cmvn, fft=self.fft,
+                self.floor, self.frame_shift, cmvn, fft=self.fft,
                 fuse_lpc=fuse_lpc)
         elif self.D is None:
-            feat = gpu_frontend.packed_from_signals_fft_reference(
+            out = gpu_frontend.packed_from_signals_fft_reference(
                 signals, n_valid, self.fft, self.dct, self.floor,
-                self.frame_shift, self.cmvn, fuse_lpc)
+                self.frame_shift, cmvn, fuse_lpc)
         else:
-            feat = gpu_frontend.packed_from_signals_reference(
+            out = gpu_frontend.packed_from_signals_reference(
                 signals, n_valid, self.D, self.W, self.dct, self.A,
-                self.floor, self.frame_shift, self.cmvn, fuse_lpc)
+                self.floor, self.frame_shift, cmvn, fuse_lpc)
+        return out, mask
+
+    def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
+        """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
+        [B, T'] mask); zeros past each utterance's valid frames."""
+        feat, mask = self._signal_kernel(signals, lengths, self.cmvn)
         if self.n_lpcc > 0:
             return self.finish(*feat, mask, cmvn_done=True)
         if self.n_deltas:
             feat, mask = apply_deltas(feat, mask, self.n_deltas)
-            feat = torch.where(mask[..., None], feat, torch.zeros_like(feat))
+            feat = _zero_past(feat, mask)
         return feat, mask
+
+    def pre_cmvn(self, signals: torch.Tensor, lengths: torch.Tensor):
+        """([B, T, n_ceps] cepstra before CMVN, [B, T, w] LPC columns,
+        [B, T] mask): forward's kernel with its CMVN off and no deltas;
+        zeros past each utterance's valid frames."""
+        out, mask = self._signal_kernel(signals, lengths, False)
+        if self.n_lpcc == 0:
+            nc = self.dct.shape[1]
+            return out[..., :nc], out[..., nc:], mask
+        return (_zero_past(out[0], mask),
+                _zero_past(self._lpc_part(out[1]), mask), mask)
 
 
 class FullFrontend(_Frontend):
@@ -302,9 +330,10 @@ class FullFrontend(_Frontend):
         self.pre_emph = mf.pre_emph
         self.preemph_first = mf.preemph_first
 
-    def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
-        """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
-        [B, T'] mask); zeros past each utterance's valid frames."""
+    def _frame_kernel(self, signals, lengths):
+        """([B, T, n_ceps] cepstra before CMVN, [B, T, order+1] raw
+        autocorrelation, [B, T] mask) for [B, Lp] signals: K5 at float32,
+        its plain version at float64."""
         signals, T, mask = self._frames(signals, lengths)
         B = signals.shape[0]
         wp = framing.window_preemph(
@@ -319,7 +348,20 @@ class FullFrontend(_Frontend):
             ceps, r = gpu_frontend.mfcc_from_frames(
                 wp, self.C, self.S, self.mel, self.dct, self.floor,
                 self.acorr, self.n_fft)
-        return self.finish(ceps.view(B, T, -1), r.view(B, T, -1), mask)
+        return ceps.view(B, T, -1), r.view(B, T, -1), mask
+
+    def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
+        """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
+        [B, T'] mask); zeros past each utterance's valid frames."""
+        return self.finish(*self._frame_kernel(signals, lengths))
+
+    def pre_cmvn(self, signals: torch.Tensor, lengths: torch.Tensor):
+        """([B, T, n_ceps] cepstra before CMVN, [B, T, w] LPC columns,
+        [B, T] mask): forward's kernel and LPC columns, with no CMVN and no
+        deltas; zeros past each utterance's valid frames."""
+        ceps, r, mask = self._frame_kernel(signals, lengths)
+        return (_zero_past(ceps, mask), _zero_past(self._lpc_part(r), mask),
+                mask)
 
 
 def frontend_mode() -> str:
@@ -408,3 +450,16 @@ def lpc_extract(fs: int, signal, cfg: LpcConfig = LpcConfig(),
                         win_shift_ms=cfg.win_shift_ms, pre_emph=cfg.pre_emph),
         lpc=cfg, use_lpc=True)
     return mix_feature(fs, signal, fcfg, dtype, device)[:, fcfg.mfcc.n_ceps:]
+
+
+def diff_feature(feat: np.ndarray, nd: int = 1) -> np.ndarray:
+    """Delta / delta-delta features of one utterance [T, d] on the host,
+    src/feature/utils.py:24-31: [T-1, 2d] for nd = 1, [T-2, 3d] for 2."""
+    diff = feat[1:] - feat[:-1]
+    feat = feat[1:]
+    if nd == 1:
+        return np.concatenate((feat, diff), axis=1)
+    if nd == 2:
+        d2 = diff[1:] - diff[:-1]
+        return np.concatenate((feat[1:], diff[1:], d2), axis=1)
+    raise ValueError(f"nd must be 1 or 2, got {nd}")

@@ -330,9 +330,13 @@ def _select(active: torch.Tensor, new: GmmParams,
                                    a, b) for a, b in zip(new, old)))
 
 
+def _no_reduce(tensors: list) -> list:
+    return tensors
+
+
 def _em_loop(X, mask, params0: GmmParams, cfg: GmmConfig,
              step_fn: Callable[[GmmParams], GmmParams],
-             log: dict | None = None):
+             log: dict | None = None, reduce=_no_reduce):
     """Iterate `step_fn` over a bank, checking convergence per speaker on
     odd iterations against the summed log-likelihood (gmm.cc:614-652).
 
@@ -342,8 +346,14 @@ def _em_loop(X, mask, params0: GmmParams, cfg: GmmConfig,
     frozen. Every speaker still stepping has run exactly `it` iterations,
     so one host counter stands for the vmapped loop's per-speaker i. The
     all-done test reads one flag to the host per check iteration; `log`,
-    if given, receives the iteration and host-sync counts.
+    if given, receives the iteration and host-sync counts. `reduce` sums a
+    list of per-shard tensors over the shards of a data-parallel fit
+    (parallel/mesh.sharded_fit; the identity by default), here the
+    log-likelihood, in step_fn the statistics.
     Returns (params, [S] log-likelihood of the last check)."""
+    def loglik(p):
+        return reduce([total_loglik(p, X, mask, cfg.min_prob_sum)])[0]
+
     if cfg.threshold <= 0:
         # early stopping off: a fixed count, no monitoring pass
         params = params0
@@ -351,7 +361,7 @@ def _em_loop(X, mask, params0: GmmParams, cfg: GmmConfig,
             params = step_fn(params)
         if log is not None:
             log.update(iterations=cfg.n_iterations, host_syncs=0)
-        return params, total_loglik(params, X, mask, cfg.min_prob_sum)
+        return params, loglik(params)
 
     S = X.shape[0]
     last_ll = torch.full((S,), -torch.finfo(X.dtype).max, dtype=X.dtype,
@@ -365,7 +375,7 @@ def _em_loop(X, mask, params0: GmmParams, cfg: GmmConfig,
         params = _select(active, new, params)
         it += 1
         if it % cfg.check_every == 0:  # the odd iterations, counting from 0
-            ll = total_loglik(new, X, mask, cfg.min_prob_sum)
+            ll = loglik(new)
             diff = ll - last_ll
             converged = ((diff.abs() / ll.abs() < cfg.threshold)
                          & (diff < cfg.threshold))
@@ -389,10 +399,15 @@ def fit(X: torch.Tensor, mask: torch.Tensor, cfg: GmmConfig, seed: int = 0,
 
 
 def fit_from_params(X: torch.Tensor, mask: torch.Tensor, params0: GmmParams,
-                    cfg: GmmConfig, log: dict | None = None):
-    """EM from explicit initial parameters [S, ...]."""
-    step = lambda p: m_step(sufficient_stats(p, X, mask), cfg)  # noqa: E731
-    return _em_loop(X, mask, params0, cfg, step, log)
+                    cfg: GmmConfig, log: dict | None = None,
+                    reduce=_no_reduce):
+    """EM from explicit initial parameters [S, ...]; with `reduce`, X is
+    one shard of the frames and the statistics and log-likelihoods are
+    summed over the shards (see _em_loop)."""
+    def step(p):
+        return m_step(EmStats(*reduce(list(sufficient_stats(p, X, mask)))),
+                      cfg)
+    return _em_loop(X, mask, params0, cfg, step, log, reduce)
 
 
 def fit_with_init(X: torch.Tensor, mask: torch.Tensor, cfg: GmmConfig,

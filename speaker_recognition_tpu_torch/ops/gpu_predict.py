@@ -29,15 +29,21 @@ Routes, chosen in the open:
   * CUDA, f32: the kernel on the FFT tile, which takes `fft`; its plain
     version is `fused_bank_predict_fft_reference` (the signal frontend's
     FFT route, then the bank's plain scoring), for the tests and
-    chip_smoke.py;
+    chip_smoke.py. Past 512 mel + autocorrelation outputs the tile
+    projects onto chunks of 512 in turn, the sums in device rows, as K1
+    does (counted in CHUNKED_LAUNCHES as well); at an FFT of 32768 points
+    or more the four-step FFT of csrc/rfft_big.cuh computes the features
+    in chunks of frames and the kernel then runs its CMVN and scoring
+    phases on them (csrc/predict_fused_big.cu, several launches a call,
+    counted in BIG_LAUNCHES in place of LAUNCHES or WIDE_LAUNCHES);
   * CUDA, `mm_bf16`: the kernel on the dense tile with the samples and D
     rounded to bf16, counted in BF16_LAUNCHES; any number of mel +
     autocorrelation outputs (chunks of 128 past 128, their sums in device
     rows) and any frame length (a tile of 128, 64 or 32 frames, the
     samples read from device memory past what a 32-frame tile holds).
-The f32 route takes the FFT tile's sizes (N up to 16384) and at most 512
-outputs; the frontend kernels' routes past those (ops/gpu_frontend) are
-not in the monolith.
+Every shape the frontend kernels take, the f32 route takes; on the CPU a
+frontend of N >= 32768 (which builds no dense operators) runs the FFT
+route's plain version.
 A CUDA tensor launches the kernel or raises; any other device raises.
 Serving does not dispatch the monolith: api/fastpath.predict_scores runs
 the frontend and the bank-scoring kernels.
@@ -52,11 +58,12 @@ import torch
 from .. import _build
 from ..models.gmm import GmmBank
 from ..models.gmm import batch_bank_avg_loglik
-from .gpu_frontend import (FftRoute, _packed_operator,
+from .gpu_frontend import (BIG_N, FftRoute, _big_scratch, _packed_operator,
                            packed_from_signals_fft_reference,
                            packed_from_signals_reference)
 
-__all__ = ["BF16_LAUNCHES", "LAUNCHES", "WIDE_LAUNCHES", "fused_bank_predict",
+__all__ = ["BF16_LAUNCHES", "BIG_LAUNCHES", "CHUNKED_LAUNCHES", "LAUNCHES",
+           "WIDE_LAUNCHES", "fused_bank_predict",
            "fused_bank_predict_fft_reference", "fused_bank_predict_reference",
            "fused_bank_predict_wide"]
 
@@ -65,6 +72,10 @@ __all__ = ["BF16_LAUNCHES", "LAUNCHES", "WIDE_LAUNCHES", "fused_bank_predict",
 LAUNCHES = 0        # fused_bank_predict, f32 (FFT tile)
 WIDE_LAUNCHES = 0   # fused_bank_predict_wide (FFT tile)
 BF16_LAUNCHES = 0   # fused_bank_predict(mm_bf16=True) (dense tile)
+# f32 calls of either wrapper on the route of N >= 32768 (several launches
+# each), and f32 tile launches of either with more than 512 outputs
+BIG_LAUNCHES = 0
+CHUNKED_LAUNCHES = 0
 
 
 def _lpc_operator(A, D: torch.Tensor) -> torch.Tensor:
@@ -72,15 +83,26 @@ def _lpc_operator(A, D: torch.Tensor) -> torch.Tensor:
     return D.new_zeros((D.shape[1], 0)) if A is None else A
 
 
-def _check_geometry(D: torch.Tensor, fshift: int, fft: FftRoute | None):
+def _check_geometry(D: torch.Tensor | None, fshift: int,
+                    fft: FftRoute | None):
     """The JAX package's rule: frame_len == 2*frame_shift and fft_size >=
     2*frame_len, for which the packed operator D [frame_len, 2*frame_len]
-    stands; an FFT route, where given, of frames that long."""
+    stands; an FFT route, where given, of frames that long. D is None for
+    a frontend of N >= 32768, which builds no dense operators: then the
+    FFT route alone carries the geometry."""
     if D is None:
-        raise ValueError(
-            "fused predict takes the packed operators D, W, A, which a "
-            "frontend of frames longer than 8192 samples (N >= 32768) does "
-            "not build; api.fastpath.predict_scores serves it")
+        if fft is None:
+            raise ValueError(
+                "fused predict takes the packed operators D, W, A, or the "
+                "FFT route (fft=) where a frontend of N >= 32768 builds no "
+                "dense operators")
+        flen = fft.window.shape[0]
+        if flen != 2 * fshift or fft.n_fft < 2 * flen:
+            raise ValueError(
+                f"fused predict serves the packed geometry only: frame_len "
+                f"== 2*frame_shift and n_fft >= 2*frame_len; got frame_len "
+                f"{flen} at frame_shift {fshift}, n_fft {fft.n_fft}")
+        return
     flen = D.shape[0]
     if flen != 2 * fshift or D.shape[1] != 2 * flen:
         raise ValueError(
@@ -147,18 +169,17 @@ def fused_bank_predict(signals, n_valid, bank: GmmBank, fshift: int, D, W,
     fused_bank_predict); `mm_bf16` feeds the DFT product bf16 operands. On
     the card the f32 kernel takes `fft` (PackedFrontend.fft)."""
     if signals.device.type == "cpu":
-        return fused_bank_predict_reference(signals, n_valid, bank, fshift,
-                                            D, W, dct_t, floor, A, cmvn,
-                                            mm_bf16)
+        return _plain(signals, n_valid, bank, fshift, D, W, dct_t, floor, A,
+                      cmvn, fft, mm_bf16)
     global LAUNCHES, BF16_LAUNCHES
     if mm_bf16:
         out = _launch_bf16(signals, n_valid, bank, fshift, D, W, dct_t,
                            floor, A, cmvn)
         BF16_LAUNCHES += 1
         return out
-    out = _launch_fft(signals, n_valid, bank, fshift, D, dct_t, floor, cmvn,
-                      fft)
-    LAUNCHES += 1
+    out, big = _launch_fft(signals, n_valid, bank, fshift, D, dct_t, floor,
+                           cmvn, fft)
+    LAUNCHES += not big
     return out
 
 
@@ -169,13 +190,27 @@ def fused_bank_predict_wide(signals, n_valid, bank: GmmBank, fshift: int, D,
     kernel (pallas_predict.fused_bank_predict_wide); its TPU layout has no
     counterpart on the card."""
     if signals.device.type == "cpu":
-        return fused_bank_predict_reference(signals, n_valid, bank, fshift,
-                                            D, W, dct_t, floor, A, cmvn)
-    out = _launch_fft(signals, n_valid, bank, fshift, D, dct_t, floor, cmvn,
-                      fft)
+        return _plain(signals, n_valid, bank, fshift, D, W, dct_t, floor, A,
+                      cmvn, fft)
+    out, big = _launch_fft(signals, n_valid, bank, fshift, D, dct_t, floor,
+                           cmvn, fft)
     global WIDE_LAUNCHES
-    WIDE_LAUNCHES += 1
+    WIDE_LAUNCHES += not big
     return out
+
+
+def _plain(signals, n_valid, bank: GmmBank, fshift: int, D, W, dct_t,
+           floor: float, A, cmvn: bool, fft: FftRoute | None,
+           mm_bf16: bool = False) -> torch.Tensor:
+    """The CPU's route: the dense plain version, or the FFT route's where
+    the frontend built no dense operators (N >= 32768)."""
+    if D is None and not mm_bf16:
+        _check_geometry(D, fshift, fft)
+        return fused_bank_predict_fft_reference(signals, n_valid, bank,
+                                                fshift, dct_t, floor, fft,
+                                                cmvn)
+    return fused_bank_predict_reference(signals, n_valid, bank, fshift, D, W,
+                                        dct_t, floor, A, cmvn, mm_bf16)
 
 
 def _check_common(signals, n_valid, bank: GmmBank, dct_t, d: int):
@@ -214,7 +249,7 @@ def _run(lib, signals, n_valid, bank: GmmBank, flen: int, fshift: int,
     comp = bank.component_operator(lib.srt_fused_component_row(d))
     scratch = torch.empty(lib.srt_fused_scratch_floats(B, T, d, S),
                           dtype=torch.float32, device=dev)
-    # the bf16 route's sums rows past 128 outputs
+    # the sums rows past 128 (bf16) or 512 (f32) outputs
     wsums = (torch.empty(wide_floats, dtype=torch.float32, device=dev)
              if wide_floats else None)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
@@ -234,7 +269,9 @@ def _run(lib, signals, n_valid, bank: GmmBank, flen: int, fshift: int,
 
 def _launch_fft(signals, n_valid, bank: GmmBank, fshift: int, D, dct_t,
                 floor: float, cmvn: bool, fft: FftRoute | None):
-    """Check the arguments and launch the f32 route (the FFT tile)."""
+    """Check the arguments and launch the f32 route: the FFT tile, or the
+    four-step route at N >= 32768. Returns (out, whether the four-step
+    route ran), and counts the chunked and four-step calls."""
     if fft is None and signals.device.type == "cuda":
         raise ValueError("the fused predict kernel runs the FFT route in f32: "
                          "pass fft= (features.extract.PackedFrontend.fft)")
@@ -255,16 +292,55 @@ def _launch_fft(signals, n_valid, bank: GmmBank, fshift: int, D, dct_t,
             f"{tuple(signals.shape)}, window {flen}, n_fft {N}, mel "
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct_t "
             f"{tuple(dct_t.shape)}")
-    if N > 16384 or nmel + nac > 512:
-        raise ValueError(
-            f"fused predict f32 route (the FFT tile): n_fft {N} must be at "
-            f"most 16384 and {nmel} mel + {nac} autocorrelation outputs at "
-            "most 512; api.fastpath.predict_scores serves every shape")
     lib = _build.load()
+    global BIG_LAUNCHES, CHUNKED_LAUNCHES
+    if N >= BIG_N:
+        out = _run_big(lib, signals, n_valid, bank, fshift, dct_t, floor,
+                       cmvn, fft)
+        BIG_LAUNCHES += 1
+        return out, True
     op = _packed_operator(lib, fft.mel, fft.acorr, N)
-    return _run(lib, signals, n_valid, bank, flen, fshift, N, 0, nmel, nac,
-                dct_t, floor, cmvn, False, win=fft.window, op=op,
-                pre_emph=fft.pre_emph, preemph_first=fft.preemph_first)
+    T = (signals.shape[1] - flen) // fshift + 1
+    out = _run(lib, signals, n_valid, bank, flen, fshift, N, 0, nmel, nac,
+               dct_t, floor, cmvn, False, win=fft.window, op=op,
+               pre_emph=fft.pre_emph, preemph_first=fft.preemph_first,
+               wide_floats=lib.srt_fft_wide_floats(signals.shape[0] * T,
+                                                   nmel + nac))
+    CHUNKED_LAUNCHES += nmel + nac > 512
+    return out, False
+
+
+def _run_big(lib, signals, n_valid, bank: GmmBank, fshift: int, dct_t,
+             floor: float, cmvn: bool, fft: FftRoute) -> torch.Tensor:
+    """The f32 route at N >= 32768 (csrc/predict_fused_big.cu): the
+    four-step FFT's passes and the frontend's features in chunks of frames
+    (as K1's route there), then the kernel's CMVN and scoring phases."""
+    B, Lp = signals.shape
+    flen, N = fft.window.shape[0], fft.n_fft
+    nmel, nceps = dct_t.shape
+    nac = fft.acorr.shape[1]
+    d = bank.dim
+    S, K = bank.n_speakers, bank.n_mixtures
+    dev = signals.device
+    T = (Lp - flen) // fshift + 1
+    out = torch.empty((B, S), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    comp = bank.component_operator(lib.srt_fused_component_row(d))
+    scratch = torch.empty(lib.srt_fused_scratch_floats(B, T, d, S),
+                          dtype=torch.float32, device=dev)
+    chunk, big = _big_scratch(lib, N, nmel + nac, B * T, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.srt_fused_predict_big(
+            signals.data_ptr(), n_valid.data_ptr(), fft.window.data_ptr(),
+            fft.mel.data_ptr(), fft.acorr.data_ptr(), dct_t.data_ptr(),
+            comp.data_ptr(), scratch.data_ptr(), big.data_ptr(),
+            out.data_ptr(), B, Lp, T, flen, fshift, N, nmel, nac, nceps, S,
+            K, float(fft.pre_emph), int(bool(fft.preemph_first)),
+            float(floor), int(bool(cmvn)), chunk, stream)
+    _build.check(err, "fused predict kernel, four-step route")
+    return out
 
 
 def _launch_bf16(signals, n_valid, bank: GmmBank, fshift: int, D, W, dct_t,

@@ -11,6 +11,26 @@ import numpy as np
 import torch
 
 
+__all__ = ["autocorrelation", "autocorr_operator", "levinson",
+           "lpc_from_autocorr", "lpc_from_frames", "levinson_unrolled",
+           "lpcc_from_lpc"]
+
+
+def autocorrelation(frames: torch.Tensor, order: int) -> torch.Tensor:
+    """Biased autocorrelation r[0..order] of each frame [..., n] ->
+    [..., order+1]: r_j = sum_t x[t] x[t+j] / n, what talkbox's acorr_lpc
+    produces (the 1/n cancels in the recursion)."""
+    n = frames.shape[-1]
+    return torch.stack([(frames[..., :n - j] * frames[..., j:]).sum(-1)
+                        for j in range(order + 1)], dim=-1) / n
+
+
+def lpc_from_frames(frames: torch.Tensor, order: int) -> torch.Tensor:
+    """LPC of each windowed, pre-emphasized frame [..., n] -> [..., order]:
+    a[1:] with non-finite coefficients zeroed (src/feature/LPC.py:40-57)."""
+    return lpc_from_autocorr(autocorrelation(frames, order))
+
+
 def autocorr_operator(frame_len: int, fft_size: int, order: int):
     """Wiener-Khinchin projection, power spectrum -> biased autocorrelation:
     R [fft_size//2+1, order+1] float64 with r = power @ R,

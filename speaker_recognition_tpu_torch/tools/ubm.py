@@ -36,52 +36,75 @@ def train_ubm(feature_arrays, n_mixtures: int = 32, n_iterations: int = 500,
     checkpoint_every-iteration segments, writing the reference text format
     after each and resuming from an existing file; the run stops between
     segments when the summed log-likelihood improves by less than the
-    threshold."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: multi-device UBM training is not ported yet")
+    threshold.
+
+    With a `mesh` (parallel/mesh.make_mesh; `device` is then the mesh's),
+    every rank passes the same pooled features and fits its shard of the
+    frames through parallel/mesh.sharded_fit, the statistics summed over
+    the mesh; the result is the same on every rank, and only rank 0 writes
+    the checkpoint."""
     from ..utils import serialization
 
-    dt = getattr(torch, dtype)
     pooled = np.concatenate([np.asarray(f) for f in feature_arrays], axis=0)
-    X = torch.as_tensor(pooled[None], dtype=dt, device=device)
-    mask = torch.ones(X.shape[:2], dtype=torch.bool, device=device)
-
+    fit, writer = _ubm_fit(pooled, mesh, seed, dtype, device)
     if checkpoint_path is None:
-        cfg = GmmConfig(n_mixtures=n_mixtures, n_iterations=n_iterations,
-                        threshold=threshold)
-        params, _ = gmm.fit(X, mask, cfg, seed)
-        return _single(params)
+        params, _ = fit(GmmConfig(n_mixtures=n_mixtures,
+                                  n_iterations=n_iterations,
+                                  threshold=threshold), None)
+        return gmm.params_numpy(params)
 
     seg_cfg = GmmConfig(n_mixtures=n_mixtures, n_iterations=checkpoint_every,
                         threshold=0.0)
+    params = None
     if os.path.exists(checkpoint_path):
         with open(checkpoint_path) as f:
-            params = gmm.params_to(serialization.load_reference_gmm(f), dt,
-                                   device)
-        params = gmm.GmmParams(*(a[None] for a in params))
-    else:
-        params = gmm.init_params(X, mask, n_mixtures, seed)
-
+            params = serialization.load_reference_gmm(f)
     last_ll = -np.finfo(np.float64).max
     done_iters = 0
     while done_iters < n_iterations:
-        params, ll = gmm.fit_from_params(X, mask, params, seg_cfg)
-        ll = float(ll[0])
+        params, ll = fit(seg_cfg, params)
+        ll = float(ll)
         done_iters += checkpoint_every
-        with open(checkpoint_path, "w") as f:
-            serialization.dump_reference_gmm(_single(params), f)
+        if writer:
+            with open(checkpoint_path, "w") as f:
+                serialization.dump_reference_gmm(gmm.params_numpy(params), f)
         ll_diff = ll - last_ll
         if (abs(ll_diff) / max(abs(ll), 1e-300) < threshold
                 and ll_diff < threshold):
             break
         last_ll = ll
-    return _single(params)
+    return gmm.params_numpy(params)
 
 
-def _single(params: gmm.GmmParams) -> gmm.GmmParams:
-    """The one GMM of a 1-speaker bank, as numpy."""
-    return gmm.params_numpy(gmm.GmmParams(*(a[0] for a in params)))
+def _ubm_fit(pooled: np.ndarray, mesh, seed: int, dtype: str, device):
+    """(fit(cfg, params0) -> (one GMM, log-likelihood), whether this process
+    writes the checkpoint): EM from the seed's init when params0 is None,
+    else from params0; on one device, or over a mesh through
+    parallel/mesh.sharded_fit, where rank 0 writes."""
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from ..parallel import mesh as pmesh
+
+        mask = np.ones(len(pooled), bool)
+
+        def fit(cfg, params0):
+            return pmesh.sharded_fit(mesh, cfg, dtype)(pooled, mask, seed,
+                                                       params0)
+        return fit, dist.get_rank() == 0
+
+    dt = getattr(torch, dtype)
+    X = torch.as_tensor(pooled[None], dtype=dt, device=device)
+    mask = torch.ones(X.shape[:2], dtype=torch.bool, device=device)
+
+    def fit(cfg, params0):
+        if params0 is None:
+            params, ll = gmm.fit(X, mask, cfg, seed)
+        else:
+            params, ll = gmm.fit_from_params(X, mask, gmm.GmmParams(*(
+                a[None] for a in gmm.params_to(params0, dt, device))), cfg)
+        return gmm.GmmParams(*(a[0] for a in params)), ll[0]
+    return fit, True
 
 
 def adapt_speakers(ubm: gmm.GmmParams, speaker_features: dict,

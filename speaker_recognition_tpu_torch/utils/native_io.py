@@ -1,10 +1,11 @@
 """Reading wav files: a ctypes binding to the repo's native decoder
 (native/wavio.cc, `make -C native` builds native/libwavio.so), with scipy
 where the library cannot be built. The port's own copy of
-speaker_recognition_tpu/utils/native_io.py: `read_wav` (held to the JAX
-package's by tests/test_torch_operators.py) and `load_batch`, the threaded
-decode + silence removal + padded-batch assembly (host only; held to the
-JAX package's on both paths by tests/test_torch_conversation.py).
+speaker_recognition_tpu/utils/native_io.py: `load_library`, `read_wav`
+(held to the JAX package's by tests/test_torch_operators.py) and
+`load_batch`, the threaded decode + silence removal + padded-batch
+assembly (host only; held to the JAX package's on both paths by
+tests/test_torch_conversation.py).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import subprocess
 
 import numpy as np
 
-__all__ = ["read_wav", "load_batch"]
+__all__ = ["load_library", "read_wav", "load_batch"]
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -24,14 +25,14 @@ _lib = None
 _lib_tried = False
 
 
-def _load_library():
-    """libwavio.so, built on the first call if missing; None when it cannot
-    be built or loaded."""
+def load_library(build_if_missing: bool = True):
+    """libwavio.so, built on the first call if missing (unless
+    build_if_missing is False); None when it cannot be built or loaded."""
     global _lib, _lib_tried
     if _lib is not None or _lib_tried:
         return _lib
     _lib_tried = True
-    if not os.path.exists(_LIB_PATH):
+    if not os.path.exists(_LIB_PATH) and build_if_missing:
         try:
             subprocess.run(["make", "-C", os.path.dirname(_LIB_PATH)],
                            check=True, capture_output=True, timeout=120)
@@ -48,13 +49,17 @@ def _load_library():
         ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_void_p,
         ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_double, ctypes.c_int]
+    lib.wavio_remove_silence.restype = ctypes.c_long
+    lib.wavio_remove_silence.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_int, ctypes.c_double,
+        ctypes.c_double, ctypes.c_double]
     _lib = lib
     return _lib
 
 
 def read_wav(path: str):
     """(fs, float32 mono samples at int16 scale). Native when available."""
-    lib = _load_library()
+    lib = load_library()
     if lib is not None:
         fs = ctypes.c_int32(0)
         n = lib.wavio_read(path.encode(), None, 0, ctypes.byref(fs))
@@ -83,7 +88,7 @@ def load_batch(paths, max_len: int | None = None, remove_silence: bool = False,
     it cannot be loaded, scipy and vad/energy.remove_silence do."""
     paths = list(paths)
     B = len(paths)
-    lib = _load_library()
+    lib = load_library()
     if max_len is None:
         max_len = 0
         if lib is not None:

@@ -1,5 +1,6 @@
 """Model persistence, in the formats of speaker_recognition_tpu/utils/
-serialization.py (numpy only here):
+serialization.py (numpy only here, torch tensors accepted where a model is
+written):
 
   * the session artifact: one .npz holding the speaker bank, labels,
     optional UBM, VAD calibration and the pipeline config (save_session /
@@ -10,6 +11,9 @@ serialization.py (numpy only here):
         nr_mixtures
         w_0 ... w_{K-1}
         then per gaussian: dim covariance_type / means / sigmas;
+  * the reference's CRBM text format (CRBM::dump / CRBM::load,
+    src/nn/src/crbm.cc:238-290), written byte for byte as the JAX package
+    writes it;
   * the JFA stack's text formats: the UBM supervector directory
     (ubm_means / ubm_variances / ubm_weights), one feature file per
     utterance and the `logical=physical` .lst manifests, so that data and
@@ -141,6 +145,73 @@ def read_lst(path: str):
                 raise ValueError(f"malformed lst line (no '='): {line!r}")
             out.append((logical, physical))
     return out
+
+
+# -- reference CRBM text format ---------------------------------------------
+
+def _host64(x) -> np.ndarray:
+    """A numpy or torch array (on any device) as float64 numpy."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float64)
+
+
+def dump_reference_crbm(params, fobj) -> None:
+    """Write one CRBM in the reference's text format (CRBM::dump,
+    src/nn/src/crbm.cc:238-263):
+
+        nv nh
+        visible biases / hidden biases (one line each)
+        w rows: nv lines of nh weights
+        hidden slopes a
+        visible ranges (lo hi pairs), hidden ranges (lo hi pairs)
+        sigma
+    """
+    from ..models.crbm import SIGMA
+
+    vb, hb, w, a, vlo, vhi = (_host64(x) for x in params)
+    nv, nh = w.shape
+
+    def row(vals):
+        return " ".join(f"{float(v):.10f}" for v in vals) + " \n"
+
+    fobj.write(f"{nv} {nh}\n")
+    fobj.write(row(vb))
+    fobj.write(row(hb))
+    for i in range(nv):
+        fobj.write(row(w[i]))
+    fobj.write(row(a))
+    fobj.write(row(np.stack([vlo, vhi], axis=1).reshape(-1)))
+    # the hidden range is fixed [0, 1] in both implementations
+    # (crbm.cc:96-100)
+    fobj.write(row(np.tile([0.0, 1.0], nh)))
+    fobj.write(f"{SIGMA:.10f}\n")
+
+
+def load_reference_crbm(fobj):
+    """Parse the reference CRBM text format (CRBM::load, crbm.cc:265-290)
+    into CrbmParams of float64 numpy arrays; the fixed hidden range and
+    sigma are checked."""
+    from ..models.crbm import SIGMA, CrbmParams
+
+    it = iter(fobj.read().split())
+    nv, nh = int(next(it)), int(next(it))
+
+    def take(n):
+        return np.array([float(next(it)) for _ in range(n)])
+
+    vb, hb = take(nv), take(nh)
+    w = take(nv * nh).reshape(nv, nh)
+    a = take(nh)
+    vrange = take(2 * nv).reshape(nv, 2)
+    hrange = take(2 * nh).reshape(nh, 2)
+    sigma = float(next(it))
+    if not (np.allclose(hrange[:, 0], 0.0) and np.allclose(hrange[:, 1], 1.0)):
+        raise ValueError("hidden range must be [0,1] (crbm.cc:96-100)")
+    if abs(sigma - SIGMA) > 1e-6:
+        raise ValueError(f"sigma {sigma} != fixed {SIGMA} (crbm.cc:118-123)")
+    return CrbmParams(vb=vb, hb=hb, w=w, a=a, vlo=vrange[:, 0],
+                      vhi=vrange[:, 1])
 
 
 def _config_to_json(cfg) -> str:

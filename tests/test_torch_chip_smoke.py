@@ -7,6 +7,8 @@ corpus and model cut from 200 background speakers x 3 x 10 s, K = 32, nv =
 
     python tests/test_torch_chip_smoke.py    # ~3 min
     python tests/test_torch_chip_smoke.py phase16   # one phase function
+    python tests/test_torch_chip_smoke.py phase19_20  # the RBM family and
+                                                      # multi-device phases
 
 Every kernel wrapper is replaced by its plain torch version (for the
 frontends, by the wrapper itself, which on CPU tensors runs its plain
@@ -54,6 +56,12 @@ EDITS = [
      "JFA_EVAL, JFA_ENROLL, JFA_TESTS, JFA_TEST_SEC = 4, 2, 2, 1.5"),
     ("JFA_K, JFA_NV, JFA_NU, JFA_ITERS, JFA_UBM_ITERS = 32, 32, 16, 20, 100",
      "JFA_K, JFA_NV, JFA_NU, JFA_ITERS, JFA_UBM_ITERS = 8, 4, 2, 5, 10"),
+    ("CRBM_SPEAKERS, CRBM_SEC, CRBM_TESTS, CRBM_TEST_SEC = 4, 16.0, 3, 3.0",
+     "CRBM_SPEAKERS, CRBM_SEC, CRBM_TESTS, CRBM_TEST_SEC = 4, 4.0, 2, 2.0"),
+    ("CRBM_CLI_EPOCHS = 100", "CRBM_CLI_EPOCHS = 10"),
+    ("MULTI_ITERS, MULTI_S, SEQ_SEC = 50, 16, 60.0",
+     "MULTI_ITERS, MULTI_S, SEQ_SEC = 10, 16, 6.0"),
+    ("SCALING_FRAMES = 262_144", "SCALING_FRAMES = 4096"),
 ]
 
 
@@ -144,8 +152,9 @@ def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
 
 def _fused(fn_name, counter):
     """The monolith's wrapper as the card runs it: f32 on the FFT route
-    (fft=), its plain version counted in `counter`; bf16 on the dense
-    route, counted in BF16_LAUNCHES."""
+    (fft=), its plain version counted in `counter` (in BIG_LAUNCHES from
+    N = 32768 on, and in CHUNKED_LAUNCHES as well past 512 outputs); bf16
+    on the dense route, counted in BF16_LAUNCHES."""
     def plain(signals, n_valid, bank, fshift, D, W, dct_t, floor, A,
               cmvn=True, mm_bf16=False, fft=None):
         if mm_bf16:
@@ -154,7 +163,10 @@ def _fused(fn_name, counter):
                 signals, n_valid, bank, fshift, D, W, dct_t, floor, A, cmvn,
                 mm_bf16=True)
         assert fft is not None, "the f32 kernel runs the FFT route"
-        setattr(gpu_predict, counter, getattr(gpu_predict, counter) + 1)
+        for c in _tile_counters(fft.n_fft,
+                                fft.mel.shape[1] + fft.acorr.shape[1],
+                                counter, "BIG_LAUNCHES"):
+            setattr(gpu_predict, c, getattr(gpu_predict, c) + 1)
         return gpu_predict.fused_bank_predict_fft_reference(
             signals, n_valid, bank, fshift, dct_t, floor, fft, cmvn)
 
@@ -219,9 +231,14 @@ def main():
         rng, dev, card = (np.random.RandomState(0), torch.device("cpu"),
                           "CPU rehearsal")
         bench = smoke.signals_batch(rng, [40000] * 16, 40960, dev)
-        args = {"phase16": (rng, dev, card, *bench),
+        args = {"phase13_lifted": (rng, dev, card,
+                                   smoke.random_bank(rng, 4, 32, 28, dev)),
+                "phase16": (rng, dev, card, *bench),
                 "phase17": (rng, dev, card, *bench),
-                "phase18": (dev, card)}[sys.argv[1]]
+                "phase18": (dev, card)}.get(sys.argv[1])
+        if sys.argv[1] == "phase19_20":
+            smoke.phase20(dev, card, smoke.phase19(dev, card))
+            return
         getattr(smoke, sys.argv[1])(*args)
         return
     smoke.main([])
@@ -233,18 +250,22 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def test_chip_smoke_rehearses_on_the_cpu():
-    """All eighteen phases pass on the CPU; the kernels record lists the
+    """All twenty phases pass on the CPU; the kernels record lists the
     seven TPU kernels (K1 in both its modes, K6 in both its routes, K5's
     dense template), then the routes of phase 16 (K1, K4 and K5 on the
     four-step FFT of N >= 32768 and past 512 outputs, K6's lifted bf16
-    route), with every key, each launched on its path but K4, which no
-    serving path takes (its launches against its plain version are
-    demanded by phases 11 and 16 themselves), K1 and K5 with their FFT
-    kernels' sources; the 8192- and 16384-point FFTs, 266 outputs, the 96
-    kHz CLI slice, the monolith's cases, the grid phase, the live path (216
-    outputs on the dense template, the VAD, k-means, the GUI's
-    conversation with the JAX package's timeline), the lifted limits,
-    float64 on the device and JFA with its CLI all run."""
+    route), phase 13's lifted f32 monolith (N = 32768 on the four-step
+    route, 616 outputs) and phase 20's multi-device path (K3 on the
+    bank-sharded scoring, K1 on the sequence-sharded features), with every
+    key, each launched on its path but K4, which no serving path takes
+    (its launches against its plain version are demanded by phases 11 and
+    16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
+    and 16384-point FFTs, 266 outputs, the 96 kHz CLI slice, the
+    monolith's cases, the grid phase, the live path (216 outputs on the
+    dense template, the VAD, k-means, the GUI's conversation with the JAX
+    package's timeline), the lifted limits, float64 on the device, JFA
+    with its CLI, the RBM family with crbm_cli and the multi-device
+    programs at world size 1 all run."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
                           capture_output=True, text=True, timeout=900,
                           cwd=REPO)
@@ -261,13 +282,18 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_frontend.py:231", "pallas_frontend.py:111",
         "pallas_frontend.py:50", "pallas_frontend.py:50",
         "pallas_frontend.py:231", "pallas_frontend.py:111",
-        "pallas_frontend.py:50", "pallas_predict.py:91"]
+        "pallas_frontend.py:50", "pallas_predict.py:91",
+        "pallas_predict.py:91", "pallas_predict.py:91",
+        "pallas_gmm.py:47", "pallas_frontend.py:231"]
     assert [k["name"] for k in kernels[10:]] == [
         "packed_frontend_n32768", "packed_from_frames_n32768",
         "mfcc_from_frames_n32768", "mfcc_from_frames_n65536",
         "packed_frontend_616_outputs",
         "packed_from_frames_616_outputs", "mfcc_from_frames_616_outputs",
-        "fused_bank_predict_bf16_lifted"]
+        "fused_bank_predict_bf16_lifted", "fused_bank_predict_n32768",
+        "fused_bank_predict_616_outputs", "bank_sum_loglik_sharded",
+        "packed_frontend_seqshard"]
+    assert kernels[18]["source"].endswith("csrc/predict_fused_big.cu")
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
         if k["name"].startswith("packed_from_frames"):
@@ -368,6 +394,34 @@ def test_chip_smoke_rehearses_on_the_cpu():
                    for ln in lines), start
     assert sum(ln.startswith("phase 18 [") and "JFA acc" in ln
                for ln in lines) == 2
+    for start, end in (
+            ("phase 13 K6/K7 384 kHz, n_fft 32768", "'BIG_LAUNCHES': 4, "
+             "'CHUNKED_LAUNCHES': 0}, two calls bitwise equal True"),
+            ("phase 13 K6/K7 8 kHz, n_fft 4096, 600 mel + 16 lags",
+             "'BIG_LAUNCHES': 0, 'CHUNKED_LAUNCHES': 4}, two calls bitwise "
+             "equal True"),
+            ("phase 19 CRBM segments", "True"),
+            ("phase 20 sharded_fit bitwise equal to gmm.fit", "True"),
+            ("phase 20 train_ubm(mesh=...) bitwise equal", "True")):
+        assert any(ln.startswith(start) and ln.endswith(end)
+                   for ln in lines), start
+    for start, part in (
+            ("phase 13 K6/K7 384 kHz", "vs predict_scores (K1 + K2)"),
+            ("phase 19 RBM family, card vs CPU", "mlp_sgd_w0"),
+            ("phase 19 predict_bank", "same decisions True"),
+            ("phase 19 python -m ...tools.crbm_cli", "accuracy: "),
+            ("phase 20 sharded_bank_scores", "unsharded K3 call: True; K3 "
+             "launches on the sharded path 1"),
+            ("phase 20 sharded_mix_feature", "K1 launches on the sharded "
+             "path 1"),
+            ("phase 20 K1 (CMVN off) vs the float64 route", "frames past "
+             "the LPC tolerance"),
+            ("phase 20 fft f32 (CMVN off) vs the float64", "frames past "
+             "the LPC tolerance"),
+            ("phase 20 K1 on the seqshard voice within 2.0x", "against"),
+            ("phase 20 [CPU rehearsal", 'scaling_report: {"processes": 1')):
+        assert any(ln.startswith(start) and part in ln
+                   for ln in lines), start
 
 
 if __name__ == "__main__":

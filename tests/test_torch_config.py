@@ -156,7 +156,23 @@ def _entry_points():
     from speaker_recognition_tpu_torch.tools import jfa_pipeline, plot_gmm, ubm
     from speaker_recognition_tpu_torch.utils import profiling
     from speaker_recognition_tpu_torch.vad import ltsd, noisered
-    return {"GMMSet": GMMSet, "GMMSet.from_state": GMMSet.from_state,
+    from speaker_recognition_tpu_torch.models import crbm, neural_net, rbm
+    from speaker_recognition_tpu_torch.parallel import (entry, launch, mesh,
+                                                        multihost)
+    return {"crbm.fit": crbm.fit, "crbm.fit_bank": crbm.fit_bank,
+            "crbm.fit_bank_segment": crbm.fit_bank_segment,
+            "crbm.init_train_state": crbm.init_train_state,
+            "rbm.fit": rbm.fit, "rbm.step_generator": rbm.step_generator,
+            "rbm.Dbn.fit": rbm.Dbn.fit,
+            "rbm.Dbn.fit_last_layer": rbm.Dbn.fit_last_layer,
+            "neural_net.NeuralNet": neural_net.NeuralNet,
+            "mesh.make_mesh": mesh.make_mesh,
+            "multihost.initialize": multihost.initialize,
+            "multihost.scaling_report": multihost.scaling_report,
+            "entry.entry": entry.entry,
+            "entry.dryrun_multichip": entry.dryrun_multichip,
+            "launch.run": launch.run,
+            "GMMSet": GMMSet, "GMMSet.from_state": GMMSet.from_state,
             "jfa.hyper_from_numpy": jfa.hyper_from_numpy,
             "jfa_pipeline.collect_session_stats":
                 jfa_pipeline.collect_session_stats,

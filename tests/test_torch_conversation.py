@@ -303,7 +303,7 @@ def test_load_batch_matches_jax(path, remove_silence, tmp_path,
                                 monkeypatch):
     if path == "scipy":
         _no_library(monkeypatch)
-    elif tio._load_library() is None:
+    elif tio.load_library() is None:
         pytest.skip("native/libwavio.so cannot be built here")
     # a file that cannot be decoded and one that does not exist
     paths = _write_wavs(str(tmp_path)) + [str(tmp_path / "missing.wav")]

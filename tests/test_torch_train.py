@@ -287,8 +287,20 @@ def test_train_ubm_checkpoint_resumes_like_jax(tmp_path):
     with open(paths[0]) as f:
         assert_params_close(serialization.load_reference_gmm(f), got,
                             rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tubm.train_ubm([X], mesh=object(), device="cpu")
+    # over a one-process mesh (gloo), from the same shared checkpoint, the
+    # same EM segments
+    from speaker_recognition_tpu_torch.parallel import mesh, multihost
+    paths.append(str(tmp_path / "mesh.txt"))
+    with open(paths[-1], "w") as f:
+        f.write(text)
+    dist = multihost.initialize(None, 1, 0, device="cpu")
+    try:
+        sharded = tubm.train_ubm([X[:200], X[200:]], checkpoint_path=paths[-1],
+                                 mesh=mesh.make_mesh(1, 1, device="cpu"),
+                                 device="cpu", **kw)
+    finally:
+        dist.destroy_process_group()
+    assert_params_close(sharded, got, rtol=0, atol=0)
 
 
 def test_train_ubm_runs_the_port_init():
