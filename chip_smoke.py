@@ -141,14 +141,29 @@ raises and the exit code is non-zero):
      VOICE_FACTOR x the f32 plain versions, scaling_report; phase 13 also
      holds the monolith's f32
      route at N = 32768 and 616 outputs (phase13_lifted)
+ 21. the bf16 operand modes, each against its plain version with two calls
+     bitwise and its counter: K2 bf16 (tensor cores) on the bench bank over
+     512 x 5 s, the 80 x 256 bank over 8, 4 x 1024, d = 102, d = 200 and
+     d = 300 (its wide route, 12 components padded to 16); K2 bf16's argmax
+     decisions against f32 on an 80-voice GMM-256 bank (printed, not
+     gated); K3 bf16 on phase 6's bench bank + UBM, 80 x 256 + UBM and
+     1024 components (5 s and the 150 s clip); K1 bf16 on the bench batch,
+     144 outputs, the raw-autocorrelation mode and 48 kHz with fft_size
+     4096; K4 bf16 on the bench batch's frames; predict_scores(mm="bf16")
+     against the plain versions composed (K1 bf16 once, K2 f32 once, K1
+     f32 never); the 48 kHz full route's bf16 product (its counter moves,
+     K5's do not); each bf16 kernel timed beside its f32 mode and plain
+     version, predict_scores at both mm values, the bf16 kernels'
+     occupancy
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes; the
 dense K5 template's on extract_batch at 216 outputs; phase 16's routes
 on their extract_batch drives), its
 error against its plain version, its time, its plain version's time and
 its bound (the larger of the least FLOPs of
-its function over the FP32 peak and its bytes over the memory rate, from
-this run's shapes); the last line is {"ok": true, "device": {...}}.
+its function over the FP32 peak, the bf16 modes' products over the dense
+bf16 tensor-core peak, and its bytes over the memory rate, from this run's
+shapes); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -351,10 +366,20 @@ MULTI_ITERS, MULTI_S, SEQ_SEC = 50, 16, 60.0
 # cepstra K1 0.162, dense 0.912, FFT route 0.211; LPC frames K1 1,098,
 # dense 719, FFT route 619 (1.53x)
 VOICE_FACTOR = 2.0
+# the rows of that voice phase 20 reads again: the longest utterance the
+# JAX package serves through its Pallas K1 (pallas_frontend.MAX_UTT_ROWS)
+VOICE_ROWS = 2560
 # scaling_report's EM frames a process (its default, the JAX package's)
 SCALING_FRAMES = 262_144
-# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
+# phase 21: K2's bf16 decisions against f32 at the UBM-scale shape, on a
+# bank of FLIP_SPEAKERS voices x FLIP_SEC s, GMM-256 (FLIP_ITERS EM
+# iterations), each voice tested on FLIP_TESTS utterances of FLIP_TEST_SEC s
+FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 80, 30.0, 2, 3.0
+FLIP_ITERS = 20
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, the
+# dense bf16 tensor cores, HBM3
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -495,10 +520,20 @@ def random_bank(rng, S, K, d, dev, uniform_weights=False):
                               dev)
 
 
-def check_scoring(name, bank, feats, mask, phase=3) -> float:
-    got = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
-    again = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask)
-    want = gpu_gmm.batch_bank_avg_loglik_reference(bank, feats, mask)
+def check_scoring(name, bank, feats, mask, phase=3,
+                  precision="f32") -> float:
+    """The batched scoring kernel at `precision` vs its plain version:
+    SCORE_RTOL, the same argmax, two calls bitwise, two launches counted;
+    returns the max abs error."""
+    counter = "BF16_LAUNCHES" if precision == "bf16" else "LAUNCHES"
+    before = getattr(gpu_gmm, counter)
+    got = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask,
+                                        precision=precision)
+    again = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask,
+                                          precision=precision)
+    launched = getattr(gpu_gmm, counter) - before
+    want = gpu_gmm.batch_bank_avg_loglik_reference(bank, feats, mask,
+                                                   precision=precision)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite scores")
@@ -506,12 +541,13 @@ def check_scoring(name, bank, feats, mask, phase=3) -> float:
     rel = (d / want.abs().clamp_min(1e-30)).max().item()
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
     bitwise = torch.equal(got, again)
-    print(f"phase {phase} {name}: [B, S] {tuple(got.shape)} d "
+    mode = "K2 bf16 " if precision == "bf16" else ""
+    print(f"phase {phase} {mode}{name}: [B, S] {tuple(got.shape)} d "
           f"{feats.shape[-1]} K "
           f"{bank.n_mixtures} max|d| {d.max().item():.3e} max rel {rel:.3e} "
-          f"(tol {SCORE_RTOL}) argmax identical {same} two calls bitwise "
-          f"equal {bitwise}", flush=True)
-    if rel > SCORE_RTOL or not same or not bitwise:
+          f"(tol {SCORE_RTOL}) argmax identical {same} launches {launched} "
+          f"two calls bitwise equal {bitwise}", flush=True)
+    if rel > SCORE_RTOL or not same or not bitwise or launched != 2:
         raise AssertionError(f"{name}: scoring kernel disagrees with plain")
     return d.max().item()
 
@@ -840,10 +876,11 @@ def check_frames(phase, name, fe, sig, lengths, dense=True) -> float:
     return err
 
 
-def bound(flops: float, nbytes: float) -> dict:
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> dict:
     """The least time the card could take: the larger of the FLOPs over the
-    FP32 peak and the bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    peak of their type (FP32 outside the tensor cores unless `peak` says
+    otherwise) and the bytes over the memory rate."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     if ops_ms >= bytes_ms:
         return {"bound_ms": ops_ms, "bound_by": "operations"}
     return {"bound_ms": bytes_ms, "bound_by": "bytes"}
@@ -2064,29 +2101,44 @@ def phase20(dev, card, feats: dict) -> list:
             ext[0, :L] = torch.as_tensor(x.astype(np.float32), device=dev)
             return ext
 
-        voice = chunk_of(sig)
-        vargs = (voice, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor,
-                 fe.frame_shift, False)
-        f64 = gpu_frontend.packed_from_signals_reference(
-            voice.double(), nv, fe64.D, fe64.W, fe64.dct, fe64.A, fe64.floor,
-            fe.frame_shift, False)[0, :Tv]
-        errs = {}
-        for name, got in (
-                ("K1", gpu_frontend.packed_from_signals(*vargs, fft=fe.fft)),
-                ("dense f32", gpu_frontend.packed_from_signals_reference(
-                    *vargs)),
-                ("fft f32", gpu_frontend.packed_from_signals_fft_reference(
-                    voice, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift,
-                    False))):
-            dv = (got[0, :Tv].double() - f64).abs()
-            lpc_bad = ((dv[:, 13:] > LPC_ATOL)
-                       & (dv[:, 13:] > LPC_RTOL * f64[:, 13:].abs())).any(1)
-            errs[name] = (float(dv[:, :13].max()), int(lpc_bad.sum()))
-            print(f"phase 20 {name} (CMVN off) vs the float64 route on the "
-                  f"seqshard voice ({Tv} frames): cepstra max|d| "
-                  f"{errs[name][0]:.3e}, LPC max|d| "
-                  f"{float(dv[:, 13:].max()):.3e}, frames past the LPC "
-                  f"tolerance {errs[name][1]}", flush=True)
+        def parted(voice, nv, Tv, what):
+            """K1 (CMVN off) and the f32 plain versions against the float64
+            route on [1, L] samples: {route: (cepstra max |d|, frames whose
+            LPC parts past LPC_ATOL / LPC_RTOL)}."""
+            vargs = (voice, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor,
+                     fe.frame_shift, False)
+            f64 = gpu_frontend.packed_from_signals_reference(
+                voice.double(), nv, fe64.D, fe64.W, fe64.dct, fe64.A,
+                fe64.floor, fe.frame_shift, False)[0, :Tv]
+            errs = {}
+            for name, got in (
+                    ("K1", gpu_frontend.packed_from_signals(*vargs,
+                                                            fft=fe.fft)),
+                    ("dense f32", gpu_frontend.packed_from_signals_reference(
+                        *vargs)),
+                    ("fft f32", gpu_frontend.packed_from_signals_fft_reference(
+                        voice, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift,
+                        False))):
+                dv = (got[0, :Tv].double() - f64).abs()
+                lpc_bad = ((dv[:, 13:] > LPC_ATOL)
+                           & (dv[:, 13:] > LPC_RTOL * f64[:, 13:].abs())).any(1)
+                errs[name] = (float(dv[:, :13].max()), int(lpc_bad.sum()))
+                print(f"phase 20 {name} (CMVN off) vs the float64 route on "
+                      f"{what} ({Tv} frames): cepstra max|d| "
+                      f"{errs[name][0]:.3e}, LPC max|d| "
+                      f"{float(dv[:, 13:].max()):.3e}, frames past the LPC "
+                      f"tolerance {errs[name][1]}", flush=True)
+            return errs
+
+        errs = parted(chunk_of(sig), nv, Tv, "the seqshard voice")
+        # the voice's first VOICE_ROWS rows, the longest utterance the JAX
+        # package serves through its Pallas K1: tests/test_torch_voice_lpc.py
+        # reads the JAX package's f32 routes on the same frames
+        Lc = min(L, VOICE_ROWS * fe.frame_shift)
+        Tc = n_frames(Lc, fe.frame_len, fe.frame_shift)
+        parted(torch.as_tensor(sig[None, :Lc].astype(np.float32), device=dev),
+               torch.tensor([Tc], dtype=torch.int32, device=dev), Tc,
+               f"the voice's first {Lc} samples")
         worst = [max(errs["dense f32"][i], errs["fft f32"][i])
                  for i in (0, 1)]
         print(f"phase 20 K1 on the seqshard voice within {VOICE_FACTOR}x the "
@@ -2133,6 +2185,353 @@ def phase20(dev, card, feats: dict) -> list:
     return entries
 
 
+def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
+                        fuse_lpc=True) -> float:
+    """K1's bf16 mode vs its plain version (the dense product on bf16-rounded
+    signals and D) on one batch: zeros past n_valid, two calls bitwise, two
+    launches counted; returns the max abs error (of the cepstra in the
+    raw-autocorrelation mode, whose autocorrelation is held to lag 0)."""
+    args = frontend_args(fe, sig, lengths)
+    n_valid = args[1]
+    mask = torch.arange(n_frames(sig.shape[1], fe.frame_len, fe.frame_shift),
+                        device=sig.device) < n_valid[:, None]
+    before = gpu_frontend.BF16_LAUNCHES
+    got = gpu_frontend.packed_from_signals(*args, fuse_lpc=fuse_lpc,
+                                           mm_bf16=True)
+    again = gpu_frontend.packed_from_signals(*args, fuse_lpc=fuse_lpc,
+                                             mm_bf16=True)
+    launched = gpu_frontend.BF16_LAUNCHES - before
+    want = gpu_frontend.packed_from_signals_reference(
+        *args, fuse_lpc=fuse_lpc, mm_bf16=True)
+    torch.cuda.synchronize()
+    got, again, want = ((x,) if fuse_lpc else x for x in (got, again, want))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not all(torch.isfinite(x).all() for x in got) or any(
+            (x[~mask] != 0).any() for x in got):
+        raise AssertionError(f"{name}: non-finite or unmasked features")
+    nc = fe.dct.shape[1]
+    if fuse_lpc:
+        d_mfcc, d_lpc, lpc_bad = feature_errors(got[0], want[0], mask, nc)
+        d_r, err = 0.0, max(d_mfcc, d_lpc)
+    else:
+        d_mfcc = float((got[0] - want[0]).abs().max())
+        lag0 = want[1][..., :1].abs().clamp_min(1e-30)
+        d_r = float(((got[1] - want[1]).abs() / lag0)[mask].max())
+        d_lpc, lpc_bad, err = 0.0, 0, d_mfcc
+    print(f"phase 21 K1 bf16 {name} vs its plain version: "
+          f"{[tuple(x.shape) for x in got]} mfcc max|d| {d_mfcc:.3e} (tol "
+          f"{MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad}) "
+          f"autocorrelation max|d|/lag0 {d_r:.3e} (tol {ACORR_RTOL}) "
+          f"launches {launched} two calls bitwise equal {bitwise}",
+          flush=True)
+    if (d_mfcc > MFCC_ATOL or lpc_bad or d_r > ACORR_RTOL or launched != 2
+            or not bitwise):
+        raise AssertionError(f"{name}: K1's bf16 mode disagrees with its "
+                             "plain version")
+    return err
+
+
+def check_serial_bf16(name, bank, x, mask) -> float:
+    """K3's bf16 mode vs its plain version: the sums within SERIAL_RTOL,
+    two calls bitwise, two launches counted; returns the max abs error of
+    the sums over the valid frames (the averages')."""
+    before = gpu_gmm.SERIAL_BF16_LAUNCHES
+    sums = gpu_gmm.bank_sum_loglik(bank, x, mask, precision="bf16")
+    again = gpu_gmm.bank_sum_loglik(bank, x, mask, precision="bf16")
+    launched = gpu_gmm.SERIAL_BF16_LAUNCHES - before
+    want = gpu_gmm.bank_sum_loglik_reference(bank, x, mask, precision="bf16")
+    torch.cuda.synchronize()
+    n = max(int(mask.sum()), 1)
+    rel = ((sums - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    bitwise = torch.equal(sums, again)
+    print(f"phase 21 K3 bf16 {name}: [S] {tuple(sums.shape)} frames "
+          f"{x.shape[0]} d {x.shape[1]} K {bank.n_mixtures} max rel "
+          f"{rel:.3e} (tol {SERIAL_RTOL}) launches {launched} two calls "
+          f"bitwise equal {bitwise}", flush=True)
+    if (not torch.isfinite(sums).all() or rel > SERIAL_RTOL or not bitwise
+            or launched != 2):
+        raise AssertionError(f"{name}: K3's bf16 mode disagrees with its "
+                             "plain version")
+    return float((sums - want).abs().max()) / n
+
+
+def occupancy(fe: PackedFrontend, B, T, d, bank) -> str:
+    """The bf16 kernels' launch shapes and resident blocks an SM on the
+    card (the occupancy API): K1's tile at fe's geometry, K2's blocks at
+    [B, T, d] against the bank."""
+    import ctypes
+    lib = _build.load()
+    k1, k2 = (ctypes.c_int * 3)(), (ctypes.c_int * 3)()
+    _build.check(lib.srt_frontend_bf16_occupancy(
+        fe.frame_len, fe.frame_shift, fe.W.shape[1] + fe.A.shape[1], k1),
+        "K1 bf16 occupancy")
+    _build.check(lib.srt_bank_bf16_occupancy(
+        B, T, d, bank.n_speakers, bank.n_mixtures, k2), "K2 bf16 occupancy")
+    return (f"K1 bf16: {k1[0]}-frame tile, {k1[1]} B of shared memory, "
+            f"{k1[2]} blocks an SM; K2 bf16: {k2[0]} warps a block, {k2[1]} "
+            f"B of shared memory, {k2[2]} blocks an SM")
+
+
+def flip_bank(dev):
+    """K2's bf16 decisions against f32 at the UBM-scale shape: a GMM-256
+    bank of FLIP_SPEAKERS voices (EM on FLIP_SEC s each) scored on
+    FLIP_TESTS held-out utterances a voice; (flips, accuracy at f32, at
+    bf16, utterances)."""
+    vs = synth.voices(FLIP_SPEAKERS, seed=2100)
+    train = jfa_features([synth.voice_utterance(v, FLIP_SEC, 2100 + i)
+                          for i, v in enumerate(vs)], dev)
+    X, M = _pad_stack(train)
+    params, _ = gmm.fit(torch.as_tensor(X, dtype=torch.float32, device=dev),
+                        torch.as_tensor(M, device=dev),
+                        GmmConfig(n_mixtures=KM_K, n_iterations=FLIP_ITERS),
+                        0)
+    bank = GmmBank.from_numpy(*gmm.params_numpy(params), dev)
+    tests = jfa_features([synth.voice_utterance(v, FLIP_TEST_SEC,
+                                                2200 + 10 * i + j)
+                          for i, v in enumerate(vs)
+                          for j in range(FLIP_TESTS)], dev)
+    truth = np.repeat(np.arange(len(vs)), FLIP_TESTS)
+    Xt, Mt = _pad_stack(tests)
+    Xt = torch.as_tensor(Xt, dtype=torch.float32, device=dev)
+    Mt = torch.as_tensor(Mt, device=dev)
+    f32 = gpu_gmm.batch_bank_avg_loglik(bank, Xt, Mt).argmax(-1).cpu()
+    b16 = gpu_gmm.batch_bank_avg_loglik(bank, Xt, Mt,
+                                        precision="bf16").argmax(-1).cpu()
+    return (int((f32 != b16).sum()), float((f32.numpy() == truth).mean()),
+            float((b16.numpy() == truth).mean()), len(truth))
+
+
+def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
+            banks: dict, serial: dict, wide48) -> list:
+    """21. The bf16 operand modes: K2 and K3 on the tensor cores, K1 and K4
+    on the dense tile, each against its plain version at the main path's
+    shapes (two calls bitwise, counters), K2's decisions against f32 at the
+    UBM-scale shape (printed), predict_scores(mm="bf16") against the plain
+    versions composed (K1 bf16 once, K2 f32 once, K1 f32 never), the
+    48 kHz full route's bf16 product (its counter, K5 never), and each
+    bf16 kernel timed beside its f32 mode. Returns the kernels' entries."""
+    t0 = time.perf_counter()
+    feats, mask = banks["bench_feats"]
+    d = feats.shape[-1]
+    # K2 bf16
+    err_k2 = check_scoring("bench bank 4 x 32, 512 x 5 s", bench_bank,
+                           feats, mask, 21, "bf16")
+    for name, bank, f, m in banks["cases"]:
+        err_k2 = max(err_k2, check_scoring(name, bank, f, m, 21, "bf16"))
+    f200 = torch.from_numpy(rng.randn(16, 311, 200).astype(np.float32)).to(
+        dev)
+    m200 = torch.ones((16, 311), dtype=torch.bool, device=dev)
+    err_k2 = max(err_k2, check_scoring(
+        "bank 4 x 32 at d = 200", random_bank(rng, 4, 32, 200, dev), f200,
+        m200, 21, "bf16"))
+    f300 = torch.from_numpy(rng.randn(4, 70, 300).astype(np.float32)).to(dev)
+    m300 = torch.ones((4, 70), dtype=torch.bool, device=dev)
+    err_k2 = max(err_k2, check_scoring(
+        "bank 3 x 12 at d = 300 (the wide route; 12 components padded to "
+        "16)", random_bank(rng, 3, 12, 300, dev), f300, m300, 21, "bf16"))
+    flips, acc32, acc16, n_flip = flip_bank(dev)
+    print(f"phase 21 K2 bf16 against f32 at {FLIP_SPEAKERS} x {KM_K} "
+          f"(voices, {FLIP_SEC:g} s each, EM): {flips} of {n_flip} argmax "
+          f"decisions flip; accuracy f32 {acc32:.4f}, bf16 {acc16:.4f} "
+          "(reported, not gated)", flush=True)
+    # K3 bf16
+    err_k3 = 0.0
+    for name, bank, x, m in serial["cases"]:
+        err_k3 = max(err_k3, check_serial_bf16(name, bank, x, m))
+    # K1 bf16
+    err_k1 = check_frontend_bf16("bench 512 x 5 s @ 8 kHz", fe8, bench_sig,
+                                 bench_len)
+    fe144 = PackedFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
+        n_filters=128)), dev)
+    err_k1 = max(err_k1, check_frontend_bf16(
+        "8 kHz, 128 mel filters + LPC (144 outputs)", fe144, bench_sig[:64],
+        bench_len[:64]))
+    err_k1 = max(err_k1, check_frontend_bf16(
+        "raw autocorrelation (LPCC), bench batch", fe8c, bench_sig,
+        bench_len, fuse_lpc=False))
+    s48p, l48p = wide48
+    err_k1 = max(err_k1, check_frontend_bf16(
+        "48 kHz, fft_size 4096", PackedFrontend(FS48, FFT4096, dev), s48p,
+        l48p))
+    # K4 bf16 on the bench batch's frames, through the frontend's tail
+    fargs, B, T = frames_args(fe8, bench_sig)
+    fmask = framing.frame_validity_mask(bench_len, T, fe8.frame_len,
+                                        fe8.frame_shift)
+    before = gpu_frontend.FRAMES_BF16_LAUNCHES
+    k4 = [gpu_frontend.packed_from_frames(*fargs, mm_bf16=True)
+          for _ in range(2)]
+    k4_launched = gpu_frontend.FRAMES_BF16_LAUNCHES - before
+    want_c, want_r = gpu_frontend.packed_from_frames_reference(
+        *fargs, mm_bf16=True)
+    torch.cuda.synchronize()
+    got, fm = fe8.finish(k4[0][0].view(B, T, -1), k4[0][1].view(B, T, -1),
+                         fmask)
+    want, _ = fe8.finish(want_c.view(B, T, -1), want_r.view(B, T, -1), fmask)
+    d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, fm, fe8.dct.shape[1])
+    k4_bits = all(torch.equal(a, b) for a, b in zip(*k4))
+    print(f"phase 21 K4 bf16 bench frames {tuple(fargs[0].shape)} vs its "
+          f"plain version, through CMVN and Levinson: mfcc max|d| "
+          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over "
+          f"tol: {lpc_bad}) launches {k4_launched} two calls bitwise equal "
+          f"{k4_bits}", flush=True)
+    if (d_mfcc > MFCC_ATOL or lpc_bad or k4_launched != 2 or not k4_bits
+            or not torch.isfinite(got).all()):
+        raise AssertionError("K4's bf16 mode disagrees with its plain "
+                             "version")
+    err_k4 = max(d_mfcc, d_lpc)
+
+    # the slice: predict_scores(mm="bf16") on the bench batch
+    def reset():
+        for mod, names in ((gpu_frontend, ("LAUNCHES", "BF16_LAUNCHES",
+                                           "FULL_LAUNCHES", "FULL_BIG_LAUNCHES",
+                                           "FULL_DENSE_LAUNCHES",
+                                           "FULL_BF16_CALLS")),
+                           (gpu_gmm, ("LAUNCHES", "BF16_LAUNCHES"))):
+            for c in names:
+                setattr(mod, c, 0)
+
+    def counts():
+        return {"K1 f32": gpu_frontend.LAUNCHES,
+                "K1 bf16": gpu_frontend.BF16_LAUNCHES,
+                "K2 f32": gpu_gmm.LAUNCHES, "K2 bf16": gpu_gmm.BF16_LAUNCHES,
+                "K5": gpu_frontend.FULL_LAUNCHES
+                + gpu_frontend.FULL_BIG_LAUNCHES
+                + gpu_frontend.FULL_DENSE_LAUNCHES,
+                "full bf16": gpu_frontend.FULL_BF16_CALLS}
+
+    reset()
+    got = fastpath.predict_scores(bench_sig, bench_len, bench_bank, BENCH_FS,
+                                  mm="bf16")
+    torch.cuda.synchronize()
+    slice_counts = counts()
+    pargs = frontend_args(fe8, bench_sig, bench_len)
+    pmask = torch.arange(n_frames(bench_sig.shape[1], fe8.frame_len,
+                                  fe8.frame_shift), device=dev) \
+        < pargs[1][:, None]
+    want = gpu_gmm.batch_bank_avg_loglik_reference(
+        bench_bank, gpu_frontend.packed_from_signals_reference(
+            *pargs, mm_bf16=True), pmask)
+    rel = float(((got - want).abs() / want.abs()).max())
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    print(f"phase 21 predict_scores(mm='bf16'), bench 512 x 5 s: vs the "
+          f"plain versions composed max rel {rel:.3e} (tol {FUSED_RTOL}) "
+          f"argmax identical {same}; launches {slice_counts}", flush=True)
+    if (rel > FUSED_RTOL or not same or slice_counts["K1 bf16"] != 1
+            or slice_counts["K2 f32"] != 1 or slice_counts["K1 f32"]
+            or slice_counts["K2 bf16"]):
+        raise AssertionError("predict_scores(mm='bf16') disagrees with the "
+                             "plain versions or missed its kernels")
+    # the 48 kHz full route's bf16 product: plain torch, K5 not launched
+    L48 = 2 * FS48
+    s48, l48 = signals_batch(rng, [L48, FS48, 30000, 2000], padded(L48), dev)
+    reset()
+    got48 = fastpath.predict_scores(s48, l48, bench_bank, FS48, mm="bf16")
+    torch.cuda.synchronize()
+    full_counts = counts()
+    cpu_bank = GmmBank(bench_bank.op.cpu(), bench_bank.cw.cpu(),
+                       bench_bank.n_speakers, bench_bank.n_mixtures)
+    want48 = fastpath.predict_scores(s48.cpu(), l48.cpu(), cpu_bank, FS48,
+                                     mm="bf16")
+    rel48 = float(((got48.cpu() - want48).abs() / want48.abs()).max())
+    print(f"phase 21 predict_scores(mm='bf16') at 48 kHz (the full route's "
+          f"bf16 product) vs the same on the CPU: max rel {rel48:.3e} (tol "
+          f"{SLICE_RTOL}); launches {full_counts}", flush=True)
+    if (rel48 > SLICE_RTOL or full_counts["full bf16"] != 1
+            or full_counts["K5"] or full_counts["K1 bf16"]
+            or full_counts["K2 f32"] != 1):
+        raise AssertionError("the 48 kHz bf16 route disagrees or took K5")
+
+    # the main paths' launches, each counted on one call: K2 and K3 through
+    # their ops' precision=, K1 on predict_scores above; K4 has no serving
+    # caller
+    gpu_gmm.BF16_LAUNCHES = gpu_gmm.SERIAL_BF16_LAUNCHES = 0
+    sb, x5, m5 = serial["timed"]
+    gpu_gmm.batch_bank_avg_loglik(bench_bank, feats, mask, precision="bf16")
+    gpu_gmm.bank_sum_loglik(sb, x5, m5, precision="bf16")
+    torch.cuda.synchronize()
+    launched = {"k1": slice_counts["K1 bf16"], "k4": 0,
+                "k2": gpu_gmm.BF16_LAUNCHES,
+                "k3": gpu_gmm.SERIAL_BF16_LAUNCHES}
+
+    # timing: each bf16 kernel beside its f32 mode and its plain version,
+    # and predict_scores at both mm values, in one interleaved set
+    t = time_interleaved({
+        "k2_bf16": lambda: gpu_gmm.batch_bank_avg_loglik(
+            bench_bank, feats, mask, precision="bf16"),
+        "k2_f32": lambda: gpu_gmm.batch_bank_avg_loglik(bench_bank, feats,
+                                                        mask),
+        "k2_plain": lambda: gpu_gmm.batch_bank_avg_loglik_reference(
+            bench_bank, feats, mask, precision="bf16"),
+        "k3_bf16": lambda: gpu_gmm.bank_sum_loglik(sb, x5, m5,
+                                                   precision="bf16"),
+        "k3_f32": lambda: gpu_gmm.bank_sum_loglik(sb, x5, m5),
+        "k3_plain": lambda: gpu_gmm.bank_sum_loglik_reference(
+            sb, x5, m5, precision="bf16"),
+        "k1_bf16": lambda: gpu_frontend.packed_from_signals(*pargs,
+                                                            mm_bf16=True),
+        "k1_f32": lambda: gpu_frontend.packed_from_signals(*pargs,
+                                                           fft=fe8.fft),
+        "k1_plain": lambda: gpu_frontend.packed_from_signals_reference(
+            *pargs, mm_bf16=True),
+        "k4_bf16": lambda: gpu_frontend.packed_from_frames(*fargs,
+                                                           mm_bf16=True),
+        "k4_f32": lambda: gpu_frontend.packed_from_frames(*fargs,
+                                                          fft=fe8.fft),
+        "k4_plain": lambda: gpu_frontend.packed_from_frames_reference(
+            *fargs, mm_bf16=True),
+        "predict_bf16": lambda: fastpath.predict_scores(
+            bench_sig, bench_len, bench_bank, BENCH_FS, mm="bf16"),
+        "predict_f32": lambda: fastpath.predict_scores(
+            bench_sig, bench_len, bench_bank, BENCH_FS)})
+    print(f"phase 21 [{card}] bf16 beside f32, ms (CUDA events, median of 7,"
+          f" interleaved): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                         t.items()), flush=True)
+    print(f"phase 21 [{card}] {occupancy(fe8, B, T, d, bench_bank)}",
+          flush=True)
+    for name, fn in (
+            ("K2 bf16", lambda: gpu_gmm.batch_bank_avg_loglik(
+                bench_bank, feats, mask, precision="bf16")),
+            ("K2 f32", lambda: gpu_gmm.batch_bank_avg_loglik(bench_bank,
+                                                             feats, mask)),
+            ("K3 bf16", lambda: gpu_gmm.bank_sum_loglik(sb, x5, m5,
+                                                        precision="bf16")),
+            ("K3 f32", lambda: gpu_gmm.bank_sum_loglik(sb, x5, m5))):
+        print(f"phase 21 [{card}] {name}: {device_times(fn)}", flush=True)
+    print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # bounds from this run's shapes: the products at the bf16 tensor-core
+    # peak (K1 and K4: the dense product), or the bytes
+    valid = int(pargs[1].sum())
+    SK = bench_bank.n_speakers * bench_bank.n_mixtures
+    flen, ncols = fe8.D.shape
+    nmel, nceps = fe8.dct.shape
+    nac = fe8.A.shape[1]
+    dense = 2 * flen * ncols + 2 * ncols * (nmel + nac) + 2 * nmel * nceps
+    op_bytes = 4 * sum(x.numel() for x in (fe8.D, fe8.W, fe8.dct, fe8.A))
+    rows = 2 * 2 * d * SK + 4 * SK
+    n5 = int(m5.sum())
+    SK5 = sb.n_speakers * sb.n_mixtures
+    return [
+        ("packed_frontend_bf16", "frontend_bf16.cu", "pallas_frontend.py:231",
+         launched["k1"], err_k1, t["k1_bf16"], t["k1_plain"],
+         bound(valid * dense, 4 * bench_sig.numel() + op_bytes
+               + 4 * B * T * d, BF16_FLOPS)),
+        ("packed_from_frames_bf16", "frontend_bf16.cu",
+         "pallas_frontend.py:111", launched["k4"], err_k4, t["k4_bf16"],
+         t["k4_plain"],
+         bound(B * T * dense, 4 * fargs[0].numel() + op_bytes
+               + 4 * B * T * (nceps + nac), BF16_FLOPS)),
+        ("bank_avg_loglik_bf16", "gmm_score_bf16.cu", "pallas_gmm.py:154",
+         launched["k2"], err_k2, t["k2_bf16"], t["k2_plain"],
+         bound(score_flops(valid, d, SK), 4 * feats.numel() + mask.numel()
+               + rows + 4 * B * bench_bank.n_speakers, BF16_FLOPS)),
+        ("bank_sum_loglik_bf16", "gmm_serial_bf16.cu", "pallas_gmm.py:47",
+         launched["k3"], err_k3, t["k3_bf16"], t["k3_plain"],
+         bound(score_flops(n5, d, SK5), 4 * x5.numel() + m5.numel()
+               + 2 * 2 * d * SK5 + 4 * SK5 + 4 * sb.n_speakers, BF16_FLOPS)),
+    ]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2171,6 +2570,8 @@ def main(argv=None):
           f"registers, {len(spills)} with spills", flush=True)
     for name, spill in spills:
         print(f"  ptxas: {name[:120]}: {spill}")
+    print("phase 1 build by source (all started together): " + ", ".join(
+        f"{src} {sec:.1f} s" for src, sec in secs), flush=True)
 
     # 2. frontend kernel vs plain
     fcfg = FeatureConfig()
@@ -3397,6 +3798,25 @@ def main(argv=None):
     phase18(dev, card, seed)
     feats19 = phase19(dev, card)
     entries20 = phase20(dev, card, feats19)
+    bench_feats, bench_mask = fe8(bench_sig, bench_len)
+    entries21 = phase21(
+        rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
+        {"bench_feats": (bench_feats, bench_mask),
+         "cases": (("UBM-scale bank 80 x 256, B=8", ubm_bank,
+                    bench_feats[:8].contiguous(),
+                    bench_mask[:8].contiguous()),
+                   ("bank 4 x 1024, B=64", k1024_bank, f64, m64),
+                   (f"bank 4 x 32 at d = {cfg102.dim} (16 kHz)", bank102,
+                    f102, m102))},
+        {"cases": (("bench bank 4 x 32 + UBM, 5 s", serial_banks["bench"],
+                    x5, m5),
+                   ("80 x 256 bank + UBM, 3 s", serial_banks["ubm"], x3, m3),
+                   ("1024 components + UBM, 5 s",
+                    random_bank(rng, 5, 1024, d, dev), x5, m5),
+                   ("1024 components + UBM, 150 s clip",
+                    random_bank(rng, 5, 1024, d, dev), x150, m150)),
+         "timed": (serial_banks["bench"], x5, m5)},
+        (s48p, l48p))
 
     # the kernels' bounds, from this run's shapes
     B8, Lp8 = bench_sig.shape
@@ -3505,7 +3925,7 @@ def main(argv=None):
           "launches": launched, "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, **b, "library_ms": None}
          for name, source, replaces, launched, err, ms, plain_ms, b
-         in entries16 + entries13 + entries20]}))
+         in entries16 + entries13 + entries20 + entries21]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

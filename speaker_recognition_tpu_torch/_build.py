@@ -99,6 +99,29 @@ def _bind(lib):
     lib.srt_bank_sum_loglik.restype = i
     lib.srt_component_row.argtypes = [i]
     lib.srt_component_row.restype = i
+    lib.srt_bank_avg_loglik_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                             i, p]
+    lib.srt_bank_avg_loglik_bf16.restype = i
+    lib.srt_bank_sum_loglik_bf16.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+    lib.srt_bank_sum_loglik_bf16.restype = i
+    lib.srt_bank_bf16_warp_frames.argtypes = []
+    lib.srt_bank_bf16_warp_frames.restype = i
+    lib.srt_mma_row.argtypes = [i]
+    lib.srt_mma_row.restype = i
+    lib.srt_mma_components.argtypes = [i]
+    lib.srt_mma_components.restype = i
+    lib.srt_frontend_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                      i, i, i, i, f, i, i, p]
+    lib.srt_frontend_bf16.restype = i
+    lib.srt_frames_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f,
+                                    p]
+    lib.srt_frames_bf16.restype = i
+    lib.srt_frontend_bf16_wide_floats.argtypes = [ll, i]
+    lib.srt_frontend_bf16_wide_floats.restype = ll
+    lib.srt_frontend_bf16_occupancy.argtypes = [i, i, i, ip]
+    lib.srt_frontend_bf16_occupancy.restype = i
+    lib.srt_bank_bf16_occupancy.argtypes = [i, i, i, i, i, ip]
+    lib.srt_bank_bf16_occupancy.restype = i
     lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i,
                                       i, i, i, i, i, i, i, i, i, i, i, f, i,
                                       f, i, i, p]

@@ -13,13 +13,6 @@
 
 namespace {
 
-// columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
-// without fuse_lpc, the nac raw autocorrelation lags
-__host__ __device__ constexpr int feature_width(int nceps, int nac,
-                                                int fuse_lpc) {
-  return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
-}
-
 // The frames of the signal frontend on the route of N >= 32768: frame
 // g = b T + t of the batch, the strided window of the signal as on the
 // tile; frames at or past n_valid[b] are not computed.

@@ -51,6 +51,7 @@
 #include <algorithm>
 #include <mutex>
 
+#include "gmm_batch.cuh"
 #include "gmm_lse.cuh"
 
 namespace {
@@ -58,7 +59,6 @@ namespace {
 constexpr int MAX_WARPS = 8;          // warps per block, at most
 constexpr int ONE_BUFFER = 49152;     // rows staged whole up to this size
 constexpr int BLOCKS_PER_SM = 4;      // blocks the launch aims to have
-constexpr int RT = 128;               // threads of the reduction block
 
 // frames a lane holds at padded feature dimension dp
 inline int frames_per_lane(int dp) { return dp <= 64 ? 2 : 1; }
@@ -117,23 +117,6 @@ __global__ void __launch_bounds__(32 * MAX_WARPS) bank_score_kernel(
   }
 }
 
-// out[b, s] = the warp tiles' partial sums, added in tile order, over
-// max(valid frames, 1); one thread per (b, s).
-__global__ void __launch_bounds__(RT) bank_mean_kernel(
-    const float* __restrict__ partial, const float* __restrict__ count,
-    float* __restrict__ out, long long BS, int S, int NW) {
-  const long long i = (long long)blockIdx.x * RT + threadIdx.x;
-  if (i >= BS) return;
-  const long long b = i / S;
-  const int s = (int)(i % S);
-  float acc = 0.f, n = 0.f;
-  for (int w = 0; w < NW; ++w) {
-    acc += partial[((size_t)b * NW + w) * S + s];
-    n += count[(size_t)b * NW + w];
-  }
-  out[i] = acc / fmaxf(n, 1.f);
-}
-
 struct Plan {
   int NW, warps, tiles, sg, groups;
 };
@@ -142,22 +125,6 @@ struct Plan {
 inline int warp_tiles(int T, int d) {
   const int per_warp = 32 * frames_per_lane(padded_dim(d));
   return std::max(1, (T + per_warp - 1) / per_warp);
-}
-
-// The current device's SM count, asked of the runtime once per device.
-cudaError_t sm_count(int* nsm) {
-  constexpr int MAX_DEVICES = 64;
-  static int cached[MAX_DEVICES];  // 0: not asked yet; every writer agrees
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < MAX_DEVICES && cached[dev] > 0) {
-    *nsm = cached[dev];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < MAX_DEVICES) cached[dev] = *nsm;
-  return err;
 }
 
 // How a [B, T] batch against S speakers is cut: warp tiles an utterance,

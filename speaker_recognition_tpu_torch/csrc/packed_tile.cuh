@@ -1,8 +1,9 @@
 // The packed frontend's per-tile stages: tile_features and cmvn_utterance,
 // shared by csrc/frontend.cu (the signal-level frontend, on the FFT tile)
 // and csrc/predict_fused.cuh (the fused predict monolith); the dense
-// tile_sums serves only the monolith's bf16 route, which rounds the DFT
-// operand D. For a tile of FT consecutive frames of one utterance:
+// tile_sums serves the routes that round the DFT operand D to bf16: the
+// monolith's bf16 route and K1's and K4's mm_bf16 (csrc/frontend_bf16.cu).
+// For a tile of FT consecutive frames of one utterance:
 //   tile_sums      stage the tile's overlapping samples, walk the packed
 //                  DFT columns in chunks of CC, fold each chunk's Y = X^2
 //                  into register accumulators of the mel and
@@ -44,6 +45,13 @@ __host__ __device__ constexpr int smem_floats(int ft, int opl, int flen,
                                               int fshift, bool gseg = false) {
   return (gseg ? 0 : seg_len(ft, flen, fshift)) + KT * CC + ft * YS +
          CC * 8 * opl;
+}
+
+// columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
+// without fuse_lpc, the nac raw autocorrelation lags
+__host__ __device__ constexpr int feature_width(int nceps, int nac,
+                                                int fuse_lpc) {
+  return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
 }
 
 // Output chunks of 8 * OPL the tile projects onto one after the other: 1

@@ -24,6 +24,16 @@ frontend.
   SRTPU_FRONTEND=full and every fft_size < 2*frame_len, i.e. every sample
   rate above 32 kHz at the default 2048-point FFT and 32 ms frames.
 
+Both take `mm`, the DFT product's operand precision of the JAX
+extractor's `matmul_dtype` (features/extract.py:166-167): "f32", or "bf16",
+which rounds the frames and the DFT operator to bf16 and sums in f32. It
+applies at float32 only, as in the JAX package; at float64 the float64
+route runs unchanged. On the packed route bf16 takes K1's bf16 mode (the
+dense product, so the frontend builds D, W, A at any size); on the full
+route the JAX package computes the bf16 product outside any kernel, and so
+does the port (ops/gpu_frontend.mfcc_from_frames_bf16, plain torch on
+either device, K5 not launched).
+
 Both take a dtype. float32 is the kernels' (on the card) and their plain
 versions' (on the CPU). float64 is the parity path of the JAX package
 (features/extract.py:40-53: its Pallas kernels are f32-only): the
@@ -58,6 +68,8 @@ LENGTH_BUCKET = 4096
 # frontend calls at float64 since the last reset: the plain versions, on
 # the CPU or the card
 F64_CALLS = 0
+# the DFT product's operand precisions (JAX: matmul_dtype)
+MM = ("f32", "bf16")
 
 
 def apply_deltas(feat: torch.Tensor, mask: torch.Tensor, nd: int):
@@ -103,11 +115,15 @@ class _Frontend(nn.Module):
     masking)."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mm: str = "f32"):
         super().__init__()
         if dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype {dtype}: float32 or float64")
+        if mm not in MM:
+            raise ValueError(f"mm {mm!r}: one of {MM}")
         self.dtype = dtype
+        # bf16 DFT operands: at float32 only (the JAX package's mm_dt)
+        self.mm_bf16 = mm == "bf16" and dtype == torch.float32
         mf, lp = cfg.mfcc, cfg.lpc
         flen, fshift = frame_geometry(fs, mf.win_length_ms, mf.win_shift_ms)
         if cfg.use_lpc:
@@ -199,13 +215,14 @@ class PackedFrontend(_Frontend):
     window [flen], fft_mel [N/2+1, n_mel] and fft_acorr [N/2+1, order+1],
     N = ops/frontend.rfft_size(flen). Needs fft_size >= 2*frame_len. From
     N = 32768 on (frames longer than 8192 samples) it builds no D, W, A
-    (D alone would be 1.2 GB at 384 kHz): every route, the CPU's and
-    float64's too, takes the FFT route's operators."""
+    (D alone would be 1.2 GB at 384 kHz) unless mm="bf16", whose kernel
+    rounds D: every other route, the CPU's and float64's too, takes the FFT
+    route's operators there."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
                  device: torch.device | str = "cuda",
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(fs, cfg, dtype)
+                 dtype: torch.dtype = torch.float32, mm: str = "f32"):
+        super().__init__(fs, cfg, dtype, mm)
         mf = cfg.mfcc
         if mf.fft_size < 2 * self.frame_len:
             raise ValueError(
@@ -216,7 +233,7 @@ class PackedFrontend(_Frontend):
         lpc_order = self.lpc_order if cfg.use_lpc else None
         self.n_fft = operators.rfft_size(self.frame_len)
         dense = {}
-        if self.n_fft < gpu_frontend.BIG_N:
+        if self.n_fft < gpu_frontend.BIG_N or self.mm_bf16:
             D, W, A = operators.packed_frontend_operators(
                 self.frame_len, mf.fft_size, mf.pre_emph, mel,
                 lpc_order=lpc_order, preemph_first=mf.preemph_first)
@@ -256,7 +273,7 @@ class PackedFrontend(_Frontend):
             out = gpu_frontend.packed_from_signals(
                 signals, n_valid, self.D, self.W, self.dct, self.A,
                 self.floor, self.frame_shift, cmvn, fft=self.fft,
-                fuse_lpc=fuse_lpc)
+                fuse_lpc=fuse_lpc, mm_bf16=self.mm_bf16)
         elif self.D is None:
             out = gpu_frontend.packed_from_signals_fft_reference(
                 signals, n_valid, self.fft, self.dct, self.floor,
@@ -297,13 +314,13 @@ class FullFrontend(_Frontend):
     as speaker_recognition_tpu/features/extract.py:306-350, and C, S
     [flen, nb] (the cos/sin DFT projections) where a route reads them: the
     plain version on the CPU, the dense kernel at an fft_size that is not a
-    power of two. The FFT kernel takes the first fft/2+1 rows of mel and
-    acorr."""
+    power of two, the bf16 product. The FFT kernel takes the first fft/2+1
+    rows of mel and acorr."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
                  device: torch.device | str = "cuda",
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(fs, cfg, dtype)
+                 dtype: torch.dtype = torch.float32, mm: str = "f32"):
+        super().__init__(fs, cfg, dtype, mm)
         mf = cfg.mfcc
         nb = mf.fft_size // 2 + 1
         # the autocorrelation is power @ acorr even when fft_size <
@@ -323,7 +340,7 @@ class FullFrontend(_Frontend):
         self.register_buffer("C", None)
         self.register_buffer("S", None)
         if (torch.device(device).type == "cpu" or dtype == torch.float64
-                or self.n_fft & (self.n_fft - 1)):
+                or self.mm_bf16 or self.n_fft & (self.n_fft - 1)):
             C, S = operators.dft_power_projection(self.frame_len, self.n_fft)
             self._register(device, **{k: np.pad(x, ((0, 0), (0, pad)))
                                       for k, x in (("C", C), ("S", S))})
@@ -333,7 +350,7 @@ class FullFrontend(_Frontend):
     def _frame_kernel(self, signals, lengths):
         """([B, T, n_ceps] cepstra before CMVN, [B, T, order+1] raw
         autocorrelation, [B, T] mask) for [B, Lp] signals: K5 at float32,
-        its plain version at float64."""
+        its plain version at float64, the bf16 product at mm="bf16"."""
         signals, T, mask = self._frames(signals, lengths)
         B = signals.shape[0]
         wp = framing.window_preemph(
@@ -342,6 +359,10 @@ class FullFrontend(_Frontend):
         wp = wp.reshape(B * T, self.frame_len)
         if self._count_f64():
             ceps, r = gpu_frontend.mfcc_from_frames_reference(
+                wp, self.C, self.S, self.mel, self.dct, self.floor,
+                self.acorr)
+        elif self.mm_bf16:
+            ceps, r = gpu_frontend.mfcc_from_frames_bf16(
                 wp, self.C, self.S, self.mel, self.dct, self.floor,
                 self.acorr)
         else:
@@ -374,11 +395,12 @@ def frontend_mode() -> str:
 
 
 def frontend(fs: int, cfg: FeatureConfig, device: torch.device | str,
-             dtype: str = "float32") -> _Frontend:
-    """The frontend of (fs, cfg) on `device` at `dtype` under the current
-    SRTPU_FRONTEND, built once per (fs, cfg, device, dtype, mode)."""
+             dtype: str = "float32", mm: str = "f32") -> _Frontend:
+    """The frontend of (fs, cfg) on `device` at `dtype` with the DFT
+    product's operands at `mm` under the current SRTPU_FRONTEND, built once
+    per (fs, cfg, device, dtype, mm, mode)."""
     return _frontend(int(fs), cfg, torch.device(device), _torch_dtype(dtype),
-                     frontend_mode())
+                     frontend_mode(), mm)
 
 
 def _torch_dtype(dtype: str) -> torch.dtype:
@@ -389,20 +411,21 @@ def _torch_dtype(dtype: str) -> torch.dtype:
 
 @functools.lru_cache(maxsize=16)
 def _frontend(fs: int, cfg: FeatureConfig, device: torch.device,
-              dtype: torch.dtype, mode: str) -> _Frontend:
+              dtype: torch.dtype, mode: str, mm: str = "f32") -> _Frontend:
     flen, _ = frame_geometry(fs, cfg.mfcc.win_length_ms,
                              cfg.mfcc.win_shift_ms)
     if mode == "packed" and cfg.mfcc.fft_size >= 2 * flen:
-        return PackedFrontend(fs, cfg, device, dtype)
-    return FullFrontend(fs, cfg, device, dtype)
+        return PackedFrontend(fs, cfg, device, dtype, mm)
+    return FullFrontend(fs, cfg, device, dtype, mm)
 
 
 def extract_batch(signals: torch.Tensor, lengths: torch.Tensor, fs: int,
                   cfg: FeatureConfig = FeatureConfig(),
-                  dtype: str = "float32"):
+                  dtype: str = "float32", mm: str = "f32"):
     """Features for a zero-padded batch: [B, L] -> ([B, T, d], [B, T] mask),
-    at `dtype` (float64: the plain versions, features/extract.F64_CALLS)."""
-    return frontend(fs, cfg, signals.device, dtype)(signals, lengths)
+    at `dtype` (float64: the plain versions, features/extract.F64_CALLS),
+    the DFT product's operands at `mm` ("f32" or "bf16")."""
+    return frontend(fs, cfg, signals.device, dtype, mm)(signals, lengths)
 
 
 def mix_feature(fs: int, signal, cfg: FeatureConfig = FeatureConfig(),

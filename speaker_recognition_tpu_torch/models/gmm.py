@@ -22,6 +22,15 @@ followed by a per-speaker logsumexp over the K components, the reference's
 underflow floor (gmm.cc:482-492) and a masked sum or mean. `GmmBank` holds
 (op, cw) on a device; `batch_bank_avg_loglik` and `bank_sum_loglik` here
 are the plain torch versions that ops/gpu_gmm's kernels are held to.
+
+Both take the JAX kernels' `precision` (ops/pallas_gmm.py:100, :211):
+"f32", or "bf16", which feeds the matmul bf16 operands with f32
+accumulation: op's terms and x rounded to bf16 (nearest even), and x^2
+rounded as each JAX kernel rounds it. The batched kernel squares the
+rounded x and rounds the square (pallas_gmm.py:176-177, x * x in the
+operand dtype); the serial one squares x in f32 and rounds once
+(:136-139). cw stays f32. A product of two bf16 values is exact in f32, so
+the plain versions round the operands and multiply in f32.
 """
 
 from __future__ import annotations
@@ -39,6 +48,12 @@ LOG_SQRT_2_PI = 0.5 * math.log(2.0 * math.pi)
 # log-space equivalent of the reference's linear-space 1e-15 floor, which
 # engages only when the sum of w_k N(x) underflows double precision
 _UNDERFLOW_LOG = -745.0
+# the scoring operands' precisions (the JAX kernels' `precision`)
+PRECISIONS = ("f32", "bf16")
+# cw of the components the bf16 kernels' layout pads a speaker with: beside
+# any real component exp(PAD_CW - m) is exactly 0, and unlike -inf it never
+# meets another -inf in the online logsumexp (-inf - -inf is NaN)
+PAD_CW = -1e30
 
 
 class GmmParams(NamedTuple):
@@ -93,9 +108,11 @@ class GmmBank(nn.Module):
         self.n_speakers = n_speakers
         self.n_mixtures = n_mixtures
         # (the (op, cw) state it was built from, the value) of the caches
-        # below: rebuilt after op or cw is replaced or written to
+        # below, scoring plans by precision: rebuilt after op or cw is
+        # replaced or written to
         self._comp: tuple | None = None
-        self._plan: tuple | None = None
+        self._mma: tuple | None = None
+        self._plans: dict = {}
 
     @property
     def dim(self) -> int:
@@ -130,14 +147,40 @@ class GmmBank(nn.Module):
                 self.n_speakers, self.n_mixtures, row))
         return self._comp[1]
 
-    def scoring_plan(self, make: Callable[["GmmBank"], object]):
+    def mma_operator(self, row: int, kp: int) -> torch.Tensor:
+        """The bf16 scoring kernels' layout (csrc/gmm_mma.cuh), [S, kp, row]
+        bfloat16: a component's row holds its d quadratic terms a =
+        -1/(2 sigma^2), then its d linear terms b = mu/sigma^2 (op's, rounded
+        to bf16, nearest even), zeros up to dk = row - 8 (2d rounded up to
+        a multiple of 16: the MMA's depth), then cw as the bits of an f32
+        and zeros (the row's 16-byte tail). Each speaker's K components are
+        padded to kp (a multiple of 8: the MMA's width) with zero terms and
+        cw = PAD_CW, which add nothing to its logsumexp. Built once per bank
+        and layout, and again after op or cw changes."""
+        if (not self._fresh(self._mma)
+                or self._mma[1].shape[1:] != (kp, row)):
+            d, dk = self.dim, row - 8
+            S, K = self.n_speakers, self.n_mixtures
+            rows = torch.zeros((S, kp, row), dtype=torch.bfloat16,
+                               device=self.op.device)
+            rows[:, :K, :2 * d] = self.op.T.reshape(S, K, 2 * d).to(
+                torch.bfloat16)
+            cw = self.cw.new_full((S, kp), PAD_CW, dtype=torch.float32)
+            cw[:, :K] = self.cw.reshape(S, K)
+            rows.view(torch.float32)[..., dk // 2] = cw
+            self._mma = (self._state(), rows)
+        return self._mma[1]
+
+    def scoring_plan(self, make: Callable[["GmmBank"], object],
+                     precision: str = "f32"):
         """What the scoring kernels' wrappers keep of this bank between
         calls (ops/gpu_gmm: the component rows, their pointer, the device,
-        the launch shape for d): make(self), cached like
-        component_operator and rebuilt when op or cw changes."""
-        if not self._fresh(self._plan):
-            self._plan = (self._state(), make(self))
-        return self._plan[1]
+        the launch shape for d), one plan a precision: make(self), cached
+        like component_operator and rebuilt when op or cw changes."""
+        plan = self._plans.get(precision)
+        if not self._fresh(plan):
+            plan = self._plans[precision] = (self._state(), make(self))
+        return plan[1]
 
     @classmethod
     def from_numpy(cls, weights, means, sigmas, device: torch.device | str,
@@ -161,15 +204,35 @@ def _floored_lse(logp: torch.Tensor, min_prob_sum: float) -> torch.Tensor:
                        torch.full_like(lse, math.log(min_prob_sum)))
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (nearest even), in t's dtype again."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _operands(bank: GmmBank, X: torch.Tensor, precision: str,
+              square_rounded: bool):
+    """([..., 2d] [x^2 | x], op) as the matmul of `precision` takes them
+    (see the module's docstring); square_rounded: x^2 from the rounded x
+    (the batched kernel) rather than from x (the serial one)."""
+    if precision == "f32":
+        return torch.cat([X * X, X], dim=-1), bank.op
+    if precision != "bf16":
+        raise ValueError(f"precision {precision!r}: one of {PRECISIONS}")
+    xb = _bf16(X)
+    x2 = _bf16(xb * xb) if square_rounded else _bf16(X * X)
+    return torch.cat([x2, xb], dim=-1), _bf16(bank.op)
+
+
 def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
-                          mask: torch.Tensor,
-                          min_prob_sum: float = 1e-15) -> torch.Tensor:
+                          mask: torch.Tensor, min_prob_sum: float = 1e-15,
+                          precision: str = "f32") -> torch.Tensor:
     """[B, T, d] features, [B, T] mask -> [B, S] masked per-frame average
-    log-likelihoods (src/testbench/gmmset.py:96-100), plain torch."""
+    log-likelihoods (src/testbench/gmmset.py:96-100), plain torch, with
+    the batched JAX kernel's operands at `precision`."""
     B, T, d = feats.shape
     S, K = bank.n_speakers, bank.n_mixtures
-    Z = torch.cat([feats * feats, feats], dim=-1).reshape(B * T, 2 * d)
-    logp = Z @ bank.op + bank.cw
+    Z, op = _operands(bank, feats, precision, square_rounded=True)
+    logp = Z.reshape(B * T, 2 * d) @ op + bank.cw
     lse = _floored_lse(logp.reshape(B, T, S, K), min_prob_sum)
     m = mask.to(feats.dtype)
     n = torch.clamp_min(m.sum(dim=-1), 1.0)
@@ -177,12 +240,14 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
 
 
 def bank_sum_loglik(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
-                    min_prob_sum: float = 1e-15) -> torch.Tensor:
+                    min_prob_sum: float = 1e-15,
+                    precision: str = "f32") -> torch.Tensor:
     """One utterance X [n, d] with mask [n] against the bank -> [S] sums of
-    floored per-frame log-likelihoods over the valid frames, plain torch."""
+    floored per-frame log-likelihoods over the valid frames, plain torch,
+    with the serial JAX kernel's operands at `precision`."""
     n, d = X.shape
-    Z = torch.cat([X * X, X], dim=-1)
-    logp = Z @ bank.op + bank.cw
+    Z, op = _operands(bank, X, precision, square_rounded=False)
+    logp = Z @ op + bank.cw
     lse = _floored_lse(logp.reshape(n, bank.n_speakers, bank.n_mixtures),
                        min_prob_sum)
     return mask.to(X.dtype) @ lse

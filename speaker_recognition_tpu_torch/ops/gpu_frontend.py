@@ -39,6 +39,18 @@ without LPC), which the LPC cepstra need:
                         dense template of csrc/frontend_frames.cu
                         (`mfcc_from_frames_dense`).
 
+The bf16 operand mode of K1 and K4 (`mm_bf16`, the JAX kernels' argument,
+pallas_frontend.py:397, :441) rounds the frames and D to bf16 (nearest
+even) and multiplies in f32: the TPU kernel's dense product, not the FFT,
+since D is the operand it rounds. On the card `packed_from_signals` and
+`packed_from_frames` take the dense operators D, W, A then and launch
+csrc/frontend_bf16.cu (BF16_LAUNCHES, FRAMES_BF16_LAUNCHES); their plain
+versions round the same operands. The full route's bf16 mode
+(`mfcc_from_frames_bf16`) is the JAX extractor's XLA-side product
+(features/extract.py:315-325; its K5 has no bf16 mode): plain torch on
+bf16-rounded frames and C, S, on either device, counted in
+FULL_BF16_CALLS, a route chosen in the open on which K5 does not launch.
+
 Two routes of the FFT kernels are chosen on the shape in the open, each
 with its own counter, and compute the same function:
   * an FFT of 32768 points or more (fft_size >= 32768 on the full route,
@@ -73,6 +85,11 @@ FRAMES_BIG_LAUNCHES = 0  # packed_from_frames
 FULL_BIG_LAUNCHES = 0    # mfcc_from_frames
 # FFT-tile launches of any of the three with more than 512 outputs
 CHUNKED_LAUNCHES = 0
+# the bf16 operand mode (csrc/frontend_bf16.cu), one count per wrapper,
+# and the full route's bf16 product (plain torch, either device)
+BF16_LAUNCHES = 0        # packed_from_signals
+FRAMES_BF16_LAUNCHES = 0  # packed_from_frames
+FULL_BF16_CALLS = 0       # mfcc_from_frames_bf16
 
 # FFT sizes from here on take the four-step route of csrc/rfft_big.cuh
 BIG_N = 32768
@@ -161,14 +178,26 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
             power @ acorr[:nb])
 
 
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (nearest even), in t's dtype again: a product
+    of two such values is exact in f32."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _dft(frames, D, mm_bf16: bool):
+    """frames . D, with both operands rounded to bf16 under mm_bf16."""
+    return _bf16(frames) @ _bf16(D) if mm_bf16 else frames @ D
+
+
 def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
                                   floor: float, fshift: int, cmvn: bool,
-                                  fuse_lpc: bool = True):
+                                  fuse_lpc: bool = True,
+                                  mm_bf16: bool = False):
     """The plain torch frontend: explicit frames and matmuls."""
     frames = framing.frame_signal(signals, D.shape[0], fshift)
     T = frames.shape[-2]
     mask = torch.arange(T, device=signals.device) < n_valid[:, None]
-    X = frames @ D
+    X = _dft(frames, D, mm_bf16)
     Y = X * X
     ceps = torch.log(torch.clamp_min(Y @ W, floor)) @ dct
     return _signal_features(ceps, Y @ A, mask, cmvn, fuse_lpc)
@@ -176,21 +205,30 @@ def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
 
 def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
                         fshift: int, cmvn: bool,
-                        fft: FftRoute | None = None, fuse_lpc: bool = True):
+                        fft: FftRoute | None = None, fuse_lpc: bool = True,
+                        mm_bf16: bool = False):
     """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order], or
     without fuse_lpc ([B, T, n_ceps], [B, T, order+1] raw autocorrelation;
     on the card two views of one buffer). On the CPU the plain version with
     D, W, A (the FFT route's where D is None: a frontend of N >= 32768
     builds no dense operators); on the card the FFT kernel, which takes
-    `fft` instead."""
+    `fft` instead. mm_bf16: the dense product with bf16 operands (D, W, A
+    on either device; csrc/frontend_bf16.cu on the card)."""
+    if mm_bf16 and D is None:
+        raise ValueError("mm_bf16 rounds the dense DFT operand: pass D, W, "
+                         "A (PackedFrontend builds them at mm='bf16')")
     if signals.device.type == "cpu":
         if D is None:
             return packed_from_signals_fft_reference(
                 signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
         return packed_from_signals_reference(signals, n_valid, D, W, dct, A,
-                                             floor, fshift, cmvn, fuse_lpc)
+                                             floor, fshift, cmvn, fuse_lpc,
+                                             mm_bf16)
     if signals.device.type != "cuda":
         raise ValueError(f"no frontend for device {signals.device}")
+    if mm_bf16:
+        return _signals_bf16(signals, n_valid, D, W, dct, A, floor, fshift,
+                             cmvn, fuse_lpc)
     if fft is None:
         raise ValueError("the signal frontend kernel runs the FFT route: "
                          "pass fft= (features.extract.PackedFrontend.fft)")
@@ -247,6 +285,63 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
     else:
         LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
+    if fuse_lpc:
+        return feat
+    return feat[..., :nceps], feat[..., nceps:]
+
+
+def _dense_shapes(name: str, D, W, dct, A, dev):
+    """Check the dense operators for a bf16 kernel; (flen, ncols, nmel,
+    nceps, nac)."""
+    for t, what in ((D, "D"), (W, "W"), (dct, "dct"), (A, "A")):
+        _build.check_tensor(t, what, torch.float32, 2, dev)
+    flen, ncols = D.shape
+    nmel, nceps = dct.shape
+    if W.shape != (ncols, nmel) or A.shape[0] != ncols:
+        raise ValueError(
+            f"inconsistent {name} operators: D {tuple(D.shape)}, W "
+            f"{tuple(W.shape)}, dct {tuple(dct.shape)}, A {tuple(A.shape)}")
+    return flen, ncols, nmel, nceps, A.shape[1]
+
+
+def _bf16_rows(lib, nframes: int, nout: int, dev) -> torch.Tensor | None:
+    """The device rows the bf16 tile keeps its sums in past 128 outputs,
+    or None up to 128."""
+    n = lib.srt_frontend_bf16_wide_floats(nframes, nout)
+    return torch.empty(n, dtype=torch.float32, device=dev) if n else None
+
+
+def _signals_bf16(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
+                  fuse_lpc):
+    """Check and launch K1's bf16 kernel (csrc/frontend_bf16.cu)."""
+    dev = signals.device
+    _build.check_tensor(signals, "signals", torch.float32, 2, dev)
+    _build.check_tensor(n_valid, "n_valid", torch.int32, 1, dev)
+    flen, ncols, nmel, nceps, nac = _dense_shapes("frontend", D, W, dct, A,
+                                                  dev)
+    B, Lp = signals.shape
+    if n_valid.shape[0] != B or fshift < 1 or Lp < flen:
+        raise ValueError(
+            f"inconsistent frontend shapes: signals {tuple(signals.shape)}, "
+            f"n_valid {tuple(n_valid.shape)}, D {tuple(D.shape)}, fshift "
+            f"{fshift}")
+    T = (Lp - flen) // fshift + 1
+    order = max(nac - 1, 0)
+    feat = torch.empty((B, T, nceps + (order if fuse_lpc else nac)),
+                       dtype=torch.float32, device=dev)
+    if B:
+        lib = _build.load()
+        wsums = _bf16_rows(lib, B * T, nmel + nac, dev)
+        with torch.cuda.device(dev):
+            err = lib.srt_frontend_bf16(
+                signals.data_ptr(), n_valid.data_ptr(), D.data_ptr(),
+                W.data_ptr(), A.data_ptr(), dct.data_ptr(), feat.data_ptr(),
+                _ptr(wsums), B, Lp, T, flen, fshift, ncols, nmel, nac, nceps,
+                float(floor), int(bool(cmvn)), int(bool(fuse_lpc)),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "packed frontend bf16 kernel")
+        global BF16_LAUNCHES
+        BF16_LAUNCHES += 1
     if fuse_lpc:
         return feat
     return feat[..., :nceps], feat[..., nceps:]
@@ -312,9 +407,10 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     return op
 
 
-def packed_from_frames_reference(frames, D, W, dct, floor: float, A):
+def packed_from_frames_reference(frames, D, W, dct, floor: float, A,
+                                 mm_bf16: bool = False):
     """The plain torch frame-level packed frontend."""
-    Y = (frames @ D) ** 2
+    Y = _dft(frames, D, mm_bf16) ** 2
     return torch.log(torch.clamp_min(Y @ W, floor)) @ dct, Y @ A
 
 
@@ -336,18 +432,38 @@ def mfcc_from_frames_reference(wp, C, S, mel, dct, floor: float, acorr):
     return torch.log(torch.clamp_min(power @ mel, floor)) @ dct, power @ acorr
 
 
+def mfcc_from_frames_bf16(wp, C, S, mel, dct, floor: float, acorr):
+    """The full-spectrum frontend with the DFT's operands (the frames, C
+    and S) rounded to bf16 and f32 sums: the JAX extractor's bf16 product
+    outside any kernel (features/extract.py:315-325). Plain torch on
+    either device (TF32 stays off), counted in FULL_BF16_CALLS."""
+    global FULL_BF16_CALLS
+    FULL_BF16_CALLS += 1
+    wpb = _bf16(wp)
+    return mfcc_from_frames_reference(wpb, _bf16(C), _bf16(S), mel, dct,
+                                      floor, acorr)
+
+
 def packed_from_frames(frames, D, W, dct, floor: float, A,
-                       fft: FftRoute | None = None):
+                       fft: FftRoute | None = None, mm_bf16: bool = False):
     """[n, flen] raw frames -> ([n, n_ceps] pre-CMVN cepstra, [n, nac] raw
     autocorrelation). On the CPU the plain version with D, W, A (the FFT
     route's where D is None); on the card the FFT kernel, which takes `fft`
-    instead (PackedFrontend.fft)."""
+    instead (PackedFrontend.fft). mm_bf16: the dense product with bf16
+    operands (D, W, A on either device; csrc/frontend_bf16.cu on the card,
+    the two results views of one buffer)."""
+    if mm_bf16 and D is None:
+        raise ValueError("mm_bf16 rounds the dense DFT operand: pass D, W, "
+                         "A (PackedFrontend builds them at mm='bf16')")
     if frames.device.type == "cpu":
         if D is None:
             return packed_from_frames_fft_reference(frames, fft, dct, floor)
-        return packed_from_frames_reference(frames, D, W, dct, floor, A)
+        return packed_from_frames_reference(frames, D, W, dct, floor, A,
+                                            mm_bf16)
     if frames.device.type != "cuda":
         raise ValueError(f"no frontend for device {frames.device}")
+    if mm_bf16:
+        return _frames_bf16(frames, D, W, dct, floor, A)
     if fft is None:
         raise ValueError("the frame-level packed kernel runs the FFT route: "
                          "pass fft= (features.extract.PackedFrontend.fft)")
@@ -399,6 +515,32 @@ def packed_from_frames(frames, D, W, dct, floor: float, A,
         FRAMES_LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
     return ceps, r
+
+
+def _frames_bf16(frames, D, W, dct, floor, A):
+    """Check and launch K4's bf16 kernel (csrc/frontend_bf16.cu)."""
+    dev = frames.device
+    _build.check_tensor(frames, "frames", torch.float32, 2, dev)
+    flen, ncols, nmel, nceps, nac = _dense_shapes("frame-level", D, W, dct,
+                                                  A, dev)
+    n = frames.shape[0]
+    if frames.shape[1] != flen:
+        raise ValueError(f"frames {tuple(frames.shape)} do not fit D "
+                         f"{tuple(D.shape)}")
+    out = torch.empty((n, nceps + nac), dtype=torch.float32, device=dev)
+    if n:
+        lib = _build.load()
+        wsums = _bf16_rows(lib, n, nmel + nac, dev)
+        with torch.cuda.device(dev):
+            err = lib.srt_frames_bf16(
+                frames.data_ptr(), D.data_ptr(), W.data_ptr(), A.data_ptr(),
+                dct.data_ptr(), out.data_ptr(), _ptr(wsums), n, flen, ncols,
+                nmel, nac, nceps, float(floor),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, "frame-level packed bf16 kernel")
+        global FRAMES_BF16_LAUNCHES
+        FRAMES_BF16_LAUNCHES += 1
+    return out[:, :nceps], out[:, nceps:]
 
 
 def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr,

@@ -21,6 +21,15 @@ either: past the grid's 65535 utterances (batched) or speakers (serial) a
 call launches once per 65535. Every sum runs in a fixed order with no
 atomics: two calls give the same bits.
 
+`precision="bf16"` (the JAX kernels' argument, ops/pallas_gmm.py:100,
+:211; `bank_avg_loglik` has none, as in the JAX package) rounds the
+matmul's operands to bf16 and accumulates in f32, x^2 rounded as each JAX
+kernel rounds it (models/gmm). On the card it launches the tensor-core
+kernels csrc/gmm_score_bf16.cu and csrc/gmm_serial_bf16.cu (mma.sync on
+bf16 fragments, csrc/gmm_mma.cuh), counted in BF16_LAUNCHES and
+SERIAL_BF16_LAUNCHES, which read the bank as `GmmBank.mma_operator` rows;
+the plain versions take the same argument.
+
 A serial decision is microseconds of device work, so the wrappers keep
 their host path short: what a call needs of the bank (the rows, their
 pointer, the device, the launch shape for d, the library) is a `_Plan`
@@ -37,7 +46,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ..models.gmm import GmmBank
+from ..models.gmm import PRECISIONS, GmmBank
 from ..models.gmm import (
     bank_sum_loglik as bank_sum_loglik_reference,
     bank_avg_loglik as bank_avg_loglik_reference,
@@ -47,11 +56,15 @@ from ..models.gmm import (
 # (gmm_serial.cu); the CPU path does not count
 LAUNCHES = 0
 SERIAL_LAUNCHES = 0
+# the same, precision="bf16" (gmm_score_bf16.cu, gmm_serial_bf16.cu)
+BF16_LAUNCHES = 0
+SERIAL_BF16_LAUNCHES = 0
 # calls of batch_scores / serial_scores at float64: the plain versions, on
 # the CPU or the card
 F64_CALLS = 0
 
-__all__ = ["F64_CALLS", "LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
+__all__ = ["BF16_LAUNCHES", "F64_CALLS", "LAUNCHES", "SERIAL_BF16_LAUNCHES",
+           "SERIAL_LAUNCHES", "bank_avg_loglik",
            "bank_avg_loglik_reference", "bank_sum_loglik",
            "bank_sum_loglik_reference", "batch_bank_avg_loglik",
            "batch_bank_avg_loglik_reference", "batch_scores",
@@ -59,11 +72,12 @@ __all__ = ["F64_CALLS", "LAUNCHES", "SERIAL_LAUNCHES", "bank_avg_loglik",
 
 
 class _Plan(NamedTuple):
-    """What both scoring wrappers keep of a bank on the card."""
+    """What both scoring wrappers keep of a bank on the card, at one
+    precision."""
 
     lib: object             # the kernels' ctypes library
-    comp: torch.Tensor      # [S, K, row] component rows (keeps comp_ptr valid)
-    comp_ptr: int
+    comp: torch.Tensor      # the component rows (keeps comp_ptr valid):
+    comp_ptr: int           # [S, K, row] f32, or [S, kp, row] bf16
     device: torch.device
     index: int              # the device's ordinal
     S: int
@@ -72,7 +86,7 @@ class _Plan(NamedTuple):
     warp_frames: int        # frames a batched warp tile takes at this d
 
 
-def _make_plan(bank: GmmBank) -> _Plan:
+def _make_plan(bank: GmmBank, precision: str = "f32") -> _Plan:
     dev = bank.op.device
     if dev.type != "cuda":
         raise ValueError(f"the bank is on {dev}, the features on the card")
@@ -80,11 +94,25 @@ def _make_plan(bank: GmmBank) -> _Plan:
     _build.check_tensor(bank.cw, "bank.cw", torch.float32, 1, dev)
     lib = _build.load()
     d = bank.dim
-    comp = bank.component_operator(lib.srt_component_row(d))
+    if precision == "bf16":
+        comp = bank.mma_operator(lib.srt_mma_row(d),
+                                 lib.srt_mma_components(bank.n_mixtures))
+        warp_frames = lib.srt_bank_bf16_warp_frames()
+    else:
+        comp = bank.component_operator(lib.srt_component_row(d))
+        warp_frames = lib.srt_bank_warp_frames(d)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return _Plan(lib, comp, comp.data_ptr(), torch.device("cuda", index),
-                 index, bank.n_speakers, bank.n_mixtures, d,
-                 lib.srt_bank_warp_frames(d))
+                 index, bank.n_speakers, bank.n_mixtures, d, warp_frames)
+
+
+def _make_plan_bf16(bank: GmmBank) -> _Plan:
+    return _make_plan(bank, "bf16")
+
+
+def _check_precision(precision: str):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision {precision!r}: one of {PRECISIONS}")
 
 
 def _on_plan_device(t: torch.Tensor, name: str, plan: _Plan):
@@ -110,10 +138,14 @@ def _stream(plan: _Plan) -> int:
 
 
 def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
-    """[B, T, d] f32 features, [B, T] bool mask -> [B, S] f32."""
+                          mask: torch.Tensor,
+                          precision: str = "f32") -> torch.Tensor:
+    """[B, T, d] f32 features, [B, T] bool mask -> [B, S] f32, the
+    matmul's operands at `precision`."""
+    _check_precision(precision)
     if feats.device.type == "cpu":
-        return batch_bank_avg_loglik_reference(bank, feats, mask)
+        return batch_bank_avg_loglik_reference(bank, feats, mask,
+                                               precision=precision)
     if feats.device.type != "cuda":
         raise ValueError(f"no bank scoring for device {feats.device}")
     _check_dtype(feats, "feats", torch.float32, 3)
@@ -121,7 +153,9 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
     B, T, d = feats.shape
     if tuple(mask.shape) != (B, T):
         raise ValueError(f"mask {tuple(mask.shape)} must be [{B}, {T}]")
-    plan = bank.scoring_plan(_make_plan)
+    bf16 = precision == "bf16"
+    plan = (bank.scoring_plan(_make_plan_bf16, "bf16") if bf16
+            else bank.scoring_plan(_make_plan))
     if plan.d != d:
         raise ValueError(f"bank dim {plan.d} must be {d}")
     _on_plan_device(feats, "feats", plan)
@@ -136,47 +170,62 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
     if B == 0:
         return out
     ptr = buf.data_ptr()
-    err = plan.lib.srt_bank_avg_loglik(
-        feats.data_ptr(), mask.data_ptr(), plan.comp_ptr, ptr + 4 * B * S,
-        ptr, B, T, d, S, plan.K, plan.index, _stream(plan))
+    launch = (plan.lib.srt_bank_avg_loglik_bf16 if bf16
+              else plan.lib.srt_bank_avg_loglik)
+    err = launch(feats.data_ptr(), mask.data_ptr(), plan.comp_ptr,
+                 ptr + 4 * B * S, ptr, B, T, d, S, plan.K, plan.index,
+                 _stream(plan))
     _build.check(err, "bank scoring kernel")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, BF16_LAUNCHES
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
 def _serial(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
-            avg: bool) -> torch.Tensor:
-    """Launch csrc/gmm_serial.cu on one utterance: [S] sums or averages."""
+            avg: bool, precision: str = "f32") -> torch.Tensor:
+    """Launch csrc/gmm_serial.cu (gmm_serial_bf16.cu at bf16) on one
+    utterance: [S] sums or averages."""
     _check_dtype(X, "X", torch.float32, 2)
     _check_dtype(mask, "mask", torch.bool, 1)
     n, d = X.shape
     if mask.shape[0] != n:
         raise ValueError(f"mask {tuple(mask.shape)} must be [{n}]")
-    plan = bank.scoring_plan(_make_plan)
+    bf16 = precision == "bf16"
+    plan = (bank.scoring_plan(_make_plan_bf16, "bf16") if bf16
+            else bank.scoring_plan(_make_plan))
     if plan.d != d:
         raise ValueError(f"bank dim {plan.d} must be {d}")
     _on_plan_device(X, "X", plan)
     _on_plan_device(mask, "mask", plan)
     out = torch.empty(plan.S, dtype=torch.float32, device=plan.device)
-    err = plan.lib.srt_bank_sum_loglik(
-        X.data_ptr(), mask.data_ptr(), plan.comp_ptr, out.data_ptr(), n, d,
-        plan.S, plan.K, int(avg), plan.index, _stream(plan))
+    launch = (plan.lib.srt_bank_sum_loglik_bf16 if bf16
+              else plan.lib.srt_bank_sum_loglik)
+    err = launch(X.data_ptr(), mask.data_ptr(), plan.comp_ptr,
+                 out.data_ptr(), n, d, plan.S, plan.K, int(avg), plan.index,
+                 _stream(plan))
     _build.check(err, "serial bank scoring kernel")
-    global SERIAL_LAUNCHES
-    SERIAL_LAUNCHES += 1
+    global SERIAL_LAUNCHES, SERIAL_BF16_LAUNCHES
+    if bf16:
+        SERIAL_BF16_LAUNCHES += 1
+    else:
+        SERIAL_LAUNCHES += 1
     return out
 
 
-def bank_sum_loglik(bank: GmmBank, X: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+def bank_sum_loglik(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
+                    precision: str = "f32") -> torch.Tensor:
     """[n, d] f32 utterance, [n] bool mask -> [S] f32 sums of per-frame
-    log-likelihoods over the valid frames."""
+    log-likelihoods over the valid frames, the matmul's operands at
+    `precision`."""
+    _check_precision(precision)
     if X.device.type == "cpu":
-        return bank_sum_loglik_reference(bank, X, mask)
+        return bank_sum_loglik_reference(bank, X, mask, precision=precision)
     if X.device.type != "cuda":
         raise ValueError(f"no bank scoring for device {X.device}")
-    return _serial(bank, X, mask, avg=False)
+    return _serial(bank, X, mask, avg=False, precision=precision)
 
 
 def bank_avg_loglik(bank: GmmBank, X: torch.Tensor,

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run a function in n processes on localhost, each a rank of one process
-group (parallel/multihost.initialize over tcp://localhost:<free port>):
-the port's counterpart of experiments/multiproc_cluster.py. gloo for
+group (parallel/multihost.initialize through a TCPStore that this process
+hosts on a port it binds itself, the ranks its clients): the port's
+counterpart of experiments/multiproc_cluster.py. gloo for
 `--device cpu` (the CPU "cluster" the tests drive), NCCL for CUDA (one
 card a rank).
 
@@ -39,8 +40,11 @@ def run(n: int, fn: str, kwargs: dict | None = None,
     rank order. `path`: directories the processes import from besides the
     repo's root. Raises if a process fails or the run outlives
     `timeout` seconds."""
-    from .multihost import free_port
+    from .multihost import host_store
 
+    # the ranks' rendezvous, up before they start: no port is picked and
+    # released for a rank to bind later, when another process may have it
+    store = host_store(None)
     with tempfile.TemporaryDirectory() as tmp:
         spec = os.path.join(tmp, "spec.pkl")
         with open(spec, "wb") as f:
@@ -49,7 +53,7 @@ def run(n: int, fn: str, kwargs: dict | None = None,
             [_REPO, *(path or []), os.environ.get("PYTHONPATH", "")]))
         if device == "cpu":  # n processes share the host's cores
             env.setdefault("OMP_NUM_THREADS", "2")
-        port = free_port()
+        port = store.port
         logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
                 for r in range(n)]
         procs = [subprocess.Popen(
@@ -90,8 +94,10 @@ def _worker(args):
 
     from . import multihost
 
-    multihost.initialize(f"localhost:{args.port}", args.num_processes,
-                         args.worker, device=args.device)
+    store = dist.TCPStore("localhost", args.port, None, False,
+                          timeout=multihost.TIMEOUT)
+    multihost.initialize(None, args.num_processes, args.worker,
+                         device=args.device, store=store)
     try:
         with open(args.spec, "rb") as f:
             spec = pickle.load(f)

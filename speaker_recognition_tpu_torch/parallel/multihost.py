@@ -4,10 +4,13 @@ speaker_recognition_tpu/parallel/multihost.py.
 `initialize` starts torch.distributed with the backend of the device: NCCL
 for CUDA, gloo for the CPU, with no fallback between them. Nothing tells a
 process of a cluster, so the caller gives the coordinator's address, the
-number of processes and this one's rank (parallel/launch starts n
-processes on localhost this way); one process by itself takes a free
-localhost port. The ('data', 'bank') mesh of parallel/mesh then spans the
-processes: the 'data' axis's all_reduce runs once per EM iteration.
+number of processes and this one's rank, or a store that is already up
+(parallel/launch hosts one and starts n processes on localhost as its
+clients). One process by itself rendezvouses through a store that binds a
+free localhost port itself: a port picked first and bound later could be
+taken by another process in between. The ('data', 'bank') mesh of
+parallel/mesh then spans the processes: the 'data' axis's all_reduce runs
+once per EM iteration.
 
 `scaling_report` measures audio-seconds/s over the current processes for
 the EM and bank-scoring workloads, so that runs at 1, 2 or more processes
@@ -17,7 +20,6 @@ give comparable JSON rows.
 from __future__ import annotations
 
 import json
-import socket
 import time
 from datetime import timedelta
 
@@ -25,17 +27,19 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["initialize", "scaling_report", "free_port", "backend"]
+__all__ = ["initialize", "scaling_report", "backend", "host_store"]
 
 # how long a collective, or the rendezvous, waits for the other ranks
 TIMEOUT = timedelta(seconds=120)
 
 
-def free_port() -> int:
-    """A free TCP port on localhost (the OS's pick)."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def host_store(world_size: int | None = 1):
+    """A TCPStore server on a free localhost port that it binds itself, so
+    no other process can take the port first; its port is `.port`. A
+    server for one process waits for that one client (itself), a hosted
+    one (world_size None) for none."""
+    return dist.TCPStore("localhost", 0, world_size, True, timeout=TIMEOUT,
+                         wait_for_workers=world_size is not None)
 
 
 def backend(device: torch.device | str) -> str:
@@ -51,23 +55,27 @@ def backend(device: torch.device | str) -> str:
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int = 1, process_id: int = 0,
-               device: torch.device | str = "cuda"):
+               device: torch.device | str = "cuda", store=None):
     """Start the process group of `num_processes` processes, this one rank
-    `process_id`, over tcp://coordinator_address (host:port; a free
-    localhost port for a single process), with the backend of `device`.
-    A CUDA process takes the card of its rank (modulo the cards it sees).
-    Returns torch.distributed."""
-    if coordinator_address is None:
-        if num_processes != 1:
-            raise ValueError("several processes need the coordinator's "
-                             "address")
-        coordinator_address = f"localhost:{free_port()}"
+    `process_id`, with the backend of `device`: through `store` when one
+    is given (a client of the store parallel/launch hosts), else over
+    tcp://coordinator_address (host:port), else, for a single process,
+    through a store of its own (host_store). A CUDA process takes the card
+    of its rank (modulo the cards it sees). Returns torch.distributed."""
+    rendezvous = {}
+    if store is not None:
+        rendezvous["store"] = store
+    elif coordinator_address is not None:
+        rendezvous["init_method"] = f"tcp://{coordinator_address}"
+    elif num_processes != 1:
+        raise ValueError("several processes need the coordinator's address "
+                         "or a store")
+    else:
+        rendezvous["store"] = host_store()
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
-    dist.init_process_group(backend(device),
-                            init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id,
-                            timeout=TIMEOUT)
+    dist.init_process_group(backend(device), world_size=num_processes,
+                            rank=process_id, timeout=TIMEOUT, **rendezvous)
     return dist
 
 

@@ -9,6 +9,7 @@ corpus and model cut from 200 background speakers x 3 x 10 s, K = 32, nv =
     python tests/test_torch_chip_smoke.py phase16   # one phase function
     python tests/test_torch_chip_smoke.py phase19_20  # the RBM family and
                                                       # multi-device phases
+    python tests/test_torch_chip_smoke.py phase21   # the bf16 modes
 
 Every kernel wrapper is replaced by its plain torch version (for the
 frontends, by the wrapper itself, which on CPU tensors runs its plain
@@ -19,7 +20,8 @@ pointers; the plain versions accept views); CUDA events time on the host clock, 
 `--device cpu`. This finds wrong paths, shapes, arguments and control flow
 in the on-card check without a card; the numbers it prints are CPU
 numbers, none of them a device metric. The test runs it in a subprocess
-(it patches torch.cuda) and reads its last two lines.
+(it patches torch.cuda) and reads its last two lines. Phase 21's bank of
+80 voices is cut to 8 voices x 2 s, each tested once on 1 s.
 """
 
 import functools
@@ -62,6 +64,8 @@ EDITS = [
     ("MULTI_ITERS, MULTI_S, SEQ_SEC = 50, 16, 60.0",
      "MULTI_ITERS, MULTI_S, SEQ_SEC = 10, 16, 6.0"),
     ("SCALING_FRAMES = 262_144", "SCALING_FRAMES = 4096"),
+    ("FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 80, 30.0, 2, 3.0",
+     "FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 8, 2.0, 1, 1.0"),
 ]
 
 
@@ -107,14 +111,24 @@ def _tile_counters(n_fft: int, nout: int, tile: str, big: str):
     return (tile, "CHUNKED_LAUNCHES") if nout > 512 else (tile,)
 
 
-def _signals_counter(*args, fft=None, **kw):
+def _signals_counter(*args, fft=None, mm_bf16=False, **kw):
+    if mm_bf16:
+        return ("BF16_LAUNCHES",)
     return _tile_counters(fft.n_fft, fft.mel.shape[1] + fft.acorr.shape[1],
                           "LAUNCHES", "BIG_LAUNCHES")
 
 
-def _frames_counter(*args, fft=None, **kw):
+def _frames_counter(*args, fft=None, mm_bf16=False, **kw):
+    if mm_bf16:
+        return ("FRAMES_BF16_LAUNCHES",)
     return _tile_counters(fft.n_fft, fft.mel.shape[1] + fft.acorr.shape[1],
                           "FRAMES_LAUNCHES", "FRAMES_BIG_LAUNCHES")
+
+
+def _precision_counter(f32: str, bf16: str):
+    """The counter a scoring wrapper's kernel moves at its precision."""
+    return lambda *a, precision="f32", **kw: (
+        (bf16,) if precision == "bf16" else (f32,))
 
 
 def _fft_past_512(name, fft_plain):
@@ -124,10 +138,11 @@ def _fft_past_512(name, fft_plain):
     dense = getattr(gpu_frontend, name)
 
     @functools.wraps(dense)
-    def run(*args, fft=None, **kw):
-        if fft is not None and fft.mel.shape[1] + fft.acorr.shape[1] > 512:
+    def run(*args, fft=None, mm_bf16=False, **kw):
+        if (not mm_bf16 and fft is not None
+                and fft.mel.shape[1] + fft.acorr.shape[1] > 512):
             return fft_plain(*args, fft=fft, **kw)
-        return dense(*args, fft=fft, **kw)
+        return dense(*args, fft=fft, mm_bf16=mm_bf16, **kw)
     return run
 
 
@@ -204,8 +219,10 @@ def main():
         _counting(gpu_frontend, name,
                   stand_ins.get(name, getattr(gpu_frontend, name)), counter)
     for mod, name, counter in (
-            (gpu_gmm, "batch_bank_avg_loglik", "LAUNCHES"),
-            (gpu_gmm, "bank_sum_loglik", "SERIAL_LAUNCHES"),
+            (gpu_gmm, "batch_bank_avg_loglik",
+             _precision_counter("LAUNCHES", "BF16_LAUNCHES")),
+            (gpu_gmm, "bank_sum_loglik",
+             _precision_counter("SERIAL_LAUNCHES", "SERIAL_BF16_LAUNCHES")),
             (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES")):
         _counting(mod, name, getattr(mod, name + "_reference"), counter)
     _fused("fused_bank_predict", "LAUNCHES")
@@ -226,6 +243,7 @@ def main():
     smoke.device_times = lambda fn, calls=20: "device not measured (CPU)"
     smoke.kernels_per_call = lambda fn, **kw: {"serial_kernel": 1.0}
     smoke.kernel_times = lambda fn, **kw: "not measured (CPU)"
+    smoke.occupancy = lambda *a, **kw: "occupancy not measured (CPU)"
     if len(sys.argv) > 1:  # one phase function: phase16, 17 or 18
         import numpy as np
         rng, dev, card = (np.random.RandomState(0), torch.device("cpu"),
@@ -239,9 +257,34 @@ def main():
         if sys.argv[1] == "phase19_20":
             smoke.phase20(dev, card, smoke.phase19(dev, card))
             return
+        if sys.argv[1] == "phase21":
+            _phase21(smoke, rng, dev, card, bench)
+            return
         getattr(smoke, sys.argv[1])(*args)
         return
     smoke.main([])
+
+
+def _phase21(smoke, rng, dev, card, bench):
+    """Phase 21 alone, on stand-ins for main's banks and utterances."""
+    from speaker_recognition_tpu_torch.config import FeatureConfig, LpcConfig
+    from speaker_recognition_tpu_torch.features.extract import PackedFrontend
+
+    fe8 = PackedFrontend(8000, FeatureConfig(), dev)
+    fe8c = PackedFrontend(8000, FeatureConfig(lpc=LpcConfig(n_lpcc=16)),
+                          dev)
+    feats, mask = fe8(*bench)
+    bank = smoke.random_bank(rng, 4, 32, 28, dev)
+    x5, m5 = smoke.utterance(feats[0], int(mask[0].sum()), dev)
+    s48, l48 = smoke.signals_batch(rng, [48000, 30000], 49152, dev)
+    smoke.phase21(
+        rng, dev, card, *bench, fe8, fe8c, bank,
+        {"bench_feats": (feats, mask),
+         "cases": (("bank 6 x 16, B=4", smoke.random_bank(rng, 6, 16, 28,
+                                                          dev),
+                    feats[:4].contiguous(), mask[:4].contiguous()),)},
+        {"cases": (("bank 5 x 32", bank, x5, m5),), "timed": (bank, x5, m5)},
+        (s48, l48))
 
 
 KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
@@ -250,13 +293,14 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def test_chip_smoke_rehearses_on_the_cpu():
-    """All twenty phases pass on the CPU; the kernels record lists the
+    """All twenty-one phases pass on the CPU; the kernels record lists the
     seven TPU kernels (K1 in both its modes, K6 in both its routes, K5's
     dense template), then the routes of phase 16 (K1, K4 and K5 on the
     four-step FFT of N >= 32768 and past 512 outputs, K6's lifted bf16
     route), phase 13's lifted f32 monolith (N = 32768 on the four-step
-    route, 616 outputs) and phase 20's multi-device path (K3 on the
-    bank-sharded scoring, K1 on the sequence-sharded features), with every
+    route, 616 outputs), phase 20's multi-device path (K3 on the
+    bank-sharded scoring, K1 on the sequence-sharded features) and phase
+    21's bf16 operand modes (K1, K4, K2, K3), with every
     key, each launched on its path but K4, which no serving path takes
     (its launches against its plain version are demanded by phases 11 and
     16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
@@ -284,7 +328,9 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_frontend.py:231", "pallas_frontend.py:111",
         "pallas_frontend.py:50", "pallas_predict.py:91",
         "pallas_predict.py:91", "pallas_predict.py:91",
-        "pallas_gmm.py:47", "pallas_frontend.py:231"]
+        "pallas_gmm.py:47", "pallas_frontend.py:231",
+        "pallas_frontend.py:231", "pallas_frontend.py:111",
+        "pallas_gmm.py:154", "pallas_gmm.py:47"]
     assert [k["name"] for k in kernels[10:]] == [
         "packed_frontend_n32768", "packed_from_frames_n32768",
         "mfcc_from_frames_n32768", "mfcc_from_frames_n65536",
@@ -292,8 +338,13 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "packed_from_frames_616_outputs", "mfcc_from_frames_616_outputs",
         "fused_bank_predict_bf16_lifted", "fused_bank_predict_n32768",
         "fused_bank_predict_616_outputs", "bank_sum_loglik_sharded",
-        "packed_frontend_seqshard"]
+        "packed_frontend_seqshard", "packed_frontend_bf16",
+        "packed_from_frames_bf16", "bank_avg_loglik_bf16",
+        "bank_sum_loglik_bf16"]
     assert kernels[18]["source"].endswith("csrc/predict_fused_big.cu")
+    assert [k["source"].rsplit("/", 1)[1] for k in kernels[22:]] == [
+        "frontend_bf16.cu", "frontend_bf16.cu", "gmm_score_bf16.cu",
+        "gmm_serial_bf16.cu"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
         if k["name"].startswith("packed_from_frames"):
@@ -418,10 +469,23 @@ def test_chip_smoke_rehearses_on_the_cpu():
              "the LPC tolerance"),
             ("phase 20 fft f32 (CMVN off) vs the float64", "frames past "
              "the LPC tolerance"),
+            ("phase 20 K1 (CMVN off) vs the float64 route on the voice's "
+             "first", "frames past the LPC tolerance"),
             ("phase 20 K1 on the seqshard voice within 2.0x", "against"),
-            ("phase 20 [CPU rehearsal", 'scaling_report: {"processes": 1')):
+            ("phase 20 [CPU rehearsal", 'scaling_report: {"processes": 1'),
+            ("phase 21 K2 bf16 against f32 at 8 x 256", "decisions flip"),
+            ("phase 21 predict_scores(mm='bf16'), bench", "launches {'K1 "
+             "f32': 0, 'K1 bf16': 1, 'K2 f32': 1, 'K2 bf16': 0, 'K5': 0, "
+             "'full bf16': 0}"),
+            ("phase 21 predict_scores(mm='bf16') at 48 kHz", "'K1 bf16': 0, "
+             "'K2 f32': 1, 'K2 bf16': 0, 'K5': 0, 'full bf16': 1}"),
+            ("phase 21 [CPU rehearsal", "predict_bf16")):
         assert any(ln.startswith(start) and part in ln
                    for ln in lines), start
+    for start, n in (("phase 21 K2 bf16", 6), ("phase 21 K3 bf16", 4),
+                     ("phase 21 K1 bf16", 4), ("phase 21 K4 bf16", 1)):
+        assert sum(ln.startswith(start) and (
+            "two calls bitwise equal True" in ln) for ln in lines) == n, start
 
 
 if __name__ == "__main__":

@@ -217,3 +217,57 @@ def test_cli_enroll_is_refused(capsys, tmp_path):
     assert "No valid directory found!" in capsys.readouterr().out
     args = cli.get_args(["-t", "predict", "-i", "a", "-m", "b"])
     assert args.device == "cuda"
+
+
+def _bf16_surface():
+    """The bf16 operand modes' arguments and their JAX counterparts:
+    {name: (port function, argument, default, JAX function or None)}."""
+    from speaker_recognition_tpu.api import fastpath as jfast
+    from speaker_recognition_tpu.ops import pallas_frontend, pallas_gmm
+    from speaker_recognition_tpu_torch.api import fastpath
+    from speaker_recognition_tpu_torch.features import extract
+    from speaker_recognition_tpu_torch.ops import gpu_frontend, gpu_gmm
+    return {
+        "batch_bank_avg_loglik": (gpu_gmm.batch_bank_avg_loglik,
+                                  "precision", "f32",
+                                  pallas_gmm.batch_bank_avg_loglik),
+        "bank_sum_loglik": (gpu_gmm.bank_sum_loglik, "precision", "f32",
+                            pallas_gmm.bank_sum_loglik),
+        "packed_from_signals": (gpu_frontend.packed_from_signals, "mm_bf16",
+                                False, pallas_frontend.packed_from_signals),
+        "packed_from_frames": (gpu_frontend.packed_from_frames, "mm_bf16",
+                               False, pallas_frontend.packed_from_frames),
+        "predict_scores": (fastpath.predict_scores, "mm", "f32",
+                           jfast.predict_scores_fn),
+        "extract_batch": (extract.extract_batch, "mm", "f32", None),
+        "frontend": (extract.frontend, "mm", "f32", None),
+        "PackedFrontend": (extract.PackedFrontend, "mm", "f32", None),
+        "FullFrontend": (extract.FullFrontend, "mm", "f32", None)}
+
+
+@pytest.mark.parametrize("name", sorted(_bf16_surface()))
+def test_bf16_modes_default_to_the_f32_operands(name):
+    """Each bf16 operand mode is an argument that defaults to f32 operands,
+    named as in the JAX signature it mirrors; bank_avg_loglik takes none,
+    as the JAX package's does not."""
+    from speaker_recognition_tpu.ops import pallas_gmm
+    from speaker_recognition_tpu_torch.ops import gpu_gmm
+    fn, arg, default, jfn = _bf16_surface()[name]
+    assert inspect.signature(fn).parameters[arg].default == default
+    if jfn is not None:
+        assert inspect.signature(jfn).parameters[arg].default == default
+    for f in (gpu_gmm.bank_avg_loglik, pallas_gmm.bank_avg_loglik):
+        assert "precision" not in inspect.signature(f).parameters
+
+
+@pytest.mark.parametrize("source", ["gmm_score_bf16.cu",
+                                    "gmm_serial_bf16.cu"])
+def test_bf16_scoring_runs_on_tensor_core_instructions(source):
+    """K2's and K3's bf16 kernels take csrc/gmm_mma.cuh's inner loop,
+    which issues mma.sync on bf16 fragments with f32 accumulation."""
+    csrc = os.path.join(REPO, "speaker_recognition_tpu_torch", "csrc")
+    with open(os.path.join(csrc, source)) as f:
+        assert '#include "gmm_mma.cuh"' in f.read()
+    with open(os.path.join(csrc, "gmm_mma.cuh")) as f:
+        assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" \
+            in f.read()

@@ -204,7 +204,8 @@ def _fft_route(monkeypatch):
     """Serve the frontends through the FFT route's plain versions, as the
     kernels do on the card."""
     def packed(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-               fft=None, fuse_lpc=True):
+               fft=None, fuse_lpc=True, mm_bf16=False):
+        assert not mm_bf16  # the f32 kernel's route
         return gpu_frontend.packed_from_signals_fft_reference(
             signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
 

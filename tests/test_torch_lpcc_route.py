@@ -153,7 +153,8 @@ def _fft_route(monkeypatch):
     """Serve the signal frontend through its FFT route's plain version, as
     the kernel does on the card."""
     def packed(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-               fft=None, fuse_lpc=True):
+               fft=None, fuse_lpc=True, mm_bf16=False):
+        assert not mm_bf16  # the f32 kernel's route
         return gpu_frontend.packed_from_signals_fft_reference(
             signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
     monkeypatch.setattr(gpu_frontend, "packed_from_signals", packed)

@@ -8,6 +8,7 @@ the port's features/extract.mix_feature (not the JAX seqshard, which
 ignores f_max, preemph_first, n_lpcc and n_deltas)."""
 
 import os
+import socket
 import sys
 
 import numpy as np
@@ -232,3 +233,63 @@ def test_launcher_kills_a_run_past_its_timeout():
     with pytest.raises(subprocess.TimeoutExpired):
         launch.run(2, "torch_parallel_workers:sleep", {"seconds": 60},
                    device="cpu", timeout=5, path=[HERE])
+
+
+@pytest.fixture
+def port_thief(monkeypatch):
+    """A neighbour that takes every port a Python socket had bound the
+    moment the socket closes (and listens on it): what another process may
+    do between a free-port pick (bind port 0, read the port, close) and
+    the later bind of that port. Its listeners close afterwards."""
+    held = []
+    close = socket.socket.close
+
+    def close_and_take(self):
+        try:
+            port = (self.getsockname()[1]
+                    if self.family == socket.AF_INET else 0)
+        except OSError:
+            port = 0
+        close(self)
+        if port:
+            thief = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            try:
+                thief.bind(("localhost", port))
+                thief.listen()
+                held.append(thief)
+            except OSError:
+                close(thief)
+
+    monkeypatch.setattr(socket.socket, "close", close_and_take)
+    yield held
+    monkeypatch.undo()
+    for t in held:
+        t.close()
+
+
+def test_initialize_alone_leaves_no_port_to_take(port_thief):
+    """One process by itself rendezvouses through a store that binds its
+    own port, so a neighbour that takes released ports cannot break it (a
+    port picked, released and bound later by the tcp:// rendezvous could be
+    taken in between: the full suite's intermittent failure of the
+    rehearsal's phase 20)."""
+    import torch.distributed as dist
+
+    from speaker_recognition_tpu_torch.parallel import multihost
+
+    multihost.initialize(None, 1, 0, device="cpu")
+    try:
+        t = torch.ones(3)
+        dist.all_reduce(t)
+        assert dist.get_world_size() == 1 and torch.equal(t, torch.ones(3))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_launcher_leaves_no_port_to_take(port_thief):
+    """The launcher hosts its ranks' store on a port the store binds
+    itself before any rank starts, so a neighbour that takes released
+    ports cannot take the rendezvous's."""
+    got = launch.run(2, "torch_parallel_workers:group", device="cpu",
+                     timeout=TIMEOUT, path=[HERE])
+    assert got == [(0, 2, 1.0), (1, 2, 1.0)]

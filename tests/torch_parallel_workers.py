@@ -104,6 +104,16 @@ def run_all(tmp: str, device: str = "cpu") -> dict:
     return out
 
 
+def group() -> tuple:
+    """(rank, world size, the all_reduce sum of the ranks): the group is
+    up and its collectives run."""
+    import torch.distributed as dist
+
+    t = torch.tensor([float(dist.get_rank())])
+    dist.all_reduce(t)
+    return dist.get_rank(), dist.get_world_size(), float(t)
+
+
 def sleep(seconds: float):
     """A rank that outlives any test's timeout."""
     time.sleep(seconds)
