@@ -246,6 +246,27 @@ SLICE_RTOL = 1e-3
 # Serial kernel vs plain: per-frame sums of the same products in another
 # order, then a sum over frames in chunks; ~4e-7 relative measured.
 SERIAL_RTOL = 1e-4
+# The bf16 modes, kernel vs plain on the card: the same bf16-rounded
+# operands, whose products are exact in f32, summed in another order by the
+# tensor cores (K2, K3) or the dense tile (K1, K4). Measured on the H100:
+# K2 up to 2.5e-6 relative (d = 300; 7e-7 at d = 28), K3 6.3e-7, K1's
+# cepstra 4e-5 and LPC 8.8e-5 (48 kHz, fft_size 4096), K1's raw
+# autocorrelation and K4 0, predict_scores(mm="bf16") 5.2e-7, the 48 kHz
+# full route against the CPU 1.5e-6. Each gate is a few times that, far
+# under the f32 gates above, which are as wide as the bf16 rounding itself.
+SCORE_BF16_RTOL = 1e-5
+SERIAL_BF16_RTOL = 5e-6
+MFCC_BF16_ATOL = 2e-4
+LPC_BF16_ATOL, LPC_BF16_RTOL = 1e-3, 1e-4
+ACORR_BF16_RTOL = 1e-5
+PREDICT_BF16_RTOL = 5e-6
+FULL_BF16_RTOL = 2e-5
+# ... and each bf16 check also measures, on the same inputs, how far the
+# f32 mode (for K2 and K3 also the other kernel's x^2 rounding) lies from
+# the bf16 plain version, and fails unless that is at least BF16_APART
+# gates: a kernel that rounds nothing, or rounds x^2 the other way, would
+# fail its gate.
+BF16_APART = 3.0
 # 20 EM iterations of GMM-32 in f32 on the card against f64 on the CPU
 # from one init: f32 vs f64 on the CPU drifts by up to 8e-5 absolute on
 # means and sigmas (O(1)) and 1.2e-6 on weights; 1e-3 leaves 12x margin.
@@ -410,13 +431,15 @@ def frontend_args(fe: PackedFrontend, sig, lengths):
             fe.floor, fe.frame_shift, fe.cmvn)
 
 
-def feature_errors(got, want, mask, nc):
+def feature_errors(got, want, mask, nc, lpc_tol=(LPC_ATOL, LPC_RTOL)):
     """(max |d| of the MFCC columns, of the LPC columns, count of LPC
-    entries over both LPC bounds) on the valid frames of [B, T, d]."""
+    entries over both LPC bounds `lpc_tol`) on the valid frames of
+    [B, T, d]."""
     m = mask[..., None]
     d_mfcc = ((got[..., :nc] - want[..., :nc]).abs() * m).max().item()
     d_lpc = (got[..., nc:] - want[..., nc:]).abs()
-    lpc_bad = ((d_lpc > LPC_ATOL) & (d_lpc > LPC_RTOL * want[..., nc:].abs())
+    lpc_bad = ((d_lpc > lpc_tol[0])
+               & (d_lpc > lpc_tol[1] * want[..., nc:].abs())
                & m).sum().item()
     d_lpc = (d_lpc * m).max().item() if d_lpc.numel() else 0.0
     return d_mfcc, d_lpc, lpc_bad
@@ -520,12 +543,50 @@ def random_bank(rng, S, K, d, dev, uniform_weights=False):
                               dev)
 
 
+def max_rel(got, want, floor=1e-30) -> float:
+    return float(((got - want).abs() / want.abs().clamp_min(floor)).max())
+
+
+def swapped_rounding(bank, X, mask, batched: bool):
+    """The plain bf16 scores with x^2 rounded the other JAX kernel's way
+    (K2, batched: x rounded, squared, rounded again; K3, serial: squared in
+    f32, rounded once): [B, S] averages or [S] sums."""
+    S, K = bank.n_speakers, bank.n_mixtures
+    Z, op = gmm._operands(bank, X, "bf16", square_rounded=not batched)
+    lse = gmm._floored_lse((Z @ op + bank.cw).reshape(*X.shape[:-1], S, K),
+                           1e-15)
+    m = mask.to(X.dtype)
+    if not batched:
+        return m @ lse
+    return torch.einsum("bts,bt->bs", lse, m) / m.sum(-1).clamp_min(1.0)[
+        :, None]
+
+
+def bf16_apart(what: str, dists: dict, tol: float) -> str:
+    """Raise unless every distance of `dists` (the f32 mode's, the other
+    rounding's, from the bf16 plain version) is at least BF16_APART x tol;
+    returns them for the check's line."""
+    for k, v in dists.items():
+        if not v >= BF16_APART * tol:
+            raise AssertionError(
+                f"{what}: the {k} lies {v:.3e} from the bf16 plain version, "
+                f"under {BF16_APART:g} x the gate {tol:g}: the gate cannot "
+                "tell the modes apart")
+    return ("; from the bf16 plain version: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in dists.items())
+        + f" (each >= {BF16_APART:g} x tol: "
+        + f"{min(dists.values()) / tol:.1f}x)")
+
+
 def check_scoring(name, bank, feats, mask, phase=3,
                   precision="f32") -> float:
     """The batched scoring kernel at `precision` vs its plain version:
-    SCORE_RTOL, the same argmax, two calls bitwise, two launches counted;
-    returns the max abs error."""
-    counter = "BF16_LAUNCHES" if precision == "bf16" else "LAUNCHES"
+    SCORE_RTOL (SCORE_BF16_RTOL at bf16, where the f32 mode and K3's x^2
+    rounding must lie BF16_APART gates away), the same argmax, two calls
+    bitwise, two launches counted; returns the max abs error."""
+    bf16 = precision == "bf16"
+    counter = "BF16_LAUNCHES" if bf16 else "LAUNCHES"
+    tol = SCORE_BF16_RTOL if bf16 else SCORE_RTOL
     before = getattr(gpu_gmm, counter)
     got = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask,
                                         precision=precision)
@@ -538,16 +599,22 @@ def check_scoring(name, bank, feats, mask, phase=3,
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite scores")
     d = (got - want).abs()
-    rel = (d / want.abs().clamp_min(1e-30)).max().item()
+    rel = max_rel(got, want)
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
     bitwise = torch.equal(got, again)
-    mode = "K2 bf16 " if precision == "bf16" else ""
+    apart = bf16_apart(name, {
+        "f32 mode": max_rel(gpu_gmm.batch_bank_avg_loglik_reference(
+            bank, feats, mask), want),
+        "K3's x^2 rounding": max_rel(swapped_rounding(bank, feats, mask,
+                                                      True), want)},
+        tol) if bf16 else ""
+    mode = "K2 bf16 " if bf16 else ""
     print(f"phase {phase} {mode}{name}: [B, S] {tuple(got.shape)} d "
           f"{feats.shape[-1]} K "
           f"{bank.n_mixtures} max|d| {d.max().item():.3e} max rel {rel:.3e} "
-          f"(tol {SCORE_RTOL}) argmax identical {same} launches {launched} "
-          f"two calls bitwise equal {bitwise}", flush=True)
-    if rel > SCORE_RTOL or not same or not bitwise or launched != 2:
+          f"(tol {tol}) argmax identical {same} launches {launched} "
+          f"two calls bitwise equal {bitwise}{apart}", flush=True)
+    if rel > tol or not same or not bitwise or launched != 2:
         raise AssertionError(f"{name}: scoring kernel disagrees with plain")
     return d.max().item()
 
@@ -2188,7 +2255,8 @@ def phase20(dev, card, feats: dict) -> list:
 def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
                         fuse_lpc=True) -> float:
     """K1's bf16 mode vs its plain version (the dense product on bf16-rounded
-    signals and D) on one batch: zeros past n_valid, two calls bitwise, two
+    signals and D) on one batch, at the bf16 gates, the f32 dense product
+    BF16_APART gates away: zeros past n_valid, two calls bitwise, two
     launches counted; returns the max abs error (of the cepstra in the
     raw-autocorrelation mode, whose autocorrelation is held to lag 0)."""
     args = frontend_args(fe, sig, lengths)
@@ -2201,40 +2269,55 @@ def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
     again = gpu_frontend.packed_from_signals(*args, fuse_lpc=fuse_lpc,
                                              mm_bf16=True)
     launched = gpu_frontend.BF16_LAUNCHES - before
-    want = gpu_frontend.packed_from_signals_reference(
-        *args, fuse_lpc=fuse_lpc, mm_bf16=True)
+    want, f32 = (gpu_frontend.packed_from_signals_reference(
+        *args, fuse_lpc=fuse_lpc, mm_bf16=bf16) for bf16 in (True, False))
     torch.cuda.synchronize()
-    got, again, want = ((x,) if fuse_lpc else x for x in (got, again, want))
+    got, again, want, f32 = ((x,) if fuse_lpc else x
+                             for x in (got, again, want, f32))
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     if not all(torch.isfinite(x).all() for x in got) or any(
             (x[~mask] != 0).any() for x in got):
         raise AssertionError(f"{name}: non-finite or unmasked features")
     nc = fe.dct.shape[1]
-    if fuse_lpc:
-        d_mfcc, d_lpc, lpc_bad = feature_errors(got[0], want[0], mask, nc)
-        d_r, err = 0.0, max(d_mfcc, d_lpc)
-    else:
-        d_mfcc = float((got[0] - want[0]).abs().max())
+
+    def ceps(a):
+        return float(((a[0] - want[0]).abs() * mask[..., None]).max())
+
+    def acorr(a):
         lag0 = want[1][..., :1].abs().clamp_min(1e-30)
-        d_r = float(((got[1] - want[1]).abs() / lag0)[mask].max())
+        return float(((a[1] - want[1]).abs() / lag0)[mask].max())
+
+    if fuse_lpc:
+        d_mfcc, d_lpc, lpc_bad = feature_errors(
+            got[0], want[0], mask, nc, (LPC_BF16_ATOL, LPC_BF16_RTOL))
+        d_r, err = 0.0, max(d_mfcc, d_lpc)
+        apart = bf16_apart(name, {"f32 product's cepstra": feature_errors(
+            f32[0], want[0], mask, nc)[0]}, MFCC_BF16_ATOL)
+    else:
+        d_mfcc, d_r = ceps(got), acorr(got)
         d_lpc, lpc_bad, err = 0.0, 0, d_mfcc
+        apart = bf16_apart(name, {"f32 product's cepstra": ceps(f32)},
+                           MFCC_BF16_ATOL)
+        apart += bf16_apart(name, {"f32 product's autocorrelation":
+                                   acorr(f32)}, ACORR_BF16_RTOL)
     print(f"phase 21 K1 bf16 {name} vs its plain version: "
           f"{[tuple(x.shape) for x in got]} mfcc max|d| {d_mfcc:.3e} (tol "
-          f"{MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad}) "
-          f"autocorrelation max|d|/lag0 {d_r:.3e} (tol {ACORR_RTOL}) "
-          f"launches {launched} two calls bitwise equal {bitwise}",
+          f"{MFCC_BF16_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad}) "
+          f"autocorrelation max|d|/lag0 {d_r:.3e} (tol {ACORR_BF16_RTOL}) "
+          f"launches {launched} two calls bitwise equal {bitwise}{apart}",
           flush=True)
-    if (d_mfcc > MFCC_ATOL or lpc_bad or d_r > ACORR_RTOL or launched != 2
-            or not bitwise):
+    if (d_mfcc > MFCC_BF16_ATOL or lpc_bad or d_r > ACORR_BF16_RTOL
+            or launched != 2 or not bitwise):
         raise AssertionError(f"{name}: K1's bf16 mode disagrees with its "
                              "plain version")
     return err
 
 
 def check_serial_bf16(name, bank, x, mask) -> float:
-    """K3's bf16 mode vs its plain version: the sums within SERIAL_RTOL,
-    two calls bitwise, two launches counted; returns the max abs error of
-    the sums over the valid frames (the averages')."""
+    """K3's bf16 mode vs its plain version: the sums within
+    SERIAL_BF16_RTOL, the f32 mode and K2's x^2 rounding BF16_APART gates
+    away, two calls bitwise, two launches counted; returns the max abs
+    error of the sums over the valid frames (the averages')."""
     before = gpu_gmm.SERIAL_BF16_LAUNCHES
     sums = gpu_gmm.bank_sum_loglik(bank, x, mask, precision="bf16")
     again = gpu_gmm.bank_sum_loglik(bank, x, mask, precision="bf16")
@@ -2242,14 +2325,19 @@ def check_serial_bf16(name, bank, x, mask) -> float:
     want = gpu_gmm.bank_sum_loglik_reference(bank, x, mask, precision="bf16")
     torch.cuda.synchronize()
     n = max(int(mask.sum()), 1)
-    rel = ((sums - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    rel = max_rel(sums, want, 1.0)
     bitwise = torch.equal(sums, again)
+    apart = bf16_apart(name, {
+        "f32 mode": max_rel(gpu_gmm.bank_sum_loglik_reference(bank, x, mask),
+                            want, 1.0),
+        "K2's x^2 rounding": max_rel(swapped_rounding(bank, x, mask, False),
+                                     want, 1.0)}, SERIAL_BF16_RTOL)
     print(f"phase 21 K3 bf16 {name}: [S] {tuple(sums.shape)} frames "
           f"{x.shape[0]} d {x.shape[1]} K {bank.n_mixtures} max rel "
-          f"{rel:.3e} (tol {SERIAL_RTOL}) launches {launched} two calls "
-          f"bitwise equal {bitwise}", flush=True)
-    if (not torch.isfinite(sums).all() or rel > SERIAL_RTOL or not bitwise
-            or launched != 2):
+          f"{rel:.3e} (tol {SERIAL_BF16_RTOL}) launches {launched} two calls "
+          f"bitwise equal {bitwise}{apart}", flush=True)
+    if (not torch.isfinite(sums).all() or rel > SERIAL_BF16_RTOL
+            or not bitwise or launched != 2):
         raise AssertionError(f"{name}: K3's bf16 mode disagrees with its "
                              "plain version")
     return float((sums - want).abs().max()) / n
@@ -2361,21 +2449,26 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     k4 = [gpu_frontend.packed_from_frames(*fargs, mm_bf16=True)
           for _ in range(2)]
     k4_launched = gpu_frontend.FRAMES_BF16_LAUNCHES - before
-    want_c, want_r = gpu_frontend.packed_from_frames_reference(
-        *fargs, mm_bf16=True)
+    want, f32 = (fe8.finish(*(x.view(B, T, -1) for x in
+                              gpu_frontend.packed_from_frames_reference(
+                                  *fargs, mm_bf16=bf16)), fmask)[0]
+                 for bf16 in (True, False))
     torch.cuda.synchronize()
     got, fm = fe8.finish(k4[0][0].view(B, T, -1), k4[0][1].view(B, T, -1),
                          fmask)
-    want, _ = fe8.finish(want_c.view(B, T, -1), want_r.view(B, T, -1), fmask)
-    d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, fm, fe8.dct.shape[1])
+    nc = fe8.dct.shape[1]
+    d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, fm, nc,
+                                            (LPC_BF16_ATOL, LPC_BF16_RTOL))
+    apart = bf16_apart("K4 bf16", {"f32 product's cepstra": feature_errors(
+        f32, want, fm, nc)[0]}, MFCC_BF16_ATOL)
     k4_bits = all(torch.equal(a, b) for a, b in zip(*k4))
     print(f"phase 21 K4 bf16 bench frames {tuple(fargs[0].shape)} vs its "
           f"plain version, through CMVN and Levinson: mfcc max|d| "
-          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over "
+          f"{d_mfcc:.3e} (tol {MFCC_BF16_ATOL}) lpc max|d| {d_lpc:.3e} (over "
           f"tol: {lpc_bad}) launches {k4_launched} two calls bitwise equal "
-          f"{k4_bits}", flush=True)
-    if (d_mfcc > MFCC_ATOL or lpc_bad or k4_launched != 2 or not k4_bits
-            or not torch.isfinite(got).all()):
+          f"{k4_bits}{apart}", flush=True)
+    if (d_mfcc > MFCC_BF16_ATOL or lpc_bad or k4_launched != 2
+            or not k4_bits or not torch.isfinite(got).all()):
         raise AssertionError("K4's bf16 mode disagrees with its plain "
                              "version")
     err_k4 = max(d_mfcc, d_lpc)
@@ -2383,6 +2476,7 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     # the slice: predict_scores(mm="bf16") on the bench batch
     def reset():
         for mod, names in ((gpu_frontend, ("LAUNCHES", "BF16_LAUNCHES",
+                                           "FRAMES_BF16_LAUNCHES",
                                            "FULL_LAUNCHES", "FULL_BIG_LAUNCHES",
                                            "FULL_DENSE_LAUNCHES",
                                            "FULL_BF16_CALLS")),
@@ -2393,6 +2487,7 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     def counts():
         return {"K1 f32": gpu_frontend.LAUNCHES,
                 "K1 bf16": gpu_frontend.BF16_LAUNCHES,
+                "K4 bf16": gpu_frontend.FRAMES_BF16_LAUNCHES,
                 "K2 f32": gpu_gmm.LAUNCHES, "K2 bf16": gpu_gmm.BF16_LAUNCHES,
                 "K5": gpu_frontend.FULL_LAUNCHES
                 + gpu_frontend.FULL_BIG_LAUNCHES
@@ -2411,14 +2506,19 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     want = gpu_gmm.batch_bank_avg_loglik_reference(
         bench_bank, gpu_frontend.packed_from_signals_reference(
             *pargs, mm_bf16=True), pmask)
-    rel = float(((got - want).abs() / want.abs()).max())
+    rel = max_rel(got, want)
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    apart = bf16_apart("predict_scores(mm='bf16')", {
+        "f32 slice": max_rel(fastpath.predict_scores(
+            bench_sig, bench_len, bench_bank, BENCH_FS), want)},
+        PREDICT_BF16_RTOL)
     print(f"phase 21 predict_scores(mm='bf16'), bench 512 x 5 s: vs the "
-          f"plain versions composed max rel {rel:.3e} (tol {FUSED_RTOL}) "
-          f"argmax identical {same}; launches {slice_counts}", flush=True)
-    if (rel > FUSED_RTOL or not same or slice_counts["K1 bf16"] != 1
+          f"plain versions composed max rel {rel:.3e} (tol "
+          f"{PREDICT_BF16_RTOL}) argmax identical {same}; launches "
+          f"{slice_counts}{apart}", flush=True)
+    if (rel > PREDICT_BF16_RTOL or not same or slice_counts["K1 bf16"] != 1
             or slice_counts["K2 f32"] != 1 or slice_counts["K1 f32"]
-            or slice_counts["K2 bf16"]):
+            or slice_counts["K2 bf16"] or slice_counts["K4 bf16"]):
         raise AssertionError("predict_scores(mm='bf16') disagrees with the "
                              "plain versions or missed its kernels")
     # the 48 kHz full route's bf16 product: plain torch, K5 not launched
@@ -2430,26 +2530,30 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     full_counts = counts()
     cpu_bank = GmmBank(bench_bank.op.cpu(), bench_bank.cw.cpu(),
                        bench_bank.n_speakers, bench_bank.n_mixtures)
-    want48 = fastpath.predict_scores(s48.cpu(), l48.cpu(), cpu_bank, FS48,
-                                     mm="bf16")
-    rel48 = float(((got48.cpu() - want48).abs() / want48.abs()).max())
+    want48, f32_48 = (fastpath.predict_scores(s48.cpu(), l48.cpu(), cpu_bank,
+                                              FS48, mm=mm)
+                      for mm in ("bf16", "f32"))
+    rel48 = max_rel(got48.cpu(), want48)
+    apart = bf16_apart("the 48 kHz full route", {
+        "f32 slice": max_rel(f32_48, want48)}, FULL_BF16_RTOL)
     print(f"phase 21 predict_scores(mm='bf16') at 48 kHz (the full route's "
           f"bf16 product) vs the same on the CPU: max rel {rel48:.3e} (tol "
-          f"{SLICE_RTOL}); launches {full_counts}", flush=True)
-    if (rel48 > SLICE_RTOL or full_counts["full bf16"] != 1
+          f"{FULL_BF16_RTOL}); launches {full_counts}{apart}", flush=True)
+    if (rel48 > FULL_BF16_RTOL or full_counts["full bf16"] != 1
             or full_counts["K5"] or full_counts["K1 bf16"]
             or full_counts["K2 f32"] != 1):
         raise AssertionError("the 48 kHz bf16 route disagrees or took K5")
 
     # the main paths' launches, each counted on one call: K2 and K3 through
-    # their ops' precision=, K1 on predict_scores above; K4 has no serving
-    # caller
+    # their ops' precision=, K1 and K4 on predict_scores above (K4 has no
+    # serving caller: its count there is 0)
     gpu_gmm.BF16_LAUNCHES = gpu_gmm.SERIAL_BF16_LAUNCHES = 0
     sb, x5, m5 = serial["timed"]
     gpu_gmm.batch_bank_avg_loglik(bench_bank, feats, mask, precision="bf16")
     gpu_gmm.bank_sum_loglik(sb, x5, m5, precision="bf16")
     torch.cuda.synchronize()
-    launched = {"k1": slice_counts["K1 bf16"], "k4": 0,
+    launched = {"k1": slice_counts["K1 bf16"],
+                "k4": slice_counts["K4 bf16"],
                 "k2": gpu_gmm.BF16_LAUNCHES,
                 "k3": gpu_gmm.SERIAL_BF16_LAUNCHES}
 

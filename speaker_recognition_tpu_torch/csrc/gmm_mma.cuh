@@ -189,9 +189,13 @@ __device__ __forceinline__ void quad_merge(OnlineLse& l) {
 }
 
 // Every frame's online logsumexp back to empty (m = -inf, sum = 0), field
-// by field: with OnlineLse's default member initializers alone, the second
-// m16 tile's sums started at m = 0 in the H100 build (measured), which
-// flushed their exponentials to 0 once a frame's lse fell below -87.
+// by field. Also at the start, not left to OnlineLse's default member
+// initializers: for a 2-D local array the front end emits a memset of 0 and
+// the m = -inf stores, and the device optimizer of CUDA 12.9 keeps the
+// stores of the first row only, so the second m16 tile's sums started at
+// m = 0 and underflowed once a frame's lse fell below -87
+// (tools/nvcc_array_init.cu reproduces it; gmm_lse.cuh's 1-D array is not
+// affected).
 __device__ __forceinline__ void reset(OnlineLse (&lse)[MT][2]) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)

@@ -171,15 +171,17 @@ class GmmBank(nn.Module):
             self._mma = (self._state(), rows)
         return self._mma[1]
 
-    def scoring_plan(self, make: Callable[["GmmBank"], object],
+    def scoring_plan(self, make: Callable[["GmmBank", str], object],
                      precision: str = "f32"):
         """What the scoring kernels' wrappers keep of this bank between
         calls (ops/gpu_gmm: the component rows, their pointer, the device,
-        the launch shape for d), one plan a precision: make(self), cached
-        like component_operator and rebuilt when op or cw changes."""
+        the launch shape for d), one plan a precision: make(self,
+        precision), cached like component_operator and rebuilt when op or
+        cw changes."""
         plan = self._plans.get(precision)
         if not self._fresh(plan):
-            plan = self._plans[precision] = (self._state(), make(self))
+            plan = self._plans[precision] = (self._state(),
+                                             make(self, precision))
         return plan[1]
 
     @classmethod
@@ -204,8 +206,9 @@ def _floored_lse(logp: torch.Tensor, min_prob_sum: float) -> torch.Tensor:
                        torch.full_like(lse, math.log(min_prob_sum)))
 
 
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bfloat16 (nearest even), in t's dtype again."""
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bfloat16 (nearest even), in t's dtype again: a product
+    of two such values is exact in f32."""
     return t.to(torch.bfloat16).to(t.dtype)
 
 
@@ -218,9 +221,9 @@ def _operands(bank: GmmBank, X: torch.Tensor, precision: str,
         return torch.cat([X * X, X], dim=-1), bank.op
     if precision != "bf16":
         raise ValueError(f"precision {precision!r}: one of {PRECISIONS}")
-    xb = _bf16(X)
-    x2 = _bf16(xb * xb) if square_rounded else _bf16(X * X)
-    return torch.cat([x2, xb], dim=-1), _bf16(bank.op)
+    xb = round_bf16(X)
+    x2 = round_bf16(xb * xb) if square_rounded else round_bf16(X * X)
+    return torch.cat([x2, xb], dim=-1), round_bf16(bank.op)
 
 
 def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,

@@ -71,6 +71,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..models.gmm import round_bf16
 from . import framing, levinson
 
 # kernel launches since the last reset, one count per kernel; the CPU path
@@ -178,15 +179,9 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
             power @ acorr[:nb])
 
 
-def _bf16(t: torch.Tensor) -> torch.Tensor:
-    """t rounded to bfloat16 (nearest even), in t's dtype again: a product
-    of two such values is exact in f32."""
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
 def _dft(frames, D, mm_bf16: bool):
     """frames . D, with both operands rounded to bf16 under mm_bf16."""
-    return _bf16(frames) @ _bf16(D) if mm_bf16 else frames @ D
+    return round_bf16(frames) @ round_bf16(D) if mm_bf16 else frames @ D
 
 
 def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
@@ -439,9 +434,8 @@ def mfcc_from_frames_bf16(wp, C, S, mel, dct, floor: float, acorr):
     either device (TF32 stays off), counted in FULL_BF16_CALLS."""
     global FULL_BF16_CALLS
     FULL_BF16_CALLS += 1
-    wpb = _bf16(wp)
-    return mfcc_from_frames_reference(wpb, _bf16(C), _bf16(S), mel, dct,
-                                      floor, acorr)
+    return mfcc_from_frames_reference(round_bf16(wp), round_bf16(C),
+                                      round_bf16(S), mel, dct, floor, acorr)
 
 
 def packed_from_frames(frames, D, W, dct, floor: float, A,

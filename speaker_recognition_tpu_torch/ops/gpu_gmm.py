@@ -106,10 +106,6 @@ def _make_plan(bank: GmmBank, precision: str = "f32") -> _Plan:
                  index, bank.n_speakers, bank.n_mixtures, d, warp_frames)
 
 
-def _make_plan_bf16(bank: GmmBank) -> _Plan:
-    return _make_plan(bank, "bf16")
-
-
 def _check_precision(precision: str):
     if precision not in PRECISIONS:
         raise ValueError(f"precision {precision!r}: one of {PRECISIONS}")
@@ -154,8 +150,7 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
     if tuple(mask.shape) != (B, T):
         raise ValueError(f"mask {tuple(mask.shape)} must be [{B}, {T}]")
     bf16 = precision == "bf16"
-    plan = (bank.scoring_plan(_make_plan_bf16, "bf16") if bf16
-            else bank.scoring_plan(_make_plan))
+    plan = bank.scoring_plan(_make_plan, precision)
     if plan.d != d:
         raise ValueError(f"bank dim {plan.d} must be {d}")
     _on_plan_device(feats, "feats", plan)
@@ -194,8 +189,7 @@ def _serial(bank: GmmBank, X: torch.Tensor, mask: torch.Tensor,
     if mask.shape[0] != n:
         raise ValueError(f"mask {tuple(mask.shape)} must be [{n}]")
     bf16 = precision == "bf16"
-    plan = (bank.scoring_plan(_make_plan_bf16, "bf16") if bf16
-            else bank.scoring_plan(_make_plan))
+    plan = bank.scoring_plan(_make_plan, precision)
     if plan.d != d:
         raise ValueError(f"bank dim {plan.d} must be {d}")
     _on_plan_device(X, "X", plan)

@@ -475,10 +475,11 @@ def test_chip_smoke_rehearses_on_the_cpu():
             ("phase 20 [CPU rehearsal", 'scaling_report: {"processes": 1'),
             ("phase 21 K2 bf16 against f32 at 8 x 256", "decisions flip"),
             ("phase 21 predict_scores(mm='bf16'), bench", "launches {'K1 "
-             "f32': 0, 'K1 bf16': 1, 'K2 f32': 1, 'K2 bf16': 0, 'K5': 0, "
-             "'full bf16': 0}"),
+             "f32': 0, 'K1 bf16': 1, 'K4 bf16': 0, 'K2 f32': 1, 'K2 bf16': "
+             "0, 'K5': 0, 'full bf16': 0}"),
             ("phase 21 predict_scores(mm='bf16') at 48 kHz", "'K1 bf16': 0, "
-             "'K2 f32': 1, 'K2 bf16': 0, 'K5': 0, 'full bf16': 1}"),
+             "'K4 bf16': 0, 'K2 f32': 1, 'K2 bf16': 0, 'K5': 0, 'full bf16':"
+             " 1}"),
             ("phase 21 [CPU rehearsal", "predict_bf16")):
         assert any(ln.startswith(start) and part in ln
                    for ln in lines), start
@@ -486,6 +487,16 @@ def test_chip_smoke_rehearses_on_the_cpu():
                      ("phase 21 K1 bf16", 4), ("phase 21 K4 bf16", 1)):
         assert sum(ln.startswith(start) and (
             "two calls bitwise equal True" in ln) for ln in lines) == n, start
+    # each bf16 check measured how far the f32 mode (and for K2 and K3 the
+    # other kernel's x^2 rounding) lies from its bf16 plain version
+    for start, n, parts in (
+            ("phase 21 K2 bf16", 6, ("f32 mode", "K3's x^2 rounding")),
+            ("phase 21 K3 bf16", 4, ("f32 mode", "K2's x^2 rounding")),
+            ("phase 21 K1 bf16", 4, ("f32 product's cepstra",)),
+            ("phase 21 K4 bf16", 1, ("f32 product's cepstra",)),
+            ("phase 21 predict_scores(mm='bf16')", 2, ("f32 slice",))):
+        assert sum(ln.startswith(start) and all(p in ln for p in parts)
+                   and "x tol: " in ln for ln in lines) == n, start
 
 
 if __name__ == "__main__":

@@ -145,7 +145,8 @@ def _counting_plan():
     library."""
     made = []
 
-    def make(bank):
+    def make(bank, precision):
+        assert precision == "f32"
         comp = bank.component_operator(2 * (-(-bank.dim // 4) * 4) + 4)
         made.append(comp)
         return (comp, comp.data_ptr())
