@@ -113,9 +113,10 @@ raises and the exit code is non-zero):
      route), two calls bitwise, through extract_batch with its route's
      counter, 512 outputs bitwise inside 616, and timed with the four-step
      route's device time by kernel; K6's bf16 route at 144 outputs on the
-     bench batch (timed), 48 kHz frames with fft_size 4096 (a 32-frame
-     tile) and 96 kHz with fft_size 8192 (the samples from device memory),
-     each on the tile it claims, against its plain version
+     bench batch (timed), 48 kHz frames with fft_size 4096 and 96 kHz with
+     fft_size 8192 (32-frame tiles), 192 kHz with fft_size 16384 (the
+     samples from device memory), each on the tile it claims, against its
+     plain version
  17. float64 on the card: enroll, MAP from a float64 UBM, predict,
      predict_with_rejection and calibrate_rejection at dtype="float64"
      against the same on the CPU (within F64_RTOL, the same labels), the
@@ -147,14 +148,18 @@ raises and the exit code is non-zero):
      d = 300 (its wide route, 12 components padded to 16); K2 bf16's argmax
      decisions against f32 on an 80-voice GMM-256 bank (printed, not
      gated); K3 bf16 on phase 6's bench bank + UBM, 80 x 256 + UBM and
-     1024 components (5 s and the 150 s clip); K1 bf16 on the bench batch,
-     144 outputs, the raw-autocorrelation mode and 48 kHz with fft_size
-     4096; K4 bf16 on the bench batch's frames; predict_scores(mm="bf16")
-     against the plain versions composed (K1 bf16 once, K2 f32 once, K1
-     f32 never); the 48 kHz full route's bf16 product (its counter moves,
-     K5's do not); each bf16 kernel timed beside its f32 mode and plain
-     version, predict_scores at both mm values, the bf16 kernels'
-     occupancy
+     1024 components (5 s and the 150 s clip); K1 bf16 (the dense tile's
+     product on the tensor cores) on the bench batch, 144 outputs, the
+     raw-autocorrelation mode, 48 kHz and 44.1 kHz (flen 1411, fshift
+     705: odd) with fft_size 4096, each with its tile (frames, shared
+     memory, blocks an SM); K4 bf16 on the bench batch's frames;
+     predict_scores(mm="bf16") against the plain versions composed (K1
+     bf16 once, K2 f32 once, K1 f32 never); the 48 kHz full route's bf16
+     product (its counter moves, K5's do not); each bf16 kernel timed
+     beside its f32 mode and plain version, K6 bf16 at 66 and 144 outputs,
+     predict_scores at both mm values and cuBLAS's bf16 product of the
+     bench frames and D (the yardstick of the tile's stage 1), in one
+     interleaved set; the bf16 kernels' occupancy
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes; the
 dense K5 template's on extract_batch at 216 outputs; phase 16's routes
@@ -943,11 +948,14 @@ def check_frames(phase, name, fe, sig, lengths, dense=True) -> float:
     return err
 
 
-def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS) -> dict:
+def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS,
+          bf16_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the FLOPs over the
     peak of their type (FP32 outside the tensor cores unless `peak` says
-    otherwise) and the bytes over the memory rate."""
-    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    otherwise; `bf16_flops` more at the bf16 tensor-core peak) and the
+    bytes over the memory rate."""
+    ops_ms = (flops / peak + bf16_flops / BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
     if ops_ms >= bytes_ms:
         return {"bound_ms": ops_ms, "bound_by": "operations"}
     return {"bound_ms": bytes_ms, "bound_by": "bytes"}
@@ -1538,15 +1546,17 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> list:
 
     # K6's bf16 route past its old limits: 144 outputs at 8 kHz (two output
     # chunks; checked, counted and timed on the bench batch), 48 kHz frames
-    # with fft_size 4096 (a 32-frame tile) and 96 kHz frames with fft_size
-    # 8192 (the samples from device memory), each on the tile it claims
+    # with fft_size 4096 and 96 kHz frames with fft_size 8192 (32-frame
+    # tiles) and 192 kHz frames with fft_size 16384 (the samples from
+    # device memory), each on the tile it claims
     bank = random_bank(rng, 4, 32, FeatureConfig().dim, dev)
     errb = 0.0
     for fs_b, cfg_b, claim in (
             (BENCH_FS, FeatureConfig(mfcc=MfccConfig(n_filters=128)),
              {"chunks": 2}),
             (FS48, FFT4096, {"ft": 32, "gseg": 0}),
-            (FS96, FFT8192, {"ft": 32, "gseg": 1})):
+            (FS96, FFT8192, {"ft": 32, "gseg": 0}),
+            (FS192, FFT16384, {"ft": 32, "gseg": 1})):
         fe = PackedFrontend(fs_b, cfg_b, dev)
         if fs_b == BENCH_FS:
             sb, lb = bench_sig, bench_len
@@ -1556,7 +1566,8 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> list:
                                    padded(Lb), dev)
         fargs = fused_args(fe, sb, lb, bank)
         tile = gpu_predict.bf16_tile(fe.frame_len, fe.frame_shift,
-                                     fe.dct.shape[0] + fe.A.shape[1])
+                                     fe.dct.shape[0] + fe.A.shape[1],
+                                     bank.dim)
         nm = (f"K6 bf16 {fs_b / 1e3:g} kHz, fft_size "
               f"{cfg_b.mfcc.fft_size}, {fe.dct.shape[0]} mel + "
               f"{fe.A.shape[1]} lags, flen {fe.frame_len}, {sb.shape[0]} x "
@@ -2271,22 +2282,41 @@ def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
     launched = gpu_frontend.BF16_LAUNCHES - before
     want, f32 = (gpu_frontend.packed_from_signals_reference(
         *args, fuse_lpc=fuse_lpc, mm_bf16=bf16) for bf16 in (True, False))
+    # the float64 route: the plain version in float64 on the same rounded
+    # operands
+    f64 = gpu_frontend.packed_from_signals_reference(
+        *(a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+          for a in args), fuse_lpc=fuse_lpc, mm_bf16=True)
     torch.cuda.synchronize()
-    got, again, want, f32 = ((x,) if fuse_lpc else x
-                             for x in (got, again, want, f32))
+    got, again, want, f32, f64 = ((x,) if fuse_lpc else x
+                                  for x in (got, again, want, f32, f64))
     bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
     if not all(torch.isfinite(x).all() for x in got) or any(
             (x[~mask] != 0).any() for x in got):
         raise AssertionError(f"{name}: non-finite or unmasked features")
     nc = fe.dct.shape[1]
 
+    def ceps_d(a, b):
+        return float(((a[..., :nc] - b[..., :nc].to(a.dtype)).abs()
+                      * mask[..., None]).max())
+
     def ceps(a):
-        return float(((a[0] - want[0]).abs() * mask[..., None]).max())
+        return ceps_d(a[0], want[0])
 
     def acorr(a):
         lag0 = want[1][..., :1].abs().clamp_min(1e-30)
         return float(((a[1] - want[1]).abs() / lag0)[mask].max())
 
+    # the cepstra: within MFCC_BF16_ATOL of the plain version where the
+    # plain version resolves that gate, i.e. lies within it of the float64
+    # route. Where its own f32 rounding lies farther (128 filters at 8 kHz:
+    # the packed W's negative lobes cancel in the mel sums, and X's last
+    # bits decide them), no f32 order of the sums meets the gate but that
+    # order itself, and the kernel is held to the float64 route instead:
+    # at most VOICE_FACTOR x the plain version's distance from it
+    k64 = ceps_d(got[0], f64[0])
+    p64 = ceps_d(want[0], f64[0])
+    resolved = p64 <= MFCC_BF16_ATOL
     if fuse_lpc:
         d_mfcc, d_lpc, lpc_bad = feature_errors(
             got[0], want[0], mask, nc, (LPC_BF16_ATOL, LPC_BF16_RTOL))
@@ -2300,13 +2330,21 @@ def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
                            MFCC_BF16_ATOL)
         apart += bf16_apart(name, {"f32 product's autocorrelation":
                                    acorr(f32)}, ACORR_BF16_RTOL)
-    print(f"phase 21 K1 bf16 {name} vs its plain version: "
+    tile = occupancy(fe.frame_len, fe.frame_shift,
+                     fe.W.shape[1] + fe.A.shape[1])
+    print(f"phase 21 K1 bf16 {name} ({tile}) vs its plain version: "
           f"{[tuple(x.shape) for x in got]} mfcc max|d| {d_mfcc:.3e} (tol "
           f"{MFCC_BF16_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad}) "
           f"autocorrelation max|d|/lag0 {d_r:.3e} (tol {ACORR_BF16_RTOL}) "
-          f"launches {launched} two calls bitwise equal {bitwise}{apart}",
-          flush=True)
-    if (d_mfcc > MFCC_BF16_ATOL or lpc_bad or d_r > ACORR_BF16_RTOL
+          f"launches {launched} two calls bitwise equal {bitwise}; cepstra "
+          f"from the float64 route: kernel {k64:.3e}, f32 plain version "
+          f"{p64:.3e} ("
+          + ("the gate resolved" if resolved else
+             f"past the gate: the kernel held to the float64 route, tol "
+             f"{VOICE_FACTOR:g} x {p64:.3e}") + f"){apart}", flush=True)
+    mfcc_ok = (d_mfcc <= MFCC_BF16_ATOL if resolved
+               else k64 <= VOICE_FACTOR * p64)
+    if (not mfcc_ok or lpc_bad or d_r > ACORR_BF16_RTOL
             or launched != 2 or not bitwise):
         raise AssertionError(f"{name}: K1's bf16 mode disagrees with its "
                              "plain version")
@@ -2343,21 +2381,24 @@ def check_serial_bf16(name, bank, x, mask) -> float:
     return float((sums - want).abs().max()) / n
 
 
-def occupancy(fe: PackedFrontend, B, T, d, bank) -> str:
+def occupancy(flen, fshift, nout, B=None, T=None, d=None, bank=None) -> str:
     """The bf16 kernels' launch shapes and resident blocks an SM on the
-    card (the occupancy API): K1's tile at fe's geometry, K2's blocks at
-    [B, T, d] against the bank."""
+    card (the occupancy API): K1's (and K4's, fshift = flen) tile at a
+    geometry, and with a bank K2's blocks at [B, T, d] against it."""
     import ctypes
     lib = _build.load()
-    k1, k2 = (ctypes.c_int * 3)(), (ctypes.c_int * 3)()
-    _build.check(lib.srt_frontend_bf16_occupancy(
-        fe.frame_len, fe.frame_shift, fe.W.shape[1] + fe.A.shape[1], k1),
-        "K1 bf16 occupancy")
+    k1 = (ctypes.c_int * 3)()
+    _build.check(lib.srt_frontend_bf16_occupancy(flen, fshift, nout, k1),
+                 "K1 bf16 occupancy")
+    text = (f"bf16 tile: {k1[0]} frames, {k1[1]} B of shared memory, "
+            f"{k1[2]} blocks an SM")
+    if bank is None:
+        return text
+    k2 = (ctypes.c_int * 3)()
     _build.check(lib.srt_bank_bf16_occupancy(
         B, T, d, bank.n_speakers, bank.n_mixtures, k2), "K2 bf16 occupancy")
-    return (f"K1 bf16: {k1[0]}-frame tile, {k1[1]} B of shared memory, "
-            f"{k1[2]} blocks an SM; K2 bf16: {k2[0]} warps a block, {k2[1]} "
-            f"B of shared memory, {k2[2]} blocks an SM")
+    return (f"K1 {text}; K2 bf16: {k2[0]} warps a block, {k2[1]} B of "
+            f"shared memory, {k2[2]} blocks an SM")
 
 
 def flip_bank(dev):
@@ -2441,8 +2482,16 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     err_k1 = max(err_k1, check_frontend_bf16(
         "48 kHz, fft_size 4096", PackedFrontend(FS48, FFT4096, dev), s48p,
         l48p))
+    # 44.1 kHz with fft_size 4096: flen 1411 and fshift 705, both odd (no
+    # 16-byte frame rows: the tile's 16-bit loads), on a batch of the f32
+    # route's 44.1 kHz shape
+    s44p, l44p = signals_batch(rng, [44100, 20000], padded(44100), dev)
+    err_k1 = max(err_k1, check_frontend_bf16(
+        "44.1 kHz, fft_size 4096", PackedFrontend(44100, FFT4096, dev), s44p,
+        l44p))
     # K4 bf16 on the bench batch's frames, through the frontend's tail
     fargs, B, T = frames_args(fe8, bench_sig)
+    nout8 = fe8.W.shape[1] + fe8.A.shape[1]
     fmask = framing.frame_validity_mask(bench_len, T, fe8.frame_len,
                                         fe8.frame_shift)
     before = gpu_frontend.FRAMES_BF16_LAUNCHES
@@ -2462,7 +2511,8 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     apart = bf16_apart("K4 bf16", {"f32 product's cepstra": feature_errors(
         f32, want, fm, nc)[0]}, MFCC_BF16_ATOL)
     k4_bits = all(torch.equal(a, b) for a, b in zip(*k4))
-    print(f"phase 21 K4 bf16 bench frames {tuple(fargs[0].shape)} vs its "
+    print(f"phase 21 K4 bf16 bench frames {tuple(fargs[0].shape)} ("
+          f"{occupancy(fe8.frame_len, fe8.frame_len, nout8)}) vs its "
           f"plain version, through CMVN and Levinson: mfcc max|d| "
           f"{d_mfcc:.3e} (tol {MFCC_BF16_ATOL}) lpc max|d| {d_lpc:.3e} (over "
           f"tol: {lpc_bad}) launches {k4_launched} two calls bitwise equal "
@@ -2558,7 +2608,14 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
                 "k3": gpu_gmm.SERIAL_BF16_LAUNCHES}
 
     # timing: each bf16 kernel beside its f32 mode and its plain version,
-    # and predict_scores at both mm values, in one interleaved set
+    # K6 bf16 at 66 and 144 outputs, predict_scores at both mm values, and
+    # the yardstick of the tile's stage 1: cuBLAS's bf16 product of the
+    # bench batch's frames, materialized, and D (torch.matmul on bf16
+    # tensors; the port never calls it), in one interleaved set
+    k6_66 = fused_args(fe8, bench_sig, bench_len, bench_bank)
+    k6_144 = fused_args(fe144, bench_sig, bench_len, bench_bank)
+    frames_b = fargs[0].to(torch.bfloat16)
+    D_b = fe8.D.to(torch.bfloat16)
     t = time_interleaved({
         "k2_bf16": lambda: gpu_gmm.batch_bank_avg_loglik(
             bench_bank, feats, mask, precision="bf16"),
@@ -2583,15 +2640,26 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
                                                           fft=fe8.fft),
         "k4_plain": lambda: gpu_frontend.packed_from_frames_reference(
             *fargs, mm_bf16=True),
+        "k6_bf16": lambda: gpu_predict.fused_bank_predict(*k6_66,
+                                                          mm_bf16=True),
+        "k6_bf16_144": lambda: gpu_predict.fused_bank_predict(*k6_144,
+                                                              mm_bf16=True),
+        "stage1_cublas": lambda: torch.matmul(frames_b, D_b),
         "predict_bf16": lambda: fastpath.predict_scores(
             bench_sig, bench_len, bench_bank, BENCH_FS, mm="bf16"),
         "predict_f32": lambda: fastpath.predict_scores(
             bench_sig, bench_len, bench_bank, BENCH_FS)})
+    del k6_66, k6_144, frames_b
     print(f"phase 21 [{card}] bf16 beside f32, ms (CUDA events, median of 7,"
           f" interleaved): " + ", ".join(f"{k} {v:.4f}" for k, v in
                                          t.items()), flush=True)
-    print(f"phase 21 [{card}] {occupancy(fe8, B, T, d, bench_bank)}",
-          flush=True)
+    k12 = occupancy(fe8.frame_len, fe8.frame_shift, nout8, B, T, d,
+                    bench_bank)
+    print(f"phase 21 [{card}] {k12}", flush=True)
+    print(f"phase 21 [{card}] stage-1 yardstick, cuBLAS bf16 frames . D "
+          f"{tuple(fargs[0].shape)} x {tuple(fe8.D.shape)}: "
+          f"{t['stage1_cublas']:.4f} ms beside K1 bf16 {t['k1_bf16']:.4f} "
+          f"and K1 f32 {t['k1_f32']:.4f} (the same trials)", flush=True)
     for name, fn in (
             ("K2 bf16", lambda: gpu_gmm.batch_bank_avg_loglik(
                 bench_bank, feats, mask, precision="bf16")),
@@ -2603,14 +2671,17 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
         print(f"phase 21 [{card}] {name}: {device_times(fn)}", flush=True)
     print(f"phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    # bounds from this run's shapes: the products at the bf16 tensor-core
-    # peak (K1 and K4: the dense product), or the bytes
+    # bounds from this run's shapes: the products of bf16 operands at the
+    # bf16 tensor-core peak (K1 and K4: the dense product; its projection
+    # onto W | A and the DCT, f32 by the JAX kernel, at the FP32 peak), or
+    # the bytes
     valid = int(pargs[1].sum())
     SK = bench_bank.n_speakers * bench_bank.n_mixtures
     flen, ncols = fe8.D.shape
     nmel, nceps = fe8.dct.shape
     nac = fe8.A.shape[1]
-    dense = 2 * flen * ncols + 2 * ncols * (nmel + nac) + 2 * nmel * nceps
+    dft = 2 * flen * ncols  # the bf16 product
+    proj = 2 * ncols * (nmel + nac) + 2 * nmel * nceps  # f32
     op_bytes = 4 * sum(x.numel() for x in (fe8.D, fe8.W, fe8.dct, fe8.A))
     rows = 2 * 2 * d * SK + 4 * SK
     n5 = int(m5.sum())
@@ -2618,13 +2689,13 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     return [
         ("packed_frontend_bf16", "frontend_bf16.cu", "pallas_frontend.py:231",
          launched["k1"], err_k1, t["k1_bf16"], t["k1_plain"],
-         bound(valid * dense, 4 * bench_sig.numel() + op_bytes
-               + 4 * B * T * d, BF16_FLOPS)),
+         bound(valid * proj, 4 * bench_sig.numel() + op_bytes
+               + 4 * B * T * d, bf16_flops=valid * dft)),
         ("packed_from_frames_bf16", "frontend_bf16.cu",
          "pallas_frontend.py:111", launched["k4"], err_k4, t["k4_bf16"],
          t["k4_plain"],
-         bound(B * T * dense, 4 * fargs[0].numel() + op_bytes
-               + 4 * B * T * (nceps + nac), BF16_FLOPS)),
+         bound(B * T * proj, 4 * fargs[0].numel() + op_bytes
+               + 4 * B * T * (nceps + nac), bf16_flops=B * T * dft)),
         ("bank_avg_loglik_bf16", "gmm_score_bf16.cu", "pallas_gmm.py:154",
          launched["k2"], err_k2, t["k2_bf16"], t["k2_plain"],
          bound(score_flops(valid, d, SK), 4 * feats.numel() + mask.numel()
@@ -3475,6 +3546,9 @@ def main(argv=None):
     err_bf16 = check_fused(
         "K6 bf16 DFT operands (dense tile)", k6_bf16,
         gpu_predict.fused_bank_predict_reference(*args13, mm_bf16=True))
+    tile13 = gpu_predict.bf16_tile(fe8.frame_len, fe8.frame_shift,
+                                   fe8.W.shape[1] + fe8.A.shape[1], d)
+    print(f"phase 13 K6 bf16 tile at the bench shape: {tile13}", flush=True)
     err_k7 = check_fused("K7 bench 512 x 5 s @ 8 kHz (FFT tile)", k7, plain13)
     two = fastpath.predict_scores(bench_sig, bench_len, bench_bank, BENCH_FS,
                                   fcfg)

@@ -110,10 +110,10 @@ def _bind(lib):
     lib.srt_mma_row.restype = i
     lib.srt_mma_components.argtypes = [i]
     lib.srt_mma_components.restype = i
-    lib.srt_frontend_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
+    lib.srt_frontend_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                       i, i, i, i, f, i, i, p]
     lib.srt_frontend_bf16.restype = i
-    lib.srt_frames_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, f,
+    lib.srt_frames_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f,
                                     p]
     lib.srt_frames_bf16.restype = i
     lib.srt_frontend_bf16_wide_floats.argtypes = [ll, i]
@@ -122,7 +122,7 @@ def _bind(lib):
     lib.srt_frontend_bf16_occupancy.restype = i
     lib.srt_bank_bf16_occupancy.argtypes = [i, i, i, i, i, ip]
     lib.srt_bank_bf16_occupancy.restype = i
-    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, i,
+    lib.srt_fused_predict.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i,
                                       i, i, i, i, i, i, i, i, i, i, i, f, i,
                                       f, i, i, p]
     lib.srt_fused_predict.restype = i
@@ -134,8 +134,8 @@ def _bind(lib):
     lib.srt_fused_component_row.restype = i
     lib.srt_fused_bf16_wide_floats.argtypes = [i, i, i]
     lib.srt_fused_bf16_wide_floats.restype = ll
-    lib.srt_fused_bf16_tile.argtypes = [i, i, i, ip]
-    lib.srt_fused_bf16_tile.restype = None
+    lib.srt_fused_bf16_tile.argtypes = [i, i, i, i, ip]
+    lib.srt_fused_bf16_tile.restype = i
     lib.srt_fused_scratch_floats.argtypes = [i, i, i, i]
     lib.srt_fused_scratch_floats.restype = ll
     lib.srt_error_string.argtypes = [i]

@@ -22,23 +22,27 @@
 // frame (262 kFLOP at 8 kHz), which the rounding is about: the FFT of the
 // f32 route (csrc/frontend.cu) would not round D at all. At the bf16 tensor
 // cores' peak that is 0.04 ms for the bench batch, its 84 MB of signal
-// 0.025 ms at the memory rate.
+// 0.025 ms at the memory rate; past the products, the f32 projection onto
+// the mel and autocorrelation outputs (68 kFLOP a frame at 8 kHz, 0.16 ms
+// at the FP32 peak), the larger share.
 //
 // What the design does: the fused predict monolith's bf16 frontend phase
 // (csrc/predict_fused.cuh, DenseBf16Tile) with the scoring compiled out,
-// one block a tile of FT frames: tile_sums<FT, OPL, true> of
-// csrc/packed_tile.cuh stages the tile's samples and D in 32-row tiles,
-// rounded to bf16 as they are staged, and folds each chunk of 128 DFT
-// columns' Y into register accumulators of the mel and autocorrelation
-// products; tile_features takes the log-mel through the DCT and runs the
-// Levinson. Any output count (chunks of 128 through device rows past 128)
-// and any frame length (tiles of 128, 64 or 32 frames, the samples read
-// from device memory past what a 32-frame tile's shared memory holds), as
-// the monolith's bf16 route takes them. The products run on the FP32 cores,
-// not the tensor cores (simple first). K4's frames are the same tile over
-// a frame matrix: consecutive rows of flen samples are a signal with
-// fshift = flen. Every sum runs in a fixed order: two calls, the same bits.
-// Built without --use_fast_math, for the accurate logf and isfinite.
+// one block a tile of FT frames: tile_sums<FT, OPL> of csrc/packed_tile.cuh
+// runs X = frame . D on the tensor cores (mma.sync m16n8k16, bf16 operands
+// and f32 sums) from the samples staged once as bf16 and D packed once by
+// the wrapper in the B fragments' order (ops/gpu_frontend.
+// dft_mma_operator), then Y = X^2 . [W | A] in f32 FMAs, W | A packed once
+// by the wrapper too (dense_wa_operator) and streamed in; tile_features
+// takes the log-mel through the DCT and runs the Levinson. Any output
+// count (chunks of 128 through device rows past 128) and any frame length
+// and shift (tiles of 128, 64 or 32 frames, whichever keeps the most frames
+// resident an SM, the samples read from device memory past what a 32-frame
+// tile's shared memory holds), as the monolith's bf16 route takes them.
+// K4's frames are the same tile over a frame matrix: consecutive rows of
+// flen samples are a signal with fshift = flen. Every sum runs in a fixed
+// order: two calls, the same bits. Built without --use_fast_math, for the
+// accurate logf and isfinite.
 
 #include <cuda_runtime.h>
 
@@ -52,16 +56,17 @@ constexpr int MAX_GRID_Y = 65535;  // utterances a launch takes
 
 // One tile of FT frames of utterance blockIdx.y: sig [B][Lp] with frames f
 // at f * fshift (K4: one utterance of n frames, fshift = flen), n_valid [B]
-// or null (every frame valid). Past 128 outputs the sums go to rows of
-// wsums [B * T][128 * nchunk] and tile_features reads them there.
+// or null (every frame valid), Dp the packed bf16 D, WAp the packed W |
+// A. Past 128 outputs the sums go to rows of wsums [B * T][128 * nchunk]
+// and tile_features reads them there.
 template <int FT, int OPL, bool GSEG>
-__global__ void __launch_bounds__(NT) dense_bf16_kernel(
+__global__ void __launch_bounds__(NT, 2) dense_bf16_kernel(
     const float* __restrict__ sig, const int* __restrict__ n_valid,
-    const float* __restrict__ D, const float* __restrict__ W,
-    const float* __restrict__ A, const float* __restrict__ dct,
-    float* __restrict__ feat, float* __restrict__ wsums, long long Lp, int T,
-    int flen, int fshift, int ncols, int nmel, int nac, int nceps,
-    float power_floor, int fuse_lpc, int nchunk) {
+    const uint4* __restrict__ Dp, const uint4* __restrict__ WAp,
+    const float* __restrict__ dct, float* __restrict__ feat,
+    float* __restrict__ wsums, long long Lp, int T, int flen, int fshift,
+    int ncols, int nmel, int nac, int nceps, float power_floor, int fuse_lpc,
+    int nchunk) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y, f0 = blockIdx.x * FT;
@@ -79,10 +84,11 @@ __global__ void __launch_bounds__(NT) dense_bf16_kernel(
   // samples from the tile's first to the end of the utterance (K4's run
   // may pass an int's range; a tile reads fewer than 2^30)
   const long long rest = Lp - (long long)f0 * fshift;
-  const float* sums = tile_sums<FT, OPL, true, GSEG>(
+  const float* sums = tile_sums<FT, OPL, GSEG>(
       sig + (size_t)b * Lp + (size_t)f0 * fshift,
-      rest < (1 << 30) ? (int)rest : (1 << 30), D, W, A, smem, flen, fshift,
-      ncols, nmel, nac, power_floor, nchunk, wrows, wstride, nf);
+      rest < (1 << 30) ? (int)rest : (1 << 30), Dp, WAp, smem, flen, fshift,
+      ncols, nmel, power_floor, nchunk, wrows, wstride, nf,
+      min(nf, nvalid - f0));
   if (OPL == 16 && nchunk > 1)
     tile_features<OPL>(wrows, out, nf, nvalid - f0, dct, nmel, nac, nceps,
                        fuse_lpc != 0, wstride);
@@ -109,11 +115,11 @@ __global__ void __launch_bounds__(32 * CG) cmvn_bf16_kernel(
 // MAX_GRID_Y utterances.
 template <int FT, int OPL, bool GSEG>
 cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
-                   const float* D, const float* W, const float* A,
-                   const float* dct, float* feat, float* wsums, long long Lp,
+                   const uint4* Dp, const uint4* WAp, const float* dct,
+                   float* feat, float* wsums, long long Lp,
                    int T, int flen, int fshift, int ncols, int nmel, int nac,
                    int nceps, float power_floor, int fuse_lpc, int nchunk) {
-  const int smem = 4 * smem_floats(FT, OPL, flen, fshift, GSEG);
+  const int smem = smem_bytes(FT, OPL, flen, fshift, GSEG);
   cudaError_t err = cudaFuncSetAttribute(
       dense_bf16_kernel<FT, OPL, GSEG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -123,7 +129,7 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
   for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
     const dim3 grid((T + FT - 1) / FT, std::min(MAX_GRID_Y, B - b0));
     dense_bf16_kernel<FT, OPL, GSEG><<<grid, NT, smem, st>>>(
-        sig + (size_t)b0 * Lp, nv != nullptr ? nv + b0 : nullptr, D, W, A,
+        sig + (size_t)b0 * Lp, nv != nullptr ? nv + b0 : nullptr, Dp, WAp,
         dct, feat + (size_t)b0 * T * nfeat,
         nchunk > 1 ? wsums + (size_t)b0 * T * wstride : nullptr, Lp, T, flen,
         fshift, ncols, nmel, nac, nceps, power_floor, fuse_lpc, nchunk);
@@ -133,8 +139,8 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
 }
 
 cudaError_t launch_pick(int B, cudaStream_t st, const float* sig,
-                        const int* nv, const float* D, const float* W,
-                        const float* A, const float* dct, float* feat,
+                        const int* nv, const uint4* Dp, const uint4* WAp,
+                        const float* dct, float* feat,
                         float* wsums, long long Lp, int T, int flen,
                         int fshift, int ncols, int nmel, int nac, int nceps,
                         float power_floor, int fuse_lpc) {
@@ -143,14 +149,15 @@ cudaError_t launch_pick(int B, cudaStream_t st, const float* sig,
   const int nchunk = dense_chunks(nmel + nac);
   if (nchunk > 1 && wsums == nullptr) return cudaErrorInvalidValue;
 #define SRT_BF16_LAUNCH(FT, OPL, GSEG)                                        \
-  launch<FT, OPL, GSEG>(B, st, sig, nv, D, W, A, dct, feat, wsums, Lp, T,     \
+  launch<FT, OPL, GSEG>(B, st, sig, nv, Dp, WAp, dct, feat, wsums, Lp, T,    \
                         flen, fshift, ncols, nmel, nac, nceps, power_floor,   \
                         fuse_lpc, nchunk)
   if (ft == 128) return SRT_BF16_LAUNCH(128, 9, false);
   if (ft == 64 && opl == 9) return SRT_BF16_LAUNCH(64, 9, false);
   if (ft == 64) return SRT_BF16_LAUNCH(64, 16, false);
-  if (!gseg) return SRT_BF16_LAUNCH(32, 16, false);
-  return SRT_BF16_LAUNCH(32, 16, true);
+  if (opl == 9)
+    return gseg ? SRT_BF16_LAUNCH(32, 9, true) : SRT_BF16_LAUNCH(32, 9, false);
+  return gseg ? SRT_BF16_LAUNCH(32, 16, true) : SRT_BF16_LAUNCH(32, 16, false);
 #undef SRT_BF16_LAUNCH
 }
 
@@ -175,15 +182,19 @@ extern "C" int srt_frontend_bf16_occupancy(int flen, int fshift, int nout,
                                            int* out) {
   int ft, opl, gseg;
   pick(flen, fshift, nout, &ft, &opl, &gseg);
-  const int smem = 4 * smem_floats(ft, opl, flen, fshift, gseg);
+  const int smem = smem_bytes(ft, opl, flen, fshift, gseg);
   out[0] = ft;
   out[1] = smem;
-  if (ft == 128) return (int)tile_occupancy<128, 9, false>(smem, &out[2]);
+  int* blocks = &out[2];
+  if (ft == 128) return (int)tile_occupancy<128, 9, false>(smem, blocks);
   if (ft == 64 && opl == 9)
-    return (int)tile_occupancy<64, 9, false>(smem, &out[2]);
-  if (ft == 64) return (int)tile_occupancy<64, 16, false>(smem, &out[2]);
-  if (!gseg) return (int)tile_occupancy<32, 16, false>(smem, &out[2]);
-  return (int)tile_occupancy<32, 16, true>(smem, &out[2]);
+    return (int)tile_occupancy<64, 9, false>(smem, blocks);
+  if (ft == 64) return (int)tile_occupancy<64, 16, false>(smem, blocks);
+  if (opl == 9)
+    return (int)(gseg ? tile_occupancy<32, 9, true>(smem, blocks)
+                      : tile_occupancy<32, 9, false>(smem, blocks));
+  return (int)(gseg ? tile_occupancy<32, 16, true>(smem, blocks)
+                    : tile_occupancy<32, 16, false>(smem, blocks));
 }
 
 // Floats of device scratch a call over nframes frames takes past 128 mel +
@@ -195,14 +206,15 @@ extern "C" long long srt_frontend_bf16_wide_floats(long long nframes,
   return c > 1 ? nframes * 128 * c : 0;
 }
 
-// K1 with bf16 DFT operands: signals [B, Lp], n_valid [B], D [flen, ncols],
-// W [ncols, nmel], A [ncols, nac] (nac = 0: MFCC only), dct [nmel, nceps],
-// wsums of srt_frontend_bf16_wide_floats(B * T, nmel + nac); writes feat
-// [B, T, nceps + nac - 1] (nceps without LPC), or with fuse_lpc 0 feat [B,
-// T, nceps + nac], then CMVN of the cepstra when cmvn. flen = 2 * fshift;
-// any B.
+// K1 with bf16 DFT operands: signals [B, Lp], n_valid [B], Dp the packed
+// D [flen, ncols] (ops/gpu_frontend.dft_mma_operator), WAp the packed W
+// [ncols, nmel] | A [ncols, nac] (dense_wa_operator; nac = 0: MFCC only),
+// dct [nmel, nceps], wsums of
+// srt_frontend_bf16_wide_floats(B * T, nmel + nac); writes feat [B, T,
+// nceps + nac - 1] (nceps without LPC), or with fuse_lpc 0 feat [B, T,
+// nceps + nac], then CMVN of the cepstra when cmvn. Any B.
 extern "C" int srt_frontend_bf16(const void* signals, const void* n_valid,
-                                 const void* D, const void* W, const void* A,
+                                 const void* Dp, const void* WAp,
                                  const void* dct, void* feat, void* wsums,
                                  int B, int Lp, int T, int flen, int fshift,
                                  int ncols, int nmel, int nac, int nceps,
@@ -213,8 +225,8 @@ extern "C" int srt_frontend_bf16(const void* signals, const void* n_valid,
   cudaStream_t st = (cudaStream_t)stream;
   const int* nv = (const int*)n_valid;
   cudaError_t err = launch_pick(
-      B, st, (const float*)signals, nv, (const float*)D, (const float*)W,
-      (const float*)A, (const float*)dct, (float*)feat, (float*)wsums, Lp, T,
+      B, st, (const float*)signals, nv, (const uint4*)Dp, (const uint4*)WAp,
+      (const float*)dct, (float*)feat, (float*)wsums, Lp, T,
       flen, fshift, ncols, nmel, nac, nceps, power_floor, fuse_lpc);
   if (err != cudaSuccess || !cmvn) return (int)err;
   cmvn_bf16_kernel<<<B, dim3(32, CG), 0, st>>>(
@@ -222,18 +234,18 @@ extern "C" int srt_frontend_bf16(const void* signals, const void* n_valid,
   return (int)cudaGetLastError();
 }
 
-// K4 with bf16 frames and D: frames [n, flen], D [flen, ncols], W, A, dct as
-// above, wsums of srt_frontend_bf16_wide_floats(n, nmel + nac); writes out
-// [n, nceps + nac]: pre-CMVN cepstra | raw autocorrelation.
-extern "C" int srt_frames_bf16(const void* frames, const void* D,
-                               const void* W, const void* A, const void* dct,
+// K4 with bf16 frames and D: frames [n, flen], Dp, WAp and dct as above,
+// wsums of srt_frontend_bf16_wide_floats(n, nmel + nac); writes out [n,
+// nceps + nac]: pre-CMVN cepstra | raw autocorrelation.
+extern "C" int srt_frames_bf16(const void* frames, const void* Dp,
+                               const void* WAp, const void* dct,
                                void* out, void* wsums, int n, int flen,
                                int ncols, int nmel, int nac, int nceps,
                                float power_floor, void* stream) {
   if (n < 1 || flen < 1) return (int)cudaErrorInvalidValue;
   return (int)launch_pick(
       1, (cudaStream_t)stream, (const float*)frames, nullptr,
-      (const float*)D, (const float*)W, (const float*)A, (const float*)dct,
+      (const uint4*)Dp, (const uint4*)WAp, (const float*)dct,
       (float*)out, (float*)wsums, (long long)n * flen, n, flen, flen, ncols,
       nmel, nac, nceps, power_floor, 0);
 }

@@ -26,10 +26,12 @@
 //     only (ScoreTile);
 //   * bf16: the TPU kernel's dense product X = frame . D, Y = X^2 on the
 //     dense tile of csrc/packed_tile.cuh, with the samples and D rounded to
-//     bf16 (nearest even) first; the products and every sum stay f32. Any
-//     number of outputs (chunks of 128 past 128) and any frame length (a
-//     tile of 128, 64 or 32 frames, the samples in device memory past
-//     what a 32-frame tile's shared memory holds).
+//     bf16 (nearest even; D and W | A packed once by the wrapper,
+//     ops/gpu_frontend.dft_mma_operator and dense_wa_operator): X on the
+//     tensor cores (mma.sync, f32 sums), Y and every later sum in f32 on
+//     the FP32 cores. Any number of outputs (chunks of 128 past 128) and
+//     any frame length (a tile of 128, 64 or 32 frames, the samples in
+//     device memory past what a 32-frame tile's shared memory holds).
 //
 // What bounds it on this card: operations. The least work is a real FFT
 // of N points a frame (2.5 N log2 N), the bin-domain operators' nonzeros,
@@ -85,9 +87,8 @@ struct Args {
   const int* n_valid;    // [B]
   const float* win;      // [flen] (f32 route)
   const float4* op;      // the packed [M | R | 0] operator (f32 route)
-  const float* D;        // [flen, ncols] (bf16 route)
-  const float* W;        // [ncols, nmel] (bf16 route)
-  const float* A;        // [ncols, nac] (bf16 route)
+  const uint4* D;        // [flen, ncols] packed as bf16 (bf16 route)
+  const uint4* WA;       // W [ncols, nmel] | A [ncols, nac] packed (bf16)
   const float* dct;      // [nmel, nceps]
   const float* comp;     // component rows [S*K][P]
   float* feat;           // scratch [B, T, d]
@@ -152,8 +153,8 @@ struct ScoreTile {
   __device__ static void features(const Args&, float*, int, int, int) {}
 };
 
-// The bf16 route's frontend tile: the dense product on bf16-rounded
-// operands (csrc/packed_tile.cuh); past 128 outputs the sums leave through
+// The bf16 route's frontend tile: the dense product on bf16 operands on the
+// tensor cores (csrc/packed_tile.cuh); past 128 outputs the sums leave through
 // rows of a.wsums [B * T][128 * nchunk], and with GSEG the samples are read
 // from device memory (frames too long for a 32-frame tile's shared memory).
 template <int FT_, int OPL, bool GSEG = false>
@@ -161,17 +162,18 @@ struct DenseBf16Tile {
   static constexpr bool FRONTEND = true;
   static constexpr int FT = FT_, NTH = NT;
   static constexpr int smem_bytes(int flen, int fshift) {
-    return 4 * smem_floats(FT, OPL, flen, fshift, GSEG);
+    return ::smem_bytes(FT, OPL, flen, fshift, GSEG);
   }
   __device__ static void features(const Args& a, float* smem, int b, int f0,
                                   int nv) {
     const int nf = min(FT, a.T - f0);
     const int wstride = 8 * OPL * a.nchunk;
     float* wrows = a.wsums + ((size_t)b * a.T + f0) * wstride;
-    const float* sums = tile_sums<FT, OPL, true, GSEG>(
+    const float* sums = tile_sums<FT, OPL, GSEG>(
         a.signals + (size_t)b * a.Lp + (size_t)f0 * a.fshift,
-        a.Lp - f0 * a.fshift, a.D, a.W, a.A, smem, a.flen, a.fshift, a.ncols,
-        a.nmel, a.nac, a.power_floor, a.nchunk, wrows, wstride, nf);
+        a.Lp - f0 * a.fshift, a.D, a.WA, smem, a.flen, a.fshift, a.ncols,
+        a.nmel, a.power_floor, a.nchunk, wrows, wstride, nf,
+        min(nf, nv - f0));
     float* out = a.feat + ((size_t)b * a.T + f0) * a.d;
     if (OPL == 16 && a.nchunk > 1)
       tile_features<OPL>(wrows, out, nf, nv - f0, a.dct, a.nmel, a.nac,

@@ -44,11 +44,14 @@ pallas_frontend.py:397, :441) rounds the frames and D to bf16 (nearest
 even) and multiplies in f32: the TPU kernel's dense product, not the FFT,
 since D is the operand it rounds. On the card `packed_from_signals` and
 `packed_from_frames` take the dense operators D, W, A then and launch
-csrc/frontend_bf16.cu (BF16_LAUNCHES, FRAMES_BF16_LAUNCHES); their plain
-versions round the same operands. The full route's bf16 mode
-(`mfcc_from_frames_bf16`) is the JAX extractor's XLA-side product
-(features/extract.py:315-325; its K5 has no bf16 mode): plain torch on
-bf16-rounded frames and C, S, on either device, counted in
+csrc/frontend_bf16.cu (BF16_LAUNCHES, FRAMES_BF16_LAUNCHES), whose tile
+runs the product on the tensor cores from D packed once in the order of
+its fragments (`dft_mma_operator`) and projects onto W | A packed in the
+order of its stage 2 (`dense_wa_operator`), both rebuilt after their
+inputs are written to; their plain versions round the same operands. The
+full route's bf16 mode (`mfcc_from_frames_bf16`) is the JAX extractor's
+XLA-side product (features/extract.py:315-325; its K5 has no bf16 mode):
+plain torch on bf16-rounded frames and C, S, on either device, counted in
 FULL_BF16_CALLS, a route chosen in the open on which K5 does not launch.
 
 Two routes of the FFT kernels are chosen on the shape in the open, each
@@ -91,6 +94,11 @@ CHUNKED_LAUNCHES = 0
 BF16_LAUNCHES = 0        # packed_from_signals
 FRAMES_BF16_LAUNCHES = 0  # packed_from_frames
 FULL_BF16_CALLS = 0       # mfcc_from_frames_bf16
+
+# the bf16 tile's packing of D (csrc/packed_tile.cuh): the depth of
+# mma.sync m16n8k16 (D's rows a k-step) and the columns of a chunk
+MMA_DEPTH = 16
+MMA_COLUMNS = 64
 
 # FFT sizes from here on take the four-step route of csrc/rfft_big.cuh
 BIG_N = 32768
@@ -299,6 +307,77 @@ def _dense_shapes(name: str, D, W, dct, A, dev):
     return flen, ncols, nmel, nceps, A.shape[1]
 
 
+def dft_mma_operator(D: torch.Tensor) -> torch.Tensor:
+    """D [flen, ncols] as the bf16 tile's B operand (csrc/packed_tile.cuh),
+    flat bf16: D rounded to bf16 (nearest even), its rows padded with zeros
+    to a multiple of MMA_DEPTH, its columns to a multiple of MMA_COLUMNS,
+    in the order the kernel streams and reads it: per chunk of 64 columns,
+    per k-step of 16 rows, per pair of n8 tiles (16 columns), per lane
+    (g, t) = (lane // 4, lane % 4) the 8 values of its two B fragments of
+    mma.sync m16n8k16: rows 2t, 2t+1, 2t+8, 2t+9 of column 8 nt + g for nt
+    = 0, 1, each 32-bit word holding the lower row in its low half. Built
+    once per D and again after D is written to."""
+    return _cached((D,), _pack_dft_mma)
+
+
+def _pack_dft_mma(D: torch.Tensor) -> torch.Tensor:
+    flen, ncols = D.shape
+    kp = -(-flen // MMA_DEPTH) * MMA_DEPTH
+    cp = -(-ncols // MMA_COLUMNS) * MMA_COLUMNS
+    full = D.new_zeros((kp, cp), dtype=torch.bfloat16)
+    full[:flen, :ncols] = D
+    # row 16 ks + 8 kb + 2 t + h, column 64 c + 16 p + 8 nt + g
+    v = full.view(kp // 16, 2, 4, 2, cp // 64, 4, 2, 8)
+    return v.permute(4, 0, 5, 7, 2, 6, 1, 3).reshape(-1)
+
+
+def dense_wa_operator(W: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """[W | A] ([ncols, nmel], [ncols, nac]) as the bf16 tile's stage 2
+    reads it (csrc/packed_tile.cuh), flat f32: a lane takes outputs og + 8 j
+    for j < opl, opl 9 up to 72 outputs and 16 past them, in output chunks
+    of 128 past 128; per output chunk, per column chunk of MMA_COLUMNS
+    (zero columns past ncols), per column, per og, the lane's opl weights
+    (zeros past nmel + nac) padded with zeros to 12 (opl 9) or 20 (opl 16),
+    so that its 16-byte loads of the 8 groups fall in distinct banks. Built
+    once per (W, A) and again after either is written to."""
+    return _cached((W, A), _pack_dense_wa)
+
+
+def _pack_dense_wa(W: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    ncols, nmel = W.shape
+    nout = nmel + A.shape[1]
+    opl = 9 if nout <= 72 else 16
+    nop, ogs = 8 * opl, 12 if opl == 9 else 20
+    nch = 1 if nout <= 128 else -(-nout // 128)
+    ncc = -(-ncols // MMA_COLUMNS)
+    full = W.new_zeros((ncc * MMA_COLUMNS, nch * nop))
+    full[:ncols, :nmel] = W
+    full[:ncols, nmel:nout] = A
+    # output oc nop + 8 j + og of column c MMA_COLUMNS + cc
+    v = full.view(ncc, MMA_COLUMNS, nch, opl, 8).permute(2, 0, 1, 4, 3)
+    return torch.nn.functional.pad(v, (0, ogs - opl)).reshape(-1)
+
+
+# the kernels' packed operators: (builder, ids of its tensors, its other
+# arguments) -> (the tensors, their versions, the operator); an entry holds
+# its tensors, so their ids stay theirs while it lives
+_OPERATORS: dict = {}
+
+
+def _cached(ts: tuple, build, *args):
+    """build(*ts, *args), kept while no tensor of ts is written to."""
+    key = (build, *(id(t) for t in ts), *args)
+    hit = _OPERATORS.get(key)
+    versions = tuple(t._version for t in ts)
+    if hit is not None and hit[1] == versions:
+        return hit[2]
+    op = build(*ts, *args)
+    if len(_OPERATORS) >= 16:
+        _OPERATORS.clear()
+    _OPERATORS[key] = (ts, versions, op)
+    return op
+
+
 def _bf16_rows(lib, nframes: int, nout: int, dev) -> torch.Tensor | None:
     """The device rows the bf16 tile keeps its sums in past 128 outputs,
     or None up to 128."""
@@ -327,10 +406,11 @@ def _signals_bf16(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
     if B:
         lib = _build.load()
         wsums = _bf16_rows(lib, B * T, nmel + nac, dev)
+        Dp, WAp = dft_mma_operator(D), dense_wa_operator(W, A)
         with torch.cuda.device(dev):
             err = lib.srt_frontend_bf16(
-                signals.data_ptr(), n_valid.data_ptr(), D.data_ptr(),
-                W.data_ptr(), A.data_ptr(), dct.data_ptr(), feat.data_ptr(),
+                signals.data_ptr(), n_valid.data_ptr(), Dp.data_ptr(),
+                WAp.data_ptr(), dct.data_ptr(), feat.data_ptr(),
                 _ptr(wsums), B, Lp, T, flen, fshift, ncols, nmel, nac, nceps,
                 float(floor), int(bool(cmvn)), int(bool(fuse_lpc)),
                 torch.cuda.current_stream(dev).cuda_stream)
@@ -366,21 +446,15 @@ def _big_scratch(lib, n_fft: int, nout: int, nframes: int, dev):
                               dtype=torch.float32, device=dev)
 
 
-# the packed operators built for the FFT kernels: (id(mel), id(acorr),
-# n_fft) -> (mel, acorr, their versions, op); an entry holds its inputs,
-# so their ids and storage stay theirs while it lives
-_PACKED: dict = {}
-
-
 def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     """[mel | acorr | 0] rows 0..n_fft/2 in the FFT tile's layout (csrc/
     frontend_fft.cu srt_fft_operator_shape; past 512 outputs one such
     operator per chunk of 512 columns, stacked), built once per (mel,
     acorr, n_fft) and rebuilt after either is written to."""
-    key = (id(mel), id(acorr), n_fft)
-    hit = _PACKED.get(key)
-    if hit is not None and hit[2] == (mel._version, acorr._version):
-        return hit[3]
+    return _cached((mel, acorr), _fft_operator, n_fft, lib)
+
+
+def _fft_operator(mel, acorr, n_fft: int, lib) -> torch.Tensor:
     nmel, nac = mel.shape[1], acorr.shape[1]
     rows, cols, chunks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     if lib.srt_fft_operator_shape(n_fft, nmel + nac, ctypes.byref(rows),
@@ -396,9 +470,6 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     for k in range(chunks.value):
         part = full[:, k * c:(k + 1) * c]
         op[k * R:k * R + nb, :part.shape[1]] = part
-    if len(_PACKED) >= 16:
-        _PACKED.clear()
-    _PACKED[key] = (mel, acorr, (mel._version, acorr._version), op)
     return op
 
 
@@ -525,9 +596,10 @@ def _frames_bf16(frames, D, W, dct, floor, A):
     if n:
         lib = _build.load()
         wsums = _bf16_rows(lib, n, nmel + nac, dev)
+        Dp, WAp = dft_mma_operator(D), dense_wa_operator(W, A)
         with torch.cuda.device(dev):
             err = lib.srt_frames_bf16(
-                frames.data_ptr(), D.data_ptr(), W.data_ptr(), A.data_ptr(),
+                frames.data_ptr(), Dp.data_ptr(), WAp.data_ptr(),
                 dct.data_ptr(), out.data_ptr(), _ptr(wsums), n, flen, ncols,
                 nmel, nac, nceps, float(floor),
                 torch.cuda.current_stream(dev).cuda_stream)

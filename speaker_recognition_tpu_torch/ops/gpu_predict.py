@@ -37,10 +37,12 @@ Routes, chosen in the open:
     phases on them (csrc/predict_fused_big.cu, several launches a call,
     counted in BIG_LAUNCHES in place of LAUNCHES or WIDE_LAUNCHES);
   * CUDA, `mm_bf16`: the kernel on the dense tile with the samples and D
-    rounded to bf16, counted in BF16_LAUNCHES; any number of mel +
-    autocorrelation outputs (chunks of 128 past 128, their sums in device
-    rows) and any frame length (a tile of 128, 64 or 32 frames, the
-    samples read from device memory past what a 32-frame tile holds).
+    rounded to bf16 (the product on the tensor cores, D and W | A packed
+    once: gpu_frontend.dft_mma_operator, dense_wa_operator), counted in
+    BF16_LAUNCHES; any number of mel + autocorrelation outputs (chunks of
+    128 past 128, their sums in device rows) and any frame length (a tile
+    of 128, 64 or 32 frames, the samples read from device memory past what
+    a 32-frame tile holds).
 Every shape the frontend kernels take, the f32 route takes; on the CPU a
 frontend of N >= 32768 (which builds no dense operators) runs the FFT
 route's plain version.
@@ -59,6 +61,7 @@ from .. import _build
 from ..models.gmm import GmmBank
 from ..models.gmm import batch_bank_avg_loglik
 from .gpu_frontend import (BIG_N, FftRoute, _big_scratch, _packed_operator,
+                           dense_wa_operator, dft_mma_operator,
                            packed_from_signals_fft_reference,
                            packed_from_signals_reference)
 
@@ -232,7 +235,7 @@ def _check_common(signals, n_valid, bank: GmmBank, dct_t, d: int):
 
 def _run(lib, signals, n_valid, bank: GmmBank, flen: int, fshift: int,
          nfft: int, ncols: int, nmel: int, nac: int, dct_t, floor: float,
-         cmvn: bool, bf16: bool, win=None, op=None, D=None, W=None, A=None,
+         cmvn: bool, bf16: bool, win=None, op=None, D=None, WA=None,
          pre_emph: float = 0.0, preemph_first: bool = False,
          wide_floats: int = 0):
     """Allocate the scratch and the output and launch the kernel once. The
@@ -257,7 +260,7 @@ def _run(lib, signals, n_valid, bank: GmmBank, flen: int, fshift: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.srt_fused_predict(
             signals.data_ptr(), n_valid.data_ptr(), ptr(win), ptr(op),
-            ptr(D), ptr(W), ptr(A), dct_t.data_ptr(), comp.data_ptr(),
+            ptr(D), ptr(WA), dct_t.data_ptr(), comp.data_ptr(),
             scratch.data_ptr(), ptr(wsums), out.data_ptr(), B, Lp, T, flen,
             fshift, nfft,
             ncols, nmel, nac, nceps, S, K, float(pre_emph),
@@ -365,15 +368,18 @@ def _launch_bf16(signals, n_valid, bank: GmmBank, fshift: int, D, W, dct_t,
     lib = _build.load()
     T = (signals.shape[1] - flen) // fshift + 1
     return _run(lib, signals, n_valid, bank, flen, fshift, 0, ncols, nmel,
-                nac, dct_t, floor, cmvn, True, D=D, W=W, A=A,
+                nac, dct_t, floor, cmvn, True, D=dft_mma_operator(D),
+                WA=dense_wa_operator(W, A),
                 wide_floats=lib.srt_fused_bf16_wide_floats(
                     signals.shape[0], T, nmel + nac))
 
 
-def bf16_tile(flen: int, fshift: int, nout: int) -> dict:
-    """The bf16 route's tile at a geometry (csrc/packed_tile.cuh pick):
-    frames a tile, outputs a lane / 8 (OPL), whether the samples are read
-    from device memory, output chunks of 8 * OPL."""
-    out = (ctypes.c_int * 4)()
-    _build.load().srt_fused_bf16_tile(flen, fshift, nout, out)
-    return dict(zip(("ft", "opl", "gseg", "chunks"), out))
+def bf16_tile(flen: int, fshift: int, nout: int, d: int) -> dict:
+    """The bf16 route's tile at a geometry (csrc/packed_tile.cuh pick) for
+    feature dimension d: frames a tile, outputs a lane / 8 (OPL), whether
+    the samples are read from device memory, output chunks of 8 * OPL, the
+    tile's shared memory in bytes and the kernel's resident blocks an SM."""
+    out = (ctypes.c_int * 6)()
+    _build.check(_build.load().srt_fused_bf16_tile(flen, fshift, nout, d,
+                                                   out), "bf16 tile")
+    return dict(zip(("ft", "opl", "gseg", "chunks", "smem", "blocks"), out))

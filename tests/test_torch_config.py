@@ -260,6 +260,30 @@ def test_bf16_modes_default_to_the_f32_operands(name):
         assert "precision" not in inspect.signature(f).parameters
 
 
+def test_bf16_tile_runs_on_tensor_core_instructions():
+    """K1's and K4's mm_bf16 (csrc/frontend_bf16.cu) and K6's bf16 route
+    (csrc/predict_fused.cuh) take packed_tile.cuh's tile_sums, which runs
+    X = frame . D as mma.sync on bf16 fragments with f32 accumulation (A by
+    ldmatrix); the FP32-core bf16 stage (operands rounded as staged, fmaf
+    on them) is gone, and no caller selects a precision."""
+    csrc = os.path.join(REPO, "speaker_recognition_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "packed_tile.cuh")) as f:
+        tile = f.read()
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in tile
+    assert "ldmatrix.sync.aligned.m8n8.x4.shared.b16" in tile
+    for gone in ("staged<", "bool BF16", "fma4(", "KT * CC"):
+        assert gone not in tile, gone
+    callers = {}
+    for name in sorted(os.listdir(csrc)):
+        with open(os.path.join(csrc, name)) as f:
+            code = re.sub(r"//[^\n]*", "", f.read())
+        calls = re.findall(r"(?<!rfft::)\btile_sums<([^>]*)>", code)
+        if calls and name != "packed_tile.cuh":
+            callers[name] = calls
+    assert callers == {"frontend_bf16.cu": ["FT, OPL, GSEG"],
+                       "predict_fused.cuh": ["FT, OPL, GSEG"]}
+
+
 @pytest.mark.parametrize("source", ["gmm_score_bf16.cu",
                                     "gmm_serial_bf16.cu"])
 def test_bf16_scoring_runs_on_tensor_core_instructions(source):

@@ -309,5 +309,5 @@ def test_bf16_route_keeps_the_dense_tile_limits(monkeypatch):
     assert gpu_predict.BF16_LAUNCHES == before + 1
     c = calls["predict"]
     B, T = 2, (16384 - 1536) // 768 + 1
-    assert c[10] != 0  # the sums rows of two chunks of 128 outputs
-    assert c[12:16] == (B, 16384, T, 1536) and c[-2] == 1  # bf16
+    assert c[9] != 0  # the sums rows of two chunks of 128 outputs
+    assert c[11:15] == (B, 16384, T, 1536) and c[-2] == 1  # bf16

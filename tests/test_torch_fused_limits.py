@@ -300,5 +300,5 @@ def test_the_card_routes_take_every_shape(stand_in, wide):
                      before["BIG_LAUNCHES"],
                      "CHUNKED_LAUNCHES": before["CHUNKED_LAUNCHES"] + 1}
     c = stand_in.calls.pop("tile")
-    assert c[10] != 0  # the sums rows of two chunks of 512 outputs
-    assert c[12:21] == (2, 9600, 11, 1600, 800, 4096, 0, 600, 16)
+    assert c[9] != 0  # the sums rows of two chunks of 512 outputs
+    assert c[11:20] == (2, 9600, 11, 1600, 800, 4096, 0, 600, 16)
