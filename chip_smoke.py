@@ -152,7 +152,9 @@ raises and the exit code is non-zero):
      product on the tensor cores) on the bench batch, 144 outputs, the
      raw-autocorrelation mode, 48 kHz and 44.1 kHz (flen 1411, fshift
      705: odd) with fft_size 4096, each with its tile (frames, shared
-     memory, blocks an SM); K4 bf16 on the bench batch's frames;
+     memory, blocks an SM) and its cepstra held to per-cepstrum limits
+     (MFCC_BF16_ATOL, or the mel sums' rounding where they cancel); K4
+     bf16 on the bench batch's frames;
      predict_scores(mm="bf16") against the plain versions composed (K1
      bf16 once, K2 f32 once, K1 f32 never); the 48 kHz full route's bf16
      product (its counter moves, K5's do not); each bf16 kernel timed
@@ -262,6 +264,15 @@ SERIAL_RTOL = 1e-4
 SCORE_BF16_RTOL = 1e-5
 SERIAL_BF16_RTOL = 5e-6
 MFCC_BF16_ATOL = 2e-4
+# ... except where the mel sums cancel (W's negative weights: at 128
+# filters at 8 kHz a narrow filter's sum falls to 1e-7 of its magnitudes,
+# and no two f32 orders of the same products agree to MFCC_BF16_ATOL in
+# the cepstra): each cepstrum's limit is the larger of MFCC_BF16_ATOL and
+# MFCC_BF16_ULPS units of 2^-24 sum |X^2| |W| on its mel sums, carried to
+# first order through the log, the DCT and CMVN
+# (gpu_frontend.bf16_cepstra_limits). At the bench's 50 filters no limit
+# passes MFCC_BF16_ATOL; the f32 product must lie BF16_APART limits away.
+MFCC_BF16_ULPS = 16
 LPC_BF16_ATOL, LPC_BF16_RTOL = 1e-3, 1e-4
 ACORR_BF16_RTOL = 1e-5
 PREDICT_BF16_RTOL = 5e-6
@@ -448,6 +459,22 @@ def feature_errors(got, want, mask, nc, lpc_tol=(LPC_ATOL, LPC_RTOL)):
                & m).sum().item()
     d_lpc = (d_lpc * m).max().item() if d_lpc.numel() else 0.0
     return d_mfcc, d_lpc, lpc_bad
+
+
+def ceps_ratio(got, want, lim, mask) -> float:
+    """max |got - want| / lim over the valid frames' cepstra (the first
+    lim.shape[-1] columns of [B, T, d])."""
+    nc = lim.shape[-1]
+    d = (got[..., :nc] - want[..., :nc].to(got.dtype)).abs() / lim
+    return float(d[mask].max())
+
+
+def limit_text(lim, mask, past: float) -> str:
+    """The cepstra limits of a bf16 check, for its line."""
+    return (f"limit {MFCC_BF16_ATOL:g}, or {MFCC_BF16_ULPS:g} ulps of the "
+            f"mel sums carried through log, DCT and CMVN where larger: on "
+            f"{past:.4f} of the valid cepstra, up to "
+            f"{float(lim[mask].max()):.3e}")
 
 
 def check_frontend(name, fe: PackedFrontend, sig, lengths,
@@ -952,9 +979,10 @@ def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS,
           bf16_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the FLOPs over the
     peak of their type (FP32 outside the tensor cores unless `peak` says
-    otherwise; `bf16_flops` more at the bf16 tensor-core peak) and the
+    otherwise; `bf16_flops` more at the bf16 tensor-core peak, which run
+    beside the FP32 pipes, so the slower of the two sets the time) and the
     bytes over the memory rate."""
-    ops_ms = (flops / peak + bf16_flops / BF16_FLOPS) * 1e3
+    ops_ms = max(flops / peak, bf16_flops / BF16_FLOPS) * 1e3
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     if ops_ms >= bytes_ms:
         return {"bound_ms": ops_ms, "bound_by": "operations"}
@@ -2266,8 +2294,9 @@ def phase20(dev, card, feats: dict) -> list:
 def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
                         fuse_lpc=True) -> float:
     """K1's bf16 mode vs its plain version (the dense product on bf16-rounded
-    signals and D) on one batch, at the bf16 gates, the f32 dense product
-    BF16_APART gates away: zeros past n_valid, two calls bitwise, two
+    signals and D) on one batch, at the bf16 gates (the cepstra at
+    bf16_cepstra_limits'), the f32 dense product BF16_APART gates away:
+    zeros past n_valid, two calls bitwise, two
     launches counted; returns the max abs error (of the cepstra in the
     raw-autocorrelation mode, whose autocorrelation is held to lag 0)."""
     args = frontend_args(fe, sig, lengths)
@@ -2295,56 +2324,49 @@ def check_frontend_bf16(name, fe: PackedFrontend, sig, lengths,
             (x[~mask] != 0).any() for x in got):
         raise AssertionError(f"{name}: non-finite or unmasked features")
     nc = fe.dct.shape[1]
+    frames = framing.frame_signal(sig, fe.frame_len, fe.frame_shift)
+    lim = gpu_frontend.bf16_cepstra_limits(
+        frames, fe.D, fe.W, fe.dct, fe.floor, mask, fe.cmvn, MFCC_BF16_ULPS,
+        MFCC_BF16_ATOL)
+    del frames
 
     def ceps_d(a, b):
         return float(((a[..., :nc] - b[..., :nc].to(a.dtype)).abs()
                       * mask[..., None]).max())
 
-    def ceps(a):
-        return ceps_d(a[0], want[0])
-
     def acorr(a):
         lag0 = want[1][..., :1].abs().clamp_min(1e-30)
         return float(((a[1] - want[1]).abs() / lag0)[mask].max())
 
-    # the cepstra: within MFCC_BF16_ATOL of the plain version where the
-    # plain version resolves that gate, i.e. lies within it of the float64
-    # route. Where its own f32 rounding lies farther (128 filters at 8 kHz:
-    # the packed W's negative lobes cancel in the mel sums, and X's last
-    # bits decide them), no f32 order of the sums meets the gate but that
-    # order itself, and the kernel is held to the float64 route instead:
-    # at most VOICE_FACTOR x the plain version's distance from it
-    k64 = ceps_d(got[0], f64[0])
-    p64 = ceps_d(want[0], f64[0])
-    resolved = p64 <= MFCC_BF16_ATOL
+    # the cepstra, each within its limit of the plain version's; the f32
+    # product BF16_APART limits away
+    r_k, r_f32 = (ceps_ratio(a[0], want[0], lim, mask) for a in (got, f32))
+    k64, p64 = ceps_d(got[0], f64[0]), ceps_d(want[0], f64[0])
+    past = float((lim > MFCC_BF16_ATOL)[mask].double().mean())
     if fuse_lpc:
         d_mfcc, d_lpc, lpc_bad = feature_errors(
             got[0], want[0], mask, nc, (LPC_BF16_ATOL, LPC_BF16_RTOL))
         d_r, err = 0.0, max(d_mfcc, d_lpc)
-        apart = bf16_apart(name, {"f32 product's cepstra": feature_errors(
-            f32[0], want[0], mask, nc)[0]}, MFCC_BF16_ATOL)
+        apart = bf16_apart(name, {"f32 product's cepstra, max|d|/limit":
+                                  r_f32}, 1.0)
     else:
-        d_mfcc, d_r = ceps(got), acorr(got)
+        d_mfcc, d_r = ceps_d(got[0], want[0]), acorr(got)
         d_lpc, lpc_bad, err = 0.0, 0, d_mfcc
-        apart = bf16_apart(name, {"f32 product's cepstra": ceps(f32)},
-                           MFCC_BF16_ATOL)
+        apart = bf16_apart(name, {"f32 product's cepstra, max|d|/limit":
+                                  r_f32}, 1.0)
         apart += bf16_apart(name, {"f32 product's autocorrelation":
                                    acorr(f32)}, ACORR_BF16_RTOL)
     tile = occupancy(fe.frame_len, fe.frame_shift,
                      fe.W.shape[1] + fe.A.shape[1])
     print(f"phase 21 K1 bf16 {name} ({tile}) vs its plain version: "
-          f"{[tuple(x.shape) for x in got]} mfcc max|d| {d_mfcc:.3e} (tol "
-          f"{MFCC_BF16_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad}) "
-          f"autocorrelation max|d|/lag0 {d_r:.3e} (tol {ACORR_BF16_RTOL}) "
-          f"launches {launched} two calls bitwise equal {bitwise}; cepstra "
-          f"from the float64 route: kernel {k64:.3e}, f32 plain version "
-          f"{p64:.3e} ("
-          + ("the gate resolved" if resolved else
-             f"past the gate: the kernel held to the float64 route, tol "
-             f"{VOICE_FACTOR:g} x {p64:.3e}") + f"){apart}", flush=True)
-    mfcc_ok = (d_mfcc <= MFCC_BF16_ATOL if resolved
-               else k64 <= VOICE_FACTOR * p64)
-    if (not mfcc_ok or lpc_bad or d_r > ACORR_BF16_RTOL
+          f"{[tuple(x.shape) for x in got]} mfcc max|d| {d_mfcc:.3e}, "
+          f"max|d|/limit {r_k:.3e} (tol 1; {limit_text(lim, mask, past)}) "
+          f"lpc max|d| {d_lpc:.3e} (over tol: {lpc_bad}) autocorrelation "
+          f"max|d|/lag0 {d_r:.3e} (tol {ACORR_BF16_RTOL}) launches "
+          f"{launched} two calls bitwise equal {bitwise}; cepstra from the "
+          f"float64 route: kernel {k64:.3e}, f32 plain version {p64:.3e}"
+          f"{apart}", flush=True)
+    if (not r_k <= 1.0 or lpc_bad or d_r > ACORR_BF16_RTOL
             or launched != 2 or not bitwise):
         raise AssertionError(f"{name}: K1's bf16 mode disagrees with its "
                              "plain version")
@@ -2508,16 +2530,23 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
     nc = fe8.dct.shape[1]
     d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, fm, nc,
                                             (LPC_BF16_ATOL, LPC_BF16_RTOL))
-    apart = bf16_apart("K4 bf16", {"f32 product's cepstra": feature_errors(
-        f32, want, fm, nc)[0]}, MFCC_BF16_ATOL)
+    lim = gpu_frontend.bf16_cepstra_limits(
+        fargs[0].view(B, T, -1), fe8.D, fe8.W, fe8.dct, fe8.floor, fm,
+        fe8.cmvn, MFCC_BF16_ULPS, MFCC_BF16_ATOL)
+    r_k4, r_f32 = (ceps_ratio(x, want, lim, fm) for x in (got, f32))
+    past = float((lim > MFCC_BF16_ATOL)[fm].double().mean())
+    apart = bf16_apart("K4 bf16", {"f32 product's cepstra, max|d|/limit":
+                                   r_f32}, 1.0)
     k4_bits = all(torch.equal(a, b) for a, b in zip(*k4))
     print(f"phase 21 K4 bf16 bench frames {tuple(fargs[0].shape)} ("
           f"{occupancy(fe8.frame_len, fe8.frame_len, nout8)}) vs its "
           f"plain version, through CMVN and Levinson: mfcc max|d| "
-          f"{d_mfcc:.3e} (tol {MFCC_BF16_ATOL}) lpc max|d| {d_lpc:.3e} (over "
+          f"{d_mfcc:.3e}, max|d|/limit {r_k4:.3e} (tol 1; "
+          f"{limit_text(lim, fm, past)}) lpc max|d| {d_lpc:.3e} (over "
           f"tol: {lpc_bad}) launches {k4_launched} two calls bitwise equal "
           f"{k4_bits}{apart}", flush=True)
-    if (d_mfcc > MFCC_BF16_ATOL or lpc_bad or k4_launched != 2
+    del lim
+    if (not r_k4 <= 1.0 or lpc_bad or k4_launched != 2
             or not k4_bits or not torch.isfinite(got).all()):
         raise AssertionError("K4's bf16 mode disagrees with its plain "
                              "version")

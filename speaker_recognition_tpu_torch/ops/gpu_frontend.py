@@ -480,6 +480,41 @@ def packed_from_frames_reference(frames, D, W, dct, floor: float, A,
     return torch.log(torch.clamp_min(Y @ W, floor)) @ dct, Y @ A
 
 
+def bf16_cepstra_limits(frames, D, W, dct, floor: float, mask, cmvn: bool,
+                        ulps: float, atol: float) -> torch.Tensor:
+    """[B, T, n_ceps] limits on how far two f32 computations of the dense
+    product's cepstra on bf16-rounded operands (mm_bf16's kernels and their
+    plain version) may lie apart, for [B, T, flen] frames and [B, T] mask.
+
+    The mel sums M = X^2 . W of the two are held within `ulps` units of
+    2^-24 sum |X^2| |W|, the rounding of f32 sums of the same products in
+    another order, however far M cancels (W interpolates the power on
+    2*flen points and has negative weights: at 128 filters a narrow
+    filter's sum cancels to 1e-7 of its magnitudes). That is carried to
+    first order through the log, the DCT and, with cmvn, the masked CMVN
+    (its mean and its deviation) and is never under `atol`: a cepstrum whose
+    mel sums cancel little keeps `atol` as its limit. Float64, from X of the
+    same rounded operands."""
+    dd = torch.float64
+    Y = (round_bf16(frames).to(dd) @ round_bf16(D).to(dd)) ** 2
+    M = Y @ W.to(dd)
+    kappa = (Y @ W.to(dd).abs() / M.abs().clamp_min(floor)) @ dct.to(
+        dd).abs()
+    lim = ulps * 2.0 ** -24 * kappa
+    if cmvn:
+        m = mask[..., None].to(dd)
+        count = m.sum(dim=-2, keepdim=True)
+        n = count.clamp_min(1.0)
+        c = torch.log(torch.clamp_min(M, floor)) @ dct.to(dd)
+        mu = (c * m).sum(dim=-2, keepdim=True) / n
+        sd = torch.sqrt(((c - mu) ** 2 * m).sum(dim=-2, keepdim=True) / n)
+        mean = (lim * m).sum(dim=-2, keepdim=True) / n
+        rms = torch.sqrt((lim ** 2 * m).sum(dim=-2, keepdim=True) / n)
+        normed = (lim + mean + (c - mu).abs() / sd * rms) / sd
+        lim = torch.where(count > 1, normed, lim)
+    return lim.clamp_min(atol)
+
+
 def packed_from_frames_fft_reference(frames, fft: FftRoute, dct,
                                      floor: float):
     """The frame-level packed frontend on an FFT in plain torch: what K4's

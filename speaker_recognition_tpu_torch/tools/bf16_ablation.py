@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
 import subprocess
 import tempfile
 
@@ -26,6 +25,7 @@ from .. import _build
 from ..config import FeatureConfig, n_frames
 from ..features.extract import PackedFrontend
 from ..ops import gpu_frontend
+from . import fft_ablation
 from .fft_ablation import time_ms
 
 # variant -> [(file, text, its replacement)]; each text must be there
@@ -66,39 +66,10 @@ VARIANTS = {
 SOURCES = ("packed_tile.cuh", "frontend_bf16.cu")
 
 
-def build(tmp: str) -> dict:
-    """One library per variant, all nvcc processes at once."""
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, edits in VARIANTS.items():
-        d = os.path.join(tmp, name)
-        os.makedirs(d)
-        for f in SOURCES:
-            shutil.copy(os.path.join(_build.CSRC, f), d)
-        for fname, old, new in edits:
-            path = os.path.join(d, fname)
-            with open(path) as f:
-                src = f.read()
-            if src.count(old) != 1:
-                raise SystemExit(f"{name}: csrc/{fname} has {old!r} "
-                                 f"{src.count(old)} times, not once")
-            with open(path, "w") as f:
-                f.write(src.replace(old, new))
-        procs[name] = subprocess.Popen(
-            [nvcc, *_build.NVCC_FLAGS[:-2], "-shared", "-o",
-             os.path.join(d, "lib.so"), os.path.join(d, "frontend_bf16.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
+def bind(lib) -> None:
+    """The argument types of K1 bf16's C interface."""
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name, proc in procs.items():
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{out[-3000:]}")
-        lib = ctypes.CDLL(os.path.join(tmp, name, "lib.so"))
-        lib.srt_frontend_bf16.argtypes = [p_] * 7 + [i_] * 9 + [f_, i_, i_,
-                                                                 p_]
-        libs[name] = lib
-    return libs
+    lib.srt_frontend_bf16.argtypes = [p_] * 7 + [i_] * 9 + [f_, i_, i_, p_]
 
 
 def main():
@@ -135,7 +106,8 @@ def main():
 
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build(tmp)
+        libs = fft_ablation.build(tmp, VARIANTS, SOURCES,
+                                  ("frontend_bf16.cu",), bind)
         print(f"bf16_ablation [{card}]: K1 bf16 512 x 5 s @ 8 kHz, median "
               "of 7 trials of 3 calls", flush=True)
         for rnd in range(2):

@@ -48,8 +48,8 @@ VARIANTS = {
         ("      const int k = lane + 32 * q;\n      if (k > H) break;\n      float p;",
          "      const int k = lane + 32 * q;\n      if (k >= 0) break;\n      float p;")],
     "no_projection_fma": [
-        ("#pragma unroll 4\n    for (int kk = 0; kk < kw; ++kk) {",
-         "#pragma unroll 4\n    for (int kk = 0; kk < 0; ++kk) {")],
+        ("#pragma unroll 4\n      for (int kk = 0; kk < kw; ++kk) {",
+         "#pragma unroll 4\n      for (int kk = 0; kk < 0; ++kk) {")],
     "no_projection": [
         ("  for (int k0 = 0; k0 < NB; k0 += CK) {",
          "  for (int k0 = 0; k0 < 0; k0 += CK) {")],
@@ -63,17 +63,29 @@ VARIANTS = {
          "  for (int i = tid; i < 0; i += NTH) {")],
 }
 SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "packed_tile.cuh",
-           "frontend_fft.cu", "frontend.cu")
+           "big_signal.cuh", "frontend_fft.cu", "frontend.cu")
 
 
-def build(tmp: str) -> dict:
-    """One library per variant, all nvcc processes at once."""
+def bind(lib) -> None:
+    """The argument types of K5's and K1's C interfaces."""
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.srt_fft_frames_frontend.argtypes = [p_] * 6 + [i_] * 6 + [f_, p_]
+    lib.srt_packed_frontend.argtypes = ([p_] * 7 + [i_] * 9
+                                        + [f_, i_, f_, i_, i_, p_])
+
+
+def build(tmp: str, variants=VARIANTS, sources=SOURCES,
+          entries=("frontend_fft.cu", "frontend.cu"), bind=bind) -> dict:
+    """One library per variant of `variants` over copies of `sources`
+    (each edit a (text of csrc/rfft_tile.cuh, replacement) or a (file,
+    text, replacement)), built from the `entries` files, all nvcc processes
+    at once; bind(lib) sets each library's argument types."""
     nvcc = _build._nvcc()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         d = os.path.join(tmp, name)
         os.makedirs(d)
-        for f in SOURCES:
+        for f in sources:
             shutil.copy(os.path.join(_build.CSRC, f), d)
         for edit in edits:
             fname, old, new = (edit if len(edit) == 3
@@ -88,20 +100,16 @@ def build(tmp: str) -> dict:
                 f.write(src.replace(old, new))
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS[:-2], "-shared", "-o",
-             os.path.join(d, "lib.so"), os.path.join(d, "frontend_fft.cu"),
-             os.path.join(d, "frontend.cu")],
+             os.path.join(d, "lib.so"),
+             *(os.path.join(d, e) for e in entries)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
-    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name, proc in procs.items():
         out = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{out[-3000:]}")
-        lib = ctypes.CDLL(os.path.join(tmp, name, "lib.so"))
-        lib.srt_fft_frames_frontend.argtypes = [p_] * 6 + [i_] * 6 + [f_, p_]
-        lib.srt_packed_frontend.argtypes = ([p_] * 7 + [i_] * 9
-                                            + [f_, i_, f_, i_, i_, p_])
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(os.path.join(tmp, name, "lib.so"))
+        bind(libs[name])
     return libs
 
 
