@@ -51,8 +51,10 @@ raises and the exit code is non-zero):
      utterance with no valid frame, 44.1 and 48 kHz with fft_size 4096, 128
      and 250 mel filters with LPC at 48 kHz, 96 kHz with fft_size 8192, 192
      kHz with fft_size 16384 and with 8192 (the default route there), two
-     calls bitwise; fft_size 1500 at 8 kHz, which takes the dense kernel,
-     also with 144 outputs
+     calls bitwise; fft_size 1500 at 8 kHz, which takes the chirp-z
+     kernel, also with 144 outputs, 44.1 kHz with fft_size 1411 (the
+     frame) and a 48 kHz frame folded onto fft_size 1000, each also
+     against the chirp-z plain version
  11. frame-level packed kernel (K4 on an FFT, no serving caller) vs both
      plain versions, the dense packed DFT and the FFT route: 512 x 5 s at
      8 kHz and a 16 kHz batch with LPC cepstra, 96 and 192 kHz with
@@ -85,12 +87,17 @@ raises and the exit code is non-zero):
      a bank of 70,000 speakers (launches of at most 65535 in one call), vs
      their plain versions
  15. the live path at the bench configuration (8 kHz, MFCC13 + LPC15,
-     GMM-32 with k-means|| seeding): the dense K5 template at 216 outputs
-     (fft_size 1500, 200 mel filters + LPC) on the bench batch vs both
-     plain versions, two calls bitwise, 144 outputs bitwise inside 216,
-     and through extract_batch (SRTPU_FRONTEND=full) on the bench batch vs
-     the dense plain version; the LTSD VAD and the spectral
-     gate on the card vs the CPU at float64 (identical intervals, two
+     GMM-32 with k-means|| seeding): K5's chirp-z kernel at 216 outputs
+     (fft_size 1500, 200 mel filters + LPC) on the bench batch vs its
+     three plain versions (FFT route, chirp-z, dense), two calls bitwise,
+     144 outputs bitwise inside 216, and through extract_batch
+     (SRTPU_FRONTEND=full) on the bench batch vs the dense plain version,
+     the chirp-z kernel launched once and the dense template never; the
+     dense template launched directly on the same frames vs its plain
+     version, two calls bitwise, 144 inside 216, and through extract_batch
+     past the chirp's reach (fft_size 16000); both timed beside the plain
+     versions and cuFFT's rfft at 1500 points; the LTSD VAD and the
+     spectral gate on the card vs the CPU at float64 (identical intervals, two
      calls bitwise); Lloyd's on the card vs the CPU at float64 from one
      init, k-means|| over 8 seeds against the CPU's median inertia, and
      seeding + EM of 80 speakers x 30 s at GMM-256 (warm, median of 7, the
@@ -112,7 +119,8 @@ raises and the exit code is non-zero):
      (and K5 against the dense one, K1 at 616 outputs against the float64
      route), two calls bitwise, through extract_batch with its route's
      counter, 512 outputs bitwise inside 616, and timed with the four-step
-     route's device time by kernel; K6's bf16 route at 144 outputs on the
+     route's device time by kernel (K5 beside cuFFT's rfft of the same
+     frames); K6's bf16 route at 144 outputs on the
      bench batch (timed), 48 kHz frames with fft_size 4096 and 96 kHz with
      fft_size 8192 (32-frame tiles), 192 kHz with fft_size 16384 (the
      samples from device memory), each on the tile it claims, against its
@@ -163,9 +171,10 @@ raises and the exit code is non-zero):
      bench frames and D (the yardstick of the tile's stage 1), in one
      interleaved set; the bf16 kernels' occupancy
 The line before the last is {"kernels": [...]}, each kernel with its
-launches on the main path (0 for K4, which no serving path takes; the
-dense K5 template's on extract_batch at 216 outputs; phase 16's routes
-on their extract_batch drives), its
+launches on the main path (0 for K4, which no serving path takes; K5's
+chirp-z kernel's on extract_batch at 216 outputs, the dense template's
+on extract_batch past the chirp's reach; phase 16's routes on their
+extract_batch drives), its
 error against its plain version, its time, its plain version's time and
 its bound (the larger of the least FLOPs of
 its function over the FP32 peak, the bf16 modes' products over the dense
@@ -921,13 +930,19 @@ def frames_kernel(fe, dense=True):
     big = fe.n_fft >= gpu_frontend.BIG_N
     if isinstance(fe, FullFrontend):
         n = fe.n_fft
-        return (lambda *a: gpu_frontend.mfcc_from_frames(*a, n),
-                {"dense": gpu_frontend.mfcc_from_frames_reference,
-                 "fft": lambda wp, C, S, mel, dct, floor, ac:
-                     gpu_frontend.mfcc_from_frames_fft_reference(
-                         wp, mel, dct, floor, ac, n)},
+        plains = {"dense": gpu_frontend.mfcc_from_frames_reference,
+                  "fft": lambda wp, C, S, mel, dct, floor, ac:
+                      gpu_frontend.mfcc_from_frames_fft_reference(
+                          wp, mel, dct, floor, ac, n)}
+        chirp = gpu_frontend.chirp_size(n, fe.frame_len)
+        if chirp:
+            plains["chirp"] = lambda wp, C, S, mel, dct, floor, ac: \
+                gpu_frontend.mfcc_from_frames_chirp_reference(
+                    wp, mel, dct, floor, ac, n)
+        return (lambda *a: gpu_frontend.mfcc_from_frames(*a, n), plains,
                 "FULL_BIG_LAUNCHES" if big else "FULL_LAUNCHES"
-                if n & (n - 1) == 0 else "FULL_DENSE_LAUNCHES")
+                if n & (n - 1) == 0 else "FULL_CHIRP_LAUNCHES" if chirp
+                else "FULL_DENSE_LAUNCHES")
     plains = {"fft": lambda frames, D, W, dct, floor, A:
               gpu_frontend.packed_from_frames_fft_reference(
                   frames, fe.fft, dct, floor)}
@@ -1311,21 +1326,23 @@ def seeding_stages(fn, trials=7) -> dict:
     return {k: float(np.median(v)) for k, v in times.items()}
 
 
+FRONTEND_COUNTERS = ("LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES",
+                     "FULL_CHIRP_LAUNCHES", "FULL_DENSE_LAUNCHES",
+                     "BIG_LAUNCHES", "FRAMES_BIG_LAUNCHES",
+                     "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES")
+
+
 def reset_frontend_counts():
-    for name in ("LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES",
-                 "FULL_DENSE_LAUNCHES", "BIG_LAUNCHES", "FRAMES_BIG_LAUNCHES",
-                 "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES"):
+    for name in FRONTEND_COUNTERS:
         setattr(gpu_frontend, name, 0)
 
 
 def frontend_counts() -> dict:
-    return {k: getattr(gpu_frontend, k) for k in (
-        "LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES", "BIG_LAUNCHES",
-        "FRAMES_BIG_LAUNCHES", "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES")}
+    return {k: getattr(gpu_frontend, k) for k in FRONTEND_COUNTERS}
 
 
 def drive_extract(name, fs, cfg, sig, lengths, want: dict,
-                  full: bool = False) -> dict:
+                  full: bool = False, phase: int = 16) -> dict:
     """One extract_batch call on the card (SRTPU_FRONTEND=full when
     `full`), the frontend counters set to 0 just before and read just
     after; raises unless they are `want` (the others 0)."""
@@ -1342,7 +1359,7 @@ def drive_extract(name, fs, cfg, sig, lengths, want: dict,
     expect = {k: want.get(k, 0) for k in got}
     ok = (got == expect and torch.isfinite(feat).all()
           and bool((feat[~mask] == 0).all()))
-    print(f"phase 16 {name} through extract_batch ({type(fe).__name__}, "
+    print(f"phase {phase} {name} through extract_batch ({type(fe).__name__}, "
           f"n_fft {fe.n_fft}): features {tuple(feat.shape)}, launches "
           f"{ {k: v for k, v in got.items() if v} }", flush=True)
     if not ok:
@@ -1437,14 +1454,19 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> list:
                                   full=True)["FULL_BIG_LAUNCHES"]
         fargs, B_, T_ = frames_args(fe, s48)
         kern, plains, _ = frames_kernel(fe)
-        t5 = time_interleaved({"kernel": lambda: kern(*fargs),
-                               "plain": lambda: plains["fft"](*fargs)})
+        # cuFFT's spectrum alone: the spectral stage's yardstick, not the
+        # whole function
+        t5 = time_interleaved({
+            "kernel": lambda: kern(*fargs),
+            "plain": lambda: plains["fft"](*fargs),
+            "rfft": lambda: torch.fft.rfft(fargs[0], n=n)})
         b5 = frames_work(fe, B_ * T_, 4 * fargs[0].numel())
         print(f"phase 16 [{card}] {nm}: {t5['kernel']:.3f} ms, plain "
-              f"{t5['plain']:.3f} ms, bound {b5['bound_ms']:.4f} ms "
+              f"{t5['plain']:.3f} ms, cuFFT's torch.fft.rfft(frames, n={n}) "
+              f"alone {t5['rfft']:.3f} ms, bound {b5['bound_ms']:.4f} ms "
               f"({b5['bound_by']}); device ms a call by kernel "
               f"{kernel_times(lambda: kern(*fargs))}", flush=True)
-        entries.append((f"mfcc_from_frames_n{n}", "frontend_fft.cu",
+        entries.append((f"mfcc_from_frames_n{n}", "frontend_big.cu",
                         "pallas_frontend.py:50", launched5, err5,
                         t5["kernel"], t5["plain"], b5))
         del fargs, fe
@@ -3131,7 +3153,7 @@ def main(argv=None):
           f"{tl['host_syncs']} host syncs", flush=True)
 
     # 10. full-spectrum kernel vs plain
-    err_full = 0.0
+    err_full = err_chirp = 0.0
     L48 = int(FS48 * BENCH_SEC)
     lens48 = [L48 - int(rng.randint(0, 3 * FS48)) for _ in range(63)] + [L48]
     fe48 = FullFrontend(FS48, fcfg, dev)
@@ -3140,6 +3162,7 @@ def main(argv=None):
     del s48, l48
     fe44 = FullFrontend(44100, fcfg, dev)
     s44, l44 = signals_batch(rng, [44100, 30000, 5000], padded(44100), dev)
+    s48b, l48b = signals_batch(rng, [FS48, 40000], padded(FS48), dev)
     err_full = max(err_full, check_frames(
         10, f"44.1 kHz (flen {fe44.frame_len}, fshift {fe44.frame_shift})",
         fe44, s44, l44))
@@ -3152,14 +3175,24 @@ def main(argv=None):
         10, "16 kHz, fft_size 256 (frame 512 > fft)", FullFrontend(
             16000, FeatureConfig(mfcc=MfccConfig(fft_size=256)), dev), s16,
         l16))
-    # not a power of two: the dense kernel, on its own counter, also with
-    # 128 mel filters + LPC (144 outputs)
+    # not a power of two: the chirp-z kernel, on its own counter, also with
+    # 128 mel filters + LPC (144 outputs); 44.1 kHz with fft_size 1411 (the
+    # frame: M = 4096) and a 48 kHz frame folded onto fft_size 1000 (M =
+    # 2048)
     for n_filters in (50, 128):
-        err_full = max(err_full, check_frames(
-            10, f"8 kHz, fft_size 1500, {n_filters} mel filters (dense "
+        err_chirp = max(err_chirp, check_frames(
+            10, f"8 kHz, fft_size 1500, {n_filters} mel filters (chirp-z "
             "kernel)", FullFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
                 fft_size=1500, n_filters=n_filters)), dev),
             bench_sig[:8], bench_len[:8]))
+    for fs_c, n_c, sig_c, len_c in ((44100, 1411, s44, l44),
+                                    (FS48, 1000, s48b, l48b)):
+        fe_c = FullFrontend(fs_c, FeatureConfig(mfcc=MfccConfig(
+            fft_size=n_c)), dev)
+        err_chirp = max(err_chirp, check_frames(
+            10, f"{fs_c / 1e3:g} kHz, fft_size {n_c} (flen "
+            f"{fe_c.frame_len}, M {gpu_frontend.chirp_size(n_c, fe_c.frame_len)}"
+            ", chirp-z kernel)", fe_c, sig_c, len_c))
     # a 4096-point FFT (16-frame tiles), and 144 outputs (256 columns)
     for fs_p, sig_p, len_p in ((FS48, s48p, l48p), (44100, s44p, l44p)):
         err_full = max(err_full, check_frames(
@@ -3190,7 +3223,6 @@ def main(argv=None):
     err_full = max(err_full, check_frames(
         10, "8 kHz, SRTPU_FRONTEND=full", fe_env, bench_sig[:8],
         bench_len[:8]))
-    s48b, l48b = signals_batch(rng, [FS48, 40000], padded(FS48), dev)
     for name, cfg in (("bob's config @ 48 kHz",
                        FeatureConfig(mfcc=bob_mfcc_config())),
                       ("MFCC only @ 48 kHz", FeatureConfig(use_lpc=False))):
@@ -3697,71 +3729,142 @@ def main(argv=None):
     if min(launches14.values()) < 1:
         raise AssertionError(f"the grid phase missed a kernel: {launches14}")
 
-    # 15. the live path: the dense K5 template past 192 outputs, the VAD
-    # and k-means on the card, then noise -> filtered enrollment ->
+    # 15. the live path: K5 at fft_size 1500 past 192 outputs (the chirp-z
+    # kernel, and the dense template it replaced there), the VAD and
+    # k-means on the card, then noise -> filtered enrollment ->
     # k-means-seeded training -> streaming decisions through the GUI
     fe216 = FullFrontend(BENCH_FS, DENSE216, dev)
-    err_dense = check_frames(
+    if gpu_frontend.chirp_size(fe216.n_fft, fe216.frame_len) != 1024:
+        raise AssertionError("fft_size 1500 did not take a 1024-point chirp")
+    err_chirp = max(err_chirp, check_frames(
         15, "8 kHz, fft_size 1500, 200 mel filters + LPC (216 outputs, "
-        f"dense kernel), {BENCH_B} x {BENCH_SEC:g} s", fe216, bench_sig,
-        bench_len)
+        f"chirp-z kernel), {BENCH_B} x {BENCH_SEC:g} s", fe216, bench_sig,
+        bench_len))
+    args216, B216, T216 = frames_args(fe216, bench_sig)
+    # the dense template on the same frames, launched directly: it now
+    # serves only past the chirp-z route's reach (M > 8192)
+    c_dense, r_dense = gpu_frontend.mfcc_from_frames_dense(*args216)
+    again_c, again_r = gpu_frontend.mfcc_from_frames_dense(*args216)
+    torch.cuda.synchronize()
+    want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args216)
+    mask216 = framing.frame_validity_mask(bench_len, T216, fe216.frame_len,
+                                          fe216.frame_shift)
+    got216, m216 = fe216.finish(c_dense.view(B216, T216, -1),
+                                r_dense.view(B216, T216, -1), mask216)
+    want216, _ = fe216.finish(want_c.view(B216, T216, -1),
+                              want_r.view(B216, T216, -1), mask216)
+    d_mfcc, d_lpc, lpc_bad = feature_errors(got216, want216, m216,
+                                            fe216.dct.shape[1])
+    bitwise = torch.equal(c_dense, again_c) and torch.equal(r_dense, again_r)
+    print(f"phase 15 dense kernel (direct), 216 outputs vs the dense plain "
+          f"version: mfcc max|d| {d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| "
+          f"{d_lpc:.3e} (over tol: {lpc_bad}) bitwise {bitwise}", flush=True)
+    if d_mfcc > MFCC_ATOL or lpc_bad or not bitwise:
+        raise AssertionError("the dense kernel disagrees with its plain "
+                             "version")
+    err_dense = max(d_mfcc, d_lpc)
+    del c_dense, r_dense, again_c, again_r, want_c, want_r, got216, want216
     # an output's arithmetic does not depend on how many there are: 144
-    # outputs (one register chunk) equal their copies among 216 bitwise
+    # outputs equal their copies among 216 bitwise, on both kernels
     fe144 = FullFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
         fft_size=1500, n_filters=128)), dev)
-    args144, _, _ = frames_args(fe144, bench_sig[:8])
-    c144, r144 = gpu_frontend.mfcc_from_frames_dense(*args144)
+    args144, _, _ = frames_args(fe144, bench_sig)
     ac = args144[-1]
     wide = torch.cat([ac, torch.from_numpy(rng.rand(ac.shape[0], 72).astype(
         np.float32)).to(dev)], dim=1).contiguous()
-    c216, r216 = gpu_frontend.mfcc_from_frames_dense(*args144[:-1], wide)
-    torch.cuda.synchronize()
-    inside = (torch.equal(c144, c216)
-              and torch.equal(r144, r216[:, :ac.shape[1]]))
-    print(f"phase 15 dense kernel: 144 outputs bitwise equal inside 216: "
-          f"{inside}", flush=True)
-    if not inside:
-        raise AssertionError("the dense kernel's outputs depend on the "
-                             "output count")
-    # the dense plain version's features of the bench batch, which
-    # extract_batch's must match
-    args216, B216, T216 = frames_args(fe216, bench_sig)
+    for which, fn in (("chirp-z", lambda *a: gpu_frontend.mfcc_from_frames(
+                           *a, fe144.n_fft)),
+                      ("dense", gpu_frontend.mfcc_from_frames_dense)):
+        a144 = args144 if which == "chirp-z" else (
+            args144[0][:8 * T216].contiguous(), *args144[1:])
+        c144, r144 = fn(*a144)
+        c216, r216 = fn(*a144[:-1], wide)
+        torch.cuda.synchronize()
+        inside = (torch.equal(c144, c216)
+                  and torch.equal(r144, r216[:, :ac.shape[1]]))
+        print(f"phase 15 {which} kernel: 144 outputs bitwise equal inside "
+              f"216: {inside}", flush=True)
+        if not inside:
+            raise AssertionError(f"the {which} kernel's outputs depend on "
+                                 "the output count")
+    del args144, wide, c144, r144, c216, r216
+    # extract_batch at 216 outputs takes the chirp-z kernel once and the
+    # dense template never, and its features match the dense plain
+    # version's; past the chirp's reach (fft_size 16000: M would be 16384)
+    # it takes the dense template once
     want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args216)
     want216, wmask216 = fe216.finish(
-        want_c.view(B216, T216, -1), want_r.view(B216, T216, -1),
-        framing.frame_validity_mask(bench_len, T216, fe216.frame_len,
-                                    fe216.frame_shift))
+        want_c.view(B216, T216, -1), want_r.view(B216, T216, -1), mask216)
     del want_c, want_r
-    gpu_frontend.FULL_DENSE_LAUNCHES = 0
+    reset_frontend_counts()
     os.environ["SRTPU_FRONTEND"] = "full"
-    feats216, mask216 = extract.extract_batch(bench_sig, bench_len, BENCH_FS,
-                                              DENSE216)
+    feats216, fmask216 = extract.extract_batch(bench_sig, bench_len,
+                                               BENCH_FS, DENSE216)
     del os.environ["SRTPU_FRONTEND"]
-    launches_dense = gpu_frontend.FULL_DENSE_LAUNCHES
+    torch.cuda.synchronize()
+    counts216 = frontend_counts()
+    launches_chirp = counts216["FULL_CHIRP_LAUNCHES"]
     d_mfcc, d_lpc, lpc_bad = feature_errors(feats216, want216, wmask216,
                                             fe216.dct.shape[1])
     print(f"phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs "
           f"(SRTPU_FRONTEND=full), {BENCH_B} x {BENCH_SEC:g} s: features "
           f"{tuple(feats216.shape)} vs the dense plain version: mfcc max|d| "
           f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
-          f"{lpc_bad}), dense kernel launches {launches_dense}", flush=True)
-    if (launches_dense != 1 or feats216.shape != want216.shape
-            or not torch.equal(mask216, wmask216)
+          f"{lpc_bad}), launches { {k: v for k, v in counts216.items() if v} }"
+          f", chirp-z kernel launches {launches_chirp}, dense kernel "
+          f"launches {counts216['FULL_DENSE_LAUNCHES']}", flush=True)
+    if (counts216 != {k: int(k == "FULL_CHIRP_LAUNCHES")
+                      for k in counts216}
+            or feats216.shape != want216.shape
+            or not torch.equal(fmask216, wmask216)
             or not torch.isfinite(feats216).all()
             or d_mfcc > MFCC_ATOL or lpc_bad):
         raise AssertionError("extract_batch at 216 outputs did not run the "
-                             "dense kernel once, or disagrees with its plain "
-                             "version")
-    err_dense = max(err_dense, d_mfcc, d_lpc)
-    del feats216, mask216, want216, wmask216
+                             "chirp-z kernel once and the dense one never, "
+                             "or disagrees with the dense plain version")
+    err_chirp = max(err_chirp, d_mfcc, d_lpc)
+    del feats216, fmask216, want216, wmask216
+    past = FeatureConfig(mfcc=MfccConfig(fft_size=16000))
+    fe_past = FullFrontend(BENCH_FS, past, dev)
+    if gpu_frontend.chirp_size(16000, fe_past.frame_len) != 0:
+        raise AssertionError("fft_size 16000 is within the chirp's reach")
+    launches_dense = drive_extract(
+        "8 kHz, fft_size 16000 (past the chirp-z route's reach)", BENCH_FS,
+        past, bench_sig[:8].contiguous(), bench_len[:8].contiguous(),
+        {"FULL_DENSE_LAUNCHES": 1}, full=True,
+        phase=15)["FULL_DENSE_LAUNCHES"]
+    err_dense = max(err_dense, check_frames(
+        15, "8 kHz, fft_size 16000 (dense kernel)", fe_past,
+        bench_sig[:8].contiguous(), bench_len[:8].contiguous()))
+    # the chirp-z kernel beside the dense template, the FFT route's plain
+    # version (the chirp kernel's plain version: torch.fft.rfft at 1500
+    # points), the chirp's own plain version (torch.fft.fft at M), the
+    # dense plain version, and cuFFT's spectrum alone (the spectral stage's
+    # yardstick, not the whole function), interleaved
+    wp216, mel216, dct216, ac216 = (args216[0], args216[3], args216[4],
+                                    args216[6])
     t.update(time_interleaved({
+        "chirp216": lambda: gpu_frontend.mfcc_from_frames(*args216, 1500),
         "dense216": lambda: gpu_frontend.mfcc_from_frames_dense(*args216),
+        "chirp216_plain": lambda: gpu_frontend.mfcc_from_frames_fft_reference(
+            wp216, mel216, dct216, fe216.floor, ac216, 1500),
+        "chirp216_plain_chirp": lambda:
+            gpu_frontend.mfcc_from_frames_chirp_reference(
+                wp216, mel216, dct216, fe216.floor, ac216, 1500),
         "dense216_plain": lambda: gpu_frontend.mfcc_from_frames_reference(
-            *args216)}))
-    print(f"phase 15 [{card}] dense kernel, {BENCH_B} x {BENCH_SEC:g} s @ "
-          f"8 kHz, fft_size 1500, 216 outputs: {t['dense216']:.3f} ms, "
-          f"plain {t['dense216_plain']:.3f} ms", flush=True)
-    del args216
+            *args216),
+        "rfft1500": lambda: torch.fft.rfft(wp216, n=1500)}))
+    print(f"phase 15 [{card}] {BENCH_B} x {BENCH_SEC:g} s @ 8 kHz, fft_size "
+          f"1500, 216 outputs ({tuple(wp216.shape)} frames): chirp-z kernel "
+          f"{t['chirp216']:.3f} ms, dense template {t['dense216']:.3f} ms; "
+          f"plain: FFT route {t['chirp216_plain']:.3f} ms, chirp-z "
+          f"{t['chirp216_plain_chirp']:.3f} ms, dense "
+          f"{t['dense216_plain']:.3f} ms; cuFFT's torch.fft.rfft(frames, "
+          f"n=1500) alone {t['rfft1500']:.3f} ms", flush=True)
+    print(f"phase 15 [{card}] chirp-z kernel " + device_times(
+        lambda: gpu_frontend.mfcc_from_frames(*args216, 1500)), flush=True)
+    n_frames216 = wp216.shape[0]
+    del args216, wp216
 
     # the VAD on the card at f32 against the CPU's plain torch at f64
     fs = synth.FS
@@ -4065,10 +4168,12 @@ def main(argv=None):
             4 * BENCH_B * T48 * (fe48.frame_len + nceps
                                  + fe48.acorr.shape[1])
             + 4 * sum(x.numel() for x in (fe48.mel, fe48.dct, fe48.acorr))),
-        "mfcc_from_frames_dense": bound(
-            frontend_flops(B216 * T216, fe216.n_fft,
+        # the dense template and the chirp-z kernel compute one function
+        # on the same frames (K5 at fft_size 1500, 216 outputs)
+        "mfcc_from_frames_1500": bound(
+            frontend_flops(n_frames216, fe216.n_fft,
                            (fe216.mel, fe216.acorr), fe216.dct.shape[1]),
-            4 * B216 * T216 * (fe216.frame_len + fe216.dct.shape[1]
+            4 * n_frames216 * (fe216.frame_len + fe216.dct.shape[1]
                                + fe216.acorr.shape[1])
             + 4 * sum(x.numel() for x in (fe216.mel, fe216.dct,
                                           fe216.acorr))),
@@ -4125,7 +4230,10 @@ def main(argv=None):
               t["fused_bf16"], t["fused_plain_bf16"], "fused"),
         entry("mfcc_from_frames_dense", "frontend_frames.cu",
               "pallas_frontend.py:50", launches_dense, err_dense,
-              t["dense216"], t["dense216_plain"], "mfcc_from_frames_dense"),
+              t["dense216"], t["dense216_plain"], "mfcc_from_frames_1500"),
+        entry("mfcc_from_frames_chirp", "frontend_chirp.cu",
+              "pallas_frontend.py:50", launches_chirp, err_chirp,
+              t["chirp216"], t["chirp216_plain"], "mfcc_from_frames_1500"),
     ] + [{"name": name, "route": "cuda",
           "source": f"speaker_recognition_tpu_torch/csrc/{source}",
           "replaces": f"speaker_recognition_tpu/ops/{replaces}",

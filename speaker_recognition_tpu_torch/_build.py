@@ -64,7 +64,7 @@ def _bind(lib):
     lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, i, i, i, f, i, f, i, i, p]
     lib.srt_packed_frontend.restype = i
-    lib.srt_big_packed_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+    lib.srt_big_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                             i, i, i, i, i, i, f, i, f, i, i,
                                             i, p]
     lib.srt_big_packed_frontend.restype = i
@@ -74,16 +74,23 @@ def _bind(lib):
     lib.srt_fft_wide_floats.restype = ll
     lib.srt_big_scratch_floats.argtypes = [i, i, i]
     lib.srt_big_scratch_floats.restype = ll
+    lib.srt_big_operator_shape.argtypes = [i, i, ip, ip, ip]
+    lib.srt_big_operator_shape.restype = i
+    lib.srt_chirp_operator_shape.argtypes = [i, i, i, ip, ip, ip]
+    lib.srt_chirp_operator_shape.restype = i
+    lib.srt_chirp_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                              i, i, i, i, f, p]
+    lib.srt_chirp_frames_frontend.restype = i
     lib.srt_fft_frames_frontend.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                             i, f, p]
     lib.srt_fft_frames_frontend.restype = i
-    lib.srt_big_fft_frames.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+    lib.srt_big_fft_frames.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                        f, i, p]
     lib.srt_big_fft_frames.restype = i
     lib.srt_fft_packed_frames.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                           i, f, i, f, p]
     lib.srt_fft_packed_frames.restype = i
-    lib.srt_big_packed_frames.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+    lib.srt_big_packed_frames.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, f, i, f, i, p]
     lib.srt_big_packed_frames.restype = i
     lib.srt_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
@@ -126,9 +133,9 @@ def _bind(lib):
                                       i, i, i, i, i, i, i, i, i, i, i, f, i,
                                       f, i, i, p]
     lib.srt_fused_predict.restype = i
-    lib.srt_fused_predict_big.argtypes = [p, p, p, p, p, p, p, p, p, p, i,
-                                          i, i, i, i, i, i, i, i, i, i, f, i,
-                                          f, i, i, p]
+    lib.srt_fused_predict_big.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                          i, i, i, i, i, i, i, i, i, f, i, f,
+                                          i, i, p]
     lib.srt_fused_predict_big.restype = i
     lib.srt_fused_component_row.argtypes = [i]
     lib.srt_fused_component_row.restype = i

@@ -178,13 +178,13 @@ extern "C" int srt_packed_frontend(
 }
 
 // K1 at an nfft-point FFT, nfft a power of two >= 32768 (csrc/rfft_big.cuh):
-// the arguments of srt_packed_frontend, with the bin-domain operators mel
-// [>= nfft/2 + 1, nmel] and acorr [>= nfft/2 + 1, nac] in place of the
-// packed one and scratch of srt_big_scratch_floats(nfft, nmel + nac,
-// chunk) (csrc/frontend_fft.cu) for chunks of `chunk` frames of the batch.
+// the arguments of srt_packed_frontend, with the packed operator of
+// srt_big_operator_shape in place of the tile's and scratch of
+// srt_big_scratch_floats(nfft, nmel + nac, chunk) (both csrc/
+// frontend_big.cu) for chunks of `chunk` frames of the batch.
 extern "C" int srt_big_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
-    const void* mel, const void* acorr, const void* dct, void* feat,
+    const void* op, const void* dct, void* feat,
     void* scratch, int B, int Lp, int T, int flen, int fshift, int nfft,
     int nmel, int nac, int nceps, float pre_emph, int preemph_first,
     float power_floor, int cmvn, int fuse_lpc, int chunk, void* stream) {
@@ -199,9 +199,9 @@ extern "C" int srt_big_packed_frontend(
   float* sc = (float*)scratch;
   for (int g0 = 0; g0 < (int)n; g0 += chunk) {
     const int nfc = (int)std::min<long long>(chunk, n - g0);
-    cudaError_t err = rfft_big::spectra(
-        fr, g0, nfc, nfft, sc, (const float*)mel, nmel, (const float*)acorr,
-        nac, power_floor, false, st);
+    cudaError_t err = rfft_big::spectra(fr, g0, nfc, nfft, sc,
+                                        (const float4*)op, nmel, nac,
+                                        power_floor, false, st);
     if (err != cudaSuccess) return (int)err;
     big_features_kernel<<<nfc, 128, 0, st>>>(
         rfft_big::sums_rows(sc, nfft, nfc), nv, (const float*)dct,

@@ -12,8 +12,10 @@
 // to 512 mel + autocorrelation outputs where a block's shared memory holds
 // the tile (rfft::pick_opl). Writes pre-CMVN cepstra [n, nceps] and the RAW autocorrelation
 // [n, nac] (nac = 0 for an MFCC-only config), as csrc/frontend_frames.cu's
-// dense template does; that template keeps every fft_size that is not a
-// power of two.
+// dense template does. An fft_size that is not a power of two takes the
+// chirp-z kernel (csrc/frontend_chirp.cu) or, past its reach, the dense
+// template; one of 32768 points or more the four-step route
+// (csrc/frontend_big.cu).
 //
 // What bounds it on this card, and what the design does about it: see
 // csrc/rfft_tile.cuh. The TPU kernel's dense product moved 12.6 MB of C
@@ -24,7 +26,6 @@
 
 #include <cuda_runtime.h>
 
-#include "rfft_big.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
@@ -95,23 +96,6 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float4* op,
   return cudaGetLastError();
 }
 
-// The frames of K5 on the route of N >= 32768: row f, folded (sample p
-// plus p + N, p + 2N, ... of a frame longer than N, in that order).
-struct BigFrameRows {
-  const float* fr;
-  int flen, n;
-  __device__ bool live(int) const { return true; }
-  __device__ auto frame(int f) const {
-    const float* x = fr + (size_t)f * flen;
-    const int fl = flen, nn = n;
-    return [=](int p) {
-      float s = p < fl ? x[p] : 0.f;
-      for (int t = p + nn; t < fl; t += nn) s += x[t];
-      return s;
-    };
-  }
-};
-
 }  // namespace
 
 // The packed operator an FFT tile takes at an nfft-point FFT with nout =
@@ -155,30 +139,4 @@ extern "C" int srt_fft_frames_frontend(
           nceps, power_floor, (float*)wsums);
     });
   });
-}
-
-// Floats of scratch the route of N >= 32768 takes for chunks of `chunk`
-// frames with nout outputs (csrc/rfft_big.cuh), or -1 when it does not
-// take nfft.
-extern "C" long long srt_big_scratch_floats(int nfft, int nout, int chunk) {
-  if (!rfft_big::takes(nfft) || chunk < 1) return -1;
-  return rfft_big::scratch_floats(nfft, nout, chunk);
-}
-
-// K5 at an nfft-point FFT, nfft a power of two >= 32768: frames [n, flen]
-// windowed and pre-emphasized, mel [>= nfft/2 + 1, nmel], acorr [>= nfft/2
-// + 1, nac], dct [nmel, nceps], scratch of srt_big_scratch_floats(nfft,
-// nmel + nac, chunk); writes ceps [n, nceps] and r [n, nac].
-extern "C" int srt_big_fft_frames(const void* frames, const void* mel,
-                                  const void* acorr, const void* dct,
-                                  void* ceps, void* r, void* scratch, int n,
-                                  int flen, int nfft, int nmel, int nac,
-                                  int nceps, float power_floor, int chunk,
-                                  void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  const BigFrameRows fr{(const float*)frames, flen, nfft};
-  return (int)rfft_big::frame_level(
-      fr, n, chunk, nfft, (float*)scratch, (const float*)mel,
-      (const float*)acorr, (const float*)dct, (float*)ceps, (float*)r, nmel,
-      nac, nceps, power_floor, true, (cudaStream_t)stream);
 }

@@ -141,20 +141,20 @@ extern "C" int srt_fft_packed_frames(
 }
 
 // K4 at an nfft-point FFT, nfft a power of two >= 32768 (csrc/rfft_big.cuh):
-// frames [n, flen] raw, win [flen], mel [>= nfft/2 + 1, nmel] and acorr
-// [>= nfft/2 + 1, nac] (the bin-domain operators), dct [nmel, nceps],
+// frames [n, flen] raw, win [flen], op the packed [mel | acorr] operator
+// of srt_big_operator_shape (csrc/frontend_big.cu), dct [nmel, nceps],
 // scratch of srt_big_scratch_floats(nfft, nmel + nac, chunk); writes ceps
 // [n, nceps] and r [n, nac].
 extern "C" int srt_big_packed_frames(
-    const void* frames, const void* win, const void* mel, const void* acorr,
-    const void* dct, void* ceps, void* r, void* scratch, int n, int flen,
-    int nfft, int nmel, int nac, int nceps, float pre_emph,
-    int preemph_first, float power_floor, int chunk, void* stream) {
+    const void* frames, const void* win, const void* op, const void* dct,
+    void* ceps, void* r, void* scratch, int n, int flen, int nfft, int nmel,
+    int nac, int nceps, float pre_emph, int preemph_first, float power_floor,
+    int chunk, void* stream) {
   if (n < 1 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
   const BigWindowedRows fr{(const float*)frames, (const float*)win, flen,
                            pre_emph, preemph_first != 0};
   return (int)rfft_big::frame_level(
-      fr, n, chunk, nfft, (float*)scratch, (const float*)mel,
-      (const float*)acorr, (const float*)dct, (float*)ceps, (float*)r, nmel,
-      nac, nceps, power_floor, false, (cudaStream_t)stream);
+      fr, n, chunk, nfft, (float*)scratch, (const float4*)op,
+      (const float*)dct, (float*)ceps, (float*)r, nmel, nac, nceps,
+      power_floor, false, (cudaStream_t)stream);
 }

@@ -4,8 +4,8 @@
 // fallback. It computes the function of csrc/predict_fused.cuh in several
 // launches on one stream:
 //   1. per chunk of frames of the batch, the four-step FFT's passes of
-//      csrc/rfft_big.cuh (columns, rows, power, projection onto mel and
-//      autocorrelation) and then the signal frontend's features of the
+//      csrc/rfft_big.cuh (columns, rows, the fused power + projection onto
+//      mel and autocorrelation) and then the signal frontend's features of the
 //      chunk (big_features_kernel, as K1's route there computes them: log,
 //      DCT, Levinson) into the feature scratch [B, T, d], pre-CMVN;
 //   2. the monolith's kernel on that scratch with its frontend phase
@@ -20,15 +20,16 @@
 
 using namespace srt_fused;
 
-// signals [B, Lp], n_valid [B], win [flen], mel [>= nfft/2 + 1, nmel] and
-// acorr [>= nfft/2 + 1, nac] the bin-domain operators, dct [nmel, nceps],
-// comp the component rows [S, K, srt_fused_component_row(d)], scratch of
-// srt_fused_scratch_floats(B, T, d, S), big of srt_big_scratch_floats(nfft,
-// nmel + nac, chunk) (csrc/frontend_fft.cu) for chunks of `chunk` frames;
+// signals [B, Lp], n_valid [B], win [flen], op the packed [mel | acorr]
+// operator of srt_big_operator_shape (csrc/frontend_big.cu), dct [nmel,
+// nceps], comp the component rows [S, K, srt_fused_component_row(d)],
+// scratch of srt_fused_scratch_floats(B, T, d, S), big of
+// srt_big_scratch_floats(nfft, nmel + nac, chunk) (csrc/frontend_big.cu)
+// for chunks of `chunk` frames;
 // writes out [B, S]. nfft a power of two >= 32768.
 extern "C" int srt_fused_predict_big(
     const void* signals, const void* n_valid, const void* win,
-    const void* mel, const void* acorr, const void* dct, const void* comp,
+    const void* op, const void* dct, const void* comp,
     void* scratch, void* big, void* out, int B, int Lp, int T, int flen,
     int fshift, int nfft, int nmel, int nac, int nceps, int S, int K,
     float pre_emph, int preemph_first, float power_floor, int cmvn,
@@ -45,9 +46,9 @@ extern "C" int srt_fused_predict_big(
   float* sc = (float*)big;
   for (int g0 = 0; g0 < (int)n; g0 += chunk) {
     const int nfc = (int)std::min<long long>(chunk, n - g0);
-    cudaError_t err = rfft_big::spectra(
-        fr, g0, nfc, nfft, sc, (const float*)mel, nmel, (const float*)acorr,
-        nac, power_floor, false, st);
+    cudaError_t err = rfft_big::spectra(fr, g0, nfc, nfft, sc,
+                                        (const float4*)op, nmel, nac,
+                                        power_floor, false, st);
     if (err != cudaSuccess) return (int)err;
     big_features_kernel<<<nfc, 128, 0, st>>>(
         rfft_big::sums_rows(sc, nfft, nfc), nv, (const float*)dct, feat, T,

@@ -13,25 +13,30 @@
 //      frame's scratch [H1][H2];
 //   2. rows: per frame and k1, the H2-point FFT of row k1 in place, which
 //      leaves Z[k1 + H1 k2] at [k1][k2];
-//   3. power: the real-input post-step of the tile, |X[k]|^2 of bins
-//      0..H from Z[k] and Z[H-k], floored per bin when asked, into power
-//      rows [H + 1];
-//   4. projection: per frame and output, the power row against the mel
-//      or autocorrelation column over the bins in order, then
-//      log(max(mel, floor)), into sums rows [nout] of log-mel | raw
-//      autocorrelation: the layout the tile's epilogues read (tile_features,
-//      frame_outputs) with a row stride of nout.
+//   3. power and projection, one fused pass (power_project_kernel): a
+//      block of PFT frames walks the bins in order, stages the power
+//      |X[k]|^2 of a few columns' bins at a time from Z[k] and Z[H-k] (the
+//      real-input post-step of the tile, floored per bin when asked) in
+//      shared memory, and projects it onto the packed [mel | acorr | 0]
+//      operator with the FFT tile's walk (rfft::project_bins: the operator
+//      staged in chunks, all-zero 4-column groups skipped, each output
+//      summed over the bins in order in registers), then log(max(mel,
+//      floor)), into sums rows [nout] of log-mel | raw autocorrelation: the
+//      layout the tile's epilogues read (tile_features, frame_outputs) with
+//      a row stride of nout.
 // Twiddles come from sincospif of exact angles (the indices stay below
 // 2^24), as on the tile; no fast intrinsics. Every sum runs in a fixed
 // order with no atomics, so two calls give the same bits.
 //
 // What bounds it: the least work is FLOPs (2.5 N log2 N for the FFT and
-// two per nonzero of the operators) or the frames' bytes. This route is
-// the simple one: each sub-FFT reads and writes device memory once (the
-// column pass with strided loads), and the projection is dense over every
-// bin and output, which at N = 32768 is most of its time. Making it fast
-// (a cluster holding a frame in distributed shared memory, the tile's
-// sparse projection) is later work.
+// two per nonzero of the operators) or the frames' bytes. Each sub-FFT
+// reads and writes device memory once (the column pass with strided
+// loads); the fused pass reads Z once in whole sectors and the operator
+// once per block of PFT frames, and keeps the power out of device memory
+// (power rows in device memory and a dense projection, a thread per output
+// over every bin, were most of the route's time). The FFT passes then set
+// its pace; a cluster holding a frame in distributed shared memory is the
+// next step.
 
 #pragma once
 
@@ -61,10 +66,36 @@ inline bool takes(int n) {
 }
 
 // floats of scratch for nfc frames at an N-point FFT with nout outputs:
-// the frames' complex values [nfc][H] (float2), power rows [nfc][H + 1]
-// and sums rows [nfc][nout]
+// the frames' complex values [nfc][H] (float2) and sums rows [nfc][nout]
 inline long long scratch_floats(int n, int nout, int nfc) {
-  return (long long)nfc * (n + n / 2 + 1 + nout);
+  return (long long)nfc * (n + nout);
+}
+
+// The fused power + projection pass (power_project_kernel): PFT frames a
+// block of PWARPS warps; the operator staged in chunks of ck(OPL) bins (as
+// many as 32 KB hold, at most 64), the power in stages of stage_bins(lgn)
+// bins: four columns of the [H1][H2] rows, at most PK_MAX.
+constexpr int PFT = 8, PWARPS = 8, PNTH = 32 * PWARPS, PK_MAX = 2048;
+
+__host__ __device__ constexpr int ck(int opl) {
+  return opl <= 16 ? 64 : opl <= 32 ? 32 : 16;
+}
+
+__host__ __device__ constexpr int stage_bins(int lgn) {
+  return (4 << (lgn - 1 - (lgn - 1) / 2)) < PK_MAX
+             ? 4 << (lgn - 1 - (lgn - 1) / 2) : PK_MAX;
+}
+
+// rows of the packed operator an output chunk: bins 0..H, zero rows to a
+// multiple of ck(opl)
+__host__ __device__ constexpr int op_rows(int lgn, int opl) {
+  return ((1 << (lgn - 1)) + 1 + ck(opl) - 1) / ck(opl) * ck(opl);
+}
+
+// floats of the fused pass's shared memory: the operator chunk, the power
+// stage
+__host__ __device__ constexpr int project_floats(int lgn, int opl) {
+  return ck(opl) * rfft::nop(opl) + PFT * (stage_bins(lgn) + 1);
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -142,74 +173,117 @@ __global__ void __launch_bounds__(FFT_THREADS) rows_kernel(
   for (int k2 = threadIdx.x; k2 < H2; k2 += blockDim.x) row[k2] = v[k2];
 }
 
-// 3. Thread (bin k, frame fl): the power of bin k <= H into pw [nfc][H+1].
-template <class Frames>
-__global__ void power_kernel(const Frames fr, int f0,
-                             const float2* __restrict__ z,
-                             float* __restrict__ pw, int lgn,
-                             float power_floor, int per_bin_floor) {
-  if (!fr.live(f0 + blockIdx.y)) return;
+// 3. Block i: frames PFT i .. PFT i + PFT - 1 of the chunk, the power of
+// bins 0..H and its projection onto the packed operator op ([mel | acorr |
+// 0] rows, op_rows(n, opl) of them an output chunk) by rfft::project_bins,
+// then log(max(mel, floor)) | autocorrelation into sums rows [nfc][nout].
+// project_bins walks the bins in order in chunks of CK; at every PK-th bin
+// its fill stages the power of the next PK bins of the block's frames in
+// ys [PFT][PK + 1], from Z[k] and Z[H - k] with the post-step arithmetic of
+// the tile. Z[k] lives at [k mod H1][k / H1], so bins k0 .. k0 + PK - 1
+// are PK / H1 columns of the [H1][H2] rows: consecutive threads read
+// consecutive columns of a row (whole 32-byte sectors when PK / H1 >= 4).
+// Frames past nfc, and frames the loader does not compute, take zero power
+// and leave no sums.
+template <class Frames, int OPL>
+__global__ void __launch_bounds__(PNTH) power_project_kernel(
+    const Frames fr, int f0, int nfc, const float2* __restrict__ z,
+    const float4* __restrict__ op, float* __restrict__ sums, int lgn,
+    int nmel, int nac, float power_floor, int per_bin_floor) {
+  constexpr int CK = ck(OPL), NOP = rfft::nop(OPL), NG = NOP / 4;
+  constexpr int GPW = rfft::proj_gpw(PFT, PWARPS, OPL), LPF = 32 / PFT;
+  extern __shared__ float4 smem4[];
+  float* opc = reinterpret_cast<float*>(smem4);  // [CK][NOP]
+  float* ys = opc + CK * NOP;                    // [PFT][pk + 1]
   const int lg2_ = lg2(1 << lgn), lg1 = lgn - 1 - lg2_;
   const int H = 1 << (lgn - 1), H1 = 1 << lg1;
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k > H) return;
-  const float2* zr = z + (size_t)blockIdx.y * H;
-  // Z[k] lives at [k mod H1][k / H1]
-  const auto Z = [&](int i) { return zr[((i & (H1 - 1)) << lg2_) + (i >> lg1)]; };
-  float p;
-  if (k == 0 || k == H) {
-    const float2 z0 = Z(0);
-    const float x = k == 0 ? z0.x + z0.y : z0.x - z0.y;
-    p = x * x;
-  } else {
-    const float2 a = Z(k), b = Z(H - k);
-    const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
-    const float2 o = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
-    const float2 wo = cmul(w_pi(k, H), o);  // W_N^k
-    const float xr = e.x + wo.x, xi = e.y + wo.y;
-    p = xr * xr + xi * xi;
-  }
-  if (per_bin_floor) p = fmaxf(p, power_floor);
-  pw[(size_t)blockIdx.y * (H + 1) + k] = p;
+  const int pk = stage_bins(lgn), lpk = ilog2(pk), ys_stride = pk + 1;
+  const int cols = pk > H1 ? pk / H1 : 1, lcols = ilog2(cols);
+  const int fb = blockIdx.x * PFT, nout = nmel + nac;
+  const int tid = threadIdx.x, warp = tid / 32;
+  unsigned live = 0;  // frames of the block that are computed
+  for (int f = 0; f < PFT; ++f)
+    if (fb + f < nfc && fr.live(f0 + fb + f)) live |= 1u << f;
+
+  // a thread takes bins of the stage for all PFT frames: the bin's twiddle
+  // once, the frames' loads all in flight
+  const auto fill = [&](int k0) {
+    const int y0 = k0 & (pk - 1);
+    if (y0 != 0) return y0;
+    for (int t = tid; t < pk; t += PNTH) {
+      const int j = ((t & (cols - 1)) << lg1) + (t >> lcols);
+      const int k = k0 + j;
+      const bool edge = k == 0 || k == H;
+      const float2 w = w_pi(edge ? 0 : k, H);  // W_N^k
+      const int ka = edge || k > H ? 0 : k, kb = edge || k > H ? 0 : H - k;
+      const int ia = ((ka & (H1 - 1)) << lg2_) + (ka >> lg1);
+      const int ib = ((kb & (H1 - 1)) << lg2_) + (kb >> lg1);
+      float2 a[PFT], b[PFT];
+#pragma unroll
+      for (int f = 0; f < PFT; ++f) {
+        const bool on = k <= H && (live >> f & 1u);
+        const float2* zr = z + (size_t)(fb + f) * H;
+        a[f] = on ? zr[ia] : make_float2(0.f, 0.f);
+        b[f] = on ? zr[ib] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+      for (int f = 0; f < PFT; ++f) {
+        float p = 0.f;
+        if (k <= H && (live >> f & 1u)) {
+          if (edge) {  // Z[0]
+            const float x = k == 0 ? a[f].x + a[f].y : a[f].x - a[f].y;
+            p = x * x;
+          } else {
+            const float2 e = make_float2(0.5f * (a[f].x + b[f].x),
+                                         0.5f * (a[f].y - b[f].y));
+            const float2 o = make_float2(0.5f * (a[f].y + b[f].y),
+                                         -0.5f * (a[f].x - b[f].x));
+            const float2 wo = cmul(w, o);
+            const float xr = e.x + wo.x, xi = e.y + wo.y;
+            p = xr * xr + xi * xi;
+          }
+          if (per_bin_floor) p = fmaxf(p, power_floor);
+        }
+        ys[f * ys_stride + j] = p;
+      }
+    }
+    return 0;
+  };
+  float acc[GPW][4];
+  rfft::project_bins<PFT, PWARPS, OPL, CK, true>(
+      op, op_rows(lgn, OPL), H + 1, rfft::out_chunks(nout), opc, ys,
+      ys_stride, fill,
+      [&](int c, int fl, int gh) {
+        if (!(live >> fl & 1u)) return;
+        float* row = sums + (size_t)(fb + fl) * nout;
+#pragma unroll
+        for (int i = 0; i < GPW; ++i) {
+          const int g = warp + PWARPS * (gh + LPF * i);
+          if (g >= NG) continue;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int o = NOP * c + 4 * g + q;
+            if (o < nout)
+              row[o] = o < nmel ? logf(fmaxf(acc[i][q], power_floor))
+                                : acc[i][q];
+          }
+        }
+      },
+      acc);
 }
 
-// 4. Thread (output o, frame fl): sums [nfc][nout] = log(max(pw . mel,
-// floor)) | pw . acorr, the bins in order. mel [>= H+1][nmel] and acorr
-// [>= H+1][nac] row-major.
-template <class Frames>
-__global__ void __launch_bounds__(256) project_kernel(
-    const Frames fr, int f0, int nfc, const float* __restrict__ pw,
-    const float* __restrict__ mel, const float* __restrict__ ac,
-    float* __restrict__ sums, int lgn, int nmel, int nac,
-    float power_floor) {
-  const int o = blockIdx.x * 32 + threadIdx.x;
-  const int fl = blockIdx.y * 8 + threadIdx.y;
-  const int nout = nmel + nac;
-  if (fl >= nfc || o >= nout || !fr.live(f0 + fl)) return;
-  const int nb = (1 << (lgn - 1)) + 1;
-  const float* p = pw + (size_t)fl * nb;
-  const bool is_mel = o < nmel;
-  const float* w = is_mel ? mel + o : ac + (o - nmel);
-  const int ws = is_mel ? nmel : nac;
-  float acc = 0.f;
-  for (int k = 0; k < nb; ++k) acc = fmaf(p[k], w[(size_t)k * ws], acc);
-  sums[(size_t)fl * nout + o] =
-      is_mel ? logf(fmaxf(acc, power_floor)) : acc;
-}
-
-// Steps 1-4 for frames f0 .. f0 + nfc - 1 on `st`; the sums rows [nfc][nout]
-// land at scratch + nfc * (N + H + 1). scratch holds scratch_floats(n,
-// nout, nfc) floats.
+// Steps 1-3 for frames f0 .. f0 + nfc - 1 on `st`; the sums rows [nfc][nout]
+// land at scratch + nfc * N (sums_rows). scratch holds scratch_floats(n,
+// nout, nfc) floats; op is the packed operator of operator_shape.
 template <class Frames>
 cudaError_t spectra(const Frames& fr, int f0, int nfc, int n, float* scratch,
-                    const float* mel, int nmel, const float* ac, int nac,
-                    float power_floor, bool per_bin_floor, cudaStream_t st) {
+                    const float4* op, int nmel, int nac, float power_floor,
+                    bool per_bin_floor, cudaStream_t st) {
   const int lgn = ilog2(n), lg2_ = lg2(n), lg1 = lgn - 1 - lg2_;
-  const int H = n / 2;
+  const int opl = rfft::opl_of(nmel + nac);
   if ((1 << lg1) > MAX_L || nfc > 65535) return cudaErrorInvalidValue;
   float2* z = reinterpret_cast<float2*>(scratch);
-  float* pw = scratch + (size_t)nfc * n;
-  float* sums = pw + (size_t)nfc * (H + 1);
+  float* sums = scratch + (size_t)nfc * n;
   const auto fft_threads = [](int lg) {
     return lg - 1 >= 8 ? FFT_THREADS : 1 << (lg - 1);
   };
@@ -228,18 +302,24 @@ cudaError_t spectra(const Frames& fr, int f0, int nfc, int n, float* scratch,
   rows_kernel<Frames><<<dim3(1 << lg1, nfc), fft_threads(lg2_), smem2, st>>>(
       fr, f0, z, lgn);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  power_kernel<Frames><<<dim3((H + 1 + 255) / 256, nfc), 256, 0, st>>>(
-      fr, f0, z, pw, lgn, power_floor, per_bin_floor ? 1 : 0);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  project_kernel<Frames>
-      <<<dim3((nmel + nac + 31) / 32, (nfc + 7) / 8), dim3(32, 8), 0, st>>>(
-          fr, f0, nfc, pw, mel, ac, sums, lgn, nmel, nac, power_floor);
-  return cudaGetLastError();
+  return rfft::with_opl(opl, [&](auto oc) {
+    constexpr int OPL = decltype(oc)::value;
+    const int smem = 4 * project_floats(lgn, OPL);
+    cudaError_t e = cudaFuncSetAttribute(
+        power_project_kernel<Frames, OPL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    power_project_kernel<Frames, OPL>
+        <<<(nfc + PFT - 1) / PFT, PNTH, smem, st>>>(
+            fr, f0, nfc, z, op, sums, lgn, nmel, nac, power_floor,
+            per_bin_floor ? 1 : 0);
+    return cudaGetLastError();
+  });
 }
 
 // where spectra leaves the sums rows of a chunk of nfc frames
 inline float* sums_rows(float* scratch, int n, int nfc) {
-  return scratch + (size_t)nfc * (n + n / 2 + 1);
+  return scratch + (size_t)nfc * n;
 }
 
 // The frame-level epilogue (K5, K4) of a chunk: block i takes frames
@@ -258,15 +338,15 @@ __global__ void __launch_bounds__(128) outputs_kernel(
 // spectra then outputs_kernel, into ceps [n, nceps] and r [n, nac].
 template <class Frames>
 cudaError_t frame_level(const Frames& fr, int n, int chunk, int nfft,
-                        float* scratch, const float* mel, const float* ac,
-                        const float* dct, float* ceps, float* r, int nmel,
-                        int nac, int nceps, float power_floor,
-                        bool per_bin_floor, cudaStream_t st) {
+                        float* scratch, const float4* op, const float* dct,
+                        float* ceps, float* r, int nmel, int nac, int nceps,
+                        float power_floor, bool per_bin_floor,
+                        cudaStream_t st) {
   if (!takes(nfft) || chunk < 1 || chunk > 65535)
     return cudaErrorInvalidValue;
   for (int f0 = 0; f0 < n; f0 += chunk) {
     const int nfc = min(chunk, n - f0);
-    cudaError_t err = spectra(fr, f0, nfc, nfft, scratch, mel, nmel, ac, nac,
+    cudaError_t err = spectra(fr, f0, nfc, nfft, scratch, op, nmel, nac,
                               power_floor, per_bin_floor, st);
     if (err != cudaSuccess) return err;
     outputs_kernel<<<(nfc + 7) / 8, 128, 0, st>>>(

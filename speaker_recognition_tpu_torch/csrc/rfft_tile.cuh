@@ -24,10 +24,13 @@
 //      when PER_BIN_FLOOR, into row f of ys [FT][P] (P odd: a column read
 //      by 32 lanes hits 32 banks);
 //   2. the block walks the bins in chunks of CK (4 to 32 rows, as shared
-//      memory allows), staging the chunk's rows of [mel | acorr | 0]
-//      ([CK][NOP], NOP = 8 * OPL, from a packed copy the wrapper makes
-//      once) in shared memory; lane l of a warp takes frame l % FT (32 / FT
-//      lanes a frame), and the warps and the lane groups of a warp split
+//      memory allows; project_bins, which the chirp-z kernel of
+//      csrc/frontend_chirp.cu and the four-step route's fused pass of
+//      csrc/rfft_big.cuh share), staging the chunk's rows of [mel |
+//      acorr | 0] ([CK][NOP], NOP = 8 * OPL, from a packed copy the
+//      wrapper makes once) in shared memory; lane l of a warp takes frame
+//      l % FT (32 / FT lanes a frame), and the warps and the lane groups
+//      of a warp split
 //      the 4-column groups, so each y is loaded once per bin and group slot
 //      and each 16-byte operator load is a broadcast; a group whose staged
 //      block is all zero (a mel filter far from the chunk) is skipped, so
@@ -148,13 +151,17 @@ __host__ __device__ constexpr int out_chunks(int nout) {
   return nout <= 512 ? 1 : (nout + 511) / 512;
 }
 
-// OPL for nout = nmel + nac outputs at an N-point FFT, or 0 when N is not a
-// power of two in [MIN_N, MAX_N] or, unless `chunked`, nout > 512; past 512
-// outputs a chunked caller takes OPL 64 and out_chunks(nout) chunks.
+// OPL for nout = nmel + nac outputs: 9, 16, 32 or 64 (72, 128, 256 or 512
+// columns; past 512 outputs OPL 64 and out_chunks(nout) chunks)
+inline int opl_of(int nout) {
+  return nout <= 72 ? 9 : nout <= 128 ? 16 : nout <= 256 ? 32 : 64;
+}
+
+// OPL for nout outputs at an N-point FFT, or 0 when N is not a power of two
+// in [MIN_N, MAX_N] or, unless `chunked`, nout > 512.
 inline int pick_opl(int n, int nout, bool chunked = false) {
   if (n < MIN_N || n > MAX_N || (n & (n - 1)) != 0) return 0;
-  const int o = nout <= 72 ? 9 : nout <= 128 ? 16 : nout <= 256 ? 32
-              : nout <= 512 || chunked ? 64 : 0;
+  const int o = nout <= 512 || chunked ? opl_of(nout) : 0;
   if (o == 0 || 4 * smem_floats(n, o) > MAX_SMEM) return 0;
   return o;
 }
@@ -424,6 +431,120 @@ __device__ __forceinline__ void big_fft_frames(const Load& load, int nf,
   }
 }
 
+// Groups of 4 outputs a stage-2 lane sums in project_bins: the NOP / 4
+// groups over the WARPS * 32 / FT group slots of a block.
+__host__ __device__ constexpr int proj_gpw(int ft_, int warps_, int opl) {
+  return (nop(opl) / 4 + warps_ * (32 / ft_) - 1) / (warps_ * (32 / ft_));
+}
+
+// Stage 2 of tile_sums, shared with the chirp-z kernel (csrc/
+// frontend_chirp.cu) and the four-step route's fused pass (csrc/
+// rfft_big.cuh): FT frames' power rows projected onto the packed operator
+// op [nch * rows][NOP] ([mel | acorr | 0], chunk c of outputs from row c *
+// rows), by a block of WARPS warps, nb bins in chunks of CK. Lane l takes
+// frame fl = l % FT; group slot (warp, gh = l / FT) takes the groups g =
+// warp + WARPS (gh + LPF i). A group whose staged block is all zero (a mel
+// filter far from the chunk) is skipped, so each output's FMAs run over
+// the bins in order and the skipped ones are exact zeros. Every thread
+// calls fill(k0) before the barrier that publishes chunk k0; it may stage
+// the chunk's power and returns the column of ys [FT][ystride] that holds
+// bin k0. After output chunk c, emit(c, fl, gh) reads the sums in acc; the
+// walk starts on a barrier and its last chunk ends on the readers of opc
+// and ys. The next chunk's operator rows are fetched into registers while
+// this one is summed. A chunk's FMAs run bin by bin over the slot's active
+// groups (the tile's order: each y loaded once, best where most groups are
+// active, as at 8 kHz), or, with GROUPS_OUTSIDE, group by group over the
+// bins (best where few are: 200 mel filters over 751 bins). Both orders
+// give each output the same FMAs in the same order.
+template <int FT, int WARPS, int OPL, int CK, bool GROUPS_OUTSIDE = false,
+          class Fill, class Emit>
+__device__ __forceinline__ void project_bins(
+    const float4* __restrict__ op, int rows, int nb, int nch, float* opc,
+    const float* ys, int ystride, const Fill& fill, const Emit& emit,
+    float (&acc)[proj_gpw(FT, WARPS, OPL)][4]) {
+  constexpr int NTH = 32 * WARPS, NOP = nop(OPL), NG = NOP / 4;
+  constexpr int LPF = 32 / FT, GPW = proj_gpw(FT, WARPS, OPL);
+  constexpr int N4 = CK * NOP / 4;           // float4 of a chunk
+  constexpr int PER = (N4 + NTH - 1) / NTH;  // ... staged per thread
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int fl = lane % FT, gh = lane / FT;
+  const unsigned peers =
+      FT == 32 ? 0xffffffffu : ((1u << FT) - 1u) << (FT * gh);
+  const float* yrow = ys + fl * ystride;
+  // the chunk's sums, its operator rows at oc and bins k0 .. k0 + kw - 1
+  // at yrow[y0 ..]
+  const auto sum_chunk = [&](const float* oc, int y0, int kw) {
+    // uniform over a group slot's lanes: skip a group that is zero over
+    // the whole chunk (each lane tests rows fl % CK, + FT, ... < CK)
+    bool act[GPW];
+#pragma unroll
+    for (int i = 0; i < GPW; ++i) {
+      const int g = warp + WARPS * (gh + LPF * i);
+      bool nz = false;
+      if (g < NG)
+        for (int rr = fl % CK; rr < CK; rr += FT) {
+          const float4 w4 =
+              *reinterpret_cast<const float4*>(oc + rr * NOP + 4 * g);
+          nz = nz || w4.x != 0.f || w4.y != 0.f || w4.z != 0.f ||
+               w4.w != 0.f;
+        }
+      act[i] = (__ballot_sync(0xffffffffu, nz) & peers) != 0u;
+    }
+    if constexpr (GROUPS_OUTSIDE) {  // each active group walks the bins
+#pragma unroll
+      for (int i = 0; i < GPW; ++i) {
+        if (!act[i]) continue;
+        const float* wcol = oc + 4 * (warp + WARPS * (gh + LPF * i));
+#pragma unroll 4
+        for (int kk = 0; kk < kw; ++kk) {
+          const float y = yrow[y0 + kk];
+          const float4 w = *reinterpret_cast<const float4*>(wcol + kk * NOP);
+          acc[i][0] = fmaf(y, w.x, acc[i][0]);
+          acc[i][1] = fmaf(y, w.y, acc[i][1]);
+          acc[i][2] = fmaf(y, w.z, acc[i][2]);
+          acc[i][3] = fmaf(y, w.w, acc[i][3]);
+        }
+      }
+    } else {  // each y is loaded once for the slot's active groups
+#pragma unroll 4
+      for (int kk = 0; kk < kw; ++kk) {
+        const float y = yrow[y0 + kk];
+#pragma unroll
+        for (int i = 0; i < GPW; ++i) {
+          if (!act[i]) continue;
+          const float4 w = *reinterpret_cast<const float4*>(
+              oc + kk * NOP + 4 * (warp + WARPS * (gh + LPF * i)));
+          acc[i][0] = fmaf(y, w.x, acc[i][0]);
+          acc[i][1] = fmaf(y, w.y, acc[i][1]);
+          acc[i][2] = fmaf(y, w.z, acc[i][2]);
+          acc[i][3] = fmaf(y, w.w, acc[i][3]);
+        }
+      }
+    }
+  };
+  float4* opc4 = reinterpret_cast<float4*>(opc);
+  for (int c = 0; c < nch; ++c) {
+    const float4* opx = op + (size_t)c * rows * (NOP / 4);
+#pragma unroll
+    for (int i = 0; i < GPW; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+    float4 pre[PER];
+    fetch_chunk<CK, OPL, NTH>(pre, 0, tid, opx);
+    for (int k0 = 0; k0 < nb; k0 += CK) {
+      __syncthreads();  // the FFTs, or the previous chunk's readers, are done
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        if (tid + NTH * q < N4) opc4[tid + NTH * q] = pre[q];
+      const int y0 = fill(k0);
+      __syncthreads();
+      if (k0 + CK < nb) fetch_chunk<CK, OPL, NTH>(pre, k0 + CK, tid, opx);
+      sum_chunk(opc, y0, min(CK, nb - k0));
+    }
+    emit(c, fl, gh);
+  }
+}
+
 // Load(f, p) gives sample p in [0, N) of the tile's frame f < nf, in
 // straight-line code (no loop, no branch); load.fold(f, v, first) adds the
 // samples p + N, p + 2N, ... of a longer frame to gather's pairs (first(q)
@@ -462,15 +583,12 @@ __device__ __forceinline__ float* tile_sums(
   constexpr int NOP = nop(OPL);
   constexpr int NG = NOP / 4;                  // 4-column groups
   constexpr int LPF = 32 / FT;                 // stage-2 lanes a frame
-  constexpr int SLOTS = WARPS * LPF;           // stage-2 group slots
-  constexpr int GPW = (NG + SLOTS - 1) / SLOTS;
+  constexpr int GPW = proj_gpw(FT, WARPS, OPL);
   constexpr int H = N / 2, NB = H + 1, LG = log2i(H);
   constexpr int PL = H / 32, P = log2i(PL);     // pairs per lane
   constexpr int R = rounds(N), RP = round_pairs(N), PR = log2i(RP);
   constexpr int G4 = H >= 128 ? H / 128 : 1;    // 4-slot groups per lane
   constexpr int CK = ck(N, OPL);
-  constexpr int N4 = CK * NOP / 4;              // float4 of a chunk
-  constexpr int PER = (N4 + NTH - 1) / NTH;     // ... staged per thread
   static_assert(N >= MIN_N && N <= MAX_N && (N & (N - 1)) == 0, "N");
   static_assert(R * RP == PL && (R == 1 || RP == 32), "rounds");
   static_assert(4 * smem_floats(N, OPL) <= MAX_SMEM, "tile");
@@ -610,80 +728,30 @@ __device__ __forceinline__ float* tile_sums(
     }
   }
 
-  // 2. [mel | acorr] by chunks of bins; the next chunk's operator rows are
-  // fetched into registers while this one is summed. Lane l takes frame
-  // fl = l % FT; group slot (warp, gh = l / FT) takes the groups g = warp +
-  // WARPS (gh + LPF i). Past 512 outputs the same walk runs once an output
-  // chunk.
-  const int fl = lane % FT, gh = lane / FT;
-  const unsigned peers =
-      FT == 32 ? 0xffffffffu : ((1u << FT) - 1u) << (FT * gh);
+  // 2. [mel | acorr] by chunks of bins (project_bins); past 512 outputs
+  // each output chunk's sums leave for wsums
   const int nch = OPL == 64 ? nchunk : 1;
   float acc[GPW][4];
-  const float* yrow = ys + fl * NB;
-  float4* opc4 = reinterpret_cast<float4*>(opc);
-  for (int c = 0; c < nch; ++c) {
-    const float4* opx = op + (size_t)c * op_rows(N, OPL) * (NOP / 4);
+  project_bins<FT, WARPS, OPL, CK>(
+      op, op_rows(N, OPL), NB, nch, opc, ys, NB,
+      [](int k0) { return k0; },
+      [&](int c, int fl, int gh) {
+        if (nch > 1 && fl < nf) {  // OPL 64 only: this chunk's sums leave
 #pragma unroll
-    for (int i = 0; i < GPW; ++i)
+          for (int i = 0; i < GPW; ++i) {
+            const int g = warp + WARPS * (gh + LPF * i);
+            if (g >= NG) continue;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
-    float4 pre[PER];
-    fetch_chunk<CK, OPL, NTH>(pre, 0, tid, opx);
-    for (int k0 = 0; k0 < NB; k0 += CK) {
-      const int kw = min(CK, NB - k0);
-      __syncthreads();  // the FFTs, or the previous chunk's readers, are done
-#pragma unroll
-      for (int q = 0; q < PER; ++q)
-        if (tid + NTH * q < N4) opc4[tid + NTH * q] = pre[q];
-      __syncthreads();
-      if (k0 + CK < NB) fetch_chunk<CK, OPL, NTH>(pre, k0 + CK, tid, opx);
-      // uniform over a group slot's lanes: skip a group that is zero over
-      // the whole chunk (each lane tests rows fl % CK, + FT, ... < CK)
-      bool act[GPW];
-#pragma unroll
-      for (int i = 0; i < GPW; ++i) {
-        const int g = warp + WARPS * (gh + LPF * i);
-        bool nz = false;
-        if (g < NG)
-          for (int rr = fl % CK; rr < CK; rr += FT) {
-            const float4 w4 =
-                *reinterpret_cast<const float4*>(opc + rr * NOP + 4 * g);
-            nz = nz || w4.x != 0.f || w4.y != 0.f || w4.z != 0.f ||
-                 w4.w != 0.f;
+            for (int q = 0; q < 4; ++q) {
+              const int o = NOP * c + 4 * g + q;
+              wsums[(size_t)fl * wstride + o] =
+                  o < nmel ? logf(fmaxf(acc[i][q], power_floor)) : acc[i][q];
+            }
           }
-        act[i] = (__ballot_sync(0xffffffffu, nz) & peers) != 0u;
-      }
-      // each y is loaded once for the slot's active groups
-#pragma unroll 4
-      for (int kk = 0; kk < kw; ++kk) {
-        const float y = yrow[k0 + kk];
-#pragma unroll
-        for (int i = 0; i < GPW; ++i) {
-          if (!act[i]) continue;
-          const float4 w = *reinterpret_cast<const float4*>(
-              opc + kk * NOP + 4 * (warp + WARPS * (gh + LPF * i)));
-          acc[i][0] = fmaf(y, w.x, acc[i][0]);
-          acc[i][1] = fmaf(y, w.y, acc[i][1]);
-          acc[i][2] = fmaf(y, w.z, acc[i][2]);
-          acc[i][3] = fmaf(y, w.w, acc[i][3]);
         }
-      }
-    }
-    if (nch > 1 && fl < nf) {  // OPL 64 only: this chunk's sums leave
-#pragma unroll
-      for (int i = 0; i < GPW; ++i) {
-        const int g = warp + WARPS * (gh + LPF * i);
-        if (g >= NG) continue;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int o = NOP * c + 4 * g + q;
-          wsums[(size_t)fl * wstride + o] =
-              o < nmel ? logf(fmaxf(acc[i][q], power_floor)) : acc[i][q];
-        }
-      }
-    }
-  }
+      },
+      acc);
+  const int fl = lane % FT, gh = lane / FT;
   __syncthreads();  // every lane is done with ys: it takes the sums
   if (nch > 1) return nullptr;  // the sums are in wsums
 

@@ -314,7 +314,8 @@ class FullFrontend(_Frontend):
     as speaker_recognition_tpu/features/extract.py:306-350, and C, S
     [flen, nb] (the cos/sin DFT projections) where a route reads them: the
     plain version on the CPU, the dense kernel at an fft_size that is not a
-    power of two, the bf16 product. The FFT kernel takes the first fft/2+1
+    power of two past the chirp-z route's reach (gpu_frontend.chirp_size),
+    the bf16 product. The FFT and chirp-z kernels take the first fft/2+1
     rows of mel and acorr."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
@@ -339,8 +340,10 @@ class FullFrontend(_Frontend):
         self.n_fft = mf.fft_size
         self.register_buffer("C", None)
         self.register_buffer("S", None)
+        dense = (self.n_fft & (self.n_fft - 1)
+                 and not gpu_frontend.chirp_size(self.n_fft, self.frame_len))
         if (torch.device(device).type == "cpu" or dtype == torch.float64
-                or self.mm_bf16 or self.n_fft & (self.n_fft - 1)):
+                or self.mm_bf16 or dense):
             C, S = operators.dft_power_projection(self.frame_len, self.n_fft)
             self._register(device, **{k: np.pad(x, ((0, 0), (0, pad)))
                                       for k, x in (("C", C), ("S", S))})

@@ -36,6 +36,9 @@ without LPC), which the LPC cepstra need:
                         n_fft that is a power of two takes the FFT kernel
                         (csrc/frontend_fft.cu; plain torch:
                         `mfcc_from_frames_fft_reference`), any other the
+                        chirp-z kernel of csrc/frontend_chirp.cu where its
+                        convolution's FFT fits (`chirp_size`; plain torch:
+                        `mfcc_from_frames_chirp_reference`), past that the
                         dense template of csrc/frontend_frames.cu
                         (`mfcc_from_frames_dense`).
 
@@ -54,8 +57,13 @@ XLA-side product (features/extract.py:315-325; its K5 has no bf16 mode):
 plain torch on bf16-rounded frames and C, S, on either device, counted in
 FULL_BF16_CALLS, a route chosen in the open on which K5 does not launch.
 
-Two routes of the FFT kernels are chosen on the shape in the open, each
-with its own counter, and compute the same function:
+Three routes of K5 at an n_fft that is not a power of two, and two of
+the FFT kernels, are chosen on the shape in the open, each with its own
+counter, and compute the same function:
+  * an n_fft that is not a power of two runs the chirp-z kernel
+    (FULL_CHIRP_LAUNCHES) where the least power of two M >= min(frame_len,
+    n_fft) + n_fft/2 (at least 1024) is at most 8192, the dense template
+    (FULL_DENSE_LAUNCHES) past it;
   * an FFT of 32768 points or more (fft_size >= 32768 on the full route,
     frames longer than 8192 samples on the packed route) runs the
     four-step FFT of csrc/rfft_big.cuh over a device scratch in chunks of
@@ -69,8 +77,10 @@ with its own counter, and compute the same function:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -83,6 +93,7 @@ LAUNCHES = 0             # csrc/frontend.cu, packed_from_signals
 FRAMES_LAUNCHES = 0      # csrc/frontend_frames_fft.cu, packed_from_frames
 FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
 FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
+FULL_CHIRP_LAUNCHES = 0  # csrc/frontend_chirp.cu, mfcc_from_frames
 # the route of N >= 32768 (csrc/rfft_big.cuh), one count per wrapper
 BIG_LAUNCHES = 0         # packed_from_signals
 FRAMES_BIG_LAUNCHES = 0  # packed_from_frames
@@ -102,8 +113,13 @@ MMA_COLUMNS = 64
 
 # FFT sizes from here on take the four-step route of csrc/rfft_big.cuh
 BIG_N = 32768
-# device scratch the four-step route takes at most for a chunk of frames
-BIG_SCRATCH_BYTES = 1 << 28
+# the chirp-z route's convolution lengths (csrc/frontend_chirp.cu)
+CHIRP_MIN_M, CHIRP_MAX_M = 1024, 8192
+# device scratch the four-step route takes at most for a chunk of frames:
+# its fused power + projection pass runs a block per 8 frames of a chunk,
+# and a chunk of 1 GiB (4,092 frames at 65536 points) gives it blocks for
+# every SM
+BIG_SCRATCH_BYTES = 1 << 30
 
 
 def masked_cmvn(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -134,15 +150,19 @@ class FftRoute(NamedTuple):
     acorr: torch.Tensor   # [n_fft/2 + 1, order + 1], zero-width without LPC
 
 
-def _power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
-    """|rfft(x, n_fft)|^2 of [..., flen] frames; samples t >= n_fft fold
-    onto t mod n_fft (what C and S of a DFT shorter than the frame do)."""
+def _fold(x: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """[..., flen] frames with samples t >= n_fft folded onto t mod n_fft
+    (what C and S of a DFT shorter than the frame do)."""
     flen = x.shape[-1]
-    if flen > n_fft:
-        pad = -flen % n_fft
-        x = torch.nn.functional.pad(x, (0, pad)).unflatten(
-            -1, (-1, n_fft)).sum(dim=-2)
-    X = torch.fft.rfft(x, n=n_fft)
+    if flen <= n_fft:
+        return x
+    return torch.nn.functional.pad(x, (0, -flen % n_fft)).unflatten(
+        -1, (-1, n_fft)).sum(dim=-2)
+
+
+def _power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """|rfft(x, n_fft)|^2 of [..., flen] frames, folded (_fold)."""
+    X = torch.fft.rfft(_fold(x, n_fft), n=n_fft)
     return X.real * X.real + X.imag * X.imag
 
 
@@ -183,6 +203,75 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
     kernel computes (mel and acorr rows past n_fft/2 are not read)."""
     nb = n_fft // 2 + 1
     power = torch.clamp_min(_power(wp, n_fft), floor)
+    return (torch.log(torch.clamp_min(power @ mel[:nb], floor)) @ dct,
+            power @ acorr[:nb])
+
+
+def chirp_size(n_fft: int, frame_len: int) -> int:
+    """M of the chirp-z route for an n_fft-point DFT of frames of frame_len
+    samples: the least power of two, at least CHIRP_MIN_M, that holds the
+    linear convolution of L = min(frame_len, n_fft) and L + n_fft/2 terms;
+    0 where the route does not serve (n_fft a power of two, or M past
+    CHIRP_MAX_M). csrc/frontend_chirp.cu chirp::chirp_m in Python."""
+    if n_fft < 2 or frame_len < 1 or n_fft & (n_fft - 1) == 0:
+        return 0
+    need = min(frame_len, n_fft) + n_fft // 2
+    m = CHIRP_MIN_M
+    while m < need and m <= CHIRP_MAX_M:
+        m *= 2
+    return m if m <= CHIRP_MAX_M else 0
+
+
+@functools.lru_cache(maxsize=16)
+def _chirp_tables(n_fft: int, frame_len: int, device: torch.device):
+    L = min(frame_len, n_fft)
+    nb, M = n_fft // 2 + 1, chirp_size(n_fft, frame_len)
+    if M == 0:
+        raise ValueError(f"no chirp-z route at n_fft {n_fft}, frame_len "
+                         f"{frame_len}: its convolution passes "
+                         f"{CHIRP_MAX_M} points or n_fft is a power of two")
+    # c_j = exp(-pi i j^2 / n_fft), the angle from j^2 mod 2 n_fft in
+    # integers, so that it is exact before float64's pi
+    j = np.arange(max(L, nb), dtype=np.int64)
+    c = np.exp(-1j * np.pi * ((j * j) % (2 * n_fft)) / n_fft)
+    b = np.zeros(M, np.complex128)
+    b[:nb] = np.conj(c[:nb])
+    b[M - L + 1:] = np.conj(c[1:L])[::-1]  # b_m, m in (-L, 0), wrapped
+    bh = np.fft.fft(b) / M
+    pairs = lambda z: torch.from_numpy(  # noqa: E731
+        np.stack([z.real, z.imag], axis=-1).astype(np.float32)).to(device)
+    return pairs(c[:L]), pairs(bh)
+
+
+def chirp_tables(n_fft: int, frame_len: int, device="cpu"):
+    """(c [L, 2], Bh [M, 2]) float32 (real, imaginary) pairs: the chirp c_j
+    = exp(-pi i j^2 / n_fft) for j < L = min(frame_len, n_fft), and the
+    FFT over M = chirp_size(n_fft, frame_len) points of b, b_m =
+    conj(c_m) for m in (-L, n_fft/2] wrapped mod M, divided by M: the
+    tables of the chirp-z route (csrc/frontend_chirp.cu), float64 on the
+    host, then f32; built once per (n_fft, frame_len, device)."""
+    return _chirp_tables(int(n_fft), int(frame_len), torch.device(device))
+
+
+def _chirp_power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """|DFT_n_fft(x)|^2 of [..., flen] frames (bins 0..n_fft/2) as the
+    chirp-z route computes it: samples t >= n_fft fold onto t mod n_fft,
+    a_n = x_n c_n, y = FFT_M(conj(FFT_M(a) Bh)), power |y_k|^2 (|c_k| = 1)."""
+    c, bh = chirp_tables(n_fft, x.shape[-1], x.device)
+    a = _fold(x, n_fft) * torch.view_as_complex(c)
+    A = torch.fft.fft(a, n=bh.shape[0])
+    y = torch.fft.fft(torch.conj(A * torch.view_as_complex(bh)))
+    y = y[..., :n_fft // 2 + 1]
+    return y.real * y.real + y.imag * y.imag
+
+
+def mfcc_from_frames_chirp_reference(wp, mel, dct, floor: float, acorr,
+                                     n_fft: int):
+    """The full-spectrum frontend on the chirp-z route in plain torch: what
+    K5's chirp-z kernel computes from the same tables (mel and acorr rows
+    past n_fft/2 are not read)."""
+    nb = n_fft // 2 + 1
+    power = torch.clamp_min(_chirp_power(wp, n_fft), floor)
     return (torch.log(torch.clamp_min(power @ mel[:nb], floor)) @ dct,
             power @ acorr[:nb])
 
@@ -264,10 +353,11 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if N >= BIG_N:
             chunk, scratch = _big_scratch(lib, N, nmel + nac, B * T, dev)
+            op = _big_operator(lib, fft.mel, fft.acorr, N)
             err = lib.srt_big_packed_frontend(
                 signals.data_ptr(), n_valid.data_ptr(),
-                fft.window.data_ptr(), fft.mel.data_ptr(),
-                fft.acorr.data_ptr(), dct.data_ptr(), feat.data_ptr(),
+                fft.window.data_ptr(), op.data_ptr(), dct.data_ptr(),
+                feat.data_ptr(),
                 scratch.data_ptr(), B, Lp, T, flen, fshift, N, nmel, nac,
                 nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
                 float(floor), int(bool(cmvn)), int(bool(fuse_lpc)), chunk,
@@ -454,15 +544,37 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     return _cached((mel, acorr), _fft_operator, n_fft, lib)
 
 
-def _fft_operator(mel, acorr, n_fft: int, lib) -> torch.Tensor:
+def _big_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
+    """The same layout for the four-step route's fused pass (csrc/
+    frontend_big.cu srt_big_operator_shape: rows to its own chunk of
+    bins), cached alike."""
+    return _cached((mel, acorr), _fft_operator, n_fft, lib,
+                   "srt_big_operator_shape")
+
+
+def _chirp_operator(lib, mel, acorr, n_fft: int,
+                    frame_len: int) -> torch.Tensor:
+    """The same layout for the chirp-z kernel (csrc/frontend_chirp.cu
+    srt_chirp_operator_shape), cached alike."""
+    return _cached((mel, acorr), _fft_operator, n_fft, lib,
+                   "srt_chirp_operator_shape", frame_len)
+
+
+def _fft_operator(mel, acorr, n_fft: int, lib,
+                  shape: str = "srt_fft_operator_shape",
+                  frame_len: int | None = None) -> torch.Tensor:
     nmel, nac = mel.shape[1], acorr.shape[1]
     rows, cols, chunks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if lib.srt_fft_operator_shape(n_fft, nmel + nac, ctypes.byref(rows),
-                                  ctypes.byref(cols),
-                                  ctypes.byref(chunks)) < 0:
+    lead = (n_fft,) if frame_len is None else (n_fft, frame_len)
+    if getattr(lib, shape)(*lead, nmel + nac, ctypes.byref(rows),
+                           ctypes.byref(cols), ctypes.byref(chunks)) < 0:
         raise ValueError(
-            f"no FFT tile at n_fft {n_fft}: it takes a power of two in "
-            f"[64, {BIG_N // 2}]")
+            {"srt_fft_operator_shape": f"no FFT tile at n_fft {n_fft}: it "
+             f"takes a power of two in [64, {BIG_N // 2}]",
+             "srt_big_operator_shape": f"no four-step FFT at n_fft {n_fft}: "
+             "it takes a power of two in [32768, 2^24]",
+             "srt_chirp_operator_shape": f"no chirp-z route at n_fft "
+             f"{n_fft}, frame_len {frame_len}"}[shape])
     nb = n_fft // 2 + 1
     full = torch.cat([mel[:nb], acorr[:nb]], dim=1)
     c, R = cols.value, rows.value // chunks.value
@@ -594,11 +706,12 @@ def packed_from_frames(frames, D, W, dct, floor: float, A,
         stream = torch.cuda.current_stream(dev).cuda_stream
         if N >= BIG_N:
             chunk, scratch = _big_scratch(lib, N, nmel + nac, n, dev)
+            op = _big_operator(lib, fft.mel, fft.acorr, N)
             err = lib.srt_big_packed_frames(
-                frames.data_ptr(), fft.window.data_ptr(), fft.mel.data_ptr(),
-                fft.acorr.data_ptr(), dct.data_ptr(), ceps.data_ptr(),
-                r.data_ptr(), scratch.data_ptr(), n, flen, N, nmel, nac,
-                nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
+                frames.data_ptr(), fft.window.data_ptr(), op.data_ptr(),
+                dct.data_ptr(), ceps.data_ptr(), r.data_ptr(),
+                scratch.data_ptr(), n, flen, N, nmel, nac, nceps,
+                float(fft.pre_emph), int(bool(fft.preemph_first)),
                 float(floor), chunk, stream)
         else:
             op = _packed_operator(lib, fft.mel, fft.acorr, N)
@@ -648,8 +761,9 @@ def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr,
                      n_fft: int | None = None):
     """[n, flen] windowed, pre-emphasized frames -> ([n, n_ceps] pre-CMVN
     cepstra, [n, nac] raw autocorrelation). On the card `n_fft` picks the
-    kernel: the FFT kernel for a power of two (C and S unused), the dense
-    template (`mfcc_from_frames_dense`) otherwise."""
+    kernel: the FFT kernel for a power of two, the chirp-z kernel where
+    `chirp_size(n_fft, flen)` is not 0 (C and S unused by both, and may be
+    None), the dense template (`mfcc_from_frames_dense`) past it."""
     if wp.device.type == "cpu":
         return mfcc_from_frames_reference(wp, C, S, mel, dct, floor, acorr)
     if wp.device.type != "cuda":
@@ -658,6 +772,8 @@ def mfcc_from_frames(wp, C, S, mel, dct, floor: float, acorr,
         raise ValueError("the full-spectrum kernels need n_fft")
     if n_fft & (n_fft - 1) == 0:
         return _fft_frames_kernel(wp, mel, dct, floor, acorr, n_fft)
+    if chirp_size(n_fft, wp.shape[-1]):
+        return _chirp_frames_kernel(wp, mel, dct, floor, acorr, n_fft)
     return mfcc_from_frames_dense(wp, C, S, mel, dct, floor, acorr)
 
 
@@ -707,19 +823,8 @@ def mfcc_from_frames_dense(wp, C, S, mel, dct, floor: float, acorr):
 
 def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
     """Check and launch csrc/frontend_fft.cu's kernel."""
+    n, flen, nmel, nceps, nac = _full_shapes(wp, mel, dct, ac, n_fft)
     dev = wp.device
-    _build.check_tensor(wp, "frames", torch.float32, 2, dev)
-    for t, name in ((mel, "mel"), (dct, "dct"), (ac, "acorr")):
-        _build.check_tensor(t, name, torch.float32, 2, dev)
-    n, flen = wp.shape
-    nmel, nceps = dct.shape
-    nac = ac.shape[1]
-    if (mel.shape[1] != nmel
-            or min(mel.shape[0], ac.shape[0]) < n_fft // 2 + 1):
-        raise ValueError(
-            f"inconsistent frontend shapes: frames {tuple(wp.shape)}, n_fft "
-            f"{n_fft}, mel {tuple(mel.shape)}, dct {tuple(dct.shape)}, "
-            f"acorr {tuple(ac.shape)}")
     lib = _build.load()
     ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
     r = torch.empty((n, nac), dtype=torch.float32, device=dev)
@@ -730,8 +835,9 @@ def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if n_fft >= BIG_N:
             chunk, scratch = _big_scratch(lib, n_fft, nmel + nac, n, dev)
+            op = _big_operator(lib, mel, ac, n_fft)
             err = lib.srt_big_fft_frames(
-                wp.data_ptr(), mel.data_ptr(), ac.data_ptr(), dct.data_ptr(),
+                wp.data_ptr(), op.data_ptr(), dct.data_ptr(),
                 ceps.data_ptr(), r.data_ptr(), scratch.data_ptr(), n, flen,
                 n_fft, nmel, nac, nceps, float(floor), chunk, stream)
         else:
@@ -747,4 +853,47 @@ def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
     else:
         FULL_LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
+    return ceps, r
+
+
+def _full_shapes(wp, mel, dct, ac, n_fft: int):
+    """Check the frames and bin-domain operators of a K5 kernel on the
+    card; (n, flen, nmel, nceps, nac)."""
+    dev = wp.device
+    _build.check_tensor(wp, "frames", torch.float32, 2, dev)
+    for t, name in ((mel, "mel"), (dct, "dct"), (ac, "acorr")):
+        _build.check_tensor(t, name, torch.float32, 2, dev)
+    n, flen = wp.shape
+    nmel, nceps = dct.shape
+    if (mel.shape[1] != nmel
+            or min(mel.shape[0], ac.shape[0]) < n_fft // 2 + 1):
+        raise ValueError(
+            f"inconsistent frontend shapes: frames {tuple(wp.shape)}, n_fft "
+            f"{n_fft}, mel {tuple(mel.shape)}, dct {tuple(dct.shape)}, "
+            f"acorr {tuple(ac.shape)}")
+    return n, flen, nmel, nceps, ac.shape[1]
+
+
+def _chirp_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
+    """Check and launch csrc/frontend_chirp.cu's kernel."""
+    n, flen, nmel, nceps, nac = _full_shapes(wp, mel, dct, ac, n_fft)
+    dev = wp.device
+    lib = _build.load()
+    ceps = torch.empty((n, nceps), dtype=torch.float32, device=dev)
+    r = torch.empty((n, nac), dtype=torch.float32, device=dev)
+    if n == 0:
+        return ceps, r
+    cz, bh = chirp_tables(n_fft, flen, dev)
+    op = _chirp_operator(lib, mel, ac, n_fft, flen)
+    wsums = _wide_rows(lib, n, nmel + nac, dev)
+    with torch.cuda.device(dev):
+        err = lib.srt_chirp_frames_frontend(
+            wp.data_ptr(), cz.data_ptr(), bh.data_ptr(), op.data_ptr(),
+            dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), _ptr(wsums), n,
+            flen, n_fft, nmel, nac, nceps, float(floor),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "full-spectrum chirp-z frontend kernel")
+    global FULL_CHIRP_LAUNCHES, CHUNKED_LAUNCHES
+    FULL_CHIRP_LAUNCHES += 1
+    CHUNKED_LAUNCHES += nmel + nac > 512
     return ceps, r

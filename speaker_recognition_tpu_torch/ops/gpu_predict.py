@@ -60,7 +60,8 @@ import torch
 from .. import _build
 from ..models.gmm import GmmBank
 from ..models.gmm import batch_bank_avg_loglik
-from .gpu_frontend import (BIG_N, FftRoute, _big_scratch, _packed_operator,
+from .gpu_frontend import (BIG_N, FftRoute, _big_operator, _big_scratch,
+                           _packed_operator,
                            dense_wa_operator, dft_mma_operator,
                            packed_from_signals_fft_reference,
                            packed_from_signals_reference)
@@ -333,11 +334,12 @@ def _run_big(lib, signals, n_valid, bank: GmmBank, fshift: int, dct_t,
     scratch = torch.empty(lib.srt_fused_scratch_floats(B, T, d, S),
                           dtype=torch.float32, device=dev)
     chunk, big = _big_scratch(lib, N, nmel + nac, B * T, dev)
+    op = _big_operator(lib, fft.mel, fft.acorr, N)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.srt_fused_predict_big(
             signals.data_ptr(), n_valid.data_ptr(), fft.window.data_ptr(),
-            fft.mel.data_ptr(), fft.acorr.data_ptr(), dct_t.data_ptr(),
+            op.data_ptr(), dct_t.data_ptr(),
             comp.data_ptr(), scratch.data_ptr(), big.data_ptr(),
             out.data_ptr(), B, Lp, T, flen, fshift, N, nmel, nac, nceps, S,
             K, float(fft.pre_emph), int(bool(fft.preemph_first)),

@@ -1,18 +1,29 @@
 """Where the FFT frontend kernels spend their time, on the card.
 
     python -m speaker_recognition_tpu_torch.tools.fft_ablation
+    python -m speaker_recognition_tpu_torch.tools.fft_ablation --route big,chirp
 
-Builds csrc/frontend_fft.cu (K5) and csrc/frontend.cu (K1) once as they
-are and once for each variant below, which switches one stage of the FFT
-tile (csrc/rfft_tile.cuh) off in a copy of the sources, and times K5 at
-48 kHz (512 x 5 s) and K1 at 8 kHz (512 x 5 s) for each, in turns, two
-rounds. The outputs of a variant are wrong by construction; only its time
-counts. The difference to `full` is what the stage costs. Needs one CUDA
-card and nvcc.
+`--route tile` (the default) builds csrc/frontend_fft.cu (K5) and
+csrc/frontend.cu (K1) once as they are and once for each variant below,
+which switches one stage of the FFT tile (csrc/rfft_tile.cuh) off in a copy
+of the sources, and times K5 at 48 kHz (512 x 5 s) and K1 at 8 kHz (512 x
+5 s) for each, in turns, two rounds. `big` builds csrc/frontend_big.cu (K5
+on the four-step FFT of N >= 32768, csrc/rfft_big.cuh) the same way, prints
+each pass's device time (torch.profiler: columns, rows, the fused power +
+projection, the outputs) and times K5 at 48 kHz with fft_size 32768 and
+65536 (8 x 5 s, phase 16's batch of chip_smoke.py) without the fused pass's
+power fill, its FMAs or its whole walk. `chirp` builds csrc/
+frontend_chirp.cu (K5's chirp-z kernel at an fft_size that is not a power
+of two) and times it at 8 kHz with fft_size 1500 and 216 outputs (512 x 5
+s, phase 15's) without its forward FFT, the pointwise product, its inverse
+FFT, the projection's FMAs or the whole projection. The outputs of a
+variant are wrong by construction; only its time counts. The difference to
+`full` is what the stage costs. Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import shutil
@@ -23,9 +34,18 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..config import FeatureConfig, n_frames
+from ..config import FeatureConfig, MfccConfig, n_frames
 from ..features.extract import FullFrontend, PackedFrontend
 from ..ops import framing, gpu_frontend
+
+# the projection walk the tile, the chirp-z kernel and the four-step
+# route share (rfft::project_bins)
+NO_PROJECTION_FMA = ("rfft_tile.cuh",
+                     "      for (int kk = 0; kk < kw; ++kk) {",
+                     "      for (int kk = 0; kk < 0; ++kk) {")
+NO_PROJECTION = [("rfft_tile.cuh",
+                  "    for (int k0 = 0; k0 < nb; k0 += CK) {",
+                  "    for (int k0 = 0; k0 < 0; k0 += CK) {")]
 
 # variant -> [(text of csrc/rfft_tile.cuh, its replacement)], or
 # [(file, text, replacement)] for another source
@@ -47,12 +67,8 @@ VARIANTS = {
     "no_post_step": [
         ("      const int k = lane + 32 * q;\n      if (k > H) break;\n      float p;",
          "      const int k = lane + 32 * q;\n      if (k >= 0) break;\n      float p;")],
-    "no_projection_fma": [
-        ("#pragma unroll 4\n      for (int kk = 0; kk < kw; ++kk) {",
-         "#pragma unroll 4\n      for (int kk = 0; kk < 0; ++kk) {")],
-    "no_projection": [
-        ("  for (int k0 = 0; k0 < NB; k0 += CK) {",
-         "  for (int k0 = 0; k0 < 0; k0 += CK) {")],
+    "no_projection_fma": [NO_PROJECTION_FMA],
+    "no_projection": NO_PROJECTION,
     # K1's tail (csrc/packed_tile.cuh tile_features): the Levinson
     # recursion, then the DCT as well
     "no_levinson": [("packed_tile.cuh", "  if (order == 0) return;",
@@ -64,6 +80,58 @@ VARIANTS = {
 }
 SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "packed_tile.cuh",
            "big_signal.cuh", "frontend_fft.cu", "frontend.cu")
+
+BIG_VARIANTS = {
+    "full": [],
+    "no_power_fill": [("rfft_big.cuh",
+                       "        const bool on = k <= H && (live >> f & 1u);",
+                       "        const bool on = false;"),
+                      ("rfft_big.cuh",
+                       "        if (k <= H && (live >> f & 1u)) {",
+                       "        if (false) {")],
+    "no_projection_fma": [NO_PROJECTION_FMA],
+    "no_projection": NO_PROJECTION,
+}
+BIG_SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "frontend_big.cu")
+# the chirp-z kernel at M = 1024 and 256 columns only (one instantiation)
+CHIRP_ONE = [
+    ("frontend_chirp.cu",
+     "    case 2048: return f(std::integral_constant<int, 2048>{});\n"
+     "    case 4096: return f(std::integral_constant<int, 4096>{});\n"
+     "    case 8192: return f(std::integral_constant<int, 8192>{});\n", ""),
+    ("rfft_tile.cuh",
+     "    case 9: return f(std::integral_constant<int, 9>{});\n"
+     "    case 16: return f(std::integral_constant<int, 16>{});\n", ""),
+    ("rfft_tile.cuh",
+     "    case 64: return f(std::integral_constant<int, 64>{});\n  }\n"
+     "  return cudaErrorInvalidValue;\n}\n\n__device__",
+     "  }\n  return cudaErrorInvalidValue;\n}\n\n__device__")]
+CHIRP_VARIANTS = {
+    "full": [],
+    "no_forward_fft": [
+        ("frontend_chirp.cu", "    rounds<M>(\n        [&](int rd, float2 (&r)"
+         "[32]) {\n#pragma unroll\n          for (int q = 0; q < 32; ++q) "
+         "r[rfft::brev_bits(q, 5)] = nxt[q];",
+         "    if (false) rounds<M>(\n        [&](int rd, float2 (&r)[32]) "
+         "{\n#pragma unroll\n          for (int q = 0; q < 32; ++q) "
+         "r[rfft::brev_bits(q, 5)] = nxt[q];"),
+        ("frontend_chirp.cu", "      column_pass<M>(buf, c, ctw, r);",
+         "      for (int b = 0; b < 32; ++b) "
+         "r[b] = buf[rfft::slot<P>(PL * b + c)];")],
+    "no_pointwise": [
+        ("frontend_chirp.cu",
+         "        const float2 y = cmul(r[b], __ldg(bh + PL * b + c));",
+         "        const float2 y = r[b];")],
+    "no_inverse_fft": [
+        ("frontend_chirp.cu", "    // them)\n    rounds<M>(",
+         "    // them)\n    if (false) rounds<M>("),
+        ("frontend_chirp.cu", "      column_pass<M>(dst, c, ctw, r);",
+         "      for (int b = 0; b < 32; ++b) "
+         "r[b] = dst[rfft::slot<P>(PL * b + c)];")],
+    "no_projection_fma": [NO_PROJECTION_FMA],
+    "no_projection": NO_PROJECTION,
+}
+CHIRP_SOURCES = ("rfft_tile.cuh", "frontend_chirp.cu")
 
 
 def bind(lib) -> None:
@@ -129,17 +197,47 @@ def time_ms(fn, trials=7, reps=3) -> float:
     return float(np.median(times))
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("fft_ablation needs a CUDA card")
-    dev = torch.device("cuda", 0)
-    card = subprocess.run(
+def card_name() -> str:
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    rng = np.random.RandomState(0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
+
+def frames_of(fe, fs: int, B: int, seconds: float, rng,
+              dev) -> torch.Tensor:
+    """Windowed, pre-emphasized frames [B * T, flen] of B noise signals of
+    `seconds` at fs, as K5 takes them."""
+    L = int(fs * seconds)
+    x = torch.from_numpy((rng.randn(B, L) * 3000).astype(np.float32)).to(dev)
+    return framing.window_preemph(
+        framing.frame_signal(x, fe.frame_len, fe.frame_shift), fe.frame_len,
+        fe.pre_emph, fe.preemph_first).reshape(-1, fe.frame_len).contiguous()
+
+
+def device_ms(fn, calls=3) -> dict:
+    """Device ms a call by kernel (torch.profiler), the kernels' names cut
+    to their function."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("<")[0].split("(")[0]
+            name = name.split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / (
+                1e3 * calls)
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def tile_main(card: str, dev, rng, variants=None) -> None:
+    stream = torch.cuda.current_stream(dev).cuda_stream
     fe48 = FullFrontend(48000, FeatureConfig(), dev)
     x = np.zeros((512, 245760), np.float32)
     x[:, :240000] = rng.randn(512, 240000) * 3000
@@ -184,7 +282,7 @@ def main():
         assert err == 0, err
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build(tmp)
+        libs = build(tmp, variants or VARIANTS)
         print(f"fft_ablation [{card}]: K5 512 x 5 s @ 48 kHz, K1 512 x 5 s "
               "@ 8 kHz, median of 7 trials of 3 calls", flush=True)
         for rnd in range(2):
@@ -194,6 +292,118 @@ def main():
             print(f"round {rnd} full, K1 without its CMVN kernel "
                   f"{time_ms(lambda: k1(libs['full'], 0)):.3f} ms",
                   flush=True)
+
+
+def bind_big(lib) -> None:
+    """The argument types of csrc/frontend_big.cu's C interface."""
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.srt_big_fft_frames.argtypes = [p_] * 6 + [i_] * 6 + [f_, i_, p_]
+    lib.srt_big_operator_shape.argtypes = [i_, i_, ip, ip, ip]
+    lib.srt_big_scratch_floats.argtypes = [i_, i_, i_]
+    lib.srt_big_scratch_floats.restype = ctypes.c_longlong
+
+
+def big_main(card: str, dev, rng, variants=None) -> None:
+    """The four-step route's passes, and its fused pass's parts."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build(tmp, variants or BIG_VARIANTS, BIG_SOURCES,
+                     ("frontend_big.cu",), bind_big)
+        for n in (32768, 65536):
+            fe = FullFrontend(48000, FeatureConfig(mfcc=MfccConfig(
+                fft_size=n)), dev)
+            wp = frames_of(fe, 48000, 8, 5.0, rng, dev)
+            nf = wp.shape[0]
+            nmel, nceps = fe.dct.shape
+            nac = fe.acorr.shape[1]
+            ceps = torch.empty(nf, nceps, device=dev)
+            r = torch.empty(nf, nac, device=dev)
+            for name, lib in libs.items():
+                op = gpu_frontend._fft_operator(fe.mel, fe.acorr, n, lib,
+                                                "srt_big_operator_shape")
+                per = lib.srt_big_scratch_floats(n, nmel + nac, 1)
+                chunk = int(max(1, min(65535, nf,
+                                       gpu_frontend.BIG_SCRATCH_BYTES
+                                       // (4 * per))))
+                sc = torch.empty(lib.srt_big_scratch_floats(
+                    n, nmel + nac, chunk), device=dev)
+
+                def call():
+                    err = lib.srt_big_fft_frames(
+                        wp.data_ptr(), op.data_ptr(), fe.dct.data_ptr(),
+                        ceps.data_ptr(), r.data_ptr(), sc.data_ptr(), nf,
+                        fe.frame_len, n, nmel, nac, nceps, fe.floor, chunk,
+                        stream)
+                    assert err == 0, err
+                print(f"fft_ablation [{card}] four-step K5 48 kHz, fft_size "
+                      f"{n}, {nf} frames (chunks of {chunk}), {name:17s} "
+                      f"{time_ms(call):.3f} ms; device ms a call by kernel "
+                      f"{device_ms(call)}", flush=True)
+                del sc
+            del wp
+            torch.cuda.empty_cache()
+
+
+def bind_chirp(lib) -> None:
+    """The argument types of csrc/frontend_chirp.cu's C interface."""
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.srt_chirp_frames_frontend.argtypes = [p_] * 8 + [i_] * 6 + [f_, p_]
+    lib.srt_chirp_operator_shape.argtypes = [i_, i_, i_, ip, ip, ip]
+
+
+def chirp_main(card: str, dev, rng, variants=None) -> None:
+    """The chirp-z kernel's stages at fft_size 1500 and 216 outputs."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fe = FullFrontend(8000, FeatureConfig(mfcc=MfccConfig(
+        fft_size=1500, n_filters=200)), dev)
+    wp = frames_of(fe, 8000, 512, 5.0, rng, dev)
+    nf = wp.shape[0]
+    nmel, nceps = fe.dct.shape
+    nac = fe.acorr.shape[1]
+    ceps = torch.empty(nf, nceps, device=dev)
+    r = torch.empty(nf, nac, device=dev)
+    cz, bh = gpu_frontend.chirp_tables(1500, fe.frame_len, dev)
+    variants = {k: CHIRP_ONE + v
+                for k, v in (variants or CHIRP_VARIANTS).items()}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build(tmp, variants, CHIRP_SOURCES, ("frontend_chirp.cu",),
+                     bind_chirp)
+        print(f"fft_ablation [{card}]: K5's chirp-z kernel, 512 x 5 s @ "
+              f"8 kHz, fft_size 1500, {nmel} mel + {nac} lags, {nf} frames, "
+              "median of 7 trials of 3 calls", flush=True)
+        for rnd in range(2):
+            for name, lib in libs.items():
+                op = gpu_frontend._fft_operator(
+                    fe.mel, fe.acorr, 1500, lib, "srt_chirp_operator_shape",
+                    fe.frame_len)
+
+                def call():
+                    err = lib.srt_chirp_frames_frontend(
+                        wp.data_ptr(), cz.data_ptr(), bh.data_ptr(),
+                        op.data_ptr(), fe.dct.data_ptr(), ceps.data_ptr(),
+                        r.data_ptr(), 0, nf, fe.frame_len, 1500, nmel, nac,
+                        nceps, fe.floor, stream)
+                    assert err == 0, err
+                print(f"round {rnd} {name:18s} {time_ms(call):.3f} ms",
+                      flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--route", default="tile",
+                    help="comma-separated: tile, big, chirp")
+    routes = ap.parse_args(argv).route.split(",")
+    if not torch.cuda.is_available():
+        raise SystemExit("fft_ablation needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    card = card_name()
+    rng = np.random.RandomState(0)
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    for route in routes:
+        {"tile": tile_main, "big": big_main, "chirp": chirp_main}[route](
+            card, dev, rng)
 
 
 if __name__ == "__main__":

@@ -160,7 +160,9 @@ def _frames_fft(frames, D, W, dct, floor, A, fft=None):
 def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
     """The counters of the kernel mfcc_from_frames takes on the card."""
     if n_fft & (n_fft - 1):
-        return ("FULL_DENSE_LAUNCHES",)
+        return (("FULL_CHIRP_LAUNCHES",)
+                if gpu_frontend.chirp_size(n_fft, wp.shape[-1])
+                else ("FULL_DENSE_LAUNCHES",))
     return _tile_counters(n_fft, mel.shape[1] + acorr.shape[1],
                           "FULL_LAUNCHES", "FULL_BIG_LAUNCHES")
 
@@ -295,7 +297,7 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 def test_chip_smoke_rehearses_on_the_cpu():
     """All twenty-one phases pass on the CPU; the kernels record lists the
     seven TPU kernels (K1 in both its modes, K6 in both its routes, K5's
-    dense template), then the routes of phase 16 (K1, K4 and K5 on the
+    dense template and its chirp-z kernel), then the routes of phase 16 (K1, K4 and K5 on the
     four-step FFT of N >= 32768 and past 512 outputs, K6's lifted bf16
     route), phase 13's lifted f32 monolith (N = 32768 on the four-step
     route, 616 outputs), phase 20's multi-device path (K3 on the
@@ -306,8 +308,9 @@ def test_chip_smoke_rehearses_on_the_cpu():
     16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
     and 16384-point FFTs, 266 outputs, the 96 kHz CLI slice, the
     monolith's cases, the grid phase, the live path (216 outputs on the
-    dense template, the VAD, k-means, the GUI's conversation with the JAX
-    package's timeline), the lifted limits, float64 on the device, JFA
+    chirp-z kernel, the dense template beside it and past the chirp's
+    reach, the VAD, k-means, the GUI's conversation with the JAX package's
+    timeline), the lifted limits, float64 on the device, JFA
     with its CLI, the RBM family with crbm_cli and the multi-device
     programs at world size 1 all run."""
     proc = subprocess.run([sys.executable, os.path.abspath(__file__)],
@@ -323,6 +326,7 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_frontend.py:111", "pallas_frontend.py:50",
         "pallas_predict.py:91", "pallas_predict.py:215",
         "pallas_predict.py:91", "pallas_frontend.py:50",
+        "pallas_frontend.py:50",
         "pallas_frontend.py:231", "pallas_frontend.py:111",
         "pallas_frontend.py:50", "pallas_frontend.py:50",
         "pallas_frontend.py:231", "pallas_frontend.py:111",
@@ -331,7 +335,7 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_gmm.py:47", "pallas_frontend.py:231",
         "pallas_frontend.py:231", "pallas_frontend.py:111",
         "pallas_gmm.py:154", "pallas_gmm.py:47"]
-    assert [k["name"] for k in kernels[10:]] == [
+    assert [k["name"] for k in kernels[11:]] == [
         "packed_frontend_n32768", "packed_from_frames_n32768",
         "mfcc_from_frames_n32768", "mfcc_from_frames_n65536",
         "packed_frontend_616_outputs",
@@ -341,8 +345,8 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "packed_frontend_seqshard", "packed_frontend_bf16",
         "packed_from_frames_bf16", "bank_avg_loglik_bf16",
         "bank_sum_loglik_bf16"]
-    assert kernels[18]["source"].endswith("csrc/predict_fused_big.cu")
-    assert [k["source"].rsplit("/", 1)[1] for k in kernels[22:]] == [
+    assert kernels[19]["source"].endswith("csrc/predict_fused_big.cu")
+    assert [k["source"].rsplit("/", 1)[1] for k in kernels[23:]] == [
         "frontend_bf16.cu", "frontend_bf16.cu", "gmm_score_bf16.cu",
         "gmm_serial_bf16.cu"]
     for k in kernels:
@@ -374,10 +378,14 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert any(ln.startswith("phase 12 cli enroll + predict @ 48 kHz, "
                              "fft_size 4096") for ln in lines)
     assert kernels[6]["source"].endswith("csrc/predict_fused.cuh")
-    assert [k["name"] for k in kernels[6:10]] == [
+    assert [k["name"] for k in kernels[6:11]] == [
         "fused_bank_predict", "fused_bank_predict_wide",
-        "fused_bank_predict_bf16", "mfcc_from_frames_dense"]
+        "fused_bank_predict_bf16", "mfcc_from_frames_dense",
+        "mfcc_from_frames_chirp"]
     assert kernels[9]["source"].endswith("csrc/frontend_frames.cu")
+    assert kernels[10]["source"].endswith("csrc/frontend_chirp.cu")
+    assert [k["source"].rsplit("/", 1)[1] for k in kernels[13:15]] == [
+        "frontend_big.cu", "frontend_big.cu"]
     for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
                   "266 outputs"):
         assert any(ln.startswith("phase 2 ") and shape in ln
@@ -386,6 +394,13 @@ def test_chip_smoke_rehearses_on_the_cpu():
     for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
                   "192 kHz, fft_size 8192", "266 outputs"):
         assert any(ln.startswith("phase 10 ") and shape in ln
+                   for ln in lines), shape
+    for shape in ("fft_size 1500, 50 mel filters (chirp-z kernel)",
+                  "fft_size 1500, 128 mel filters (chirp-z kernel)",
+                  "44.1 kHz, fft_size 1411 (flen 1411, M 4096, chirp-z",
+                  "48 kHz, fft_size 1000 (flen 1536, M 2048, chirp-z"):
+        assert any(ln.startswith("phase 10 ") and shape in ln
+                   and "launches 2 (FULL_CHIRP_LAUNCHES)" in ln
                    for ln in lines), shape
     for shape in ("96 kHz, fft_size 8192", "192 kHz, fft_size 16384",
                   "250 mel filters"):
@@ -407,8 +422,13 @@ def test_chip_smoke_rehearses_on_the_cpu():
              "outputs", "bitwise True"),
             ("phase 15 dense kernel: 144 outputs bitwise equal inside 216",
              "True"),
+            ("phase 15 chirp-z kernel: 144 outputs bitwise equal inside 216",
+             "True"),
+            ("phase 15 dense kernel (direct), 216 outputs", "bitwise True"),
             ("phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs",
-             "dense kernel launches 1"),
+             "chirp-z kernel launches 1, dense kernel launches 0"),
+            ("phase 15 8 kHz, fft_size 16000 (past the chirp-z route's "
+             "reach) through extract_batch", "{'FULL_DENSE_LAUNCHES': 1}"),
             ("phase 15 spectral gate", "two calls bitwise equal True"),
             ("phase 15 a tick's batch (8, 12288): two calls bitwise equal",
              "True")):

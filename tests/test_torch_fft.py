@@ -254,12 +254,16 @@ def test_extract_batch_on_the_fft_route_matches_jax(case, monkeypatch):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("fft_size,dense", [(2048, False), (1500, True)],
-                         ids=["power_of_two", "not_a_power_of_two"])
+@pytest.mark.parametrize("fft_size,dense", [(2048, False), (1500, False),
+                                             (14000, True)],
+                         ids=["power_of_two", "not_a_power_of_two",
+                              "past_the_chirp_reach"])
 def test_full_frontend_operators_follow_the_route(fft_size, dense):
     """On the card the full-spectrum frontend keeps C and S only where the
-    dense kernel reads them (an fft_size that is not a power of two); on
-    the CPU its plain version always reads them."""
+    dense kernel reads them (an fft_size that is not a power of two and
+    whose chirp-z convolution passes 8192 points: 14000 at 48 kHz; 1500
+    takes the chirp-z kernel); on the CPU its plain version always reads
+    them."""
     cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=fft_size))
     fe = text.FullFrontend(48000, cfg, "meta")
     nb = fft_size // 2 + 1

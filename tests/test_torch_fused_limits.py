@@ -221,7 +221,13 @@ class _Lib:
         return nframes * 512 * -(-nout // 512) if nout > 512 else 0
 
     def srt_big_scratch_floats(self, n_fft, nout, chunk):
-        return chunk * (n_fft + n_fft // 2 + 1 + nout)
+        return chunk * (n_fft + nout)
+
+    def srt_big_operator_shape(self, n_fft, nout, rows, cols, chunks):
+        chunks._obj.value = -(-nout // 512)
+        rows._obj.value = (n_fft // 2 + 1 + 15) // 16 * 16 * chunks._obj.value
+        cols._obj.value = 512
+        return 0
 
     def srt_fft_operator_shape(self, n_fft, nout, rows, cols, chunks):
         chunks._obj.value = -(-nout // 512)
@@ -288,8 +294,10 @@ def test_the_card_routes_take_every_shape(stand_in, wide):
                      before["CHUNKED_LAUNCHES"],
                      "BIG_LAUNCHES": before["BIG_LAUNCHES"] + 1}
     c = stand_in.calls.pop("big")
-    # B, Lp, T, flen, fshift, nfft, nmel, nac, nceps, S, K
-    assert c[10:21] == (2, 6 * 4097, 5, 8194, 4097, 32768, 50, 16, 13, 2, 4)
+    # B, Lp, T, flen, fshift, nfft, nmel, nac, nceps, S, K (after the
+    # signals, n_valid, window, packed operator, dct, components, scratch,
+    # four-step scratch and output pointers)
+    assert c[9:20] == (2, 6 * 4097, 5, 8194, 4097, 32768, 50, 16, 13, 2, 4)
     assert c[-2] >= 1  # frames a chunk
 
     fe = PackedFrontend(8000, _wide616(), "cpu")
