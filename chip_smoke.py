@@ -94,9 +94,14 @@ raises and the exit code is non-zero):
      (SRTPU_FRONTEND=full) on the bench batch vs the dense plain version,
      the chirp-z kernel launched once and the dense template never; the
      dense template launched directly on the same frames vs its plain
-     version, two calls bitwise, 144 inside 216, and through extract_batch
-     past the chirp's reach (fft_size 16000); both timed beside the plain
-     versions and cuFFT's rfft at 1500 points; the LTSD VAD and the
+     version, two calls bitwise, 144 inside 216; both timed beside the
+     plain versions and cuFFT's rfft at 1500 points; the chirp-z route on
+     the cluster past M = 8192 (fft_size 16000, M = 16384, on 64 x 5 s;
+     33000, M = 32768, on 8) vs its three plain versions, two calls
+     bitwise, through extract_batch (the chirp counter once), timed beside
+     the dense template on the same frames and cuFFT's rfft; the dense
+     template past the chirp's reach (fft_size 261634) through
+     extract_batch and directly, timed; the LTSD VAD and the
      spectral gate on the card vs the CPU at float64 (identical intervals, two
      calls bitwise); Lloyd's on the card vs the CPU at float64 from one
      init, k-means|| over 8 seeds against the CPU's median inertia, and
@@ -111,9 +116,12 @@ raises and the exit code is non-zero):
      plain versions, and its predict_scores vs the plain versions
      composed; timing of a tick, init_noise, and k-means-seeded training
      beside plain-init training
- 16. the lifted limits: K1, K4 and K5 on the four-step FFT of N >= 32768
+ 16. the lifted limits: K1, K4 and K5 on the four-step route of N >= 32768
      (384 kHz frames of 12,288 samples with fft_size 32768 on the packed
-     route, fft_size 32768 and 65536 at 48 kHz on the full route) and past
+     route, fft_size 32768 and 65536 at 48 kHz on the full route: a
+     frame's spectrum on one block and on a cluster of 2; K1 and K4 at
+     65536 with 64 ms frames; K5 at 262144 on a cluster of 8 and at 524288
+     on the device-memory passes, a few frames each) and past
      512 outputs on the FFT tile (600 mel filters + LPC at 8 kHz, 200 ms
      frames, fft_size 4096), each against the FFT route's plain version
      (and K5 against the dense one, K1 at 616 outputs against the float64
@@ -354,6 +362,22 @@ KM_SPEAKERS, KM_SECONDS, KM_K = 80, 30.0, 256
 FS384, BIG384_B = 384000, 4
 BIG384 = FeatureConfig(mfcc=MfccConfig(fft_size=32768))
 FULL_BIG_FFTS = (32768, 65536)
+# the cluster FFT's two-block size on the packed route (384 kHz frames of
+# 64 ms, 24,576 samples: N = 65536), and K5's route sizes past it at 8 kHz
+# (a few frames each): 262144 points on a cluster of 8, 524288 on the
+# device-memory passes
+BIG65536 = FeatureConfig(
+    mfcc=MfccConfig(fft_size=65536, win_length_ms=64.0, win_shift_ms=32.0),
+    lpc=LpcConfig(win_length_ms=64.0, win_shift_ms=32.0))
+ROUTE_FFTS = (262144, 524288)
+# the chirp-z route on the cluster (M = 16384 at fft_size 16000 on the
+# bench batch, M = 32768 at 33000 on 8 utterances) and the dense template
+# past its reach (fft_size 261634 at 8 kHz: M would be 262144)
+CHIRP_CLUSTER_FFTS = (16000, 33000)  # BIG_B and 8 utterances
+PAST_CHIRP_FFT = 261634
+# (trials, calls a trial) of those routes' timings: the chirp on the
+# cluster beside the dense template; the small cases past it
+ROUTE_TRIALS, SMALL_TRIALS = (7, 3), (5, 1)
 # (8 kHz with 200 ms frames of 1600 samples and fft_size 4096: a
 # 4096-point FFT, the FFT route's operator mel itself, and no empty filter
 # among the 600; at 48 kHz with fft_size 4096 nine are empty, where the
@@ -927,7 +951,7 @@ def frames_kernel(fe, dense=True):
     """(kernel wrapper, {name: plain version}, launch counter name) of fe;
     all take frames_args' arguments (the packed frontend's dense plain
     version only with `dense`, and none from N = 32768 on)."""
-    big = fe.n_fft >= gpu_frontend.BIG_N
+    big = fe.n_fft >= gpu_frontend.BIG_N and fe.n_fft & (fe.n_fft - 1) == 0
     if isinstance(fe, FullFrontend):
         n = fe.n_fft
         plains = {"dense": gpu_frontend.mfcc_from_frames_reference,
@@ -1082,9 +1106,10 @@ def check_fused_case(name, fe: PackedFrontend, args) -> tuple[float, float]:
 
 def phase13_lifted(rng, dev, card, bench_bank) -> list:
     """13, the monolith's lifted f32 limits, at phase 16's shapes: N = 32768
-    (384 kHz, BIG384_B x 5 s; the four-step route, BIG_LAUNCHES) and 616
-    outputs (WIDE616, 64 x 5 s at 8 kHz; chunks of 512 on the tile,
-    CHUNKED_LAUNCHES). Each, through both wrappers, against its plain
+    (384 kHz, BIG384_B x 5 s; the four-step route on one block,
+    BIG_LAUNCHES), N = 65536 (384 kHz frames of 64 ms, 2 x 1 s; a cluster
+    of 2) and 616 outputs (WIDE616, 64 x 5 s at 8 kHz; chunks of 512 on the
+    tile, CHUNKED_LAUNCHES). Each, through both wrappers, against its plain
     version and predict_scores (K1's route there + K2) on the same argmax,
     two calls bitwise, counted and timed beside K1 + K2; at 616 outputs the
     first 512 keep their bits inside the larger call. Returns the entries
@@ -1097,9 +1122,12 @@ def phase13_lifted(rng, dev, card, bench_bank) -> list:
     s616, l616 = signals_batch(
         rng, [L8 - int(rng.randint(0, L8 // 2)) for _ in range(63)] + [L8],
         padded(L8), dev)
+    L65 = int(FS384 * HIGH_SEC / 5)
+    s65, l65 = signals_batch(rng, [L65, L65 * 2 // 3], padded(L65), dev)
     SK = bench_bank.n_speakers * bench_bank.n_mixtures
     for key, fs, cfg, sig, lens, route in (
             ("n32768", FS384, BIG384, s384, l384, "BIG_LAUNCHES"),
+            ("n65536", FS384, BIG65536, s65, l65, "BIG_LAUNCHES"),
             ("616_outputs", BENCH_FS, WIDE616, s616, l616,
              "CHUNKED_LAUNCHES")):
         fe = PackedFrontend(fs, cfg, dev)
@@ -1201,7 +1229,7 @@ def phase13_lifted(rng, dev, card, bench_bank) -> list:
     if dev.type == "cuda" and not inside:
         raise AssertionError("the monolith's outputs depend on the output "
                              "count")
-    del s384, l384, s616, l616
+    del s384, l384, s616, l616, s65, l65
     torch.cuda.empty_cache()
     return entries
 
@@ -1329,7 +1357,8 @@ def seeding_stages(fn, trials=7) -> dict:
 FRONTEND_COUNTERS = ("LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES",
                      "FULL_CHIRP_LAUNCHES", "FULL_DENSE_LAUNCHES",
                      "BIG_LAUNCHES", "FRAMES_BIG_LAUNCHES",
-                     "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES")
+                     "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES",
+                     "BIG_PASSES_LAUNCHES")
 
 
 def reset_frontend_counts():
@@ -1378,13 +1407,15 @@ def frames_work(fe, n_frames_: int, nbytes_in: int) -> dict:
                  + 4 * sum(x.numel() for x in (mel, ac, fe.dct)))
 
 
-def phase16(rng, dev, card, bench_sig, bench_len) -> list:
+def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
     """16. The FFT tile's lifted limits and the bf16 route's: K1, K4, K5 on
-    the four-step route of N >= 32768, past 512 outputs on the tile, and
-    K6's bf16 route past 128 outputs and for long frames; each against its
-    plain version, two calls bitwise, counted and timed. Returns the
-    kernels' entries."""
-    entries = []
+    the four-step route of N >= 32768 (a frame's spectrum on one block at
+    32768 points, on a cluster of 2 at 65536 and of 8 at 262144; past it
+    the device-memory passes), past 512 outputs on the tile, and K6's bf16
+    route past 128 outputs and for long frames; each against its plain
+    version, two calls bitwise, counted and timed. Returns the kernels'
+    entries, and those of the four-step route's other sizes."""
+    entries, routes = [], []
     L384 = int(FS384 * HIGH_SEC)
     s384, l384 = signals_batch(
         rng, [L384 - int(rng.randint(0, L384 // 2))
@@ -1470,6 +1501,78 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> list:
                         "pallas_frontend.py:50", launched5, err5,
                         t5["kernel"], t5["plain"], b5))
         del fargs, fe
+        torch.cuda.empty_cache()
+
+    # the cluster at 65536 points on the packed route (K1 and K4: 384 kHz
+    # frames of 64 ms, a cluster of 2 blocks), then K5 at 262144 points (8
+    # blocks) and past the cluster's reach (524288: the device-memory
+    # passes, counted in BIG_PASSES_LAUNCHES as well), a few frames each
+    L65 = int(FS384 * HIGH_SEC / 5)
+    s65, l65 = signals_batch(rng, [L65, L65 * 2 // 3], padded(L65), dev)
+    fe65 = PackedFrontend(FS384, BIG65536, dev)
+    if fe65.n_fft != 65536 or fe65.D is not None:
+        raise AssertionError("64 ms frames at 384 kHz did not take a "
+                             "65536-point FFT")
+    nm65 = (f"384 kHz, 64 ms frames, fft_size 65536, {s65.shape[0]} x "
+            f"{L65 / FS384:g} s (flen {fe65.frame_len}, a cluster of 2)")
+    err65 = check_frontend("K1 " + nm65, fe65, s65, l65, phase=16)
+    got65 = drive_extract("K1 " + nm65, FS384, BIG65536, s65, l65,
+                          {"BIG_LAUNCHES": 1})
+    err65 = max(err65, check_frames(16, "K4 " + nm65, fe65, s65, l65))
+    args65 = frontend_args(fe65, s65, l65)
+    t65 = time_interleaved({
+        "kernel": lambda: gpu_frontend.packed_from_signals(*args65,
+                                                           fft=fe65.fft),
+        "plain": lambda: gpu_frontend.packed_from_signals_fft_reference(
+            s65, args65[1], fe65.fft, fe65.dct, fe65.floor,
+            fe65.frame_shift, fe65.cmvn)})
+    T65 = n_frames(s65.shape[1], fe65.frame_len, fe65.frame_shift)
+    nac65 = fe65.fft_acorr.shape[1]
+    b65 = bound(frontend_flops(int(args65[1].sum()), 65536,
+                               (fe65.fft_mel, fe65.fft_acorr), nceps,
+                               order=nac65 - 1, window=3 * fe65.frame_len),
+                4 * s65.numel() + 4 * s65.shape[0] * T65 * (nceps + nac65 - 1)
+                + 4 * sum(x.numel() for x in (fe65.fft_mel, fe65.fft_acorr,
+                                              fe65.dct, fe65.window)))
+    print(f"phase 16 [{card}] K1 {nm65}: {t65['kernel']:.3f} ms, plain "
+          f"{t65['plain']:.3f} ms, bound {b65['bound_ms']:.4f} ms "
+          f"({b65['bound_by']})", flush=True)
+    routes.append(("packed_frontend_n65536", "rfft_cluster.cu",
+                   "pallas_frontend.py:231", got65["BIG_LAUNCHES"], err65,
+                   t65["kernel"], t65["plain"], b65))
+    del s65, l65, args65, fe65
+    L8r = int(BENCH_FS * HIGH_SEC / 10)
+    s8r, l8r = signals_batch(rng, [L8r, L8r * 2 // 3], padded(L8r), dev)
+    for n in ROUTE_FFTS:
+        cfg = FeatureConfig(mfcc=MfccConfig(fft_size=n))
+        passes = n > gpu_frontend.CLUSTER_MAX_N
+        nm = (f"K5 8 kHz, fft_size {n}, {s8r.shape[0]} x {L8r / BENCH_FS:g} "
+              "s (" + ("the device-memory passes, past the cluster's reach)"
+                       if passes else f"a cluster of {n // 32768})"))
+        fe = FullFrontend(BENCH_FS, cfg, dev)
+        err5 = check_frames(16, nm, fe, s8r, l8r)
+        want = {"FULL_BIG_LAUNCHES": 1}
+        if passes:
+            want["BIG_PASSES_LAUNCHES"] = 1
+        launched5 = drive_extract(nm, BENCH_FS, cfg, s8r, l8r, want,
+                                  full=True)["FULL_BIG_LAUNCHES"]
+        fargs, B_, T_ = frames_args(fe, s8r)
+        kern, plains, _ = frames_kernel(fe)
+        t5 = time_interleaved({
+            "kernel": lambda: kern(*fargs),
+            "plain": lambda: plains["fft"](*fargs),
+            "rfft": lambda: torch.fft.rfft(fargs[0], n=n)}, *SMALL_TRIALS)
+        b5 = frames_work(fe, B_ * T_, 4 * fargs[0].numel())
+        print(f"phase 16 [{card}] {nm}: {t5['kernel']:.3f} ms, plain "
+              f"{t5['plain']:.3f} ms, cuFFT's torch.fft.rfft(frames, n={n}) "
+              f"alone {t5['rfft']:.3f} ms, bound {b5['bound_ms']:.4f} ms "
+              f"({b5['bound_by']}); device ms a call by kernel "
+              f"{kernel_times(lambda: kern(*fargs))}", flush=True)
+        routes.append((f"mfcc_from_frames_n{n}", "rfft_big.cuh" if passes
+                       else "rfft_cluster.cu", "pallas_frontend.py:50",
+                       launched5, err5, t5["kernel"], t5["plain"], b5))
+        del fargs, fe
+        extract._frontend.cache_clear()
         torch.cuda.empty_cache()
 
     # past 512 outputs on the tile: 600 mel filters + LPC-15 (WIDE616: 616
@@ -1661,7 +1764,7 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> list:
     entries.append(("fused_bank_predict_bf16_lifted", "predict_fused.cuh",
                     "pallas_predict.py:91", launched_b, errb, tb["kernel"],
                     tb["plain"], bb))
-    return entries
+    return entries, routes
 
 
 def phase17(rng, dev, card, bench_sig, bench_len) -> dict:
@@ -3790,8 +3893,7 @@ def main(argv=None):
     del args144, wide, c144, r144, c216, r216
     # extract_batch at 216 outputs takes the chirp-z kernel once and the
     # dense template never, and its features match the dense plain
-    # version's; past the chirp's reach (fft_size 16000: M would be 16384)
-    # it takes the dense template once
+    # version's
     want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args216)
     want216, wmask216 = fe216.finish(
         want_c.view(B216, T216, -1), want_r.view(B216, T216, -1), mask216)
@@ -3824,18 +3926,85 @@ def main(argv=None):
                              "or disagrees with the dense plain version")
     err_chirp = max(err_chirp, d_mfcc, d_lpc)
     del feats216, fmask216, want216, wmask216
-    past = FeatureConfig(mfcc=MfccConfig(fft_size=16000))
+    # the chirp-z route on the cluster: fft_size 16000 (M = 16384, one
+    # block) on 64 bench utterances (its M-point plain version takes 2.7 GB
+    # a tensor there) and 33000 (M = 32768, two blocks) on 8 utterances, each against the three plain versions, two calls
+    # bitwise, through extract_batch (the chirp counter once, the dense
+    # template never), timed beside the dense template on the same frames,
+    # the plain versions and cuFFT's rfft (the spectral stage's yardstick)
+    chirp_routes = []
+    for n in CHIRP_CLUSTER_FFTS:
+        cfg = FeatureConfig(mfcc=MfccConfig(fft_size=n))
+        fe = FullFrontend(BENCH_FS, cfg, dev)
+        M = gpu_frontend.chirp_size(n, fe.frame_len)
+        if M != {16000: 16384, 33000: 32768}[n] or fe.C is not None and \
+                dev.type == "cuda":
+            raise AssertionError(f"fft_size {n}: M {M}, not the cluster's")
+        Bc = BIG_B if n == 16000 else 8
+        sc, lc = bench_sig[:Bc].contiguous(), bench_len[:Bc].contiguous()
+        nm = (f"8 kHz, fft_size {n} (chirp-z on the cluster, M {M}), {Bc} x "
+              f"{BENCH_SEC:g} s")
+        err_c = check_frames(15, nm, fe, sc, lc)
+        launched_c = drive_extract(
+            nm, BENCH_FS, cfg, sc, lc, {"FULL_CHIRP_LAUNCHES": 1}, full=True,
+            phase=15)["FULL_CHIRP_LAUNCHES"]
+        fargs, Bn, Tn = frames_args(fe, sc)
+        kern, plains, _ = frames_kernel(fe)
+        tc = time_interleaved({
+            "kernel": lambda: kern(*fargs),
+            "dense": lambda: gpu_frontend.mfcc_from_frames_dense(*fargs),
+            "plain": lambda: plains["fft"](*fargs),
+            "plain_chirp": lambda: plains["chirp"](*fargs),
+            "plain_dense": lambda: plains["dense"](*fargs),
+            "rfft": lambda: torch.fft.rfft(fargs[0], n=n)}, *ROUTE_TRIALS)
+        bc = frames_work(fe, Bn * Tn, 4 * fargs[0].numel())
+        print(f"phase 15 [{card}] {nm} ({tuple(fargs[0].shape)} frames): "
+              f"chirp-z kernel {tc['kernel']:.3f} ms, dense template "
+              f"{tc['dense']:.3f} ms; plain: FFT route {tc['plain']:.3f} ms, "
+              f"chirp-z {tc['plain_chirp']:.3f} ms, dense "
+              f"{tc['plain_dense']:.3f} ms; cuFFT's torch.fft.rfft(frames, "
+              f"n={n}) alone {tc['rfft']:.3f} ms; bound {bc['bound_ms']:.4f} "
+              f"ms ({bc['bound_by']}); device ms a call by kernel "
+              f"{kernel_times(lambda: kern(*fargs))}", flush=True)
+        chirp_routes.append((f"mfcc_from_frames_chirp_m{M}",
+                             "frontend_chirp_cluster.cu",
+                             "pallas_frontend.py:50", launched_c, err_c,
+                             tc["kernel"], tc["plain"], bc))
+        del fargs, fe
+        torch.cuda.empty_cache()
+    # past the cluster's reach (fft_size 261634: M would be 262144) the
+    # dense template, through extract_batch and directly, on 2 utterances
+    past = FeatureConfig(mfcc=MfccConfig(fft_size=PAST_CHIRP_FFT))
     fe_past = FullFrontend(BENCH_FS, past, dev)
-    if gpu_frontend.chirp_size(16000, fe_past.frame_len) != 0:
-        raise AssertionError("fft_size 16000 is within the chirp's reach")
+    if gpu_frontend.chirp_size(PAST_CHIRP_FFT, fe_past.frame_len) != 0:
+        raise AssertionError(f"fft_size {PAST_CHIRP_FFT} is within the "
+                             "chirp's reach")
+    sp, lp = bench_sig[:2].contiguous(), bench_len[:2].contiguous()
+    nm = (f"8 kHz, fft_size {PAST_CHIRP_FFT} (past the chirp-z route's "
+          f"reach), 2 x {BENCH_SEC:g} s")
     launches_dense = drive_extract(
-        "8 kHz, fft_size 16000 (past the chirp-z route's reach)", BENCH_FS,
-        past, bench_sig[:8].contiguous(), bench_len[:8].contiguous(),
-        {"FULL_DENSE_LAUNCHES": 1}, full=True,
+        nm, BENCH_FS, past, sp, lp, {"FULL_DENSE_LAUNCHES": 1}, full=True,
         phase=15)["FULL_DENSE_LAUNCHES"]
-    err_dense = max(err_dense, check_frames(
-        15, "8 kHz, fft_size 16000 (dense kernel)", fe_past,
-        bench_sig[:8].contiguous(), bench_len[:8].contiguous()))
+    extract._frontend.cache_clear()
+    err_past = check_frames(15, nm + " (dense kernel)", fe_past, sp, lp)
+    err_dense = max(err_dense, err_past)
+    fargs, Bp, Tp = frames_args(fe_past, sp)
+    kern, plains, _ = frames_kernel(fe_past)
+    tp = time_interleaved({"kernel": lambda: kern(*fargs),
+                           "plain": lambda: plains["dense"](*fargs),
+                           "plain_fft": lambda: plains["fft"](*fargs)},
+                          *SMALL_TRIALS)
+    bp = frames_work(fe_past, Bp * Tp, 4 * fargs[0].numel())
+    print(f"phase 15 [{card}] {nm}: dense template {tp['kernel']:.3f} ms, "
+          f"its plain version {tp['plain']:.3f} ms, the FFT route's "
+          f"{tp['plain_fft']:.3f} ms, bound {bp['bound_ms']:.4f} ms "
+          f"({bp['bound_by']})", flush=True)
+    chirp_routes.append(("mfcc_from_frames_dense_past_reach",
+                         "frontend_frames.cu", "pallas_frontend.py:50",
+                         launches_dense, err_past, tp["kernel"], tp["plain"],
+                         bp))
+    del fargs, fe_past
+    torch.cuda.empty_cache()
     # the chirp-z kernel beside the dense template, the FFT route's plain
     # version (the chirp kernel's plain version: torch.fft.rfft at 1500
     # points), the chirp's own plain version (torch.fft.fft at M), the
@@ -4103,7 +4272,7 @@ def main(argv=None):
           f"({t['seed_conv'] / t['train_kmeans']:.1%} of k-means-seeded "
           "training)", flush=True)
 
-    entries16 = phase16(rng, dev, card, bench_sig, bench_len)
+    entries16, routes16 = phase16(rng, dev, card, bench_sig, bench_len)
     phase17(rng, dev, card, bench_sig, bench_len)
     phase18(dev, card, seed)
     feats19 = phase19(dev, card)
@@ -4240,7 +4409,8 @@ def main(argv=None):
           "launches": launched, "max_abs_err": err, "ms": ms,
           "plain_ms": plain_ms, **b, "library_ms": None}
          for name, source, replaces, launched, err, ms, plain_ms, b
-         in entries16 + entries13 + entries20 + entries21]}))
+         in entries16 + entries13 + entries20 + entries21 + routes16
+         + chirp_routes]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

@@ -81,6 +81,11 @@ def _bind(lib):
     lib.srt_chirp_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i,
                                               i, i, i, i, f, p]
     lib.srt_chirp_frames_frontend.restype = i
+    lib.srt_chirp_cluster_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                               i, i, i, i, f, i, p]
+    lib.srt_chirp_cluster_frontend.restype = i
+    lib.srt_chirp_scratch_floats.argtypes = [i, i, i, i]
+    lib.srt_chirp_scratch_floats.restype = ll
     lib.srt_fft_frames_frontend.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                             i, f, p]
     lib.srt_fft_frames_frontend.restype = i

@@ -194,14 +194,15 @@ extern "C" int srt_big_packed_frontend(
       chunk > 65535 || n < 1 || n > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const auto* nv = (const int*)n_valid;
-  const BigSignalFrames fr{(const float*)signals, nv, (const float*)win, Lp,
-                           T, fshift, flen, pre_emph, preemph_first != 0};
+  const srt_cluster::FrameSource fr =
+      signal_frames((const float*)signals, nv, (const float*)win, Lp, T,
+                    fshift, flen, pre_emph, preemph_first);
   float* sc = (float*)scratch;
   for (int g0 = 0; g0 < (int)n; g0 += chunk) {
     const int nfc = (int)std::min<long long>(chunk, n - g0);
-    cudaError_t err = rfft_big::spectra(fr, g0, nfc, nfft, sc,
-                                        (const float4*)op, nmel, nac,
-                                        power_floor, false, st);
+    cudaError_t err = srt_cluster::spectra(fr, g0, nfc, nfft, sc,
+                                           (const float4*)op, nmel, nac,
+                                           power_floor, false, st);
     if (err != cudaSuccess) return (int)err;
     big_features_kernel<<<nfc, 128, 0, st>>>(
         rfft_big::sums_rows(sc, nfft, nfc), nv, (const float*)dct,

@@ -1,36 +1,18 @@
-// K5 (the full-spectrum frontend) on the four-step FFT of N >= 32768
-// points (csrc/rfft_big.cuh), for Hopper (sm_90a), plain C interface: the
+// K5 (the full-spectrum frontend) on the four-step route of N >= 32768
+// points (csrc/rfft_big.cuh: a frame's spectrum on a block or a cluster of
+// csrc/rfft_cluster.cuh up to 262144 points, the device-memory passes past
+// it), for Hopper (sm_90a), plain C interface: the
 // route of csrc/frontend_fft.cu's function where one frame's spectrum no
 // longer fits the FFT tile, chosen on N in the open (ops/gpu_frontend
 // counts it in FULL_BIG_LAUNCHES). Also the route's scratch and operator
 // shapes, which K1, K4 and the fused predict monolith share there. A file
 // of its own so that it builds beside the tile's instantiations, and alone
-// (speaker_recognition_tpu_torch/tools/fft_ablation.py).
+// with csrc/rfft_cluster.cu (speaker_recognition_tpu_torch/tools/
+// fft_ablation.py).
 
 #include <cuda_runtime.h>
 
 #include "rfft_big.cuh"
-
-namespace {
-
-// The frames of K5 on the route of N >= 32768: row f, folded (sample p
-// plus p + N, p + 2N, ... of a frame longer than N, in that order).
-struct BigFrameRows {
-  const float* fr;
-  int flen, n;
-  __device__ bool live(int) const { return true; }
-  __device__ auto frame(int f) const {
-    const float* x = fr + (size_t)f * flen;
-    const int fl = flen, nn = n;
-    return [=](int p) {
-      float s = p < fl ? x[p] : 0.f;
-      for (int t = p + nn; t < fl; t += nn) s += x[t];
-      return s;
-    };
-  }
-};
-
-}  // namespace
 
 // Floats of scratch the route of N >= 32768 takes for chunks of `chunk`
 // frames with nout outputs (csrc/rfft_big.cuh), or -1 when it does not
@@ -49,7 +31,7 @@ extern "C" int srt_big_operator_shape(int nfft, int nout, int* rows,
   if (!rfft_big::takes(nfft) || nout < 1) return -1;
   const int opl = rfft::opl_of(nout);
   *chunks = rfft::out_chunks(nout);
-  *rows = rfft_big::op_rows(rfft_big::ilog2(nfft), opl) * *chunks;
+  *rows = rfft_big::op_rows(nfft / 2 + 1, opl) * *chunks;
   *cols = rfft::nop(opl);
   return 0;
 }
@@ -66,7 +48,12 @@ extern "C" int srt_big_fft_frames(const void* frames, const void* op,
                                   float power_floor, int chunk,
                                   void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  const BigFrameRows fr{(const float*)frames, flen, nfft};
+  // row f, folded (sample p plus p + N, p + 2N, ... of a frame longer
+  // than N, in that order)
+  srt_cluster::FrameSource fr{};
+  fr.kind = srt_cluster::FrameSource::ROWS;
+  fr.x = (const float*)frames;
+  fr.flen = flen;
   return (int)rfft_big::frame_level(
       fr, n, chunk, nfft, (float*)scratch, (const float4*)op,
       (const float*)dct, (float*)ceps, (float*)r, nmel, nac, nceps,

@@ -17,7 +17,7 @@
 // nb = N/2 + 1 bins,
 //     X_k = c_k sum_n (x_n c_n) conj(c_{k-n}),   k < nb, n < L,
 // a linear convolution of L and L + nb - 1 terms, so any M >= L + nb - 1
-// holds it (M = chirp_m: at least 1024, at most MAX_M). Per frame, one
+// holds it (M = chirp_m: at least 1024, at most 8192). Per frame, one
 // warp:
 //   1. a_n = x_n c_n, zero past L, in the gather of the M-point FFT;
 //   2. the complex FFT of M points (M / 32 values a lane: rounds of 32 in
@@ -64,21 +64,22 @@
 // FFT's rounds refill the slots they gathered (a round's slots are the same
 // set before and after), so one buffer serves; from 4096 on a lane's
 // rounds would overwrite slots other rounds still gather, and the inverse
-// writes a second buffer. Past MAX_M the dense template serves (its own
-// counter).
+// writes a second buffer. Past M = 8192 the cluster FFT of csrc/
+// frontend_chirp_cluster.cu serves, past its reach the dense template (its
+// own counter).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <type_traits>
 
+#include "rfft_big.cuh"
+#include "rfft_cluster.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
 namespace chirp {
 
-constexpr int MIN_M = 1024;
-constexpr int MAX_M = 8192;
 constexpr int MAX_SMEM = 232448;
 
 __host__ __device__ constexpr int warps(int m) {
@@ -101,17 +102,12 @@ __host__ __device__ constexpr int twiddles(int m) {
 // memory holds it
 __host__ __device__ constexpr int ck(int opl) { return opl > 32 ? 8 : 16; }
 
-// M for an N-point DFT of frames of flen samples, or 0 where this route
-// does not take it (N a power of two, N < 2, or M past MAX_M; the dense
-// template of csrc/frontend_frames.cu serves past it). ops/gpu_frontend.
-// chirp_size is the same in Python.
+// M for an N-point DFT of frames of flen samples where this kernel takes it
+// (srt_cluster::chirp_m up to 8192; csrc/frontend_chirp_cluster.cu past
+// it), else 0.
 inline int chirp_m(int n, int flen) {
-  if (n < 2 || flen < 1 || (n & (n - 1)) == 0) return 0;
-  const int l = flen < n ? flen : n;
-  const long long need = (long long)l + n / 2;  // L + nb - 1
-  int m = MIN_M;
-  while (m < need && m <= MAX_M) m *= 2;
-  return m <= MAX_M ? m : 0;
+  const int m = srt_cluster::chirp_m(n, flen);
+  return m <= srt_cluster::CHIRP_TILE_M ? m : 0;
 }
 
 // floats of a row of the power rows: nb, odd (a column read by a warp's
@@ -422,15 +418,21 @@ cudaError_t with_m(int m, F&& f) {
 }  // namespace chirp
 }  // namespace
 
-// The packed operator the chirp-z kernel takes: the layout of
+// The packed operator the chirp-z route takes: the layout of
 // srt_fft_operator_shape (csrc/frontend_fft.cu), rows 0..nfft/2 padded to
-// its operator chunk; -1 where the route does not take (nfft, flen).
+// the operator chunk of this kernel (M <= 8192) or of the four-step
+// route's fused pass, which projects past it (csrc/
+// frontend_chirp_cluster.cu); -1 where the route does not take (nfft,
+// flen).
 extern "C" int srt_chirp_operator_shape(int nfft, int flen, int nout,
                                         int* rows, int* cols, int* chunks) {
-  if (chirp::chirp_m(nfft, flen) == 0 || nout < 1) return -1;
-  const int opl = rfft::opl_of(nout);
+  const int m = srt_cluster::chirp_m(nfft, flen);
+  if (m == 0 || nout < 1) return -1;
+  const int opl = rfft::opl_of(nout), nb = nfft / 2 + 1;
   *chunks = rfft::out_chunks(nout);
-  *rows = chirp::op_rows(nfft / 2 + 1, opl) * *chunks;
+  *rows = (m <= srt_cluster::CHIRP_TILE_M ? chirp::op_rows(nb, opl)
+                                          : rfft_big::op_rows(nb, opl)) *
+          *chunks;
   *cols = rfft::nop(opl);
   return 0;
 }

@@ -101,21 +101,6 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float* win,
   return cudaGetLastError();
 }
 
-// The frames of K4 on the route of N >= 32768: raw row f, windowed and
-// pre-emphasized per sample as on the tile.
-struct BigWindowedRows {
-  const float* fr;
-  const float* win;
-  int flen;
-  float a;
-  bool preemph_first;
-  __device__ bool live(int) const { return true; }
-  __device__ auto frame(int f) const {
-    const WindowedRows w{fr + (size_t)f * flen, win, flen, a, preemph_first};
-    return [=](int p) { return w(0, p); };
-  }
-};
-
 }  // namespace
 
 // frames [n, flen] raw; win [flen] the window; op the packed [M | R]
@@ -151,8 +136,14 @@ extern "C" int srt_big_packed_frames(
     int nac, int nceps, float pre_emph, int preemph_first, float power_floor,
     int chunk, void* stream) {
   if (n < 1 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
-  const BigWindowedRows fr{(const float*)frames, (const float*)win, flen,
-                           pre_emph, preemph_first != 0};
+  // raw row f, windowed and pre-emphasized per sample as on the tile
+  srt_cluster::FrameSource fr{};
+  fr.kind = srt_cluster::FrameSource::WINDOWED;
+  fr.x = (const float*)frames;
+  fr.win = (const float*)win;
+  fr.flen = flen;
+  fr.a = pre_emph;
+  fr.preemph_first = preemph_first;
   return (int)rfft_big::frame_level(
       fr, n, chunk, nfft, (float*)scratch, (const float4*)op,
       (const float*)dct, (float*)ceps, (float*)r, nmel, nac, nceps,

@@ -3,9 +3,11 @@
 // N in the open (ops/gpu_predict counts it in BIG_LAUNCHES), not a
 // fallback. It computes the function of csrc/predict_fused.cuh in several
 // launches on one stream:
-//   1. per chunk of frames of the batch, the four-step FFT's passes of
-//      csrc/rfft_big.cuh (columns, rows, the fused power + projection onto
-//      mel and autocorrelation) and then the signal frontend's features of the
+//   1. per chunk of frames of the batch, the spectral stage of
+//      csrc/rfft_big.cuh (up to N = 262144 a frame's power on a block or a
+//      cluster, csrc/rfft_cluster.cuh; past it the column and row passes;
+//      then the fused power + projection onto mel and autocorrelation) and
+//      then the signal frontend's features of the
 //      chunk (big_features_kernel, as K1's route there computes them: log,
 //      DCT, Levinson) into the feature scratch [B, T, d], pre-CMVN;
 //   2. the monolith's kernel on that scratch with its frontend phase
@@ -41,14 +43,15 @@ extern "C" int srt_fused_predict_big(
   cudaStream_t st = (cudaStream_t)stream;
   const auto* nv = (const int*)n_valid;
   float* feat = (float*)scratch;
-  const BigSignalFrames fr{(const float*)signals, nv, (const float*)win, Lp,
-                           T, fshift, flen, pre_emph, preemph_first != 0};
+  const srt_cluster::FrameSource fr =
+      signal_frames((const float*)signals, nv, (const float*)win, Lp, T,
+                    fshift, flen, pre_emph, preemph_first);
   float* sc = (float*)big;
   for (int g0 = 0; g0 < (int)n; g0 += chunk) {
     const int nfc = (int)std::min<long long>(chunk, n - g0);
-    cudaError_t err = rfft_big::spectra(fr, g0, nfc, nfft, sc,
-                                        (const float4*)op, nmel, nac,
-                                        power_floor, false, st);
+    cudaError_t err = srt_cluster::spectra(fr, g0, nfc, nfft, sc,
+                                           (const float4*)op, nmel, nac,
+                                           power_floor, false, st);
     if (err != cudaSuccess) return (int)err;
     big_features_kernel<<<nfc, 128, 0, st>>>(
         rfft_big::sums_rows(sc, nfft, nfc), nv, (const float*)dct, feat, T,

@@ -1,11 +1,17 @@
-// The spectral stage of the frontends (K1, K4, K5) at an FFT of N >= 32768
-// points, where one frame's H = N/2 complex values (128 KB at N = 32768)
-// no longer fit the FFT tile of csrc/rfft_tile.cuh beside its power rows:
-// a route chosen on N in the open, with its own counters, not a fallback.
-//
-// A four-step FFT over a scratch in device memory, a chunk of frames at a
-// time. With z[j] = x[2j] + i x[2j+1] (j < H) and H = H1 H2 (H1 >= H2,
-// both powers of two of at most MAX_L points):
+// The spectral stage of the frontends (K1, K4, K5 and the monolith K6) at
+// an FFT of N >= 32768 points, where one frame's H = N/2 complex values
+// (128 KB at N = 32768) no longer fit the FFT tile of csrc/rfft_tile.cuh
+// beside its power rows: a route chosen on N in the open, with its own
+// counters, not a fallback. With z[j] = x[2j] + i x[2j+1] (j < H):
+//   * up to N = 262144 (srt_cluster::takes) a frame's spectrum stays on
+//     chip: the cluster FFT of csrc/rfft_cluster.cuh (one block of 16384
+//     values at N = 32768, a thread-block cluster of 2, 4 or 8 blocks past
+//     it, the transpose an exchange in distributed shared memory) writes
+//     the frame's power row |X[k]|^2 (k <= H, the real-input post-step on
+//     chip) once, and the fused pass (3. below, ROWS) projects it;
+//   * past it, up to MAX_N, a four-step FFT over a scratch in device
+//     memory, a chunk of frames at a time, with H = H1 H2 (H1 >= H2, both
+//     powers of two of at most MAX_L points):
 //   1. columns: per frame and n2 < H2, the H1-point FFT over n1 of
 //      z[H2 n1 + n2] in shared memory (the samples from the caller's
 //      frame loader: window, pre-emphasis and the fold of samples past N
@@ -16,39 +22,41 @@
 //   3. power and projection, one fused pass (power_project_kernel): a
 //      block of PFT frames walks the bins in order, stages the power
 //      |X[k]|^2 of a few columns' bins at a time from Z[k] and Z[H-k] (the
-//      real-input post-step of the tile, floored per bin when asked) in
-//      shared memory, and projects it onto the packed [mel | acorr | 0]
-//      operator with the FFT tile's walk (rfft::project_bins: the operator
-//      staged in chunks, all-zero 4-column groups skipped, each output
-//      summed over the bins in order in registers), then log(max(mel,
-//      floor)), into sums rows [nout] of log-mel | raw autocorrelation: the
-//      layout the tile's epilogues read (tile_features, frame_outputs) with
-//      a row stride of nout.
+//      real-input post-step of the tile, floored per bin when asked; or
+//      the cluster's power rows) in shared memory, and projects it onto the
+//      packed [mel | acorr | 0] operator with the FFT tile's walk
+//      (rfft::project_bins: the operator staged in chunks, all-zero
+//      4-column groups skipped, each output summed over the bins in order
+//      in registers), then log(max(mel, floor)), into sums rows [nout] of
+//      log-mel | raw autocorrelation: the layout the tile's epilogues read
+//      (tile_features, frame_outputs) with a row stride of nout. The
+//      chirp-z route past M = 8192 (csrc/frontend_chirp_cluster.cu) takes
+//      the same pass on its power rows.
 // Twiddles come from sincospif of exact angles (the indices stay below
 // 2^24), as on the tile; no fast intrinsics. Every sum runs in a fixed
 // order with no atomics, so two calls give the same bits.
 //
 // What bounds it: the least work is FLOPs (2.5 N log2 N for the FFT and
-// two per nonzero of the operators) or the frames' bytes. Each sub-FFT
-// reads and writes device memory once (the column pass with strided
-// loads); the fused pass reads Z once in whole sectors and the operator
-// once per block of PFT frames, and keeps the power out of device memory
-// (power rows in device memory and a dense projection, a thread per output
-// over every bin, were most of the route's time). The FFT passes then set
-// its pace; a cluster holding a frame in distributed shared memory is the
-// next step.
+// two per nonzero of the operators) or the frames' bytes. On the
+// device-memory passes each sub-FFT reads and writes device memory once
+// (the column pass with strided stores: ~0.9 MB a frame at N = 32768); the
+// cluster route moves a frame's samples and its power row (64 KB at N =
+// 32768) and nothing else. The fused pass reads its power once in whole
+// sectors and the operator once per block of PFT frames; its walk is
+// latency-bound a block, so min_blocks keeps three blocks an SM.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "rfft_cluster.cuh"
 #include "rfft_tile.cuh"
 
 namespace {
 namespace rfft_big {
 
-constexpr int MIN_N = 32768;
+constexpr int MIN_N = 32768, MIN_LGN = 15;
 constexpr int MAX_N = 1 << 24;  // twiddle indices below 2^24 stay exact
 constexpr int MAX_L = 8192;     // complex points of a sub-FFT (64 KB)
 constexpr int FFT_THREADS = 256;
@@ -74,8 +82,10 @@ inline long long scratch_floats(int n, int nout, int nfc) {
 // The fused power + projection pass (power_project_kernel): PFT frames a
 // block of PWARPS warps; the operator staged in chunks of ck(OPL) bins (as
 // many as 32 KB hold, at most 64), the power in stages of stage_bins(lgn)
-// bins: four columns of the [H1][H2] rows, at most PK_MAX.
+// bins (four columns of the [H1][H2] rows, at most PK_MAX) after the
+// device-memory passes, of ROW_BINS bins from the cluster routes' rows.
 constexpr int PFT = 8, PWARPS = 8, PNTH = 32 * PWARPS, PK_MAX = 2048;
+constexpr int ROW_BINS = 512;
 
 __host__ __device__ constexpr int ck(int opl) {
   return opl <= 16 ? 64 : opl <= 32 ? 32 : 16;
@@ -86,16 +96,25 @@ __host__ __device__ constexpr int stage_bins(int lgn) {
              ? 4 << (lgn - 1 - (lgn - 1) / 2) : PK_MAX;
 }
 
-// rows of the packed operator an output chunk: bins 0..H, zero rows to a
-// multiple of ck(opl)
-__host__ __device__ constexpr int op_rows(int lgn, int opl) {
-  return ((1 << (lgn - 1)) + 1 + ck(opl) - 1) / ck(opl) * ck(opl);
+// rows of the packed operator an output chunk: bins 0..nbins - 1 (H + 1
+// on the four-step route, N/2 + 1 on the chirp's), zero rows to a multiple
+// of ck(opl)
+__host__ __device__ constexpr int op_rows(int nbins, int opl) {
+  return (nbins + ck(opl) - 1) / ck(opl) * ck(opl);
+}
+
+// blocks of the fused pass an SM must hold at once: three at up to 72
+// outputs (85 registers a thread), so that 8 x 5 s at 48 kHz (311 blocks)
+// runs in one wave on 132 SMs; the wider operators' sums need more
+// registers
+__host__ __device__ constexpr int min_blocks(int opl) {
+  return opl <= 9 ? 3 : 1;
 }
 
 // floats of the fused pass's shared memory: the operator chunk, the power
-// stage
-__host__ __device__ constexpr int project_floats(int lgn, int opl) {
-  return ck(opl) * rfft::nop(opl) + PFT * (stage_bins(lgn) + 1);
+// stage of pk bins
+__host__ __device__ constexpr int project_floats(int pk, int opl) {
+  return ck(opl) * rfft::nop(opl) + PFT * (pk + 1);
 }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -134,8 +153,9 @@ __device__ __forceinline__ int brev(int x, int lg) {
 
 // 1. Block (n2, frame fl of the chunk): the H1-point FFT over n1 of
 // z[H2 n1 + n2] of frame f0 + fl, times W_H^(n2 k1), into z rows [H1][H2].
-// Frames::frame(f) gives the frame's sample loader (p -> sample p < N,
-// folded), Frames::live(f) whether the frame is computed at all.
+// Frames (srt_cluster::FrameSource): frame(f) gives the frame's sample
+// loader (p -> sample p < N, folded), live(f) whether the frame is
+// computed at all.
 template <class Frames>
 __global__ void __launch_bounds__(FFT_THREADS) columns_kernel(
     const Frames fr, int f0, float2* __restrict__ z, int lgn) {
@@ -174,20 +194,26 @@ __global__ void __launch_bounds__(FFT_THREADS) rows_kernel(
 }
 
 // 3. Block i: frames PFT i .. PFT i + PFT - 1 of the chunk, the power of
-// bins 0..H and its projection onto the packed operator op ([mel | acorr |
-// 0] rows, op_rows(n, opl) of them an output chunk) by rfft::project_bins,
-// then log(max(mel, floor)) | autocorrelation into sums rows [nfc][nout].
-// project_bins walks the bins in order in chunks of CK; at every PK-th bin
-// its fill stages the power of the next PK bins of the block's frames in
-// ys [PFT][PK + 1], from Z[k] and Z[H - k] with the post-step arithmetic of
-// the tile. Z[k] lives at [k mod H1][k / H1], so bins k0 .. k0 + PK - 1
-// are PK / H1 columns of the [H1][H2] rows: consecutive threads read
-// consecutive columns of a row (whole 32-byte sectors when PK / H1 >= 4).
+// bins 0..nbins - 1 and its projection onto the packed operator op ([mel |
+// acorr | 0] rows, op_rows(nbins, opl) of them an output chunk) by
+// rfft::project_bins, then log(max(mel, floor)) | autocorrelation into
+// sums rows [nfc][nout]. project_bins walks the bins in order in chunks of
+// CK; at every PK-th bin its fill stages the power of the next PK bins of
+// the block's frames in ys [PFT][PK + 1]:
+//   * ROWS (the cluster routes, csrc/rfft_cluster.cuh): from the power rows
+//     pw [nfc][pstride] the spectrum kernel wrote, consecutive threads on
+//     consecutive bins (PK = ROW_BINS);
+//   * else (the device-memory passes, nbins = H + 1): from Z[k] and Z[H - k]
+//     with the post-step arithmetic of the tile. Z[k] lives at [k mod
+//     H1][k / H1], so bins k0 .. k0 + PK - 1 are PK / H1 columns of the
+//     [H1][H2] rows: consecutive threads read consecutive columns of a row
+//     (whole 32-byte sectors when PK / H1 >= 4).
 // Frames past nfc, and frames the loader does not compute, take zero power
 // and leave no sums.
-template <class Frames, int OPL>
-__global__ void __launch_bounds__(PNTH) power_project_kernel(
+template <class Frames, int OPL, bool ROWS>
+__global__ void __launch_bounds__(PNTH, min_blocks(OPL)) power_project_kernel(
     const Frames fr, int f0, int nfc, const float2* __restrict__ z,
+    const float* __restrict__ pw, int pstride, int nbins,
     const float4* __restrict__ op, float* __restrict__ sums, int lgn,
     int nmel, int nac, float power_floor, int per_bin_floor) {
   constexpr int CK = ck(OPL), NOP = rfft::nop(OPL), NG = NOP / 4;
@@ -197,7 +223,8 @@ __global__ void __launch_bounds__(PNTH) power_project_kernel(
   float* ys = opc + CK * NOP;                    // [PFT][pk + 1]
   const int lg2_ = lg2(1 << lgn), lg1 = lgn - 1 - lg2_;
   const int H = 1 << (lgn - 1), H1 = 1 << lg1;
-  const int pk = stage_bins(lgn), lpk = ilog2(pk), ys_stride = pk + 1;
+  const int pk = ROWS ? ROW_BINS : stage_bins(lgn);
+  const int ys_stride = pk + 1;
   const int cols = pk > H1 ? pk / H1 : 1, lcols = ilog2(cols);
   const int fb = blockIdx.x * PFT, nout = nmel + nac;
   const int tid = threadIdx.x, warp = tid / 32;
@@ -210,6 +237,16 @@ __global__ void __launch_bounds__(PNTH) power_project_kernel(
   const auto fill = [&](int k0) {
     const int y0 = k0 & (pk - 1);
     if (y0 != 0) return y0;
+    if constexpr (ROWS) {  // consecutive threads on consecutive bins
+#pragma unroll 4
+      for (int t = tid; t < PFT * ROW_BINS; t += PNTH) {
+        const int f = t / ROW_BINS, j = t % ROW_BINS, k = k0 + j;
+        ys[f * ys_stride + j] = k < nbins && (live >> f & 1u)
+                                    ? pw[(size_t)(fb + f) * pstride + k]
+                                    : 0.f;
+      }
+      return 0;
+    }
     for (int t = tid; t < pk; t += PNTH) {
       const int j = ((t & (cols - 1)) << lg1) + (t >> lcols);
       const int k = k0 + j;
@@ -251,7 +288,7 @@ __global__ void __launch_bounds__(PNTH) power_project_kernel(
   };
   float acc[GPW][4];
   rfft::project_bins<PFT, PWARPS, OPL, CK, true>(
-      op, op_rows(lgn, OPL), H + 1, rfft::out_chunks(nout), opc, ys,
+      op, op_rows(nbins, OPL), nbins, rfft::out_chunks(nout), opc, ys,
       ys_stride, fill,
       [&](int c, int fl, int gh) {
         if (!(live >> fl & 1u)) return;
@@ -272,52 +309,31 @@ __global__ void __launch_bounds__(PNTH) power_project_kernel(
       acc);
 }
 
-// Steps 1-3 for frames f0 .. f0 + nfc - 1 on `st`; the sums rows [nfc][nout]
-// land at scratch + nfc * N (sums_rows). scratch holds scratch_floats(n,
-// nout, nfc) floats; op is the packed operator of operator_shape.
-template <class Frames>
-cudaError_t spectra(const Frames& fr, int f0, int nfc, int n, float* scratch,
-                    const float4* op, int nmel, int nac, float power_floor,
-                    bool per_bin_floor, cudaStream_t st) {
-  const int lgn = ilog2(n), lg2_ = lg2(n), lg1 = lgn - 1 - lg2_;
-  const int opl = rfft::opl_of(nmel + nac);
-  if ((1 << lg1) > MAX_L || nfc > 65535) return cudaErrorInvalidValue;
-  float2* z = reinterpret_cast<float2*>(scratch);
-  float* sums = scratch + (size_t)nfc * n;
-  const auto fft_threads = [](int lg) {
-    return lg - 1 >= 8 ? FFT_THREADS : 1 << (lg - 1);
-  };
-  const size_t smem1 = sizeof(float2) << lg1, smem2 = sizeof(float2) << lg2_;
-  cudaError_t err = cudaFuncSetAttribute(
-      columns_kernel<Frames>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(rows_kernel<Frames>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return err;
-  columns_kernel<Frames><<<dim3(1 << lg2_, nfc), fft_threads(lg1), smem1,
-                           st>>>(fr, f0, z, lgn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rows_kernel<Frames><<<dim3(1 << lg1, nfc), fft_threads(lg2_), smem2, st>>>(
-      fr, f0, z, lgn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return rfft::with_opl(opl, [&](auto oc) {
+// The fused pass for frames f0 .. f0 + nfc - 1 on `st`: ROWS, from the
+// power rows pw [nfc][pstride] of bins 0..nbins - 1 (z unused); else from
+// the device-memory passes' z [nfc][H] (nbins = H + 1, pw unused); sums
+// rows [nfc][nout].
+template <bool ROWS, class Frames>
+cudaError_t project(const Frames& fr, int f0, int nfc, const float2* z,
+                    const float* pw, int pstride, int nbins, const float4* op,
+                    float* sums, int lgn, int nmel, int nac,
+                    float power_floor, bool per_bin_floor, cudaStream_t st) {
+  return rfft::with_opl(rfft::opl_of(nmel + nac), [&](auto oc) {
     constexpr int OPL = decltype(oc)::value;
-    const int smem = 4 * project_floats(lgn, OPL);
+    const auto kernel = power_project_kernel<Frames, OPL, ROWS>;
+    const int smem =
+        4 * project_floats(ROWS ? ROW_BINS : stage_bins(lgn), OPL);
     cudaError_t e = cudaFuncSetAttribute(
-        power_project_kernel<Frames, OPL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
-    power_project_kernel<Frames, OPL>
-        <<<(nfc + PFT - 1) / PFT, PNTH, smem, st>>>(
-            fr, f0, nfc, z, op, sums, lgn, nmel, nac, power_floor,
-            per_bin_floor ? 1 : 0);
+    kernel<<<(nfc + PFT - 1) / PFT, PNTH, smem, st>>>(
+        fr, f0, nfc, z, pw, pstride, nbins, op, sums, lgn, nmel, nac,
+        power_floor, per_bin_floor ? 1 : 0);
     return cudaGetLastError();
   });
 }
 
-// where spectra leaves the sums rows of a chunk of nfc frames
+// where srt_cluster::spectra leaves the sums rows of a chunk of nfc frames
 inline float* sums_rows(float* scratch, int n, int nfc) {
   return scratch + (size_t)nfc * n;
 }
@@ -335,19 +351,21 @@ __global__ void __launch_bounds__(128) outputs_kernel(
 }
 
 // The frame-level kernels' route (K5, K4): n frames in chunks of `chunk`,
-// spectra then outputs_kernel, into ceps [n, nceps] and r [n, nac].
-template <class Frames>
-cudaError_t frame_level(const Frames& fr, int n, int chunk, int nfft,
-                        float* scratch, const float4* op, const float* dct,
-                        float* ceps, float* r, int nmel, int nac, int nceps,
-                        float power_floor, bool per_bin_floor,
-                        cudaStream_t st) {
+// srt_cluster::spectra then outputs_kernel, into ceps [n, nceps] and r [n,
+// nac].
+inline cudaError_t frame_level(const srt_cluster::FrameSource& fr, int n,
+                               int chunk, int nfft, float* scratch,
+                               const float4* op, const float* dct,
+                               float* ceps, float* r, int nmel, int nac,
+                               int nceps, float power_floor,
+                               bool per_bin_floor, cudaStream_t st) {
   if (!takes(nfft) || chunk < 1 || chunk > 65535)
     return cudaErrorInvalidValue;
   for (int f0 = 0; f0 < n; f0 += chunk) {
     const int nfc = min(chunk, n - f0);
-    cudaError_t err = spectra(fr, f0, nfc, nfft, scratch, op, nmel, nac,
-                              power_floor, per_bin_floor, st);
+    cudaError_t err = srt_cluster::spectra(fr, f0, nfc, nfft, scratch, op,
+                                           nmel, nac, power_floor,
+                                           per_bin_floor, st);
     if (err != cudaSuccess) return err;
     outputs_kernel<<<(nfc + 7) / 8, 128, 0, st>>>(
         sums_rows(scratch, nfft, nfc), dct, ceps, r, f0, nfc, nmel, nac,

@@ -36,11 +36,12 @@ without LPC), which the LPC cepstra need:
                         n_fft that is a power of two takes the FFT kernel
                         (csrc/frontend_fft.cu; plain torch:
                         `mfcc_from_frames_fft_reference`), any other the
-                        chirp-z kernel of csrc/frontend_chirp.cu where its
-                        convolution's FFT fits (`chirp_size`; plain torch:
-                        `mfcc_from_frames_chirp_reference`), past that the
-                        dense template of csrc/frontend_frames.cu
-                        (`mfcc_from_frames_dense`).
+                        chirp-z route where its convolution's FFT fits
+                        (`chirp_size`: csrc/frontend_chirp.cu up to M =
+                        8192, csrc/frontend_chirp_cluster.cu to 131072;
+                        plain torch: `mfcc_from_frames_chirp_reference`),
+                        past that the dense template of
+                        csrc/frontend_frames.cu (`mfcc_from_frames_dense`).
 
 The bf16 operand mode of K1 and K4 (`mm_bf16`, the JAX kernels' argument,
 pallas_frontend.py:397, :441) rounds the frames and D to bf16 (nearest
@@ -60,15 +61,20 @@ FULL_BF16_CALLS, a route chosen in the open on which K5 does not launch.
 Three routes of K5 at an n_fft that is not a power of two, and two of
 the FFT kernels, are chosen on the shape in the open, each with its own
 counter, and compute the same function:
-  * an n_fft that is not a power of two runs the chirp-z kernel
+  * an n_fft that is not a power of two runs the chirp-z route
     (FULL_CHIRP_LAUNCHES) where the least power of two M >= min(frame_len,
-    n_fft) + n_fft/2 (at least 1024) is at most 8192, the dense template
-    (FULL_DENSE_LAUNCHES) past it;
+    n_fft) + n_fft/2 (at least 1024) is at most 131072: the tile kernel of
+    csrc/frontend_chirp.cu up to M = 8192, the cluster FFT of
+    csrc/frontend_chirp_cluster.cu from 16384 (CHIRP_TILE_M); the dense
+    template (FULL_DENSE_LAUNCHES) past it;
   * an FFT of 32768 points or more (fft_size >= 32768 on the full route,
     frames longer than 8192 samples on the packed route) runs the
-    four-step FFT of csrc/rfft_big.cuh over a device scratch in chunks of
-    frames (BIG_LAUNCHES, FRAMES_BIG_LAUNCHES, FULL_BIG_LAUNCHES) in place
-    of the FFT tile;
+    four-step route of csrc/rfft_big.cuh in chunks of frames
+    (BIG_LAUNCHES, FRAMES_BIG_LAUNCHES, FULL_BIG_LAUNCHES) in place of the
+    FFT tile: up to CLUSTER_MAX_N = 262144 points a frame's spectrum on
+    one block or a thread-block cluster (csrc/rfft_cluster.cuh), past it
+    the column and row passes over a device scratch (counted in
+    BIG_PASSES_LAUNCHES as well, by these wrappers and gpu_predict's);
   * past 512 mel + autocorrelation outputs the FFT tile projects onto
     chunks of 512 outputs in turn, the sums in device rows
     (CHUNKED_LAUNCHES, counted beside the kernel's own counter).
@@ -100,6 +106,9 @@ FRAMES_BIG_LAUNCHES = 0  # packed_from_frames
 FULL_BIG_LAUNCHES = 0    # mfcc_from_frames
 # FFT-tile launches of any of the three with more than 512 outputs
 CHUNKED_LAUNCHES = 0
+# launches of the four-step route past the cluster's reach (the
+# device-memory passes), from any wrapper, gpu_predict's included
+BIG_PASSES_LAUNCHES = 0
 # the bf16 operand mode (csrc/frontend_bf16.cu), one count per wrapper,
 # and the full route's bf16 product (plain torch, either device)
 BF16_LAUNCHES = 0        # packed_from_signals
@@ -111,10 +120,16 @@ FULL_BF16_CALLS = 0       # mfcc_from_frames_bf16
 MMA_DEPTH = 16
 MMA_COLUMNS = 64
 
-# FFT sizes from here on take the four-step route of csrc/rfft_big.cuh
+# FFT sizes from here on take the four-step route of csrc/rfft_big.cuh, on
+# a cluster (csrc/rfft_cluster.cuh) up to CLUSTER_MAX_N
 BIG_N = 32768
-# the chirp-z route's convolution lengths (csrc/frontend_chirp.cu)
-CHIRP_MIN_M, CHIRP_MAX_M = 1024, 8192
+CLUSTER_MAX_N = 262144
+# the chirp-z route's convolution lengths: the tile kernel (csrc/
+# frontend_chirp.cu) up to CHIRP_TILE_M, the cluster (csrc/
+# frontend_chirp_cluster.cu) past it
+CHIRP_MIN_M, CHIRP_TILE_M, CHIRP_MAX_M = 1024, 8192, 131072
+# complex values a block of the cluster FFT holds
+CLUSTER_BLOCK = 16384
 # device scratch the four-step route takes at most for a chunk of frames:
 # its fused power + projection pass runs a block per 8 frames of a chunk,
 # and a chunk of 1 GiB (4,092 frames at 65536 points) gives it blocks for
@@ -212,7 +227,7 @@ def chirp_size(n_fft: int, frame_len: int) -> int:
     samples: the least power of two, at least CHIRP_MIN_M, that holds the
     linear convolution of L = min(frame_len, n_fft) and L + n_fft/2 terms;
     0 where the route does not serve (n_fft a power of two, or M past
-    CHIRP_MAX_M). csrc/frontend_chirp.cu chirp::chirp_m in Python."""
+    CHIRP_MAX_M). csrc/rfft_cluster.cuh srt_cluster::chirp_m in Python."""
     if n_fft < 2 or frame_len < 1 or n_fft & (n_fft - 1) == 0:
         return 0
     need = min(frame_len, n_fft) + n_fft // 2
@@ -251,6 +266,22 @@ def chirp_tables(n_fft: int, frame_len: int, device="cpu"):
     tables of the chirp-z route (csrc/frontend_chirp.cu), float64 on the
     host, then f32; built once per (n_fft, frame_len, device)."""
     return _chirp_tables(int(n_fft), int(frame_len), torch.device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _chirp_cluster_bh(n_fft: int, frame_len: int, device: torch.device):
+    bh = chirp_tables(n_fft, frame_len, device)[1]
+    C = bh.shape[0] // CLUSTER_BLOCK
+    return bh.view(CLUSTER_BLOCK, C, 2).transpose(0, 1).contiguous()
+
+
+def chirp_cluster_bh(n_fft: int, frame_len: int, device="cpu"):
+    """Bh of chirp_tables in the cluster route's decimated order ([M /
+    CLUSTER_BLOCK][CLUSTER_BLOCK, 2]: Bh[C m1 + m2] at [m2][m1], the slot
+    of A[C m1 + m2] after the forward FFT, csrc/frontend_chirp_cluster.cu),
+    for M > CHIRP_TILE_M; built once per (n_fft, frame_len, device)."""
+    return _chirp_cluster_bh(int(n_fft), int(frame_len),
+                             torch.device(device))
 
 
 def _chirp_power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -375,6 +406,7 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
     _build.check(err, "packed frontend kernel")
     if N >= BIG_N:
         BIG_LAUNCHES += 1
+        count_big_passes(N)
     else:
         LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
@@ -521,6 +553,13 @@ def _wide_rows(lib, nframes: int, nout: int, dev) -> torch.Tensor | None:
     None up to 512."""
     n = lib.srt_fft_wide_floats(nframes, nout)
     return torch.empty(n, dtype=torch.float32, device=dev) if n else None
+
+
+def count_big_passes(n_fft: int):
+    """Count a launch of the four-step route at n_fft in BIG_PASSES_LAUNCHES
+    where it runs the device-memory passes (past CLUSTER_MAX_N)."""
+    global BIG_PASSES_LAUNCHES
+    BIG_PASSES_LAUNCHES += n_fft > CLUSTER_MAX_N
 
 
 def _big_scratch(lib, n_fft: int, nout: int, nframes: int, dev):
@@ -724,6 +763,7 @@ def packed_from_frames(frames, D, W, dct, floor: float, A,
     _build.check(err, "frame-level packed FFT frontend kernel")
     if N >= BIG_N:
         FRAMES_BIG_LAUNCHES += 1
+        count_big_passes(N)
     else:
         FRAMES_LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
@@ -850,6 +890,7 @@ def _fft_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
     _build.check(err, "full-spectrum FFT frontend kernel")
     if n_fft >= BIG_N:
         FULL_BIG_LAUNCHES += 1
+        count_big_passes(n_fft)
     else:
         FULL_LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
@@ -875,7 +916,8 @@ def _full_shapes(wp, mel, dct, ac, n_fft: int):
 
 
 def _chirp_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
-    """Check and launch csrc/frontend_chirp.cu's kernel."""
+    """Check and launch the chirp-z route's kernel: csrc/frontend_chirp.cu
+    up to M = CHIRP_TILE_M, csrc/frontend_chirp_cluster.cu past it."""
     n, flen, nmel, nceps, nac = _full_shapes(wp, mel, dct, ac, n_fft)
     dev = wp.device
     lib = _build.load()
@@ -885,15 +927,28 @@ def _chirp_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
         return ceps, r
     cz, bh = chirp_tables(n_fft, flen, dev)
     op = _chirp_operator(lib, mel, ac, n_fft, flen)
-    wsums = _wide_rows(lib, n, nmel + nac, dev)
     with torch.cuda.device(dev):
-        err = lib.srt_chirp_frames_frontend(
-            wp.data_ptr(), cz.data_ptr(), bh.data_ptr(), op.data_ptr(),
-            dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), _ptr(wsums), n,
-            flen, n_fft, nmel, nac, nceps, float(floor),
-            torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bh.shape[0] > CHIRP_TILE_M:
+            per = lib.srt_chirp_scratch_floats(n_fft, flen, nmel + nac, 1)
+            chunk = int(max(1, min(65535, n, BIG_SCRATCH_BYTES // (4 * per))))
+            scratch = torch.empty(lib.srt_chirp_scratch_floats(
+                n_fft, flen, nmel + nac, chunk), dtype=torch.float32,
+                device=dev)
+            err = lib.srt_chirp_cluster_frontend(
+                wp.data_ptr(), cz.data_ptr(),
+                chirp_cluster_bh(n_fft, flen, dev).data_ptr(), op.data_ptr(),
+                dct.data_ptr(), ceps.data_ptr(), r.data_ptr(),
+                scratch.data_ptr(), n, flen, n_fft, nmel, nac, nceps,
+                float(floor), chunk, stream)
+        else:
+            wsums = _wide_rows(lib, n, nmel + nac, dev)
+            err = lib.srt_chirp_frames_frontend(
+                wp.data_ptr(), cz.data_ptr(), bh.data_ptr(), op.data_ptr(),
+                dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), _ptr(wsums),
+                n, flen, n_fft, nmel, nac, nceps, float(floor), stream)
     _build.check(err, "full-spectrum chirp-z frontend kernel")
     global FULL_CHIRP_LAUNCHES, CHUNKED_LAUNCHES
     FULL_CHIRP_LAUNCHES += 1
-    CHUNKED_LAUNCHES += nmel + nac > 512
+    CHUNKED_LAUNCHES += nmel + nac > 512 and bh.shape[0] <= CHIRP_TILE_M
     return ceps, r

@@ -61,7 +61,7 @@ from .. import _build
 from ..models.gmm import GmmBank
 from ..models.gmm import batch_bank_avg_loglik
 from .gpu_frontend import (BIG_N, FftRoute, _big_operator, _big_scratch,
-                           _packed_operator,
+                           _packed_operator, count_big_passes,
                            dense_wa_operator, dft_mma_operator,
                            packed_from_signals_fft_reference,
                            packed_from_signals_reference)
@@ -302,6 +302,7 @@ def _launch_fft(signals, n_valid, bank: GmmBank, fshift: int, D, dct_t,
         out = _run_big(lib, signals, n_valid, bank, fshift, dct_t, floor,
                        cmvn, fft)
         BIG_LAUNCHES += 1
+        count_big_passes(N)
         return out, True
     op = _packed_operator(lib, fft.mel, fft.acorr, N)
     T = (signals.shape[1] - flen) // fshift + 1

@@ -7,18 +7,30 @@
 csrc/frontend.cu (K1) once as they are and once for each variant below,
 which switches one stage of the FFT tile (csrc/rfft_tile.cuh) off in a copy
 of the sources, and times K5 at 48 kHz (512 x 5 s) and K1 at 8 kHz (512 x
-5 s) for each, in turns, two rounds. `big` builds csrc/frontend_big.cu (K5
-on the four-step FFT of N >= 32768, csrc/rfft_big.cuh) the same way, prints
-each pass's device time (torch.profiler: columns, rows, the fused power +
-projection, the outputs) and times K5 at 48 kHz with fft_size 32768 and
-65536 (8 x 5 s, phase 16's batch of chip_smoke.py) without the fused pass's
-power fill, its FMAs or its whole walk. `chirp` builds csrc/
-frontend_chirp.cu (K5's chirp-z kernel at an fft_size that is not a power
-of two) and times it at 8 kHz with fft_size 1500 and 216 outputs (512 x 5
-s, phase 15's) without its forward FFT, the pointwise product, its inverse
-FFT, the projection's FMAs or the whole projection. The outputs of a
-variant are wrong by construction; only its time counts. The difference to
-`full` is what the stage costs. Needs one CUDA card and nvcc.
+5 s) for each, in turns, two rounds. `big` builds csrc/frontend_big.cu and
+csrc/rfft_cluster.cu (K5 on the four-step route of N >= 32768: a frame's
+spectrum on a block or a cluster, csrc/rfft_cluster.cuh, then the fused
+projection pass of csrc/rfft_big.cuh) the same way, prints each kernel's
+device time (torch.profiler: the spectrum kernel, the fused power +
+projection, the outputs) and times K5 at 48 kHz with fft_size 32768 (one
+block) and 65536 (a cluster of 2) (8 x 5 s, phase 16's batch of
+chip_smoke.py) as it is, on the device-memory passes the route keeps past
+262144 points (`passes`: columns, rows and the fused pass from the
+[H1][H2] scratch, built from the same sources), and without the
+spectrum kernel's frame loads, its four passes after the first, the
+exchange across the cluster (the reads of every rank's slots and the
+C-point DFTs), the post-step's twiddles, the projection's power staging,
+its FMAs or its whole walk. `chirp` builds csrc/frontend_chirp.cu (K5's
+chirp-z kernel at an fft_size that is not a power of two) and times it at
+8 kHz with fft_size 1500 and 216 outputs (512 x 5 s, phase 15's) without
+its forward FFT, the pointwise product, its inverse FFT, the projection's
+FMAs or the whole projection; then csrc/frontend_chirp_cluster.cu (the
+route past M = 8192) at fft_size 16000 (M = 16384, 64 x 5 s, phase 15's)
+without its forward FFT's passes after the first, the pointwise product,
+its inverse FFT, the projection's FMAs or the whole projection. The
+outputs of a variant are wrong by construction; only its time counts. The
+difference to `full` is what the stage costs. Needs one CUDA card and
+nvcc.
 """
 
 from __future__ import annotations
@@ -83,16 +95,35 @@ SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "packed_tile.cuh",
 
 BIG_VARIANTS = {
     "full": [],
-    "no_power_fill": [("rfft_big.cuh",
-                       "        const bool on = k <= H && (live >> f & 1u);",
-                       "        const bool on = false;"),
-                      ("rfft_big.cuh",
-                       "        if (k <= H && (live >> f & 1u)) {",
-                       "        if (false) {")],
+    "passes": [("rfft_cluster.cuh",
+                "  return n >= MIN_N && n <= MAX_N && (n & (n - 1)) == 0;",
+                "  return false && n >= MIN_N && n <= MAX_N;")],
+    "no_loads": [("rfft_cluster.cu",
+                  "    return make_float2(src.sample(g, j), "
+                  "src.sample(g, j + 1));",
+                  "    return make_float2((float)j, 1.f);")],
+    "no_later_passes": [("rfft_cluster.cu",
+                         "  cfft::later_passes(v, tw, C);\n"
+                         "  cfft::cluster_sync<C>();",
+                         "  cfft::cluster_sync<C>();")],
+    "no_exchange": [("rfft_cluster.cu",
+                     "      x[c] = c == 0 ? rv[0][s] : "
+                     "cfft::cmul(rv[c][s], tw(c * k1));\n"
+                     "    cfft::dft<C>(x);",
+                     "      x[c] = make_float2((float)k1, (float)c);")],
+    "no_post_twiddle": [("rfft_cluster.cu",
+                         "    sincospif((float)k / (float)H, &s, &cs);",
+                         "    s = 0.f;\n    cs = 1.f;")],
+    "no_row_fill": [("rfft_big.cuh",
+                     "        ys[f * ys_stride + j] = k < nbins && "
+                     "(live >> f & 1u)",
+                     "        ys[f * ys_stride + j] = true ? 0.f : k < nbins "
+                     "&& (live >> f & 1u)")],
     "no_projection_fma": [NO_PROJECTION_FMA],
     "no_projection": NO_PROJECTION,
 }
-BIG_SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "frontend_big.cu")
+BIG_SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "rfft_cluster.cuh",
+               "rfft_cluster.cu", "frontend_big.cu")
 # the chirp-z kernel at M = 1024 and 256 columns only (one instantiation)
 CHIRP_ONE = [
     ("frontend_chirp.cu",
@@ -131,7 +162,38 @@ CHIRP_VARIANTS = {
     "no_projection_fma": [NO_PROJECTION_FMA],
     "no_projection": NO_PROJECTION,
 }
-CHIRP_SOURCES = ("rfft_tile.cuh", "frontend_chirp.cu")
+CHIRP_SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "rfft_cluster.cuh",
+                 "frontend_chirp.cu")
+# the cluster route at M = 16384 and up to 72 outputs only: the tile
+# kernel's M = 1024, the cluster of one block, OPL 9
+CLUSTER_ONE = [
+    CHIRP_ONE[0],
+    ("rfft_tile.cuh",
+     "    case 16: return f(std::integral_constant<int, 16>{});\n"
+     "    case 32: return f(std::integral_constant<int, 32>{});\n"
+     "    case 64: return f(std::integral_constant<int, 64>{});\n", ""),
+    ("rfft_cluster.cuh",
+     "    case 2: return f(std::integral_constant<int, 2>{});\n"
+     "    case 4: return f(std::integral_constant<int, 4>{});\n"
+     "    case 8: return f(std::integral_constant<int, 8>{});\n", "")]
+CHIRP_CLUSTER_VARIANTS = {
+    "full": [],
+    "no_forward_passes": [
+        ("frontend_chirp_cluster.cu",
+         "    cfft::later_passes(v, tw, C);\n  } else {", "  } else {")],
+    "no_pointwise": [
+        ("frontend_chirp_cluster.cu",
+         "    const float2 y = cfft::cmul(v[s], __ldg(bhr + m1));",
+         "    const float2 y = v[s];")],
+    "no_inverse_fft": [
+        ("frontend_chirp_cluster.cu",
+         "  // 4. the inverse\n  cfft::block_fft(v, tw, C);",
+         "  // 4. the inverse")],
+    "no_projection_fma": [NO_PROJECTION_FMA],
+    "no_projection": NO_PROJECTION,
+}
+CHIRP_CLUSTER_SOURCES = CHIRP_SOURCES + ("rfft_cluster.cu",
+                                         "frontend_chirp_cluster.cu")
 
 
 def bind(lib) -> None:
@@ -309,7 +371,7 @@ def big_main(card: str, dev, rng, variants=None) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         libs = build(tmp, variants or BIG_VARIANTS, BIG_SOURCES,
-                     ("frontend_big.cu",), bind_big)
+                     ("frontend_big.cu", "rfft_cluster.cu"), bind_big)
         for n in (32768, 65536):
             fe = FullFrontend(48000, FeatureConfig(mfcc=MfccConfig(
                 fft_size=n)), dev)
@@ -346,11 +408,17 @@ def big_main(card: str, dev, rng, variants=None) -> None:
 
 
 def bind_chirp(lib) -> None:
-    """The argument types of csrc/frontend_chirp.cu's C interface."""
+    """The argument types of csrc/frontend_chirp.cu's C interface (and of
+    csrc/frontend_chirp_cluster.cu's where the library has it)."""
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     lib.srt_chirp_frames_frontend.argtypes = [p_] * 8 + [i_] * 6 + [f_, p_]
     lib.srt_chirp_operator_shape.argtypes = [i_, i_, i_, ip, ip, ip]
+    if hasattr(lib, "srt_chirp_cluster_frontend"):
+        lib.srt_chirp_cluster_frontend.argtypes = ([p_] * 8 + [i_] * 6
+                                                   + [f_, i_, p_])
+        lib.srt_chirp_scratch_floats.argtypes = [i_] * 4
+        lib.srt_chirp_scratch_floats.restype = ctypes.c_longlong
 
 
 def chirp_main(card: str, dev, rng, variants=None) -> None:
@@ -388,6 +456,57 @@ def chirp_main(card: str, dev, rng, variants=None) -> None:
                     assert err == 0, err
                 print(f"round {rnd} {name:18s} {time_ms(call):.3f} ms",
                       flush=True)
+    del wp
+    chirp_cluster_main(card, dev, rng)
+
+
+def chirp_cluster_main(card: str, dev, rng, variants=None) -> None:
+    """The chirp-z route past M = 8192 (csrc/frontend_chirp_cluster.cu) at
+    fft_size 16000 (M = 16384) and 50 mel + 16 lags on 64 x 5 s (phase
+    15's), by stage, beside cuFFT's rfft of the same frames."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = 16000
+    fe = FullFrontend(8000, FeatureConfig(mfcc=MfccConfig(fft_size=n)), dev)
+    wp = frames_of(fe, 8000, 64, 5.0, rng, dev)
+    nf, flen = wp.shape
+    nmel, nceps = fe.dct.shape
+    nac = fe.acorr.shape[1]
+    ceps = torch.empty(nf, nceps, device=dev)
+    r = torch.empty(nf, nac, device=dev)
+    cz, _ = gpu_frontend.chirp_tables(n, flen, dev)
+    bh = gpu_frontend.chirp_cluster_bh(n, flen, dev)
+    variants = {k: CLUSTER_ONE + v
+                for k, v in (variants or CHIRP_CLUSTER_VARIANTS).items()}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build(tmp, variants, CHIRP_CLUSTER_SOURCES,
+                     ("frontend_chirp.cu", "frontend_chirp_cluster.cu",
+                      "rfft_cluster.cu"), bind_chirp)
+        sc = torch.empty(libs["full"].srt_chirp_scratch_floats(
+            n, flen, nmel + nac, nf), device=dev)
+        print(f"fft_ablation [{card}]: K5's chirp-z route on the cluster, "
+              f"64 x 5 s @ 8 kHz, fft_size {n} (M "
+              f"{gpu_frontend.chirp_size(n, flen)}), {nmel} mel + {nac} "
+              f"lags, {nf} frames, median of 7 trials of 3 calls; cuFFT's "
+              f"torch.fft.rfft(frames, n={n}) alone "
+              f"{time_ms(lambda: torch.fft.rfft(wp, n=n)):.3f} ms",
+              flush=True)
+        for rnd in range(2):
+            for name, lib in libs.items():
+                op = gpu_frontend._fft_operator(
+                    fe.mel, fe.acorr, n, lib, "srt_chirp_operator_shape",
+                    flen)
+
+                def call():
+                    err = lib.srt_chirp_cluster_frontend(
+                        wp.data_ptr(), cz.data_ptr(), bh.data_ptr(),
+                        op.data_ptr(), fe.dct.data_ptr(), ceps.data_ptr(),
+                        r.data_ptr(), sc.data_ptr(), nf, flen, n, nmel,
+                        nac, nceps, fe.floor, nf, stream)
+                    assert err == 0, err
+                extra = (f"; device ms a call by kernel {device_ms(call)}"
+                         if rnd == 0 and name == "full" else "")
+                print(f"round {rnd} {name:18s} {time_ms(call):.3f} ms"
+                      f"{extra}", flush=True)
 
 
 def main(argv=None):

@@ -3,7 +3,10 @@
 and speakers where the grid phase takes 70,000, 4 speakers x 3 s where the
 UBM-scale k-means seeding of phase 15 takes 80 x 30 s, and phase 18's JFA
 corpus and model cut from 200 background speakers x 3 x 10 s, K = 32, nv =
-32, nu = 16 to 12 x 3 x 2 s, K = 8, nv = 4, nu = 2).
+32, nu = 16 to 12 x 3 x 2 s, K = 8, nv = 4, nu = 2, and one trial of one
+call where the timings of the chirp on the cluster, the dense template
+past it and the four-step route's small cases take 7 x 3 or 5 x 1: on the
+CPU their plain versions are dense products of many GFLOP).
 
     python tests/test_torch_chip_smoke.py    # ~3 min
     python tests/test_torch_chip_smoke.py phase16   # one phase function
@@ -64,6 +67,8 @@ EDITS = [
     ("MULTI_ITERS, MULTI_S, SEQ_SEC = 50, 16, 60.0",
      "MULTI_ITERS, MULTI_S, SEQ_SEC = 10, 16, 6.0"),
     ("SCALING_FRAMES = 262_144", "SCALING_FRAMES = 4096"),
+    ("ROUTE_TRIALS, SMALL_TRIALS = (7, 3), (5, 1)",
+     "ROUTE_TRIALS, SMALL_TRIALS = (1, 1), (1, 1)"),
     ("FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 80, 30.0, 2, 3.0",
      "FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 8, 2.0, 1, 1.0"),
 ]
@@ -104,9 +109,11 @@ def _counting(mod, name: str, plain, counter):
 
 def _tile_counters(n_fft: int, nout: int, tile: str, big: str):
     """The counters an FFT kernel's launch moves on the card: the four-step
-    route's from N = 32768 on, else the tile's (and CHUNKED_LAUNCHES past
-    512 outputs)."""
+    route's from N = 32768 on (and BIG_PASSES_LAUNCHES past the cluster's
+    reach), else the tile's (and CHUNKED_LAUNCHES past 512 outputs)."""
     if n_fft >= gpu_frontend.BIG_N:
+        if n_fft > gpu_frontend.CLUSTER_MAX_N:
+            gpu_frontend.BIG_PASSES_LAUNCHES += 1
         return (big,)
     return (tile, "CHUNKED_LAUNCHES") if nout > 512 else (tile,)
 
@@ -300,9 +307,13 @@ def test_chip_smoke_rehearses_on_the_cpu():
     dense template and its chirp-z kernel), then the routes of phase 16 (K1, K4 and K5 on the
     four-step FFT of N >= 32768 and past 512 outputs, K6's lifted bf16
     route), phase 13's lifted f32 monolith (N = 32768 on the four-step
-    route, 616 outputs), phase 20's multi-device path (K3 on the
-    bank-sharded scoring, K1 on the sequence-sharded features) and phase
-    21's bf16 operand modes (K1, K4, K2, K3), with every
+    route's single block, 65536 on a cluster of 2, 616 outputs), phase
+    20's multi-device path (K3 on the bank-sharded scoring, K1 on the
+    sequence-sharded features), phase 21's bf16 operand modes (K1, K4, K2,
+    K3), then the four-step route's other sizes (K1 at 65536, K5 at 262144
+    on a cluster of 8 and at 524288 on the device-memory passes) and
+    phase 15's chirp-z route on the cluster (M = 16384 and 32768) and the
+    dense template past its reach, with every
     key, each launched on its path but K4, which no serving path takes
     (its launches against its plain version are demanded by phases 11 and
     16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
@@ -332,23 +343,34 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_frontend.py:231", "pallas_frontend.py:111",
         "pallas_frontend.py:50", "pallas_predict.py:91",
         "pallas_predict.py:91", "pallas_predict.py:91",
+        "pallas_predict.py:91",
         "pallas_gmm.py:47", "pallas_frontend.py:231",
         "pallas_frontend.py:231", "pallas_frontend.py:111",
-        "pallas_gmm.py:154", "pallas_gmm.py:47"]
+        "pallas_gmm.py:154", "pallas_gmm.py:47",
+        "pallas_frontend.py:231", "pallas_frontend.py:50",
+        "pallas_frontend.py:50", "pallas_frontend.py:50",
+        "pallas_frontend.py:50", "pallas_frontend.py:50"]
     assert [k["name"] for k in kernels[11:]] == [
         "packed_frontend_n32768", "packed_from_frames_n32768",
         "mfcc_from_frames_n32768", "mfcc_from_frames_n65536",
         "packed_frontend_616_outputs",
         "packed_from_frames_616_outputs", "mfcc_from_frames_616_outputs",
         "fused_bank_predict_bf16_lifted", "fused_bank_predict_n32768",
+        "fused_bank_predict_n65536",
         "fused_bank_predict_616_outputs", "bank_sum_loglik_sharded",
         "packed_frontend_seqshard", "packed_frontend_bf16",
         "packed_from_frames_bf16", "bank_avg_loglik_bf16",
-        "bank_sum_loglik_bf16"]
+        "bank_sum_loglik_bf16", "packed_frontend_n65536",
+        "mfcc_from_frames_n262144", "mfcc_from_frames_n524288",
+        "mfcc_from_frames_chirp_m16384", "mfcc_from_frames_chirp_m32768",
+        "mfcc_from_frames_dense_past_reach"]
     assert kernels[19]["source"].endswith("csrc/predict_fused_big.cu")
-    assert [k["source"].rsplit("/", 1)[1] for k in kernels[23:]] == [
+    assert kernels[20]["source"].endswith("csrc/predict_fused_big.cu")
+    assert [k["source"].rsplit("/", 1)[1] for k in kernels[24:]] == [
         "frontend_bf16.cu", "frontend_bf16.cu", "gmm_score_bf16.cu",
-        "gmm_serial_bf16.cu"]
+        "gmm_serial_bf16.cu", "rfft_cluster.cu", "rfft_cluster.cu",
+        "rfft_big.cuh", "frontend_chirp_cluster.cu",
+        "frontend_chirp_cluster.cu", "frontend_frames.cu"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
         if k["name"].startswith("packed_from_frames"):
@@ -427,8 +449,13 @@ def test_chip_smoke_rehearses_on_the_cpu():
             ("phase 15 dense kernel (direct), 216 outputs", "bitwise True"),
             ("phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs",
              "chirp-z kernel launches 1, dense kernel launches 0"),
-            ("phase 15 8 kHz, fft_size 16000 (past the chirp-z route's "
-             "reach) through extract_batch", "{'FULL_DENSE_LAUNCHES': 1}"),
+            ("phase 15 8 kHz, fft_size 16000 (chirp-z on the cluster, M "
+             "16384)", "{'FULL_CHIRP_LAUNCHES': 1}"),
+            ("phase 15 8 kHz, fft_size 33000 (chirp-z on the cluster, M "
+             "32768)", "{'FULL_CHIRP_LAUNCHES': 1}"),
+            ("phase 15 8 kHz, fft_size 261634 (past the chirp-z route's "
+             "reach), 2 x 5 s through extract_batch",
+             "{'FULL_DENSE_LAUNCHES': 1}"),
             ("phase 15 spectral gate", "two calls bitwise equal True"),
             ("phase 15 a tick's batch (8, 12288): two calls bitwise equal",
              "True")):
@@ -451,6 +478,11 @@ def test_chip_smoke_rehearses_on_the_cpu():
             ("phase 16 K1 384 kHz through extract_batch",
              "{'BIG_LAUNCHES': 1}"),
             ("phase 16 K5 48 kHz, fft_size 65536", "{'FULL_BIG_LAUNCHES': 1}"),
+            ("phase 16 K1 384 kHz, 64 ms frames, fft_size 65536",
+             "{'BIG_LAUNCHES': 1}"),
+            ("phase 16 K5 8 kHz, fft_size 262144", "{'FULL_BIG_LAUNCHES': 1}"),
+            ("phase 16 K5 8 kHz, fft_size 524288",
+             "{'FULL_BIG_LAUNCHES': 1, 'BIG_PASSES_LAUNCHES': 1}"),
             ("phase 16 K1 8 kHz, 200 ms frames, fft_size 4096, 600 mel",
              "{'LAUNCHES': 1, 'CHUNKED_LAUNCHES': 1}"),
             ("phase 16 K1 and K5: 512 outputs bitwise equal inside 616",

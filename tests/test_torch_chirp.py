@@ -7,11 +7,14 @@ at M points), the FFT route's and the port's dense plain versions against
 the JAX package's pallas_frontend.mfcc_from_frames in interpret mode and
 its XLA extractor, on the same numpy inputs: 8 kHz with fft_size 1500 and
 216 outputs, 44.1 kHz with fft_size 1411 (the frame), a folded 48 kHz
-frame (fft_size 1000 < 1536), a prime fft_size (1009), M at the route's
-reach and past it (the dense template's). Also the tables against
-float64, which counter each shape's launch moves on the card (a stand-in
-library records the C calls), and the shapes of the chirp-z and four-step
-operators and shared memory (models of the C functions)."""
+frame (fft_size 1000 < 1536), a prime fft_size (1009), M at the tile
+kernel's reach (8192) and past it on the cluster (16384: fft_size 15874
+and 16000; 32768: fft_size 33000, csrc/frontend_chirp_cluster.cu). Also
+the tables against float64, which counter each shape's launch moves on
+the card (a stand-in library records the C calls; past the cluster's
+reach the dense template; the four-step route's device-memory passes past
+262144 points), and the shapes of the chirp-z and four-step operators and
+shared memory (models of the C functions)."""
 
 import contextlib
 import types
@@ -41,8 +44,12 @@ CASES = {  # id: (fs, fft_size, mel filters, frames; M, route on the card)
     "48k_1000_folded": (48000, 1000, 26, 24, 2048, "chirp"),
     "16k_prime_1009": (16000, 1009, 26, 24, 1024, "chirp"),
     "8k_reach_15872": (8000, 15872, 26, 8, 8192, "chirp"),
-    "8k_past_15874": (8000, 15874, 26, 8, 0, "dense"),
+    "8k_past_15874": (8000, 15874, 26, 8, 16384, "chirp"),
+    "8k_16000": (8000, 16000, 26, 8, 16384, "chirp"),
+    "8k_33000": (8000, 33000, 26, 8, 32768, "chirp"),
 }
+# a shape past the cluster's reach (M would be 262144): the dense template
+PAST_CLUSTER = (8000, 261634, 26, 4, 0, "dense")
 
 
 def _t(x):
@@ -70,14 +77,20 @@ def _frames(n, flen, seed=2):
 def test_chirp_size_and_reach():
     """M is the least power of two, at least 1024, that holds the linear
     convolution of L = min(flen, N) and L + N/2 terms; 0 for a power of
-    two and past 8192 (the dense template's shapes)."""
+    two and past 131072 (the dense template's shapes): the tile kernel up
+    to 8192, the cluster from 16384 (fft_size 15874 and 16000 at 8 kHz,
+    14000 at 48 kHz) to 131072 (8 blocks of 16384 points)."""
     size = gpu_frontend.chirp_size
     assert [size(n, f) for n, f in ((1500, 256), (1411, 1411), (1000, 1536),
                                     (1009, 512), (400, 400), (15872, 256),
                                     (15874, 256), (14000, 1536), (4096, 1536),
-                                    (1, 10))] == [
-        1024, 4096, 2048, 1024, 1024, 8192, 0, 0, 0, 0]
-    for fs, fft, _, _, M, _ in CASES.values():
+                                    (1, 10), (16000, 256), (33000, 256),
+                                    (261630, 256), (261634, 256),
+                                    (260000, 1536))] == [
+        1024, 4096, 2048, 1024, 1024, 8192, 16384, 16384, 0, 0, 16384,
+        32768, 131072, 0, 0]
+    assert gpu_frontend.CHIRP_MAX_M == 8 * gpu_frontend.CLUSTER_BLOCK
+    for fs, fft, _, _, M, _ in [*CASES.values(), PAST_CLUSTER]:
         flen, _ = tcfg.frame_geometry(fs, 32.0, 16.0)
         assert size(fft, flen) == M
 
@@ -175,7 +188,8 @@ def _chirp_route(monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["8k_1500_216", "44k_1411",
-                                  "48k_1000_folded", "16k_prime_1009"])
+                                  "48k_1000_folded", "16k_prime_1009",
+                                  "8k_16000"])
 def test_extract_batch_on_the_chirp_route_matches_jax(case, monkeypatch):
     """extract_batch on the full route (SRTPU_FRONTEND=full) through the
     chirp-z plain version vs the JAX XLA extractor (f32) on the same
@@ -244,9 +258,12 @@ class _Lib:
 
     def srt_chirp_operator_shape(self, n_fft, flen, nout, rows, cols,
                                  chunks):
-        if gpu_frontend.chirp_size(n_fft, flen) == 0 or nout < 1:
+        M = gpu_frontend.chirp_size(n_fft, flen)
+        if M == 0 or nout < 1:
             return -1
-        opl, ck = _opl(nout), 2 * _ck_chirp(_opl(nout))  # either chunk
+        # either chunk of the tile kernel, or the fused pass's past it
+        opl = _opl(nout)
+        ck = 2 * _ck_chirp(opl) if M <= 8192 else _ck_big(opl)
         chunks._obj.value = max(1, -(-nout // 512))
         rows._obj.value = (-(-(n_fft // 2 + 1) // ck) * ck
                            * chunks._obj.value)
@@ -279,6 +296,11 @@ class _Lib:
     def srt_big_scratch_floats(self, n_fft, nout, chunk):
         return chunk * (n_fft + nout)
 
+    def srt_chirp_scratch_floats(self, n_fft, flen, nout, chunk):
+        if gpu_frontend.chirp_size(n_fft, flen) <= 8192:
+            return -1
+        return chunk * ((n_fft // 2 + 4) // 4 * 4 + nout)
+
     def __getattr__(self, name):  # the kernels' entry points
         if not name.startswith("srt_"):
             raise AttributeError(name)
@@ -309,7 +331,7 @@ def stand_in(monkeypatch):
 
 
 COUNTERS = ("FULL_LAUNCHES", "FULL_CHIRP_LAUNCHES", "FULL_DENSE_LAUNCHES",
-            "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES")
+            "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES", "BIG_PASSES_LAUNCHES")
 
 
 @pytest.mark.parametrize("case,entry", [
@@ -318,15 +340,23 @@ COUNTERS = ("FULL_LAUNCHES", "FULL_CHIRP_LAUNCHES", "FULL_DENSE_LAUNCHES",
     ("48k_1000_folded", "srt_chirp_frames_frontend"),
     ("16k_prime_1009", "srt_chirp_frames_frontend"),
     ("8k_reach_15872", "srt_chirp_frames_frontend"),
-    ("8k_past_15874", "srt_frames_frontend"),
-], ids=["1500", "1411", "1000_folded", "1009", "reach", "past_reach"])
+    ("8k_past_15874", "srt_chirp_cluster_frontend"),
+    ("8k_16000", "srt_chirp_cluster_frontend"),
+    ("8k_33000", "srt_chirp_cluster_frontend"),
+    ("past_cluster", "srt_frames_frontend"),
+], ids=["1500", "1411", "1000_folded", "1009", "reach", "past_reach",
+        "16000", "33000", "past_cluster_reach"])
 def test_the_card_route_and_its_counter(stand_in, case, entry):
-    """On a CUDA tensor mfcc_from_frames takes the chirp-z kernel where M
-    <= 8192 (FULL_CHIRP_LAUNCHES, the tables c [L] and Bh [M] and the
-    packed operator passed), the dense template past it
-    (FULL_DENSE_LAUNCHES, C and S passed); exactly one counter moves, and
-    FullFrontend builds C and S on the card only for the dense route."""
-    fs, fft, nfilt, n, M, route = CASES[case]
+    """On a CUDA tensor mfcc_from_frames takes the chirp-z route where M
+    <= 131072 (FULL_CHIRP_LAUNCHES, the tables c [L] and Bh [M] and the
+    packed operator passed): the tile kernel up to M = 8192, the cluster
+    past it (fft_size 15874, 16000 and 33000 at 8 kHz; Bh in the
+    cluster's decimated order, and a scratch in chunks of frames), the
+    dense template past M = 131072 (FULL_DENSE_LAUNCHES, C and S passed);
+    exactly one counter moves, and FullFrontend builds C and S on the card
+    only for the dense route."""
+    fs, fft, nfilt, n, M, route = (PAST_CLUSTER if case == "past_cluster"
+                                   else CASES[case])
     cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=fft,
                                                   n_filters=nfilt))
     fe = text.FullFrontend(fs, cfg, "meta")
@@ -347,12 +377,48 @@ def test_the_card_route_and_its_counter(stand_in, case, entry):
     assert list(stand_in.calls) == [entry]
     args = stand_in.calls[entry]
     if route == "chirp":
-        # frames, cz, bh, op, dct, ceps, r, wsums, n, flen, nfft, ...
+        # frames, cz, bh, op, dct, ceps, r, wsums | scratch, n, flen, nfft,
+        # ...
         assert args[8:14] == (n, cpu.frame_len, fft, nfilt, 16, 13)
-        assert args[7] == 0  # no sums rows up to 512 outputs
         cz, bh = gpu_frontend.chirp_tables(fft, cpu.frame_len)
         assert cz.shape == (min(cpu.frame_len, fft), 2)
         assert bh.shape == (M, 2)
+        if M <= 8192:
+            assert args[7] == 0  # no sums rows up to 512 outputs
+        else:  # the decimated Bh [m2][m1] = Bh[C m1 + m2]; a chunk
+            C = M // gpu_frontend.CLUSTER_BLOCK
+            dec = gpu_frontend.chirp_cluster_bh(fft, cpu.frame_len)
+            assert dec.shape == (C, gpu_frontend.CLUSTER_BLOCK, 2)
+            assert torch.equal(dec[1 % C, 5], bh[C * 5 + 1 % C])
+            assert args[7] != 0 and args[15] == n
+
+
+@pytest.mark.parametrize("n_fft,passes", [(32768, 0), (262144, 0),
+                                          (524288, 1)],
+                         ids=["32768", "262144_cluster_reach",
+                              "524288_past_the_cluster"])
+def test_the_four_step_routes_and_their_counters(stand_in, n_fft, passes):
+    """On a CUDA tensor mfcc_from_frames at a power of two from 32768 takes
+    the four-step route (srt_big_fft_frames, FULL_BIG_LAUNCHES): a frame's
+    spectrum on a block or a cluster up to CLUSTER_MAX_N = 262144 points,
+    past it the device-memory passes, which BIG_PASSES_LAUNCHES counts as
+    well; no other counter moves."""
+    nb = n_fft // 2 + 1
+    rng = np.random.RandomState(n_fft % 97)
+    mel, acorr = (_t(rng.rand(nb + 3, k)) for k in (26, 16))
+    dct = _t(rng.randn(26, 13))
+    wp = _cuda(_t(_frames(4, 1536)))
+    assert gpu_frontend.CLUSTER_MAX_N == 262144
+    before = {k: getattr(gpu_frontend, k) for k in COUNTERS}
+    ceps, r = gpu_frontend.mfcc_from_frames(
+        wp, None, None, _cuda(mel), _cuda(dct), FLOOR, _cuda(acorr), n_fft)
+    moved = {k: getattr(gpu_frontend, k) - v for k, v in before.items()}
+    assert ceps.shape == (4, 13) and r.shape == (4, 16)
+    assert moved == {k: {"FULL_BIG_LAUNCHES": 1,
+                         "BIG_PASSES_LAUNCHES": passes}.get(k, 0)
+                     for k in COUNTERS}
+    assert list(stand_in.calls) == ["srt_big_fft_frames"]
+    assert stand_in.calls["srt_big_fft_frames"][8] == n_fft
 
 
 @pytest.mark.parametrize("n_fft,nmel,nac,shape", [
@@ -405,7 +471,11 @@ def test_shared_memory_of_both_routes_fits():
     of 751 (M = 1024) and 501 (48 kHz, fft_size 1000: M = 2048); the
     four-step
     route's fused pass takes at most 98 KB (the power of 2048 bins of 8
-    frames beside a chunk of 16 x 512 operator rows)."""
+    frames beside a chunk of 16 x 512 operator rows), 49 KB on the
+    cluster routes' power rows (stages of 512 bins); a block of the cluster
+    FFT (csrc/rfft_cluster.cuh: 16384 complex values with a float2 of
+    padding after every 16, and the two-level twiddle table of W_M) takes
+    at most 145,408 bytes, at M = 131072 (8 blocks), one block an SM."""
     worst = max(_chirp_smem(M, opl, M) for M in (1024, 2048, 4096, 8192)
                 for opl in (9, 16, 32, 64))
     assert worst == _chirp_smem(2048, 64, 2048) == 230336
@@ -417,3 +487,12 @@ def test_shared_memory_of_both_routes_fits():
                                                              // 2), 2048) + 1))
               for lgn in range(15, 25) for opl in (9, 16, 32, 64))
     assert big == 4 * (16 * 512 + 8 * 2049)
+    rows = max(4 * (_ck_big(opl) * 8 * opl + 8 * (512 + 1))
+               for opl in (9, 16, 32, 64))
+    assert rows == 4 * (16 * 512 + 8 * 513) == 49184
+
+    def cluster(lgm):  # srt_cluster::smem_bytes
+        lgb = (lgm + 1) // 2
+        return 8 * (16384 + 16384 // 16 + (1 << lgb) + (1 << (lgm - lgb)))
+    sizes = [cluster(lgm) for lgm in range(14, 18)]  # M = 16384 .. 131072
+    assert max(sizes) == cluster(17) == 145408 <= 232448 < 2 * cluster(14)

@@ -254,23 +254,24 @@ def test_extract_batch_on_the_fft_route_matches_jax(case, monkeypatch):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("fft_size,dense", [(2048, False), (1500, False),
-                                             (14000, True)],
-                         ids=["power_of_two", "not_a_power_of_two",
-                              "past_the_chirp_reach"])
-def test_full_frontend_operators_follow_the_route(fft_size, dense):
+@pytest.mark.parametrize("fs,fft_size,dense", [
+    (48000, 2048, False), (48000, 1500, False), (8000, 261634, True),
+    (48000, 14000, False)],
+    ids=["power_of_two", "not_a_power_of_two", "past_the_chirp_reach",
+         "past_the_chirp_tile"])
+def test_full_frontend_operators_follow_the_route(fs, fft_size, dense):
     """On the card the full-spectrum frontend keeps C and S only where the
     dense kernel reads them (an fft_size that is not a power of two and
-    whose chirp-z convolution passes 8192 points: 14000 at 48 kHz; 1500
-    takes the chirp-z kernel); on the CPU its plain version always reads
-    them."""
+    whose chirp-z convolution passes 131072 points: 261634 at 8 kHz; 1500
+    takes the chirp-z kernel at 48 kHz, 14000 its cluster route, M =
+    16384); on the CPU its plain version always reads them."""
     cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=fft_size))
-    fe = text.FullFrontend(48000, cfg, "meta")
+    fe = text.FullFrontend(fs, cfg, "meta")
     nb = fft_size // 2 + 1
     assert fe.n_fft == fft_size and fe.mel.shape[0] == nb + (-nb % 4)
     assert (fe.C is not None) == (fe.S is not None) == dense
-    cpu = text.FullFrontend(48000, cfg, "cpu")
-    assert cpu.C.shape == (1536, nb + (-nb % 4))
+    cpu = text.FullFrontend(fs, cfg, "cpu")
+    assert cpu.C.shape == (_geometry(fs)[0], nb + (-nb % 4))
 
 
 class _ShapeLib:
