@@ -99,9 +99,13 @@ raises and the exit code is non-zero):
      the cluster past M = 8192 (fft_size 16000, M = 16384, on 64 x 5 s;
      33000, M = 32768, on 8) vs its three plain versions, two calls
      bitwise, through extract_batch (the chirp counter once), timed beside
-     the dense template on the same frames and cuFFT's rfft; the dense
-     template past the chirp's reach (fft_size 261634) through
-     extract_batch and directly, timed; the LTSD VAD and the
+     the dense template on the same frames and cuFFT's rfft, the dense
+     template at 16000 directly vs its plain version; the chirp-z route on
+     the device-memory passes past the cluster (fft_size 261634, M =
+     262144, on 2 x 5 s) vs its three plain versions through extract_batch
+     (the chirp and passes counters once, the dense template never) and
+     directly, timed beside the dense template on the same frames, its
+     fused pass's split printed; the LTSD VAD and the
      spectral gate on the card vs the CPU at float64 (identical intervals, two
      calls bitwise); Lloyd's on the card vs the CPU at float64 from one
      init, k-means|| over 8 seeds against the CPU's median inertia, and
@@ -121,7 +125,8 @@ raises and the exit code is non-zero):
      route, fft_size 32768 and 65536 at 48 kHz on the full route: a
      frame's spectrum on one block and on a cluster of 2; K1 and K4 at
      65536 with 64 ms frames; K5 at 262144 on a cluster of 8 and at 524288
-     on the device-memory passes, a few frames each) and past
+     on the device-memory passes, a few frames each, the fused pass split
+     over the bins, its S printed beside the stages' device times) and past
      512 outputs on the FFT tile (600 mel filters + LPC at 8 kHz, 200 ms
      frames, fft_size 4096), each against the FFT route's plain version
      (and K5 against the dense one, K1 at 616 outputs against the float64
@@ -180,9 +185,9 @@ raises and the exit code is non-zero):
      interleaved set; the bf16 kernels' occupancy
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes; K5's
-chirp-z kernel's on extract_batch at 216 outputs, the dense template's
-on extract_batch past the chirp's reach; phase 16's routes on their
-extract_batch drives), its
+chirp-z kernel's on extract_batch at 216 outputs; 0 for the dense
+template, which serves only past M = 2^23, a shape no phase drives;
+phase 15's and 16's routes on their extract_batch drives), its
 error against its plain version, its time, its plain version's time and
 its bound (the larger of the least FLOPs of
 its function over the FP32 peak, the bf16 modes' products over the dense
@@ -371,10 +376,11 @@ BIG65536 = FeatureConfig(
     lpc=LpcConfig(win_length_ms=64.0, win_shift_ms=32.0))
 ROUTE_FFTS = (262144, 524288)
 # the chirp-z route on the cluster (M = 16384 at fft_size 16000 on the
-# bench batch, M = 32768 at 33000 on 8 utterances) and the dense template
-# past its reach (fft_size 261634 at 8 kHz: M would be 262144)
+# bench batch, M = 32768 at 33000 on 8 utterances) and on the device-memory
+# passes past its reach (fft_size 261634 at 8 kHz: M = 262144), where the
+# dense template served before
 CHIRP_CLUSTER_FFTS = (16000, 33000)  # BIG_B and 8 utterances
-PAST_CHIRP_FFT = 261634
+PAST_CLUSTER_FFT = 261634
 # (trials, calls a trial) of those routes' timings: the chirp on the
 # cluster beside the dense template; the small cases past it
 ROUTE_TRIALS, SMALL_TRIALS = (7, 3), (5, 1)
@@ -932,32 +938,34 @@ def dense_cs(fe: FullFrontend):
     return _DENSE_CS[key]
 
 
-def frames_args(fe, sig):
+def frames_args(fe, sig, dense=True):
     """The frame-level kernel's arguments for a batch, as fe.forward builds
     them (C and S for the full spectrum even where the FFT route does not
-    read them): (args, B, T)."""
+    read them; None without `dense`): (args, B, T)."""
     fr = framing.frame_signal(sig, fe.frame_len, fe.frame_shift)
     B, T = fr.shape[:2]
     if isinstance(fe, FullFrontend):
         wp = framing.window_preemph(fr, fe.frame_len, fe.pre_emph,
                                     fe.preemph_first)
-        return ((wp.reshape(B * T, fe.frame_len), *dense_cs(fe), fe.mel,
-                 fe.dct, fe.floor, fe.acorr), B, T)
+        return ((wp.reshape(B * T, fe.frame_len),
+                 *(dense_cs(fe) if dense else (None, None)), fe.mel, fe.dct,
+                 fe.floor, fe.acorr), B, T)
     return ((fr.reshape(B * T, fe.frame_len).contiguous(), fe.D, fe.W,
              fe.dct, fe.floor, fe.A), B, T)
 
 
 def frames_kernel(fe, dense=True):
     """(kernel wrapper, {name: plain version}, launch counter name) of fe;
-    all take frames_args' arguments (the packed frontend's dense plain
-    version only with `dense`, and none from N = 32768 on)."""
+    all take frames_args' arguments (the dense plain version only with
+    `dense`, and the packed frontend's none from N = 32768 on)."""
     big = fe.n_fft >= gpu_frontend.BIG_N and fe.n_fft & (fe.n_fft - 1) == 0
     if isinstance(fe, FullFrontend):
         n = fe.n_fft
-        plains = {"dense": gpu_frontend.mfcc_from_frames_reference,
-                  "fft": lambda wp, C, S, mel, dct, floor, ac:
-                      gpu_frontend.mfcc_from_frames_fft_reference(
-                          wp, mel, dct, floor, ac, n)}
+        plains = {"fft": lambda wp, C, S, mel, dct, floor, ac:
+                  gpu_frontend.mfcc_from_frames_fft_reference(
+                      wp, mel, dct, floor, ac, n)}
+        if dense:
+            plains["dense"] = gpu_frontend.mfcc_from_frames_reference
         chirp = gpu_frontend.chirp_size(n, fe.frame_len)
         if chirp:
             plains["chirp"] = lambda wp, C, S, mel, dct, floor, ac: \
@@ -983,7 +991,7 @@ def check_frames(phase, name, fe, sig, lengths, dense=True) -> float:
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the plain versions must run full f32 matmuls")
     kernel, plains, counter = frames_kernel(fe, dense)
-    args, B, T = frames_args(fe, sig)
+    args, B, T = frames_args(fe, sig, dense)
     mask = framing.frame_validity_mask(lengths, T, fe.frame_len,
                                        fe.frame_shift)
     before = getattr(gpu_frontend, counter)
@@ -1397,6 +1405,31 @@ def drive_extract(name, fs, cfg, sig, lengths, want: dict,
     return got
 
 
+def check_dense(phase, name, fe, sig, lengths) -> float:
+    """The dense template called directly (mfcc_from_frames_dense) on a
+    full-spectrum frontend's frames vs its dense plain version, both
+    carried through the frontend's CMVN and LPC, and two calls bitwise;
+    returns the max abs error of the features."""
+    args, B, T = frames_args(fe, sig)
+    mask = framing.frame_validity_mask(lengths, T, fe.frame_len,
+                                       fe.frame_shift)
+    got_c, got_r = gpu_frontend.mfcc_from_frames_dense(*args)
+    again_c, again_r = gpu_frontend.mfcc_from_frames_dense(*args)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(got_c, again_c) and torch.equal(got_r, again_r)
+    want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args)
+    got, m = fe.finish(got_c.view(B, T, -1), got_r.view(B, T, -1), mask)
+    want, _ = fe.finish(want_c.view(B, T, -1), want_r.view(B, T, -1), mask)
+    d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, m, fe.dct.shape[1])
+    print(f"phase {phase} dense kernel (direct), {name} vs the dense plain "
+          f"version: mfcc max|d| {d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| "
+          f"{d_lpc:.3e} (over tol: {lpc_bad}) bitwise {bitwise}", flush=True)
+    if d_mfcc > MFCC_ATOL or lpc_bad or not bitwise:
+        raise AssertionError(f"the dense kernel disagrees with its plain "
+                             f"version at {name}")
+    return max(d_mfcc, d_lpc)
+
+
 def frames_work(fe, n_frames_: int, nbytes_in: int) -> dict:
     """The bound of a frame-level frontend function over n frames."""
     nmel, nceps = fe.dct.shape
@@ -1405,6 +1438,31 @@ def frames_work(fe, n_frames_: int, nbytes_in: int) -> dict:
     flops = frontend_flops(n_frames_, fe.n_fft, (mel, ac), nceps)
     return bound(flops, nbytes_in + 4 * n_frames_ * (nceps + ac.shape[1])
                  + 4 * sum(x.numel() for x in (mel, ac, fe.dct)))
+
+
+def check_column_pass(dev, rng, n: int) -> float:
+    """K5 at n points past the cluster's reach on frames of 1536 samples (48
+    kHz, 2 utterances of 0.05 s: 8 frames), which hold more values than a
+    row of the passes' matrix, so that the column pass runs (the 8 kHz
+    frames' row pass loads them itself); held to the FFT route's plain
+    version, two calls bitwise. On the card only: the dense plain version
+    there, and any plain version on the CPU, would take C and S of 1536 x
+    (n/2 + 1) points (3.2 GB at 524288)."""
+    name = (f"K5 48 kHz, fft_size {n}, 2 x 0.05 s (the device-memory passes "
+            "with their column pass)")
+    if dev.type != "cuda":
+        print(f"phase 16 {name}: on the card only", flush=True)
+        return 0.0
+    L = int(FS48 * 0.05)
+    sig, lens = signals_batch(rng, [L, L * 2 // 3], padded(L), dev)
+    fe = FullFrontend(FS48, FeatureConfig(mfcc=MfccConfig(fft_size=n)), dev)
+    if (fe.frame_len + 1) // 2 <= gpu_frontend.passes_shape(n // 2)[1]:
+        raise AssertionError(f"{name}: the frames fit a row")
+    before = gpu_frontend.BIG_PASSES_LAUNCHES
+    err = check_frames(16, name, fe, sig, lens, dense=False)
+    if gpu_frontend.BIG_PASSES_LAUNCHES - before != 2:
+        raise AssertionError(f"{name}: not on the device-memory passes")
+    return err
 
 
 def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
@@ -1551,6 +1609,8 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
                        if passes else f"a cluster of {n // 32768})"))
         fe = FullFrontend(BENCH_FS, cfg, dev)
         err5 = check_frames(16, nm, fe, s8r, l8r)
+        if passes:
+            err5 = max(err5, check_column_pass(dev, rng, n))
         want = {"FULL_BIG_LAUNCHES": 1}
         if passes:
             want["BIG_PASSES_LAUNCHES"] = 1
@@ -1563,12 +1623,22 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
             "plain": lambda: plains["fft"](*fargs),
             "rfft": lambda: torch.fft.rfft(fargs[0], n=n)}, *SMALL_TRIALS)
         b5 = frames_work(fe, B_ * T_, 4 * fargs[0].numel())
+        # the fused pass's split over the bins for these few frames (one
+        # chunk), the same rule in Python and in the library
+        S = gpu_frontend.fused_ranges(B_ * T_, n // 2 + 1)
+        if dev.type == "cuda" and (
+                gpu_frontend.big_chunk(_build.load(), n, fe.mel.shape[1]
+                                       + fe.acorr.shape[1], B_ * T_)
+                != B_ * T_
+                or _build.load().srt_big_ranges(B_ * T_, n // 2 + 1) != S):
+            raise AssertionError(f"{nm}: the split is not fused_ranges'")
         print(f"phase 16 [{card}] {nm}: {t5['kernel']:.3f} ms, plain "
               f"{t5['plain']:.3f} ms, cuFFT's torch.fft.rfft(frames, n={n}) "
               f"alone {t5['rfft']:.3f} ms, bound {b5['bound_ms']:.4f} ms "
-              f"({b5['bound_by']}); device ms a call by kernel "
+              f"({b5['bound_by']}); the fused pass split in S {S} over "
+              f"{B_ * T_} frames; device ms a call by kernel (stages) "
               f"{kernel_times(lambda: kern(*fargs))}", flush=True)
-        routes.append((f"mfcc_from_frames_n{n}", "rfft_big.cuh" if passes
+        routes.append((f"mfcc_from_frames_n{n}", "rfft_passes.cuh" if passes
                        else "rfft_cluster.cu", "pallas_frontend.py:50",
                        launched5, err5, t5["kernel"], t5["plain"], b5))
         del fargs, fe
@@ -3845,28 +3915,10 @@ def main(argv=None):
         bench_len))
     args216, B216, T216 = frames_args(fe216, bench_sig)
     # the dense template on the same frames, launched directly: it now
-    # serves only past the chirp-z route's reach (M > 8192)
-    c_dense, r_dense = gpu_frontend.mfcc_from_frames_dense(*args216)
-    again_c, again_r = gpu_frontend.mfcc_from_frames_dense(*args216)
-    torch.cuda.synchronize()
-    want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args216)
+    # serves only past the chirp-z route's reach (M > 2^23)
+    err_dense = check_dense(15, "216 outputs", fe216, bench_sig, bench_len)
     mask216 = framing.frame_validity_mask(bench_len, T216, fe216.frame_len,
                                           fe216.frame_shift)
-    got216, m216 = fe216.finish(c_dense.view(B216, T216, -1),
-                                r_dense.view(B216, T216, -1), mask216)
-    want216, _ = fe216.finish(want_c.view(B216, T216, -1),
-                              want_r.view(B216, T216, -1), mask216)
-    d_mfcc, d_lpc, lpc_bad = feature_errors(got216, want216, m216,
-                                            fe216.dct.shape[1])
-    bitwise = torch.equal(c_dense, again_c) and torch.equal(r_dense, again_r)
-    print(f"phase 15 dense kernel (direct), 216 outputs vs the dense plain "
-          f"version: mfcc max|d| {d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| "
-          f"{d_lpc:.3e} (over tol: {lpc_bad}) bitwise {bitwise}", flush=True)
-    if d_mfcc > MFCC_ATOL or lpc_bad or not bitwise:
-        raise AssertionError("the dense kernel disagrees with its plain "
-                             "version")
-    err_dense = max(d_mfcc, d_lpc)
-    del c_dense, r_dense, again_c, again_r, want_c, want_r, got216, want216
     # an output's arithmetic does not depend on how many there are: 144
     # outputs equal their copies among 216 bitwise, on both kernels
     fe144 = FullFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
@@ -3906,6 +3958,9 @@ def main(argv=None):
     torch.cuda.synchronize()
     counts216 = frontend_counts()
     launches_chirp = counts216["FULL_CHIRP_LAUNCHES"]
+    # no path the run drives takes the dense template now (past M = 2^23
+    # only): its launches on the main path are this drive's, 0
+    launches_dense = counts216["FULL_DENSE_LAUNCHES"]
     d_mfcc, d_lpc, lpc_bad = feature_errors(feats216, want216, wmask216,
                                             fe216.dct.shape[1])
     print(f"phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs "
@@ -3970,38 +4025,58 @@ def main(argv=None):
                              "frontend_chirp_cluster.cu",
                              "pallas_frontend.py:50", launched_c, err_c,
                              tc["kernel"], tc["plain"], bc))
+        if n == 16000:  # the dense template directly, as at 216 outputs
+            err_dense = max(err_dense, check_dense(
+                15, f"8 kHz, fft_size {n}, {Bc} x {BENCH_SEC:g} s", fe, sc,
+                lc))
         del fargs, fe
         torch.cuda.empty_cache()
-    # past the cluster's reach (fft_size 261634: M would be 262144) the
-    # dense template, through extract_batch and directly, on 2 utterances
-    past = FeatureConfig(mfcc=MfccConfig(fft_size=PAST_CHIRP_FFT))
+    # past the cluster's reach (fft_size 261634: M = 262144) the chirp-z
+    # route on the device-memory passes, through extract_batch (the chirp
+    # and passes counters once, the dense template never) and directly, on
+    # 2 utterances, held to the chirp-z, dense and FFT plain versions;
+    # timed beside the dense template called directly on the same frames
+    # (what served this shape before), the plain versions and cuFFT's rfft
+    past = FeatureConfig(mfcc=MfccConfig(fft_size=PAST_CLUSTER_FFT))
     fe_past = FullFrontend(BENCH_FS, past, dev)
-    if gpu_frontend.chirp_size(PAST_CHIRP_FFT, fe_past.frame_len) != 0:
-        raise AssertionError(f"fft_size {PAST_CHIRP_FFT} is within the "
-                             "chirp's reach")
+    M = gpu_frontend.chirp_size(PAST_CLUSTER_FFT, fe_past.frame_len)
+    if M != 262144 or fe_past.C is not None and dev.type == "cuda":
+        raise AssertionError(f"fft_size {PAST_CLUSTER_FFT}: M {M}, not the "
+                             "passes'")
     sp, lp = bench_sig[:2].contiguous(), bench_len[:2].contiguous()
-    nm = (f"8 kHz, fft_size {PAST_CHIRP_FFT} (past the chirp-z route's "
-          f"reach), 2 x {BENCH_SEC:g} s")
-    launches_dense = drive_extract(
-        nm, BENCH_FS, past, sp, lp, {"FULL_DENSE_LAUNCHES": 1}, full=True,
-        phase=15)["FULL_DENSE_LAUNCHES"]
+    nm = (f"8 kHz, fft_size {PAST_CLUSTER_FFT} (chirp-z on the passes, M "
+          f"{M}), 2 x {BENCH_SEC:g} s")
+    launches_past = drive_extract(
+        nm, BENCH_FS, past, sp, lp,
+        {"FULL_CHIRP_LAUNCHES": 1, "BIG_PASSES_LAUNCHES": 1}, full=True,
+        phase=15)["FULL_CHIRP_LAUNCHES"]
     extract._frontend.cache_clear()
-    err_past = check_frames(15, nm + " (dense kernel)", fe_past, sp, lp)
-    err_dense = max(err_dense, err_past)
+    err_past = check_frames(15, nm, fe_past, sp, lp)
     fargs, Bp, Tp = frames_args(fe_past, sp)
     kern, plains, _ = frames_kernel(fe_past)
-    tp = time_interleaved({"kernel": lambda: kern(*fargs),
-                           "plain": lambda: plains["dense"](*fargs),
-                           "plain_fft": lambda: plains["fft"](*fargs)},
-                          *SMALL_TRIALS)
+    nb_past = PAST_CLUSTER_FFT // 2 + 1
+    S_past = gpu_frontend.fused_ranges(Bp * Tp, nb_past)
+    tp = time_interleaved({
+        "kernel": lambda: kern(*fargs),
+        "dense": lambda: gpu_frontend.mfcc_from_frames_dense(*fargs),
+        "plain": lambda: plains["fft"](*fargs),
+        "plain_chirp": lambda: plains["chirp"](*fargs),
+        "plain_dense": lambda: plains["dense"](*fargs),
+        "rfft": lambda: torch.fft.rfft(fargs[0], n=PAST_CLUSTER_FFT)},
+        *SMALL_TRIALS)
     bp = frames_work(fe_past, Bp * Tp, 4 * fargs[0].numel())
-    print(f"phase 15 [{card}] {nm}: dense template {tp['kernel']:.3f} ms, "
-          f"its plain version {tp['plain']:.3f} ms, the FFT route's "
-          f"{tp['plain_fft']:.3f} ms, bound {bp['bound_ms']:.4f} ms "
-          f"({bp['bound_by']})", flush=True)
-    chirp_routes.append(("mfcc_from_frames_dense_past_reach",
-                         "frontend_frames.cu", "pallas_frontend.py:50",
-                         launches_dense, err_past, tp["kernel"], tp["plain"],
+    print(f"phase 15 [{card}] {nm} ({tuple(fargs[0].shape)} frames, the "
+          f"fused pass split in S {S_past}): chirp-z kernel "
+          f"{tp['kernel']:.3f} ms, dense template {tp['dense']:.3f} ms; "
+          f"plain: FFT route {tp['plain']:.3f} ms, chirp-z "
+          f"{tp['plain_chirp']:.3f} ms, dense {tp['plain_dense']:.3f} ms; "
+          f"cuFFT's torch.fft.rfft(frames, n={PAST_CLUSTER_FFT}) alone "
+          f"{tp['rfft']:.3f} ms; bound {bp['bound_ms']:.4f} ms "
+          f"({bp['bound_by']}); device ms a call by kernel "
+          f"{kernel_times(lambda: kern(*fargs))}", flush=True)
+    chirp_routes.append((f"mfcc_from_frames_chirp_m{M}",
+                         "frontend_chirp_cluster.cu", "pallas_frontend.py:50",
+                         launches_past, err_past, tp["kernel"], tp["plain"],
                          bp))
     del fargs, fe_past
     torch.cuda.empty_cache()

@@ -76,6 +76,8 @@ def _bind(lib):
     lib.srt_big_scratch_floats.restype = ll
     lib.srt_big_operator_shape.argtypes = [i, i, ip, ip, ip]
     lib.srt_big_operator_shape.restype = i
+    lib.srt_big_ranges.argtypes = [i, i]
+    lib.srt_big_ranges.restype = i
     lib.srt_chirp_operator_shape.argtypes = [i, i, i, ip, ip, ip]
     lib.srt_chirp_operator_shape.restype = i
     lib.srt_chirp_frames_frontend.argtypes = [p, p, p, p, p, p, p, p, i, i,

@@ -1,14 +1,14 @@
 // K5 (the full-spectrum frontend) on the four-step route of N >= 32768
 // points (csrc/rfft_big.cuh: a frame's spectrum on a block or a cluster of
-// csrc/rfft_cluster.cuh up to 262144 points, the device-memory passes past
-// it), for Hopper (sm_90a), plain C interface: the
-// route of csrc/frontend_fft.cu's function where one frame's spectrum no
-// longer fits the FFT tile, chosen on N in the open (ops/gpu_frontend
+// csrc/rfft_cluster.cuh up to 262144 points, the device-memory passes of
+// csrc/rfft_passes.cuh past it), for Hopper (sm_90a), plain C interface:
+// the route of csrc/frontend_fft.cu's function where one frame's spectrum
+// no longer fits the FFT tile, chosen on N in the open (ops/gpu_frontend
 // counts it in FULL_BIG_LAUNCHES). Also the route's scratch and operator
-// shapes, which K1, K4 and the fused predict monolith share there. A file
-// of its own so that it builds beside the tile's instantiations, and alone
-// with csrc/rfft_cluster.cu (speaker_recognition_tpu_torch/tools/
-// fft_ablation.py).
+// shapes and its fused pass's split, which K1, K4 and the fused predict
+// monolith share there. A file of its own so that it builds beside the
+// tile's instantiations, and alone with csrc/rfft_cluster.cu
+// (speaker_recognition_tpu_torch/tools/fft_ablation.py).
 
 #include <cuda_runtime.h>
 
@@ -20,6 +20,14 @@
 extern "C" long long srt_big_scratch_floats(int nfft, int nout, int chunk) {
   if (!rfft_big::takes(nfft) || chunk < 1) return -1;
   return rfft_big::scratch_floats(nfft, nout, chunk);
+}
+
+// S, the bin ranges the route's fused pass splits a chunk of nfc frames of
+// nbins bins into (1: no split); ops/gpu_frontend.fused_ranges is the same
+// rule in Python.
+extern "C" int srt_big_ranges(int nfc, int nbins) {
+  if (nfc < 1 || nbins < 1) return -1;
+  return rfft_big::ranges(nfc, nbins);
 }
 
 // The packed operator the route of N >= 32768 takes (its fused power +

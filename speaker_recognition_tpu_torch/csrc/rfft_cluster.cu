@@ -3,16 +3,18 @@
 // srt_cluster::spectra with their frames' loader (srt_cluster::
 // FrameSource). Up to N = 262144 a frame's spectrum on a block or a
 // thread-block cluster (csrc/rfft_cluster.cuh), past it the column and row
-// passes over a device scratch: a route chosen on N in the open
-// (ops/gpu_frontend counts the passes in BIG_PASSES_LAUNCHES); then the
-// fused projection pass, which the chirp-z route past M = 8192 takes too
-// (project_rows). A file of its own, so that the route's kernels build
-// once for every loader and beside the frontends' instantiations.
+// passes of csrc/rfft_passes.cuh over a device scratch: a route chosen on N
+// in the open (ops/gpu_frontend counts the passes in BIG_PASSES_LAUNCHES);
+// both leave power rows, and the fused projection pass (split over the
+// bins at few frames) reads them, which the chirp-z route past M = 8192
+// takes too (project_rows). A file of its own, so that the route's kernels
+// build once for every loader and beside the frontends' instantiations.
 
 #include <cuda_runtime.h>
 
 #include "rfft_big.cuh"
 #include "rfft_cluster.cuh"
+#include "rfft_passes.cuh"
 
 namespace {
 
@@ -24,12 +26,12 @@ using srt_cluster::P;
 // E_c, the pruned first pass) and takes its P-point FFT; after the
 // cluster's barrier unit u in [0, P/2] reads slots u and P - u of every
 // rank and writes the power of bins u + P k2 and P - u + P k2 (k2 < C; u =
-// 0: bins P k2 and H; u = P/2: bins P/2 + P k2) into row i of pw [.][n],
-// floored per bin when asked.
+// 0: bins P k2 and H; u = P/2: bins P/2 + P k2) into row i of pw
+// [.][pstride], floored per bin when asked.
 template <int C>
 __global__ void __launch_bounds__(NTH, 1) spectrum_kernel(
-    const FrameSource src, int f0, float* __restrict__ pw, int lgn,
-    float power_floor, int per_bin_floor) {
+    const FrameSource src, int f0, float* __restrict__ pw, int pstride,
+    int lgn, float power_floor, int per_bin_floor) {
   extern __shared__ float2 cl_smem[];
   float2* v = cl_smem;
   const int fl = blockIdx.x / C, g = f0 + fl, rank = cfft::rank<C>();
@@ -50,7 +52,7 @@ __global__ void __launch_bounds__(NTH, 1) spectrum_kernel(
   float2* rv[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) rv[c] = cfft::rank_slots<C>(v, c);
-  float* row = pw + ((size_t)fl << lgn);
+  float* row = pw + (size_t)fl * pstride;
   const auto column = [&](int k1, float2 (&x)[C]) {
     const int s = cfft::slot(k1);
 #pragma unroll
@@ -97,36 +99,38 @@ __global__ void __launch_bounds__(NTH, 1) spectrum_kernel(
   cfft::cluster_sync<C>();  // no rank leaves while others read its slots
 }
 
-// Past the cluster's reach: steps 1-3 of csrc/rfft_big.cuh, the column and
-// row passes over z [nfc][H] in scratch, then the fused pass from Z.
-cudaError_t passes(const FrameSource& fr, int f0, int nfc, int n,
-                   float* scratch, const float4* op, int nmel, int nac,
-                   float power_floor, bool per_bin_floor, cudaStream_t st) {
-  using namespace rfft_big;
-  const int lgn = ilog2(n), lg2_ = lg2(n), lg1 = lgn - 1 - lg2_;
-  if ((1 << lg1) > MAX_L) return cudaErrorInvalidValue;
-  float2* z = reinterpret_cast<float2*>(scratch);
-  const auto fft_threads = [](int lg) {
-    return lg - 1 >= 8 ? FFT_THREADS : 1 << (lg - 1);
-  };
-  const size_t smem1 = sizeof(float2) << lg1, smem2 = sizeof(float2) << lg2_;
-  cudaError_t err = cudaFuncSetAttribute(
-      columns_kernel<FrameSource>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(rows_kernel<FrameSource>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem2);
-  if (err != cudaSuccess) return err;
-  columns_kernel<FrameSource><<<dim3(1 << lg2_, nfc), fft_threads(lg1),
-                                smem1, st>>>(fr, f0, z, lgn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  rows_kernel<FrameSource><<<dim3(1 << lg1, nfc), fft_threads(lg2_), smem2,
-                             st>>>(fr, f0, z, lgn);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  return project<false>(fr, f0, nfc, z, nullptr, 0, (n >> 1) + 1, op,
-                        sums_rows(scratch, n, nfc), lgn, nmel, nac,
-                        power_floor, per_bin_floor, st);
+// Past the cluster's reach: the column and row passes of csrc/
+// rfft_passes.cuh over the H = N/2 point transform of frames f0 .. f0 + nfc
+// - 1, a group of frames at a time through the same matrices, into their
+// power rows pw [nfc][pstride]; a short frame's row pass loads straight
+// from the frame, and no column pass (and no matrix) runs: then all the
+// frames go through in one launch.
+cudaError_t device_passes(const FrameSource& fr, int f0, int nfc, int n,
+                          float2* z, float* pw, int pstride,
+                          float power_floor, bool per_bin_floor,
+                          cudaStream_t st) {
+  const int lgt = srt_cluster::ilog2(n) - 1, lg2 = passes::lg_t2(lgt);
+  const bool direct = passes::RealIn{fr, 0}.count() <= 1 << lg2;
+  const int group = direct ? nfc : passes::group_frames(lgt);
+  for (int g0 = 0; g0 < nfc; g0 += group) {
+    const int ng = min(group, nfc - g0);
+    const passes::RealIn in{fr, f0 + g0};
+    cudaError_t err =
+        direct ? cudaSuccess
+               : passes::columns(in, passes::TwiddledOut{z, lgt}, ng, lgt,
+                                 st);
+    if (err != cudaSuccess) return err;
+    err = passes::with_lg(lg2, [&](auto c) {
+      constexpr int LG2 = decltype(c)::value;
+      return passes::launch(passes::power_rows_kernel<LG2>,
+                            (1 << (lgt - LG2)) / (P >> LG2), ng, lgt, st, in,
+                            (const float2*)z, pw + (size_t)g0 * pstride,
+                            pstride, lgt, power_floor, per_bin_floor ? 1 : 0,
+                            direct ? 1 : 0);
+    });
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -140,30 +144,35 @@ cudaError_t spectra(FrameSource src, int f0, int nfc, int n, float* scratch,
     return cudaErrorInvalidValue;
   src.n = n;
   const int lgn = ilog2(n), H = n / 2;
-  if (!takes(n)) return passes(src, f0, nfc, n, scratch, op, nmel, nac,
-                               power_floor, per_bin_floor, st);
-  cudaError_t err = cfft::with_ranks(H / P, [&](auto rc) {
-    constexpr int C = decltype(rc)::value;
-    return cfft::launch<C>(spectrum_kernel<C>, nfc, smem_bytes(lgn - 1), st,
-                           src, f0, scratch, lgn, power_floor,
-                           per_bin_floor ? 1 : 0);
-  });
+  const int ps = rfft_big::power_stride(H + 1), nout = nmel + nac;
+  float* pw = rfft_big::power_rows(scratch, n, nfc);
+  cudaError_t err;
+  if (takes(n)) {
+    err = cfft::with_ranks(H / P, [&](auto rc) {
+      constexpr int C = decltype(rc)::value;
+      return cfft::launch<C>(spectrum_kernel<C>, nfc, smem_bytes(lgn - 1), st,
+                             src, f0, pw, ps, lgn, power_floor,
+                             per_bin_floor ? 1 : 0);
+    });
+  } else {
+    err = device_passes(src, f0, nfc, n, reinterpret_cast<float2*>(scratch),
+                        pw, ps, power_floor, per_bin_floor, st);
+  }
   if (err != cudaSuccess) return err;
-  return rfft_big::project<true>(
-      src, f0, nfc, nullptr, scratch, n, H + 1, op,
-      rfft_big::sums_rows(scratch, n, nfc), lgn, nmel, nac, power_floor,
-      per_bin_floor, st);
+  return rfft_big::project(src, f0, nfc, pw, ps, H + 1, op,
+                           rfft_big::sums_rows(scratch, n, nfc),
+                           rfft_big::partial_rows(scratch, n, nout, nfc),
+                           nmel, nac, power_floor, st);
 }
 
 cudaError_t project_rows(int nfc, const float* pw, int pstride, int nbins,
-                         const float4* op, float* sums, int nmel, int nac,
-                         float power_floor, cudaStream_t st) {
-  // every frame computed; lgn only sizes the device-memory passes' stage
-  FrameSource all{};
+                         const float4* op, float* sums, float* partial,
+                         int nmel, int nac, float power_floor,
+                         cudaStream_t st) {
+  FrameSource all{};  // every frame computed
   all.kind = FrameSource::ROWS;
-  return rfft_big::project<true>(all, 0, nfc, nullptr, pw, pstride, nbins,
-                                 op, sums, rfft_big::MIN_LGN, nmel, nac,
-                                 power_floor, false, st);
+  return rfft_big::project(all, 0, nfc, pw, pstride, nbins, op, sums,
+                           partial, nmel, nac, power_floor, st);
 }
 
 }  // namespace srt_cluster

@@ -1,9 +1,9 @@
 // A frame's spectrum on chip: the cluster FFT that the four-step route's
 // frontends (K1, K4, K5 and the monolith K6 at N = 32768 .. 262144 points,
-// csrc/rfft_big.cuh) and K5's chirp-z route past M = 8192 (csrc/
-// frontend_chirp_cluster.cu) run on. It replaces the four-step route's
-// column and row passes over a scratch in device memory (PR 10's
-// columns_kernel and rows_kernel, which still serve past this reach).
+// csrc/rfft_big.cuh) and K5's chirp-z route at M = 16384 .. 131072 (csrc/
+// frontend_chirp_cluster.cu) run on. Past this reach the column and row
+// passes of csrc/rfft_passes.cuh over a scratch in device memory serve,
+// on the same Stockham passes and twiddle table.
 //
 // One block holds P = 16384 complex values (128 KB, with one float2 of
 // padding after every 16: slot(i)) and a two-level twiddle table; a
@@ -74,9 +74,11 @@ constexpr int SLOTS = P + P / 16;
 // the four-step route's reach: H = N/2 = C P
 constexpr int MIN_N = 2 * P, MAX_N = 2 * P * MAX_RANKS;
 // the chirp-z route: M from 1024; the tile kernel (csrc/frontend_chirp.cu)
-// up to 8192, the cluster from 16384 to 131072
+// up to 8192, the cluster from 16384 to 131072, the device-memory passes
+// of csrc/rfft_passes.cuh from 262144 to 2^23
 constexpr int CHIRP_MIN_M = 1024, CHIRP_TILE_M = 8192;
-constexpr int CHIRP_MAX_M = P * MAX_RANKS;
+constexpr int CHIRP_CLUSTER_M = P * MAX_RANKS;
+constexpr int CHIRP_MAX_M = 1 << 23;
 
 __host__ __device__ constexpr int ilog2(int x) {
   return x <= 1 ? 0 : 1 + ilog2(x / 2);
@@ -97,9 +99,9 @@ inline int chirp_m(int n, int flen) {
   if (n < 2 || flen < 1 || (n & (n - 1)) == 0) return 0;
   const int l = flen < n ? flen : n;
   const long long need = (long long)l + n / 2;  // L + nb - 1
-  int m = CHIRP_MIN_M;
+  long long m = CHIRP_MIN_M;
   while (m < need && m <= CHIRP_MAX_M) m *= 2;
-  return m <= CHIRP_MAX_M ? m : 0;
+  return m <= CHIRP_MAX_M ? (int)m : 0;
 }
 
 // float2 of the two-level twiddle table of W_M: lo [2^b], hi [M / 2^b]
@@ -167,22 +169,25 @@ struct FrameSource {
 };
 
 // The four-step route's spectral stage for frames f0 .. f0 + nfc - 1 of
-// src at an n-point FFT (csrc/rfft_cluster.cu): where takes(n), power rows
-// at scratch [nfc][n] from the cluster, past it the column and row passes
-// of csrc/rfft_big.cuh over scratch; then the fused projection pass, whose
-// sums rows [nfc][nmel + nac] land at scratch + nfc n (rfft_big::
-// sums_rows). scratch holds rfft_big::scratch_floats(n, nmel + nac, nfc)
-// floats, op is the packed operator of srt_big_operator_shape.
+// src at an n-point FFT (csrc/rfft_cluster.cu): their power rows from the
+// cluster where takes(n), past it from the column and row passes of
+// csrc/rfft_passes.cuh; then the fused projection pass, whose sums rows
+// [nfc][nmel + nac] land at rfft_big::sums_rows(scratch, n, nfc). scratch
+// holds rfft_big::scratch_floats(n, nmel + nac, nfc) floats, op is the
+// packed operator of srt_big_operator_shape.
 cudaError_t spectra(FrameSource src, int f0, int nfc, int n, float* scratch,
                     const float4* op, int nmel, int nac, float power_floor,
                     bool per_bin_floor, cudaStream_t st);
 
 // The fused projection pass on power rows pw [nfc][pstride] of bins
 // 0..nbins - 1 (every frame computed; the chirp-z route past M = 8192):
-// sums rows [nfc][nmel + nac] of log-mel | raw autocorrelation.
+// sums rows [nfc][nmel + nac] of log-mel | raw autocorrelation, with the
+// split's partial rows (rfft_big::partial_floats(nfc, nbins, nmel + nac)
+// floats) where it splits.
 cudaError_t project_rows(int nfc, const float* pw, int pstride, int nbins,
-                         const float4* op, float* sums, int nmel, int nac,
-                         float power_floor, cudaStream_t st);
+                         const float4* op, float* sums, float* partial,
+                         int nmel, int nac, float power_floor,
+                         cudaStream_t st);
 
 }  // namespace srt_cluster
 

@@ -38,7 +38,7 @@ without LPC), which the LPC cepstra need:
                         `mfcc_from_frames_fft_reference`), any other the
                         chirp-z route where its convolution's FFT fits
                         (`chirp_size`: csrc/frontend_chirp.cu up to M =
-                        8192, csrc/frontend_chirp_cluster.cu to 131072;
+                        8192, csrc/frontend_chirp_cluster.cu to 2^23;
                         plain torch: `mfcc_from_frames_chirp_reference`),
                         past that the dense template of
                         csrc/frontend_frames.cu (`mfcc_from_frames_dense`).
@@ -63,18 +63,23 @@ the FFT kernels, are chosen on the shape in the open, each with its own
 counter, and compute the same function:
   * an n_fft that is not a power of two runs the chirp-z route
     (FULL_CHIRP_LAUNCHES) where the least power of two M >= min(frame_len,
-    n_fft) + n_fft/2 (at least 1024) is at most 131072: the tile kernel of
-    csrc/frontend_chirp.cu up to M = 8192, the cluster FFT of
-    csrc/frontend_chirp_cluster.cu from 16384 (CHIRP_TILE_M); the dense
-    template (FULL_DENSE_LAUNCHES) past it;
+    n_fft) + n_fft/2 (at least 1024) is at most CHIRP_MAX_M = 2^23: the
+    tile kernel of csrc/frontend_chirp.cu up to M = 8192 (CHIRP_TILE_M),
+    csrc/frontend_chirp_cluster.cu past it, on the cluster FFT up to
+    CHIRP_CLUSTER_M = 131072 and on the device-memory passes of
+    csrc/rfft_passes.cuh past that (counted in BIG_PASSES_LAUNCHES as
+    well); the dense template (FULL_DENSE_LAUNCHES) past CHIRP_MAX_M;
   * an FFT of 32768 points or more (fft_size >= 32768 on the full route,
     frames longer than 8192 samples on the packed route) runs the
     four-step route of csrc/rfft_big.cuh in chunks of frames
     (BIG_LAUNCHES, FRAMES_BIG_LAUNCHES, FULL_BIG_LAUNCHES) in place of the
     FFT tile: up to CLUSTER_MAX_N = 262144 points a frame's spectrum on
     one block or a thread-block cluster (csrc/rfft_cluster.cuh), past it
-    the column and row passes over a device scratch (counted in
-    BIG_PASSES_LAUNCHES as well, by these wrappers and gpu_predict's);
+    the column and row passes of csrc/rfft_passes.cuh over a device scratch
+    (counted in BIG_PASSES_LAUNCHES as well, by these wrappers and
+    gpu_predict's); its fused projection pass splits the bins into
+    `fused_ranges(frames, bins)` ranges where the frames are few (the
+    same rule in C: srt_big_ranges);
   * past 512 mel + autocorrelation outputs the FFT tile projects onto
     chunks of 512 outputs in turn, the sums in device rows
     (CHUNKED_LAUNCHES, counted beside the kernel's own counter).
@@ -125,14 +130,23 @@ MMA_COLUMNS = 64
 BIG_N = 32768
 CLUSTER_MAX_N = 262144
 # the chirp-z route's convolution lengths: the tile kernel (csrc/
-# frontend_chirp.cu) up to CHIRP_TILE_M, the cluster (csrc/
-# frontend_chirp_cluster.cu) past it
-CHIRP_MIN_M, CHIRP_TILE_M, CHIRP_MAX_M = 1024, 8192, 131072
+# frontend_chirp.cu) up to CHIRP_TILE_M, csrc/frontend_chirp_cluster.cu past
+# it, on the cluster up to CHIRP_CLUSTER_M and on the passes up to
+# CHIRP_MAX_M
+CHIRP_MIN_M, CHIRP_TILE_M, CHIRP_CLUSTER_M = 1024, 8192, 131072
+CHIRP_MAX_M = 1 << 23
 # complex values a block of the cluster FFT holds
 CLUSTER_BLOCK = 16384
+# the four-step route's fused pass (csrc/rfft_big.cuh): frames a block, the
+# bins its fill stages at a time, and its split over the bins: none from
+# SPLIT_BLOCKS blocks on, else about SPLIT_TARGET blocks of ranges of at
+# least SPLIT_MIN_BINS bins
+FUSED_FRAMES, ROW_BINS = 8, 512
+SPLIT_BLOCKS, SPLIT_TARGET, SPLIT_MIN_BINS = 128, 256, 4096
 # device scratch the four-step route takes at most for a chunk of frames:
 # its fused power + projection pass runs a block per 8 frames of a chunk,
-# and a chunk of 1 GiB (4,092 frames at 65536 points) gives it blocks for
+# and a chunk of 1 GiB (8,174 frames' power rows at 65536 points; the
+# passes keep matrices for a group of frames only) gives it blocks for
 # every SM
 BIG_SCRATCH_BYTES = 1 << 30
 
@@ -222,6 +236,23 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
             power @ acorr[:nb])
 
 
+def fused_ranges(nfc: int, nbins: int) -> int:
+    """S, the bin ranges the four-step route's fused pass splits a chunk of
+    nfc frames of nbins bins into (csrc/rfft_big.cuh rfft_big::ranges): 1
+    where ceil(nfc / 8) blocks reach SPLIT_BLOCKS; else ranges of a multiple
+    of ROW_BINS bins, about SPLIT_TARGET blocks in all and at least
+    SPLIT_MIN_BINS bins a range. From the shape alone, never the device."""
+    blocks = -(-nfc // FUSED_FRAMES)
+    if blocks >= SPLIT_BLOCKS:
+        return 1
+    s = min(-(-SPLIT_TARGET // blocks), nbins // SPLIT_MIN_BINS)
+    if s <= 1:
+        return 1
+    r = -(-nbins // s)  # bins a range, to a multiple of ROW_BINS
+    r = -(-r // ROW_BINS) * ROW_BINS
+    return -(-nbins // r)
+
+
 def chirp_size(n_fft: int, frame_len: int) -> int:
     """M of the chirp-z route for an n_fft-point DFT of frames of frame_len
     samples: the least power of two, at least CHIRP_MIN_M, that holds the
@@ -271,15 +302,29 @@ def chirp_tables(n_fft: int, frame_len: int, device="cpu"):
 @functools.lru_cache(maxsize=16)
 def _chirp_cluster_bh(n_fft: int, frame_len: int, device: torch.device):
     bh = chirp_tables(n_fft, frame_len, device)[1]
-    C = bh.shape[0] // CLUSTER_BLOCK
-    return bh.view(CLUSTER_BLOCK, C, 2).transpose(0, 1).contiguous()
+    M = bh.shape[0]
+    if M <= CHIRP_CLUSTER_M:
+        C = M // CLUSTER_BLOCK
+        return bh.view(CLUSTER_BLOCK, C, 2).transpose(0, 1).contiguous()
+    m1, m2 = passes_shape(M)
+    return bh.view(m2, m1, 2).transpose(0, 1).contiguous()
+
+
+def passes_shape(T: int) -> tuple[int, int]:
+    """(T1, T2): the device-memory passes' matrix of a T-point transform
+    (csrc/rfft_passes.cuh), T1 = 2^(lg T - lg T // 2) >= T2 = 2^(lg T //
+    2)."""
+    lg = T.bit_length() - 1
+    return 1 << (lg - lg // 2), 1 << (lg // 2)
 
 
 def chirp_cluster_bh(n_fft: int, frame_len: int, device="cpu"):
-    """Bh of chirp_tables in the cluster route's decimated order ([M /
-    CLUSTER_BLOCK][CLUSTER_BLOCK, 2]: Bh[C m1 + m2] at [m2][m1], the slot
-    of A[C m1 + m2] after the forward FFT, csrc/frontend_chirp_cluster.cu),
-    for M > CHIRP_TILE_M; built once per (n_fft, frame_len, device)."""
+    """Bh of chirp_tables in the order of csrc/frontend_chirp_cluster.cu,
+    for M > CHIRP_TILE_M: up to CHIRP_CLUSTER_M the cluster's decimated
+    order ([M / CLUSTER_BLOCK][CLUSTER_BLOCK, 2]: Bh[C m1 + m2] at [m2][m1],
+    the slot of A[C m1 + m2] after the forward FFT), past it the passes'
+    [M1][M2, 2] (Bh[k1 + M1 k2] at [k1][k2], the place of A[k1 + M1 k2]
+    after the row pass); built once per (n_fft, frame_len, device)."""
     return _chirp_cluster_bh(int(n_fft), int(frame_len),
                              torch.device(device))
 
@@ -562,15 +607,41 @@ def count_big_passes(n_fft: int):
     BIG_PASSES_LAUNCHES += n_fft > CLUSTER_MAX_N
 
 
-def _big_scratch(lib, n_fft: int, nout: int, nframes: int, dev):
-    """(frames a chunk, the scratch) of the route of N >= 32768: as many
-    frames a chunk as BIG_SCRATCH_BYTES hold (at least one, at most the
-    grid's 65535)."""
-    per = lib.srt_big_scratch_floats(n_fft, nout, 1)
-    if per < 0:
+def _chunk(floats, nframes: int) -> int:
+    """The most frames c <= min(nframes, 65535) (at least one) whose
+    scratch, floats(c) floats, BIG_SCRATCH_BYTES hold."""
+    lo, hi = 1, max(1, min(65535, nframes))
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if 4 * floats(mid) <= BIG_SCRATCH_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def big_chunk(lib, n_fft: int, nout: int, nframes: int) -> int:
+    """Frames a chunk of the route of N >= 32768: as many as
+    BIG_SCRATCH_BYTES hold (at least one, at most the grid's 65535)."""
+    if lib.srt_big_scratch_floats(n_fft, nout, 1) < 0:
         raise ValueError(f"no four-step FFT at n_fft {n_fft}: it takes a "
                          "power of two in [32768, 2^24]")
-    chunk = int(max(1, min(65535, nframes, BIG_SCRATCH_BYTES // (4 * per))))
+    return _chunk(lambda c: lib.srt_big_scratch_floats(n_fft, nout, c),
+                  nframes)
+
+
+def chirp_chunk(lib, n_fft: int, frame_len: int, nout: int,
+                nframes: int) -> int:
+    """Frames a chunk of the chirp-z route past M = CHIRP_TILE_M, as
+    big_chunk."""
+    return _chunk(lambda c: lib.srt_chirp_scratch_floats(
+        n_fft, frame_len, nout, c), nframes)
+
+
+def _big_scratch(lib, n_fft: int, nout: int, nframes: int, dev):
+    """(frames a chunk, the scratch) of the route of N >= 32768
+    (big_chunk)."""
+    chunk = big_chunk(lib, n_fft, nout, nframes)
     return chunk, torch.empty(lib.srt_big_scratch_floats(n_fft, nout, chunk),
                               dtype=torch.float32, device=dev)
 
@@ -917,7 +988,9 @@ def _full_shapes(wp, mel, dct, ac, n_fft: int):
 
 def _chirp_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
     """Check and launch the chirp-z route's kernel: csrc/frontend_chirp.cu
-    up to M = CHIRP_TILE_M, csrc/frontend_chirp_cluster.cu past it."""
+    up to M = CHIRP_TILE_M, csrc/frontend_chirp_cluster.cu past it (on the
+    device-memory passes past CHIRP_CLUSTER_M, also counted in
+    BIG_PASSES_LAUNCHES)."""
     n, flen, nmel, nceps, nac = _full_shapes(wp, mel, dct, ac, n_fft)
     dev = wp.device
     lib = _build.load()
@@ -930,8 +1003,7 @@ def _chirp_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bh.shape[0] > CHIRP_TILE_M:
-            per = lib.srt_chirp_scratch_floats(n_fft, flen, nmel + nac, 1)
-            chunk = int(max(1, min(65535, n, BIG_SCRATCH_BYTES // (4 * per))))
+            chunk = chirp_chunk(lib, n_fft, flen, nmel + nac, n)
             scratch = torch.empty(lib.srt_chirp_scratch_floats(
                 n_fft, flen, nmel + nac, chunk), dtype=torch.float32,
                 device=dev)
@@ -948,7 +1020,8 @@ def _chirp_frames_kernel(wp, mel, dct, floor, ac, n_fft: int):
                 dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), _ptr(wsums),
                 n, flen, n_fft, nmel, nac, nceps, float(floor), stream)
     _build.check(err, "full-spectrum chirp-z frontend kernel")
-    global FULL_CHIRP_LAUNCHES, CHUNKED_LAUNCHES
+    global FULL_CHIRP_LAUNCHES, CHUNKED_LAUNCHES, BIG_PASSES_LAUNCHES
     FULL_CHIRP_LAUNCHES += 1
     CHUNKED_LAUNCHES += nmel + nac > 512 and bh.shape[0] <= CHIRP_TILE_M
+    BIG_PASSES_LAUNCHES += bh.shape[0] > CHIRP_CLUSTER_M
     return ceps, r

@@ -9,26 +9,34 @@ which switches one stage of the FFT tile (csrc/rfft_tile.cuh) off in a copy
 of the sources, and times K5 at 48 kHz (512 x 5 s) and K1 at 8 kHz (512 x
 5 s) for each, in turns, two rounds. `big` builds csrc/frontend_big.cu and
 csrc/rfft_cluster.cu (K5 on the four-step route of N >= 32768: a frame's
-spectrum on a block or a cluster, csrc/rfft_cluster.cuh, then the fused
+spectrum on a block or a cluster, csrc/rfft_cluster.cuh, past 262144
+points the column and row passes of csrc/rfft_passes.cuh, then the fused
 projection pass of csrc/rfft_big.cuh) the same way, prints each kernel's
-device time (torch.profiler: the spectrum kernel, the fused power +
-projection, the outputs) and times K5 at 48 kHz with fft_size 32768 (one
-block) and 65536 (a cluster of 2) (8 x 5 s, phase 16's batch of
-chip_smoke.py) as it is, on the device-memory passes the route keeps past
-262144 points (`passes`: columns, rows and the fused pass from the
-[H1][H2] scratch, built from the same sources), and without the
+device time (torch.profiler: the spectrum kernel or the passes, the fused
+power + projection and its split's combine, the outputs) and times K5 at
+48 kHz with fft_size 32768 (one block) and 65536 (a cluster of 2) (8 x 5
+s, phase 16's batch of chip_smoke.py) and at 8 kHz with 262144 (a
+cluster of 8) and 524288 (the passes) on phase 16's 62 frames, beside
+the FFT route's plain version and cuFFT's rfft, as it is and without the
 spectrum kernel's frame loads, its four passes after the first, the
 exchange across the cluster (the reads of every rank's slots and the
-C-point DFTs), the post-step's twiddles, the projection's power staging,
-its FMAs or its whole walk. `chirp` builds csrc/frontend_chirp.cu (K5's
+C-point DFTs), the post-step's twiddles, the passes' column pass, its
+twiddle step or the row pass, with one group of frames through the
+passes (no L2 grouping), unsplit (S = 1), or without the projection's
+power staging, its FMAs or its whole walk. `chirp` builds csrc/frontend_chirp.cu (K5's
 chirp-z kernel at an fft_size that is not a power of two) and times it at
 8 kHz with fft_size 1500 and 216 outputs (512 x 5 s, phase 15's) without
 its forward FFT, the pointwise product, its inverse FFT, the projection's
 FMAs or the whole projection; then csrc/frontend_chirp_cluster.cu (the
 route past M = 8192) at fft_size 16000 (M = 16384, 64 x 5 s, phase 15's)
 without its forward FFT's passes after the first, the pointwise product,
-its inverse FFT, the projection's FMAs or the whole projection. The
-outputs of a variant are wrong by construction; only its time counts. The
+its inverse FFT, the projection's FMAs or the whole projection; then
+the route past M = 131072 on the device-memory passes (csrc/
+rfft_passes.cuh) at fft_size 261634 (M = 262144, 2 x 5 s, phase 15's)
+without each of its passes, the row pass's pointwise product or second
+FFTs, or the fused pass's split; then the dense template of csrc/
+frontend_frames.cu at the same shape without its DFT or its projection.
+The outputs of a variant are wrong by construction; only its time counts. The
 difference to `full` is what the stage costs. Needs one CUDA card and
 nvcc.
 """
@@ -49,6 +57,7 @@ from .. import _build
 from ..config import FeatureConfig, MfccConfig, n_frames
 from ..features.extract import FullFrontend, PackedFrontend
 from ..ops import framing, gpu_frontend
+from ..ops import frontend as frontend_ops
 
 # the projection walk the tile, the chirp-z kernel and the four-step
 # route share (rfft::project_bins)
@@ -95,9 +104,7 @@ SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "packed_tile.cuh",
 
 BIG_VARIANTS = {
     "full": [],
-    "passes": [("rfft_cluster.cuh",
-                "  return n >= MIN_N && n <= MAX_N && (n & (n - 1)) == 0;",
-                "  return false && n >= MIN_N && n <= MAX_N;")],
+    # the cluster route's spectrum kernel (32768 .. 262144 points)
     "no_loads": [("rfft_cluster.cu",
                   "    return make_float2(src.sample(g, j), "
                   "src.sample(g, j + 1));",
@@ -114,16 +121,38 @@ BIG_VARIANTS = {
     "no_post_twiddle": [("rfft_cluster.cu",
                          "    sincospif((float)k / (float)H, &s, &cs);",
                          "    s = 0.f;\n    cs = 1.f;")],
+    # the device-memory passes (past 262144 points): without the column
+    # pass, its twiddle step, the row pass (FFTs and power), or with every
+    # frame of a chunk in one group (no L2 grouping)
+    "no_columns": [("rfft_cluster.cu",
+                    "        direct ? cudaSuccess\n"
+                    "               : passes::columns(",
+                    "        true ? cudaSuccess\n"
+                    "               : passes::columns(")],
+    "no_twiddle_step": [("rfft_passes.cuh",
+                         "        cfft::cmul(x, tw(d * k1));",
+                         "        x;")],
+    "no_rows": [("rfft_cluster.cu",
+                 "      return passes::launch(passes::power_rows_kernel<LG2>,",
+                 "      if (true) return cudaSuccess;\n"
+                 "      return passes::launch(passes::power_rows_kernel<LG2>,"
+                 )],
+    "one_group": [("rfft_passes.cuh", "  return g < 1 ? 1 : (int)g;",
+                   "  return 65535;")],
+    # the fused pass: unsplit (S = 1 at any frame count), without its
+    # power staging, its FMAs or its whole walk
+    "no_split": [("rfft_big.cuh",
+                  "  if (blocks >= SPLIT_BLOCKS) return nbins;",
+                  "  if (true) return nbins;")],
     "no_row_fill": [("rfft_big.cuh",
-                     "        ys[f * ys_stride + j] = k < nbins && "
-                     "(live >> f & 1u)",
-                     "        ys[f * ys_stride + j] = true ? 0.f : k < nbins "
-                     "&& (live >> f & 1u)")],
+                     "      ys[f * YS + j] = k < nbins && (live >> f & 1u)",
+                     "      ys[f * YS + j] = true ? 0.f : k < nbins && "
+                     "(live >> f & 1u)")],
     "no_projection_fma": [NO_PROJECTION_FMA],
     "no_projection": NO_PROJECTION,
 }
 BIG_SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "rfft_cluster.cuh",
-               "rfft_cluster.cu", "frontend_big.cu")
+               "rfft_passes.cuh", "rfft_cluster.cu", "frontend_big.cu")
 # the chirp-z kernel at M = 1024 and 256 columns only (one instantiation)
 CHIRP_ONE = [
     ("frontend_chirp.cu",
@@ -163,7 +192,7 @@ CHIRP_VARIANTS = {
     "no_projection": NO_PROJECTION,
 }
 CHIRP_SOURCES = ("rfft_tile.cuh", "rfft_big.cuh", "rfft_cluster.cuh",
-                 "frontend_chirp.cu")
+                 "rfft_passes.cuh", "frontend_chirp.cu")
 # the cluster route at M = 16384 and up to 72 outputs only: the tile
 # kernel's M = 1024, the cluster of one block, OPL 9
 CLUSTER_ONE = [
@@ -194,6 +223,41 @@ CHIRP_CLUSTER_VARIANTS = {
 }
 CHIRP_CLUSTER_SOURCES = CHIRP_SOURCES + ("rfft_cluster.cu",
                                          "frontend_chirp_cluster.cu")
+# the chirp-z route on the device-memory passes (past M = 131072): without
+# its first column pass (over a = x c), its row pass, the row pass's
+# pointwise product or its second FFTs, its last column pass (into the
+# power rows), the fused pass's split or its whole projection
+CHIRP_PASSES_VARIANTS = {
+    "full": [],
+    "no_first_columns": [
+        ("frontend_chirp_cluster.cu",
+         "        direct ? cudaSuccess\n"
+         "               : passes::columns(",
+         "        true ? cudaSuccess\n"
+         "               : passes::columns(")],
+    "no_rows": [
+        ("frontend_chirp_cluster.cu",
+         "      return passes::launch(passes::chirp_rows_kernel<LG2>,",
+         "      if (true) return cudaSuccess;\n"
+         "      return passes::launch(passes::chirp_rows_kernel<LG2>,")],
+    "no_pointwise": [
+        ("rfft_passes.cuh",
+         "    const float2 y = cfft::cmul(v[s], __ldg(b + i));",
+         "    const float2 y = v[s];")],
+    "no_second_row_ffts": [
+        ("rfft_passes.cuh",
+         "    ffts<LG2, PAD>(v, tw, lgt, opaque_tid());\n"
+         "    if (turn == 1) break;",
+         "    if (turn == 0) ffts<LG2, PAD>(v, tw, lgt, opaque_tid());\n"
+         "    if (turn == 1) break;")],
+    "no_last_columns": [
+        ("frontend_chirp_cluster.cu",
+         "    err = passes::columns(\n        passes::MatrixIn{z, lgm},",
+         "    if (false) err = passes::columns(\n"
+         "        passes::MatrixIn{z, lgm},")],
+    "no_split": BIG_VARIANTS["no_split"],
+    "no_projection": NO_PROJECTION,
+}
 
 
 def bind(lib) -> None:
@@ -366,28 +430,44 @@ def bind_big(lib) -> None:
     lib.srt_big_scratch_floats.restype = ctypes.c_longlong
 
 
+# the four-step route's cases: (fs, utterances, samples each, fft_size):
+# phase 16's 8 x 5 s at 48 kHz of chip_smoke.py (2,488 frames) at 32768 (one
+# block) and 65536 (a cluster of 2), and its few frames at 8 kHz (2 x 4096
+# samples, 62 frames) at 262144 (a cluster of 8) and 524288 (past the
+# cluster's reach)
+BIG_CASES = ((48000, 8, 240000, 32768), (48000, 8, 240000, 65536),
+             (8000, 2, 4096, 262144), (8000, 2, 4096, 524288))
+
+
 def big_main(card: str, dev, rng, variants=None) -> None:
-    """The four-step route's passes, and its fused pass's parts."""
+    """The four-step route's kernels and its fused pass's parts, beside
+    the FFT route's plain version and cuFFT's rfft of the same frames."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         libs = build(tmp, variants or BIG_VARIANTS, BIG_SOURCES,
                      ("frontend_big.cu", "rfft_cluster.cu"), bind_big)
-        for n in (32768, 65536):
-            fe = FullFrontend(48000, FeatureConfig(mfcc=MfccConfig(
+        for fs, nutt, nsamp, n in BIG_CASES:
+            fe = FullFrontend(fs, FeatureConfig(mfcc=MfccConfig(
                 fft_size=n)), dev)
-            wp = frames_of(fe, 48000, 8, 5.0, rng, dev)
+            wp = frames_of(fe, fs, nutt, nsamp / fs, rng, dev)
             nf = wp.shape[0]
             nmel, nceps = fe.dct.shape
             nac = fe.acorr.shape[1]
             ceps = torch.empty(nf, nceps, device=dev)
             r = torch.empty(nf, nac, device=dev)
+            yard = {
+                "plain": lambda: gpu_frontend.mfcc_from_frames_fft_reference(
+                    wp, fe.mel, fe.dct, fe.floor, fe.acorr, n),
+                "rfft": lambda: torch.fft.rfft(wp, n=n)}
+            print(f"fft_ablation [{card}] four-step K5 {fs // 1000} kHz, "
+                  f"fft_size {n}, {nf} frames: the FFT route's plain version "
+                  f"{time_ms(yard['plain']):.3f} ms, cuFFT's "
+                  f"torch.fft.rfft(frames, n={n}) alone "
+                  f"{time_ms(yard['rfft']):.3f} ms", flush=True)
             for name, lib in libs.items():
                 op = gpu_frontend._fft_operator(fe.mel, fe.acorr, n, lib,
                                                 "srt_big_operator_shape")
-                per = lib.srt_big_scratch_floats(n, nmel + nac, 1)
-                chunk = int(max(1, min(65535, nf,
-                                       gpu_frontend.BIG_SCRATCH_BYTES
-                                       // (4 * per))))
+                chunk = gpu_frontend.big_chunk(lib, n, nmel + nac, nf)
                 sc = torch.empty(lib.srt_big_scratch_floats(
                     n, nmel + nac, chunk), device=dev)
 
@@ -398,10 +478,10 @@ def big_main(card: str, dev, rng, variants=None) -> None:
                         fe.frame_len, n, nmel, nac, nceps, fe.floor, chunk,
                         stream)
                     assert err == 0, err
-                print(f"fft_ablation [{card}] four-step K5 48 kHz, fft_size "
-                      f"{n}, {nf} frames (chunks of {chunk}), {name:17s} "
-                      f"{time_ms(call):.3f} ms; device ms a call by kernel "
-                      f"{device_ms(call)}", flush=True)
+                print(f"fft_ablation [{card}] four-step K5 {fs // 1000} kHz, "
+                      f"fft_size {n}, {nf} frames (chunks of {chunk}), "
+                      f"{name:17s} {time_ms(call):.3f} ms; device ms a call "
+                      f"by kernel {device_ms(call)}", flush=True)
                 del sc
             del wp
             torch.cuda.empty_cache()
@@ -458,6 +538,8 @@ def chirp_main(card: str, dev, rng, variants=None) -> None:
                       flush=True)
     del wp
     chirp_cluster_main(card, dev, rng)
+    chirp_passes_main(card, dev, rng)
+    dense_main(card, dev, rng)
 
 
 def chirp_cluster_main(card: str, dev, rng, variants=None) -> None:
@@ -507,6 +589,130 @@ def chirp_cluster_main(card: str, dev, rng, variants=None) -> None:
                          if rnd == 0 and name == "full" else "")
                 print(f"round {rnd} {name:18s} {time_ms(call):.3f} ms"
                       f"{extra}", flush=True)
+
+
+def chirp_passes_main(card: str, dev, rng, variants=None) -> None:
+    """The chirp-z route on the device-memory passes (csrc/
+    frontend_chirp_cluster.cu past M = 131072) at fft_size 261634 (M =
+    262144) on 2 x 5 s at 8 kHz (phase 15's), by stage, beside cuFFT's
+    rfft of the same frames."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = DENSE_FFT
+    fe = FullFrontend(8000, FeatureConfig(mfcc=MfccConfig(fft_size=n)), dev)
+    wp = frames_of(fe, 8000, 2, 5.0, rng, dev)
+    nf, flen = wp.shape
+    nmel, nceps = fe.dct.shape
+    nac = fe.acorr.shape[1]
+    ceps = torch.empty(nf, nceps, device=dev)
+    r = torch.empty(nf, nac, device=dev)
+    cz, _ = gpu_frontend.chirp_tables(n, flen, dev)
+    bh = gpu_frontend.chirp_cluster_bh(n, flen, dev)
+    variants = {k: CLUSTER_ONE + v
+                for k, v in (variants or CHIRP_PASSES_VARIANTS).items()}
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build(tmp, variants, CHIRP_CLUSTER_SOURCES,
+                     ("frontend_chirp.cu", "frontend_chirp_cluster.cu",
+                      "rfft_cluster.cu"), bind_chirp)
+        print(f"fft_ablation [{card}]: K5's chirp-z route on the passes, "
+              f"2 x 5 s @ 8 kHz, fft_size {n} (M "
+              f"{gpu_frontend.chirp_size(n, flen)}), {nmel} mel + {nac} "
+              f"lags, {nf} frames (S {gpu_frontend.fused_ranges(nf, n // 2 + 1)}"
+              f"), median of 7 trials of 3 calls; cuFFT's "
+              f"torch.fft.rfft(frames, n={n}) alone "
+              f"{time_ms(lambda: torch.fft.rfft(wp, n=n)):.3f} ms",
+              flush=True)
+        for rnd in range(2):
+            for name, lib in libs.items():
+                op = gpu_frontend._fft_operator(
+                    fe.mel, fe.acorr, n, lib, "srt_chirp_operator_shape",
+                    flen)
+                sc = torch.empty(lib.srt_chirp_scratch_floats(
+                    n, flen, nmel + nac, nf), device=dev)
+
+                def call():
+                    err = lib.srt_chirp_cluster_frontend(
+                        wp.data_ptr(), cz.data_ptr(), bh.data_ptr(),
+                        op.data_ptr(), fe.dct.data_ptr(), ceps.data_ptr(),
+                        r.data_ptr(), sc.data_ptr(), nf, flen, n, nmel,
+                        nac, nceps, fe.floor, nf, stream)
+                    assert err == 0, err
+                extra = (f"; device ms a call by kernel {device_ms(call)}"
+                         if rnd == 0 and name == "full" else "")
+                print(f"round {rnd} {name:18s} {time_ms(call):.3f} ms"
+                      f"{extra}", flush=True)
+                del sc
+
+
+# the dense template (csrc/frontend_frames.cu) without its DFT (the
+# K-slices of frames, C and S and their FMAs) or its projection onto mel
+# and autocorrelation
+DENSE_VARIANTS = {
+    "full": [],
+    "no_dft": [
+        ("frontend_frames.cu",
+         "    stage_slice(stages, fr, C, S, nf, flen, ncols, 0, c0, cw, "
+         "narrow, vf,\n                vo, tid);\n    cp_async_commit();\n"
+         "    for (int s = 0; s < nk; ++s) {",
+         "    for (int s = 0; s < 0; ++s) {")],
+    "no_projection": [
+        ("frontend_frames.cu", "    for (int oc = 0; oc < noc; ++oc) {",
+         "    for (int oc = 0; oc < 0; ++oc) {")],
+}
+# fft_size past the cluster chirp's reach at 8 kHz (M = 262144), on 2 x 5 s
+DENSE_FFT = 261634
+
+
+def bind_dense(lib) -> None:
+    """The argument types of csrc/frontend_frames.cu's C interface."""
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.srt_frames_frontend.argtypes = [p_] * 9 + [i_] * 6 + [f_, p_]
+    lib.srt_frames_scratch_floats.argtypes = [i_, i_]
+    lib.srt_frames_scratch_floats.restype = ctypes.c_longlong
+
+
+def dense_cs(flen: int, n: int, ncols: int, dev):
+    """C and S [flen, ncols] of the dense template (ops/frontend.
+    dft_power_projection, zero columns past n/2 + 1), f32 on dev."""
+    return tuple(torch.from_numpy(np.pad(x, ((0, 0), (0, ncols - x.shape[1])))
+                                  ).float().to(dev).contiguous()
+                 for x in frontend_ops.dft_power_projection(flen, n))
+
+
+def dense_main(card: str, dev, rng, variants=None) -> None:
+    """The dense template at fft_size 261634 (8 kHz, 2 x 5 s: 2 flen (n/2
+    + 1) FMAs a frame) by stage."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n = DENSE_FFT
+    fe = FullFrontend(8000, FeatureConfig(mfcc=MfccConfig(fft_size=n)), dev)
+    wp = frames_of(fe, 8000, 2, 5.0, rng, dev)
+    nf, flen = wp.shape
+    nmel, nceps = fe.dct.shape
+    nac = fe.acorr.shape[1]
+    ncols = fe.mel.shape[0]
+    C, S = dense_cs(flen, n, ncols, dev)
+    ceps = torch.empty(nf, nceps, device=dev)
+    r = torch.empty(nf, nac, device=dev)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs = build(tmp, variants or DENSE_VARIANTS, ("frontend_frames.cu",),
+                     ("frontend_frames.cu",), bind_dense)
+        sc = torch.empty(max(1, libs["full"].srt_frames_scratch_floats(
+            nf, nmel + nac)), device=dev)
+        print(f"fft_ablation [{card}]: the dense template, 2 x 5 s @ 8 kHz, "
+              f"fft_size {n}, {nmel} mel + {nac} lags, {nf} frames, C and S "
+              f"{tuple(C.shape)}, median of 5 trials of 1 call", flush=True)
+        for rnd in range(2):
+            for name, lib in libs.items():
+                def call():
+                    err = lib.srt_frames_frontend(
+                        wp.data_ptr(), C.data_ptr(), S.data_ptr(),
+                        fe.mel.data_ptr(), fe.acorr.data_ptr(),
+                        fe.dct.data_ptr(), ceps.data_ptr(), r.data_ptr(),
+                        sc.data_ptr(), nf, flen, ncols, nmel, nac, nceps,
+                        fe.floor, stream)
+                    assert err == 0, err
+                print(f"round {rnd} {name:18s} {time_ms(call, 5, 1):.3f} ms",
+                      flush=True)
+
 
 
 def main(argv=None):

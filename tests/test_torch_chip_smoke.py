@@ -165,13 +165,32 @@ def _frames_fft(frames, D, W, dct, floor, A, fft=None):
 
 
 def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
-    """The counters of the kernel mfcc_from_frames takes on the card."""
+    """The counters of the kernel mfcc_from_frames takes on the card (the
+    chirp-z route past M = 131072 on the device-memory passes, counted in
+    BIG_PASSES_LAUNCHES as well)."""
     if n_fft & (n_fft - 1):
-        return (("FULL_CHIRP_LAUNCHES",)
-                if gpu_frontend.chirp_size(n_fft, wp.shape[-1])
-                else ("FULL_DENSE_LAUNCHES",))
+        M = gpu_frontend.chirp_size(n_fft, wp.shape[-1])
+        if M > gpu_frontend.CHIRP_CLUSTER_M:
+            return ("FULL_CHIRP_LAUNCHES", "BIG_PASSES_LAUNCHES")
+        return ("FULL_CHIRP_LAUNCHES",) if M else ("FULL_DENSE_LAUNCHES",)
     return _tile_counters(n_fft, mel.shape[1] + acorr.shape[1],
                           "FULL_LAUNCHES", "FULL_BIG_LAUNCHES")
+
+
+def _chirp_past_cluster(wp, C, S, mel, dct, floor, acorr, n_fft):
+    """gpu_frontend.mfcc_from_frames, but on the chirp-z route past M =
+    131072 the FFT route's plain version: the function the card's kernel on
+    the passes computes, held to the dense and chirp-z plain versions by
+    chip_smoke.py phase 15 (on the CPU the wrapper runs the dense plain
+    version: 85 GFLOP a call at fft_size 261634)."""
+    if gpu_frontend.chirp_size(n_fft, wp.shape[-1]) > \
+            gpu_frontend.CHIRP_CLUSTER_M:
+        return gpu_frontend.mfcc_from_frames_fft_reference(
+            wp, mel, dct, floor, acorr, n_fft)
+    return _mfcc_from_frames(wp, C, S, mel, dct, floor, acorr, n_fft)
+
+
+_mfcc_from_frames = gpu_frontend.mfcc_from_frames
 
 
 def _fused(fn_name, counter):
@@ -220,7 +239,8 @@ def main():
     stand_ins = {"packed_from_signals": _fft_past_512("packed_from_signals",
                                                       _signals_fft),
                  "packed_from_frames": _fft_past_512("packed_from_frames",
-                                                     _frames_fft)}
+                                                     _frames_fft),
+                 "mfcc_from_frames": _chirp_past_cluster}
     for name, counter in (("packed_from_signals", _signals_counter),
                           ("packed_from_frames", _frames_counter),
                           ("mfcc_from_frames", _full_counter),
@@ -312,15 +332,17 @@ def test_chip_smoke_rehearses_on_the_cpu():
     sequence-sharded features), phase 21's bf16 operand modes (K1, K4, K2,
     K3), then the four-step route's other sizes (K1 at 65536, K5 at 262144
     on a cluster of 8 and at 524288 on the device-memory passes) and
-    phase 15's chirp-z route on the cluster (M = 16384 and 32768) and the
-    dense template past its reach, with every
-    key, each launched on its path but K4, which no serving path takes
-    (its launches against its plain version are demanded by phases 11 and
-    16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
+    phase 15's chirp-z route on the cluster (M = 16384 and 32768) and past
+    it on the device-memory passes (M = 262144), with every
+    key, each launched on its path but K4, which no serving path takes,
+    and the dense template, which serves only past M = 2^23 (their
+    launches against their plain versions are demanded by phases 11, 15
+    and 16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
     and 16384-point FFTs, 266 outputs, the 96 kHz CLI slice, the
     monolith's cases, the grid phase, the live path (216 outputs on the
-    chirp-z kernel, the dense template beside it and past the chirp's
-    reach, the VAD, k-means, the GUI's conversation with the JAX package's
+    chirp-z kernel, the dense template beside it and at 16000, the chirp
+    on the passes at 261634, the VAD, k-means, the GUI's conversation with
+    the JAX package's
     timeline), the lifted limits, float64 on the device, JFA
     with its CLI, the RBM family with crbm_cli and the multi-device
     programs at world size 1 all run."""
@@ -363,17 +385,20 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "bank_sum_loglik_bf16", "packed_frontend_n65536",
         "mfcc_from_frames_n262144", "mfcc_from_frames_n524288",
         "mfcc_from_frames_chirp_m16384", "mfcc_from_frames_chirp_m32768",
-        "mfcc_from_frames_dense_past_reach"]
+        "mfcc_from_frames_chirp_m262144"]
     assert kernels[19]["source"].endswith("csrc/predict_fused_big.cu")
     assert kernels[20]["source"].endswith("csrc/predict_fused_big.cu")
     assert [k["source"].rsplit("/", 1)[1] for k in kernels[24:]] == [
         "frontend_bf16.cu", "frontend_bf16.cu", "gmm_score_bf16.cu",
         "gmm_serial_bf16.cu", "rfft_cluster.cu", "rfft_cluster.cu",
-        "rfft_big.cuh", "frontend_chirp_cluster.cu",
-        "frontend_chirp_cluster.cu", "frontend_frames.cu"]
+        "rfft_passes.cuh", "frontend_chirp_cluster.cu",
+        "frontend_chirp_cluster.cu", "frontend_chirp_cluster.cu"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
-        if k["name"].startswith("packed_from_frames"):
+        # K4 and the dense template (past M = 2^23 only, since the chirp-z
+        # route took fft_size 261634) serve no path the run drives
+        if (k["name"].startswith("packed_from_frames")
+                or k["name"] == "mfcc_from_frames_dense"):
             assert k["launches"] == 0, k
         else:
             assert k["launches"] >= 1, k
@@ -453,9 +478,11 @@ def test_chip_smoke_rehearses_on_the_cpu():
              "16384)", "{'FULL_CHIRP_LAUNCHES': 1}"),
             ("phase 15 8 kHz, fft_size 33000 (chirp-z on the cluster, M "
              "32768)", "{'FULL_CHIRP_LAUNCHES': 1}"),
-            ("phase 15 8 kHz, fft_size 261634 (past the chirp-z route's "
-             "reach), 2 x 5 s through extract_batch",
-             "{'FULL_DENSE_LAUNCHES': 1}"),
+            ("phase 15 8 kHz, fft_size 261634 (chirp-z on the passes, M "
+             "262144), 2 x 5 s through extract_batch",
+             "{'FULL_CHIRP_LAUNCHES': 1, 'BIG_PASSES_LAUNCHES': 1}"),
+            ("phase 15 dense kernel (direct), 8 kHz, fft_size 16000",
+             "bitwise True"),
             ("phase 15 spectral gate", "two calls bitwise equal True"),
             ("phase 15 a tick's batch (8, 12288): two calls bitwise equal",
              "True")):
@@ -474,6 +501,13 @@ def test_chip_smoke_rehearses_on_the_cpu():
     assert any(ln.startswith("phase 15 a tick's predict_scores vs the plain "
                              "versions") and "argmax identical True" in ln
                for ln in lines)
+    # the fused pass's split at few frames (62 at 8 kHz, 638 at 261634)
+    for nm, split in (("fft_size 262144,", "S 29 over 62 frames"),
+                      ("fft_size 524288,", "S 31 over 62 frames"),
+                      ("fft_size 261634 (chirp-z on the passes",
+                       "split in S 4)")):
+        assert any(ln.startswith(("phase 15 [", "phase 16 [")) and nm in ln
+                   and split in ln for ln in lines), nm
     for start, end in (
             ("phase 16 K1 384 kHz through extract_batch",
              "{'BIG_LAUNCHES': 1}"),
@@ -483,6 +517,9 @@ def test_chip_smoke_rehearses_on_the_cpu():
             ("phase 16 K5 8 kHz, fft_size 262144", "{'FULL_BIG_LAUNCHES': 1}"),
             ("phase 16 K5 8 kHz, fft_size 524288",
              "{'FULL_BIG_LAUNCHES': 1, 'BIG_PASSES_LAUNCHES': 1}"),
+            ("phase 16 K5 48 kHz, fft_size 524288, 2 x 0.05 s (the "
+             "device-memory passes with their column pass)",
+             "on the card only"),
             ("phase 16 K1 8 kHz, 200 ms frames, fft_size 4096, 600 mel",
              "{'LAUNCHES': 1, 'CHUNKED_LAUNCHES': 1}"),
             ("phase 16 K1 and K5: 512 outputs bitwise equal inside 616",

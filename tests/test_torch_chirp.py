@@ -9,12 +9,13 @@ its XLA extractor, on the same numpy inputs: 8 kHz with fft_size 1500 and
 216 outputs, 44.1 kHz with fft_size 1411 (the frame), a folded 48 kHz
 frame (fft_size 1000 < 1536), a prime fft_size (1009), M at the tile
 kernel's reach (8192) and past it on the cluster (16384: fft_size 15874
-and 16000; 32768: fft_size 33000, csrc/frontend_chirp_cluster.cu). Also
-the tables against float64, which counter each shape's launch moves on
-the card (a stand-in library records the C calls; past the cluster's
-reach the dense template; the four-step route's device-memory passes past
-262144 points), and the shapes of the chirp-z and four-step operators and
-shared memory (models of the C functions)."""
+and 16000; 32768: fft_size 33000, csrc/frontend_chirp_cluster.cu) and on
+the device-memory passes (262144: fft_size 261634). Also the tables
+against float64, which counter each shape's launch moves on the card (a
+stand-in library records the C calls; the four-step route's
+device-memory passes past 262144 points and the chirp's past M =
+131072), and the shapes of the chirp-z and four-step operators and shared
+memory (models of the C functions)."""
 
 import contextlib
 import types
@@ -48,8 +49,9 @@ CASES = {  # id: (fs, fft_size, mel filters, frames; M, route on the card)
     "8k_16000": (8000, 16000, 26, 8, 16384, "chirp"),
     "8k_33000": (8000, 33000, 26, 8, 32768, "chirp"),
 }
-# a shape past the cluster's reach (M would be 262144): the dense template
-PAST_CLUSTER = (8000, 261634, 26, 4, 0, "dense")
+# a shape past the cluster's reach (M = 262144): the chirp-z route on the
+# device-memory passes
+PAST_CLUSTER = (8000, 261634, 26, 4, 262144, "chirp")
 
 
 def _t(x):
@@ -77,19 +79,22 @@ def _frames(n, flen, seed=2):
 def test_chirp_size_and_reach():
     """M is the least power of two, at least 1024, that holds the linear
     convolution of L = min(flen, N) and L + N/2 terms; 0 for a power of
-    two and past 131072 (the dense template's shapes): the tile kernel up
-    to 8192, the cluster from 16384 (fft_size 15874 and 16000 at 8 kHz,
-    14000 at 48 kHz) to 131072 (8 blocks of 16384 points)."""
+    two and past 2^23 (the dense template's shapes): the tile kernel up to
+    8192, the cluster from 16384 (fft_size 15874 and 16000 at 8 kHz, 14000
+    at 48 kHz) to 131072 (8 blocks of 16384 points), the device-memory
+    passes from 262144 (fft_size 261634 at 8 kHz) to 2^23."""
     size = gpu_frontend.chirp_size
     assert [size(n, f) for n, f in ((1500, 256), (1411, 1411), (1000, 1536),
                                     (1009, 512), (400, 400), (15872, 256),
                                     (15874, 256), (14000, 1536), (4096, 1536),
                                     (1, 10), (16000, 256), (33000, 256),
                                     (261630, 256), (261634, 256),
-                                    (260000, 1536))] == [
+                                    (260000, 1536), (16776000, 256),
+                                    (16777214, 256), (16777218, 1))] == [
         1024, 4096, 2048, 1024, 1024, 8192, 16384, 16384, 0, 0, 16384,
-        32768, 131072, 0, 0]
-    assert gpu_frontend.CHIRP_MAX_M == 8 * gpu_frontend.CLUSTER_BLOCK
+        32768, 131072, 262144, 262144, 1 << 23, 0, 0]
+    assert gpu_frontend.CHIRP_CLUSTER_M == 8 * gpu_frontend.CLUSTER_BLOCK
+    assert gpu_frontend.CHIRP_MAX_M == 1 << 23
     for fs, fft, _, _, M, _ in [*CASES.values(), PAST_CLUSTER]:
         flen, _ = tcfg.frame_geometry(fs, 32.0, 16.0)
         assert size(fft, flen) == M
@@ -189,14 +194,18 @@ def _chirp_route(monkeypatch):
 
 @pytest.mark.parametrize("case", ["8k_1500_216", "44k_1411",
                                   "48k_1000_folded", "16k_prime_1009",
-                                  "8k_16000"])
+                                  "8k_16000", "past_cluster"])
 def test_extract_batch_on_the_chirp_route_matches_jax(case, monkeypatch):
     """extract_batch on the full route (SRTPU_FRONTEND=full) through the
     chirp-z plain version vs the JAX XLA extractor (f32) on the same
     route, ragged lengths with an empty utterance, CMVN'd MFCC + LPC; the
     bound of tests/test_torch_fft.py's extract_batch cases (two f32
-    frontends of different arithmetic)."""
-    fs, fft, nfilt, _, _, _ = CASES[case]
+    frontends of different arithmetic). past_cluster: fft_size 261634 at 8
+    kHz, M = 262144, the passes' shape."""
+    fs, fft, nfilt, _, M, _ = (PAST_CLUSTER if case == "past_cluster"
+                               else CASES[case])
+    assert gpu_frontend.chirp_size(fft, tcfg.frame_geometry(
+        fs, 32.0, 16.0)[0]) == M
     monkeypatch.setenv("SRTPU_FRONTEND", "full")
     _chirp_route(monkeypatch)
 
@@ -343,18 +352,20 @@ COUNTERS = ("FULL_LAUNCHES", "FULL_CHIRP_LAUNCHES", "FULL_DENSE_LAUNCHES",
     ("8k_past_15874", "srt_chirp_cluster_frontend"),
     ("8k_16000", "srt_chirp_cluster_frontend"),
     ("8k_33000", "srt_chirp_cluster_frontend"),
-    ("past_cluster", "srt_frames_frontend"),
+    ("past_cluster", "srt_chirp_cluster_frontend"),
 ], ids=["1500", "1411", "1000_folded", "1009", "reach", "past_reach",
         "16000", "33000", "past_cluster_reach"])
 def test_the_card_route_and_its_counter(stand_in, case, entry):
     """On a CUDA tensor mfcc_from_frames takes the chirp-z route where M
-    <= 131072 (FULL_CHIRP_LAUNCHES, the tables c [L] and Bh [M] and the
-    packed operator passed): the tile kernel up to M = 8192, the cluster
-    past it (fft_size 15874, 16000 and 33000 at 8 kHz; Bh in the
-    cluster's decimated order, and a scratch in chunks of frames), the
-    dense template past M = 131072 (FULL_DENSE_LAUNCHES, C and S passed);
-    exactly one counter moves, and FullFrontend builds C and S on the card
-    only for the dense route."""
+    <= 2^23 (FULL_CHIRP_LAUNCHES, the tables c [L] and Bh [M] and the
+    packed operator passed): the tile kernel up to M = 8192, past it
+    csrc/frontend_chirp_cluster.cu with a scratch in chunks of frames, on
+    the cluster up to 131072 (fft_size 15874, 16000 and 33000 at 8 kHz; Bh
+    in the cluster's decimated order), on the device-memory passes past it
+    (fft_size 261634, M = 262144; Bh as [M1][M2], and BIG_PASSES_LAUNCHES
+    moves too); exactly the route's counters move, and FullFrontend builds
+    C and S on the card only for the dense route (tests/test_torch_fft.py
+    holds a shape past 2^23)."""
     fs, fft, nfilt, n, M, route = (PAST_CLUSTER if case == "past_cluster"
                                    else CASES[case])
     cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=fft,
@@ -371,9 +382,11 @@ def test_the_card_route_and_its_counter(stand_in, case, entry):
         _cuda(cpu.acorr), fft)
     moved = {k: getattr(gpu_frontend, k) - v for k, v in before.items()}
     assert ceps.shape == (n, 13) and r.shape == (n, 16)
-    want = "FULL_CHIRP_LAUNCHES" if route == "chirp" else \
-        "FULL_DENSE_LAUNCHES"
-    assert moved == {k: int(k == want) for k in COUNTERS}
+    want = {"FULL_CHIRP_LAUNCHES"} if route == "chirp" else \
+        {"FULL_DENSE_LAUNCHES"}
+    if M > gpu_frontend.CHIRP_CLUSTER_M:
+        want.add("BIG_PASSES_LAUNCHES")
+    assert moved == {k: int(k in want) for k in COUNTERS}
     assert list(stand_in.calls) == [entry]
     args = stand_in.calls[entry]
     if route == "chirp":
@@ -385,11 +398,18 @@ def test_the_card_route_and_its_counter(stand_in, case, entry):
         assert bh.shape == (M, 2)
         if M <= 8192:
             assert args[7] == 0  # no sums rows up to 512 outputs
-        else:  # the decimated Bh [m2][m1] = Bh[C m1 + m2]; a chunk
+            return
+        dec = gpu_frontend.chirp_cluster_bh(fft, cpu.frame_len)
+        if M <= gpu_frontend.CHIRP_CLUSTER_M:
+            # the decimated Bh [m2][m1] = Bh[C m1 + m2]; a chunk
             C = M // gpu_frontend.CLUSTER_BLOCK
-            dec = gpu_frontend.chirp_cluster_bh(fft, cpu.frame_len)
             assert dec.shape == (C, gpu_frontend.CLUSTER_BLOCK, 2)
             assert torch.equal(dec[1 % C, 5], bh[C * 5 + 1 % C])
+            assert args[7] != 0 and args[15] == n
+        else:  # Bh as [M1][M2]: Bh[k1 + M1 k2] at [k1][k2]; a chunk
+            M1, M2 = gpu_frontend.passes_shape(M)
+            assert dec.shape == (M1, M2, 2)
+            assert torch.equal(dec[5, 3], bh[5 + M1 * 3])
             assert args[7] != 0 and args[15] == n
 
 
@@ -469,13 +489,14 @@ def test_shared_memory_of_both_routes_fits():
     operator width (the widest 230,336 bytes, M = 2048), with the narrow
     operator chunk; the wide one (twice the bins) fits at the bench's nb
     of 751 (M = 1024) and 501 (48 kHz, fft_size 1000: M = 2048); the
-    four-step
-    route's fused pass takes at most 98 KB (the power of 2048 bins of 8
-    frames beside a chunk of 16 x 512 operator rows), 49 KB on the
-    cluster routes' power rows (stages of 512 bins); a block of the cluster
-    FFT (csrc/rfft_cluster.cuh: 16384 complex values with a float2 of
-    padding after every 16, and the two-level twiddle table of W_M) takes
-    at most 145,408 bytes, at M = 131072 (8 blocks), one block an SM."""
+    four-step route's fused pass takes at most 49 KB (the power rows in
+    stages of 512 bins of 8 frames beside a chunk of 16 x 512 operator
+    rows); a block of the cluster FFT (csrc/rfft_cluster.cuh: 16384
+    complex values with a float2 of padding after every 16, and the
+    two-level twiddle table of W_M) takes at most 145,408 bytes, at M =
+    131072 (8 blocks), one block an SM; a block of the device-memory
+    passes (csrc/rfft_passes.cuh: the same values with 32 more float2 of
+    padding, and the table of W_T) at most 188,672 bytes, at T = 2^23."""
     worst = max(_chirp_smem(M, opl, M) for M in (1024, 2048, 4096, 8192)
                 for opl in (9, 16, 32, 64))
     assert worst == _chirp_smem(2048, 64, 2048) == 230336
@@ -483,16 +504,15 @@ def test_shared_memory_of_both_routes_fits():
     for M, nb in ((1024, 751), (2048, 501)):
         wide = _chirp_smem(M, 32, nb) + 4 * _ck_chirp(32) * 8 * 32
         assert wide <= 232448, (M, nb, wide)
-    big = max(4 * (_ck_big(opl) * 8 * opl + 8 * (min(4 << (lgn - 1 - (lgn - 1)
-                                                             // 2), 2048) + 1))
-              for lgn in range(15, 25) for opl in (9, 16, 32, 64))
-    assert big == 4 * (16 * 512 + 8 * 2049)
     rows = max(4 * (_ck_big(opl) * 8 * opl + 8 * (512 + 1))
                for opl in (9, 16, 32, 64))
     assert rows == 4 * (16 * 512 + 8 * 513) == 49184
 
-    def cluster(lgm):  # srt_cluster::smem_bytes
+    def cluster(lgm, pad=0):  # srt_cluster / passes::smem_bytes
         lgb = (lgm + 1) // 2
-        return 8 * (16384 + 16384 // 16 + (1 << lgb) + (1 << (lgm - lgb)))
+        return 8 * (16384 + 16384 // 16 + pad + (1 << lgb)
+                    + (1 << (lgm - lgb)))
     sizes = [cluster(lgm) for lgm in range(14, 18)]  # M = 16384 .. 131072
     assert max(sizes) == cluster(17) == 145408 <= 232448 < 2 * cluster(14)
+    passes = [cluster(lgt, 32) for lgt in range(18, 24)]
+    assert max(passes) == cluster(23, 32) == 188672 <= 232448

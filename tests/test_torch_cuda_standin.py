@@ -5,8 +5,11 @@ thread, __syncthreads and cluster.sync() barriers, another rank's shared
 memory at the same offset in its buffer), called through their C entry
 points on CPU tensors and held to the port's plain versions: K5 on the
 four-step route at N = 32768 (one block; also a frame longer than N,
-folded) and 65536 (a cluster of 2), and on the chirp-z route past M = 8192
-at fft_size 16000 (M = 16384) and 33000 (M = 32768, a cluster of 2). It
+folded), 65536 (a cluster of 2) and 524288 (the device-memory passes of
+csrc/rfft_passes.cuh), and on the chirp-z route past M = 8192 at fft_size
+16000 (M = 16384), 33000 (M = 32768, a cluster of 2) and 261634 (M =
+262144, on the passes). At a few frames the fused pass splits its bins
+(rfft_big::ranges), so every case runs the split and its combine. It
 checks the kernels' index maps, barriers and exchanges as the source
 states them; what nvcc or the card make of them shows only on the card
 (chip_smoke.py phases 15 and 16). Skips without g++."""
@@ -26,9 +29,11 @@ torch.set_num_threads(2)
 from speaker_recognition_tpu_torch import _build  # noqa: E402
 from speaker_recognition_tpu_torch.config import (  # noqa: E402
     FeatureConfig, MfccConfig)
+from speaker_recognition_tpu_torch.features import extract as text  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     FullFrontend)
 from speaker_recognition_tpu_torch.ops import gpu_frontend  # noqa: E402
+from speaker_recognition_tpu_torch.ops import levinson  # noqa: E402
 
 STANDIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_standin")
@@ -88,6 +93,7 @@ def lib(tmp_path_factory):
     lib.srt_chirp_scratch_floats.restype = ctypes.c_longlong
     lib.srt_chirp_cluster_frontend.argtypes = [p_] * 8 + [i_] * 6 + [f_, i_,
                                                                      p_]
+    lib.srt_big_ranges.argtypes = [i_, i_]
     return lib
 
 
@@ -110,65 +116,92 @@ def _close(name, got, want):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("n_fft,flen", [(32768, 1536), (32768, 40000),
-                                        (65536, 1536)],
+def _operators(fs, n_fft):
+    """(frame_len, floor, mel, dct, acorr) of the full frontend at fs and
+    n_fft as f32 CPU tensors, without its C and S (a frontend on the CPU
+    builds them: 3 GB at 524288 points)."""
+    cfg = FeatureConfig(mfcc=MfccConfig(fft_size=n_fft))
+    fe = FullFrontend(fs, cfg, "meta")
+    mel, dct = text._mel_dct(fs, cfg.mfcc)
+    acorr = levinson.autocorr_operator(fe.frame_len, n_fft, fe.lpc_order)
+    pad = ((0, fe.mel.shape[0] - mel.shape[0]), (0, 0))
+    return (fe.frame_len, fe.floor,
+            *(torch.from_numpy(np.ascontiguousarray(x)).float()
+              for x in (np.pad(mel, pad), dct, np.pad(acorr, pad))))
+
+
+@pytest.mark.parametrize("n_fft,flen,n", [(32768, 1536, 3), (32768, 40000, 3),
+                                          (65536, 1536, 3),
+                                          (524288, 1536, 2),
+                                          (524288, 256, 2)],
                          ids=["32768_one_block", "32768_folded",
-                              "65536_two_ranks"])
-def test_the_four_step_route_on_the_cluster(lib, n_fft, flen):
+                              "65536_two_ranks", "524288_passes",
+                              "524288_passes_short_frame"])
+def test_the_four_step_route_on_the_cluster(lib, n_fft, flen, n):
     """srt_big_fft_frames (the spectrum kernel on a block or a cluster of
-    2, then the fused projection pass on its power rows) against
-    mfcc_from_frames_fft_reference, 48 kHz operators, 3 frames; two calls
-    give the same bits."""
-    fe = FullFrontend(48000, FeatureConfig(mfcc=MfccConfig(fft_size=n_fft)),
-                      "cpu")
-    wp = _frames(3, flen, n_fft + flen)
-    nmel, nceps = fe.dct.shape
-    nac = fe.acorr.shape[1]
-    op = gpu_frontend._fft_operator(fe.mel, fe.acorr, n_fft, lib,
+    2, or the column and row passes at 524288, the row pass alone, loading
+    from the frame, for a frame of 256 samples, then the fused projection
+    pass on the power rows, split over the bins) against
+    mfcc_from_frames_fft_reference, 48 kHz operators, n frames; two calls
+    give the same bits (one call on the passes, ~10 s in the stand-in); the
+    split is the one fused_ranges states."""
+    _, floor, mel, dct, acorr = _operators(48000, n_fft)
+    wp = _frames(n, flen, n_fft + flen)
+    nmel, nceps = dct.shape
+    nac = acorr.shape[1]
+    nb = n_fft // 2 + 1
+    assert lib.srt_big_ranges(n, nb) == gpu_frontend.fused_ranges(n, nb) > 1
+    op = gpu_frontend._fft_operator(mel, acorr, n_fft, lib,
                                     "srt_big_operator_shape")
-    sc = torch.empty(lib.srt_big_scratch_floats(n_fft, nmel + nac, 3))
+    sc = torch.empty(lib.srt_big_scratch_floats(n_fft, nmel + nac, n))
 
     def call():
-        ceps, r = torch.empty(3, nceps), torch.empty(3, nac)
+        ceps, r = torch.empty(n, nceps), torch.empty(n, nac)
         assert lib.srt_big_fft_frames(
-            wp.data_ptr(), op.data_ptr(), fe.dct.data_ptr(), ceps.data_ptr(),
-            r.data_ptr(), sc.data_ptr(), 3, flen, n_fft, nmel, nac, nceps,
-            fe.floor, 3, None) == 0
+            wp.data_ptr(), op.data_ptr(), dct.data_ptr(), ceps.data_ptr(),
+            r.data_ptr(), sc.data_ptr(), n, flen, n_fft, nmel, nac, nceps,
+            floor, n, None) == 0
         return ceps, r
     got = call()
-    again = call()
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if n_fft <= gpu_frontend.CLUSTER_MAX_N:
+        again = call()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
     _close(f"{n_fft}", got, gpu_frontend.mfcc_from_frames_fft_reference(
-        wp, fe.mel, fe.dct, fe.floor, fe.acorr, n_fft))
+        wp, mel, dct, floor, acorr, n_fft))
 
 
-@pytest.mark.parametrize("n_fft,M", [(16000, 16384), (33000, 32768)],
-                         ids=["16000_M16384", "33000_M32768"])
-def test_the_chirp_route_on_the_cluster(lib, n_fft, M):
-    """srt_chirp_cluster_frontend (the forward FFT, the pointwise product
-    with the decimated Bh and the inverse in one buffer a rank, the power
-    rows, the fused projection) against mfcc_from_frames_chirp_reference
-    on the same tables, 8 kHz operators, 3 frames."""
-    fe = FullFrontend(8000, FeatureConfig(mfcc=MfccConfig(fft_size=n_fft)),
-                      "cpu")
-    flen = fe.frame_len
+@pytest.mark.parametrize("fs,n_fft,M,n", [
+    (8000, 16000, 16384, 3), (8000, 33000, 32768, 3),
+    (8000, 261634, 262144, 2), (48000, 261000, 262144, 1)],
+    ids=["16000_M16384", "33000_M32768", "261634_M262144_passes",
+         "48k_261000_M262144_column_pass"])
+def test_the_chirp_route_on_the_cluster(lib, fs, n_fft, M, n):
+    """srt_chirp_cluster_frontend (on the cluster: the forward FFT, the
+    pointwise product with the decimated Bh and the inverse in one buffer a
+    rank; at M = 262144 the passes: the row pass with Bh as [M1][M2] and
+    the second transform's rows, its values straight from a short frame
+    (256 samples at 8 kHz) or from the column pass over a = x c (1536 at
+    48 kHz), the column pass into power rows; then the fused projection)
+    against mfcc_from_frames_chirp_reference on the same tables, n
+    frames."""
+    flen, floor, mel, dct, acorr = _operators(fs, n_fft)
     assert gpu_frontend.chirp_size(n_fft, flen) == M
-    wp = _frames(3, flen, n_fft)
-    nmel, nceps = fe.dct.shape
-    nac = fe.acorr.shape[1]
+    wp = _frames(max(n, 2), flen, n_fft)[:n].contiguous()
+    nmel, nceps = dct.shape
+    nac = acorr.shape[1]
     nb = n_fft // 2 + 1
     rows = -(-nb // 64) * 64  # the fused pass's chunk up to 72 outputs
     op = torch.zeros(rows, 72)
-    op[:nb, :nmel + nac] = torch.cat([fe.mel[:nb], fe.acorr[:nb]], 1)
+    op[:nb, :nmel + nac] = torch.cat([mel[:nb], acorr[:nb]], 1)
     cz, _ = gpu_frontend.chirp_tables(n_fft, flen)
     bh = gpu_frontend.chirp_cluster_bh(n_fft, flen)
     sc = torch.empty(lib.srt_chirp_scratch_floats(n_fft, flen, nmel + nac,
-                                                  3))
-    ceps, r = torch.empty(3, nceps), torch.empty(3, nac)
+                                                  n))
+    ceps, r = torch.empty(n, nceps), torch.empty(n, nac)
     assert lib.srt_chirp_cluster_frontend(
         wp.data_ptr(), cz.data_ptr(), bh.data_ptr(), op.data_ptr(),
-        fe.dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), sc.data_ptr(), 3,
-        flen, n_fft, nmel, nac, nceps, fe.floor, 3, None) == 0
+        dct.data_ptr(), ceps.data_ptr(), r.data_ptr(), sc.data_ptr(), n,
+        flen, n_fft, nmel, nac, nceps, floor, n, None) == 0
     _close(f"chirp {n_fft}", (ceps, r),
            gpu_frontend.mfcc_from_frames_chirp_reference(
-               wp, fe.mel, fe.dct, fe.floor, fe.acorr, n_fft))
+               wp, mel, dct, floor, acorr, n_fft))

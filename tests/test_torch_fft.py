@@ -254,24 +254,35 @@ def test_extract_batch_on_the_fft_route_matches_jax(case, monkeypatch):
                                atol=2e-2)
 
 
-@pytest.mark.parametrize("fs,fft_size,dense", [
-    (48000, 2048, False), (48000, 1500, False), (8000, 261634, True),
-    (48000, 14000, False)],
+# a frame of one sample at 8 kHz, two filters, no LPC: the least C and S
+# (1 x 8,388,612) past the chirp-z route's reach, where M would be 2^24
+PAST_REACH = dict(win_length_ms=0.125, win_shift_ms=0.125, n_filters=2,
+                  n_ceps=1)
+
+
+@pytest.mark.parametrize("fs,fft_size,dense,mfcc", [
+    (48000, 2048, False, {}), (48000, 1500, False, {}),
+    (8000, 16777218, True, PAST_REACH), (48000, 14000, False, {}),
+    (8000, 261634, False, {})],
     ids=["power_of_two", "not_a_power_of_two", "past_the_chirp_reach",
-         "past_the_chirp_tile"])
-def test_full_frontend_operators_follow_the_route(fs, fft_size, dense):
+         "past_the_chirp_tile", "past_the_cluster"])
+def test_full_frontend_operators_follow_the_route(fs, fft_size, dense, mfcc):
     """On the card the full-spectrum frontend keeps C and S only where the
     dense kernel reads them (an fft_size that is not a power of two and
-    whose chirp-z convolution passes 131072 points: 261634 at 8 kHz; 1500
-    takes the chirp-z kernel at 48 kHz, 14000 its cluster route, M =
-    16384); on the CPU its plain version always reads them."""
-    cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=fft_size))
+    whose chirp-z convolution passes 2^23 points: 16777218 with a frame of
+    one sample; 1500 takes the chirp-z kernel at 48 kHz, 14000 its cluster
+    route, M = 16384, 261634 at 8 kHz the passes, M = 262144); on the CPU
+    its plain version always reads them."""
+    cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=fft_size, **mfcc),
+                             use_lpc=not mfcc)
     fe = text.FullFrontend(fs, cfg, "meta")
     nb = fft_size // 2 + 1
     assert fe.n_fft == fft_size and fe.mel.shape[0] == nb + (-nb % 4)
     assert (fe.C is not None) == (fe.S is not None) == dense
     cpu = text.FullFrontend(fs, cfg, "cpu")
-    assert cpu.C.shape == (_geometry(fs)[0], nb + (-nb % 4))
+    flen = tcfg.frame_geometry(fs, cfg.mfcc.win_length_ms,
+                               cfg.mfcc.win_shift_ms)[0]
+    assert cpu.C.shape == (flen, nb + (-nb % 4))
 
 
 class _ShapeLib:
