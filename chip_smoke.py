@@ -105,7 +105,10 @@ raises and the exit code is non-zero):
      262144, on 2 x 5 s) vs its three plain versions through extract_batch
      (the chirp and passes counters once, the dense template never) and
      directly, timed beside the dense template on the same frames, its
-     fused pass's split printed; the LTSD VAD and the
+     fused pass's split printed; past the chirp-z route's reach (fft_size
+     16777218: M would be 2^24) the dense template through extract_batch
+     on 2 utterances of two-sample frames (its counter once, nothing
+     else) vs its plain version, and directly; the LTSD VAD and the
      spectral gate on the card vs the CPU at float64 (identical intervals, two
      calls bitwise); Lloyd's on the card vs the CPU at float64 from one
      init, k-means|| over 8 seeds against the CPU's median inertia, and
@@ -126,7 +129,9 @@ raises and the exit code is non-zero):
      frame's spectrum on one block and on a cluster of 2; K1 and K4 at
      65536 with 64 ms frames; K5 at 262144 on a cluster of 8 and at 524288
      on the device-memory passes, a few frames each, the fused pass split
-     over the bins, its S printed beside the stages' device times) and past
+     over the bins, its S printed beside the stages' device times; at
+     524288 also on 62 frames of 1536 samples at 48 kHz, which take the
+     column pass, timed alike) and past
      512 outputs on the FFT tile (600 mel filters + LPC at 8 kHz, 200 ms
      frames, fft_size 4096), each against the FFT route's plain version
      (and K5 against the dense one, K1 at 616 outputs against the float64
@@ -185,10 +190,10 @@ raises and the exit code is non-zero):
      interleaved set; the bf16 kernels' occupancy
 The line before the last is {"kernels": [...]}, each kernel with its
 launches on the main path (0 for K4, which no serving path takes; K5's
-chirp-z kernel's on extract_batch at 216 outputs; 0 for the dense
-template, which serves only past M = 2^23, a shape no phase drives;
-phase 15's and 16's routes on their extract_batch drives), its
-error against its plain version, its time, its plain version's time and
+chirp-z kernel's on extract_batch at 216 outputs; the dense template's
+on extract_batch past M = 2^23; phase 15's and 16's routes on their
+extract_batch drives), its error against its plain version, its time,
+its plain version's time and
 its bound (the larger of the least FLOPs of
 its function over the FP32 peak, the bf16 modes' products over the dense
 bf16 tensor-core peak, and its bytes over the memory rate, from this run's
@@ -381,6 +386,17 @@ ROUTE_FFTS = (262144, 524288)
 # dense template served before
 CHIRP_CLUSTER_FFTS = (16000, 33000)  # BIG_B and 8 utterances
 PAST_CLUSTER_FFT = 261634
+# past the chirp-z route's reach (M would be 2^24) the dense template: at 8
+# kHz, fft_size 16777218 on frames of two samples, 2 filters, no LPC (C and
+# S of 2 x 8,388,612). A frame of one sample has a flat spectrum, so its
+# cepstrum past c0 is the same for every frame and CMVN scales rounding up
+# to O(1); two samples make it vary. 2 utterances of these samples
+PAST_REACH_FFT = 16777218
+PAST_REACH = FeatureConfig(
+    mfcc=MfccConfig(fft_size=PAST_REACH_FFT, win_length_ms=0.25,
+                    win_shift_ms=0.25, n_filters=2, n_ceps=1),
+    use_lpc=False)
+PAST_REACH_LENGTHS = (96, 64)
 # (trials, calls a trial) of those routes' timings: the chirp on the
 # cluster beside the dense template; the small cases past it
 ROUTE_TRIALS, SMALL_TRIALS = (7, 3), (5, 1)
@@ -1440,20 +1456,31 @@ def frames_work(fe, n_frames_: int, nbytes_in: int) -> dict:
                  + 4 * sum(x.numel() for x in (mel, ac, fe.dct)))
 
 
-def check_column_pass(dev, rng, n: int) -> float:
-    """K5 at n points past the cluster's reach on frames of 1536 samples (48
-    kHz, 2 utterances of 0.05 s: 8 frames), which hold more values than a
-    row of the passes' matrix, so that the column pass runs (the 8 kHz
-    frames' row pass loads them itself); held to the FFT route's plain
-    version, two calls bitwise. On the card only: the dense plain version
-    there, and any plain version on the CPU, would take C and S of 1536 x
-    (n/2 + 1) points (3.2 GB at 524288)."""
-    name = (f"K5 48 kHz, fft_size {n}, 2 x 0.05 s (the device-memory passes "
-            "with their column pass)")
+def fused_split(nfc: int, nbins: int, dev) -> str:
+    """S, the bin ranges the four-step route's fused pass splits a chunk of
+    nfc frames of nbins bins into, as the library states the rule
+    (srt_big_ranges: csrc/rfft_big.cuh rfft_big::ranges); the CPU builds no
+    library."""
+    if dev.type != "cuda":
+        return "not built (CPU)"
+    return str(_build.load().srt_big_ranges(nfc, nbins))
+
+
+def check_column_pass(dev, rng, card, n: int) -> float:
+    """K5 at n points past the cluster's reach on 62 frames of 1536 samples
+    (48 kHz, 2 x 24,576 samples), which hold more values than a row of the
+    passes' matrix, so that the column pass runs (the 8 kHz frames' row
+    pass loads them itself); held to the FFT route's plain version, two
+    calls bitwise, then timed beside it, cuFFT's rfft and the bound. On
+    the card only: the dense plain version there, and any plain version on
+    the CPU, would take C and S of 1536 x (n/2 + 1) points (3.2 GB at
+    524288)."""
+    L = 24576
+    name = (f"K5 48 kHz, fft_size {n}, 2 x {L / FS48:g} s (the "
+            "device-memory passes with their column pass)")
     if dev.type != "cuda":
         print(f"phase 16 {name}: on the card only", flush=True)
         return 0.0
-    L = int(FS48 * 0.05)
     sig, lens = signals_batch(rng, [L, L * 2 // 3], padded(L), dev)
     fe = FullFrontend(FS48, FeatureConfig(mfcc=MfccConfig(fft_size=n)), dev)
     if (fe.frame_len + 1) // 2 <= gpu_frontend.passes_shape(n // 2)[1]:
@@ -1462,7 +1489,60 @@ def check_column_pass(dev, rng, n: int) -> float:
     err = check_frames(16, name, fe, sig, lens, dense=False)
     if gpu_frontend.BIG_PASSES_LAUNCHES - before != 2:
         raise AssertionError(f"{name}: not on the device-memory passes")
+    fargs, B, T = frames_args(fe, sig, dense=False)
+    kern, plains, _ = frames_kernel(fe, dense=False)
+    t = time_interleaved({
+        "kernel": lambda: kern(*fargs),
+        "plain": lambda: plains["fft"](*fargs),
+        "rfft": lambda: torch.fft.rfft(fargs[0], n=n)}, *SMALL_TRIALS)
+    b = frames_work(fe, B * T, 4 * fargs[0].numel())
+    print(f"phase 16 [{card}] {name}: {t['kernel']:.3f} ms, plain "
+          f"{t['plain']:.3f} ms, cuFFT's torch.fft.rfft(frames, n={n}) "
+          f"alone {t['rfft']:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']}); the fused pass split in S "
+          f"{fused_split(B * T, n // 2 + 1, dev)} over {B * T} frames; "
+          f"device ms a call by kernel (stages) "
+          f"{kernel_times(lambda: kern(*fargs))}", flush=True)
     return err
+
+
+def extract_vs_dense(phase, name, fe, cfg, sig, lengths,
+                     counter) -> tuple[int, float]:
+    """extract_batch on the full route (fe: its FullFrontend for cfg at
+    the bench rate), the frontend counters set to 0 just before and read
+    just after (`counter` once, the others 0), its features held to the
+    dense plain version's through the frontend's CMVN and LPC. Returns
+    (the counter's launches, the max abs error)."""
+    args, B, T = frames_args(fe, sig)
+    mask = framing.frame_validity_mask(lengths, T, fe.frame_len,
+                                       fe.frame_shift)
+    want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args)
+    want, wmask = fe.finish(want_c.view(B, T, -1), want_r.view(B, T, -1),
+                            mask)
+    del args, want_c, want_r
+    os.environ["SRTPU_FRONTEND"] = "full"
+    try:
+        reset_frontend_counts()
+        feats, fmask = extract.extract_batch(sig, lengths, BENCH_FS, cfg)
+        torch.cuda.synchronize()
+        counts = frontend_counts()
+    finally:
+        os.environ.pop("SRTPU_FRONTEND", None)
+    d_mfcc, d_lpc, lpc_bad = feature_errors(feats, want, wmask,
+                                            fe.dct.shape[1])
+    print(f"phase {phase} extract_batch @ {name}: features "
+          f"{tuple(feats.shape)} vs the dense plain version: mfcc max|d| "
+          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
+          f"{lpc_bad}), launches { {k: v for k, v in counts.items() if v} }",
+          flush=True)
+    if (counts != {k: int(k == counter) for k in counts}
+            or feats.shape != want.shape or not torch.equal(fmask, wmask)
+            or not torch.isfinite(feats).all()
+            or d_mfcc > MFCC_ATOL or lpc_bad):
+        raise AssertionError(f"extract_batch at {name} did not launch "
+                             f"{counter} once and nothing else, or "
+                             "disagrees with the dense plain version")
+    return counts[counter], max(d_mfcc, d_lpc)
 
 
 def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
@@ -1610,7 +1690,7 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
         fe = FullFrontend(BENCH_FS, cfg, dev)
         err5 = check_frames(16, nm, fe, s8r, l8r)
         if passes:
-            err5 = max(err5, check_column_pass(dev, rng, n))
+            err5 = max(err5, check_column_pass(dev, rng, card, n))
         want = {"FULL_BIG_LAUNCHES": 1}
         if passes:
             want["BIG_PASSES_LAUNCHES"] = 1
@@ -1623,15 +1703,13 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
             "plain": lambda: plains["fft"](*fargs),
             "rfft": lambda: torch.fft.rfft(fargs[0], n=n)}, *SMALL_TRIALS)
         b5 = frames_work(fe, B_ * T_, 4 * fargs[0].numel())
-        # the fused pass's split over the bins for these few frames (one
-        # chunk), the same rule in Python and in the library
-        S = gpu_frontend.fused_ranges(B_ * T_, n // 2 + 1)
-        if dev.type == "cuda" and (
-                gpu_frontend.big_chunk(_build.load(), n, fe.mel.shape[1]
-                                       + fe.acorr.shape[1], B_ * T_)
-                != B_ * T_
-                or _build.load().srt_big_ranges(B_ * T_, n // 2 + 1) != S):
-            raise AssertionError(f"{nm}: the split is not fused_ranges'")
+        # the fused pass's split over the bins for these few frames, in one
+        # chunk
+        S = fused_split(B_ * T_, n // 2 + 1, dev)
+        if dev.type == "cuda" and gpu_frontend.big_chunk(
+                _build.load(), n, fe.mel.shape[1] + fe.acorr.shape[1],
+                B_ * T_) != B_ * T_:
+            raise AssertionError(f"{nm}: more than one chunk")
         print(f"phase 16 [{card}] {nm}: {t5['kernel']:.3f} ms, plain "
               f"{t5['plain']:.3f} ms, cuFFT's torch.fft.rfft(frames, n={n}) "
               f"alone {t5['rfft']:.3f} ms, bound {b5['bound_ms']:.4f} ms "
@@ -3917,8 +3995,6 @@ def main(argv=None):
     # the dense template on the same frames, launched directly: it now
     # serves only past the chirp-z route's reach (M > 2^23)
     err_dense = check_dense(15, "216 outputs", fe216, bench_sig, bench_len)
-    mask216 = framing.frame_validity_mask(bench_len, T216, fe216.frame_len,
-                                          fe216.frame_shift)
     # an output's arithmetic does not depend on how many there are: 144
     # outputs equal their copies among 216 bitwise, on both kernels
     fe144 = FullFrontend(BENCH_FS, FeatureConfig(mfcc=MfccConfig(
@@ -3946,41 +4022,11 @@ def main(argv=None):
     # extract_batch at 216 outputs takes the chirp-z kernel once and the
     # dense template never, and its features match the dense plain
     # version's
-    want_c, want_r = gpu_frontend.mfcc_from_frames_reference(*args216)
-    want216, wmask216 = fe216.finish(
-        want_c.view(B216, T216, -1), want_r.view(B216, T216, -1), mask216)
-    del want_c, want_r
-    reset_frontend_counts()
-    os.environ["SRTPU_FRONTEND"] = "full"
-    feats216, fmask216 = extract.extract_batch(bench_sig, bench_len,
-                                               BENCH_FS, DENSE216)
-    del os.environ["SRTPU_FRONTEND"]
-    torch.cuda.synchronize()
-    counts216 = frontend_counts()
-    launches_chirp = counts216["FULL_CHIRP_LAUNCHES"]
-    # no path the run drives takes the dense template now (past M = 2^23
-    # only): its launches on the main path are this drive's, 0
-    launches_dense = counts216["FULL_DENSE_LAUNCHES"]
-    d_mfcc, d_lpc, lpc_bad = feature_errors(feats216, want216, wmask216,
-                                            fe216.dct.shape[1])
-    print(f"phase 15 extract_batch @ 8 kHz, fft_size 1500, 216 outputs "
-          f"(SRTPU_FRONTEND=full), {BENCH_B} x {BENCH_SEC:g} s: features "
-          f"{tuple(feats216.shape)} vs the dense plain version: mfcc max|d| "
-          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
-          f"{lpc_bad}), launches { {k: v for k, v in counts216.items() if v} }"
-          f", chirp-z kernel launches {launches_chirp}, dense kernel "
-          f"launches {counts216['FULL_DENSE_LAUNCHES']}", flush=True)
-    if (counts216 != {k: int(k == "FULL_CHIRP_LAUNCHES")
-                      for k in counts216}
-            or feats216.shape != want216.shape
-            or not torch.equal(fmask216, wmask216)
-            or not torch.isfinite(feats216).all()
-            or d_mfcc > MFCC_ATOL or lpc_bad):
-        raise AssertionError("extract_batch at 216 outputs did not run the "
-                             "chirp-z kernel once and the dense one never, "
-                             "or disagrees with the dense plain version")
-    err_chirp = max(err_chirp, d_mfcc, d_lpc)
-    del feats216, fmask216, want216, wmask216
+    launches_chirp, err216 = extract_vs_dense(
+        15, f"8 kHz, fft_size 1500, 216 outputs (SRTPU_FRONTEND=full), "
+        f"{BENCH_B} x {BENCH_SEC:g} s", fe216, DENSE216, bench_sig, bench_len,
+        "FULL_CHIRP_LAUNCHES")
+    err_chirp = max(err_chirp, err216)
     # the chirp-z route on the cluster: fft_size 16000 (M = 16384, one
     # block) on 64 bench utterances (its M-point plain version takes 2.7 GB
     # a tensor there) and 33000 (M = 32768, two blocks) on 8 utterances, each against the three plain versions, two calls
@@ -4055,7 +4101,7 @@ def main(argv=None):
     fargs, Bp, Tp = frames_args(fe_past, sp)
     kern, plains, _ = frames_kernel(fe_past)
     nb_past = PAST_CLUSTER_FFT // 2 + 1
-    S_past = gpu_frontend.fused_ranges(Bp * Tp, nb_past)
+    S_past = fused_split(Bp * Tp, nb_past, dev)
     tp = time_interleaved({
         "kernel": lambda: kern(*fargs),
         "dense": lambda: gpu_frontend.mfcc_from_frames_dense(*fargs),
@@ -4079,6 +4125,32 @@ def main(argv=None):
                          launches_past, err_past, tp["kernel"], tp["plain"],
                          bp))
     del fargs, fe_past
+    torch.cuda.empty_cache()
+    # past the chirp-z route's reach the dense template, through
+    # extract_batch (its launches on the main path) and directly
+    Lr = PAST_REACH_LENGTHS
+    sr, lr = signals_batch(rng, list(Lr), Lr[0], dev)
+    fe_reach = FullFrontend(BENCH_FS, PAST_REACH, dev)
+    if gpu_frontend.chirp_size(PAST_REACH_FFT, fe_reach.frame_len):
+        raise AssertionError(f"fft_size {PAST_REACH_FFT}: on the chirp-z "
+                             "route")
+    nm = (f"8 kHz, fft_size {PAST_REACH_FFT} (the dense template past the "
+          f"chirp-z reach), frames of two samples, 2 filters, no LPC, 2 x "
+          f"{Lr[0]} samples")
+    launches_dense, err_reach = extract_vs_dense(
+        15, nm, fe_reach, PAST_REACH, sr, lr, "FULL_DENSE_LAUNCHES")
+    extract._frontend.cache_clear()
+    err_dense = max(err_dense, err_reach,
+                    check_dense(15, nm, fe_reach, sr, lr))
+    rargs, _, _ = frames_args(fe_reach, sr)
+    tr = time_interleaved({
+        "kernel": lambda: gpu_frontend.mfcc_from_frames_dense(*rargs),
+        "plain": lambda: gpu_frontend.mfcc_from_frames_reference(*rargs)},
+        *SMALL_TRIALS)
+    print(f"phase 15 [{card}] {nm} ({tuple(rargs[0].shape)} frames): dense "
+          f"template {tr['kernel']:.3f} ms, its plain version "
+          f"{tr['plain']:.3f} ms", flush=True)
+    del sr, lr, rargs, fe_reach
     torch.cuda.empty_cache()
     # the chirp-z kernel beside the dense template, the FFT route's plain
     # version (the chirp kernel's plain version: torch.fft.rfft at 1500

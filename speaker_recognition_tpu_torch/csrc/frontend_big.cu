@@ -23,8 +23,8 @@ extern "C" long long srt_big_scratch_floats(int nfft, int nout, int chunk) {
 }
 
 // S, the bin ranges the route's fused pass splits a chunk of nfc frames of
-// nbins bins into (1: no split); ops/gpu_frontend.fused_ranges is the same
-// rule in Python.
+// nbins bins into (1: no split): the rule's one statement, which
+// chip_smoke.py and the tests read.
 extern "C" int srt_big_ranges(int nfc, int nbins) {
   if (nfc < 1 || nbins < 1) return -1;
   return rfft_big::ranges(nfc, nbins);

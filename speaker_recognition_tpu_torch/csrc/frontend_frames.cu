@@ -36,10 +36,16 @@
 //     bins) puts the slice's samples on the lanes instead of the columns
 //     and sums the lanes with shuffles, so it costs a few percent of a full
 //     chunk, not a full one;
-//   * it forms re^2 + im^2 with the per-bin floor and folds the chunk's
-//     power into register accumulators for the nmel + nac outputs (a lane:
-//     FT/32 frames x OPL outputs), so re, im and the power spectrum never
-//     reach device memory;
+//   * it forms re^2 + im^2 with the per-bin floor and sums the chunk's
+//     power onto the nmel + nac outputs in f32 registers (a lane: FT/32
+//     frames x OPL outputs), in order over the chunk's at most CC bins,
+//     then adds that partial to the output's running sum over the chunks,
+//     held in float64, so re, im and the power spectrum never reach device
+//     memory. One f32 running sum over all bins drifted by percents at
+//     fft_size 16777218 (8.4M bins: each term a few ulps of the sum, and
+//     every add rounded the same way); a sum of CC terms in f32 and a
+//     float64 sum across chunks keep the error near f32 rounding at any
+//     column count;
 //   * log and DCT run per frame at the end of the block.
 // Any frame length is taken (K-slices are zero-padded: 1411 samples at
 // 44.1 kHz), any column count (FullFrontend pads its bins to a multiple of
@@ -48,9 +54,10 @@
 // from the first column chunk to the last. Past 192 the projection loops
 // over output chunks of 192 inside each column chunk, and each chunk's
 // sums live between column chunks in the block's rows of a global
-// scratch [blocks * FT, chunks * 192] (L2-resident: a lane reloads and
-// stores its own entries, the same FMA sequence as in registers); the last
-// column chunk writes the log-mel rows there and the DCT reads them. The
+// scratch of doubles [blocks * FT, chunks * 192] (L2-resident: a lane
+// reloads and stores its own entries, the same sums as in registers); the
+// last column chunk writes the log-mel rows there and the DCT reads them.
+// The
 // DFT runs once whatever the count; at most 192 outputs take no scratch
 // and their arithmetic is unchanged.
 // Built without --use_fast_math, for the accurate logf.
@@ -161,7 +168,7 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
     const float* __restrict__ frames, const float* __restrict__ C,
     const float* __restrict__ S, const float* __restrict__ W,
     const float* __restrict__ A, const float* __restrict__ dct,
-    float* __restrict__ ceps, float* __restrict__ r, float* scratch, int n,
+    float* __restrict__ ceps, float* __restrict__ r, double* scratch, int n,
     int flen, int ncols, int nmel, int nac, int nceps, float power_floor,
     bool vf, bool vo) {
   constexpr int FPW = FT / 8;   // frames per warp (and per lane, stage 1)
@@ -178,7 +185,7 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
   // output chunks of NOP; past the first, the sums live in `scratch`
   const int noc = (nout + NOP - 1) / NOP;
   const int nopt = noc * NOP;  // scratch row stride
-  float* rows = scratch + (size_t)f0 * nopt;  // the block's rows, noc > 1
+  double* rows = scratch + (size_t)f0 * nopt;  // the block's rows, noc > 1
   const int nk = (flen + KT - 1) / KT;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -187,11 +194,11 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
   const int og = lane % 8;                // stage 2: outputs og + 8*jj
   const float* fr = frames + (size_t)f0 * flen;
 
-  float acc[FPL][OPL];
+  double acc[FPL][OPL];  // the sums over the column chunks so far
 #pragma unroll
   for (int i = 0; i < FPL; ++i)
 #pragma unroll
-    for (int j = 0; j < OPL; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < OPL; ++j) acc[i][j] = 0.0;
 
   for (int c0 = 0; c0 < ncols; c0 += CC) {
     const int cw = min(CC, ncols - c0);
@@ -306,8 +313,13 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
 #pragma unroll
           for (int j = 0; j < OPL; ++j)
             acc[i][j] =
-                c0 == 0 ? 0.f : rows[(f2 + i) * nopt + o0 + og + 8 * j];
+                c0 == 0 ? 0.0 : rows[(f2 + i) * nopt + o0 + og + 8 * j];
       }
+      float part[FPL][OPL];  // this chunk's sums, in order over its bins
+#pragma unroll
+      for (int i = 0; i < FPL; ++i)
+#pragma unroll
+        for (int j = 0; j < OPL; ++j) part[i][j] = 0.f;
       for (int cc = 0; cc < cw; ++cc) {
         float y[FPL], w[OPL];
 #pragma unroll
@@ -318,8 +330,12 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
         for (int i = 0; i < FPL; ++i)
 #pragma unroll
           for (int j = 0; j < OPL; ++j)
-            acc[i][j] = fmaf(y[i], w[j], acc[i][j]);
+            part[i][j] = fmaf(y[i], w[j], part[i][j]);
       }
+#pragma unroll
+      for (int i = 0; i < FPL; ++i)
+#pragma unroll
+        for (int j = 0; j < OPL; ++j) acc[i][j] += part[i][j];
       if (noc > 1) {  // the last column chunk leaves the log-mel rows
 #pragma unroll
         for (int i = 0; i < FPL; ++i)
@@ -327,7 +343,7 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
           for (int j = 0; j < OPL; ++j) {
             const int o = o0 + og + 8 * j;
             rows[(f2 + i) * nopt + o] =
-                last && o < nmel ? logf(fmaxf(acc[i][j], power_floor))
+                last && o < nmel ? logf(fmaxf((float)acc[i][j], power_floor))
                                  : acc[i][j];
           }
       }
@@ -338,14 +354,16 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
   if (noc > 1) {  // the scratch rows hold log-mel | autocorrelation
     for (int i = tid; i < nf * nceps; i += NT) {
       const int f = i / nceps, c = i % nceps;
-      const float* lm = rows + (size_t)f * nopt;
+      const double* lm = rows + (size_t)f * nopt;
       float s = 0.f;
-      for (int m = 0; m < nmel; ++m) s = fmaf(lm[m], dct[m * nceps + c], s);
+      for (int m = 0; m < nmel; ++m)
+        s = fmaf((float)lm[m], dct[m * nceps + c], s);
       ceps[(size_t)(f0 + f) * nceps + c] = s;
     }
     for (int i = tid; i < nf * nac; i += NT) {
       const int f = i / nac, j = i % nac;
-      r[(size_t)(f0 + f) * nac + j] = rows[(size_t)f * nopt + nmel + j];
+      r[(size_t)(f0 + f) * nac + j] =
+          (float)rows[(size_t)f * nopt + nmel + j];
     }
     return;
   }
@@ -356,8 +374,8 @@ __global__ void __launch_bounds__(NT, 1) frames_frontend_kernel(
 #pragma unroll
     for (int j = 0; j < OPL; ++j) {
       const int o = og + 8 * j;
-      sums[(f2 + i) * NOP + o] =
-          o < nmel ? logf(fmaxf(acc[i][j], power_floor)) : acc[i][j];
+      sums[(f2 + i) * NOP + o] = o < nmel
+          ? logf(fmaxf((float)acc[i][j], power_floor)) : (float)acc[i][j];
     }
   __syncthreads();
 
@@ -383,7 +401,7 @@ static_assert(4 * smem_floats(24) <= MAX_SMEM, "the widest block fits");
 template <int OPL>
 cudaError_t launch(cudaStream_t st, const float* frames, const float* C,
                    const float* S, const float* W, const float* A,
-                   const float* dct, float* ceps, float* r, float* scratch,
+                   const float* dct, float* ceps, float* r, double* scratch,
                    int n, int flen, int ncols, int nmel, int nac, int nceps,
                    float power_floor) {
   const auto aligned = [](const float* p) {
@@ -405,12 +423,12 @@ cudaError_t launch(cudaStream_t st, const float* frames, const float* C,
 }  // namespace
 
 // Floats of the global scratch a call of n frames with nout = nmel + nac
-// outputs needs: 0 up to 192 outputs, else a row of every output chunk for
-// each frame of every block.
+// outputs needs: 0 up to 192 outputs, else a row of doubles (two floats
+// each) of every output chunk for each frame of every block.
 extern "C" long long srt_frames_scratch_floats(int n, int nout) {
   if (nout <= 8 * 24) return 0;
   const long long chunks = (nout + 8 * 24 - 1) / (8 * 24);
-  return (long long)((n + FT - 1) / FT) * FT * chunks * (8 * 24);
+  return 2LL * ((n + FT - 1) / FT) * FT * chunks * (8 * 24);
 }
 
 // C and S [flen, ncols], W [ncols, nmel], A [ncols, nac], dct [nmel,
@@ -428,7 +446,7 @@ extern "C" int srt_frames_frontend(
     return (int)launch<decltype(oc)::value>(
         (cudaStream_t)stream, (const float*)frames, (const float*)C,
         (const float*)S, (const float*)W, (const float*)A, (const float*)dct,
-        (float*)ceps, (float*)r, (float*)scratch, n, flen, ncols, nmel, nac,
+        (float*)ceps, (float*)r, (double*)scratch, n, flen, ncols, nmel, nac,
         nceps, power_floor);
   };
   return opl == 9    ? go(std::integral_constant<int, 9>{})

@@ -78,8 +78,8 @@ counter, and compute the same function:
     the column and row passes of csrc/rfft_passes.cuh over a device scratch
     (counted in BIG_PASSES_LAUNCHES as well, by these wrappers and
     gpu_predict's); its fused projection pass splits the bins into
-    `fused_ranges(frames, bins)` ranges where the frames are few (the
-    same rule in C: srt_big_ranges);
+    ranges where the frames are few (srt_big_ranges: csrc/rfft_big.cuh
+    rfft_big::ranges, from the chunk's frame and bin counts);
   * past 512 mel + autocorrelation outputs the FFT tile projects onto
     chunks of 512 outputs in turn, the sums in device rows
     (CHUNKED_LAUNCHES, counted beside the kernel's own counter).
@@ -137,12 +137,6 @@ CHIRP_MIN_M, CHIRP_TILE_M, CHIRP_CLUSTER_M = 1024, 8192, 131072
 CHIRP_MAX_M = 1 << 23
 # complex values a block of the cluster FFT holds
 CLUSTER_BLOCK = 16384
-# the four-step route's fused pass (csrc/rfft_big.cuh): frames a block, the
-# bins its fill stages at a time, and its split over the bins: none from
-# SPLIT_BLOCKS blocks on, else about SPLIT_TARGET blocks of ranges of at
-# least SPLIT_MIN_BINS bins
-FUSED_FRAMES, ROW_BINS = 8, 512
-SPLIT_BLOCKS, SPLIT_TARGET, SPLIT_MIN_BINS = 128, 256, 4096
 # device scratch the four-step route takes at most for a chunk of frames:
 # its fused power + projection pass runs a block per 8 frames of a chunk,
 # and a chunk of 1 GiB (8,174 frames' power rows at 65536 points; the
@@ -234,23 +228,6 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
     power = torch.clamp_min(_power(wp, n_fft), floor)
     return (torch.log(torch.clamp_min(power @ mel[:nb], floor)) @ dct,
             power @ acorr[:nb])
-
-
-def fused_ranges(nfc: int, nbins: int) -> int:
-    """S, the bin ranges the four-step route's fused pass splits a chunk of
-    nfc frames of nbins bins into (csrc/rfft_big.cuh rfft_big::ranges): 1
-    where ceil(nfc / 8) blocks reach SPLIT_BLOCKS; else ranges of a multiple
-    of ROW_BINS bins, about SPLIT_TARGET blocks in all and at least
-    SPLIT_MIN_BINS bins a range. From the shape alone, never the device."""
-    blocks = -(-nfc // FUSED_FRAMES)
-    if blocks >= SPLIT_BLOCKS:
-        return 1
-    s = min(-(-SPLIT_TARGET // blocks), nbins // SPLIT_MIN_BINS)
-    if s <= 1:
-        return 1
-    r = -(-nbins // s)  # bins a range, to a multiple of ROW_BINS
-    r = -(-r // ROW_BINS) * ROW_BINS
-    return -(-nbins // r)
 
 
 def chirp_size(n_fft: int, frame_len: int) -> int:

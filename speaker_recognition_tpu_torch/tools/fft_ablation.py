@@ -16,8 +16,10 @@ device time (torch.profiler: the spectrum kernel or the passes, the fused
 power + projection and its split's combine, the outputs) and times K5 at
 48 kHz with fft_size 32768 (one block) and 65536 (a cluster of 2) (8 x 5
 s, phase 16's batch of chip_smoke.py) and at 8 kHz with 262144 (a
-cluster of 8) and 524288 (the passes) on phase 16's 62 frames, beside
-the FFT route's plain version and cuFFT's rfft, as it is and without the
+cluster of 8) and 524288 (the passes) on phase 16's 62 frames, and at 48
+kHz with 524288 on 62 frames of 1536 samples (the passes with their
+column pass), each beside the FFT route's plain version and cuFFT's rfft
+and with the split's S, as it is and without the
 spectrum kernel's frame loads, its four passes after the first, the
 exchange across the cluster (the reads of every rank's slots and the
 C-point DFTs), the post-step's twiddles, the passes' column pass, its
@@ -428,15 +430,19 @@ def bind_big(lib) -> None:
     lib.srt_big_operator_shape.argtypes = [i_, i_, ip, ip, ip]
     lib.srt_big_scratch_floats.argtypes = [i_, i_, i_]
     lib.srt_big_scratch_floats.restype = ctypes.c_longlong
+    lib.srt_big_ranges.argtypes = [i_, i_]
 
 
 # the four-step route's cases: (fs, utterances, samples each, fft_size):
 # phase 16's 8 x 5 s at 48 kHz of chip_smoke.py (2,488 frames) at 32768 (one
 # block) and 65536 (a cluster of 2), and its few frames at 8 kHz (2 x 4096
 # samples, 62 frames) at 262144 (a cluster of 8) and 524288 (past the
-# cluster's reach)
+# cluster's reach: frames of 256 samples fit a row of the passes' matrix,
+# which the row pass loads itself), and 62 frames of 1536 samples at 48 kHz
+# (2 x 24,576 samples) at 524288, which take the column pass
 BIG_CASES = ((48000, 8, 240000, 32768), (48000, 8, 240000, 65536),
-             (8000, 2, 4096, 262144), (8000, 2, 4096, 524288))
+             (8000, 2, 4096, 262144), (8000, 2, 4096, 524288),
+             (48000, 2, 24576, 524288))
 
 
 def big_main(card: str, dev, rng, variants=None) -> None:
@@ -479,7 +485,8 @@ def big_main(card: str, dev, rng, variants=None) -> None:
                         stream)
                     assert err == 0, err
                 print(f"fft_ablation [{card}] four-step K5 {fs // 1000} kHz, "
-                      f"fft_size {n}, {nf} frames (chunks of {chunk}), "
+                      f"fft_size {n}, {nf} frames (chunks of {chunk}, S "
+                      f"{lib.srt_big_ranges(chunk, n // 2 + 1)}), "
                       f"{name:17s} {time_ms(call):.3f} ms; device ms a call "
                       f"by kernel {device_ms(call)}", flush=True)
                 del sc
@@ -616,7 +623,8 @@ def chirp_passes_main(card: str, dev, rng, variants=None) -> None:
         print(f"fft_ablation [{card}]: K5's chirp-z route on the passes, "
               f"2 x 5 s @ 8 kHz, fft_size {n} (M "
               f"{gpu_frontend.chirp_size(n, flen)}), {nmel} mel + {nac} "
-              f"lags, {nf} frames (S {gpu_frontend.fused_ranges(nf, n // 2 + 1)}"
+              f"lags, {nf} frames (S "
+              f"{libs['full'].srt_big_ranges(nf, n // 2 + 1)}"
               f"), median of 7 trials of 3 calls; cuFFT's "
               f"torch.fft.rfft(frames, n={n}) alone "
               f"{time_ms(lambda: torch.fft.rfft(wp, n=n)):.3f} ms",

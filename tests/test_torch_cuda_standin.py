@@ -3,7 +3,9 @@ frontend_big.cu and frontend_chirp_cluster.cu compiled with g++ against the
 stand-in CUDA runtime of tests/cuda_standin/ (each thread of a block an OS
 thread, __syncthreads and cluster.sync() barriers, another rank's shared
 memory at the same offset in its buffer), called through their C entry
-points on CPU tensors and held to the port's plain versions: K5 on the
+points on CPU tensors: the fused pass's split rule and the scratch of
+a chunk of frames (srt_big_ranges, srt_big_scratch_floats) at the shapes
+the card runs, then, held to the port's plain versions, K5 on the
 four-step route at N = 32768 (one block; also a frame longer than N,
 folded), 65536 (a cluster of 2) and 524288 (the device-memory passes of
 csrc/rfft_passes.cuh), and on the chirp-z route past M = 8192 at fft_size
@@ -28,7 +30,7 @@ torch.set_num_threads(2)
 
 from speaker_recognition_tpu_torch import _build  # noqa: E402
 from speaker_recognition_tpu_torch.config import (  # noqa: E402
-    FeatureConfig, MfccConfig)
+    FeatureConfig, MfccConfig, frame_geometry, n_frames)
 from speaker_recognition_tpu_torch.features import extract as text  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     FullFrontend)
@@ -97,6 +99,51 @@ def lib(tmp_path_factory):
     return lib
 
 
+def _batch_frames(fs, B, seconds):
+    """Frames of B utterances of `seconds` at fs with the default 32 ms
+    window and 16 ms shift, padded as chip_smoke.py pads them (length
+    buckets of 4096 samples)."""
+    flen, shift = frame_geometry(fs, 32.0, 16.0)
+    Lp = -(-int(fs * seconds) // 4096) * 4096
+    return B * n_frames(Lp, flen, shift)
+
+
+def test_the_split_engages_only_at_few_frames(lib):
+    """The library's split rule (srt_big_ranges: rfft_big::ranges, from
+    the chunk's frame and bin counts alone): S = 1 wherever ceil(frames /
+    8) blocks reach 128, so phase 16's batches at 32768 and 65536 (8 x 5 s
+    at 48 kHz; 4 x 5 s at 384 kHz), each one chunk of the route's scratch,
+    keep their kernels' bits; the serving shapes (8 kHz and 48 kHz at the
+    default fft_size) do not take the four-step route at all. At phase
+    16's few frames (2 x 4096 samples at 8 kHz: 62 frames) and phase 15's
+    chirp at 261634 (2 x 5 s: 638 frames) S > 1, about 256 blocks in all,
+    each range at least 4096 bins."""
+    default = FeatureConfig()
+    for fs in (8000, 48000):
+        flen, _ = frame_geometry(fs, 32.0, 16.0)
+        assert max(default.mfcc.fft_size, flen) < gpu_frontend.BIG_N
+    for fs, B, n in ((48000, 8, 32768), (48000, 8, 65536),
+                     (384000, 4, 32768)):
+        nf = _batch_frames(fs, B, 5.0)
+        assert nf >= 1024
+        assert gpu_frontend.big_chunk(lib, n, 66, nf) == nf
+        assert lib.srt_big_ranges(nf, n // 2 + 1) == 1
+    few = _batch_frames(8000, 2, 4096 / 8000)
+    assert few == 62
+    for n, S in ((262144, 29), (524288, 31)):
+        assert lib.srt_big_ranges(few, n // 2 + 1) == S
+    assert lib.srt_big_ranges(_batch_frames(8000, 2, 5.0),
+                              261634 // 2 + 1) == 4
+    for nfc in (1, 7, 62, 300, 1016, 1017, 5000):
+        for nb in (16385, 131073, 262145, 4194305):
+            S = lib.srt_big_ranges(nfc, nb)
+            blocks = -(-nfc // 8)
+            if blocks >= 128 or nb < 2 * 4096:
+                assert S == 1
+                continue
+            assert S * blocks < 2 * 256 and nb // S >= 4096
+
+
 def _frames(n, flen, seed):
     wp = np.random.RandomState(seed).randn(n, flen) * 1000
     wp[1] = 0.0  # a silent frame: every bin on the floor
@@ -143,14 +190,14 @@ def test_the_four_step_route_on_the_cluster(lib, n_fft, flen, n):
     from the frame, for a frame of 256 samples, then the fused projection
     pass on the power rows, split over the bins) against
     mfcc_from_frames_fft_reference, 48 kHz operators, n frames; two calls
-    give the same bits (one call on the passes, ~10 s in the stand-in); the
-    split is the one fused_ranges states."""
+    give the same bits (one call on the passes, ~10 s in the stand-in); at
+    these few frames the fused pass splits its bins."""
     _, floor, mel, dct, acorr = _operators(48000, n_fft)
     wp = _frames(n, flen, n_fft + flen)
     nmel, nceps = dct.shape
     nac = acorr.shape[1]
     nb = n_fft // 2 + 1
-    assert lib.srt_big_ranges(n, nb) == gpu_frontend.fused_ranges(n, nb) > 1
+    assert lib.srt_big_ranges(n, nb) > 1
     op = gpu_frontend._fft_operator(mel, acorr, n_fft, lib,
                                     "srt_big_operator_shape")
     sc = torch.empty(lib.srt_big_scratch_floats(n_fft, nmel + nac, n))

@@ -285,6 +285,39 @@ def test_full_frontend_operators_follow_the_route(fs, fft_size, dense, mfcc):
     assert cpu.C.shape == (flen, nb + (-nb % 4))
 
 
+def test_dense_template_sums_hold_past_the_chirp_reach():
+    """The dense template's order of sums (csrc/frontend_frames.cu) at
+    fft_size 16777218 on frames of two samples (8.4M bins, chip_smoke.py
+    phase 15's shape past the chirp-z reach), modelled in numpy against the
+    float64 sum of power x mel: each 128-bin chunk summed in f32 and the
+    chunks in float64 stay within 1e-6 relative; the one f32 running sum
+    over all bins it replaced (each term a few ulps of the sum, every add
+    rounded alike) drifts past 1e-3."""
+    cfg = tcfg.FeatureConfig(
+        mfcc=tcfg.MfccConfig(fft_size=16777218, win_length_ms=0.25,
+                             win_shift_ms=0.25, n_filters=2, n_ceps=1),
+        use_lpc=False)
+    fe = text.FullFrontend(8000, cfg, "cpu")
+    C, S, mel = (x.numpy() for x in (fe.C, fe.S, fe.mel))
+    rng = np.random.RandomState(0)
+    worst_old = 0.0
+    for _ in range(2):
+        w = (rng.randn(2) * 300).astype(np.float32)
+        re = w[0] * C[0] + w[1] * C[1]
+        im = w[0] * S[0] + w[1] * S[1]
+        p = np.maximum(re * re + im * im, np.float32(fe.floor))
+        for j in range(2):
+            t = p * mel[:, j]  # f32 products
+            exact = float(np.dot(p.astype(np.float64), mel[:, j]))
+            chunks = np.cumsum(np.pad(t, (0, -len(t) % 128)).reshape(-1, 128),
+                               axis=1, dtype=np.float32)[:, -1]
+            new = float(np.sum(chunks.astype(np.float64)))
+            old = float(np.cumsum(t, dtype=np.float32)[-1])
+            assert abs(new / exact - 1) < 1e-6
+            worst_old = max(worst_old, abs(old / exact - 1))
+    assert worst_old > 1e-3
+
+
 class _ShapeLib:
     """The library's srt_fft_operator_shape in Python: chunks of 16 rows (32
     at n_fft 2048), 72 or 128 columns (csrc/rfft_tile.cuh)."""

@@ -1,6 +1,7 @@
 """The device-memory passes of csrc/rfft_passes.cuh modelled in float64
-numpy, and the four-step route's fused pass split over the bins
-(csrc/rfft_big.cuh).
+numpy, and the sums of the four-step route's fused pass split over the
+bins (csrc/rfft_big.cuh; the split's rule itself is held in
+tests/test_torch_cuda_standin.py, through the library's srt_big_ranges).
 
 The passes take a transform of T = 2^lgt complex points (T = N/2 for K5's
 real input past N = 262144, T = M for the chirp-z route past M = 131072) as
@@ -22,7 +23,6 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from speaker_recognition_tpu_torch import config as tcfg  # noqa: E402
 from speaker_recognition_tpu_torch.ops import gpu_frontend  # noqa: E402
 
 # csrc/rfft_passes.cuh: values a block, its threads, its slots
@@ -424,77 +424,18 @@ def test_chirp_bh_in_the_passes_order():
 
 # -- the fused pass's split --------------------------------------------------
 
-def _frames(fs, B, seconds, cfg):
-    """Frames of a batch as chip_smoke.py pads it (length buckets of 4096
-    samples), B utterances of `seconds`."""
-    flen, shift = tcfg.frame_geometry(fs, cfg.mfcc.win_length_ms,
-                                      cfg.mfcc.win_shift_ms)
-    Lp = -(-int(fs * seconds) // 4096) * 4096
-    return B * tcfg.n_frames(Lp, flen, shift)
-
-
-def _chunk(n_fft, nout, nframes):
-    """gpu_frontend.big_chunk with csrc/rfft_big.cuh's scratch_floats in
-    Python (no matrices on the cluster route)."""
-    nb = n_fft // 2 + 1
-
-    def floats(nfc):
-        part = max([s * m for m in range(1, min(nfc, 1023) + 1)
-                    for s in [gpu_frontend.fused_ranges(m, nb)] if s > 1]
-                   or [0])
-        mat = 0 if n_fft <= gpu_frontend.CLUSTER_MAX_N else min(
-            nfc, max(1, (32 << 20) // (4 * n_fft))) * n_fft
-        return mat + nfc * ((nb + 3) // 4 * 4 + nout) + part * nout
-    return gpu_frontend._chunk(floats, nframes)
-
-
-def test_the_split_engages_only_at_few_frames():
-    """S = 1 wherever ceil(frames / 8) blocks reach 128: phase 16's batches
-    at 32768 and 65536 (8 x 5 s at 48 kHz; 4 x 5 s at 384 kHz) in one chunk
-    each, so their kernels keep their bits; the serving shapes (8 kHz and
-    48 kHz at the default fft_size) do not take the four-step route at all.
-    At phase 16's few frames (2 x 4096 samples at 8 kHz: 62 frames) and
-    phase 15's chirp at 261634 (2 x 5 s: 638 frames) S > 1, about 256
-    blocks in all, each range a multiple of 512 bins and at least 4096."""
-    default = tcfg.FeatureConfig()
-    for fs in (8000, 48000):
-        flen, _ = tcfg.frame_geometry(fs, 32.0, 16.0)
-        assert max(default.mfcc.fft_size, flen) < gpu_frontend.BIG_N
-    for fs, B, n in ((48000, 8, 32768), (48000, 8, 65536),
-                     (384000, 4, 32768)):
-        cfg = tcfg.FeatureConfig(mfcc=tcfg.MfccConfig(fft_size=n))
-        nf = _frames(fs, B, 5.0, cfg)
-        assert nf >= 1024
-        assert _chunk(n, 66, nf) == nf
-        assert gpu_frontend.fused_ranges(nf, n // 2 + 1) == 1
-    cfg = tcfg.FeatureConfig()
-    few = _frames(8000, 2, 4096 / 8000, cfg)
-    assert few == 62
-    for n, S in ((262144, 29), (524288, 31)):
-        assert gpu_frontend.fused_ranges(few, n // 2 + 1) == S
-    nf = _frames(8000, 2, 5.0, cfg)
-    assert gpu_frontend.fused_ranges(nf, 261634 // 2 + 1) == 4
-    for nfc in (1, 7, 62, 300, 1016, 1017, 5000):
-        for nb in (16385, 131073, 262145, 4194305):
-            S = gpu_frontend.fused_ranges(nfc, nb)
-            blocks = -(-nfc // 8)
-            if blocks >= 128 or nb < 2 * 4096:
-                assert S == 1
-                continue
-            assert S * blocks < 2 * 256 and nb // S >= 4096
-
-
 def test_split_partials_in_order_equal_the_unsplit_sum():
     """The fused pass's sum of an output over the bins, split into S ranges
     (each range summed in order in f32, then the S partials added in the
     order s = 0 .. S - 1), equals the unsplit f32 sum in order within f32
     rounding of the sum of the terms' magnitudes, and both are within it
-    of the float64 sum."""
+    of the float64 sum. The ranges are those of 62 frames at 262144
+    points: 29 of 4,608 bins (the rule's values are held in
+    tests/test_torch_cuda_standin.py)."""
     rng = np.random.RandomState(3)
     nb = 131073
-    S = gpu_frontend.fused_ranges(62, nb)
-    r = -(-nb // S)
-    r = -(-r // 512) * 512
+    S, r = 29, 4608
+    assert (S - 1) * r < nb <= S * r
     p = rng.rand(nb).astype(np.float32) * 1e4
     w = (rng.randn(nb) * (rng.rand(nb) < 0.3)).astype(np.float32)
     terms = p * w  # f32 products, as the kernel's fmaf rounds them once
