@@ -71,8 +71,7 @@ raises and the exit code is non-zero):
      frontend kernels and their plain versions, of K5 beside the dense
      kernel and torch.fft.rfft in one interleaved set, of K1, K4 and K5 at
      96 kHz (8192-point FFTs), of predict_scores at 48 kHz, and of LPCC
-     predict on K1's raw-autocorrelation mode beside the earlier route
-     through K4
+     predict (K1's LPC-cepstra mode) beside the earlier route through K4
  13. the fused predict monolith (K6 and K7, one kernel; f32 on the FFT
      tile, bf16 on the dense tile) vs its plain versions (the FFT route's
      and the dense one): the bench batch in f32 and with bf16 DFT operands,
@@ -188,8 +187,21 @@ raises and the exit code is non-zero):
      predict_scores at both mm values and cuBLAS's bf16 product of the
      bench frames and D (the yardstick of the tile's stage 1), in one
      interleaved set; the bf16 kernels' occupancy
+ 22. the full-spectrum frontend from the signals (K5's tile loading the
+     signal, with K1's CMVN and Levinson in its tail, csrc/
+     frontend_full_signals.cu) and the LPC cepstra in the signal kernels'
+     tail, each against its plain version with two calls bitwise: 512 x 5
+     s at 48 kHz, LPC cepstra at 48 kHz with a silent stretch (its
+     cepstra 0), 44.1 kHz, no valid frame, fft_size 4096 / 8192 / 16384,
+     128, 250 and 600 mel filters with LPC, frames folded onto the FFT (96
+     and 192 kHz), K1's LPC-cepstra mode at 8 and 16 kHz; the 48 kHz and
+     LPCC predicts' counters and kernels (torch.profiler); their timing
+     beside the routes they replace, composed of the pieces that remain
+     (torch's frames, K5 on them, the torch tail, K2; K1's raw mode, the
+     torch tail, K2), and peak device memory both ways
 The line before the last is {"kernels": [...]}, each kernel with its
-launches on the main path (0 for K4, which no serving path takes; K5's
+launches on the main path (0 for K4 and for K5's frame-level FFT kernel
+at a power-of-two fft_size, which no serving path takes; K5's
 chirp-z kernel's on extract_batch at 216 outputs; the dense template's
 on extract_batch past M = 2^23; phase 15's and 16's routes on their
 extract_batch drives), its error against its plain version, its time,
@@ -317,6 +329,8 @@ EM_ATOL = 1e-3
 UBM_ITERATIONS = 100
 FS48 = 48000
 LPCC = LpcConfig(n_lpcc=16)
+# (trials, calls a trial) of phase 22's interleaved timing set
+SIGNAL_TRIALS = (7, 3)
 # shapes the tile widened to: a 4096-point FFT (44.1/48 kHz frames with
 # fft_size 4096), LPC order 40 and 40 cepstra
 FFT4096 = FeatureConfig(mfcc=MfccConfig(fft_size=4096))
@@ -1379,7 +1393,8 @@ def seeding_stages(fn, trials=7) -> dict:
 
 
 FRONTEND_COUNTERS = ("LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES",
-                     "FULL_CHIRP_LAUNCHES", "FULL_DENSE_LAUNCHES",
+                     "FULL_SIGNAL_LAUNCHES", "FULL_CHIRP_LAUNCHES",
+                     "FULL_DENSE_LAUNCHES",
                      "BIG_LAUNCHES", "FRAMES_BIG_LAUNCHES",
                      "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES",
                      "BIG_PASSES_LAUNCHES")
@@ -1791,9 +1806,11 @@ def phase16(rng, dev, card, bench_sig, bench_len) -> tuple[list, list]:
     finally:
         os.environ.pop("SRTPU_FRONTEND")
     err5 = check_frames(16, "K5 " + nm, fe616f, s8w, l8w)
+    # the full route at a power-of-two fft_size takes the kernel from the
+    # signals (phase 22): the frame-level K5 has no serving caller there
     launched5 = drive_extract("K5 " + nm, BENCH_FS, WIDE616, s8w, l8w,
-                              {"FULL_LAUNCHES": 1, "CHUNKED_LAUNCHES": 1},
-                              full=True)
+                              {"FULL_SIGNAL_LAUNCHES": 1,
+                               "CHUNKED_LAUNCHES": 1}, full=True)
     fargs, B_, T_ = frames_args(fe616f, s8w)
     kern, plains, _ = frames_kernel(fe616f)
     t5 = time_interleaved({"kernel": lambda: kern(*fargs),
@@ -2831,6 +2848,7 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
                                            "FRAMES_BF16_LAUNCHES",
                                            "FULL_LAUNCHES", "FULL_BIG_LAUNCHES",
                                            "FULL_DENSE_LAUNCHES",
+                                           "FULL_SIGNAL_LAUNCHES",
                                            "FULL_BF16_CALLS")),
                            (gpu_gmm, ("LAUNCHES", "BF16_LAUNCHES"))):
             for c in names:
@@ -2843,7 +2861,8 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
                 "K2 f32": gpu_gmm.LAUNCHES, "K2 bf16": gpu_gmm.BF16_LAUNCHES,
                 "K5": gpu_frontend.FULL_LAUNCHES
                 + gpu_frontend.FULL_BIG_LAUNCHES
-                + gpu_frontend.FULL_DENSE_LAUNCHES,
+                + gpu_frontend.FULL_DENSE_LAUNCHES
+                + gpu_frontend.FULL_SIGNAL_LAUNCHES,
                 "full bf16": gpu_frontend.FULL_BF16_CALLS}
 
     reset()
@@ -3007,6 +3026,319 @@ def phase21(rng, dev, card, bench_sig, bench_len, fe8, fe8c, bench_bank,
          bound(score_flops(n5, d, SK5), 4 * x5.numel() + m5.numel()
                + 2 * 2 * d * SK5 + 4 * SK5 + 4 * sb.n_speakers, BF16_FLOPS)),
     ]
+
+
+def check_signals(name, fe, sig, lengths, zero_frames=()) -> float:
+    """A signal route's kernel vs its plain version on one batch, with the
+    frontend's CMVN and LPC columns, two calls bitwise and two launches of
+    its counter: mfcc_from_signals (csrc/frontend_full_signals.cu) for a
+    FullFrontend, K1 in the frontend's mode (its LPC cepstra with
+    n_lpcc) for a PackedFrontend. `zero_frames`: (utterance, frame) pairs
+    of a silent stretch whose LPC cepstra must be 0. Returns the max abs
+    error of the features."""
+    T = n_frames(sig.shape[1], fe.frame_len, fe.frame_shift)
+    nv = fe.valid_frames(lengths, T)
+    mask = torch.arange(T, device=sig.device) < nv[:, None]
+    if isinstance(fe, FullFrontend):
+        args = (sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, fe.cmvn,
+                fe.n_lpcc)
+        kernel = lambda: gpu_frontend.mfcc_from_signals(*args)  # noqa: E731
+        want = gpu_frontend.mfcc_from_signals_reference(*args)
+        counter = "FULL_SIGNAL_LAUNCHES"
+    else:
+        fa = frontend_args(fe, sig, lengths)
+        kernel = lambda: gpu_frontend.packed_from_signals(  # noqa: E731
+            *fa, fft=fe.fft, n_lpcc=fe.n_lpcc)
+        want = gpu_frontend.packed_from_signals_fft_reference(
+            sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, fe.cmvn, True,
+            fe.n_lpcc)
+        counter = "LAUNCHES"
+    before = getattr(gpu_frontend, counter)
+    got = kernel()
+    again = kernel()
+    launched = getattr(gpu_frontend, counter) - before
+    torch.cuda.synchronize()
+    nc = fe.dct.shape[1]
+    d_mfcc, d_lpc, lpc_bad = feature_errors(got, want, mask, nc)
+    bitwise = torch.equal(got, again)
+    silent = all(bool((got[b, t, nc:] == 0).all()) for b, t in zero_frames)
+    print(f"phase 22 {name} ({counter}) vs its plain version: shape "
+          f"{tuple(got.shape)} valid frames {int(nv.sum())} mfcc max|d| "
+          f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpc max|d| {d_lpc:.3e} (over tol: "
+          f"{lpc_bad}) launches {launched} bitwise {bitwise}"
+          + (f", LPC cepstra 0 on the {len(zero_frames)} silent frames: "
+             f"{silent}" if zero_frames else ""), flush=True)
+    if (got.shape != want.shape or not torch.isfinite(got).all()
+            or (got[~mask] != 0).any() or d_mfcc > MFCC_ATOL or lpc_bad
+            or launched != 2 or not bitwise or not silent):
+        raise AssertionError(f"{name}: the signal kernel disagrees with its "
+                             "plain version")
+    return max(d_mfcc, d_lpc)
+
+
+def silent_batch(rng, fe, lengths, Lp, dev):
+    """signals_batch with a silent stretch of 4 frames early in the first
+    utterance, and the (utterance, frame) pairs that lie wholly in it."""
+    sig, lens = signals_batch(rng, lengths, Lp, dev)
+    z0, z1 = 2 * fe.frame_shift, 2 * fe.frame_shift + 4 * fe.frame_len
+    sig[0, z0:z1] = 0.0
+    frames = [(0, t) for t in range(n_frames(Lp, fe.frame_len,
+                                             fe.frame_shift))
+              if t * fe.frame_shift >= z0
+              and t * fe.frame_shift + fe.frame_len <= z1]
+    return sig, lens, frames
+
+
+def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
+            t) -> list:
+    """The full-spectrum frontend from the signals (mfcc_from_signals,
+    csrc/frontend_full_signals.cu) and the LPC cepstra in the signal
+    kernels' tail, against their plain versions at the serving shape and
+    the shapes its tile takes; the 48 kHz and LPCC predicts' counters and
+    kernels; the timing beside the routes they replace, composed of the
+    pieces that remain; peak memory both ways. Returns the kernels line's
+    two entries."""
+    fcfg = FeatureConfig()
+    lpcc_cfg = FeatureConfig(lpc=LPCC)
+    L48 = int(FS48 * BENCH_SEC)
+    fe48 = FullFrontend(FS48, fcfg, dev)
+    sig48, len48, z48 = silent_batch(rng, fe48, [L48] * BENCH_B, padded(L48),
+                                     dev)
+    err = check_signals("512 x 5 s @ 48 kHz", fe48, sig48, len48)
+    fe48c = FullFrontend(FS48, lpcc_cfg, dev)
+    err = max(err, check_signals("48 kHz, n_lpcc 16, a silent stretch",
+                                 fe48c, sig48[:64].contiguous(), len48[:64],
+                                 z48))
+    s44, l44 = signals_batch(rng, [44100 * 5, 44100 * 2, 30000, 1000],
+                             padded(44100 * 5), dev)
+    err = max(err, check_signals(
+        "44.1 kHz (flen 1411, fshift 705), an utterance with no valid frame",
+        FullFrontend(44100, fcfg, dev), s44, l44))
+    s0, l0 = signals_batch(rng, [1000, 1535], padded(FS48), dev)
+    err = max(err, check_signals("48 kHz, no valid frame in the batch",
+                                 fe48, s0, l0))
+    sub, lsub = sig48[:8].contiguous(), len48[:8]
+    for n_fft in (4096, 8192, 16384):
+        err = max(err, check_signals(
+            f"48 kHz, fft_size {n_fft}",
+            FullFrontend(FS48, FeatureConfig(mfcc=MfccConfig(
+                fft_size=n_fft)), dev), sub, lsub))
+    for n_filters, n_fft in ((128, 2048), (250, 4096), (600, 4096)):
+        err = max(err, check_signals(
+            f"48 kHz, fft_size {n_fft}, {n_filters} mel filters + LPC "
+            f"({n_filters + 16} outputs)", FullFrontend(FS48, FeatureConfig(
+                mfcc=MfccConfig(fft_size=n_fft, n_filters=n_filters)), dev),
+            sub, lsub))
+    # frames longer than the FFT: 3072 (96 kHz) and 6144 (192 kHz) samples
+    # folded onto the default 2048 points
+    for fs_f in (FS96, FS192):
+        Lf = int(fs_f * 2.0)
+        sf, lf = signals_batch(rng, [Lf, Lf // 2, 2000], padded(Lf), dev)
+        fe_f = FullFrontend(fs_f, fcfg, dev)
+        err = max(err, check_signals(
+            f"{fs_f / 1e3:g} kHz (flen {fe_f.frame_len} folded onto "
+            f"{fe_f.n_fft})", fe_f, sf, lf))
+    fe8c = PackedFrontend(BENCH_FS, lpcc_cfg, dev)
+    s8, l8, z8 = silent_batch(rng, fe8c, [int(BENCH_FS * BENCH_SEC)]
+                              * BENCH_B, bench_sig.shape[1], dev)
+    err_lpcc = check_signals("K1 LPC-cepstra mode, 512 x 5 s @ 8 kHz, a "
+                             "silent stretch", fe8c, s8, l8, z8)
+    err_lpcc = max(err_lpcc, check_signals(
+        "K1 LPC-cepstra mode, 16 kHz", PackedFrontend(16000, lpcc_cfg, dev),
+        *signals_batch(rng, [48000, 20000, 300], padded(48000), dev)))
+
+    # the predicts' launches: the frontend counters and K2 set to 0 just
+    # before one call and read just after
+    def drive(name, fs, cfg, sig, lens, want):
+        bank = random_bank(rng, 4, 32, cfg.dim, dev, uniform_weights=True)
+        reset_frontend_counts()
+        gpu_gmm.LAUNCHES = 0
+        scores = fastpath.predict_scores(sig, lens, bank, fs, cfg)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in frontend_counts().items() if v}
+        got["K2"] = gpu_gmm.LAUNCHES
+        kernels = kernels_per_call(
+            lambda: fastpath.predict_scores(sig, lens, bank, fs, cfg),
+            calls=3)
+        print(f"phase 22 {name}: scores {tuple(scores.shape)}, launches "
+              f"{got}; by torch.profiler {sum(kernels.values()):g} device "
+              f"kernels a call: {kernels}", flush=True)
+        if got != want or not torch.isfinite(scores).all():
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        return got, kernels
+    launched48, k48 = drive("predict_scores 512 x 5 s @ 48 kHz", FS48, fcfg,
+                            sig48, len48,
+                            {"FULL_SIGNAL_LAUNCHES": 1, "K2": 1})
+    drive("predict_scores 64 x 5 s @ 48 kHz, n_lpcc 16", FS48, lpcc_cfg,
+          sig48[:64].contiguous(), len48[:64],
+          {"FULL_SIGNAL_LAUNCHES": 1, "K2": 1})
+    launched_c, kc = drive("predict_scores 512 x 5 s @ 8 kHz, n_lpcc 16",
+                           BENCH_FS, lpcc_cfg, s8, l8,
+                           {"LAUNCHES": 1, "K2": 1})
+    if dev.type == "cuda" and (
+            k48.get("full_signals_kernel") != 1 or "fft_frames_kernel" in k48
+            or kc.get("packed_frontend_kernel") != 1):
+        raise AssertionError("the predicts did not run their kernels once")
+
+    # the routes they replace, composed of the pieces that remain: at 48
+    # kHz torch's frames, K5 on them, the torch tail, K2; for LPCC K1's
+    # raw mode, the torch tail, K2
+    T48 = n_frames(sig48.shape[1], fe48.frame_len, fe48.frame_shift)
+    mask48 = framing.frame_validity_mask(len48, T48, fe48.frame_len,
+                                         fe48.frame_shift)
+    bank48 = random_bank(rng, 4, 32, fcfg.dim, dev, uniform_weights=True)
+    bank8 = random_bank(rng, 4, 32, lpcc_cfg.dim, dev, uniform_weights=True)
+
+    def framing48():
+        return framing.window_preemph(
+            framing.frame_signal(sig48, fe48.frame_len, fe48.frame_shift),
+            fe48.frame_len, fe48.pre_emph, fe48.preemph_first).reshape(
+                BENCH_B * T48, fe48.frame_len)
+
+    def k5_frames(wp):  # C and S for the CPU's plain version
+        return gpu_frontend.mfcc_from_frames(wp, *dense_cs(fe48), fe48.mel,
+                                             fe48.dct, fe48.floor,
+                                             fe48.acorr, fe48.n_fft)
+
+    def tail48(c, r):
+        return fe48.finish(c.view(BENCH_B, T48, -1), r.view(BENCH_B, T48, -1),
+                           mask48)
+
+    def predict48_frames():
+        f, m = tail48(*k5_frames(framing48()))
+        return gpu_gmm.batch_bank_avg_loglik(bank48, f, m)
+
+    raw_args = frontend_args(fe8c, s8, l8)
+    T8 = n_frames(s8.shape[1], fe8c.frame_len, fe8c.frame_shift)
+    mask8 = framing.frame_validity_mask(l8, T8, fe8c.frame_len,
+                                        fe8c.frame_shift)
+
+    def k1_raw():
+        return gpu_frontend.packed_from_signals(*raw_args, fft=fe8c.fft,
+                                                fuse_lpc=False)
+
+    def lpcc_predict_raw():
+        f, m = fe8c.finish(*k1_raw(), mask8, cmvn_done=True)
+        return gpu_gmm.batch_bank_avg_loglik(bank8, f, m)
+
+    wp48 = framing48()
+    c48, r48 = k5_frames(wp48)
+    f48, m48 = tail48(c48, r48)
+    sig_args = (sig48, fe48.valid_frames(len48, T48), fe48.fft, fe48.dct,
+                fe48.floor, fe48.frame_shift, fe48.cmvn, 0)
+    raw_c, raw_r = k1_raw()
+    k1_lpcc = lambda: gpu_frontend.packed_from_signals(  # noqa: E731
+        *raw_args, fft=fe8c.fft, n_lpcc=16)
+    signals48 = lambda: gpu_frontend.mfcc_from_signals(  # noqa: E731
+        *sig_args)
+    # the kernels in sets of one rate each, the end-to-end routes beside
+    # the earlier ones in one interleaved set, the host-bound torch tails
+    # alone; every kernel's arguments made before its trials, as phase 5
+    # makes K1's
+    lpc_args = frontend_args(fe8, bench_sig, bench_len)
+    t.update({f"p22_{k}": v for k, v in time_interleaved({
+        "k1_lpcc": k1_lpcc,
+        "k1_raw": k1_raw,
+        "k1_lpc": lambda: gpu_frontend.packed_from_signals(*lpc_args,
+                                                           fft=fe8.fft),
+    }, *SIGNAL_TRIALS).items()})
+    t.update({f"p22_{k}": v for k, v in time_interleaved({
+        "framing48": framing48,
+        "k5_frames48": lambda: k5_frames(wp48),
+        "signals48": signals48,
+        "k2_48": lambda: gpu_gmm.batch_bank_avg_loglik(bank48, f48, m48),
+    }, *SIGNAL_TRIALS).items()})
+    t.update({f"p22_{k}": v for k, v in time_interleaved({
+        "predict48": lambda: fastpath.predict_scores(sig48, len48, bank48,
+                                                     FS48, fcfg),
+        "predict48_frames": predict48_frames,
+        "lpcc_predict": lambda: fastpath.predict_scores(s8, l8, bank8,
+                                                        BENCH_FS, lpcc_cfg),
+        "lpcc_predict_raw": lpcc_predict_raw,
+    }, *SIGNAL_TRIALS).items()})
+    t["p22_tail48"] = time_ms(lambda: tail48(c48, r48), *SIGNAL_TRIALS)
+    t["p22_lpcc_tail"] = time_ms(
+        lambda: fe8c.finish(raw_c, raw_r, mask8, cmvn_done=True),
+        *SIGNAL_TRIALS)
+    del wp48, c48, r48, f48, m48, raw_c, raw_r
+    for name, fn in (("the signal kernel at 48 kHz", signals48),
+                     ("K1's LPC-cepstra mode at 8 kHz", k1_lpcc)):
+        print(f"phase 22 [{card}] {name}, by kernel (torch.profiler): "
+              f"{device_times(fn)}", flush=True)
+    t["p22_signals48_plain"] = time_ms(
+        lambda: gpu_frontend.mfcc_from_signals_reference(*sig_args), trials=3)
+    t["p22_k1_lpcc_plain"] = time_ms(
+        lambda: gpu_frontend.packed_from_signals_fft_reference(
+            s8, raw_args[1], fe8c.fft, fe8c.dct, fe8c.floor,
+            fe8c.frame_shift, True, True, 16), trials=3)
+    # peak device memory above what the call's inputs hold, both ways
+    peaks = {}
+    for k, fn in (("signals", lambda: fastpath.predict_scores(
+            sig48, len48, bank48, FS48, fcfg)), ("frames", predict48_frames)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peaks[k] = torch.cuda.max_memory_allocated() - base
+    frame_bytes = 4 * BENCH_B * T48 * fe48.frame_len
+    rate = lambda ms: BENCH_B * BENCH_SEC / (ms / 1e3)  # noqa: E731
+    print(f"phase 22 [{card}] predict_scores 512 x 5 s @ 48 kHz on the "
+          f"signal kernel: {t['p22_predict48']:.3f} ms = "
+          f"{rate(t['p22_predict48']):.0f} audio-s/s; the frame route "
+          f"composed {t['p22_predict48_frames']:.3f} ms, its pieces each "
+          f"timed alone (a host-bound piece reads its enqueue time, which "
+          f"in the route overlaps the kernels before it): framing + window "
+          f"{t['p22_framing48']:.3f}, K5 on the frames "
+          f"{t['p22_k5_frames48']:.3f}, the torch tail (CMVN, Levinson, "
+          f"masking) {t['p22_tail48']:.3f}, K2 {t['p22_k2_48']:.3f}; the "
+          f"signal kernel alone {t['p22_signals48']:.3f} ms, its plain "
+          f"version {t['p22_signals48_plain']:.3f} ms", flush=True)
+    print(f"phase 22 [{card}] peak device memory of a 48 kHz predict above "
+          f"its inputs: signal route {peaks['signals'] / 1e6:.1f} MB, frame "
+          f"route {peaks['frames'] / 1e6:.1f} MB (one [B, T, flen] f32 "
+          f"tensor: {frame_bytes / 1e6:.1f} MB)", flush=True)
+    print(f"phase 22 [{card}] predict_scores 512 x 5 s @ 8 kHz, n_lpcc 16, "
+          f"K1's LPC-cepstra mode: {t['p22_lpcc_predict']:.3f} ms; the raw "
+          f"mode + torch tail composed {t['p22_lpcc_predict_raw']:.3f} ms (K1 "
+          f"raw {t['p22_k1_raw']:.3f}, tail {t['p22_lpcc_tail']:.3f}); K1 "
+          f"LPCC mode {t['p22_k1_lpcc']:.3f} ms, its plain version "
+          f"{t['p22_k1_lpcc_plain']:.3f} ms; K1 LPC mode (the 8 kHz main "
+          f"path) {t['p22_k1_lpc']:.3f} ms here, {t['frontend']:.3f} ms in "
+          f"phase 5 (ratio {t['p22_k1_lpc'] / t['frontend']:.3f})",
+          flush=True)
+    if dev.type == "cuda" and peaks["signals"] >= frame_bytes:
+        raise AssertionError("the 48 kHz predict allocated a frame tensor")
+
+    B8, Lp8 = s8.shape
+    nmel, nceps = fe8c.dct.shape
+    nac = fe8c.fft_acorr.shape[1]
+    op_bytes = lambda *xs: 4 * sum(x.numel() for x in xs)  # noqa: E731
+    v48 = int(sig_args[1].sum())
+    b48 = bound(frontend_flops(v48, fe48.n_fft, (fe48.mel, fe48.acorr),
+                               fe48.dct.shape[1],
+                               order=fe48.acorr.shape[1] - 1,
+                               window=3 * fe48.frame_len),
+                4 * sig48.numel() + 4 * BENCH_B * T48 * fcfg.dim
+                + op_bytes(fe48.mel, fe48.acorr, fe48.dct))
+    v8 = int(raw_args[1].sum())
+    # the recursion: about n_lpcc * order multiply-adds a frame
+    b8 = bound(frontend_flops(v8, fe8c.n_fft, (fe8c.fft_mel, fe8c.fft_acorr),
+                              nceps, order=nac - 1,
+                              window=3 * fe8c.frame_len)
+               + v8 * 2 * 16 * (nac - 1),
+               4 * s8.numel() + 4 * B8 * T8 * lpcc_cfg.dim
+               + op_bytes(fe8c.fft_mel, fe8c.fft_acorr, fe8c.dct))
+    for k, b in (("mfcc_from_signals", b48), ("packed_frontend_lpcc", b8)):
+        print(f"phase 22 [{card}] bound of {k}: {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']})", flush=True)
+    return [("mfcc_from_signals", "frontend_full_signals.cu",
+             "pallas_frontend.py:50", launched48["FULL_SIGNAL_LAUNCHES"], err,
+             t["p22_signals48"], t["p22_signals48_plain"], b48),
+            ("packed_frontend_lpcc", "frontend.cu", "pallas_frontend.py:231",
+             launched_c["LAUNCHES"], err_lpcc, t["p22_k1_lpcc"],
+             t["p22_k1_lpcc_plain"], b8)]
 
 
 def main(argv=None):
@@ -3536,6 +3868,7 @@ def main(argv=None):
     truth48 = [u["label"] for u in exp48["utterances"]]
     gpu_frontend.LAUNCHES = gpu_frontend.FRAMES_LAUNCHES = 0
     gpu_frontend.FULL_LAUNCHES = gpu_frontend.FULL_DENSE_LAUNCHES = 0
+    gpu_frontend.FULL_SIGNAL_LAUNCHES = 0
     gpu_gmm.LAUNCHES = gpu_gmm.SERIAL_LAUNCHES = 0
     with tempfile.TemporaryDirectory() as tmp:
         dirs = synth.write_training_wavs(tmp, FS48)
@@ -3569,15 +3902,18 @@ def main(argv=None):
     if not valid48.all() or rel48 > SLICE_RTOL or not same48:
         raise AssertionError("48 kHz session disagrees with the JAX package")
     open_set("phase 12 open set @ 48 kHz", FS48, PipelineConfig(), dev)
+    # the 48 kHz frontend is the kernel from the signals (phase 22); the
+    # frame-level K5 has no serving caller at a power-of-two fft_size
     launches3 = {"frontend": gpu_frontend.LAUNCHES,
                  "frames": gpu_frontend.FRAMES_LAUNCHES,
                  "full": gpu_frontend.FULL_LAUNCHES,
+                 "full_signals": gpu_frontend.FULL_SIGNAL_LAUNCHES,
                  "full_dense": gpu_frontend.FULL_DENSE_LAUNCHES,
                  "gmm": gpu_gmm.LAUNCHES, "serial": gpu_gmm.SERIAL_LAUNCHES}
     print(f"phase 12 launches @ 48 kHz: {launches3}", flush=True)
     if (launches3["frontend"] != 0 or launches3["full_dense"] != 0
-            or launches3["frames"] != 0
-            or min(launches3["full"], launches3["gmm"],
+            or launches3["frames"] != 0 or launches3["full"] != 0
+            or min(launches3["full_signals"], launches3["gmm"],
                    launches3["serial"]) < 1):
         raise AssertionError(f"slice 3 launches {launches3}")
 
@@ -3711,9 +4047,9 @@ def main(argv=None):
             fe_args[0], fe8c.fft, fe8c.dct, fe8c.floor))
     del fe_args
     # K1's raw-autocorrelation mode beside its plain version, and LPCC
-    # predict on it beside the earlier route (a copied frame matrix, K4,
-    # CMVN in torch; the same Levinson, LPCC recursion and scoring kernel
-    # after it), taking turns
+    # predict (K1's LPC-cepstra mode) beside the route before the raw mode
+    # (a copied frame matrix, K4, CMVN, Levinson and the LPCC recursion in
+    # torch; the same scoring kernel after it), taking turns
     raw_args = frontend_args(fe8c, bench_sig, bench_len)
     lpcc_bank = random_bank(rng, 4, 32, lpcc_cfg.dim, dev,
                             uniform_weights=True)
@@ -3771,8 +4107,9 @@ def main(argv=None):
     print(f"phase 12 [{card}] signal frontend kernel, raw-autocorrelation "
           f"mode, 512 x 5 s @ 8 kHz: {t['frontend_raw']:.3f} ms, plain "
           f"{t['frontend_raw_plain']:.3f} ms; predict_scores with n_lpcc 16 "
-          f"on it {t['lpcc_predict']:.3f} ms, through the frame-level kernel "
-          f"in the same trials {t['lpcc_predict_k4']:.3f} ms")
+          f"(K1's LPC-cepstra mode) {t['lpcc_predict']:.3f} ms, through the "
+          f"frame-level kernel in the same trials {t['lpcc_predict_k4']:.3f} "
+          "ms")
     print(f"phase 12 [{card}] full-spectrum kernel (FFT), 512 x 5 s @ "
           f"48 kHz: {t['full']:.3f} ms; in the same interleaved trials the "
           f"dense kernel {t['full_dense']:.3f} ms and torch.fft.rfft alone "
@@ -4147,9 +4484,11 @@ def main(argv=None):
         "kernel": lambda: gpu_frontend.mfcc_from_frames_dense(*rargs),
         "plain": lambda: gpu_frontend.mfcc_from_frames_reference(*rargs)},
         *SMALL_TRIALS)
+    br = frames_work(fe_reach, rargs[0].shape[0], 4 * rargs[0].numel())
     print(f"phase 15 [{card}] {nm} ({tuple(rargs[0].shape)} frames): dense "
           f"template {tr['kernel']:.3f} ms, its plain version "
-          f"{tr['plain']:.3f} ms", flush=True)
+          f"{tr['plain']:.3f} ms, bound {br['bound_ms']:.4f} ms "
+          f"({br['bound_by']})", flush=True)
     del sr, lr, rargs, fe_reach
     torch.cuda.empty_cache()
     # the chirp-z kernel beside the dense template, the FFT route's plain
@@ -4444,6 +4783,11 @@ def main(argv=None):
          "timed": (serial_banks["bench"], x5, m5)},
         (s48p, l48p))
 
+    # 22. the full-spectrum frontend from the signals, the LPC cepstra in
+    # the signal kernels' tail
+    entries22 = phase22(rng, dev, card, bench_sig, bench_len, fe8,
+                        bench_bank, t)
+
     # the kernels' bounds, from this run's shapes
     B8, Lp8 = bench_sig.shape
     T8 = n_frames(Lp8, fe8.frame_len, fe8.frame_shift)
@@ -4557,7 +4901,7 @@ def main(argv=None):
           "plain_ms": plain_ms, **b, "library_ms": None}
          for name, source, replaces, launched, err, ms, plain_ms, b
          in entries16 + entries13 + entries20 + entries21 + routes16
-         + chirp_routes]}))
+         + chirp_routes + entries22]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

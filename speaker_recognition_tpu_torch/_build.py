@@ -62,12 +62,16 @@ def _bind(lib):
     ll = ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
     lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, i, i, i, f, i, f, i, i, p]
+                                        i, i, i, i, f, i, f, i, i, i, p, p]
     lib.srt_packed_frontend.restype = i
     lib.srt_big_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                             i, i, i, i, i, i, f, i, f, i, i,
-                                            i, p]
+                                            i, p, i, p]
     lib.srt_big_packed_frontend.restype = i
+    lib.srt_full_signals_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                              i, i, i, i, i, i, f, i, f, i,
+                                              i, p]
+    lib.srt_full_signals_frontend.restype = i
     lib.srt_fft_operator_shape.argtypes = [i, i, ip, ip, ip]
     lib.srt_fft_operator_shape.restype = i
     lib.srt_fft_wide_floats.argtypes = [ll, i]

@@ -8,10 +8,12 @@
 //     ceps = log(max(Y . M, floor)) . dct        -> feat[b, f, :nceps]
 //     r  = Y . R,  lpc = Levinson(r), non-finite -> 0
 //                                                -> feat[b, f, nceps:]
-// (or, without fuse_lpc, the raw autocorrelation r itself there: the mode
-// that serves LPC cepstra, whose recursion follows in torch), then masked
-// per-utterance CMVN of the cepstra over the first n_valid[b] frames
-// (second kernel), and every frame at or past n_valid[b] is zero.
+// (or, without fuse_lpc, the raw autocorrelation r itself there: the JAX
+// kernel's fuse_lpc=False, which the bf16 route's LPC cepstra take), or
+// with n_lpcc > 0 the LPC cepstra of the unzeroed coefficients, non-finite
+// -> 0 (lpcc_kernel after the raw mode: tile_features' LPC-cepstra tail),
+// then masked per-utterance CMVN of the cepstra over the first n_valid[b]
+// frames (cmvn_kernel), and every frame at or past n_valid[b] is zero.
 //
 // What bounds it on this card, and what the design does about it: see
 // csrc/rfft_tile.cuh. The TPU kernel ran the window, the pre-emphasis and
@@ -35,8 +37,9 @@
 //   * log/DCT and the order-p Levinson run per frame at the end of the
 //     block, one thread per frame with the recursion in local memory, of
 //     any order the tile's outputs admit (tile_features of
-//     csrc/packed_tile.cuh, which the fused predict monolith shares); CMVN
-//     takes any number of cepstra, 32 at a time.
+//     csrc/packed_tile.cuh, which the fused predict monolith and the
+//     full-spectrum frontend from the signals share); CMVN takes any
+//     number of cepstra, 32 at a time.
 // The batch has no limit: the wrapper's launch walks it in runs of 65535
 // utterances (the grid's y dimension).
 // Built without --use_fast_math: isfinite() must survive and logf must be
@@ -92,18 +95,45 @@ __global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
                             nceps, fuse_lpc != 0);
 }
 
-// Masked per-utterance CMVN of feat[b, :n_valid[b], :nceps], in place
-// (cmvn_utterance): 32 columns at a time x 16 frame groups per block.
-constexpr int CG = 16;
+// autocorrelation lags the LPC cepstra take (ops/gpu_frontend.
+// LPCC_MAX_LAGS): lpcc_kernel's local coefficients
+constexpr int MAX_LAGS = 512;
 
-__global__ void __launch_bounds__(32 * CG) cmvn_kernel(
-    float* __restrict__ feat, const int* __restrict__ n_valid, int T,
-    int nfeat, int nceps) {
-  __shared__ float red[CG][32];
-  __shared__ float stat[2][32];
-  const int b = blockIdx.x;
-  cmvn_utterance<CG>(feat + (size_t)b * T * nfeat, n_valid[b], nfeat, nceps,
-                     threadIdx.x, threadIdx.y, red, stat);
+// K1's LPC-cepstra mode after its raw-autocorrelation tile: rows raw
+// [n][nceps + nac] (cepstra | raw autocorrelation) -> feat [n][nceps +
+// n_lpcc - 1] (the cepstra, then tile_features' LPC-cepstra tail,
+// lpcc_frames), a thread a frame of the batch's n = B * T. A second kernel
+// rather than a mode inside the tile: K1's LPC mode, the 8 kHz main path,
+// keeps its instances and bits (a branch in its tail raised the 8 kHz
+// instance's registers and cost it a block an SM), and the tile's 36
+// instantiations are not built twice.
+__global__ void __launch_bounds__(128) lpcc_kernel(
+    const float* __restrict__ raw, const int* __restrict__ n_valid,
+    float* __restrict__ feat, long long n, int T, int nceps, int nac,
+    int n_lpcc) {
+  const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  const int stride = nceps + nac, nfeat = nceps + n_lpcc - 1;
+  const float* row = raw + g * stride;
+  float* out = feat + g * nfeat;
+  for (int c = 0; c < nceps; ++c) out[c] = row[c];
+  lpcc_frames<MAX_LAGS>(row, out, 1, n_valid[g / T] - (int)(g % T), nceps,
+                        nac - 1, nceps, nfeat, stride, n_lpcc, 0, 1);
+}
+
+// lpcc_kernel over the batch's B * T rows, then CMVN when cmvn: the end of
+// both K1 routes' LPC-cepstra mode.
+cudaError_t lpcc_tail(const float* raw, const int* nv, float* feat, int B,
+                      int T, int nceps, int nac, int n_lpcc, int cmvn,
+                      cudaStream_t st) {
+  const long long n = (long long)B * T;
+  lpcc_kernel<<<(unsigned)((n + 127) / 128), 128, 0, st>>>(
+      raw, nv, feat, n, T, nceps, nac, n_lpcc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !cmvn) return err;
+  cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(feat, nv, T, nceps + n_lpcc - 1,
+                                          nceps);
+  return cudaGetLastError();
 }
 
 // utterances a launch takes: the grid's y dimension
@@ -147,31 +177,40 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig,
 // the srt_fft_wide_floats(B * T, nmel + nac) floats past 512 outputs;
 // writes feat [B, T, nceps + nac - 1] (nceps without LPC), or with
 // fuse_lpc 0 feat [B, T, nceps + nac] (cepstra | raw autocorrelation),
+// or with n_lpcc > 0 (and fuse_lpc) feat [B, T, nceps + n_lpcc - 1]
+// (cepstra | LPC cepstra; nac <= MAX_LAGS) through raw [B, T, nceps + nac],
 // then CMVN of the cepstra when cmvn. Any B.
 extern "C" int srt_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
     const void* op, const void* dct, void* feat, void* wsums, int B, int Lp,
     int T, int flen, int fshift, int nfft, int nmel, int nac, int nceps,
     float pre_emph, int preemph_first, float power_floor, int cmvn,
-    int fuse_lpc, void* stream) {
+    int fuse_lpc, int n_lpcc, void* raw, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int opl = rfft::pick_opl(nfft, nmel + nac, true);
-  if (opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
+  const bool lpcc = n_lpcc > 0;
+  if (opl == 0 || 2 * flen > nfft ||
+      (lpcc && (!fuse_lpc || nac < 1 || nac > MAX_LAGS || !raw)))
+    return (int)cudaErrorInvalidValue;
   const auto* sig = (const float*)signals;
   const auto* nv = (const int*)n_valid;
   const auto* w = (const float*)win;
   const auto* o = (const float4*)op;
   const auto* d = (const float*)dct;
-  auto* out = (float*)feat;
+  auto* out = (float*)(lpcc ? raw : feat);
   const cudaError_t err = rfft::with_n(nfft, [&](auto nc) {
     return rfft::with_opl(opl, [&](auto oc) {
       return launch<decltype(nc)::value, decltype(oc)::value>(
           B, st, sig, nv, w, o, d, out, Lp, T, flen, fshift, nmel, nac,
-          nceps, pre_emph, preemph_first, power_floor, fuse_lpc,
+          nceps, pre_emph, preemph_first, power_floor, lpcc ? 0 : fuse_lpc,
           (float*)wsums);
     });
   });
-  if (err != cudaSuccess || !cmvn) return (int)err;
+  if (err != cudaSuccess) return (int)err;
+  if (lpcc)
+    return (int)lpcc_tail(out, nv, (float*)feat, B, T, nceps, nac, n_lpcc,
+                          cmvn, st);
+  if (!cmvn) return 0;
   cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
       (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);
   return (int)cudaGetLastError();
@@ -187,11 +226,14 @@ extern "C" int srt_big_packed_frontend(
     const void* op, const void* dct, void* feat,
     void* scratch, int B, int Lp, int T, int flen, int fshift, int nfft,
     int nmel, int nac, int nceps, float pre_emph, int preemph_first,
-    float power_floor, int cmvn, int fuse_lpc, int chunk, void* stream) {
+    float power_floor, int cmvn, int fuse_lpc, int n_lpcc, void* raw,
+    int chunk, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const long long n = (long long)B * T;
+  const bool lpcc = n_lpcc > 0;
   if (!rfft_big::takes(nfft) || 2 * flen > nfft || chunk < 1 ||
-      chunk > 65535 || n < 1 || n > 0x7fffffffLL)
+      chunk > 65535 || n < 1 || n > 0x7fffffffLL ||
+      (lpcc && (!fuse_lpc || nac < 1 || nac > MAX_LAGS || !raw)))
     return (int)cudaErrorInvalidValue;
   const auto* nv = (const int*)n_valid;
   const srt_cluster::FrameSource fr =
@@ -206,9 +248,13 @@ extern "C" int srt_big_packed_frontend(
     if (err != cudaSuccess) return (int)err;
     big_features_kernel<<<nfc, 128, 0, st>>>(
         rfft_big::sums_rows(sc, nfft, nfc), nv, (const float*)dct,
-        (float*)feat, T, g0, nmel, nac, nceps, fuse_lpc);
+        (float*)(lpcc ? raw : feat), T, g0, nmel, nac, nceps,
+        lpcc ? 0 : fuse_lpc);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
+  if (lpcc)
+    return (int)lpcc_tail((const float*)raw, nv, (float*)feat, B, T, nceps,
+                          nac, n_lpcc, cmvn, st);
   if (!cmvn) return 0;
   cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
       (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);

@@ -97,20 +97,6 @@ __global__ void __launch_bounds__(NT, 2) dense_bf16_kernel(
                        fuse_lpc != 0);
 }
 
-// Masked per-utterance CMVN of feat[b, :n_valid[b], :nceps], in place
-// (cmvn_utterance): 32 columns at a time x 16 frame groups a block.
-constexpr int CG = 16;
-
-__global__ void __launch_bounds__(32 * CG) cmvn_bf16_kernel(
-    float* __restrict__ feat, const int* __restrict__ n_valid, int T,
-    int nfeat, int nceps) {
-  __shared__ float red[CG][32];
-  __shared__ float stat[2][32];
-  const int b = blockIdx.x;
-  cmvn_utterance<CG>(feat + (size_t)b * T * nfeat, n_valid[b], nfeat, nceps,
-                     threadIdx.x, threadIdx.y, red, stat);
-}
-
 // The tile of the geometry's pick (csrc/packed_tile.cuh), one launch per
 // MAX_GRID_Y utterances.
 template <int FT, int OPL, bool GSEG>
@@ -229,7 +215,7 @@ extern "C" int srt_frontend_bf16(const void* signals, const void* n_valid,
       (const float*)dct, (float*)feat, (float*)wsums, Lp, T,
       flen, fshift, ncols, nmel, nac, nceps, power_floor, fuse_lpc);
   if (err != cudaSuccess || !cmvn) return (int)err;
-  cmvn_bf16_kernel<<<B, dim3(32, CG), 0, st>>>(
+  cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
       (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
-// The packed frontend's per-tile stages: tile_features and cmvn_utterance,
-// shared by csrc/frontend.cu (the signal-level frontend, on the FFT tile)
-// and csrc/predict_fused.cuh (the fused predict monolith); the dense
+// The packed frontend's per-tile stages: tile_features and cmvn_utterance
+// (and cmvn_kernel, which launches it), shared by csrc/frontend.cu (the
+// signal-level frontend, on the FFT tile), csrc/frontend_full_signals.cu
+// (the full-spectrum frontend from the signals) and csrc/predict_fused.cuh
+// (the fused predict monolith); the dense
 // tile_sums serves the routes that round the DFT operand D to bf16: the
 // monolith's bf16 route and K1's and K4's mm_bf16 (csrc/frontend_bf16.cu).
 // For a tile of FT consecutive frames of one utterance:
@@ -9,8 +11,8 @@
 //                  floor)) and the raw autocorrelation per frame in shared
 //                  memory (or, past 128 outputs, in device rows);
 //   tile_features  cepstra (log-mel . dct) and LPC (Levinson, non-finite
-//                  -> 0) or the raw autocorrelation per frame, zeros at
-//                  frames past n_valid;
+//                  -> 0), the LPC cepstra or the raw autocorrelation per
+//                  frame, zeros at frames past n_valid;
 // and, per utterance, cmvn_utterance: masked two-pass mean and population
 // deviation of the cepstra, in place.
 //
@@ -75,6 +77,7 @@
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -131,11 +134,14 @@ __host__ __device__ constexpr int smem_bytes(int ft, int opl, int flen,
          4 * CC * (yt_stride(ft) + 8 * ogs(opl));
 }
 
-// columns of a feature row: cepstra, then the LPC (order = nac - 1) or,
-// without fuse_lpc, the nac raw autocorrelation lags
+// columns of a feature row: cepstra, then the LPC (order = nac - 1), or
+// with n_lpcc > 0 the n_lpcc - 1 LPC cepstra, or without fuse_lpc the nac
+// raw autocorrelation lags
 __host__ __device__ constexpr int feature_width(int nceps, int nac,
-                                                int fuse_lpc) {
-  return nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
+                                                int fuse_lpc,
+                                                int n_lpcc = 0) {
+  return n_lpcc > 0 ? nceps + n_lpcc - 1
+                    : nceps + (fuse_lpc ? (nac > 0 ? nac - 1 : 0) : nac);
 }
 
 // Output chunks of 8 * OPL the tile projects onto one after the other: 1
@@ -460,24 +466,79 @@ __device__ __forceinline__ void levinson_in_place(const float* r, float* a,
   }
 }
 
+// The LPC cepstra of ops/levinson.lpcc_from_lpc (src/feature/LPC.py
+// lpc_to_cc) from a[0 .. p-1] = a_1 .. a_p, as levinson_in_place leaves
+// them, non-finite ones included: with a_0 = c_0 = 1,
+//     c_n = (a_n if n < p else 0) + sum_{l < min(n, p)} a_l c_{n-l-1} (n-l)/(n+1)
+// for n = 1 .. n_lpcc - 1, into o[n - 1] (c_n is kept there during the
+// recursion), then each as -c_n, a non-finite one as 0: the JAX package's
+// nan_to_num after the recursion (features/extract.py:339-344), so a
+// silent frame's NaN coefficients give 0, not the recursion on zeroed ones
+// (c_n = 1 / (n + 1)).
+__device__ __forceinline__ void lpcc_in_place(const float* a, float* o,
+                                              int p, int n_lpcc) {
+  for (int n = 1; n < n_lpcc; ++n) {
+    float s = 0.f;
+    for (int l = 0, m = min(n, p); l < m; ++l) {
+      const float al = l == 0 ? 1.f : a[l - 1];
+      const float cp = n - l - 1 == 0 ? 1.f : o[n - l - 2];
+      s += al * cp * ((float)(n - l) / (float)(n + 1));
+    }
+    o[n - 1] = n < p ? a[n - 1] + s : s;
+  }
+  for (int j = 0; j + 1 < n_lpcc; ++j) o[j] = isfinite(o[j]) ? -o[j] : 0.f;
+}
+
+// The LPC cepstra (lpcc_in_place) of frames first, first + step, ... < nf
+// of a tile, one thread a frame: the raw autocorrelation at column nmel of
+// sums rows of `stride` floats, the cepstra from column nceps of out rows
+// of nfeat floats; zeros at frames at or past nvalid. A lag 0 below the
+// least normal float (an all-floor frame of the full-spectrum route: floor
+// / flen) is taken as r = 0, whose NaN coefficients give 0, as in the JAX
+// package's f32 route, which flushes subnormals (gpu_frontend.lpc_columns).
+// Not inlined: the tile kernels that can take this mode carry one call in
+// place of its loops and local array.
+template <int NOP>
+__device__ __noinline__ void lpcc_frames(const float* sums, float* out,
+                                         int nf, int nvalid, int nmel,
+                                         int order, int nceps, int nfeat,
+                                         int stride, int n_lpcc, int first,
+                                         int step) {
+  for (int f = first; f < nf; f += step) {
+    float* o = out + (size_t)f * nfeat + nceps;
+    const float* r = sums + (size_t)f * stride + nmel;
+    if (f >= nvalid || !(r[0] >= FLT_MIN)) {
+      for (int j = 0; j + 1 < n_lpcc; ++j) o[j] = 0.f;
+      continue;
+    }
+    float a[NOP];
+    levinson_in_place(r, a, order);
+    lpcc_in_place(a, o, order, n_lpcc);
+  }
+}
+
 // The features of the tile's nf frames from tile_sums' sums (rows of
 // `stride` floats: 8 * OPL in shared memory, or rows in device memory past
 // 512 outputs and on the FFT of N >= 32768), into out [nf][nfeat]:
 // cepstra, then with fuse_lpc the LPC (nfeat = nceps + order, order = nac
 // - 1, or 0 without LPC) by Levinson-Durbin with non-finite coefficients
-// zeroed, and without it the raw autocorrelation as it stands in sums
-// (nfeat = nceps + nac), which the LPC cepstra take. Frames at or past
-// nvalid (counted from the tile's first frame) get zeros. NTH threads run
-// it; the recursion takes any order, one thread a frame, its coefficients
-// in a local array below 8 * OPL and in the frame's output row past it.
+// zeroed, or with n_lpcc > 0 the n_lpcc - 1 LPC cepstra of the unzeroed
+// coefficients (lpcc_frames; nfeat = nceps + n_lpcc - 1; order < 8 * OPL,
+// which ops/gpu_frontend checks), and without fuse_lpc the raw
+// autocorrelation as it stands in sums (nfeat = nceps + nac). Frames at or
+// past nvalid (counted from the tile's first frame) get zeros. NTH threads
+// run it; the recursion takes any order, one thread a frame, its
+// coefficients in a local array below 8 * OPL and in the frame's output
+// row past it (LPC only).
 template <int OPL, int NTH = NT>
 __device__ __forceinline__ void tile_features(
     const float* sums, float* __restrict__ out, int nf, int nvalid,
     const float* __restrict__ dct, int nmel, int nac, int nceps,
-    bool fuse_lpc, int stride = 8 * OPL) {
+    bool fuse_lpc, int stride = 8 * OPL, int n_lpcc = 0) {
   constexpr int NOP = 8 * OPL;
   const int order = nac > 0 ? nac - 1 : 0;
-  const int nfeat = nceps + (fuse_lpc ? order : nac);
+  const int nfeat =
+      n_lpcc > 0 ? nceps + n_lpcc - 1 : nceps + (fuse_lpc ? order : nac);
   const int tid = threadIdx.x;
 
   for (int i = tid; i < nf * nceps; i += NTH) {
@@ -494,6 +555,11 @@ __device__ __forceinline__ void tile_features(
       out[f * nfeat + nceps + j] =
           f < nvalid ? sums[(size_t)f * stride + nmel + j] : 0.f;
     }
+    return;
+  }
+  if (n_lpcc > 0) {  // block-uniform
+    lpcc_frames<NOP>(sums, out, nf, nvalid, nmel, order, nceps, nfeat,
+                     stride, n_lpcc, tid, NTH);
     return;
   }
   if (order == 0) return;
@@ -563,6 +629,22 @@ __device__ __forceinline__ void cmvn_utterance(
       }
     __syncthreads();  // red and stat are free for the next columns
   }
+}
+
+// Masked per-utterance CMVN of feat[b, :n_valid[b], :nceps], in place
+// (cmvn_utterance), a block an utterance: 32 columns at a time x CG frame
+// groups. The second kernel of the signal frontends (csrc/frontend.cu,
+// frontend_bf16.cu, frontend_full_signals.cu).
+constexpr int CG = 16;
+
+__global__ void __launch_bounds__(32 * CG) cmvn_kernel(
+    float* __restrict__ feat, const int* __restrict__ n_valid, int T,
+    int nfeat, int nceps) {
+  __shared__ float red[CG][32];
+  __shared__ float stat[2][32];
+  const int b = blockIdx.x;
+  cmvn_utterance<CG>(feat + (size_t)b * T * nfeat, n_valid[b], nfeat, nceps,
+                     threadIdx.x, threadIdx.y, red, stat);
 }
 
 }  // namespace

@@ -14,15 +14,25 @@ frontend.
   route), on the CPU its plain version with the dense packed operators D,
   W, A (ops/frontend.packed_frontend_operators: window, pre-emphasis and
   a 2*frame_len-point DFT folded into D). With LPC cepstra (n_lpcc > 0)
-  the same kernel skips the Levinson (`fuse_lpc=False`) and returns the
-  raw autocorrelation, and Levinson and the LPCC recursion follow in
-  torch, as in the JAX package (features/extract.py:255-297). The fused
+  the same kernel's LPC-cepstra mode runs the recursion after the Levinson
+  on the card, in one call; the bf16 kernel (mm="bf16"), which has no such
+  mode, returns the
+  raw autocorrelation (`fuse_lpc=False`, the JAX kernel's route,
+  features/extract.py:255-297), and Levinson and the recursion follow in
+  torch. The fused
   predict monolith (ops/gpu_predict) takes the `fft` route on the card
   and reads D, W, A for its CPU plain version and its bf16 route.
 - `FullFrontend`: the reference's own fft_size-point power spectrum of
-  windowed, pre-emphasized frames (mfcc_from_frames). It serves
-  SRTPU_FRONTEND=full and every fft_size < 2*frame_len, i.e. every sample
-  rate above 32 kHz at the default 2048-point FFT and 32 ms frames.
+  windowed, pre-emphasized frames. It serves SRTPU_FRONTEND=full and every
+  fft_size < 2*frame_len, i.e. every sample rate above 32 kHz at the
+  default 2048-point FFT and 32 ms frames. At float32 with f32 operands
+  and a power-of-two fft_size below 32768 it runs
+  ops/gpu_frontend.mfcc_from_signals, which frames the signals, normalizes
+  and computes the LPC columns itself (on the card one kernel, csrc/
+  frontend_full_signals.cu); every other route (an fft_size that is not a
+  power of two, 32768 points or more, bf16 operands, float64) frames the
+  signals in torch, runs a frame-level kernel (mfcc_from_frames) or its
+  plain version, and the tail in torch (`finish`).
 
 Both take `mm`, the DFT product's operand precision of the JAX
 extractor's `matmul_dtype` (features/extract.py:166-167): "f32", or "bf16",
@@ -191,16 +201,26 @@ class _Frontend(nn.Module):
                                   mask, self.n_deltas)
         return _zero_past(feat, mask), mask
 
+    def _deltas(self, feat: torch.Tensor, mask: torch.Tensor):
+        """A signal kernel's features (zeros past each utterance's valid
+        frames) with their deltas: apply_deltas, then zeros past the valid
+        frames again."""
+        if not self.n_deltas:
+            return feat, mask
+        feat, mask = apply_deltas(feat, mask, self.n_deltas)
+        return _zero_past(feat, mask), mask
+
     def _lpc_part(self, r: torch.Tensor) -> torch.Tensor:
         """[..., order+1] raw autocorrelation -> the LPC columns: LPC, or
         Levinson -> LPC cepstra -> non-finite to 0, or none without LPC."""
-        if not self.use_lpc:
-            return r[..., :0]
-        if self.n_lpcc > 0:
-            a, _ = levinson.levinson(r)
-            return torch.nan_to_num(levinson.lpcc_from_lpc(a, self.n_lpcc),
-                                    nan=0.0, posinf=0.0, neginf=0.0)
-        return levinson.lpc_from_autocorr(r)
+        return gpu_frontend.lpc_columns(r if self.use_lpc else r[..., :0],
+                                        self.n_lpcc)
+
+    def _lpcc_in_kernel(self) -> bool:
+        """Whether the LPC cepstra (if any) come out of the signal kernels'
+        tail: not from the bf16 kernel, and up to LPCC_MAX_LAGS lags."""
+        return (self.n_lpcc == 0 or not self.mm_bf16
+                and self.lpc_order < gpu_frontend.LPCC_MAX_LAGS)
 
 
 def _zero_past(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -261,46 +281,45 @@ class PackedFrontend(_Frontend):
                                      self.fft_acorr)
 
     def _signal_kernel(self, signals, lengths, cmvn: bool):
-        """(the signal kernel's output, T, [B, T] mask) for [B, Lp] signals:
-        K1 at float32, the FFT route's or the dense plain version at
-        float64. LPC comes from the kernel's Levinson ([B, T, n_ceps +
-        order]) unless the frontend takes LPC cepstra (then the cepstra and
-        the raw autocorrelation, [B, T, order+1])."""
+        """(the signal kernel's output, [B, T] mask) for [B, Lp] signals: K1
+        at float32, the FFT route's or the dense plain version at float64.
+        [B, T, n_ceps + w], the LPC columns from the kernel's tail (LPC, or
+        the LPC cepstra), unless the LPC cepstra follow in torch
+        (_lpcc_in_kernel: then the cepstra and the raw autocorrelation,
+        [B, T, order+1])."""
         signals, T, mask = self._frames(signals, lengths)
         n_valid = self.valid_frames(lengths.to(signals.device), T)
-        fuse_lpc = self.n_lpcc == 0
+        fuse_lpc = self._lpcc_in_kernel()
+        n_lpcc = self.n_lpcc if fuse_lpc else 0
         if not self._count_f64():
             out = gpu_frontend.packed_from_signals(
                 signals, n_valid, self.D, self.W, self.dct, self.A,
                 self.floor, self.frame_shift, cmvn, fft=self.fft,
-                fuse_lpc=fuse_lpc, mm_bf16=self.mm_bf16)
+                fuse_lpc=fuse_lpc, mm_bf16=self.mm_bf16, n_lpcc=n_lpcc)
         elif self.D is None:
             out = gpu_frontend.packed_from_signals_fft_reference(
                 signals, n_valid, self.fft, self.dct, self.floor,
-                self.frame_shift, cmvn, fuse_lpc)
+                self.frame_shift, cmvn, fuse_lpc, n_lpcc)
         else:
             out = gpu_frontend.packed_from_signals_reference(
                 signals, n_valid, self.D, self.W, self.dct, self.A,
-                self.floor, self.frame_shift, cmvn, fuse_lpc)
+                self.floor, self.frame_shift, cmvn, fuse_lpc, n_lpcc=n_lpcc)
         return out, mask
 
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
         """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
         [B, T'] mask); zeros past each utterance's valid frames."""
         feat, mask = self._signal_kernel(signals, lengths, self.cmvn)
-        if self.n_lpcc > 0:
+        if not self._lpcc_in_kernel():
             return self.finish(*feat, mask, cmvn_done=True)
-        if self.n_deltas:
-            feat, mask = apply_deltas(feat, mask, self.n_deltas)
-            feat = _zero_past(feat, mask)
-        return feat, mask
+        return self._deltas(feat, mask)
 
     def pre_cmvn(self, signals: torch.Tensor, lengths: torch.Tensor):
         """([B, T, n_ceps] cepstra before CMVN, [B, T, w] LPC columns,
         [B, T] mask): forward's kernel with its CMVN off and no deltas;
         zeros past each utterance's valid frames."""
         out, mask = self._signal_kernel(signals, lengths, False)
-        if self.n_lpcc == 0:
+        if self._lpcc_in_kernel():
             nc = self.dct.shape[1]
             return out[..., :nc], out[..., nc:], mask
         return (_zero_past(out[0], mask),
@@ -316,7 +335,11 @@ class FullFrontend(_Frontend):
     plain version on the CPU, the dense kernel at an fft_size that is not a
     power of two past the chirp-z route's reach (gpu_frontend.chirp_size),
     the bf16 product. The FFT and chirp-z kernels take the first fft/2+1
-    rows of mel and acorr."""
+    rows of mel and acorr. `signal_route`: whether forward and pre_cmvn
+    run gpu_frontend.mfcc_from_signals (float32, f32 operands, a
+    power-of-two fft_size below BIG_N, LPC cepstra within LPCC_MAX_LAGS),
+    with the window [flen] in `fft`; otherwise the frame route
+    (_frame_kernel, then `finish`)."""
 
     def __init__(self, fs: int, cfg: FeatureConfig,
                  device: torch.device | str = "cuda",
@@ -336,8 +359,13 @@ class FullFrontend(_Frontend):
         # rows are zero, so they add nothing to either
         pad = -nb % 4
         mel, acorr = (np.pad(x, ((0, pad), (0, 0))) for x in (mel, acorr))
-        self._register(device, mel=mel, dct=dct, acorr=acorr)
+        self._register(device, mel=mel, dct=dct, acorr=acorr,
+                       window=operators.hamming(self.frame_len))
         self.n_fft = mf.fft_size
+        self.signal_route = (dtype == torch.float32 and not self.mm_bf16
+                             and self.n_fft & (self.n_fft - 1) == 0
+                             and self.n_fft < gpu_frontend.BIG_N
+                             and self._lpcc_in_kernel())
         self.register_buffer("C", None)
         self.register_buffer("S", None)
         dense = (self.n_fft & (self.n_fft - 1)
@@ -349,6 +377,23 @@ class FullFrontend(_Frontend):
                                       for k, x in (("C", C), ("S", S))})
         self.pre_emph = mf.pre_emph
         self.preemph_first = mf.preemph_first
+
+    @property
+    def fft(self) -> gpu_frontend.FftRoute:
+        """The operators of the kernel from the signals: n_fft = fft_size,
+        mel and acorr rows past fft/2 unread."""
+        return gpu_frontend.FftRoute(self.n_fft, self.window, self.pre_emph,
+                                     self.preemph_first, self.mel,
+                                     self.acorr)
+
+    def _signal_kernel(self, signals, lengths, cmvn: bool):
+        """(mfcc_from_signals' [B, T, n_ceps + w] features, [B, T] mask)
+        for [B, Lp] signals (the signal route)."""
+        signals, T, mask = self._frames(signals, lengths)
+        n_valid = self.valid_frames(lengths.to(signals.device), T)
+        return gpu_frontend.mfcc_from_signals(
+            signals, n_valid, self.fft, self.dct, self.floor,
+            self.frame_shift, cmvn, self.n_lpcc), mask
 
     def _frame_kernel(self, signals, lengths):
         """([B, T, n_ceps] cepstra before CMVN, [B, T, order+1] raw
@@ -377,12 +422,19 @@ class FullFrontend(_Frontend):
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
         """[B, Lp] zero-padded signals, [B] lengths -> ([B, T', d] features,
         [B, T'] mask); zeros past each utterance's valid frames."""
+        if self.signal_route:
+            return self._deltas(*self._signal_kernel(signals, lengths,
+                                                     self.cmvn))
         return self.finish(*self._frame_kernel(signals, lengths))
 
     def pre_cmvn(self, signals: torch.Tensor, lengths: torch.Tensor):
         """([B, T, n_ceps] cepstra before CMVN, [B, T, w] LPC columns,
         [B, T] mask): forward's kernel and LPC columns, with no CMVN and no
         deltas; zeros past each utterance's valid frames."""
+        if self.signal_route:
+            out, mask = self._signal_kernel(signals, lengths, False)
+            nc = self.dct.shape[1]
+            return out[..., :nc], out[..., nc:], mask
         ceps, r, mask = self._frame_kernel(signals, lengths)
         return (_zero_past(ceps, mask), _zero_past(self._lpc_part(r), mask),
                 mask)

@@ -7,9 +7,14 @@ Each wrapper launches its CUDA kernel on a CUDA tensor and runs its
 zero-padded signals and [B] valid frame counts, the [B, T, n_ceps + order]
 feature concat(MFCC, LPC) with T = (Lp - frame_len)//fshift + 1, masked
 CMVN over the valid frames when `cmvn` is set, and zeros at every frame at
-or past n_valid. With `fuse_lpc=False` it skips the Levinson and returns
-the MFCC [B, T, n_ceps] and the raw autocorrelation [B, T, order+1], which
-the LPC cepstra take (features/extract.PackedFrontend). Its plain version,
+or past n_valid. With `n_lpcc > 0` the LPC cepstra follow the Levinson
+([B, T, n_ceps + n_lpcc - 1]: `lpc_columns`; on the card the raw mode's
+rows, then a second kernel with the tile's LPC-cepstra tail, so that the
+LPC mode's instances stay as they were). With `fuse_lpc=False` it skips
+the Levinson and returns the MFCC [B, T, n_ceps] and the raw
+autocorrelation [B, T, order+1] (the JAX kernel's fuse_lpc=False;
+features/extract.PackedFrontend takes it for the LPC cepstra of the bf16
+kernel, which has no LPC-cepstra mode). Its plain version,
 the CPU path, runs the dense packed operators of
 ops/frontend.packed_frontend_operators: D [frame_len, ncols] (window,
 pre-emphasis, half-spectrum DFT), W [ncols, n_mel], dct
@@ -18,6 +23,17 @@ zero columns for an MFCC-only config). The kernel computes the same
 function on an FFT: it takes an `FftRoute` (the window, the pre-emphasis
 and the bin-domain operators of ops/frontend.fft_packed_operators);
 `packed_from_signals_fft_reference` is that route in plain torch.
+
+`mfcc_from_signals` (K5 from the signals, csrc/frontend_full_signals.cu)
+computes the full-spectrum frontend's features from [B, Lp] signals as K1
+computes the packed frontend's: framing, window and pre-emphasis per
+sample (samples past n_fft folded), the n_fft-point power floored per bin,
+mel, log, DCT, masked CMVN, then LPC, the LPC cepstra or nothing, zeros at
+and past n_valid ([B, T, n_ceps + w]); counted in FULL_SIGNAL_LAUNCHES. It
+serves features/extract.FullFrontend at float32 with f32 operands and a
+power-of-two fft_size below BIG_N; its plain version is
+`mfcc_from_signals_reference` (framing, `mfcc_from_frames_fft_reference`,
+the same tail).
 
 The frame-level kernels take [n, frame_len] frames and return pre-CMVN
 cepstra [n, n_ceps] and the RAW autocorrelation [n, order+1] (zero-width
@@ -105,11 +121,12 @@ FRAMES_LAUNCHES = 0      # csrc/frontend_frames_fft.cu, packed_from_frames
 FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
 FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
 FULL_CHIRP_LAUNCHES = 0  # csrc/frontend_chirp.cu, mfcc_from_frames
+FULL_SIGNAL_LAUNCHES = 0  # csrc/frontend_full_signals.cu, mfcc_from_signals
 # the route of N >= 32768 (csrc/rfft_big.cuh), one count per wrapper
 BIG_LAUNCHES = 0         # packed_from_signals
 FRAMES_BIG_LAUNCHES = 0  # packed_from_frames
 FULL_BIG_LAUNCHES = 0    # mfcc_from_frames
-# FFT-tile launches of any of the three with more than 512 outputs
+# FFT-tile launches of any of the four with more than 512 outputs
 CHUNKED_LAUNCHES = 0
 # launches of the four-step route past the cluster's reach (the
 # device-memory passes), from any wrapper, gpu_predict's included
@@ -143,6 +160,11 @@ CLUSTER_BLOCK = 16384
 # passes keep matrices for a group of frames only) gives it blocks for
 # every SM
 BIG_SCRATCH_BYTES = 1 << 30
+# autocorrelation lags (LPC order + 1) the kernels' LPC-cepstra tail takes:
+# a frame's coefficients sit in a local array of the tile's operator width,
+# which is at least this past 512 outputs (csrc/packed_tile.cuh
+# tile_features)
+LPCC_MAX_LAGS = 512
 
 
 def masked_cmvn(feat: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -189,9 +211,32 @@ def _power(x: torch.Tensor, n_fft: int) -> torch.Tensor:
     return X.real * X.real + X.imag * X.imag
 
 
-def _signal_features(ceps, r, mask, cmvn: bool, fuse_lpc: bool):
-    """The tail both plain signal frontends share: masked CMVN of the
-    cepstra, then concat(MFCC, LPC), or (MFCC, raw autocorrelation)
+def lpc_columns(r: torch.Tensor, n_lpcc: int = 0) -> torch.Tensor:
+    """[..., order+1] raw autocorrelation -> the LPC columns: LPC (non-finite
+    coefficients zeroed), or with n_lpcc > 0 Levinson -> the LPC cepstra
+    -> non-finite to 0 (speaker_recognition_tpu/features/extract.py:339-344:
+    the recursion runs on the unzeroed coefficients, so an all-zero frame
+    gives 0 cepstra); zero-width without LPC. For the cepstra a frame whose
+    lag 0 lies below the dtype's least normal number is taken as r = 0: an
+    all-floor frame of the full-spectrum route (lag 0 = floor / frame_len,
+    subnormal in f32), which the JAX package's f32 route, flushing
+    subnormals, sees as 0 (its recursion on zeroed coefficients would give
+    -1 / (n + 1) instead of 0)."""
+    if not r.shape[-1]:
+        return r
+    if n_lpcc > 0:
+        tiny = torch.finfo(r.dtype).tiny
+        r = torch.where(r[..., :1] < tiny, torch.zeros_like(r), r)
+        a, _ = levinson.levinson(r)
+        return torch.nan_to_num(levinson.lpcc_from_lpc(a, n_lpcc), nan=0.0,
+                                posinf=0.0, neginf=0.0)
+    return levinson.lpc_from_autocorr(r)
+
+
+def _signal_features(ceps, r, mask, cmvn: bool, fuse_lpc: bool,
+                     n_lpcc: int = 0):
+    """The tail the plain signal frontends share: masked CMVN of the
+    cepstra, then concat(MFCC, lpc_columns), or (MFCC, raw autocorrelation)
     without fuse_lpc; zeros past the valid frames."""
     if cmvn:
         ceps = masked_cmvn(ceps, mask)
@@ -199,16 +244,14 @@ def _signal_features(ceps, r, mask, cmvn: bool, fuse_lpc: bool):
     if not fuse_lpc:
         return (torch.where(m, ceps, torch.zeros_like(ceps)),
                 torch.where(m, r, torch.zeros_like(r)))
-    parts = [ceps]
-    if r.shape[-1]:
-        parts.append(levinson.lpc_from_autocorr(r))
-    feat = torch.cat(parts, dim=-1)
+    feat = torch.cat([ceps, lpc_columns(r, n_lpcc)], dim=-1)
     return torch.where(m, feat, torch.zeros_like(feat))
 
 
 def packed_from_signals_fft_reference(signals, n_valid, fft: FftRoute, dct,
                                       floor: float, fshift: int, cmvn: bool,
-                                      fuse_lpc: bool = True):
+                                      fuse_lpc: bool = True,
+                                      n_lpcc: int = 0):
     """The signal frontend's FFT route in plain torch: what K1 computes."""
     flen = fft.window.shape[0]
     frames = framing.frame_signal(signals, flen, fshift)
@@ -217,7 +260,8 @@ def packed_from_signals_fft_reference(signals, n_valid, fft: FftRoute, dct,
     Y = _power(framing.window_preemph(frames, flen, fft.pre_emph,
                                       fft.preemph_first), fft.n_fft)
     ceps = torch.log(torch.clamp_min(Y @ fft.mel, floor)) @ dct
-    return _signal_features(ceps, Y @ fft.acorr, mask, cmvn, fuse_lpc)
+    return _signal_features(ceps, Y @ fft.acorr, mask, cmvn, fuse_lpc,
+                            n_lpcc)
 
 
 def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
@@ -228,6 +272,89 @@ def mfcc_from_frames_fft_reference(wp, mel, dct, floor: float, acorr,
     power = torch.clamp_min(_power(wp, n_fft), floor)
     return (torch.log(torch.clamp_min(power @ mel[:nb], floor)) @ dct,
             power @ acorr[:nb])
+
+
+def mfcc_from_signals_reference(signals, n_valid, fft: FftRoute, dct,
+                                floor: float, fshift: int, cmvn: bool,
+                                n_lpcc: int = 0):
+    """The full-spectrum frontend from the signals in plain torch: what
+    mfcc_from_signals' kernel computes. Frames (framing.frame_signal),
+    window and pre-emphasis (framing.window_preemph), the FFT route's
+    spectrum with K5's per-bin floor (mfcc_from_frames_fft_reference, frames
+    longer than n_fft folded), masked CMVN, lpc_columns; zeros past
+    n_valid."""
+    flen = fft.window.shape[0]
+    frames = framing.frame_signal(signals, flen, fshift)
+    T = frames.shape[-2]
+    mask = torch.arange(T, device=signals.device) < n_valid[:, None]
+    wp = framing.window_preemph(frames, flen, fft.pre_emph,
+                                fft.preemph_first)
+    ceps, r = mfcc_from_frames_fft_reference(wp, fft.mel, dct, floor,
+                                             fft.acorr, fft.n_fft)
+    return _signal_features(ceps, r, mask, cmvn, True, n_lpcc)
+
+
+def mfcc_from_signals(signals, n_valid, fft: FftRoute, dct, floor: float,
+                      fshift: int, cmvn: bool, n_lpcc: int = 0):
+    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + w], w the LPC
+    order, n_lpcc - 1 LPC cepstra (n_lpcc > 0) or 0 without LPC (a
+    zero-width fft.acorr); masked CMVN of the cepstra when `cmvn`, zeros at
+    and past n_valid. fft.n_fft is the fft_size, a power of two in [64,
+    BIG_N / 2], of any frame length (a longer frame folds). On the CPU the
+    plain version; on the card csrc/frontend_full_signals.cu."""
+    if signals.device.type == "cpu":
+        return mfcc_from_signals_reference(signals, n_valid, fft, dct,
+                                           floor, fshift, cmvn, n_lpcc)
+    if signals.device.type != "cuda":
+        raise ValueError(f"no frontend for device {signals.device}")
+    dev = signals.device
+    _build.check_tensor(signals, "signals", torch.float32, 2, dev)
+    _build.check_tensor(n_valid, "n_valid", torch.int32, 1, dev)
+    for t, name in ((fft.window, "window"), (fft.mel, "mel"),
+                    (fft.acorr, "acorr"), (dct, "dct")):
+        _build.check_tensor(t, name, torch.float32, 1 if t is fft.window
+                            else 2, dev)
+    B, Lp = signals.shape
+    flen, N = fft.window.shape[0], fft.n_fft
+    nmel, nceps = dct.shape
+    nac = fft.acorr.shape[1]
+    if (n_valid.shape[0] != B or fft.mel.shape[1] != nmel
+            or min(fft.mel.shape[0], fft.acorr.shape[0]) < N // 2 + 1
+            or fshift < 1 or Lp < flen):
+        raise ValueError(
+            f"inconsistent frontend shapes: signals {tuple(signals.shape)}, "
+            f"n_valid {tuple(n_valid.shape)}, window {flen}, n_fft {N}, mel "
+            f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
+            f"{tuple(dct.shape)}, fshift {fshift}")
+    _check_lpcc(n_lpcc, nac)
+    T = (Lp - flen) // fshift + 1
+    w = (n_lpcc - 1 if n_lpcc > 0 else nac - 1) if nac else 0
+    feat = torch.empty((B, T, nceps + w), dtype=torch.float32, device=dev)
+    if B == 0:
+        return feat
+    lib = _build.load()
+    op = _packed_operator(lib, fft.mel, fft.acorr, N)
+    wsums = _wide_rows(lib, B * T, nmel + nac, dev)
+    with torch.cuda.device(dev):
+        err = lib.srt_full_signals_frontend(
+            signals.data_ptr(), n_valid.data_ptr(), fft.window.data_ptr(),
+            op.data_ptr(), dct.data_ptr(), feat.data_ptr(), _ptr(wsums), B,
+            Lp, T, flen, fshift, N, nmel, nac, nceps, float(fft.pre_emph),
+            int(bool(fft.preemph_first)), float(floor), int(bool(cmvn)),
+            n_lpcc, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "full-spectrum frontend kernel from the signals")
+    global FULL_SIGNAL_LAUNCHES, CHUNKED_LAUNCHES
+    FULL_SIGNAL_LAUNCHES += 1
+    CHUNKED_LAUNCHES += nmel + nac > 512
+    return feat
+
+
+def _check_lpcc(n_lpcc: int, nac: int):
+    """Raise unless the kernels' LPC-cepstra tail takes n_lpcc cepstra of
+    an autocorrelation of nac lags (LPCC_MAX_LAGS)."""
+    if n_lpcc > 0 and not 0 < nac <= LPCC_MAX_LAGS:
+        raise ValueError(f"the LPC cepstra take 1 to {LPCC_MAX_LAGS} "
+                         f"autocorrelation lags in the kernels, got {nac}")
 
 
 def chirp_size(n_fft: int, frame_len: int) -> int:
@@ -337,7 +464,7 @@ def _dft(frames, D, mm_bf16: bool):
 def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
                                   floor: float, fshift: int, cmvn: bool,
                                   fuse_lpc: bool = True,
-                                  mm_bf16: bool = False):
+                                  mm_bf16: bool = False, n_lpcc: int = 0):
     """The plain torch frontend: explicit frames and matmuls."""
     frames = framing.frame_signal(signals, D.shape[0], fshift)
     T = frames.shape[-2]
@@ -345,30 +472,37 @@ def packed_from_signals_reference(signals, n_valid, D, W, dct, A,
     X = _dft(frames, D, mm_bf16)
     Y = X * X
     ceps = torch.log(torch.clamp_min(Y @ W, floor)) @ dct
-    return _signal_features(ceps, Y @ A, mask, cmvn, fuse_lpc)
+    return _signal_features(ceps, Y @ A, mask, cmvn, fuse_lpc, n_lpcc)
 
 
 def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
                         fshift: int, cmvn: bool,
                         fft: FftRoute | None = None, fuse_lpc: bool = True,
-                        mm_bf16: bool = False):
-    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order], or
-    without fuse_lpc ([B, T, n_ceps], [B, T, order+1] raw autocorrelation;
-    on the card two views of one buffer). On the CPU the plain version with
-    D, W, A (the FFT route's where D is None: a frontend of N >= 32768
-    builds no dense operators); on the card the FFT kernel, which takes
-    `fft` instead. mm_bf16: the dense product with bf16 operands (D, W, A
-    on either device; csrc/frontend_bf16.cu on the card)."""
+                        mm_bf16: bool = False, n_lpcc: int = 0):
+    """[B, Lp] signals, [B] int32 n_valid -> [B, T, n_ceps + order], with
+    n_lpcc > 0 [B, T, n_ceps + n_lpcc - 1] (the LPC cepstra), or without
+    fuse_lpc ([B, T, n_ceps], [B, T, order+1] raw autocorrelation; on the
+    card two views of one buffer). On the CPU the plain version with D, W,
+    A (the FFT route's where D is None: a frontend of N >= 32768 builds no
+    dense operators); on the card the FFT kernel, which takes `fft`
+    instead. mm_bf16: the dense product with bf16 operands (D, W, A on
+    either device; csrc/frontend_bf16.cu on the card, which has no LPC
+    cepstra)."""
     if mm_bf16 and D is None:
         raise ValueError("mm_bf16 rounds the dense DFT operand: pass D, W, "
                          "A (PackedFrontend builds them at mm='bf16')")
+    if n_lpcc > 0 and (mm_bf16 or not fuse_lpc):
+        raise ValueError("the LPC cepstra follow the Levinson: fuse_lpc, and "
+                         "not mm_bf16 (its kernel returns the raw "
+                         "autocorrelation for them)")
     if signals.device.type == "cpu":
         if D is None:
             return packed_from_signals_fft_reference(
-                signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
+                signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc,
+                n_lpcc)
         return packed_from_signals_reference(signals, n_valid, D, W, dct, A,
                                              floor, fshift, cmvn, fuse_lpc,
-                                             mm_bf16)
+                                             mm_bf16, n_lpcc)
     if signals.device.type != "cuda":
         raise ValueError(f"no frontend for device {signals.device}")
     if mm_bf16:
@@ -397,10 +531,15 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
             f"n_valid {tuple(n_valid.shape)}, window {flen}, n_fft {N}, mel "
             f"{tuple(fft.mel.shape)}, acorr {tuple(fft.acorr.shape)}, dct "
             f"{tuple(dct.shape)}, fshift {fshift}")
+    _check_lpcc(n_lpcc, nac)
     lib = _build.load()
     T = (Lp - flen) // fshift + 1
-    feat = torch.empty((B, T, nceps + (order if fuse_lpc else nac)),
-                       dtype=torch.float32, device=dev)
+    w = nac if not fuse_lpc else n_lpcc - 1 if n_lpcc > 0 else order
+    feat = torch.empty((B, T, nceps + w), dtype=torch.float32, device=dev)
+    # the LPC cepstra follow the raw mode's rows (csrc/frontend.cu
+    # lpcc_kernel)
+    raw = (torch.empty((B, T, nceps + nac), dtype=torch.float32, device=dev)
+           if n_lpcc > 0 else None)
     global LAUNCHES, BIG_LAUNCHES, CHUNKED_LAUNCHES
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -413,8 +552,8 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
                 feat.data_ptr(),
                 scratch.data_ptr(), B, Lp, T, flen, fshift, N, nmel, nac,
                 nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
-                float(floor), int(bool(cmvn)), int(bool(fuse_lpc)), chunk,
-                stream)
+                float(floor), int(bool(cmvn)), int(bool(fuse_lpc)), n_lpcc,
+                _ptr(raw), chunk, stream)
         else:
             op = _packed_operator(lib, fft.mel, fft.acorr, N)
             wsums = _wide_rows(lib, B * T, nmel + nac, dev)
@@ -424,7 +563,7 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
                 feat.data_ptr(), _ptr(wsums), B, Lp, T, flen, fshift, N,
                 nmel, nac, nceps, float(fft.pre_emph),
                 int(bool(fft.preemph_first)), float(floor), int(bool(cmvn)),
-                int(bool(fuse_lpc)), stream)
+                int(bool(fuse_lpc)), n_lpcc, _ptr(raw), stream)
     _build.check(err, "packed frontend kernel")
     if N >= BIG_N:
         BIG_LAUNCHES += 1

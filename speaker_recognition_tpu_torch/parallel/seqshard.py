@@ -21,9 +21,10 @@ its chunk's frame starts. Its couplings with the others are:
 Each rank's pre-CMVN features come from the frontend's own kernel
 (features/extract's `pre_cmvn`, mix_feature's route with its CMVN off):
 the signal frontend K1 (ops/gpu_frontend.packed_from_signals, counted in
-gpu_frontend.LAUNCHES) on the packed route, the full-spectrum K5
-(mfcc_from_frames, FULL_LAUNCHES) on the full route; on the CPU, and at
-float64, their plain versions.
+gpu_frontend.LAUNCHES) on the packed route, the full-spectrum K5 on the
+full route (from the signals, mfcc_from_signals, FULL_SIGNAL_LAUNCHES, at
+a power-of-two fft_size; on frames, mfcc_from_frames, otherwise); on the
+CPU, and at float64, their plain versions.
 """
 
 from __future__ import annotations

@@ -267,7 +267,7 @@ def bind(lib) -> None:
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.srt_fft_frames_frontend.argtypes = [p_] * 6 + [i_] * 6 + [f_, p_]
     lib.srt_packed_frontend.argtypes = ([p_] * 7 + [i_] * 9
-                                        + [f_, i_, f_, i_, i_, p_])
+                                        + [f_, i_, f_, i_, i_, i_, p_, p_])
 
 
 def build(tmp: str, variants=VARIANTS, sources=SOURCES,
@@ -406,7 +406,8 @@ def tile_main(card: str, dev, rng, variants=None) -> None:
             s8.data_ptr(), nv.data_ptr(), fft.window.data_ptr(),
             op8.data_ptr(), fe8.dct.data_ptr(), feat.data_ptr(), 0, 512, 40960,
             T8, fe8.frame_len, fe8.frame_shift, fft.n_fft, nmel, nac8, nceps,
-            fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, 1, stream)
+            fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, 1, 0,
+            None, stream)
         assert err == 0, err
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:

@@ -15,6 +15,8 @@ its C and S hold 8,388,612 bins).
     python tests/test_torch_chip_smoke.py phase19_20  # the RBM family and
                                                       # multi-device phases
     python tests/test_torch_chip_smoke.py phase21   # the bf16 modes
+    python tests/test_torch_chip_smoke.py phase22   # K5 from the signals,
+                                                    # the LPC cepstra in K1
 
 Every kernel wrapper is replaced by its plain torch version (for the
 frontends, by the wrapper itself, which on CPU tensors runs its plain
@@ -72,6 +74,7 @@ EDITS = [
     ("ROUTE_TRIALS, SMALL_TRIALS = (7, 3), (5, 1)",
      "ROUTE_TRIALS, SMALL_TRIALS = (1, 1), (1, 1)"),
     ("PAST_REACH_LENGTHS = (96, 64)", "PAST_REACH_LENGTHS = (6, 4)"),
+    ("SIGNAL_TRIALS = (7, 3)", "SIGNAL_TRIALS = (1, 1)"),
     ("FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 80, 30.0, 2, 3.0",
      "FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 8, 2.0, 1, 1.0"),
 ]
@@ -157,9 +160,9 @@ def _fft_past_512(name, fft_plain):
 
 
 def _signals_fft(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-                 fft=None, fuse_lpc=True):
+                 fft=None, fuse_lpc=True, n_lpcc=0):
     return gpu_frontend.packed_from_signals_fft_reference(
-        signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
+        signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc, n_lpcc)
 
 
 def _frames_fft(frames, D, W, dct, floor, A, fft=None):
@@ -178,6 +181,14 @@ def _full_counter(wp, C, S, mel, dct, floor, acorr, n_fft):
         return ("FULL_CHIRP_LAUNCHES",) if M else ("FULL_DENSE_LAUNCHES",)
     return _tile_counters(n_fft, mel.shape[1] + acorr.shape[1],
                           "FULL_LAUNCHES", "FULL_BIG_LAUNCHES")
+
+
+def _full_signals_counter(signals, n_valid, fft, *args, **kw):
+    """The counters mfcc_from_signals' kernel moves: its own, and
+    CHUNKED_LAUNCHES past 512 outputs."""
+    nout = fft.mel.shape[1] + fft.acorr.shape[1]
+    return (("FULL_SIGNAL_LAUNCHES", "CHUNKED_LAUNCHES") if nout > 512
+            else ("FULL_SIGNAL_LAUNCHES",))
 
 
 def _chirp_past_cluster(wp, C, S, mel, dct, floor, acorr, n_fft):
@@ -236,6 +247,9 @@ def main():
     torch.cuda.get_device_name = lambda *a: "CPU rehearsal"
     torch.cuda.device_count = lambda: 0
     torch.cuda.empty_cache = lambda: None
+    torch.cuda.reset_peak_memory_stats = lambda *a, **k: None
+    torch.cuda.memory_allocated = lambda *a, **k: 0
+    torch.cuda.max_memory_allocated = lambda *a, **k: 0
     # the frontend wrappers take their kernels' operators beside the plain
     # versions' (the FFT route's, n_fft): on CPU tensors they run the plain
     # versions themselves
@@ -247,6 +261,7 @@ def main():
     for name, counter in (("packed_from_signals", _signals_counter),
                           ("packed_from_frames", _frames_counter),
                           ("mfcc_from_frames", _full_counter),
+                          ("mfcc_from_signals", _full_signals_counter),
                           ("mfcc_from_frames_dense", "FULL_DENSE_LAUNCHES")):
         _counting(gpu_frontend, name,
                   stand_ins.get(name, getattr(gpu_frontend, name)), counter)
@@ -292,6 +307,15 @@ def main():
         if sys.argv[1] == "phase21":
             _phase21(smoke, rng, dev, card, bench)
             return
+        if sys.argv[1] == "phase22":
+            from speaker_recognition_tpu_torch.config import FeatureConfig
+            from speaker_recognition_tpu_torch.features.extract import (
+                PackedFrontend)
+            smoke.phase22(rng, dev, card, *bench,
+                          PackedFrontend(8000, FeatureConfig(), dev),
+                          smoke.random_bank(rng, 4, 32, 28, dev),
+                          {"frontend": 1.0})
+            return
         getattr(smoke, sys.argv[1])(*args)
         return
     smoke.main([])
@@ -325,7 +349,7 @@ KERNEL_KEYS = {"name", "route", "source", "replaces", "launches",
 
 
 def test_chip_smoke_rehearses_on_the_cpu():
-    """All twenty-one phases pass on the CPU; the kernels record lists the
+    """All twenty-two phases pass on the CPU; the kernels record lists the
     seven TPU kernels (K1 in both its modes, K6 in both its routes, K5's
     dense template and its chirp-z kernel), then the routes of phase 16 (K1, K4 and K5 on the
     four-step FFT of N >= 32768 and past 512 outputs, K6's lifted bf16
@@ -336,9 +360,11 @@ def test_chip_smoke_rehearses_on_the_cpu():
     K3), then the four-step route's other sizes (K1 at 65536, K5 at 262144
     on a cluster of 8 and at 524288 on the device-memory passes) and
     phase 15's chirp-z route on the cluster (M = 16384 and 32768) and past
-    it on the device-memory passes (M = 262144), with every
-    key, each launched on its path but K4, which no serving path takes
-    (its launches against its plain versions are demanded by phases 11
+    it on the device-memory passes (M = 262144), then phase 22's kernels
+    (K5 from the signals, K1's LPC-cepstra mode), with every
+    key, each launched on its path but K4 and K5's frame-level FFT kernel
+    at a power-of-two fft_size, which no serving path takes (their
+    launches against their plain versions are demanded by phases 10, 11
     and 16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
     and 16384-point FFTs, 266 outputs, the 96 kHz CLI slice, the
     monolith's cases, the grid phase, the live path (216 outputs on the
@@ -374,7 +400,8 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "pallas_gmm.py:154", "pallas_gmm.py:47",
         "pallas_frontend.py:231", "pallas_frontend.py:50",
         "pallas_frontend.py:50", "pallas_frontend.py:50",
-        "pallas_frontend.py:50", "pallas_frontend.py:50"]
+        "pallas_frontend.py:50", "pallas_frontend.py:50",
+        "pallas_frontend.py:50", "pallas_frontend.py:231"]
     assert [k["name"] for k in kernels[11:]] == [
         "packed_frontend_n32768", "packed_from_frames_n32768",
         "mfcc_from_frames_n32768", "mfcc_from_frames_n65536",
@@ -388,17 +415,20 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "bank_sum_loglik_bf16", "packed_frontend_n65536",
         "mfcc_from_frames_n262144", "mfcc_from_frames_n524288",
         "mfcc_from_frames_chirp_m16384", "mfcc_from_frames_chirp_m32768",
-        "mfcc_from_frames_chirp_m262144"]
+        "mfcc_from_frames_chirp_m262144", "mfcc_from_signals",
+        "packed_frontend_lpcc"]
     assert kernels[19]["source"].endswith("csrc/predict_fused_big.cu")
     assert kernels[20]["source"].endswith("csrc/predict_fused_big.cu")
     assert [k["source"].rsplit("/", 1)[1] for k in kernels[24:]] == [
         "frontend_bf16.cu", "frontend_bf16.cu", "gmm_score_bf16.cu",
         "gmm_serial_bf16.cu", "rfft_cluster.cu", "rfft_cluster.cu",
         "rfft_passes.cuh", "frontend_chirp_cluster.cu",
-        "frontend_chirp_cluster.cu", "frontend_chirp_cluster.cu"]
+        "frontend_chirp_cluster.cu", "frontend_chirp_cluster.cu",
+        "frontend_full_signals.cu", "frontend.cu"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
-        if k["name"].startswith("packed_from_frames"):
+        if k["name"].startswith("packed_from_frames") or k["name"] in (
+                "mfcc_from_frames", "mfcc_from_frames_616_outputs"):
             assert k["launches"] == 0, k
         else:
             assert k["launches"] >= 1, k

@@ -11,7 +11,13 @@ folded), 65536 (a cluster of 2) and 524288 (the device-memory passes of
 csrc/rfft_passes.cuh), and on the chirp-z route past M = 8192 at fft_size
 16000 (M = 16384), 33000 (M = 32768, a cluster of 2) and 261634 (M =
 262144, on the passes). At a few frames the fused pass splits its bins
-(rfft_big::ranges), so every case runs the split and its combine. It
+(rfft_big::ranges), so every case runs the split and its combine. Also
+csrc/frontend_full_signals.cu (the full-spectrum frontend from the
+signals: the fold from the signal, the per-bin floor, LPC and the LPC
+cepstra in the tile's tail, zeros past n_valid) and K1's LPC-cepstra mode
+(csrc/frontend.cu) on the FFT tile, with CMVN off (the stand-in runs
+one-dimensional blocks; the CMVN kernel is K1's, held on the card), and a
+model of the four-step route's projection sums at 2^22-2^24 points. It
 checks the kernels' index maps, barriers and exchanges as the source
 states them; what nvcc or the card make of them shows only on the card
 (chip_smoke.py phases 15 and 16). Skips without g++."""
@@ -30,16 +36,19 @@ torch.set_num_threads(2)
 
 from speaker_recognition_tpu_torch import _build  # noqa: E402
 from speaker_recognition_tpu_torch.config import (  # noqa: E402
-    FeatureConfig, MfccConfig, frame_geometry, n_frames)
+    FeatureConfig, LpcConfig, MfccConfig, frame_geometry, n_frames)
 from speaker_recognition_tpu_torch.features import extract as text  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     FullFrontend)
 from speaker_recognition_tpu_torch.ops import gpu_frontend  # noqa: E402
-from speaker_recognition_tpu_torch.ops import levinson  # noqa: E402
+from speaker_recognition_tpu_torch.ops import framing, levinson  # noqa: E402
+from speaker_recognition_tpu_torch.ops import frontend as operators  # noqa: E402
+from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 
 STANDIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_standin")
-SOURCES = ("rfft_cluster.cu", "frontend_big.cu", "frontend_chirp_cluster.cu")
+SOURCES = ("rfft_cluster.cu", "frontend_big.cu", "frontend_chirp_cluster.cu",
+           "frontend_full_signals.cu", "frontend.cu", "frontend_fft.cu")
 
 
 def _rewrite(src: str) -> str:
@@ -96,6 +105,13 @@ def lib(tmp_path_factory):
     lib.srt_chirp_cluster_frontend.argtypes = [p_] * 8 + [i_] * 6 + [f_, i_,
                                                                      p_]
     lib.srt_big_ranges.argtypes = [i_, i_]
+    lib.srt_full_signals_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
+        f_, i_, f_, i_, i_, p_]
+    lib.srt_packed_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
+        f_, i_, f_, i_, i_, i_, p_, p_]
+    lib.srt_fft_operator_shape.argtypes = [i_, i_, ip, ip, ip]
+    lib.srt_fft_wide_floats.argtypes = [ctypes.c_longlong, i_]
+    lib.srt_fft_wide_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -252,3 +268,180 @@ def test_the_chirp_route_on_the_cluster(lib, fs, n_fft, M, n):
     _close(f"chirp {n_fft}", (ceps, r),
            gpu_frontend.mfcc_from_frames_chirp_reference(
                wp, mel, dct, floor, acorr, n_fft))
+
+
+def _signal_batch(fs, L, lengths, seed):
+    """[B, L] f32 signals of white noise at the given lengths (zeros past
+    them), a silent stretch of 4 frames in the first, and [B] lengths."""
+    rng = np.random.RandomState(seed)
+    sig = np.zeros((len(lengths), L), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = rng.randn(n) * 3000
+    flen, shift = frame_geometry(fs, 32.0, 16.0)
+    sig[0, shift:shift + 4 * flen] = 0.0
+    return torch.from_numpy(sig), torch.tensor(lengths, dtype=torch.int32)
+
+
+def _lpc_close(name, got, want, nceps, lpcc):
+    """Pre-CMVN cepstra of O(10-100) within 1e-3 (f32 FFTs in another
+    order, ~1e-6 relative on the power), LPC within 1e-3, LPC cepstra
+    within 1e-3 of their frame's largest; zeros where the plain version
+    has them."""
+    got, want = got.numpy(), want.numpy()
+    assert np.isfinite(got).all(), name
+    assert ((got == 0) == (want == 0)).all(), name
+    np.testing.assert_allclose(got[..., :nceps], want[..., :nceps], rtol=0,
+                               atol=1e-3, err_msg=name)
+    scale = (np.abs(want[..., nceps:]).max(axis=-1, keepdims=True)
+             if lpcc else 1.0)
+    assert (np.abs(got[..., nceps:] - want[..., nceps:])
+            <= 1e-3 * scale).all(), name
+
+
+@pytest.mark.parametrize("fs,fft_size,n_lpcc", [
+    (48000, 2048, 0), (48000, 2048, 16), (44100, 4096, 16),
+    (96000, 2048, 0)],
+    ids=["48k_lpc", "48k_lpcc", "44k_fft4096_lpcc", "96k_folded"])
+def test_the_full_spectrum_kernel_from_the_signals(lib, fs, fft_size,
+                                                   n_lpcc):
+    """srt_full_signals_frontend (the tile's loader on the signal, windowed
+    and pre-emphasized per sample, a 96 kHz frame of 3072 samples folded
+    onto 2048 points; the per-bin floor; LPC or the LPC cepstra in
+    tile_features; a tile past n_valid written as zeros) against
+    mfcc_from_signals_reference with CMVN off, two calls bitwise: a long
+    utterance with a silent stretch (its all-floor frames give LPC cepstra
+    of 0), a short one and one with no valid frame."""
+    cfg = FeatureConfig(mfcc=MfccConfig(fft_size=fft_size),
+                        lpc=LpcConfig(n_lpcc=n_lpcc))
+    fe = FullFrontend(fs, cfg, "cpu")
+    assert fe.signal_route
+    L = 4096 * (-(-int(0.25 * fs) // 4096))
+    sig, lens = _signal_batch(fs, L, [L, L // 3, fe.frame_len - 1], 31)
+    T = n_frames(L, fe.frame_len, fe.frame_shift)
+    nv = fe.valid_frames(lens, T)
+    nmel, nceps = fe.dct.shape
+    nac = fe.acorr.shape[1]
+    op = gpu_frontend._fft_operator(fe.mel, fe.acorr, fft_size, lib)
+    w = n_lpcc - 1 if n_lpcc else nac - 1
+
+    def call():
+        feat = torch.full((3, T, nceps + w), float("nan"))
+        assert lib.srt_full_signals_frontend(
+            sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(),
+            op.data_ptr(), fe.dct.data_ptr(), feat.data_ptr(), None, 3, L, T,
+            fe.frame_len, fe.frame_shift, fft_size, nmel, nac, nceps,
+            fe.pre_emph, int(fe.preemph_first), fe.floor, 0, n_lpcc,
+            None) == 0
+        return feat
+    got = call()
+    assert torch.equal(got, call())
+    want = gpu_frontend.mfcc_from_signals_reference(
+        sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, False, n_lpcc)
+    _lpc_close(f"{fs} {fft_size} {n_lpcc}", got, want, nceps, n_lpcc > 0)
+    if n_lpcc:
+        assert (got[0, 2:4, nceps:] == 0).all()
+
+
+def test_k1_lpcc_mode_on_the_tile(lib):
+    """srt_packed_frontend in its LPC-cepstra mode (n_lpcc = 16: the raw
+    mode's rows, then lpcc_kernel: Levinson and the recursion on the
+    unzeroed coefficients) at 8 kHz against
+    packed_from_signals_fft_reference with CMVN off; the silent stretch's
+    frames (r = 0) give 0."""
+    fe = text.PackedFrontend(8000, FeatureConfig(lpc=LpcConfig(
+        n_lpcc=16)), "cpu")
+    L = 8192
+    sig, lens = _signal_batch(8000, L, [L, 3000, 255], 37)
+    T = n_frames(L, fe.frame_len, fe.frame_shift)
+    nv = fe.valid_frames(lens, T)
+    nmel, nceps = fe.dct.shape
+    nac = fe.fft_acorr.shape[1]
+    op = gpu_frontend._fft_operator(fe.fft_mel, fe.fft_acorr, fe.n_fft, lib)
+    feat = torch.full((3, T, nceps + 15), float("nan"))
+    raw = torch.full((3, T, nceps + nac), float("nan"))
+    assert lib.srt_packed_frontend(
+        sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(), op.data_ptr(),
+        fe.dct.data_ptr(), feat.data_ptr(), None, 3, L, T, fe.frame_len,
+        fe.frame_shift, fe.n_fft, nmel, nac, nceps, fe.pre_emph,
+        int(fe.preemph_first), fe.floor, 0, 1, 16, raw.data_ptr(),
+        None) == 0
+    want = gpu_frontend.packed_from_signals_fft_reference(
+        sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, False, True, 16)
+    _lpc_close("K1 lpcc", feat, want, nceps, True)
+    assert (feat[0, 2:8, nceps:] == 0).all()
+
+
+def _lpc64(r):
+    """Levinson in float64: a_1 .. a_p of r [p + 1]."""
+    p = len(r) - 1
+    a, e = np.zeros(p + 1), r[0]
+    a[0] = 1.0
+    for i in range(1, p + 1):
+        k = -(r[i] + np.dot(a[1:i], r[1:i][::-1])) / e
+        a[1:i] = a[1:i] + k * a[1:i][::-1]
+        a[i] = k
+        e *= 1.0 - k * k
+    return a[1:]
+
+
+@pytest.mark.parametrize("lg", [22, 23, 24])
+def test_projection_sums_hold_at_the_four_step_reach(lib, lg):
+    """The four-step route's projection (rfft::project_bins: one f32
+    running sum an output over its bins in order) at N = 2^lg, modelled in
+    numpy on a 48 kHz frame of a voice (1536 samples) zero-padded to N,
+    against the float64 sums. A chunk of frames there is what BIG_SCRATCH_BYTES hold
+    (the library's big_chunk: under 128 frames at 2^22, as few as ~30 at
+    2^24), never the 1,017 frames from which the fused pass stops
+    splitting, so the bins always split into ranges (srt_big_ranges: S =
+    16-64 of ~131k bins) whose f32 partials are added in order: their
+    autocorrelation and mel sums stay within 3e-4 of the sums' magnitudes
+    and the LPC within the card's gate (1e-2, or 1e-3 relative) of the
+    float64 sums' LPC. One running sum over all bins (S = 1), the other
+    order, would part from them past that gate at 2^24; each 128-bin chunk
+    in f32 and the chunks in float64 (csrc/frontend_frames.cu's order)
+    would hold to 1e-7."""
+    N = 1 << lg
+    nb = N // 2 + 1
+    nfc = gpu_frontend.big_chunk(lib, N, 26 + 16, 1 << 20)
+    S = lib.srt_big_ranges(nfc, nb)
+    assert nfc < 1017 and S > 1
+    rb = -(-nb // S)
+    rb = -(-rb // 512) * 512
+    fs, flen, order = 48000, 1536, 15
+    voice = synth.synth_utterance("alice", 0.1, lg, fs)[None, 1536:3072]
+    x = framing.window_preemph(torch.from_numpy(voice.astype(np.float64)),
+                               flen, 0.97)[0].numpy()
+    p = np.maximum(np.abs(np.fft.rfft(x, n=N)) ** 2, 1e-35).astype(np.float32)
+    k = np.arange(nb, dtype=np.float64)
+    # the widest mel filter (the top one of 26 at 16384 points) stretched
+    # over N's bins
+    mel = operators.mel_filterbank(fs, 1 << 14, 26)
+    top = np.interp(k * (1 << 14) / N, np.arange(mel.shape[1]), mel[-1])
+    sums = {"exact": [], "split": [], "one": [], "chunks": []}
+    for j in range(order + 2):
+        if j <= order:
+            w = 2 * np.cos(2 * np.pi * j * k / N) / (N * flen)
+            w[0] /= 2
+            w[-1] /= 2
+        else:
+            w = top
+        t = p * w.astype(np.float32)
+        mag = float(np.dot(p.astype(np.float64), np.abs(w)))
+        exact = float(np.dot(p.astype(np.float64), w.astype(np.float32)))
+        parts = np.array([np.cumsum(t[s:s + rb], dtype=np.float32)[-1]
+                          for s in range(0, nb, rb)], np.float32)
+        split = float(np.cumsum(parts, dtype=np.float32)[-1])
+        one = float(np.cumsum(t, dtype=np.float32)[-1])
+        ch = np.cumsum(np.pad(t, (0, -nb % 128)).reshape(-1, 128), axis=1,
+                       dtype=np.float32)[:, -1]
+        chunks = float(np.sum(ch.astype(np.float64)))
+        assert abs(split - exact) <= 3e-4 * mag
+        assert abs(chunks - exact) <= 1e-7 * mag
+        for name, v in (("exact", exact), ("split", split), ("one", one),
+                        ("chunks", chunks)):
+            sums[name].append(v)
+    ex = _lpc64(np.array(sums["exact"][:-1]))
+    gate = np.maximum(1e-2, 1e-3 * np.abs(ex))
+    assert (np.abs(_lpc64(np.array(sums["split"][:-1])) - ex) <= gate).all()
+    if lg == 24:
+        assert (np.abs(_lpc64(np.array(sums["one"][:-1])) - ex) > gate).any()

@@ -204,10 +204,11 @@ def _fft_route(monkeypatch):
     """Serve the frontends through the FFT route's plain versions, as the
     kernels do on the card."""
     def packed(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-               fft=None, fuse_lpc=True, mm_bf16=False):
+               fft=None, fuse_lpc=True, mm_bf16=False, n_lpcc=0):
         assert not mm_bf16  # the f32 kernel's route
         return gpu_frontend.packed_from_signals_fft_reference(
-            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
+            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc,
+            n_lpcc)
 
     def full(wp, C, S, mel, dct, floor, acorr, n_fft=None):
         assert n_fft & (n_fft - 1) == 0

@@ -142,11 +142,11 @@ def test_frontend_cache_follows_the_mode(monkeypatch):
     (48000, tcfg.FeatureConfig()),
 ], ids=["frames_8k_lpcc", "full_48k"])
 def test_frame_kernels_get_contiguous_frames(fs, cfg, monkeypatch):
-    """A kernel reads frames through a raw pointer: the full-spectrum route
-    hands it a contiguous [n, flen] tensor, also for one utterance, where
-    reshaping the framed signal is a strided view (mix_feature's case);
-    LPC cepstra on the packed route take the signal kernel, which gets the
-    contiguous signal and no frame matrix."""
+    """A kernel reads its input through a raw pointer: both routes take the
+    signal kernels (the full route's from the signals at a power-of-two
+    fft_size, the packed route's also with LPC cepstra), which get the
+    contiguous signal, also for one utterance (mix_feature's case), and no
+    frame matrix; the frame-level kernels are not called."""
     seen = []
 
     def spy(ref):
@@ -163,6 +163,8 @@ def test_frame_kernels_get_contiguous_frames(fs, cfg, monkeypatch):
                         spy(gpu_frontend.packed_from_frames))
     monkeypatch.setattr(gpu_frontend, "mfcc_from_frames",
                         spy(gpu_frontend.mfcc_from_frames))
+    monkeypatch.setattr(gpu_frontend, "mfcc_from_signals",
+                        spy(gpu_frontend.mfcc_from_signals))
     text.mix_feature(fs, synth.synth_utterance("bob", 0.5, 1, fs), cfg,
                      device="cpu")
     assert seen == [True]

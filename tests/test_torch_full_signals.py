@@ -1,0 +1,391 @@
+"""The full-spectrum frontend from the signals (ops/gpu_frontend.
+mfcc_from_signals, csrc/frontend_full_signals.cu on the card) and the LPC
+cepstra in the signal kernels' tail (packed_from_signals(n_lpcc=...), csrc/
+frontend.cu), held on the CPU to the JAX package on the same numpy inputs:
+the plain signal route against the JAX extractor's full route at 44.1, 48
+and 96 kHz (MFCC13 + LPC15, LPC cepstra, CMVN off, deltas, pre-emphasis
+first, an utterance with no valid frame, a silent one, frames folded past
+the fft_size), its pre-CMVN output against JAX framing + the Pallas K5 in
+interpret mode, and K1's plain LPC-cepstra mode against the JAX extractor
+at 8 kHz (an all-zero frame gives 0); the routes FullFrontend and
+PackedFrontend take, and what the wrappers refuse."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+import jax.numpy as jnp  # noqa: E402
+
+from speaker_recognition_tpu import config as jcfg  # noqa: E402
+from speaker_recognition_tpu.features import extract as jext  # noqa: E402
+from speaker_recognition_tpu.ops import framing as jframing  # noqa: E402
+from speaker_recognition_tpu.ops import frontend as joperators  # noqa: E402
+from speaker_recognition_tpu.ops import levinson as jlevinson  # noqa: E402
+from speaker_recognition_tpu.ops import pallas_frontend  # noqa: E402
+from speaker_recognition_tpu_torch import config as tcfg  # noqa: E402
+from speaker_recognition_tpu_torch.features import extract as text  # noqa: E402
+from speaker_recognition_tpu_torch.ops import gpu_frontend  # noqa: E402
+
+# Features against the JAX extractor (both f32, another FFT and other
+# summation orders): the bound of tests/test_torch_full.py, 2e-3 relative
+# and 2e-2 absolute on CMVN'd cepstra and LPC of O(1); LPC cepstra of white
+# noise reach O(1e3) through a recursion whose terms cancel, so they are
+# held within 2e-2 + 2e-3 of their frame's largest, as
+# tests/test_torch_lpcc_route.py holds them.
+RTOL, ATOL = 2e-3, 2e-2
+
+
+def _cfg(c, fs_case: str):
+    """The FeatureConfig of a case in config module c."""
+    lpcc = c.LpcConfig(n_lpcc=16)
+    return {
+        "mfcc_lpc": c.FeatureConfig(),
+        "lpcc": c.FeatureConfig(lpc=lpcc),
+        "cmvn_off": c.FeatureConfig(mfcc=c.MfccConfig(cmvn=False)),
+        "cmvn_off_lpcc": c.FeatureConfig(mfcc=c.MfccConfig(cmvn=False),
+                                         lpc=lpcc),
+        "deltas2": c.FeatureConfig(n_deltas=2),
+        "preemph_first": c.FeatureConfig(
+            mfcc=c.MfccConfig(preemph_first=True)),
+        "mfcc_only": c.FeatureConfig(use_lpc=False, n_deltas=1),
+    }[fs_case]
+
+
+def _signals(lengths, L, seed, scale=3000.0):
+    rng = np.random.RandomState(seed)
+    sig = np.zeros((len(lengths), L), np.float32)
+    for i, n in enumerate(lengths):
+        sig[i, :n] = (rng.randn(n) * scale).astype(np.float32)
+    return sig, np.asarray(lengths, np.int32)
+
+
+def _spy_signals(monkeypatch):
+    """Calls of mfcc_from_signals, recorded (n_lpcc, cmvn) and run."""
+    calls = []
+    real = gpu_frontend.mfcc_from_signals
+
+    def spy(*a, **kw):
+        calls.append((a[7], a[6]))
+        return real(*a, **kw)
+    monkeypatch.setattr(gpu_frontend, "mfcc_from_signals", spy)
+    return calls
+
+
+def _assert_features(got, want, nceps, lpcc: bool, per_block: int):
+    """MFCC and LPC columns within RTOL / ATOL; LPC cepstra (lpcc) within
+    ATOL + RTOL of their frame's largest. Columns repeat every per_block
+    (deltas)."""
+    assert got.shape == want.shape
+    cols = np.arange(got.shape[-1]) % per_block >= nceps
+    if not lpcc:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        return
+    np.testing.assert_allclose(got[..., ~cols], want[..., ~cols], rtol=RTOL,
+                               atol=ATOL)
+    scale = np.abs(want[..., cols]).max(axis=-1, keepdims=True)
+    assert (np.abs(got[..., cols] - want[..., cols])
+            <= ATOL + RTOL * scale).all()
+
+
+# (fs, case, padded length): 44.1 kHz frames of 1411 samples (odd) and
+# shift 705, 48 kHz frames of 1536, both on 2048-point FFTs; 96 kHz frames
+# of 3072 samples folded onto the default 2048-point FFT
+SIGNAL_CASES = {
+    "44k": (44100, "mfcc_lpc", 45056),
+    "48k": (48000, "mfcc_lpc", 45056),
+    "44k_lpcc": (44100, "lpcc", 45056),
+    "48k_lpcc": (48000, "lpcc", 45056),
+    "48k_cmvn_off": (48000, "cmvn_off", 45056),
+    "44k_deltas2": (44100, "deltas2", 45056),
+    "48k_deltas2": (48000, "deltas2", 45056),
+    "44k_preemph_first": (44100, "preemph_first", 45056),
+    "48k_preemph_first": (48000, "preemph_first", 45056),
+    "48k_mfcc_only": (48000, "mfcc_only", 45056),
+    "96k_folded": (96000, "mfcc_lpc", 53248),
+    "96k_folded_lpcc": (96000, "lpcc", 53248),
+}
+
+
+@pytest.mark.parametrize("case", list(SIGNAL_CASES))
+def test_signal_route_matches_jax_full_route(case, monkeypatch):
+    """extract_batch on the full-spectrum frontend's signal route (the plain
+    version of mfcc_from_signals on the CPU, one call) against the JAX
+    extractor's full route (XLA, f32): ragged lengths, an utterance one
+    sample short of a frame (no valid frame) and an empty one."""
+    fs, name, L = SIGNAL_CASES[case]
+    tc, jc = _cfg(tcfg, name), _cfg(jcfg, name)
+    fe = text.frontend(fs, tc, "cpu")
+    assert isinstance(fe, text.FullFrontend) and fe.signal_route
+    assert fe.frame_len > fe.n_fft if fs == 96000 else fe.frame_len <= 2048
+    calls = _spy_signals(monkeypatch)
+    sig, lens = _signals([L, int(0.6 * L), fe.frame_len - 1, 0], L, seed=7)
+    want, wmask = jext._feature_fn(fs, jc, L, "float32", "off", "f32",
+                                   "packed", "default")(
+        jnp.asarray(sig), jnp.asarray(lens))
+    got, mask = text.extract_batch(torch.from_numpy(sig),
+                                   torch.from_numpy(lens), fs, tc)
+    assert calls == [(tc.lpc.n_lpcc if tc.use_lpc else 0, tc.mfcc.cmvn)]
+    assert got.dtype == torch.float32 and got.shape[-1] == tc.dim
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    assert not mask[2:].any()
+    got = got.numpy()
+    assert np.isfinite(got).all() and (got[~mask.numpy()] == 0).all()
+    _assert_features(got, np.asarray(want), tc.mfcc.n_ceps,
+                     tc.use_lpc and tc.lpc.n_lpcc > 0,
+                     tc.dim // (tc.n_deltas + 1))
+
+
+@pytest.mark.parametrize("name", ["mfcc_lpc", "lpcc", "cmvn_off_lpcc"])
+def test_silent_utterance_matches_jax(name, monkeypatch):
+    """A silent utterance beside a noisy one at 48 kHz: every bin of a
+    silent frame sits on the power floor. Its LPC columns agree with the JAX
+    extractor's (LPC and LPC cepstra about 0: the floored power's
+    autocorrelation is flat), and so does every column of the noisy
+    utterance. With CMVN on, a silent utterance's cepstra are the same in
+    every frame and CMVN divides by a zero deviation (NaN or +-1, inherited
+    from MFCC.py, ROADMAP queue 3), so those columns are compared with CMVN
+    off only."""
+    tc, jc = _cfg(tcfg, name), _cfg(jcfg, name)
+    L = 45056
+    sig, lens = _signals([L, L], L, seed=11)
+    sig[0] = 0.0
+    want, _ = jext._feature_fn(48000, jc, L, "float32", "off", "f32",
+                               "packed", "default")(
+        jnp.asarray(sig), jnp.asarray(lens))
+    calls = _spy_signals(monkeypatch)
+    got, mask = text.extract_batch(torch.from_numpy(sig),
+                                   torch.from_numpy(lens), 48000, tc)
+    assert len(calls) == 1
+    got, want = got.numpy(), np.asarray(want)
+    nc = tc.mfcc.n_ceps
+    lpcc = tc.lpc.n_lpcc > 0
+    _assert_features(got[1:], want[1:], nc, lpcc, tc.dim)
+    np.testing.assert_allclose(got[0, :, nc:], want[0, :, nc:], rtol=0,
+                               atol=1e-3)
+    assert np.abs(got[0, :, nc:]).max() <= 1e-3
+    if not tc.mfcc.cmvn:
+        np.testing.assert_allclose(got[0, :, :nc], want[0, :, :nc],
+                                   rtol=RTOL, atol=ATOL)
+
+
+def _jax_operators(fs, cfg):
+    """(C, S, mel, dct, acorr) of the JAX full route at fs for a jcfg
+    FeatureConfig with the default mel bank, float64 numpy."""
+    mf = cfg.mfcc
+    flen, _ = jcfg.frame_geometry(fs, mf.win_length_ms, mf.win_shift_ms)
+    C, S = joperators.dft_power_projection(flen, mf.fft_size)
+    mel = joperators.mel_filterbank(fs, mf.fft_size, mf.n_filters).T
+    dct = joperators.dct_matrix(mf.n_filters)[1:mf.n_ceps + 1].T
+    acorr = jlevinson.autocorr_operator(flen, mf.fft_size, cfg.lpc.n_lpc)
+    return C, S, mel, dct, acorr
+
+
+@pytest.mark.parametrize("fs,name", [(48000, "mfcc_lpc"), (44100, "lpcc"),
+                                     (96000, "mfcc_lpc")],
+                         ids=["48k", "44k_lpcc", "96k_folded"])
+def test_pre_cmvn_matches_the_pallas_kernel(fs, name):
+    """FullFrontend.pre_cmvn on the signal route (CMVN off, no deltas)
+    against JAX framing, window and pre-emphasis, then pallas_frontend.
+    mfcc_from_frames in interpret mode (the dense C and S, which alias
+    columns where the frame is longer than the FFT) and the LPC columns of
+    its raw autocorrelation by the JAX package's Levinson (and LPC cepstra,
+    nan_to_num); a silent stretch puts frames on the floor. Pre-CMVN
+    cepstra of O(10-100) within 1e-3 (~1e-6 relative on the power, the
+    bound of tests/test_torch_fft.py); LPC within 1e-3, LPC cepstra within
+    1e-3 of their frame's largest."""
+    tc, jc = _cfg(tcfg, name), _cfg(jcfg, name)
+    fe = text.FullFrontend(fs, tc, "cpu")
+    L = 4096 * (-(-int(0.3 * fs) // 4096))
+    sig, lens = _signals([L, int(0.7 * L)], L, seed=13)
+    sig[0, fe.frame_len:3 * fe.frame_len] = 0.0
+    ceps, lpc, mask = fe.pre_cmvn(torch.from_numpy(sig),
+                                  torch.from_numpy(lens))
+    C, S, mel, dct, acorr = _jax_operators(fs, jc)
+    frames = jframing.frame_signal(jnp.asarray(sig), fe.frame_len,
+                                   fe.frame_shift)
+    B, T = frames.shape[:2]
+    wp = jframing.window_preemph(frames, fe.frame_len, jc.mfcc.pre_emph,
+                                 jc.mfcc.preemph_first)
+    wp = wp.reshape(B * T, -1).astype(jnp.float32)
+    wc, wr = pallas_frontend.mfcc_from_frames(wp, C, S, mel, dct, fe.floor,
+                                              acorr_t=acorr, interpret=True)
+    if jc.lpc.n_lpcc > 0:
+        a, _ = jlevinson.levinson(wr)
+        wl = jnp.nan_to_num(jlevinson.lpcc_from_lpc(a, jc.lpc.n_lpcc),
+                            nan=0.0, posinf=0.0, neginf=0.0)
+    else:
+        wl = jlevinson.lpc_from_autocorr(wr)
+    m = mask.numpy()
+    wc = np.asarray(wc).reshape(B, T, -1)[m]
+    wl = np.asarray(wl).reshape(B, T, -1)[m]
+    assert ceps.shape == (B, T, tc.mfcc.n_ceps)
+    assert (ceps.numpy()[~m] == 0).all() and (lpc.numpy()[~m] == 0).all()
+    np.testing.assert_allclose(ceps.numpy()[m], wc, rtol=1e-4, atol=1e-3)
+    scale = np.abs(wl).max(axis=-1, keepdims=True)
+    tol = 1e-3 * (scale if jc.lpc.n_lpcc > 0 else 1.0)
+    assert (np.abs(lpc.numpy()[m] - wl) <= tol).all()
+
+
+@pytest.mark.parametrize("fs", [8000, 16000], ids=["8k", "16k"])
+def test_k1_lpcc_mode_matches_jax(fs, monkeypatch):
+    """PackedFrontend with LPC cepstra (n_lpcc = 16) calls K1's plain
+    version once in its LPC-cepstra mode, and its features equal the JAX
+    extractor's (XLA: Levinson, the recursion, nan_to_num) within the
+    bounds above. An all-zero frame inside an utterance gives LPC cepstra
+    of exactly 0 on both sides: the recursion runs on the NaN coefficients
+    of r = 0 and zeroes them after. Both plain versions (dense, FFT) of the
+    mode equal the raw-autocorrelation mode followed by the torch tail."""
+    tc, jc = _cfg(tcfg, "lpcc"), _cfg(jcfg, "lpcc")
+    fe = text.frontend(fs, tc, "cpu")
+    assert isinstance(fe, text.PackedFrontend)
+    L = 8192 if fs == 8000 else 16384
+    sig, lens = _signals([L, int(0.6 * L), L // 5, 0], L, seed=17)
+    zero = slice(8 * fe.frame_shift, 8 * fe.frame_shift + 3 * fe.frame_len)
+    sig[0, zero] = 0.0
+    calls = []
+    real = gpu_frontend.packed_from_signals
+
+    def spy(*a, **kw):
+        calls.append((kw["fuse_lpc"], kw["n_lpcc"]))
+        return real(*a, **kw)
+    monkeypatch.setattr(gpu_frontend, "packed_from_signals", spy)
+    got, mask = text.extract_batch(torch.from_numpy(sig),
+                                   torch.from_numpy(lens), fs, tc)
+    assert calls == [(True, 16)]
+    want, wmask = jext._feature_fn(fs, jc, L, "float32", "off", "f32",
+                                   "packed", "default")(
+        jnp.asarray(sig), jnp.asarray(lens))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wmask))
+    got, want = got.numpy(), np.asarray(want)
+    assert np.isfinite(got).all()
+    _assert_features(got, want, 13, True, tc.dim)
+    silent = [t for t in range(mask.shape[1])
+              if t * fe.frame_shift >= zero.start
+              and t * fe.frame_shift + fe.frame_len <= zero.stop]
+    assert silent
+    assert (got[0, silent, 13:] == 0).all() and (want[0, silent, 13:] == 0).all()
+
+    nv = fe.valid_frames(torch.from_numpy(lens), mask.shape[1])
+    s = torch.from_numpy(sig)
+    for name, run in (
+            ("dense", lambda fl, n: gpu_frontend.packed_from_signals_reference(
+                s, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor, fe.frame_shift,
+                True, fl, n_lpcc=n)),
+            ("fft", lambda fl, n:
+             gpu_frontend.packed_from_signals_fft_reference(
+                 s, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, True, fl,
+                 n))):
+        fused = run(True, 16)
+        ceps, r = run(False, 0)
+        tail, _ = fe.finish(ceps, r, mask, cmvn_done=True)
+        assert torch.equal(fused, tail), name
+
+
+def test_routes_and_counters(monkeypatch):
+    """FullFrontend takes the signal route at float32 with f32 operands and
+    a power-of-two fft_size below 32768, and the frame route (the frame
+    kernels or their plain versions, then the torch tail) otherwise: an
+    fft_size that is not a power of two, 32768 points, bf16 operands,
+    float64, LPC cepstra past LPCC_MAX_LAGS lags. PackedFrontend takes K1's
+    LPC-cepstra mode except with bf16 operands. On the CPU no counter
+    moves."""
+    lpcc = tcfg.LpcConfig(n_lpcc=16)
+    full = lambda **kw: text.FullFrontend(  # noqa: E731
+        48000, tcfg.FeatureConfig(**kw), "cpu")
+    assert full().signal_route and full(lpc=lpcc).signal_route
+    assert not full(mfcc=tcfg.MfccConfig(fft_size=1500)).signal_route
+    assert not text.FullFrontend(48000, tcfg.FeatureConfig(
+        mfcc=tcfg.MfccConfig(fft_size=32768)), "meta").signal_route
+    assert not text.FullFrontend(48000, tcfg.FeatureConfig(), "cpu",
+                                 mm="bf16").signal_route
+    assert not text.FullFrontend(48000, tcfg.FeatureConfig(), "cpu",
+                                 dtype=torch.float64).signal_route
+    wide = tcfg.LpcConfig(n_lpc=gpu_frontend.LPCC_MAX_LAGS, n_lpcc=16)
+    assert full(lpc=tcfg.LpcConfig(n_lpc=gpu_frontend.LPCC_MAX_LAGS))\
+        .signal_route
+    assert not text.FullFrontend(48000, tcfg.FeatureConfig(lpc=wide),
+                                 "meta").signal_route
+    packed = text.PackedFrontend(8000, tcfg.FeatureConfig(lpc=lpcc), "cpu")
+    assert packed._lpcc_in_kernel()
+    assert not text.PackedFrontend(8000, tcfg.FeatureConfig(lpc=lpcc), "cpu",
+                                   mm="bf16")._lpcc_in_kernel()
+
+    # the frame route at fft_size 1500 never calls mfcc_from_signals
+    calls = _spy_signals(monkeypatch)
+    sig, lens = _signals([24576, 9000], 24576, seed=3)
+    args = (torch.from_numpy(sig), torch.from_numpy(lens), 48000)
+    text.extract_batch(*args, tcfg.FeatureConfig(
+        mfcc=tcfg.MfccConfig(fft_size=1500)))
+    text.extract_batch(*args, tcfg.FeatureConfig(), "float64")
+    assert calls == []
+    before = gpu_frontend.FULL_SIGNAL_LAUNCHES, gpu_frontend.LAUNCHES
+    text.extract_batch(*args, tcfg.FeatureConfig())
+    text.extract_batch(torch.from_numpy(sig[:, :8192]),
+                       torch.from_numpy(np.minimum(lens, 8192)), 8000,
+                       tcfg.FeatureConfig(lpc=lpcc))
+    assert len(calls) == 1
+    assert (gpu_frontend.FULL_SIGNAL_LAUNCHES,
+            gpu_frontend.LAUNCHES) == before
+
+
+def test_bf16_lpcc_takes_the_raw_mode(monkeypatch):
+    """With bf16 operands the packed frontend's LPC cepstra come from the
+    raw-autocorrelation mode and the torch tail (the bf16 kernel has no
+    LPC-cepstra mode); the wrapper refuses n_lpcc with mm_bf16."""
+    tc = _cfg(tcfg, "lpcc")
+    fe = text.PackedFrontend(8000, tc, "cpu", mm="bf16")
+    sig, lens = _signals([8192, 5000], 8192, seed=19)
+    calls = []
+    real = gpu_frontend.packed_from_signals
+
+    def spy(*a, **kw):
+        calls.append((kw["fuse_lpc"], kw["n_lpcc"]))
+        return real(*a, **kw)
+    monkeypatch.setattr(gpu_frontend, "packed_from_signals", spy)
+    got, mask = fe(torch.from_numpy(sig), torch.from_numpy(lens))
+    assert calls == [(False, 0)] and got.shape[-1] == tc.dim
+    assert torch.isfinite(got).all()
+    with pytest.raises(ValueError, match="mm_bf16"):
+        real(torch.from_numpy(sig), torch.zeros(2, dtype=torch.int32), fe.D,
+             fe.W, fe.dct, fe.A, fe.floor, fe.frame_shift, True,
+             mm_bf16=True, n_lpcc=16)
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to reach the kernel branch
+    of a wrapper on a machine without CUDA."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def test_wrappers_check_before_the_kernel(monkeypatch):
+    """On a CUDA tensor mfcc_from_signals checks its arguments before it
+    builds anything: a float64 signal, a short signal and LPC cepstra past
+    LPCC_MAX_LAGS lags raise; no other device falls back to the CPU."""
+    fe = text.FullFrontend(48000, tcfg.FeatureConfig(), "cpu")
+    monkeypatch.setattr(gpu_frontend._build, "load", lambda: pytest.fail(
+        "the wrapper built the kernels before refusing its arguments"))
+    sig = torch.zeros(2, 4096).as_subclass(_CudaTyped)
+    nv = torch.zeros(2, dtype=torch.int32).as_subclass(_CudaTyped)
+    cuda = lambda t: t.as_subclass(_CudaTyped)  # noqa: E731
+    fft = gpu_frontend.FftRoute(2048, cuda(fe.window), 0.97, False,
+                                cuda(fe.mel), cuda(fe.acorr))
+    with pytest.raises((TypeError, ValueError)):
+        gpu_frontend.mfcc_from_signals(sig.double().as_subclass(_CudaTyped),
+                                       nv, fft, cuda(fe.dct), fe.floor, 768,
+                                       True)
+    with pytest.raises(ValueError):
+        gpu_frontend.mfcc_from_signals(
+            torch.zeros(2, 1000).as_subclass(_CudaTyped), nv, fft,
+            cuda(fe.dct), fe.floor, 768, True)
+    wide = fft._replace(acorr=cuda(torch.zeros(fe.mel.shape[0], 513)))
+    with pytest.raises(ValueError, match="lags"):
+        gpu_frontend.mfcc_from_signals(sig, nv, wide, cuda(fe.dct), fe.floor,
+                                       768, True, 16)
+    with pytest.raises(ValueError, match="device"):
+        gpu_frontend.mfcc_from_signals(torch.zeros(2, 4096, device="meta"),
+                                       nv, fft, fe.dct, fe.floor, 768, True)

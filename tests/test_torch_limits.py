@@ -44,10 +44,11 @@ def _fft_route(monkeypatch):
     kernels do on the card (K1 at rfft_size(frame_len) points, K5 at
     fft_size points)."""
     def packed(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-               fft=None, fuse_lpc=True, mm_bf16=False):
+               fft=None, fuse_lpc=True, mm_bf16=False, n_lpcc=0):
         assert not mm_bf16  # the f32 kernel's route
         return gpu_frontend.packed_from_signals_fft_reference(
-            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
+            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc,
+            n_lpcc)
 
     def full(wp, C, S, mel, dct, floor, acorr, n_fft=None):
         return gpu_frontend.mfcc_from_frames_fft_reference(

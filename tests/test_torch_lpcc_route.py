@@ -153,10 +153,11 @@ def _fft_route(monkeypatch):
     """Serve the signal frontend through its FFT route's plain version, as
     the kernel does on the card."""
     def packed(signals, n_valid, D, W, dct, A, floor, fshift, cmvn,
-               fft=None, fuse_lpc=True, mm_bf16=False):
+               fft=None, fuse_lpc=True, mm_bf16=False, n_lpcc=0):
         assert not mm_bf16  # the f32 kernel's route
         return gpu_frontend.packed_from_signals_fft_reference(
-            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc)
+            signals, n_valid, fft, dct, floor, fshift, cmvn, fuse_lpc,
+            n_lpcc)
     monkeypatch.setattr(gpu_frontend, "packed_from_signals", packed)
 
 
@@ -208,13 +209,14 @@ def test_lpcc_extract_batch_matches_jax_pallas_route(fs, n_deltas, route,
 
 def test_lpcc_route_is_the_signal_kernel(monkeypatch):
     """With LPC cepstra the packed frontend calls the signal kernel once,
-    in raw mode with CMVN inside, and never the frame-level kernel; CMVN is
-    not applied a second time."""
+    in its LPC-cepstra mode (the recursion in the kernel's tail) with CMVN
+    inside, and never the frame-level kernel; CMVN is not applied a second
+    time."""
     calls = []
     real = gpu_frontend.packed_from_signals
 
     def spy(*a, **kw):
-        calls.append((a[8], kw.get("fuse_lpc")))
+        calls.append((a[8], kw.get("fuse_lpc"), kw.get("n_lpcc")))
         return real(*a, **kw)
 
     def no_frames(*a, **kw):
@@ -224,7 +226,7 @@ def test_lpcc_route_is_the_signal_kernel(monkeypatch):
     fe = text.PackedFrontend(8000, _lpcc(tcfg), "cpu")
     sig, lens = _signals([8192, 6000], 8192, seed=24)
     got, mask = fe(torch.from_numpy(sig), torch.from_numpy(lens))
-    assert calls == [(True, False)]
+    assert calls == [(True, True, 16)]
     mfcc = got[..., :13]
     for b in range(2):
         v = mfcc[b][mask[b]]
