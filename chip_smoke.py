@@ -2713,6 +2713,18 @@ def occupancy(flen, fshift, nout, B=None, T=None, d=None, bank=None) -> str:
             f"shared memory, {k2[2]} blocks an SM")
 
 
+def signal_occupancy(n_fft: int, nout: int) -> str:
+    """csrc/frontend_full_signals.cu's full_signals_kernel at n_fft and
+    nout outputs on the card: blocks an SM (the occupancy API), registers
+    and local bytes a thread (ptxas), shared memory a block."""
+    import ctypes
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.load().srt_full_signals_occupancy(n_fft, nout, out),
+                 "signal kernel occupancy")
+    return (f"{out[0]} blocks an SM, {out[1]} registers and {out[2]} local "
+            f"bytes a thread, {out[3]} B of shared memory a block")
+
+
 def flip_bank(dev):
     """K2's bf16 decisions against f32 at the UBM-scale shape: a GMM-256
     bank of FLIP_SPEAKERS voices (EM on FLIP_SEC s each) scored on
@@ -3295,6 +3307,13 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
           f"masking) {t['p22_tail48']:.3f}, K2 {t['p22_k2_48']:.3f}; the "
           f"signal kernel alone {t['p22_signals48']:.3f} ms, its plain "
           f"version {t['p22_signals48_plain']:.3f} ms", flush=True)
+    nout48 = fe48.mel.shape[1] + fe48.acorr.shape[1]
+    print(f"phase 22 [{card}] the signal kernel against K5 on the same "
+          f"frames (csrc/frontend_fft.cu), in the same interleaved trials: "
+          f"{t['p22_signals48']:.3f} ms against {t['p22_k5_frames48']:.3f} "
+          f"(ratio {t['p22_signals48'] / t['p22_k5_frames48']:.3f}); "
+          f"full_signals_kernel<{fe48.n_fft}, 9>: "
+          f"{signal_occupancy(fe48.n_fft, nout48)}", flush=True)
     print(f"phase 22 [{card}] peak device memory of a 48 kHz predict above "
           f"its inputs: signal route {peaks['signals'] / 1e6:.1f} MB, frame "
           f"route {peaks['frames'] / 1e6:.1f} MB (one [B, T, flen] f32 "

@@ -72,6 +72,10 @@ def _bind(lib):
                                               i, i, i, i, i, i, f, i, f, i,
                                               i, p]
     lib.srt_full_signals_frontend.restype = i
+    lib.srt_full_signals_operator_shape.argtypes = [i, i, ip, ip, ip, ip]
+    lib.srt_full_signals_operator_shape.restype = i
+    lib.srt_full_signals_occupancy.argtypes = [i, i, ip]
+    lib.srt_full_signals_occupancy.restype = i
     lib.srt_fft_operator_shape.argtypes = [i, i, ip, ip, ip]
     lib.srt_fft_operator_shape.restype = i
     lib.srt_fft_wide_floats.argtypes = [ll, i]

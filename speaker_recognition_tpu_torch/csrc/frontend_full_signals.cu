@@ -23,21 +23,21 @@
 // that torch windows and pre-emphasizes first (ops/framing), and its
 // callers ran CMVN and the Levinson in torch after it: at 48 kHz two
 // [B, T, 1536] f32 tensors (978 MB each for 512 x 5 s) written and one
-// read back, then ~20 launches of torch for the tail. Here the tile loads
-// each frame as a strided window of the signal, windowed and pre-emphasized
-// per sample (rfft::SignalFrames, csrc/frontend.cu's loader), plus the fold
-// of samples past N taken from the signal; its power floor is K5's, per
-// bin (tile_sums<N, OPL, true>), not K1's (mel sums only), so the two
-// kernels compute different functions; its tail is K1's (tile_features,
-// csrc/packed_tile.cuh, with the LPC cepstra mode), and a tile wholly past
-// n_valid writes zeros only.
+// read back, then ~20 launches of torch for the tail. Here the tile
+// (csrc/signal_tile.cuh) loads each frame as a strided window of the
+// signal, a float2 of samples a lane at a time, windowed and pre-emphasized
+// per sample, plus the fold of samples past N taken from the signal; its
+// power floor is K5's, per bin, not K1's (mel sums only), so the two
+// kernels compute different functions; it projects the power rows onto
+// mel and autocorrelation on the tensor cores (3 x TF32); its tail is K1's
+// (tile_features, csrc/packed_tile.cuh, with the LPC cepstra mode), and a
+// tile wholly past n_valid writes zeros only.
 //
 // What bounds it on this card: the signals, read once (492 MB at 48 kHz
 // for 512 x 5 s: 0.147 ms at 3.35 TB/s), beside ~15 GFLOP of FFT,
-// projection and Levinson (0.2 ms at the FP32 peak). The tile (csrc/
-// rfft_tile.cuh) is unchanged and sets the pace, as in csrc/frontend_fft.cu:
-// one 32-frame block an SM at N = 2048. A file of its own so that nvcc
-// builds its instantiations beside frontend_fft.cu's.
+// projection and Levinson (0.2 ms at the FP32 peak). The tile's latency
+// sets the pace; 16-frame tiles, power rows over the FFT buffers and no
+// prefetch registers give two blocks an SM at N = 2048 (signal_tile.cuh).
 // Built without --use_fast_math: isfinite() must survive and logf must be
 // the accurate one.
 
@@ -45,49 +45,16 @@
 
 #include "packed_tile.cuh"
 #include "rfft_tile.cuh"
+#include "signal_tile.cuh"
 
 namespace {
 
-// What frame f of the tile folds onto its sample pair (p, p + 1) of an
-// n-point FFT: the samples t = p + n, p + 2n, ... < flen (and from p + 1)
-// summed in that order, each windowed and pre-emphasized as sample p is.
-// Not inlined: inlined into each of a tile's unrolled loads it kept nvcc
-// on this file several times as long as the rest of the build, for a path
-// that only frames longer than the FFT take.
-__device__ __noinline__ float2 fold_pair(const rfft::SignalFrames s, int f,
-                                         int p, int n) {
-  float2 v = make_float2(0.f, 0.f);
-  for (int t = p + n; t < s.flen; t += n) v.x += s(f, t);
-  for (int t = p + 1 + n; t < s.flen; t += n) v.y += s(f, t);
-  return v;
-}
-
-// rfft::SignalFrames (sample p < N of the tile's frame f, windowed and
-// pre-emphasized) and, for a frame longer than N, the fold (fold_pair; a
-// block-uniform branch after all the first loads).
-struct FoldedSignalFrames {
-  rfft::SignalFrames s;
-  int n;
-  __device__ __forceinline__ float operator()(int f, int p) const {
-    return s(f, p);
-  }
-  template <int RP, class First>
-  __device__ __forceinline__ void fold(int f, float2 (&v)[RP],
-                                       First first) const {
-    if (s.flen <= n) return;
-#pragma unroll
-    for (int q = 0; q < RP; ++q) {
-      const float2 w = fold_pair(s, f, first(q), n);
-      v[q].x += w.x;
-      v[q].y += w.y;
-    }
-  }
-};
-
-// Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go to rows of
-// wsums [B * T][wstride] and tile_features reads them there.
+// Block i takes tile i % tiles of utterance i / tiles (tiles an
+// utterance's). Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go
+// to rows of wsums [B * T][wstride] and the tail reads them there.
 template <int N, int OPL>
-__global__ void __launch_bounds__(rfft::nth(N)) full_signals_kernel(
+__global__ void __launch_bounds__(sigtile::nth(N), sigtile::min_blocks(N))
+    full_signals_kernel(
     const float* __restrict__ signals, const int* __restrict__ n_valid,
     const float* __restrict__ win, const float4* __restrict__ op,
     const float* __restrict__ dct, float* __restrict__ feat, int Lp, int T,
@@ -96,9 +63,9 @@ __global__ void __launch_bounds__(rfft::nth(N)) full_signals_kernel(
     float* __restrict__ wsums) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int b = blockIdx.y;
-  constexpr int FT = rfft::ft(N), NTH = rfft::nth(N);
-  const int f0 = blockIdx.x * FT;
+  constexpr int FT = sigtile::ft(N), NTH = sigtile::nth(N);
+  const int tiles = (T + FT - 1) / FT;
+  const int b = blockIdx.x / tiles, f0 = blockIdx.x % tiles * FT;
   const int nf = min(FT, T - f0);
   const int nfeat = feature_width(nceps, nac, 1, n_lpcc);
   const int nvalid = n_valid[b];
@@ -108,27 +75,26 @@ __global__ void __launch_bounds__(rfft::nth(N)) full_signals_kernel(
     for (int i = threadIdx.x; i < nf * nfeat; i += NTH) out[i] = 0.f;
     return;
   }
-  const FoldedSignalFrames load{
-      {signals + (size_t)b * Lp + (size_t)f0 * fshift, win, Lp - f0 * fshift,
-       fshift, flen, pre_emph, preemph_first != 0},
-      N};
+  const rfft::SignalFrames load{
+      signals + (size_t)b * Lp + (size_t)f0 * fshift, win, Lp - f0 * fshift,
+      fshift, flen, pre_emph, preemph_first != 0};
   const int wstride = rfft::nop(OPL) * nchunk;
   float* wrows = wsums + ((size_t)b * T + f0) * wstride;
-  const float* sums = rfft::tile_sums<N, OPL, true>(
-      load, nf, smem, op, nmel, power_floor, nchunk, wrows, wstride);
+  const float* sums = sigtile::signal_sums<N, OPL>(
+      load, nf, smem, op, nmel, nac, power_floor, nchunk, wrows, wstride);
   if (OPL == 64 && nchunk > 1)
-    tile_features<OPL, NTH>(wrows, out, nf, nvalid - f0, dct, nmel, nac,
-                            nceps, true, wstride, n_lpcc);
+    sigtile::features<OPL, NTH>(wrows, out, nf, nvalid - f0, dct, nmel, nac,
+                                nceps, wstride, n_lpcc);
   else
-    tile_features<OPL, NTH>(sums, out, nf, nvalid - f0, dct, nmel, nac,
-                            nceps, true, 8 * OPL, n_lpcc);
+    sigtile::features<OPL, NTH>(sums, out, nf, nvalid - f0, dct, nmel, nac,
+                                nceps, 8 * OPL, n_lpcc);
 }
 
-// utterances a launch takes: the grid's y dimension
-constexpr int MAX_GRID_Y = 65535;
+// utterances a launch takes: as many as keep its blocks below 2^31
+constexpr long long MAX_BLOCKS = 0x7fffffffLL;
 
-// One launch per MAX_GRID_Y utterances (each utterance's tiles are the same
-// blocks in any of them, so the bits do not depend on the split).
+// One launch per that many utterances (each utterance's tiles are the
+// same blocks in any of them, so the bits do not depend on the split).
 template <int N, int OPL>
 cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
                    const float* win, const float4* op, const float* dct,
@@ -136,7 +102,7 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
                    int nmel, int nac, int nceps, float pre_emph,
                    int preemph_first, float power_floor, int n_lpcc,
                    float* wsums) {
-  const int smem = 4 * rfft::smem_floats(N, OPL);
+  const int smem = 4 * sigtile::smem_floats(N, OPL);
   cudaError_t err = cudaFuncSetAttribute(
       full_signals_kernel<N, OPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -144,10 +110,11 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
   const size_t nfeat = feature_width(nceps, nac, 1, n_lpcc);
   const int nchunk = rfft::out_chunks(nmel + nac);
   const size_t wstride = (size_t)rfft::nop(OPL) * nchunk;
-  for (int b0 = 0; b0 < B; b0 += MAX_GRID_Y) {
-    const dim3 grid((T + rfft::ft(N) - 1) / rfft::ft(N),
-                    min(MAX_GRID_Y, B - b0));
-    full_signals_kernel<N, OPL><<<grid, rfft::nth(N), smem, st>>>(
+  const int tiles = (T + sigtile::ft(N) - 1) / sigtile::ft(N);
+  const int per = (int)(MAX_BLOCKS / tiles);
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int nb = min(per, B - b0);
+    full_signals_kernel<N, OPL><<<nb * tiles, sigtile::nth(N), smem, st>>>(
         sig + (size_t)b0 * Lp, nv + b0, win, op, dct,
         feat + (size_t)b0 * T * nfeat, Lp, T, flen, fshift, nmel, nac, nceps,
         pre_emph, preemph_first, power_floor, n_lpcc, nchunk,
@@ -159,8 +126,51 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
 
 }  // namespace
 
+// Shape of the packed operator of an nfft-point FFT and nout = nmel + nac
+// outputs (gpu_frontend.signal_operator builds it): the tile's OPL (8 OPL
+// columns an output chunk), its column groups, output chunks and the
+// warps that split a group's k-steps; -1 when nfft is not a power of two
+// in [64, 16384].
+extern "C" int srt_full_signals_operator_shape(int nfft, int nout, int* opl,
+                                               int* groups, int* chunks,
+                                               int* ksplit) {
+  const int o = sigtile::pick_opl(nfft, nout);
+  if (o == 0) return -1;
+  *opl = o;
+  *groups = sigtile::groups(o);
+  *chunks = rfft::out_chunks(nout);
+  *ksplit = sigtile::ksplit(nfft, o);
+  return 0;
+}
+
+// full_signals_kernel<nfft, OPL of nout> on this card: out[0] blocks an SM
+// (the occupancy API, at the launch's threads and shared memory), out[1]
+// registers and out[2] local bytes a thread, out[3] bytes of dynamic
+// shared memory.
+extern "C" int srt_full_signals_occupancy(int nfft, int nout, int* out) {
+  const int opl = sigtile::pick_opl(nfft, nout);
+  if (opl == 0) return (int)cudaErrorInvalidValue;
+  return (int)rfft::with_n(nfft, [&](auto nc) {
+    return rfft::with_opl(opl, [&](auto oc) {
+      constexpr int N = decltype(nc)::value, OPL = decltype(oc)::value;
+      const auto k = full_signals_kernel<N, OPL>;
+      const int smem = 4 * sigtile::smem_floats(N, OPL);
+      cudaError_t e = cudaFuncSetAttribute(
+          k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncAttributes a;
+      if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
+      if (e != cudaSuccess) return e;
+      out[1] = a.numRegs;
+      out[2] = (int)a.localSizeBytes;
+      out[3] = smem;
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          out, k, sigtile::nth(N), smem);
+    });
+  });
+}
+
 // signals [B, Lp], n_valid [B], win [flen] (the window), op the packed
-// [mel | acorr] operator of srt_fft_operator_shape (csrc/frontend_fft.cu),
+// operator of srt_full_signals_operator_shape,
 // dct [nmel, nceps], wsums the srt_fft_wide_floats(B * T, nmel + nac)
 // floats past 512 outputs; writes feat [B, T, nceps + nac - 1] (nceps
 // without LPC), or with n_lpcc > 0 feat [B, T, nceps + n_lpcc - 1] (nac at
@@ -173,7 +183,7 @@ extern "C" int srt_full_signals_frontend(
     float pre_emph, int preemph_first, float power_floor, int cmvn,
     int n_lpcc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int opl = rfft::pick_opl(nfft, nmel + nac, true);
+  const int opl = sigtile::pick_opl(nfft, nmel + nac);
   if (opl == 0 || B < 1 || T < 1 || flen > Lp ||
       (n_lpcc > 0 && nac > rfft::nop(opl)))
     return (int)cudaErrorInvalidValue;

@@ -24,13 +24,15 @@ function on an FFT: it takes an `FftRoute` (the window, the pre-emphasis
 and the bin-domain operators of ops/frontend.fft_packed_operators);
 `packed_from_signals_fft_reference` is that route in plain torch.
 
-`mfcc_from_signals` (K5 from the signals, csrc/frontend_full_signals.cu)
-computes the full-spectrum frontend's features from [B, Lp] signals as K1
-computes the packed frontend's: framing, window and pre-emphasis per
-sample (samples past n_fft folded), the n_fft-point power floored per bin,
-mel, log, DCT, masked CMVN, then LPC, the LPC cepstra or nothing, zeros at
-and past n_valid ([B, T, n_ceps + w]); counted in FULL_SIGNAL_LAUNCHES. It
-serves features/extract.FullFrontend at float32 with f32 operands and a
+`mfcc_from_signals` (K5 from the signals, csrc/frontend_full_signals.cu
+on the tile of csrc/signal_tile.cuh) computes the full-spectrum frontend's
+features from [B, Lp] signals as K1 computes the packed frontend's:
+framing, window and pre-emphasis per sample (samples past n_fft folded),
+the n_fft-point power floored per bin, mel and autocorrelation (on the
+tensor cores, in three TF32 terms, from the operator `signal_operator`
+packs), log, DCT, masked CMVN, then LPC, the LPC cepstra or nothing, zeros
+at and past n_valid ([B, T, n_ceps + w]); counted in FULL_SIGNAL_LAUNCHES.
+It serves features/extract.FullFrontend at float32 with f32 operands and a
 power-of-two fft_size below BIG_N; its plain version is
 `mfcc_from_signals_reference` (framing, `mfcc_from_frames_fft_reference`,
 the same tail).
@@ -333,7 +335,7 @@ def mfcc_from_signals(signals, n_valid, fft: FftRoute, dct, floor: float,
     if B == 0:
         return feat
     lib = _build.load()
-    op = _packed_operator(lib, fft.mel, fft.acorr, N)
+    op = signal_operator(lib, fft.mel, fft.acorr, N)
     wsums = _wide_rows(lib, B * T, nmel + nac, dev)
     with torch.cuda.device(dev):
         err = lib.srt_full_signals_frontend(
@@ -768,6 +770,85 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     operator per chunk of 512 columns, stacked), built once per (mel,
     acorr, n_fft) and rebuilt after either is written to."""
     return _cached((mel, acorr), _fft_operator, n_fft, lib)
+
+
+def signal_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
+    """[mel | acorr | 0] rows 0..n_fft/2 packed for csrc/signal_tile.cuh's
+    tensor-core projection (csrc/frontend_full_signals.cu
+    srt_full_signals_operator_shape), built once per (mel, acorr, n_fft)
+    and rebuilt after either is written to (_pack_signal_operator)."""
+    return _cached((mel, acorr), _pack_signal_operator, n_fft, lib)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 as cvt.rna.tf32.f32 rounds it: the low 13
+    bits cleared, to nearest, ties away from zero."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _pack_signal_operator(mel, acorr, n_fft: int, lib) -> torch.Tensor:
+    """The operator as the projection reads it, one float32 tensor on
+    mel's device. A block is bins 8 ks .. 8 ks + 7 by an n-tile's 8
+    columns of one output chunk of 8 * opl columns, B of mma.sync m16n8k8:
+    lane 4 g + t holds (hi(B[t][g]), hi(B[t + 4][g]), lo(B[t][g]), lo(B[t
+    + 4][g])), hi = _tf32(b), lo = _tf32(b - hi); blocks that are all zero
+    are left out. The autocorrelation starts at column ac0, the first
+    column of an n-tile past the mel columns where one output chunk holds
+    it, else nmel. Each (chunk, column group)'s k-steps are cut into
+    ksplit shares of about even block counts, one a warp; the blocks run
+    by chunk, group, share, n-tile, k-step. The header (int32): ac0; runs
+    [chunks * groups * ksplit][n-tiles a group + 1], the first block of
+    each n-tile's run in its share and the end; tags [blocks], each
+    block's k-step; padded to 4; then the blocks, [32][4] floats each."""
+    nmel, nac = mel.shape[1], acorr.shape[1]
+    shape = [ctypes.c_int() for _ in range(4)]
+    if lib.srt_full_signals_operator_shape(
+            n_fft, nmel + nac, *(ctypes.byref(v) for v in shape)) < 0:
+        raise ValueError(f"no signal tile at n_fft {n_fft}: it takes a power "
+                         f"of two in [64, {BIG_N // 2}]")
+    nt, G, C, KS = (v.value for v in shape)
+    npw, nop = nt // G, 8 * nt
+    nb = n_fft // 2 + 1
+    ks = -(-nb // 8)
+    dev = mel.device
+    # the autocorrelation from an n-tile's first column where it fits, so
+    # that its dense columns and the mel bands share no n-tile
+    ac0 = -(-nmel // 8) * 8
+    if C > 1 or ac0 + nac > nop:
+        ac0 = nmel
+    full = torch.zeros(8 * ks, C * nop, dtype=torch.float32, device=dev)
+    full[:nb, :nmel] = mel[:nb]
+    full[:nb, ac0:ac0 + nac] = acorr[:nb]
+    # [chunk * group, k-step, n-tile, kk (bin in the k-step), nn (column)]
+    blk = full.view(ks, 8, C * G, npw, 8).permute(2, 0, 3, 1, 4)
+    live = blk.ne(0).flatten(-2).any(-1)  # [chunk * group, k-step, n-tile]
+    # the shares: share s of a list starts at the first k-step holding
+    # block s * n / KS of it (n its blocks), rounded up; the last ends at ks
+    cum = torch.cat([live.new_zeros(C * G, 1, dtype=torch.long),
+                     live.sum(-1).cumsum(1)], 1)
+    target = (torch.arange(KS + 1, device=dev) * cum[:, -1:] + KS - 1) // KS
+    cuts = torch.searchsorted(cum.contiguous(), target.contiguous())
+    share = (torch.arange(ks, device=dev)[None, :, None]
+             >= cuts[:, None, 1:-1]).sum(-1)  # [list, k-step]
+    # each live block's run (list, share, n-tile) and its order in the list
+    run = ((torch.arange(C * G, device=dev)[:, None, None] * KS
+            + share[..., None]) * npw + torch.arange(npw, device=dev))
+    order = (run * ks + torch.arange(ks, device=dev)[None, :, None])[live]
+    order = order.argsort()
+    # lane 4 g + t: (B[t][g], B[t + 4][g])
+    frag = torch.stack([blk[..., :4, :], blk[..., 4:, :]], -1)
+    frag = frag.transpose(-3, -2).reshape(*live.shape, 32, 2)[live][order]
+    hi = _tf32(frag)
+    frag = torch.cat([hi, _tf32(frag - hi)], -1)
+    tags = live.nonzero()[order][:, 1]
+    starts = torch.zeros(C * G * KS * npw + 1, dtype=torch.long, device=dev)
+    starts[1:] = torch.bincount(run[live], minlength=C * G * KS * npw).cumsum(0)
+    runs = torch.cat([starts[:-1].view(-1, npw), starts[npw::npw, None]], 1)
+    head = torch.cat([runs.new_full((1,), ac0), runs.flatten(), tags])
+    head = head.to(torch.int32)
+    head = torch.nn.functional.pad(head, (0, -head.numel() % 4))
+    return torch.cat([head.view(torch.float32), frag.reshape(-1)])
 
 
 def _big_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:

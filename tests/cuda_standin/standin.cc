@@ -20,6 +20,7 @@ void run(dim3 grid, dim3 block, size_t smem, int cs,
           for (unsigned w = 0; w < nth / 32; ++w)
             b.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
           b.ballot.assign(nth, 0);
+          b.xch.assign(nth * XCH, 0);
         }
         std::vector<std::thread> th;
         th.reserve(cs * nth);

@@ -291,6 +291,7 @@ def main():
     smoke.kernels_per_call = lambda fn, **kw: {"serial_kernel": 1.0}
     smoke.kernel_times = lambda fn, **kw: "not measured (CPU)"
     smoke.occupancy = lambda *a, **kw: "occupancy not measured (CPU)"
+    smoke.signal_occupancy = lambda *a: "occupancy not measured (CPU)"
     if len(sys.argv) > 1:  # one phase function: phase16, 17 or 18
         import numpy as np
         rng, dev, card = (np.random.RandomState(0), torch.device("cpu"),

@@ -389,3 +389,119 @@ def test_wrappers_check_before_the_kernel(monkeypatch):
     with pytest.raises(ValueError, match="device"):
         gpu_frontend.mfcc_from_signals(torch.zeros(2, 4096, device="meta"),
                                        nv, fft, fe.dct, fe.floor, 768, True)
+
+
+def _chip_gates():
+    """chip_smoke.py's gates on the features: MFCC_ATOL, LPC_ATOL,
+    LPC_RTOL."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "chip_smoke.py")
+    with open(path) as f:
+        src = f.read()
+    mfcc = float(re.search(r"^MFCC_ATOL = (\S+)$", src, re.M)[1])
+    m = re.search(r"^LPC_ATOL, LPC_RTOL = (\S+), (\S+)$", src, re.M)
+    return mfcc, float(m[1]), float(m[2])
+
+
+def _levinson64(r):
+    """a_1 .. a_p of each row of r [n, p + 1], float64 (NaN where r[0] =
+    0)."""
+    a, _ = gpu_frontend.levinson.levinson(torch.from_numpy(r))
+    return a[..., 1:].numpy()
+
+
+def test_tf32_split_projection_holds_the_gates():
+    """The projection of csrc/signal_tile.cuh modelled in numpy: the 48 kHz
+    operator ([mel | acorr] of FullFrontend(48000) at N = 2048) and the
+    floored power rows of voice frames (two synthetic speakers, windowed
+    and pre-emphasized) and of a silent stretch (every bin on the floor),
+    each operand split as hi = tf32(x) (cvt.rna: to nearest, ties away),
+    lo = tf32(x - hi); per 8-bin k-step the three products lo.hi, hi.lo,
+    hi.hi (mma.sync m16n8k8) each added to the f32 sums, the 8 products in
+    float64. Against the float64 sums of the same f32 operands: the log-mel
+    and the cepstra after the DCT within chip_smoke.py's MFCC_ATOL, the LPC
+    and the LPC cepstra (float64 Levinson on both) within LPC_ATOL or
+    LPC_RTOL, and the silent frames' LPC cepstra 0 (their lag 0 lies below
+    the least normal float: gpu_frontend.lpc_columns' r = 0 rule). Prints
+    how far one TF32 term (hi.hi) would land."""
+    from speaker_recognition_tpu_torch.ops import framing as tframing
+    from speaker_recognition_tpu_torch.testdata import synth
+
+    mfcc_atol, lpc_atol, lpc_rtol = _chip_gates()
+    fe = text.FullFrontend(48000, tcfg.FeatureConfig(), "cpu")
+    N, nb = fe.n_fft, fe.n_fft // 2 + 1
+    nmel, nceps = fe.dct.shape
+    op = torch.cat([fe.mel[:nb], fe.acorr[:nb]], 1).numpy()  # f32
+    sig = np.concatenate([synth.synth_utterance(who, 0.4, 5, 48000)
+                          for who in ("alice", "bob")]).astype(np.float64)
+    sig[6000:6000 + 6 * fe.frame_len] = 0.0
+    frames = tframing.window_preemph(
+        tframing.frame_signal(torch.from_numpy(sig), fe.frame_len,
+                              fe.frame_shift), fe.frame_len, fe.pre_emph,
+        fe.preemph_first).numpy()
+    P = (np.abs(np.fft.rfft(frames, N)) ** 2).astype(np.float32)
+    P = np.maximum(P, np.float32(fe.floor))
+    silent = (P == np.float32(fe.floor)).all(-1)
+    assert 4 <= silent.sum() < len(P) // 2
+
+    def tf32(x):  # cvt.rna.tf32.f32: the low 13 bits, rounded half away
+        bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+            np.float32)
+
+    def mma_sums(terms):
+        ks = -(-nb // 8)
+        acc = np.zeros((len(P), op.shape[1]), np.float32)
+        for k in range(ks):
+            sl = slice(8 * k, 8 * k + 8)
+            for a, b in terms:
+                acc = (acc.astype(np.float64)
+                       + a[:, sl].astype(np.float64) @ b[sl].astype(
+                           np.float64)).astype(np.float32)
+        return acc
+
+    Ph, Bh = tf32(P), tf32(op)
+    Pl, Bl = tf32(P - Ph), tf32(op - Bh)
+    exact = P.astype(np.float64) @ op.astype(np.float64)
+    dct = fe.dct.numpy().astype(np.float64)
+    order = fe.acorr.shape[1] - 1
+    voiced = ~silent
+
+    def features(sums):
+        s = sums.astype(np.float64)
+        logmel = np.log(np.maximum(s[:, :nmel], fe.floor))
+        r = s[:, nmel:]
+        lpc = _levinson64(r[voiced])
+        a = torch.from_numpy(np.concatenate(
+            [np.ones((voiced.sum(), 1)), lpc], 1))
+        lpcc = gpu_frontend.levinson.lpcc_from_lpc(a, 16).numpy()
+        return logmel, logmel @ dct, lpc, lpcc
+
+    want = features(exact)
+    split = mma_sums(((Pl, Bh), (Ph, Bl), (Ph, Bh)))
+    got = features(split)
+    for name, g, w, (atol, rtol) in zip(
+            ("log-mel", "cepstra", "LPC", "LPC cepstra"), got, want,
+            ((mfcc_atol, 0.0), (mfcc_atol, 0.0), (lpc_atol, lpc_rtol),
+             (lpc_atol, lpc_rtol))):
+        d = np.abs(g - w)
+        assert np.isfinite(g).all(), name
+        bad = (d > atol) & (d > rtol * np.abs(w))
+        assert not bad.any(), (name, float(d.max()))
+    assert order == 15
+    # the LPC cepstra of the silent frames, as the kernel's tail takes them
+    r32 = torch.from_numpy(split[:, nmel:])
+    assert (r32[silent, 0] < torch.finfo(torch.float32).tiny).all()
+    assert (gpu_frontend.lpc_columns(r32[silent], 16) == 0).all()
+
+    one = features(mma_sums(((Ph, Bh),)))
+    print("3xTF32 against float64: " + ", ".join(
+        f"{n} {float(np.abs(g - w).max()):.2e}"
+        for n, g, w in zip(("log-mel", "cepstra", "LPC", "LPC cepstra"),
+                           got, want)))
+    print("one TF32 term (hi.hi) against float64: " + ", ".join(
+        f"{n} {float(np.abs(g - w).max()):.2e}"
+        for n, g, w in zip(("log-mel", "cepstra", "LPC", "LPC cepstra"),
+                           one, want)))
