@@ -483,9 +483,10 @@ SCALING_FRAMES = 262_144
 FLIP_SPEAKERS, FLIP_SEC, FLIP_TESTS, FLIP_TEST_SEC = 80, 30.0, 2, 3.0
 FLIP_ITERS = 20
 # H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, the
-# dense bf16 tensor cores, HBM3
+# dense bf16 and TF32 tensor cores, HBM3
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -1053,13 +1054,14 @@ def check_frames(phase, name, fe, sig, lengths, dense=True) -> float:
 
 
 def bound(flops: float, nbytes: float, peak: float = FP32_FLOPS,
-          bf16_flops: float = 0.0) -> dict:
+          bf16_flops: float = 0.0, tf32_flops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the FLOPs over the
     peak of their type (FP32 outside the tensor cores unless `peak` says
-    otherwise; `bf16_flops` more at the bf16 tensor-core peak, which run
-    beside the FP32 pipes, so the slower of the two sets the time) and the
-    bytes over the memory rate."""
-    ops_ms = max(flops / peak, bf16_flops / BF16_FLOPS) * 1e3
+    otherwise; `bf16_flops` and `tf32_flops` more at the tensor cores' bf16
+    and TF32 peaks, which run beside the FP32 pipes, so the slowest of them
+    sets the time) and the bytes over the memory rate."""
+    ops_ms = max(flops / peak, bf16_flops / BF16_FLOPS,
+                 tf32_flops / TF32_FLOPS) * 1e3
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     if ops_ms >= bytes_ms:
         return {"bound_ms": ops_ms, "bound_by": "operations"}
@@ -1075,10 +1077,18 @@ def frontend_flops(frames: int, n_fft: int, ops, nceps: int,
     rows 0..N/2), the log of each mel energy, the DCT and an order-p
     Levinson recursion."""
     nb = n_fft // 2 + 1
-    nnz = sum(int((op[:nb] != 0).sum()) for op in ops)
     nmel = ops[0].shape[1]
-    return frames * (window + 2.5 * n_fft * math.log2(n_fft) + 3 * nb
-                     + 2 * nnz + nmel + 2 * nmel * nceps + 2 * order * order)
+    return (frames * (window + 2.5 * n_fft * math.log2(n_fft) + 3 * nb
+                      + nmel + 2 * nmel * nceps + 2 * order * order)
+            + projection_flops(frames, n_fft, ops))
+
+
+def projection_flops(frames: int, n_fft: int, ops) -> float:
+    """Two FLOPs per nonzero of the bin-domain operators `ops` (rows
+    0..N/2) for each of `frames` frames: the power-to-[mel | acorr]
+    product inside `frontend_flops`."""
+    nb = n_fft // 2 + 1
+    return frames * 2 * sum(int((op[:nb] != 0).sum()) for op in ops)
 
 
 def score_flops(frames: int, d: int, n_components: int) -> float:
@@ -3335,12 +3345,16 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
     nac = fe8c.fft_acorr.shape[1]
     op_bytes = lambda *xs: 4 * sum(x.numel() for x in xs)  # noqa: E731
     v48 = int(sig_args[1].sum())
+    # the kernel's projection runs on the TF32 tensor cores in three terms
+    # (hi.hi + hi.lo + lo.hi); the rest of its work on the FP32 pipes
+    proj48 = projection_flops(v48, fe48.n_fft, (fe48.mel, fe48.acorr))
     b48 = bound(frontend_flops(v48, fe48.n_fft, (fe48.mel, fe48.acorr),
                                fe48.dct.shape[1],
                                order=fe48.acorr.shape[1] - 1,
-                               window=3 * fe48.frame_len),
+                               window=3 * fe48.frame_len) - proj48,
                 4 * sig48.numel() + 4 * BENCH_B * T48 * fcfg.dim
-                + op_bytes(fe48.mel, fe48.acorr, fe48.dct))
+                + op_bytes(fe48.mel, fe48.acorr, fe48.dct),
+                tf32_flops=3 * proj48)
     v8 = int(raw_args[1].sum())
     # the recursion: about n_lpcc * order multiply-adds a frame
     b8 = bound(frontend_flops(v8, fe8c.n_fft, (fe8c.fft_mel, fe8c.fft_acorr),

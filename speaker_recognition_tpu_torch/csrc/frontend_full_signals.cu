@@ -29,13 +29,15 @@
 // per sample, plus the fold of samples past N taken from the signal; its
 // power floor is K5's, per bin, not K1's (mel sums only), so the two
 // kernels compute different functions; it projects the power rows onto
-// mel and autocorrelation on the tensor cores (3 x TF32); its tail is K1's
-// (tile_features, csrc/packed_tile.cuh, with the LPC cepstra mode), and a
-// tile wholly past n_valid writes zeros only.
+// mel and autocorrelation on the tensor cores (3 x TF32); its tail
+// computes what K1's does (tile_features, csrc/packed_tile.cuh, with the
+// LPC cepstra mode), below order 32 with the recursions' coefficients in
+// registers, and a tile wholly past n_valid writes zeros only.
 //
 // What bounds it on this card: the signals, read once (492 MB at 48 kHz
-// for 512 x 5 s: 0.147 ms at 3.35 TB/s), beside ~15 GFLOP of FFT,
-// projection and Levinson (0.2 ms at the FP32 peak). The tile's latency
+// for 512 x 5 s: 0.147 ms at 3.35 TB/s), beside the FFT and Levinson on
+// the FP32 pipes and the projection's three products on the TF32 tensor
+// cores (chip_smoke.py prints the bound). The tile's latency
 // sets the pace; 16-frame tiles, power rows over the FFT buffers and no
 // prefetch registers give two blocks an SM at N = 2048 (signal_tile.cuh).
 // Built without --use_fast_math: isfinite() must survive and logf must be

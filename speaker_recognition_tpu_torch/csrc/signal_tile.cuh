@@ -54,7 +54,8 @@
 // projection off the FP32 pipes, halves the loads a sample, frees the
 // registers of the FFT's prefetch and the shared memory of half the rows
 // for two blocks an SM at N = 2048 (the blocks of an SM hide each other's
-// latency), and keeps the LPC recursion's coefficients in registers.
+// latency), and keeps the coefficients of the LPC and LPC-cepstra
+// recursions in registers.
 //
 // ROADMAP precision rule: the tensor cores' TF32 only through the
 // three-term split; torch.backends.cuda.matmul.allow_tf32 stays False.
@@ -667,15 +668,13 @@ __device__ __forceinline__ float* signal_sums(const rfft::SignalFrames& s,
                          wsums, wstride);
 }
 
-// LPC of order p <= MAXP from the autocorrelation r [p + 1], into o [p]
-// with non-finite coefficients zeroed: levinson_in_place (csrc/
-// packed_tile.cuh) operation for operation, its coefficients in registers
-// (every index known when the loops are unrolled) where that one keeps
-// them in a local array. Not inlined: one copy serves every instance.
+// Levinson-Durbin of order p <= MAXP on the autocorrelation r [p + 1]:
+// levinson_in_place (csrc/packed_tile.cuh) operation for operation, its
+// coefficients a_1 .. a_p in registers (every index known when the loops
+// are unrolled) where that one keeps them in a local array.
 template <int MAXP>
-__device__ __noinline__ void lpc_in_registers(const float* r, float* o,
-                                              int p) {
-  float a[MAXP];
+__device__ __forceinline__ void levinson_registers(const float* r,
+                                                   float (&a)[MAXP], int p) {
   float e = r[0];
 #pragma unroll
   for (int i = 1; i <= MAXP; ++i) {
@@ -694,16 +693,57 @@ __device__ __noinline__ void lpc_in_registers(const float* r, float* o,
       e = e * (1.f - k * k);
     }
   }
+}
+
+// LPC of order p <= MAXP from the autocorrelation r [p + 1], into o [p]
+// with non-finite coefficients zeroed. Not inlined: one copy serves every
+// instance.
+template <int MAXP>
+__device__ __noinline__ void lpc_in_registers(const float* r, float* o,
+                                              int p) {
+  float a[MAXP];
+  levinson_registers<MAXP>(r, a, p);
 #pragma unroll
   for (int j = 0; j < MAXP; ++j)
     if (j < p) o[j] = isfinite(a[j]) ? a[j] : 0.f;
 }
 
+// The n_lpcc - 1 LPC cepstra of order p <= MAXP from the autocorrelation
+// r [p + 1], into o: lpcc_in_place (csrc/packed_tile.cuh) on the unzeroed
+// coefficients of levinson_registers, operation for operation, a_l read
+// from registers and a_n (n < p) from o [n - 1], where it is put first
+// and which c_n then takes. Not inlined, as lpc_in_registers.
+template <int MAXP>
+__device__ __noinline__ void lpcc_in_registers(const float* r, float* o,
+                                               int p, int n_lpcc) {
+  float a[MAXP];
+  levinson_registers<MAXP>(r, a, p);
+#pragma unroll
+  for (int j = 0; j + 1 < MAXP; ++j)
+    if (j + 1 < p && j + 1 < n_lpcc) o[j] = a[j];
+  for (int n = 1; n < n_lpcc; ++n) {
+    const int m = min(n, p);
+    float s = 0.f;
+#pragma unroll
+    for (int l = 0; l < MAXP; ++l) {
+      if (l < m) {
+        const float al = l == 0 ? 1.f : a[l - 1];
+        const float cp = n - l - 1 == 0 ? 1.f : o[n - l - 2];
+        s += al * cp * ((float)(n - l) / (float)(n + 1));
+      }
+    }
+    o[n - 1] = n < p ? o[n - 1] + s : s;
+  }
+  for (int j = 0; j + 1 < n_lpcc; ++j) o[j] = isfinite(o[j]) ? -o[j] : 0.f;
+}
+
 // The features of the tile's nf frames from its sums, as tile_features
 // (csrc/packed_tile.cuh) computes them with fuse_lpc: the cepstra, then
 // the LPC, the LPC cepstra (n_lpcc > 0) or nothing; zeros from frame
-// nvalid on. LPC of order below 32 takes lpc_in_registers, a frame a
-// thread; every other case is tile_features'.
+// nvalid on. An order below 32 takes lpc_in_registers or
+// lpcc_in_registers, a frame a thread, with lpcc_frames' rule for a lag 0
+// below the least normal float (LPC cepstra 0); every other case is
+// tile_features'.
 template <int OPL, int NTH>
 __device__ __forceinline__ void features(const float* sums,
                                          float* __restrict__ out, int nf,
@@ -712,12 +752,13 @@ __device__ __forceinline__ void features(const float* sums,
                                          int nmel, int nac, int nceps,
                                          int stride, int n_lpcc) {
   constexpr int MAXP = 31;
-  if (n_lpcc > 0 || nac < 2 || nac > MAXP + 1) {  // block-uniform
+  if (nac < 2 || nac > MAXP + 1) {  // block-uniform
     tile_features<OPL, NTH>(sums, out, nf, nvalid, dct, nmel, nac, nceps,
                             true, stride, n_lpcc);
     return;
   }
-  const int order = nac - 1, nfeat = nceps + order;
+  const int order = nac - 1;
+  const int w = n_lpcc > 0 ? n_lpcc - 1 : order, nfeat = nceps + w;
   for (int i = threadIdx.x; i < nf * nceps; i += NTH) {
     const int f = i / nceps, c = i % nceps;
     const float* lm = sums + (size_t)f * stride;
@@ -727,10 +768,13 @@ __device__ __forceinline__ void features(const float* sums,
   }
   for (int f = threadIdx.x; f < nf; f += NTH) {
     float* o = out + f * nfeat + nceps;
-    if (f < nvalid)
+    const float* r = sums + (size_t)f * stride + nmel;
+    if (n_lpcc > 0 && f < nvalid && r[0] >= FLT_MIN)
+      lpcc_in_registers<MAXP>(r, o, order, n_lpcc);
+    else if (n_lpcc == 0 && f < nvalid)
       lpc_in_registers<MAXP>(sums + (size_t)f * stride + nmel, o, order);
     else
-      for (int j = 0; j < order; ++j) o[j] = 0.f;
+      for (int j = 0; j < w; ++j) o[j] = 0.f;
   }
 }
 

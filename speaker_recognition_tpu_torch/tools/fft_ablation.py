@@ -43,17 +43,15 @@ frontend_frames.cu at the same shape without its DFT or its projection.
 `signals` builds csrc/frontend_full_signals.cu (K5 from the signals, the
 44.1/48 kHz serving route) at the FFT sizes 2048 and 4096 and 72 outputs
 only, as it is and without its sample loads, its projection's products
-or its whole projection walk, or its Levinson tail; on its tile of
-csrc/signal_tile.cuh also with one product in place of three, A fragments
-made up, one block an SM, the split by cvt.rna, the three products in one
-accumulator chain, or the operator loaded where it is used; and times
-each at 512 x 5 s at 48 kHz beside K5 on the same frames (csrc/
+or its whole projection walk, or its Levinson tail, with one product in
+place of three, A fragments made up, one block an SM, the split by
+cvt.rna, or the three products in one accumulator chain; and times each
+at 512 x 5 s at 48 kHz beside K5 on the same frames (csrc/
 frontend_fft.cu), in turns, two rounds, with ptxas's registers and spills
 and the occupancy API's blocks an SM of full_signals_kernel<2048, 9> and
-<4096, 9>. `--csrc` takes the sources of other checkouts (git archive of a
-commit into a git-ignored directory) to time them in the same turns, on
-their own kind of tile (a signal kernel on rfft_tile.cuh's loader and
-project_bins, before csrc/signal_tile.cuh).
+<4096, 9> (srt_full_signals_occupancy). `--csrc` takes the sources of
+other checkouts of csrc/signal_tile.cuh's kernel (git archive of a commit
+into a git-ignored directory) to time them in the same turns.
 The outputs of a variant are wrong by construction; only its time counts. The
 difference to `full` is what the stage costs. Needs one CUDA card and
 nvcc.
@@ -303,90 +301,56 @@ PROJECTION_PASSES = (
     "          mma_tf32(s2, ah, __float_as_uint(v.z), "
     "__float_as_uint(v.w));\n",
     "          mma_tf32(acc[jn], ah, bh0, bh1);\n")
-# variant -> its edits of csrc/signal_tile.cuh's kernel ("tile") and of
-# the signal kernel on csrc/rfft_tile.cuh's tile ("rfft": rfft::
-# SignalFrames and project_bins), so that --csrc can time a checkout of
-# either; a variant without an "rfft" form is timed on the first kind only
+# variant -> its edits of csrc/signal_tile.cuh
 SIGNAL_VARIANTS = {
-    "full": {"tile": [], "rfft": []},
+    "full": [],
     # the loads of the signal and the window, the samples made up from
     # their index (noise-like, so that the Levinson tail sees no
     # degenerate frame; the fold stays: no frame at 48 kHz is longer than
     # the FFT)
-    "no_gather": {
-        "tile": [("signal_tile.cuh",
-                  "    v[q] = make_float2(p < s.flen ? y0 : 0.f, p + 1 < "
-                  "s.flen ? y1 : 0.f);", "    v[q] = " + MADE_UP_PAIR)],
-        "rfft": [("rfft_tile.cuh",
-                  "      v[q] = make_float2(load(f, p), load(f, p + 1));",
-                  "      v[q] = " + MADE_UP_PAIR)]},
+    "no_gather": [
+        ("signal_tile.cuh",
+         "    v[q] = make_float2(p < s.flen ? y0 : 0.f, p + 1 < "
+         "s.flen ? y1 : 0.f);", "    v[q] = " + MADE_UP_PAIR)],
     # the projection's products (the tensor-core MMAs and their fragment
-    # loads; on the rfft tile the FMAs and their loads), then its whole
-    # walk
-    "no_projection_fma": {
-        "tile": [("signal_tile.cuh", "".join(PROJECTION_PASSES), "")],
-        "rfft": [NO_PROJECTION_FMA]},
-    "no_projection": {
-        "tile": [("signal_tile.cuh", "        for (int b = p; b < q; ++b) {",
-                  "        for (int b = q; b < q; ++b) {")],
-        "rfft": NO_PROJECTION},
-    # the tail's Levinson recursion (csrc/signal_tile.cuh lpc_in_registers;
-    # on the rfft tile csrc/packed_tile.cuh tile_features)
-    "no_levinson": {
-        "tile": [("signal_tile.cuh",
-                  "      lpc_in_registers<MAXP>(sums + (size_t)f * stride + "
-                  "nmel, o, order);", "      (void)0;")],
-        "rfft": [("packed_tile.cuh", "  if (order == 0) return;",
-                  "  return;")]},
+    # loads), then its whole walk
+    "no_projection_fma": [("signal_tile.cuh", "".join(PROJECTION_PASSES),
+                           "")],
+    "no_projection": [("signal_tile.cuh",
+                       "        for (int b = p; b < q; ++b) {",
+                       "        for (int b = q; b < q; ++b) {")],
+    # the tail's Levinson recursion (lpc_in_registers)
+    "no_levinson": [("signal_tile.cuh",
+                     "      lpc_in_registers<MAXP>(sums + (size_t)f * stride "
+                     "+ nmel, o, order);", "      (void)0;")],
     # one product (hi.hi) in place of three; A fragments made up, not
     # loaded from the power rows
-    "one_term": {"tile": [("signal_tile.cuh", "".join(PROJECTION_PASSES),
-                           PROJECTION_PASSES[2])]},
-    "no_a_loads": {"tile": [
+    "one_term": [("signal_tile.cuh", "".join(PROJECTION_PASSES),
+                  PROJECTION_PASSES[2])],
+    "no_a_loads": [
         ("signal_tile.cuh", f"split({r} && k{d} <= H ? {r}[k{d}] : 0.f, ",
          f"split((float)(k + {i}), ")
         for i, (r, d) in enumerate((("r0", ""), ("r1", ""), ("r0", " + 4"),
-                                    ("r1", " + 4")))]},
+                                    ("r1", " + 4")))],
     # the launch bounds asking for one block an SM (255 registers) in
     # place of two
-    "one_block_an_sm": {"tile": [
-        ("signal_tile.cuh", "return n <= 2048 ? 2 : 1;", "return 1;")]},
+    "one_block_an_sm": [("signal_tile.cuh", "return n <= 2048 ? 2 : 1;",
+                         "return 1;")],
     # the split's rounding by cvt.rna.tf32.f32 in place of integer
     # operations (the same bits)
-    "cvt_split": {"tile": [
+    "cvt_split": [
         ("signal_tile.cuh",
          "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
          "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : "
-         "\"f\"(x));\n  return r;")]},
+         "\"f\"(x));\n  return r;")],
     # the three products in one accumulator chain
-    "one_chain": {"tile": [
+    "one_chain": [
         ("signal_tile.cuh", "".join(PROJECTION_PASSES),
          "".join(PROJECTION_PASSES).replace("(s1,", "(acc[jn],").replace(
-             "(s2,", "(acc[jn],"))]},
+             "(s2,", "(acc[jn],"))],
 }
-SIGNAL_SOURCES = ("rfft_tile.cuh", "packed_tile.cuh",
+SIGNAL_SOURCES = ("rfft_tile.cuh", "packed_tile.cuh", "signal_tile.cuh",
                   "frontend_full_signals.cu", "frontend_fft.cu")
-# appended to each signals library: blocks an SM (the occupancy API),
-# registers, local bytes, dynamic shared bytes and threads of
-# full_signals_kernel<nfft, 9>, after a launch at that size has set its
-# shared memory
-OCCUPANCY_PROBE = """
-extern "C" int ablation_occupancy(int nfft, int* out) {
-  return (int)rfft::with_n(nfft, [&](auto nc) {
-    const auto k = full_signals_kernel<decltype(nc)::value, 9>;
-    cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, k);
-    if (e != cudaSuccess) return e;
-    out[1] = a.numRegs;
-    out[2] = (int)a.localSizeBytes;
-    out[3] = a.maxDynamicSharedSizeBytes;
-    out[4] = a.maxThreadsPerBlock;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, k, a.maxThreadsPerBlock, a.maxDynamicSharedSizeBytes);
-  });
-}
-"""
-
 
 def bind(lib) -> None:
     """The argument types of K5's and K1's C interfaces."""
@@ -566,7 +530,7 @@ def bind_signals(lib) -> None:
     if hasattr(lib, "srt_full_signals_frontend"):
         lib.srt_full_signals_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
             f_, i_, f_, i_, i_, p_]
-        lib.ablation_occupancy.argtypes = [i_, ip]
+        lib.srt_full_signals_occupancy.argtypes = [i_, i_, ip]
     if hasattr(lib, "srt_fft_frames_frontend"):
         lib.srt_fft_frames_frontend.argtypes = [p_] * 6 + [i_] * 6 + [f_, p_]
         lib.srt_fft_operator_shape.argtypes = [i_, i_, ip, ip, ip]
@@ -593,8 +557,6 @@ def signals_main(card: str, dev, rng, variants=None, csrcs=None) -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     csrcs = csrcs or [_build.CSRC]
     fe = FullFrontend(48000, FeatureConfig(), dev)
-    fe4 = FullFrontend(48000, FeatureConfig(mfcc=MfccConfig(fft_size=4096)),
-                       dev)
     x = np.zeros((512, 245760), np.float32)
     x[:, :240000] = rng.randn(512, 240000) * 3000
     sig = torch.from_numpy(x).to(dev)
@@ -612,87 +574,58 @@ def signals_main(card: str, dev, rng, variants=None, csrcs=None) -> None:
     n = wp.shape[0]
     ceps = torch.empty(n, nceps, device=dev)
     r = torch.empty(n, nac, device=dev)
-    names, variants = [], variants or SIGNAL_VARIANTS
+    variants = variants or SIGNAL_VARIANTS
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
         libs, logs = {}, {}
         for i, csrc in enumerate(csrcs):
             tag = "" if len(csrcs) == 1 else f"{i}:"
-            kind = ("tile" if os.path.exists(os.path.join(
-                csrc, "signal_tile.cuh")) else "rfft")
-            vs = {tag + k: SIGNAL_ONE + v[kind] for k, v in variants.items()
-                  if kind in v}
+            vs = {tag + k: SIGNAL_ONE + v for k, v in variants.items()}
             vs[tag + "k5_frames"] = SIGNAL_ONE
             entries = {k: ("frontend_full_signals.cu",) for k in vs}
             entries[tag + "k5_frames"] = ("frontend_fft.cu",)
-            sources = SIGNAL_SOURCES + ("signal_tile.cuh",) * (kind == "tile")
             sub = os.path.join(tmp, str(i))
             os.makedirs(sub)
-            for k in vs:
-                if k.endswith("k5_frames"):
-                    continue
-                names.append(k)
-            # the probe rides in each signals library's own source
-            vs = {k: v + ([] if k.endswith("k5_frames") else [
-                ("frontend_full_signals.cu", "}  // namespace\n",
-                 "}  // namespace\n" + OCCUPANCY_PROBE)]) for k, v in vs.items()}
-            libs.update(build(sub, vs, sources, entries, bind_signals, csrc,
-                              logs))
-            print(f"fft_ablation [{card}] sources {tag or ''}{csrc}",
-                  flush=True)
-        frames = {k[:-len("k5_frames")]: libs[k] for k in libs
-                  if k.endswith("k5_frames")}
-
-        def operator(lib, tag, f):
-            if hasattr(lib, "srt_full_signals_operator_shape"):
-                return gpu_frontend.signal_operator(lib, f.mel, f.acorr,
-                                                    f.n_fft)
-            return gpu_frontend._fft_operator(f.mel, f.acorr, f.n_fft,
-                                              frames[tag])
+            libs.update(build(sub, vs, SIGNAL_SOURCES, entries, bind_signals,
+                              csrc, logs))
+            print(f"fft_ablation [{card}] sources {tag}{csrc}", flush=True)
 
         calls = {}
-        for k in names:
-            lib, tag = libs[k], k[:k.index(":") + 1] if ":" in k else ""
-            op = operator(lib, tag, fe)
+        for k, lib in libs.items():
+            if k.endswith("k5_frames"):
+                op = gpu_frontend._fft_operator(fe.mel, fe.acorr, fe.n_fft,
+                                                lib)
 
-            def call(lib=lib, op=op, f=fe, s=sig, v=nv, out=feat, t=T):
+                def k5(lib=lib, op=op):
+                    err = lib.srt_fft_frames_frontend(
+                        wp.data_ptr(), op.data_ptr(), fe.dct.data_ptr(),
+                        ceps.data_ptr(), r.data_ptr(), None, n, fe.frame_len,
+                        fe.n_fft, nmel, nac, nceps, fe.floor, stream)
+                    assert err == 0, err
+                calls[k] = k5
+                continue
+            op = gpu_frontend.signal_operator(lib, fe.mel, fe.acorr, fe.n_fft)
+
+            def call(lib=lib, op=op):
                 err = lib.srt_full_signals_frontend(
-                    s.data_ptr(), v.data_ptr(), f.window.data_ptr(),
-                    op.data_ptr(), f.dct.data_ptr(), out.data_ptr(), None,
-                    s.shape[0], s.shape[1], t, f.frame_len, f.frame_shift,
-                    f.n_fft, nmel, nac, nceps, f.pre_emph,
-                    int(f.preemph_first), f.floor, 1, 0, stream)
+                    sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(),
+                    op.data_ptr(), fe.dct.data_ptr(), feat.data_ptr(), None,
+                    B, Lp, T, fe.frame_len, fe.frame_shift, fe.n_fft, nmel,
+                    nac, nceps, fe.pre_emph, int(fe.preemph_first), fe.floor,
+                    1, 0, stream)
                 assert err == 0, err
             calls[k] = call
             if k.endswith("full"):
-                # one launch at 4096 points sets that instance's shared
-                # memory for the occupancy query
-                s4 = sig[:8].contiguous()
-                T4 = n_frames(Lp, fe4.frame_len, fe4.frame_shift)
-                call(lib, operator(lib, tag, fe4), fe4, s4, nv[:8],
-                     torch.empty(8, T4, nceps + nac - 1, device=dev), T4)
-                call()
-                torch.cuda.synchronize()
                 for nfft in (2048, 4096):
-                    o = (ctypes.c_int * 5)()
-                    assert lib.ablation_occupancy(nfft, o) == 0
+                    o = (ctypes.c_int * 4)()
+                    assert lib.srt_full_signals_occupancy(nfft, nmel + nac,
+                                                          o) == 0
                     print(f"fft_ablation [{card}] {k} full_signals_kernel<"
-                          f"{nfft}, 9>: {o[0]} blocks an SM of {o[4]} "
-                          f"threads, {o[1]} registers, {o[2]} local bytes a "
-                          f"thread, {o[3]} B of dynamic shared memory",
-                          flush=True)
+                          f"{nfft}, 9>: {o[0]} blocks an SM, {o[1]} "
+                          f"registers, {o[2]} local bytes a thread, {o[3]} B "
+                          "of dynamic shared memory", flush=True)
                 for line in ptxas_lines(logs[k]):
                     print(f"fft_ablation [{card}] {k} ptxas: {line}",
                           flush=True)
-        for tag, lib in frames.items():
-            op = gpu_frontend._fft_operator(fe.mel, fe.acorr, fe.n_fft, lib)
-
-            def k5(lib=lib, op=op):
-                err = lib.srt_fft_frames_frontend(
-                    wp.data_ptr(), op.data_ptr(), fe.dct.data_ptr(),
-                    ceps.data_ptr(), r.data_ptr(), None, n, fe.frame_len,
-                    fe.n_fft, nmel, nac, nceps, fe.floor, stream)
-                assert err == 0, err
-            calls[tag + "k5_frames"] = k5
         print(f"fft_ablation [{card}]: K5 from the signals, 512 x 5 s @ 48 "
               f"kHz ({n} frames, CMVN on), beside K5 on the same frames "
               "(k5_frames), median of 7 trials of 3 calls, the variants in "

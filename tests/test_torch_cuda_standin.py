@@ -285,20 +285,18 @@ def _signal_batch(fs, L, lengths, seed):
     return torch.from_numpy(sig), torch.tensor(lengths, dtype=torch.int32)
 
 
-def _lpc_close(name, got, want, nceps, lpcc, zeros=None):
+def _lpc_close(name, got, want, nceps, lpcc, silent=None):
     """Pre-CMVN cepstra of O(10-100) within 1e-3 (f32 FFTs in another
     order, ~1e-6 relative on the power), LPC within 1e-3, LPC cepstra
     within 1e-3 of their frame's largest; zeros where the plain version
-    has them, or, given a [B, T] mask `zeros`, on those frames and only
-    there."""
+    has them, except in the LPC columns of the frames of a [B, T] mask
+    `silent`, which the tolerances alone hold."""
     got, want = got.numpy(), want.numpy()
     assert np.isfinite(got).all(), name
-    if zeros is None:
-        assert ((got == 0) == (want == 0)).all(), name
-    else:
-        z = zeros.numpy()
-        assert (got[z] == 0).all() and (want[z] == 0).all(), name
-        assert (got[~z].any(-1)).all(), name
+    same = (got == 0) == (want == 0)
+    if silent is not None:
+        same[silent.numpy(), nceps:] = True
+    assert same.all(), name
     np.testing.assert_allclose(got[..., :nceps], want[..., :nceps], rtol=0,
                                atol=1e-3, err_msg=name)
     scale = (np.abs(want[..., nceps:]).max(axis=-1, keepdims=True)
@@ -321,8 +319,9 @@ def test_the_full_spectrum_kernel_from_the_signals(lib, fs, fft_size,
     points; the per-bin floor; the power rows over the FFT buffers; the
     projection as 3 x TF32 mma.sync products from the packed block list,
     split over the warps and added in order, past 512 outputs (600 mel
-    filters + LPC) in chunks to device rows; LPC or the LPC cepstra in
-    tile_features; a tile past n_valid written as zeros) against
+    filters + LPC) in chunks to device rows; LPC or the LPC cepstra with
+    their coefficients in registers; a tile past n_valid written as zeros)
+    against
     mfcc_from_signals_reference with CMVN off, two calls bitwise: a long
     utterance with a silent stretch (its all-floor frames give LPC cepstra
     of 0), a short one and one with no valid frame."""
@@ -358,12 +357,16 @@ def test_the_full_spectrum_kernel_from_the_signals(lib, fs, fft_size,
     assert torch.equal(got, call())
     want = gpu_frontend.mfcc_from_signals_reference(
         sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, False, n_lpcc)
-    # zeros past n_valid; on a silent frame the plain version's odd lags
-    # cancel to exact zeros (f32 sums of subnormal products, in bin order),
-    # which the kernel's 3 x TF32 sums do not repeat bit for bit: its LPC
-    # is held to the tolerances there
+    # on a frame of zeros (every power bin at the floor) the plain
+    # version's odd lags cancel to exact zeros (f32 sums of subnormal
+    # products, in bin order), which the kernel's 3 x TF32 sums do not
+    # repeat bit for bit: its LPC is held to the tolerances there
+    wp = framing.window_preemph(framing.frame_signal(sig, fe.frame_len,
+                                                     fe.frame_shift),
+                                fe.frame_len, fe.pre_emph, fe.preemph_first)
+    silent = (wp == 0).all(-1) & (torch.arange(T)[None] < nv[:, None])
     _lpc_close(f"{fs} {fft_size} {n_lpcc}", got, want, nceps, n_lpcc > 0,
-               torch.arange(T)[None] >= nv[:, None])
+               silent)
     if n_lpcc:
         assert (got[0, 2:4, nceps:] == 0).all()
 

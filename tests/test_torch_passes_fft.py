@@ -458,23 +458,18 @@ def test_the_ablation_variants_apply():
     """Every variant of tools/fft_ablation.py edits text that its copy of
     the sources still holds when its turn comes (build applies a variant's
     edits in order and stops the tool, on the card, at one that no longer
-    applies); the signals route's on this tree's kind of signal tile, with
-    its occupancy probe appended."""
+    applies)."""
     import os
 
     from speaker_recognition_tpu_torch import _build
     from speaker_recognition_tpu_torch.tools import fft_ablation as fa
 
-    signals = {k: v["tile"] + [(
-        "frontend_full_signals.cu", "}  // namespace\n",
-        "}  // namespace\n" + fa.OCCUPANCY_PROBE)]
-        for k, v in fa.SIGNAL_VARIANTS.items()}
     for variants, common in ((fa.VARIANTS, ()), (fa.BIG_VARIANTS, ()),
                              (fa.CHIRP_VARIANTS, fa.CHIRP_ONE),
                              (fa.CHIRP_CLUSTER_VARIANTS, fa.CLUSTER_ONE),
                              (fa.CHIRP_PASSES_VARIANTS, fa.CLUSTER_ONE),
                              (fa.DENSE_VARIANTS, ()),
-                             (signals, fa.SIGNAL_ONE)):
+                             (fa.SIGNAL_VARIANTS, fa.SIGNAL_ONE)):
         for name, edits in variants.items():
             srcs = {}
             for edit in (*common, *edits):
