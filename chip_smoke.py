@@ -59,15 +59,17 @@ raises and the exit code is non-zero):
      plain versions, the dense packed DFT and the FFT route: 512 x 5 s at
      8 kHz and a 16 kHz batch with LPC cepstra, 96 and 192 kHz with
      fft_size 8192 and 16384, 250 mel filters at 48 kHz; the bench batch's
-     LPCC through extract_batch launches K1 once and K4 never, its features
-     against the plain route
+     LPCC through extract_batch launches K1's LPC-cepstra kernel (csrc/
+     frontend_lpcc_signals.cu) once and K4 never, its features against
+     the plain route
  12. slice 3 on the card: `cli -t enroll` then `cli -t predict` at 48 kHz,
      at the default config and with fft_size 4096 (K1 on a 4096-point
      FFT), and at 96 kHz with fft_size 8192 (K1 on an 8192-point FFT), the
      JAX-enrolled 48 kHz session against the JAX package's scores, UBM +
      MAP + open-set decisions at 48 kHz; then the LPC-cepstra slice at
      8 kHz: ModelInterface enroll, train, predict_batch, dump, `cli -t
-     predict`, the open set; launch counts of both; timing of the
+     predict`, the open set, on K1's LPC-cepstra kernel and never K1's
+     tile; launch counts of both; timing of the
      frontend kernels and their plain versions, of K5 beside the dense
      kernel and torch.fft.rfft in one interleaved set, of K1, K4 and K5 at
      96 kHz (8192-point FFTs), of predict_scores at 48 kHz, and of LPCC
@@ -164,7 +166,9 @@ raises and the exit code is non-zero):
      fits, sharded_bank_scores bitwise equal to the unsharded K3 call (K3
      counted), the sequence-sharded features against mix_feature (K1
      counted), K1 no farther from the float64 route on that voice than
-     VOICE_FACTOR x the f32 plain versions, scaling_report; phase 13 also
+     VOICE_FACTOR x the f32 plain versions, in its LPC mode and in its
+     LPC-cepstra mode (csrc/frontend_lpcc_signals.cu, beside the raw tile
+     + the torch recursion), scaling_report; phase 13 also
      holds the monolith's f32
      route at N = 32768 and 616 outputs (phase13_lifted)
  21. the bf16 operand modes, each against its plain version with two calls
@@ -194,14 +198,21 @@ raises and the exit code is non-zero):
      s at 48 kHz, LPC cepstra at 48 kHz with a silent stretch (its
      cepstra 0), 44.1 kHz, no valid frame, fft_size 4096 / 8192 / 16384,
      128, 250 and 600 mel filters with LPC, frames folded onto the FFT (96
-     and 192 kHz), K1's LPC-cepstra mode at 8 and 16 kHz; the 48 kHz and
-     LPCC predicts' counters and kernels (torch.profiler); their timing
+     and 192 kHz), K1's LPC-cepstra mode (csrc/frontend_lpcc_signals.cu:
+     the signal tile with the power unfloored, the LPC cepstra in its
+     tail) at 8 kHz with a silent stretch (its LPC cepstra 0) and 16 kHz;
+     the 48 kHz and LPCC predicts' counters and kernels (torch.profiler:
+     the LPC-cepstra mode launches its kernel and the CMVN kernel and
+     nothing else), the LPC-cepstra kernel's occupancy; their timing
      beside the routes they replace, composed of the pieces that remain
      (torch's frames, K5 on them, the torch tail, K2; K1's raw mode, the
-     torch tail, K2), and peak device memory both ways
+     torch tail, K2), the LPC-cepstra kernel beside K1's LPC mode and the
+     LPCC predict in one interleaved set, and peak device memory both
+     ways
 The line before the last is {"kernels": [...]}, each kernel with its
-launches on the main path (0 for K4 and for K5's frame-level FFT kernel
-at a power-of-two fft_size, which no serving path takes; K5's
+launches on the main path (0 for K4, for K1's raw-autocorrelation mode
+and for K5's frame-level FFT kernel at a power-of-two fft_size, which no
+serving path takes; K5's
 chirp-z kernel's on extract_batch at 216 outputs; the dense template's
 on extract_batch past M = 2^23; phase 15's and 16's routes on their
 extract_batch drives), its error against its plain version, its time,
@@ -1403,7 +1414,8 @@ def seeding_stages(fn, trials=7) -> dict:
 
 
 FRONTEND_COUNTERS = ("LAUNCHES", "FRAMES_LAUNCHES", "FULL_LAUNCHES",
-                     "FULL_SIGNAL_LAUNCHES", "FULL_CHIRP_LAUNCHES",
+                     "FULL_SIGNAL_LAUNCHES", "LPCC_SIGNAL_LAUNCHES",
+                     "FULL_CHIRP_LAUNCHES",
                      "FULL_DENSE_LAUNCHES",
                      "BIG_LAUNCHES", "FRAMES_BIG_LAUNCHES",
                      "FULL_BIG_LAUNCHES", "CHUNKED_LAUNCHES",
@@ -2507,24 +2519,33 @@ def phase20(dev, card, feats: dict) -> list:
             ext[0, :L] = torch.as_tensor(x.astype(np.float32), device=dev)
             return ext
 
-        def parted(voice, nv, Tv, what):
+        def parted(voice, nv, Tv, what, fe=fe, fe64=fe64, n_lpcc=0):
             """K1 (CMVN off) and the f32 plain versions against the float64
-            route on [1, L] samples: {route: (cepstra max |d|, frames whose
-            LPC parts past LPC_ATOL / LPC_RTOL)}."""
+            route on [1, L] samples, the LPC or with n_lpcc the LPC
+            cepstra (then also K1's raw tile with the torch recursion
+            after it, the parent's LPC-cepstra route's rows): {route:
+            (cepstra max |d|, frames whose LPC columns part past LPC_ATOL /
+            LPC_RTOL)}."""
             vargs = (voice, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor,
                      fe.frame_shift, False)
             f64 = gpu_frontend.packed_from_signals_reference(
                 voice.double(), nv, fe64.D, fe64.W, fe64.dct, fe64.A,
-                fe64.floor, fe.frame_shift, False)[0, :Tv]
+                fe64.floor, fe.frame_shift, False, n_lpcc=n_lpcc)[0, :Tv]
+            routes = [
+                ("K1", gpu_frontend.packed_from_signals(
+                    *vargs, fft=fe.fft, n_lpcc=n_lpcc)),
+                ("dense f32", gpu_frontend.packed_from_signals_reference(
+                    *vargs, n_lpcc=n_lpcc)),
+                ("fft f32", gpu_frontend.packed_from_signals_fft_reference(
+                    voice, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift,
+                    False, True, n_lpcc))]
+            if n_lpcc:
+                c, r = gpu_frontend.packed_from_signals(
+                    *vargs, fft=fe.fft, fuse_lpc=False)
+                routes.append(("raw tile + torch tail", torch.cat(
+                    [c, gpu_frontend.lpc_columns(r, n_lpcc)], -1)))
             errs = {}
-            for name, got in (
-                    ("K1", gpu_frontend.packed_from_signals(*vargs,
-                                                            fft=fe.fft)),
-                    ("dense f32", gpu_frontend.packed_from_signals_reference(
-                        *vargs)),
-                    ("fft f32", gpu_frontend.packed_from_signals_fft_reference(
-                        voice, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift,
-                        False))):
+            for name, got in routes:
                 dv = (got[0, :Tv].double() - f64).abs()
                 lpc_bad = ((dv[:, 13:] > LPC_ATOL)
                            & (dv[:, 13:] > LPC_RTOL * f64[:, 13:].abs())).any(1)
@@ -2554,6 +2575,27 @@ def phase20(dev, card, feats: dict) -> list:
         if any(k > VOICE_FACTOR * w for k, w in zip(errs["K1"], worst)):
             raise AssertionError("K1 parts from float64 on the seqshard "
                                  "voice further than the f32 plain versions")
+        # the same rule for K1's LPC-cepstra mode (csrc/
+        # frontend_lpcc_signals.cu: the projection in three TF32 terms,
+        # the power unfloored), beside the raw tile + the torch recursion
+        cfg_c = FeatureConfig(lpc=LPCC)
+        errs_c = parted(chunk_of(sig), nv, Tv,
+                        "the seqshard voice, n_lpcc 16",
+                        extract.frontend(synth.FS, cfg_c, dev),
+                        extract.frontend(synth.FS, cfg_c, dev, "float64"),
+                        LPCC.n_lpcc)
+        worst_c = [max(errs_c["dense f32"][i], errs_c["fft f32"][i])
+                   for i in (0, 1)]
+        print(f"phase 20 K1's LPC-cepstra mode on the seqshard voice within "
+              f"{VOICE_FACTOR}x the f32 plain versions' distance from "
+              f"float64 (cepstra max|d|, LPC-cepstra frames past "
+              f"tolerance): {errs_c['K1']} against {tuple(worst_c)}; the "
+              f"raw tile + torch tail {errs_c['raw tile + torch tail']}",
+              flush=True)
+        if any(k > VOICE_FACTOR * w for k, w in zip(errs_c["K1"], worst_c)):
+            raise AssertionError("K1's LPC cepstra part from float64 on the "
+                                 "seqshard voice further than the f32 plain "
+                                 "versions")
         ext = chunk_of(rng.randn(L) * 3000)
         args = (ext, nv, fe.D, fe.W, fe.dct, fe.A, fe.floor, fe.frame_shift,
                 False)
@@ -2723,14 +2765,16 @@ def occupancy(flen, fshift, nout, B=None, T=None, d=None, bank=None) -> str:
             f"shared memory, {k2[2]} blocks an SM")
 
 
-def signal_occupancy(n_fft: int, nout: int) -> str:
-    """csrc/frontend_full_signals.cu's full_signals_kernel at n_fft and
-    nout outputs on the card: blocks an SM (the occupancy API), registers
-    and local bytes a thread (ptxas), shared memory a block."""
+def signal_occupancy(n_fft: int, nout: int, kernel: str = "full") -> str:
+    """A signal kernel at n_fft and nout outputs on the card: csrc/
+    frontend_full_signals.cu's full_signals_kernel, or with kernel "lpcc"
+    csrc/frontend_lpcc_signals.cu's lpcc_signals_kernel; blocks an SM (the
+    occupancy API), registers and local bytes a thread (ptxas), shared
+    memory a block."""
     import ctypes
     out = (ctypes.c_int * 4)()
-    _build.check(_build.load().srt_full_signals_occupancy(n_fft, nout, out),
-                 "signal kernel occupancy")
+    occupancy = getattr(_build.load(), f"srt_{kernel}_signals_occupancy")
+    _build.check(occupancy(n_fft, nout, out), "signal kernel occupancy")
     return (f"{out[0]} blocks an SM, {out[1]} registers and {out[2]} local "
             f"bytes a thread, {out[3]} B of shared memory a block")
 
@@ -3054,8 +3098,9 @@ def check_signals(name, fe, sig, lengths, zero_frames=()) -> float:
     """A signal route's kernel vs its plain version on one batch, with the
     frontend's CMVN and LPC columns, two calls bitwise and two launches of
     its counter: mfcc_from_signals (csrc/frontend_full_signals.cu) for a
-    FullFrontend, K1 in the frontend's mode (its LPC cepstra with
-    n_lpcc) for a PackedFrontend. `zero_frames`: (utterance, frame) pairs
+    FullFrontend, K1 in the frontend's mode for a PackedFrontend (its LPC
+    cepstra with n_lpcc: csrc/frontend_lpcc_signals.cu, counted in
+    LPCC_SIGNAL_LAUNCHES). `zero_frames`: (utterance, frame) pairs
     of a silent stretch whose LPC cepstra must be 0. Returns the max abs
     error of the features."""
     T = n_frames(sig.shape[1], fe.frame_len, fe.frame_shift)
@@ -3074,7 +3119,7 @@ def check_signals(name, fe, sig, lengths, zero_frames=()) -> float:
         want = gpu_frontend.packed_from_signals_fft_reference(
             sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, fe.cmvn, True,
             fe.n_lpcc)
-        counter = "LAUNCHES"
+        counter = "LPCC_SIGNAL_LAUNCHES" if fe.n_lpcc else "LAUNCHES"
     before = getattr(gpu_frontend, counter)
     got = kernel()
     again = kernel()
@@ -3161,6 +3206,7 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
             f"{fs_f / 1e3:g} kHz (flen {fe_f.frame_len} folded onto "
             f"{fe_f.n_fft})", fe_f, sf, lf))
     fe8c = PackedFrontend(BENCH_FS, lpcc_cfg, dev)
+    nout8c = fe8c.fft_mel.shape[1] + fe8c.fft_acorr.shape[1]
     s8, l8, z8 = silent_batch(rng, fe8c, [int(BENCH_FS * BENCH_SEC)]
                               * BENCH_B, bench_sig.shape[1], dev)
     err_lpcc = check_signals("K1 LPC-cepstra mode, 512 x 5 s @ 8 kHz, a "
@@ -3196,10 +3242,11 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
           {"FULL_SIGNAL_LAUNCHES": 1, "K2": 1})
     launched_c, kc = drive("predict_scores 512 x 5 s @ 8 kHz, n_lpcc 16",
                            BENCH_FS, lpcc_cfg, s8, l8,
-                           {"LAUNCHES": 1, "K2": 1})
+                           {"LPCC_SIGNAL_LAUNCHES": 1, "K2": 1})
     if dev.type == "cuda" and (
             k48.get("full_signals_kernel") != 1 or "fft_frames_kernel" in k48
-            or kc.get("packed_frontend_kernel") != 1):
+            or kc.get("lpcc_signals_kernel") != 1
+            or "packed_frontend_kernel" in kc or "lpcc_kernel" in kc):
         raise AssertionError("the predicts did not run their kernels once")
 
     # the routes they replace, composed of the pieces that remain: at 48
@@ -3253,6 +3300,15 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
         *raw_args, fft=fe8c.fft, n_lpcc=16)
     signals48 = lambda: gpu_frontend.mfcc_from_signals(  # noqa: E731
         *sig_args)
+    # the LPC-cepstra mode on the card: its kernel and the CMVN kernel,
+    # nothing else (no raw tile, no lpcc_kernel), by torch.profiler
+    k1c = kernels_per_call(k1_lpcc, calls=3)
+    print(f"phase 22 K1's LPC-cepstra mode, 512 x 5 s @ 8 kHz, by "
+          f"torch.profiler: {sum(k1c.values()):g} device kernels a call: "
+          f"{k1c}", flush=True)
+    if dev.type == "cuda" and k1c != {"lpcc_signals_kernel": 1.0,
+                                      "cmvn_kernel": 1.0}:
+        raise AssertionError("K1's LPC-cepstra mode ran other kernels")
     # the kernels in sets of one rate each, the end-to-end routes beside
     # the earlier ones in one interleaved set, the host-bound torch tails
     # alone; every kernel's arguments made before its trials, as phase 5
@@ -3263,6 +3319,8 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
         "k1_raw": k1_raw,
         "k1_lpc": lambda: gpu_frontend.packed_from_signals(*lpc_args,
                                                            fft=fe8.fft),
+        "lpcc_predict": lambda: fastpath.predict_scores(s8, l8, bank8,
+                                                        BENCH_FS, lpcc_cfg),
     }, *SIGNAL_TRIALS).items()})
     t.update({f"p22_{k}": v for k, v in time_interleaved({
         "framing48": framing48,
@@ -3274,8 +3332,6 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
         "predict48": lambda: fastpath.predict_scores(sig48, len48, bank48,
                                                      FS48, fcfg),
         "predict48_frames": predict48_frames,
-        "lpcc_predict": lambda: fastpath.predict_scores(s8, l8, bank8,
-                                                        BENCH_FS, lpcc_cfg),
         "lpcc_predict_raw": lpcc_predict_raw,
     }, *SIGNAL_TRIALS).items()})
     t["p22_tail48"] = time_ms(lambda: tail48(c48, r48), *SIGNAL_TRIALS)
@@ -3328,15 +3384,21 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
           f"its inputs: signal route {peaks['signals'] / 1e6:.1f} MB, frame "
           f"route {peaks['frames'] / 1e6:.1f} MB (one [B, T, flen] f32 "
           f"tensor: {frame_bytes / 1e6:.1f} MB)", flush=True)
-    print(f"phase 22 [{card}] predict_scores 512 x 5 s @ 8 kHz, n_lpcc 16, "
-          f"K1's LPC-cepstra mode: {t['p22_lpcc_predict']:.3f} ms; the raw "
-          f"mode + torch tail composed {t['p22_lpcc_predict_raw']:.3f} ms (K1 "
-          f"raw {t['p22_k1_raw']:.3f}, tail {t['p22_lpcc_tail']:.3f}); K1 "
-          f"LPCC mode {t['p22_k1_lpcc']:.3f} ms, its plain version "
-          f"{t['p22_k1_lpcc_plain']:.3f} ms; K1 LPC mode (the 8 kHz main "
-          f"path) {t['p22_k1_lpc']:.3f} ms here, {t['frontend']:.3f} ms in "
-          f"phase 5 (ratio {t['p22_k1_lpc'] / t['frontend']:.3f})",
+    print(f"phase 22 [{card}] K1's LPC-cepstra mode (csrc/"
+          f"frontend_lpcc_signals.cu), 512 x 5 s @ 8 kHz: "
+          f"{t['p22_k1_lpcc']:.3f} ms, its plain version "
+          f"{t['p22_k1_lpcc_plain']:.3f} ms; in the same interleaved trials "
+          f"K1's LPC mode (the 8 kHz main path) {t['p22_k1_lpc']:.3f} ms "
+          f"(ratio {t['p22_k1_lpcc'] / t['p22_k1_lpc']:.3f}; "
+          f"{t['frontend']:.3f} ms in phase 5), K1's raw mode "
+          f"{t['p22_k1_raw']:.3f} ms and predict_scores with n_lpcc 16 "
+          f"{t['p22_lpcc_predict']:.3f} ms; lpcc_signals_kernel<"
+          f"{fe8c.n_fft}, 9>: {signal_occupancy(fe8c.n_fft, nout8c, 'lpcc')}",
           flush=True)
+    print(f"phase 22 [{card}] predict_scores 512 x 5 s @ 8 kHz, n_lpcc 16, "
+          f"the raw mode + torch tail composed "
+          f"{t['p22_lpcc_predict_raw']:.3f} ms (K1 raw {t['p22_k1_raw']:.3f}"
+          f", tail {t['p22_lpcc_tail']:.3f})", flush=True)
     if dev.type == "cuda" and peaks["signals"] >= frame_bytes:
         raise AssertionError("the 48 kHz predict allocated a frame tensor")
 
@@ -3356,22 +3418,25 @@ def phase22(rng, dev, card, bench_sig, bench_len, fe8, bench_bank,
                 + op_bytes(fe48.mel, fe48.acorr, fe48.dct),
                 tf32_flops=3 * proj48)
     v8 = int(raw_args[1].sum())
-    # the recursion: about n_lpcc * order multiply-adds a frame
-    b8 = bound(frontend_flops(v8, fe8c.n_fft, (fe8c.fft_mel, fe8c.fft_acorr),
-                              nceps, order=nac - 1,
-                              window=3 * fe8c.frame_len)
+    # the recursion: about n_lpcc * order multiply-adds a frame; the
+    # projection on the TF32 tensor cores in three terms, as K5's
+    ops8 = (fe8c.fft_mel, fe8c.fft_acorr)
+    proj8 = projection_flops(v8, fe8c.n_fft, ops8)
+    b8 = bound(frontend_flops(v8, fe8c.n_fft, ops8, nceps, order=nac - 1,
+                              window=3 * fe8c.frame_len) - proj8
                + v8 * 2 * 16 * (nac - 1),
                4 * s8.numel() + 4 * B8 * T8 * lpcc_cfg.dim
-               + op_bytes(fe8c.fft_mel, fe8c.fft_acorr, fe8c.dct))
+               + op_bytes(fe8c.fft_mel, fe8c.fft_acorr, fe8c.dct),
+               tf32_flops=3 * proj8)
     for k, b in (("mfcc_from_signals", b48), ("packed_frontend_lpcc", b8)):
         print(f"phase 22 [{card}] bound of {k}: {b['bound_ms']:.4f} ms "
               f"({b['bound_by']})", flush=True)
     return [("mfcc_from_signals", "frontend_full_signals.cu",
              "pallas_frontend.py:50", launched48["FULL_SIGNAL_LAUNCHES"], err,
              t["p22_signals48"], t["p22_signals48_plain"], b48),
-            ("packed_frontend_lpcc", "frontend.cu", "pallas_frontend.py:231",
-             launched_c["LAUNCHES"], err_lpcc, t["p22_k1_lpcc"],
-             t["p22_k1_lpcc_plain"], b8)]
+            ("packed_frontend_lpcc", "frontend_lpcc_signals.cu",
+             "pallas_frontend.py:231", launched_c["LPCC_SIGNAL_LAUNCHES"],
+             err_lpcc, t["p22_k1_lpcc"], t["p22_k1_lpcc_plain"], b8)]
 
 
 def main(argv=None):
@@ -3870,12 +3935,15 @@ def main(argv=None):
     if gpu_frontend.FULL_DENSE_LAUNCHES != dense_before:
         raise AssertionError("the frame-level packed frontend ran a dense "
                              "product")
-    # serving sends LPC cepstra through K1's raw-autocorrelation mode
-    before = (gpu_frontend.LAUNCHES, gpu_frontend.FRAMES_LAUNCHES)
+    # serving sends LPC cepstra through K1's LPC-cepstra kernel (csrc/
+    # frontend_lpcc_signals.cu), never K1's tile or K4
+    before = (gpu_frontend.LPCC_SIGNAL_LAUNCHES, gpu_frontend.FRAMES_LAUNCHES,
+              gpu_frontend.LAUNCHES)
     feats_c, mask_c = extract.extract_batch(bench_sig, bench_len, BENCH_FS,
                                             lpcc_cfg)
-    routed = (gpu_frontend.LAUNCHES - before[0],
-              gpu_frontend.FRAMES_LAUNCHES - before[1])
+    routed = (gpu_frontend.LPCC_SIGNAL_LAUNCHES - before[0],
+              gpu_frontend.FRAMES_LAUNCHES - before[1],
+              gpu_frontend.LAUNCHES - before[2])
     plain_c, plain_m = fe8c.finish(
         *gpu_frontend.packed_from_signals_reference(
             *frontend_args(fe8c, bench_sig, bench_len), fuse_lpc=False),
@@ -3887,11 +3955,11 @@ def main(argv=None):
     print(f"phase 11 extract_batch, n_lpcc 16: features "
           f"{tuple(feats_c.shape)} vs the plain route: mfcc max|d| "
           f"{d_mfcc:.3e} (tol {MFCC_ATOL}) lpcc max|d| {d_lpcc:.3e} (over "
-          f"tol: {lpcc_bad}); launches K1 {routed[0]}, K4 {routed[1]}",
-          flush=True)
+          f"tol: {lpcc_bad}); K1's tile launches {routed[2]}; launches K1 "
+          f"{routed[0]}, K4 {routed[1]}", flush=True)
     if (feats_c.shape[-1] != lpcc_cfg.dim or not torch.equal(mask_c, plain_m)
             or not torch.isfinite(feats_c).all() or d_mfcc > MFCC_ATOL
-            or lpcc_bad or routed != (1, 0)):
+            or lpcc_bad or routed != (1, 0, 0)):
         raise AssertionError("extract_batch with LPC cepstra")
     del feats_c, mask_c, plain_c, plain_m
 
@@ -4021,9 +4089,10 @@ def main(argv=None):
                              f"launches {launches96}")
 
     # the LPC-cepstra slice at 8 kHz: enroll, train, predict, dump, the CLI
-    # on the dumped session, and the open set, all on K1's
-    # raw-autocorrelation mode
+    # on the dumped session, and the open set, all on K1's LPC-cepstra
+    # kernel (csrc/frontend_lpcc_signals.cu), never on K1's tile
     gpu_frontend.LAUNCHES = gpu_frontend.FRAMES_LAUNCHES = 0
+    gpu_frontend.LPCC_SIGNAL_LAUNCHES = 0
     gpu_gmm.LAUNCHES = gpu_gmm.SERIAL_LAUNCHES = 0
     lpcc_pcfg = PipelineConfig(features=lpcc_cfg)
     lpcc_model = ModelInterface(lpcc_pcfg, device=dev)
@@ -4059,14 +4128,15 @@ def main(argv=None):
     # these features no margin between the genuine and the impostor
     open_set("phase 12 open set @ 8 kHz with LPC cepstra", synth.FS,
              lpcc_pcfg, dev, n_mixtures=8)
-    launches5 = {"frontend": gpu_frontend.LAUNCHES,
+    launches5 = {"frontend": gpu_frontend.LPCC_SIGNAL_LAUNCHES,
+                 "k1_tile": gpu_frontend.LAUNCHES,
                  "frames": gpu_frontend.FRAMES_LAUNCHES,
                  "gmm": gpu_gmm.LAUNCHES, "serial": gpu_gmm.SERIAL_LAUNCHES}
     print(f"phase 12 launches of the LPC-cepstra slice: {launches5}",
           flush=True)
-    if launches5["frames"] != 0 or min(launches5["frontend"],
-                                       launches5["gmm"],
-                                       launches5["serial"]) < 1:
+    if launches5["frames"] != 0 or launches5["k1_tile"] != 0 or min(
+            launches5["frontend"], launches5["gmm"],
+            launches5["serial"]) < 1:
         raise AssertionError(f"LPC-cepstra slice launches {launches5}")
 
     # timing of slice 3's kernels and of predict at 48 kHz
@@ -4897,7 +4967,7 @@ def main(argv=None):
               launches["frontend"], err_fe, t["frontend"],
               t["frontend_plain"], "packed_frontend"),
         entry("packed_frontend_raw_autocorr", "frontend.cu",
-              "pallas_frontend.py:231", launches5["frontend"], err_raw,
+              "pallas_frontend.py:231", launches5["k1_tile"], err_raw,
               t["frontend_raw"], t["frontend_raw_plain"],
               "packed_frontend_raw"),
         entry("bank_avg_loglik", "gmm_score.cu", "pallas_gmm.py:154",

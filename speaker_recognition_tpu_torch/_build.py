@@ -62,8 +62,14 @@ def _bind(lib):
     ll = ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
     lib.srt_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, i, i, i, f, i, f, i, i, i, p, p]
+                                        i, i, i, i, f, i, f, i, i, p]
     lib.srt_packed_frontend.restype = i
+    lib.srt_lpcc_signals_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                              i, i, i, i, i, i, f, i, f, i,
+                                              i, p]
+    lib.srt_lpcc_signals_frontend.restype = i
+    lib.srt_lpcc_signals_occupancy.argtypes = [i, i, ip]
+    lib.srt_lpcc_signals_occupancy.restype = i
     lib.srt_big_packed_frontend.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                             i, i, i, i, i, i, f, i, f, i, i,
                                             i, p, i, p]

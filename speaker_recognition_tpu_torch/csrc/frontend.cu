@@ -9,11 +9,12 @@
 //     r  = Y . R,  lpc = Levinson(r), non-finite -> 0
 //                                                -> feat[b, f, nceps:]
 // (or, without fuse_lpc, the raw autocorrelation r itself there: the JAX
-// kernel's fuse_lpc=False, which the bf16 route's LPC cepstra take), or
-// with n_lpcc > 0 the LPC cepstra of the unzeroed coefficients, non-finite
-// -> 0 (lpcc_kernel after the raw mode: tile_features' LPC-cepstra tail),
-// then masked per-utterance CMVN of the cepstra over the first n_valid[b]
+// kernel's fuse_lpc=False, which the bf16 route's LPC cepstra take), then
+// masked per-utterance CMVN of the cepstra over the first n_valid[b]
 // frames (cmvn_kernel), and every frame at or past n_valid[b] is zero.
+// The LPC-cepstra mode (n_lpcc > 0) is csrc/frontend_lpcc_signals.cu's
+// kernel below N = 32768; from N = 32768 on srt_big_packed_frontend runs
+// the raw mode, then lpcc_kernel (tile_features' LPC-cepstra tail).
 //
 // What bounds it on this card, and what the design does about it: see
 // csrc/rfft_tile.cuh. The TPU kernel ran the window, the pre-emphasis and
@@ -99,14 +100,12 @@ __global__ void __launch_bounds__(rfft::nth(N)) packed_frontend_kernel(
 // LPCC_MAX_LAGS): lpcc_kernel's local coefficients
 constexpr int MAX_LAGS = 512;
 
-// K1's LPC-cepstra mode after its raw-autocorrelation tile: rows raw
-// [n][nceps + nac] (cepstra | raw autocorrelation) -> feat [n][nceps +
-// n_lpcc - 1] (the cepstra, then tile_features' LPC-cepstra tail,
-// lpcc_frames), a thread a frame of the batch's n = B * T. A second kernel
-// rather than a mode inside the tile: K1's LPC mode, the 8 kHz main path,
-// keeps its instances and bits (a branch in its tail raised the 8 kHz
-// instance's registers and cost it a block an SM), and the tile's 36
-// instantiations are not built twice.
+// K1's LPC-cepstra mode on the four-step route (N >= 32768), after its
+// raw-autocorrelation pass: rows raw [n][nceps + nac] (cepstra | raw
+// autocorrelation) -> feat [n][nceps + n_lpcc - 1] (the cepstra, then
+// tile_features' LPC-cepstra tail, lpcc_frames), a thread a frame of the
+// batch's n = B * T. Below N = 32768 the mode is one kernel from the
+// signals (csrc/frontend_lpcc_signals.cu).
 __global__ void __launch_bounds__(128) lpcc_kernel(
     const float* __restrict__ raw, const int* __restrict__ n_valid,
     float* __restrict__ feat, long long n, int T, int nceps, int nac,
@@ -122,7 +121,7 @@ __global__ void __launch_bounds__(128) lpcc_kernel(
 }
 
 // lpcc_kernel over the batch's B * T rows, then CMVN when cmvn: the end of
-// both K1 routes' LPC-cepstra mode.
+// the four-step route's LPC-cepstra mode.
 cudaError_t lpcc_tail(const float* raw, const int* nv, float* feat, int B,
                       int T, int nceps, int nac, int n_lpcc, int cmvn,
                       cudaStream_t st) {
@@ -177,42 +176,29 @@ cudaError_t launch(int B, cudaStream_t st, const float* sig,
 // the srt_fft_wide_floats(B * T, nmel + nac) floats past 512 outputs;
 // writes feat [B, T, nceps + nac - 1] (nceps without LPC), or with
 // fuse_lpc 0 feat [B, T, nceps + nac] (cepstra | raw autocorrelation),
-// or with n_lpcc > 0 (and fuse_lpc) feat [B, T, nceps + n_lpcc - 1]
-// (cepstra | LPC cepstra; nac <= MAX_LAGS) through raw [B, T, nceps + nac],
 // then CMVN of the cepstra when cmvn. Any B.
 extern "C" int srt_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
     const void* op, const void* dct, void* feat, void* wsums, int B, int Lp,
     int T, int flen, int fshift, int nfft, int nmel, int nac, int nceps,
     float pre_emph, int preemph_first, float power_floor, int cmvn,
-    int fuse_lpc, int n_lpcc, void* raw, void* stream) {
+    int fuse_lpc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int opl = rfft::pick_opl(nfft, nmel + nac, true);
-  const bool lpcc = n_lpcc > 0;
-  if (opl == 0 || 2 * flen > nfft ||
-      (lpcc && (!fuse_lpc || nac < 1 || nac > MAX_LAGS || !raw)))
-    return (int)cudaErrorInvalidValue;
-  const auto* sig = (const float*)signals;
-  const auto* nv = (const int*)n_valid;
-  const auto* w = (const float*)win;
-  const auto* o = (const float4*)op;
-  const auto* d = (const float*)dct;
-  auto* out = (float*)(lpcc ? raw : feat);
+  if (opl == 0 || 2 * flen > nfft) return (int)cudaErrorInvalidValue;
   const cudaError_t err = rfft::with_n(nfft, [&](auto nc) {
     return rfft::with_opl(opl, [&](auto oc) {
       return launch<decltype(nc)::value, decltype(oc)::value>(
-          B, st, sig, nv, w, o, d, out, Lp, T, flen, fshift, nmel, nac,
-          nceps, pre_emph, preemph_first, power_floor, lpcc ? 0 : fuse_lpc,
-          (float*)wsums);
+          B, st, (const float*)signals, (const int*)n_valid,
+          (const float*)win, (const float4*)op, (const float*)dct,
+          (float*)feat, Lp, T, flen, fshift, nmel, nac, nceps, pre_emph,
+          preemph_first, power_floor, fuse_lpc, (float*)wsums);
     });
   });
-  if (err != cudaSuccess) return (int)err;
-  if (lpcc)
-    return (int)lpcc_tail(out, nv, (float*)feat, B, T, nceps, nac, n_lpcc,
-                          cmvn, st);
-  if (!cmvn) return 0;
+  if (err != cudaSuccess || !cmvn) return (int)err;
   cmvn_kernel<<<B, dim3(32, CG), 0, st>>>(
-      (float*)feat, nv, T, feature_width(nceps, nac, fuse_lpc), nceps);
+      (float*)feat, (const int*)n_valid, T,
+      feature_width(nceps, nac, fuse_lpc), nceps);
   return (int)cudaGetLastError();
 }
 
@@ -220,7 +206,9 @@ extern "C" int srt_packed_frontend(
 // the arguments of srt_packed_frontend, with the packed operator of
 // srt_big_operator_shape in place of the tile's and scratch of
 // srt_big_scratch_floats(nfft, nmel + nac, chunk) (both csrc/
-// frontend_big.cu) for chunks of `chunk` frames of the batch.
+// frontend_big.cu) for chunks of `chunk` frames of the batch; with
+// n_lpcc > 0 (and fuse_lpc) feat [B, T, nceps + n_lpcc - 1] (cepstra | LPC
+// cepstra; nac <= MAX_LAGS) through raw [B, T, nceps + nac].
 extern "C" int srt_big_packed_frontend(
     const void* signals, const void* n_valid, const void* win,
     const void* op, const void* dct, void* feat,

@@ -52,8 +52,9 @@
 namespace {
 
 // Block i takes tile i % tiles of utterance i / tiles (tiles an
-// utterance's). Past 512 outputs (OPL 64, nchunk > 1) the tile's sums go
-// to rows of wsums [B * T][wstride] and the tail reads them there.
+// utterance's; sigtile::launch). Past 512 outputs (OPL 64, nchunk > 1) the
+// tile's sums go to rows of wsums [B * T][wstride] and the tail reads them
+// there.
 template <int N, int OPL>
 __global__ void __launch_bounds__(sigtile::nth(N), sigtile::min_blocks(N))
     full_signals_kernel(
@@ -92,40 +93,6 @@ __global__ void __launch_bounds__(sigtile::nth(N), sigtile::min_blocks(N))
                                 nceps, 8 * OPL, n_lpcc);
 }
 
-// utterances a launch takes: as many as keep its blocks below 2^31
-constexpr long long MAX_BLOCKS = 0x7fffffffLL;
-
-// One launch per that many utterances (each utterance's tiles are the
-// same blocks in any of them, so the bits do not depend on the split).
-template <int N, int OPL>
-cudaError_t launch(int B, cudaStream_t st, const float* sig, const int* nv,
-                   const float* win, const float4* op, const float* dct,
-                   float* feat, int Lp, int T, int flen, int fshift,
-                   int nmel, int nac, int nceps, float pre_emph,
-                   int preemph_first, float power_floor, int n_lpcc,
-                   float* wsums) {
-  const int smem = 4 * sigtile::smem_floats(N, OPL);
-  cudaError_t err = cudaFuncSetAttribute(
-      full_signals_kernel<N, OPL>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const size_t nfeat = feature_width(nceps, nac, 1, n_lpcc);
-  const int nchunk = rfft::out_chunks(nmel + nac);
-  const size_t wstride = (size_t)rfft::nop(OPL) * nchunk;
-  const int tiles = (T + sigtile::ft(N) - 1) / sigtile::ft(N);
-  const int per = (int)(MAX_BLOCKS / tiles);
-  for (int b0 = 0; b0 < B; b0 += per) {
-    const int nb = min(per, B - b0);
-    full_signals_kernel<N, OPL><<<nb * tiles, sigtile::nth(N), smem, st>>>(
-        sig + (size_t)b0 * Lp, nv + b0, win, op, dct,
-        feat + (size_t)b0 * T * nfeat, Lp, T, flen, fshift, nmel, nac, nceps,
-        pre_emph, preemph_first, power_floor, n_lpcc, nchunk,
-        nchunk > 1 ? wsums + (size_t)b0 * T * wstride : wsums);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Shape of the packed operator of an nfft-point FFT and nout = nmel + nac
@@ -155,18 +122,7 @@ extern "C" int srt_full_signals_occupancy(int nfft, int nout, int* out) {
   return (int)rfft::with_n(nfft, [&](auto nc) {
     return rfft::with_opl(opl, [&](auto oc) {
       constexpr int N = decltype(nc)::value, OPL = decltype(oc)::value;
-      const auto k = full_signals_kernel<N, OPL>;
-      const int smem = 4 * sigtile::smem_floats(N, OPL);
-      cudaError_t e = cudaFuncSetAttribute(
-          k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      cudaFuncAttributes a;
-      if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, k);
-      if (e != cudaSuccess) return e;
-      out[1] = a.numRegs;
-      out[2] = (int)a.localSizeBytes;
-      out[3] = smem;
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          out, k, sigtile::nth(N), smem);
+      return sigtile::occupancy<N, OPL>(full_signals_kernel<N, OPL>, out);
     });
   });
 }
@@ -192,11 +148,12 @@ extern "C" int srt_full_signals_frontend(
   const auto* nv = (const int*)n_valid;
   const cudaError_t err = rfft::with_n(nfft, [&](auto nc) {
     return rfft::with_opl(opl, [&](auto oc) {
-      return launch<decltype(nc)::value, decltype(oc)::value>(
-          B, st, (const float*)signals, nv, (const float*)win,
-          (const float4*)op, (const float*)dct, (float*)feat, Lp, T, flen,
-          fshift, nmel, nac, nceps, pre_emph, preemph_first, power_floor,
-          n_lpcc, (float*)wsums);
+      constexpr int N = decltype(nc)::value, OPL = decltype(oc)::value;
+      return sigtile::launch<N, OPL>(
+          full_signals_kernel<N, OPL>, B, st, (const float*)signals, nv,
+          (const float*)win, (const float4*)op, (const float*)dct,
+          (float*)feat, Lp, T, flen, fshift, nmel, nac, nceps, pre_emph,
+          preemph_first, power_floor, n_lpcc, (float*)wsums);
     });
   });
   if (err != cudaSuccess || !cmvn) return (int)err;

@@ -1,10 +1,12 @@
-// The tile of the full-spectrum frontend from the signals (csrc/
-// frontend_full_signals.cu, K5's serving route at 44.1/48 kHz): a tile of
-// FT frames loaded from the signal, their power spectra on a shared-memory
-// real FFT (the butterflies of csrc/rfft_tile.cuh), and the projection of
-// the power rows onto [mel | acorr | 0] on the tensor cores. Only that
-// kernel takes it; K1, K4, K5 on frames, K6/K7 and the chirp-z and
-// four-step routes keep rfft::tile_sums and rfft::project_bins.
+// The tile of the signal kernels (csrc/frontend_full_signals.cu, K5's
+// serving route at 44.1/48 kHz, and csrc/frontend_lpcc_signals.cu, K1's
+// LPC-cepstra mode): a tile of FT frames loaded from the signal, their
+// power spectra on a shared-memory real FFT (the butterflies of csrc/
+// rfft_tile.cuh), and the projection of the power rows onto [mel | acorr |
+// 0] on the tensor cores. K5 floors each power bin, K1 only the mel sums
+// (signal_sums' FLOOR_BINS). K1's LPC and raw modes, K4, K5 on frames,
+// K6/K7 and the chirp-z and four-step routes keep rfft::tile_sums and
+// rfft::project_bins.
 //
 // For frame f of the tile (FT = ft(N) frames: 16 up to N = 4096, 4 at
 // 8192, 2 at 16384; warps(N) warps, each taking frames w, w + WARPS, ...):
@@ -18,10 +20,11 @@
 //      come in rounds (N >= 4096), by a load of its own;
 //   2. the FFT of csrc/rfft_tile.cuh (register stages, a transpose or
 //      column passes through the warp's buffer), then the real-input
-//      post-step's power, floored per bin; up to N = 4096 each lane holds
-//      its bins' powers in registers until the warp has read the spectrum,
-//      and the power row [H + 1] then overwrites the start of the frame's
-//      own FFT buffer (the next frame's buffer starts one row further on),
+//      post-step's power, floored per bin for K5; up to N = 4096 each
+//      lane holds its bins' powers in registers until the warp has read
+//      the spectrum, and the power row [H + 1] then overwrites the start
+//      of the frame's own FFT buffer (the next frame's buffer starts one
+//      row further on),
 //      so a warp's J frames take (J - 1) rows and one buffer of shared
 //      memory, not J rows and a buffer: at N = 2048 16 frames' rows and 8
 //      buffers fit 112.5 KB and two blocks share an SM (16 warps);
@@ -249,20 +252,24 @@ __device__ __forceinline__ void gather(const rfft::SignalFrames& s, int f,
   }
 }
 
-// The real-input post-step's floored power of bin k (0 < k < H from slots
-// a = Z[k], b = Z[H - k] and W_N^k; k = 0 and H from z = Z[0]).
+// The real-input post-step's power of bin k (0 < k < H from slots a =
+// Z[k], b = Z[H - k] and W_N^k; k = 0 and H from z = Z[0]), floored per
+// bin where FLOOR (K5's function) and left as it is where the caller
+// floors the mel sums only (K1's, csrc/frontend_lpcc_signals.cu).
+template <bool FLOOR>
 __device__ __forceinline__ float edge_power(float2 z, bool top,
                                             float power_floor) {
   const float x = top ? z.x - z.y : z.x + z.y;
-  return fmaxf(x * x, power_floor);
+  return FLOOR ? fmaxf(x * x, power_floor) : x * x;
 }
+template <bool FLOOR>
 __device__ __forceinline__ float bin_power(float2 a, float2 b, float2 w,
                                            float power_floor) {
   const float2 e = make_float2(0.5f * (a.x + b.x), 0.5f * (a.y - b.y));
   const float2 o = make_float2(0.5f * (a.y + b.y), -0.5f * (a.x - b.x));
   const float2 wo = rfft::cmul(w, o);
   const float xr = e.x + wo.x, xi = e.y + wo.y;
-  return fmaxf(xr * xr + xi * xi, power_floor);
+  return FLOOR ? fmaxf(xr * xr + xi * xi, power_floor) : xr * xr + xi * xi;
 }
 
 // The twiddles at smem's start (rfft::tile_sums' tables):
@@ -307,8 +314,9 @@ __device__ __forceinline__ void twiddles(float* smem) {
 // rfft_tile.cuh's (tile_sums): H/32 pairs a lane in registers; at N = 2048
 // a transpose, at 4096 two rounds and column passes, below 2048 two stages
 // at a time in the buffer. A frame past nf is not computed (its row is
-// never read into a sum that leaves).
-template <int N>
+// never read into a sum that leaves). FLOOR_BINS: the power floored per
+// bin (edge_power).
+template <int N, bool FLOOR_BINS = true>
 __device__ __forceinline__ void fft_frames(const rfft::SignalFrames& s,
                                            int nf, float* smem,
                                            float power_floor) {
@@ -403,10 +411,11 @@ __device__ __forceinline__ void fft_frames(const rfft::SignalFrames& s,
       const int k = lane + 32 * q;
       pw[q] = 0.f;
       if (k == 0 || k == H)
-        pw[q] = edge_power(buf[0], k == H, power_floor);
+        pw[q] = edge_power<FLOOR_BINS>(buf[0], k == H, power_floor);
       else if (k < H)
-        pw[q] = bin_power(buf[rfft::slot(k)], buf[rfft::slot(H - k)], tw[k],
-                          power_floor);
+        pw[q] = bin_power<FLOOR_BINS>(buf[rfft::slot(k)],
+                                      buf[rfft::slot(H - k)], tw[k],
+                                      power_floor);
     }
     __syncwarp();
     float* row = reinterpret_cast<float*>(buf);
@@ -421,7 +430,7 @@ __device__ __forceinline__ void fft_frames(const rfft::SignalFrames& s,
 // lane, five stages of each in registers, the stages across the rounds in
 // the warp's buffer and the last five in column passes, twiddles computed
 // where the table would not fit; the power row beside the buffer.
-template <int N>
+template <int N, bool FLOOR_BINS = true>
 __device__ __forceinline__ void big_fft_frames(const rfft::SignalFrames& s,
                                                int nf, float* smem,
                                                float power_floor) {
@@ -481,12 +490,13 @@ __device__ __forceinline__ void big_fft_frames(const rfft::SignalFrames& s,
     const int k = lane + 32 * q;
     if (k > H) break;
     if (k == 0 || k == H) {
-      row[k] = edge_power(buf[0], k == H, power_floor);
+      row[k] = edge_power<FLOOR_BINS>(buf[0], k == H, power_floor);
     } else {
       float sn, cs;
       sincospif((float)k / (float)H, &sn, &cs);  // W_N^k
-      row[k] = bin_power(buf[rfft::slot<P>(k)], buf[rfft::slot<P>(H - k)],
-                         make_float2(cs, -sn), power_floor);
+      row[k] = bin_power<FLOOR_BINS>(buf[rfft::slot<P>(k)],
+                                     buf[rfft::slot<P>(H - k)],
+                                     make_float2(cs, -sn), power_floor);
     }
   }
 }
@@ -645,8 +655,10 @@ __device__ __forceinline__ float* project(const float4* __restrict__ op,
 // tile's frames; op is gpu_frontend.signal_operator's; returns sums
 // [FT][NOP] (log-mel | autocorrelation), or past 512 outputs nullptr with
 // the sums in wsums (project). The block is nth(N) threads with
-// 4 * smem_floats(N, OPL) bytes of shared memory.
-template <int N, int OPL>
+// 4 * smem_floats(N, OPL) bytes of shared memory. FLOOR_BINS: the power
+// floored per bin before the projection (K5's function; K1's floors the
+// mel sums only, as every caller's log does).
+template <int N, int OPL, bool FLOOR_BINS = true>
 __device__ __forceinline__ float* signal_sums(const rfft::SignalFrames& s,
                                               int nf, float* smem,
                                               const float4* __restrict__ op,
@@ -660,9 +672,9 @@ __device__ __forceinline__ float* signal_sums(const rfft::SignalFrames& s,
   prefetch_tile<nth(N)>(s, nf);
   twiddles<N>(smem);
   if constexpr (in_place(N))
-    fft_frames<N>(s, nf, smem, power_floor);
+    fft_frames<N, FLOOR_BINS>(s, nf, smem, power_floor);
   else
-    big_fft_frames<N>(s, nf, smem, power_floor);
+    big_fft_frames<N, FLOOR_BINS>(s, nf, smem, power_floor);
   __syncthreads();
   return project<N, OPL>(op, nf, smem, nmel, nac, power_floor, nchunk,
                          wsums, wstride);
@@ -776,6 +788,65 @@ __device__ __forceinline__ void features(const float* sums,
     else
       for (int j = 0; j < w; ++j) o[j] = 0.f;
   }
+}
+
+// The host side of the signal kernels (csrc/frontend_full_signals.cu's
+// full_signals_kernel and csrc/frontend_lpcc_signals.cu's
+// lpcc_signals_kernel, which take the same arguments): `kernel` at N and
+// OPL over B utterances, one launch per as many as keep its blocks below
+// 2^31 (block i takes tile i % tiles of utterance i / tiles; each
+// utterance's tiles are the same blocks in any launch, so the bits do not
+// depend on the split).
+using SignalKernel = void (*)(const float*, const int*, const float*,
+                              const float4*, const float*, float*, int, int,
+                              int, int, int, int, int, float, int, float,
+                              int, int, float*);
+
+template <int N, int OPL>
+cudaError_t launch(SignalKernel kernel, int B, cudaStream_t st,
+                   const float* sig, const int* nv, const float* win,
+                   const float4* op, const float* dct, float* feat, int Lp,
+                   int T, int flen, int fshift, int nmel, int nac,
+                   int nceps, float pre_emph, int preemph_first,
+                   float power_floor, int n_lpcc, float* wsums) {
+  constexpr long long MAX_BLOCKS = 0x7fffffffLL;
+  const int smem = 4 * smem_floats(N, OPL);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const size_t nfeat = feature_width(nceps, nac, 1, n_lpcc);
+  const int nchunk = rfft::out_chunks(nmel + nac);
+  const size_t wstride = (size_t)rfft::nop(OPL) * nchunk;
+  const int tiles = (T + ft(N) - 1) / ft(N);
+  const int per = (int)(MAX_BLOCKS / tiles);
+  for (int b0 = 0; b0 < B; b0 += per) {
+    const int nb = min(per, B - b0);
+    kernel<<<nb * tiles, nth(N), smem, st>>>(
+        sig + (size_t)b0 * Lp, nv + b0, win, op, dct,
+        feat + (size_t)b0 * T * nfeat, Lp, T, flen, fshift, nmel, nac, nceps,
+        pre_emph, preemph_first, power_floor, n_lpcc, nchunk,
+        nchunk > 1 ? wsums + (size_t)b0 * T * wstride : wsums);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// `kernel` at N and OPL on this card: out[0] blocks an SM (the occupancy
+// API, at the launch's threads and shared memory), out[1] registers and
+// out[2] local bytes a thread, out[3] bytes of dynamic shared memory.
+template <int N, int OPL>
+cudaError_t occupancy(SignalKernel kernel, int* out) {
+  const int smem = 4 * smem_floats(N, OPL);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncAttributes a;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return e;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = smem;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, nth(N),
+                                                       smem);
 }
 
 }  // namespace sigtile

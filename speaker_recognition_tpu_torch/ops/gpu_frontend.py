@@ -8,14 +8,18 @@ zero-padded signals and [B] valid frame counts, the [B, T, n_ceps + order]
 feature concat(MFCC, LPC) with T = (Lp - frame_len)//fshift + 1, masked
 CMVN over the valid frames when `cmvn` is set, and zeros at every frame at
 or past n_valid. With `n_lpcc > 0` the LPC cepstra follow the Levinson
-([B, T, n_ceps + n_lpcc - 1]: `lpc_columns`; on the card the raw mode's
-rows, then a second kernel with the tile's LPC-cepstra tail, so that the
-LPC mode's instances stay as they were). With `fuse_lpc=False` it skips
-the Levinson and returns the MFCC [B, T, n_ceps] and the raw
-autocorrelation [B, T, order+1] (the JAX kernel's fuse_lpc=False;
-features/extract.PackedFrontend takes it for the LPC cepstra of the bf16
-kernel, which has no LPC-cepstra mode). Its plain version,
-the CPU path, runs the dense packed operators of
+([B, T, n_ceps + n_lpcc - 1]: `lpc_columns`); on the card below BIG_N
+one kernel from the signals computes that mode (csrc/
+frontend_lpcc_signals.cu, on the tile of csrc/signal_tile.cuh with the
+power unfloored: the projection on the tensor cores in three TF32 terms,
+the LPC cepstra in registers; counted in LPCC_SIGNAL_LAUNCHES), so that
+the LPC mode's instances stay as they were; from BIG_N on the four-step
+route's raw rows, then csrc/frontend.cu's lpcc_kernel. With
+`fuse_lpc=False` it skips the Levinson and returns the MFCC [B, T, n_ceps]
+and the raw autocorrelation [B, T, order+1] (the JAX kernel's
+fuse_lpc=False; features/extract.PackedFrontend takes it for the LPC
+cepstra of the bf16 kernel, which has no LPC-cepstra mode). Its plain
+version, the CPU path, runs the dense packed operators of
 ops/frontend.packed_frontend_operators: D [frame_len, ncols] (window,
 pre-emphasis, half-spectrum DFT), W [ncols, n_mel], dct
 [n_mel, n_ceps] and A [ncols, order+1] (Wiener-Khinchin autocorrelation;
@@ -124,6 +128,9 @@ FULL_LAUNCHES = 0        # csrc/frontend_fft.cu, mfcc_from_frames
 FULL_DENSE_LAUNCHES = 0  # csrc/frontend_frames.cu, mfcc_from_frames_dense
 FULL_CHIRP_LAUNCHES = 0  # csrc/frontend_chirp.cu, mfcc_from_frames
 FULL_SIGNAL_LAUNCHES = 0  # csrc/frontend_full_signals.cu, mfcc_from_signals
+# csrc/frontend_lpcc_signals.cu, packed_from_signals with n_lpcc > 0 below
+# BIG_N
+LPCC_SIGNAL_LAUNCHES = 0
 # the route of N >= 32768 (csrc/rfft_big.cuh), one count per wrapper
 BIG_LAUNCHES = 0         # packed_from_signals
 FRAMES_BIG_LAUNCHES = 0  # packed_from_frames
@@ -487,9 +494,11 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
     card two views of one buffer). On the CPU the plain version with D, W,
     A (the FFT route's where D is None: a frontend of N >= 32768 builds no
     dense operators); on the card the FFT kernel, which takes `fft`
-    instead. mm_bf16: the dense product with bf16 operands (D, W, A on
-    either device; csrc/frontend_bf16.cu on the card, which has no LPC
-    cepstra)."""
+    instead: with n_lpcc > 0 below BIG_N csrc/frontend_lpcc_signals.cu
+    (LPCC_SIGNAL_LAUNCHES), otherwise csrc/frontend.cu (LAUNCHES, or the
+    four-step route's BIG_LAUNCHES from BIG_N on). mm_bf16: the dense
+    product with bf16 operands (D, W, A on either device; csrc/
+    frontend_bf16.cu on the card, which has no LPC cepstra)."""
     if mm_bf16 and D is None:
         raise ValueError("mm_bf16 rounds the dense DFT operand: pass D, W, "
                          "A (PackedFrontend builds them at mm='bf16')")
@@ -538,40 +547,51 @@ def packed_from_signals(signals, n_valid, D, W, dct, A, floor: float,
     T = (Lp - flen) // fshift + 1
     w = nac if not fuse_lpc else n_lpcc - 1 if n_lpcc > 0 else order
     feat = torch.empty((B, T, nceps + w), dtype=torch.float32, device=dev)
-    # the LPC cepstra follow the raw mode's rows (csrc/frontend.cu
-    # lpcc_kernel)
-    raw = (torch.empty((B, T, nceps + nac), dtype=torch.float32, device=dev)
-           if n_lpcc > 0 else None)
-    global LAUNCHES, BIG_LAUNCHES, CHUNKED_LAUNCHES
+    lpcc_tile = n_lpcc > 0 and N < BIG_N
+    if lpcc_tile and B == 0:
+        return feat
+    global LAUNCHES, BIG_LAUNCHES, CHUNKED_LAUNCHES, LPCC_SIGNAL_LAUNCHES
+    args = (signals.data_ptr(), n_valid.data_ptr(), fft.window.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if N >= BIG_N:
             chunk, scratch = _big_scratch(lib, N, nmel + nac, B * T, dev)
             op = _big_operator(lib, fft.mel, fft.acorr, N)
+            # the LPC cepstra follow the raw pass's rows (csrc/frontend.cu
+            # lpcc_kernel)
+            raw = (torch.empty((B, T, nceps + nac), dtype=torch.float32,
+                               device=dev) if n_lpcc > 0 else None)
             err = lib.srt_big_packed_frontend(
-                signals.data_ptr(), n_valid.data_ptr(),
-                fft.window.data_ptr(), op.data_ptr(), dct.data_ptr(),
-                feat.data_ptr(),
+                *args, op.data_ptr(), dct.data_ptr(), feat.data_ptr(),
                 scratch.data_ptr(), B, Lp, T, flen, fshift, N, nmel, nac,
                 nceps, float(fft.pre_emph), int(bool(fft.preemph_first)),
                 float(floor), int(bool(cmvn)), int(bool(fuse_lpc)), n_lpcc,
                 _ptr(raw), chunk, stream)
+        elif lpcc_tile:
+            op = signal_operator(lib, fft.mel, fft.acorr, N)
+            wsums = _wide_rows(lib, B * T, nmel + nac, dev)
+            err = lib.srt_lpcc_signals_frontend(
+                *args, op.data_ptr(), dct.data_ptr(), feat.data_ptr(),
+                _ptr(wsums), B, Lp, T, flen, fshift, N, nmel, nac, nceps,
+                float(fft.pre_emph), int(bool(fft.preemph_first)),
+                float(floor), int(bool(cmvn)), n_lpcc, stream)
         else:
             op = _packed_operator(lib, fft.mel, fft.acorr, N)
             wsums = _wide_rows(lib, B * T, nmel + nac, dev)
             err = lib.srt_packed_frontend(
-                signals.data_ptr(), n_valid.data_ptr(),
-                fft.window.data_ptr(), op.data_ptr(), dct.data_ptr(),
-                feat.data_ptr(), _ptr(wsums), B, Lp, T, flen, fshift, N,
-                nmel, nac, nceps, float(fft.pre_emph),
-                int(bool(fft.preemph_first)), float(floor), int(bool(cmvn)),
-                int(bool(fuse_lpc)), n_lpcc, _ptr(raw), stream)
+                *args, op.data_ptr(), dct.data_ptr(), feat.data_ptr(),
+                _ptr(wsums), B, Lp, T, flen, fshift, N, nmel, nac, nceps,
+                float(fft.pre_emph), int(bool(fft.preemph_first)),
+                float(floor), int(bool(cmvn)), int(bool(fuse_lpc)), stream)
     _build.check(err, "packed frontend kernel")
     if N >= BIG_N:
         BIG_LAUNCHES += 1
         count_big_passes(N)
     else:
-        LAUNCHES += 1
+        if lpcc_tile:
+            LPCC_SIGNAL_LAUNCHES += 1
+        else:
+            LAUNCHES += 1
         CHUNKED_LAUNCHES += nmel + nac > 512
     if fuse_lpc:
         return feat
@@ -775,8 +795,10 @@ def _packed_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
 def signal_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     """[mel | acorr | 0] rows 0..n_fft/2 packed for csrc/signal_tile.cuh's
     tensor-core projection (csrc/frontend_full_signals.cu
-    srt_full_signals_operator_shape), built once per (mel, acorr, n_fft)
-    and rebuilt after either is written to (_pack_signal_operator)."""
+    srt_full_signals_operator_shape; K5's mel and autocorrelation, or K1's
+    bin-domain M and R for csrc/frontend_lpcc_signals.cu), built once per
+    (mel, acorr, n_fft) and rebuilt after either is written to
+    (_pack_signal_operator)."""
     return _cached((mel, acorr), _pack_signal_operator, n_fft, lib)
 
 

@@ -4,6 +4,8 @@
     python -m speaker_recognition_tpu_torch.tools.fft_ablation --route big,chirp
     python -m speaker_recognition_tpu_torch.tools.fft_ablation --route signals \
         [--csrc <a checkout's csrc/>,speaker_recognition_tpu_torch/csrc]
+    python -m speaker_recognition_tpu_torch.tools.fft_ablation --route lpcc \
+        [--csrc <a checkout's csrc/>,speaker_recognition_tpu_torch/csrc]
 
 `--route tile` (the default) builds csrc/frontend_fft.cu (K5) and
 csrc/frontend.cu (K1) once as they are and once for each variant below,
@@ -52,6 +54,24 @@ and the occupancy API's blocks an SM of full_signals_kernel<2048, 9> and
 <4096, 9> (srt_full_signals_occupancy). `--csrc` takes the sources of
 other checkouts of csrc/signal_tile.cuh's kernel (git archive of a commit
 into a git-ignored directory) to time them in the same turns.
+`lpcc` builds K1's LPC-cepstra mode at N = 512 and 1024 (72 outputs) from
+each source directory of `--csrc`: csrc/frontend_lpcc_signals.cu (one
+kernel from the signals on csrc/signal_tile.cuh's tile) where the
+directory has it, as it is and without its sample loads, its
+projection's products or its whole walk (which zeroes the sums, so the
+tail's recursion is skipped too), its LPC-cepstra recursion or its whole
+tail, with one TF32 term, with K5's tail (c_n read back from device
+memory) in place of its register-held one, and with its launch bounds
+asking for 2 or 3 blocks an SM below N = 2048 in place of 4; and
+csrc/frontend.cu (K1's LPC mode, and
+in a checkout from before that kernel its LPC-cepstra mode: the raw tile,
+then lpcc_kernel); times each at 512 x 5 s at 8 kHz and at 16 kHz (CMVN
+on), in turns, two rounds, prints ptxas's registers and spills and the
+occupancy API's blocks an SM of lpcc_signals_kernel<512, 9> and <1024,
+9>, each full route's distance from the FFT route's plain version on the
+card, and, with two directories, whether cuobjdump -sass of K1's
+packed_frontend_kernel<512, 9>, <2048, 9>, <512, 16> and K5's
+full_signals_kernel<2048, 9> is the same in both.
 The outputs of a variant are wrong by construction; only its time counts. The
 difference to `full` is what the stage costs. Needs one CUDA card and
 nvcc.
@@ -357,7 +377,7 @@ def bind(lib) -> None:
     p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.srt_fft_frames_frontend.argtypes = [p_] * 6 + [i_] * 6 + [f_, p_]
     lib.srt_packed_frontend.argtypes = ([p_] * 7 + [i_] * 9
-                                        + [f_, i_, f_, i_, i_, i_, p_, p_])
+                                        + [f_, i_, f_, i_, i_, p_])
 
 
 def _edit(d: str, name: str, edit) -> None:
@@ -505,8 +525,7 @@ def tile_main(card: str, dev, rng, variants=None) -> None:
             s8.data_ptr(), nv.data_ptr(), fft.window.data_ptr(),
             op8.data_ptr(), fe8.dct.data_ptr(), feat.data_ptr(), 0, 512, 40960,
             T8, fe8.frame_len, fe8.frame_shift, fft.n_fft, nmel, nac8, nceps,
-            fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, 1, 0,
-            None, stream)
+            fft.pre_emph, int(fft.preemph_first), fe8.floor, cmvn, 1, stream)
         assert err == 0, err
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
@@ -633,6 +652,304 @@ def signals_main(card: str, dev, rng, variants=None, csrcs=None) -> None:
         for rnd in range(2):
             for k, fn in calls.items():
                 print(f"round {rnd} {k:22s} {time_ms(fn):.3f} ms", flush=True)
+
+
+# --route lpcc: K1's LPC-cepstra mode at N = 512 and 1024 and 72 outputs
+# only
+def _keep_cases(keep_n, keep_opl):
+    """Edits of csrc/rfft_tile.cuh that leave rfft::with_n and with_opl
+    the cases keep_n and keep_opl only (64, a case of both, neither)."""
+    assert 64 not in keep_n and 64 not in keep_opl
+    cut = [n for n in (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
+           if n not in keep_n]
+    cut += [o for o in (9, 16, 32) if o not in keep_opl]
+    return [("rfft_tile.cuh", f"    case {c}: return f(std::"
+             f"integral_constant<int, {c}>{{}});\n", "") for c in cut]
+
+
+LPCC_ONE = _keep_cases((512, 1024), (9,))
+# variant -> its edits of csrc/signal_tile.cuh or frontend_lpcc_signals.cu
+LPCC_VARIANTS = {
+    "full": [],
+    "no_gather": SIGNAL_VARIANTS["no_gather"],
+    "no_projection_fma": SIGNAL_VARIANTS["no_projection_fma"],
+    "no_projection": SIGNAL_VARIANTS["no_projection"],
+    # the tail's Levinson and recursion (lpcc_short)
+    "no_lpcc": [("frontend_lpcc_signals.cu",
+                 "      lpcc_short(r, o, nac - 1, n_lpcc);", "      (void)0;")],
+    # K5's tail (sigtile::features: c_n read back from the output row in
+    # device memory, the factors divided at run time) in place of
+    # lpcc_features
+    "k5_tail": [("frontend_lpcc_signals.cu",
+                 "    lpcc_features<OPL, NTH>(wrows,",
+                 "    sigtile::features<OPL, NTH>(wrows,"),
+                ("frontend_lpcc_signals.cu",
+                 "    lpcc_features<OPL, NTH>(sums,",
+                 "    sigtile::features<OPL, NTH>(sums,")],
+    "one_term": SIGNAL_VARIANTS["one_term"],
+    # the whole tail: the DCT, the LPC cepstra and the features' writes
+    "no_tail": [("frontend_lpcc_signals.cu",
+                 "  if (OPL == 64 && nchunk > 1)\n"
+                 "    lpcc_features<OPL, NTH>(wrows,",
+                 "  if (false)\n    lpcc_features<OPL, NTH>(wrows,"),
+                ("frontend_lpcc_signals.cu",
+                 "  else\n    lpcc_features<OPL, NTH>(sums,",
+                 "  else if (false)\n    lpcc_features<OPL, NTH>(sums,")],
+    "blocks2": [("frontend_lpcc_signals.cu", "constexpr int SMALL_BLOCKS = 4;",
+                 "constexpr int SMALL_BLOCKS = 2;")],
+    "blocks3": [("frontend_lpcc_signals.cu", "constexpr int SMALL_BLOCKS = 4;",
+                 "constexpr int SMALL_BLOCKS = 3;")],
+}
+# the instances whose machine code must not change: K1's at 8 kHz (LPC and
+# raw modes share it), at 22.05 kHz, at 128 outputs, and K5's at 48 kHz
+SASS_KERNELS = ("packed_frontend_kernelILi512ELi9E",
+                "packed_frontend_kernelILi2048ELi9E",
+                "packed_frontend_kernelILi512ELi16E",
+                "full_signals_kernelILi2048ELi9E")
+
+
+def bind_lpcc(lib) -> None:
+    """The argument types of csrc/frontend_lpcc_signals.cu's, csrc/
+    frontend_full_signals.cu's operator shape, csrc/frontend.cu's (either
+    signature: with n_lpcc and raw before the stream, or without) and
+    csrc/frontend_fft.cu's, where the library has them."""
+    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    if hasattr(lib, "srt_lpcc_signals_frontend"):
+        lib.srt_lpcc_signals_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
+            f_, i_, f_, i_, i_, p_]
+        lib.srt_lpcc_signals_occupancy.argtypes = [i_, i_, ip]
+        lib.srt_full_signals_operator_shape.argtypes = [i_, i_, ip, ip, ip,
+                                                        ip]
+    if hasattr(lib, "srt_fft_operator_shape"):
+        lib.srt_fft_operator_shape.argtypes = [i_, i_, ip, ip, ip]
+
+
+def _sass(path: str) -> dict:
+    """cuobjdump -sass of a cubin: {function: its instructions, addresses
+    and comments cut}."""
+    out = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+         "-sass", path], capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for part in re.split(r"\n\s*Function : ", out)[1:]:
+        name, body = part.split("\n", 1)
+        funcs[name.strip()] = [
+            re.sub(r"/\*[0-9a-f]+\*/", "", ln).split(";")[0].strip()
+            for ln in body.splitlines()
+            if re.match(r"\s+/\*[0-9a-f]{4,}\*/", ln)]
+    return funcs
+
+
+def sass_check(card: str, csrcs: list[str], tmp: str) -> None:
+    """cuobjdump -sass of SASS_KERNELS built from each directory of csrcs
+    (frontend.cu and frontend_full_signals.cu as cubins, rfft::with_n and
+    with_opl cut to N = 512, 2048 and OPL 9, 16 in every directory alike):
+    whether each is the same in all of them."""
+    nvcc = _build._nvcc()
+    keep = _keep_cases((512, 2048), (9, 16))
+    procs = []
+    for i, csrc in enumerate(csrcs):
+        d = os.path.join(tmp, f"sass{i}")
+        os.makedirs(d)
+        for f in os.listdir(csrc):
+            if f.endswith((".cu", ".cuh")):
+                shutil.copy(os.path.join(csrc, f), d)
+        for edit in keep:
+            _edit(d, "sass", edit)
+        for src in ("frontend.cu", "frontend_full_signals.cu"):
+            procs.append((i, subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS[:-2], "-cubin", "-o",
+                 os.path.join(d, src + ".cubin"), os.path.join(d, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for i, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"sass {i}: nvcc failed\n{out[-3000:]}")
+    funcs = []
+    for i in range(len(csrcs)):
+        d = os.path.join(tmp, f"sass{i}")
+        f = {}
+        for src in ("frontend.cu", "frontend_full_signals.cu"):
+            f.update(_sass(os.path.join(d, src + ".cubin")))
+        funcs.append(f)
+    for k in SASS_KERNELS:
+        bodies = []
+        for f in funcs:
+            names = [n for n in f if k in n]
+            bodies.append(f[names[0]] if len(names) == 1 else None)
+        same = all(b is not None and b == bodies[0] for b in bodies)
+        print(f"fft_ablation [{card}] cuobjdump -sass {k}: "
+              f"{[len(b) if b else None for b in bodies]} instructions, "
+              f"the same in every directory: {same}", flush=True)
+
+
+def lpcc_main(card: str, dev, rng, csrcs=None) -> None:
+    """K1's LPC-cepstra mode by stage at 512 x 5 s @ 8 and 16 kHz, for
+    the sources of each directory of `csrcs` (the package's by default) in
+    turns: the kernel from the signals (csrc/frontend_lpcc_signals.cu) and
+    its variants where a directory has it, K1's LPC mode and, in a
+    directory without that kernel, its raw tile + lpcc_kernel; ptxas's
+    registers and spills, the occupancy API's blocks an SM, each route's
+    distance from its plain version; with two directories the SASS
+    check."""
+    from ..config import LpcConfig
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    csrcs = csrcs or [_build.CSRC]
+    cases = {}
+    for fs in (8000, 16000):
+        fe = PackedFrontend(fs, FeatureConfig(lpc=LpcConfig(n_lpcc=16)),
+                            dev)
+        fe_lpc = PackedFrontend(fs, FeatureConfig(), dev)
+        L = 5 * fs
+        Lp = -(-L // 4096) * 4096
+        x = np.zeros((512, Lp), np.float32)
+        x[:, :L] = rng.randn(512, L) * 3000
+        sig = torch.from_numpy(x).to(dev)
+        T = n_frames(Lp, fe.frame_len, fe.frame_shift)
+        nv = fe.valid_frames(torch.full((512,), L, device=dev), T)
+        want = gpu_frontend.packed_from_signals_fft_reference(
+            sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, True, True, 16)
+        cases[fs] = (fe, fe_lpc, sig, nv, T, want)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
+        libs, logs, kinds = {}, {}, {}
+        for i, csrc in enumerate(csrcs):
+            tag = "" if len(csrcs) == 1 else f"{i}:"
+            files = tuple(f for f in os.listdir(csrc)
+                          if f.endswith((".cu", ".cuh")))
+            vs = {}
+            if "frontend_lpcc_signals.cu" in files:
+                vs = {tag + k: LPCC_ONE + v for k, v in LPCC_VARIANTS.items()}
+            entries = {k: ("frontend_lpcc_signals.cu",
+                           "frontend_full_signals.cu") for k in vs}
+            vs[tag + "k1"] = LPCC_ONE
+            # frontend.cu's four-step route calls rfft_cluster.cu's spectra
+            entries[tag + "k1"] = ("frontend.cu", "frontend_fft.cu",
+                                   "rfft_cluster.cu")
+            with open(os.path.join(csrc, "frontend.cu")) as f:
+                kinds[tag + "k1"] = ("raw" if "int n_lpcc, void* raw, void* "
+                                     "stream" in f.read() else "lpc")
+            sub = os.path.join(tmp, str(i))
+            os.makedirs(sub)
+            libs.update(build(sub, vs, files, entries, bind_lpcc, csrc,
+                              logs))
+            print(f"fft_ablation [{card}] sources {tag}{csrc}", flush=True)
+        for k, lib in libs.items():
+            p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            if k in kinds:  # K1's packed entry point, by its signature
+                tail = [i_, p_, p_] if kinds[k] == "raw" else [p_]
+                lib.srt_packed_frontend.argtypes = ([p_] * 7 + [i_] * 9
+                                                    + [f_, i_, f_, i_, i_]
+                                                    + tail)
+
+        calls = {}
+        for fs, (fe, fe_lpc, sig, nv, T, want) in cases.items():
+            B, Lp = sig.shape
+            nmel, nceps = fe.dct.shape
+            nac = fe.fft_acorr.shape[1]
+            for k, lib in libs.items():
+                feat = torch.empty(B, T, nceps + 15, device=dev)
+                if k in kinds:
+                    op = gpu_frontend._fft_operator(fe.fft_mel, fe.fft_acorr,
+                                                    fe.n_fft, lib)
+                    lfe = fe_lpc
+                    op_lpc = gpu_frontend._fft_operator(
+                        lfe.fft_mel, lfe.fft_acorr, lfe.n_fft, lib)
+
+                    def lpc(lib=lib, op=op_lpc, feat=feat, lfe=lfe, sig=sig,
+                            nv=nv, T=T, kind=kinds[k]):
+                        more = (0, None, stream) if kind == "raw" else (
+                            stream,)
+                        err = lib.srt_packed_frontend(
+                            sig.data_ptr(), nv.data_ptr(),
+                            lfe.window.data_ptr(), op.data_ptr(),
+                            lfe.dct.data_ptr(), feat.data_ptr(), None,
+                            sig.shape[0], sig.shape[1], T, lfe.frame_len,
+                            lfe.frame_shift, lfe.n_fft, nmel,
+                            lfe.fft_acorr.shape[1], nceps, lfe.pre_emph,
+                            int(lfe.preemph_first), lfe.floor, 1, 1, *more)
+                        assert err == 0, err
+                    calls[(fs, k.replace("k1", "k1_lpc_mode"))] = (lpc, None)
+                    if kinds[k] != "raw":
+                        continue
+                    raw = torch.empty(B, T, nceps + nac, device=dev)
+
+                    def lpcc(lib=lib, op=op, feat=feat, raw=raw, fe=fe,
+                             sig=sig, nv=nv, T=T):
+                        err = lib.srt_packed_frontend(
+                            sig.data_ptr(), nv.data_ptr(),
+                            fe.window.data_ptr(), op.data_ptr(),
+                            fe.dct.data_ptr(), feat.data_ptr(), None,
+                            sig.shape[0], sig.shape[1], T, fe.frame_len,
+                            fe.frame_shift, fe.n_fft, nmel, nac, nceps,
+                            fe.pre_emph, int(fe.preemph_first), fe.floor, 1,
+                            1, 16, raw.data_ptr(), stream)
+                        assert err == 0, err
+                        return feat
+                    calls[(fs, k.replace("k1", "raw_tile_lpcc_kernel"))] = (
+                        lpcc, want)
+                    continue
+                op = gpu_frontend.signal_operator(lib, fe.fft_mel,
+                                                  fe.fft_acorr, fe.n_fft)
+
+                def call(lib=lib, op=op, feat=feat, fe=fe, sig=sig, nv=nv,
+                         T=T):
+                    err = lib.srt_lpcc_signals_frontend(
+                        sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(),
+                        op.data_ptr(), fe.dct.data_ptr(), feat.data_ptr(),
+                        None, sig.shape[0], sig.shape[1], T, fe.frame_len,
+                        fe.frame_shift, fe.n_fft, nmel, nac, nceps,
+                        fe.pre_emph, int(fe.preemph_first), fe.floor, 1, 16,
+                        stream)
+                    assert err == 0, err
+                    return feat
+                calls[(fs, k)] = (call, want if k.endswith(
+                    ("full", "blocks2", "blocks3", "k5_tail")) else None)
+        for k, lib in libs.items():
+            if k in kinds:
+                continue
+            for n_fft in (512, 1024):
+                o = (ctypes.c_int * 4)()
+                assert lib.srt_lpcc_signals_occupancy(n_fft, 66, o) == 0
+                print(f"fft_ablation [{card}] {k} lpcc_signals_kernel<"
+                      f"{n_fft}, 9>: {o[0]} blocks an SM, {o[1]} registers, "
+                      f"{o[2]} local bytes a thread, {o[3]} B of dynamic "
+                      "shared memory", flush=True)
+            for m in re.finditer(
+                    r"Function properties for \S*lpcc_signals_kernelILi(\d+)"
+                    r"ELi(\d+)\S*\n\s*(.*)\n[^\n]*?(Used \d+ registers[^\n]*)",
+                    logs[k]):
+                print(f"fft_ablation [{card}] {k} ptxas: lpcc_signals_kernel"
+                      f"<{m[1]}, {m[2]}>: {m[3].strip()}; {m[4].strip()}",
+                      flush=True)
+        for (fs, k), (fn, want) in calls.items():
+            if want is None:
+                continue
+            fe = cases[fs][0]
+            got = fn().clone()
+            again = fn()
+            torch.cuda.synchronize()
+            nc = fe.dct.shape[1]
+            mask = torch.arange(got.shape[1], device=dev) < cases[fs][3][:,
+                                                                        None]
+            d = (got - want).abs()[mask]
+            lp = d[:, nc:]
+            bad = ((lp > 1e-2) & (lp > 1e-3 * want[mask][:, nc:].abs())).sum()
+            print(f"fft_ablation [{card}] {fs} Hz {k} against the FFT route's "
+                  f"plain version: cepstra max|d| {float(d[:, :nc].max()):.3e}"
+                  f", LPC cepstra max|d| {float(lp.max()):.3e}, entries past "
+                  f"1e-2 and 1e-3 relative {int(bad)}, two calls bitwise "
+                  f"{torch.equal(got, again)}", flush=True)
+        print(f"fft_ablation [{card}]: K1's LPC-cepstra mode, 512 x 5 s @ 8 "
+              "and 16 kHz (CMVN on), beside K1's LPC mode (k1_lpc_mode), "
+              "median of 7 trials of 3 calls, the variants in turns",
+              flush=True)
+        for rnd in range(2):
+            for (fs, k), (fn, _) in calls.items():
+                print(f"round {rnd} {fs:5d} Hz {k:26s} {time_ms(fn):.3f} ms",
+                      flush=True)
+        if len(csrcs) > 1:
+            sass_check(card, csrcs, tmp)
 
 
 def bind_big(lib) -> None:
@@ -939,10 +1256,10 @@ def dense_main(card: str, dev, rng, variants=None) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--route", default="tile",
-                    help="comma-separated: tile, big, chirp, signals")
+                    help="comma-separated: tile, big, chirp, signals, lpcc")
     ap.add_argument("--csrc", default=None,
-                    help="signals: comma-separated source directories to "
-                    "time in turns (default: the package's csrc/)")
+                    help="signals, lpcc: comma-separated source directories "
+                    "to time in turns (default: the package's csrc/)")
     args = ap.parse_args(argv)
     routes = args.route.split(",")
     if not torch.cuda.is_available():
@@ -952,9 +1269,10 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     for route in routes:
-        if route == "signals":
-            signals_main(card, dev, rng, csrcs=args.csrc and [
-                os.path.abspath(c) for c in args.csrc.split(",")])
+        if route in ("signals", "lpcc"):
+            {"signals": signals_main, "lpcc": lpcc_main}[route](
+                card, dev, rng, csrcs=args.csrc and [
+                    os.path.abspath(c) for c in args.csrc.split(",")])
             continue
         {"tile": tile_main, "big": big_main, "chirp": chirp_main}[route](
             card, dev, rng)

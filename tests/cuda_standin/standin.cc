@@ -7,7 +7,7 @@ namespace cusim {
 void run(dim3 grid, dim3 block, size_t smem, int cs,
          const std::function<void()>& body) {
   const unsigned nth = block.x * block.y * block.z;
-  if (block.y != 1 || block.z != 1 || nth % 32) abort();
+  if (nth % 32) abort();
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x0 = 0; x0 < grid.x; x0 += cs) {
@@ -27,7 +27,9 @@ void run(dim3 grid, dim3 block, size_t smem, int cs,
         for (int r = 0; r < cs; ++r)
           for (unsigned t = 0; t < nth; ++t)
             th.emplace_back([&, r, t] {
-              ctx.tid = dim3(t);
+              ctx.tid = dim3(t % block.x, t / block.x % block.y,
+                             t / (block.x * block.y));
+              ctx.lin = (int)t;
               ctx.bid = dim3(x0 + r, y, z);
               ctx.bdim = block;
               ctx.gdim = grid;

@@ -124,11 +124,16 @@ def _tile_counters(n_fft: int, nout: int, tile: str, big: str):
     return (tile, "CHUNKED_LAUNCHES") if nout > 512 else (tile,)
 
 
-def _signals_counter(*args, fft=None, mm_bf16=False, **kw):
+def _signals_counter(*args, fft=None, mm_bf16=False, n_lpcc=0, **kw):
+    """K1's counters: the bf16 kernel's, the LPC-cepstra kernel's below
+    BIG_N (csrc/frontend_lpcc_signals.cu), else the tile's or the
+    four-step route's."""
     if mm_bf16:
         return ("BF16_LAUNCHES",)
+    tile = ("LPCC_SIGNAL_LAUNCHES" if n_lpcc > 0
+            and fft.n_fft < gpu_frontend.BIG_N else "LAUNCHES")
     return _tile_counters(fft.n_fft, fft.mel.shape[1] + fft.acorr.shape[1],
-                          "LAUNCHES", "BIG_LAUNCHES")
+                          tile, "BIG_LAUNCHES")
 
 
 def _frames_counter(*args, fft=None, mm_bf16=False, **kw):
@@ -362,8 +367,9 @@ def test_chip_smoke_rehearses_on_the_cpu():
     on a cluster of 8 and at 524288 on the device-memory passes) and
     phase 15's chirp-z route on the cluster (M = 16384 and 32768) and past
     it on the device-memory passes (M = 262144), then phase 22's kernels
-    (K5 from the signals, K1's LPC-cepstra mode), with every
-    key, each launched on its path but K4 and K5's frame-level FFT kernel
+    (K5 from the signals, K1's LPC-cepstra mode on its own source, csrc/
+    frontend_lpcc_signals.cu), with every key, each launched on its path
+    but K4, K1's raw-autocorrelation mode and K5's frame-level FFT kernel
     at a power-of-two fft_size, which no serving path takes (their
     launches against their plain versions are demanded by phases 10, 11
     and 16 themselves), K1 and K5 with their FFT kernels' sources; the 8192-
@@ -425,11 +431,12 @@ def test_chip_smoke_rehearses_on_the_cpu():
         "gmm_serial_bf16.cu", "rfft_cluster.cu", "rfft_cluster.cu",
         "rfft_passes.cuh", "frontend_chirp_cluster.cu",
         "frontend_chirp_cluster.cu", "frontend_chirp_cluster.cu",
-        "frontend_full_signals.cu", "frontend.cu"]
+        "frontend_full_signals.cu", "frontend_lpcc_signals.cu"]
     for k in kernels:
         assert set(k) == KERNEL_KEYS, k
         if k["name"].startswith("packed_from_frames") or k["name"] in (
-                "mfcc_from_frames", "mfcc_from_frames_616_outputs"):
+                "mfcc_from_frames", "mfcc_from_frames_616_outputs",
+                "packed_frontend_raw_autocorr"):
             assert k["launches"] == 0, k
         else:
             assert k["launches"] >= 1, k

@@ -16,10 +16,12 @@ csrc/frontend_full_signals.cu (the full-spectrum frontend from the
 signals on csrc/signal_tile.cuh: the sample pairs and their shuffles, the
 fold from the signal, the per-bin floor, the projection's TF32 mma.sync
 in three terms, through the stand-in's warp exchange, LPC and the LPC
-cepstra in the tail, zeros past n_valid) and K1's LPC-cepstra mode
-(csrc/frontend.cu) on the FFT tile, with CMVN off (the stand-in runs
-one-dimensional blocks; the CMVN kernel is K1's, held on the card), and a
-model of the four-step route's projection sums at 2^22-2^24 points. It
+cepstra in the tail, zeros past n_valid) with CMVN off, and K1's
+LPC-cepstra mode (csrc/frontend_lpcc_signals.cu: the same tile with the
+power unfloored, the LPC cepstra in its tail) at 8 and 16 kHz, both
+orders of the pre-emphasis, with CMVN off and on (the stand-in runs the
+CMVN kernel's 2-D blocks and static shared arrays), and a model of the
+four-step route's projection sums at 2^22-2^24 points. It
 checks the kernels' index maps, barriers and exchanges as the source
 states them; what nvcc or the card make of them shows only on the card
 (chip_smoke.py phases 15 and 16). Skips without g++."""
@@ -50,15 +52,19 @@ from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
 STANDIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_standin")
 SOURCES = ("rfft_cluster.cu", "frontend_big.cu", "frontend_chirp_cluster.cu",
-           "frontend_full_signals.cu", "frontend.cu", "frontend_fft.cu")
+           "frontend_full_signals.cu", "frontend.cu", "frontend_fft.cu",
+           "frontend_lpcc_signals.cu")
 
 
 def _rewrite(src: str) -> str:
     """The CUDA syntax the stand-in cannot define: extern __shared__ arrays
-    (the block's buffer), <<<...>>> launches (cusim::launch) and the
-    built-in index variables (cusim::ctx)."""
+    (the block's buffer), static ones (cusim::block_shared, one a block),
+    <<<...>>> launches (cusim::launch) and the built-in index variables
+    (cusim::ctx)."""
     src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
                  r"\1* \2 = (\1*)cusim::ctx.block->smem.data();", src)
+    src = re.sub(r"__shared__ (\w+) (\w+)((?:\[[^\]]+\])+);",
+                 r"auto& \2 = cusim::block_shared<\1\3>(__LINE__);", src)
     src = re.sub(r"(\b[\w:]+(?:<[^<>;]*>)?)\s*<<<(.*?)>>>\s*\(",
                  lambda m: f"cusim::launch({m.group(1)}, {m.group(2)})(",
                  src, flags=re.S)
@@ -110,7 +116,9 @@ def lib(tmp_path_factory):
     lib.srt_full_signals_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
         f_, i_, f_, i_, i_, p_]
     lib.srt_packed_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
-        f_, i_, f_, i_, i_, i_, p_, p_]
+        f_, i_, f_, i_, i_, p_]
+    lib.srt_lpcc_signals_frontend.argtypes = [p_] * 7 + [i_] * 9 + [
+        f_, i_, f_, i_, i_, p_]
     lib.srt_fft_operator_shape.argtypes = [i_, i_, ip, ip, ip]
     lib.srt_full_signals_operator_shape.argtypes = [i_, i_, ip, ip, ip, ip]
     lib.srt_fft_wide_floats.argtypes = [ctypes.c_longlong, i_]
@@ -371,10 +379,25 @@ def test_the_full_spectrum_kernel_from_the_signals(lib, fs, fft_size,
         assert (got[0, 2:4, nceps:] == 0).all()
 
 
+def _k1_lpcc(lib, fe, sig, nv, L, T, cmvn):
+    """srt_lpcc_signals_frontend (K1's LPC-cepstra mode, n_lpcc = 16) on
+    a [3, L] batch, its output written over NaN."""
+    nmel, nceps = fe.dct.shape
+    nac = fe.fft_acorr.shape[1]
+    op = gpu_frontend.signal_operator(lib, fe.fft_mel, fe.fft_acorr, fe.n_fft)
+    feat = torch.full((3, T, nceps + 15), float("nan"))
+    assert lib.srt_lpcc_signals_frontend(
+        sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(), op.data_ptr(),
+        fe.dct.data_ptr(), feat.data_ptr(), None, 3, L, T, fe.frame_len,
+        fe.frame_shift, fe.n_fft, nmel, nac, nceps, fe.pre_emph,
+        int(fe.preemph_first), fe.floor, int(cmvn), 16, None) == 0
+    return feat
+
+
 def test_k1_lpcc_mode_on_the_tile(lib):
-    """srt_packed_frontend in its LPC-cepstra mode (n_lpcc = 16: the raw
-    mode's rows, then lpcc_kernel: Levinson and the recursion on the
-    unzeroed coefficients) at 8 kHz against
+    """K1's LPC-cepstra mode (srt_lpcc_signals_frontend, n_lpcc = 16: the
+    signal tile with the power unfloored, Levinson and the recursion on
+    the unzeroed coefficients in its tail) at 8 kHz against
     packed_from_signals_fft_reference with CMVN off; the silent stretch's
     frames (r = 0) give 0."""
     fe = text.PackedFrontend(8000, FeatureConfig(lpc=LpcConfig(
@@ -383,20 +406,85 @@ def test_k1_lpcc_mode_on_the_tile(lib):
     sig, lens = _signal_batch(8000, L, [L, 3000, 255], 37)
     T = n_frames(L, fe.frame_len, fe.frame_shift)
     nv = fe.valid_frames(lens, T)
-    nmel, nceps = fe.dct.shape
-    nac = fe.fft_acorr.shape[1]
-    op = gpu_frontend._fft_operator(fe.fft_mel, fe.fft_acorr, fe.n_fft, lib)
-    feat = torch.full((3, T, nceps + 15), float("nan"))
-    raw = torch.full((3, T, nceps + nac), float("nan"))
-    assert lib.srt_packed_frontend(
-        sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(), op.data_ptr(),
-        fe.dct.data_ptr(), feat.data_ptr(), None, 3, L, T, fe.frame_len,
-        fe.frame_shift, fe.n_fft, nmel, nac, nceps, fe.pre_emph,
-        int(fe.preemph_first), fe.floor, 0, 1, 16, raw.data_ptr(),
-        None) == 0
+    nceps = fe.dct.shape[1]
+    feat = _k1_lpcc(lib, fe, sig, nv, L, T, False)
     want = gpu_frontend.packed_from_signals_fft_reference(
         sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, False, True, 16)
     _lpc_close("K1 lpcc", feat, want, nceps, True)
+    assert (feat[0, 2:8, nceps:] == 0).all()
+
+
+@pytest.mark.parametrize("cmvn", [False, True], ids=["cmvn_off", "cmvn"])
+@pytest.mark.parametrize("preemph_first", [False, True],
+                         ids=["window_first", "preemph_first"])
+@pytest.mark.parametrize("fs", [8000, 16000], ids=["n512", "n1024"])
+def test_k1_lpcc_kernel_from_the_signals(lib, fs, preemph_first, cmvn):
+    """csrc/frontend_lpcc_signals.cu at N = 512 (8 kHz) and 1024 (16 kHz),
+    the pre-emphasis after the window or before it, CMVN off and on (its
+    2-D blocks and static shared arrays in the stand-in), against
+    packed_from_signals_fft_reference: a long utterance whose silent
+    stretch gives LPC cepstra of 0, a short one, one with no valid frame
+    (zeros), frames past n_valid zeros; two calls give the same bits."""
+    cfg = FeatureConfig(mfcc=MfccConfig(preemph_first=preemph_first),
+                        lpc=LpcConfig(n_lpcc=16))
+    fe = text.PackedFrontend(fs, cfg, "cpu")
+    assert fe.n_fft == {8000: 512, 16000: 1024}[fs]
+    L = 8192 * fs // 8000
+    sig, lens = _signal_batch(fs, L, [L, L // 3, fe.frame_len - 1], 41)
+    T = n_frames(L, fe.frame_len, fe.frame_shift)
+    nv = fe.valid_frames(lens, T)
+    assert int(nv[2]) == 0 and int(nv[1]) < T
+    nceps = fe.dct.shape[1]
+    got = _k1_lpcc(lib, fe, sig, nv, L, T, cmvn)
+    assert torch.equal(got, _k1_lpcc(lib, fe, sig, nv, L, T, cmvn))
+    want = gpu_frontend.packed_from_signals_fft_reference(
+        sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, cmvn, True, 16)
+    _lpc_close(f"K1 lpcc {fs} {preemph_first} {cmvn}", got, want, nceps,
+               True)
+    mask = torch.arange(T)[None] < nv[:, None]
+    assert (got[~mask] == 0).all()
+    wp = framing.window_preemph(framing.frame_signal(sig, fe.frame_len,
+                                                     fe.frame_shift),
+                                fe.frame_len, fe.pre_emph, fe.preemph_first)
+    silent = (wp == 0).all(-1) & mask
+    assert int(silent.sum()) >= 2
+    assert (got[silent][:, nceps:] == 0).all()
+
+
+@pytest.mark.parametrize("mfcc,lpc", [
+    (MfccConfig(), LpcConfig(n_lpc=40, n_lpcc=41)),
+    (MfccConfig(fft_size=4096, n_filters=600), LpcConfig(n_lpcc=16))],
+    ids=["order40_tail", "616_outputs_chunked"])
+def test_k1_lpcc_kernel_wide_shapes(lib, mfcc, lpc):
+    """csrc/frontend_lpcc_signals.cu past the register tail and past one
+    output chunk, at 8 kHz (N = 512) with CMVN on: LPC order 40 with 40
+    LPC cepstra (the tail's local-array recursion, tile_features'
+    lpcc_frames) and 600 mel filters at fft_size 4096 (616 outputs: the
+    projection onto two chunks of 512 columns, the sums in device rows),
+    against packed_from_signals_fft_reference."""
+    fe = text.PackedFrontend(8000, FeatureConfig(mfcc=mfcc, lpc=lpc), "cpu")
+    assert fe.n_fft == 512
+    nmel, nceps = fe.dct.shape
+    nac = fe.fft_acorr.shape[1]
+    L = 8192
+    sig, lens = _signal_batch(8000, L, [L, 3000, 255], 43)
+    T = n_frames(L, fe.frame_len, fe.frame_shift)
+    nv = fe.valid_frames(lens, T)
+    nw = lib.srt_fft_wide_floats(3 * T, nmel + nac)
+    assert (nw > 0) == (nmel + nac > 512)
+    wsums = torch.empty(nw) if nw else None
+    op = gpu_frontend.signal_operator(lib, fe.fft_mel, fe.fft_acorr, fe.n_fft)
+    feat = torch.full((3, T, nceps + lpc.n_lpcc - 1), float("nan"))
+    assert lib.srt_lpcc_signals_frontend(
+        sig.data_ptr(), nv.data_ptr(), fe.window.data_ptr(), op.data_ptr(),
+        fe.dct.data_ptr(), feat.data_ptr(),
+        wsums.data_ptr() if nw else None, 3, L, T, fe.frame_len,
+        fe.frame_shift, fe.n_fft, nmel, nac, nceps, fe.pre_emph,
+        int(fe.preemph_first), fe.floor, 1, lpc.n_lpcc, None) == 0
+    want = gpu_frontend.packed_from_signals_fft_reference(
+        sig, nv, fe.fft, fe.dct, fe.floor, fe.frame_shift, True, True,
+        lpc.n_lpcc)
+    _lpc_close(f"K1 lpcc {nmel} {nac}", feat, want, nceps, True)
     assert (feat[0, 2:8, nceps:] == 0).all()
 
 

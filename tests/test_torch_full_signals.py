@@ -290,7 +290,7 @@ def test_routes_and_counters(monkeypatch):
     fft_size that is not a power of two, 32768 points, bf16 operands,
     float64, LPC cepstra past LPCC_MAX_LAGS lags. PackedFrontend takes K1's
     LPC-cepstra mode except with bf16 operands. On the CPU no counter
-    moves."""
+    moves, the LPC-cepstra kernel's (LPCC_SIGNAL_LAUNCHES) included."""
     lpcc = tcfg.LpcConfig(n_lpcc=16)
     full = lambda **kw: text.FullFrontend(  # noqa: E731
         48000, tcfg.FeatureConfig(**kw), "cpu")
@@ -320,14 +320,14 @@ def test_routes_and_counters(monkeypatch):
         mfcc=tcfg.MfccConfig(fft_size=1500)))
     text.extract_batch(*args, tcfg.FeatureConfig(), "float64")
     assert calls == []
-    before = gpu_frontend.FULL_SIGNAL_LAUNCHES, gpu_frontend.LAUNCHES
+    counters = ("FULL_SIGNAL_LAUNCHES", "LAUNCHES", "LPCC_SIGNAL_LAUNCHES")
+    before = [getattr(gpu_frontend, c) for c in counters]
     text.extract_batch(*args, tcfg.FeatureConfig())
     text.extract_batch(torch.from_numpy(sig[:, :8192]),
                        torch.from_numpy(np.minimum(lens, 8192)), 8000,
                        tcfg.FeatureConfig(lpc=lpcc))
     assert len(calls) == 1
-    assert (gpu_frontend.FULL_SIGNAL_LAUNCHES,
-            gpu_frontend.LAUNCHES) == before
+    assert [getattr(gpu_frontend, c) for c in counters] == before
 
 
 def test_bf16_lpcc_takes_the_raw_mode(monkeypatch):
@@ -405,6 +405,35 @@ def _chip_gates():
     return mfcc, float(m[1]), float(m[2])
 
 
+def _tf32(x):
+    """cvt.rna.tf32.f32: the low 13 bits, rounded half away."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
+        np.float32)
+
+
+def _mma_sums(terms, nb, ncols):
+    """The f32 sums of mma.sync m16n8k8 products over 8-bin k-steps: for
+    each k-step each (A, B) of `terms` in turn, its 8 products in float64,
+    added to the f32 sums [frames, ncols]."""
+    ks = -(-nb // 8)
+    acc = np.zeros((len(terms[0][0]), ncols), np.float32)
+    for k in range(ks):
+        sl = slice(8 * k, 8 * k + 8)
+        for a, b in terms:
+            acc = (acc.astype(np.float64)
+                   + a[:, sl].astype(np.float64) @ b[sl].astype(
+                       np.float64)).astype(np.float32)
+    return acc
+
+
+def _split_terms(P, op):
+    """The three products of the split: lo.hi, hi.lo, hi.hi."""
+    Ph, Bh = _tf32(P), _tf32(op)
+    Pl, Bl = _tf32(P - Ph), _tf32(op - Bh)
+    return ((Pl, Bh), (Ph, Bl), (Ph, Bh))
+
+
 def _levinson64(r):
     """a_1 .. a_p of each row of r [n, p + 1], float64 (NaN where r[0] =
     0)."""
@@ -446,24 +475,10 @@ def test_tf32_split_projection_holds_the_gates():
     silent = (P == np.float32(fe.floor)).all(-1)
     assert 4 <= silent.sum() < len(P) // 2
 
-    def tf32(x):  # cvt.rna.tf32.f32: the low 13 bits, rounded half away
-        bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
-        return ((bits + np.uint32(0x1000)) & np.uint32(0xffffe000)).view(
-            np.float32)
-
     def mma_sums(terms):
-        ks = -(-nb // 8)
-        acc = np.zeros((len(P), op.shape[1]), np.float32)
-        for k in range(ks):
-            sl = slice(8 * k, 8 * k + 8)
-            for a, b in terms:
-                acc = (acc.astype(np.float64)
-                       + a[:, sl].astype(np.float64) @ b[sl].astype(
-                           np.float64)).astype(np.float32)
-        return acc
+        return _mma_sums(terms, nb, op.shape[1])
 
-    Ph, Bh = tf32(P), tf32(op)
-    Pl, Bl = tf32(P - Ph), tf32(op - Bh)
+    terms = _split_terms(P, op)
     exact = P.astype(np.float64) @ op.astype(np.float64)
     dct = fe.dct.numpy().astype(np.float64)
     order = fe.acorr.shape[1] - 1
@@ -480,7 +495,7 @@ def test_tf32_split_projection_holds_the_gates():
         return logmel, logmel @ dct, lpc, lpcc
 
     want = features(exact)
-    split = mma_sums(((Pl, Bh), (Ph, Bl), (Ph, Bh)))
+    split = mma_sums(terms)
     got = features(split)
     for name, g, w, (atol, rtol) in zip(
             ("log-mel", "cepstra", "LPC", "LPC cepstra"), got, want,
@@ -496,7 +511,7 @@ def test_tf32_split_projection_holds_the_gates():
     assert (r32[silent, 0] < torch.finfo(torch.float32).tiny).all()
     assert (gpu_frontend.lpc_columns(r32[silent], 16) == 0).all()
 
-    one = features(mma_sums(((Ph, Bh),)))
+    one = features(mma_sums(terms[2:]))
     print("3xTF32 against float64: " + ", ".join(
         f"{n} {float(np.abs(g - w).max()):.2e}"
         for n, g, w in zip(("log-mel", "cepstra", "LPC", "LPC cepstra"),
@@ -505,3 +520,124 @@ def test_tf32_split_projection_holds_the_gates():
         f"{n} {float(np.abs(g - w).max()):.2e}"
         for n, g, w in zip(("log-mel", "cepstra", "LPC", "LPC cepstra"),
                            one, want)))
+
+
+def _voice_factor():
+    """chip_smoke.py's VOICE_FACTOR (phase 20's rule on the voice)."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "chip_smoke.py")
+    with open(path) as f:
+        return float(re.search(r"^VOICE_FACTOR = (\S+)$", f.read(), re.M)[1])
+
+
+def _k1_features(fe, sums):
+    """(cepstra, LPC cepstra) of [frames, nmel + nac] sums at K1's
+    operator, in float64: log(max(mel, floor)) . dct, and lpc_columns
+    with n_lpcc = 16 (float64 Levinson and recursion, r = 0 below the
+    least normal float)."""
+    s = torch.from_numpy(np.asarray(sums, np.float64))
+    nmel = fe.dct.shape[0]
+    ceps = torch.log(torch.clamp_min(s[:, :nmel], fe.floor)) @ fe.dct.double()
+    return ceps.numpy(), gpu_frontend.lpc_columns(s[:, nmel:], 16).numpy()
+
+
+@pytest.mark.parametrize("fs", [8000, 16000], ids=["n512", "n1024"])
+def test_tf32_split_holds_the_gates_at_k1s_operator(fs):
+    """K1's LPC-cepstra kernel (csrc/frontend_lpcc_signals.cu) modelled in
+    numpy: K1's bin-domain operator [M | R] (PackedFrontend with n_lpcc =
+    16: N = 512 at 8 kHz, 1024 at 16 kHz), whose mel part M = H . mel has
+    negative weights, and the unfloored power rows (K1 floors the mel sums
+    only); the three TF32 products of the split per 8-bin k-step added to
+    f32 sums, as the 48 kHz model above. Against the float64 sums of the
+    same f32 operands:
+      * int16-scale white noise (the frames chip_smoke.py holds the kernel
+        on): cepstra within MFCC_ATOL, no LPC cepstrum past LPC_ATOL and
+        LPC_RTOL;
+      * at 8 kHz, phase 20's voice, the frames tests/test_torch_voice_lpc.py
+        reads (its first MAX_UTT_ROWS rows), with a silent stretch: the
+        near-singular frames part every f32 route from float64 (mel sums
+        that cancel to 1e-7 of their terms, LPC of poles at radius 0.97),
+        so phase 20's rule holds instead: the cepstra's max |d| and the
+        frames whose LPC cepstra part past the bounds at most VOICE_FACTOR
+        times the farther of the two f32 plain versions' (the FFT route's
+        f32 product, the dense route's D, W, A); the silent frames' lag 0
+        exactly 0, so their LPC cepstra are 0.
+    Prints how far one TF32 term (hi.hi) would land."""
+    from speaker_recognition_tpu_torch.ops import framing as tframing
+    from speaker_recognition_tpu_torch.testdata import synth
+
+    mfcc_atol, lpc_atol, lpc_rtol = _chip_gates()
+    fe = text.PackedFrontend(fs, tcfg.FeatureConfig(
+        lpc=tcfg.LpcConfig(n_lpcc=16)), "cpu")
+    N, nb = fe.n_fft, fe.n_fft // 2 + 1
+    assert N == {8000: 512, 16000: 1024}[fs]
+    nmel = fe.dct.shape[0]
+    op = torch.cat([fe.fft_mel[:nb], fe.fft_acorr[:nb]], 1).numpy()
+    assert (op[:, :nmel] < 0).any()
+
+    def power(sig):
+        frames = tframing.frame_signal(torch.from_numpy(sig), fe.frame_len,
+                                       fe.frame_shift)
+        wp = tframing.window_preemph(frames.double(), fe.frame_len,
+                                     fe.pre_emph, fe.preemph_first)
+        return frames, (np.abs(np.fft.rfft(wp.numpy(), N)) ** 2).astype(
+            np.float32)
+
+    def parted(got, want):
+        """(cepstra max |d|, frames whose LPC cepstra part past the
+        bounds)."""
+        d = np.abs(got[1] - want[1])
+        bad = (d > lpc_atol) & (d > lpc_rtol * np.abs(want[1]))
+        return float(np.abs(got[0] - want[0]).max()), int(bad.any(-1).sum())
+
+    rng = np.random.RandomState(fs)
+    noise = (rng.randn(fs * 4) * 3000).astype(np.float32)
+    _, P = power(noise)
+    terms = _split_terms(P, op)
+    want = _k1_features(fe, P.astype(np.float64) @ op.astype(np.float64))
+    got = _k1_features(fe, _mma_sums(terms, nb, op.shape[1]))
+    d_ceps, bad = parted(got, want)
+    one = parted(_k1_features(fe, _mma_sums(terms[2:], nb, op.shape[1])),
+                 want)
+    print(f"K1's operator at {fs} Hz, white noise ({len(P)} frames), "
+          f"3xTF32 against float64: cepstra {d_ceps:.2e}, LPC cepstra "
+          f"frames past the bounds {bad}; one term: {one}")
+    assert d_ceps <= mfcc_atol and bad == 0
+    if fs != 8000:
+        return
+
+    sig = synth.voice_utterance(synth.voices(1, seed=2000)[0], 60.0, 2001)
+    sig = sig[:pallas_frontend.MAX_UTT_ROWS * fe.frame_shift].astype(
+        np.float32)
+    sig[8000:8000 + 6 * fe.frame_len] = 0.0
+    frames, P = power(sig)
+    silent = (P == 0).all(-1)
+    assert 4 <= silent.sum() < len(P) // 100
+    terms = _split_terms(P, op)
+    split = _mma_sums(terms, nb, op.shape[1])
+    want = _k1_features(fe, P.astype(np.float64) @ op.astype(np.float64))
+    Y = (frames @ fe.D) ** 2
+    plain = {
+        "FFT route f32": torch.from_numpy(P) @ torch.from_numpy(op),
+        "dense f32": torch.cat([Y @ fe.W, Y @ fe.A], 1)}
+    far = [0.0, 0]
+    for name, sums in plain.items():
+        p = parted(_k1_features(fe, sums.numpy()), want)
+        far = [max(far[0], p[0]), max(far[1], p[1])]
+        print(f"K1's operator, phase 20's voice ({len(P)} frames), {name} "
+              f"against float64: cepstra {p[0]:.2e}, LPC cepstra frames "
+              f"past the bounds {p[1]}")
+    got = parted(_k1_features(fe, split), want)
+    one = parted(_k1_features(fe, _mma_sums(terms[2:], nb, op.shape[1])),
+                 want)
+    print(f"K1's operator, phase 20's voice, 3xTF32 against float64: "
+          f"cepstra {got[0]:.2e}, LPC cepstra frames past the bounds "
+          f"{got[1]}; one term: {one}")
+    factor = _voice_factor()
+    assert got[0] <= factor * far[0] and got[1] <= factor * far[1]
+    assert far[1] >= 0.1 * len(P)  # the voice parts every f32 route
+    assert (split[silent, nmel] == 0).all()
+    assert (gpu_frontend.lpc_columns(torch.from_numpy(split[silent, nmel:]),
+                                     16) == 0).all()

@@ -211,7 +211,8 @@ def test_lpcc_route_is_the_signal_kernel(monkeypatch):
     """With LPC cepstra the packed frontend calls the signal kernel once,
     in its LPC-cepstra mode (the recursion in the kernel's tail) with CMVN
     inside, and never the frame-level kernel; CMVN is not applied a second
-    time."""
+    time. On the CPU neither the LPC-cepstra kernel's counter
+    (LPCC_SIGNAL_LAUNCHES) nor K1's moves."""
     calls = []
     real = gpu_frontend.packed_from_signals
 
@@ -225,8 +226,11 @@ def test_lpcc_route_is_the_signal_kernel(monkeypatch):
     monkeypatch.setattr(gpu_frontend, "packed_from_frames", no_frames)
     fe = text.PackedFrontend(8000, _lpcc(tcfg), "cpu")
     sig, lens = _signals([8192, 6000], 8192, seed=24)
+    before = gpu_frontend.LPCC_SIGNAL_LAUNCHES, gpu_frontend.LAUNCHES
     got, mask = fe(torch.from_numpy(sig), torch.from_numpy(lens))
     assert calls == [(True, True, 16)]
+    assert (gpu_frontend.LPCC_SIGNAL_LAUNCHES,
+            gpu_frontend.LAUNCHES) == before
     mfcc = got[..., :13]
     for b in range(2):
         v = mfcc[b][mask[b]]
@@ -234,6 +238,88 @@ def test_lpcc_route_is_the_signal_kernel(monkeypatch):
         np.testing.assert_allclose(v.mean(0).numpy(), 0, atol=1e-4)
         np.testing.assert_allclose(v.std(0, unbiased=False).numpy(), 1,
                                    rtol=1e-4)
+
+
+@pytest.mark.parametrize("n_fft,n_lpcc,entry,counter", [
+    (512, 16, "srt_lpcc_signals_frontend", "LPCC_SIGNAL_LAUNCHES"),
+    (16384, 16, "srt_lpcc_signals_frontend", "LPCC_SIGNAL_LAUNCHES"),
+    (512, 0, "srt_packed_frontend", "LAUNCHES"),
+    (32768, 16, "srt_big_packed_frontend", "BIG_LAUNCHES")],
+    ids=["lpcc_512", "lpcc_16384", "lpc_512", "lpcc_32768"])
+def test_lpcc_route_on_the_card_is_one_kernel(monkeypatch, n_fft, n_lpcc,
+                                              entry, counter):
+    """On CUDA tensors packed_from_signals sends the LPC-cepstra mode below
+    BIG_N to csrc/frontend_lpcc_signals.cu's entry point alone, with the
+    signal tile's packed operator and no raw rows (its CMVN inside), and
+    counts it in LPCC_SIGNAL_LAUNCHES; the LPC mode keeps K1's tile
+    (LAUNCHES) and from BIG_N on the LPC cepstra keep the four-step route's
+    raw rows (BIG_LAUNCHES). A failed launch raises and counts nothing. The
+    library is a stand-in that records the C calls; the tensors CPU
+    tensors that report the card."""
+    import contextlib
+    import types
+    from speaker_recognition_tpu_torch import _build
+
+    calls = []
+    status = [0]
+
+    class Lib:
+        def __getattr__(self, name):
+            if not name.endswith("_frontend"):
+                raise AttributeError(name)
+            return lambda *a: calls.append((name, a)) or status[0]
+
+        @staticmethod
+        def srt_error_string(err):
+            return b"stand-in error"
+
+    monkeypatch.setattr(_build, "load", lambda: Lib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    empty = torch.empty
+    monkeypatch.setattr(torch, "empty",
+                        lambda *a, device=None, **k: empty(*a, **k))
+    ops = {}
+    for name in ("signal_operator", "_packed_operator", "_big_operator"):
+        monkeypatch.setattr(gpu_frontend, name,
+                            lambda lib, mel, acorr, n, name=name:
+                            ops.setdefault(name, torch.zeros(4)))
+    monkeypatch.setattr(gpu_frontend, "_wide_rows", lambda *a: None)
+    monkeypatch.setattr(gpu_frontend, "_big_scratch",
+                        lambda *a: (7, torch.zeros(4)))
+    cuda = lambda t: t.as_subclass(_CudaTyped)  # noqa: E731
+    flen, B = n_fft // 2, 3
+    nb = n_fft // 2 + 1
+    fft = gpu_frontend.FftRoute(n_fft, cuda(torch.rand(flen)), 0.97, False,
+                                cuda(torch.rand(nb, 26)),
+                                cuda(torch.rand(nb, 16)))
+    args = (cuda(torch.zeros(B, 4 * flen)),
+            cuda(torch.ones(B, dtype=torch.int32)), None, None,
+            cuda(torch.rand(26, 13)), None, 1e-35, flen // 2, True)
+    counters = ("LAUNCHES", "LPCC_SIGNAL_LAUNCHES", "BIG_LAUNCHES")
+    before = {c: getattr(gpu_frontend, c) for c in counters}
+    feat = gpu_frontend.packed_from_signals(*args, fft=fft, n_lpcc=n_lpcc)
+    T = (4 * flen - flen) // (flen // 2) + 1
+    assert feat.shape == (B, T, 13 + 15)
+    assert [c for c, _ in calls] == [entry]
+    a = calls[0][1]
+    if entry == "srt_lpcc_signals_frontend":
+        assert ops.keys() == {"signal_operator"}
+        assert len(a) == 22 and a[7] == B and a[12] == n_fft
+        assert a[19:21] == (1, n_lpcc)  # CMVN inside, the cepstra's count
+    elif entry == "srt_packed_frontend":
+        assert ops.keys() == {"_packed_operator"} and len(a) == 22
+    else:
+        assert a[21] == n_lpcc and a[22] != 0  # the raw rows
+    moved = {c: getattr(gpu_frontend, c) - before[c] for c in counters}
+    assert moved == {c: int(c == counter) for c in counters}
+    status[0] = 1
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        gpu_frontend.packed_from_signals(*args, fft=fft, n_lpcc=n_lpcc)
+    assert {c: getattr(gpu_frontend, c) - before[c]
+            for c in counters} == moved
 
 
 def test_lpcc_mix_feature_matches_jax():

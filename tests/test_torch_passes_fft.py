@@ -469,7 +469,8 @@ def test_the_ablation_variants_apply():
                              (fa.CHIRP_CLUSTER_VARIANTS, fa.CLUSTER_ONE),
                              (fa.CHIRP_PASSES_VARIANTS, fa.CLUSTER_ONE),
                              (fa.DENSE_VARIANTS, ()),
-                             (fa.SIGNAL_VARIANTS, fa.SIGNAL_ONE)):
+                             (fa.SIGNAL_VARIANTS, fa.SIGNAL_ONE),
+                             (fa.LPCC_VARIANTS, fa.LPCC_ONE)):
         for name, edits in variants.items():
             srcs = {}
             for edit in (*common, *edits):
