@@ -19,6 +19,10 @@ On CUDA tensors every stage is a hand-written kernel, always; on CPU
 tensors each is its plain torch version. With a float64 bank (the parity
 path) every stage is its plain version on either device, as in the JAX
 package, counted in features/extract.F64_CALLS and ops/gpu_gmm.F64_CALLS.
+A call runs in the `srt.predict` span (utils/profiling.span), its stages in
+`srt.frontend.glue` and `srt.frontend.kernel` (features/extract) and
+`srt.score` (ops/gpu_gmm): profiler ranges while torch.profiler records, a
+shared null context otherwise.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..config import FeatureConfig
 from ..features import extract
 from ..models.gmm import GmmBank
 from ..ops import gpu_gmm
+from ..utils.profiling import span
 
 __all__ = ["predict_scores"]
 
@@ -40,6 +45,8 @@ def predict_scores(signals: torch.Tensor, lengths: torch.Tensor,
     """[B, Lp] zero-padded signals, [B] lengths -> [B, S] per-speaker
     average log-likelihoods, at the bank's dtype (float32 or float64), the
     frontend's DFT operands at `mm` ("f32" or "bf16")."""
-    dtype = str(bank.op.dtype).removeprefix("torch.")
-    feats, mask = extract.extract_batch(signals, lengths, fs, cfg, dtype, mm)
-    return gpu_gmm.batch_scores(bank, feats, mask)
+    with span("srt.predict"):
+        dtype = str(bank.op.dtype).removeprefix("torch.")
+        feats, mask = extract.extract_batch(signals, lengths, fs, cfg, dtype,
+                                            mm)
+        return gpu_gmm.batch_scores(bank, feats, mask)

@@ -66,6 +66,7 @@ from ..config import (FeatureConfig, LpcConfig, MfccConfig, frame_geometry,
 from ..ops import framing, gpu_frontend, levinson
 from ..ops import frontend as operators
 from ..ops.gpu_frontend import masked_cmvn
+from ..utils.profiling import span
 
 __all__ = ["LENGTH_BUCKET", "FullFrontend", "PackedFrontend", "apply_deltas",
            "diff_feature", "extract_batch", "frontend", "frontend_mode",
@@ -195,11 +196,13 @@ class _Frontend(nn.Module):
         masked CMVN; LPC, or Levinson -> LPC cepstra -> non-finite to 0
         (no lpc_from_autocorr first: an all-zero frame gives 0 cepstra);
         deltas; zeros past each utterance's valid frames."""
-        if self.cmvn and not cmvn_done:
-            ceps = masked_cmvn(ceps, mask)
-        feat, mask = apply_deltas(torch.cat([ceps, self._lpc_part(r)], dim=-1),
-                                  mask, self.n_deltas)
-        return _zero_past(feat, mask), mask
+        with span("srt.frontend.glue"):
+            if self.cmvn and not cmvn_done:
+                ceps = masked_cmvn(ceps, mask)
+            feat, mask = apply_deltas(
+                torch.cat([ceps, self._lpc_part(r)], dim=-1), mask,
+                self.n_deltas)
+            return _zero_past(feat, mask), mask
 
     def _deltas(self, feat: torch.Tensor, mask: torch.Tensor):
         """A signal kernel's features (zeros past each utterance's valid
@@ -207,8 +210,9 @@ class _Frontend(nn.Module):
         frames again."""
         if not self.n_deltas:
             return feat, mask
-        feat, mask = apply_deltas(feat, mask, self.n_deltas)
-        return _zero_past(feat, mask), mask
+        with span("srt.frontend.glue"):
+            feat, mask = apply_deltas(feat, mask, self.n_deltas)
+            return _zero_past(feat, mask), mask
 
     def _lpc_part(self, r: torch.Tensor) -> torch.Tensor:
         """[..., order+1] raw autocorrelation -> the LPC columns: LPC, or
@@ -287,23 +291,26 @@ class PackedFrontend(_Frontend):
         the LPC cepstra), unless the LPC cepstra follow in torch
         (_lpcc_in_kernel: then the cepstra and the raw autocorrelation,
         [B, T, order+1])."""
-        signals, T, mask = self._frames(signals, lengths)
-        n_valid = self.valid_frames(lengths.to(signals.device), T)
+        with span("srt.frontend.glue"):
+            signals, T, mask = self._frames(signals, lengths)
+            n_valid = self.valid_frames(lengths.to(signals.device), T)
         fuse_lpc = self._lpcc_in_kernel()
         n_lpcc = self.n_lpcc if fuse_lpc else 0
-        if not self._count_f64():
-            out = gpu_frontend.packed_from_signals(
-                signals, n_valid, self.D, self.W, self.dct, self.A,
-                self.floor, self.frame_shift, cmvn, fft=self.fft,
-                fuse_lpc=fuse_lpc, mm_bf16=self.mm_bf16, n_lpcc=n_lpcc)
-        elif self.D is None:
-            out = gpu_frontend.packed_from_signals_fft_reference(
-                signals, n_valid, self.fft, self.dct, self.floor,
-                self.frame_shift, cmvn, fuse_lpc, n_lpcc)
-        else:
-            out = gpu_frontend.packed_from_signals_reference(
-                signals, n_valid, self.D, self.W, self.dct, self.A,
-                self.floor, self.frame_shift, cmvn, fuse_lpc, n_lpcc=n_lpcc)
+        with span("srt.frontend.kernel"):
+            if not self._count_f64():
+                out = gpu_frontend.packed_from_signals(
+                    signals, n_valid, self.D, self.W, self.dct, self.A,
+                    self.floor, self.frame_shift, cmvn, fft=self.fft,
+                    fuse_lpc=fuse_lpc, mm_bf16=self.mm_bf16, n_lpcc=n_lpcc)
+            elif self.D is None:
+                out = gpu_frontend.packed_from_signals_fft_reference(
+                    signals, n_valid, self.fft, self.dct, self.floor,
+                    self.frame_shift, cmvn, fuse_lpc, n_lpcc)
+            else:
+                out = gpu_frontend.packed_from_signals_reference(
+                    signals, n_valid, self.D, self.W, self.dct, self.A,
+                    self.floor, self.frame_shift, cmvn, fuse_lpc,
+                    n_lpcc=n_lpcc)
         return out, mask
 
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor):
@@ -389,34 +396,39 @@ class FullFrontend(_Frontend):
     def _signal_kernel(self, signals, lengths, cmvn: bool):
         """(mfcc_from_signals' [B, T, n_ceps + w] features, [B, T] mask)
         for [B, Lp] signals (the signal route)."""
-        signals, T, mask = self._frames(signals, lengths)
-        n_valid = self.valid_frames(lengths.to(signals.device), T)
-        return gpu_frontend.mfcc_from_signals(
-            signals, n_valid, self.fft, self.dct, self.floor,
-            self.frame_shift, cmvn, self.n_lpcc), mask
+        with span("srt.frontend.glue"):
+            signals, T, mask = self._frames(signals, lengths)
+            n_valid = self.valid_frames(lengths.to(signals.device), T)
+        with span("srt.frontend.kernel"):
+            return gpu_frontend.mfcc_from_signals(
+                signals, n_valid, self.fft, self.dct, self.floor,
+                self.frame_shift, cmvn, self.n_lpcc), mask
 
     def _frame_kernel(self, signals, lengths):
         """([B, T, n_ceps] cepstra before CMVN, [B, T, order+1] raw
         autocorrelation, [B, T] mask) for [B, Lp] signals: K5 at float32,
         its plain version at float64, the bf16 product at mm="bf16"."""
-        signals, T, mask = self._frames(signals, lengths)
-        B = signals.shape[0]
-        wp = framing.window_preemph(
-            framing.frame_signal(signals, self.frame_len, self.frame_shift),
-            self.frame_len, self.pre_emph, self.preemph_first)
-        wp = wp.reshape(B * T, self.frame_len)
-        if self._count_f64():
-            ceps, r = gpu_frontend.mfcc_from_frames_reference(
-                wp, self.C, self.S, self.mel, self.dct, self.floor,
-                self.acorr)
-        elif self.mm_bf16:
-            ceps, r = gpu_frontend.mfcc_from_frames_bf16(
-                wp, self.C, self.S, self.mel, self.dct, self.floor,
-                self.acorr)
-        else:
-            ceps, r = gpu_frontend.mfcc_from_frames(
-                wp, self.C, self.S, self.mel, self.dct, self.floor,
-                self.acorr, self.n_fft)
+        with span("srt.frontend.glue"):
+            signals, T, mask = self._frames(signals, lengths)
+            B = signals.shape[0]
+            wp = framing.window_preemph(
+                framing.frame_signal(signals, self.frame_len,
+                                     self.frame_shift),
+                self.frame_len, self.pre_emph, self.preemph_first)
+            wp = wp.reshape(B * T, self.frame_len)
+        with span("srt.frontend.kernel"):
+            if self._count_f64():
+                ceps, r = gpu_frontend.mfcc_from_frames_reference(
+                    wp, self.C, self.S, self.mel, self.dct, self.floor,
+                    self.acorr)
+            elif self.mm_bf16:
+                ceps, r = gpu_frontend.mfcc_from_frames_bf16(
+                    wp, self.C, self.S, self.mel, self.dct, self.floor,
+                    self.acorr)
+            else:
+                ceps, r = gpu_frontend.mfcc_from_frames(
+                    wp, self.C, self.S, self.mel, self.dct, self.floor,
+                    self.acorr, self.n_fft)
         return ceps.view(B, T, -1), r.view(B, T, -1), mask
 
     def forward(self, signals: torch.Tensor, lengths: torch.Tensor):

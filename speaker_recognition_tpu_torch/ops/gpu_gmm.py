@@ -37,6 +37,12 @@ made once per bank (`GmmBank.scoring_plan`, rebuilt when the bank's
 parameters change); a call checks the inputs that guard the raw pointers,
 allocates its output (and the batched kernel's scratch) in one tensor and
 makes one ctypes call, which selects the device itself.
+
+`batch_scores`, the serving path's call, runs in the `srt.score` span
+(utils/profiling.span) and counts what it scores on every route:
+SCORED_CALLS calls and SCORED_FRAMES frames, B * T a call for [B, T, d]
+features (the frames the kernel's grid covers, padding included), from
+the shapes alone.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from ..models.gmm import (
     bank_sum_loglik as bank_sum_loglik_reference,
     bank_avg_loglik as bank_avg_loglik_reference,
     batch_bank_avg_loglik as batch_bank_avg_loglik_reference)
+from ..utils.profiling import span
 
 # kernel launches since the last reset, batched (gmm_score.cu) and serial
 # (gmm_serial.cu); the CPU path does not count
@@ -62,10 +69,13 @@ SERIAL_BF16_LAUNCHES = 0
 # calls of batch_scores / serial_scores at float64: the plain versions, on
 # the CPU or the card
 F64_CALLS = 0
+# batch_scores calls and the frames they scored (B * T a call), every route
+SCORED_CALLS = 0
+SCORED_FRAMES = 0
 
-__all__ = ["BF16_LAUNCHES", "F64_CALLS", "LAUNCHES", "SERIAL_BF16_LAUNCHES",
-           "SERIAL_LAUNCHES", "bank_avg_loglik",
-           "bank_avg_loglik_reference", "bank_sum_loglik",
+__all__ = ["BF16_LAUNCHES", "F64_CALLS", "LAUNCHES", "SCORED_CALLS",
+           "SCORED_FRAMES", "SERIAL_BF16_LAUNCHES", "SERIAL_LAUNCHES",
+           "bank_avg_loglik", "bank_avg_loglik_reference", "bank_sum_loglik",
            "bank_sum_loglik_reference", "batch_bank_avg_loglik",
            "batch_bank_avg_loglik_reference", "batch_scores",
            "serial_scores"]
@@ -248,10 +258,15 @@ def _f64(x: torch.Tensor) -> bool:
 def batch_scores(bank: GmmBank, feats: torch.Tensor,
                  mask: torch.Tensor) -> torch.Tensor:
     """[B, S] scores on the route of the features' dtype: the batched
-    kernel's wrapper at float32, the plain version at float64."""
-    if _f64(feats):
-        return batch_bank_avg_loglik_reference(bank, feats, mask)
-    return batch_bank_avg_loglik(bank, feats, mask)
+    kernel's wrapper at float32, the plain version at float64; counted in
+    SCORED_CALLS and SCORED_FRAMES."""
+    global SCORED_CALLS, SCORED_FRAMES
+    with span("srt.score"):
+        SCORED_CALLS += 1
+        SCORED_FRAMES += feats.shape[0] * feats.shape[1]
+        if _f64(feats):
+            return batch_bank_avg_loglik_reference(bank, feats, mask)
+        return batch_bank_avg_loglik(bank, feats, mask)
 
 
 def serial_scores(bank: GmmBank, X: torch.Tensor,

@@ -179,7 +179,6 @@ def _entry_points():
             "jfa_pipeline.train_jfa": jfa_pipeline.train_jfa,
             "jfa_pipeline.load_model": jfa_pipeline.load_model,
             "plot_gmm.plot_gmm_density": plot_gmm.plot_gmm_density,
-            "profiling.phase_timer": profiling.phase_timer,
             "profiling.trace": profiling.trace,
             "mix_feature": extract.mix_feature,
             "mfcc_extract": extract.mfcc_extract,

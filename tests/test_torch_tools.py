@@ -73,45 +73,11 @@ def test_svm_format_is_the_jax_packages(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
-def test_phase_timer_and_metrics_on_the_cpu(tmp_path):
-    """phase_timer times a CPU block on the host clock into a registry a
-    caller owns; dump writes it as jsonl."""
-    reg = profiling.Metrics()
-    with profiling.phase_timer("em", device="cpu", registry=reg,
-                               speakers=3) as row:
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    assert row["seconds"] >= 0 and row["device"] == "cpu"
-    assert reg == [row] and row["speakers"] == 3
-    profiling.record_metric("note", registry=reg, value=1)
-    path = str(tmp_path / "m" / "metrics.jsonl")
-    reg.dump(path)
-    with open(path) as f:
-        lines = f.read().splitlines()
-    assert len(lines) == 2 and '"phase": "note"' in lines[1]
-
-
 def test_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "tr"), device="cpu") as prof:
         torch.randn(32, 32) @ torch.randn(32, 32)
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
     assert len(prof.key_averages()) > 0
-
-
-def test_roofline_uses_the_h100_peaks_and_refuses_the_impossible():
-    """The card's datasheet peaks (chip_smoke.py's: FP32 67 TFLOP/s, HBM3
-    3.35 TB/s) in place of the JAX package's v5e/v4 table; a share above
-    1 raises."""
-    assert profiling.CHIP_PEAKS["h100"]["f32_tflops"] == 67.0
-    assert profiling.CHIP_PEAKS["h100"]["hbm_gbps"] == 3350.0
-    assert "H100" in profiling.CARD and "700 W" in profiling.CARD
-    r = profiling.roofline(flops=6.7e10, bytes_moved=1e6, seconds=2e-3)
-    assert r["bound"] == "compute" and abs(r["fraction_of_roofline"]
-                                           - 0.5) < 1e-12
-    r = profiling.roofline(flops=1e6, bytes_moved=3.35e9, seconds=2e-3)
-    assert r["bound"] == "memory" and abs(r["fraction_of_roofline"]
-                                          - 0.5) < 1e-12
-    with pytest.raises(ValueError, match="impossible"):
-        profiling.roofline(flops=6.7e10, bytes_moved=1e6, seconds=5e-4)
 
 
 def _model(tmp_path, d=4, K=3):
