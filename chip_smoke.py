@@ -19,14 +19,22 @@ raises and the exit code is non-zero):
      utterance; two calls bitwise; its raw-autocorrelation mode (the LPC
      cepstra's) at the bench batch, at 16 and 22.05 kHz, at 48 kHz with
      fft_size 4096 and at 96 kHz with fft_size 8192
-  3. bank-scoring kernel vs plain, two calls bitwise: the 4 x 32 bench
-     bank over 512 utterances; an 80 x 256 bank over 8; a 4 x 1024 bank;
-     d = 102 (bob's MFCC + LPC + two deltas at 16 kHz); features that
-     start off a 16-byte boundary
+  3. bank-scoring kernel vs plain, two calls bitwise, each call counted on
+     its route (TENSOR_LAUNCHES: the tensor route, 3 x TF32, up to d = 128):
+     the 4 x 32 bench bank over 512 utterances; an 80 x 256 bank over 8; a
+     4 x 1024 bank; d = 102 (bob's MFCC + LPC + two deltas at 16 kHz, the
+     tensor route in chunks); d = 200 (the wide route); features that
+     start off a 16-byte boundary; the
+     benchmark cells' banks (80 x 32 and 4 x 32 at d = 38) over 512 x 311
+     frames, with a frame under the -745 floor, also against float64
+     (TENSOR_F64_ATOL; one TF32 term TENSOR_APART gates away)
   4. slice 1: `cli -t predict` on the fixture wavs, scores_batch against
      the JAX package's scores, both kernels' launch counts
   5. timing (CUDA events, median of 7 trials): end-to-end predict_scores at
-     the bench geometry, each kernel and its plain version
+     the bench geometry, each kernel and its plain version; K2's tensor
+     route at the benchmark cells' shapes (512 x 311 frames, d = 38,
+     80 x 32 and 4 x 32) beside its yardstick bound (three TF32 passes at
+     the TF32 peak) and its plain version, its route counter checked
   6. serial kernel (one clustered launch) vs plain: the bench bank + UBM
      on one 5 s utterance, an 80 x 256 bank + UBM on 3 s, a 150 s clip,
      the underflow floor, no valid frame, one speaker, features off a
@@ -297,6 +305,21 @@ ACORR_RTOL = 1e-4
 # Scoring: both sum 2d products per component in f32 in different orders;
 # the [B, S] averages agree to ~1e-6 relative, 1e-4 bounds them.
 SCORE_RTOL = 1e-4
+# The benchmark cells' banks (perfbench/configs: 80 x 32 and 4 x 32 at
+# d = 38) over 512 utterances of 311 frames (5 s at 8 kHz, 16 ms shift)
+CELL_BANKS, CELL_DIM, CELL_FRAMES = ((80, 32), (4, 32)), 38, 311
+# K2's tensor route (3 x TF32) at the cells' banks against the float64
+# averages of the same f32 operands, absolute. Measured on the H100 (d =
+# 38, Gaussian features, a frame under the floor, 512 x 311 frames): the
+# route 2.9-3.2e-5, the FP32 route before it 1.3-1.4e-5, torch's f32
+# product 3.0-4.3e-5; the route with its sums carried in the accumulators
+# from cw 1.06-1.16e-4 (the tensor cores' adder truncates); one TF32 term
+# 6.6e-4-1.5e-3. The gate lies between the route and both.
+TENSOR_F64_ATOL = 8e-5
+# ... and one TF32 term (both operands rounded to TF32, the products
+# summed exactly) must lie at least TENSOR_APART of that gate away: a
+# route that lost two of its three terms fails it
+TENSOR_APART = 3.0
 # Against the JAX package's CPU scores (different frontend arithmetic on
 # another device): the fixture's agreement on the CPU is ~3e-5.
 SLICE_RTOL = 1e-3
@@ -691,21 +714,72 @@ def bf16_apart(what: str, dists: dict, tol: float) -> str:
         + f"{min(dists.values()) / tol:.1f}x)")
 
 
+def f64_averages(bank, X, mask, one_term=False):
+    """The [B, S] average log-likelihoods of the f32 operands in float64
+    (x^2 formed in float64), 32 utterances at a time; one_term: [x^2 | x]
+    (x^2 in f32) and op rounded to TF32 first, as one TF32 term takes them,
+    the products summed exactly."""
+    S, K = bank.n_speakers, bank.n_mixtures
+    B, T, _ = X.shape
+    op, cw = bank.op.double(), bank.cw.double()
+    if one_term:
+        op = gmm.round_tf32(bank.op).double()
+    out = torch.empty((B, S), dtype=torch.float64, device=X.device)
+    m = mask.double()
+    for b0 in range(0, B, 32):
+        x = X[b0:b0 + 32]
+        if one_term:
+            Z = gmm.round_tf32(torch.cat([x * x, x], -1)).double()
+        else:
+            x64 = x.double()
+            Z = torch.cat([x64 * x64, x64], -1)
+        lse = gmm._floored_lse((Z @ op + cw).reshape(*x.shape[:-1], S, K),
+                               1e-15)
+        w = m[b0:b0 + 32]
+        out[b0:b0 + 32] = (torch.einsum("bts,bt->bs", lse, w)
+                           / w.sum(-1).clamp_min(1.0)[:, None])
+    return out
+
+
+def tensor_gate(name, bank, feats, mask, got) -> str:
+    """K2's tensor route against float64 within TENSOR_F64_ATOL, one TF32
+    term at least TENSOR_APART gates away; returns both for the check's
+    line."""
+    exact = f64_averages(bank, feats, mask)
+    err = float((got.double() - exact).abs().max())
+    one = float((f64_averages(bank, feats, mask, one_term=True)
+                 - exact).abs().max())
+    if not err <= TENSOR_F64_ATOL:
+        raise AssertionError(f"{name}: the tensor route lies {err:.3e} from "
+                             f"float64, past {TENSOR_F64_ATOL:g}")
+    if not one >= TENSOR_APART * TENSOR_F64_ATOL:
+        raise AssertionError(
+            f"{name}: one TF32 term lies {one:.3e} from float64, under "
+            f"{TENSOR_APART:g} x the gate {TENSOR_F64_ATOL:g}: the gate "
+            "cannot tell three terms from one")
+    return (f"; from float64 {err:.3e} (gate {TENSOR_F64_ATOL:g}), one TF32 "
+            f"term {one:.3e} ({one / TENSOR_F64_ATOL:.1f}x the gate)")
+
+
 def check_scoring(name, bank, feats, mask, phase=3,
-                  precision="f32") -> float:
+                  precision="f32", f64_gate=False) -> float:
     """The batched scoring kernel at `precision` vs its plain version:
     SCORE_RTOL (SCORE_BF16_RTOL at bf16, where the f32 mode and K3's x^2
     rounding must lie BF16_APART gates away), the same argmax, two calls
-    bitwise, two launches counted; returns the max abs error."""
+    bitwise, two launches counted; f64_gate (f32 on the tensor route): also
+    tensor_gate. Returns the max abs error."""
     bf16 = precision == "bf16"
     counter = "BF16_LAUNCHES" if bf16 else "LAUNCHES"
     tol = SCORE_BF16_RTOL if bf16 else SCORE_RTOL
     before = getattr(gpu_gmm, counter)
+    tensor_before = gpu_gmm.TENSOR_LAUNCHES
     got = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask,
                                         precision=precision)
     again = gpu_gmm.batch_bank_avg_loglik(bank, feats, mask,
                                           precision=precision)
     launched = getattr(gpu_gmm, counter) - before
+    tensor = gpu_gmm.TENSOR_LAUNCHES - tensor_before
+    on_route = not bf16 and feats.shape[-1] <= gpu_gmm.TENSOR_MAX_DIM
     want = gpu_gmm.batch_bank_avg_loglik_reference(bank, feats, mask,
                                                    precision=precision)
     torch.cuda.synchronize()
@@ -721,14 +795,22 @@ def check_scoring(name, bank, feats, mask, phase=3,
         "K3's x^2 rounding": max_rel(swapped_rounding(bank, feats, mask,
                                                       True), want)},
         tol) if bf16 else ""
+    if f64_gate:
+        if not on_route:
+            raise AssertionError(f"{name}: the float64 gate is the tensor "
+                                 "route's")
+        apart = tensor_gate(name, bank, feats, mask, got)
     mode = "K2 bf16 " if bf16 else ""
     print(f"phase {phase} {mode}{name}: [B, S] {tuple(got.shape)} d "
           f"{feats.shape[-1]} K "
           f"{bank.n_mixtures} max|d| {d.max().item():.3e} max rel {rel:.3e} "
           f"(tol {tol}) argmax identical {same} launches {launched} "
-          f"two calls bitwise equal {bitwise}{apart}", flush=True)
+          f"(tensor route {tensor}) two calls bitwise equal {bitwise}{apart}",
+          flush=True)
     if rel > tol or not same or not bitwise or launched != 2:
         raise AssertionError(f"{name}: scoring kernel disagrees with plain")
+    if tensor != (2 if on_route else 0):
+        raise AssertionError(f"{name}: {tensor} launches on the tensor route")
     return d.max().item()
 
 
@@ -3587,17 +3669,41 @@ def main(argv=None):
     f64, m64 = feats[:64].contiguous(), mask[:64].contiguous()
     err_gmm = max(err_gmm, check_scoring("bank 4 x 1024, B=64", k1024_bank,
                                          f64, m64))
-    # d = 102: bob's 19 cepstra + LPC-15 with two deltas, one frame a lane
+    # d = 102: bob's 19 cepstra + LPC-15 with two deltas, the tensor route
+    # in chunks of 8 k-steps
     cfg102 = FeatureConfig(mfcc=bob_mfcc_config(), n_deltas=2)
     f102, m102 = extract.extract_batch(s16, l16, 16000, cfg102)
     bank102 = random_bank(rng, 4, 32, cfg102.dim, dev)
     err_gmm = max(err_gmm, check_scoring(
         f"bank 4 x 32 at d = {cfg102.dim} (16 kHz)", bank102, f102, m102))
+    # the checks of K2's routes below draw from a stream of their own, so
+    # that the phases after them see the same data as without them
+    k2_rng = np.random.RandomState(args.seed + 1)
+    # d = 200: past the tensor route, one frame a lane (the wide route)
+    f200 = torch.from_numpy(k2_rng.randn(16, 311, 200).astype(
+        np.float32)).to(dev)
+    err_gmm = max(err_gmm, check_scoring(
+        "bank 4 x 32 at d = 200 (the wide route)",
+        random_bank(k2_rng, 4, 32, 200, dev), f200,
+        torch.ones((16, 311), dtype=torch.bool, device=dev)))
     # a contiguous view one float into its storage: rows off the 16-byte
     # boundary the vector loads need
     err_gmm = max(err_gmm, check_scoring(
         "bench bank 4 x 32, B=64, features 4 bytes off alignment",
         bench_bank, off_alignment(f64), m64))
+    # the benchmark cells' banks on CMVN'd-scale features, one frame far
+    # from every mean (under the -745 floor)
+    cell_x = torch.from_numpy(k2_rng.randn(
+        BENCH_B, CELL_FRAMES, CELL_DIM).astype(np.float32)).to(dev)
+    cell_x[0, 3] = 40.0
+    cell_m = torch.ones((BENCH_B, CELL_FRAMES), dtype=torch.bool, device=dev)
+    cell_banks = {}
+    for S_c, K_c in CELL_BANKS:
+        cell_banks[S_c, K_c] = random_bank(k2_rng, S_c, K_c, CELL_DIM, dev)
+        err_gmm = max(err_gmm, check_scoring(
+            f"a benchmark cell's bank {S_c} x {K_c} at d = {CELL_DIM}, "
+            f"{BENCH_B} x {CELL_FRAMES} frames", cell_banks[S_c, K_c],
+            cell_x, cell_m, f64_gate=True))
 
     # 4. the slice through the entry points, on the fixture session
     exp = synth.expected()
@@ -3673,6 +3779,28 @@ def main(argv=None):
           f"{t['gmm_ubm']:.3f} ms, plain {t['gmm_ubm_plain']:.3f} ms; "
           f"4 x 1024 bank, B=64: {t['gmm_k1024']:.3f} ms, plain "
           f"{t['gmm_k1024_plain']:.3f} ms")
+    # K2's tensor route at the benchmark cells' shapes; its bound the three
+    # TF32 passes of the product at the TF32 peak (perfbench/yardstick)
+    for (S_c, K_c), cbank in cell_banks.items():
+        k2_before = (gpu_gmm.TENSOR_LAUNCHES, gpu_gmm.LAUNCHES)
+        k2 = time_ms(lambda: gpu_gmm.batch_bank_avg_loglik(cbank, cell_x,
+                                                            cell_m))
+        on_route = (gpu_gmm.TENSOR_LAUNCHES - k2_before[0],
+                    gpu_gmm.LAUNCHES - k2_before[1])
+        plain = time_ms(lambda: gpu_gmm.batch_bank_avg_loglik_reference(
+            cbank, cell_x, cell_m))
+        b = bound(0.0, 4.0 * BENCH_B * CELL_FRAMES * (CELL_DIM + 1),
+                  tf32_flops=3 * 4.0 * CELL_DIM * S_c * K_c * BENCH_B
+                  * CELL_FRAMES)
+        print(f"phase 5 [{card}] K2 tensor route {S_c} x {K_c} bank, d = "
+              f"{CELL_DIM}, {BENCH_B} x {CELL_FRAMES} frames: {k2:.3f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+              f"{100 * b['bound_ms'] / k2:.1f}% of it), plain {plain:.3f} ms; "
+              f"tensor-route launches {on_route[0]} of {on_route[1]}",
+              flush=True)
+        if on_route[0] != on_route[1] or on_route[0] < 1:
+            raise AssertionError(f"K2 at {S_c} x {K_c}: {on_route[0]} of "
+                                 f"{on_route[1]} launches on the tensor route")
 
     # 6. serial kernel vs plain, at the serial path's shapes
     err_serial = 0.0
@@ -4911,9 +5039,10 @@ def main(argv=None):
             frontend_flops(valid8, fe8c.n_fft, (fe8c.fft_mel, fe8c.fft_acorr),
                            nceps, window=3 * fe8c.frame_len),
             4 * B8 * Lp8 + op_bytes + 4 * B8 * T8 * (nceps + nac)),
-        "bank_avg_loglik": bound(score_flops(valid8, d, SK),
-                                 4 * B8 * T8 * d + B8 * T8 + bank_bytes
-                                 + 4 * B8 * bench_bank.n_speakers),
+        # K2's tensor route: the product in three TF32 passes
+        "bank_avg_loglik": bound(0.0, 4 * B8 * T8 * d + B8 * T8 + bank_bytes
+                                 + 4 * B8 * bench_bank.n_speakers,
+                                 tf32_flops=3 * score_flops(valid8, d, SK)),
         "bank_sum_loglik": bound(
             score_flops(int(m5.sum()), d, sb.n_speakers * sb.n_mixtures),
             4 * x5.numel() + m5.numel() + 4 * (sb.op.numel() + sb.cw.numel())

@@ -123,6 +123,8 @@ def _bind(lib):
     lib.srt_bank_avg_loglik.restype = i
     lib.srt_bank_warp_frames.argtypes = [i]
     lib.srt_bank_warp_frames.restype = i
+    lib.srt_bank_tensor_row.argtypes = [i]
+    lib.srt_bank_tensor_row.restype = i
     lib.srt_bank_sum_loglik.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
     lib.srt_bank_sum_loglik.restype = i
     lib.srt_component_row.argtypes = [i]

@@ -1,7 +1,8 @@
 // Per-frame floored log-likelihoods under a speaker bank's GMMs, shared by
-// csrc/gmm_score.cu (batched bank scoring), csrc/gmm_serial.cu (one
-// utterance) and csrc/predict_fused.cuh (the fused predict monolith's
-// scoring phase).
+// csrc/gmm_serial.cu (one utterance), csrc/predict_fused.cuh (the fused
+// predict monolith's scoring phase) and csrc/gmm_score.cu (batched bank
+// scoring: its wide route, past the tensor route's depth; the bf16 kernels
+// of csrc/gmm_mma.cuh take OnlineLse and RowStream).
 //
 // The scoring kernels read the bank component by component from
 // GmmBank.component_operator: rows [S*K][P], P = 2*DP + 4 floats with DP the
@@ -71,12 +72,15 @@ inline int plan_chunks(int rows, int P, int one_buffer, int* smem) {
 
 // 2^x for x <= 0 by the special-function unit alone (ex2.approx: relative
 // error 2^-22, 0 at -inf), where expf spends seven more instructions on
-// range reduction; the sums it feeds pass through a log afterwards.
+// range reduction; the sums it feeds pass through a log afterwards. The g++
+// stand-in of tests/cuda_standin defines it for the CPU.
+#ifndef CUSIM_ASM
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
+#endif
 
 // logsumexp of the values added so far, one exponential per value and no
 // branch (the lanes of a warp would take both sides): with e =

@@ -61,7 +61,8 @@
 // recursions in registers.
 //
 // ROADMAP precision rule: the tensor cores' TF32 only through the
-// three-term split; torch.backends.cuda.matmul.allow_tf32 stays False.
+// three-term split (csrc/tf32_mma.cuh); torch.backends.cuda.matmul.
+// allow_tf32 stays False.
 
 #pragma once
 
@@ -70,6 +71,7 @@
 
 #include "packed_tile.cuh"
 #include "rfft_tile.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
 namespace sigtile {
@@ -501,30 +503,7 @@ __device__ __forceinline__ void big_fft_frames(const rfft::SignalFrames& s,
   }
 }
 
-// The tensor-core product: tf32(x) rounds to nearest, ties away, as
-// cvt.rna.tf32.f32 does (the low 13 bits cleared after adding half their
-// unit), in two integer operations where the conversion takes the slower
-// conversion pipe; mma_tf32 adds A . B to one m16n8k8 accumulator tile.
-// The g++ stand-in of tests/cuda_standin defines both for the CPU (and
-// prefetch_l2, above).
-#ifndef CUSIM_ASM
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-#endif
-
-// x = hi + lo, both TF32, lo what hi leaves
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
+// The tensor-core product, tf32, mma_tf32 and split: csrc/tf32_mma.cuh.
 
 // Phase 2: the power rows onto the packed operator op (gpu_frontend.
 // signal_operator: ac0, the operator's column of the first autocorrelation

@@ -50,9 +50,9 @@ LOG_SQRT_2_PI = 0.5 * math.log(2.0 * math.pi)
 _UNDERFLOW_LOG = -745.0
 # the scoring operands' precisions (the JAX kernels' `precision`)
 PRECISIONS = ("f32", "bf16")
-# cw of the components the bf16 kernels' layout pads a speaker with: beside
-# any real component exp(PAD_CW - m) is exactly 0, and unlike -inf it never
-# meets another -inf in the online logsumexp (-inf - -inf is NaN)
+# cw of the components the tensor-core kernels' layouts pad a speaker with:
+# beside any real component exp(PAD_CW - m) is exactly 0, and unlike -inf
+# it never meets another -inf in the online logsumexp (-inf - -inf is NaN)
 PAD_CW = -1e30
 
 
@@ -112,6 +112,7 @@ class GmmBank(nn.Module):
         # replaced or written to
         self._comp: tuple | None = None
         self._mma: tuple | None = None
+        self._tf32: tuple | None = None
         self._plans: dict = {}
 
     @property
@@ -171,6 +172,35 @@ class GmmBank(nn.Module):
             self._mma = (self._state(), rows)
         return self._mma[1]
 
+    def tf32_operator(self, row: int, kp: int) -> torch.Tensor:
+        """The batched f32 kernel's tensor-route layout (csrc/gmm_score.cu),
+        [S, kp / 8, row] float32, one row an n8 tile of 8 components: op's
+        terms [a | b] zero-padded to the depth 8 nks, nks = (row - 8) / 128
+        k-steps of mma.sync m16n8k8, split as hi = round_tf32(v) and lo =
+        round_tf32(v - hi); per k-step ks, lane 4 g + t holds (hi(b0),
+        hi(b1), lo(b0), lo(b1)), b0 = component g's term 8 ks + t and b1
+        its term 8 ks + t + 4; the row's last 8 floats are its components'
+        cw. Each speaker's K components are padded to kp (a multiple of 8)
+        with zero terms and cw = PAD_CW. Built once per bank and layout,
+        and again after op or cw changes."""
+        if (not self._fresh(self._tf32)
+                or self._tf32[1].shape[1:] != (kp // 8, row)):
+            nks = (row - 8) // 128
+            d, S, K = self.dim, self.n_speakers, self.n_mixtures
+            terms = self.op.new_zeros((S, kp, 8 * nks))
+            terms[:, :K, :2 * d] = self.op.T.reshape(S, K, 2 * d)
+            hi = round_tf32(terms)
+            # [S, tile, g, ks, half, t] -> [S, tile, ks, g, t, half], depth
+            # 8 ks + 4 half + t of component 8 tile + g
+            frag = [v.view(S, kp // 8, 8, nks, 2, 4).permute(0, 1, 3, 2, 5, 4)
+                    for v in (hi, round_tf32(terms - hi))]
+            cw = self.cw.new_full((S, kp), PAD_CW)
+            cw[:, :K] = self.cw.reshape(S, K)
+            self._tf32 = (self._state(), torch.cat(
+                [torch.cat(frag, -1).reshape(S, kp // 8, 128 * nks),
+                 cw.view(S, kp // 8, 8)], -1))
+        return self._tf32[1]
+
     def scoring_plan(self, make: Callable[["GmmBank", str], object],
                      precision: str = "f32"):
         """What the scoring kernels' wrappers keep of this bank between
@@ -210,6 +240,14 @@ def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """t rounded to bfloat16 (nearest even), in t's dtype again: a product
     of two such values is exact in f32."""
     return t.to(torch.bfloat16).to(t.dtype)
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 t rounded to TF32 as cvt.rna.tf32.f32 rounds it: the low 13
+    bits cleared, to nearest, ties away from zero (the hi of a three-term
+    split, csrc/tf32_mma.cuh; the lo is the rounded t - hi)."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
 
 
 def _operands(bank: GmmBank, X: torch.Tensor, precision: str,

@@ -117,7 +117,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..models.gmm import round_bf16
+from ..models.gmm import round_bf16, round_tf32
 from . import framing, levinson
 
 # kernel launches since the last reset, one count per kernel; the CPU path
@@ -802,27 +802,21 @@ def signal_operator(lib, mel, acorr, n_fft: int) -> torch.Tensor:
     return _cached((mel, acorr), _pack_signal_operator, n_fft, lib)
 
 
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """float32 x rounded to TF32 as cvt.rna.tf32.f32 rounds it: the low 13
-    bits cleared, to nearest, ties away from zero."""
-    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
-        torch.float32)
-
-
 def _pack_signal_operator(mel, acorr, n_fft: int, lib) -> torch.Tensor:
     """The operator as the projection reads it, one float32 tensor on
     mel's device. A block is bins 8 ks .. 8 ks + 7 by an n-tile's 8
     columns of one output chunk of 8 * opl columns, B of mma.sync m16n8k8:
     lane 4 g + t holds (hi(B[t][g]), hi(B[t + 4][g]), lo(B[t][g]), lo(B[t
-    + 4][g])), hi = _tf32(b), lo = _tf32(b - hi); blocks that are all zero
-    are left out. The autocorrelation starts at column ac0, the first
-    column of an n-tile past the mel columns where one output chunk holds
-    it, else nmel. Each (chunk, column group)'s k-steps are cut into
-    ksplit shares of about even block counts, one a warp; the blocks run
-    by chunk, group, share, n-tile, k-step. The header (int32): ac0; runs
-    [chunks * groups * ksplit][n-tiles a group + 1], the first block of
-    each n-tile's run in its share and the end; tags [blocks], each
-    block's k-step; padded to 4; then the blocks, [32][4] floats each."""
+    + 4][g])), hi = round_tf32(b), lo = round_tf32(b - hi); blocks that
+    are all zero are left out. The autocorrelation starts at column ac0,
+    the first column of an n-tile past the mel columns where one output
+    chunk holds it, else nmel. Each (chunk, column group)'s k-steps are
+    cut into ksplit shares of about even block counts, one a warp; the
+    blocks run by chunk, group, share, n-tile, k-step. The header (int32):
+    ac0; runs [chunks * groups * ksplit][n-tiles a group + 1], the first
+    block of each n-tile's run in its share and the end; tags [blocks],
+    each block's k-step; padded to 4; then the blocks, [32][4] floats
+    each."""
     nmel, nac = mel.shape[1], acorr.shape[1]
     shape = [ctypes.c_int() for _ in range(4)]
     if lib.srt_full_signals_operator_shape(
@@ -861,8 +855,8 @@ def _pack_signal_operator(mel, acorr, n_fft: int, lib) -> torch.Tensor:
     # lane 4 g + t: (B[t][g], B[t + 4][g])
     frag = torch.stack([blk[..., :4, :], blk[..., 4:, :]], -1)
     frag = frag.transpose(-3, -2).reshape(*live.shape, 32, 2)[live][order]
-    hi = _tf32(frag)
-    frag = torch.cat([hi, _tf32(frag - hi)], -1)
+    hi = round_tf32(frag)
+    frag = torch.cat([hi, round_tf32(frag - hi)], -1)
     tags = live.nonzero()[order][:, 1]
     starts = torch.zeros(C * G * KS * npw + 1, dtype=torch.long, device=dev)
     starts[1:] = torch.bincount(run[live], minlength=C * G * KS * npw).cumsum(0)

@@ -9,17 +9,27 @@ log(1e-15) underflow floor. Each runs its kernel on a CUDA tensor and its
 plain version (`*_reference`, from models/gmm) on a CPU tensor; any other
 device raises.
 
-Both kernels are bound by FP32 operations (2*d FMAs per frame and
-component) and share one inner loop (csrc/gmm_lse.cuh): a lane keeps its
-frames in registers, the bank's components arrive as 16-byte rows
-(`GmmBank.component_operator`, packed once per bank) that stream through
-shared memory in chunks, and the logsumexp runs online across chunks. So
-neither the feature dimension nor the number of components has a cap:
-past a padded d of 128 the frame stays in device memory (a route chosen
-on the shape, no fallback). Neither the batch nor the bank has a cap
-either: past the grid's 65535 utterances (batched) or speakers (serial) a
-call launches once per 65535. Every sum runs in a fixed order with no
-atomics: two calls give the same bits.
+Both are bound by the product [x^2 | x] . [a | b] (2*d multiply-adds per
+frame and component). The batched kernel takes it on the tensor cores
+wherever d <= TENSOR_MAX_DIM: mma.sync TF32 in three terms (lo.hi + hi.lo
++ hi.hi, csrc/tf32_mma.cuh) summed in parts, each from zero, cw last (the
+tensor cores' adder truncates), a warp's frames split into fragments
+(once, in registers, up to d = 80; again for each group of components, in
+chunks of the depth, beyond) and the bank split once per bank
+(`GmmBank.tf32_operator`), with the logsumexp fused behind it; counted in
+TENSOR_LAUNCHES as well as LAUNCHES. On an H100 its averages lie within
+1e-4 of float64 at every such d (Gaussian features, 7.4e-5 the most
+measured; 0.4-4.1e-5 on the CUDA cores, 3.7-4.0e-5 torch's f32 product at
+d = 38; csrc/gmm_score.cu). Past that depth it takes the wide route on the CUDA cores (the
+frame and the component rows of `GmmBank.component_operator` read from
+device memory): a route chosen on the shape alone, no fallback. The
+serial kernel keeps the CUDA cores (csrc/gmm_lse.cuh: a lane's frames in
+registers, the 16-byte component rows streamed through shared memory, the
+logsumexp online across chunks). Neither the feature dimension nor the
+number of components has a cap, nor the batch or the bank: the batched
+grid is its flattened warp tiles, and past the grid's 65535 speakers the
+serial kernel launches once per 65535. Every sum runs in a fixed order
+with no atomics: two calls give the same bits.
 
 `precision="bf16"` (the JAX kernels' argument, ops/pallas_gmm.py:100,
 :211; `bank_avg_loglik` has none, as in the JAX package) rounds the
@@ -63,6 +73,8 @@ from ..utils.profiling import span
 # (gmm_serial.cu); the CPU path does not count
 LAUNCHES = 0
 SERIAL_LAUNCHES = 0
+# of LAUNCHES, those on the tensor route (d <= TENSOR_MAX_DIM)
+TENSOR_LAUNCHES = 0
 # the same, precision="bf16" (gmm_score_bf16.cu, gmm_serial_bf16.cu)
 BF16_LAUNCHES = 0
 SERIAL_BF16_LAUNCHES = 0
@@ -72,9 +84,13 @@ F64_CALLS = 0
 # batch_scores calls and the frames they scored (B * T a call), every route
 SCORED_CALLS = 0
 SCORED_FRAMES = 0
+# the batched f32 kernel's tensor route takes 2d <= 256 (csrc/gmm_score.cu
+# MAX_KS k-steps of 8; the library's srt_bank_tensor_row agrees)
+TENSOR_MAX_DIM = 128
 
 __all__ = ["BF16_LAUNCHES", "F64_CALLS", "LAUNCHES", "SCORED_CALLS",
            "SCORED_FRAMES", "SERIAL_BF16_LAUNCHES", "SERIAL_LAUNCHES",
+           "TENSOR_LAUNCHES", "TENSOR_MAX_DIM",
            "bank_avg_loglik", "bank_avg_loglik_reference", "bank_sum_loglik",
            "bank_sum_loglik_reference", "batch_bank_avg_loglik",
            "batch_bank_avg_loglik_reference", "batch_scores",
@@ -88,6 +104,9 @@ class _Plan(NamedTuple):
     lib: object             # the kernels' ctypes library
     comp: torch.Tensor      # the component rows (keeps comp_ptr valid):
     comp_ptr: int           # [S, K, row] f32, or [S, kp, row] bf16
+    batch_ptr: int          # what the batched kernel reads (comp's, or
+    # on the f32 tensor route tensor's: GmmBank.tf32_operator, else None)
+    tensor: torch.Tensor | None
     device: torch.device
     index: int              # the device's ordinal
     S: int
@@ -104,6 +123,7 @@ def _make_plan(bank: GmmBank, precision: str = "f32") -> _Plan:
     _build.check_tensor(bank.cw, "bank.cw", torch.float32, 1, dev)
     lib = _build.load()
     d = bank.dim
+    tensor = None
     if precision == "bf16":
         comp = bank.mma_operator(lib.srt_mma_row(d),
                                  lib.srt_mma_components(bank.n_mixtures))
@@ -111,9 +131,14 @@ def _make_plan(bank: GmmBank, precision: str = "f32") -> _Plan:
     else:
         comp = bank.component_operator(lib.srt_component_row(d))
         warp_frames = lib.srt_bank_warp_frames(d)
+        row = lib.srt_bank_tensor_row(d)
+        if row > 0:
+            tensor = bank.tf32_operator(row, -(-bank.n_mixtures // 8) * 8)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    return _Plan(lib, comp, comp.data_ptr(), torch.device("cuda", index),
-                 index, bank.n_speakers, bank.n_mixtures, d, warp_frames)
+    return _Plan(lib, comp, comp.data_ptr(),
+                 (comp if tensor is None else tensor).data_ptr(), tensor,
+                 torch.device("cuda", index), index, bank.n_speakers,
+                 bank.n_mixtures, d, warp_frames)
 
 
 def _check_precision(precision: str):
@@ -177,15 +202,17 @@ def batch_bank_avg_loglik(bank: GmmBank, feats: torch.Tensor,
     ptr = buf.data_ptr()
     launch = (plan.lib.srt_bank_avg_loglik_bf16 if bf16
               else plan.lib.srt_bank_avg_loglik)
-    err = launch(feats.data_ptr(), mask.data_ptr(), plan.comp_ptr,
+    err = launch(feats.data_ptr(), mask.data_ptr(), plan.batch_ptr,
                  ptr + 4 * B * S, ptr, B, T, d, S, plan.K, plan.index,
                  _stream(plan))
     _build.check(err, "bank scoring kernel")
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, TENSOR_LAUNCHES, BF16_LAUNCHES
     if bf16:
         BF16_LAUNCHES += 1
     else:
         LAUNCHES += 1
+        if plan.tensor is not None:
+            TENSOR_LAUNCHES += 1
     return out
 
 

@@ -359,7 +359,7 @@ SIGNAL_VARIANTS = {
     # the split's rounding by cvt.rna.tf32.f32 in place of integer
     # operations (the same bits)
     "cvt_split": [
-        ("signal_tile.cuh",
+        ("tf32_mma.cuh",
          "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
          "  uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(r) : "
          "\"f\"(x));\n  return r;")],
@@ -370,7 +370,8 @@ SIGNAL_VARIANTS = {
              "(s2,", "(acc[jn],"))],
 }
 SIGNAL_SOURCES = ("rfft_tile.cuh", "packed_tile.cuh", "signal_tile.cuh",
-                  "frontend_full_signals.cu", "frontend_fft.cu")
+                  "tf32_mma.cuh", "frontend_full_signals.cu",
+                  "frontend_fft.cu")
 
 def bind(lib) -> None:
     """The argument types of K5's and K1's C interfaces."""

@@ -140,7 +140,7 @@ def main():
 
     def raw_batch():
         return lib.srt_bank_avg_loglik(
-            feats.data_ptr(), mask.data_ptr(), plan2.comp_ptr,
+            feats.data_ptr(), mask.data_ptr(), plan2.batch_ptr,
             buf.data_ptr() + 4 * 512 * 4, buf.data_ptr(), 512, T, 28, 4, 32,
             0, stream)
     # ~0.1 ms of device time a call: 100 calls (200 launches) a round

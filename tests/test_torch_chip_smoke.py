@@ -149,6 +149,17 @@ def _precision_counter(f32: str, bf16: str):
         (bf16,) if precision == "bf16" else (f32,))
 
 
+def _batch_counter(bank, feats, mask, precision="f32"):
+    """The counters K2's launch moves: BF16_LAUNCHES at bf16, else
+    LAUNCHES, and TENSOR_LAUNCHES too where its depth takes the tensor
+    route (d <= gpu_gmm.TENSOR_MAX_DIM)."""
+    if precision == "bf16":
+        return ("BF16_LAUNCHES",)
+    if feats.shape[-1] <= gpu_gmm.TENSOR_MAX_DIM:
+        return ("LAUNCHES", "TENSOR_LAUNCHES")
+    return ("LAUNCHES",)
+
+
 def _fft_past_512(name, fft_plain):
     """gpu_frontend.name, but past 512 mel + autocorrelation outputs the FFT
     route's plain version: what the card's chunked kernel computes, held
@@ -271,8 +282,7 @@ def main():
         _counting(gpu_frontend, name,
                   stand_ins.get(name, getattr(gpu_frontend, name)), counter)
     for mod, name, counter in (
-            (gpu_gmm, "batch_bank_avg_loglik",
-             _precision_counter("LAUNCHES", "BF16_LAUNCHES")),
+            (gpu_gmm, "batch_bank_avg_loglik", _batch_counter),
             (gpu_gmm, "bank_sum_loglik",
              _precision_counter("SERIAL_LAUNCHES", "SERIAL_BF16_LAUNCHES")),
             (gpu_gmm, "bank_avg_loglik", "SERIAL_LAUNCHES")):

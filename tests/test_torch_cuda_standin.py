@@ -21,12 +21,17 @@ LPC-cepstra mode (csrc/frontend_lpcc_signals.cu: the same tile with the
 power unfloored, the LPC cepstra in its tail) at 8 and 16 kHz, both
 orders of the pre-emphasis, with CMVN off and on (the stand-in runs the
 CMVN kernel's 2-D blocks and static shared arrays), and a model of the
-four-step route's projection sums at 2^22-2^24 points. It
+four-step route's projection sums at 2^22-2^24 points. Also the batched
+bank scoring, csrc/gmm_score.cu (K2: its tensor route's 3 x TF32 mma.sync
+through the stand-in's warp exchange, the fused logsumexp over the
+quads' butterflies, the floor; its wide route), through its C entry point
+and through ops/gpu_gmm's wrapper and counters. It
 checks the kernels' index maps, barriers and exchanges as the source
 states them; what nvcc or the card make of them shows only on the card
 (chip_smoke.py phases 15 and 16). Skips without g++."""
 
 import ctypes
+import functools
 import os
 import re
 import shutil
@@ -44,7 +49,9 @@ from speaker_recognition_tpu_torch.config import (  # noqa: E402
 from speaker_recognition_tpu_torch.features import extract as text  # noqa: E402
 from speaker_recognition_tpu_torch.features.extract import (  # noqa: E402
     FullFrontend)
-from speaker_recognition_tpu_torch.ops import gpu_frontend  # noqa: E402
+from speaker_recognition_tpu_torch.models.gmm import GmmBank  # noqa: E402
+from speaker_recognition_tpu_torch.ops import (  # noqa: E402
+    gpu_frontend, gpu_gmm)
 from speaker_recognition_tpu_torch.ops import framing, levinson  # noqa: E402
 from speaker_recognition_tpu_torch.ops import frontend as operators  # noqa: E402
 from speaker_recognition_tpu_torch.testdata import synth  # noqa: E402
@@ -53,7 +60,7 @@ STANDIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                        "cuda_standin")
 SOURCES = ("rfft_cluster.cu", "frontend_big.cu", "frontend_chirp_cluster.cu",
            "frontend_full_signals.cu", "frontend.cu", "frontend_fft.cu",
-           "frontend_lpcc_signals.cu")
+           "frontend_lpcc_signals.cu", "gmm_score.cu")
 
 
 def _rewrite(src: str) -> str:
@@ -123,6 +130,9 @@ def lib(tmp_path_factory):
     lib.srt_full_signals_operator_shape.argtypes = [i_, i_, ip, ip, ip, ip]
     lib.srt_fft_wide_floats.argtypes = [ctypes.c_longlong, i_]
     lib.srt_fft_wide_floats.restype = ctypes.c_longlong
+    lib.srt_bank_avg_loglik.argtypes = [p_] * 5 + [i_] * 6 + [p_]
+    lib.srt_bank_tensor_row.argtypes = [i_]
+    lib.srt_bank_warp_frames.argtypes = [i_]
     return lib
 
 
@@ -562,3 +572,223 @@ def test_projection_sums_hold_at_the_four_step_reach(lib, lg):
     assert (np.abs(_lpc64(np.array(sums["split"][:-1])) - ex) <= gate).all()
     if lg == 24:
         assert (np.abs(_lpc64(np.array(sums["one"][:-1])) - ex) > gate).any()
+
+
+def _k2_case(S, K, d, n_valid, T, seed):
+    """A bank of S x K (the chip's random_bank: Dirichlet weights, Gaussian
+    means, sigmas in [0.5, 1.5]), [B, T, d] Gaussian features with
+    n_valid[b] valid frames and, in the first utterance, one frame far from
+    every mean (its logsumexp under the -745 floor)."""
+    rng = np.random.RandomState(seed)
+    bank = GmmBank.from_numpy(
+        rng.dirichlet(np.ones(K), size=S).astype(np.float32),
+        rng.randn(S, K, d).astype(np.float32),
+        (0.5 + rng.rand(S, K, d)).astype(np.float32), "cpu")
+    x = rng.randn(len(n_valid), T, d).astype(np.float32)
+    x[0, 3] = 60.0
+    mask = np.arange(T)[None] < np.asarray(n_valid)[:, None]
+    return bank, torch.from_numpy(x), torch.from_numpy(mask)
+
+
+def _k2_call(lib, bank, x, mask):
+    """srt_bank_avg_loglik on the bank as the route of d reads it, the
+    output and scratch written over NaN."""
+    B, T, d = x.shape
+    S, K = bank.n_speakers, bank.n_mixtures
+    row = lib.srt_bank_tensor_row(d)
+    comp = (bank.tf32_operator(row, -(-K // 8) * 8) if row > 0
+            else bank.component_operator(2 * (-(-d // 4) * 4) + 4))
+    nw = max(1, -(-T // lib.srt_bank_warp_frames(d)))
+    buf = torch.full((B * S + B * nw * (S + 1),), float("nan"))
+    assert lib.srt_bank_avg_loglik(
+        x.data_ptr(), mask.data_ptr(), comp.data_ptr(),
+        buf.data_ptr() + 4 * B * S, buf.data_ptr(), B, T, d, S, K, 0,
+        None) == 0
+    return buf[:B * S].view(B, S).clone()
+
+
+def test_k2_routes_by_depth(lib):
+    """The tensor route takes 2d <= 256 (gpu_gmm.TENSOR_MAX_DIM), its
+    k-steps of 8 padded with zero terms to an instance's depth (5, 10, 20,
+    then multiples of 2), two m16 tiles (32 frames) a warp up to 2d = 80
+    and one (16 frames) beyond; the wide route takes the rest, 32 frames a
+    warp."""
+    for d in range(1, 200):
+        row = lib.srt_bank_tensor_row(d)
+        assert (row > 0) == (d <= gpu_gmm.TENSOR_MAX_DIM), d
+        if row > 0:
+            ks = -(-2 * d // 8)
+            padded = next((n for n in (5, 10, 20) if ks <= n),
+                          -(-ks // 2) * 2)
+            assert row == 128 * padded + 8
+        assert lib.srt_bank_warp_frames(d) == (16 if 40 < d <= 128 else 32)
+    assert lib.srt_bank_tensor_row(0) == -1
+
+
+@pytest.mark.parametrize("S,K,d,n_valid,T", [
+    (5, 32, 38, [70, 33, 0], 70), (1, 5, 38, [40, 17], 40),
+    (3, 40, 38, [40, 17], 40), (3, 32, 28, [40, 9], 40),
+    (2, 32, 80, [40, 17], 40), (2, 32, 100, [40, 17], 40),
+    (2, 8, 128, [40, 17], 40), (2, 8, 132, [40, 17], 40)],
+    ids=["ragged_padded_tiles_groups", "one_speaker_k5", "k40_groups",
+         "d28", "deepest_in_registers", "chunked", "largest_depth", "wide"])
+def test_k2_on_the_standin(lib, S, K, d, n_valid, T):
+    """srt_bank_avg_loglik against batch_bank_avg_loglik_reference: a ragged
+    batch with wholly padded warp tiles (a block whose one live tile's
+    speakers its 4 warps share) and an utterance with no valid frame (0),
+    T not a multiple of a warp's frames, S not a multiple of
+    the speaker group (the stand-in's 4 SMs split 5 speakers 3 + 2 over
+    grid.z), one speaker, K = 5 padded to 8 with PAD_CW, K = 40 (a
+    speaker's 5 n8 tiles: a group of 4, then one tile, the logsumexp
+    carried between them), d = 38 (the cells'), d = 28, the deepest d whose
+    fragments stay in registers (80, one m16 tile a warp), d = 100 (25
+    k-steps in chunks of 8: a partial last chunk), the route's largest d
+    (128) and d = 132 on the wide route; the far frame at the floor; two
+    calls bitwise."""
+    bank, x, mask = _k2_case(S, K, d, n_valid, T, S * 100 + K + d)
+    got = _k2_call(lib, bank, x, mask)
+    assert torch.equal(got, _k2_call(lib, bank, x, mask))
+    want = gpu_gmm.batch_bank_avg_loglik_reference(bank, x, mask)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert (got[torch.tensor(n_valid) == 0] == 0).all()
+
+
+def _chip_smoke_constant(name):
+    """A constant of chip_smoke.py (the card's gates)."""
+    path = os.path.join(os.path.dirname(STANDIN), os.pardir, "chip_smoke.py")
+    with open(path) as f:
+        return float(re.search(rf"^{name} = (\S+)$", f.read(), re.M)[1])
+
+
+@pytest.mark.parametrize("d", [38, 128])
+def test_k2_tensor_route_holds_float64(lib, d):
+    """The tensor route on the stand-in's model of the tensor cores' adder
+    (each mma.sync's terms aligned to the largest and cut toward zero,
+    which the card does) against the float64 averages of the same f32
+    operands, within chip_smoke.py's TENSOR_F64_ATOL: at the cells' d = 38
+    and at the route's largest d, where sums carried across 32 k-steps in
+    the accumulators would err ~1e-3 (csrc/tf32_mma.cuh)."""
+    bank, x, mask = _k2_case(2, 8, d, [48, 31], 48, 11 + d)
+    got = _k2_call(lib, bank, x, mask).double()
+    x64, m = x.double(), mask.double()
+    B, T, _ = x.shape
+    lp = (torch.cat([x64 * x64, x64], -1) @ bank.op.double()
+          + bank.cw.double()).reshape(B, T, 2, 8)
+    lse = torch.logsumexp(lp, -1)
+    lse = torch.where(lse > -745.0, lse, torch.full_like(lse, np.log(1e-15)))
+    exact = torch.einsum("bts,bt->bs", lse, m) / m.sum(-1)[:, None]
+    err = (got - exact).abs().max().item()
+    print(f"d = {d}: the tensor route against float64 {err:.2e}")
+    assert err <= _chip_smoke_constant("TENSOR_F64_ATOL")
+
+
+class _CudaTyped(torch.Tensor):
+    """A CPU tensor that reports the card, to reach a wrapper's kernel
+    branch."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _K2Lib:
+    """The stand-in library's batched scoring for ops/gpu_gmm, the entry
+    points it lacks (the serial and bf16 kernels' layouts and launches)
+    recorded instead of run."""
+
+    def __init__(self, lib):
+        self.lib, self.recorded = lib, []
+        self.srt_bank_avg_loglik = lib.srt_bank_avg_loglik
+        self.srt_bank_tensor_row = lib.srt_bank_tensor_row
+        self.srt_bank_warp_frames = lib.srt_bank_warp_frames
+
+    def __getattr__(self, name):
+        if name.endswith("_loglik") or name.endswith("_loglik_bf16"):
+            return lambda *a: self.recorded.append(name) or 0
+        raise AttributeError(name)
+
+    @staticmethod
+    def srt_component_row(d):
+        return 2 * (-(-d // 4) * 4) + 4
+
+    @staticmethod
+    def srt_mma_row(d):
+        return 2 * ((2 * d + 15) // 16 * 16 // 2 + 4)
+
+    @staticmethod
+    def srt_mma_components(K):
+        return -(-K // 8) * 8
+
+    @staticmethod
+    def srt_bank_bf16_warp_frames():
+        return 32
+
+
+def test_k2_route_counter(lib, monkeypatch):
+    """TENSOR_LAUNCHES moves on every batched f32 call whose depth the
+    tensor route takes (batch_bank_avg_loglik, and batch_scores, the
+    serving path's call), beside LAUNCHES, and not on the wide route; the
+    serial kernel's, the bf16 kernels' and the fused monolith's counters
+    do not move, and those calls leave TENSOR_LAUNCHES alone. The wrapper
+    runs the stand-in's kernel on the tensor route's operator, which it
+    packs once per bank (GmmBank.tf32_operator)."""
+    from speaker_recognition_tpu_torch.ops import gpu_predict
+    fake = _K2Lib(lib)
+    monkeypatch.setattr(_build, "load", lambda: fake)
+    monkeypatch.setattr(gpu_gmm, "_stream", lambda plan: 0)
+    for name in ("empty", "zeros"):  # the allocations on plan.device
+        monkeypatch.setattr(torch, name, functools.partial(
+            lambda f, *a, device=None, **k: f(*a, **k), getattr(torch, name)))
+
+    def cuda(bank, x, mask):
+        return (GmmBank(bank.op.as_subclass(_CudaTyped),
+                        bank.cw.as_subclass(_CudaTyped), bank.n_speakers,
+                        bank.n_mixtures),
+                x.as_subclass(_CudaTyped), mask.as_subclass(_CudaTyped))
+
+    names = ("LAUNCHES", "TENSOR_LAUNCHES", "BF16_LAUNCHES",
+             "SERIAL_LAUNCHES", "SERIAL_BF16_LAUNCHES")
+    fused = ("LAUNCHES", "WIDE_LAUNCHES", "BF16_LAUNCHES")
+
+    def moved(fn):
+        before = [getattr(gpu_gmm, n) for n in names]
+        before_fused = [getattr(gpu_predict, n) for n in fused]
+        out = fn()
+        assert [getattr(gpu_predict, n) for n in fused] == before_fused
+        return out, {n: getattr(gpu_gmm, n) - b
+                     for n, b in zip(names, before)
+                     if getattr(gpu_gmm, n) != b}
+
+    plain = _k2_case(3, 32, 38, [40, 17], 40, 7)
+    bank, x, mask = cuda(*plain)
+    want = gpu_gmm.batch_bank_avg_loglik_reference(*plain)
+    for fn in (gpu_gmm.batch_bank_avg_loglik, gpu_gmm.batch_scores):
+        got, counts = moved(lambda: fn(bank, x, mask))
+        assert counts == {"LAUNCHES": 1, "TENSOR_LAUNCHES": 1}
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+    op = bank.scoring_plan(gpu_gmm._make_plan).tensor
+    assert op.shape == (3, 4, 128 * 10 + 8)
+    moved(lambda: gpu_gmm.batch_bank_avg_loglik(bank, x, mask))
+    assert bank.scoring_plan(gpu_gmm._make_plan).tensor is op  # cached
+    wide = _k2_case(2, 8, 132, [40, 17], 40, 8)
+    got, counts = moved(lambda: gpu_gmm.batch_bank_avg_loglik(
+        *cuda(*wide)))
+    assert counts == {"LAUNCHES": 1}
+    np.testing.assert_allclose(
+        got.numpy(), gpu_gmm.batch_bank_avg_loglik_reference(*wide).numpy(),
+        rtol=1e-5, atol=1e-5)
+    _, counts = moved(lambda: gpu_gmm.batch_bank_avg_loglik(
+        bank, x, mask, precision="bf16"))
+    assert counts == {"BF16_LAUNCHES": 1}
+    x1, m1 = x[0].as_subclass(_CudaTyped), mask[0].as_subclass(_CudaTyped)
+    _, counts = moved(lambda: gpu_gmm.bank_avg_loglik(bank, x1, m1))
+    assert counts == {"SERIAL_LAUNCHES": 1}
+    _, counts = moved(lambda: gpu_gmm.bank_sum_loglik(bank, x1, m1,
+                                                      precision="bf16"))
+    assert counts == {"SERIAL_BF16_LAUNCHES": 1}
+    assert fake.recorded == ["srt_bank_avg_loglik_bf16",
+                             "srt_bank_sum_loglik",
+                             "srt_bank_sum_loglik_bf16"]

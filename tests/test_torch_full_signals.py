@@ -522,6 +522,145 @@ def test_tf32_split_projection_holds_the_gates():
                            one, want)))
 
 
+def _tensor_core_add(c, a, b):
+    """One mma.sync on the tensor cores' adder (tests/cuda_standin/
+    cuda_runtime.h): c [n, m] f32 plus a [n, 8] @ b [8, m] (TF32 values),
+    the products exact, c and the 8 products aligned to the largest of
+    them and each cut toward zero below that one's 24th bit, summed, the
+    sum cut toward zero to f32."""
+    terms = torch.cat([c.double()[:, None],
+                       a.double()[:, :, None] * b.double()[None]], 1)
+    top = torch.frexp(terms)[1].masked_fill(terms == 0, -1000).amax(
+        1, keepdim=True)  # -1000: all zero, the sum 0
+    unit = torch.ldexp(torch.ones_like(top, dtype=torch.float64), top - 24)
+    s = (torch.trunc(terms / unit) * unit).sum(1)
+    r = s.float()
+    over = r.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _k2_logp(X, op, cw, terms, carried=False):
+    """csrc/gmm_score.cu's tensor-route product at d <= 40 modelled on the
+    tensor cores' adder: logp [frames, S*K] f32 of the frames X [n, d]
+    under op [2d, S*K], cw [S*K] (f32), x^2 formed in f32; per 8-deep
+    k-step each of the split products `terms` (of lo.hi, hi.lo, hi.hi) in
+    turn into one accumulator from zero, cw added at the end in f32, as
+    the kernel does (one part); carried=True: the accumulator starts at
+    cw (the design the kernel's parts replaced)."""
+    Z = np.concatenate([X * X, X], 1).astype(np.float32)
+    ks = -(-Z.shape[1] // 8)
+    Z = np.pad(Z, ((0, 0), (0, 8 * ks - Z.shape[1])))
+    B = np.pad(op, ((0, 8 * ks - op.shape[0]), (0, 0)))
+    Zh, Bh = _tf32(Z), _tf32(B)
+    split = {"lo.hi": (_tf32(Z - Zh), Bh), "hi.lo": (Zh, _tf32(B - Bh)),
+             "hi.hi": (Zh, Bh)}
+    split = {k: (torch.from_numpy(a), torch.from_numpy(b))
+             for k, (a, b) in split.items()}
+    cwt = torch.from_numpy(cw).expand(len(Z), len(cw))
+    acc = cwt.clone() if carried else torch.zeros_like(cwt)
+    for k in range(ks):
+        sl = slice(8 * k, 8 * k + 8)
+        for name in terms:
+            a, b = split[name]
+            acc = _tensor_core_add(acc, a[:, sl], b[sl])
+    return (acc if carried else acc + cwt).numpy()
+
+
+def _k2_avg(logp, mask, S):
+    """The floored logsumexp over each speaker's components and the masked
+    mean, float64: [B, S] of logp [B * T, S*K], mask [B, T]."""
+    B, T = mask.shape
+    lp = logp.astype(np.float64).reshape(B, T, S, -1)
+    m = lp.max(-1)
+    lse = m + np.log(np.exp(lp - m[..., None]).sum(-1))
+    lse = np.where(lse > -745.0, lse, np.log(1e-15))
+    w = mask.astype(np.float64)
+    return (lse * w[..., None]).sum(1) / np.maximum(w.sum(1), 1.0)[:, None]
+
+
+@pytest.mark.parametrize("config", ["tel8k-gmm32-s80", "wb48k-gmm32-s4"])
+def test_tf32_split_bank_scores_hold_the_limit(config):
+    """The batched scoring of csrc/gmm_score.cu's tensor route modelled on
+    the tensor cores' adder (_k2_logp: both operands split as hi = tf32(x),
+    lo = tf32(x - hi), per 8-deep k-step lo.hi, hi.lo, hi.hi into one
+    accumulator from zero, each mma.sync aligning and cutting its terms as
+    the card does, cw added in f32 at the end), then the floored logsumexp
+    and the masked mean in float64 (the card's f32 mean adds ~1.5e-5 to
+    every route, the FP32 one too): each benchmark configuration's
+    bank (80 x 32 or 4 x 32, d = 38, drawn as its file's `bank` says)
+    against the CMVN'd features of two synthetic voices at the
+    configuration's rate (their own extractor's features: MFCC 15 of 55
+    filters + LPC 23), with a frame 4 from every mean in each dimension
+    (terms of O(100-1000) that cancel) and one 40 away (under the -745
+    floor), a third utterance half masked. Held to the float64 average
+    log-likelihoods of the same f32 operands within 1e-3 (the benchmark
+    cells' score_err limit), within chip_smoke.py's SCORE_RTOL (the card's
+    K2 against its plain version) and within its TENSOR_F64_ATOL (the
+    card's tensor route against float64); one TF32 term (hi.hi) must lie
+    at least TENSOR_APART of those gates away, and the three terms in
+    accumulators started at cw (an earlier design: the adder then cuts
+    every product at the ulp of a sum of O(50-200)) several times further
+    than from zero. Prints all three distances."""
+    import json
+    import os
+    import re
+
+    from perfbench.harness import feature_config
+    from speaker_recognition_tpu_torch.models.gmm import GmmBank
+    from speaker_recognition_tpu_torch.testdata import synth
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "perfbench", "configs",
+                           config + ".json")) as f:
+        c = json.load(f)
+    with open(os.path.join(root, "chip_smoke.py")) as f:
+        src = f.read()
+    score_rtol, f64_atol, apart = (
+        float(re.search(rf"^{name} = (\S+)$", src, re.M)[1])
+        for name in ("SCORE_RTOL", "TENSOR_F64_ATOL", "TENSOR_APART"))
+    b = c["bank"]
+    S, K, d = b["speakers"], b["components"], b["dim"]
+    rng = np.random.RandomState(K + S)
+    w = np.exp(rng.randn(S, K))
+    bank = GmmBank.from_numpy(
+        (w / w.sum(-1, keepdims=True)).astype(np.float32),
+        (rng.randn(S, K, d) * b["means_std"]).astype(np.float32),
+        (b["sigma_min"] + (b["sigma_max"] - b["sigma_min"])
+         * rng.rand(S, K, d)).astype(np.float32), "cpu")
+    fs = c["fs"]
+    sig = np.stack([synth.synth_utterance(who, 1.0, 3, fs)
+                    for who in ("alice", "bob", "carol")]).astype(np.float32)
+    X, mask = text.extract_batch(torch.from_numpy(sig),
+                                 torch.full((3,), sig.shape[1]), fs,
+                                 feature_config(c["features"]))
+    X, mask = X.numpy().copy(), mask.numpy().copy()
+    assert X.shape[-1] == d and mask.all()
+    X[0, 5] = 4.0 + bank.op[d:].T.reshape(S, K, d).numpy().max()
+    X[1, 7] = 40.0
+    mask[2, mask.shape[1] // 2:] = False
+    op, cw = bank.op.numpy(), bank.cw.numpy()
+    flat = X.reshape(-1, d)
+    exact = _k2_avg(flat.astype(np.float64) ** 2 @ op[:d].astype(np.float64)
+                    + flat.astype(np.float64) @ op[d:].astype(np.float64)
+                    + cw.astype(np.float64), mask, S)
+    logp = _k2_logp(flat, op, cw, ("lo.hi", "hi.lo", "hi.hi"))
+    assert (logp.reshape(len(X), -1, S * K)[1, 7] < -745.0).all()
+    got = _k2_avg(logp, mask, S)
+    one = _k2_avg(_k2_logp(flat, op, cw, ("hi.hi",)), mask, S)
+    carried = _k2_avg(_k2_logp(flat, op, cw, ("lo.hi", "hi.lo", "hi.hi"),
+                               carried=True), mask, S)
+    err, err_one, err_carried = (np.abs(v - exact).max()
+                                 for v in (got, one, carried))
+    print(f"{config}: 3xTF32 against float64 {err:.2e}, carried from cw "
+          f"{err_carried:.2e}, one TF32 term (hi.hi) {err_one:.2e} (limits "
+          f"1e-3, {f64_atol:g})")
+    assert np.isfinite(got).all()
+    assert err <= min(1e-3, f64_atol)
+    np.testing.assert_allclose(got, exact, rtol=score_rtol, atol=0)
+    assert err_one >= apart * f64_atol
+    assert err_carried > 4 * err
+
+
 def _voice_factor():
     """chip_smoke.py's VOICE_FACTOR (phase 20's rule on the voice)."""
     import os

@@ -411,6 +411,11 @@ class _FakeLib(_TileShapes):
     def srt_bank_warp_frames(d):
         return 64
 
+    @staticmethod
+    def srt_bank_tensor_row(d):
+        """csrc/gmm_score.cu's tensor route: 2d <= 256."""
+        return 128 * -(-2 * d // 8) + 8 if 1 <= d <= 128 else -1
+
 
 def test_the_wrappers_take_a_batch_and_a_bank_past_65535(monkeypatch):
     """K1 and K2 with 70,000 utterances and K3 with 70,000 speakers go to
